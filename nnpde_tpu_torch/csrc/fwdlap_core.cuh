@@ -1,0 +1,392 @@
+// Shared per-tile device routines of the fused loss+grad kernels.
+//
+// Replaces nnpde_tpu/kernels/fwdlap_pallas.py::_fwd_recompute and
+// ::_reverse_sweep (with _act_pack / _nl_bwd_pack): the forward-Laplacian
+// recurrence of an MLP carried over a tile of T points, and the reverse
+// sweep from per-point cotangents of the last hidden stage's streams down to
+// the summed dW/db.
+//
+// Layout.  A block owns one tile at a time.  The streams of one stage sit in
+// shared memory as buf[(s*T + p)*wmax + j]: stream s (0 = value, 1..d = the
+// input-Jacobian rows, d+1 = Laplacian when carried), point p, neuron j.
+// Every linear layer is then one (S*T, w_in) x (w_in, w_out) product over
+// all streams at once (the TPU kernels' concat_streams form).
+//
+// Bound.  Compute-bound: per point the step does 3*(d+2)*sum(n_in*n_out)
+// multiply-adds against 32 bytes of input (X and coefficients).  This
+// version runs fp32 FFMA on CUDA cores from shared memory: each thread owns
+// a 4 x 4 register tile of every product (mm_rows, accum_dW), reading
+// 128-bit words, and the weights of one layer are staged in shared memory
+// (cp.async forward, a transposed copy for the backward).  At 4 x 4 the
+// shared-memory reads per FMA are about the limit of the SM's shared-memory
+// bandwidth; tensor cores (3xTF32 to keep the 1e-5 bar) are later work.
+//
+// Saved state.  The reverse sweep needs each hidden stage's pre-activation
+// streams (v, J_1..J_d, l); the activation pack and the mid streams are
+// recomputed from them.  The last stage's stay in shared memory; the earlier
+// stages' go to a per-block slice of global scratch, (K-2)*S*T*wmax floats,
+// written once in the forward and copied back with cp.async in the reverse
+// sweep (mostly L2 resident).  Keeping them on chip is the traffic a later
+// version removes.
+//
+// Determinism.  dW/db and the loss sums are accumulated into the block's own
+// row of a partial buffer; each element is always updated by the same thread
+// in the same tile order, in-block reductions use fixed trees, and a second
+// kernel sums the rows in a fixed order.  No atomics: two launches on the
+// same inputs are bitwise equal.
+#pragma once
+
+#include <cuda_pipeline.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace fwdlap {
+
+constexpr int NT = 256;          // threads per block
+constexpr int MAX_LAYERS = 16;   // weight matrices
+constexpr int MAX_DIM = 16;      // input dimension
+constexpr int MAX_WIDTH = 128;   // hidden width
+
+enum Act { ACT_SIN = 0, ACT_TANH = 1, ACT_GELU = 2 };
+
+struct Net {
+  int K;                      // number of weight matrices
+  int w[MAX_LAYERS + 1];      // layer sizes: w[0] = d, w[K] = 1
+  int off[MAX_LAYERS];        // flat offset of W_k; b_k follows W_k
+  int act;
+  int d;
+  int S;                      // streams: d + 2 with the Laplacian, else d + 1
+  int lap;                    // 1 when the Laplacian stream is carried
+  int wmax;                   // widest hidden layer
+  int P;                      // flat parameter count
+};
+
+struct Pack { float s0, s1, s2, s3; };
+
+// (s, s', s'', s''') with the fewest transcendentals (_act_pack).
+__device__ __forceinline__ Pack act_pack(int act, float v) {
+  Pack r;
+  if (act == ACT_SIN) {
+    float s, c;
+    sincosf(v, &s, &c);
+    r.s0 = s; r.s1 = c; r.s2 = -s; r.s3 = -c;
+  } else if (act == ACT_TANH) {
+    float t = tanhf(v);
+    float u = 1.0f - t * t;
+    r.s0 = t; r.s1 = u; r.s2 = -2.0f * t * u; r.s3 = u * (6.0f * t * t - 2.0f);
+  } else {
+    const float inv_sqrt2pi = 0.3989422804014327f;
+    float pdf = inv_sqrt2pi * expf(-0.5f * v * v);
+    float cdf = 0.5f * (1.0f + erff(v * 0.7071067811865476f));
+    r.s0 = v * cdf; r.s1 = cdf + v * pdf; r.s2 = (2.0f - v * v) * pdf;
+    r.s3 = (v * v * v - 4.0f * v) * pdf;
+  }
+  return r;
+}
+
+__device__ __forceinline__ float lane(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// acc[q][c] += a[q].(kk) * w.(c) for a 4 x 4 register tile.
+__device__ __forceinline__ void fma_tile(float (&acc)[4][4], const float4 (&a)[4],
+                                         int kk, const float4& w) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float s = lane(a[q], kk);
+    acc[q][0] = fmaf(s, w.x, acc[q][0]);
+    acc[q][1] = fmaf(s, w.y, acc[q][1]);
+    acc[q][2] = fmaf(s, w.z, acc[q][2]);
+    acc[q][3] = fmaf(s, w.w, acc[q][3]);
+  }
+}
+
+// out[r][j] = sum_k in[r][k] * W[k][j] (+ bias[j] for r < bias_rows).
+// rows, kdim, ncols, ld_in, ld_out all multiples of 4.  Each item is a
+// 4-row x 4-column register tile: per 4 k's it reads 4 + 4 float4s from
+// shared memory for 64 FMAs (the row reads are warp broadcasts).
+__device__ __forceinline__ void mm_rows(const float* __restrict__ in, int ld_in,
+                                        int rows, int kdim,
+                                        const float* __restrict__ W, int ncols,
+                                        float* __restrict__ out, int ld_out,
+                                        const float* __restrict__ bias,
+                                        int bias_rows) {
+  const int cg = ncols >> 2;
+  const int items = (rows >> 2) * cg;
+  for (int it = threadIdx.x; it < items; it += NT) {
+    const int rg = it / cg;
+    const int r0 = rg << 2;
+    const int j0 = (it - rg * cg) << 2;
+    float acc[4][4] = {};
+    for (int k = 0; k < kdim; k += 4) {
+      float4 a[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        a[q] = *reinterpret_cast<const float4*>(in + (r0 + q) * ld_in + k);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        fma_tile(acc, a, kk,
+                 *reinterpret_cast<const float4*>(W + (k + kk) * ncols + j0));
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float4 o = make_float4(acc[q][0], acc[q][1], acc[q][2], acc[q][3]);
+      if (bias != nullptr && r0 + q < bias_rows) {
+        o.x += bias[j0]; o.y += bias[j0 + 1]; o.z += bias[j0 + 2]; o.w += bias[j0 + 3];
+      }
+      *reinterpret_cast<float4*>(out + (r0 + q) * ld_out + j0) = o;
+    }
+  }
+}
+
+// Mid streams (A, Jmid, lmid) of one stage from its pre-activation streams.
+// Reads pre from `src`, writes mid to `dst` (may alias), optionally copies
+// the pre streams to `save` (same layout).
+__device__ __forceinline__ void stage_mid(const Net& net, int T, int width,
+                                          const float* src, float* dst,
+                                          float* save) {
+  const int d = net.d, ld = net.wmax;
+  for (int it = threadIdx.x; it < T * width; it += NT) {
+    const int p = it / width, j = it - p * width;
+    const float v = src[p * ld + j];
+    const Pack pk = act_pack(net.act, v);
+    if (save) save[p * ld + j] = v;
+    dst[p * ld + j] = pk.s0;
+    float q = 0.f;
+    for (int i = 0; i < d; ++i) {
+      const int o = ((1 + i) * T + p) * ld + j;
+      const float Ji = src[o];
+      if (save) save[o] = Ji;
+      q = fmaf(Ji, Ji, q);
+      dst[o] = pk.s1 * Ji;
+    }
+    if (net.lap) {
+      const int o = ((d + 1) * T + p) * ld + j;
+      const float l = src[o];
+      if (save) save[o] = l;
+      dst[o] = pk.s1 * l + pk.s2 * q;
+    }
+  }
+}
+
+// Copy n floats (n % 4 == 0, both sides 16-byte aligned) from global to
+// shared memory with cp.async: every thread's copies are in flight at once.
+// Completes at copy_wait().
+__device__ __forceinline__ void copy_async(float* dst, const float* src, int n) {
+  for (int f = threadIdx.x * 4; f < n; f += NT * 4)
+    __pipeline_memcpy_async(dst + f, src + f, 16);
+  __pipeline_commit();
+}
+
+__device__ __forceinline__ void copy_wait() { __pipeline_wait_prior(0); }
+
+// Wt[j][i] = W[i][j] for a (wi, wo) row-major matrix in global memory
+// (wo % 4 == 0): four float4 loads in flight per thread, scattered stores.
+__device__ __forceinline__ void load_transposed(float* Wt, const float* W, int wi,
+                                                int wo) {
+  const int n4 = (wi * wo) >> 2;
+  const float4* W4 = reinterpret_cast<const float4*>(W);
+  for (int f0 = threadIdx.x; f0 < n4; f0 += 4 * NT) {
+    float4 v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (f0 + u * NT < n4) v[u] = W4[f0 + u * NT];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int f = f0 + u * NT;
+      if (f < n4) {
+        const int i = (4 * f) / wo, j = 4 * f - i * wo;
+        Wt[j * wi + i] = v[u].x;
+        Wt[(j + 1) * wi + i] = v[u].y;
+        Wt[(j + 2) * wi + i] = v[u].z;
+        Wt[(j + 3) * wi + i] = v[u].w;
+      }
+    }
+  }
+}
+
+// Forward recompute over one tile.  xs: (T, d) points in shared memory.
+// On return `cur` holds the mid streams of the last hidden stage, `last`
+// (shared) its pre-activation streams, and the scratch slice the earlier
+// stages' pre-activation streams.
+__device__ void fwd_recompute(const Net& net, int T, const float* __restrict__ xs,
+                              const float* __restrict__ params, float*& cur,
+                              float*& nxt, float* last, float* Wsh, float* scratch) {
+  const int d = net.d, ld = net.wmax, S = net.S;
+  const int stage_sz = S * T * ld;
+  {  // input layer: v = x W0 + b0; J_i = W0[i, :]; l = 0
+    const int w1 = net.w[1];
+    const float* W0 = params + net.off[0];
+    const float* b0 = W0 + d * w1;
+    for (int it = threadIdx.x; it < T * w1; it += NT) {
+      const int p = it / w1, j = it - p * w1;
+      float v = 0.f;
+      for (int i = 0; i < d; ++i) v = fmaf(xs[p * d + i], W0[i * w1 + j], v);
+      cur[p * ld + j] = v + b0[j];
+      for (int i = 0; i < d; ++i) cur[((1 + i) * T + p) * ld + j] = W0[i * w1 + j];
+      if (net.lap) cur[((d + 1) * T + p) * ld + j] = 0.f;
+    }
+  }
+  __syncthreads();
+  for (int k = 1; k < net.K; ++k) {
+    const int wk = net.w[k];
+    const bool final_stage = k == net.K - 1;
+    if (!final_stage) copy_async(Wsh, params + net.off[k], wk * net.w[k + 1]);
+    stage_mid(net, T, wk, cur, cur,
+              final_stage ? last : scratch + (k - 1) * stage_sz);
+    if (final_stage) break;
+    const int wn = net.w[k + 1];
+    const float* Wk = params + net.off[k];
+    copy_wait();
+    __syncthreads();
+    mm_rows(cur, ld, S * T, wk, Wsh, wn, nxt, ld, Wk + wk * wn, T);
+    __syncthreads();
+    float* t = cur; cur = nxt; nxt = t;
+  }
+  __syncthreads();
+}
+
+// Backward through one stage's nonlinearity (_nl_bwd_pack).  pre: the
+// stage's saved pre-activation streams; dmid: cotangents of its mid streams
+// (or null: rank-1 final stage, dmid = ct[s][p] * wl[j]); dpre: output.
+__device__ __forceinline__ void stage_bwd(const Net& net, int T, int width,
+                                          const float* pre, const float* dmid,
+                                          const float* ct, const float* wl,
+                                          float* dpre) {
+  const int d = net.d, ld = net.wmax;
+  for (int it = threadIdx.x; it < T * width; it += NT) {
+    const int p = it / width, j = it - p * width;
+    const Pack pk = act_pack(net.act, pre[p * ld + j]);
+    const float wj = dmid ? 0.f : wl[j];
+    const float dA = dmid ? dmid[p * ld + j] : ct[p] * wj;
+    float dv = pk.s1 * dA;
+    float dq = 0.f;
+    if (net.lap) {
+      const int o = ((d + 1) * T + p) * ld + j;
+      const float dlm = dmid ? dmid[o] : ct[(d + 1) * T + p] * wj;
+      float q = 0.f;
+      for (int i = 0; i < d; ++i) {
+        const float Ji = pre[((1 + i) * T + p) * ld + j];
+        q = fmaf(Ji, Ji, q);
+      }
+      dpre[o] = pk.s1 * dlm;
+      dq = pk.s2 * dlm;
+      dv += (pk.s2 * pre[o] + pk.s3 * q) * dlm;
+    }
+    for (int i = 0; i < d; ++i) {
+      const int o = ((1 + i) * T + p) * ld + j;
+      const float Ji = pre[o];
+      const float dJm = dmid ? dmid[o] : ct[(1 + i) * T + p] * wj;
+      dv += pk.s2 * Ji * dJm;
+      dpre[o] = pk.s1 * dJm + 2.0f * Ji * dq;
+    }
+    dpre[p * ld + j] = dv;
+  }
+}
+
+// dW[i][j] += sum_r M[r][i] * D[r][j] over rows r < rows; db[j] += sum over
+// the value rows (r < T) of D.  wi, wo multiples of 4; each item is a 4 x 4
+// register tile of dW: two float4 reads per row feed 16 FMAs.
+__device__ __forceinline__ void accum_dW(int rows, int T, int ld, int wi, int wo,
+                                         const float* M, const float* D,
+                                         float* dW, float* db) {
+  const int jgs = wo >> 2;
+  for (int it = threadIdx.x; it < (wi >> 2) * jgs; it += NT) {
+    const int ig = it / jgs;
+    const int i0 = ig << 2, j0 = (it - ig * jgs) << 2;
+    float acc[4][4] = {};
+    for (int r = 0; r < rows; ++r) {
+      const float4 m = *reinterpret_cast<const float4*>(M + r * ld + i0);
+      const float4 dv = *reinterpret_cast<const float4*>(D + r * ld + j0);
+      const float4 a[4] = {make_float4(m.x, 0.f, 0.f, 0.f), make_float4(m.y, 0.f, 0.f, 0.f),
+                           make_float4(m.z, 0.f, 0.f, 0.f), make_float4(m.w, 0.f, 0.f, 0.f)};
+      fma_tile(acc, a, 0, dv);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float* row = dW + (i0 + q) * wo + j0;
+      row[0] += acc[q][0]; row[1] += acc[q][1]; row[2] += acc[q][2]; row[3] += acc[q][3];
+    }
+  }
+  for (int j = threadIdx.x; j < wo; j += NT) {
+    float s = 0.f;
+    for (int p = 0; p < T; ++p) s += D[p * ld + j];
+    db[j] += s;
+  }
+}
+
+// Reverse sweep over one tile.  On entry `cur` holds the last stage's mid
+// streams, `pre` (shared) its pre-activation streams, and ct = [ct_v (T) |
+// ct_g (d*T) | ct_l (T)] the per-point cotangents of the projected (value,
+// grad, lap).  Each earlier stage's pre-activations are copied back into
+// `pre` before use.  Accumulates dW/db into the block's partial row `grow`
+// (flat parameter layout).
+__device__ void reverse_sweep(const Net& net, int T, const float* __restrict__ xs,
+                              const float* __restrict__ params, float* cur,
+                              float* nxt, float* pre, float* Wsh,
+                              const float* scratch, const float* ct, float* red,
+                              float* grow) {
+  const int d = net.d, ld = net.wmax, S = net.S, K = net.K;
+  const int stage_sz = S * T * ld;
+  const int wl = net.w[K - 1];
+  const float* wlast = params + net.off[K - 1];
+  // dWlast[j] += sum_r mid[r][j] * ct[r] over the S*T rows r = (s, p):
+  // `parts` threads per column, each over every parts-th row, then the
+  // partial sums are added in a fixed order
+  const int parts = NT / wl;
+  if (threadIdx.x < parts * wl) {
+    const int j = threadIdx.x % wl, c = threadIdx.x / wl;
+    float acc = 0.f;
+    for (int r = c; r < S * T; r += parts) acc = fmaf(cur[r * ld + j], ct[r], acc);
+    red[threadIdx.x] = acc;
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < wl; j += NT) {
+    float acc = 0.f;
+    for (int c = 0; c < parts; ++c) acc += red[c * wl + j];
+    grow[net.off[K - 1] + j] += acc;
+  }
+  // last stage: mid cotangent is rank one, ct * wlast
+  stage_bwd(net, T, wl, pre, nullptr, ct, wlast, nxt);
+  __syncthreads();
+  float* D = nxt;     // cotangent of stage k+1's pre-activation streams
+  float* M = cur;
+  for (int k = K - 2; k >= 1; --k) {
+    const int wk = net.w[k], wn = net.w[k + 1];
+    copy_async(pre, scratch + (k - 1) * stage_sz, stage_sz);
+    load_transposed(Wsh, params + net.off[k], wk, wn);
+    copy_wait();
+    __syncthreads();
+    stage_mid(net, T, wk, pre, M, nullptr);
+    __syncthreads();
+    float* dW = grow + net.off[k];
+    accum_dW(S * T, T, ld, wk, wn, M, D, dW, dW + wk * wn);
+    __syncthreads();
+    mm_rows(D, ld, S * T, wn, Wsh, wk, M, ld, nullptr, 0);   // dmid = D W^T
+    __syncthreads();
+    stage_bwd(net, T, wk, pre, M, nullptr, nullptr, D);
+    __syncthreads();
+  }
+  // input layer: v = x W0 + b0, J_i = W0[i, :]
+  const int w1 = net.w[1];
+  float* dW0 = grow + net.off[0];
+  // dW0[i][j] += sum_p x[p][i] dv[p][j] + sum_p dJ_i[p][j]; db0 = row d
+  for (int it = threadIdx.x; it < (d + 1) * w1; it += NT) {
+    const int i = it / w1, j = it - i * w1;
+    float acc = 0.f;
+    if (i < d) {
+      float sj = 0.f;
+      for (int p = 0; p < T; ++p) {
+        acc = fmaf(xs[p * d + i], D[p * ld + j], acc);
+        sj += D[((1 + i) * T + p) * ld + j];
+      }
+      acc += sj;
+    } else {
+      for (int p = 0; p < T; ++p) acc += D[p * ld + j];
+    }
+    dW0[it] += acc;
+  }
+  __syncthreads();
+}
+
+}  // namespace fwdlap

@@ -1,0 +1,387 @@
+"""Fused PINN / Deep-Ritz loss + parameter gradients in one pass.
+
+Counterpart of ``nnpde_tpu/kernels/fused_step.py``.  Every strong-form
+residual loss is ``w * mean(r^2)`` with ``r`` linear in the jet of the raw
+network; with ``u = B * net`` the trial factor and the physics enter as
+per-point coefficients:
+
+    r_i = c_i * net_i + sum_j b_ij * dnet_ij + a_i * lap(net)_i + rhs_i
+
+Coefficient layout per point (``nc = d + 4``): ``[c, b_0..b_{d-1}, a, rhs,
+e]``; the kernel also sums ``r * e * net`` (the trainable-eigenvalue seed).
+The Deep-Ritz energy ``1/2 |grad u|^2 - f u`` takes ``[B, dB_0.., f]``.
+
+Each entry point returns ``(loss, aux, grads)`` with ``grads`` in the
+params layout ``[(dW, db), ...]``; the last-bias gradient is
+``scale * sum(ct_v)``.
+
+Where it runs: a CUDA tensor goes to the hand-written kernels of
+``csrc/fused_step.cu`` (float32; anything else raises), a CPU tensor to the
+plain version beside it, which differentiates the forward-Laplacian
+recurrence (:func:`~nnpde_tpu_torch.ops.fwdlap.mlp_fwdlap`) with
+``torch.autograd`` in any dtype.  The plain versions take any device when
+called directly; ``chip_smoke.py`` holds the kernels to them on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Sequence
+
+import torch
+
+from ..ops.fwdlap import mlp_fwdlap
+
+# Launches of each kernel: incremented where the wrapper launches it, and
+# nowhere else.  Reset with reset_launches().
+LAUNCHES = {
+    "fused_linear_residual": 0,
+    "fused_poisson_analytic": 0,
+    "fused_drm_energy": 0,
+}
+
+_MODES = {"fused_linear_residual": 0, "fused_poisson_analytic": 1,
+          "fused_drm_energy": 2}
+_ACTS = {"sin": 0, "tanh": 1, "gelu": 2}
+_NT = 256
+_MAX_LAYERS, _MAX_DIM, _MAX_WIDTH = 16, 16, 128
+_SMEM_CAP = 160 * 1024
+_TILE = 16          # points per tile (halved until shared memory fits)
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------- coefficients
+def residual_coefficients(factor_jet, *, c0=None, b0=None, a0=1.0, rhs=None,
+                          e_lane=False):
+    """The (N, d+4) coefficient stream for ``r = a0 lap(u) + b0.grad(u) +
+    c0 u + rhs`` acting on ``u = B * net``: ``a = a0 B``, ``b_j = 2 a0 dB_j
+    + b0_j B``, ``c = a0 lapB + b0.gradB + c0 B``; ``e_lane`` puts B in e."""
+    B, gB, lB = factor_jet.value, factor_jet.grad, factor_jet.lap
+    N, d = gB.shape
+
+    def full(x, shape):
+        return torch.broadcast_to(torch.as_tensor(x, dtype=B.dtype, device=B.device), shape)
+
+    zero = torch.zeros((N,), dtype=B.dtype, device=B.device)
+    c0v = zero if c0 is None else full(c0, (N,))
+    a0v = full(a0, (N,))
+    rhsv = zero if rhs is None else full(rhs, (N,))
+    b0v = (torch.zeros((N, d), dtype=B.dtype, device=B.device) if b0 is None
+           else full(b0, (N, d)))
+    a = a0v * B
+    b = a0v[:, None] * 2.0 * gB + b0v * B[:, None]
+    c = a0v * lB + torch.sum(b0v * gB, dim=1) + c0v * B
+    e = B if e_lane else zero
+    return torch.cat([c[:, None], b, a[:, None], rhsv[:, None], e[:, None]], dim=1)
+
+
+def drm_coefficients(factor_jet, f=None):
+    """(N, d+2) coefficients of the fused DRM energy: ``[B, dB_0.., f]``."""
+    B, gB = factor_jet.value, factor_jet.grad
+    N = B.shape[0]
+    fv = (torch.zeros((N,), dtype=B.dtype, device=B.device) if f is None
+          else torch.broadcast_to(torch.as_tensor(f, dtype=B.dtype, device=B.device), (N,)))
+    return torch.cat([B[:, None], gB, fv[:, None]], dim=1)
+
+
+class PoissonSinCoef:
+    """In-kernel coefficients of the box-FBC prod-sin Poisson family
+    (``_poisson_sin_coef_builder``): ``r = a0 lap(u) + rhs`` with ``u = B
+    net``, ``B = prod x_i (L - x_i)`` and ``rhs = -f``, ``f = sum_i (k_i
+    pi/L)^2 prod_i sin(k_i pi x_i / L)``.  Calling it on an (N, d) tile
+    gives ``(c, [b_0..b_{d-1}], a, rhs)`` (the plain version); the CUDA
+    kernel evaluates the same closed form from ``L``, ``ks`` and ``a0``."""
+
+    def __init__(self, L: float, ks: Sequence[int], a0: float = -1.0):
+        self.L = float(L)
+        self.ks = tuple(float(k) for k in ks)
+        self.a0 = float(a0)
+
+    def __call__(self, X):
+        L, a0, d = self.L, self.a0, X.shape[1]
+        cols = [X[:, i] for i in range(d)]
+        gi = [x * (L - x) for x in cols]
+
+        def prod_except(i):
+            p = torch.ones_like(cols[0])
+            for j in range(d):
+                if j != i:
+                    p = p * gi[j]
+            return p
+
+        B = gi[0]
+        for j in range(1, d):
+            B = B * gi[j]
+        dB = [(L - 2.0 * cols[i]) * prod_except(i) for i in range(d)]
+        lapB = sum(-2.0 * prod_except(i) for i in range(d))
+        s = None
+        for i in range(d):
+            si = torch.sin((self.ks[i] * math.pi / L) * cols[i])
+            s = si if s is None else s * si
+        f = sum((k * math.pi / L) ** 2 for k in self.ks) * s
+        return a0 * lapB, [2.0 * a0 * dBi for dBi in dB], a0 * B, -f
+
+
+# ---------------------------------------------------------- plain versions
+def _leaves(params):
+    return [(W.detach().requires_grad_(True), b.detach().requires_grad_(True))
+            for W, b in params]
+
+
+def _grads_of(total, leaves):
+    flat = torch.autograd.grad(total, [t for pair in leaves for t in pair])
+    return list(flat[0::2]), list(flat[1::2])
+
+
+def linear_residual_plain(params, X, coef, activation: str):
+    """Plain version of the linear-residual kernel: ``(dWs, dbs, sums)``
+    with ``dW = sum_i r_i dr_i/dW`` (unscaled) and ``sums = [sum r^2,
+    sum r c, sum r e net]``."""
+    d = X.shape[1]
+    with torch.enable_grad():
+        leaves = _leaves(params)
+        jet = mlp_fwdlap(leaves, X, activation)
+        r = (coef[:, 0] * jet.value
+             + torch.sum(coef[:, 1:1 + d] * jet.grad, dim=1)
+             + coef[:, d + 1] * jet.lap + coef[:, d + 2])
+        dWs, dbs = _grads_of(0.5 * torch.sum(r * r), leaves)
+    r, value = r.detach(), jet.value.detach()
+    sums = torch.stack([torch.sum(r * r), torch.sum(r * coef[:, 0]),
+                        torch.sum(r * coef[:, d + 3] * value)])
+    return dWs, dbs, sums
+
+
+def poisson_analytic_plain(params, X, activation: str, coef_fn):
+    """Plain version of the analytic kernel: the linear residual with the
+    coefficients ``coef_fn(X)`` (no extra e lane)."""
+    c, bs, a, rhs = coef_fn(X)
+    coef = torch.stack([c, *bs, a, rhs, torch.zeros_like(c)], dim=1)
+    dWs, dbs, sums = linear_residual_plain(params, X, coef, activation)
+    return dWs, dbs, sums
+
+
+def drm_energy_plain(params, X, coef, activation: str):
+    """Plain version of the DRM kernel: ``dW = d(sum_i e_i)/dW`` and
+    ``sums = [sum e, sum ct_v, 0]`` with ``ct_v = de/dnet``."""
+    d = X.shape[1]
+    B, dB, f = coef[:, 0], coef[:, 1:1 + d], coef[:, d + 1]
+    with torch.enable_grad():
+        leaves = _leaves(params)
+        jet = mlp_fwdlap(leaves, X, activation)
+        G = B[:, None] * jet.grad + dB * jet.value[:, None]
+        e = 0.5 * torch.sum(G * G, dim=1) - f * B * jet.value
+        dWs, dbs = _grads_of(torch.sum(e), leaves)
+    G = G.detach()
+    ctv = torch.sum(G * dB, dim=1) - f * B
+    sums = torch.stack([torch.sum(e.detach()), torch.sum(ctv),
+                        torch.zeros((), dtype=X.dtype, device=X.device)])
+    return dWs, dbs, sums
+
+
+# ------------------------------------------------------------ CUDA launcher
+def _plan(kind: str, layers, T: int):
+    """Shared memory per block for a tile of T points (see fused_step.cu)."""
+    d = layers[0]
+    S = d + (1 if kind == "fused_drm_energy" else 2)
+    wmax = max(layers[1:-1])
+    return 4 * (3 * S * T * wmax + wmax * wmax + T * d + (d + 2) * T + 3 * T
+                + S * T + _NT)
+
+
+_OCCUPANCY = {}
+
+
+def _launch(kind: str, params, X, coef, activation: str, analytic=None):
+    """Launch one fused kernel plus its reduction; returns the flat
+    ``[grads (P) | sums (3)]`` float32 vector."""
+    from . import _build
+
+    lib = _build.load()
+    if activation not in _ACTS:
+        raise ValueError(f"Unknown activation {activation!r}")
+    layers = [params[0][0].shape[0]] + [W.shape[1] for W, _ in params]
+    N, d = X.shape
+    K = len(params)
+    if not (2 <= K <= _MAX_LAYERS and d <= _MAX_DIM and layers[-1] == 1
+            and all(w <= _MAX_WIDTH and w % 4 == 0 for w in layers[1:-1])):
+        raise ValueError(
+            f"fused kernels take 2..{_MAX_LAYERS} layers, d <= {_MAX_DIM}, "
+            f"hidden widths that are multiples of 4 up to {_MAX_WIDTH}, and "
+            f"one output; got layers {layers}")
+    tensors = [X] + ([coef] if coef is not None else []) + [
+        t for pair in params for t in pair]
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"CUDA fused kernels take float32, got {t.dtype}")
+        if t.device != X.device:
+            raise ValueError("X, coef and params must be on one device")
+    if N < 1:
+        raise ValueError("empty batch")
+    X = X.contiguous()
+    flat = torch.cat([t.reshape(-1) for pair in params for t in pair]).contiguous()
+    P = flat.numel()
+    T = _TILE
+    while _plan(kind, layers, T) > _SMEM_CAP and T > 4:
+        T //= 2
+    smem = _plan(kind, layers, T)
+    mode = _MODES[kind]
+    dev = X.device
+    key = (mode, smem, dev.index)
+    if key not in _OCCUPANCY:
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            err = lib.fused_blocks_per_sm(mode, smem, ctypes.addressof(blocks))
+        if err != 0:
+            raise RuntimeError(f"{kind}: occupancy query failed (cuda error {err})")
+        if blocks.value < 1:
+            raise RuntimeError(f"{kind}: {smem} B of shared memory per block does not fit")
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        _OCCUPANCY[key] = blocks.value * sms
+    n_tiles = (N + T - 1) // T
+    G = min(n_tiles, _OCCUPANCY[key])
+    S = d + (1 if kind == "fused_drm_energy" else 2)
+    wmax = max(layers[1:-1])
+    partial = torch.empty((G, P + 3), dtype=torch.float32, device=dev)
+    scratch = torch.empty((G, max(K - 2, 1) * S * T * wmax), dtype=torch.float32,
+                          device=dev)
+    out = torch.empty((P + 3,), dtype=torch.float32, device=dev)
+    lay = (ctypes.c_int * len(layers))(*layers)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    common = (ctypes.addressof(lay), len(layers), _ACTS[activation], N, T, G)
+    tail = (partial.data_ptr(), scratch.data_ptr(), out.data_ptr(), smem, stream)
+    with torch.cuda.device(dev):
+        if kind == "fused_linear_residual":
+            coef = coef.contiguous()
+            err = lib.fused_linear_residual_f32(
+                X.data_ptr(), coef.data_ptr(), flat.data_ptr(), *common, *tail)
+        elif kind == "fused_drm_energy":
+            coef = coef.contiguous()
+            err = lib.fused_drm_energy_f32(
+                X.data_ptr(), coef.data_ptr(), flat.data_ptr(), *common, *tail)
+        else:
+            an = (ctypes.c_float * (3 + d))(*analytic)
+            err = lib.fused_poisson_analytic_f32(
+                X.data_ptr(), flat.data_ptr(), *common,
+                ctypes.addressof(an), *tail)
+    if err != 0:
+        raise RuntimeError(f"{kind}: kernel launch failed (cuda error {err})")
+    LAUNCHES[kind] += 1
+    return out
+
+
+def _unflatten(params, out):
+    dWs, dbs, o = [], [], 0
+    for W, b in params:
+        dWs.append(out[o:o + W.numel()].view(W.shape))
+        o += W.numel()
+        dbs.append(out[o:o + b.numel()].view(b.shape))
+        o += b.numel()
+    return dWs, dbs, out[o:o + 3]
+
+
+def _fused_call(kind, activation, params, X, coef=None, coef_fn=None):
+    """Route one fused step: CUDA tensors to the kernel, CPU tensors to the
+    plain version.  Returns ``(dWs, dbs, sums, N)`` (unscaled sums)."""
+    N = X.shape[0]
+    if X.device.type == "cuda":
+        analytic = None
+        if kind == "fused_poisson_analytic":
+            if not isinstance(coef_fn, PoissonSinCoef):
+                raise NotImplementedError(
+                    "in-kernel coefficients exist for the box-FBC prod-sin "
+                    "Poisson family (PoissonSinCoef) only")
+            d = X.shape[1]
+            if len(coef_fn.ks) != d:
+                raise ValueError(f"ks has {len(coef_fn.ks)} entries for d={d}")
+            L = coef_fn.L
+            analytic = [L, coef_fn.a0, sum((k * math.pi / L) ** 2 for k in coef_fn.ks)]
+            analytic += [k * math.pi / L for k in coef_fn.ks]
+        params = [(W.detach(), b.detach()) for W, b in params]
+        out = _launch(kind, params, X, coef, activation, analytic)
+        dWs, dbs, sums = _unflatten(params, out)
+        return dWs, dbs, sums, N
+    if X.device.type != "cpu":
+        raise ValueError(f"no fused path for device {X.device}")
+    if kind == "fused_linear_residual":
+        dWs, dbs, sums = linear_residual_plain(params, X, coef, activation)
+    elif kind == "fused_drm_energy":
+        dWs, dbs, sums = drm_energy_plain(params, X, coef, activation)
+    else:
+        dWs, dbs, sums = poisson_analytic_plain(params, X, activation, coef_fn)
+    return dWs, dbs, sums, N
+
+
+def _check_coef(X, coef, nc):
+    if coef.shape != (X.shape[0], nc):
+        raise ValueError(f"coef must be (N, {nc}) = ({X.shape[0]}, {nc}), "
+                         f"got {tuple(coef.shape)}")
+
+
+def _scaled_grads(params, dWs, dbs, sums, scale):
+    """Per-point-sum outputs x ``scale``; the last bias gradient is
+    ``scale * sums[1]`` (= scale * sum ct_v)."""
+    db_last = (scale * sums[1]).reshape(params[-1][1].shape)
+    grads = [(scale * dW, scale * db) for dW, db in zip(dWs[:-1], dbs[:-1])]
+    grads.append((scale * dWs[-1], db_last))
+    return grads
+
+
+def fused_linear_residual(params, X, coef, activation: str, *,
+                          weight: float = 1.0, dot_dtype: str = "float32"):
+    """``loss = weight * mean(r^2)`` and its parameter gradients in one pass.
+    ``aux['sum_r_ufull'] = sum r e net`` (the trainable-E seed)."""
+    _check_dot(dot_dtype)
+    _check_coef(X, coef, X.shape[1] + 4)
+    dWs, dbs, sums, N = _fused_call("fused_linear_residual", activation,
+                                    params, X, coef=coef)
+    loss = weight * sums[0] / N
+    grads = _scaled_grads(params, dWs, dbs, sums, 2.0 * weight / N)
+    return loss, {"sum_r2": sums[0], "sum_r_ufull": sums[2], "n": N}, grads
+
+
+def fused_drm_energy(params, X, coef, activation: str, *,
+                     weight: float = 1.0, dot_dtype: str = "float32"):
+    """``loss = weight * mean(1/2 |grad u|^2 - f u)`` and its gradients in
+    one pass; ``coef`` from :func:`drm_coefficients`."""
+    _check_dot(dot_dtype)
+    _check_coef(X, coef, X.shape[1] + 2)
+    dWs, dbs, sums, N = _fused_call("fused_drm_energy", activation, params,
+                                    X, coef=coef)
+    loss = weight * sums[0] / N
+    grads = _scaled_grads(params, dWs, dbs, sums, weight / N)
+    return loss, {"sum_e": sums[0], "n": N}, grads
+
+
+def fused_residual_analytic(params, X, activation: str, coef_fn, *,
+                            weight: float = 1.0, dot_dtype: str = "float32"):
+    """Fused residual step with coefficients computed from X.  On the CPU
+    ``coef_fn`` is any ``(N, d) -> (c, [b..], a, rhs)``; the CUDA kernel
+    takes :class:`PoissonSinCoef`."""
+    _check_dot(dot_dtype)
+    dWs, dbs, sums, N = _fused_call("fused_poisson_analytic", activation,
+                                    params, X, coef_fn=coef_fn)
+    loss = weight * sums[0] / N
+    grads = _scaled_grads(params, dWs, dbs, sums, 2.0 * weight / N)
+    return loss, {"sum_r2": sums[0], "n": N}, grads
+
+
+def fused_poisson_analytic(params, X, activation: str, *, L: float,
+                           ks: Sequence[int], weight: float = 1.0,
+                           dot_dtype: str = "float32"):
+    """Fused Poisson PINN step ``weight * mean((-lap u - f)^2)`` for the
+    box-FBC trial and the prod-sin RHS, coefficients built in-kernel."""
+    return fused_residual_analytic(params, X, activation,
+                                   PoissonSinCoef(L, ks, a0=-1.0),
+                                   weight=weight, dot_dtype=dot_dtype)
+
+
+def _check_dot(dot_dtype: str) -> None:
+    if dot_dtype != "float32":
+        raise NotImplementedError(
+            f"dot_dtype={dot_dtype!r}: the port's fused kernels run float32 "
+            "only; bf16 dot modes are ROADMAP queue B work")

@@ -1,0 +1,13 @@
+from .mlp import NetSpec, init_mlp, mlp_apply_batch, mlp_apply_point
+from .solution import SolutionModel
+from .trial import SeparableFactor, factor_for_technique
+
+__all__ = [
+    "NetSpec",
+    "init_mlp",
+    "mlp_apply_batch",
+    "mlp_apply_point",
+    "SolutionModel",
+    "SeparableFactor",
+    "factor_for_technique",
+]

@@ -1,0 +1,77 @@
+"""Solution model = functional MLP composed with an optional trial factor.
+
+Counterpart of ``nnpde_tpu/models/solution.py``: ``u = B * u_raw`` with the
+jet of the product formed analytically from the MLP's forward-Laplacian
+jet and the factor's closed-form jet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..ops import calculus
+from ..ops.fwdlap import Jet, compose_product_jet, mlp_fwdlap
+from .mlp import NetSpec, init_mlp, mlp_apply_batch, mlp_apply_point
+from .trial import SeparableFactor
+
+
+def _no_impl(impl: str):
+    return NotImplementedError(
+        f"impl={impl!r}: this port has impl='torch' only; the jet kernel pair "
+        "(_forward_kernel2/_backward_kernel) arrives with ROADMAP B5")
+
+
+class SolutionModel:
+    """Static model description; parameters live in a separate list."""
+
+    def __init__(self, spec: NetSpec, factor: Optional[SeparableFactor] = None):
+        self.spec = spec
+        self.factor = factor
+        self.dim = spec.layers[0]
+        if factor is not None and factor.dim != self.dim:
+            raise ValueError(
+                f"factor dim {factor.dim} != net input dim {self.dim}"
+            )
+
+    def init(self, gen: torch.Generator, dtype=torch.float32):
+        return init_mlp(gen, self.spec, dtype)
+
+    def apply_point(self, params, x):
+        u = mlp_apply_point(params, x, self.spec.activation)
+        if self.factor is not None:
+            u = u * self.factor.value_point(x)
+        return u
+
+    def apply_batch(self, params, X):
+        u = mlp_apply_batch(params, X, self.spec.activation)
+        if self.factor is not None:
+            u = u * self.factor.value(X)
+        return u
+
+    def fields(self, params, X, impl: str = "torch") -> Jet:
+        """(u, grad u, lap u) over the collocation batch by the
+        forward-Laplacian recurrence."""
+        if impl != "torch":
+            raise _no_impl(impl)
+        jet = mlp_fwdlap(params, X, self.spec.activation)
+        if self.factor is not None:
+            jet = compose_product_jet(jet, self.factor.jet(X))
+        return jet
+
+    def fields_generic(self, params, X) -> Jet:
+        """Oracle for :meth:`fields` by ``torch.func`` autodiff."""
+        u, g, l = calculus.batched_value_grad_lap(
+            lambda x: self.apply_point(params, x)
+        )(X)
+        return Jet(value=u, grad=g, lap=l)
+
+    def value_and_grad(self, params, X, impl: str = "torch"):
+        """(u, grad u) without the Laplacian (DRM paths), by reverse-mode
+        autodiff vmapped over the batch."""
+        if impl != "torch":
+            raise _no_impl(impl)
+        return calculus.batched_value_and_grad_x(
+            lambda x: self.apply_point(params, x)
+        )(X)

@@ -1,0 +1,335 @@
+"""N-D Poisson preset: PINN / DRM on ``[0, L]^d``.
+
+Counterpart of ``nnpde_tpu/problems/poisson.py``, with the same
+:class:`PoissonConfig` fields and defaults:
+
+* methods PINN (strong residual) and DRM (energy); bc modes FBC (hard
+  ``prod x_i (L - x_i)`` trial) and RB (soft penalty on fresh per-face
+  samples each epoch);
+* default weights ``{pde: 1, bc: 1e4 if RB, data: 1e3 if n_data, norm: 0}``;
+* per-epoch eval on fresh uniform points, RMSE vs the manufactured
+  solution, best-state tracking.
+
+``jet_impl``: ``'torch'`` (the forward-Laplacian recurrence under autograd,
+the counterpart of ``'xla'``) or ``'fused'`` (the one-pass CUDA loss+grad
+kernels of :mod:`nnpde_tpu_torch.kernels.fused_step`, the counterpart of
+``'pallas-fused'``; on CPU tensors their plain versions).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from .. import runtime
+from ..kernels import (
+    drm_coefficients,
+    fused_drm_energy,
+    fused_linear_residual,
+    fused_poisson_analytic,
+    residual_coefficients,
+)
+from ..losses import data_mse, drm_poisson_energy, norm_nontrivial, pinn_poisson
+from ..models import NetSpec, SolutionModel, factor_for_technique
+from ..ops.fwdlap import constant_jet
+from ..pde import poisson as phys
+from ..pde.domain import Box
+from ..prng import fold_in, generator, split
+from ..sampling import face_points, shifted_qmc, sobol_unit, uniform_box
+from ..train import fit, make_optimizer
+
+
+@dataclasses.dataclass
+class PoissonConfig:
+    dim: int = 2
+    L: float = 2.0
+    ks: Optional[Sequence[int]] = None       # default [1]*dim
+    method: str = "PINN"                     # PINN | DRM | WAN
+    bc_mode: str = "FBC"                     # FBC | RB
+    bc_type: str = "dirichlet"               # dirichlet | neumann (RB only)
+    solution: str = "sin"                    # manufactured family: sin | cos
+    n_interior: int = 20000
+    n_boundary: int = 4000
+    n_data: int = 0
+    epochs: int = 10000
+    lr: float = 1e-3
+    width: int = 64
+    depth: int = 5
+    critic_width: int = 64
+    critic_depth: int = 3
+    critic_steps: int = 5
+    wan_reg: float = 1.0
+    minimax: str = "alternating"
+    v_lr: Optional[float] = None
+    u_ema: float = 0.0
+    norm_mode: str = "nontrivial"
+    weights: Optional[Dict[str, float]] = None
+    seed: int = 0
+    lr_schedule: str = "constant"   # constant | cosine | exponential
+    compute_dtype: str = "float32"
+    hybrid_bf16_fraction: float = 0.8
+    # 'torch' (recurrence + autograd) | 'fused' (one-pass CUDA kernels)
+    jet_impl: str = "torch"
+    # 'stream' (precomputed (N, d+4) coefficients) | 'analytic' (built
+    # in-kernel from X: PINN + FBC + solution='sin' + jet_impl='fused')
+    coef_mode: str = "stream"
+    resample: bool = False
+    sampler: str = "uniform"
+    n_eval: int = 10000
+    chunk: int = 1000
+
+    def resolved_ks(self) -> Tuple[int, ...]:
+        return tuple(self.ks) if self.ks is not None else (1,) * self.dim
+
+    def resolved_weights(self) -> Dict[str, float]:
+        bc_default = 1e4 if self.bc_mode == "RB" else 0.0
+        if self.bc_mode == "RB" and self.bc_type == "neumann":
+            bc_default = 0.0 if self.method == "DRM" else 100.0
+        w = {
+            "pde": 1.0,
+            "bc": bc_default,
+            "data": 1e3 if self.n_data > 0 else 0.0,
+            "norm": 0.0,
+        }
+        if self.weights:
+            w.update(self.weights)
+        return w
+
+
+def _solution_model(cfg: PoissonConfig) -> SolutionModel:
+    layers = (cfg.dim,) + (cfg.width,) * (cfg.depth - 1) + (1,)
+    if cfg.bc_mode not in ("FBC", "RB"):
+        raise ValueError("bc_mode must be 'FBC' or 'RB'")
+    if cfg.bc_type not in ("dirichlet", "neumann"):
+        raise ValueError("bc_type must be 'dirichlet' or 'neumann'")
+    if cfg.bc_type == "neumann" and cfg.solution != "cos":
+        raise ValueError(
+            "Neumann BCs require the zero-Neumann manufactured family: "
+            "pass solution='cos'"
+        )
+    if cfg.bc_type == "neumann" and cfg.bc_mode == "FBC":
+        raise NotImplementedError(
+            "hard Neumann (FBC + neumann) needs the cosine input map, which "
+            "arrives with ROADMAP A3 (models/inputmap.py)")
+    factor = (factor_for_technique("FBC", dim=cfg.dim, kind="box", L=cfg.L)
+              if cfg.bc_mode == "FBC" else None)
+    return SolutionModel(NetSpec(layers, activation="sin"), factor)
+
+
+def _exact_fns(cfg: PoissonConfig):
+    if cfg.solution == "sin":
+        return phys.exact_u_prod_sin, phys.rhs_f_for_u_sin
+    if cfg.solution == "cos":
+        return phys.exact_u_prod_cos, phys.rhs_f_for_u_cos
+    raise ValueError("solution must be 'sin' or 'cos'")
+
+
+def _validate(cfg: PoissonConfig) -> None:
+    if cfg.method not in ("PINN", "DRM", "WAN"):
+        raise ValueError("method must be one of {'PINN','DRM','WAN'}")
+    if cfg.method == "WAN":
+        raise NotImplementedError(
+            "method='WAN' arrives with ROADMAP A7 (fit_wan, ops/bump.py)")
+    if cfg.compute_dtype not in ("float32", "bfloat16", "hybrid",
+                                 "hybrid-kernel"):
+        raise ValueError("compute_dtype must be 'float32', 'bfloat16', "
+                         "'hybrid' or 'hybrid-kernel'")
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"compute_dtype={cfg.compute_dtype!r}: this port runs float32 "
+            "only; reduced-precision phases are ROADMAP queue B work")
+    if cfg.jet_impl == "pallas":
+        raise NotImplementedError(
+            "jet_impl='pallas' (the jet kernel pair) arrives with ROADMAP B5")
+    if cfg.jet_impl not in ("torch", "fused"):
+        raise ValueError("jet_impl must be 'torch' or 'fused'")
+    if cfg.coef_mode not in ("stream", "analytic"):
+        raise ValueError("coef_mode must be 'stream' or 'analytic'")
+    if cfg.coef_mode == "analytic" and not (
+        cfg.method == "PINN" and cfg.jet_impl == "fused"
+        and cfg.bc_mode == "FBC" and cfg.solution == "sin"
+    ):
+        raise ValueError(
+            "coef_mode='analytic' = in-kernel coefficients for the box-FBC "
+            "prod-sin Poisson PINN — requires method='PINN', "
+            "jet_impl='fused', bc_mode='FBC', solution='sin'"
+        )
+
+
+def train_poisson_nd(cfg: PoissonConfig, device="cuda") -> Dict:
+    """Train the configured Poisson solver; returns the same keys as the
+    JAX entry point (``rel_l2``, ``best_l2``, ``history``, ``result`` ...)."""
+    _validate(cfg)
+    dev = runtime.resolve_device(device)
+    runtime.pin_fp32_precision()
+    chunk = (min(cfg.chunk, runtime.pallas_chunk_cap())
+             if cfg.jet_impl == "fused" else cfg.chunk)
+    ks = cfg.resolved_ks()
+    w = cfg.resolved_weights()
+    w.setdefault("mean", 1.0 if cfg.bc_type == "neumann" else 0.0)
+    box = Box.cube(cfg.dim, 0.0, cfg.L)
+    model = _solution_model(cfg)
+    exact_u, rhs_f = _exact_fns(cfg)
+
+    k_init, k_x, k_data, k_train = split(cfg.seed, 4)
+    params = model.init(generator(k_init, dev))
+
+    if cfg.sampler == "sobol":
+        U_base = sobol_unit(cfg.seed, cfg.n_interior, cfg.dim, device=dev)
+        lo = torch.tensor(box.lo, device=dev)
+        hi = torch.tensor(box.hi, device=dev)
+        X_in = lo + U_base * (hi - lo)
+
+        def draw_interior(key):
+            return shifted_qmc(U_base, generator(key, dev), box)
+
+    elif cfg.sampler == "uniform":
+        X_in = uniform_box(generator(k_x, dev), cfg.n_interior, box)
+
+        def draw_interior(key):
+            return uniform_box(generator(key, dev), cfg.n_interior, box)
+
+    else:
+        raise ValueError("sampler must be 'uniform' or 'sobol'")
+    f_in = rhs_f(X_in, cfg.L, ks)
+
+    if cfg.n_data > 0:
+        X_data = uniform_box(generator(k_data, dev), cfg.n_data, box)
+        u_data = exact_u(X_data, cfg.L, ks)
+    else:
+        X_data = u_data = None
+
+    per_face = max(1, cfg.n_boundary // (2 * cfg.dim))
+    zero = torch.zeros((), device=dev)
+
+    def aux_terms(params, key, u_interior):
+        """bc / data / norm / mean losses shared by every method."""
+        if cfg.bc_mode == "RB":
+            Xb = face_points(generator(key, dev), per_face, box)
+            if cfg.bc_type == "neumann":
+                _, gb = model.value_and_grad(params, Xb)
+                comp = torch.arange(cfg.dim, device=dev).repeat_interleave(2 * per_face)
+                gn = torch.gather(gb, 1, comp[:, None])[:, 0]
+                bc = torch.mean(gn ** 2)
+            else:
+                bc = torch.mean(model.apply_batch(params, Xb) ** 2)
+        else:
+            bc = zero
+        data = (data_mse(model.apply_batch(params, X_data), u_data)
+                if X_data is not None else zero)
+        if w["norm"] > 0:
+            if cfg.norm_mode == "nontrivial":
+                norm = norm_nontrivial(u_interior)
+            elif cfg.norm_mode == "l2":
+                norm = torch.mean(u_interior ** 2)
+            else:
+                raise ValueError("norm mode should be 'nontrivial' or 'l2'")
+        else:
+            norm = zero
+        mean_pen = torch.mean(u_interior) ** 2 if w["mean"] > 0 else zero
+        return bc, data, norm, mean_pen
+
+    def eval_fn(params, key):
+        """RMSE vs exact on fresh uniform points."""
+        X_te = uniform_box(generator(key, dev), cfg.n_eval, box)
+        u = model.apply_batch(params, X_te)
+        return torch.sqrt(torch.mean((u - exact_u(X_te, cfg.L, ks)) ** 2))
+
+    def interior(key):
+        if cfg.resample:
+            X_cur = draw_interior(fold_in(key, 3))
+            return X_cur, rhs_f(X_cur, cfg.L, ks)
+        return X_in, f_in
+
+    def loss_fn(params, key):
+        X_cur, f_cur = interior(key)
+        if cfg.method == "PINN":
+            jet = model.fields(params, X_cur)
+            pde = pinn_poisson(jet.lap, f_cur)
+            u_int = jet.value
+        else:
+            u_int, g = model.value_and_grad(params, X_cur)
+            pde = drm_poisson_energy(u_int, g, f_cur)
+        bc, data, norm, mean_pen = aux_terms(params, key, u_int)
+        total = (w["pde"] * pde + w["bc"] * bc + w["data"] * data
+                 + w["norm"] * norm + w["mean"] * mean_pen)
+        return total, {"pde": pde, "bc": bc, "data": data, "norm": norm}
+
+    def factor_jet_at(X_cur):
+        if model.factor is not None:
+            return model.factor.jet(X_cur)
+        return constant_jet(torch.ones(X_cur.shape[0], device=dev), cfg.dim)
+
+    def coef_at(X_cur, f_cur):
+        fj = factor_jet_at(X_cur)
+        if cfg.method == "DRM":
+            return drm_coefficients(fj, f_cur)
+        return residual_coefficients(fj, a0=-1.0, rhs=-f_cur)
+
+    coef_fixed = (None if cfg.resample or cfg.jet_impl != "fused"
+                  else coef_at(X_in, f_in))
+    need_aux = (w["bc"] > 0 or w["data"] > 0 or w["norm"] > 0 or w["mean"] > 0)
+
+    def lag_fn(params, key):
+        """Fused loss+grad: the residual / energy through one kernel launch,
+        the aux terms (bc, data, norm, mean) on autograd."""
+        if cfg.resample:
+            X_cur, f_cur = interior(key)
+            coef = coef_at(X_cur, f_cur)
+        else:
+            X_cur, coef = X_in, coef_fixed
+        act = model.spec.activation
+        if cfg.coef_mode == "analytic":
+            pde, _, g_pde = fused_poisson_analytic(params, X_cur, act,
+                                                   L=cfg.L, ks=ks)
+        elif cfg.method == "DRM":
+            pde, _, g_pde = fused_drm_energy(params, X_cur, coef, act)
+        else:
+            pde, _, g_pde = fused_linear_residual(params, X_cur, coef, act)
+        total = w["pde"] * pde
+        grads = [(w["pde"] * gW, w["pde"] * gb) for gW, gb in g_pde]
+        metrics = {"pde": pde, "bc": zero, "data": zero, "norm": zero}
+        if need_aux:
+            with torch.enable_grad():
+                u_int = (model.apply_batch(params, X_cur)
+                         if (w["norm"] > 0 or w["mean"] > 0)
+                         else torch.zeros((1,), device=dev))
+                bc, data, norm, mean_pen = aux_terms(params, key, u_int)
+                aux_tot = (w["bc"] * bc + w["data"] * data + w["norm"] * norm
+                           + w["mean"] * mean_pen)
+                leaves = [t for pair in params for t in pair]
+                g_aux = torch.autograd.grad(aux_tot, leaves, allow_unused=True)
+            g_aux = [torch.zeros_like(t) if g is None else g
+                     for t, g in zip(leaves, g_aux)]
+            grads = [(gW + g_aux[2 * i], gb + g_aux[2 * i + 1])
+                     for i, (gW, gb) in enumerate(grads)]
+            total = total + aux_tot.detach()
+            metrics = {"pde": pde, "bc": bc.detach(), "data": data.detach(),
+                       "norm": norm.detach()}
+        return (total, metrics), grads
+
+    optimizer = make_optimizer(cfg.lr, schedule=cfg.lr_schedule,
+                               total_steps=cfg.epochs)
+    if cfg.jet_impl == "fused":
+        result = fit(None, eval_fn, params, epochs=cfg.epochs,
+                     optimizer=optimizer, key=k_train, chunk=chunk,
+                     loss_and_grad_fn=lag_fn)
+    else:
+        result = fit(loss_fn, eval_fn, params, epochs=cfg.epochs,
+                     optimizer=optimizer, key=k_train, chunk=chunk)
+
+    # rms of the manufactured solution: mean(sin^2) = 1/2 per dimension
+    rms_exact = 0.5 ** (cfg.dim / 2.0)
+    return {
+        "config": dataclasses.asdict(cfg),
+        "model": model,
+        "result": result,
+        "history": result.history,
+        "final_l2": (float(result.history["l2"][-1])
+                     if "l2" in result.history else None),
+        "best_l2": result.best_metric,
+        "rel_l2": result.best_metric / rms_exact,
+        "best_epoch": result.best_epoch,
+    }

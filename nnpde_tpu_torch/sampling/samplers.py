@@ -1,0 +1,57 @@
+"""Collocation samplers on an explicit ``torch.Generator``.
+
+Counterpart of ``nnpde_tpu/sampling/samplers.py``.  Uniform draws come from
+the generator's device; the scrambled Sobol base set comes from the same
+host-side ``scipy.stats.qmc.Sobol(scramble=True, seed=seed)`` call as the
+JAX package, so QMC base sets agree bit for bit.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..pde.domain import Box
+
+
+def _bounds(box: Box, dtype, device):
+    lo = torch.tensor(box.lo, dtype=dtype, device=device)
+    hi = torch.tensor(box.hi, dtype=dtype, device=device)
+    return lo, hi
+
+
+def uniform_box(gen: torch.Generator, n: int, box: Box, dtype=torch.float32):
+    """n uniform points in the box — (n, d), on the generator's device."""
+    lo, hi = _bounds(box, dtype, gen.device)
+    u = torch.rand((n, box.dim), generator=gen, dtype=dtype, device=gen.device)
+    return lo + u * (hi - lo)
+
+
+def sobol_unit(seed: int, n: int, d: int, dtype=torch.float32, device="cpu"):
+    """n scrambled-Sobol points in the unit cube [0,1)^d — (n, d)."""
+    from scipy.stats import qmc
+
+    eng = qmc.Sobol(d=d, scramble=True, seed=seed)
+    return torch.as_tensor(eng.random(n), dtype=dtype, device=device)
+
+
+def shifted_qmc(u_base, gen: torch.Generator, box: Box):
+    """Cranley-Patterson rotation ``(u_base + shift) mod 1`` of a fixed
+    Sobol base set with a fresh uniform shift per call."""
+    shift = torch.rand((u_base.shape[-1],), generator=gen,
+                       dtype=u_base.dtype, device=u_base.device)
+    u = torch.remainder(u_base + shift, 1.0)
+    lo, hi = _bounds(box, u_base.dtype, u_base.device)
+    return lo + u * (hi - lo)
+
+
+def face_points(gen: torch.Generator, n_per_face: int, box: Box,
+                dtype=torch.float32):
+    """Fresh uniform samples on all 2d faces — (2*d*n_per_face, d), one
+    batch per face with coordinate i pinned to the lo/hi face value."""
+    outs = []
+    for i in range(box.dim):
+        for val in (box.lo[i], box.hi[i]):
+            pts = uniform_box(gen, n_per_face, box, dtype)
+            pts[:, i] = val
+            outs.append(pts)
+    return torch.cat(outs, dim=0)

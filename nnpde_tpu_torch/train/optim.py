@@ -1,0 +1,132 @@
+"""Adam with optax's learning-rate schedules, on ``torch.optim.Adam``.
+
+Counterpart of ``nnpde_tpu/train/optim.py``.  ``torch.optim.Adam`` applies
+the same update as ``optax.adam``
+(``lr * m_hat / (sqrt(v_hat) + eps)``, bias-corrected moments); what needs
+care is the schedule, which optax evaluates at the count of updates made
+so far (0 for the first update):
+
+* cosine with ``alpha = final_scale`` holds at ``final_scale * lr`` past
+  the horizon (``count`` is clipped to ``decay_steps``);
+* exponential decays as ``lr * rate**(count / steps)`` and is clipped
+  from below at ``end_value``;
+* warmup is ``join_schedules``: a linear ramp 0 -> lr over ``warmup``
+  updates, then the named schedule evaluated at ``count - warmup``.
+
+torch's ``lr_scheduler`` classes follow other conventions, so the
+schedule is a plain function and :func:`set_lr` writes its value into the
+parameter groups before every step.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import torch
+
+
+def constant_schedule(value: float) -> Callable[[int], float]:
+    return lambda count: value
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int,
+                          alpha: float = 0.0) -> Callable[[int], float]:
+    if not decay_steps > 0:
+        raise ValueError(f"cosine decay needs positive decay_steps, got {decay_steps}")
+
+    def schedule(count):
+        c = min(float(count), float(decay_steps))
+        cosine = 0.5 * (1.0 + math.cos(math.pi * c / decay_steps))
+        return init_value * ((1.0 - alpha) * cosine + alpha)
+
+    return schedule
+
+
+def exponential_decay(init_value: float, transition_steps: int,
+                      decay_rate: float, end_value: float | None = None):
+    if transition_steps <= 0 or decay_rate == 0:
+        return constant_schedule(init_value)
+
+    def schedule(count):
+        value = (init_value if count <= 0
+                 else init_value * decay_rate ** (count / transition_steps))
+        if end_value is not None:
+            value = (max if decay_rate < 1.0 else min)(value, end_value)
+        return value
+
+    return schedule
+
+
+def linear_schedule(init_value: float, end_value: float, transition_steps: int):
+    if transition_steps <= 0:
+        return constant_schedule(init_value)
+
+    def schedule(count):
+        c = min(max(count, 0), transition_steps)
+        return (init_value - end_value) * (1.0 - c / transition_steps) + end_value
+
+    return schedule
+
+
+def join_schedules(schedules, boundaries):
+    def schedule(count):
+        out = schedules[0](count)
+        for boundary, sched in zip(boundaries, schedules[1:]):
+            if count >= boundary:
+                out = sched(count - boundary)
+        return out
+
+    return schedule
+
+
+class ScheduledAdam:
+    """Adam whose learning rate follows ``schedule(count)``.
+
+    ``init(tensors)`` builds the ``torch.optim.Adam`` that holds the
+    moments; call :meth:`set_lr` with the number of updates made so far
+    before each ``step()``."""
+
+    def __init__(self, schedule: Callable[[int], float], b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8):
+        self.schedule = schedule
+        self.betas = (b1, b2)
+        self.eps = eps
+
+    def init(self, tensors) -> torch.optim.Adam:
+        return torch.optim.Adam(list(tensors), lr=self.schedule(0),
+                                betas=self.betas, eps=self.eps)
+
+    def set_lr(self, opt: torch.optim.Optimizer, count: int) -> None:
+        lr = float(self.schedule(count))
+        for group in opt.param_groups:
+            group["lr"] = lr
+
+
+def make_optimizer(
+    lr: float,
+    *,
+    schedule: str = "constant",
+    total_steps: int = 0,
+    final_scale: float = 0.01,
+    warmup: int = 0,
+    decay_steps: int = 0,
+) -> ScheduledAdam:
+    """schedule in {constant, cosine, exponential}; warmup (if any) is a
+    linear ramp before the named schedule.  ``decay_steps``: decay horizon
+    when shorter than ``total_steps`` (past it the lr holds)."""
+    horizon = decay_steps if decay_steps > 0 else total_steps
+    if schedule == "constant":
+        sched = constant_schedule(lr)
+    elif schedule == "cosine":
+        sched = cosine_decay_schedule(lr, max(horizon - warmup, 1),
+                                      alpha=final_scale)
+    elif schedule == "exponential":
+        sched = exponential_decay(lr, max(horizon - warmup, 1), final_scale,
+                                  end_value=final_scale * lr)
+    else:
+        raise ValueError(f"Unknown lr schedule {schedule!r}")
+    if warmup > 0:
+        sched = join_schedules([linear_schedule(0.0, lr, warmup), sched],
+                               [warmup])
+    return ScheduledAdam(sched)
