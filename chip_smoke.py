@@ -5,20 +5,34 @@
 Phases (each prints one JSON line; any failure exits non-zero):
 
 1. device: require CUDA, print the card's name and power limit, build the
-   CUDA kernels of ``nnpde_tpu_torch/csrc`` with nvcc.
+   CUDA kernels of ``nnpde_tpu_torch/csrc`` with nvcc (one process per
+   source, in parallel).
 2. kernels: each fused kernel (float32) against its plain PyTorch version
    in float64 on the same inputs, at the main path's shapes (N = 20000 + 7,
    N = 262144, d = 2, layers 2-64-64-64-64-1, sin) and a d = 5 tanh case:
    loss and grad-tree rel <= 1e-5, and two launches bitwise equal.
-3. main path: ``train_poisson_nd`` (2D Poisson PINN, box-FBC trial, width
+3. wan_kernels: the WAN path's kernels (jet forward, linear and quadratic
+   sums / seeded pairs) the same way, on the u net 2-64-64-64-64-1 and the
+   critic 2-64-64-1 (sin) and a d = 5 tanh case: every sum within 1e-5 of
+   the sum of its terms' magnitudes, grad trees and each jet column rel <=
+   1e-5, two launches bitwise equal; then each of the four fused objectives
+   (value, parameter gradients, dE and d_pn) against the same objective on
+   the plain route (float64, CPU).
+4. main path: ``train_poisson_nd`` (2D Poisson PINN, box-FBC trial, width
    64 x depth 5, 3000 epochs, 20000 points) on jet_impl 'torch' and
    'fused': both rel_l2 <= 1e-3, fused <= max(2 x torch, 1e-3), and exactly
    one fused_linear_residual launch per epoch; then coef_mode='analytic'
    and method='DRM' for a few hundred epochs (kernel launched, loss finite
    and falling).
-4. timing: CUDA events, median over repeats, for each kernel and its plain
-   version at N = 20000 and 262144, with the fp32 bound; training steps
-   per second.
+5. wan_path: ``train_poisson_nd(method='WAN')`` (the default 2D Poisson WAN,
+   critic 2-64-64-1, 5 critic steps, 1000 epochs) on jet_impl 'torch' and
+   'fused' from one seed: first total within rtol 1e-3 and the first 10
+   within 5e-2, both best rel_l2 <= 5e-2, all finite, and exactly 6 jet
+   forward, 6 linear sums, 6 linear seeded, 5 quad sums and 5 quad seeded
+   launches per epoch; then 100 fused epochs of minimax='extragradient'.
+6. timing: CUDA events, median over repeats, for each kernel and its plain
+   version at N = 20000 and 262144 on the net it runs on, with the fp32
+   bound; training steps per second.
 
 The last two lines before the final one are the ``kernels`` summary and the
 card's ``name, power limit``; the final line is
@@ -42,15 +56,33 @@ FP32_PEAK = 67e12        # H100 SXM, fp32 outside the tensor cores (FLOP/s)
 HBM_RATE = 3.35e12       # H100 SXM device memory (B/s)
 LAYERS = (2, 64, 64, 64, 64, 1)
 L = 2.0
+CRITIC = (2, 64, 64, 1)
 REPLACES = {
     "fused_linear_residual": "nnpde_tpu/kernels/fused_step.py:64",
     "fused_poisson_analytic": "nnpde_tpu/kernels/fused_step.py:596",
     "fused_drm_energy": "nnpde_tpu/kernels/fused_step.py:170",
 }
+WAN_REPLACES = {
+    "fwdlap_forward": "nnpde_tpu/kernels/fwdlap_pallas.py:157",
+    "linear_sums": "nnpde_tpu/kernels/fused_quotient.py:111",
+    "linear_seeded": "nnpde_tpu/kernels/fused_quotient.py:189",
+    "quad_sums": "nnpde_tpu/kernels/fused_quotient.py:268",
+    "quad_seeded": "nnpde_tpu/kernels/fused_quotient.py:333",
+}
+WAN_SOURCES = {"fwdlap_forward": "nnpde_tpu_torch/csrc/fwdlap_forward.cu"}
+# launches of each WAN kernel per epoch at 5 critic steps: the frozen net's
+# jet in each critic step and in the u step; pass A and pass B of the weak
+# form in each critic step and the u step; the critic regulariser's pair in
+# each critic step
+WAN_PER_EPOCH = {"fwdlap_forward": 6, "linear_sums": 6, "linear_seeded": 6,
+                 "quad_sums": 5, "quad_seeded": 5}
+# the net each WAN kernel runs on most often in an epoch (its summary row)
+WAN_MAIN_NET = {"fwdlap_forward": "u", "linear_sums": "critic",
+                "linear_seeded": "critic", "quad_sums": "critic", "quad_seeded": "critic"}
 
 
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    print(json.dumps(obj, default=float), flush=True)
 
 
 def card_line() -> str:
@@ -196,6 +228,256 @@ def phase_kernels(dev):
     return max_err
 
 
+def macs(layers):
+    return sum(a * b for a, b in zip(layers[:-1], layers[1:]))
+
+
+class WanCase:
+    """One WAN kernel's inputs at one shape: points, params, a coefficient
+    stream built as the WAN path builds it, and the pass-B seeds."""
+
+    def __init__(self, kind, N, layers, act, seed, dev, lap=0):
+        from nnpde_tpu_torch.kernels import fused_quotient as fq
+        from nnpde_tpu_torch.models import factor_for_technique
+        from nnpde_tpu_torch.ops import bump_w
+
+        rng = np.random.default_rng(seed)
+        self.kind, self.N, self.layers, self.act, self.lap = kind, N, layers, act, lap
+        self.d = d = layers[0]
+        self.params = rand_params(rng, layers, dev)
+        self.X = torch.as_tensor(rng.uniform(0.0, L, (N, d)).astype(np.float32), device=dev)
+        self.coef = self.scal = None
+        fj = factor_for_technique("FBC", dim=d, kind="box", L=L).jet(self.X)
+        data = torch.as_tensor(rng.normal(size=(N, d + 1)).astype(np.float32), device=dev)
+        if kind.startswith("linear"):
+            # the weak form of the u step: b0 = grad phi, rhs = -f phi, e1 =
+            # B, e2 = B phi (phi, grad phi, f from the data columns)
+            wv, _ = bump_w(self.X, 0.0, L)
+            phi = wv * data[:, 0]
+            self.coef = fq.linear_functional_coefficients(
+                fj, b0=data[:, 1:], rhs=-data[:, 0] * phi, a0=0.0 if lap == 0 else -0.5,
+                e1=fj.value, e2=fj.value * phi).contiguous()
+            self.scal = torch.tensor([0.3, -0.2, 0.7], device=dev)
+        elif kind.startswith("quad"):
+            # the critic regulariser (V = 1/2) with a source term
+            self.coef = fq.quotient_coefficients(fj, f=data[:, 0], V=0.5).contiguous()
+            self.scal = torch.tensor([0.4, -0.3], device=dev)
+
+    def kernel(self):
+        from nnpde_tpu_torch.kernels import fused_quotient as fq
+        from nnpde_tpu_torch.kernels import fwdlap_cuda as fc
+
+        if self.kind == "fwdlap_forward":
+            return fc.fwdlap_forward(self.params, self.X, self.act)
+        return fq._launch(self.kind, self.params, self.X, self.coef, self.scal, self.act,
+                          self.lap)
+
+    def plain(self, dtype):
+        """The plain version on the card, in the kernel's output layout."""
+        from nnpde_tpu_torch.kernels import fused_quotient as fq
+        from nnpde_tpu_torch.kernels import fwdlap_cuda as fc
+
+        p = [(W.to(dtype), b.to(dtype)) for W, b in self.params]
+        X = self.X.to(dtype)
+        if self.kind == "fwdlap_forward":
+            jet = fc.fwdlap_forward_plain(p, X, self.act)
+            return torch.cat([jet.value[:, None], jet.grad, jet.lap[:, None]], dim=1)
+        coef, scal = self.coef.to(dtype), self.scal.to(dtype)
+        no_lap = self.lap == 0
+        if self.kind == "linear_sums":
+            return fq.linear_sums_plain(p, X, coef, self.act, no_lap)
+        if self.kind == "quad_sums":
+            return fq.quad_sums_plain(p, X, coef, self.act)
+        if self.kind == "linear_seeded":
+            dWs, dbs, sums = fq.linear_seeded_plain(p, X, coef, scal, self.act, no_lap)
+        else:
+            dWs, dbs, sums = fq.quad_seeded_plain(p, X, coef, scal, self.act)
+        # the kernel's row: [dW0, db0, ..., dW_last, (unwritten) b_last | sum ct_v]
+        flat = [t.reshape(-1) for dW, db in zip(dWs, dbs) for t in (dW, db)]
+        flat[-1] = torch.zeros_like(flat[-1])
+        return torch.cat(flat + [sums])
+
+    def abs_terms(self):
+        """Float64 sum of the magnitudes of each sum's per-point terms."""
+        from nnpde_tpu_torch.ops.fwdlap import mlp_fwdlap
+
+        p = [(W.double(), b.double()) for W, b in self.params]
+        d, c = self.d, self.coef.double()
+        jet = mlp_fwdlap(p, self.X.double(), self.act)
+        if self.kind == "linear_sums":
+            r = c[:, 0] * jet.value + torch.sum(c[:, 1:1 + d] * jet.grad, dim=1) + c[:, d + 2]
+            if self.lap:
+                r = r + c[:, d + 1] * jet.lap
+            return torch.stack([r.abs().sum(), (r * r).sum(),
+                                ((c[:, d + 3] * jet.value) ** 2).sum(),
+                                (c[:, d + 4] * jet.value).abs().sum()])
+        u = c[:, 0] * jet.value
+        G = c[:, 0:1] * jet.grad + c[:, 1:1 + d] * jet.value[:, None]
+        e = 0.5 * torch.sum(G * G, dim=1) - c[:, d + 1] * u + c[:, d + 2] * u * u
+        return torch.stack([e.abs().sum(), (u * u).sum()])
+
+    def streams(self):
+        return self.d + (2 if self.kind == "fwdlap_forward" else 1 + self.lap)
+
+    def flops(self):
+        per = {"fwdlap_forward": 2.0, "linear_sums": 2.0, "quad_sums": 2.0,
+               "linear_seeded": 6.0, "quad_seeded": 6.0}[self.kind]
+        return per * self.streams() * macs(self.layers) * self.N
+
+    def bytes(self):
+        P = sum(a * b + b for a, b in zip(self.layers[:-1], self.layers[1:]))
+        nc = 0 if self.coef is None else self.coef.shape[1]
+        out = {"fwdlap_forward": self.N * (self.d + 2), "linear_sums": 4, "quad_sums": 2,
+               "linear_seeded": P + 1, "quad_seeded": P + 1}[self.kind]
+        return 4.0 * (self.N * (self.d + nc) + P + out)
+
+    def bound_ms(self):
+        return 1e3 * max(self.flops() / FP32_PEAK, self.bytes() / HBM_RATE)
+
+    def bound_by(self):
+        return "operations" if self.flops() / FP32_PEAK >= self.bytes() / HBM_RATE else "bytes"
+
+
+def col_rel(a, b):
+    return max(float(torch.linalg.norm(a[:, c].double() - b[:, c]) / torch.linalg.norm(b[:, c]))
+               for c in range(b.shape[1]))
+
+
+def phase_wan_kernels(dev):
+    """WAN kernels (fp32) vs plain (fp64) on the card; repeats bitwise."""
+    U5 = (5, 64, 64, 64, 64, 1)
+    shapes = {
+        "fwdlap_forward": [(20007, LAYERS, "sin", 0), (262144, LAYERS, "sin", 0),
+                           (20007, CRITIC, "sin", 0), (20007, U5, "tanh", 0)],
+        "linear_sums": [(20007, LAYERS, "sin", 0), (262144, LAYERS, "sin", 0),
+                        (20007, CRITIC, "sin", 0), (262144, CRITIC, "sin", 0),
+                        (20007, U5, "tanh", 1)],
+        "quad_sums": [(20007, CRITIC, "sin", 0), (262144, CRITIC, "sin", 0),
+                      (20007, U5, "tanh", 0)],
+    }
+    shapes["linear_seeded"] = shapes["linear_sums"]
+    shapes["quad_seeded"] = shapes["quad_sums"]
+    rows, max_err = [], {}
+    for kind in WAN_REPLACES:
+        for i, (N, layers, act, lap) in enumerate(shapes[kind]):
+            case = WanCase(kind, N, layers, act, seed=200 + i, dev=dev, lap=lap)
+            out, out2 = case.kernel(), case.kernel()
+            torch.cuda.synchronize()
+            bitwise = bool(torch.equal(out, out2))
+            ref = case.plain(torch.float64)
+            err = float(torch.max(torch.abs(out.double() - ref)))
+            row = {"kernel": kind, "N": N, "layers": list(layers), "act": act, "lap": lap,
+                   "max_abs_err": err, "bitwise_repeat": bitwise}
+            if kind == "fwdlap_forward":
+                row["col_rel"] = col_rel(out, ref)
+                ok = row["col_rel"] <= 1e-5
+            elif kind.endswith("sums"):
+                scale = case.abs_terms()
+                row["sum_err_over_abs_terms"] = float(torch.max(
+                    torch.abs(out.double() - ref) / scale))
+                ok = row["sum_err_over_abs_terms"] <= 1e-5
+            else:
+                P = out.numel() - 1
+                row["grad_rel"] = float(torch.linalg.norm(out[:P].double() - ref[:P])
+                                        / torch.linalg.norm(ref[:P]))
+                row["ctv_rel"] = abs(float(out[P]) - float(ref[P])) / abs(float(ref[P]))
+                ok = row["grad_rel"] <= 1e-5 and row["ctv_rel"] <= 1e-5
+            row["ok"] = ok and bitwise
+            max_err[kind] = max(max_err.get(kind, 0.0), err)
+            rows.append(row)
+            del case, out, out2, ref
+            torch.cuda.empty_cache()
+    emit({"phase": "wan_kernels", "tol": 1e-5, "rows": rows})
+    obj = wan_objectives(dev)
+    emit({"phase": "wan_objectives", "tol": 1e-5, "rows": obj})
+    if not all(r["ok"] for r in rows + obj):
+        raise SystemExit("WAN kernel vs plain comparison failed")
+    return max_err
+
+
+def wan_objectives(dev, N=20007):
+    """Each fused objective on the card (kernels) against the same objective
+    on the plain route (CPU, float64), on the coefficient streams the WAN
+    path builds: value, parameter gradients, and dE / d_pn of the primal.
+    A quotient's gradient is a difference of seeded parts that can cancel,
+    so each number is held to the larger of 1e-5 and twice the error of the
+    plain route itself in float32 (on the CPU) against float64."""
+    from nnpde_tpu_torch.kernels import (linear_functional_coefficients, make_fused_quad_mean,
+                                         make_fused_rayleigh, make_fused_wan_u,
+                                         make_fused_wan_v, quotient_coefficients)
+    from nnpde_tpu_torch.models import NetSpec, SolutionModel, factor_for_technique
+    from nnpde_tpu_torch.ops import bump_w
+    from nnpde_tpu_torch.ops.fwdlap import Jet
+    from nnpde_tpu_torch.pde.poisson import rhs_f_for_u_sin
+
+    rng = np.random.default_rng(300)
+    up, vp = rand_params(rng, LAYERS, dev), rand_params(rng, CRITIC, dev)
+    u_model = SolutionModel(NetSpec(LAYERS, activation="sin"),
+                            factor_for_technique("FBC", dim=2, kind="box", L=L))
+    v_model = SolutionModel(NetSpec(CRITIC, activation="sin"))
+    X = torch.as_tensor(rng.uniform(0.0, L, (N, 2)).astype(np.float32), device=dev)
+    f = rhs_f_for_u_sin(X, L, (1, 1))
+    wv, dwv = bump_w(X, 0.0, L)
+    Bu = u_model.factor.jet(X)
+    v, gv = v_model.value_and_grad(vp, X, impl="kernel")
+    phi, gphi = wv * v, dwv * v[:, None] + wv[:, None] * gv
+    base = linear_functional_coefficients(Bu, b0=gphi, rhs=-f * phi, e1=Bu.value,
+                                          e2=Bu.value * phi)
+    u, gu = u_model.value_and_grad(up, X, impl="kernel")
+    wjet = Jet(wv, dwv, torch.zeros_like(wv))
+    vcoef = linear_functional_coefficients(wjet, c0=-f, b0=gu, e1=wv)
+    qcoef = quotient_coefficients(Jet(torch.ones_like(wv), torch.zeros_like(X),
+                                      torch.zeros_like(wv)), V=0.5)
+    rcoef = quotient_coefficients(Bu, V=0.5 * torch.sum(X * X, dim=1))
+    pn = torch.mean(phi ** 2)
+    cases = [
+        ("wan_u", make_fused_wan_u("sin", vol=4.0, w_pde=1.0, w_norm=10.0), up, (X, base)),
+        ("wan_u_ratio_sq", make_fused_wan_u("sin", convention="ratio_sq", vol=4.0),
+         up, (X, base)),
+        ("wan_v", make_fused_wan_v("sin"), vp, (X, vcoef)),
+        ("quad_mean", make_fused_quad_mean("sin", weight=2.0), vp, (X, qcoef)),
+        ("rayleigh", make_fused_rayleigh("sin", weight=3.0), up, (X, rcoef)),
+    ]
+    rows = []
+    for name, fn, params, (Xc, coef) in cases:
+        got = []
+        cpu = torch.device("cpu")
+        for device, dtype in ((dev, torch.float32), (cpu, torch.float32), (cpu, torch.float64)):
+            p = [(W.detach().to(device, dtype).requires_grad_(True),
+                  b.detach().to(device, dtype).requires_grad_(True)) for W, b in params]
+            args = (Xc.to(device, dtype), coef.detach().to(device, dtype))
+            extra = []
+            if name.startswith("wan_u"):
+                E = torch.tensor(0.7, device=device, dtype=dtype, requires_grad=True)
+                pnt = pn.detach().to(device, dtype).requires_grad_(True)
+                total, _ = fn(p, E, args[0], args[1], pnt)
+                extra = [E, pnt]
+            else:
+                total, _ = fn(p, *args)
+            leaves = [t for pair in p for t in pair]
+            g = torch.autograd.grad(total, leaves + extra)
+            got.append((total.detach().double().cpu(),
+                        torch.cat([t.reshape(-1).double().cpu() for t in g[:len(leaves)]]),
+                        [t.double().cpu() for t in g[len(leaves):]]))
+        ref = got[2]
+
+        def rels(side):
+            v, g, e = side
+            out = {"value_rel": abs(float(v - ref[0])) / abs(float(ref[0])),
+                   "grad_rel": float(torch.linalg.norm(g - ref[1]) / torch.linalg.norm(ref[1]))}
+            if e:
+                out["dE_rel"] = abs(float(e[0] - ref[2][0])) / abs(float(ref[2][0]))
+                out["d_pn_rel"] = abs(float(e[1] - ref[2][1])) / abs(float(ref[2][1]))
+            return out
+
+        kern, plain32 = rels(got[0]), rels(got[1])
+        row = {"objective": name, **kern,
+               "plain_f32": plain32,
+               "ok": all(v <= max(1e-5, 2.0 * plain32[k]) for k, v in kern.items())}
+        rows.append(row)
+    return rows
+
+
 def phase_main_path():
     from nnpde_tpu_torch.kernels import LAUNCHES, reset_launches
     from nnpde_tpu_torch.problems import PoissonConfig, train_poisson_nd
@@ -241,6 +523,63 @@ def phase_main_path():
     return launches, fused_run["result"].timing["steps_per_s"]
 
 
+def phase_wan_path():
+    """The default 2D Poisson WAN on both jet paths, then extragradient."""
+    from nnpde_tpu_torch.kernels import LAUNCHES, reset_launches
+    from nnpde_tpu_torch.problems import PoissonConfig, train_poisson_nd
+
+    epochs = 1000
+    base = dict(dim=2, method="WAN", epochs=epochs, chunk=1000)
+    t0 = time.time()
+    torch_run = train_poisson_nd(PoissonConfig(jet_impl="torch", **base))
+    t_torch = time.time() - t0
+    reset_launches()
+    t0 = time.time()
+    fused_run = train_poisson_nd(PoissonConfig(jet_impl="fused", **base))
+    t_fused = time.time() - t0
+    launches = dict(LAUNCHES)
+    reset_launches()
+    eg = train_poisson_nd(PoissonConfig(jet_impl="fused", **dict(base, epochs=100),
+                                        minimax="extragradient"))
+    eg_launches = dict(LAUNCHES)
+    ht, hf = torch_run["history"], fused_run["history"]
+    first_rel = float(abs(hf["total"][0] - ht["total"][0]) / abs(ht["total"][0]))
+    first10 = float(np.max(np.abs(hf["total"][:10] - ht["total"][:10])
+                           / np.abs(ht["total"][:10])))
+    # minimax trajectories are chaotic: where the two paths part, and how
+    # the rel-L2 of each wanders after its early best
+    apart = np.nonzero(np.abs(hf["total"] - ht["total"]) > 5e-2 * np.abs(ht["total"]))[0]
+    rms_exact = 0.5  # ||u*||_rms in 2D
+    l2_median = {name: float(np.median(h["l2"][epochs // 2:])) / rms_exact
+                 for name, h in (("torch", ht), ("fused", hf))}
+    finite = all(np.all(np.isfinite(h[k])) for h in (ht, hf, eg["history"])
+                 for k in ("total", "l2", "wan_loss_v"))
+    counts_ok = (all(launches[k] == n * epochs for k, n in WAN_PER_EPOCH.items())
+                 and all(launches[k] == 0 for k in REPLACES))
+    ok = (first_rel <= 1e-3 and first10 <= 5e-2 and torch_run["rel_l2"] <= 5e-2
+          and fused_run["rel_l2"] <= 5e-2 and finite and counts_ok
+          and all(eg_launches[k] > 0 for k in WAN_PER_EPOCH))
+    emit({"phase": "wan_path", "epochs": epochs, "n_interior": 20000,
+          "layers": list(LAYERS), "critic": list(CRITIC), "critic_steps": 5,
+          "total0_rel": first_rel, "first10_max_rel": first10,
+          "rel_l2_torch": torch_run["rel_l2"], "rel_l2_fused": fused_run["rel_l2"],
+          "best_epoch_torch": torch_run["best_epoch"],
+          "best_epoch_fused": fused_run["best_epoch"],
+          "first_epoch_apart_5e-2": int(apart[0]) if apart.size else None,
+          "median_rel_l2_second_half": l2_median,
+          "wall_s_torch": t_torch, "wall_s_fused": t_fused,
+          "epochs_per_s_torch": torch_run["result"].timing["steps_per_s"],
+          "epochs_per_s_fused": fused_run["result"].timing["steps_per_s"],
+          "launches": launches, "per_epoch": WAN_PER_EPOCH,
+          "extragradient": {"epochs": 100, "rel_l2": eg["rel_l2"],
+                            "launches": eg_launches,
+                            "total_last": float(eg["history"]["total"][-1])},
+          "finite": finite, "ok": ok})
+    if not ok:
+        raise SystemExit("WAN path check failed")
+    return launches, fused_run["result"].timing["steps_per_s"]
+
+
 def time_ms(fn, warmup=3, reps=15):
     for _ in range(warmup):
         fn()
@@ -276,16 +615,40 @@ def phase_timing(dev):
     return rows
 
 
+def phase_wan_timing(dev):
+    rows = []
+    nets = {"u": LAYERS, "critic": CRITIC}
+    for kind in WAN_REPLACES:
+        for net in (("u", "critic") if kind.startswith(("fwdlap", "linear")) else ("critic",)):
+            for N in (20000, 262144):
+                case = WanCase(kind, N, nets[net], "sin", seed=9, dev=dev)
+                ms = time_ms(case.kernel)
+                plain_ms = time_ms(lambda: case.plain(torch.float32), warmup=2, reps=7)
+                rows.append({"kernel": kind, "net": net, "N": N, "ms": ms,
+                             "plain_ms": plain_ms, "bound_ms": case.bound_ms(),
+                             "bound_by": case.bound_by(), "flop": case.flops(),
+                             "bytes": case.bytes(),
+                             "gflops": case.flops() / (ms * 1e-3) / 1e9})
+                del case
+                torch.cuda.empty_cache()
+    emit({"phase": "wan_timing", "rows": rows})
+    return rows
+
+
 def main():
     card = phase_device()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     max_err = phase_kernels(dev)
+    max_err.update(phase_wan_kernels(dev))
     launches, steps_per_s = phase_main_path()
+    wan_launches, wan_epochs_per_s = phase_wan_path()
     rows = phase_timing(dev)
+    wan_rows = phase_wan_timing(dev)
     emit({"phase": "train_step", "steps_per_s_fused": steps_per_s,
-          "points_per_s_fused": steps_per_s * 20000})
+          "points_per_s_fused": steps_per_s * 20000,
+          "wan_epochs_per_s_fused": wan_epochs_per_s})
     kernels = []
     for kind in REPLACES:
         main_row = next(r for r in rows if r["kernel"] == kind and r["N"] == 20000)
@@ -295,6 +658,16 @@ def main():
             "max_abs_err": max_err[kind], "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"], "library_ms": None,
+        })
+    for kind in WAN_REPLACES:
+        row = next(r for r in wan_rows if r["kernel"] == kind and r["N"] == 20000
+                   and r["net"] == WAN_MAIN_NET[kind])
+        kernels.append({
+            "name": kind, "route": "cuda",
+            "source": WAN_SOURCES.get(kind, "nnpde_tpu_torch/csrc/fused_quotient.cu"),
+            "replaces": WAN_REPLACES[kind], "launches": wan_launches[kind],
+            "max_abs_err": max_err[kind], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
         })
     emit({"kernels": kernels})
     print(card, flush=True)

@@ -101,25 +101,12 @@ __device__ void fused_body(const Args& A) {
 
   for (int tile = blockIdx.x; tile < A.n_tiles; tile += gridDim.x) {
     const int base = tile * T;
-    for (int i = threadIdx.x; i < T * d; i += NT) {
-      const int p = i / d;
-      xs[i] = base + p < A.N ? A.X[(size_t)(base + p) * d + (i - p * d)] : 0.f;
-    }
+    load_tile(A.X, A.N, d, base, T, xs);
     __syncthreads();
     float* cur = bufA;
     float* nxt = bufB;
     fwd_recompute(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch);
-
-    // project the last hidden stage: one warp per (stream, point) row, a
-    // fixed shuffle tree, so the result does not depend on scheduling
-    for (int r = threadIdx.x >> 5; r < S * T; r += NT >> 5) {
-      const int lane = threadIdx.x & 31;
-      float acc = 0.f;
-      for (int j = lane; j < wl; j += 32) acc = fmaf(cur[r * ld + j], wlast[j], acc);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-      if (lane == 0) proj[r] = r < T ? acc + blast : acc;
-    }
+    project_last(net, T, cur, wlast, blast, proj);
     __syncthreads();
     // per-point loss terms and cotangent seeds
     for (int p = threadIdx.x; p < T; p += NT) {
@@ -202,14 +189,15 @@ __global__ void __launch_bounds__(NT) fused_drm_energy_kernel(Args a) {
   fused_body<MODE_DRM>(a);
 }
 
-// out[j] = sum_g partial[g][j], rows summed in order g = 0..G-1.
 __global__ void reduce_rows_kernel(const float* __restrict__ partial, int G,
                                    int R, float* __restrict__ out) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= R) return;
-  float s = 0.f;
-  for (int g = 0; g < G; ++g) s += partial[(size_t)g * R + j];
-  out[j] = s;
+  // accumulated in double and rounded once: a float running sum over G
+  // (~500) rows loses ~sqrt(G) ulps, which a quotient's seeds amplify
+  double s = 0.0;
+  for (int g = 0; g < G; ++g) s += (double)partial[(size_t)g * R + j];
+  out[j] = (float)s;
 }
 
 namespace {
@@ -225,36 +213,12 @@ KernelFn kernel_for(int mode) {
   }
 }
 
-bool make_net(int mode, const int* layers, int n_layers, int act, Net* net) {
-  const int K = n_layers - 1;
-  if (K < 2 || K > MAX_LAYERS || act < 0 || act > 2) return false;
-  net->K = K;
-  net->act = act;
-  net->d = layers[0];
-  if (net->d < 1 || net->d > MAX_DIM || layers[K] != 1) return false;
-  net->lap = mode == MODE_DRM ? 0 : 1;
-  net->S = net->d + 1 + net->lap;
-  net->wmax = 0;
-  int off = 0;
-  for (int k = 0; k <= K; ++k) net->w[k] = layers[k];
-  for (int k = 0; k < K; ++k) {
-    net->off[k] = off;
-    off += layers[k] * layers[k + 1] + layers[k + 1];
-  }
-  for (int k = 1; k < K; ++k) {
-    if (layers[k] < 4 || layers[k] > MAX_WIDTH || layers[k] % 4 != 0) return false;
-    if (layers[k] > net->wmax) net->wmax = layers[k];
-  }
-  net->P = off;
-  return true;
-}
-
 int launch(int mode, const float* X, const float* coef, const float* params,
            const int* layers, int n_layers, int act, int N, int T, int G,
            const float* analytic, float* partial, float* scratch, float* out,
            int smem_bytes, void* stream) {
   Args a;
-  if (!make_net(mode, layers, n_layers, act, &a.net) || N < 1 || T < 4 ||
+  if (!make_net(mode == MODE_DRM ? 0 : 1, layers, n_layers, act, &a.net) || N < 1 || T < 4 ||
       T % 4 != 0 || G < 1)
     return (int)cudaErrorInvalidValue;
   a.X = X;

@@ -208,10 +208,11 @@ __device__ __forceinline__ void load_transposed(float* Wt, const float* W, int w
 // Forward recompute over one tile.  xs: (T, d) points in shared memory.
 // On return `cur` holds the mid streams of the last hidden stage, `last`
 // (shared) its pre-activation streams, and the scratch slice the earlier
-// stages' pre-activation streams.
-__device__ void fwd_recompute(const Net& net, int T, const float* __restrict__ xs,
-                              const float* __restrict__ params, float*& cur,
-                              float*& nxt, float* last, float* Wsh, float* scratch) {
+// stages' pre-activation streams.  A kernel with no reverse sweep passes
+// null for `last` and `scratch`: nothing is saved.
+__device__ inline void fwd_recompute(const Net& net, int T, const float* __restrict__ xs,
+                                     const float* __restrict__ params, float*& cur,
+                                     float*& nxt, float* last, float* Wsh, float* scratch) {
   const int d = net.d, ld = net.wmax, S = net.S;
   const int stage_sz = S * T * ld;
   {  // input layer: v = x W0 + b0; J_i = W0[i, :]; l = 0
@@ -233,7 +234,7 @@ __device__ void fwd_recompute(const Net& net, int T, const float* __restrict__ x
     const bool final_stage = k == net.K - 1;
     if (!final_stage) copy_async(Wsh, params + net.off[k], wk * net.w[k + 1]);
     stage_mid(net, T, wk, cur, cur,
-              final_stage ? last : scratch + (k - 1) * stage_sz);
+              final_stage ? last : scratch ? scratch + (k - 1) * stage_sz : nullptr);
     if (final_stage) break;
     const int wn = net.w[k + 1];
     const float* Wk = params + net.off[k];
@@ -244,6 +245,33 @@ __device__ void fwd_recompute(const Net& net, int T, const float* __restrict__ x
     float* t = cur; cur = nxt; nxt = t;
   }
   __syncthreads();
+}
+
+// xs[p][i] = X[base + p][i] for the tile's T points; rows past N read 0.
+__device__ __forceinline__ void load_tile(const float* __restrict__ X, int N, int d,
+                                          int base, int T, float* xs) {
+  for (int i = threadIdx.x; i < T * d; i += NT) {
+    const int p = i / d;
+    xs[i] = base + p < N ? X[(size_t)(base + p) * d + (i - p * d)] : 0.f;
+  }
+}
+
+// Project the last hidden stage's mid streams onto the output row:
+// proj[r] = cur[r] . wlast (+ blast on the T value rows), r < S*T.  One
+// warp per row and a fixed shuffle tree, so the result does not depend on
+// scheduling.
+__device__ __forceinline__ void project_last(const Net& net, int T, const float* cur,
+                                             const float* __restrict__ wlast,
+                                             float blast, float* proj) {
+  const int wl = net.w[net.K - 1], ld = net.wmax;
+  for (int r = threadIdx.x >> 5; r < net.S * T; r += NT >> 5) {
+    const int lane = threadIdx.x & 31;
+    float acc = 0.f;
+    for (int j = lane; j < wl; j += 32) acc = fmaf(cur[r * ld + j], wlast[j], acc);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (lane == 0) proj[r] = r < T ? acc + blast : acc;
+  }
 }
 
 // Backward through one stage's nonlinearity (_nl_bwd_pack).  pre: the
@@ -321,11 +349,11 @@ __device__ __forceinline__ void accum_dW(int rows, int T, int ld, int wi, int wo
 // grad, lap).  Each earlier stage's pre-activations are copied back into
 // `pre` before use.  Accumulates dW/db into the block's partial row `grow`
 // (flat parameter layout).
-__device__ void reverse_sweep(const Net& net, int T, const float* __restrict__ xs,
-                              const float* __restrict__ params, float* cur,
-                              float* nxt, float* pre, float* Wsh,
-                              const float* scratch, const float* ct, float* red,
-                              float* grow) {
+__device__ inline void reverse_sweep(const Net& net, int T, const float* __restrict__ xs,
+                                     const float* __restrict__ params, float* cur,
+                                     float* nxt, float* pre, float* Wsh,
+                                     const float* scratch, const float* ct, float* red,
+                                     float* grow) {
   const int d = net.d, ld = net.wmax, S = net.S, K = net.K;
   const int stage_sz = S * T * ld;
   const int wl = net.w[K - 1];
@@ -389,4 +417,36 @@ __device__ void reverse_sweep(const Net& net, int T, const float* __restrict__ x
   __syncthreads();
 }
 
+// The network description from its layer sizes (host side): false when
+// the kernels do not take the shape.  `lap`: carry the Laplacian stream.
+inline bool make_net(int lap, const int* layers, int n_layers, int act, Net* net) {
+  const int K = n_layers - 1;
+  if (K < 2 || K > MAX_LAYERS || act < 0 || act > 2) return false;
+  net->K = K;
+  net->act = act;
+  net->d = layers[0];
+  if (net->d < 1 || net->d > MAX_DIM || layers[K] != 1) return false;
+  net->lap = lap;
+  net->S = net->d + 1 + net->lap;
+  net->wmax = 0;
+  int off = 0;
+  for (int k = 0; k <= K; ++k) net->w[k] = layers[k];
+  for (int k = 0; k < K; ++k) {
+    net->off[k] = off;
+    off += layers[k] * layers[k + 1] + layers[k + 1];
+  }
+  for (int k = 1; k < K; ++k) {
+    if (layers[k] < 4 || layers[k] > MAX_WIDTH || layers[k] % 4 != 0) return false;
+    if (layers[k] > net->wmax) net->wmax = layers[k];
+  }
+  net->P = off;
+  return true;
+}
+
 }  // namespace fwdlap
+
+// out[j] = sum_g partial[g][j], rows summed in order g = 0..G-1 in double
+// (defined once, in fused_step.cu; every kernel with per-block partial rows
+// ends with it).
+__global__ void reduce_rows_kernel(const float* __restrict__ partial, int G, int R,
+                                   float* __restrict__ out);

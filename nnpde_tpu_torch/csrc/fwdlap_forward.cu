@@ -1,0 +1,99 @@
+// Jet forward: (value, grad, Laplacian) of a raw MLP at every point.
+//
+// Replaces nnpde_tpu/kernels/fwdlap_pallas.py::_forward_kernel2 (the
+// VMEM-resident jet forward behind mlp_fwdlap_pallas, fwd_impl='pallas2'):
+// the forward-Laplacian recurrence over a tile of points, kept on chip,
+// with only the (N, d+2) jet written out.
+//
+// What bounds it on the H100: operations.  Per point the recurrence costs
+// (d+2)*sum(n_in*n_out) multiply-adds (2.50e4 at d = 2 on the
+// 2-64-64-64-64-1 net) against 8 bytes in and 16 bytes out, so the fp32
+// CUDA-core rate is the ceiling.  What the design does about it: the
+// per-tile core of the fused kernels (fwdlap_core.cuh: every layer one
+// shared-memory product over all d+2 streams, 4 x 4 register tiles,
+// weights staged by cp.async), with no saved stages (there is no reverse
+// sweep), so nothing but X and the jet touches device memory.
+//
+// Interface: plain C (ctypes), float32 only, weights flattened as
+// [W0, b0, W1, b1, ...] with row-major (in, out) W.  Launches on the given
+// stream, never synchronises, and returns cudaGetLastError().
+#include "fwdlap_core.cuh"
+
+using namespace fwdlap;
+
+namespace {
+
+struct FwdArgs {
+  Net net;
+  const float* X;
+  const float* params;
+  float* out;                 // (N, S): value, grad_0..grad_{d-1}, lap
+  int N, T, n_tiles;
+};
+
+}  // namespace
+
+__global__ void __launch_bounds__(NT) fwdlap_forward_kernel(FwdArgs A) {
+  extern __shared__ __align__(16) float smem[];
+  const Net& net = A.net;
+  const int T = A.T, d = net.d, S = net.S, ld = net.wmax;
+  float* bufA = smem;
+  float* bufB = bufA + S * T * ld;
+  float* Wsh = bufB + S * T * ld;
+  float* xs = Wsh + ld * ld;
+  float* proj = xs + T * d;               // projected streams, S x T
+  const float* wlast = A.params + net.off[net.K - 1];
+  const float blast = wlast[net.w[net.K - 1]];
+
+  for (int tile = blockIdx.x; tile < A.n_tiles; tile += gridDim.x) {
+    const int base = tile * T;
+    load_tile(A.X, A.N, d, base, T, xs);
+    __syncthreads();
+    float* cur = bufA;
+    float* nxt = bufB;
+    fwd_recompute(net, T, xs, A.params, cur, nxt, nullptr, Wsh, nullptr);
+    project_last(net, T, cur, wlast, blast, proj);
+    __syncthreads();
+    // out[(base + p) * S + s] = proj[s * T + p]: consecutive threads write
+    // consecutive floats of the tile's rows
+    for (int i = threadIdx.x; i < T * S; i += NT) {
+      const int p = i / S, s = i - p * S;
+      if (base + p < A.N) A.out[(size_t)(base + p) * S + s] = proj[s * T + p];
+    }
+    __syncthreads();
+  }
+}
+
+extern "C" {
+
+// X (N, d), params flat, out (N, d+2).  T points per tile, G blocks.
+int fwdlap_forward_f32(const float* X, const float* params, const int* layers,
+                       int n_layers, int act, int N, int T, int G, float* out,
+                       int smem_bytes, void* stream) {
+  FwdArgs a;
+  if (!make_net(1, layers, n_layers, act, &a.net) || N < 1 || T < 4 || T % 4 != 0 ||
+      G < 1)
+    return (int)cudaErrorInvalidValue;
+  a.X = X;
+  a.params = params;
+  a.out = out;
+  a.N = N;
+  a.T = T;
+  a.n_tiles = (N + T - 1) / T;
+  cudaError_t err = cudaFuncSetAttribute(
+      fwdlap_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  fwdlap_forward_kernel<<<G, NT, smem_bytes, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM at a dynamic shared-memory size.
+int fwdlap_forward_blocks_per_sm(int smem_bytes, int* blocks) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fwdlap_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fwdlap_forward_kernel,
+                                                             NT, smem_bytes);
+}
+
+}  // extern "C"

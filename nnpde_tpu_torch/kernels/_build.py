@@ -1,10 +1,12 @@
 """Build the CUDA kernels with ``nvcc`` on first use and load them with ctypes.
 
 The sources in ``nnpde_tpu_torch/csrc/`` have a plain C interface (no
-PyTorch headers), so one ``nvcc`` call builds a shared library in seconds.
-The library goes to ``nnpde_tpu_torch/_build/`` under a name that carries a
-hash of the sources, so an edited source is never served from a stale
-build; the compile goes to a temporary name first and is renamed into
+PyTorch headers).  Every ``.cu`` file is compiled to an object by its own
+``nvcc`` process, all started together, and one more ``nvcc`` call links
+the objects into a shared library, in seconds.  The library goes to
+``nnpde_tpu_torch/_build/`` under a name that carries a hash of the
+sources, so an edited source is never served from a stale build; the
+build goes to a temporary directory first and the library is renamed into
 place, so concurrent processes never load a half-written file.
 """
 
@@ -26,7 +28,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-# name -> argtypes of every C entry point of fused_step.cu
+# name -> argtypes of every C entry point of the csrc/*.cu files
 _SIGNATURES = {
     # X, coef, params, layers, n_layers, act, N, T, G, partial, scratch,
     # out, smem_bytes, stream
@@ -40,6 +42,16 @@ _SIGNATURES = {
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
     # mode, smem_bytes, int* blocks
     "fused_blocks_per_sm": [_I, _I, _P],
+    # fwdlap_forward.cu: X, params, layers, n_layers, act, N, T, G, out,
+    # smem_bytes, stream
+    "fwdlap_forward_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
+    "fwdlap_forward_blocks_per_sm": [_I, _P],
+    # fused_quotient.cu: kind, lap, X, coef, params, scal, layers, n_layers,
+    # act, N, T, G, partial, scratch, out, smem_bytes, stream
+    "fused_quotient_f32":
+        [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+    # kind, smem_bytes, int* blocks
+    "fused_quotient_blocks_per_sm": [_I, _I, _P],
 }
 
 _LIB = None
@@ -68,35 +80,47 @@ def library_path() -> Path:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(ARCH_FLAGS).encode())
-    return BUILD_DIR / f"libfused_step_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libnnpde_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile ``csrc/fused_step.cu`` unless the current build exists;
-    returns the library path.  ``BUILD_LOG`` keeps nvcc's ``-Xptxas -v``
-    report (registers, shared memory, spills) and the build time."""
+    """Compile every ``csrc/*.cu`` (one nvcc process each, in parallel) and
+    link them, unless the current build exists; returns the library path.
+    ``BUILD_LOG`` keeps nvcc's ``-Xptxas -v`` report (registers, shared
+    memory, spills) and the build time."""
     import time
 
     lib = library_path()
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
-           str(CSRC / "fused_step.cu")]
+    nvcc = _nvcc()
     t0 = time.time()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    BUILD_LOG.update(seconds=time.time() - t0, ptxas=proc.stderr)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c",
+                   "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", obj, str(src)]
+            procs.append((src.name, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        reports, failed = [], []
+        for name, _, proc in procs:
+            _, err = proc.communicate()
+            reports.append(f"== {name}\n{err}")
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {name} ({proc.returncode}):\n{err[-8000:]}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        out = os.path.join(tmp, lib.name)
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", out,
+                               *[obj for _, obj, _ in procs]],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stderr[-8000:]}")
+        os.replace(out, lib)
+    BUILD_LOG.update(seconds=time.time() - t0, ptxas="\n".join(reports))
     return lib
 
 

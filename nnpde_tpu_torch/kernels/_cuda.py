@@ -1,0 +1,111 @@
+"""What the wrappers of the CUDA kernels share.
+
+Launch counters, the checks on what a kernel takes, the flat parameter
+layout, the choice of tile and grid, and the call into the library built by
+:mod:`._build`.  Nothing here runs on a CPU tensor: the wrappers route
+those to their plain versions before they get here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+# Launches of each kernel: incremented where a wrapper launches it, and
+# nowhere else.  Reset with reset_launches().
+LAUNCHES = {
+    "fused_linear_residual": 0,
+    "fused_poisson_analytic": 0,
+    "fused_drm_energy": 0,
+    "fwdlap_forward": 0,
+    "linear_sums": 0,
+    "linear_seeded": 0,
+    "quad_sums": 0,
+    "quad_seeded": 0,
+}
+
+ACTS = {"sin": 0, "tanh": 1, "gelu": 2}
+NT = 256                      # threads per block (fwdlap_core.cuh)
+MAX_LAYERS, MAX_DIM, MAX_WIDTH = 16, 16, 128
+SMEM_CAP = 160 * 1024
+TILE = 16                     # points per tile (halved until shared memory fits)
+
+_OCCUPANCY = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def net_layers(name: str, params, X, activation: str, others=()):
+    """The layer sizes ``[d, w1, ..., 1]`` of ``params`` after checking
+    that the kernels take this net, these tensors and this activation."""
+    if activation not in ACTS:
+        raise ValueError(f"Unknown activation {activation!r}")
+    layers = [params[0][0].shape[0]] + [W.shape[1] for W, _ in params]
+    N, d = X.shape
+    if not (2 <= len(params) <= MAX_LAYERS and d <= MAX_DIM and layers[-1] == 1
+            and all(w <= MAX_WIDTH and w % 4 == 0 for w in layers[1:-1])):
+        raise ValueError(
+            f"{name}: the CUDA kernels take 2..{MAX_LAYERS} layers, d <= "
+            f"{MAX_DIM}, hidden widths that are multiples of 4 up to "
+            f"{MAX_WIDTH}, and one output; got layers {layers}")
+    for t in [X, *others, *[t for pair in params for t in pair]]:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: the CUDA kernels take float32, got {t.dtype}")
+        if t.device != X.device:
+            raise ValueError(f"{name}: all tensors must be on one device")
+    if N < 1:
+        raise ValueError(f"{name}: empty batch")
+    return layers
+
+
+def flat_params(params) -> torch.Tensor:
+    """``[W0, b0, W1, b1, ...]`` flattened into one contiguous vector."""
+    return torch.cat([t.detach().reshape(-1) for pair in params for t in pair])
+
+
+def plan_tile(smem_floats):
+    """``(T, smem bytes)``: the largest tile up to ``TILE`` points whose
+    shared memory, ``4 * smem_floats(T)`` bytes, fits the cap."""
+    T = TILE
+    while 4 * smem_floats(T) > SMEM_CAP and T > 4:
+        T //= 2
+    return T, 4 * smem_floats(T)
+
+
+def grid(name: str, query, smem: int, dev: torch.device, n_tiles: int) -> int:
+    """Blocks to launch: every resident slot of the card, at most one per
+    tile.  ``query(smem, int*)`` is the kernel's occupancy entry point."""
+    key = (name, smem, dev.index)
+    if key not in _OCCUPANCY:
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            err = query(smem, ctypes.addressof(blocks))
+        if err != 0:
+            raise RuntimeError(f"{name}: occupancy query failed (cuda error {err})")
+        if blocks.value < 1:
+            raise RuntimeError(f"{name}: {smem} B of shared memory per block does not fit")
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        _OCCUPANCY[key] = blocks.value * sms
+    return min(n_tiles, _OCCUPANCY[key])
+
+
+def layers_arg(layers):
+    return (ctypes.c_int * len(layers))(*layers)
+
+
+def stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def launch(name: str, fn, *args, dev: torch.device) -> None:
+    """Call one C entry point on ``dev`` and count the launch; raise on the
+    CUDA error it returns."""
+    with torch.cuda.device(dev):
+        err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed (cuda error {err})")
+    LAUNCHES[name] += 1

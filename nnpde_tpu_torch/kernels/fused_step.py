@@ -32,30 +32,22 @@ from typing import Sequence
 import torch
 
 from ..ops.fwdlap import mlp_fwdlap
-
-# Launches of each kernel: incremented where the wrapper launches it, and
-# nowhere else.  Reset with reset_launches().
-LAUNCHES = {
-    "fused_linear_residual": 0,
-    "fused_poisson_analytic": 0,
-    "fused_drm_energy": 0,
-}
+from . import _cuda
 
 _MODES = {"fused_linear_residual": 0, "fused_poisson_analytic": 1,
           "fused_drm_energy": 2}
-_ACTS = {"sin": 0, "tanh": 1, "gelu": 2}
-_NT = 256
-_MAX_LAYERS, _MAX_DIM, _MAX_WIDTH = 16, 16, 128
-_SMEM_CAP = 160 * 1024
-_TILE = 16          # points per tile (halved until shared memory fits)
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 # ---------------------------------------------------------------- coefficients
+def _full(x, shape, ref):
+    """``x`` broadcast to ``shape`` in ``ref``'s dtype and device.  A Python
+    number is filled in on the device: a host-to-device copy would wait for
+    the device."""
+    if isinstance(x, (int, float)):
+        return torch.full(shape, float(x), dtype=ref.dtype, device=ref.device)
+    return torch.broadcast_to(torch.as_tensor(x, dtype=ref.dtype, device=ref.device), shape)
+
+
 def residual_coefficients(factor_jet, *, c0=None, b0=None, a0=1.0, rhs=None,
                           e_lane=False):
     """The (N, d+4) coefficient stream for ``r = a0 lap(u) + b0.grad(u) +
@@ -64,15 +56,12 @@ def residual_coefficients(factor_jet, *, c0=None, b0=None, a0=1.0, rhs=None,
     B, gB, lB = factor_jet.value, factor_jet.grad, factor_jet.lap
     N, d = gB.shape
 
-    def full(x, shape):
-        return torch.broadcast_to(torch.as_tensor(x, dtype=B.dtype, device=B.device), shape)
-
     zero = torch.zeros((N,), dtype=B.dtype, device=B.device)
-    c0v = zero if c0 is None else full(c0, (N,))
-    a0v = full(a0, (N,))
-    rhsv = zero if rhs is None else full(rhs, (N,))
+    c0v = zero if c0 is None else _full(c0, (N,), B)
+    a0v = _full(a0, (N,), B)
+    rhsv = zero if rhs is None else _full(rhs, (N,), B)
     b0v = (torch.zeros((N, d), dtype=B.dtype, device=B.device) if b0 is None
-           else full(b0, (N, d)))
+           else _full(b0, (N, d), B))
     a = a0v * B
     b = a0v[:, None] * 2.0 * gB + b0v * B[:, None]
     c = a0v * lB + torch.sum(b0v * gB, dim=1) + c0v * B
@@ -84,8 +73,7 @@ def drm_coefficients(factor_jet, f=None):
     """(N, d+2) coefficients of the fused DRM energy: ``[B, dB_0.., f]``."""
     B, gB = factor_jet.value, factor_jet.grad
     N = B.shape[0]
-    fv = (torch.zeros((N,), dtype=B.dtype, device=B.device) if f is None
-          else torch.broadcast_to(torch.as_tensor(f, dtype=B.dtype, device=B.device), (N,)))
+    fv = torch.zeros((N,), dtype=B.dtype, device=B.device) if f is None else _full(f, (N,), B)
     return torch.cat([B[:, None], gB, fv[:, None]], dim=1)
 
 
@@ -185,15 +173,13 @@ def drm_energy_plain(params, X, coef, activation: str):
 
 # ------------------------------------------------------------ CUDA launcher
 def _plan(kind: str, layers, T: int):
-    """Shared memory per block for a tile of T points (see fused_step.cu)."""
+    """Shared-memory floats per block for a tile of T points (the layout of
+    fused_step.cu's fused_body)."""
     d = layers[0]
     S = d + (1 if kind == "fused_drm_energy" else 2)
     wmax = max(layers[1:-1])
-    return 4 * (3 * S * T * wmax + wmax * wmax + T * d + (d + 2) * T + 3 * T
-                + S * T + _NT)
-
-
-_OCCUPANCY = {}
+    return (3 * S * T * wmax + wmax * wmax + T * d + (d + 2) * T + 3 * T
+            + S * T + _cuda.NT)
 
 
 def _launch(kind: str, params, X, coef, activation: str, analytic=None):
@@ -202,75 +188,40 @@ def _launch(kind: str, params, X, coef, activation: str, analytic=None):
     from . import _build
 
     lib = _build.load()
-    if activation not in _ACTS:
-        raise ValueError(f"Unknown activation {activation!r}")
-    layers = [params[0][0].shape[0]] + [W.shape[1] for W, _ in params]
+    layers = _cuda.net_layers(kind, params, X, activation,
+                              () if coef is None else (coef,))
     N, d = X.shape
     K = len(params)
-    if not (2 <= K <= _MAX_LAYERS and d <= _MAX_DIM and layers[-1] == 1
-            and all(w <= _MAX_WIDTH and w % 4 == 0 for w in layers[1:-1])):
-        raise ValueError(
-            f"fused kernels take 2..{_MAX_LAYERS} layers, d <= {_MAX_DIM}, "
-            f"hidden widths that are multiples of 4 up to {_MAX_WIDTH}, and "
-            f"one output; got layers {layers}")
-    tensors = [X] + ([coef] if coef is not None else []) + [
-        t for pair in params for t in pair]
-    for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"CUDA fused kernels take float32, got {t.dtype}")
-        if t.device != X.device:
-            raise ValueError("X, coef and params must be on one device")
-    if N < 1:
-        raise ValueError("empty batch")
     X = X.contiguous()
-    flat = torch.cat([t.reshape(-1) for pair in params for t in pair]).contiguous()
+    flat = _cuda.flat_params(params)
     P = flat.numel()
-    T = _TILE
-    while _plan(kind, layers, T) > _SMEM_CAP and T > 4:
-        T //= 2
-    smem = _plan(kind, layers, T)
+    T, smem = _cuda.plan_tile(lambda t: _plan(kind, layers, t))
     mode = _MODES[kind]
     dev = X.device
-    key = (mode, smem, dev.index)
-    if key not in _OCCUPANCY:
-        blocks = ctypes.c_int(0)
-        with torch.cuda.device(dev):
-            err = lib.fused_blocks_per_sm(mode, smem, ctypes.addressof(blocks))
-        if err != 0:
-            raise RuntimeError(f"{kind}: occupancy query failed (cuda error {err})")
-        if blocks.value < 1:
-            raise RuntimeError(f"{kind}: {smem} B of shared memory per block does not fit")
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        _OCCUPANCY[key] = blocks.value * sms
-    n_tiles = (N + T - 1) // T
-    G = min(n_tiles, _OCCUPANCY[key])
+    G = _cuda.grid(kind, lambda sm, ptr: lib.fused_blocks_per_sm(mode, sm, ptr),
+                   smem, dev, (N + T - 1) // T)
     S = d + (1 if kind == "fused_drm_energy" else 2)
     wmax = max(layers[1:-1])
     partial = torch.empty((G, P + 3), dtype=torch.float32, device=dev)
     scratch = torch.empty((G, max(K - 2, 1) * S * T * wmax), dtype=torch.float32,
                           device=dev)
     out = torch.empty((P + 3,), dtype=torch.float32, device=dev)
-    lay = (ctypes.c_int * len(layers))(*layers)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    common = (ctypes.addressof(lay), len(layers), _ACTS[activation], N, T, G)
-    tail = (partial.data_ptr(), scratch.data_ptr(), out.data_ptr(), smem, stream)
-    with torch.cuda.device(dev):
-        if kind == "fused_linear_residual":
-            coef = coef.contiguous()
-            err = lib.fused_linear_residual_f32(
-                X.data_ptr(), coef.data_ptr(), flat.data_ptr(), *common, *tail)
-        elif kind == "fused_drm_energy":
-            coef = coef.contiguous()
-            err = lib.fused_drm_energy_f32(
-                X.data_ptr(), coef.data_ptr(), flat.data_ptr(), *common, *tail)
-        else:
-            an = (ctypes.c_float * (3 + d))(*analytic)
-            err = lib.fused_poisson_analytic_f32(
-                X.data_ptr(), flat.data_ptr(), *common,
-                ctypes.addressof(an), *tail)
-    if err != 0:
-        raise RuntimeError(f"{kind}: kernel launch failed (cuda error {err})")
-    LAUNCHES[kind] += 1
+    lay = _cuda.layers_arg(layers)
+    common = (ctypes.addressof(lay), len(layers), _cuda.ACTS[activation], N, T, G)
+    tail = (partial.data_ptr(), scratch.data_ptr(), out.data_ptr(), smem,
+            _cuda.stream(dev))
+    if kind == "fused_linear_residual":
+        coef = coef.contiguous()
+        _cuda.launch(kind, lib.fused_linear_residual_f32, X.data_ptr(),
+                     coef.data_ptr(), flat.data_ptr(), *common, *tail, dev=dev)
+    elif kind == "fused_drm_energy":
+        coef = coef.contiguous()
+        _cuda.launch(kind, lib.fused_drm_energy_f32, X.data_ptr(),
+                     coef.data_ptr(), flat.data_ptr(), *common, *tail, dev=dev)
+    else:
+        an = (ctypes.c_float * (3 + d))(*analytic)
+        _cuda.launch(kind, lib.fused_poisson_analytic_f32, X.data_ptr(),
+                     flat.data_ptr(), *common, ctypes.addressof(an), *tail, dev=dev)
     return out
 
 

@@ -17,10 +17,12 @@ from .mlp import NetSpec, init_mlp, mlp_apply_batch, mlp_apply_point
 from .trial import SeparableFactor
 
 
-def _no_impl(impl: str):
-    return NotImplementedError(
-        f"impl={impl!r}: this port has impl='torch' only; the jet kernel pair "
-        "(_forward_kernel2/_backward_kernel) arrives with ROADMAP B5")
+def _check_impl(impl: str) -> None:
+    if impl not in ("torch", "kernel"):
+        raise NotImplementedError(
+            f"impl={impl!r}: this port has impl='torch' (the recurrence "
+            "under autograd) and impl='kernel' (the jet-forward kernel, "
+            "no backward until ROADMAP B5)")
 
 
 class SolutionModel:
@@ -52,10 +54,17 @@ class SolutionModel:
 
     def fields(self, params, X, impl: str = "torch") -> Jet:
         """(u, grad u, lap u) over the collocation batch by the
-        forward-Laplacian recurrence."""
-        if impl != "torch":
-            raise _no_impl(impl)
-        jet = mlp_fwdlap(params, X, self.spec.activation)
+        forward-Laplacian recurrence: ``impl='torch'`` differentiable
+        through autograd, ``impl='kernel'`` through the jet-forward kernel
+        (:func:`~nnpde_tpu_torch.kernels.mlp_fwdlap_kernel`, forward
+        only)."""
+        _check_impl(impl)
+        if impl == "kernel":
+            from ..kernels import mlp_fwdlap_kernel
+
+            jet = mlp_fwdlap_kernel(params, X, self.spec.activation)
+        else:
+            jet = mlp_fwdlap(params, X, self.spec.activation)
         if self.factor is not None:
             jet = compose_product_jet(jet, self.factor.jet(X))
         return jet
@@ -68,10 +77,14 @@ class SolutionModel:
         return Jet(value=u, grad=g, lap=l)
 
     def value_and_grad(self, params, X, impl: str = "torch"):
-        """(u, grad u) without the Laplacian (DRM paths), by reverse-mode
-        autodiff vmapped over the batch."""
-        if impl != "torch":
-            raise _no_impl(impl)
+        """(u, grad u) without the Laplacian (DRM / WAN paths): by
+        reverse-mode autodiff vmapped over the batch, or with
+        ``impl='kernel'`` from the jet-forward kernel, dropping the
+        Laplacian."""
+        _check_impl(impl)
+        if impl == "kernel":
+            jet = self.fields(params, X, impl="kernel")
+            return jet.value, jet.grad
         return calculus.batched_value_and_grad_x(
             lambda x: self.apply_point(params, x)
         )(X)

@@ -1,4 +1,5 @@
 from . import calculus
+from .bump import BUMP_I1, bump_w, bump_w_1d_jet
 from .fwdlap import (
     Jet,
     activation_jet,
@@ -9,6 +10,9 @@ from .fwdlap import (
 )
 
 __all__ = [
+    "BUMP_I1",
+    "bump_w",
+    "bump_w_1d_jet",
     "calculus",
     "Jet",
     "activation_jet",

@@ -1,19 +1,23 @@
-"""N-D Poisson preset: PINN / DRM on ``[0, L]^d``.
+"""N-D Poisson preset: PINN / DRM / WAN on ``[0, L]^d``.
 
 Counterpart of ``nnpde_tpu/problems/poisson.py``, with the same
 :class:`PoissonConfig` fields and defaults:
 
-* methods PINN (strong residual) and DRM (energy); bc modes FBC (hard
-  ``prod x_i (L - x_i)`` trial) and RB (soft penalty on fresh per-face
-  samples each epoch);
+* methods PINN (strong residual), DRM (energy) and WAN (minimax against a
+  bump-windowed critic, fresh points for every critic and primal step);
+  bc modes FBC (hard ``prod x_i (L - x_i)`` trial) and RB (soft penalty on
+  fresh per-face samples each epoch);
 * default weights ``{pde: 1, bc: 1e4 if RB, data: 1e3 if n_data, norm: 0}``;
 * per-epoch eval on fresh uniform points, RMSE vs the manufactured
   solution, best-state tracking.
 
 ``jet_impl``: ``'torch'`` (the forward-Laplacian recurrence under autograd,
-the counterpart of ``'xla'``) or ``'fused'`` (the one-pass CUDA loss+grad
-kernels of :mod:`nnpde_tpu_torch.kernels.fused_step`, the counterpart of
-``'pallas-fused'``; on CPU tensors their plain versions).
+the counterpart of ``'xla'``) or ``'fused'`` (the counterpart of
+``'pallas-fused'``: the one-pass CUDA loss+grad kernels of
+:mod:`nnpde_tpu_torch.kernels.fused_step` for PINN and DRM; for WAN the
+jet-forward kernel and the two-pass kernels of
+:mod:`nnpde_tpu_torch.kernels.fused_quotient`; on CPU tensors their plain
+versions).
 """
 
 from __future__ import annotations
@@ -29,16 +33,27 @@ from ..kernels import (
     fused_drm_energy,
     fused_linear_residual,
     fused_poisson_analytic,
+    make_fused_quad_mean,
+    quotient_coefficients,
     residual_coefficients,
 )
-from ..losses import data_mse, drm_poisson_energy, norm_nontrivial, pinn_poisson
+from ..losses import (
+    data_mse,
+    drm_poisson_energy,
+    norm_nontrivial,
+    pinn_poisson,
+    wan_pde_loss,
+    wan_weak_residual,
+)
 from ..models import NetSpec, SolutionModel, factor_for_technique
+from ..ops import bump_w
 from ..ops.fwdlap import constant_jet
 from ..pde import poisson as phys
 from ..pde.domain import Box
 from ..prng import fold_in, generator, split
 from ..sampling import face_points, shifted_qmc, sobol_unit, uniform_box
-from ..train import fit, make_optimizer
+from ..train import fit, fit_wan, make_optimizer, make_wan_optimizers
+from ._fused_wan import factor_jet_or_one, make_fused_wan_pair
 
 
 @dataclasses.dataclass
@@ -126,12 +141,14 @@ def _exact_fns(cfg: PoissonConfig):
     raise ValueError("solution must be 'sin' or 'cos'")
 
 
+def _critic_model(cfg: PoissonConfig) -> SolutionModel:
+    layers = (cfg.dim,) + (cfg.critic_width,) * (cfg.critic_depth - 1) + (1,)
+    return SolutionModel(NetSpec(layers, activation="sin"))
+
+
 def _validate(cfg: PoissonConfig) -> None:
     if cfg.method not in ("PINN", "DRM", "WAN"):
         raise ValueError("method must be one of {'PINN','DRM','WAN'}")
-    if cfg.method == "WAN":
-        raise NotImplementedError(
-            "method='WAN' arrives with ROADMAP A7 (fit_wan, ops/bump.py)")
     if cfg.compute_dtype not in ("float32", "bfloat16", "hybrid",
                                  "hybrid-kernel"):
         raise ValueError("compute_dtype must be 'float32', 'bfloat16', "
@@ -257,6 +274,11 @@ def train_poisson_nd(cfg: PoissonConfig, device="cuda") -> Dict:
                  + w["norm"] * norm + w["mean"] * mean_pen)
         return total, {"pde": pde, "bc": bc, "data": data, "norm": norm}
 
+    if cfg.method == "WAN":
+        result = _fit_wan(cfg, model, params, dev, w, ks, rhs_f, draw_interior,
+                          aux_terms, eval_fn, k_init, k_train, chunk)
+        return _report(cfg, model, result)
+
     def factor_jet_at(X_cur):
         if model.factor is not None:
             return model.factor.jet(X_cur)
@@ -319,7 +341,82 @@ def train_poisson_nd(cfg: PoissonConfig, device="cuda") -> Dict:
     else:
         result = fit(loss_fn, eval_fn, params, epochs=cfg.epochs,
                      optimizer=optimizer, key=k_train, chunk=chunk)
+    return _report(cfg, model, result)
 
+
+def _fit_wan(cfg, model, params, dev, w, ks, rhs_f, draw_interior, aux_terms,
+             eval_fn, k_init, k_train, chunk):
+    """The WAN minimax: the critic maximises the weak residual quotient
+    against the bump-windowed test function ``phi = w * v`` (objective
+    ``-log(loss_pde) + reg * mean(|grad v|^2 + v^2)``), the primal
+    minimises it; every critic and primal step draws fresh points."""
+    critic = _critic_model(cfg)
+    v_params = critic.init(generator(fold_in(k_init, 1), dev))
+    fused = cfg.jet_impl == "fused"
+    if fused:
+        # two-pass fused WAN: the Poisson weak form rides the rhs lane
+        # (-f*phi), the critic regulariser mean(|grad v|^2 + v^2) the fused
+        # quadratic mean (V = 1/2, weight = 2*reg)
+        pair = make_fused_wan_pair(model, critic, w_pde=w["pde"], prefactor=1.0)
+        quad_reg = (make_fused_quad_mean(critic.spec.activation,
+                                         weight=2.0 * cfg.wan_reg)
+                    if cfg.wan_reg else None)
+        E_zero = torch.zeros((), device=dev)
+    need_u = w["norm"] > 0 or w["mean"] > 0
+
+    def wan_core(u_params, v_params, X, f):
+        u, gu = model.value_and_grad(u_params, X)
+        v, gv = critic.value_and_grad(v_params, X)
+        wv, dwv = bump_w(X, 0.0, cfg.L)
+        phi = wv * v
+        gphi = dwv * v[:, None] + wv[:, None] * gv
+        weak = wan_weak_residual(gu, phi, gphi, f=f, prefactor=1.0)
+        phi_norm = torch.mean(phi ** 2)
+        return wan_pde_loss(weak, phi_norm), weak, phi_norm, u, v, gv
+
+    def v_loss_fn(v_params, u_params, key):
+        Xc = draw_interior(key)
+        fc = rhs_f(Xc, cfg.L, ks)
+        if fused:
+            wv, dwv = bump_w(Xc, 0.0, cfg.L)
+            lv, _ = pair.v_loss_fn(v_params, u_params, E_zero, Xc, wv, dwv, f=fc)
+            if quad_reg is not None:
+                coef_r = quotient_coefficients(factor_jet_or_one(critic, Xc), V=0.5)
+                reg2, _ = quad_reg(v_params, Xc, coef_r)
+                lv = lv + reg2
+            return lv
+        loss_pde, _, _, _, v, gv = wan_core(u_params, v_params, Xc, fc)
+        v_reg = torch.mean(torch.sum(gv * gv, dim=-1) + v * v)
+        return -torch.log(loss_pde + 1e-8) + cfg.wan_reg * v_reg
+
+    def u_loss_fn(u_params, v_params, key):
+        Xu = draw_interior(key)
+        fu = rhs_f(Xu, cfg.L, ks)
+        if fused:
+            wv, dwv = bump_w(Xu, 0.0, cfg.L)
+            pde_w, aux = pair.u_pde_fn(u_params, E_zero, v_params, Xu, wv, dwv, f=fu)
+            loss_pde, weak, phi_norm = aux["pde_loss"], aux["weak_residual"], aux["phi_norm"]
+            u_int = model.apply_batch(u_params, Xu) if need_u else None
+        else:
+            loss_pde, weak, phi_norm, u_int, _, _ = wan_core(u_params, v_params, Xu, fu)
+            pde_w = w["pde"] * loss_pde
+        bc, data, norm, mean_pen = aux_terms(u_params, fold_in(key, 7), u_int)
+        total = (pde_w + w["bc"] * bc + w["data"] * data + w["norm"] * norm
+                 + w["mean"] * mean_pen)
+        return total, {"pde": loss_pde, "bc": bc, "data": data, "norm": norm,
+                       "wan_weak": weak, "wan_phi_norm": phi_norm}
+
+    u_opt, v_opt = make_wan_optimizers(
+        cfg.lr, v_lr=cfg.v_lr, schedule=cfg.lr_schedule, epochs=cfg.epochs,
+        v_steps=cfg.critic_steps)
+    return fit_wan(u_loss_fn, v_loss_fn, eval_fn, params, v_params,
+                   epochs=cfg.epochs, v_steps=cfg.critic_steps, u_optimizer=u_opt,
+                   v_optimizer=v_opt, key=k_train,
+                   chunk=min(chunk, runtime.pallas_chunk_cap()),
+                   minimax=cfg.minimax, u_ema=cfg.u_ema)
+
+
+def _report(cfg, model, result) -> Dict:
     # rms of the manufactured solution: mean(sin^2) = 1/2 per dimension
     rms_exact = 0.5 ** (cfg.dim / 2.0)
     return {

@@ -13,17 +13,17 @@ import torch
 from ..pde.domain import Box
 
 
-def _bounds(box: Box, dtype, device):
-    lo = torch.tensor(box.lo, dtype=dtype, device=device)
-    hi = torch.tensor(box.hi, dtype=dtype, device=device)
-    return lo, hi
+def _to_box(u, box: Box):
+    """``lo + u * (hi - lo)`` per column, with the bounds as Python numbers:
+    no host-to-device copy (a copy from the host waits for the device)."""
+    return torch.stack([lo + u[:, i] * (hi - lo)
+                        for i, (lo, hi) in enumerate(zip(box.lo, box.hi))], dim=1)
 
 
 def uniform_box(gen: torch.Generator, n: int, box: Box, dtype=torch.float32):
     """n uniform points in the box — (n, d), on the generator's device."""
-    lo, hi = _bounds(box, dtype, gen.device)
     u = torch.rand((n, box.dim), generator=gen, dtype=dtype, device=gen.device)
-    return lo + u * (hi - lo)
+    return _to_box(u, box)
 
 
 def sobol_unit(seed: int, n: int, d: int, dtype=torch.float32, device="cpu"):
@@ -39,9 +39,7 @@ def shifted_qmc(u_base, gen: torch.Generator, box: Box):
     Sobol base set with a fresh uniform shift per call."""
     shift = torch.rand((u_base.shape[-1],), generator=gen,
                        dtype=u_base.dtype, device=u_base.device)
-    u = torch.remainder(u_base + shift, 1.0)
-    lo, hi = _bounds(box, u_base.dtype, u_base.device)
-    return lo + u * (hi - lo)
+    return _to_box(torch.remainder(u_base + shift, 1.0), box)
 
 
 def face_points(gen: torch.Generator, n_per_face: int, box: Box,

@@ -102,6 +102,26 @@ class ScheduledAdam:
         for group in opt.param_groups:
             group["lr"] = lr
 
+    def lookahead(self, opt: torch.optim.Optimizer, count: int, tensors, grads):
+        """``tensors`` one update along ``grads`` further, without touching
+        ``opt``: optax's ``update`` on a copy of the state (the
+        extragradient lookahead).  ``count``: updates made so far."""
+        b1, b2 = self.betas
+        lr = float(self.schedule(count))
+        step = count + 1
+        out = []
+        for t, g in zip(tensors, grads):
+            state = opt.state.get(t, {})
+            m = (1.0 - b1) * g
+            v = (1.0 - b2) * g * g
+            if "exp_avg" in state:
+                m = m + b1 * state["exp_avg"]
+                v = v + b2 * state["exp_avg_sq"]
+            m_hat = m / (1.0 - b1 ** step)
+            v_hat = v / (1.0 - b2 ** step)
+            out.append(t.detach() - lr * m_hat / (torch.sqrt(v_hat) + self.eps))
+        return out
+
 
 def make_optimizer(
     lr: float,
@@ -130,3 +150,18 @@ def make_optimizer(
         sched = join_schedules([linear_schedule(0.0, lr, warmup), sched],
                                [warmup])
     return ScheduledAdam(sched)
+
+
+def make_wan_optimizers(lr: float, *, v_lr: float | None = None,
+                        schedule: str = "constant", epochs: int, v_steps: int,
+                        decay_steps: int = 0, **kw):
+    """Consistent (primal, critic) optimizer pair for ``fit_wan``: the
+    critic takes ``v_steps`` updates per epoch, so its schedule horizon is
+    ``epochs * v_steps`` (and its ``decay_steps`` hold ``decay_steps *
+    v_steps``).  ``v_lr``: a faster critic (two-timescale GDA)."""
+    u_opt = make_optimizer(lr, schedule=schedule, total_steps=epochs,
+                           decay_steps=decay_steps, **kw)
+    v_opt = make_optimizer(v_lr if v_lr is not None else lr, schedule=schedule,
+                           total_steps=epochs * v_steps,
+                           decay_steps=decay_steps * v_steps, **kw)
+    return u_opt, v_opt

@@ -10,7 +10,7 @@ over a chunk of epochs becomes a Python loop; what the scan bought is kept:
 * the history is collected as device scalars and moved to the host once
   per chunk.
 
-``fit_wan`` (the WAN minimax) arrives with ROADMAP item A7.
+:func:`fit_wan` is the WAN minimax on the same discipline.
 """
 
 from __future__ import annotations
@@ -32,6 +32,8 @@ class FitResult(NamedTuple):
     best_metric: float
     best_epoch: int
     history: Dict[str, np.ndarray]   # per-epoch metric curves (host)
+    v_params: Any = None             # WAN critic final params
+    best_v_params: Any = None        # WAN critic at the best epoch
     carry: Any = None                # full train state (resume support)
     timing: Optional[Dict[str, float]] = None
 
@@ -49,9 +51,40 @@ def _pairs(leaves):
     return [(leaves[i], leaves[i + 1]) for i in range(0, len(leaves), 2)]
 
 
+def _trainable(params):
+    return [t.detach().clone().requires_grad_(True) for W, b in params for t in (W, b)]
+
+
+class _History:
+    """Per-epoch metrics buffered as device scalars and moved to the host
+    once every ``chunk`` epochs (the loop's only host sync)."""
+
+    def __init__(self, chunk: int):
+        self.chunk = min(chunk, runtime.scan_chunk_cap())
+        self.parts: Dict[str, list] = {}
+        self.buf: Dict[str, list] = {}
+
+    def add(self, i: int, epochs: int, row: Dict[str, torch.Tensor]) -> None:
+        for name, v in row.items():
+            self.buf.setdefault(name, []).append(v.detach().reshape(()).to(torch.float32))
+        if (i + 1) % self.chunk == 0 or i + 1 == epochs:
+            for name, vals in self.buf.items():
+                self.parts.setdefault(name, []).append(torch.stack(vals).cpu().numpy())
+            self.buf.clear()
+
+    def result(self) -> Dict[str, np.ndarray]:
+        return {n: np.concatenate(v) for n, v in self.parts.items()}
+
+
+def _adam_step(optimizer: ScheduledAdam, opt, leaves, grads, count: int) -> None:
+    for t, g in zip(leaves, grads):
+        t.grad = g.detach()
+    optimizer.set_lr(opt, count)
+    opt.step()
+
+
 def _init_carry(params, optimizer: ScheduledAdam) -> Carry:
-    leaves = [t.detach().clone().requires_grad_(True)
-              for W, b in params for t in (W, b)]
+    leaves = _trainable(params)
     dev = leaves[0].device
     return Carry(
         leaves=leaves,
@@ -87,19 +120,11 @@ def fit(
     """
     if epochs > 0 and chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-    chunk = min(chunk, runtime.scan_chunk_cap())
     carry = init_carry if init_carry is not None else _init_carry(params, optimizer)
     leaves, opt, count = carry.leaves, carry.opt, carry.count
     best_m, best_leaves, best_e = carry.best_m, carry.best_leaves, carry.best_e
     dev = leaves[0].device
-    parts: Dict[str, list] = {}
-    buf: Dict[str, list] = {}
-
-    def flush():
-        for name, vals in buf.items():
-            parts.setdefault(name, []).append(
-                torch.stack(vals).detach().cpu().numpy())
-        buf.clear()
+    hist = _History(chunk)
 
     t0 = time.time()
     for i in range(epochs):
@@ -112,10 +137,7 @@ def fit(
         else:
             loss, metrics = loss_fn(p, k)
             grads = torch.autograd.grad(loss, leaves)
-        for t, g in zip(leaves, grads):
-            t.grad = g.detach()
-        optimizer.set_lr(opt, count)
-        opt.step()
+        _adam_step(optimizer, opt, leaves, grads, count)
         count += 1
         with torch.no_grad():
             m = eval_fn(_pairs(leaves), fold_in(k, 0x5EED)).to(torch.float32)
@@ -123,20 +145,14 @@ def fit(
             best_leaves = [torch.where(improved, t, bt)
                            for t, bt in zip(leaves, best_leaves)]
             best_m = torch.where(improved, m, best_m)
-            best_e = torch.where(improved, torch.tensor(epoch, device=dev), best_e)
-        row = {name: v.detach() for name, v in metrics.items()}
-        row["total"] = loss.detach()
-        row["l2"] = m
-        for name, v in row.items():
-            buf.setdefault(name, []).append(v.reshape(()).to(torch.float32))
-        if (i + 1) % chunk == 0 or i + 1 == epochs:
-            flush()
+            best_e = torch.where(improved, torch.full((), epoch, device=dev), best_e)
+        hist.add(i, epochs, {**metrics, "total": loss, "l2": m})
     for t in leaves:
         t.grad = None
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     elapsed = time.time() - t0
-    history = {n: np.concatenate(v) for n, v in parts.items()}
+    history = hist.result()
     carry = Carry(leaves, opt, count, best_m, best_leaves, best_e)
     return FitResult(
         params=[(W.detach(), b.detach()) for W, b in _pairs(leaves)],
@@ -144,6 +160,174 @@ def fit(
         best_metric=float(best_m),
         best_epoch=int(best_e),
         history=history,
+        carry=carry,
+        timing={"elapsed_s": elapsed,
+                "steps_per_s": epochs / elapsed if elapsed > 0 else float("nan")},
+    )
+
+
+class WanCarry(NamedTuple):
+    u_leaves: list
+    v_leaves: list
+    u_opt: torch.optim.Optimizer
+    v_opt: torch.optim.Optimizer
+    u_count: int
+    v_count: int
+    best_m: torch.Tensor
+    best_u: list
+    best_v: list
+    best_e: torch.Tensor
+    ema: list                        # EMA of the primal leaves
+    prev_g: Any                      # previous (u, v) gradients (OGDA)
+
+
+def _detached(leaves):
+    return _pairs([t.detach() for t in leaves])
+
+
+def fit_wan(
+    u_loss_fn: Callable,             # (u_params, v_params, key) -> (scalar, metrics)
+    v_loss_fn: Callable,             # (v_params, u_params or context, key) -> scalar
+    eval_fn: Callable,               # (u_params, key) -> scalar
+    u_params,
+    v_params,
+    *,
+    epochs: int,
+    v_steps: int,
+    u_optimizer: ScheduledAdam,
+    v_optimizer: ScheduledAdam,
+    key: int,
+    chunk: int = 500,
+    init_carry: Optional[WanCarry] = None,
+    start_epoch: int = 0,
+    minimax: str = "alternating",    # alternating | extragradient | optimistic
+    u_ema: float = 0.0,              # > 0: track an EMA of u and eval it too
+    v_context_fn: Optional[Callable] = None,
+) -> FitResult:
+    """The WAN minimax: per epoch ``v_steps`` critic updates then one primal
+    update (counterpart of ``nnpde_tpu/train/trainer.py::fit_wan``).
+
+    ``minimax``: ``alternating`` (critic steps, then the primal step);
+    ``extragradient`` (after ``v_steps - 1`` critic steps, gradients at
+    (u, v) give a lookahead (u', v') with the optimizer states untouched,
+    and the real update applies the gradients at (u', v')); ``optimistic``
+    (OGDA: the optimizer consumes ``2 g_t - g_{t-1}``).  ``u_ema > 0`` also
+    tracks ``ema = d*ema + (1-d)*u`` and lets the best snapshot take the
+    averaged iterate.  ``v_context_fn(u_params, key)``: what the critic
+    objective needs from the frozen primal, computed once per epoch (and at
+    the extragradient lookahead); ``v_loss_fn`` then receives it in place of
+    ``u_params``.  Each objective is differentiated in its own net only:
+    the other net's params come detached.
+    """
+    if minimax not in ("alternating", "extragradient", "optimistic"):
+        raise ValueError(f"Unknown minimax mode {minimax!r}")
+    if epochs > 0 and chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if v_context_fn is None:
+        def v_context_fn(u_params, key):
+            return u_params
+    if init_carry is None:
+        u_leaves, v_leaves = _trainable(u_params), _trainable(v_params)
+        dev = u_leaves[0].device
+        carry = WanCarry(
+            u_leaves, v_leaves, u_optimizer.init(u_leaves), v_optimizer.init(v_leaves),
+            0, 0, torch.tensor(float("inf"), dtype=torch.float32, device=dev),
+            [t.detach().clone() for t in u_leaves], [t.detach().clone() for t in v_leaves],
+            torch.tensor(-1, dtype=torch.int64, device=dev),
+            [t.detach().clone() for t in u_leaves],
+            ([torch.zeros_like(t) for t in u_leaves], [torch.zeros_like(t) for t in v_leaves]))
+    else:
+        carry = init_carry
+    (u_leaves, v_leaves, u_opt, v_opt, u_count, v_count, best_m, best_u, best_v,
+     best_e, ema, prev_g) = carry
+    dev = u_leaves[0].device
+    n_plain = v_steps if minimax == "alternating" else v_steps - 1
+    hist = _History(chunk)
+
+    def u_grad(u_lv, v_p, k):
+        (loss, metrics) = u_loss_fn(_pairs(u_lv), v_p, k)
+        return loss, metrics, torch.autograd.grad(loss, u_lv)
+
+    def v_grad(v_lv, ctx, k):
+        loss = v_loss_fn(_pairs(v_lv), ctx, k)
+        return loss.detach(), torch.autograd.grad(loss, v_lv)
+
+    t0 = time.time()
+    for i in range(epochs):
+        epoch = start_epoch + i
+        k = fold_in(key, epoch)
+        v_ctx = v_context_fn(_detached(u_leaves), k)
+        last_v_loss = torch.zeros((), device=dev)
+        for j in range(max(n_plain, 0)):
+            last_v_loss, gv = v_grad(v_leaves, v_ctx, fold_in(k, j))
+            _adam_step(v_optimizer, v_opt, v_leaves, gv, v_count)
+            v_count += 1
+        uk, vk = fold_in(k, 0x0A11CE), fold_in(k, 0x0C8171C)
+        if minimax == "alternating":
+            loss, metrics, gu = u_grad(u_leaves, _detached(v_leaves), uk)
+            _adam_step(u_optimizer, u_opt, u_leaves, gu, u_count)
+            u_count += 1
+        elif minimax == "extragradient":
+            _, _, gu1 = u_grad(u_leaves, _detached(v_leaves), uk)
+            last_v_loss, gv1 = v_grad(v_leaves, v_ctx, vk)
+            u_bar = [t.requires_grad_(True) for t in
+                     u_optimizer.lookahead(u_opt, u_count, u_leaves, gu1)]
+            v_bar = [t.requires_grad_(True) for t in
+                     v_optimizer.lookahead(v_opt, v_count, v_leaves, gv1)]
+            loss, metrics, gu2 = u_grad(u_bar, _detached(v_bar), uk)
+            _, gv2 = v_grad(v_bar, v_context_fn(_detached(u_bar), vk), vk)
+            _adam_step(u_optimizer, u_opt, u_leaves, gu2, u_count)
+            _adam_step(v_optimizer, v_opt, v_leaves, gv2, v_count)
+            u_count += 1
+            v_count += 1
+        else:  # optimistic (OGDA)
+            loss, metrics, gu = u_grad(u_leaves, _detached(v_leaves), uk)
+            last_v_loss, gv = v_grad(v_leaves, v_ctx, vk)
+            pgu, pgv = prev_g
+            _adam_step(u_optimizer, u_opt, u_leaves,
+                       [2.0 * g - p for g, p in zip(gu, pgu)], u_count)
+            _adam_step(v_optimizer, v_opt, v_leaves,
+                       [2.0 * g - p for g, p in zip(gv, pgv)], v_count)
+            u_count += 1
+            v_count += 1
+            prev_g = (list(gu), list(gv))
+        with torch.no_grad():
+            m = eval_fn(_pairs(u_leaves), fold_in(k, 0x5EED)).to(torch.float32)
+            row = {**metrics, "total": loss, "l2": m}
+            cand = u_leaves
+            if u_ema > 0.0:
+                # warmup-corrected decay so early epochs average properly
+                dcy = min(u_ema, (epoch + 1.0) / (epoch + 10.0))
+                ema = [dcy * e + (1.0 - dcy) * t for e, t in zip(ema, u_leaves)]
+                m_ema = eval_fn(_pairs(ema), fold_in(k, 0x3333)).to(torch.float32)
+                use_ema = m_ema < m
+                m_eff = torch.where(use_ema, m_ema, m)
+                cand = [torch.where(use_ema, e, t) for e, t in zip(ema, u_leaves)]
+                row["l2_ema"] = m_ema
+            else:
+                m_eff = m
+            improved = m_eff < best_m
+            best_u = [torch.where(improved, t, b) for t, b in zip(cand, best_u)]
+            best_v = [torch.where(improved, t, b) for t, b in zip(v_leaves, best_v)]
+            best_m = torch.where(improved, m_eff, best_m)
+            best_e = torch.where(improved, torch.full((), epoch, device=dev), best_e)
+        row["wan_loss_v"] = last_v_loss
+        hist.add(i, epochs, row)
+    for t in u_leaves + v_leaves:
+        t.grad = None
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    elapsed = time.time() - t0
+    carry = WanCarry(u_leaves, v_leaves, u_opt, v_opt, u_count, v_count, best_m,
+                     best_u, best_v, best_e, ema, prev_g)
+    return FitResult(
+        params=_detached(u_leaves),
+        best_params=_pairs(best_u),
+        best_metric=float(best_m),
+        best_epoch=int(best_e),
+        history=hist.result(),
+        v_params=_detached(v_leaves),
+        best_v_params=_pairs(best_v),
         carry=carry,
         timing={"elapsed_s": elapsed,
                 "steps_per_s": epochs / elapsed if elapsed > 0 else float("nan")},

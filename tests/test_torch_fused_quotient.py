@@ -1,0 +1,314 @@
+"""The port's WAN modules against the JAX package: the bump, the jet
+forward, the two-pass quotient kernels and their objectives.
+
+On the CPU the port's wrappers run their plain versions (the
+forward-Laplacian recurrence, under ``torch.autograd`` for the seeded
+passes); the JAX side runs its Pallas kernels in interpret mode with
+float32 dots, as ``tests/test_fused_quotient.py`` does.  The same numpy
+inputs and parameters go to both, at N = 300 (not a multiple of the JAX
+tile, so the JAX side pads), width 16.  Tolerances: rel <= 1e-5 on every
+value, gradient tree, ``dE`` and ``d_pn``, and on each jet column (plus,
+against the JAX jet kernel, that kernel's own bf16x3 error); a sum that can
+cancel is held to 1e-5 of the sum of its terms' magnitudes; the bump to
+1e-6.  The port runs in float32 and float64.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nnpde_tpu.kernels import fused_quotient as jfq
+from nnpde_tpu.kernels import mlp_fwdlap_pallas
+from nnpde_tpu.models import factor_for_technique as j_factor
+from nnpde_tpu.ops import bump_w as j_bump_w
+from nnpde_tpu.ops.fwdlap import mlp_fwdlap as j_mlp_fwdlap
+from nnpde_tpu_torch.interop import params_from_jax
+from nnpde_tpu_torch.kernels import fused_quotient as tfq
+from nnpde_tpu_torch.kernels import mlp_fwdlap_kernel
+from nnpde_tpu_torch.models import factor_for_technique
+from nnpde_tpu_torch.ops import bump_w
+from nnpde_tpu_torch.ops.fwdlap import mlp_fwdlap
+
+KW = dict(bwd_tile=128, interpret=True, dot_dtype="float32")
+L = 1.5
+DTYPES = (torch.float32, torch.float64)
+
+
+def _np_params(rng, layers):
+    out = []
+    for n_in, n_out in zip(layers[:-1], layers[1:]):
+        bound = 1.0 / np.sqrt(n_in)
+        out.append((rng.uniform(-bound, bound, (n_in, n_out)).astype(np.float32),
+                    rng.uniform(-bound, bound, (n_out,)).astype(np.float32)))
+    return out
+
+
+def _case(d, seed, N=300, width=16):
+    rng = np.random.default_rng(seed)
+    pn = _np_params(rng, (d, width, width, width, 1))
+    X = rng.uniform(0.05, L - 0.05, (N, d)).astype(np.float32)
+    return rng, pn, X
+
+
+def _jp(pn):
+    return [(jnp.asarray(W), jnp.asarray(b)) for W, b in pn]
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def _tree_rel(a, b):
+    flat = lambda t: np.concatenate([np.ravel(np.asarray(x, np.float64)) for x in t])
+    return _rel(flat([x.detach().numpy() if torch.is_tensor(x) else x
+                      for pair in a for x in pair]),
+                flat([x for pair in b for x in pair]))
+
+
+def _t(a, dtype):
+    return torch.as_tensor(np.array(a), dtype=dtype)
+
+
+def _abs_terms(pn, X, coef, act, kind):
+    """Sum of the magnitudes of each lane's per-point terms (float64)."""
+    d = X.shape[1]
+    jet = mlp_fwdlap(params_from_jax(pn, dtype=torch.float64), _t(X, torch.float64), act)
+    v, g, lap = (t.numpy() for t in jet)
+    c = np.asarray(coef, np.float64)
+    if kind == "linear":
+        r = c[:, 0] * v + np.sum(c[:, 1:1 + d] * g, axis=1) + c[:, d + 1] * lap + c[:, d + 2]
+        return [np.sum(np.abs(r)), np.sum(r * r), np.sum((c[:, d + 3] * v) ** 2),
+                np.sum(np.abs(c[:, d + 4] * v))]
+    u = c[:, 0] * v
+    G = c[:, 0:1] * g + c[:, 1:1 + d] * v[:, None]
+    e = 0.5 * np.sum(G * G, axis=1) - c[:, d + 1] * u + c[:, d + 2] * u * u
+    return [np.sum(np.abs(e)), np.sum(u * u)]
+
+
+# ------------------------------------------------------------------- bump
+def test_bump_matches_jax():
+    rng = np.random.default_rng(0)
+    X = rng.uniform(-0.2, 2.2, (400, 3))          # inside and outside the box
+    X[:5] = [0.0, 1.0, 2.0]                       # on the faces and centre
+    with jax.enable_x64(True):
+        wj, dwj = (np.asarray(a) for a in j_bump_w(jnp.asarray(X), 0.0, 2.0))
+    w, dw = bump_w(torch.as_tensor(X), 0.0, 2.0)
+    assert _rel(w.numpy(), wj) <= 1e-6 and _rel(dw.numpy(), dwj) <= 1e-6
+    assert np.all(w.numpy()[np.any((X <= 0) | (X >= 2), axis=1)] == 0.0)
+
+
+# ------------------------------------------------------------ jet forward
+def _columns(jet):
+    v, g, lap = (np.asarray(t.detach().numpy() if torch.is_tensor(t) else t) for t in jet)
+    return [v] + [g[:, i] for i in range(g.shape[1])] + [lap]
+
+
+@pytest.mark.parametrize("d,act", [(1, "tanh"), (2, "sin"), (3, "sin")])
+def test_jet_forward_matches_jax_kernel(d, act):
+    """Per column (u, each grad_i, lap): the port within 1e-5 of the JAX
+    recurrence at full f32 precision, and within 1e-5 plus the JAX
+    kernel's own deviation from it of ``_forward_kernel2`` (whose dots are
+    bf16x3 splits with the lo*lo term dropped, up to ~2e-5 here)."""
+    _, pn, X = _case(d, seed=d)
+    kernel_j = _columns(mlp_fwdlap_pallas(_jp(pn), jnp.asarray(X), act,
+                                          fwd_impl="pallas2", tile=128, interpret=True))
+    with jax.default_matmul_precision("highest"):
+        exact_j = _columns(j_mlp_fwdlap(_jp(pn), jnp.asarray(X), act))
+    own = [_rel(k, e) for k, e in zip(kernel_j, exact_j)]
+    for dtype in DTYPES:
+        got = _columns(mlp_fwdlap_kernel(params_from_jax(pn, dtype=dtype), _t(X, dtype), act))
+        for c in range(d + 2):
+            assert _rel(got[c], exact_j[c]) <= 1e-5
+            assert _rel(got[c], kernel_j[c]) <= 1e-5 + own[c]
+    # no backward yet: differentiating through the kernel raises
+    tp = [(W.requires_grad_(True), b.requires_grad_(True)) for W, b in params_from_jax(pn)]
+    jet = mlp_fwdlap_kernel(tp, _t(X, torch.float32), act)
+    with pytest.raises(NotImplementedError, match="B5"):
+        torch.autograd.grad(torch.sum(jet.lap), [tp[0][0]])
+
+
+# --------------------------------------------------------------- raw API
+@pytest.mark.parametrize("d,act,no_lap", [(1, "sin", False), (2, "tanh", True),
+                                          (3, "sin", True)])
+def test_linear_pair_matches_jax_kernels(d, act, no_lap):
+    rng, pn, X = _case(d, seed=10 + d)
+    N = X.shape[0]
+    coef = rng.normal(size=(N, d + 5)).astype(np.float32)
+    if no_lap:
+        coef[:, d + 1] = 0.0
+    scal = (0.3, -0.2, 0.7)
+    sj = jfq.fused_linear_sums(_jp(pn), jnp.asarray(X), jnp.asarray(coef), act,
+                               no_lap=no_lap, **KW)
+    gj = jfq.fused_seeded_grads(_jp(pn), jnp.asarray(X), jnp.asarray(coef), scal, act,
+                                no_lap=no_lap, **KW)
+    scale = _abs_terms(pn, X, coef, act, "linear")
+    for dtype in DTYPES:
+        tp, Xt, Ct = params_from_jax(pn, dtype=dtype), _t(X, dtype), _t(coef, dtype)
+        st = tfq.fused_linear_sums(tp, Xt, Ct, act, no_lap=no_lap)
+        for i, k in enumerate(("sum_r", "sum_r2", "sum_mass", "sum_e2")):
+            assert abs(float(st[k]) - float(sj[k])) <= 1e-5 * scale[i]
+        assert st["n"] == N
+        gt = tfq.fused_seeded_grads(tp, Xt, Ct, scal, act, no_lap=no_lap)
+        assert _tree_rel(gt, gj) <= 1e-5
+
+
+@pytest.mark.parametrize("d,act", [(1, "tanh"), (2, "sin"), (3, "tanh")])
+def test_quad_pair_matches_jax_kernels(d, act):
+    rng, pn, X = _case(d, seed=20 + d)
+    N = X.shape[0]
+    fj = j_factor("FBC", dim=d, kind="box", L=L).jet(jnp.asarray(X))
+    coef = np.asarray(jfq.quotient_coefficients(
+        fj, f=jnp.asarray(rng.normal(size=N).astype(np.float32)),
+        V=jnp.asarray(rng.normal(size=N).astype(np.float32))))
+    scal = (0.4, -0.3)
+    sj = jfq.fused_quad_sums(_jp(pn), jnp.asarray(X), jnp.asarray(coef), act, **KW)
+    gj = jfq.fused_quad_seeded_grads(_jp(pn), jnp.asarray(X), jnp.asarray(coef), scal,
+                                     act, **KW)
+    scale = _abs_terms(pn, X, coef, act, "quad")
+    for dtype in DTYPES:
+        tp, Xt, Ct = params_from_jax(pn, dtype=dtype), _t(X, dtype), _t(coef, dtype)
+        st = tfq.fused_quad_sums(tp, Xt, Ct, act)
+        assert abs(float(st["sum_e"]) - float(sj["sum_e"])) <= 1e-5 * scale[0]
+        assert abs(float(st["sum_u2"]) - float(sj["sum_u2"])) <= 1e-5 * scale[1]
+        gt = tfq.fused_quad_seeded_grads(tp, Xt, Ct, scal, act)
+        assert _tree_rel(gt, gj) <= 1e-5
+
+
+@pytest.mark.parametrize("kind", ["linear", "quad"])
+def test_coefficient_builders_match_jax(kind):
+    rng = np.random.default_rng(4)
+    d, N = 3, 50
+    X = rng.uniform(0.0, L, (N, d))
+    a, b = rng.normal(size=N), rng.normal(size=(N, d))
+    with jax.enable_x64(True):
+        fj = j_factor("FBC", dim=d, kind="box", L=L).jet(jnp.asarray(X))
+        if kind == "linear":
+            want = jfq.linear_functional_coefficients(
+                fj, c0=jnp.asarray(a), b0=jnp.asarray(b), a0=0.3, rhs=jnp.asarray(a ** 2),
+                e1=fj.value, e2=fj.value * jnp.asarray(a))
+        else:
+            want = jfq.quotient_coefficients(fj, f=jnp.asarray(a), V=0.5)
+        want = np.asarray(want)
+    tj = factor_for_technique("FBC", dim=d, kind="box", L=L).jet(torch.as_tensor(X))
+    at, bt = torch.as_tensor(a), torch.as_tensor(b)
+    if kind == "linear":
+        got = tfq.linear_functional_coefficients(tj, c0=at, b0=bt, a0=0.3, rhs=at ** 2,
+                                                 e1=tj.value, e2=tj.value * at)
+    else:
+        got = tfq.quotient_coefficients(tj, f=at, V=0.5)
+    assert np.allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
+
+
+# ------------------------------------------------------------ objectives
+def _both(pn, dtype):
+    return [(W.requires_grad_(True), b.requires_grad_(True))
+            for W, b in params_from_jax(pn, dtype=dtype)]
+
+
+def _leaf_grads(total, tp, extra=()):
+    leaves = [t for pair in tp for t in pair] + list(extra)
+    g = torch.autograd.grad(total, leaves)
+    n = len(g) - len(extra)
+    return [(g[i], g[i + 1]) for i in range(0, n, 2)], g[n:]
+
+
+@pytest.mark.parametrize("which", ["rayleigh", "quad_mean"])
+def test_quadratic_objectives_match_jax(which):
+    d, act = 2, "sin"
+    rng, pn, X = _case(d, seed=31)
+    N = X.shape[0]
+    fj = j_factor("FBC", dim=d, kind="box", L=L).jet(jnp.asarray(X))
+    V = 0.5 * np.sum((X - L / 2) ** 2, axis=1).astype(np.float32)
+    f = rng.normal(size=N).astype(np.float32)
+    coef = np.asarray(jfq.quotient_coefficients(fj, f=jnp.asarray(f), V=jnp.asarray(V)))
+    if which == "rayleigh":
+        lj = jfq.make_fused_rayleigh(act, weight=3.0, den_eps=1e-3, **KW)
+        lt = tfq.make_fused_rayleigh(act, weight=3.0, den_eps=1e-3)
+    else:
+        lj = jfq.make_fused_quad_mean(act, weight=2.0, **KW)
+        lt = tfq.make_fused_quad_mean(act, weight=2.0)
+    (vj, _), gj = jax.value_and_grad(lambda p: lj(p, jnp.asarray(X), jnp.asarray(coef)),
+                                     has_aux=True)(_jp(pn))
+    for dtype in DTYPES:
+        tp = _both(pn, dtype)
+        total, aux = lt(tp, _t(X, dtype), _t(coef, dtype))
+        gt, _ = _leaf_grads(total, tp)
+        assert abs(float(total.detach()) - float(vj)) <= 1e-5 * abs(float(vj))
+        assert _tree_rel(gt, gj) <= 1e-5
+        assert not aux["mean_e"].requires_grad
+
+
+@pytest.mark.parametrize("convention", ["wr2_over_norm", "ratio_sq"])
+def test_wan_u_matches_jax(convention):
+    """Primal objective with trainable E and the norm penalty: value,
+    params grads, dE and d_pn."""
+    d, act = 2, "sin"
+    rng, pn, X = _case(d, seed=41)
+    N = X.shape[0]
+    phi = rng.normal(size=N).astype(np.float32)
+    gphi = rng.normal(size=(N, d)).astype(np.float32)
+    V = (0.3 * np.sum(X ** 2, axis=1)).astype(np.float32)
+    fj = j_factor("FBC", dim=d, kind="box", L=L).jet(jnp.asarray(X))
+    base = np.asarray(jfq.linear_functional_coefficients(
+        fj, c0=jnp.asarray(V * phi), b0=0.5 * jnp.asarray(gphi), a0=0.0,
+        e1=fj.value, e2=fj.value * jnp.asarray(phi)))
+    pn0 = float(np.mean(phi.astype(np.float64) ** 2))
+    opts = dict(convention=convention, eps=1e-8, vol=float(L ** d), w_pde=10.0,
+                w_norm=100.0)
+    lj = jfq.make_fused_wan_u(act, **opts, **KW)
+    (vj, _), (gj, dEj, dpnj) = jax.value_and_grad(
+        lambda p, E, pnrm: lj(p, E, jnp.asarray(X), jnp.asarray(base), pnrm),
+        argnums=(0, 1, 2), has_aux=True)(_jp(pn), jnp.asarray(2.7), jnp.asarray(pn0))
+    lt = tfq.make_fused_wan_u(act, **opts)
+    for dtype in DTYPES:
+        tp = _both(pn, dtype)
+        E = torch.tensor(2.7, dtype=dtype, requires_grad=True)
+        pnt = torch.tensor(pn0, dtype=dtype, requires_grad=True)
+        total, aux = lt(tp, E, _t(X, dtype), _t(base, dtype), pnt)
+        gt, (dE, dpn) = _leaf_grads(total, tp, (E, pnt))
+        assert abs(float(total.detach()) - float(vj)) <= 1e-5 * abs(float(vj))
+        assert _tree_rel(gt, gj) <= 1e-5
+        assert abs(float(dE) - float(dEj)) <= 1e-5 * abs(float(dEj))
+        assert abs(float(dpn) - float(dpnj)) <= 1e-5 * abs(float(dpnj))
+        assert set(aux) == {"weak_residual", "pde_loss", "norm", "mean_u2", "phi_norm"}
+
+
+@pytest.mark.parametrize("objective,convention", [("neg_log", "wr2_over_norm"),
+                                                  ("neg", "ratio_sq")])
+def test_wan_v_matches_jax(objective, convention):
+    d, act = 2, "tanh"
+    rng, pn, X = _case(d, seed=51)
+    N = X.shape[0]
+    u = rng.normal(size=N).astype(np.float32)
+    gu = rng.normal(size=(N, d)).astype(np.float32)
+    with jax.enable_x64(False):
+        wv, dwv = j_bump_w(jnp.asarray(X), 0.0, L)
+    wjet = j_factor("FBC", dim=d, kind="box", L=L).jet(jnp.asarray(X))._replace(
+        value=wv, grad=dwv)
+    coef = np.asarray(jfq.linear_functional_coefficients(
+        wjet, c0=jnp.asarray(-1.9 * u), b0=0.5 * jnp.asarray(gu), a0=0.0, e1=wv))
+    opts = dict(convention=convention, eps=1e-8, objective=objective, log_eps=1e-8)
+    lj = jfq.make_fused_wan_v(act, **opts, **KW)
+    (vj, _), gj = jax.value_and_grad(lambda p: lj(p, jnp.asarray(X), jnp.asarray(coef)),
+                                     has_aux=True)(_jp(pn))
+    lt = tfq.make_fused_wan_v(act, **opts)
+    for dtype in DTYPES:
+        tp = _both(pn, dtype)
+        total, _ = lt(tp, _t(X, dtype), _t(coef, dtype))
+        gt, _ = _leaf_grads(total, tp)
+        assert abs(float(total.detach()) - float(vj)) <= 1e-5 * max(abs(float(vj)), 1e-8)
+        assert _tree_rel(gt, gj) <= 1e-5
+
+
+def test_factories_reject_what_is_not_ported():
+    with pytest.raises(NotImplementedError, match="A13"):
+        tfq.make_fused_wan_u("sin", axis="data")
+    with pytest.raises(NotImplementedError):
+        tfq.make_fused_rayleigh("sin", dot_dtype="bf16x3")
+    with pytest.raises(ValueError):
+        tfq.make_fused_wan_v("sin", objective="max")
+    with pytest.raises(ValueError):
+        tfq.make_fused_wan_u("sin", convention="wr_over_norm")

@@ -152,7 +152,7 @@ def test_fused_and_torch_paths_agree_on_cpu():
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(method="WAN"), NotImplementedError),
+    (dict(method="WAN", compute_dtype="hybrid"), NotImplementedError),
     (dict(jet_impl="pallas"), NotImplementedError),
     (dict(compute_dtype="bfloat16"), NotImplementedError),
     (dict(jet_impl="xla"), ValueError),
