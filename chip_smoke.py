@@ -30,9 +30,32 @@ Phases (each prints one JSON line; any failure exits non-zero):
    within 5e-2, both best rel_l2 <= 5e-2, all finite, and exactly 6 jet
    forward, 6 linear sums, 6 linear seeded, 5 quad sums and 5 quad seeded
    launches per epoch; then 100 fused epochs of minimax='extragradient'.
-6. timing: CUDA events, median over repeats, for each kernel and its plain
-   version at N = 20000 and 262144 on the net it runs on, with the fp32
-   bound; training steps per second.
+6. eigen_kernels: the jet backward, the stream-major jet forward and the
+   K-bump pair (float32) against their plain versions in float64 on the
+   card, on the infinite-well nets 2-50-50-50-50-1 and 2-20-20-20-1 (sin), a
+   d = 5 tanh net and a width-10 net, N = 40000 and 40007, K in 1, 4, 16, 36:
+   the same bars; then the two multibump objectives (value, parameter
+   gradients, dE, d phi_norms) against the plain route in float64, and the
+   fused residual kernel once more at width 50.
+7. eigen_path: ``train_ipw_2d`` at the default nets and grid (40000 points),
+   state nx = ny = 3, technique FN.  PINN with weights {'data': 1e4} on
+   jet_impl 'torch', 'kernel' and 'fused' (2000 epochs, cut from the 20000
+   of the acceptance row): first total within rtol 1e-4, first 10 within
+   5e-2, kernel and fused rel_l2 <= max(2 x torch, 1e-3), exact launch
+   counts; DRM on 'fused' (300 epochs; the same band against 100 'torch'
+   epochs, loss falling below its first value); WAN with n_test_grid = 4 (16
+   bumps) on 'torch' and 'fused' (1000 epochs): the same band, the first
+   weak-form term within 1e-3, all finite, rel_l2 falling, exact launch
+   counts; then 100 epochs each of grid_jitter and
+   minimax='extragradient', and 100 PINN epochs on 'kernel:streams'.
+8. timing, wan_timing, eigen_timing: CUDA events, median over repeats, for
+   each kernel and its plain version at the path's N and at 262144 on the
+   net it runs on, with the bound (bytes or operations); training steps per
+   second.
+
+``python3 chip_smoke.py eigen`` (or any other phase-group name: kernels,
+wan, main, eigen, timing) runs only those groups, for work on one slice;
+without arguments every phase runs.
 
 The last two lines before the final one are the ``kernels`` summary and the
 card's ``name, power limit``; the final line is
@@ -79,6 +102,40 @@ WAN_PER_EPOCH = {"fwdlap_forward": 6, "linear_sums": 6, "linear_seeded": 6,
 # the net each WAN kernel runs on most often in an epoch (its summary row)
 WAN_MAIN_NET = {"fwdlap_forward": "u", "linear_sums": "critic",
                 "linear_seeded": "critic", "quad_sums": "critic", "quad_seeded": "critic"}
+# the infinite-well slice: IPW2DConfig's default nets and grid
+EIGEN_U = (2, 50, 50, 50, 50, 1)
+EIGEN_V = (2, 20, 20, 20, 1)
+EIGEN_N = 40000
+EIGEN_REPLACES = {
+    "fwdlap_backward": "nnpde_tpu/kernels/fwdlap_pallas.py:522",
+    "fwdlap_forward_streams": "nnpde_tpu/kernels/fwdlap_pallas.py:285",
+    "multi_sums": "nnpde_tpu/kernels/fused_multibump.py:62",
+    "multi_seeded": "nnpde_tpu/kernels/fused_multibump.py:131",
+}
+EIGEN_SOURCES = {
+    "fwdlap_backward": "nnpde_tpu_torch/csrc/fwdlap_backward.cu",
+    "fwdlap_forward_streams": "nnpde_tpu_torch/csrc/fwdlap_forward.cu",
+    "multi_sums": "nnpde_tpu_torch/csrc/fused_multibump.cu",
+    "multi_seeded": "nnpde_tpu_torch/csrc/fused_multibump.cu",
+}
+# the net each of them runs on most often in an epoch (its summary row)
+EIGEN_MAIN_NET = {"fwdlap_backward": "u", "fwdlap_forward_streams": "u",
+                  "multi_sums": "critic", "multi_seeded": "critic"}
+EIGEN_BUMPS = 16
+# Launches per epoch of the multi-bump WAN on the fixed grid at v_steps = 5.
+# alternating: the critic's coefficient stream is built once per epoch from
+# the frozen u's jet (1 jet forward), each of the 5 critic steps is pass A +
+# pass B on the critic, and the u step takes the critic's jet (1 jet
+# forward) and pass A + pass B on u.
+EIGEN_WAN_PER_EPOCH = {"fwdlap_forward": 2, "multi_sums": 6, "multi_seeded": 6}
+# grid_jitter: the points move with every step, so each critic step rebuilds
+# its stream from a fresh u jet (5 + the u step's critic jet).
+EIGEN_JITTER_PER_EPOCH = {"fwdlap_forward": 6, "multi_sums": 6, "multi_seeded": 6}
+# extragradient: 4 plain critic steps, then gradients of both objectives at
+# (u, v) and again at the lookahead (u', v'): 4 + 2 + 2 pass pairs; the u
+# jet for the epoch's stream and once more at the lookahead, the critic's
+# jet in each of the two u gradients.
+EIGEN_EG_PER_EPOCH = {"fwdlap_forward": 4, "multi_sums": 8, "multi_seeded": 8}
 
 
 def emit(obj):
@@ -635,20 +692,486 @@ def phase_wan_timing(dev):
     return rows
 
 
+class EigenCase:
+    """One kernel of the infinite-well slice at one shape: points, params
+    and (for the K-bump pair) a random coefficient stream and seeds."""
+
+    def __init__(self, kind, N, layers, act, seed, dev, Kb=EIGEN_BUMPS):
+        rng = np.random.default_rng(seed)
+        self.kind, self.N, self.layers, self.act, self.Kb = kind, N, layers, act, Kb
+        self.d = d = layers[0]
+        self.params = rand_params(rng, layers, dev)
+        self.X = torch.as_tensor(rng.uniform(0.0, L, (N, d)).astype(np.float32), device=dev)
+        self.ct = self.coef = self.scal = None
+        if kind == "fwdlap_backward":
+            self.ct = torch.as_tensor(rng.normal(size=(N, d + 2)).astype(np.float32),
+                                      device=dev)
+        elif kind.startswith("multi"):
+            self.coef = torch.as_tensor(
+                rng.normal(size=(N, Kb * (d + 4))).astype(np.float32), device=dev)
+            self.scal = torch.as_tensor(rng.normal(size=(3 * Kb,)).astype(np.float32),
+                                        device=dev)
+
+    def kernel(self):
+        """The wrapper's launch, as one flat tensor."""
+        from nnpde_tpu_torch.kernels import fused_multibump as fm
+        from nnpde_tpu_torch.kernels import fwdlap_cuda as fc
+
+        if self.kind == "fwdlap_forward_streams":
+            return fc.fwdlap_forward(self.params, self.X, self.act, "streams")
+        if self.kind == "fwdlap_backward":
+            dWs, dbs = fc.fwdlap_backward(self.params, self.X, self.ct, self.act)
+            return torch.cat([t.reshape(-1) for pair in zip(dWs, dbs) for t in pair])
+        return fm._launch(self.kind == "multi_seeded", self.params, self.X, self.coef,
+                          self.scal, self.act, self.Kb)
+
+    def plain(self, dtype):
+        """The plain version on the card, in the kernel's output layout."""
+        from nnpde_tpu_torch.kernels import fused_multibump as fm
+        from nnpde_tpu_torch.kernels import fwdlap_cuda as fc
+
+        p = [(W.to(dtype), b.to(dtype)) for W, b in self.params]
+        X = self.X.to(dtype)
+        if self.kind == "fwdlap_forward_streams":
+            jet = fc.fwdlap_forward_plain(p, X, self.act)
+            return torch.cat([jet.value[:, None], jet.grad, jet.lap[:, None]], dim=1)
+        if self.kind == "fwdlap_backward":
+            dWs, dbs = fc.fwdlap_backward_plain(p, X, self.ct.to(dtype), self.act)
+            return torch.cat([t.reshape(-1) for pair in zip(dWs, dbs) for t in pair])
+        coef, scal = self.coef.to(dtype), self.scal.to(dtype)
+        if self.kind == "multi_sums":
+            return fm.fused_multi_sums_plain(p, X, coef, self.act, self.Kb)
+        dWs, dbs, sums = fm.fused_multi_seeded_grads_plain(p, X, coef, scal, self.act, self.Kb)
+        # the kernel's row: [dW0, db0, ..., dW_last, (unwritten) b_last | sum ct_v]
+        flat = [t.reshape(-1) for dW, db in zip(dWs, dbs) for t in (dW, db)]
+        flat[-1] = torch.zeros_like(flat[-1])
+        return torch.cat(flat + [sums])
+
+    def abs_terms(self):
+        """Float64 sum of the magnitudes of each multibump sum's terms:
+        the 3 Kb sums of pass A, or pass B's sum ct_v (random coefficients
+        make the signed sums nearly cancel)."""
+        from nnpde_tpu_torch.kernels.fused_multibump import _multi_terms
+        from nnpde_tpu_torch.ops.fwdlap import mlp_fwdlap
+
+        p = [(W.double(), b.double()) for W, b in self.params]
+        jet = mlp_fwdlap(p, self.X.double(), self.act)
+        c, K, blk = self.coef.double(), self.Kb, self.d + 2
+        if self.kind == "multi_sums":
+            r, mass, lin = _multi_terms(jet, c, K, self.d)
+            return torch.cat([r.abs().sum(0), mass.sum(0), lin.abs().sum(0)])
+        s = self.scal.double()
+        e1, e2 = c[:, K * blk:K * blk + K], c[:, K * blk + K:K * blk + 2 * K]
+        ctv = torch.sum(s[:K] * c[:, 0:K * blk:blk] + s[K:2 * K] * 2.0 * e1 * e1
+                        * jet.value[:, None] + s[2 * K:] * e2, dim=1)
+        return ctv.abs().sum()
+
+    def flops(self):
+        """Backward 6 (d+2) MACs, streams forward 2 (d+2) MACs, multi sums
+        2 (d+1) MACs, multi seeded 6 (d+1) MACs per point, plus the K-bump
+        epilogue: per bump 2d + 5 (sums) or 2d + 7 (seeded) operations."""
+        d, K, m = self.d, self.Kb, macs(self.layers)
+        per = {"fwdlap_backward": 6.0 * (d + 2) * m,
+               "fwdlap_forward_streams": 2.0 * (d + 2) * m,
+               "multi_sums": 2.0 * (d + 1) * m + K * (2 * d + 5),
+               "multi_seeded": 6.0 * (d + 1) * m + K * (2 * d + 7)}[self.kind]
+        return per * self.N
+
+    def bytes(self):
+        """X + cotangents or coefficients + parameters + outputs."""
+        d, K = self.d, self.Kb
+        P = sum(a * b + b for a, b in zip(self.layers[:-1], self.layers[1:]))
+        per_point = {"fwdlap_backward": d + (d + 2), "fwdlap_forward_streams": d + (d + 2),
+                     "multi_sums": d + K * (d + 4), "multi_seeded": d + K * (d + 4)}[self.kind]
+        fixed = {"fwdlap_backward": 2 * P, "fwdlap_forward_streams": P,
+                 "multi_sums": P + 3 * K, "multi_seeded": 2 * P + 1 + 3 * K}[self.kind]
+        return 4.0 * (self.N * per_point + fixed)
+
+    def bound_ms(self):
+        return 1e3 * max(self.flops() / FP32_PEAK, self.bytes() / HBM_RATE)
+
+    def bound_by(self):
+        return "operations" if self.flops() / FP32_PEAK >= self.bytes() / HBM_RATE else "bytes"
+
+
+def phase_eigen_kernels(dev):
+    """The four kernels of the infinite-well slice (fp32) against their plain
+    versions (fp64) on the card; repeats bitwise; the multibump objectives;
+    one earlier kernel at width 50."""
+    U5, W10 = (5, 50, 50, 1), (2, 10, 10, 1)
+    jet_shapes = [(EIGEN_N, EIGEN_U, "sin"), (EIGEN_N + 7, EIGEN_U, "sin"),
+                  (EIGEN_N, EIGEN_V, "sin"), (EIGEN_N + 7, EIGEN_V, "sin"),
+                  (EIGEN_N + 7, U5, "tanh"), (EIGEN_N + 7, W10, "sin")]
+    multi_shapes = ([(N, net, "sin", K) for net in (EIGEN_U, EIGEN_V)
+                     for K in (1, 4, 16, 36) for N in (EIGEN_N, EIGEN_N + 7)]
+                    + [(EIGEN_N + 7, U5, "tanh", 4), (EIGEN_N + 7, W10, "sin", 4)])
+    shapes = {"fwdlap_backward": [s + (0,) for s in jet_shapes],
+              "fwdlap_forward_streams": [s + (0,) for s in jet_shapes],
+              "multi_sums": multi_shapes, "multi_seeded": multi_shapes}
+    rows, max_err = [], {}
+    for kind in EIGEN_REPLACES:
+        for i, (N, layers, act, Kb) in enumerate(shapes[kind]):
+            case = EigenCase(kind, N, layers, act, seed=400 + i, dev=dev, Kb=max(Kb, 1))
+            out, out2 = case.kernel(), case.kernel()
+            torch.cuda.synchronize()
+            bitwise = bool(torch.equal(out, out2))
+            ref = case.plain(torch.float64)
+            err = float(torch.max(torch.abs(out.double() - ref)))
+            row = {"kernel": kind, "N": N, "layers": list(layers), "act": act,
+                   "max_abs_err": err, "bitwise_repeat": bitwise}
+            if kind == "fwdlap_forward_streams":
+                row["col_rel"] = col_rel(out, ref)
+                ok = row["col_rel"] <= 1e-5
+            elif kind == "fwdlap_backward":
+                row["grad_rel"] = float(torch.linalg.norm(out.double() - ref)
+                                        / torch.linalg.norm(ref))
+                ok = row["grad_rel"] <= 1e-5
+            elif kind == "multi_sums":
+                row["n_bumps"] = Kb
+                row["sum_err_over_abs_terms"] = float(torch.max(
+                    torch.abs(out.double() - ref) / case.abs_terms()))
+                ok = row["sum_err_over_abs_terms"] <= 1e-5
+            else:
+                P = out.numel() - 1
+                row["n_bumps"] = Kb
+                row["grad_rel"] = float(torch.linalg.norm(out[:P].double() - ref[:P])
+                                        / torch.linalg.norm(ref[:P]))
+                row["ctv_err_over_abs_terms"] = (abs(float(out[P]) - float(ref[P]))
+                                                 / float(case.abs_terms()))
+                ok = row["grad_rel"] <= 1e-5 and row["ctv_err_over_abs_terms"] <= 1e-5
+            row["ok"] = ok and bitwise
+            max_err[kind] = max(max_err.get(kind, 0.0), err)
+            rows.append(row)
+            del case, out, out2, ref
+            torch.cuda.empty_cache()
+    # an earlier kernel at a width that is not a multiple of 4
+    case = Case("fused_linear_residual", EIGEN_N + 7, 2, EIGEN_U, "sin", seed=499, dev=dev)
+    loss, _, grads = case.kernel()
+    loss2, _, grads2 = case.kernel()
+    torch.cuda.synchronize()
+    ref_loss, ref_grads = case.plain(torch.float64)
+    w50 = {"kernel": "fused_linear_residual", "N": EIGEN_N + 7, "layers": list(EIGEN_U),
+           "loss_rel": abs(float(loss) - float(ref_loss)) / abs(float(ref_loss)),
+           "grad_rel": tree_rel(grads, ref_grads),
+           "bitwise_repeat": bool(torch.equal(loss, loss2)) and all(
+               torch.equal(x, y) for pa, pb in zip(grads, grads2) for x, y in zip(pa, pb))}
+    w50["ok"] = w50["loss_rel"] <= 1e-5 and w50["grad_rel"] <= 1e-5 and w50["bitwise_repeat"]
+    del case
+    emit({"phase": "eigen_kernels", "tol": 1e-5, "rows": rows, "width50": w50})
+    obj = eigen_objectives(dev)
+    emit({"phase": "eigen_objectives", "tol": 1e-5, "rows": obj})
+    if not all(r["ok"] for r in rows + obj + [w50]):
+        raise SystemExit("eigen kernel vs plain comparison failed")
+    return max_err
+
+
+def eigen_objectives(dev, N=EIGEN_N + 7, grid=4):
+    """The two multibump objectives on the card (kernels) against the same
+    objectives on the plain route (CPU, float64), on the coefficient streams
+    the WAN path builds for 16 bumps: value, parameter gradients, and dE /
+    d phi_norms of the primal.  Each number is held to the larger of 1e-5
+    and twice the error of the plain route itself in float32 (on the CPU)
+    against float64, as for the single-bump objectives."""
+    from nnpde_tpu_torch.models import NetSpec, SolutionModel, factor_for_technique
+    from nnpde_tpu_torch.ops import bump_grid, bump_w_multi
+    from nnpde_tpu_torch.pde import ipw
+    from nnpde_tpu_torch.problems._fused_wan import make_fused_wan_multi_pair
+
+    rng = np.random.default_rng(500)
+    up, vp = rand_params(rng, EIGEN_U, dev), rand_params(rng, EIGEN_V, dev)
+    nodes = [ipw.nodes(3, L), ipw.nodes(3, L)]
+    u_model = SolutionModel(NetSpec(EIGEN_U, activation="sin"),
+                            factor_for_technique("FN", dim=2, kind="box", L=L,
+                                                 nodes_per_dim=nodes))
+    v_model = SolutionModel(NetSpec(EIGEN_V, activation="sin"),
+                            factor_for_technique("FBC", dim=2, kind="box", L=L))
+    Xc = torch.as_tensor(rng.uniform(0.0, L, (N, 2)).astype(np.float32), device=dev)
+    centers, hw = bump_grid(0.0, L, 2, grid)
+    Kb = centers.shape[0]
+    E0 = ipw.energy_2d(3, 3, L)
+    rows = []
+    cpu = torch.device("cpu")
+    for name in ("wan_multi_u", "wan_multi_v"):
+        got = []
+        for device, dtype in ((dev, torch.float32), (cpu, torch.float32), (cpu, torch.float64)):
+            cast = lambda ps, grad: [(W.detach().to(device, dtype).requires_grad_(grad),
+                                      b.detach().to(device, dtype).requires_grad_(grad))
+                                     for W, b in ps]
+            X = Xc.to(device, dtype)
+            wv, dwv = bump_w_multi(X, centers, hw)
+            # on the card the frozen net's jet comes from the jet kernel
+            pair = make_fused_wan_multi_pair(u_model, v_model, Kb, w_pde=10.0, w_norm=1000.0,
+                                             vol=L * L)
+            E = torch.tensor(E0, device=device, dtype=dtype, requires_grad=name == "wan_multi_u")
+            if name == "wan_multi_u":
+                p = cast(up, True)
+                total, aux = pair.u_pde_fn(p, E, cast(vp, False), X, wv, dwv)
+                extra = [E]
+            else:
+                p = cast(vp, True)
+                total, aux = pair.v_loss_fn(p, cast(up, False), E, X, wv, dwv)
+                extra = []
+            leaves = [t for pr in p for t in pr]
+            g = torch.autograd.grad(total, leaves + extra)
+            got.append((total.detach().double().cpu(),
+                        torch.cat([t.reshape(-1).double().cpu() for t in g[:len(leaves)]]),
+                        [t.double().cpu() for t in g[len(leaves):]]))
+        ref = got[2]
+
+        def rels(side):
+            v, g, e = side
+            out = {"value_rel": abs(float(v - ref[0])) / abs(float(ref[0])),
+                   "grad_rel": float(torch.linalg.norm(g - ref[1]) / torch.linalg.norm(ref[1]))}
+            if e:
+                out["dE_rel"] = abs(float(e[0] - ref[2][0])) / abs(float(ref[2][0]))
+            return out
+
+        kern, plain32 = rels(got[0]), rels(got[1])
+        rows.append({"objective": name, "n_bumps": int(Kb), **kern, "plain_f32": plain32,
+                     "ok": all(v <= max(1e-5, 2.0 * plain32[k]) for k, v in kern.items())})
+    rows.append(eigen_phi_norm_grad(dev, u_model, up, Xc, Kb))
+    return rows
+
+
+def eigen_phi_norm_grad(dev, u_model, up, Xc, Kb):
+    """d loss / d phi_norms of the multibump primal on the card against the
+    plain route in float64 (random first-order streams, 16 bumps)."""
+    from nnpde_tpu_torch.kernels import (linear_functional_coefficients,
+                                         make_fused_wan_multi_u,
+                                         pack_multibump_coefficients)
+
+    rng = np.random.default_rng(501)
+    N = Xc.shape[0]
+    phi = rng.normal(size=(Kb, N)).astype(np.float32)
+    gphi = rng.normal(size=(Kb, N, 2)).astype(np.float32)
+    loss = make_fused_wan_multi_u("sin", Kb, vol=L * L, w_pde=10.0, w_norm=1000.0)
+    got = []
+    for device, dtype in ((dev, torch.float32), (torch.device("cpu"), torch.float64)):
+        X = Xc.to(device, dtype)
+        ph = torch.as_tensor(phi).to(device, dtype)
+        gp = torch.as_tensor(gphi).to(device, dtype)
+        Bu = u_model.factor.jet(X)
+        zero = torch.zeros_like(Bu.value)
+        base = pack_multibump_coefficients([
+            linear_functional_coefficients(Bu, b0=0.5 * gp[k], e1=Bu.value if k == 0 else zero,
+                                           e2=Bu.value * ph[k]) for k in range(Kb)])
+        pn = torch.mean(ph ** 2, dim=1).requires_grad_(True)
+        p = [(W.detach().to(device, dtype), b.detach().to(device, dtype)) for W, b in up]
+        total, _ = loss(p, torch.tensor(2.0, device=device, dtype=dtype), X, base, pn)
+        got.append(torch.autograd.grad(total, [pn])[0].double().cpu())
+    rel = float(torch.linalg.norm(got[0] - got[1]) / torch.linalg.norm(got[1]))
+    return {"objective": "wan_multi_u_d_phi_norms", "n_bumps": int(Kb), "d_pn_rel": rel,
+            "ok": rel <= 1e-5}
+
+
+def _first_band(a, b):
+    """(rel of the first total, max rel over the first 10) of two runs."""
+    ha, hb = a["history"]["total"], b["history"]["total"]
+    return (float(abs(hb[0] - ha[0]) / abs(ha[0])),
+            float(np.max(np.abs(hb[:10] - ha[:10]) / np.abs(ha[:10]))))
+
+
+def phase_eigen_path():
+    """``train_ipw_2d`` at the default nets and grid, state (3, 3), FN."""
+    from nnpde_tpu_torch.kernels import LAUNCHES, reset_launches
+    from nnpde_tpu_torch.problems import IPW2DConfig, train_ipw_2d
+
+    base = dict(nx=3, ny=3, technique="FN", chunk=1000)
+    default = IPW2DConfig()
+    if (default.layers, default.v_layers, default.grid_n ** 2) != (EIGEN_U, EIGEN_V, EIGEN_N):
+        raise SystemExit("IPW2DConfig's defaults are not the full-width nets and grid")
+
+    def run(**kw):
+        reset_launches()
+        t0 = time.time()
+        out = train_ipw_2d(IPW2DConfig(**dict(base, **kw)))
+        return out, {k: v for k, v in LAUNCHES.items() if v}, time.time() - t0
+
+    def only(counts, want):
+        return counts == {k: v for k, v in want.items() if v}
+
+    report, launches = {"phase": "eigen_path", "layers": list(EIGEN_U),
+                        "v_layers": list(EIGEN_V), "grid_points": EIGEN_N, "state": [3, 3],
+                        "technique": "FN"}, {}
+    # ---- PINN, weights {'data': 1e4}, the three jet routes from one seed
+    epochs = 2000
+    pinn = dict(method="PINN", weights={"data": 1e4}, epochs=epochs)
+    runs = {impl: run(jet_impl=impl, **pinn) for impl in ("torch", "kernel", "fused")}
+    rel_t = runs["torch"][0]["rel_l2"]
+    pinn_rows, ok = {}, True
+    want_counts = {"torch": {}, "kernel": {"fwdlap_forward": epochs, "fwdlap_backward": epochs},
+                   "fused": {"fused_linear_residual": epochs}}
+    for impl, (out, counts, wall) in runs.items():
+        first, first10 = _first_band(runs["torch"][0], out)
+        h = out["history"]["total"]
+        row = {"rel_l2": out["rel_l2"], "min_epoch": out["min_epoch"], "wall_s": wall,
+               "steps_per_s": out["result"].timing["steps_per_s"], "launches": counts,
+               "total0_rel": first, "first10_max_rel": first10,
+               "total_first": float(h[0]), "total_last": float(h[-1])}
+        row["ok"] = bool(np.all(np.isfinite(h)) and first <= 1e-4 and first10 <= 5e-2
+                         and out["rel_l2"] <= max(2.0 * rel_t, 1e-3)
+                         and only(counts, want_counts[impl]))
+        ok = ok and row["ok"]
+        pinn_rows[impl] = row
+    launches["fwdlap_backward"] = runs["kernel"][1].get("fwdlap_backward", 0)
+    report["pinn"] = {"epochs": epochs, "cut_from": 20000, "runs": pinn_rows}
+    # ---- DRM on the fused Rayleigh quotient.  On this excited state the
+    # Rayleigh quotient slides towards lower states until the orthogonality
+    # and parity penalties throw it back (a sawtooth, on both routes), so
+    # the loss is held to track the autograd route's first epochs and to
+    # fall below its first value, not to end below it
+    ref, _, _ = run(method="DRM", jet_impl="torch", epochs=100)
+    out, counts, wall = run(method="DRM", jet_impl="fused", epochs=300)
+    h = out["history"]["total"]
+    first, first10 = _first_band(ref, out)
+    windows = h.reshape(-1, 20).mean(axis=1)
+    drm_ok = bool(np.all(np.isfinite(h)) and windows.min() < h[0]
+                  and first <= 1e-4 and first10 <= 5e-2
+                  and only(counts, {"quad_sums": 300, "quad_seeded": 300}))
+    report["drm_fused"] = {"epochs": 300, "launches": counts, "wall_s": wall,
+                           "total0_rel": first, "first10_max_rel": first10,
+                           "loss_first": float(h[0]),
+                           "loss_first20": float(h[:20].mean()),
+                           "loss_min_of_20_epoch_means": float(windows.min()),
+                           "loss_last20": float(h[-20:].mean()),
+                           "rayleigh_first": float(out["history"]["drm"][0]),
+                           "rayleigh_min": float(out["history"]["drm"].min()),
+                           "rel_l2": out["rel_l2"], "ok": drm_ok}
+    # ---- WAN, 16 localised bumps, both jet routes from one seed
+    epochs = 1000
+    wan = dict(method="WAN", n_test_grid=4, epochs=epochs)
+    wt, ct, wall_t = run(jet_impl="torch", **wan)
+    wf, cf, wall_f = run(jet_impl="fused", **wan)
+    launches.update({k: cf.get(k, 0) for k in ("multi_sums", "multi_seeded")})
+    first, first10 = _first_band(wt, wf)
+    # the total is dominated by the data term: hold the weak-form term too
+    pde0 = float(abs(wf["history"]["pde"][0] - wt["history"]["pde"][0])
+                 / abs(wt["history"]["pde"][0]))
+    finite = all(np.all(np.isfinite(r["history"][k])) for r in (wt, wf)
+                 for k in ("total", "l2", "wan_loss_v", "pde"))
+    falling = all(r["L2_error"] < r["history"]["l2"][0] for r in (wt, wf))
+    wan_ok = bool(first <= 1e-4 and first10 <= 5e-2 and pde0 <= 1e-3 and finite and falling
+                  and only(ct, {})
+                  and only(cf, {k: n * epochs for k, n in EIGEN_WAN_PER_EPOCH.items()}))
+    report["wan"] = {
+        "epochs": epochs, "n_bumps": EIGEN_BUMPS, "v_steps": 5, "total0_rel": first,
+        "first10_max_rel": first10, "pde0_rel": pde0, "finite": finite,
+        "rel_l2_torch": wt["rel_l2"], "rel_l2_fused": wf["rel_l2"],
+        "rel_l2_first_torch": float(np.sqrt(wt["history"]["l2"][0] / wt["L2_error"])
+                                    * wt["rel_l2"]),
+        "rel_l2_first_fused": float(np.sqrt(wf["history"]["l2"][0] / wf["L2_error"])
+                                    * wf["rel_l2"]),
+        "min_epoch_torch": wt["min_epoch"], "min_epoch_fused": wf["min_epoch"],
+        "wall_s_torch": wall_t, "wall_s_fused": wall_f,
+        "epochs_per_s_torch": wt["result"].timing["steps_per_s"],
+        "epochs_per_s_fused": wf["result"].timing["steps_per_s"],
+        "launches": cf, "per_epoch": EIGEN_WAN_PER_EPOCH, "ok": wan_ok}
+    side_ok = True
+    for name, kw, per in (("grid_jitter", dict(grid_jitter=True), EIGEN_JITTER_PER_EPOCH),
+                          ("extragradient", dict(minimax="extragradient"), EIGEN_EG_PER_EPOCH)):
+        out, counts, wall = run(jet_impl="fused", **dict(wan, epochs=100), **kw)
+        h = out["history"]
+        s_ok = bool(all(np.all(np.isfinite(h[k])) for k in ("total", "l2", "wan_loss_v"))
+                    and only(counts, {k: n * 100 for k, n in per.items()}))
+        report["wan_" + name] = {"epochs": 100, "launches": counts, "per_epoch": per,
+                                 "wall_s": wall, "rel_l2": out["rel_l2"],
+                                 "total_last": float(h["total"][-1]), "ok": s_ok}
+        side_ok = side_ok and s_ok
+    # ---- the stream-major jet forward on a path
+    out, counts, wall = run(jet_impl="kernel:streams", **dict(pinn, epochs=100))
+    ref = runs["kernel"][0]["history"]["total"][:100]
+    h = out["history"]["total"]
+    st_ok = bool(np.all(np.isfinite(h)) and abs(h[0] - ref[0]) <= 1e-4 * abs(ref[0])
+                 and only(counts, {"fwdlap_forward_streams": 100, "fwdlap_backward": 100}))
+    launches["fwdlap_forward_streams"] = counts.get("fwdlap_forward_streams", 0)
+    report["pinn_streams"] = {"epochs": 100, "launches": counts, "wall_s": wall,
+                              "total0_rel_vs_kernel": float(abs(h[0] - ref[0]) / abs(ref[0])),
+                              "ok": st_ok}
+    report["ok"] = bool(ok and drm_ok and wan_ok and side_ok and st_ok)
+    emit(report)
+    if not report["ok"]:
+        raise SystemExit("eigen path check failed")
+    return launches, {"pinn_steps_per_s": {k: r["steps_per_s"] for k, r in pinn_rows.items()},
+                      "wan_epochs_per_s_fused": report["wan"]["epochs_per_s_fused"]}
+
+
+def phase_eigen_timing(dev):
+    rows = []
+    nets = {"u": EIGEN_U, "critic": EIGEN_V}
+    for kind in EIGEN_REPLACES:
+        for net in (("u", "critic") if kind.startswith("multi") else ("u",)):
+            for N in (EIGEN_N, 262144):
+                case = EigenCase(kind, N, nets[net], "sin", seed=11, dev=dev)
+                ms = time_ms(case.kernel)
+                plain_ms = time_ms(lambda: case.plain(torch.float32), warmup=2, reps=7)
+                rows.append({"kernel": kind, "net": net, "N": N, "n_bumps": case.Kb
+                             if kind.startswith("multi") else None, "ms": ms,
+                             "plain_ms": plain_ms, "bound_ms": case.bound_ms(),
+                             "bound_by": case.bound_by(), "flop": case.flops(),
+                             "bytes": case.bytes(),
+                             "gflops": case.flops() / (ms * 1e-3) / 1e9,
+                             "gbytes_per_s": case.bytes() / (ms * 1e-3) / 1e9})
+                del case
+                torch.cuda.empty_cache()
+    # the earlier kernels that the infinite-well paths launch, at the shapes
+    # those paths give them (width 50 and 20, 40000 points)
+    others = []
+    case = Case("fused_linear_residual", EIGEN_N, 2, EIGEN_U, "sin", seed=12, dev=dev)
+    others.append({"kernel": "fused_linear_residual", "net": "u", "N": EIGEN_N,
+                   "ms": time_ms(case.kernel), "bound_ms": case.bound_ms()})
+    del case
+    for kind, net in (("fwdlap_forward", "u"), ("fwdlap_forward", "critic"),
+                      ("quad_sums", "u"), ("quad_seeded", "u")):
+        case = WanCase(kind, EIGEN_N, nets[net], "sin", seed=13, dev=dev)
+        others.append({"kernel": kind, "net": net, "N": EIGEN_N, "ms": time_ms(case.kernel),
+                       "bound_ms": case.bound_ms()})
+        del case
+        torch.cuda.empty_cache()
+    emit({"phase": "eigen_timing", "rows": rows, "earlier_kernels": others})
+    return rows
+
+
+GROUPS = ("kernels", "wan", "main", "eigen", "timing")
+
+
 def main():
+    want = set(sys.argv[1:]) or set(GROUPS)
+    if not want <= set(GROUPS):
+        raise SystemExit(f"unknown phase group in {sorted(want)}; choose from {GROUPS}")
+    full = want == set(GROUPS)
     card = phase_device()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    max_err = phase_kernels(dev)
-    max_err.update(phase_wan_kernels(dev))
-    launches, steps_per_s = phase_main_path()
-    wan_launches, wan_epochs_per_s = phase_wan_path()
-    rows = phase_timing(dev)
-    wan_rows = phase_wan_timing(dev)
-    emit({"phase": "train_step", "steps_per_s_fused": steps_per_s,
-          "points_per_s_fused": steps_per_s * 20000,
-          "wan_epochs_per_s_fused": wan_epochs_per_s})
+    max_err, launches, speed = {}, {}, {}
+    if "kernels" in want:
+        max_err.update(phase_kernels(dev))
+    if "wan" in want:
+        max_err.update(phase_wan_kernels(dev))
+    if "eigen" in want:
+        max_err.update(phase_eigen_kernels(dev))
+    if "main" in want:
+        counts, speed["steps_per_s_fused"] = phase_main_path()
+        launches.update(counts)
+    if "wan" in want:
+        counts, speed["wan_epochs_per_s_fused"] = phase_wan_path()
+        launches.update({k: counts[k] for k in WAN_REPLACES})
+    if "eigen" in want:
+        counts, eigen_speed = phase_eigen_path()
+        launches.update(counts)
+        speed["eigen"] = eigen_speed
+    rows = wan_rows = eigen_rows = []
+    if "timing" in want:
+        rows = phase_timing(dev)
+        wan_rows = phase_wan_timing(dev)
+        eigen_rows = phase_eigen_timing(dev)
+    emit({"phase": "train_step", **speed,
+          "points_per_s_fused": speed.get("steps_per_s_fused", 0.0) * 20000})
+    if not full:
+        print(card, flush=True)
+        print("chip_smoke: partial run (phase groups: %s); no kernels line, not ok"
+              % ", ".join(sorted(want)), flush=True)
+        sys.exit(4)
     kernels = []
     for kind in REPLACES:
         main_row = next(r for r in rows if r["kernel"] == kind and r["N"] == 20000)
@@ -665,10 +1188,21 @@ def main():
         kernels.append({
             "name": kind, "route": "cuda",
             "source": WAN_SOURCES.get(kind, "nnpde_tpu_torch/csrc/fused_quotient.cu"),
-            "replaces": WAN_REPLACES[kind], "launches": wan_launches[kind],
+            "replaces": WAN_REPLACES[kind], "launches": launches[kind],
             "max_abs_err": max_err[kind], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
         })
+    for kind in EIGEN_REPLACES:
+        row = next(r for r in eigen_rows if r["kernel"] == kind and r["N"] == EIGEN_N
+                   and r["net"] == EIGEN_MAIN_NET[kind])
+        kernels.append({
+            "name": kind, "route": "cuda", "source": EIGEN_SOURCES[kind],
+            "replaces": EIGEN_REPLACES[kind], "launches": launches[kind],
+            "max_abs_err": max_err[kind], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
+        })
+    if len(kernels) != 12 or not all(k["launches"] > 0 for k in kernels):
+        raise SystemExit("a kernel of the paths was launched no time on its path")
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

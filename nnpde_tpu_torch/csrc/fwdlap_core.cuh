@@ -12,6 +12,18 @@
 // Every linear layer is then one (S*T, w_in) x (w_in, w_out) product over
 // all streams at once (the TPU kernels' concat_streams form).
 //
+// Widths.  Any hidden width from 1 to MAX_WIDTH is taken.  Device memory
+// keeps the true sizes (net.w: the parameter vector, the gradient rows);
+// shared memory holds every hidden layer rounded up to a multiple of 4
+// (net.wp, and wmax is the widest rounded width), the extra rows and
+// columns of a staged weight matrix zero.  A padded unit then carries zero
+// in every stream (sin(0) = tanh(0) = gelu(0) = 0, and its Jacobian and
+// Laplacian streams start at zero), feeds nothing into the next layer, and
+// its gradient entries are never written, so the 4 x 4 register tiles and
+// 128-bit shared loads run unchanged.  Widths that are multiples of 4 take
+// the 16-byte copy paths as before; others stage weights element by
+// element (their offsets in the flat vector are not 16-byte aligned).
+//
 // Bound.  Compute-bound: per point the step does 3*(d+2)*sum(n_in*n_out)
 // multiply-adds against 32 bytes of input (X and coefficients).  This
 // version runs fp32 FFMA on CUDA cores from shared memory: each thread owns
@@ -52,12 +64,14 @@ enum Act { ACT_SIN = 0, ACT_TANH = 1, ACT_GELU = 2 };
 struct Net {
   int K;                      // number of weight matrices
   int w[MAX_LAYERS + 1];      // layer sizes: w[0] = d, w[K] = 1
+  int wp[MAX_LAYERS + 1];     // hidden sizes rounded up to a multiple of 4
+  int aligned;                // 1 when every hidden width is a multiple of 4
   int off[MAX_LAYERS];        // flat offset of W_k; b_k follows W_k
   int act;
   int d;
   int S;                      // streams: d + 2 with the Laplacian, else d + 1
   int lap;                    // 1 when the Laplacian stream is carried
-  int wmax;                   // widest hidden layer
+  int wmax;                   // widest hidden layer, rounded up (wp)
   int P;                      // flat parameter count
 };
 
@@ -101,16 +115,17 @@ __device__ __forceinline__ void fma_tile(float (&acc)[4][4], const float4 (&a)[4
   }
 }
 
-// out[r][j] = sum_k in[r][k] * W[k][j] (+ bias[j] for r < bias_rows).
-// rows, kdim, ncols, ld_in, ld_out all multiples of 4.  Each item is a
-// 4-row x 4-column register tile: per 4 k's it reads 4 + 4 float4s from
-// shared memory for 64 FMAs (the row reads are warp broadcasts).
+// out[r][j] = sum_k in[r][k] * W[k][j] (+ bias[j] for r < bias_rows and
+// j < bias_cols).  rows, kdim, ncols, ld_in, ld_out all multiples of 4.
+// Each item is a 4-row x 4-column register tile: per 4 k's it reads 4 + 4
+// float4s from shared memory for 64 FMAs (the row reads are warp
+// broadcasts).
 __device__ __forceinline__ void mm_rows(const float* __restrict__ in, int ld_in,
                                         int rows, int kdim,
                                         const float* __restrict__ W, int ncols,
                                         float* __restrict__ out, int ld_out,
                                         const float* __restrict__ bias,
-                                        int bias_rows) {
+                                        int bias_rows, int bias_cols) {
   const int cg = ncols >> 2;
   const int items = (rows >> 2) * cg;
   for (int it = threadIdx.x; it < items; it += NT) {
@@ -132,7 +147,13 @@ __device__ __forceinline__ void mm_rows(const float* __restrict__ in, int ld_in,
     for (int q = 0; q < 4; ++q) {
       float4 o = make_float4(acc[q][0], acc[q][1], acc[q][2], acc[q][3]);
       if (bias != nullptr && r0 + q < bias_rows) {
-        o.x += bias[j0]; o.y += bias[j0 + 1]; o.z += bias[j0 + 2]; o.w += bias[j0 + 3];
+        if (j0 + 3 < bias_cols) {
+          o.x += bias[j0]; o.y += bias[j0 + 1]; o.z += bias[j0 + 2]; o.w += bias[j0 + 3];
+        } else {
+          if (j0 < bias_cols) o.x += bias[j0];
+          if (j0 + 1 < bias_cols) o.y += bias[j0 + 1];
+          if (j0 + 2 < bias_cols) o.z += bias[j0 + 2];
+        }
       }
       *reinterpret_cast<float4*>(out + (r0 + q) * ld_out + j0) = o;
     }
@@ -180,10 +201,36 @@ __device__ __forceinline__ void copy_async(float* dst, const float* src, int n) 
 
 __device__ __forceinline__ void copy_wait() { __pipeline_wait_prior(0); }
 
-// Wt[j][i] = W[i][j] for a (wi, wo) row-major matrix in global memory
-// (wo % 4 == 0): four float4 loads in flight per thread, scattered stores.
-__device__ __forceinline__ void load_transposed(float* Wt, const float* W, int wi,
-                                                int wo) {
+// Stage the (wi, wo) row-major matrix W of device memory as the zero-padded
+// (wip, wop) matrix Wsh of shared memory.  Completes at copy_wait().
+__device__ __forceinline__ void stage_weights(const Net& net, float* Wsh, const float* W,
+                                              int wi, int wo, int wip, int wop) {
+  if (net.aligned) {
+    copy_async(Wsh, W, wi * wo);
+    return;
+  }
+  for (int f = threadIdx.x; f < wip * wop; f += NT) {
+    const int i = f / wop, j = f - i * wop;
+    if (i < wi && j < wo)
+      __pipeline_memcpy_async(Wsh + f, W + i * wo + j, 4);
+    else
+      Wsh[f] = 0.f;
+  }
+  __pipeline_commit();
+}
+
+// Wt[j][i] = W[i][j] (j < wop, i < wip; zero past the (wi, wo) matrix of
+// device memory).  Aligned nets: four float4 loads in flight per thread,
+// scattered stores.
+__device__ __forceinline__ void load_transposed(const Net& net, float* Wt, const float* W,
+                                                int wi, int wo, int wip, int wop) {
+  if (!net.aligned) {
+    for (int f = threadIdx.x; f < wip * wop; f += NT) {
+      const int i = f / wop, j = f - i * wop;
+      Wt[j * wip + i] = (i < wi && j < wo) ? W[i * wo + j] : 0.f;
+    }
+    return;
+  }
   const int n4 = (wi * wo) >> 2;
   const float4* W4 = reinterpret_cast<const float4*>(W);
   for (int f0 = threadIdx.x; f0 < n4; f0 += 4 * NT) {
@@ -215,32 +262,37 @@ __device__ inline void fwd_recompute(const Net& net, int T, const float* __restr
                                      float*& nxt, float* last, float* Wsh, float* scratch) {
   const int d = net.d, ld = net.wmax, S = net.S;
   const int stage_sz = S * T * ld;
-  {  // input layer: v = x W0 + b0; J_i = W0[i, :]; l = 0
-    const int w1 = net.w[1];
+  {  // input layer: v = x W0 + b0; J_i = W0[i, :]; l = 0 (padded units 0)
+    const int w1 = net.w[1], w1p = net.wp[1];
     const float* W0 = params + net.off[0];
     const float* b0 = W0 + d * w1;
-    for (int it = threadIdx.x; it < T * w1; it += NT) {
-      const int p = it / w1, j = it - p * w1;
+    for (int it = threadIdx.x; it < T * w1p; it += NT) {
+      const int p = it / w1p, j = it - p * w1p;
+      const bool real = j < w1;
       float v = 0.f;
-      for (int i = 0; i < d; ++i) v = fmaf(xs[p * d + i], W0[i * w1 + j], v);
-      cur[p * ld + j] = v + b0[j];
-      for (int i = 0; i < d; ++i) cur[((1 + i) * T + p) * ld + j] = W0[i * w1 + j];
+      for (int i = 0; i < d; ++i) {
+        const float wij = real ? W0[i * w1 + j] : 0.f;
+        v = fmaf(xs[p * d + i], wij, v);
+        cur[((1 + i) * T + p) * ld + j] = wij;
+      }
+      cur[p * ld + j] = real ? v + b0[j] : 0.f;
       if (net.lap) cur[((d + 1) * T + p) * ld + j] = 0.f;
     }
   }
   __syncthreads();
   for (int k = 1; k < net.K; ++k) {
-    const int wk = net.w[k];
+    const int wk = net.w[k], wkp = net.wp[k];
     const bool final_stage = k == net.K - 1;
-    if (!final_stage) copy_async(Wsh, params + net.off[k], wk * net.w[k + 1]);
-    stage_mid(net, T, wk, cur, cur,
+    if (!final_stage)
+      stage_weights(net, Wsh, params + net.off[k], wk, net.w[k + 1], wkp, net.wp[k + 1]);
+    stage_mid(net, T, wkp, cur, cur,
               final_stage ? last : scratch ? scratch + (k - 1) * stage_sz : nullptr);
     if (final_stage) break;
     const int wn = net.w[k + 1];
     const float* Wk = params + net.off[k];
     copy_wait();
     __syncthreads();
-    mm_rows(cur, ld, S * T, wk, Wsh, wn, nxt, ld, Wk + wk * wn, T);
+    mm_rows(cur, ld, S * T, wkp, Wsh, net.wp[k + 1], nxt, ld, Wk + wk * wn, T, wn);
     __syncthreads();
     float* t = cur; cur = nxt; nxt = t;
   }
@@ -276,16 +328,18 @@ __device__ __forceinline__ void project_last(const Net& net, int T, const float*
 
 // Backward through one stage's nonlinearity (_nl_bwd_pack).  pre: the
 // stage's saved pre-activation streams; dmid: cotangents of its mid streams
-// (or null: rank-1 final stage, dmid = ct[s][p] * wl[j]); dpre: output.
+// (or null: rank-1 final stage, dmid = ct[s][p] * wl[j], wl holding
+// `wl_cols` entries of device memory); dpre: output.  `width` is the
+// stage's rounded width.
 __device__ __forceinline__ void stage_bwd(const Net& net, int T, int width,
                                           const float* pre, const float* dmid,
                                           const float* ct, const float* wl,
-                                          float* dpre) {
+                                          int wl_cols, float* dpre) {
   const int d = net.d, ld = net.wmax;
   for (int it = threadIdx.x; it < T * width; it += NT) {
     const int p = it / width, j = it - p * width;
     const Pack pk = act_pack(net.act, pre[p * ld + j]);
-    const float wj = dmid ? 0.f : wl[j];
+    const float wj = (dmid || j >= wl_cols) ? 0.f : wl[j];
     const float dA = dmid ? dmid[p * ld + j] : ct[p] * wj;
     float dv = pk.s1 * dA;
     float dq = 0.f;
@@ -313,13 +367,15 @@ __device__ __forceinline__ void stage_bwd(const Net& net, int T, int width,
 }
 
 // dW[i][j] += sum_r M[r][i] * D[r][j] over rows r < rows; db[j] += sum over
-// the value rows (r < T) of D.  wi, wo multiples of 4; each item is a 4 x 4
+// the value rows (r < T) of D.  dW is the true (wi, wo) matrix of device
+// memory; the products run over the rounded (wip, wop) tiles of shared
+// memory and entries past (wi, wo) are dropped.  Each item is a 4 x 4
 // register tile of dW: two float4 reads per row feed 16 FMAs.
 __device__ __forceinline__ void accum_dW(int rows, int T, int ld, int wi, int wo,
-                                         const float* M, const float* D,
-                                         float* dW, float* db) {
-  const int jgs = wo >> 2;
-  for (int it = threadIdx.x; it < (wi >> 2) * jgs; it += NT) {
+                                         int wip, int wop, const float* M,
+                                         const float* D, float* dW, float* db) {
+  const int jgs = wop >> 2;
+  for (int it = threadIdx.x; it < (wip >> 2) * jgs; it += NT) {
     const int ig = it / jgs;
     const int i0 = ig << 2, j0 = (it - ig * jgs) << 2;
     float acc[4][4] = {};
@@ -332,8 +388,15 @@ __device__ __forceinline__ void accum_dW(int rows, int T, int ld, int wi, int wo
     }
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
+      if (i0 + q >= wi) break;
       float* row = dW + (i0 + q) * wo + j0;
-      row[0] += acc[q][0]; row[1] += acc[q][1]; row[2] += acc[q][2]; row[3] += acc[q][3];
+      if (j0 + 3 < wo) {
+        row[0] += acc[q][0]; row[1] += acc[q][1]; row[2] += acc[q][2]; row[3] += acc[q][3];
+      } else {
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          if (j0 + c < wo) row[c] += acc[q][c];
+      }
     }
   }
   for (int j = threadIdx.x; j < wo; j += NT) {
@@ -375,24 +438,25 @@ __device__ inline void reverse_sweep(const Net& net, int T, const float* __restr
     grow[net.off[K - 1] + j] += acc;
   }
   // last stage: mid cotangent is rank one, ct * wlast
-  stage_bwd(net, T, wl, pre, nullptr, ct, wlast, nxt);
+  stage_bwd(net, T, net.wp[K - 1], pre, nullptr, ct, wlast, wl, nxt);
   __syncthreads();
   float* D = nxt;     // cotangent of stage k+1's pre-activation streams
   float* M = cur;
   for (int k = K - 2; k >= 1; --k) {
     const int wk = net.w[k], wn = net.w[k + 1];
+    const int wkp = net.wp[k], wnp = net.wp[k + 1];
     copy_async(pre, scratch + (k - 1) * stage_sz, stage_sz);
-    load_transposed(Wsh, params + net.off[k], wk, wn);
+    load_transposed(net, Wsh, params + net.off[k], wk, wn, wkp, wnp);
     copy_wait();
     __syncthreads();
-    stage_mid(net, T, wk, pre, M, nullptr);
+    stage_mid(net, T, wkp, pre, M, nullptr);
     __syncthreads();
     float* dW = grow + net.off[k];
-    accum_dW(S * T, T, ld, wk, wn, M, D, dW, dW + wk * wn);
+    accum_dW(S * T, T, ld, wk, wn, wkp, wnp, M, D, dW, dW + wk * wn);
     __syncthreads();
-    mm_rows(D, ld, S * T, wn, Wsh, wk, M, ld, nullptr, 0);   // dmid = D W^T
+    mm_rows(D, ld, S * T, wnp, Wsh, wkp, M, ld, nullptr, 0, 0);   // dmid = D W^T
     __syncthreads();
-    stage_bwd(net, T, wk, pre, M, nullptr, nullptr, D);
+    stage_bwd(net, T, wkp, pre, M, nullptr, nullptr, 0, D);
     __syncthreads();
   }
   // input layer: v = x W0 + b0, J_i = W0[i, :]
@@ -429,15 +493,20 @@ inline bool make_net(int lap, const int* layers, int n_layers, int act, Net* net
   net->lap = lap;
   net->S = net->d + 1 + net->lap;
   net->wmax = 0;
+  net->aligned = 1;
   int off = 0;
-  for (int k = 0; k <= K; ++k) net->w[k] = layers[k];
+  for (int k = 0; k <= K; ++k) {
+    net->w[k] = layers[k];
+    net->wp[k] = (k >= 1 && k < K) ? (layers[k] + 3) & ~3 : layers[k];
+  }
   for (int k = 0; k < K; ++k) {
     net->off[k] = off;
     off += layers[k] * layers[k + 1] + layers[k + 1];
   }
   for (int k = 1; k < K; ++k) {
-    if (layers[k] < 4 || layers[k] > MAX_WIDTH || layers[k] % 4 != 0) return false;
-    if (layers[k] > net->wmax) net->wmax = layers[k];
+    if (layers[k] < 1 || layers[k] > MAX_WIDTH) return false;
+    if (layers[k] % 4 != 0) net->aligned = 0;
+    if (net->wp[k] > net->wmax) net->wmax = net->wp[k];
   }
   net->P = off;
   return true;

@@ -1,9 +1,17 @@
 // Jet forward: (value, grad, Laplacian) of a raw MLP at every point.
 //
-// Replaces nnpde_tpu/kernels/fwdlap_pallas.py::_forward_kernel2 (the
-// VMEM-resident jet forward behind mlp_fwdlap_pallas, fwd_impl='pallas2'):
-// the forward-Laplacian recurrence over a tile of points, kept on chip,
-// with only the (N, d+2) jet written out.
+// fwdlap_forward_kernel replaces
+// nnpde_tpu/kernels/fwdlap_pallas.py::_forward_kernel2 (the VMEM-resident
+// jet forward behind mlp_fwdlap_pallas, fwd_impl='pallas2'): the
+// forward-Laplacian recurrence over a tile of points, kept on chip, with
+// only the (N, d+2) jet written out.
+//
+// fwdlap_forward_streams_kernel replaces ::_forward_kernel (with
+// ::_fwd_streams; fwd_impl='pallas'): the same jet written stream-major,
+// (d+2, N) with each stream one contiguous run, and the output layer taken
+// through the same shared-memory product as the hidden layers (the (w, 1)
+// output weights staged as a (w, 4) matrix whose other columns are zero)
+// where the row kernel reduces each row over a warp.  Both are exact fp32.
 //
 // What bounds it on the H100: operations.  Per point the recurrence costs
 // (d+2)*sum(n_in*n_out) multiply-adds (2.50e4 at d = 2 on the
@@ -27,7 +35,7 @@ struct FwdArgs {
   Net net;
   const float* X;
   const float* params;
-  float* out;                 // (N, S): value, grad_0..grad_{d-1}, lap
+  float* out;                 // (N, S) rows [value, grad.., lap]; or (S, N)
   int N, T, n_tiles;
 };
 
@@ -64,12 +72,57 @@ __global__ void __launch_bounds__(NT) fwdlap_forward_kernel(FwdArgs A) {
   }
 }
 
+__global__ void __launch_bounds__(NT) fwdlap_forward_streams_kernel(FwdArgs A) {
+  extern __shared__ __align__(16) float smem[];
+  const Net& net = A.net;
+  const int T = A.T, d = net.d, S = net.S, ld = net.wmax;
+  float* bufA = smem;
+  float* bufB = bufA + S * T * ld;
+  float* Wsh = bufB + S * T * ld;
+  float* xs = Wsh + ld * ld;
+  const int wl = net.w[net.K - 1], wlp = net.wp[net.K - 1];
+  const float* wlast = A.params + net.off[net.K - 1];
+
+  for (int tile = blockIdx.x; tile < A.n_tiles; tile += gridDim.x) {
+    const int base = tile * T;
+    load_tile(A.X, A.N, d, base, T, xs);
+    __syncthreads();
+    float* cur = bufA;
+    float* nxt = bufB;
+    fwd_recompute(net, T, xs, A.params, cur, nxt, nullptr, Wsh, nullptr);
+    // output layer: column 0 of a (wlp, 4) product, bias on the value rows
+    for (int f = threadIdx.x; f < wlp * 4; f += NT)
+      Wsh[f] = ((f & 3) == 0 && (f >> 2) < wl) ? wlast[f >> 2] : 0.f;
+    __syncthreads();
+    mm_rows(cur, ld, S * T, wlp, Wsh, 4, nxt, 4, wlast + wl, T, 1);
+    __syncthreads();
+    // out[s * N + base + p] = stream s of point p: consecutive threads write
+    // consecutive floats of one stream
+    for (int i = threadIdx.x; i < S * T; i += NT) {
+      const int s = i / T, p = i - s * T;
+      if (base + p < A.N) A.out[(size_t)s * A.N + base + p] = nxt[i * 4];
+    }
+    __syncthreads();
+  }
+}
+
+namespace {
+
+typedef void (*FwdKernelFn)(FwdArgs);
+
+FwdKernelFn fwd_kernel_for(int streams) {
+  return streams ? fwdlap_forward_streams_kernel : fwdlap_forward_kernel;
+}
+
+}  // namespace
+
 extern "C" {
 
-// X (N, d), params flat, out (N, d+2).  T points per tile, G blocks.
-int fwdlap_forward_f32(const float* X, const float* params, const int* layers,
-                       int n_layers, int act, int N, int T, int G, float* out,
-                       int smem_bytes, void* stream) {
+// X (N, d), params flat; out (N, d+2), or (d+2, N) with streams != 0.  T
+// points per tile, G blocks.
+int fwdlap_forward_f32(int streams, const float* X, const float* params,
+                       const int* layers, int n_layers, int act, int N, int T, int G,
+                       float* out, int smem_bytes, void* stream) {
   FwdArgs a;
   if (!make_net(1, layers, n_layers, act, &a.net) || N < 1 || T < 4 || T % 4 != 0 ||
       G < 1)
@@ -80,20 +133,21 @@ int fwdlap_forward_f32(const float* X, const float* params, const int* layers,
   a.N = N;
   a.T = T;
   a.n_tiles = (N + T - 1) / T;
-  cudaError_t err = cudaFuncSetAttribute(
-      fwdlap_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  FwdKernelFn fn = fwd_kernel_for(streams);
+  cudaError_t err =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  fwdlap_forward_kernel<<<G, NT, smem_bytes, (cudaStream_t)stream>>>(a);
+  fn<<<G, NT, smem_bytes, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 // Resident blocks per SM at a dynamic shared-memory size.
-int fwdlap_forward_blocks_per_sm(int smem_bytes, int* blocks) {
-  cudaError_t err = cudaFuncSetAttribute(
-      fwdlap_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+int fwdlap_forward_blocks_per_sm(int streams, int smem_bytes, int* blocks) {
+  FwdKernelFn fn = fwd_kernel_for(streams);
+  cudaError_t err =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fwdlap_forward_kernel,
-                                                             NT, smem_bytes);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, NT, smem_bytes);
 }
 
 }  // extern "C"

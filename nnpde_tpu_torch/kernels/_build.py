@@ -42,16 +42,28 @@ _SIGNATURES = {
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
     # mode, smem_bytes, int* blocks
     "fused_blocks_per_sm": [_I, _I, _P],
-    # fwdlap_forward.cu: X, params, layers, n_layers, act, N, T, G, out,
-    # smem_bytes, stream
-    "fwdlap_forward_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
-    "fwdlap_forward_blocks_per_sm": [_I, _P],
+    # fwdlap_forward.cu: streams, X, params, layers, n_layers, act, N, T, G,
+    # out, smem_bytes, stream
+    "fwdlap_forward_f32": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
+    # streams, smem_bytes, int* blocks
+    "fwdlap_forward_blocks_per_sm": [_I, _I, _P],
+    # fwdlap_backward.cu: X, ct, params, layers, n_layers, act, N, T, G,
+    # partial, scratch, out, smem_bytes, stream
+    "fwdlap_backward_f32":
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+    "fwdlap_backward_blocks_per_sm": [_I, _P],
     # fused_quotient.cu: kind, lap, X, coef, params, scal, layers, n_layers,
     # act, N, T, G, partial, scratch, out, smem_bytes, stream
     "fused_quotient_f32":
         [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
     # kind, smem_bytes, int* blocks
     "fused_quotient_blocks_per_sm": [_I, _I, _P],
+    # fused_multibump.cu: seeded, n_bumps, X, coef, params, scal, layers,
+    # n_layers, act, N, T, G, partial, scratch, out, smem_bytes, stream
+    "fused_multibump_f32":
+        [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+    # seeded, smem_bytes, int* blocks
+    "fused_multibump_blocks_per_sm": [_I, _I, _P],
 }
 
 _LIB = None

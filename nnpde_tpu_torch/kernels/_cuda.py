@@ -23,6 +23,10 @@ LAUNCHES = {
     "linear_seeded": 0,
     "quad_sums": 0,
     "quad_seeded": 0,
+    "fwdlap_backward": 0,
+    "fwdlap_forward_streams": 0,
+    "multi_sums": 0,
+    "multi_seeded": 0,
 }
 
 ACTS = {"sin": 0, "tanh": 1, "gelu": 2}
@@ -39,6 +43,16 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+def on_cuda(X) -> bool:
+    """True for a CUDA tensor (the kernel route), False for a CPU tensor
+    (the plain version); any other device raises."""
+    if X.device.type == "cuda":
+        return True
+    if X.device.type != "cpu":
+        raise ValueError(f"no kernel path for device {X.device}")
+    return False
+
+
 def net_layers(name: str, params, X, activation: str, others=()):
     """The layer sizes ``[d, w1, ..., 1]`` of ``params`` after checking
     that the kernels take this net, these tensors and this activation."""
@@ -47,11 +61,11 @@ def net_layers(name: str, params, X, activation: str, others=()):
     layers = [params[0][0].shape[0]] + [W.shape[1] for W, _ in params]
     N, d = X.shape
     if not (2 <= len(params) <= MAX_LAYERS and d <= MAX_DIM and layers[-1] == 1
-            and all(w <= MAX_WIDTH and w % 4 == 0 for w in layers[1:-1])):
+            and all(1 <= w <= MAX_WIDTH for w in layers[1:-1])):
         raise ValueError(
             f"{name}: the CUDA kernels take 2..{MAX_LAYERS} layers, d <= "
-            f"{MAX_DIM}, hidden widths that are multiples of 4 up to "
-            f"{MAX_WIDTH}, and one output; got layers {layers}")
+            f"{MAX_DIM}, hidden widths from 1 to {MAX_WIDTH}, and one output; "
+            f"got layers {layers}")
     for t in [X, *others, *[t for pair in params for t in pair]]:
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: the CUDA kernels take float32, got {t.dtype}")
@@ -60,6 +74,14 @@ def net_layers(name: str, params, X, activation: str, others=()):
     if N < 1:
         raise ValueError(f"{name}: empty batch")
     return layers
+
+
+def padded_wmax(layers) -> int:
+    """The widest hidden layer rounded up to a multiple of 4: the row
+    length of the kernels' shared-memory streams and saved stages
+    (``Net::wmax`` of fwdlap_core.cuh).  The kernels pad narrower or ragged
+    layers with zero units on chip; device memory keeps the true sizes."""
+    return (max(layers[1:-1]) + 3) // 4 * 4
 
 
 def flat_params(params) -> torch.Tensor:

@@ -41,6 +41,7 @@ import torch
 
 from ..ops.fwdlap import mlp_fwdlap
 from . import _cuda
+from ._cuda import on_cuda as _on_cuda
 from .fused_step import (
     _check_coef,
     _check_dot,
@@ -161,7 +162,7 @@ def _plan(kind: str, layers, T: int, lap: int):
     """Shared-memory floats per block for a tile of T points (the layout of
     fused_quotient.cu's quotient_body)."""
     d = layers[0]
-    S, wmax = d + 1 + lap, max(layers[1:-1])
+    S, wmax = d + 1 + lap, _cuda.padded_wmax(layers)
     nbuf = 3 if kind.endswith("seeded") else 2
     return (nbuf * S * T * wmax + wmax * wmax + T * d + (d + 2) * T
             + _NSUMS[kind] * T + S * T + _cuda.NT)
@@ -191,7 +192,7 @@ def _launch(kind: str, params, X, coef, scal, activation: str, lap: int):
     scratch = None
     if seeded:
         scal = scal.contiguous()
-        S, wmax = d + 1 + lap, max(layers[1:-1])
+        S, wmax = d + 1 + lap, _cuda.padded_wmax(layers)
         scratch = torch.empty((G, max(K - 2, 1) * S * T * wmax), dtype=torch.float32,
                               device=dev)
     lay = _cuda.layers_arg(layers)
@@ -202,14 +203,6 @@ def _launch(kind: str, params, X, coef, scal, activation: str, lap: int):
                  scratch.data_ptr() if seeded else None, out.data_ptr(), smem,
                  _cuda.stream(dev), dev=dev)
     return out
-
-
-def _on_cuda(X) -> bool:
-    if X.device.type == "cuda":
-        return True
-    if X.device.type != "cpu":
-        raise ValueError(f"no fused path for device {X.device}")
-    return False
 
 
 def _scalars(values, X):

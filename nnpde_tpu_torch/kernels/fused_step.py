@@ -177,7 +177,7 @@ def _plan(kind: str, layers, T: int):
     fused_step.cu's fused_body)."""
     d = layers[0]
     S = d + (1 if kind == "fused_drm_energy" else 2)
-    wmax = max(layers[1:-1])
+    wmax = _cuda.padded_wmax(layers)
     return (3 * S * T * wmax + wmax * wmax + T * d + (d + 2) * T + 3 * T
             + S * T + _cuda.NT)
 
@@ -201,7 +201,7 @@ def _launch(kind: str, params, X, coef, activation: str, analytic=None):
     G = _cuda.grid(kind, lambda sm, ptr: lib.fused_blocks_per_sm(mode, sm, ptr),
                    smem, dev, (N + T - 1) // T)
     S = d + (1 if kind == "fused_drm_energy" else 2)
-    wmax = max(layers[1:-1])
+    wmax = _cuda.padded_wmax(layers)
     partial = torch.empty((G, P + 3), dtype=torch.float32, device=dev)
     scratch = torch.empty((G, max(K - 2, 1) * S * T * wmax), dtype=torch.float32,
                           device=dev)

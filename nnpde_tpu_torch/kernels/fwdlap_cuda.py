@@ -1,17 +1,28 @@
-"""The jet forward of a raw MLP as one CUDA kernel.
+"""The jet of a raw MLP as CUDA kernels, forward and backward.
 
-Counterpart of ``nnpde_tpu/kernels/fwdlap_pallas.py::mlp_fwdlap_pallas``
-with its forward kernel ``_forward_kernel2``: ``(u, grad u, lap u)`` of the
-net at every point, the forward-Laplacian recurrence kept on chip.  A CUDA
-tensor goes to ``csrc/fwdlap_forward.cu`` (float32; anything else raises),
-a CPU tensor to the plain version, :func:`fwdlap_forward_plain`, which is
-:func:`~nnpde_tpu_torch.ops.fwdlap.mlp_fwdlap`.
+Counterpart of ``nnpde_tpu/kernels/fwdlap_pallas.py::mlp_fwdlap_pallas``:
+``(u, grad u, lap u)`` of the net at every point, the forward-Laplacian
+recurrence kept on chip, differentiable in the parameters.
 
-The backward of the JAX kernel pair (``_backward_kernel``) is not ported
-yet (ROADMAP B5): differentiating through :func:`mlp_fwdlap_kernel` raises
-instead of returning a zero gradient.  The TPU-only knobs of the JAX
-function (``tile``, ``bwd_tile``, ``lane_pack``, ``fwd_impl``,
-``concat_streams``) have no counterpart.
+* forward, ``fwd_impl='rows'`` (the default; JAX ``'pallas2'``,
+  ``_forward_kernel2``): ``csrc/fwdlap_forward.cu`` writes the ``(N, d+2)``
+  jet rows;
+* forward, ``fwd_impl='streams'`` (JAX ``'pallas'``, ``_forward_kernel``):
+  the same file's second kernel writes the jet stream-major, ``(d+2, N)``
+  with each stream contiguous, the output layer through the same
+  shared-memory product as the hidden ones; the wrapper returns the
+  ``(N, d+2)`` view;
+* backward (``_backward_kernel``): ``csrc/fwdlap_backward.cu`` recomputes
+  the recurrence per tile and reverse-sweeps from the ``(N, d+2)`` cotangent
+  stream to dW/db.  The last bias's gradient is ``sum ct[:, 0]``, formed
+  here; the points get no gradient.
+
+A CUDA tensor goes to the kernels (float32; anything else raises), a CPU
+tensor to the plain versions: :func:`fwdlap_forward_plain`, which is
+:func:`~nnpde_tpu_torch.ops.fwdlap.mlp_fwdlap`, and
+:func:`fwdlap_backward_plain`, autograd through it.  The TPU-only knobs of
+the JAX function (``tile``, ``bwd_tile``, ``lane_pack``,
+``concat_streams``, ``dot_dtype``) have no counterpart.
 """
 
 from __future__ import annotations
@@ -22,63 +33,136 @@ import torch
 
 from ..ops.fwdlap import Jet, mlp_fwdlap
 from . import _cuda
+from ._cuda import on_cuda as _on_cuda
+from .fused_step import _unflatten
 
 fwdlap_forward_plain = mlp_fwdlap
 
+_FWD_IMPLS = ("rows", "streams")
 
-def _plan(layers, T: int):
+
+def _jet_rows(jet: Jet) -> torch.Tensor:
+    return torch.cat([jet.value[:, None], jet.grad, jet.lap[:, None]], dim=1)
+
+
+def fwdlap_backward_plain(params, X, ct, activation: str):
+    """Plain version of the backward kernel: ``(dWs, dbs)`` of ``sum(jet *
+    ct)`` with ``jet`` the ``(N, d+2)`` rows ``[u, grad u, lap u]`` of
+    :func:`~nnpde_tpu_torch.ops.fwdlap.mlp_fwdlap`, by autograd."""
+    with torch.enable_grad():
+        leaves = [(W.detach().requires_grad_(True), b.detach().requires_grad_(True))
+                  for W, b in params]
+        rows = _jet_rows(mlp_fwdlap(leaves, X, activation))
+        flat = torch.autograd.grad(torch.sum(rows * ct), [t for pair in leaves for t in pair])
+    return list(flat[0::2]), list(flat[1::2])
+
+
+def _plan_forward(layers, T: int):
     """Shared-memory floats per block for a tile of T points (the layout of
-    fwdlap_forward.cu)."""
+    fwdlap_forward.cu, both kernels)."""
     d = layers[0]
-    S, wmax = d + 2, max(layers[1:-1])
+    S, wmax = d + 2, _cuda.padded_wmax(layers)
     return 2 * S * T * wmax + wmax * wmax + T * d + S * T
 
 
-def fwdlap_forward(params, X, activation: str) -> torch.Tensor:
-    """Launch the jet-forward kernel: ``(N, d+2)`` float32 rows ``[u,
-    grad_0 .. grad_{d-1}, lap]``."""
+def _plan_backward(layers, T: int):
+    """The same for fwdlap_backward.cu."""
+    d = layers[0]
+    S, wmax = d + 2, _cuda.padded_wmax(layers)
+    return 3 * S * T * wmax + wmax * wmax + T * d + S * T + _cuda.NT
+
+
+def fwdlap_forward(params, X, activation: str, fwd_impl: str = "rows") -> torch.Tensor:
+    """Launch a jet-forward kernel: ``(N, d+2)`` float32 rows ``[u, grad_0 ..
+    grad_{d-1}, lap]`` (with ``fwd_impl='streams'`` a view of the kernel's
+    stream-major ``(d+2, N)`` output)."""
     from . import _build
 
-    name = "fwdlap_forward"
+    streams = int(fwd_impl == "streams")
+    name = "fwdlap_forward_streams" if streams else "fwdlap_forward"
     lib = _build.load()
     layers = _cuda.net_layers(name, params, X, activation)
     N, d = X.shape
     X = X.contiguous()
     flat = _cuda.flat_params(params)
-    T, smem = _cuda.plan_tile(lambda t: _plan(layers, t))
+    T, smem = _cuda.plan_tile(lambda t: _plan_forward(layers, t))
     dev = X.device
-    G = _cuda.grid(name, lib.fwdlap_forward_blocks_per_sm, smem, dev, (N + T - 1) // T)
-    out = torch.empty((N, d + 2), dtype=torch.float32, device=dev)
+    G = _cuda.grid(name, lambda sm, ptr: lib.fwdlap_forward_blocks_per_sm(streams, sm, ptr),
+                   smem, dev, (N + T - 1) // T)
+    shape = (d + 2, N) if streams else (N, d + 2)
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
     lay = _cuda.layers_arg(layers)
-    _cuda.launch(name, lib.fwdlap_forward_f32, X.data_ptr(), flat.data_ptr(),
+    _cuda.launch(name, lib.fwdlap_forward_f32, streams, X.data_ptr(), flat.data_ptr(),
                  ctypes.addressof(lay), len(layers), _cuda.ACTS[activation], N, T,
                  G, out.data_ptr(), smem, _cuda.stream(dev), dev=dev)
-    return out
+    return out.t() if streams else out
+
+
+def fwdlap_backward(params, X, ct, activation: str):
+    """Launch the recompute-backward kernel: ``(dWs, dbs)`` of ``sum(jet *
+    ct)`` for the ``(N, d+2)`` cotangent ``ct``; the last bias's gradient,
+    ``sum ct[:, 0]``, is formed here."""
+    from . import _build
+
+    name = "fwdlap_backward"
+    lib = _build.load()
+    layers = _cuda.net_layers(name, params, X, activation, (ct,))
+    N, d = X.shape
+    if ct.shape != (N, d + 2):
+        raise ValueError(f"ct must be (N, d+2) = ({N}, {d + 2}), got {tuple(ct.shape)}")
+    K = len(params)
+    X, ct = X.contiguous(), ct.contiguous()
+    flat = _cuda.flat_params(params)
+    P = flat.numel()
+    T, smem = _cuda.plan_tile(lambda t: _plan_backward(layers, t))
+    dev = X.device
+    G = _cuda.grid(name, lib.fwdlap_backward_blocks_per_sm, smem, dev, (N + T - 1) // T)
+    wmax = _cuda.padded_wmax(layers)
+    partial = torch.empty((G, P), dtype=torch.float32, device=dev)
+    scratch = torch.empty((G, max(K - 2, 1) * (d + 2) * T * wmax), dtype=torch.float32,
+                          device=dev)
+    out = torch.empty((P,), dtype=torch.float32, device=dev)
+    lay = _cuda.layers_arg(layers)
+    _cuda.launch(name, lib.fwdlap_backward_f32, X.data_ptr(), ct.data_ptr(),
+                 flat.data_ptr(), ctypes.addressof(lay), len(layers),
+                 _cuda.ACTS[activation], N, T, G, partial.data_ptr(), scratch.data_ptr(),
+                 out.data_ptr(), smem, _cuda.stream(dev), dev=dev)
+    dWs, dbs, _ = _unflatten(params, out)
+    dbs[-1] = torch.sum(ct[:, 0]).reshape(params[-1][1].shape)
+    return dWs, dbs
 
 
 class _JetForward(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, activation, X, *leaves):
+    def forward(ctx, cfg, X, *leaves):
+        activation, fwd_impl = cfg
         params = [(leaves[i], leaves[i + 1]) for i in range(0, len(leaves), 2)]
-        if X.device.type == "cuda":
-            return fwdlap_forward(params, X, activation)
-        if X.device.type != "cpu":
-            raise ValueError(f"no jet-forward path for device {X.device}")
-        jet = fwdlap_forward_plain(params, X, activation)
-        return torch.cat([jet.value[:, None], jet.grad, jet.lap[:, None]], dim=1)
+        ctx.activation = activation
+        ctx.save_for_backward(X, *leaves)
+        if _on_cuda(X):
+            return fwdlap_forward(params, X, activation, fwd_impl)
+        return _jet_rows(fwdlap_forward_plain(params, X, activation))
 
     @staticmethod
     def backward(ctx, ct):
-        raise NotImplementedError(
-            "mlp_fwdlap_kernel has no backward yet: the recompute backward "
-            "(_backward_kernel) arrives with ROADMAP B5; differentiate "
-            "through impl='torch' instead")
+        X, *leaves = ctx.saved_tensors
+        params = [(leaves[i].detach(), leaves[i + 1].detach())
+                  for i in range(0, len(leaves), 2)]
+        if _on_cuda(X):
+            dWs, dbs = fwdlap_backward(params, X, ct, ctx.activation)
+        else:
+            dWs, dbs = fwdlap_backward_plain(params, X, ct, ctx.activation)
+        return (None, None) + tuple(g for pair in zip(dWs, dbs) for g in pair)
 
 
-def mlp_fwdlap_kernel(params, X, activation: str) -> Jet:
+def mlp_fwdlap_kernel(params, X, activation: str, fwd_impl: str = "rows") -> Jet:
     """Exact ``(u, grad u, lap u)`` of a scalar MLP over a collocation batch
-    through the jet-forward kernel (plain version on the CPU)."""
+    through the jet kernels (plain versions on the CPU), differentiable in
+    ``params``.  ``fwd_impl``: ``'rows'`` or ``'streams'`` (which forward
+    kernel; the jet is the same)."""
+    if fwd_impl not in _FWD_IMPLS:
+        raise ValueError(f"fwd_impl must be one of {_FWD_IMPLS}, got {fwd_impl!r}")
     leaves = [t for pair in params for t in pair]
-    out = _JetForward.apply(activation, X, *leaves)
+    out = _JetForward.apply((activation, fwd_impl), X, *leaves)
     d = X.shape[1]
     return Jet(value=out[:, 0], grad=out[:, 1:1 + d], lap=out[:, 1 + d])

@@ -21,8 +21,8 @@ def _check_impl(impl: str) -> None:
     if impl not in ("torch", "kernel"):
         raise NotImplementedError(
             f"impl={impl!r}: this port has impl='torch' (the recurrence "
-            "under autograd) and impl='kernel' (the jet-forward kernel, "
-            "no backward until ROADMAP B5)")
+            "under autograd) and impl='kernel' (the jet kernels, forward "
+            "and recompute backward)")
 
 
 class SolutionModel:
@@ -52,18 +52,20 @@ class SolutionModel:
             u = u * self.factor.value(X)
         return u
 
-    def fields(self, params, X, impl: str = "torch") -> Jet:
+    def fields(self, params, X, impl: str = "torch", **kernel_kw) -> Jet:
         """(u, grad u, lap u) over the collocation batch by the
-        forward-Laplacian recurrence: ``impl='torch'`` differentiable
-        through autograd, ``impl='kernel'`` through the jet-forward kernel
-        (:func:`~nnpde_tpu_torch.kernels.mlp_fwdlap_kernel`, forward
-        only)."""
+        forward-Laplacian recurrence, differentiable in ``params``:
+        ``impl='torch'`` through autograd, ``impl='kernel'`` through the
+        jet kernels (:func:`~nnpde_tpu_torch.kernels.mlp_fwdlap_kernel`;
+        ``kernel_kw`` are its options, e.g. ``fwd_impl='streams'``)."""
         _check_impl(impl)
         if impl == "kernel":
             from ..kernels import mlp_fwdlap_kernel
 
-            jet = mlp_fwdlap_kernel(params, X, self.spec.activation)
+            jet = mlp_fwdlap_kernel(params, X, self.spec.activation, **kernel_kw)
         else:
+            if kernel_kw:
+                raise TypeError(f"impl='torch' takes no kernel options, got {kernel_kw}")
             jet = mlp_fwdlap(params, X, self.spec.activation)
         if self.factor is not None:
             jet = compose_product_jet(jet, self.factor.jet(X))
@@ -76,14 +78,13 @@ class SolutionModel:
         )(X)
         return Jet(value=u, grad=g, lap=l)
 
-    def value_and_grad(self, params, X, impl: str = "torch"):
+    def value_and_grad(self, params, X, impl: str = "torch", **kernel_kw):
         """(u, grad u) without the Laplacian (DRM / WAN paths): by
         reverse-mode autodiff vmapped over the batch, or with
-        ``impl='kernel'`` from the jet-forward kernel, dropping the
-        Laplacian."""
+        ``impl='kernel'`` from the jet kernels, dropping the Laplacian."""
         _check_impl(impl)
         if impl == "kernel":
-            jet = self.fields(params, X, impl="kernel")
+            jet = self.fields(params, X, impl="kernel", **kernel_kw)
             return jet.value, jet.grad
         return calculus.batched_value_and_grad_x(
             lambda x: self.apply_point(params, x)

@@ -1,5 +1,5 @@
-from . import calculus
-from .bump import BUMP_I1, bump_w, bump_w_1d_jet
+from . import calculus, quadrature
+from .bump import BUMP_I1, bump_grid, bump_w, bump_w_1d_jet, bump_w_multi
 from .fwdlap import (
     Jet,
     activation_jet,
@@ -11,9 +11,12 @@ from .fwdlap import (
 
 __all__ = [
     "BUMP_I1",
+    "bump_grid",
     "bump_w",
     "bump_w_1d_jet",
+    "bump_w_multi",
     "calculus",
+    "quadrature",
     "Jet",
     "activation_jet",
     "compose_product_jet",

@@ -6,11 +6,13 @@ Counterpart of ``nnpde_tpu/ops/bump.py``: ``w(x) = prod_i exp(1/(t_i^2-1))
     d/dt exp(1/(t^2-1)) = exp(1/(t^2-1)) * (-2t / (t^2-1)^2)
 
 evaluated on a clamped |t| so the exponent never overflows, and masked to
-zero outside the support.  ``bump_grid`` and ``bump_w_multi`` (the
-multi-bump WAN) arrive with ROADMAP B8.
+zero outside the support.  ``bump_grid`` and ``bump_w_multi`` give the
+localised bumps of the multi-test-function WAN.
 """
 
 from __future__ import annotations
+
+import itertools
 
 import torch
 
@@ -52,3 +54,29 @@ def bump_w(X, lo, hi):
     w = torch.prod(w1, dim=1)
     # exclusive products for the gradient (safe at interior zeros)
     return w, dw1 * exclusive_products(w1)
+
+
+def bump_grid(lo: float, hi: float, d: int, k: int, overlap: float = 0.5):
+    """Centres and half-width of a ``k^d`` grid of localised bumps on the
+    box ``[lo, hi]^d`` with fractional overlap between neighbours:
+    ``(centers (k^d, d) float32 on the CPU, half_width)``."""
+    cell = (hi - lo) / k
+    h = cell * (1.0 + overlap) / 2.0
+    marks = [lo + cell * (i + 0.5) for i in range(k)]
+    centers = torch.tensor(list(itertools.product(marks, repeat=d)), dtype=torch.float32)
+    return centers, float(h)
+
+
+def bump_w_multi(X, centers, half_width: float):
+    """Localised bumps: ``w (K, N)``, ``dw (K, N, d)`` for K centres, each
+    the product 1D bump on ``|x - c| < half_width`` per dimension (the
+    profile of :func:`bump_w`, translated and scaled).  The centres are
+    broadcast over a leading K axis."""
+    X = torch.atleast_2d(X)
+    centers = centers.to(dtype=X.dtype, device=X.device)
+    t = (X[None, :, :] - centers[:, None, :]) / half_width          # (K, N, d)
+    w1, dw1, _ = bump_w_1d_jet(t)
+    dw1 = dw1 / half_width
+    K, N, d = t.shape
+    excl = exclusive_products(w1.reshape(K * N, d)).reshape(K, N, d)
+    return torch.prod(w1, dim=2), dw1 * excl

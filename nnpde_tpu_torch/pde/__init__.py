@@ -1,4 +1,4 @@
-from . import poisson
+from . import ipw, poisson
 from .domain import Box
 
-__all__ = ["Box", "poisson"]
+__all__ = ["Box", "ipw", "poisson"]

@@ -14,7 +14,8 @@ bump-windowed critic ``phi = w * v``), so the fused u/v objectives
 
 The frozen net's ``(value, grad)`` comes from ``value_and_grad(impl=...)``:
 ``'kernel'`` (the default, the jet-forward kernel; JAX's ``'pallas'``) or
-``'torch'``.  The multi-bump pair arrives with ROADMAP B8.
+``'torch'``.  :func:`make_fused_wan_multi_pair` is the multi-test-function
+variant on the K-bump kernels (:mod:`nnpde_tpu_torch.kernels.fused_multibump`).
 """
 
 from __future__ import annotations
@@ -23,7 +24,14 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..kernels import linear_functional_coefficients, make_fused_wan_u, make_fused_wan_v
+from ..kernels import (
+    linear_functional_coefficients,
+    make_fused_wan_multi_u,
+    make_fused_wan_multi_v,
+    make_fused_wan_u,
+    make_fused_wan_v,
+    pack_multibump_coefficients,
+)
 from ..ops.fwdlap import Jet
 
 
@@ -98,6 +106,69 @@ def make_fused_wan_pair(u_model, v_model, *, w_pde: float = 1.0,
             c0 = c0 - f
         return linear_functional_coefficients(
             wjet, c0=c0, b0=prefactor * gu, e1=Wm)
+
+    def v_loss_from_coef(v_params, X, coef):
+        return fused_v(v_params, X, coef)
+
+    def v_loss_fn(v_params, u_net_params, E, X, wv, dwv, V=None, f=None):
+        coef = v_coef_fn(u_net_params, E, X, wv, dwv, V=V, f=f)
+        return fused_v(v_params, X, coef)
+
+    return FusedWanPair(u_pde_fn, v_loss_fn, v_coef_fn, v_loss_from_coef)
+
+
+def make_fused_wan_multi_pair(u_model, v_model, n_bumps: int, *,
+                              w_pde: float = 1.0, prefactor: float = 0.5,
+                              convention: str = "wr2_over_norm",
+                              eps: float = 1e-8, objective: str = "neg_log",
+                              log_eps: float = 1e-8, impl: str = "kernel",
+                              w_norm: float = 0.0, vol: float = 1.0):
+    """The multi-test-function variant of :func:`make_fused_wan_pair`: one
+    weak residual per localised bump ``phi_k = w_k * v``.  ``wv``/``dwv``
+    are the stacked bump windows ``(K, N)`` / ``(K, N, d)`` from
+    :func:`nnpde_tpu_torch.ops.bump_w_multi`; the objectives are ``mean_k``
+    of the per-bump quotients, matching the autograd multibump path."""
+    fused_u = make_fused_wan_multi_u(
+        u_model.spec.activation, n_bumps, convention=convention, eps=eps,
+        w_pde=w_pde, w_norm=w_norm, vol=vol)
+    fused_v = make_fused_wan_multi_v(
+        v_model.spec.activation, n_bumps, convention=convention, eps=eps,
+        objective=objective, log_eps=log_eps)
+
+    def u_pde_fn(u_net_params, E, v_params, X, wv, dwv, V=None, f=None):
+        v, gv = v_model.value_and_grad(v_params, X, impl=impl)
+        phi = wv * v[None, :]                                  # (K, N)
+        gphi = dwv * v[None, :, None] + wv[:, :, None] * gv[None, :, :]   # (K, N, d)
+        phi_norms = torch.mean(phi ** 2, dim=1)                # (K,)
+        Bu = factor_jet_or_one(u_model, X)
+        zero = torch.zeros_like(Bu.value)
+        cores = []
+        for k in range(n_bumps):
+            c0 = V * phi[k] if V is not None else None
+            rhs = None if f is None else -f * phi[k]
+            cores.append(linear_functional_coefficients(
+                Bu, c0=c0, b0=prefactor * gphi[k], rhs=rhs,
+                e1=Bu.value if k == 0 else zero,    # mass lane 0 = u mass
+                e2=Bu.value * phi[k]))
+        base = pack_multibump_coefficients(cores)
+        return fused_u(u_net_params, E, X, base, phi_norms)
+
+    def v_coef_fn(u_net_params, E, X, wv, dwv, V=None, f=None):
+        """The critic's coefficient stream, a function of the frozen primal
+        only: trainers with fixed quadrature build it once per epoch."""
+        u, gu = u_model.value_and_grad(u_net_params, X, impl=impl)
+        Bv = factor_jet_or_one(v_model, X)
+        c0 = (V - E) * u if V is not None else -E * u
+        if f is not None:
+            c0 = c0 - f
+        cores = []
+        for k in range(n_bumps):
+            Wm = wv[k] * Bv.value
+            gWm = dwv[k] * Bv.value[:, None] + wv[k][:, None] * Bv.grad
+            wjet = Jet(Wm, gWm, torch.zeros_like(Wm))
+            cores.append(linear_functional_coefficients(
+                wjet, c0=c0, b0=prefactor * gu, e1=Wm))
+        return pack_multibump_coefficients(cores)
 
     def v_loss_from_coef(v_params, X, coef):
         return fused_v(v_params, X, coef)

@@ -12,7 +12,10 @@ Counterpart of ``nnpde_tpu/problems/poisson.py``, with the same
   solution, best-state tracking.
 
 ``jet_impl``: ``'torch'`` (the forward-Laplacian recurrence under autograd,
-the counterpart of ``'xla'``) or ``'fused'`` (the counterpart of
+the counterpart of ``'xla'``), ``'kernel'`` (the counterpart of
+``'pallas'``: the PINN residual's jet through the jet-forward kernel and its
+recompute backward, :mod:`nnpde_tpu_torch.kernels.fwdlap_cuda`; as in the
+JAX package DRM and WAN run their ``'torch'`` path under it) or ``'fused'`` (the counterpart of
 ``'pallas-fused'``: the one-pass CUDA loss+grad kernels of
 :mod:`nnpde_tpu_torch.kernels.fused_step` for PINN and DRM; for WAN the
 jet-forward kernel and the two-pass kernels of
@@ -85,7 +88,8 @@ class PoissonConfig:
     lr_schedule: str = "constant"   # constant | cosine | exponential
     compute_dtype: str = "float32"
     hybrid_bf16_fraction: float = 0.8
-    # 'torch' (recurrence + autograd) | 'fused' (one-pass CUDA kernels)
+    # 'torch' (recurrence + autograd) | 'kernel' (jet kernel pair, PINN) |
+    # 'fused' (one-pass CUDA kernels)
     jet_impl: str = "torch"
     # 'stream' (precomputed (N, d+4) coefficients) | 'analytic' (built
     # in-kernel from X: PINN + FBC + solution='sin' + jet_impl='fused')
@@ -159,9 +163,10 @@ def _validate(cfg: PoissonConfig) -> None:
             "only; reduced-precision phases are ROADMAP queue B work")
     if cfg.jet_impl == "pallas":
         raise NotImplementedError(
-            "jet_impl='pallas' (the jet kernel pair) arrives with ROADMAP B5")
-    if cfg.jet_impl not in ("torch", "fused"):
-        raise ValueError("jet_impl must be 'torch' or 'fused'")
+            "jet_impl='pallas' is the JAX package's name for the jet kernel "
+            "pair; this port calls it jet_impl='kernel'")
+    if cfg.jet_impl not in ("torch", "kernel", "fused"):
+        raise ValueError("jet_impl must be 'torch', 'kernel' or 'fused'")
     if cfg.coef_mode not in ("stream", "analytic"):
         raise ValueError("coef_mode must be 'stream' or 'analytic'")
     if cfg.coef_mode == "analytic" and not (
@@ -263,7 +268,7 @@ def train_poisson_nd(cfg: PoissonConfig, device="cuda") -> Dict:
     def loss_fn(params, key):
         X_cur, f_cur = interior(key)
         if cfg.method == "PINN":
-            jet = model.fields(params, X_cur)
+            jet = model.fields(params, X_cur, impl=cfg.jet_impl)
             pde = pinn_poisson(jet.lap, f_cur)
             u_int = jet.value
         else:

@@ -42,6 +42,18 @@ def shifted_qmc(u_base, gen: torch.Generator, box: Box):
     return _to_box(torch.remainder(u_base + shift, 1.0), box)
 
 
+def linspace_grid(n: int, lo: float, hi: float, dtype=torch.float32, device=None):
+    """Fixed 1D grid, (n, 1)."""
+    return torch.linspace(lo, hi, n, dtype=dtype, device=device).reshape(-1, 1)
+
+
+def meshgrid_2d(n: int, lo: float, hi: float, dtype=torch.float32, device=None):
+    """n x n tensor-product grid, flattened to (n*n, 2) with 'ij' indexing."""
+    g = torch.linspace(lo, hi, n, dtype=dtype, device=device)
+    X, Y = torch.meshgrid(g, g, indexing="ij")
+    return torch.stack([X.reshape(-1), Y.reshape(-1)], dim=-1)
+
+
 def face_points(gen: torch.Generator, n_per_face: int, box: Box,
                 dtype=torch.float32):
     """Fresh uniform samples on all 2d faces — (2*d*n_per_face, d), one

@@ -7,7 +7,9 @@ a machine without JAX (``--noconftest`` skips the suite's JAX set-up):
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Tolerance: the float32 kernel against the float64 plain version, loss and
-grad-tree rel <= 1e-5; two launches on the same inputs bitwise equal.
+grad-tree rel <= 1e-5; two launches on the same inputs bitwise equal.  Every
+wrapper is also run at hidden widths that are not multiples of 4 (50, the
+default infinite-well net, and 10): the kernels pad such layers on chip.
 """
 
 import math
@@ -52,6 +54,9 @@ def dev():
     (2, (2, 64, 64, 64, 64, 1), "sin"),
     (5, (5, 32, 32, 1), "tanh"),
     (3, (3, 128, 96, 1), "gelu"),
+    (2, (2, 50, 50, 50, 50, 1), "sin"),
+    (2, (2, 10, 10, 1), "gelu"),
+    (3, (3, 7, 1, 33, 1), "tanh"),
 ])
 def test_cuda_kernel_matches_plain(dev, kind, d, layers, act):
     rng = np.random.default_rng(3)
@@ -100,9 +105,9 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(dev):
     rng = np.random.default_rng(0)
     X = torch.rand(64, 2, device=dev)
     coef = torch.zeros(64, 6, device=dev)
-    odd = params_from_jax(_np_params(rng, (2, 30, 1)), device=dev)
+    wide = params_from_jax(_np_params(rng, (2, 132, 1)), device=dev)
     with pytest.raises(ValueError):
-        tfs.fused_linear_residual(odd, X, coef, "sin")
+        tfs.fused_linear_residual(wide, X, coef, "sin")
     p64 = params_from_jax(_np_params(rng, (2, 32, 1)), device=dev, dtype=torch.float64)
     with pytest.raises(TypeError):
         tfs.fused_linear_residual(p64, X.double(), coef.double(), "sin")
@@ -115,6 +120,8 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(dev):
     ((2, 64, 64, 64, 64, 1), "sin", 0),
     ((2, 64, 64, 1), "sin", 0),
     ((5, 32, 32, 1), "tanh", 1),
+    ((2, 50, 50, 50, 50, 1), "sin", 1),
+    ((2, 10, 10, 1), "sin", 0),
 ])
 def test_cuda_wan_kernel_matches_plain(dev, kind, layers, act, lap):
     """The WAN path's kernels: the jet per column, every sum within 1e-5 of
@@ -177,3 +184,150 @@ def test_cuda_wan_kernel_matches_plain(dev, kind, layers, act, lap):
     got = tfs._unflatten(tp, out)
     assert _tree_rel([got[0], got[1][:-1]], [dWs, dbs[:-1]]) <= 1e-5
     assert abs(float(got[2][0]) - float(sums[0])) <= 1e-5 * abs(float(sums[0]))
+
+
+_JET_NETS = [
+    ((2, 50, 50, 50, 50, 1), "sin"),
+    ((2, 20, 20, 20, 1), "sin"),
+    ((2, 64, 64, 1), "gelu"),
+    ((5, 32, 32, 1), "tanh"),
+    ((3, 10, 10, 1), "sin"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layers,act", _JET_NETS)
+def test_cuda_fwdlap_forward_streams_matches_plain(dev, layers, act):
+    """The stream-major jet forward: each jet column rel <= 1e-5 against
+    the float64 recurrence, two launches bitwise equal, and the returned
+    (N, d+2) tensor is a view of the kernel's (d+2, N) output."""
+    from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
+
+    rng = np.random.default_rng(11)
+    N, d = 1000 + 7, layers[0]
+    pn = _np_params(rng, layers)
+    tp = params_from_jax(pn, device=dev)
+    tp64 = params_from_jax(pn, device=dev, dtype=torch.float64)
+    X = torch.as_tensor(rng.uniform(0.0, L, (N, d)).astype(np.float32), device=dev)
+    before = LAUNCHES["fwdlap_forward_streams"]
+    out = tfc.fwdlap_forward(tp, X, act, "streams")
+    out2 = tfc.fwdlap_forward(tp, X, act, "streams")
+    torch.cuda.synchronize()
+    assert LAUNCHES["fwdlap_forward_streams"] == before + 2
+    assert out.shape == (N, d + 2) and out.t().is_contiguous()
+    assert torch.equal(out, out2)
+    jet = tfc.fwdlap_forward_plain(tp64, X.double(), act)
+    ref = torch.cat([jet.value[:, None], jet.grad, jet.lap[:, None]], dim=1)
+    for c in range(d + 2):
+        assert (torch.linalg.norm(out[:, c].double() - ref[:, c])
+                <= 1e-5 * torch.linalg.norm(ref[:, c]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layers,act", _JET_NETS)
+def test_cuda_fwdlap_backward_matches_plain(dev, layers, act):
+    """The recompute backward from a random (N, d+2) cotangent: the grad
+    tree rel <= 1e-5 against autograd through the float64 recurrence, two
+    launches bitwise equal."""
+    from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
+
+    rng = np.random.default_rng(12)
+    N, d = 1000 + 7, layers[0]
+    pn = _np_params(rng, layers)
+    tp = params_from_jax(pn, device=dev)
+    tp64 = params_from_jax(pn, device=dev, dtype=torch.float64)
+    X = torch.as_tensor(rng.uniform(0.0, L, (N, d)).astype(np.float32), device=dev)
+    ct = torch.as_tensor(rng.normal(size=(N, d + 2)).astype(np.float32), device=dev)
+    before = LAUNCHES["fwdlap_backward"]
+    dWs, dbs = tfc.fwdlap_backward(tp, X, ct, act)
+    dWs2, dbs2 = tfc.fwdlap_backward(tp, X, ct, act)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fwdlap_backward"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(dWs + dbs, dWs2 + dbs2))
+    rW, rb = tfc.fwdlap_backward_plain(tp64, X.double(), ct.double(), act)
+    assert _tree_rel([dWs, dbs], [rW, rb]) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fwd_impl", ["rows", "streams"])
+def test_cuda_jet_kernel_is_differentiable(dev, fwd_impl):
+    """A loss through ``SolutionModel.fields(impl='kernel')`` on the card:
+    value and every gradient leaf rel <= 1e-5 of the float64 ``impl='torch'``
+    route; exactly one forward and one backward launch."""
+    from nnpde_tpu_torch.models import NetSpec, SolutionModel, factor_for_technique
+
+    layers = (2, 50, 50, 1)
+    rng = np.random.default_rng(13)
+    pn = _np_params(rng, layers)
+    X = torch.as_tensor(rng.uniform(0.0, L, (777, 2)).astype(np.float32), device=dev)
+    model = SolutionModel(NetSpec(layers, activation="sin"),
+                          factor_for_technique("FBC", dim=2, kind="box", L=L))
+
+    def loss_of(p, Xa, **kw):
+        jet = model.fields(p, Xa, **kw)
+        return torch.mean((jet.lap + 3.0 * jet.value) ** 2) + torch.mean(jet.grad ** 2)
+
+    tp = [(W.requires_grad_(True), b.requires_grad_(True))
+          for W, b in params_from_jax(pn, device=dev)]
+    fwd = "fwdlap_forward_streams" if fwd_impl == "streams" else "fwdlap_forward"
+    before = (LAUNCHES[fwd], LAUNCHES["fwdlap_backward"])
+    val = loss_of(tp, X, impl="kernel", fwd_impl=fwd_impl)
+    g = torch.autograd.grad(val, [t for pair in tp for t in pair])
+    torch.cuda.synchronize()
+    assert (LAUNCHES[fwd], LAUNCHES["fwdlap_backward"]) == (before[0] + 1, before[1] + 1)
+    tp64 = [(W.requires_grad_(True), b.requires_grad_(True))
+            for W, b in params_from_jax(pn, device=dev, dtype=torch.float64)]
+    ref = loss_of(tp64, X.double())
+    gr = torch.autograd.grad(ref, [t for pair in tp64 for t in pair])
+    assert abs(float(val.detach()) - float(ref.detach())) <= 1e-5 * abs(float(ref.detach()))
+    for a, b in zip(g, gr):
+        assert torch.linalg.norm(a.double() - b) <= 1e-5 * torch.linalg.norm(b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seeded", [False, True])
+@pytest.mark.parametrize("Kb", [1, 4, 16, 42])
+@pytest.mark.parametrize("layers,act", [
+    ((2, 50, 50, 50, 50, 1), "sin"),
+    ((2, 20, 20, 20, 1), "sin"),
+    ((3, 10, 10, 1), "tanh"),
+])
+def test_cuda_multibump_kernel_matches_plain(dev, seeded, Kb, layers, act):
+    """The K-bump pair: every sum within 1e-5 of the sum of its terms'
+    magnitudes, the seeded grad row and sum ct_v rel <= 1e-5; two launches
+    bitwise equal."""
+    from nnpde_tpu_torch.kernels import fused_multibump as tfm
+    from nnpde_tpu_torch.ops.fwdlap import mlp_fwdlap
+
+    rng = np.random.default_rng(14)
+    N, d = 1000 + 7, layers[0]
+    pn = _np_params(rng, layers)
+    tp = params_from_jax(pn, device=dev)
+    tp64 = params_from_jax(pn, device=dev, dtype=torch.float64)
+    X = torch.as_tensor(rng.uniform(0.0, L, (N, d)).astype(np.float32), device=dev)
+    coef = torch.as_tensor(rng.normal(size=(N, Kb * (d + 4))).astype(np.float32), device=dev)
+    scal = torch.as_tensor(rng.normal(size=(3 * Kb,)).astype(np.float32), device=dev)
+    name = "multi_seeded" if seeded else "multi_sums"
+    before = LAUNCHES[name]
+    out = tfm._launch(seeded, tp, X, coef, scal, act, Kb)
+    out2 = tfm._launch(seeded, tp, X, coef, scal, act, Kb)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == before + 2
+    assert torch.equal(out, out2)
+    X64, c64, s64 = X.double(), coef.double(), scal.double()
+    if not seeded:
+        ref = tfm.fused_multi_sums_plain(tp64, X64, c64, act, Kb)
+        r, mass, lin = tfm._multi_terms(mlp_fwdlap(tp64, X64, act), c64, Kb, d)
+        scale = torch.cat([r.abs().sum(0), mass.sum(0), lin.abs().sum(0)])
+        assert torch.all(torch.abs(out.double() - ref) <= 1e-5 * scale)
+        return
+    dWs, dbs, sums = tfm.fused_multi_seeded_grads_plain(tp64, X64, c64, s64, act, Kb)
+    got = tfs._unflatten(tp, out)
+    assert _tree_rel([got[0], got[1][:-1]], [dWs, dbs[:-1]]) <= 1e-5
+    # sum ct_v nearly cancels on random coefficients: hold it to the sum of
+    # its terms' magnitudes
+    blk, v = d + 2, mlp_fwdlap(tp64, X64, act).value
+    e1, e2 = c64[:, Kb * blk:Kb * blk + Kb], c64[:, Kb * blk + Kb:Kb * blk + 2 * Kb]
+    ctv = torch.sum(s64[:Kb] * c64[:, 0:Kb * blk:blk] + s64[Kb:2 * Kb] * 2.0 * e1 * e1
+                    * v[:, None] + s64[2 * Kb:] * e2, dim=1)
+    assert abs(float(got[2][0]) - float(sums[0])) <= 1e-5 * float(ctv.abs().sum())

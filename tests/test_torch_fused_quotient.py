@@ -123,11 +123,14 @@ def test_jet_forward_matches_jax_kernel(d, act):
         for c in range(d + 2):
             assert _rel(got[c], exact_j[c]) <= 1e-5
             assert _rel(got[c], kernel_j[c]) <= 1e-5 + own[c]
-    # no backward yet: differentiating through the kernel raises
+    # differentiating through the kernel route gives the gradient of the
+    # recurrence under autograd (rel <= 1e-5)
     tp = [(W.requires_grad_(True), b.requires_grad_(True)) for W, b in params_from_jax(pn)]
     jet = mlp_fwdlap_kernel(tp, _t(X, torch.float32), act)
-    with pytest.raises(NotImplementedError, match="B5"):
-        torch.autograd.grad(torch.sum(jet.lap), [tp[0][0]])
+    (got,) = torch.autograd.grad(torch.sum(jet.lap), [tp[0][0]])
+    (want,) = torch.autograd.grad(torch.sum(mlp_fwdlap(tp, _t(X, torch.float32), act).lap),
+                                  [tp[0][0]])
+    assert _rel(got.numpy(), want.numpy()) <= 1e-5
 
 
 # --------------------------------------------------------------- raw API
