@@ -55,7 +55,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
 
 ``python3 chip_smoke.py eigen`` (or any other phase-group name: kernels,
 wan, main, eigen, timing) runs only those groups, for work on one slice;
-without arguments every phase runs.
+without arguments every phase runs.  ``python3 chip_smoke.py sweep`` is a
+further group that runs only when named: the K-bump pair at every plan tier
+and a range of tile sizes, each checked against float64 and timed.
 
 The last two lines before the final one are the ``kernels`` summary and the
 card's ``name, power limit``; the final line is
@@ -653,6 +655,31 @@ def time_ms(fn, warmup=3, reps=15):
     return statistics.median(times)
 
 
+def device_ms(fn, launches=30, reps=5):
+    """Device time of the launches ``fn`` makes, per call of ``fn``: the
+    launches are captured once (pointers and workspace prepared by the
+    wrapper, outside the timed window) and issued again ``launches`` times
+    back to back inside one event pair, so the queue never runs dry and the
+    wrapper's host work (checks, torch.cat, allocation) is not timed.  The
+    floor is the host's time for one ctypes call, a few microseconds."""
+    from nnpde_tpu_torch.kernels import _cuda
+
+    with _cuda.capture() as cap:
+        fn()
+    cap.replay(3)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        cap.replay(launches)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    return statistics.median(times)
+
+
 def phase_timing(dev):
     rows = []
     for kind in REPLACES:
@@ -660,7 +687,8 @@ def phase_timing(dev):
             case = Case(kind, N, 2, LAYERS, "sin", seed=7, dev=dev)
             ms = time_ms(case.kernel)
             plain_ms = time_ms(lambda: case.plain(torch.float32), warmup=2, reps=7)
-            rows.append({"kernel": kind, "N": N, "ms": ms, "plain_ms": plain_ms,
+            rows.append({"kernel": kind, "N": N, "ms": ms,
+                         "device_ms": device_ms(case.kernel), "plain_ms": plain_ms,
                          "bound_ms": case.bound_ms(), "flop": case.flops(),
                          "bound_by": ("operations" if case.flops() / FP32_PEAK
                                       >= case.bytes() / HBM_RATE else "bytes"),
@@ -682,6 +710,7 @@ def phase_wan_timing(dev):
                 ms = time_ms(case.kernel)
                 plain_ms = time_ms(lambda: case.plain(torch.float32), warmup=2, reps=7)
                 rows.append({"kernel": kind, "net": net, "N": N, "ms": ms,
+                             "device_ms": device_ms(case.kernel),
                              "plain_ms": plain_ms, "bound_ms": case.bound_ms(),
                              "bound_by": case.bound_by(), "flop": case.flops(),
                              "bytes": case.bytes(),
@@ -1095,6 +1124,19 @@ def phase_eigen_path():
                       "wan_epochs_per_s_fused": report["wan"]["epochs_per_s_fused"]}
 
 
+def multibump_plan(case):
+    """The launch shape the K-bump wrapper chose for this case (after a
+    launch): tile, shared memory, blocks, and what stays on chip."""
+    from nnpde_tpu_torch.kernels import _cuda
+    from nnpde_tpu_torch.kernels import fused_multibump as fm
+
+    seeded = case.kind == "multi_seeded"
+    pl = fm.plan(seeded, case.layers, case.Kb)
+    blocks = _cuda.grid(case.kind, None, pl.smem, case.X.device, (case.N + pl.T - 1) // pl.T)
+    return {"T": pl.T, "smem_bytes": pl.smem, "blocks": blocks, "tier": pl.tier,
+            "resident": fm.resident(pl, seeded)}
+
+
 def phase_eigen_timing(dev):
     rows = []
     nets = {"u": EIGEN_U, "critic": EIGEN_V}
@@ -1105,7 +1147,10 @@ def phase_eigen_timing(dev):
                 ms = time_ms(case.kernel)
                 plain_ms = time_ms(lambda: case.plain(torch.float32), warmup=2, reps=7)
                 rows.append({"kernel": kind, "net": net, "N": N, "n_bumps": case.Kb
-                             if kind.startswith("multi") else None, "ms": ms,
+                             if kind.startswith("multi") else None,
+                             "plan": multibump_plan(case) if kind.startswith("multi")
+                             else None, "ms": ms,
+                             "device_ms": device_ms(case.kernel),
                              "plain_ms": plain_ms, "bound_ms": case.bound_ms(),
                              "bound_by": case.bound_by(), "flop": case.flops(),
                              "bytes": case.bytes(),
@@ -1118,17 +1163,79 @@ def phase_eigen_timing(dev):
     others = []
     case = Case("fused_linear_residual", EIGEN_N, 2, EIGEN_U, "sin", seed=12, dev=dev)
     others.append({"kernel": "fused_linear_residual", "net": "u", "N": EIGEN_N,
-                   "ms": time_ms(case.kernel), "bound_ms": case.bound_ms()})
+                   "ms": time_ms(case.kernel), "device_ms": device_ms(case.kernel),
+                   "bound_ms": case.bound_ms()})
     del case
     for kind, net in (("fwdlap_forward", "u"), ("fwdlap_forward", "critic"),
                       ("quad_sums", "u"), ("quad_seeded", "u")):
         case = WanCase(kind, EIGEN_N, nets[net], "sin", seed=13, dev=dev)
         others.append({"kernel": kind, "net": net, "N": EIGEN_N, "ms": time_ms(case.kernel),
-                       "bound_ms": case.bound_ms()})
+                       "device_ms": device_ms(case.kernel), "bound_ms": case.bound_ms()})
         del case
         torch.cuda.empty_cache()
     emit({"phase": "eigen_timing", "rows": rows, "earlier_kernels": others})
     return rows
+
+
+SWEEP_TILES = (16, 24, 32, 48, 64, 96)
+
+
+def phase_multibump_sweep(dev):
+    """The K-bump pair on the two infinite-well nets at N = 40000 and 262144,
+    at every (tier, T) of SWEEP_TILES that fits: each launch held to its
+    float64 plain version (pass A: every sum within 1e-5 of the sum of its
+    terms' magnitudes; pass B: gradient row rel <= 1e-5), launched twice for
+    a bitwise-equal repeat, and timed as device time.  One JSON line per
+    case; the plan's own choice carries ``"chosen": true``."""
+    from nnpde_tpu_torch.kernels import _build, _cuda
+    from nnpde_tpu_torch.kernels import fused_multibump as fm
+
+    emit({"phase": "sweep", "ptxas": [
+        ln.strip() for ln in _build.BUILD_LOG.get("ptxas", "").splitlines()
+        if "multi_" in ln or "registers" in ln or "spill" in ln]})
+    ok = True
+    for net_name, layers in (("critic", EIGEN_V), ("u", EIGEN_U)):
+        for kind in ("multi_sums", "multi_seeded"):
+            seeded = kind == "multi_seeded"
+            chosen = fm.plan(seeded, layers, EIGEN_BUMPS)
+            plans = [chosen]
+            for tier, _ in fm.TIERS:
+                for T in SWEEP_TILES:
+                    try:
+                        pl = fm.plan(seeded, layers, EIGEN_BUMPS, T=T, tier=tier)
+                    except ValueError:
+                        continue
+                    if pl not in plans:
+                        plans.append(pl)
+            for N in (EIGEN_N, 262144):
+                case = EigenCase(kind, N, layers, "sin", seed=21, dev=dev)
+                ref = case.plain(torch.float64)
+                scale = case.abs_terms()
+                for pl in plans:
+                    def run(pl=pl):
+                        return fm._launch(seeded, case.params, case.X, case.coef, case.scal,
+                                          case.act, case.Kb, pl=pl)
+                    out, out2 = run(), run()
+                    torch.cuda.synchronize()
+                    if seeded:
+                        P = out.numel() - 1
+                        err = float(torch.linalg.norm(out[:P].double() - ref[:P])
+                                    / torch.linalg.norm(ref[:P]))
+                        err = max(err, abs(float(out[P]) - float(ref[P])) / float(scale))
+                    else:
+                        err = float(torch.max(torch.abs(out.double() - ref) / scale))
+                    good = err <= 1e-5 and bool(torch.equal(out, out2))
+                    ok = ok and good
+                    emit({"kernel": kind, "net": net_name, "N": N, "tier": pl.tier, "T": pl.T,
+                          "flags": pl.flags, "smem": pl.smem,
+                          "blocks": _cuda.grid(kind, None, pl.smem, case.X.device,
+                                               (N + pl.T - 1) // pl.T),
+                          "err": err, "ok": good, "chosen": pl == chosen,
+                          "device_ms": device_ms(run), "bound_ms": case.bound_ms()})
+                del case
+                torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("multibump sweep: a case missed its bar")
 
 
 GROUPS = ("kernels", "wan", "main", "eigen", "timing")
@@ -1136,13 +1243,16 @@ GROUPS = ("kernels", "wan", "main", "eigen", "timing")
 
 def main():
     want = set(sys.argv[1:]) or set(GROUPS)
-    if not want <= set(GROUPS):
-        raise SystemExit(f"unknown phase group in {sorted(want)}; choose from {GROUPS}")
+    if not want <= set(GROUPS) | {"sweep"}:
+        raise SystemExit(f"unknown phase group in {sorted(want)}; choose from "
+                         f"{GROUPS + ('sweep',)}")
     full = want == set(GROUPS)
     card = phase_device()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if "sweep" in want:
+        phase_multibump_sweep(dev)
     max_err, launches, speed = {}, {}, {}
     if "kernels" in want:
         max_err.update(phase_kernels(dev))

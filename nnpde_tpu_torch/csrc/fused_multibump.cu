@@ -18,27 +18,61 @@
 // are read from device memory, never passed by value, so no objective waits
 // on the host.
 //
-// What bounds them on the H100: it depends on the net.  Per point pass A
-// costs (d+1)*sum(n_in*n_out) multiply-adds plus ~Kb*(2d+5) for the bumps,
-// pass B three times the former, against 4*(d + Kb*(d+4)) bytes read.  On a
-// small critic with many bumps (2-20-20-20-1, Kb = 16: 392 B against ~5200
-// FLOP) pass A is bound by bytes, the first such kernel of the family; on
-// the solution net both are bound by operations.  What the design does
-// about it: the tile's coefficient block is one contiguous run of device
-// memory, fetched by 16-byte cp.async into shared memory at the start of
-// the tile so that the copy overlaps the forward recompute and is read
-// exactly once; the bumps' epilogue is spread over 3*Kb threads (pass A) or
-// T*(d+1) threads (pass B); the rest is the shared per-tile core
-// (fwdlap_core.cuh), with no saved stages in pass A.
+// What bounds them on the H100.  By the roofline it depends on the net: per
+// point pass A costs (d+1)*sum(n_in*n_out) multiply-adds plus ~Kb*(2d+5) for
+// the bumps, pass B three times the former, against 4*(d + Kb*(d+4)) bytes
+// read; a small critic with many bumps (2-20-20-20-1, Kb = 16: 392 B against
+// ~5200 FLOP) is bound by bytes in pass A, the solution net by operations.
+// In practice both are bound by latency between barriers: a tile is a chain
+// of ~15 (pass A) to ~40 (pass B) barrier-separated phases, each short, and
+// an instrumented build's phase clocks on the card put the elementwise stages
+// (sincos packs) and the products at about a third each, the per-tile
+// traffic under a tenth.  So
+// what the design buys first is resident blocks per SM (the plan keeps room
+// for three), then fewer idle threads per phase:
+//   * the plan (fused_multibump.py::plan) picks the tile by net -- the
+//     largest T (up to 48) whose widest product is still one wave of the
+//     block's 4 x 4 register tiles -- and what stays in shared memory for
+//     the block's life: hidden weights (pass B: their transposes too, staged
+//     once by cp.async) and the block's gradient row, which every tile adds
+//     to on chip and which is written to device memory once.  A shape that
+//     does not fit steps down (smaller tile, then weights per tile): a choice
+//     by shape, every shape still runs these kernels.  Pass B's saved stages
+//     go through a per-block slice of global scratch: holding them in shared
+//     memory was measured slower at every shape of the infinite-well nets
+//     (it costs tile size or a resident block), so no such path is kept;
+//   * the tile's coefficient block is fetched by cp.async into rows of odd
+//     stride at the start of the tile, overlapping the recompute, and read
+//     exactly once without bank conflicts;
+//   * pass A's epilogue runs on Kb * (NT / Kb) threads (thread (k, c): bump
+//     k, every (NT/Kb)-th point), pass B's cotangents on T*(d+1) threads;
+//     nobody waits for a single summing thread: each thread carries its own
+//     double sums across the block's tiles and they are added once, in a
+//     fixed order, when the block ends;
+//   * on a narrow net the gradient products have few entries (25 tiles for
+//     20 x 20), so their rows are dealt to groups of 8 lanes (NARROW).
+// The products stay fp32 FFMA: 3xTF32 mma.sync products (m16n8k8, operands
+// split at fragment load) were right to 6e-6 on the card but 16-26% slower
+// at these tile sizes, and their registers cost a resident block.
+//
+// Shared memory per block, floats (smem_floats): block-end sums 2-6 NT;
+// 2 (pass A) or 3 (pass B) stream buffers of (d+1)*T*wmax; the resident
+// weights sum wp[k]*wp[k+1] (twice in pass B) or one wmax^2 staging
+// matrix; pass B's gradient row P+1; the coefficient tile T*(Kb*(d+4)|1);
+// and ~(3d+6)*T + NT + 3 Kb of small vectors.  2-50-50-50-50-1 pass B at
+// T = 24 staged: 69 KB, three blocks per SM; with weights, transposes and
+// gradient row resident it would take 151 KB and one block.
 //
 // Determinism: the rule of fused_step.cu -- per-block partial rows, fixed
-// in-block orders, one ordered reduction, no atomics.  The 3*Kb sums and
-// sum ct_v are carried in double from the tile up (a quotient's seeds
-// amplify their error).
+// in-block orders (shuffle trees, part-by-part sums), one ordered
+// reduction, no atomics.  The 3*Kb sums and sum ct_v are carried in double
+// from the tile up (a quotient's seeds amplify their error).
 //
 // Interface: plain C (ctypes), float32 only, weights flattened as
 // [W0, b0, W1, b1, ...].  Launches on the given stream, never synchronises,
 // and returns cudaGetLastError().
+#include <mutex>
+
 #include "fwdlap_core.cuh"
 
 using namespace fwdlap;
@@ -47,30 +81,63 @@ namespace {
 
 constexpr int MAX_BUMPS = 42;   // the cap of the JAX package (3 Kb <= 128)
 
+// What the plan keeps in shared memory (fused_multibump.py::plan).
+enum Flags {
+  RES_WEIGHTS = 1,   // hidden weights (pass B: their transposes and the
+                     // gradient accumulator too) resident for the block's life
+  NARROW = 2,        // pass B: gradient products with few entries dealt by
+                     // rows to groups of lanes (fwdlap_core.cuh::accum_dW)
+};
+
 struct MArgs {
   Net net;
   const float* X;
-  const float* coef;          // (N, Kb*(d+4)), 16-byte aligned
+  const float* coef;          // (N, Kb*(d+4))
   const float* params;
   const float* scal;          // pass B seeds (3 Kb)
   float* partial;             // (G, row): sums (3 Kb), or [grads (P) | sum ct_v]
-  float* scratch;             // (G, K-2, S, T, wmax), pass B only
-  int N, T, n_tiles, row, Kb;
+  float* scratch;             // (G, K-2, S, T, wmax), pass B's saved stages
+  int N, T, n_tiles, row, Kb, flags;
 };
 
-// cf[p][:] = coef[base + p][:] for the tile's T points; rows past N read 0.
-// A full tile is one aligned run of T*nc floats (T % 4 == 0) and moves by
-// 16-byte cp.async; the ragged last tile is copied element by element.
-// Completes at copy_wait().
+// Row stride of the coefficient tile in shared memory: odd, so that threads
+// on neighbouring points read neighbouring banks.
+__host__ __device__ inline int coef_stride(int nc) { return nc | 1; }
+
+// Shared-memory floats of one block: the layout of multibump_body (mirrored
+// by fused_multibump.py::smem_floats).
+__host__ __device__ inline int smem_floats(const Net& net, int seeded, int T, int Kb,
+                                           int flags) {
+  const int d = net.d, S = net.S, ld = net.wmax, stage = S * T * ld;
+  const int hid = hidden_floats(net), row = seeded ? net.P + 1 : 3 * Kb;
+  int n = (seeded ? 2 : 6) * NT + (seeded ? 3 : 2) * stage;
+  n += (flags & RES_WEIGHTS) ? hid : ld * ld;
+  if (seeded && (flags & RES_WEIGHTS)) n += hid + ((row + 3) & ~3);
+  n += T * coef_stride(Kb * (d + 4)) + T * d + (d + 2) * T + S * T + NT + 3 * Kb;
+  return n;
+}
+
+// cf[p][:] = coef[base + p][:] for the tile's T points at row stride ncp;
+// rows past N read 0.  A warp copies whole rows (lane l the floats l, l +
+// 32, ...: consecutive lanes, consecutive floats of device memory, and no
+// division per float): full tiles by 4-byte cp.async, complete at
+// copy_wait(); the ragged last tile by plain loads.
 __device__ __forceinline__ void load_coef_tile(const float* __restrict__ coef, int N,
-                                               int nc, int base, int T, float* cf) {
-  const float* src = coef + (size_t)base * nc;
-  if (base + T <= N) {
-    copy_async(cf, src, T * nc);
-    return;
+                                               int nc, int ncp, int base, int T,
+                                               float* cf) {
+  const int lane = threadIdx.x & 31;
+  const bool full = base + T <= N;
+  for (int p = threadIdx.x >> 5; p < T; p += NT >> 5) {
+    const float* src = coef + (size_t)(base + p) * nc;
+    float* dst = cf + p * ncp;
+    if (full) {
+      for (int f = lane; f < nc; f += 32) __pipeline_memcpy_async(dst + f, src + f, 4);
+    } else {
+      const bool valid = base + p < N;
+      for (int f = lane; f < nc; f += 32) dst[f] = valid ? src[f] : 0.f;
+    }
   }
-  const int n_valid = (N - base) * nc;
-  for (int f = threadIdx.x; f < T * nc; f += NT) cf[f] = f < n_valid ? src[f] : 0.f;
+  if (full) __pipeline_commit();
 }
 
 template <bool SEEDED>
@@ -78,48 +145,74 @@ __device__ void multibump_body(const MArgs& A) {
   extern __shared__ __align__(16) float smem[];
   const Net& net = A.net;
   const int T = A.T, d = net.d, S = net.S, ld = net.wmax, Kb = A.Kb;
-  const int blk = d + 2, nc = Kb * (d + 4);
+  const int blk = d + 2, nc = Kb * (d + 4), ncp = coef_stride(nc);
   const int base_e1 = Kb * blk, base_e2 = base_e1 + Kb;
-  float* bufA = smem;
-  float* bufB = bufA + S * T * ld;
-  float* bufC = SEEDED ? bufB + S * T * ld : nullptr;   // last stage's pre-acts
-  float* Wsh = bufB + (SEEDED ? 2 : 1) * S * T * ld;
-  float* cf = Wsh + ld * ld;              // coefficient tile, T x nc
-  float* xs = cf + T * nc;
+  const int stage = S * T * ld, hid = hidden_floats(net);
+  const bool res_w = (A.flags & RES_WEIGHTS) != 0;
+  double* dsum = reinterpret_cast<double*>(smem);   // block-end sums
+  float* bufA = smem + (SEEDED ? 2 : 6) * NT;
+  float* bufB = bufA + stage;
+  float* bufC = SEEDED ? bufB + stage : nullptr;    // last stage's pre-acts
+  float* at = bufB + (SEEDED ? 2 : 1) * stage;
+  Resident res;
+  float* Wsh = at;                        // resident W_k, or one layer's
+  at += res_w ? hid : ld * ld;
+  float* Wt = nullptr;
+  float* gacc = nullptr;                  // the block's gradient row
+  if (SEEDED && res_w) {
+    Wt = at;
+    gacc = Wt + hid;
+    at = gacc + ((A.row + 3) & ~3);
+  }
+  res.narrow = SEEDED && (A.flags & NARROW) != 0;
+  float* cf = at;                         // coefficient tile, T x ncp
+  float* xs = cf + T * ncp;
   float* ct = xs + T * d;                 // [ct_v | ct_g (d) | ct_l] x T
   float* proj = ct + (d + 2) * T;         // projected streams, S x T
   float* red = proj + S * T;              // reduction scratch, NT
   float* sc = red + NT;                   // the seeds, 3 Kb (pass B)
-  float* grow = A.partial + (size_t)blockIdx.x * A.row;
+  float* grow_g = A.partial + (size_t)blockIdx.x * A.row;
+  float* grow = gacc ? gacc : grow_g;     // where the tiles add their dW/db
   float* scratch =
-      SEEDED ? A.scratch + (size_t)blockIdx.x * (net.K - 2) * S * T * ld : nullptr;
+      SEEDED ? A.scratch + (size_t)blockIdx.x * (net.K - 2) * stage : nullptr;
 
-  for (int i = threadIdx.x; i < A.row; i += NT) grow[i] = 0.f;
-  if (SEEDED)
+  if (res_w) {
+    stage_resident(net, A.params, Wsh, Wt);
+    res.W = Wsh;
+    res.Wt = Wt;
+  }
+  if (SEEDED) {
+    for (int i = threadIdx.x; i < A.row; i += NT) grow[i] = 0.f;
     for (int i = threadIdx.x; i < 3 * Kb; i += NT) sc[i] = A.scal[i];
+  }
+  copy_wait();
   __syncthreads();
 
   const float* wlast = A.params + net.off[net.K - 1];
   const float blast = wlast[net.w[net.K - 1]];
 
-  double blk_sum = 0.0;
+  // pass A: thread (k, c) owns bump k on the points p = c, c + parts, ... of
+  // every tile; pass B: thread p owns ct_v of point p of every tile.  Each
+  // carries its sums in double across the block's tiles.
+  const int parts = NT / Kb;
+  const int my_k = threadIdx.x % Kb, my_c = threadIdx.x / Kb;
+  double s0 = 0.0, s1 = 0.0, s2 = 0.0;
   for (int tile = blockIdx.x; tile < A.n_tiles; tile += gridDim.x) {
     const int base = tile * T;
-    load_coef_tile(A.coef, A.N, nc, base, T, cf);
+    load_coef_tile(A.coef, A.N, nc, ncp, base, T, cf);
     load_tile(A.X, A.N, d, base, T, xs);
     __syncthreads();
     float* cur = bufA;
     float* nxt = bufB;
-    // (the recompute's own copy_wait() also completes the coefficient copy)
-    fwd_recompute(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch);
+    fwd_recompute<true>(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch, res);
     project_last(net, T, cur, wlast, blast, proj);
-    copy_wait();
+    copy_wait();                          // the coefficient tile has landed
     __syncthreads();
     if (SEEDED) {
       // per-point cotangents summed over the bumps, in bump order
       for (int it = threadIdx.x; it < T * (d + 1); it += NT) {
         const int comp = it / T, p = it - comp * T;
-        const float* row = cf + p * nc;
+        const float* row = cf + p * ncp;
         float acc = 0.f;
         if (comp == 0) {
           const float v = proj[p];
@@ -129,43 +222,54 @@ __device__ void multibump_body(const MArgs& A) {
                    sc[2 * Kb + k] * row[base_e2 + k];
           }
           ct[(d + 1) * T + p] = 0.f;
+          s0 += (double)acc;              // it < T <= NT/2: thread p, point p
         } else {
           for (int k = 0; k < Kb; ++k) acc += sc[k] * row[k * blk + comp];
         }
         ct[comp * T + p] = acc;
       }
       __syncthreads();
-      if (threadIdx.x == 0)
-        for (int p = 0; p < T; ++p) blk_sum += (double)ct[p];
-      reverse_sweep(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch, ct, red, grow);
+      reverse_sweep<true>(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch, ct, red, grow,
+                          res);
     } else {
-      // one thread per sum, points in order, carried in double across the
-      // block's tiles
-      if (threadIdx.x < 3 * Kb) {
-        const int lane = threadIdx.x / Kb, k = threadIdx.x - lane * Kb;
-        for (int p = 0; p < T; ++p) {
-          const float* row = cf + p * nc;
+      if (my_c < parts) {
+        for (int p = my_c; p < T; p += parts) {
+          const float* row = cf + p * ncp + my_k * blk;
           const float v = proj[p];
-          float term;
-          if (lane == 0) {
-            term = row[k * blk] * v + row[k * blk + d + 1];
-            for (int i = 0; i < d; ++i) term += row[k * blk + 1 + i] * proj[(1 + i) * T + p];
-          } else if (lane == 1) {
-            const float m = row[base_e1 + k] * v;
-            term = m * m;
-          } else {
-            term = row[base_e2 + k] * v;
-          }
-          blk_sum += (double)term;
+          float r = row[0] * v + row[d + 1];
+          for (int i = 0; i < d; ++i) r += row[1 + i] * proj[(1 + i) * T + p];
+          const float m = cf[p * ncp + base_e1 + my_k] * v;
+          s0 += (double)r;
+          s1 += (double)(m * m);
+          s2 += (double)(cf[p * ncp + base_e2 + my_k] * v);
         }
       }
       __syncthreads();
     }
   }
+  // block-end sums, parts added in a fixed order
   if (SEEDED) {
-    if (threadIdx.x == 0) grow[net.P] = (float)blk_sum;
-  } else if (threadIdx.x < 3 * Kb) {
-    grow[threadIdx.x] = (float)blk_sum;
+    dsum[threadIdx.x] = s0;
+    __syncthreads();
+    if (gacc)
+      for (int i = threadIdx.x; i < net.P; i += NT) grow_g[i] = gacc[i];
+    if (threadIdx.x == 0) {
+      double s = 0.0;
+      for (int p = 0; p < T; ++p) s += dsum[p];
+      grow_g[net.P] = (float)s;
+    }
+  } else {
+    if (my_c < parts) {
+      dsum[my_k * parts + my_c] = s0;
+      dsum[(Kb + my_k) * parts + my_c] = s1;
+      dsum[(2 * Kb + my_k) * parts + my_c] = s2;
+    }
+    __syncthreads();
+    if (threadIdx.x < 3 * Kb) {
+      double s = 0.0;
+      for (int c = 0; c < parts; ++c) s += dsum[threadIdx.x * parts + c];
+      grow_g[threadIdx.x] = (float)s;
+    }
   }
 }
 
@@ -174,7 +278,9 @@ __device__ void multibump_body(const MArgs& A) {
 __global__ void __launch_bounds__(NT) multi_sums_kernel(MArgs a) {
   multibump_body<false>(a);
 }
-__global__ void __launch_bounds__(NT) multi_seeded_kernel(MArgs a) {
+// (three blocks per SM: the plan counts on them, so the register budget is
+// stated and not left to the compiler's choice)
+__global__ void __launch_bounds__(NT, 3) multi_seeded_kernel(MArgs a) {
   multibump_body<true>(a);
 }
 
@@ -184,21 +290,46 @@ typedef void (*MKernelFn)(MArgs);
 
 MKernelFn mkernel_for(int seeded) { return seeded ? multi_seeded_kernel : multi_sums_kernel; }
 
+// Raise the kernel's dynamic shared-memory limit to smem_bytes unless an
+// earlier call already raised it that far on this device: the attribute is
+// set once per (kernel, size), not per launch.  Callers on several threads
+// take turns.
+cudaError_t ensure_smem(int seeded, int smem_bytes) {
+  constexpr int MAX_DEVICES = 64;
+  static std::mutex guard;
+  static int raised[2][MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool tracked = dev >= 0 && dev < MAX_DEVICES;
+  std::lock_guard<std::mutex> lock(guard);
+  if (tracked && smem_bytes <= raised[seeded ? 1 : 0][dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(mkernel_for(seeded),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err == cudaSuccess && tracked) raised[seeded ? 1 : 0][dev] = smem_bytes;
+  return err;
+}
+
 }  // namespace
 
 extern "C" {
 
 // seeded: 0 pass A (sums), 1 pass B (seeded gradients).  coef (N,
-// n_bumps*(d+4)), 16-byte aligned.  scal: device seeds (3 n_bumps; pass B,
-// else may be null).  partial (G, row) and out (row) with row = 3 n_bumps
-// or P+1; scratch (G, K-2, d+1, T, wmax) for pass B (else may be null).
+// n_bumps*(d+4)).  scal: device seeds (3 n_bumps; pass B, else may be null).
+// flags: the plan's Flags.  partial (G, row) and out (row) with row = 3
+// n_bumps or P+1; scratch (G, K-2, d+1, T, wmax) for pass B on a net with
+// more than one hidden layer (else may be null).  smem_bytes must hold the
+// layout of multibump_body for (T, flags).
 int fused_multibump_f32(int seeded, int n_bumps, const float* X, const float* coef,
                         const float* params, const float* scal, const int* layers,
-                        int n_layers, int act, int N, int T, int G, float* partial,
-                        float* scratch, float* out, int smem_bytes, void* stream) {
+                        int n_layers, int act, int N, int T, int G, int flags,
+                        float* partial, float* scratch, float* out, int smem_bytes,
+                        void* stream) {
   MArgs a;
   if (n_bumps < 1 || n_bumps > MAX_BUMPS || !make_net(0, layers, n_layers, act, &a.net) ||
-      N < 1 || T < 4 || T % 4 != 0 || G < 1 || ((size_t)coef & 15) != 0)
+      N < 1 || T < 4 || T % 4 != 0 || T > NT / 2 || G < 1 || flags < 0 || flags > 3 ||
+      (seeded && a.net.K > 2 && scratch == nullptr) ||
+      4 * smem_floats(a.net, seeded, T, n_bumps, flags) > smem_bytes)
     return (int)cudaErrorInvalidValue;
   a.X = X;
   a.coef = coef;
@@ -210,26 +341,32 @@ int fused_multibump_f32(int seeded, int n_bumps, const float* X, const float* co
   a.T = T;
   a.n_tiles = (N + T - 1) / T;
   a.Kb = n_bumps;
+  a.flags = flags;
   a.row = seeded ? a.net.P + 1 : 3 * n_bumps;
-  MKernelFn fn = mkernel_for(seeded);
-  cudaError_t err =
-      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  cudaError_t err = ensure_smem(seeded, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  fn<<<G, NT, smem_bytes, s>>>(a);
+  mkernel_for(seeded)<<<G, NT, smem_bytes, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  reduce_rows_kernel<<<(a.row + 255) / 256, 256, 0, s>>>(partial, G, a.row, out);
-  return (int)cudaGetLastError();
+  return (int)reduce_rows(partial, G, a.row, out, s);
 }
 
 // Resident blocks per SM for a pass at a dynamic shared-memory size.
 int fused_multibump_blocks_per_sm(int seeded, int smem_bytes, int* blocks) {
-  MKernelFn fn = mkernel_for(seeded);
-  cudaError_t err =
-      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  cudaError_t err = ensure_smem(seeded, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, NT, smem_bytes);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, mkernel_for(seeded), NT, smem_bytes);
+}
+
+// The shared-memory bytes multibump_body lays out for (T, flags), or -1 for
+// a net the kernels do not take.
+int fused_multibump_smem_bytes(int seeded, int n_bumps, const int* layers, int n_layers,
+                               int T, int flags) {
+  Net net;
+  if (!make_net(0, layers, n_layers, 0, &net)) return -1;
+  return 4 * smem_floats(net, seeded, T, n_bumps, flags);
 }
 
 }  // extern "C"

@@ -233,8 +233,7 @@ int fused_quotient_f32(int kind, int lap, const float* X, const float* coef,
   fn<<<G, NT, smem_bytes, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  reduce_rows_kernel<<<(a.row + 255) / 256, 256, 0, s>>>(partial, G, a.row, out);
-  return (int)cudaGetLastError();
+  return (int)reduce_rows(partial, G, a.row, out, s);
 }
 
 // Resident blocks per SM for a kind at a dynamic shared-memory size.

@@ -8,7 +8,7 @@
 //                                     built in-kernel from X; only X is read)
 //   fused_drm_energy_kernel        <- _fused_drm_kernel       (Deep-Ritz
 //                                     energy, no Laplacian stream)
-// plus reduce_rows_kernel, the deterministic cross-block sum that takes the
+// plus reduce_rows, the deterministic cross-block sum that takes the
 // place of the TPU's accumulation over its sequential grid.
 //
 // What bounds it on the H100: operations.  The jet recompute and the reverse
@@ -189,15 +189,33 @@ __global__ void __launch_bounds__(NT) fused_drm_energy_kernel(Args a) {
   fused_body<MODE_DRM>(a);
 }
 
-__global__ void reduce_rows_kernel(const float* __restrict__ partial, int G,
-                                   int R, float* __restrict__ out) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= R) return;
+// out[j] = sum_g partial[g][j].  One loop over all G rows per output is a
+// chain of G dependent load latencies whatever the row length (~8 us of
+// every launch at G = 400..500, measured): 32 row groups per output make the
+// chain 32 times shorter, the loads stay coalesced along j, and the order of
+// the additions stays fixed.
+__global__ void __launch_bounds__(1024) reduce_rows_kernel(const float* __restrict__ partial,
+                                                           int G, int R,
+                                                           float* __restrict__ out) {
+  __shared__ double part[32][33];
+  const int j = blockIdx.x * 32 + threadIdx.x;
   // accumulated in double and rounded once: a float running sum over G
   // (~500) rows loses ~sqrt(G) ulps, which a quotient's seeds amplify
   double s = 0.0;
-  for (int g = 0; g < G; ++g) s += (double)partial[(size_t)g * R + j];
-  out[j] = (float)s;
+  if (j < R)
+    for (int g = threadIdx.y; g < G; g += 32) s += (double)partial[(size_t)g * R + j];
+  part[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && j < R) {
+    double t = 0.0;
+    for (int y = 0; y < 32; ++y) t += part[y][threadIdx.x];
+    out[j] = (float)t;
+  }
+}
+
+cudaError_t reduce_rows(const float* partial, int G, int R, float* out, cudaStream_t stream) {
+  reduce_rows_kernel<<<(R + 31) / 32, dim3(32, 32), 0, stream>>>(partial, G, R, out);
+  return cudaGetLastError();
 }
 
 namespace {
@@ -246,8 +264,7 @@ int launch(int mode, const float* X, const float* coef, const float* params,
   fn<<<G, NT, smem_bytes, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  reduce_rows_kernel<<<(a.row + 255) / 256, 256, 0, s>>>(partial, G, a.row, out);
-  return (int)cudaGetLastError();
+  return (int)reduce_rows(partial, G, a.row, out, s);
 }
 
 }  // namespace

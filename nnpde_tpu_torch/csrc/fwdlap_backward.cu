@@ -103,8 +103,7 @@ int fwdlap_backward_f32(const float* X, const float* ct, const float* params,
   fwdlap_backward_kernel<<<G, NT, smem_bytes, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  reduce_rows_kernel<<<(a.net.P + 255) / 256, 256, 0, s>>>(partial, G, a.net.P, out);
-  return (int)cudaGetLastError();
+  return (int)reduce_rows(partial, G, a.net.P, out, s);
 }
 
 // Resident blocks per SM at a dynamic shared-memory size.

@@ -24,28 +24,38 @@
 // the 16-byte copy paths as before; others stage weights element by
 // element (their offsets in the flat vector are not 16-byte aligned).
 //
-// Bound.  Compute-bound: per point the step does 3*(d+2)*sum(n_in*n_out)
-// multiply-adds against 32 bytes of input (X and coefficients).  This
-// version runs fp32 FFMA on CUDA cores from shared memory: each thread owns
-// a 4 x 4 register tile of every product (mm_rows, accum_dW), reading
-// 128-bit words, and the weights of one layer are staged in shared memory
-// (cp.async forward, a transposed copy for the backward).  At 4 x 4 the
-// shared-memory reads per FMA are about the limit of the SM's shared-memory
-// bandwidth; tensor cores (3xTF32 to keep the 1e-5 bar) are later work.
+// Bound.  By operations: per point the step does 3*(d+2)*sum(n_in*n_out)
+// multiply-adds against 32 bytes of input (X and coefficients).  The
+// products run fp32 FFMA on CUDA cores from shared memory: each thread owns
+// a 4 x 4 register tile (mm_rows, accum_dW), reading 128-bit words.  What
+// holds the kernels at 10-25% of that bound is not the products alone:
+// an instrumented build (clock64 around every barrier, 2-50-50-50-50-1,
+// 16-point tiles, two blocks per SM) gave the products about half of a
+// pass-B tile, the elementwise stages (stage_mid, stage_bwd: a sincos pack
+// per unit) about a third, saved-stage and weight traffic under a tenth;
+// every phase is short and ends in a barrier, so resident blocks per SM
+// matter more than bytes.
 //
-// Saved state.  The reverse sweep needs each hidden stage's pre-activation
-// streams (v, J_1..J_d, l); the activation pack and the mid streams are
-// recomputed from them.  The last stage's stay in shared memory; the earlier
-// stages' go to a per-block slice of global scratch, (K-2)*S*T*wmax floats,
-// written once in the forward and copied back with cp.async in the reverse
-// sweep (mostly L2 resident).  Keeping them on chip is the traffic a later
-// version removes.
+// Residency.  A kernel may keep the hidden weights and their transposes in
+// shared memory for the block's life (struct Resident, filled by
+// stage_resident); with the default, all null, the weights of one layer are
+// staged per tile (cp.async forward, a transposed copy for the backward).
+// The earlier stages' pre-activations go to a per-block slice of global
+// scratch, (K-2)*S*T*wmax floats, written once in the forward and copied
+// back with cp.async in the reverse sweep (mostly L2 resident; keeping them
+// in shared memory cost more in tile size and resident blocks than the
+// copies do).  The
+// last stage's always stay in shared memory; the activation pack and the
+// mid streams are recomputed from the saved pre-activations.  `grow`, where
+// the reverse sweep adds dW/db, may be the block's row of the partial
+// buffer in device memory or a row of shared memory that the kernel writes
+// out once.
 //
-// Determinism.  dW/db and the loss sums are accumulated into the block's own
-// row of a partial buffer; each element is always updated by the same thread
+// Determinism.  Each element of dW/db and each loss sum is always updated by
+// the same thread (or the same group of lanes through a fixed shuffle tree)
 // in the same tile order, in-block reductions use fixed trees, and a second
-// kernel sums the rows in a fixed order.  No atomics: two launches on the
-// same inputs are bitwise equal.
+// kernel sums the blocks' rows in a fixed order.  No atomics: two launches
+// on the same inputs are bitwise equal.
 #pragma once
 
 #include <cuda_pipeline.h>
@@ -65,6 +75,7 @@ struct Net {
   int K;                      // number of weight matrices
   int w[MAX_LAYERS + 1];      // layer sizes: w[0] = d, w[K] = 1
   int wp[MAX_LAYERS + 1];     // hidden sizes rounded up to a multiple of 4
+  int ntq[MAX_LAYERS + 1];    // NT / wp[k] for the hidden layers (unit_walk)
   int aligned;                // 1 when every hidden width is a multiple of 4
   int off[MAX_LAYERS];        // flat offset of W_k; b_k follows W_k
   int act;
@@ -76,6 +87,18 @@ struct Net {
 };
 
 struct Pack { float s0, s1, s2, s3; };
+
+// What a kernel keeps in shared memory for the block's whole life, where the
+// core would otherwise fetch it per tile.  Every member null (the default):
+// weights staged per layer per tile into Wsh, every gradient product owned
+// by one thread.
+struct Resident {
+  const float* W = nullptr;    // hidden-to-hidden W_k, k = 1..K-2, rounded
+                               // (wp[k], wp[k+1]) matrices back to back
+  const float* Wt = nullptr;   // their transposes, same offsets
+  bool narrow = false;         // gradient products with few entries are
+                               // dealt by rows to groups of lanes
+};
 
 // (s, s', s'', s''') with the fewest transcendentals (_act_pack).
 __device__ __forceinline__ Pack act_pack(int act, float v) {
@@ -160,29 +183,52 @@ __device__ __forceinline__ void mm_rows(const float* __restrict__ in, int ld_in,
   }
 }
 
-// Mid streams (A, Jmid, lmid) of one stage from its pre-activation streams.
-// Reads pre from `src`, writes mid to `dst` (may alias), optionally copies
-// the pre streams to `save` (same layout).
-__device__ __forceinline__ void stage_mid(const Net& net, int T, int width,
+// The block's walk over the (point p, unit j) entries of hidden stage k, T x
+// wp[k] of them: thread t takes entries t, t + NT, ... in row-major order.
+// One division when the walk starts; each further entry is an add and a
+// compare (a division per entry was a third of an elementwise stage's
+// instructions).
+struct UnitWalk {
+  int p, j, width, dp, dj;
+  __device__ __forceinline__ UnitWalk(const Net& net, int k)
+      : width(net.wp[k]), dp(net.ntq[k]) {
+    dj = NT - dp * width;
+    p = (int)(threadIdx.x / (unsigned)width);
+    j = (int)threadIdx.x - p * width;
+  }
+  __device__ __forceinline__ void next() {
+    p += dp;
+    j += dj;
+    if (j >= width) {
+      j -= width;
+      ++p;
+    }
+  }
+};
+
+// Mid streams (A, Jmid, lmid) of hidden stage k from its pre-activation
+// streams.  Reads pre from `src`, writes mid to `dst` (may alias),
+// optionally copies the pre streams to `save` (same layout).
+__device__ __forceinline__ void stage_mid(const Net& net, int T, int k,
                                           const float* src, float* dst,
                                           float* save) {
-  const int d = net.d, ld = net.wmax;
-  for (int it = threadIdx.x; it < T * width; it += NT) {
-    const int p = it / width, j = it - p * width;
-    const float v = src[p * ld + j];
+  const int d = net.d, ld = net.wmax, sT = T * ld;   // sT: one stream
+  for (UnitWalk w(net, k); w.p < T; w.next()) {
+    const int o0 = w.p * ld + w.j;
+    const float v = src[o0];
     const Pack pk = act_pack(net.act, v);
-    if (save) save[p * ld + j] = v;
-    dst[p * ld + j] = pk.s0;
+    if (save) save[o0] = v;
+    dst[o0] = pk.s0;
     float q = 0.f;
-    for (int i = 0; i < d; ++i) {
-      const int o = ((1 + i) * T + p) * ld + j;
+    int o = o0 + sT;
+#pragma unroll 1
+    for (int i = 0; i < d; ++i, o += sT) {
       const float Ji = src[o];
       if (save) save[o] = Ji;
       q = fmaf(Ji, Ji, q);
       dst[o] = pk.s1 * Ji;
     }
     if (net.lap) {
-      const int o = ((d + 1) * T + p) * ld + j;
       const float l = src[o];
       if (save) save[o] = l;
       dst[o] = pk.s1 * l + pk.s2 * q;
@@ -252,24 +298,52 @@ __device__ __forceinline__ void load_transposed(const Net& net, float* Wt, const
   }
 }
 
+// Floats of the resident hidden-to-hidden matrices: sum over k = 1..K-2 of
+// wp[k] * wp[k+1].
+__host__ __device__ inline int hidden_floats(const Net& net) {
+  int n = 0;
+  for (int k = 1; k < net.K - 1; ++k) n += net.wp[k] * net.wp[k + 1];
+  return n;
+}
+
+// Stage every hidden-to-hidden W_k into W (and its transpose into Wt, when
+// given) once, for Resident.  Completes at copy_wait().
+__device__ inline void stage_resident(const Net& net, const float* __restrict__ params,
+                                      float* W, float* Wt) {
+  int woff = 0;
+  for (int k = 1; k < net.K - 1; ++k) {
+    const int wk = net.w[k], wn = net.w[k + 1], wkp = net.wp[k], wnp = net.wp[k + 1];
+    stage_weights(net, W + woff, params + net.off[k], wk, wn, wkp, wnp);
+    if (Wt) load_transposed(net, Wt + woff, params + net.off[k], wk, wn, wkp, wnp);
+    woff += wkp * wnp;
+  }
+}
+
 // Forward recompute over one tile.  xs: (T, d) points in shared memory.
 // On return `cur` holds the mid streams of the last hidden stage, `last`
 // (shared) its pre-activation streams, and the scratch slice the earlier
 // stages' pre-activation streams.  A kernel with no reverse sweep passes
 // null for `last` and `scratch`: nothing is saved.
+template <bool RES = false>
 __device__ inline void fwd_recompute(const Net& net, int T, const float* __restrict__ xs,
                                      const float* __restrict__ params, float*& cur,
-                                     float*& nxt, float* last, float* Wsh, float* scratch) {
+                                     float*& nxt, float* last, float* Wsh, float* scratch,
+                                     const Resident& res = Resident{}) {
   const int d = net.d, ld = net.wmax, S = net.S;
   const int stage_sz = S * T * ld;
+  // without RES the policy is the default whatever `res` holds, and the
+  // compiler sees it: kernels that stage per tile compile to exactly that
+  const float* resW = RES ? res.W : nullptr;
+  int woff = 0;                 // offset of W_k in the resident matrices
   {  // input layer: v = x W0 + b0; J_i = W0[i, :]; l = 0 (padded units 0)
-    const int w1 = net.w[1], w1p = net.wp[1];
+    const int w1 = net.w[1];
     const float* W0 = params + net.off[0];
     const float* b0 = W0 + d * w1;
-    for (int it = threadIdx.x; it < T * w1p; it += NT) {
-      const int p = it / w1p, j = it - p * w1p;
+    for (UnitWalk w(net, 1); w.p < T; w.next()) {
+      const int p = w.p, j = w.j;
       const bool real = j < w1;
       float v = 0.f;
+#pragma unroll 1
       for (int i = 0; i < d; ++i) {
         const float wij = real ? W0[i * w1 + j] : 0.f;
         v = fmaf(xs[p * d + i], wij, v);
@@ -283,16 +357,18 @@ __device__ inline void fwd_recompute(const Net& net, int T, const float* __restr
   for (int k = 1; k < net.K; ++k) {
     const int wk = net.w[k], wkp = net.wp[k];
     const bool final_stage = k == net.K - 1;
-    if (!final_stage)
+    if (!final_stage && !resW)
       stage_weights(net, Wsh, params + net.off[k], wk, net.w[k + 1], wkp, net.wp[k + 1]);
-    stage_mid(net, T, wkp, cur, cur,
+    stage_mid(net, T, k, cur, cur,
               final_stage ? last : scratch ? scratch + (k - 1) * stage_sz : nullptr);
     if (final_stage) break;
     const int wn = net.w[k + 1];
     const float* Wk = params + net.off[k];
-    copy_wait();
+    if (!resW) copy_wait();
     __syncthreads();
-    mm_rows(cur, ld, S * T, wkp, Wsh, net.wp[k + 1], nxt, ld, Wk + wk * wn, T, wn);
+    mm_rows(cur, ld, S * T, wkp, resW ? resW + woff : Wsh, net.wp[k + 1], nxt, ld,
+            Wk + wk * wn, T, wn);
+    woff += wkp * net.wp[k + 1];
     __syncthreads();
     float* t = cur; cur = nxt; nxt = t;
   }
@@ -309,60 +385,107 @@ __device__ __forceinline__ void load_tile(const float* __restrict__ X, int N, in
 }
 
 // Project the last hidden stage's mid streams onto the output row:
-// proj[r] = cur[r] . wlast (+ blast on the T value rows), r < S*T.  One
-// warp per row and a fixed shuffle tree, so the result does not depend on
+// proj[r] = cur[r] . wlast (+ blast on the T value rows), r < S*T.  Eight
+// neighbouring lanes per row (lane c takes columns c, c + 8, ...), NT/8 rows
+// per pass, and a fixed shuffle tree, so the result does not depend on
 // scheduling.
 __device__ __forceinline__ void project_last(const Net& net, int T, const float* cur,
                                              const float* __restrict__ wlast,
                                              float blast, float* proj) {
-  const int wl = net.w[net.K - 1], ld = net.wmax;
-  for (int r = threadIdx.x >> 5; r < net.S * T; r += NT >> 5) {
-    const int lane = threadIdx.x & 31;
+  const int wl = net.w[net.K - 1], ld = net.wmax, rows = net.S * T;
+  const int sub = threadIdx.x & 7;
+  for (int r0 = 0; r0 < rows; r0 += NT >> 3) {
+    const int r = r0 + (threadIdx.x >> 3);
     float acc = 0.f;
-    for (int j = lane; j < wl; j += 32) acc = fmaf(cur[r * ld + j], wlast[j], acc);
+    if (r < rows)
+      for (int j = sub; j < wl; j += 8) acc = fmaf(cur[r * ld + j], wlast[j], acc);
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-    if (lane == 0) proj[r] = r < T ? acc + blast : acc;
+    for (int o = 4; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (r < rows && sub == 0) proj[r] = r < T ? acc + blast : acc;
   }
 }
 
-// Backward through one stage's nonlinearity (_nl_bwd_pack).  pre: the
+// Backward through hidden stage k's nonlinearity (_nl_bwd_pack).  pre: the
 // stage's saved pre-activation streams; dmid: cotangents of its mid streams
 // (or null: rank-1 final stage, dmid = ct[s][p] * wl[j], wl holding
-// `wl_cols` entries of device memory); dpre: output.  `width` is the
-// stage's rounded width.
-__device__ __forceinline__ void stage_bwd(const Net& net, int T, int width,
+// `wl_cols` entries of device memory); dpre: output.
+__device__ __forceinline__ void stage_bwd(const Net& net, int T, int k,
                                           const float* pre, const float* dmid,
                                           const float* ct, const float* wl,
                                           int wl_cols, float* dpre) {
-  const int d = net.d, ld = net.wmax;
-  for (int it = threadIdx.x; it < T * width; it += NT) {
-    const int p = it / width, j = it - p * width;
-    const Pack pk = act_pack(net.act, pre[p * ld + j]);
+  const int d = net.d, ld = net.wmax, sT = T * ld;
+  for (UnitWalk w(net, k); w.p < T; w.next()) {
+    const int p = w.p, j = w.j, o0 = p * ld + j;
+    const Pack pk = act_pack(net.act, pre[o0]);
     const float wj = (dmid || j >= wl_cols) ? 0.f : wl[j];
-    const float dA = dmid ? dmid[p * ld + j] : ct[p] * wj;
+    const float dA = dmid ? dmid[o0] : ct[p] * wj;
     float dv = pk.s1 * dA;
     float dq = 0.f;
     if (net.lap) {
-      const int o = ((d + 1) * T + p) * ld + j;
-      const float dlm = dmid ? dmid[o] : ct[(d + 1) * T + p] * wj;
+      const int ol = o0 + (d + 1) * sT;
+      const float dlm = dmid ? dmid[ol] : ct[(d + 1) * T + p] * wj;
       float q = 0.f;
-      for (int i = 0; i < d; ++i) {
-        const float Ji = pre[((1 + i) * T + p) * ld + j];
+      int o = o0 + sT;
+#pragma unroll 1
+      for (int i = 0; i < d; ++i, o += sT) {
+        const float Ji = pre[o];
         q = fmaf(Ji, Ji, q);
       }
-      dpre[o] = pk.s1 * dlm;
+      dpre[ol] = pk.s1 * dlm;
       dq = pk.s2 * dlm;
-      dv += (pk.s2 * pre[o] + pk.s3 * q) * dlm;
+      dv += (pk.s2 * pre[ol] + pk.s3 * q) * dlm;
     }
-    for (int i = 0; i < d; ++i) {
-      const int o = ((1 + i) * T + p) * ld + j;
+    int o = o0 + sT;
+#pragma unroll 1
+    for (int i = 0; i < d; ++i, o += sT) {
       const float Ji = pre[o];
       const float dJm = dmid ? dmid[o] : ct[(1 + i) * T + p] * wj;
       dv += pk.s2 * Ji * dJm;
       dpre[o] = pk.s1 * dJm + 2.0f * Ji * dq;
     }
-    dpre[p * ld + j] = dv;
+    dpre[o0] = dv;
+  }
+}
+
+// One reverse stage's two elementwise passes in one: from hidden stage k's
+// saved pre-activation streams (`pre`) and the cotangents of its mid streams
+// (`x`), write the mid streams over `x` (the rows of the dW product) and the
+// cotangents of the pre-activation streams over `pre`.  One activation pack
+// per unit serves both; each thread reads an entry before it overwrites it.
+__device__ __forceinline__ void stage_mid_bwd(const Net& net, int T, int k, float* pre,
+                                              float* x) {
+  const int d = net.d, ld = net.wmax, sT = T * ld;
+  for (UnitWalk w(net, k); w.p < T; w.next()) {
+    const int o0 = w.p * ld + w.j;
+    const float v = pre[o0];
+    const Pack pk = act_pack(net.act, v);
+    float dv = pk.s1 * x[o0];
+    float dq = 0.f;
+    if (net.lap) {
+      const int ol = o0 + (d + 1) * sT;
+      const float l = pre[ol], dlm = x[ol];
+      float q = 0.f;
+      int o = o0 + sT;
+#pragma unroll 1
+      for (int i = 0; i < d; ++i, o += sT) {
+        const float Ji = pre[o];
+        q = fmaf(Ji, Ji, q);
+      }
+      x[ol] = pk.s1 * l + pk.s2 * q;
+      pre[ol] = pk.s1 * dlm;
+      dq = pk.s2 * dlm;
+      dv += (pk.s2 * l + pk.s3 * q) * dlm;
+    }
+    int o = o0 + sT;
+#pragma unroll 1
+    for (int i = 0; i < d; ++i, o += sT) {
+      const float Ji = pre[o], dJm = x[o];
+      dv += pk.s2 * Ji * dJm;
+      x[o] = pk.s1 * Ji;
+      pre[o] = pk.s1 * dJm + 2.0f * Ji * dq;
+    }
+    x[o0] = pk.s0;
+    pre[o0] = dv;
   }
 }
 
@@ -371,11 +494,66 @@ __device__ __forceinline__ void stage_bwd(const Net& net, int T, int width,
 // memory; the products run over the rounded (wip, wop) tiles of shared
 // memory and entries past (wi, wo) are dropped.  Each item is a 4 x 4
 // register tile of dW: two float4 reads per row feed 16 FMAs.
+//
+// `narrow` with at most NT/2 items: a group of 8 neighbouring lanes shares
+// one item, lane c of the group taking rows c, c + 8, ..., and the group's
+// partial tiles are added by a shuffle tree (a fixed order); NT/8 items per
+// pass; db likewise with a group per column.  All threads must call it.
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = 4; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
 __device__ __forceinline__ void accum_dW(int rows, int T, int ld, int wi, int wo,
                                          int wip, int wop, const float* M,
-                                         const float* D, float* dW, float* db) {
+                                         const float* D, float* dW, float* db,
+                                         bool narrow = false) {
   const int jgs = wop >> 2;
-  for (int it = threadIdx.x; it < (wip >> 2) * jgs; it += NT) {
+  const int items = (wip >> 2) * jgs;
+  if (narrow && 2 * items <= NT) {
+    const int c = threadIdx.x & 7;
+    for (int itb = 0; itb < items; itb += NT >> 3) {
+      const int it = itb + (threadIdx.x >> 3);
+      const bool live = it < items;
+      const int ig = live ? it / jgs : 0;
+      const int i0 = ig << 2, j0 = live ? (it - ig * jgs) << 2 : 0;
+      float acc[4][4] = {};
+      if (live) {
+        for (int r = c; r < rows; r += 8) {
+          const float4 m = *reinterpret_cast<const float4*>(M + r * ld + i0);
+          const float4 dv = *reinterpret_cast<const float4*>(D + r * ld + j0);
+          const float4 a[4] = {make_float4(m.x, 0.f, 0.f, 0.f), make_float4(m.y, 0.f, 0.f, 0.f),
+                               make_float4(m.z, 0.f, 0.f, 0.f), make_float4(m.w, 0.f, 0.f, 0.f)};
+          fma_tile(acc, a, 0, dv);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) acc[q][cc] = group_sum(acc[q][cc]);
+      if (live && c == 0) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (i0 + q >= wi) break;
+          float* row = dW + (i0 + q) * wo + j0;
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc)
+            if (j0 + cc < wo) row[cc] += acc[q][cc];
+        }
+      }
+    }
+    for (int jb = 0; jb < wo; jb += NT >> 3) {
+      const int j = jb + (threadIdx.x >> 3);
+      float sacc = 0.f;
+      if (j < wo)
+        for (int p = c; p < T; p += 8) sacc += D[p * ld + j];
+      sacc = group_sum(sacc);
+      if (j < wo && c == 0) db[j] += sacc;
+    }
+    return;
+  }
+  for (int it = threadIdx.x; it < items; it += NT) {
     const int ig = it / jgs;
     const int i0 = ig << 2, j0 = (it - ig * jgs) << 2;
     float acc[4][4] = {};
@@ -409,14 +587,16 @@ __device__ __forceinline__ void accum_dW(int rows, int T, int ld, int wi, int wo
 // Reverse sweep over one tile.  On entry `cur` holds the last stage's mid
 // streams, `pre` (shared) its pre-activation streams, and ct = [ct_v (T) |
 // ct_g (d*T) | ct_l (T)] the per-point cotangents of the projected (value,
-// grad, lap).  Each earlier stage's pre-activations are copied back into
-// `pre` before use.  Accumulates dW/db into the block's partial row `grow`
-// (flat parameter layout).
+// grad, lap).  Each earlier stage's pre-activations are copied back from
+// scratch and overwritten by their cotangents; `cur`, `nxt` and `pre` are
+// all consumed.  Accumulates dW/db into the block's partial row `grow` (flat
+// parameter layout).
+template <bool RES = false>
 __device__ inline void reverse_sweep(const Net& net, int T, const float* __restrict__ xs,
                                      const float* __restrict__ params, float* cur,
                                      float* nxt, float* pre, float* Wsh,
                                      const float* scratch, const float* ct, float* red,
-                                     float* grow) {
+                                     float* grow, const Resident& res = Resident{}) {
   const int d = net.d, ld = net.wmax, S = net.S, K = net.K;
   const int stage_sz = S * T * ld;
   const int wl = net.w[K - 1];
@@ -438,32 +618,67 @@ __device__ inline void reverse_sweep(const Net& net, int T, const float* __restr
     grow[net.off[K - 1] + j] += acc;
   }
   // last stage: mid cotangent is rank one, ct * wlast
-  stage_bwd(net, T, net.wp[K - 1], pre, nullptr, ct, wlast, wl, nxt);
+  stage_bwd(net, T, K - 1, pre, nullptr, ct, wlast, wl, nxt);
   __syncthreads();
-  float* D = nxt;     // cotangent of stage k+1's pre-activation streams
-  float* M = cur;
+  // Stage k, three buffers in rotation: D holds the cotangent of stage
+  // k+1's pre-activation streams, X takes dmid = D W_k^T and then the mid
+  // streams, P takes the saved pre-activations and then their cotangent,
+  // which is the next stage's D.
+  float* D = nxt;
+  float* X = cur;
+  float* P = pre;
+  const float* resWt = RES ? res.Wt : nullptr;
+  const bool narrow = RES && res.narrow;
+  int woff = RES ? hidden_floats(net) : 0;   // offset of W_k^T in the resident matrices
   for (int k = K - 2; k >= 1; --k) {
     const int wk = net.w[k], wn = net.w[k + 1];
     const int wkp = net.wp[k], wnp = net.wp[k + 1];
-    copy_async(pre, scratch + (k - 1) * stage_sz, stage_sz);
-    load_transposed(net, Wsh, params + net.off[k], wk, wn, wkp, wnp);
+    woff -= wkp * wnp;
+    copy_async(P, scratch + (k - 1) * stage_sz, stage_sz);
+    if (!resWt) {
+      load_transposed(net, Wsh, params + net.off[k], wk, wn, wkp, wnp);
+      __syncthreads();
+    }
+    // dmid = D W^T
+    mm_rows(D, ld, S * T, wnp, resWt ? resWt + woff : Wsh, wkp, X, ld, nullptr, 0, 0);
     copy_wait();
     __syncthreads();
-    stage_mid(net, T, wkp, pre, M, nullptr);
+    stage_mid_bwd(net, T, k, P, X);
     __syncthreads();
     float* dW = grow + net.off[k];
-    accum_dW(S * T, T, ld, wk, wn, wkp, wnp, M, D, dW, dW + wk * wn);
+    accum_dW(S * T, T, ld, wk, wn, wkp, wnp, X, D, dW, dW + wk * wn, narrow);
     __syncthreads();
-    mm_rows(D, ld, S * T, wnp, Wsh, wkp, M, ld, nullptr, 0, 0);   // dmid = D W^T
-    __syncthreads();
-    stage_bwd(net, T, wkp, pre, M, nullptr, nullptr, 0, D);
-    __syncthreads();
+    float* freed = D;
+    D = P;
+    P = X;
+    X = freed;
   }
   // input layer: v = x W0 + b0, J_i = W0[i, :]
   const int w1 = net.w[1];
   float* dW0 = grow + net.off[0];
   // dW0[i][j] += sum_p x[p][i] dv[p][j] + sum_p dJ_i[p][j]; db0 = row d
-  for (int it = threadIdx.x; it < (d + 1) * w1; it += NT) {
+  const int items0 = (d + 1) * w1;
+  if (narrow && 2 * items0 <= NT) {
+    // a group of 8 lanes per entry, the points dealt to its lanes
+    const int c = threadIdx.x & 7;
+    for (int itb = 0; itb < items0; itb += NT >> 3) {
+      const int it = itb + (threadIdx.x >> 3);
+      const bool live = it < items0;
+      const int i = live ? it / w1 : 0, j = live ? it - i * w1 : 0;
+      float acc = 0.f;
+      if (live) {
+        for (int p = c; p < T; p += 8) {
+          acc = fmaf(i < d ? xs[p * d + i] : 1.f, D[p * ld + j], acc);
+          if (i < d) acc += D[((1 + i) * T + p) * ld + j];
+        }
+      }
+      acc = group_sum(acc);
+      if (live && c == 0) dW0[it] += acc;
+    }
+    __syncthreads();
+    return;
+  }
+  for (int it = threadIdx.x; it < items0; it += NT) {
     const int i = it / w1, j = it - i * w1;
     float acc = 0.f;
     if (i < d) {
@@ -498,6 +713,7 @@ inline bool make_net(int lap, const int* layers, int n_layers, int act, Net* net
   for (int k = 0; k <= K; ++k) {
     net->w[k] = layers[k];
     net->wp[k] = (k >= 1 && k < K) ? (layers[k] + 3) & ~3 : layers[k];
+    net->ntq[k] = (k >= 1 && k < K && layers[k] >= 1) ? NT / net->wp[k] : 0;
   }
   for (int k = 0; k < K; ++k) {
     net->off[k] = off;
@@ -514,8 +730,9 @@ inline bool make_net(int lap, const int* layers, int n_layers, int act, Net* net
 
 }  // namespace fwdlap
 
-// out[j] = sum_g partial[g][j], rows summed in order g = 0..G-1 in double
-// (defined once, in fused_step.cu; every kernel with per-block partial rows
-// ends with it).
-__global__ void reduce_rows_kernel(const float* __restrict__ partial, int G, int R,
-                                   float* __restrict__ out);
+// out[j] = sum_g partial[g][j] in double, in a fixed order: the G rows are
+// dealt to 32 row groups (group y takes rows y, y + 32, ...), each summed in
+// order, and the 32 group sums are added in order.  Launches
+// reduce_rows_kernel (defined once, in fused_step.cu) on `stream`; every
+// kernel with per-block partial rows ends with it.
+cudaError_t reduce_rows(const float* partial, int G, int R, float* out, cudaStream_t stream);

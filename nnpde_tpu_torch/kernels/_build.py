@@ -59,11 +59,13 @@ _SIGNATURES = {
     # kind, smem_bytes, int* blocks
     "fused_quotient_blocks_per_sm": [_I, _I, _P],
     # fused_multibump.cu: seeded, n_bumps, X, coef, params, scal, layers,
-    # n_layers, act, N, T, G, partial, scratch, out, smem_bytes, stream
+    # n_layers, act, N, T, G, flags, partial, scratch, out, smem_bytes, stream
     "fused_multibump_f32":
-        [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+        [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
     # seeded, smem_bytes, int* blocks
     "fused_multibump_blocks_per_sm": [_I, _I, _P],
+    # seeded, n_bumps, layers, n_layers, T, flags -> bytes (not an error code)
+    "fused_multibump_smem_bytes": [_I, _I, _P, _I, _I, _I],
 }
 
 _LIB = None

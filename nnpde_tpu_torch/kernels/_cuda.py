@@ -33,9 +33,11 @@ ACTS = {"sin": 0, "tanh": 1, "gelu": 2}
 NT = 256                      # threads per block (fwdlap_core.cuh)
 MAX_LAYERS, MAX_DIM, MAX_WIDTH = 16, 16, 128
 SMEM_CAP = 160 * 1024
+SMEM_MAX = 227 * 1024         # dynamic shared memory one block can get on an H100
 TILE = 16                     # points per tile (halved until shared memory fits)
 
 _OCCUPANCY = {}
+_CAPTURED = None              # the open capture's list of launches, if any
 
 
 def reset_launches() -> None:
@@ -84,6 +86,11 @@ def padded_wmax(layers) -> int:
     return (max(layers[1:-1]) + 3) // 4 * 4
 
 
+def n_params(layers) -> int:
+    """Entries of the flat parameter vector of a net with these sizes."""
+    return sum(a * b + b for a, b in zip(layers[:-1], layers[1:]))
+
+
 def flat_params(params) -> torch.Tensor:
     """``[W0, b0, W1, b1, ...]`` flattened into one contiguous vector."""
     return torch.cat([t.detach().reshape(-1) for pair in params for t in pair])
@@ -91,7 +98,10 @@ def flat_params(params) -> torch.Tensor:
 
 def plan_tile(smem_floats):
     """``(T, smem bytes)``: the largest tile up to ``TILE`` points whose
-    shared memory, ``4 * smem_floats(T)`` bytes, fits the cap."""
+    shared memory, ``4 * smem_floats(T)`` bytes, fits ``SMEM_CAP``: the
+    constant-tile rule of every kernel but the K-bump pair, whose plan goes
+    by the net (:func:`.fused_multibump.plan`: tile, residency and resident
+    blocks per SM within ``SMEM_MAX``)."""
     T = TILE
     while 4 * smem_floats(T) > SMEM_CAP and T > 4:
         T //= 2
@@ -123,11 +133,41 @@ def stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def launch(name: str, fn, *args, dev: torch.device) -> None:
+def launch(name: str, fn, *args, dev: torch.device, keep=()) -> None:
     """Call one C entry point on ``dev`` and count the launch; raise on the
-    CUDA error it returns."""
+    CUDA error it returns.  ``keep``: the tensors whose pointers are among
+    ``args`` (held by an open :class:`capture`)."""
     with torch.cuda.device(dev):
         err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed (cuda error {err})")
     LAUNCHES[name] += 1
+    if _CAPTURED is not None:
+        _CAPTURED.append((name, fn, args, dev, keep))
+
+
+class capture:
+    """Record the launches made inside the ``with`` block, with their
+    arguments and the tensors behind the pointers, so that :meth:`replay`
+    can issue the same launches again back to back: the kernels' device time
+    without the wrapper's host work (checks, ``torch.cat``, allocation).  A
+    replayed launch counts in ``LAUNCHES`` like any other."""
+
+    def __enter__(self):
+        global _CAPTURED
+        self.calls = _CAPTURED = []
+        return self
+
+    def __exit__(self, *exc):
+        global _CAPTURED
+        _CAPTURED = None
+
+    def replay(self, n: int = 1) -> None:
+        for name, fn, args, dev, _ in self.calls:
+            with torch.cuda.device(dev):
+                for _ in range(n):
+                    err = fn(*args)
+                    if err != 0:
+                        raise RuntimeError(
+                            f"{name}: kernel launch failed (cuda error {err})")
+            LAUNCHES[name] += n

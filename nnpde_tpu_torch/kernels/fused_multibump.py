@@ -23,11 +23,18 @@ Where it runs: a CUDA tensor goes to ``csrc/fused_multibump.cu`` (float32;
 anything else raises), a CPU tensor to the plain versions beside it
 (``fused_multi_sums_plain``, ``fused_multi_seeded_grads_plain``: the
 forward-Laplacian recurrence under ``torch.autograd``, in any dtype).
+
+The launch shape is chosen per net by :func:`plan`: points per tile, what
+stays in shared memory for a block's whole life, and how many blocks an SM
+can hold.  The objectives flatten the parameters once per evaluation and
+hand the vector from ``forward`` to ``backward`` (``flat=``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -112,20 +119,161 @@ def fused_multi_seeded_grads_plain(params, X, coef, scal, activation: str, n_bum
 
 
 # ------------------------------------------------------------ CUDA launcher
-def _plan(seeded: bool, layers, T: int, Kb: int):
+# What a plan keeps in shared memory for the block's whole life (the Flags
+# of fused_multibump.cu).
+RES_WEIGHTS = 1   # hidden weights; in pass B their transposes and the block's
+                  # gradient row too
+NARROW = 2        # pass B: gradient products with few entries dealt by rows to
+                  # groups of lanes
+# the order in which a plan steps down when a shape does not fit (pass B's
+# saved stages always go through global scratch: in shared memory they cost
+# tile size or a resident block and were measured slower)
+TIERS = (("resident", RES_WEIGHTS), ("staged", 0))
+T_MAX = 48        # points per tile the plan asks for at most (a multiple of 4;
+                  # the kernels take up to NT / 2 = 128): above 48 no measured
+                  # shape gained, and smaller tiles balance the SMs better
+
+
+class Plan(NamedTuple):
+    """One launch shape: points per tile, dynamic shared memory in bytes,
+    the residency flags and the tier's name."""
+    T: int
+    smem: int
+    flags: int
+    tier: str
+
+
+def _hidden_floats(layers) -> int:
+    wp = [(w + 3) // 4 * 4 for w in layers[1:-1]]
+    return sum(a * b for a, b in zip(wp[:-1], wp[1:]))
+
+
+def smem_floats(seeded: bool, layers, T: int, Kb: int, flags: int) -> int:
     """Shared-memory floats per block for a tile of T points (the layout of
-    fused_multibump.cu's multibump_body), the ``Kb*(d+4)*T`` coefficient
-    tile included."""
+    fused_multibump.cu's multibump_body, mirrored from its smem_floats)."""
     d = layers[0]
     S, wmax = d + 1, _cuda.padded_wmax(layers)
-    nbuf = 3 if seeded else 2
-    return (nbuf * S * T * wmax + wmax * wmax + T * Kb * (d + 4) + T * d + (d + 2) * T
-            + S * T + _cuda.NT + 3 * Kb)
+    stage, hid = S * T * wmax, _hidden_floats(layers)
+    row = _cuda.n_params(layers) + 1 if seeded else 3 * Kb
+    n = (2 if seeded else 6) * _cuda.NT + (3 if seeded else 2) * stage
+    n += hid if flags & RES_WEIGHTS else wmax * wmax
+    if seeded and flags & RES_WEIGHTS:
+        n += hid + (row + 3) // 4 * 4
+    return (n + T * (Kb * (d + 4) | 1) + T * d + (d + 2) * T + S * T + _cuda.NT + 3 * Kb)
 
 
-def _launch(seeded: bool, params, X, coef, scal, activation: str, Kb: int):
+def _narrow_items(layers) -> int:
+    """Work items (4 x 4 register tiles) of the net's narrowest gradient
+    product: the hidden-to-hidden dW tiles, or the first layer's entries."""
+    wp = [(w + 3) // 4 * 4 for w in layers[1:-1]]
+    return min([(a // 4) * (b // 4) for a, b in zip(wp[:-1], wp[1:])]
+               + [(layers[0] + 1) * layers[1]])
+
+
+def tile_for(layers) -> int:
+    """Points per tile the net asks for: the largest multiple of 4 (from 16
+    to ``T_MAX``) at which the widest forward product, ``(d+1)*T/4`` row
+    groups times ``width/4`` column groups of 4 x 4 register tiles, is still
+    one wave of the block's ``NT`` threads (a second, part-filled wave costs
+    a full one: measured with ``chip_smoke.py sweep``)."""
+    S = layers[0] + 1
+    cg = _cuda.padded_wmax(layers) // 4
+    T = 16
+    while T + 4 <= T_MAX and (S * (T + 4) // 4) * cg <= _cuda.NT:
+        T += 4
+    return T
+
+
+def plan(seeded: bool, layers, Kb: int, *, T: int | None = None,
+         tier: str | None = None) -> Plan:
+    """Choose the launch shape of one pass for this net and bump count.
+
+    The kernels are bound by instruction issue and by latency between
+    barriers, so resident blocks per SM come first: the plan looks for a
+    shape that leaves room for 3 blocks per SM (a third of ``SMEM_MAX``
+    each), then 2, then 1.  Within each share the tile starts at
+    :func:`tile_for` with the hidden weights (pass B: their transposes and
+    the gradient row too) resident, and a shape that does not fit steps down
+    in this order: the tile shrinks (down to 16 points), then the weights are
+    staged per layer per tile and the gradient row is kept in device memory
+    (where, with a whole SM's memory, the tile may shrink to 4 points).  Pass
+    B's saved stages are re-read once per tile from a per-block slice of
+    global scratch, mostly from L2.  Pass B on a net whose
+    gradient products have few entries deals their rows to groups of lanes
+    (``NARROW``).  Every shape the wrappers accept gets a plan; ``T`` and
+    ``tier`` pin a choice (tests, timing sweeps) and raise if it does not
+    fit ``SMEM_MAX``."""
+    pinned = T is not None or tier is not None
+    for share in ((1,) if pinned else (3, 2, 1)):
+        budget = _cuda.SMEM_MAX // share - (0 if share == 1 else 1024)
+        pl = _fit(seeded, layers, Kb, budget, 4 if share == 1 else 16, T, tier)
+        if pl is not None:
+            return pl
+    raise ValueError(f"multibump plan: layers {list(layers)} with {Kb} bumps do not fit "
+                     f"{_cuda.SMEM_MAX} B of shared memory (T={T}, tier={tier})")
+
+
+@functools.lru_cache(maxsize=None)
+def _planned(seeded: bool, layers: tuple, Kb: int) -> Plan:
+    """:func:`plan`, once per shape: the wrapper asks on every launch."""
+    return plan(seeded, layers, Kb)
+
+
+def _fit(seeded, layers, Kb, budget, staged_floor, T=None, tier=None):
+    """The first shape within ``budget`` bytes in the step-down order of
+    :func:`plan` (weights resident, tile down to 16; weights staged, tile
+    down to ``staged_floor``), or None."""
+    narrow = NARROW if seeded and 2 * _narrow_items(layers) <= _cuda.NT else 0
+    for name, flags in TIERS:
+        if tier is not None and name != tier:
+            continue
+        flags |= narrow
+        t = tile_for(layers) if T is None else T
+        floor = t if T is not None else staged_floor if name == "staged" else 16
+        while t > floor and 4 * smem_floats(seeded, layers, t, Kb, flags) > budget:
+            t -= 4
+        smem = 4 * smem_floats(seeded, layers, t, Kb, flags)
+        if smem <= budget:
+            return Plan(t, smem, flags, name)
+    return None
+
+
+def resident(pl: Plan, seeded: bool):
+    """What a plan keeps in shared memory for the block's whole life."""
+    out = []
+    if pl.flags & RES_WEIGHTS:
+        out.append("hidden weights")
+        if seeded:
+            out += ["their transposes", "gradient row"]
+    return out
+
+
+_WORKSPACE = {}        # (pass, device, stream) -> (partial, scratch), flat buffers
+_WORKSPACE_MAX = 8     # entries kept; the least recently used goes first
+
+
+def _workspace(seeded: bool, dev, stream: int, partial_floats: int, scratch_floats: int):
+    """The per-block partial rows and (pass B) the saved-stage scratch as flat
+    buffers, one pair per pass, device and stream: reused by every launch
+    there (launches on one stream are ordered, and no result tensor aliases
+    them) and replaced when a launch needs a larger one."""
+    key = (seeded, dev, stream)
+    partial, scratch = _WORKSPACE.pop(key, (None, None))
+    if partial is None or partial.numel() < partial_floats:
+        partial = torch.empty((partial_floats,), dtype=torch.float32, device=dev)
+    if scratch_floats and (scratch is None or scratch.numel() < scratch_floats):
+        scratch = torch.empty((scratch_floats,), dtype=torch.float32, device=dev)
+    _WORKSPACE[key] = (partial, scratch)
+    while len(_WORKSPACE) > _WORKSPACE_MAX:
+        del _WORKSPACE[next(iter(_WORKSPACE))]
+    return partial, scratch if scratch_floats else None
+
+
+def _launch(seeded: bool, params, X, coef, scal, activation: str, Kb: int, *,
+            flat=None, pl: Plan | None = None):
     """Launch one multibump kernel plus its reduction; returns the flat
-    float32 row: the ``3 Kb`` sums, or ``[grads (P) | sum ct_v]``."""
+    float32 row: the ``3 Kb`` sums, or ``[grads (P) | sum ct_v]``.  ``flat``:
+    the parameters already flattened by :func:`._cuda.flat_params`."""
     from . import _build
 
     name = "multi_seeded" if seeded else "multi_sums"
@@ -135,40 +283,59 @@ def _launch(seeded: bool, params, X, coef, scal, activation: str, Kb: int):
     N, d = X.shape
     K = len(params)
     X, coef = X.contiguous(), coef.contiguous()
-    if coef.data_ptr() % 16:
-        coef = coef.clone()          # the tile copy moves 16 bytes at a time
-    flat = _cuda.flat_params(params)
-    T, smem = _cuda.plan_tile(lambda t: _plan(seeded, layers, t, Kb))
+    if flat is None:
+        flat = _cuda.flat_params(params)
+    if pl is None:
+        pl = _planned(seeded, tuple(layers), Kb)
+    T = pl.T
     dev = X.device
-    G = _cuda.grid(name, lambda sm, ptr: lib.fused_multibump_blocks_per_sm(int(seeded), sm, ptr),
-                   smem, dev, (N + T - 1) // T)
+    G = _cuda.grid(name,
+                   lambda sm, ptr: lib.fused_multibump_blocks_per_sm(int(seeded), sm, ptr),
+                   pl.smem, dev, (N + T - 1) // T)
     row = flat.numel() + 1 if seeded else 3 * Kb
-    partial = torch.empty((G, row), dtype=torch.float32, device=dev)
+    stream = _cuda.stream(dev)
+    partial, scratch = _workspace(
+        seeded, dev, stream, G * row,
+        G * (K - 2) * (d + 1) * T * _cuda.padded_wmax(layers) if seeded else 0)
     out = torch.empty((row,), dtype=torch.float32, device=dev)
-    scratch = None
     if seeded:
         scal = scal.contiguous()
-        scratch = torch.empty((G, max(K - 2, 1) * (d + 1) * T * _cuda.padded_wmax(layers)),
-                              dtype=torch.float32, device=dev)
     lay = _cuda.layers_arg(layers)
     _cuda.launch(name, lib.fused_multibump_f32, int(seeded), Kb, X.data_ptr(),
                  coef.data_ptr(), flat.data_ptr(), scal.data_ptr() if seeded else None,
                  ctypes.addressof(lay), len(layers), _cuda.ACTS[activation], N, T, G,
-                 partial.data_ptr(), scratch.data_ptr() if seeded else None,
-                 out.data_ptr(), smem, _cuda.stream(dev), dev=dev)
+                 pl.flags, partial.data_ptr(),
+                 scratch.data_ptr() if scratch is not None else None,
+                 out.data_ptr(), pl.smem, stream, dev=dev,
+                 keep=(X, coef, flat, scal, lay, partial, scratch, out))
+    return out
+
+
+def _views(flat, params):
+    """``params``' ``(W, b)`` pairs as views of the flat vector."""
+    out, o = [], 0
+    for W, b in params:
+        Wv = flat[o:o + W.numel()].view(W.shape)
+        o += W.numel()
+        out.append((Wv, flat[o:o + b.numel()].view(b.shape)))
+        o += b.numel()
     return out
 
 
 # ------------------------------------------------------------------- raw API
 def fused_multi_sums(params, X, coef, activation: str, n_bumps: int, *,
-                     dot_dtype: str = "float32"):
-    """Pass A: ``{'sum_r' (K,), 'sum_mass' (K,), 'sum_e2' (K,), 'n'}``."""
+                     dot_dtype: str = "float32", flat=None):
+    """Pass A: ``{'sum_r' (K,), 'sum_mass' (K,), 'sum_e2' (K,), 'n'}``.
+    ``flat``: ``params`` already flattened (``[W0, b0, W1, b1, ...]``); the
+    values are then read from it and ``params`` gives the shapes."""
     _check_K(n_bumps)
     _check_dot(dot_dtype)
     _check_coef(X, coef, n_bumps * (X.shape[1] + 4))
     if _on_cuda(X):
-        s = _launch(False, params, X, coef, None, activation, n_bumps)
+        s = _launch(False, params, X, coef, None, activation, n_bumps, flat=flat)
     else:
+        if flat is not None:
+            params = _views(flat, params)
         s = fused_multi_sums_plain(params, X, coef, activation, n_bumps)
     K = n_bumps
     return {"sum_r": s[0:K], "sum_mass": s[K:2 * K], "sum_e2": s[2 * K:3 * K],
@@ -176,10 +343,11 @@ def fused_multi_sums(params, X, coef, activation: str, n_bumps: int, *,
 
 
 def fused_multi_seeded_grads(params, X, coef, scalars, activation: str, n_bumps: int, *,
-                             dot_dtype: str = "float32"):
+                             dot_dtype: str = "float32", flat=None):
     """Pass B: grads of ``sum_k s_r_k*sum r_k + s_q_k*sum (e1_k v)^2 +
     s_l_k*sum e2_k v`` for ``scalars = (s_r (K,), s_q (K,), s_l (K,))``
-    (already holding every 1/N and chain factor), in the params layout."""
+    (already holding every 1/N and chain factor), in the params layout.
+    ``flat`` as in :func:`fused_multi_sums`."""
     _check_K(n_bumps)
     _check_dot(dot_dtype)
     _check_coef(X, coef, n_bumps * (X.shape[1] + 4))
@@ -187,9 +355,11 @@ def fused_multi_seeded_grads(params, X, coef, scalars, activation: str, n_bumps:
                       for s in scalars])
     if _on_cuda(X):
         params = [(W.detach(), b.detach()) for W, b in params]
-        out = _launch(True, params, X, coef, scal, activation, n_bumps)
+        out = _launch(True, params, X, coef, scal, activation, n_bumps, flat=flat)
         dWs, dbs, sums = _unflatten(params, out)
     else:
+        if flat is not None:
+            params = _views(flat, params)
         dWs, dbs, sums = fused_multi_seeded_grads_plain(params, X, coef, scal, activation,
                                                         n_bumps)
     return _seeded_grads(params, dWs, dbs, sums)
@@ -211,7 +381,9 @@ class _WanMultiU(torch.autograd.Function):
     def forward(ctx, cfg, E, X, base, phi_norms, *leaves):
         activation, K, convention, eps, vol, w_pde, w_norm, dot = cfg
         coef = _fold_E(base, E, K)
-        s = fused_multi_sums(_pairs(leaves), X, coef, activation, K, dot_dtype=dot)
+        flat = _cuda.flat_params(_pairs(leaves))     # built once, reused by backward
+        s = fused_multi_sums(_pairs(leaves), X, coef, activation, K, dot_dtype=dot,
+                             flat=flat)
         n = s["n"]
         wr = s["sum_r"] / n                            # (K,)
         mu2 = s["sum_mass"][0] / n                     # u mass (e1_0 = Bu)
@@ -220,14 +392,14 @@ class _WanMultiU(torch.autograd.Function):
         norm_term = (vol * mu2 - 1.0) ** 2
         total = w_pde * p + w_norm * norm_term
         ctx.cfg, ctx.n = cfg, n
-        ctx.save_for_backward(X, coef, wr, mu2, phi_norms, s["sum_e2"], *leaves)
+        ctx.save_for_backward(X, coef, wr, mu2, phi_norms, s["sum_e2"], flat, *leaves)
         ctx.mark_non_differentiable(wr, p, norm_term, mu2)
         return total, wr, p, norm_term, mu2
 
     @staticmethod
     def backward(ctx, g, *_):
         activation, K, convention, eps, vol, w_pde, w_norm, dot = ctx.cfg
-        X, coef, wr, mu2, phi_norms, sum_uphi, *leaves = ctx.saved_tensors
+        X, coef, wr, mu2, phi_norms, sum_uphi, flat, *leaves = ctx.saved_tensors
         n = ctx.n
         _, dp_dwr, dp_dpn = _wan_dp(convention, wr, phi_norms, eps)   # (K,)
         s_r = g * w_pde * dp_dwr / (K * n)
@@ -237,7 +409,7 @@ class _WanMultiU(torch.autograd.Function):
         if any(ctx.needs_input_grad[5:]):
             grads = _flat_grads(fused_multi_seeded_grads(
                 _pairs(leaves), X, coef, (s_r, s_q, torch.zeros_like(s_r)), activation, K,
-                dot_dtype=dot))
+                dot_dtype=dot, flat=flat))
         # dwr_k/dE = -(1/n) sum u*phi_k (the e2 lanes)
         dE = g * w_pde * torch.sum(dp_dwr * (-sum_uphi / n)) / K
         d_pn = g * w_pde * dp_dpn / K                  # (K,)
@@ -281,28 +453,30 @@ class _WanMultiV(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cfg, X, coef, *leaves):
         activation, K, convention, eps, objective, log_eps, dot = cfg
-        s = fused_multi_sums(_pairs(leaves), X, coef, activation, K, dot_dtype=dot)
+        flat = _cuda.flat_params(_pairs(leaves))     # built once, reused by backward
+        s = fused_multi_sums(_pairs(leaves), X, coef, activation, K, dot_dtype=dot,
+                             flat=flat)
         n = s["n"]
         wr, pn = s["sum_r"] / n, s["sum_mass"] / n     # (K,), (K,)
         p_k, _, _ = _wan_dp(convention, wr, pn, eps)
         p = torch.mean(p_k)
         val = -torch.log(p + log_eps) if objective == "neg_log" else -p
         ctx.cfg, ctx.n = cfg, n
-        ctx.save_for_backward(X, coef, wr, pn, p, *leaves)
+        ctx.save_for_backward(X, coef, wr, pn, p, flat, *leaves)
         ctx.mark_non_differentiable(wr, p, pn)
         return val, wr, p, pn
 
     @staticmethod
     def backward(ctx, g, *_):
         activation, K, convention, eps, objective, log_eps, dot = ctx.cfg
-        X, coef, wr, pn, p, *leaves = ctx.saved_tensors
+        X, coef, wr, pn, p, flat, *leaves = ctx.saved_tensors
         _, dp_dwr, dp_dpn = _wan_dp(convention, wr, pn, eps)          # (K,)
         outer = -g / (p + log_eps) if objective == "neg_log" else -g
         s_r = outer * dp_dwr / (K * ctx.n)
         s_q = outer * dp_dpn / (K * ctx.n)
         grads = fused_multi_seeded_grads(_pairs(leaves), X, coef,
                                          (s_r, s_q, torch.zeros_like(s_r)), activation, K,
-                                         dot_dtype=dot)
+                                         dot_dtype=dot, flat=flat)
         return (None, None, None) + _flat_grads(grads)
 
 

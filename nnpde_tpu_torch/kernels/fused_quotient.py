@@ -201,7 +201,8 @@ def _launch(kind: str, params, X, coef, scal, activation: str, lap: int):
                  scal.data_ptr() if seeded else None, ctypes.addressof(lay),
                  len(layers), _cuda.ACTS[activation], N, T, G, partial.data_ptr(),
                  scratch.data_ptr() if seeded else None, out.data_ptr(), smem,
-                 _cuda.stream(dev), dev=dev)
+                 _cuda.stream(dev), dev=dev,
+                 keep=(X, coef, flat, scal, lay, partial, scratch, out))
     return out
 
 

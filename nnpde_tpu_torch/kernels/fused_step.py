@@ -210,18 +210,22 @@ def _launch(kind: str, params, X, coef, activation: str, analytic=None):
     common = (ctypes.addressof(lay), len(layers), _cuda.ACTS[activation], N, T, G)
     tail = (partial.data_ptr(), scratch.data_ptr(), out.data_ptr(), smem,
             _cuda.stream(dev))
+    keep = (X, flat, lay, partial, scratch, out)
     if kind == "fused_linear_residual":
         coef = coef.contiguous()
         _cuda.launch(kind, lib.fused_linear_residual_f32, X.data_ptr(),
-                     coef.data_ptr(), flat.data_ptr(), *common, *tail, dev=dev)
+                     coef.data_ptr(), flat.data_ptr(), *common, *tail, dev=dev,
+                     keep=keep + (coef,))
     elif kind == "fused_drm_energy":
         coef = coef.contiguous()
         _cuda.launch(kind, lib.fused_drm_energy_f32, X.data_ptr(),
-                     coef.data_ptr(), flat.data_ptr(), *common, *tail, dev=dev)
+                     coef.data_ptr(), flat.data_ptr(), *common, *tail, dev=dev,
+                     keep=keep + (coef,))
     else:
         an = (ctypes.c_float * (3 + d))(*analytic)
         _cuda.launch(kind, lib.fused_poisson_analytic_f32, X.data_ptr(),
-                     flat.data_ptr(), *common, ctypes.addressof(an), *tail, dev=dev)
+                     flat.data_ptr(), *common, ctypes.addressof(an), *tail, dev=dev,
+                     keep=keep + (an,))
     return out
 
 

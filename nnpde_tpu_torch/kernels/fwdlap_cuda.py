@@ -94,7 +94,8 @@ def fwdlap_forward(params, X, activation: str, fwd_impl: str = "rows") -> torch.
     lay = _cuda.layers_arg(layers)
     _cuda.launch(name, lib.fwdlap_forward_f32, streams, X.data_ptr(), flat.data_ptr(),
                  ctypes.addressof(lay), len(layers), _cuda.ACTS[activation], N, T,
-                 G, out.data_ptr(), smem, _cuda.stream(dev), dev=dev)
+                 G, out.data_ptr(), smem, _cuda.stream(dev), dev=dev,
+                 keep=(X, flat, lay, out))
     return out.t() if streams else out
 
 
@@ -126,7 +127,8 @@ def fwdlap_backward(params, X, ct, activation: str):
     _cuda.launch(name, lib.fwdlap_backward_f32, X.data_ptr(), ct.data_ptr(),
                  flat.data_ptr(), ctypes.addressof(lay), len(layers),
                  _cuda.ACTS[activation], N, T, G, partial.data_ptr(), scratch.data_ptr(),
-                 out.data_ptr(), smem, _cuda.stream(dev), dev=dev)
+                 out.data_ptr(), smem, _cuda.stream(dev), dev=dev,
+                 keep=(X, ct, flat, lay, partial, scratch, out))
     dWs, dbs, _ = _unflatten(params, out)
     dbs[-1] = torch.sum(ct[:, 0]).reshape(params[-1][1].shape)
     return dWs, dbs

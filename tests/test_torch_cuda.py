@@ -296,11 +296,15 @@ def test_cuda_multibump_kernel_matches_plain(dev, seeded, Kb, layers, act):
     """The K-bump pair: every sum within 1e-5 of the sum of its terms'
     magnitudes, the seeded grad row and sum ct_v rel <= 1e-5; two launches
     bitwise equal."""
+    _check_multibump(dev, seeded, Kb, layers, act)
+
+
+def _check_multibump(dev, seeded, Kb, layers, act, N=1000 + 7, **pin):
     from nnpde_tpu_torch.kernels import fused_multibump as tfm
     from nnpde_tpu_torch.ops.fwdlap import mlp_fwdlap
 
     rng = np.random.default_rng(14)
-    N, d = 1000 + 7, layers[0]
+    d = layers[0]
     pn = _np_params(rng, layers)
     tp = params_from_jax(pn, device=dev)
     tp64 = params_from_jax(pn, device=dev, dtype=torch.float64)
@@ -308,9 +312,10 @@ def test_cuda_multibump_kernel_matches_plain(dev, seeded, Kb, layers, act):
     coef = torch.as_tensor(rng.normal(size=(N, Kb * (d + 4))).astype(np.float32), device=dev)
     scal = torch.as_tensor(rng.normal(size=(3 * Kb,)).astype(np.float32), device=dev)
     name = "multi_seeded" if seeded else "multi_sums"
+    pl = tfm.plan(seeded, layers, Kb, **pin) if pin else None
     before = LAUNCHES[name]
-    out = tfm._launch(seeded, tp, X, coef, scal, act, Kb)
-    out2 = tfm._launch(seeded, tp, X, coef, scal, act, Kb)
+    out = tfm._launch(seeded, tp, X, coef, scal, act, Kb, pl=pl)
+    out2 = tfm._launch(seeded, tp, X, coef, scal, act, Kb, pl=pl)
     torch.cuda.synchronize()
     assert LAUNCHES[name] == before + 2
     assert torch.equal(out, out2)
@@ -331,3 +336,47 @@ def test_cuda_multibump_kernel_matches_plain(dev, seeded, Kb, layers, act):
     ctv = torch.sum(s64[:Kb] * c64[:, 0:Kb * blk:blk] + s64[Kb:2 * Kb] * 2.0 * e1 * e1
                     * v[:, None] + s64[2 * Kb:] * e2, dim=1)
     assert abs(float(got[2][0]) - float(sums[0])) <= 1e-5 * float(ctv.abs().sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seeded", [False, True])
+@pytest.mark.parametrize("tier", ["resident", "staged"])
+@pytest.mark.parametrize("layers,T", [((2, 50, 50, 50, 50, 1), 16), ((2, 50, 50, 50, 50, 1), 28),
+                                      ((2, 20, 20, 20, 1), 72), ((2, 20, 20, 1), 128)])
+def test_cuda_multibump_plan_tiers(dev, seeded, tier, layers, T):
+    """Each tier of the plan, pinned, at tiles below, at and above the
+    plan's own: the same bars as the plan's choice."""
+    _check_multibump(dev, seeded, 16, layers, "sin", T=T, tier=tier)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seeded", [False, True])
+@pytest.mark.parametrize("layers,Kb,act", [
+    ((16,) + (128,) * 15 + (1,), 42, "tanh"),      # d, width, depth, bumps at their caps
+    ((2, 1, 1, 1), 3, "sin"),
+    ((2, 50, 1, 50, 1), 16, "sin"),
+    ((2, 128, 128, 1), 42, "gelu"),
+    ((2, 12, 1), 16, "sin"),                       # one hidden layer: nothing saved
+])
+def test_cuda_multibump_extreme_shapes(dev, seeded, layers, Kb, act):
+    _check_multibump(dev, seeded, Kb, layers, act, N=300 + 1)
+
+
+@pytest.mark.cuda
+def test_cuda_multibump_smem_layout_mirror(dev):
+    """The plan's shared-memory bytes are the kernel's own count."""
+    import ctypes
+
+    from nnpde_tpu_torch.kernels import _build
+    from nnpde_tpu_torch.kernels import fused_multibump as tfm
+
+    lib = _build.load()
+    for layers in [(2, 50, 50, 50, 50, 1), (2, 20, 20, 20, 1), (5, 7, 9, 1), (2, 12, 1)]:
+        lay = (ctypes.c_int * len(layers))(*layers)
+        for seeded in (False, True):
+            for Kb in (1, 16, 42):
+                for flags in range(4):
+                    for T in (4, 16, 72):
+                        assert lib.fused_multibump_smem_bytes(
+                            int(seeded), Kb, ctypes.addressof(lay), len(layers), T,
+                            flags) == 4 * tfm.smem_floats(seeded, layers, T, Kb, flags)

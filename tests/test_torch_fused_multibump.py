@@ -42,6 +42,8 @@ from nnpde_tpu_torch.kernels import (
     make_fused_wan_u,
     pack_multibump_coefficients,
 )
+from nnpde_tpu_torch.kernels import _cuda as tcuda
+from nnpde_tpu_torch.kernels import fused_multibump as tmb
 from nnpde_tpu_torch.models import factor_for_technique
 from nnpde_tpu_torch.ops import bump_grid, bump_w_multi
 from nnpde_tpu_torch.ops.fwdlap import Jet
@@ -279,3 +281,149 @@ def test_multibump_options_that_raise():
         fused_multi_sums(p, X, coef, "sin", 3)
     with pytest.raises(ValueError, match="objective"):
         make_fused_wan_multi_v("sin", 2, objective="max")
+
+
+# ----------------------------------------------------------------- the plan
+CHIP_NETS = {"u50": (2, 50, 50, 50, 50, 1), "c20": (2, 20, 20, 20, 1)}
+EXTREMES = {
+    "d16_w128_16layers": (16,) + (128,) * 15 + (1,),
+    "width1": (2, 1, 1, 1),
+    "widths_1_and_50": (2, 50, 1, 50, 1),
+    "w128_shallow": (2, 128, 128, 1),
+    "one_hidden": (2, 12, 1),
+    "u64": (2, 64, 64, 64, 64, 1),
+    "d5_w50": (5, 50, 50, 1),
+}
+
+
+def _launchable(pl, seeded, layers, Kb):
+    """What the C entry point checks before it launches (fused_multibump.cu)."""
+    return (4 <= pl.T <= tcuda.NT // 2 and pl.T % 4 == 0 and 0 <= pl.flags <= 3
+            and pl.smem >= 4 * tmb.smem_floats(seeded, layers, pl.T, Kb, pl.flags)
+            and pl.smem <= tcuda.SMEM_MAX)
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+@pytest.mark.parametrize("net", sorted(CHIP_NETS))
+def test_plan_chip_shapes(net, seeded):
+    layers = CHIP_NETS[net]
+    pl = tmb.plan(seeded, layers, 16)
+    assert _launchable(pl, seeded, layers, 16)
+    assert pl.T >= 16 and pl.tier in [name for name, _ in tmb.TIERS]
+    # the widest forward product is one wave of the block at the asked tile
+    S, cg = layers[0] + 1, tcuda.padded_wmax(layers) // 4
+    assert (S * tmb.tile_for(layers) // 4) * cg <= tcuda.NT
+    # three blocks of this shape fit one SM's shared memory
+    assert 3 * (pl.smem + 1024) <= tcuda.SMEM_MAX
+    # pass A keeps no gradient row and no lane groups
+    if not seeded:
+        assert pl.flags & ~tmb.RES_WEIGHTS == 0
+    elif net == "c20":
+        assert pl.flags & tmb.NARROW and pl.tier == "resident"
+    else:
+        assert not pl.flags & tmb.NARROW and pl.tier == "staged" and pl.T == 24
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+@pytest.mark.parametrize("Kb", [1, 16, 42])
+@pytest.mark.parametrize("net", sorted(EXTREMES))
+def test_plan_takes_every_shape_the_wrapper_takes(net, Kb, seeded):
+    layers = EXTREMES[net]
+    d = layers[0]
+    params = [(torch.zeros(a, b), torch.zeros(b)) for a, b in zip(layers[:-1], layers[1:])]
+    X = torch.zeros(8, d)
+    assert tcuda.net_layers("multi_sums", params, X, "sin") == list(layers)
+    pl = tmb.plan(seeded, layers, Kb)
+    assert _launchable(pl, seeded, layers, Kb)
+    for tier, _ in tmb.TIERS:           # a pinned choice fits or raises, never lies
+        try:
+            pinned = tmb.plan(seeded, layers, Kb, T=16, tier=tier)
+        except ValueError:
+            continue
+        assert pinned.T == 16 and pinned.tier == tier
+        assert _launchable(pinned, seeded, layers, Kb)
+
+
+@pytest.mark.parametrize("net", ["c20", "u50"])
+def test_plan_steps_down_in_order(net):
+    """Under a shrinking budget: the tile shrinks to 16 points with the
+    weights and the gradient row resident, then they leave; only the last
+    tier goes below 16."""
+    layers = CHIP_NETS[net]
+    order = [name for name, _ in tmb.TIERS]
+    seen, last = [], None
+    for budget in range(tcuda.SMEM_MAX, 8 * 1024, -2048):
+        pl = tmb._fit(True, layers, 16, budget, 4)
+        if pl is None:
+            break
+        assert pl.smem <= budget and pl.T % 4 == 0
+        key = (order.index(pl.tier), -pl.T)
+        assert last is None or key >= last, (budget, pl, last)
+        assert pl.T >= 16 or pl.tier == "staged"
+        assert pl.T <= tmb.tile_for(layers)
+        last = key
+        if pl.tier not in seen:
+            seen.append(pl.tier)
+    assert seen == order
+    assert last[1] == -4                 # the last step is the smallest tile
+
+
+def test_plan_flags_per_tier():
+    u50 = CHIP_NETS["u50"]
+    res = tmb.plan(True, u50, 16, T=16, tier="resident")
+    sta = tmb.plan(True, u50, 16, T=16, tier="staged")
+    assert res.flags == tmb.RES_WEIGHTS and sta.flags == 0
+    assert tmb.plan(False, u50, 16, T=16, tier="resident").flags == tmb.RES_WEIGHTS
+    # what the step down gives back: the resident matrices twice (W and W^T)
+    # and the gradient row, less the one staging matrix taken instead
+    wp, P = tcuda.padded_wmax(u50), tcuda.n_params(u50)
+    hid = 3 * wp * wp
+    assert res.smem - sta.smem == 4 * (2 * hid + (P + 1 + 3) // 4 * 4 - wp * wp)
+    assert tmb.resident(res, True) == ["hidden weights", "their transposes", "gradient row"]
+    assert tmb.resident(res, False) == ["hidden weights"] and tmb.resident(sta, True) == []
+    with pytest.raises(ValueError, match="do not fit"):
+        tmb.plan(True, EXTREMES["d16_w128_16layers"], 42, T=16, tier="resident")
+
+
+def test_workspace_is_bounded_and_grows_in_place():
+    """One (partial, scratch) pair per pass, device and stream, replaced by a
+    larger one when needed; the cache keeps at most ``_WORKSPACE_MAX``."""
+    cpu = torch.device("cpu")
+    tmb._WORKSPACE.clear()
+    try:
+        p1, s1 = tmb._workspace(True, cpu, 0, 100, 50)
+        p2, s2 = tmb._workspace(True, cpu, 0, 80, 50)
+        assert p2 is p1 and s2 is s1 and len(tmb._WORKSPACE) == 1
+        p3, s3 = tmb._workspace(True, cpu, 0, 200, 0)
+        assert p3.numel() == 200 and s3 is None and len(tmb._WORKSPACE) == 1
+        assert tmb._workspace(True, cpu, 0, 10, 10)[1] is s1     # kept for the next need
+        assert tmb._workspace(False, cpu, 0, 48, 0)[1] is None
+        for stream in range(1, 3 * tmb._WORKSPACE_MAX):
+            tmb._workspace(True, cpu, stream, 8, 8)
+        assert len(tmb._WORKSPACE) == tmb._WORKSPACE_MAX
+        assert (True, cpu, 0) not in tmb._WORKSPACE                # the oldest went first
+    finally:
+        tmb._WORKSPACE.clear()
+
+
+def test_flat_vector_handoff_matches_params_route():
+    """The flat parameter vector built once in ``forward`` and reused in
+    ``backward`` gives the sums and gradients of the params route."""
+    d, Kb = 2, 4
+    rng, _, _, tp, X = _setup(d, 12, "tanh", seed=31)
+    Xt = torch.as_tensor(X)
+    coef = torch.as_tensor(rng.normal(size=(X.shape[0], Kb * (d + 4))).astype(np.float32))
+    flat = tcuda.flat_params(tp)
+    a = fused_multi_sums(tp, Xt, coef, "tanh", Kb)
+    b = fused_multi_sums(tp, Xt, coef, "tanh", Kb, flat=flat)
+    for k in ("sum_r", "sum_mass", "sum_e2"):
+        assert torch.equal(a[k], b[k])
+    scal = tuple(torch.as_tensor(rng.normal(size=Kb).astype(np.float32)) for _ in range(3))
+    ga = fused_multi_seeded_grads(tp, Xt, coef, scal, "tanh", Kb)
+    gb = fused_multi_seeded_grads(tp, Xt, coef, scal, "tanh", Kb, flat=flat)
+    assert np.array_equal(_flat_t([t for pair in ga for t in pair]),
+                          _flat_t([t for pair in gb for t in pair]))
+    # the values come from the flat vector, the shapes from params
+    zeros = [(torch.zeros_like(W), torch.zeros_like(bb)) for W, bb in tp]
+    c = fused_multi_sums(zeros, Xt, coef, "tanh", Kb, flat=flat)
+    assert torch.equal(a["sum_r"], c["sum_r"])

@@ -164,7 +164,7 @@ def test_wrapper_checks_and_tile_planning_take_any_width():
     """The CPU-side half of the width repair: the wrappers' net check takes
     hidden widths 1..128 (not only multiples of 4), the shared-memory plans
     use the width rounded up to a multiple of 4, and the multibump plan
-    counts the K*(d+4)*T coefficient tile."""
+    counts the K*(d+4)*T coefficient tile (rows padded to an odd stride)."""
     from nnpde_tpu_torch.kernels import _cuda
     from nnpde_tpu_torch.kernels import fused_multibump as tfm
 
@@ -189,8 +189,11 @@ def test_wrapper_checks_and_tile_planning_take_any_width():
             == 3 * 4 * 16 * 52 + 52 * 52 + 16 * 2 + 4 * 16 + _cuda.NT)
     # the coefficient tile is counted, per bump and per point
     lay = [2, 20, 20, 20, 1]
-    assert tfm._plan(False, lay, 16, 42) - tfm._plan(False, lay, 16, 16) == 26 * (6 * 16 + 3)
-    T, smem = _cuda.plan_tile(lambda t: tfm._plan(True, [2, 128, 128, 1], t, 42))
-    assert T == 16 and smem == 4 * tfm._plan(True, [2, 128, 128, 1], 16, 42) <= _cuda.SMEM_CAP
-    T, _ = _cuda.plan_tile(lambda t: tfm._plan(True, [16, 128, 128, 1], t, 42))
-    assert T < 16                     # d = 16: the tile is halved until it fits
+    assert (tfm.smem_floats(False, lay, 16, 42, 0) - tfm.smem_floats(False, lay, 16, 16, 0)
+            == 26 * (6 * 16 + 3))
+    wide = [2, 128, 128, 1]
+    pl = tfm.plan(True, wide, 42)
+    assert pl.T >= 16 and pl.T % 4 == 0
+    assert pl.smem == 4 * tfm.smem_floats(True, wide, pl.T, 42, pl.flags) <= _cuda.SMEM_MAX
+    pl = tfm.plan(True, [16] + [128] * 15 + [1], 42)
+    assert pl.T < 16 and pl.tier == "staged"   # d = 16, 16 layers: the tile shrinks until it fits
