@@ -50,14 +50,15 @@ Phases (each prints one JSON line; any failure exits non-zero):
    minimax='extragradient', and 100 PINN epochs on 'kernel:streams'.
 8. timing, wan_timing, eigen_timing: CUDA events, median over repeats, for
    each kernel and its plain version at the path's N and at 262144 on the
-   net it runs on, with the bound (bytes or operations); training steps per
-   second.
+   net it runs on, with the bound (bytes or operations) and, for the kernels
+   that plan by net, the plan; training steps per second.
 
 ``python3 chip_smoke.py eigen`` (or any other phase-group name: kernels,
 wan, main, eigen, timing) runs only those groups, for work on one slice;
 without arguments every phase runs.  ``python3 chip_smoke.py sweep`` is a
-further group that runs only when named: the K-bump pair at every plan tier
-and a range of tile sizes, each checked against float64 and timed.
+further group that runs only when named: the K-bump pair and the two seeded
+quotient kernels at every plan tier and a range of tile sizes, each checked
+against float64 and timed.
 
 The last two lines before the final one are the ``kernels`` summary and the
 card's ``name, power limit``; the final line is
@@ -700,6 +701,34 @@ def phase_timing(dev):
     return rows
 
 
+def launch_blocks(kind, layers, S, pl, dev, N):
+    """Blocks the wrapper launched for this plan (read from its occupancy
+    cache after a launch)."""
+    from nnpde_tpu_torch.kernels import _cuda
+
+    n_tiles = (N + pl.T - 1) // pl.T
+    if hasattr(_cuda, "folds"):
+        return _cuda.grid(kind, None, pl.smem, dev, n_tiles, int(_cuda.folds(layers, S, pl.T)))
+    return _cuda.grid(kind, None, pl.smem, dev, n_tiles)
+
+
+def quotient_plan(case):
+    """The launch shape the quotient wrapper chose for this seeded case
+    (after a launch): tile, shared memory, blocks, and what stays on chip;
+    None on a tree whose quotient kernels take the constant tile."""
+    from nnpde_tpu_torch.kernels import fused_quotient as fq
+
+    if not hasattr(fq, "plan"):
+        return None
+    from nnpde_tpu_torch.kernels import _plan
+
+    pl = fq.plan(case.kind, case.layers, case.lap)
+    blocks = launch_blocks(case.kind, case.layers, case.d + 1 + case.lap, pl, case.X.device,
+                           case.N)
+    return {"T": pl.T, "smem_bytes": pl.smem, "blocks": blocks, "tier": pl.tier,
+            "resident": _plan.resident(pl, True)}
+
+
 def phase_wan_timing(dev):
     rows = []
     nets = {"u": LAYERS, "critic": CRITIC}
@@ -709,7 +738,9 @@ def phase_wan_timing(dev):
                 case = WanCase(kind, N, nets[net], "sin", seed=9, dev=dev)
                 ms = time_ms(case.kernel)
                 plain_ms = time_ms(lambda: case.plain(torch.float32), warmup=2, reps=7)
-                rows.append({"kernel": kind, "net": net, "N": N, "ms": ms,
+                rows.append({"kernel": kind, "net": net, "N": N,
+                             "plan": quotient_plan(case) if kind.endswith("seeded") else None,
+                             "ms": ms,
                              "device_ms": device_ms(case.kernel),
                              "plain_ms": plain_ms, "bound_ms": case.bound_ms(),
                              "bound_by": case.bound_by(), "flop": case.flops(),
@@ -1127,14 +1158,17 @@ def phase_eigen_path():
 def multibump_plan(case):
     """The launch shape the K-bump wrapper chose for this case (after a
     launch): tile, shared memory, blocks, and what stays on chip."""
-    from nnpde_tpu_torch.kernels import _cuda
     from nnpde_tpu_torch.kernels import fused_multibump as fm
 
+    try:
+        from nnpde_tpu_torch.kernels._plan import resident
+    except ImportError:        # a tree whose plan lives in fused_multibump.py
+        resident = fm.resident
     seeded = case.kind == "multi_seeded"
     pl = fm.plan(seeded, case.layers, case.Kb)
-    blocks = _cuda.grid(case.kind, None, pl.smem, case.X.device, (case.N + pl.T - 1) // pl.T)
+    blocks = launch_blocks(case.kind, case.layers, case.d + 1, pl, case.X.device, case.N)
     return {"T": pl.T, "smem_bytes": pl.smem, "blocks": blocks, "tier": pl.tier,
-            "resident": fm.resident(pl, seeded)}
+            "resident": resident(pl, seeded)}
 
 
 def phase_eigen_timing(dev):
@@ -1166,11 +1200,15 @@ def phase_eigen_timing(dev):
                    "ms": time_ms(case.kernel), "device_ms": device_ms(case.kernel),
                    "bound_ms": case.bound_ms()})
     del case
-    for kind, net in (("fwdlap_forward", "u"), ("fwdlap_forward", "critic"),
-                      ("quad_sums", "u"), ("quad_seeded", "u")):
-        case = WanCase(kind, EIGEN_N, nets[net], "sin", seed=13, dev=dev)
-        others.append({"kernel": kind, "net": net, "N": EIGEN_N, "ms": time_ms(case.kernel),
-                       "device_ms": device_ms(case.kernel), "bound_ms": case.bound_ms()})
+    # (the DRM path's Rayleigh pair on u50 at 262144 as well)
+    for kind, net, N in (("fwdlap_forward", "u", EIGEN_N), ("fwdlap_forward", "critic", EIGEN_N),
+                         ("quad_sums", "u", EIGEN_N), ("quad_seeded", "u", EIGEN_N),
+                         ("quad_sums", "u", 262144), ("quad_seeded", "u", 262144)):
+        case = WanCase(kind, N, nets[net], "sin", seed=13, dev=dev)
+        ms = time_ms(case.kernel)
+        others.append({"kernel": kind, "net": net, "N": N, "ms": ms,
+                       "device_ms": device_ms(case.kernel), "bound_ms": case.bound_ms(),
+                       "plan": quotient_plan(case) if kind.endswith("seeded") else None})
         del case
         torch.cuda.empty_cache()
     emit({"phase": "eigen_timing", "rows": rows, "earlier_kernels": others})
@@ -1178,6 +1216,7 @@ def phase_eigen_timing(dev):
 
 
 SWEEP_TILES = (16, 24, 32, 48, 64, 96)
+SWEEP_TIERS = ("resident", "gradient", "staged")   # a tier a pass lacks raises
 
 
 def phase_multibump_sweep(dev):
@@ -1187,19 +1226,19 @@ def phase_multibump_sweep(dev):
     terms' magnitudes; pass B: gradient row rel <= 1e-5), launched twice for
     a bitwise-equal repeat, and timed as device time.  One JSON line per
     case; the plan's own choice carries ``"chosen": true``."""
-    from nnpde_tpu_torch.kernels import _build, _cuda
+    from nnpde_tpu_torch.kernels import _build
     from nnpde_tpu_torch.kernels import fused_multibump as fm
 
     emit({"phase": "sweep", "ptxas": [
         ln.strip() for ln in _build.BUILD_LOG.get("ptxas", "").splitlines()
-        if "multi_" in ln or "registers" in ln or "spill" in ln]})
+        if "Compiling entry" in ln or "registers" in ln or "spill" in ln]})
     ok = True
     for net_name, layers in (("critic", EIGEN_V), ("u", EIGEN_U)):
         for kind in ("multi_sums", "multi_seeded"):
             seeded = kind == "multi_seeded"
             chosen = fm.plan(seeded, layers, EIGEN_BUMPS)
             plans = [chosen]
-            for tier, _ in fm.TIERS:
+            for tier in SWEEP_TIERS:
                 for T in SWEEP_TILES:
                     try:
                         pl = fm.plan(seeded, layers, EIGEN_BUMPS, T=T, tier=tier)
@@ -1228,14 +1267,87 @@ def phase_multibump_sweep(dev):
                     ok = ok and good
                     emit({"kernel": kind, "net": net_name, "N": N, "tier": pl.tier, "T": pl.T,
                           "flags": pl.flags, "smem": pl.smem,
-                          "blocks": _cuda.grid(kind, None, pl.smem, case.X.device,
-                                               (N + pl.T - 1) // pl.T),
+                          "blocks": launch_blocks(kind, layers, layers[0] + 1, pl,
+                                                  case.X.device, N),
                           "err": err, "ok": good, "chosen": pl == chosen,
                           "device_ms": device_ms(run), "bound_ms": case.bound_ms()})
                 del case
                 torch.cuda.empty_cache()
     if not ok:
         raise SystemExit("multibump sweep: a case missed its bar")
+
+
+# the seeded quotient kernels on the nets of their paths, at the path's N
+QSWEEP = (("linear_seeded", "critic", CRITIC, 20000), ("linear_seeded", "u", LAYERS, 20000),
+          ("quad_seeded", "critic", CRITIC, 20000), ("quad_seeded", "u50", EIGEN_U, EIGEN_N))
+QSWEEP_TILES = (8, 16, 20, 24, 32, 48)
+
+
+def phase_quotient_sweep(dev):
+    """The two seeded quotient kernels at every (tier, T) of QSWEEP_TILES
+    that fits, at each net's path N and at 262144: each launch held to its
+    float64 plain version (gradient row and sum ct_v rel <= 1e-5), launched
+    twice for a bitwise-equal repeat, and timed as device time.  One JSON
+    line per case; ``chosen`` marks the plan's own choice.  On a tree whose
+    quotient kernels take the constant tile of ``_cuda.plan_tile`` (no
+    ``plan``), the tile is swept through that constant instead."""
+    from nnpde_tpu_torch.kernels import _cuda
+    from nnpde_tpu_torch.kernels import fused_quotient as fq
+
+    by_plan = hasattr(fq, "plan")
+    ok = True
+    for kind, net_name, layers, n_path in QSWEEP:
+        for N in (n_path, 262144):
+            case = WanCase(kind, N, layers, "sin", seed=23, dev=dev)
+            ref = case.plain(torch.float64)
+            P = ref.numel() - 1
+            if by_plan:
+                chosen = fq.plan(kind, layers, 0)
+                plans = [chosen]
+                for tier in SWEEP_TIERS:
+                    for T in QSWEEP_TILES:
+                        try:
+                            pl = fq.plan(kind, layers, 0, T=T, tier=tier)
+                        except ValueError:
+                            continue
+                        if pl not in plans:
+                            plans.append(pl)
+            else:
+                plans = list(QSWEEP_TILES)
+            for pl in plans:
+                if by_plan:
+                    def run(pl=pl):
+                        return fq._launch(kind, case.params, case.X, case.coef, case.scal,
+                                          case.act, 0, pl=pl)
+                else:
+                    def run(T=pl):
+                        tile, _cuda.TILE = _cuda.TILE, T
+                        try:
+                            return fq._launch(kind, case.params, case.X, case.coef, case.scal,
+                                              case.act, 0)
+                        finally:
+                            _cuda.TILE = tile
+                out, out2 = run(), run()
+                torch.cuda.synchronize()
+                err = max(float(torch.linalg.norm(out[:P].double() - ref[:P])
+                                / torch.linalg.norm(ref[:P])),
+                          abs(float(out[P]) - float(ref[P])) / abs(float(ref[P])))
+                good = err <= 1e-5 and bool(torch.equal(out, out2))
+                ok = ok and good
+                row = {"kernel": kind, "net": net_name, "N": N, "err": err, "ok": good,
+                       "device_ms": device_ms(run), "bound_ms": case.bound_ms()}
+                if by_plan:
+                    row.update(tier=pl.tier, T=pl.T, flags=pl.flags, smem=pl.smem,
+                               blocks=launch_blocks(kind, layers, layers[0] + 1, pl,
+                                                    case.X.device, N),
+                               chosen=pl == chosen)
+                else:
+                    row.update(tier="constant tile", T=pl)
+                emit(row)
+            del case, ref
+            torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("quotient sweep: a case missed its bar")
 
 
 GROUPS = ("kernels", "wan", "main", "eigen", "timing")
@@ -1253,6 +1365,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     if "sweep" in want:
         phase_multibump_sweep(dev)
+        phase_quotient_sweep(dev)
     max_err, launches, speed = {}, {}, {}
     if "kernels" in want:
         max_err.update(phase_kernels(dev))

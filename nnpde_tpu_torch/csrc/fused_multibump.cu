@@ -30,14 +30,16 @@
 // traffic under a tenth.  So
 // what the design buys first is resident blocks per SM (the plan keeps room
 // for three), then fewer idle threads per phase:
-//   * the plan (fused_multibump.py::plan) picks the tile by net -- the
+//   * the plan (kernels/_plan.py, shared with the seeded quotient kernels)
+//     picks the tile by net -- the
 //     largest T (up to 48) whose widest product is still one wave of the
 //     block's 4 x 4 register tiles -- and what stays in shared memory for
 //     the block's life: hidden weights (pass B: their transposes too, staged
 //     once by cp.async) and the block's gradient row, which every tile adds
 //     to on chip and which is written to device memory once.  A shape that
-//     does not fit steps down (smaller tile, then weights per tile): a choice
-//     by shape, every shape still runs these kernels.  Pass B's saved stages
+//     does not fit steps down (smaller tile, then the row alone, then
+//     nothing resident): a choice by shape, every shape still runs these
+//     kernels.  Pass B's saved stages
 //     go through a per-block slice of global scratch: holding them in shared
 //     memory was measured slower at every shape of the infinite-well nets
 //     (it costs tile size or a resident block), so no such path is kept;
@@ -81,14 +83,6 @@ namespace {
 
 constexpr int MAX_BUMPS = 42;   // the cap of the JAX package (3 Kb <= 128)
 
-// What the plan keeps in shared memory (fused_multibump.py::plan).
-enum Flags {
-  RES_WEIGHTS = 1,   // hidden weights (pass B: their transposes and the
-                     // gradient accumulator too) resident for the block's life
-  NARROW = 2,        // pass B: gradient products with few entries dealt by
-                     // rows to groups of lanes (fwdlap_core.cuh::accum_dW)
-};
-
 struct MArgs {
   Net net;
   const float* X;
@@ -100,10 +94,6 @@ struct MArgs {
   int N, T, n_tiles, row, Kb, flags;
 };
 
-// Row stride of the coefficient tile in shared memory: odd, so that threads
-// on neighbouring points read neighbouring banks.
-__host__ __device__ inline int coef_stride(int nc) { return nc | 1; }
-
 // Shared-memory floats of one block: the layout of multibump_body (mirrored
 // by fused_multibump.py::smem_floats).
 __host__ __device__ inline int smem_floats(const Net& net, int seeded, int T, int Kb,
@@ -112,35 +102,13 @@ __host__ __device__ inline int smem_floats(const Net& net, int seeded, int T, in
   const int hid = hidden_floats(net), row = seeded ? net.P + 1 : 3 * Kb;
   int n = (seeded ? 2 : 6) * NT + (seeded ? 3 : 2) * stage;
   n += (flags & RES_WEIGHTS) ? hid : ld * ld;
-  if (seeded && (flags & RES_WEIGHTS)) n += hid + ((row + 3) & ~3);
+  if (seeded && (flags & RES_WEIGHTS)) n += hid;
+  if (seeded && (flags & RES_GRAD)) n += (row + 3) & ~3;
   n += T * coef_stride(Kb * (d + 4)) + T * d + (d + 2) * T + S * T + NT + 3 * Kb;
   return n;
 }
 
-// cf[p][:] = coef[base + p][:] for the tile's T points at row stride ncp;
-// rows past N read 0.  A warp copies whole rows (lane l the floats l, l +
-// 32, ...: consecutive lanes, consecutive floats of device memory, and no
-// division per float): full tiles by 4-byte cp.async, complete at
-// copy_wait(); the ragged last tile by plain loads.
-__device__ __forceinline__ void load_coef_tile(const float* __restrict__ coef, int N,
-                                               int nc, int ncp, int base, int T,
-                                               float* cf) {
-  const int lane = threadIdx.x & 31;
-  const bool full = base + T <= N;
-  for (int p = threadIdx.x >> 5; p < T; p += NT >> 5) {
-    const float* src = coef + (size_t)(base + p) * nc;
-    float* dst = cf + p * ncp;
-    if (full) {
-      for (int f = lane; f < nc; f += 32) __pipeline_memcpy_async(dst + f, src + f, 4);
-    } else {
-      const bool valid = base + p < N;
-      for (int f = lane; f < nc; f += 32) dst[f] = valid ? src[f] : 0.f;
-    }
-  }
-  if (full) __pipeline_commit();
-}
-
-template <bool SEEDED>
+template <bool SEEDED, bool FOLD>
 __device__ void multibump_body(const MArgs& A) {
   extern __shared__ __align__(16) float smem[];
   const Net& net = A.net;
@@ -158,11 +126,14 @@ __device__ void multibump_body(const MArgs& A) {
   float* Wsh = at;                        // resident W_k, or one layer's
   at += res_w ? hid : ld * ld;
   float* Wt = nullptr;
-  float* gacc = nullptr;                  // the block's gradient row
   if (SEEDED && res_w) {
     Wt = at;
-    gacc = Wt + hid;
-    at = gacc + ((A.row + 3) & ~3);
+    at += hid;
+  }
+  float* gacc = nullptr;                  // the block's gradient row
+  if (SEEDED && (A.flags & RES_GRAD)) {
+    gacc = at;
+    at += (A.row + 3) & ~3;
   }
   res.narrow = SEEDED && (A.flags & NARROW) != 0;
   float* cf = at;                         // coefficient tile, T x ncp
@@ -204,7 +175,7 @@ __device__ void multibump_body(const MArgs& A) {
     __syncthreads();
     float* cur = bufA;
     float* nxt = bufB;
-    fwd_recompute<true>(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch, res);
+    fwd_recompute<true, FOLD>(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch, res);
     project_last(net, T, cur, wlast, blast, proj);
     copy_wait();                          // the coefficient tile has landed
     __syncthreads();
@@ -229,8 +200,8 @@ __device__ void multibump_body(const MArgs& A) {
         ct[comp * T + p] = acc;
       }
       __syncthreads();
-      reverse_sweep<true>(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch, ct, red, grow,
-                          res);
+      reverse_sweep<true, FOLD>(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch, ct, red,
+                                grow, res);
     } else {
       if (my_c < parts) {
         for (int p = my_c; p < T; p += parts) {
@@ -275,59 +246,72 @@ __device__ void multibump_body(const MArgs& A) {
 
 }  // namespace
 
+// (each kernel in two variants: FOLD, the activation in the products'
+// epilogues, for nets with at most 4 streams; the wrapper chooses)
+template <bool FOLD>
 __global__ void __launch_bounds__(NT) multi_sums_kernel(MArgs a) {
-  multibump_body<false>(a);
+  multibump_body<false, FOLD>(a);
 }
 // (three blocks per SM: the plan counts on them, so the register budget is
 // stated and not left to the compiler's choice)
+template <bool FOLD>
 __global__ void __launch_bounds__(NT, 3) multi_seeded_kernel(MArgs a) {
-  multibump_body<true>(a);
+  multibump_body<true, FOLD>(a);
 }
 
 namespace {
 
 typedef void (*MKernelFn)(MArgs);
 
-MKernelFn mkernel_for(int seeded) { return seeded ? multi_seeded_kernel : multi_sums_kernel; }
-
-// Raise the kernel's dynamic shared-memory limit to smem_bytes unless an
-// earlier call already raised it that far on this device: the attribute is
-// set once per (kernel, size), not per launch.  Callers on several threads
-// take turns.
-cudaError_t ensure_smem(int seeded, int smem_bytes) {
-  constexpr int MAX_DEVICES = 64;
-  static std::mutex guard;
-  static int raised[2][MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const bool tracked = dev >= 0 && dev < MAX_DEVICES;
-  std::lock_guard<std::mutex> lock(guard);
-  if (tracked && smem_bytes <= raised[seeded ? 1 : 0][dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(mkernel_for(seeded),
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err == cudaSuccess && tracked) raised[seeded ? 1 : 0][dev] = smem_bytes;
-  return err;
+MKernelFn mkernel_for(int seeded, int fold) {
+  if (seeded) return fold ? multi_seeded_kernel<true> : multi_seeded_kernel<false>;
+  return fold ? multi_sums_kernel<true> : multi_sums_kernel<false>;
 }
 
 }  // namespace
+
+// (declared in fwdlap_core.cuh; every .cu file's kernels raise their limit
+// through it)
+cudaError_t ensure_smem(const void* kernel, int smem_bytes) {
+  struct Raised { const void* kernel; int dev, bytes; };
+  constexpr int MAX_ENTRIES = 256;        // (kernel, device) pairs tracked
+  static std::mutex guard;
+  static Raised raised[MAX_ENTRIES];
+  static int n = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(guard);
+  int i = 0;
+  while (i < n && !(raised[i].kernel == kernel && raised[i].dev == dev)) ++i;
+  if (i < n && smem_bytes <= raised[i].bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  if (i < n)
+    raised[i].bytes = smem_bytes;
+  else if (n < MAX_ENTRIES)
+    raised[n++] = Raised{kernel, dev, smem_bytes};
+  return cudaSuccess;
+}
 
 extern "C" {
 
 // seeded: 0 pass A (sums), 1 pass B (seeded gradients).  coef (N,
 // n_bumps*(d+4)).  scal: device seeds (3 n_bumps; pass B, else may be null).
-// flags: the plan's Flags.  partial (G, row) and out (row) with row = 3
+// flags: the plan's Flags; fold: the variant with the activation in the
+// products' epilogues.  partial (G, row) and out (row) with row = 3
 // n_bumps or P+1; scratch (G, K-2, d+1, T, wmax) for pass B on a net with
 // more than one hidden layer (else may be null).  smem_bytes must hold the
 // layout of multibump_body for (T, flags).
 int fused_multibump_f32(int seeded, int n_bumps, const float* X, const float* coef,
                         const float* params, const float* scal, const int* layers,
-                        int n_layers, int act, int N, int T, int G, int flags,
+                        int n_layers, int act, int N, int T, int G, int flags, int fold,
                         float* partial, float* scratch, float* out, int smem_bytes,
                         void* stream) {
   MArgs a;
   if (n_bumps < 1 || n_bumps > MAX_BUMPS || !make_net(0, layers, n_layers, act, &a.net) ||
-      N < 1 || T < 4 || T % 4 != 0 || T > NT / 2 || G < 1 || flags < 0 || flags > 3 ||
+      N < 1 || T < 4 || T % 4 != 0 || T > NT / 2 || G < 1 || flags < 0 || flags > 7 ||
+      (fold && a.net.S > 4) ||
       (seeded && a.net.K > 2 && scratch == nullptr) ||
       4 * smem_floats(a.net, seeded, T, n_bumps, flags) > smem_bytes)
     return (int)cudaErrorInvalidValue;
@@ -343,21 +327,23 @@ int fused_multibump_f32(int seeded, int n_bumps, const float* X, const float* co
   a.Kb = n_bumps;
   a.flags = flags;
   a.row = seeded ? a.net.P + 1 : 3 * n_bumps;
-  cudaError_t err = ensure_smem(seeded, smem_bytes);
+  MKernelFn fn = mkernel_for(seeded, fold);
+  cudaError_t err = ensure_smem((const void*)fn, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  mkernel_for(seeded)<<<G, NT, smem_bytes, s>>>(a);
+  fn<<<G, NT, smem_bytes, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)reduce_rows(partial, G, a.row, out, s);
 }
 
-// Resident blocks per SM for a pass at a dynamic shared-memory size.
-int fused_multibump_blocks_per_sm(int seeded, int smem_bytes, int* blocks) {
-  cudaError_t err = ensure_smem(seeded, smem_bytes);
+// Resident blocks per SM for a pass and variant at a dynamic shared-memory
+// size.
+int fused_multibump_blocks_per_sm(int seeded, int fold, int smem_bytes, int* blocks) {
+  MKernelFn fn = mkernel_for(seeded, fold);
+  cudaError_t err = ensure_smem((const void*)fn, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, mkernel_for(seeded), NT, smem_bytes);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, NT, smem_bytes);
 }
 
 // The shared-memory bytes multibump_body lays out for (T, flags), or -1 for

@@ -20,16 +20,43 @@
 // What bounds them on the H100: operations.  Pass A is the forward
 // recompute only, (d+1 or d+2)*sum(n_in*n_out) multiply-adds per point;
 // pass B adds the reverse sweep, about three times that; both against
-// 4*(d+1+nc) bytes per point.  What the design does about it: the shared
+// 4*(d+1+nc) bytes per point.  In practice they are bound, like every
+// kernel on the shared core, by instruction issue and by latency between
+// the ~40 barrier-separated phases of a pass-B tile, so what the design buys
+// first is resident blocks per SM.  What it does about it: the shared
 // per-tile core (fwdlap_core.cuh), the Laplacian stream dropped where the
-// loss never reads it (the WAN weak forms, every quadratic energy), and
-// pass A saves no stages, so the scratch traffic of the reverse sweep is
-// paid by pass B alone.
-//
+// loss never reads it (the WAN weak forms, every quadratic energy), pass A
+// saves no stages, so the scratch traffic of the reverse sweep is paid by
+// pass B alone, and:
+//   * pass B (the seeded kinds) launches on the shared plan of
+//     kernels/_plan.py, by net: room for three blocks per SM first, then
+//     the largest one-wave tile, and what stays in shared memory for the
+//     block's life -- hidden weights and their transposes with the gradient
+//     row; the gradient row alone, which every tile adds to on chip instead
+//     of a read-modify-write of P floats of device memory per tile and which
+//     goes out once per block; or nothing -- where it fits within one tile
+//     step.  Shared memory per block (smem_floats): 2-64-64-1, the Poisson
+//     WAN critic, runs with the gradient row at T = 16 (73 KB; weights as
+//     well would take 89 KB, the row at T = 20 82 KB); 2-64-64-64-64-1,
+//     whose row alone is 51 KB, and 2-50-50-50-50-1 (the infinite-well DRM)
+//     run staged at T = 20 and 24 (65 and 58 KB).  The register budget is
+//     stated, __launch_bounds__(NT, 3): the plan counts on three blocks
+//     (80 registers; the FOLD variants spill 128-204 bytes under it and are
+//     still the faster ones, PERF.md);
+//   * the tile's coefficients are fetched by cp.async into rows of odd
+//     stride when the tile starts, overlapping the recompute, and read once
+//     without bank conflicts;
+//   * the per-point epilogue runs on T*S threads (pass B: one cotangent
+//     each), and every sum is carried per point in double, in shared
+//     memory, across the block's tiles and added once, in a fixed order,
+//     when the block ends: no thread waits for a single summing thread.
+// The sums kinds (pass A) keep the constant tile of _cuda.plan_tile and
+// stage everything per tile; they share the epilogue.
+
 // Determinism: the rule of fused_step.cu -- per-block partial rows, fixed
 // in-block orders, one ordered reduction, no atomics.  The sums are carried
 // in double from the tile up (a quotient's seeds amplify their error).
-//
+
 // Interface: plain C (ctypes), float32 only, weights flattened as
 // [W0, b0, W1, b1, ...].  Every entry point launches on the given stream,
 // never synchronises, and returns cudaGetLastError().
@@ -49,10 +76,35 @@ struct QArgs {
   const float* scal;          // pass B seeds (3 linear, 2 quadratic)
   float* partial;             // (G, row): sums, or [grads (P) | sum ct_v]
   float* scratch;             // (G, K-2, S, T, wmax), pass B only
-  int N, T, n_tiles, row;
+  int N, T, n_tiles, row, flags;
 };
 
-template <int KIND>
+__host__ __device__ inline bool is_seeded(int kind) {
+  return kind == LIN_SEEDED || kind == QUAD_SEEDED;
+}
+__host__ __device__ inline bool is_linear(int kind) {
+  return kind == LIN_SUMS || kind == LIN_SEEDED;
+}
+
+__host__ __device__ inline int n_sums(int kind) {
+  return is_seeded(kind) ? 1 : (is_linear(kind) ? 4 : 2);
+}
+
+// Shared-memory floats of one block: the layout of quotient_body (mirrored
+// by fused_quotient.py::smem_floats).
+__host__ __device__ inline int smem_floats(const Net& net, int kind, int T, int flags) {
+  const bool seeded = is_seeded(kind);
+  const int d = net.d, S = net.S, ld = net.wmax, stage = S * T * ld;
+  const int hid = hidden_floats(net);
+  int n = 2 * n_sums(kind) * T + (seeded ? 3 : 2) * stage;
+  n += (flags & RES_WEIGHTS) ? hid : ld * ld;
+  if (seeded && (flags & RES_WEIGHTS)) n += hid;
+  if (seeded && (flags & RES_GRAD)) n += (net.P + 1 + 3) & ~3;
+  const int nc = d + (is_linear(kind) ? 5 : 3);
+  return n + T * coef_stride(nc) + T * d + (seeded ? (d + 2) * T : 0) + S * T + NT + 4;
+}
+
+template <int KIND, bool FOLD>
 __device__ void quotient_body(const QArgs& A) {
   constexpr bool SEEDED = KIND == LIN_SEEDED || KIND == QUAD_SEEDED;
   constexpr bool LINEAR = KIND == LIN_SUMS || KIND == LIN_SEEDED;
@@ -60,137 +112,177 @@ __device__ void quotient_body(const QArgs& A) {
   extern __shared__ __align__(16) float smem[];
   const Net& net = A.net;
   const int T = A.T, d = net.d, S = net.S, ld = net.wmax;
-  const int nc = LINEAR ? d + 5 : d + 3;
-  float* bufA = smem;
-  float* bufB = bufA + S * T * ld;
-  float* bufC = SEEDED ? bufB + S * T * ld : nullptr;   // last stage's pre-acts
-  float* Wsh = bufB + (SEEDED ? 2 : 1) * S * T * ld;
-  float* xs = Wsh + ld * ld;
-  float* ct = xs + T * d;                 // [ct_v | ct_g (d) | ct_l] x T
-  float* ps = ct + (d + 2) * T;           // per-point sum terms, NSUMS x T
-  float* proj = ps + NSUMS * T;           // projected streams, S x T
+  const int nc = LINEAR ? d + 5 : d + 3, ncp = coef_stride(nc);
+  const int stage = S * T * ld, hid = hidden_floats(net);
+  const bool res_w = SEEDED && (A.flags & RES_WEIGHTS) != 0;
+  // the per-point sums, NSUMS x T doubles: thread p adds point p of every
+  // tile (kept in shared memory, not in registers held across the tile)
+  double* psum = reinterpret_cast<double*>(smem);
+  float* bufA = smem + 2 * NSUMS * T;
+  float* bufB = bufA + stage;
+  float* bufC = SEEDED ? bufB + stage : nullptr;      // last stage's pre-acts
+  float* at = bufB + (SEEDED ? 2 : 1) * stage;
+  Resident res;
+  float* Wsh = at;                        // resident W_k, or one layer's
+  at += res_w ? hid : ld * ld;
+  float* Wt = nullptr;
+  if (res_w) {
+    Wt = at;
+    at += hid;
+  }
+  float* gacc = nullptr;                  // the block's gradient row
+  if (SEEDED && (A.flags & RES_GRAD)) {
+    gacc = at;
+    at += (A.row + 3) & ~3;
+  }
+  res.narrow = SEEDED && (A.flags & NARROW) != 0;
+  float* cf = at;                         // coefficient tile, T x ncp
+  float* xs = cf + T * ncp;
+  float* ct = xs + T * d;                 // pass B: [ct_v | ct_g (d) | ct_l] x T
+  float* proj = ct + (SEEDED ? (d + 2) * T : 0);   // projected streams, S x T
   float* red = proj + S * T;              // reduction scratch, NT
-  float* grow = A.partial + (size_t)blockIdx.x * A.row;
+  float* sc = red + NT;                   // pass B seeds
+  float* grow_g = A.partial + (size_t)blockIdx.x * A.row;
+  float* grow = gacc ? gacc : grow_g;     // where the tiles add their dW/db
   float* scratch =
-      SEEDED ? A.scratch + (size_t)blockIdx.x * (net.K - 2) * S * T * ld : nullptr;
-  const int sum_off = SEEDED ? net.P : 0;
+      SEEDED ? A.scratch + (size_t)blockIdx.x * (net.K - 2) * stage : nullptr;
 
-  for (int i = threadIdx.x; i < A.row; i += NT) grow[i] = 0.f;
+  if (res_w) {
+    stage_resident(net, A.params, Wsh, Wt);
+    res.W = Wsh;
+    res.Wt = Wt;
+  }
+  for (int i = threadIdx.x; i < NSUMS * T; i += NT) psum[i] = 0.0;
+  if (SEEDED) {
+    for (int i = threadIdx.x; i < A.row; i += NT) grow[i] = 0.f;
+    if (threadIdx.x < (LINEAR ? 3 : 2)) sc[threadIdx.x] = A.scal[threadIdx.x];
+  }
+  copy_wait();
   __syncthreads();
 
   const float* wlast = A.params + net.off[net.K - 1];
   const float blast = wlast[net.w[net.K - 1]];
-  float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-  if (SEEDED) {
-    s0 = A.scal[0];
-    s1 = A.scal[1];
-    s2 = LINEAR ? A.scal[2] : 0.f;
-  }
 
-  double blk_sum = 0.0;
   for (int tile = blockIdx.x; tile < A.n_tiles; tile += gridDim.x) {
     const int base = tile * T;
+    load_coef_tile(A.coef, A.N, nc, ncp, base, T, cf);
     load_tile(A.X, A.N, d, base, T, xs);
     __syncthreads();
     float* cur = bufA;
     float* nxt = bufB;
-    fwd_recompute(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch);
+    fwd_recompute<SEEDED, FOLD>(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch, res);
     project_last(net, T, cur, wlast, blast, proj);
+    copy_wait();                          // the coefficient tile has landed
     __syncthreads();
-    // per-point sum terms (and cotangents); padded rows read zero
-    // coefficients, so every term and cotangent vanishes there
-    for (int p = threadIdx.x; p < T; p += NT) {
-      const bool valid = base + p < A.N;
-      const float* cf = A.coef + (size_t)(base + p) * nc;
-      const float v = proj[p];
-      if (LINEAR) {
-        const float c = valid ? cf[0] : 0.f;
-        const float a = valid ? cf[d + 1] : 0.f;
-        const float rhs = valid ? cf[d + 2] : 0.f;
-        const float e1 = valid ? cf[d + 3] : 0.f;
-        const float e2 = valid ? cf[d + 4] : 0.f;
-        if (SEEDED) {
-          const float ctv = s0 * c + s1 * 2.0f * e1 * e1 * v + s2 * e2;
-          ct[p] = ctv;
-          for (int i = 0; i < d; ++i) ct[(1 + i) * T + p] = s0 * (valid ? cf[1 + i] : 0.f);
-          ct[(d + 1) * T + p] = s0 * a;
-          ps[p] = ctv;
-        } else {
-          float r = c * v + rhs;
-          if (net.lap) r += a * proj[(d + 1) * T + p];
-          for (int i = 0; i < d; ++i) r += (valid ? cf[1 + i] : 0.f) * proj[(1 + i) * T + p];
-          const float m = e1 * v;
-          ps[p] = r;
-          ps[T + p] = r * r;
-          ps[2 * T + p] = m * m;
-          ps[3 * T + p] = e2 * v;
-        }
-      } else {
-        const float B = valid ? cf[0] : 0.f;
-        const float f = valid ? cf[d + 1] : 0.f;
-        const float V = valid ? cf[d + 2] : 0.f;
-        const float u = B * v;
-        if (SEEDED) {
-          float ctv = -f * B + 2.0f * V * u * B;
-          for (int i = 0; i < d; ++i) {
-            const float dB = valid ? cf[1 + i] : 0.f;
-            const float G = B * proj[(1 + i) * T + p] + dB * v;
-            ctv += G * dB;
-            ct[(1 + i) * T + p] = s0 * G * B;
+    // padded rows read zero coefficients, so every term and cotangent
+    // vanishes there
+    if constexpr (SEEDED) {
+      // the per-point cotangents of the projected (value, grad, lap),
+      // component comp = it / T of point p on thread it
+      for (int it = threadIdx.x; it < T * S; it += NT) {
+        const int comp = it / T, p = it - comp * T;
+        const float* row = cf + p * ncp;
+        const float v = proj[p];
+        float out;
+        if constexpr (LINEAR) {
+          if (comp == 0) {
+            const float e1 = row[d + 3];
+            out = sc[0] * row[0] + sc[1] * 2.0f * e1 * e1 * v + sc[2] * row[d + 4];
+          } else {                        // b_i, or a for the Laplacian
+            out = sc[0] * row[comp];
           }
-          ctv = s0 * ctv + s1 * 2.0f * B * B * v;
-          ct[p] = ctv;
-          ct[(d + 1) * T + p] = 0.f;
-          ps[p] = ctv;
         } else {
-          float e = -f * u + V * u * u;
+          const float B = row[0];
+          if (comp == 0) {
+            const float u = B * v;
+            out = -row[d + 1] * B + 2.0f * row[d + 2] * u * B;
+            for (int i = 0; i < d; ++i) {
+              const float dB = row[1 + i];
+              out += (B * proj[(1 + i) * T + p] + dB * v) * dB;
+            }
+            out = sc[0] * out + sc[1] * 2.0f * B * B * v;
+          } else {
+            out = sc[0] * (B * proj[comp * T + p] + row[comp] * v) * B;
+          }
+        }
+        ct[it] = out;
+        if (comp == 0) psum[p] += (double)out;
+      }
+      __syncthreads();
+      reverse_sweep<true, FOLD>(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch, ct, red,
+                                grow, res);
+    } else {
+      for (int p = threadIdx.x; p < T; p += NT) {
+        const float* row = cf + p * ncp;
+        const float v = proj[p];
+        if constexpr (LINEAR) {
+          float r = row[0] * v + row[d + 2];
+          if (net.lap) r += row[d + 1] * proj[(d + 1) * T + p];
+          for (int i = 0; i < d; ++i) r += row[1 + i] * proj[(1 + i) * T + p];
+          const float m = row[d + 3] * v;
+          psum[p] += (double)r;
+          psum[T + p] += (double)(r * r);
+          psum[2 * T + p] += (double)(m * m);
+          psum[3 * T + p] += (double)(row[d + 4] * v);
+        } else {
+          const float B = row[0];
+          const float u = B * v;
+          float e = -row[d + 1] * u + row[d + 2] * u * u;
           for (int i = 0; i < d; ++i) {
-            const float G = B * proj[(1 + i) * T + p] + (valid ? cf[1 + i] : 0.f) * v;
+            const float G = B * proj[(1 + i) * T + p] + row[1 + i] * v;
             e += 0.5f * G * G;
           }
-          ps[p] = e;
-          ps[T + p] = u * u;
+          psum[p] += (double)e;
+          psum[T + p] += (double)(u * u);
         }
       }
-    }
-    __syncthreads();
-    // in-block sums in point order, one thread per sum, carried in double
-    // across the block's tiles: the quotient's seeds amplify their error
-    if (threadIdx.x < NSUMS)
-      for (int p = 0; p < T; ++p) blk_sum += (double)ps[threadIdx.x * T + p];
-    if (SEEDED)
-      reverse_sweep(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch, ct, red, grow);
-    else
       __syncthreads();
+    }
   }
-  if (threadIdx.x < NSUMS) grow[sum_off + threadIdx.x] = (float)blk_sum;
+  // block-end sums over the points, in point order (the last tile ended in
+  // a barrier)
+  if (gacc)
+    for (int i = threadIdx.x; i < net.P; i += NT) grow_g[i] = gacc[i];
+  if (threadIdx.x < NSUMS) {
+    double s = 0.0;
+    for (int p = 0; p < T; ++p) s += psum[threadIdx.x * T + p];
+    grow_g[(SEEDED ? net.P : 0) + threadIdx.x] = (float)s;
+  }
 }
 
 }  // namespace
 
+// (each kernel in two variants: FOLD, the activation in the products'
+// epilogues, for nets with at most 4 streams; the wrapper chooses)
+template <bool FOLD>
 __global__ void __launch_bounds__(NT) linear_sums_kernel(QArgs a) {
-  quotient_body<LIN_SUMS>(a);
+  quotient_body<LIN_SUMS, FOLD>(a);
 }
-__global__ void __launch_bounds__(NT) linear_seeded_kernel(QArgs a) {
-  quotient_body<LIN_SEEDED>(a);
+// (three blocks per SM: the plan counts on them, so the register budget is
+// stated and not left to the compiler's choice)
+template <bool FOLD>
+__global__ void __launch_bounds__(NT, 3) linear_seeded_kernel(QArgs a) {
+  quotient_body<LIN_SEEDED, FOLD>(a);
 }
+template <bool FOLD>
 __global__ void __launch_bounds__(NT) quad_sums_kernel(QArgs a) {
-  quotient_body<QUAD_SUMS>(a);
+  quotient_body<QUAD_SUMS, FOLD>(a);
 }
-__global__ void __launch_bounds__(NT) quad_seeded_kernel(QArgs a) {
-  quotient_body<QUAD_SEEDED>(a);
+template <bool FOLD>
+__global__ void __launch_bounds__(NT, 3) quad_seeded_kernel(QArgs a) {
+  quotient_body<QUAD_SEEDED, FOLD>(a);
 }
 
 namespace {
 
 typedef void (*QKernelFn)(QArgs);
 
-QKernelFn qkernel_for(int kind) {
+QKernelFn qkernel_for(int kind, int fold) {
   switch (kind) {
-    case LIN_SUMS: return linear_sums_kernel;
-    case LIN_SEEDED: return linear_seeded_kernel;
-    case QUAD_SUMS: return quad_sums_kernel;
-    case QUAD_SEEDED: return quad_seeded_kernel;
+    case LIN_SUMS: return fold ? linear_sums_kernel<true> : linear_sums_kernel<false>;
+    case LIN_SEEDED: return fold ? linear_seeded_kernel<true> : linear_seeded_kernel<false>;
+    case QUAD_SUMS: return fold ? quad_sums_kernel<true> : quad_sums_kernel<false>;
+    case QUAD_SEEDED: return fold ? quad_seeded_kernel<true> : quad_seeded_kernel<false>;
     default: return nullptr;
   }
 }
@@ -201,20 +293,28 @@ extern "C" {
 
 // kind: 0 linear sums, 1 linear seeded, 2 quadratic sums, 3 quadratic
 // seeded.  lap: carry the Laplacian stream (linear kinds only; 0 is
-// no_lap).  scal: device seeds (seeded kinds; else may be null).  partial
-// (G, row) and out (row) with row = 4 / P+1 / 2 / P+1; scratch (G, K-2, S,
-// T, wmax) for the seeded kinds (else may be null).
+// no_lap).  scal: device seeds (seeded kinds; else may be null).  flags:
+// the plan's Flags (seeded kinds; the sums kinds take 0).  fold: the variant
+// with the activation in the products' epilogues (at most 4 streams).
+// partial (G, row)
+// and out (row) with row = 4 / P+1 / 2 / P+1; scratch (G, K-2, S, T, wmax)
+// for the seeded kinds on a net with more than one hidden layer (else may
+// be null).  smem_bytes must hold the layout of quotient_body for (T,
+// flags).
 int fused_quotient_f32(int kind, int lap, const float* X, const float* coef,
                        const float* params, const float* scal, const int* layers,
-                       int n_layers, int act, int N, int T, int G, float* partial,
-                       float* scratch, float* out, int smem_bytes, void* stream) {
-  QKernelFn fn = qkernel_for(kind);
-  const bool linear = kind == LIN_SUMS || kind == LIN_SEEDED;
-  const bool seeded = kind == LIN_SEEDED || kind == QUAD_SEEDED;
+                       int n_layers, int act, int N, int T, int G, int flags, int fold,
+                       float* partial, float* scratch, float* out, int smem_bytes,
+                       void* stream) {
+  QKernelFn fn = qkernel_for(kind, fold);
   QArgs a;
-  if (fn == nullptr || (lap != 0 && !linear) ||
+  if (fn == nullptr || (lap != 0 && !is_linear(kind)) ||
       !make_net(lap != 0 ? 1 : 0, layers, n_layers, act, &a.net) || N < 1 || T < 4 ||
-      T % 4 != 0 || G < 1)
+      T % 4 != 0 || T > NT / 2 || G < 1 || flags < 0 || flags > 7 ||
+      (fold && a.net.S > 4) ||
+      (!is_seeded(kind) && flags != 0) ||
+      (is_seeded(kind) && (scal == nullptr || (a.net.K > 2 && scratch == nullptr))) ||
+      4 * smem_floats(a.net, kind, T, flags) > smem_bytes)
     return (int)cudaErrorInvalidValue;
   a.X = X;
   a.coef = coef;
@@ -225,9 +325,9 @@ int fused_quotient_f32(int kind, int lap, const float* X, const float* coef,
   a.N = N;
   a.T = T;
   a.n_tiles = (N + T - 1) / T;
-  a.row = seeded ? a.net.P + 1 : (linear ? 4 : 2);
-  cudaError_t err =
-      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  a.row = is_seeded(kind) ? a.net.P + 1 : (is_linear(kind) ? 4 : 2);
+  a.flags = flags;
+  cudaError_t err = ensure_smem((const void*)fn, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   fn<<<G, NT, smem_bytes, s>>>(a);
@@ -236,14 +336,25 @@ int fused_quotient_f32(int kind, int lap, const float* X, const float* coef,
   return (int)reduce_rows(partial, G, a.row, out, s);
 }
 
-// Resident blocks per SM for a kind at a dynamic shared-memory size.
-int fused_quotient_blocks_per_sm(int kind, int smem_bytes, int* blocks) {
-  QKernelFn fn = qkernel_for(kind);
+// Resident blocks per SM for a kind and variant at a dynamic shared-memory
+// size.
+int fused_quotient_blocks_per_sm(int kind, int fold, int smem_bytes, int* blocks) {
+  QKernelFn fn = qkernel_for(kind, fold);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  cudaError_t err =
-      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  cudaError_t err = ensure_smem((const void*)fn, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, NT, smem_bytes);
+}
+
+// The shared-memory bytes quotient_body lays out for (T, flags), or -1 for
+// a kind or net the kernels do not take.
+int fused_quotient_smem_bytes(int kind, int lap, const int* layers, int n_layers, int T,
+                              int flags) {
+  Net net;
+  if (qkernel_for(kind, 0) == nullptr || (lap != 0 && !is_linear(kind)) ||
+      !make_net(lap != 0 ? 1 : 0, layers, n_layers, 0, &net))
+    return -1;
+  return 4 * smem_floats(net, kind, T, flags);
 }
 
 }  // extern "C"

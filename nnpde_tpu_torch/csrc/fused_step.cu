@@ -74,7 +74,7 @@ __device__ __forceinline__ void poisson_sin_coef(const Analytic& an, int d,
   rhs = -(an.fscale * s);
 }
 
-template <int MODE>
+template <int MODE, bool FOLD>
 __device__ void fused_body(const Args& A) {
   extern __shared__ __align__(16) float smem[];
   const Net& net = A.net;
@@ -105,7 +105,7 @@ __device__ void fused_body(const Args& A) {
     __syncthreads();
     float* cur = bufA;
     float* nxt = bufB;
-    fwd_recompute(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch);
+    fwd_recompute<false, FOLD>(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch);
     project_last(net, T, cur, wlast, blast, proj);
     __syncthreads();
     // per-point loss terms and cotangent seeds
@@ -173,20 +173,26 @@ __device__ void fused_body(const Args& A) {
       grow[net.P + 1] += a1;
       grow[net.P + 2] += a2;
     }
-    reverse_sweep(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch, ct, red, grow);
+    reverse_sweep<false, FOLD>(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch, ct, red,
+                               grow);
   }
 }
 
 }  // namespace
 
+// (each kernel in two variants: FOLD, the activation in the products'
+// epilogues, for nets with at most 4 streams; the wrapper chooses)
+template <bool FOLD>
 __global__ void __launch_bounds__(NT) fused_linear_residual_kernel(Args a) {
-  fused_body<MODE_LINEAR>(a);
+  fused_body<MODE_LINEAR, FOLD>(a);
 }
+template <bool FOLD>
 __global__ void __launch_bounds__(NT) fused_poisson_analytic_kernel(Args a) {
-  fused_body<MODE_ANALYTIC>(a);
+  fused_body<MODE_ANALYTIC, FOLD>(a);
 }
+template <bool FOLD>
 __global__ void __launch_bounds__(NT) fused_drm_energy_kernel(Args a) {
-  fused_body<MODE_DRM>(a);
+  fused_body<MODE_DRM, FOLD>(a);
 }
 
 // out[j] = sum_g partial[g][j].  One loop over all G rows per output is a
@@ -222,22 +228,25 @@ namespace {
 
 typedef void (*KernelFn)(Args);
 
-KernelFn kernel_for(int mode) {
+KernelFn kernel_for(int mode, int fold) {
   switch (mode) {
-    case MODE_LINEAR: return fused_linear_residual_kernel;
-    case MODE_ANALYTIC: return fused_poisson_analytic_kernel;
-    case MODE_DRM: return fused_drm_energy_kernel;
+    case MODE_LINEAR:
+      return fold ? fused_linear_residual_kernel<true> : fused_linear_residual_kernel<false>;
+    case MODE_ANALYTIC:
+      return fold ? fused_poisson_analytic_kernel<true> : fused_poisson_analytic_kernel<false>;
+    case MODE_DRM:
+      return fold ? fused_drm_energy_kernel<true> : fused_drm_energy_kernel<false>;
     default: return nullptr;
   }
 }
 
 int launch(int mode, const float* X, const float* coef, const float* params,
-           const int* layers, int n_layers, int act, int N, int T, int G,
+           const int* layers, int n_layers, int act, int N, int T, int G, int fold,
            const float* analytic, float* partial, float* scratch, float* out,
            int smem_bytes, void* stream) {
   Args a;
   if (!make_net(mode == MODE_DRM ? 0 : 1, layers, n_layers, act, &a.net) || N < 1 || T < 4 ||
-      T % 4 != 0 || G < 1)
+      T % 4 != 0 || G < 1 || (fold && a.net.S > 4))
     return (int)cudaErrorInvalidValue;
   a.X = X;
   a.coef = coef;
@@ -256,7 +265,7 @@ int launch(int mode, const float* X, const float* coef, const float* params,
     a.an.fscale = analytic[2];
     for (int i = 0; i < a.net.d; ++i) a.an.kpi[i] = analytic[3 + i];
   }
-  KernelFn fn = kernel_for(mode);
+  KernelFn fn = kernel_for(mode, fold);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
@@ -271,35 +280,38 @@ int launch(int mode, const float* X, const float* coef, const float* params,
 
 extern "C" {
 
+// fold: the variant with the activation in the products' epilogues (nets
+// with at most 4 streams).
 int fused_linear_residual_f32(const float* X, const float* coef,
                               const float* params, const int* layers,
-                              int n_layers, int act, int N, int T, int G,
+                              int n_layers, int act, int N, int T, int G, int fold,
                               float* partial, float* scratch, float* out,
                               int smem_bytes, void* stream) {
-  return launch(MODE_LINEAR, X, coef, params, layers, n_layers, act, N, T, G,
+  return launch(MODE_LINEAR, X, coef, params, layers, n_layers, act, N, T, G, fold,
                 nullptr, partial, scratch, out, smem_bytes, stream);
 }
 
 int fused_poisson_analytic_f32(const float* X, const float* params,
                                const int* layers, int n_layers, int act, int N,
-                               int T, int G, const float* analytic,
+                               int T, int G, int fold, const float* analytic,
                                float* partial, float* scratch, float* out,
                                int smem_bytes, void* stream) {
   return launch(MODE_ANALYTIC, X, nullptr, params, layers, n_layers, act, N, T,
-                G, analytic, partial, scratch, out, smem_bytes, stream);
+                G, fold, analytic, partial, scratch, out, smem_bytes, stream);
 }
 
 int fused_drm_energy_f32(const float* X, const float* coef, const float* params,
                          const int* layers, int n_layers, int act, int N, int T,
-                         int G, float* partial, float* scratch, float* out,
+                         int G, int fold, float* partial, float* scratch, float* out,
                          int smem_bytes, void* stream) {
-  return launch(MODE_DRM, X, coef, params, layers, n_layers, act, N, T, G,
+  return launch(MODE_DRM, X, coef, params, layers, n_layers, act, N, T, G, fold,
                 nullptr, partial, scratch, out, smem_bytes, stream);
 }
 
-// Resident blocks per SM for a mode at a dynamic shared-memory size.
-int fused_blocks_per_sm(int mode, int smem_bytes, int* blocks) {
-  KernelFn fn = kernel_for(mode);
+// Resident blocks per SM for a mode and variant at a dynamic shared-memory
+// size.
+int fused_blocks_per_sm(int mode, int fold, int smem_bytes, int* blocks) {
+  KernelFn fn = kernel_for(mode, fold);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);

@@ -42,6 +42,9 @@ struct BwdArgs {
 
 }  // namespace
 
+// (in two variants: FOLD, the activation in the products' epilogues, for
+// nets with at most 4 streams; the wrapper chooses)
+template <bool FOLD>
 __global__ void __launch_bounds__(NT) fwdlap_backward_kernel(BwdArgs A) {
   extern __shared__ __align__(16) float smem[];
   const Net& net = A.net;
@@ -70,23 +73,35 @@ __global__ void __launch_bounds__(NT) fwdlap_backward_kernel(BwdArgs A) {
     __syncthreads();
     float* cur = bufA;
     float* nxt = bufB;
-    fwd_recompute(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch);
-    reverse_sweep(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch, ct, red, grow);
+    fwd_recompute<false, FOLD>(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch);
+    reverse_sweep<false, FOLD>(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch, ct, red,
+                               grow);
   }
 }
+
+namespace {
+
+typedef void (*BwdKernelFn)(BwdArgs);
+
+BwdKernelFn bwd_kernel_for(int fold) {
+  return fold ? fwdlap_backward_kernel<true> : fwdlap_backward_kernel<false>;
+}
+
+}  // namespace
 
 extern "C" {
 
 // X (N, d), ct (N, d+2), params flat; partial (G, P), scratch (G, K-2, d+2,
 // T, wmax), out (P): [dW0, db0, ..., dW_last, 0] (the last bias's slot is
-// left zero).  T points per tile, G blocks.
+// left zero).  T points per tile, G blocks; fold: the variant with the
+// activation in the products' epilogues (nets with at most 4 streams).
 int fwdlap_backward_f32(const float* X, const float* ct, const float* params,
                         const int* layers, int n_layers, int act, int N, int T, int G,
-                        float* partial, float* scratch, float* out, int smem_bytes,
-                        void* stream) {
+                        int fold, float* partial, float* scratch, float* out,
+                        int smem_bytes, void* stream) {
   BwdArgs a;
   if (!make_net(1, layers, n_layers, act, &a.net) || N < 1 || T < 4 || T % 4 != 0 ||
-      G < 1)
+      G < 1 || (fold && a.net.S > 4))
     return (int)cudaErrorInvalidValue;
   a.X = X;
   a.ct = ct;
@@ -96,23 +111,24 @@ int fwdlap_backward_f32(const float* X, const float* ct, const float* params,
   a.N = N;
   a.T = T;
   a.n_tiles = (N + T - 1) / T;
-  cudaError_t err = cudaFuncSetAttribute(
-      fwdlap_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  BwdKernelFn fn = bwd_kernel_for(fold);
+  cudaError_t err =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  fwdlap_backward_kernel<<<G, NT, smem_bytes, s>>>(a);
+  fn<<<G, NT, smem_bytes, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)reduce_rows(partial, G, a.net.P, out, s);
 }
 
-// Resident blocks per SM at a dynamic shared-memory size.
-int fwdlap_backward_blocks_per_sm(int smem_bytes, int* blocks) {
-  cudaError_t err = cudaFuncSetAttribute(
-      fwdlap_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+// Resident blocks per SM of a variant at a dynamic shared-memory size.
+int fwdlap_backward_blocks_per_sm(int fold, int smem_bytes, int* blocks) {
+  BwdKernelFn fn = bwd_kernel_for(fold);
+  cudaError_t err =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fwdlap_backward_kernel,
-                                                             NT, smem_bytes);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, NT, smem_bytes);
 }
 
 }  // extern "C"

@@ -34,23 +34,36 @@
 // pass-B tile, the elementwise stages (stage_mid, stage_bwd: a sincos pack
 // per unit) about a third, saved-stage and weight traffic under a tenth;
 // every phase is short and ends in a barrier, so resident blocks per SM
-// matter more than bytes.
+// matter more than bytes.  Hence FOLD (template parameter of fwd_recompute
+// and reverse_sweep; every kernel comes in both variants and the wrapper
+// picks one, _cuda.folds): where a point's streams fit one register tile
+// (S <= 4) and the tile's (point, 4 units) items are one wave of the block,
+// each hidden stage's activation is applied in the epilogue of the product
+// that makes the stage (mm_act), and the reverse sweep's nonlinearity in
+// the epilogue of the dmid product (mm_act_bwd), which also copies back its
+// own saved entries while it multiplies: one elementwise pass, one
+// shared-memory round trip and one barrier per stage fewer, with
+// stage_mid's and stage_mid_bwd's arithmetic.  Compiled as a run-time
+// branch of one kernel the folded path's registers slowed the other (a u50
+// K-bump pass B by 6-9%), hence two variants.
 //
 // Residency.  A kernel may keep the hidden weights and their transposes in
 // shared memory for the block's life (struct Resident, filled by
 // stage_resident); with the default, all null, the weights of one layer are
 // staged per tile (cp.async forward, a transposed copy for the backward).
-// The earlier stages' pre-activations go to a per-block slice of global
-// scratch, (K-2)*S*T*wmax floats, written once in the forward and copied
-// back with cp.async in the reverse sweep (mostly L2 resident; keeping them
-// in shared memory cost more in tile size and resident blocks than the
-// copies do).  The
-// last stage's always stay in shared memory; the activation pack and the
-// mid streams are recomputed from the saved pre-activations.  `grow`, where
-// the reverse sweep adds dW/db, may be the block's row of the partial
-// buffer in device memory or a row of shared memory that the kernel writes
-// out once.
-//
+// Separately, `grow`, where the reverse sweep adds dW/db, may be the block's
+// row of the partial buffer in device memory (a read-modify-write of P
+// floats per tile) or a row of shared memory that the kernel writes out once
+// per block (Flags::RES_GRAD): the launch plan (kernels/_plan.py) takes the
+// two choices one at a time, weights and row, then the row alone, then
+// neither.  The earlier stages' pre-activations go to a per-block slice of
+// global scratch, (K-2)*S*T*wmax floats, written once in the forward and
+// copied back with cp.async in the reverse sweep (mostly L2 resident;
+// keeping them in shared memory cost more in tile size and resident blocks
+// than the copies do).  The last stage's always stay in shared memory; the
+// activation pack and the mid streams are recomputed from the saved
+// pre-activations.
+
 // Determinism.  Each element of dW/db and each loss sum is always updated by
 // the same thread (or the same group of lanes through a fixed shuffle tree)
 // in the same tile order, in-block reductions use fixed trees, and a second
@@ -87,6 +100,15 @@ struct Net {
 };
 
 struct Pack { float s0, s1, s2, s3; };
+
+// What a launch plan keeps in shared memory for the block's life (the flags
+// of kernels/_plan.py).
+enum Flags {
+  RES_WEIGHTS = 1,   // hidden weights (pass B: and their transposes)
+  NARROW = 2,        // pass B: gradient products with few entries dealt by
+                     // rows to groups of lanes (accum_dW)
+  RES_GRAD = 4,      // pass B: the block's gradient row
+};
 
 // What a kernel keeps in shared memory for the block's whole life, where the
 // core would otherwise fetch it per tile.  Every member null (the default):
@@ -236,6 +258,72 @@ __device__ __forceinline__ void stage_mid(const Net& net, int T, int k,
   }
 }
 
+// The point-major product of a hidden stage with the activation folded into
+// its epilogue, for SS = S <= 4 streams (d <= 2 with the Laplacian, d <= 3
+// without; wider inputs take mm_rows + stage_mid).  Item (p, j0): the SS x 4
+// register tile of every stream of point p at units j0..j0+3 of the next
+// stage, pre = in W (+ bias on the value stream, columns < bias_cols), so
+// one thread holds all it needs for the activation: it saves pre to `save`
+// (same layout; may be null) and writes the mid streams (stage_mid's
+// arithmetic, in its order) to `out`.  kdim, ncols multiples of 4.
+template <int SS>
+__device__ __forceinline__ void mm_act(const Net& net, int T, const float* __restrict__ in,
+                                       int kdim, const float* __restrict__ W, int ncols,
+                                       const float* __restrict__ bias, int bias_cols,
+                                       float* __restrict__ out, float* __restrict__ save) {
+  const int ld = net.wmax, sT = T * ld;
+  const int cg = ncols >> 2, items = T * cg;
+  for (int it = threadIdx.x; it < items; it += NT) {
+    const int p = it / cg;
+    const int j0 = (it - p * cg) << 2;
+    const int o0 = p * ld + j0;
+    float acc[SS][4] = {};
+    for (int k = 0; k < kdim; k += 4) {
+      float4 a[SS];
+#pragma unroll
+      for (int s = 0; s < SS; ++s)
+        a[s] = *reinterpret_cast<const float4*>(in + p * ld + s * sT + k);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 w = *reinterpret_cast<const float4*>(W + (k + kk) * ncols + j0);
+#pragma unroll
+        for (int s = 0; s < SS; ++s) {
+          const float x = lane(a[s], kk);
+          acc[s][0] = fmaf(x, w.x, acc[s][0]);
+          acc[s][1] = fmaf(x, w.y, acc[s][1]);
+          acc[s][2] = fmaf(x, w.z, acc[s][2]);
+          acc[s][3] = fmaf(x, w.w, acc[s][3]);
+        }
+      }
+    }
+    float mid[SS][4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (j0 + c < bias_cols) acc[0][c] += bias[j0 + c];
+      const Pack pk = act_pack(net.act, acc[0][c]);
+      mid[0][c] = pk.s0;
+      float q = 0.f;
+#pragma unroll
+      for (int s = 1; s < SS; ++s) {
+        if (net.lap && s == SS - 1) {
+          mid[s][c] = pk.s1 * acc[s][c] + pk.s2 * q;
+        } else {
+          q = fmaf(acc[s][c], acc[s][c], q);
+          mid[s][c] = pk.s1 * acc[s][c];
+        }
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < SS; ++s) {
+      *reinterpret_cast<float4*>(out + o0 + s * sT) =
+          make_float4(mid[s][0], mid[s][1], mid[s][2], mid[s][3]);
+      if (save)
+        *reinterpret_cast<float4*>(save + o0 + s * sT) =
+            make_float4(acc[s][0], acc[s][1], acc[s][2], acc[s][3]);
+    }
+  }
+}
+
 // Copy n floats (n % 4 == 0, both sides 16-byte aligned) from global to
 // shared memory with cp.async: every thread's copies are in flight at once.
 // Completes at copy_wait().
@@ -319,12 +407,39 @@ __device__ inline void stage_resident(const Net& net, const float* __restrict__ 
   }
 }
 
+// Row stride of a coefficient tile in shared memory: odd, so that threads
+// on neighbouring points read neighbouring banks.
+__host__ __device__ inline int coef_stride(int nc) { return nc | 1; }
+
+// cf[p][:] = coef[base + p][:] for the tile's T points at row stride ncp;
+// rows past N read 0.  A warp copies whole rows (lane l the floats l, l +
+// 32, ...: consecutive lanes, consecutive floats of device memory, and no
+// division per float): full tiles by 4-byte cp.async, complete at
+// copy_wait(); the ragged last tile by plain loads.
+__device__ __forceinline__ void load_coef_tile(const float* __restrict__ coef, int N,
+                                               int nc, int ncp, int base, int T,
+                                               float* cf) {
+  const int lane = threadIdx.x & 31;
+  const bool full = base + T <= N;
+  for (int p = threadIdx.x >> 5; p < T; p += NT >> 5) {
+    const float* src = coef + (size_t)(base + p) * nc;
+    float* dst = cf + p * ncp;
+    if (full) {
+      for (int f = lane; f < nc; f += 32) __pipeline_memcpy_async(dst + f, src + f, 4);
+    } else {
+      const bool valid = base + p < N;
+      for (int f = lane; f < nc; f += 32) dst[f] = valid ? src[f] : 0.f;
+    }
+  }
+  if (full) __pipeline_commit();
+}
+
 // Forward recompute over one tile.  xs: (T, d) points in shared memory.
 // On return `cur` holds the mid streams of the last hidden stage, `last`
 // (shared) its pre-activation streams, and the scratch slice the earlier
 // stages' pre-activation streams.  A kernel with no reverse sweep passes
 // null for `last` and `scratch`: nothing is saved.
-template <bool RES = false>
+template <bool RES = false, bool FOLD = false>
 __device__ inline void fwd_recompute(const Net& net, int T, const float* __restrict__ xs,
                                      const float* __restrict__ params, float*& cur,
                                      float*& nxt, float* last, float* Wsh, float* scratch,
@@ -334,26 +449,79 @@ __device__ inline void fwd_recompute(const Net& net, int T, const float* __restr
   // without RES the policy is the default whatever `res` holds, and the
   // compiler sees it: kernels that stage per tile compile to exactly that
   const float* resW = RES ? res.W : nullptr;
+  // FOLD (S <= 4): the activation is applied in the epilogue of the product
+  // that makes each stage (mm_act); otherwise a separate pass (stage_mid)
+  // after mm_rows.  A compile-time choice: each kernel comes in both
+  // variants, so the folded path's registers never burden the other
+  constexpr bool fold = FOLD;
   int woff = 0;                 // offset of W_k in the resident matrices
+  if (fold && !resW && net.K > 2)   // W_1 lands while the input layer runs
+    stage_weights(net, Wsh, params + net.off[1], net.w[1], net.w[2], net.wp[1], net.wp[2]);
   {  // input layer: v = x W0 + b0; J_i = W0[i, :]; l = 0 (padded units 0)
     const int w1 = net.w[1];
     const float* W0 = params + net.off[0];
     const float* b0 = W0 + d * w1;
+    float* save = net.K == 2 ? last : scratch;
+    const int sT = T * ld;
     for (UnitWalk w(net, 1); w.p < T; w.next()) {
-      const int p = w.p, j = w.j;
+      const int p = w.p, j = w.j, o0 = p * ld + j;
       const bool real = j < w1;
       float v = 0.f;
 #pragma unroll 1
       for (int i = 0; i < d; ++i) {
         const float wij = real ? W0[i * w1 + j] : 0.f;
         v = fmaf(xs[p * d + i], wij, v);
-        cur[((1 + i) * T + p) * ld + j] = wij;
+        cur[o0 + (1 + i) * sT] = wij;
       }
-      cur[p * ld + j] = real ? v + b0[j] : 0.f;
-      if (net.lap) cur[((d + 1) * T + p) * ld + j] = 0.f;
+      v = real ? v + b0[j] : 0.f;
+      if (!fold) {
+        cur[o0] = v;
+        if (net.lap) cur[o0 + (d + 1) * sT] = 0.f;
+        continue;
+      }
+      // stage 1's activation, stage_mid's arithmetic
+      const Pack pk = act_pack(net.act, v);
+      if (save) save[o0] = v;
+      cur[o0] = pk.s0;
+      float q = 0.f;
+      int o = o0 + sT;
+#pragma unroll 1
+      for (int i = 0; i < d; ++i, o += sT) {
+        const float Ji = cur[o];
+        if (save) save[o] = Ji;
+        q = fmaf(Ji, Ji, q);
+        cur[o] = pk.s1 * Ji;
+      }
+      if (net.lap) {
+        if (save) save[o] = 0.f;
+        cur[o] = pk.s1 * 0.f + pk.s2 * q;
+      }
     }
   }
   __syncthreads();
+  if constexpr (FOLD) {
+    for (int k = 1; k < net.K - 1; ++k) {
+      const int wk = net.w[k], wkp = net.wp[k], wn = net.w[k + 1], wnp = net.wp[k + 1];
+      const float* Wk = params + net.off[k];
+      if (!resW) {
+        if (k > 1) stage_weights(net, Wsh, Wk, wk, wn, wkp, wnp);
+        copy_wait();
+        __syncthreads();
+      }
+      float* save = k + 1 == net.K - 1 ? last : scratch ? scratch + k * stage_sz : nullptr;
+      const float* Wm = resW ? resW + woff : Wsh;
+      if (S == 2)
+        mm_act<2>(net, T, cur, wkp, Wm, wnp, Wk + wk * wn, wn, nxt, save);
+      else if (S == 3)
+        mm_act<3>(net, T, cur, wkp, Wm, wnp, Wk + wk * wn, wn, nxt, save);
+      else                                // S == 4 (the launch checks S <= 4)
+        mm_act<4>(net, T, cur, wkp, Wm, wnp, Wk + wk * wn, wn, nxt, save);
+      woff += wkp * wnp;
+      __syncthreads();
+      float* t = cur; cur = nxt; nxt = t;
+    }
+    return;
+  }
   for (int k = 1; k < net.K; ++k) {
     const int wk = net.w[k], wkp = net.wp[k];
     const bool final_stage = k == net.K - 1;
@@ -489,6 +657,91 @@ __device__ __forceinline__ void stage_mid_bwd(const Net& net, int T, int k, floa
   }
 }
 
+// The reverse counterpart of mm_act: dmid = D W^T for every stream of point
+// p at units j0..j0+3 of stage k (SS <= 4), and in the epilogue
+// stage_mid_bwd's arithmetic on the thread's own entries: copies the saved
+// pre-activations of those entries from `saved` (device memory) to `pre` by
+// cp.async while the product runs, overwrites them with their cotangents,
+// and writes the mid streams to `x`.  kdim, ncols multiples of 4.
+template <int SS>
+__device__ __forceinline__ void mm_act_bwd(const Net& net, int T, const float* __restrict__ D,
+                                           int kdim, const float* __restrict__ Wt, int ncols,
+                                           const float* __restrict__ saved,
+                                           float* __restrict__ pre, float* __restrict__ x) {
+  const int ld = net.wmax, sT = T * ld;
+  const int cg = ncols >> 2, items = T * cg;
+  for (int it = threadIdx.x; it < items; it += NT) {
+    const int p = it / cg;
+    const int j0 = (it - p * cg) << 2;
+    const int o0 = p * ld + j0;
+    // the thread's own saved entries come back while it multiplies
+#pragma unroll
+    for (int s = 0; s < SS; ++s)
+      __pipeline_memcpy_async(pre + o0 + s * sT, saved + o0 + s * sT, 16);
+    __pipeline_commit();
+    float acc[SS][4] = {};
+    for (int k = 0; k < kdim; k += 4) {
+      float4 a[SS];
+#pragma unroll
+      for (int s = 0; s < SS; ++s)
+        a[s] = *reinterpret_cast<const float4*>(D + p * ld + s * sT + k);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 w = *reinterpret_cast<const float4*>(Wt + (k + kk) * ncols + j0);
+#pragma unroll
+        for (int s = 0; s < SS; ++s) {
+          const float xv = lane(a[s], kk);
+          acc[s][0] = fmaf(xv, w.x, acc[s][0]);
+          acc[s][1] = fmaf(xv, w.y, acc[s][1]);
+          acc[s][2] = fmaf(xv, w.z, acc[s][2]);
+          acc[s][3] = fmaf(xv, w.w, acc[s][3]);
+        }
+      }
+    }
+    __pipeline_wait_prior(0);
+    float pv[SS][4];
+#pragma unroll
+    for (int s = 0; s < SS; ++s) {
+      const float4 t = *reinterpret_cast<const float4*>(pre + o0 + s * sT);
+      pv[s][0] = t.x; pv[s][1] = t.y; pv[s][2] = t.z; pv[s][3] = t.w;
+    }
+    float mid[SS][4], dpre[SS][4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const Pack pk = act_pack(net.act, pv[0][c]);
+      float dv = pk.s1 * acc[0][c];
+      float dq = 0.f;
+      if (net.lap) {
+        const float l = pv[SS - 1][c], dlm = acc[SS - 1][c];
+        float q = 0.f;
+#pragma unroll
+        for (int s = 1; s < SS - 1; ++s) q = fmaf(pv[s][c], pv[s][c], q);
+        mid[SS - 1][c] = pk.s1 * l + pk.s2 * q;
+        dpre[SS - 1][c] = pk.s1 * dlm;
+        dq = pk.s2 * dlm;
+        dv += (pk.s2 * l + pk.s3 * q) * dlm;
+      }
+#pragma unroll
+      for (int s = 1; s < SS; ++s) {
+        if (net.lap && s == SS - 1) continue;
+        const float Ji = pv[s][c], dJm = acc[s][c];
+        dv += pk.s2 * Ji * dJm;
+        mid[s][c] = pk.s1 * Ji;
+        dpre[s][c] = pk.s1 * dJm + 2.0f * Ji * dq;
+      }
+      mid[0][c] = pk.s0;
+      dpre[0][c] = dv;
+    }
+#pragma unroll
+    for (int s = 0; s < SS; ++s) {
+      *reinterpret_cast<float4*>(x + o0 + s * sT) =
+          make_float4(mid[s][0], mid[s][1], mid[s][2], mid[s][3]);
+      *reinterpret_cast<float4*>(pre + o0 + s * sT) =
+          make_float4(dpre[s][0], dpre[s][1], dpre[s][2], dpre[s][3]);
+    }
+  }
+}
+
 // dW[i][j] += sum_r M[r][i] * D[r][j] over rows r < rows; db[j] += sum over
 // the value rows (r < T) of D.  dW is the true (wi, wo) matrix of device
 // memory; the products run over the rounded (wip, wop) tiles of shared
@@ -591,7 +844,7 @@ __device__ __forceinline__ void accum_dW(int rows, int T, int ld, int wi, int wo
 // scratch and overwritten by their cotangents; `cur`, `nxt` and `pre` are
 // all consumed.  Accumulates dW/db into the block's partial row `grow` (flat
 // parameter layout).
-template <bool RES = false>
+template <bool RES = false, bool FOLD = false>
 __device__ inline void reverse_sweep(const Net& net, int T, const float* __restrict__ xs,
                                      const float* __restrict__ params, float* cur,
                                      float* nxt, float* pre, float* Wsh,
@@ -634,17 +887,35 @@ __device__ inline void reverse_sweep(const Net& net, int T, const float* __restr
     const int wk = net.w[k], wn = net.w[k + 1];
     const int wkp = net.wp[k], wnp = net.wp[k + 1];
     woff -= wkp * wnp;
-    copy_async(P, scratch + (k - 1) * stage_sz, stage_sz);
-    if (!resWt) {
-      load_transposed(net, Wsh, params + net.off[k], wk, wn, wkp, wnp);
+    const float* Wm = resWt ? resWt + woff : Wsh;
+    const float* saved = scratch + (k - 1) * stage_sz;
+    if constexpr (FOLD) {
+      // dmid = D W^T and the stage's nonlinearity in one pass (mm_act_bwd),
+      // each thread copying back the saved entries it reads
+      if (!resWt) {
+        load_transposed(net, Wsh, params + net.off[k], wk, wn, wkp, wnp);
+        __syncthreads();
+      }
+      if (S == 2)
+        mm_act_bwd<2>(net, T, D, wnp, Wm, wkp, saved, P, X);
+      else if (S == 3)
+        mm_act_bwd<3>(net, T, D, wnp, Wm, wkp, saved, P, X);
+      else                                // S == 4
+        mm_act_bwd<4>(net, T, D, wnp, Wm, wkp, saved, P, X);
+      __syncthreads();
+    } else {
+      copy_async(P, saved, stage_sz);
+      if (!resWt) {
+        load_transposed(net, Wsh, params + net.off[k], wk, wn, wkp, wnp);
+        __syncthreads();
+      }
+      // dmid = D W^T
+      mm_rows(D, ld, S * T, wnp, Wm, wkp, X, ld, nullptr, 0, 0);
+      copy_wait();
+      __syncthreads();
+      stage_mid_bwd(net, T, k, P, X);
       __syncthreads();
     }
-    // dmid = D W^T
-    mm_rows(D, ld, S * T, wnp, resWt ? resWt + woff : Wsh, wkp, X, ld, nullptr, 0, 0);
-    copy_wait();
-    __syncthreads();
-    stage_mid_bwd(net, T, k, P, X);
-    __syncthreads();
     float* dW = grow + net.off[k];
     accum_dW(S * T, T, ld, wk, wn, wkp, wnp, X, D, dW, dW + wk * wn, narrow);
     __syncthreads();
@@ -736,3 +1007,9 @@ inline bool make_net(int lap, const int* layers, int n_layers, int act, Net* net
 // reduce_rows_kernel (defined once, in fused_step.cu) on `stream`; every
 // kernel with per-block partial rows ends with it.
 cudaError_t reduce_rows(const float* partial, int G, int R, float* out, cudaStream_t stream);
+
+// Raise `kernel`'s dynamic shared-memory limit to smem_bytes unless an
+// earlier call already raised it that far on the current device: the
+// attribute is set once per (kernel, size), not per launch.  Callers on
+// several threads take turns.  Defined once, in fused_multibump.cu.
+cudaError_t ensure_smem(const void* kernel, int smem_bytes);

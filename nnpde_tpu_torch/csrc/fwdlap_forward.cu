@@ -41,6 +41,9 @@ struct FwdArgs {
 
 }  // namespace
 
+// (each kernel in two variants: FOLD, the activation in the products'
+// epilogues, for nets with at most 4 streams; the wrapper chooses)
+template <bool FOLD>
 __global__ void __launch_bounds__(NT) fwdlap_forward_kernel(FwdArgs A) {
   extern __shared__ __align__(16) float smem[];
   const Net& net = A.net;
@@ -59,7 +62,7 @@ __global__ void __launch_bounds__(NT) fwdlap_forward_kernel(FwdArgs A) {
     __syncthreads();
     float* cur = bufA;
     float* nxt = bufB;
-    fwd_recompute(net, T, xs, A.params, cur, nxt, nullptr, Wsh, nullptr);
+    fwd_recompute<false, FOLD>(net, T, xs, A.params, cur, nxt, nullptr, Wsh, nullptr);
     project_last(net, T, cur, wlast, blast, proj);
     __syncthreads();
     // out[(base + p) * S + s] = proj[s * T + p]: consecutive threads write
@@ -72,6 +75,7 @@ __global__ void __launch_bounds__(NT) fwdlap_forward_kernel(FwdArgs A) {
   }
 }
 
+template <bool FOLD>
 __global__ void __launch_bounds__(NT) fwdlap_forward_streams_kernel(FwdArgs A) {
   extern __shared__ __align__(16) float smem[];
   const Net& net = A.net;
@@ -89,7 +93,7 @@ __global__ void __launch_bounds__(NT) fwdlap_forward_streams_kernel(FwdArgs A) {
     __syncthreads();
     float* cur = bufA;
     float* nxt = bufB;
-    fwd_recompute(net, T, xs, A.params, cur, nxt, nullptr, Wsh, nullptr);
+    fwd_recompute<false, FOLD>(net, T, xs, A.params, cur, nxt, nullptr, Wsh, nullptr);
     // output layer: column 0 of a (wlp, 4) product, bias on the value rows
     for (int f = threadIdx.x; f < wlp * 4; f += NT)
       Wsh[f] = ((f & 3) == 0 && (f >> 2) < wl) ? wlast[f >> 2] : 0.f;
@@ -110,8 +114,10 @@ namespace {
 
 typedef void (*FwdKernelFn)(FwdArgs);
 
-FwdKernelFn fwd_kernel_for(int streams) {
-  return streams ? fwdlap_forward_streams_kernel : fwdlap_forward_kernel;
+FwdKernelFn fwd_kernel_for(int streams, int fold) {
+  if (streams)
+    return fold ? fwdlap_forward_streams_kernel<true> : fwdlap_forward_streams_kernel<false>;
+  return fold ? fwdlap_forward_kernel<true> : fwdlap_forward_kernel<false>;
 }
 
 }  // namespace
@@ -119,13 +125,14 @@ FwdKernelFn fwd_kernel_for(int streams) {
 extern "C" {
 
 // X (N, d), params flat; out (N, d+2), or (d+2, N) with streams != 0.  T
-// points per tile, G blocks.
+// points per tile, G blocks; fold: the variant with the activation in the
+// products' epilogues (nets with at most 4 streams).
 int fwdlap_forward_f32(int streams, const float* X, const float* params,
                        const int* layers, int n_layers, int act, int N, int T, int G,
-                       float* out, int smem_bytes, void* stream) {
+                       int fold, float* out, int smem_bytes, void* stream) {
   FwdArgs a;
   if (!make_net(1, layers, n_layers, act, &a.net) || N < 1 || T < 4 || T % 4 != 0 ||
-      G < 1)
+      G < 1 || (fold && a.net.S > 4))
     return (int)cudaErrorInvalidValue;
   a.X = X;
   a.params = params;
@@ -133,7 +140,7 @@ int fwdlap_forward_f32(int streams, const float* X, const float* params,
   a.N = N;
   a.T = T;
   a.n_tiles = (N + T - 1) / T;
-  FwdKernelFn fn = fwd_kernel_for(streams);
+  FwdKernelFn fn = fwd_kernel_for(streams, fold);
   cudaError_t err =
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
@@ -141,9 +148,9 @@ int fwdlap_forward_f32(int streams, const float* X, const float* params,
   return (int)cudaGetLastError();
 }
 
-// Resident blocks per SM at a dynamic shared-memory size.
-int fwdlap_forward_blocks_per_sm(int streams, int smem_bytes, int* blocks) {
-  FwdKernelFn fn = fwd_kernel_for(streams);
+// Resident blocks per SM of a variant at a dynamic shared-memory size.
+int fwdlap_forward_blocks_per_sm(int streams, int fold, int smem_bytes, int* blocks) {
+  FwdKernelFn fn = fwd_kernel_for(streams, fold);
   cudaError_t err =
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;

@@ -30,40 +30,46 @@ _I = ctypes.c_int
 
 # name -> argtypes of every C entry point of the csrc/*.cu files
 _SIGNATURES = {
-    # X, coef, params, layers, n_layers, act, N, T, G, partial, scratch,
-    # out, smem_bytes, stream
+    # fold (last int before the pointers that follow G): the kernel variant
+    # with the activation in the products' epilogues
+    # X, coef, params, layers, n_layers, act, N, T, G, fold, partial,
+    # scratch, out, smem_bytes, stream
     "fused_linear_residual_f32":
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
-    # X, params, layers, n_layers, act, N, T, G, analytic, partial, scratch,
-    # out, smem_bytes, stream
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+    # X, params, layers, n_layers, act, N, T, G, fold, analytic, partial,
+    # scratch, out, smem_bytes, stream
     "fused_poisson_analytic_f32":
-        [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
+        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
     "fused_drm_energy_f32":
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
-    # mode, smem_bytes, int* blocks
-    "fused_blocks_per_sm": [_I, _I, _P],
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+    # mode, fold, smem_bytes, int* blocks
+    "fused_blocks_per_sm": [_I, _I, _I, _P],
     # fwdlap_forward.cu: streams, X, params, layers, n_layers, act, N, T, G,
-    # out, smem_bytes, stream
-    "fwdlap_forward_f32": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P],
-    # streams, smem_bytes, int* blocks
-    "fwdlap_forward_blocks_per_sm": [_I, _I, _P],
+    # fold, out, smem_bytes, stream
+    "fwdlap_forward_f32": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P],
+    # streams, fold, smem_bytes, int* blocks
+    "fwdlap_forward_blocks_per_sm": [_I, _I, _I, _P],
     # fwdlap_backward.cu: X, ct, params, layers, n_layers, act, N, T, G,
-    # partial, scratch, out, smem_bytes, stream
+    # fold, partial, scratch, out, smem_bytes, stream
     "fwdlap_backward_f32":
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
-    "fwdlap_backward_blocks_per_sm": [_I, _P],
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+    # fold, smem_bytes, int* blocks
+    "fwdlap_backward_blocks_per_sm": [_I, _I, _P],
     # fused_quotient.cu: kind, lap, X, coef, params, scal, layers, n_layers,
-    # act, N, T, G, partial, scratch, out, smem_bytes, stream
+    # act, N, T, G, flags, fold, partial, scratch, out, smem_bytes, stream
     "fused_quotient_f32":
-        [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
-    # kind, smem_bytes, int* blocks
-    "fused_quotient_blocks_per_sm": [_I, _I, _P],
+        [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+    # kind, fold, smem_bytes, int* blocks
+    "fused_quotient_blocks_per_sm": [_I, _I, _I, _P],
+    # kind, lap, layers, n_layers, T, flags -> bytes (not an error code)
+    "fused_quotient_smem_bytes": [_I, _I, _P, _I, _I, _I],
     # fused_multibump.cu: seeded, n_bumps, X, coef, params, scal, layers,
-    # n_layers, act, N, T, G, flags, partial, scratch, out, smem_bytes, stream
+    # n_layers, act, N, T, G, flags, fold, partial, scratch, out, smem_bytes,
+    # stream
     "fused_multibump_f32":
-        [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
-    # seeded, smem_bytes, int* blocks
-    "fused_multibump_blocks_per_sm": [_I, _I, _P],
+        [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+    # seeded, fold, smem_bytes, int* blocks
+    "fused_multibump_blocks_per_sm": [_I, _I, _I, _P],
     # seeded, n_bumps, layers, n_layers, T, flags -> bytes (not an error code)
     "fused_multibump_smem_bytes": [_I, _I, _P, _I, _I, _I],
 }

@@ -99,19 +99,32 @@ def flat_params(params) -> torch.Tensor:
 def plan_tile(smem_floats):
     """``(T, smem bytes)``: the largest tile up to ``TILE`` points whose
     shared memory, ``4 * smem_floats(T)`` bytes, fits ``SMEM_CAP``: the
-    constant-tile rule of every kernel but the K-bump pair, whose plan goes
-    by the net (:func:`.fused_multibump.plan`: tile, residency and resident
-    blocks per SM within ``SMEM_MAX``)."""
+    constant-tile rule of every kernel but the K-bump pair and the seeded
+    quotient kernels, whose plan goes by the net (:mod:`._plan`: tile,
+    residency and resident blocks per SM within ``SMEM_MAX``)."""
     T = TILE
     while 4 * smem_floats(T) > SMEM_CAP and T > 4:
         T //= 2
     return T, 4 * smem_floats(T)
 
 
-def grid(name: str, query, smem: int, dev: torch.device, n_tiles: int) -> int:
+def folds(layers, S: int, T: int) -> bool:
+    """Whether a tile of T points runs the kernels' FOLD variant, which
+    applies each stage's activation in the epilogue of the product that
+    makes the stage (fwdlap_core.cuh: mm_act, mm_act_bwd): at most 4 streams
+    (the variant's register tile holds every stream of a point), and the
+    ``T * wmax/4`` (point, 4 units) items of the widest product one wave of
+    the block's ``NT`` threads (a second, part-filled wave was measured to
+    cost more than the separate elementwise pass saves)."""
+    return S <= 4 and T * (padded_wmax(layers) // 4) <= NT
+
+
+def grid(name: str, query, smem: int, dev: torch.device, n_tiles: int,
+         variant: int = 0) -> int:
     """Blocks to launch: every resident slot of the card, at most one per
-    tile.  ``query(smem, int*)`` is the kernel's occupancy entry point."""
-    key = (name, smem, dev.index)
+    tile.  ``query(smem, int*)`` is the occupancy entry point of the
+    kernel's ``variant``."""
+    key = (name, variant, smem, dev.index)
     if key not in _OCCUPANCY:
         blocks = ctypes.c_int(0)
         with torch.cuda.device(dev):

@@ -24,28 +24,27 @@ anything else raises), a CPU tensor to the plain versions beside it
 (``fused_multi_sums_plain``, ``fused_multi_seeded_grads_plain``: the
 forward-Laplacian recurrence under ``torch.autograd``, in any dtype).
 
-The launch shape is chosen per net by :func:`plan`: points per tile, what
-stays in shared memory for a block's whole life, and how many blocks an SM
-can hold.  The objectives flatten the parameters once per evaluation and
+The launch shape is chosen per net by :func:`plan`, the shared plan of
+:mod:`._plan`: points per tile, what stays in shared memory for a block's
+whole life, and how many blocks an SM can hold.  The objectives flatten the parameters once per evaluation and
 hand the vector from ``forward`` to ``backward`` (``flat=``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
-from typing import NamedTuple
 
 import torch
 
 from ..ops.fwdlap import mlp_fwdlap
-from . import _cuda
+from . import _cuda, _plan
 from .fused_quotient import (
     _check_axis,
     _flat_grads,
     _on_cuda,
     _pairs,
     _seeded_grads,
+    _views,
     _wan_dp,
 )
 from .fused_step import _check_coef, _check_dot, _grads_of, _leaves, _unflatten
@@ -119,133 +118,30 @@ def fused_multi_seeded_grads_plain(params, X, coef, scal, activation: str, n_bum
 
 
 # ------------------------------------------------------------ CUDA launcher
-# What a plan keeps in shared memory for the block's whole life (the Flags
-# of fused_multibump.cu).
-RES_WEIGHTS = 1   # hidden weights; in pass B their transposes and the block's
-                  # gradient row too
-NARROW = 2        # pass B: gradient products with few entries dealt by rows to
-                  # groups of lanes
-# the order in which a plan steps down when a shape does not fit (pass B's
-# saved stages always go through global scratch: in shared memory they cost
-# tile size or a resident block and were measured slower)
-TIERS = (("resident", RES_WEIGHTS), ("staged", 0))
-T_MAX = 48        # points per tile the plan asks for at most (a multiple of 4;
-                  # the kernels take up to NT / 2 = 128): above 48 no measured
-                  # shape gained, and smaller tiles balance the SMs better
-
-
-class Plan(NamedTuple):
-    """One launch shape: points per tile, dynamic shared memory in bytes,
-    the residency flags and the tier's name."""
-    T: int
-    smem: int
-    flags: int
-    tier: str
-
-
-def _hidden_floats(layers) -> int:
-    wp = [(w + 3) // 4 * 4 for w in layers[1:-1]]
-    return sum(a * b for a, b in zip(wp[:-1], wp[1:]))
-
-
 def smem_floats(seeded: bool, layers, T: int, Kb: int, flags: int) -> int:
     """Shared-memory floats per block for a tile of T points (the layout of
     fused_multibump.cu's multibump_body, mirrored from its smem_floats)."""
     d = layers[0]
     S, wmax = d + 1, _cuda.padded_wmax(layers)
-    stage, hid = S * T * wmax, _hidden_floats(layers)
-    row = _cuda.n_params(layers) + 1 if seeded else 3 * Kb
+    stage, hid = S * T * wmax, _plan.hidden_floats(layers)
     n = (2 if seeded else 6) * _cuda.NT + (3 if seeded else 2) * stage
-    n += hid if flags & RES_WEIGHTS else wmax * wmax
-    if seeded and flags & RES_WEIGHTS:
-        n += hid + (row + 3) // 4 * 4
+    n += hid if flags & _plan.RES_WEIGHTS else wmax * wmax
+    if seeded and flags & _plan.RES_WEIGHTS:
+        n += hid
+    if seeded and flags & _plan.RES_GRAD:
+        n += _plan.row_floats(layers)
     return (n + T * (Kb * (d + 4) | 1) + T * d + (d + 2) * T + S * T + _cuda.NT + 3 * Kb)
 
 
-def _narrow_items(layers) -> int:
-    """Work items (4 x 4 register tiles) of the net's narrowest gradient
-    product: the hidden-to-hidden dW tiles, or the first layer's entries."""
-    wp = [(w + 3) // 4 * 4 for w in layers[1:-1]]
-    return min([(a // 4) * (b // 4) for a, b in zip(wp[:-1], wp[1:])]
-               + [(layers[0] + 1) * layers[1]])
-
-
-def tile_for(layers) -> int:
-    """Points per tile the net asks for: the largest multiple of 4 (from 16
-    to ``T_MAX``) at which the widest forward product, ``(d+1)*T/4`` row
-    groups times ``width/4`` column groups of 4 x 4 register tiles, is still
-    one wave of the block's ``NT`` threads (a second, part-filled wave costs
-    a full one: measured with ``chip_smoke.py sweep``)."""
-    S = layers[0] + 1
-    cg = _cuda.padded_wmax(layers) // 4
-    T = 16
-    while T + 4 <= T_MAX and (S * (T + 4) // 4) * cg <= _cuda.NT:
-        T += 4
-    return T
-
-
 def plan(seeded: bool, layers, Kb: int, *, T: int | None = None,
-         tier: str | None = None) -> Plan:
-    """Choose the launch shape of one pass for this net and bump count.
-
-    The kernels are bound by instruction issue and by latency between
-    barriers, so resident blocks per SM come first: the plan looks for a
-    shape that leaves room for 3 blocks per SM (a third of ``SMEM_MAX``
-    each), then 2, then 1.  Within each share the tile starts at
-    :func:`tile_for` with the hidden weights (pass B: their transposes and
-    the gradient row too) resident, and a shape that does not fit steps down
-    in this order: the tile shrinks (down to 16 points), then the weights are
-    staged per layer per tile and the gradient row is kept in device memory
-    (where, with a whole SM's memory, the tile may shrink to 4 points).  Pass
-    B's saved stages are re-read once per tile from a per-block slice of
-    global scratch, mostly from L2.  Pass B on a net whose
-    gradient products have few entries deals their rows to groups of lanes
-    (``NARROW``).  Every shape the wrappers accept gets a plan; ``T`` and
-    ``tier`` pin a choice (tests, timing sweeps) and raise if it does not
-    fit ``SMEM_MAX``."""
-    pinned = T is not None or tier is not None
-    for share in ((1,) if pinned else (3, 2, 1)):
-        budget = _cuda.SMEM_MAX // share - (0 if share == 1 else 1024)
-        pl = _fit(seeded, layers, Kb, budget, 4 if share == 1 else 16, T, tier)
-        if pl is not None:
-            return pl
-    raise ValueError(f"multibump plan: layers {list(layers)} with {Kb} bumps do not fit "
-                     f"{_cuda.SMEM_MAX} B of shared memory (T={T}, tier={tier})")
-
-
-@functools.lru_cache(maxsize=None)
-def _planned(seeded: bool, layers: tuple, Kb: int) -> Plan:
-    """:func:`plan`, once per shape: the wrapper asks on every launch."""
-    return plan(seeded, layers, Kb)
-
-
-def _fit(seeded, layers, Kb, budget, staged_floor, T=None, tier=None):
-    """The first shape within ``budget`` bytes in the step-down order of
-    :func:`plan` (weights resident, tile down to 16; weights staged, tile
-    down to ``staged_floor``), or None."""
-    narrow = NARROW if seeded and 2 * _narrow_items(layers) <= _cuda.NT else 0
-    for name, flags in TIERS:
-        if tier is not None and name != tier:
-            continue
-        flags |= narrow
-        t = tile_for(layers) if T is None else T
-        floor = t if T is not None else staged_floor if name == "staged" else 16
-        while t > floor and 4 * smem_floats(seeded, layers, t, Kb, flags) > budget:
-            t -= 4
-        smem = 4 * smem_floats(seeded, layers, t, Kb, flags)
-        if smem <= budget:
-            return Plan(t, smem, flags, name)
-    return None
-
-
-def resident(pl: Plan, seeded: bool):
-    """What a plan keeps in shared memory for the block's whole life."""
-    out = []
-    if pl.flags & RES_WEIGHTS:
-        out.append("hidden weights")
-        if seeded:
-            out += ["their transposes", "gradient row"]
-    return out
+         tier: str | None = None) -> _plan.Plan:
+    """The launch shape of one pass for this net and bump count: the shared
+    plan of :mod:`._plan` over this kernel's layout (``d + 1`` streams, no
+    Laplacian).  ``T`` and ``tier`` pin a choice and raise if it does not
+    fit."""
+    return _plan.plan(lambda t, flags: smem_floats(seeded, layers, t, Kb, flags), layers,
+                      layers[0] + 1, seeded, T=T, tier=tier,
+                      what=f"multibump plan ({Kb} bumps)")
 
 
 _WORKSPACE = {}        # (pass, device, stream) -> (partial, scratch), flat buffers
@@ -270,7 +166,7 @@ def _workspace(seeded: bool, dev, stream: int, partial_floats: int, scratch_floa
 
 
 def _launch(seeded: bool, params, X, coef, scal, activation: str, Kb: int, *,
-            flat=None, pl: Plan | None = None):
+            flat=None, pl: _plan.Plan | None = None):
     """Launch one multibump kernel plus its reduction; returns the flat
     float32 row: the ``3 Kb`` sums, or ``[grads (P) | sum ct_v]``.  ``flat``:
     the parameters already flattened by :func:`._cuda.flat_params`."""
@@ -286,12 +182,15 @@ def _launch(seeded: bool, params, X, coef, scal, activation: str, Kb: int, *,
     if flat is None:
         flat = _cuda.flat_params(params)
     if pl is None:
-        pl = _planned(seeded, tuple(layers), Kb)
+        pl = _plan.cached(("multibump", seeded, tuple(layers), Kb),
+                          lambda: plan(seeded, layers, Kb))
     T = pl.T
     dev = X.device
+    fold = int(_cuda.folds(layers, d + 1, T))
     G = _cuda.grid(name,
-                   lambda sm, ptr: lib.fused_multibump_blocks_per_sm(int(seeded), sm, ptr),
-                   pl.smem, dev, (N + T - 1) // T)
+                   lambda sm, ptr: lib.fused_multibump_blocks_per_sm(int(seeded), fold, sm,
+                                                                     ptr),
+                   pl.smem, dev, (N + T - 1) // T, fold)
     row = flat.numel() + 1 if seeded else 3 * Kb
     stream = _cuda.stream(dev)
     partial, scratch = _workspace(
@@ -304,21 +203,10 @@ def _launch(seeded: bool, params, X, coef, scal, activation: str, Kb: int, *,
     _cuda.launch(name, lib.fused_multibump_f32, int(seeded), Kb, X.data_ptr(),
                  coef.data_ptr(), flat.data_ptr(), scal.data_ptr() if seeded else None,
                  ctypes.addressof(lay), len(layers), _cuda.ACTS[activation], N, T, G,
-                 pl.flags, partial.data_ptr(),
+                 pl.flags, fold, partial.data_ptr(),
                  scratch.data_ptr() if scratch is not None else None,
                  out.data_ptr(), pl.smem, stream, dev=dev,
                  keep=(X, coef, flat, scal, lay, partial, scratch, out))
-    return out
-
-
-def _views(flat, params):
-    """``params``' ``(W, b)`` pairs as views of the flat vector."""
-    out, o = [], 0
-    for W, b in params:
-        Wv = flat[o:o + W.numel()].view(W.shape)
-        o += W.numel()
-        out.append((Wv, flat[o:o + b.numel()].view(b.shape)))
-        o += b.numel()
     return out
 
 

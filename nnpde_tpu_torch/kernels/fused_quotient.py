@@ -31,6 +31,12 @@ Where it runs: a CUDA tensor goes to ``csrc/fused_quotient.cu`` (float32;
 anything else raises), a CPU tensor to the plain version beside it
 (``*_plain``: the forward-Laplacian recurrence under ``torch.autograd``, in
 any dtype).
+
+The seeded kinds choose their launch shape by :func:`plan` (the shared plan
+of :mod:`._plan`: tile, what stays on chip, blocks per SM); the sums kinds
+keep the constant tile of :func:`._cuda.plan_tile`.  The objectives flatten
+the parameters once per evaluation and hand the vector from ``forward`` to
+``backward`` (``flat=``).
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ import ctypes
 import torch
 
 from ..ops.fwdlap import mlp_fwdlap
-from . import _cuda
+from . import _cuda, _plan
 from ._cuda import on_cuda as _on_cuda
 from .fused_step import (
     _check_coef,
@@ -158,19 +164,43 @@ def quad_seeded_plain(params, X, coef, scal, activation: str):
 
 
 # ------------------------------------------------------------ CUDA launcher
-def _plan(kind: str, layers, T: int, lap: int):
+def smem_floats(kind: str, layers, T: int, lap: int, flags: int = 0) -> int:
     """Shared-memory floats per block for a tile of T points (the layout of
-    fused_quotient.cu's quotient_body)."""
+    fused_quotient.cu's quotient_body, mirrored from its smem_floats)."""
+    seeded = kind.endswith("seeded")
     d = layers[0]
     S, wmax = d + 1 + lap, _cuda.padded_wmax(layers)
-    nbuf = 3 if kind.endswith("seeded") else 2
-    return (nbuf * S * T * wmax + wmax * wmax + T * d + (d + 2) * T
-            + _NSUMS[kind] * T + S * T + _cuda.NT)
+    stage, hid = S * T * wmax, _plan.hidden_floats(layers)
+    n = 2 * _NSUMS[kind] * T + (3 if seeded else 2) * stage
+    n += hid if flags & _plan.RES_WEIGHTS else wmax * wmax
+    if seeded and flags & _plan.RES_WEIGHTS:
+        n += hid
+    if seeded and flags & _plan.RES_GRAD:
+        n += _plan.row_floats(layers)
+    nc = d + 5 if kind.startswith("linear") else d + 3
+    return (n + T * (nc | 1) + T * d + ((d + 2) * T if seeded else 0) + S * T
+            + _cuda.NT + 4)
 
 
-def _launch(kind: str, params, X, coef, scal, activation: str, lap: int):
+def plan(kind: str, layers, lap: int = 0, *, T: int | None = None,
+         tier: str | None = None) -> _plan.Plan:
+    """The launch shape of one kernel.  The seeded kinds take the shared plan
+    of :mod:`._plan` over their layout (``d + 1 + lap`` streams); ``T`` and
+    ``tier`` pin a choice and raise if it does not fit.  The sums kinds keep
+    the constant tile of :func:`._cuda.plan_tile`, nothing resident."""
+    if kind.endswith("sums"):
+        t, smem = _cuda.plan_tile(lambda t: smem_floats(kind, layers, t, lap))
+        return _plan.Plan(t, smem, 0, "staged")
+    return _plan.plan(lambda t, flags: smem_floats(kind, layers, t, lap, flags), layers,
+                      layers[0] + 1 + lap, True, T=T, tier=tier, what=f"{kind} plan")
+
+
+def _launch(kind: str, params, X, coef, scal, activation: str, lap: int, *,
+            flat=None, pl: _plan.Plan | None = None):
     """Launch one quotient kernel plus its reduction; returns the flat
-    float32 row: the sums, or ``[grads (P) | sum ct_v]``."""
+    float32 row: the sums, or ``[grads (P) | sum ct_v]``.  ``flat``: the
+    parameters already flattened by :func:`._cuda.flat_params`; ``pl``: a
+    launch shape other than the plan's own (timing sweeps, tests)."""
     from . import _build
 
     lib = _build.load()
@@ -180,12 +210,18 @@ def _launch(kind: str, params, X, coef, scal, activation: str, lap: int):
     N, d = X.shape
     K = len(params)
     X, coef = X.contiguous(), coef.contiguous()
-    flat = _cuda.flat_params(params)
-    T, smem = _cuda.plan_tile(lambda t: _plan(kind, layers, t, lap))
-    code = _KINDS[kind]
+    if flat is None:
+        flat = _cuda.flat_params(params)
     dev = X.device
-    G = _cuda.grid(kind, lambda sm, ptr: lib.fused_quotient_blocks_per_sm(code, sm, ptr),
-                   smem, dev, (N + T - 1) // T)
+    if pl is None:
+        pl = _plan.cached(("quotient", kind, tuple(layers), lap),
+                          lambda: plan(kind, layers, lap))
+    T = pl.T
+    code = _KINDS[kind]
+    fold = int(_cuda.folds(layers, d + 1 + lap, T))
+    G = _cuda.grid(kind,
+                   lambda sm, ptr: lib.fused_quotient_blocks_per_sm(code, fold, sm, ptr),
+                   pl.smem, dev, (N + T - 1) // T, fold)
     row = flat.numel() + 1 if seeded else _NSUMS[kind]
     partial = torch.empty((G, row), dtype=torch.float32, device=dev)
     out = torch.empty((row,), dtype=torch.float32, device=dev)
@@ -199,10 +235,22 @@ def _launch(kind: str, params, X, coef, scal, activation: str, lap: int):
     _cuda.launch(kind, lib.fused_quotient_f32, code, lap, X.data_ptr(),
                  coef.data_ptr(), flat.data_ptr(),
                  scal.data_ptr() if seeded else None, ctypes.addressof(lay),
-                 len(layers), _cuda.ACTS[activation], N, T, G, partial.data_ptr(),
-                 scratch.data_ptr() if seeded else None, out.data_ptr(), smem,
+                 len(layers), _cuda.ACTS[activation], N, T, G, pl.flags, fold,
+                 partial.data_ptr(),
+                 scratch.data_ptr() if seeded else None, out.data_ptr(), pl.smem,
                  _cuda.stream(dev), dev=dev,
                  keep=(X, coef, flat, scal, lay, partial, scratch, out))
+    return out
+
+
+def _views(flat, params):
+    """``params``' ``(W, b)`` pairs as views of the flat vector."""
+    out, o = [], 0
+    for W, b in params:
+        Wv = flat[o:o + W.numel()].view(W.shape)
+        o += W.numel()
+        out.append((Wv, flat[o:o + b.numel()].view(b.shape)))
+        o += b.numel()
     return out
 
 
@@ -224,61 +272,74 @@ def _seeded_grads(params, dWs, dbs, sums):
 
 # ------------------------------------------------------------------- raw API
 def fused_linear_sums(params, X, coef, activation: str, *, no_lap: bool = False,
-                      dot_dtype: str = "float32"):
+                      dot_dtype: str = "float32", flat=None):
     """Pass A: ``{'sum_r', 'sum_r2', 'sum_mass', 'sum_e2', 'n'}``.
     ``no_lap=True`` drops the Laplacian stream: only valid when the ``a``
-    column is identically zero (the WAN weak forms)."""
+    column is identically zero (the WAN weak forms).  ``flat``: ``params``
+    already flattened (``[W0, b0, W1, b1, ...]``); the values are then read
+    from it and ``params`` gives the shapes."""
     _check_dot(dot_dtype)
     _check_coef(X, coef, X.shape[1] + 5)
     if _on_cuda(X):
-        s = _launch("linear_sums", params, X, coef, None, activation, 0 if no_lap else 1)
+        s = _launch("linear_sums", params, X, coef, None, activation, 0 if no_lap else 1,
+                    flat=flat)
     else:
+        if flat is not None:
+            params = _views(flat, params)
         s = linear_sums_plain(params, X, coef, activation, no_lap)
     return {"sum_r": s[0], "sum_r2": s[1], "sum_mass": s[2], "sum_e2": s[3],
             "n": X.shape[0]}
 
 
 def fused_seeded_grads(params, X, coef, scalars, activation: str, *,
-                       no_lap: bool = False, dot_dtype: str = "float32"):
+                       no_lap: bool = False, dot_dtype: str = "float32", flat=None):
     """Pass B: grads of ``s_r*sum r + s_q*sum (e1 v)^2 + s_l*sum e2 v`` for
     ``scalars = (s_r, s_q, s_l)`` (already holding every 1/N and chain
-    factor), in the params layout."""
+    factor), in the params layout.  ``flat`` as in :func:`fused_linear_sums`."""
     _check_dot(dot_dtype)
     _check_coef(X, coef, X.shape[1] + 5)
     scal = _scalars(scalars, X)
     if _on_cuda(X):
         params = [(W.detach(), b.detach()) for W, b in params]
         out = _launch("linear_seeded", params, X, coef, scal, activation,
-                      0 if no_lap else 1)
+                      0 if no_lap else 1, flat=flat)
         dWs, dbs, sums = _unflatten(params, out)
     else:
+        if flat is not None:
+            params = _views(flat, params)
         dWs, dbs, sums = linear_seeded_plain(params, X, coef, scal, activation, no_lap)
     return _seeded_grads(params, dWs, dbs, sums)
 
 
-def fused_quad_sums(params, X, coef, activation: str, *, dot_dtype: str = "float32"):
-    """Pass A (quadratic): ``{'sum_e', 'sum_u2', 'n'}``."""
+def fused_quad_sums(params, X, coef, activation: str, *, dot_dtype: str = "float32",
+                    flat=None):
+    """Pass A (quadratic): ``{'sum_e', 'sum_u2', 'n'}``.  ``flat`` as in
+    :func:`fused_linear_sums`."""
     _check_dot(dot_dtype)
     _check_coef(X, coef, X.shape[1] + 3)
     if _on_cuda(X):
-        s = _launch("quad_sums", params, X, coef, None, activation, 0)
+        s = _launch("quad_sums", params, X, coef, None, activation, 0, flat=flat)
     else:
+        if flat is not None:
+            params = _views(flat, params)
         s = quad_sums_plain(params, X, coef, activation)
     return {"sum_e": s[0], "sum_u2": s[1], "n": X.shape[0]}
 
 
 def fused_quad_seeded_grads(params, X, coef, scalars, activation: str, *,
-                            dot_dtype: str = "float32"):
+                            dot_dtype: str = "float32", flat=None):
     """Pass B (quadratic): grads of ``s_e*sum e + s_q*sum u^2`` for
-    ``scalars = (s_e, s_q)``."""
+    ``scalars = (s_e, s_q)``.  ``flat`` as in :func:`fused_linear_sums`."""
     _check_dot(dot_dtype)
     _check_coef(X, coef, X.shape[1] + 3)
     scal = _scalars(scalars, X)
     if _on_cuda(X):
         params = [(W.detach(), b.detach()) for W, b in params]
-        out = _launch("quad_seeded", params, X, coef, scal, activation, 0)
+        out = _launch("quad_seeded", params, X, coef, scal, activation, 0, flat=flat)
         dWs, dbs, sums = _unflatten(params, out)
     else:
+        if flat is not None:
+            params = _views(flat, params)
         dWs, dbs, sums = quad_seeded_plain(params, X, coef, scal, activation)
     return _seeded_grads(params, dWs, dbs, sums)
 
@@ -315,24 +376,25 @@ class _Rayleigh(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cfg, X, coef, *leaves):
         activation, weight, den_eps, dot = cfg
-        s = fused_quad_sums(_pairs(leaves), X, coef, activation, dot_dtype=dot)
+        flat = _cuda.flat_params(_pairs(leaves))     # built once, reused by backward
+        s = fused_quad_sums(_pairs(leaves), X, coef, activation, dot_dtype=dot, flat=flat)
         n = s["n"]
         num, den = s["sum_e"] / n, s["sum_u2"] / n
         q = num / (den + den_eps)
         ctx.cfg, ctx.n = cfg, n
-        ctx.save_for_backward(X, coef, num, den, *leaves)
+        ctx.save_for_backward(X, coef, num, den, flat, *leaves)
         ctx.mark_non_differentiable(q, num, den)
         return weight * q, q, num, den
 
     @staticmethod
     def backward(ctx, g, *_):
         activation, weight, den_eps, dot = ctx.cfg
-        X, coef, num, den, *leaves = ctx.saved_tensors
+        X, coef, num, den, flat, *leaves = ctx.saved_tensors
         g = g * weight
         s_e = g / ((den + den_eps) * ctx.n)
         s_q = -g * num / ((den + den_eps) ** 2 * ctx.n)
         grads = fused_quad_seeded_grads(_pairs(leaves), X, coef, (s_e, s_q),
-                                        activation, dot_dtype=dot)
+                                        activation, dot_dtype=dot, flat=flat)
         return (None, None, None) + _flat_grads(grads)
 
 
@@ -359,22 +421,23 @@ class _QuadMean(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cfg, X, coef, *leaves):
         activation, weight, dot = cfg
-        s = fused_quad_sums(_pairs(leaves), X, coef, activation, dot_dtype=dot)
+        flat = _cuda.flat_params(_pairs(leaves))     # built once, reused by backward
+        s = fused_quad_sums(_pairs(leaves), X, coef, activation, dot_dtype=dot, flat=flat)
         n = s["n"]
         mean_e, mean_u2 = s["sum_e"] / n, s["sum_u2"] / n
         ctx.cfg, ctx.n = cfg, n
-        ctx.save_for_backward(X, coef, *leaves)
+        ctx.save_for_backward(X, coef, flat, *leaves)
         ctx.mark_non_differentiable(mean_e, mean_u2)
         return weight * mean_e, mean_e, mean_u2
 
     @staticmethod
     def backward(ctx, g, *_):
         activation, weight, dot = ctx.cfg
-        X, coef, *leaves = ctx.saved_tensors
+        X, coef, flat, *leaves = ctx.saved_tensors
         s_e = g * weight / ctx.n
         grads = fused_quad_seeded_grads(_pairs(leaves), X, coef,
                                         (s_e, torch.zeros_like(s_e)), activation,
-                                        dot_dtype=dot)
+                                        dot_dtype=dot, flat=flat)
         return (None, None, None) + _flat_grads(grads)
 
 
@@ -404,22 +467,23 @@ class _WanU(torch.autograd.Function):
         # the trainable eigenvalue enters as c -= E * e2 (e2 = B*phi)
         coef = torch.cat([(base[:, 0] - E * base[:, d + 4])[:, None], base[:, 1:]], dim=1)
         # the weak form has no Laplacian term (a == 0 by the contract)
+        flat = _cuda.flat_params(_pairs(leaves))     # built once, reused by backward
         s = fused_linear_sums(_pairs(leaves), X, coef, activation, no_lap=True,
-                              dot_dtype=dot)
+                              dot_dtype=dot, flat=flat)
         n = s["n"]
         wr, mu2 = s["sum_r"] / n, s["sum_mass"] / n
         p, _, _ = _wan_dp(convention, wr, phi_norm, eps)
         norm_term = (vol * mu2 - 1.0) ** 2
         total = w_pde * p + w_norm * norm_term
         ctx.cfg, ctx.n = cfg, n
-        ctx.save_for_backward(X, coef, wr, mu2, phi_norm, s["sum_e2"], *leaves)
+        ctx.save_for_backward(X, coef, wr, mu2, phi_norm, s["sum_e2"], flat, *leaves)
         ctx.mark_non_differentiable(wr, p, norm_term, mu2)
         return total, wr, p, norm_term, mu2
 
     @staticmethod
     def backward(ctx, g, *_):
         activation, convention, eps, vol, w_pde, w_norm, dot = ctx.cfg
-        X, coef, wr, mu2, phi_norm, sum_uphi, *leaves = ctx.saved_tensors
+        X, coef, wr, mu2, phi_norm, sum_uphi, flat, *leaves = ctx.saved_tensors
         n = ctx.n
         _, dp_dwr, dp_dpn = _wan_dp(convention, wr, phi_norm, eps)
         s_r = g * w_pde * dp_dwr / n
@@ -428,7 +492,7 @@ class _WanU(torch.autograd.Function):
         if any(ctx.needs_input_grad[5:]):
             grads = _flat_grads(fused_seeded_grads(
                 _pairs(leaves), X, coef, (s_r, s_q, torch.zeros_like(s_r)),
-                activation, no_lap=True, dot_dtype=dot))
+                activation, no_lap=True, dot_dtype=dot, flat=flat))
         # dwr/dE = -(1/n) sum u*phi (the e2 lane)
         dE = g * w_pde * dp_dwr * (-sum_uphi / n)
         d_pn = g * w_pde * dp_dpn
@@ -466,28 +530,29 @@ class _WanV(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cfg, X, coef, *leaves):
         activation, convention, eps, objective, log_eps, dot = cfg
+        flat = _cuda.flat_params(_pairs(leaves))     # built once, reused by backward
         s = fused_linear_sums(_pairs(leaves), X, coef, activation, no_lap=True,
-                              dot_dtype=dot)
+                              dot_dtype=dot, flat=flat)
         n = s["n"]
         wr, pn = s["sum_r"] / n, s["sum_mass"] / n
         p, _, _ = _wan_dp(convention, wr, pn, eps)
         val = -torch.log(p + log_eps) if objective == "neg_log" else -p
         ctx.cfg, ctx.n = cfg, n
-        ctx.save_for_backward(X, coef, wr, pn, p, *leaves)
+        ctx.save_for_backward(X, coef, wr, pn, p, flat, *leaves)
         ctx.mark_non_differentiable(wr, p, pn)
         return val, wr, p, pn
 
     @staticmethod
     def backward(ctx, g, *_):
         activation, convention, eps, objective, log_eps, dot = ctx.cfg
-        X, coef, wr, pn, p, *leaves = ctx.saved_tensors
+        X, coef, wr, pn, p, flat, *leaves = ctx.saved_tensors
         _, dp_dwr, dp_dpn = _wan_dp(convention, wr, pn, eps)
         outer = -g / (p + log_eps) if objective == "neg_log" else -g
         s_r = outer * dp_dwr / ctx.n
         s_q = outer * dp_dpn / ctx.n
         grads = fused_seeded_grads(_pairs(leaves), X, coef,
                                    (s_r, s_q, torch.zeros_like(s_r)), activation,
-                                   no_lap=True, dot_dtype=dot)
+                                   no_lap=True, dot_dtype=dot, flat=flat)
         return (None, None, None) + _flat_grads(grads)
 
 

@@ -198,16 +198,17 @@ def _launch(kind: str, params, X, coef, activation: str, analytic=None):
     T, smem = _cuda.plan_tile(lambda t: _plan(kind, layers, t))
     mode = _MODES[kind]
     dev = X.device
-    G = _cuda.grid(kind, lambda sm, ptr: lib.fused_blocks_per_sm(mode, sm, ptr),
-                   smem, dev, (N + T - 1) // T)
     S = d + (1 if kind == "fused_drm_energy" else 2)
+    fold = int(_cuda.folds(layers, S, T))
+    G = _cuda.grid(kind, lambda sm, ptr: lib.fused_blocks_per_sm(mode, fold, sm, ptr),
+                   smem, dev, (N + T - 1) // T, fold)
     wmax = _cuda.padded_wmax(layers)
     partial = torch.empty((G, P + 3), dtype=torch.float32, device=dev)
     scratch = torch.empty((G, max(K - 2, 1) * S * T * wmax), dtype=torch.float32,
                           device=dev)
     out = torch.empty((P + 3,), dtype=torch.float32, device=dev)
     lay = _cuda.layers_arg(layers)
-    common = (ctypes.addressof(lay), len(layers), _cuda.ACTS[activation], N, T, G)
+    common = (ctypes.addressof(lay), len(layers), _cuda.ACTS[activation], N, T, G, fold)
     tail = (partial.data_ptr(), scratch.data_ptr(), out.data_ptr(), smem,
             _cuda.stream(dev))
     keep = (X, flat, lay, partial, scratch, out)

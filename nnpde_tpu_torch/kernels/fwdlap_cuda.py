@@ -87,14 +87,16 @@ def fwdlap_forward(params, X, activation: str, fwd_impl: str = "rows") -> torch.
     flat = _cuda.flat_params(params)
     T, smem = _cuda.plan_tile(lambda t: _plan_forward(layers, t))
     dev = X.device
-    G = _cuda.grid(name, lambda sm, ptr: lib.fwdlap_forward_blocks_per_sm(streams, sm, ptr),
-                   smem, dev, (N + T - 1) // T)
+    fold = int(_cuda.folds(layers, d + 2, T))
+    G = _cuda.grid(name,
+                   lambda sm, ptr: lib.fwdlap_forward_blocks_per_sm(streams, fold, sm, ptr),
+                   smem, dev, (N + T - 1) // T, fold)
     shape = (d + 2, N) if streams else (N, d + 2)
     out = torch.empty(shape, dtype=torch.float32, device=dev)
     lay = _cuda.layers_arg(layers)
     _cuda.launch(name, lib.fwdlap_forward_f32, streams, X.data_ptr(), flat.data_ptr(),
                  ctypes.addressof(lay), len(layers), _cuda.ACTS[activation], N, T,
-                 G, out.data_ptr(), smem, _cuda.stream(dev), dev=dev,
+                 G, fold, out.data_ptr(), smem, _cuda.stream(dev), dev=dev,
                  keep=(X, flat, lay, out))
     return out.t() if streams else out
 
@@ -117,7 +119,9 @@ def fwdlap_backward(params, X, ct, activation: str):
     P = flat.numel()
     T, smem = _cuda.plan_tile(lambda t: _plan_backward(layers, t))
     dev = X.device
-    G = _cuda.grid(name, lib.fwdlap_backward_blocks_per_sm, smem, dev, (N + T - 1) // T)
+    fold = int(_cuda.folds(layers, d + 2, T))
+    G = _cuda.grid(name, lambda sm, ptr: lib.fwdlap_backward_blocks_per_sm(fold, sm, ptr),
+                   smem, dev, (N + T - 1) // T, fold)
     wmax = _cuda.padded_wmax(layers)
     partial = torch.empty((G, P), dtype=torch.float32, device=dev)
     scratch = torch.empty((G, max(K - 2, 1) * (d + 2) * T * wmax), dtype=torch.float32,
@@ -126,8 +130,8 @@ def fwdlap_backward(params, X, ct, activation: str):
     lay = _cuda.layers_arg(layers)
     _cuda.launch(name, lib.fwdlap_backward_f32, X.data_ptr(), ct.data_ptr(),
                  flat.data_ptr(), ctypes.addressof(lay), len(layers),
-                 _cuda.ACTS[activation], N, T, G, partial.data_ptr(), scratch.data_ptr(),
-                 out.data_ptr(), smem, _cuda.stream(dev), dev=dev,
+                 _cuda.ACTS[activation], N, T, G, fold, partial.data_ptr(),
+                 scratch.data_ptr(), out.data_ptr(), smem, _cuda.stream(dev), dev=dev,
                  keep=(X, ct, flat, lay, partial, scratch, out))
     dWs, dbs, _ = _unflatten(params, out)
     dbs[-1] = torch.sum(ct[:, 0]).reshape(params[-1][1].shape)

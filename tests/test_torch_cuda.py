@@ -375,8 +375,93 @@ def test_cuda_multibump_smem_layout_mirror(dev):
         lay = (ctypes.c_int * len(layers))(*layers)
         for seeded in (False, True):
             for Kb in (1, 16, 42):
-                for flags in range(4):
+                for flags in range(8):
                     for T in (4, 16, 72):
                         assert lib.fused_multibump_smem_bytes(
                             int(seeded), Kb, ctypes.addressof(lay), len(layers), T,
                             flags) == 4 * tfm.smem_floats(seeded, layers, T, Kb, flags)
+
+
+def _check_quotient(dev, kind, layers, act, lap, N=1000 + 7, **pin):
+    """One seeded quotient launch (plan pinned by ``pin``, else the plan's
+    own) against the float64 plain version: grad row rel <= 1e-5, sum ct_v
+    rel <= 1e-5; two launches bitwise equal."""
+    from nnpde_tpu_torch.kernels import fused_quotient as tfq
+
+    rng = np.random.default_rng(15)
+    d = layers[0]
+    pn = _np_params(rng, layers)
+    tp = params_from_jax(pn, device=dev)
+    tp64 = params_from_jax(pn, device=dev, dtype=torch.float64)
+    X = torch.as_tensor(rng.uniform(0.0, L, (N, d)).astype(np.float32), device=dev)
+    linear = kind == "linear_seeded"
+    coef = torch.as_tensor(rng.normal(size=(N, d + (5 if linear else 3))).astype(np.float32),
+                           device=dev)
+    scal = torch.tensor([0.3, -0.2, 0.7] if linear else [0.4, -0.3], device=dev)
+    pl = tfq.plan(kind, layers, lap, **pin) if pin else None
+    before = LAUNCHES[kind]
+    out = tfq._launch(kind, tp, X, coef, scal, act, lap, pl=pl)
+    out2 = tfq._launch(kind, tp, X, coef, scal, act, lap, pl=pl)
+    torch.cuda.synchronize()
+    assert LAUNCHES[kind] == before + 2
+    assert torch.equal(out, out2)
+    X64, c64, s64 = X.double(), coef.double(), scal.double()
+    if linear:
+        dWs, dbs, sums = tfq.linear_seeded_plain(tp64, X64, c64, s64, act, no_lap=lap == 0)
+    else:
+        dWs, dbs, sums = tfq.quad_seeded_plain(tp64, X64, c64, s64, act)
+    got = tfs._unflatten(tp, out)
+    assert _tree_rel([got[0], got[1][:-1]], [dWs, dbs[:-1]]) <= 1e-5
+    assert abs(float(got[2][0]) - float(sums[0])) <= 1e-5 * abs(float(sums[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["linear_seeded", "quad_seeded"])
+@pytest.mark.parametrize("tier", ["resident", "gradient", "staged"])
+@pytest.mark.parametrize("layers,T", [((2, 64, 64, 1), 16), ((2, 64, 64, 1), 20),
+                                      ((2, 50, 50, 50, 50, 1), 16), ((2, 20, 20, 1), 48)])
+def test_cuda_quotient_plan_tiers(dev, kind, tier, layers, T):
+    """Each tier of the seeded quotient kernels' plan, pinned, at the plan's
+    tile and above it; N = 1007 is a multiple of none of these tiles."""
+    _check_quotient(dev, kind, layers, "sin", 0, T=T, tier=tier)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["resident", "gradient", "staged"])
+@pytest.mark.parametrize("layers,act", [((2, 64, 64, 1), "sin"), ((5, 32, 32, 1), "tanh"),
+                                        ((3, 50, 50, 50, 1), "gelu")])
+def test_cuda_linear_seeded_with_laplacian(dev, tier, layers, act):
+    """The linear seeded kernel carrying the Laplacian stream (S = d + 2),
+    at every tier, on a ragged last tile (N = 1001)."""
+    _check_quotient(dev, "linear_seeded", layers, act, 1, N=1001, T=16, tier=tier)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["linear_seeded", "quad_seeded"])
+@pytest.mark.parametrize("layers", [(16,) + (128,) * 15 + (1,), (2, 1, 1, 1), (2, 50, 1, 50, 1),
+                                    (2, 128, 128, 1), (2, 12, 1)])
+def test_cuda_quotient_extreme_shapes(dev, kind, layers):
+    """The plan's own choice at the extremes the wrapper takes."""
+    _check_quotient(dev, kind, layers, "tanh", 0, N=300 + 1)
+
+
+@pytest.mark.cuda
+def test_cuda_quotient_smem_layout_mirror(dev):
+    """The quotient plan's shared-memory bytes are the kernel's own count."""
+    import ctypes
+
+    from nnpde_tpu_torch.kernels import _build
+    from nnpde_tpu_torch.kernels import fused_quotient as tfq
+
+    lib = _build.load()
+    codes = {"linear_sums": 0, "linear_seeded": 1, "quad_sums": 2, "quad_seeded": 3}
+    for layers in [(2, 64, 64, 1), (2, 64, 64, 64, 64, 1), (2, 50, 50, 50, 50, 1), (5, 7, 9, 1),
+                   (2, 12, 1)]:
+        lay = (ctypes.c_int * len(layers))(*layers)
+        for kind, code in codes.items():
+            for lap in ((0, 1) if kind.startswith("linear") else (0,)):
+                for flags in (range(8) if kind.endswith("seeded") else (0,)):
+                    for T in (4, 16, 20, 48):
+                        assert lib.fused_quotient_smem_bytes(
+                            code, lap, ctypes.addressof(lay), len(layers), T,
+                            flags) == 4 * tfq.smem_floats(kind, layers, T, lap, flags)

@@ -43,6 +43,7 @@ from nnpde_tpu_torch.kernels import (
     pack_multibump_coefficients,
 )
 from nnpde_tpu_torch.kernels import _cuda as tcuda
+from nnpde_tpu_torch.kernels import _plan as tplan
 from nnpde_tpu_torch.kernels import fused_multibump as tmb
 from nnpde_tpu_torch.models import factor_for_technique
 from nnpde_tpu_torch.ops import bump_grid, bump_w_multi
@@ -298,9 +299,24 @@ EXTREMES = {
 
 def _launchable(pl, seeded, layers, Kb):
     """What the C entry point checks before it launches (fused_multibump.cu)."""
-    return (4 <= pl.T <= tcuda.NT // 2 and pl.T % 4 == 0 and 0 <= pl.flags <= 3
+    return (4 <= pl.T <= tcuda.NT // 2 and pl.T % 4 == 0 and 0 <= pl.flags <= 7
             and pl.smem >= 4 * tmb.smem_floats(seeded, layers, pl.T, Kb, pl.flags)
             and pl.smem <= tcuda.SMEM_MAX)
+
+
+def _tier_names(seeded):
+    return [name for name, _ in tplan.tiers(seeded)]
+
+
+# the plans the four chip shapes of the K-bump pair ran at before the plan
+# was shared (16 bumps): tile, bytes, flags, tier
+CHIP_PLANS = {
+    ("c20", False): tplan.Plan(48, 53952, tplan.RES_WEIGHTS, "resident"),
+    ("c20", True): tplan.Plan(48, 68272, tplan.RES_WEIGHTS | tplan.RES_GRAD | tplan.NARROW,
+                              "resident"),
+    ("u50", False): tplan.Plan(20, 73248, tplan.RES_WEIGHTS, "resident"),
+    ("u50", True): tplan.Plan(24, 69184, 0, "staged"),
+}
 
 
 @pytest.mark.parametrize("seeded", [False, True])
@@ -308,20 +324,21 @@ def _launchable(pl, seeded, layers, Kb):
 def test_plan_chip_shapes(net, seeded):
     layers = CHIP_NETS[net]
     pl = tmb.plan(seeded, layers, 16)
+    assert pl == CHIP_PLANS[(net, seeded)]          # the shared plan chose as before
     assert _launchable(pl, seeded, layers, 16)
-    assert pl.T >= 16 and pl.tier in [name for name, _ in tmb.TIERS]
+    assert pl.T >= 16 and pl.tier in _tier_names(seeded)
     # the widest forward product is one wave of the block at the asked tile
     S, cg = layers[0] + 1, tcuda.padded_wmax(layers) // 4
-    assert (S * tmb.tile_for(layers) // 4) * cg <= tcuda.NT
+    assert (S * tplan.tile_for(layers, S) // 4) * cg <= tcuda.NT
     # three blocks of this shape fit one SM's shared memory
     assert 3 * (pl.smem + 1024) <= tcuda.SMEM_MAX
     # pass A keeps no gradient row and no lane groups
     if not seeded:
-        assert pl.flags & ~tmb.RES_WEIGHTS == 0
+        assert pl.flags & ~tplan.RES_WEIGHTS == 0
     elif net == "c20":
-        assert pl.flags & tmb.NARROW and pl.tier == "resident"
+        assert pl.flags & tplan.NARROW and pl.tier == "resident"
     else:
-        assert not pl.flags & tmb.NARROW and pl.tier == "staged" and pl.T == 24
+        assert not pl.flags & tplan.NARROW and pl.tier == "staged" and pl.T == 24
 
 
 @pytest.mark.parametrize("seeded", [False, True])
@@ -335,7 +352,7 @@ def test_plan_takes_every_shape_the_wrapper_takes(net, Kb, seeded):
     assert tcuda.net_layers("multi_sums", params, X, "sin") == list(layers)
     pl = tmb.plan(seeded, layers, Kb)
     assert _launchable(pl, seeded, layers, Kb)
-    for tier, _ in tmb.TIERS:           # a pinned choice fits or raises, never lies
+    for tier in _tier_names(seeded):    # a pinned choice fits or raises, never lies
         try:
             pinned = tmb.plan(seeded, layers, Kb, T=16, tier=tier)
         except ValueError:
@@ -346,21 +363,22 @@ def test_plan_takes_every_shape_the_wrapper_takes(net, Kb, seeded):
 
 @pytest.mark.parametrize("net", ["c20", "u50"])
 def test_plan_steps_down_in_order(net):
-    """Under a shrinking budget: the tile shrinks to 16 points with the
-    weights and the gradient row resident, then they leave; only the last
-    tier goes below 16."""
+    """Under a shrinking budget: the tile shrinks by one step with the
+    weights and the gradient row resident, then with the row alone, then
+    nothing stays; only the last tier goes below 16."""
     layers = CHIP_NETS[net]
-    order = [name for name, _ in tmb.TIERS]
+    order = _tier_names(True)
     seen, last = [], None
     for budget in range(tcuda.SMEM_MAX, 8 * 1024, -2048):
-        pl = tmb._fit(True, layers, 16, budget, 4)
+        pl = tplan.fit(lambda t, f: tmb.smem_floats(True, layers, t, 16, f), layers,
+                       layers[0] + 1, True, budget, 4)
         if pl is None:
             break
         assert pl.smem <= budget and pl.T % 4 == 0
         key = (order.index(pl.tier), -pl.T)
         assert last is None or key >= last, (budget, pl, last)
         assert pl.T >= 16 or pl.tier == "staged"
-        assert pl.T <= tmb.tile_for(layers)
+        assert pl.T <= tplan.tile_for(layers, layers[0] + 1)
         last = key
         if pl.tier not in seen:
             seen.append(pl.tier)
@@ -371,16 +389,23 @@ def test_plan_steps_down_in_order(net):
 def test_plan_flags_per_tier():
     u50 = CHIP_NETS["u50"]
     res = tmb.plan(True, u50, 16, T=16, tier="resident")
+    grd = tmb.plan(True, u50, 16, T=16, tier="gradient")
     sta = tmb.plan(True, u50, 16, T=16, tier="staged")
-    assert res.flags == tmb.RES_WEIGHTS and sta.flags == 0
-    assert tmb.plan(False, u50, 16, T=16, tier="resident").flags == tmb.RES_WEIGHTS
-    # what the step down gives back: the resident matrices twice (W and W^T)
-    # and the gradient row, less the one staging matrix taken instead
+    assert res.flags == tplan.RES_WEIGHTS | tplan.RES_GRAD and sta.flags == 0
+    assert grd.flags == tplan.RES_GRAD
+    assert tmb.plan(False, u50, 16, T=16, tier="resident").flags == tplan.RES_WEIGHTS
+    with pytest.raises(ValueError, match="do not fit"):
+        tmb.plan(False, u50, 16, T=16, tier="gradient")     # pass A has no gradient row
+    # what each step down gives back: the resident matrices twice (W and W^T)
+    # less the one staging matrix taken instead, then the gradient row
     wp, P = tcuda.padded_wmax(u50), tcuda.n_params(u50)
     hid = 3 * wp * wp
-    assert res.smem - sta.smem == 4 * (2 * hid + (P + 1 + 3) // 4 * 4 - wp * wp)
-    assert tmb.resident(res, True) == ["hidden weights", "their transposes", "gradient row"]
-    assert tmb.resident(res, False) == ["hidden weights"] and tmb.resident(sta, True) == []
+    row = (P + 1 + 3) // 4 * 4
+    assert res.smem - grd.smem == 4 * (2 * hid - wp * wp)
+    assert grd.smem - sta.smem == 4 * row
+    assert tplan.resident(res, True) == ["hidden weights", "their transposes", "gradient row"]
+    assert tplan.resident(grd, True) == ["gradient row"]
+    assert tplan.resident(res, False) == ["hidden weights"] and tplan.resident(sta, True) == []
     with pytest.raises(ValueError, match="do not fit"):
         tmb.plan(True, EXTREMES["d16_w128_16layers"], 42, T=16, tier="resident")
 

@@ -315,3 +315,185 @@ def test_factories_reject_what_is_not_ported():
         tfq.make_fused_wan_v("sin", objective="max")
     with pytest.raises(ValueError):
         tfq.make_fused_wan_u("sin", convention="wr_over_norm")
+
+
+# ------------------------------------------------------------------ the plan
+QNETS = {"c64": (2, 64, 64, 1), "u64": (2, 64, 64, 64, 64, 1), "u50": (2, 50, 50, 50, 50, 1)}
+QEXTREMES = {
+    "d16_w128_16layers": (16,) + (128,) * 15 + (1,),
+    "width1": (2, 1, 1, 1),
+    "widths_1_and_50": (2, 50, 1, 50, 1),
+    "w128_shallow": (2, 128, 128, 1),
+    "one_hidden": (2, 12, 1),
+    **QNETS,
+}
+
+
+def _q_launchable(pl, kind, layers, lap):
+    """What fused_quotient.cu's entry point checks before it launches."""
+    from nnpde_tpu_torch.kernels import _cuda
+
+    seeded = kind.endswith("seeded")
+    return (4 <= pl.T <= _cuda.NT // 2 and pl.T % 4 == 0 and 0 <= pl.flags <= 7
+            and (seeded or pl.flags == 0)
+            and pl.smem >= 4 * tfq.smem_floats(kind, layers, pl.T, lap, pl.flags)
+            and pl.smem <= _cuda.SMEM_MAX)
+
+
+def _budget(share):
+    from nnpde_tpu_torch.kernels import _cuda
+
+    return _cuda.SMEM_MAX // share - (0 if share == 1 else 1024)
+
+
+@pytest.mark.parametrize("kind,net,want", [
+    ("linear_seeded", "c64", (16, 73120, "gradient")),
+    ("linear_seeded", "u64", (20, 64944, "staged")),
+    ("quad_seeded", "c64", (16, 72992, "gradient")),
+    ("quad_seeded", "u50", (24, 58320, "staged")),
+])
+def test_quotient_plan_path_shapes(kind, net, want):
+    """The nets the Poisson WAN and the infinite-well DRM run the seeded
+    kernels on: three blocks per SM; the gradient row on chip where it fits
+    one step below the one-wave tile (the critic: 16 against 20), staged at
+    that tile where it does not (u64 at 20, u50 at 24)."""
+    from nnpde_tpu_torch.kernels import _plan
+
+    layers = QNETS[net]
+    pl = tfq.plan(kind, layers, 0)
+    assert (pl.T, pl.smem, pl.tier) == want
+    assert pl.flags == dict(_plan.tiers(True))[pl.tier]
+    assert 3 * (pl.smem + 1024) <= _plan._cuda.SMEM_MAX
+    assert _q_launchable(pl, kind, layers, 0)
+    # weights and row together do not leave room for three blocks
+    assert 4 * tfq.smem_floats(kind, layers, 16, 0, _plan.RES_WEIGHTS | _plan.RES_GRAD) > _budget(3)
+
+
+@pytest.mark.parametrize("kind,lap", [("linear_seeded", 0), ("linear_seeded", 1),
+                                      ("quad_seeded", 0)])
+@pytest.mark.parametrize("net", sorted(QEXTREMES))
+def test_quotient_plan_takes_every_shape_the_wrapper_takes(net, kind, lap):
+    """Every net the wrapper's check takes gets a plan the kernel takes, in
+    the largest share of blocks per SM that any tier fits; a pinned tier
+    fits or raises.  (The quadratic kinds carry no Laplacian stream.)"""
+    from nnpde_tpu_torch.kernels import _cuda, _plan
+
+    layers = QEXTREMES[net]
+    params = [(torch.zeros(a, b), torch.zeros(b)) for a, b in zip(layers[:-1], layers[1:])]
+    assert _cuda.net_layers(kind, params, torch.zeros(8, layers[0]), "sin") == list(layers)
+    pl = tfq.plan(kind, layers, lap)
+    assert _q_launchable(pl, kind, layers, lap) and pl.T % 4 == 0
+    share = max(s for s in (3, 2, 1) if pl.smem <= _budget(s))
+    S = layers[0] + 1 + lap
+    for larger in (3, 2):
+        if larger > share:
+            assert _plan.fit(lambda t, f: tfq.smem_floats(kind, layers, t, lap, f), layers, S,
+                             True, _budget(larger), 16) is None
+    for tier, _ in _plan.tiers(True):
+        try:
+            pinned = tfq.plan(kind, layers, lap, T=16, tier=tier)
+        except ValueError:
+            continue
+        assert pinned.T == 16 and pinned.tier == tier
+        assert _q_launchable(pinned, kind, layers, lap)
+
+
+@pytest.mark.parametrize("kind,net", [("linear_seeded", "c64"), ("quad_seeded", "u50"),
+                                      ("linear_seeded", "u64")])
+def test_quotient_plan_steps_down_in_order(kind, net):
+    """Under a shrinking budget: weights and row resident, then the row
+    alone (each one step below the one-wave tile at most), then nothing
+    resident, down to 4 points."""
+    from nnpde_tpu_torch.kernels import _plan
+
+    layers = QNETS[net]
+    order = [name for name, _ in _plan.tiers(True)]
+    seen, last = [], None
+    for budget in range(_plan._cuda.SMEM_MAX, 8 * 1024, -2048):
+        pl = _plan.fit(lambda t, f: tfq.smem_floats(kind, layers, t, 0, f), layers,
+                       layers[0] + 1, True, budget, 4)
+        if pl is None:
+            break
+        assert pl.smem <= budget and pl.T % 4 == 0
+        key = (order.index(pl.tier), -pl.T)
+        assert last is None or key >= last, (budget, pl, last)
+        assert pl.T >= 16 or pl.tier == "staged"
+        last = key
+        if pl.tier not in seen:
+            seen.append(pl.tier)
+    assert seen == order and last[1] == -4
+
+
+@pytest.mark.parametrize("kind,lap", [("linear_seeded", 0), ("linear_seeded", 1),
+                                      ("quad_seeded", 0)])
+@pytest.mark.parametrize("net", sorted(QEXTREMES))
+def test_quotient_plan_keeps_the_tile_before_residency(net, kind, lap):
+    """A resident tier is taken only within one step (4 points) of the
+    one-wave tile; where the plan stages, no resident tier fits there at the
+    same share."""
+    from nnpde_tpu_torch.kernels import _plan
+
+    layers = QEXTREMES[net]
+    S = layers[0] + 1 + lap
+    t0 = _plan.tile_for(layers, S)
+    pl = tfq.plan(kind, layers, lap)
+    share = max(s for s in (3, 2, 1) if pl.smem <= _budget(s))
+    if pl.tier != "staged":
+        assert max(16, t0 - 4) <= pl.T <= t0
+    elif share > 1:
+        for _, flags in _plan.tiers(True)[:2]:
+            assert all(4 * tfq.smem_floats(kind, layers, t, lap, flags) > _budget(share)
+                       for t in range(max(16, t0 - 4), t0 + 1, 4))
+
+
+@pytest.mark.parametrize("kind", ["linear_sums", "quad_sums"])
+def test_quotient_sums_keep_the_constant_tile(kind):
+    from nnpde_tpu_torch.kernels import _cuda
+
+    for layers in QNETS.values():
+        pl = tfq.plan(kind, layers, 0)
+        assert (pl.T, pl.flags, pl.tier) == (_cuda.TILE, 0, "staged")
+        assert pl.smem == 4 * tfq.smem_floats(kind, layers, pl.T, 0)
+
+
+def test_quotient_flat_vector_handoff_matches_params_route():
+    """The four raw entry points with the parameters already flattened give
+    the params route's sums and gradients; the values come from the flat
+    vector, the shapes from params."""
+    from nnpde_tpu_torch.kernels import _cuda
+
+    d = 2
+    rng, pn, X = _case(d, seed=61, N=120)
+    tp, Xt = params_from_jax(pn), torch.as_tensor(X)
+    lin = torch.as_tensor(rng.normal(size=(X.shape[0], d + 5)).astype(np.float32))
+    quad = torch.as_tensor(rng.normal(size=(X.shape[0], d + 3)).astype(np.float32))
+    flat = _cuda.flat_params(tp)
+    zeros = [(torch.zeros_like(W), torch.zeros_like(b)) for W, b in tp]
+    for fn, coef, extra in ((tfq.fused_linear_sums, lin, {"no_lap": True}),
+                            (tfq.fused_quad_sums, quad, {})):
+        a = fn(tp, Xt, coef, "sin", **extra)
+        b = fn(zeros, Xt, coef, "sin", flat=flat, **extra)
+        assert all(torch.equal(a[k], b[k]) for k in a if k != "n")
+    for fn, coef, scal in ((tfq.fused_seeded_grads, lin, (0.3, -0.2, 0.7)),
+                           (tfq.fused_quad_seeded_grads, quad, (0.4, -0.3))):
+        ga = fn(tp, Xt, coef, scal, "sin")
+        gb = fn(zeros, Xt, coef, scal, "sin", flat=flat)
+        assert all(torch.equal(x, y) for pa, pb in zip(ga, gb) for x, y in zip(pa, pb))
+
+
+@pytest.mark.parametrize("layers,S,T,want", [
+    ((2, 64, 64, 1), 3, 16, True),               # the Poisson WAN critic, pass B
+    ((2, 64, 64, 64, 64, 1), 4, 16, True),       # the Poisson PINN's fused step
+    ((2, 64, 64, 64, 64, 1), 3, 20, False),      # 320 items: two waves
+    ((2, 50, 50, 50, 50, 1), 3, 24, False),      # 312 items
+    ((2, 50, 50, 50, 50, 1), 4, 16, True),       # 208 items
+    ((2, 20, 20, 20, 1), 3, 48, True),           # 240 items
+    ((3, 32, 32, 1), 5, 16, False),              # five streams
+])
+def test_fold_variant_rule(layers, S, T, want):
+    """The kernels' FOLD variant (activation in the products' epilogues)
+    runs where a point's streams fit its register tile (S <= 4) and the
+    (point, 4 units) items are one wave of the block."""
+    from nnpde_tpu_torch.kernels import _cuda
+
+    assert _cuda.folds(layers, S, T) is want
