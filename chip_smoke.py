@@ -52,9 +52,25 @@ Phases (each prints one JSON line; any failure exits non-zero):
    each kernel and its plain version at the path's N and at 262144 on the
    net it runs on, with the bound (bytes or operations) and, for the kernels
    that plan by net, the plan; training steps per second.
+9. precision (group ``precision``): precision_kernels holds the bf16-dot
+   variants of the fused residual (stream and analytic coefficients), the
+   jet forward and the jet backward to their plain bf16-dot versions
+   (float32 on the card) on u64 at 20000 points and u50 at 40000, d = 2
+   and 5: loss, gradient leaves and jet columns within 1e-4 norm-relative,
+   more than 1e-3 from the fp32 kernel, repeats bitwise; precision_path
+   trains ``compute_dtype='hybrid-kernel'`` on the main path's shape (3000
+   epochs on 'fused' with stream and analytic coefficients, 300 on
+   'kernel'; exact bf16 and fp32 launch counts; rel_l2 <= max(2 x the fp32
+   fused run, 1e-3)), the 5D Poisson PINN 'hybrid' on 'torch' and 'fused'
+   (1000 epochs; rel_l2 <= max(2 x the route's fp32 run, 1e-3); the two
+   tails from one bulk agree at 1e-3), the Poisson WAN 'hybrid' (300 fused
+   epochs), the infinite well (3, 3) PINN 'hybrid' (500 epochs, 'torch' and
+   'fused') and one 100-epoch 'bfloat16' run of each entry point;
+   precision_timing times the four kernels in both dot modes at the path's
+   N and at 262144 (d = 2), and rows 1, 4, 5 in fp32 at d = 5.
 
 ``python3 chip_smoke.py eigen`` (or any other phase-group name: kernels,
-wan, main, eigen, timing) runs only those groups, for work on one slice;
+wan, main, eigen, timing, precision) runs only those groups, for work on one slice;
 without arguments every phase runs.  ``python3 chip_smoke.py sweep`` is a
 further group that runs only when named: the K-bump pair and the two seeded
 quotient kernels at every plan tier and a range of tile sizes, each checked
@@ -553,6 +569,9 @@ def phase_main_path():
     fused_run = train_poisson_nd(PoissonConfig(jet_impl="fused", **base))
     t_fused = time.time() - t0
     launches = {"fused_linear_residual": LAUNCHES["fused_linear_residual"]}
+    MAIN_FUSED.update(rel_l2=fused_run["rel_l2"],
+                      total0=float(fused_run["history"]["total"][0]),
+                      steps_per_s=fused_run["result"].timing["steps_per_s"])
     side = {}
     for name, kw in (("fused_poisson_analytic", dict(coef_mode="analytic")),
                      ("fused_drm_energy", dict(method="DRM"))):
@@ -1350,7 +1369,447 @@ def phase_quotient_sweep(dev):
         raise SystemExit("quotient sweep: a case missed its bar")
 
 
-GROUPS = ("kernels", "wan", "main", "eigen", "timing")
+# --------------------------------------------------------------- precision
+# The bf16-dot variants of the four kernels that compute_dtype='hybrid-kernel'
+# launches, and the reduced-precision training of both entry points.
+PRECISION_REPLACES = {
+    "fused_linear_residual.bf16": "nnpde_tpu/kernels/fused_step.py:64",
+    "fused_poisson_analytic.bf16": "nnpde_tpu/kernels/fused_step.py:596",
+    "fwdlap_forward.bf16": "nnpde_tpu/kernels/fwdlap_pallas.py:157",
+    "fwdlap_backward.bf16": "nnpde_tpu/kernels/fwdlap_pallas.py:522",
+}
+PRECISION_SOURCES = {
+    "fused_linear_residual.bf16": "nnpde_tpu_torch/csrc/fused_step.cu",
+    "fused_poisson_analytic.bf16": "nnpde_tpu_torch/csrc/fused_step.cu",
+    "fwdlap_forward.bf16": "nnpde_tpu_torch/csrc/fwdlap_forward.cu",
+    "fwdlap_backward.bf16": "nnpde_tpu_torch/csrc/fwdlap_backward.cu",
+}
+BF16_PEAK = 989e12       # H100 SXM bf16 tensor cores, dense (FLOP/s)
+PREC_TOL = 1e-4
+# The jet forward's columns are per-point outputs: an operand that rounds to
+# the other bf16 neighbour under another fp32 sum order moves its point by
+# a bf16 ulp's share and is not averaged away as in a sum over points.  Two
+# sound fp32 orders of the bf16-dot recurrence differ by 3e-5 to 2.5e-4
+# per column at these shapes (the plain version against its float64
+# witness and against a float64-accumulated copy, on the CPU), more at
+# d = 5.  So each shape (d, hidden width) has its bar, set above that spread
+# and below a tenth of its distance from the fp32 kernel (the "apart" gate
+# is 10x the bar in force): the kernel vs its plain version measured 3.8e-6
+# / 1.4e-4 / 4.8e-5 / 4.1e-5, the fp32 distance 2.1e-3 / 9.9e-3 / 4.2e-3 /
+# 6.8e-3.  Every case also holds the kernel to the float64 witness: no
+# further from it than 2x the plain fp32 version is (+2e-6, the fp32 sum
+# noise of the loss and leaves).
+PREC_TOL_JET = {(2, 64): 1e-4, (5, 64): 5e-4, (2, 50): 2e-4, (5, 50): 3e-4}
+# row 5 from a random cotangent (u50, d = 2): the leaves sum terms whose
+# signs cancel, so their sum-order noise shows (the plain version is 2.8e-4
+# from its float64 witness at this seed, on the CPU; 1.3e-2 from the fp32
+# plain version)
+PREC_TOL_BWD_RANDOM = 8e-4
+U50 = EIGEN_U
+# what the main path's fused run left for the precision path (same call)
+MAIN_FUSED = {}
+
+
+class PrecCase:
+    """One of the four kernels with a bf16-dot variant at one shape: the
+    wrapper in either dot mode and the plain version of either mode, as a
+    list of tensors ([loss, leaves...], the jet rows, or the leaves).  The
+    jet backward takes the cotangent the Poisson PINN loss gives the raw
+    net's jet, or with ``ct='random'`` a random one."""
+
+    def __init__(self, base, N, layers, act, seed, dev, ct="residual"):
+        rng = np.random.default_rng(seed)
+        self.base, self.N, self.layers, self.act = base, N, layers, act
+        self.d = d = layers[0]
+        if base.startswith("fused"):
+            self.case = Case(base, N, d, layers, act, seed, dev)
+            self.params, self.X = self.case.params, self.case.X
+        else:
+            from nnpde_tpu_torch.kernels import fused_step as fs
+            from nnpde_tpu_torch.kernels import fwdlap_cuda as fc
+            from nnpde_tpu_torch.models import factor_for_technique
+            from nnpde_tpu_torch.pde.poisson import rhs_f_for_u_sin
+
+            self.params = rand_params(rng, layers, dev)
+            self.X = torch.as_tensor(rng.uniform(0.0, L, (N, d)).astype(np.float32),
+                                     device=dev)
+            if ct == "random":
+                self.ct = torch.as_tensor(
+                    (rng.standard_normal((N, d + 2)) / N).astype(np.float32), device=dev)
+            else:
+                # (2/N) r (c, b, a) with r the residual of the box-FBC trial
+                fj = factor_for_technique("FBC", dim=d, kind="box", L=L).jet(self.X)
+                coef = fs.residual_coefficients(fj, a0=-1.0, rhs=-rhs_f_for_u_sin(
+                    self.X, L, (1,) * d))
+                jet = fc.fwdlap_forward_plain(self.params, self.X, act)
+                r = (coef[:, 0] * jet.value + torch.sum(coef[:, 1:1 + d] * jet.grad, dim=1)
+                     + coef[:, d + 1] * jet.lap + coef[:, d + 2])
+                self.ct = ((2.0 / N) * r[:, None] * coef[:, :d + 2]).contiguous()
+
+    def folds(self):
+        """Whether the wrapper takes the FOLD variant at this shape."""
+        from nnpde_tpu_torch.kernels import _cuda
+        from nnpde_tpu_torch.kernels import fused_step as fs
+        from nnpde_tpu_torch.kernels import fwdlap_cuda as fc
+
+        plan = {"fwdlap_forward": lambda t: fc._plan_forward(self.layers, t),
+                "fwdlap_backward": lambda t: fc._plan_backward(self.layers, t)}.get(
+                    self.base, lambda t: fs._plan(self.base, self.layers, t))
+        T, _ = _cuda.plan_tile(plan)
+        return _cuda.folds(self.layers, self.d + 2, T)
+
+    def kernel(self, dot):
+        from nnpde_tpu_torch.kernels import fused_step as fs
+        from nnpde_tpu_torch.kernels import fwdlap_cuda as fc
+
+        if self.base == "fwdlap_forward":
+            return [fc.fwdlap_forward(self.params, self.X, self.act,
+                                      "rows:default" if dot == "bfloat16" else "rows")]
+        if self.base == "fwdlap_backward":
+            dWs, dbs = fc.fwdlap_backward(self.params, self.X, self.ct, self.act, dot)
+            return [t for pair in zip(dWs, dbs) for t in pair]
+        c = self.case
+        if self.base == "fused_linear_residual":
+            loss, _, g = fs.fused_linear_residual(c.params, c.X, c.coef, self.act, dot_dtype=dot)
+        else:
+            loss, _, g = fs.fused_poisson_analytic(c.params, c.X, self.act, L=L, ks=c.ks,
+                                                   dot_dtype=dot)
+        return [loss.reshape(1)] + [t for pair in g for t in pair]
+
+    def plain(self, dot, dtype=torch.float32):
+        """The plain version of the ``dot`` mode on the card, float32 (the
+        oracle) or float64 (``dtype``; in the bf16-dot mode the witness: its
+        operands rounded to bf16 from float64 values)."""
+        from nnpde_tpu_torch.kernels import fused_step as fs
+        from nnpde_tpu_torch.kernels import fwdlap_cuda as fc
+
+        P = [(W.to(dtype), b.to(dtype)) for W, b in self.params]
+        X = self.X.to(dtype)
+        if self.base == "fwdlap_forward":
+            if dot == "bfloat16":
+                return [fc.fwdlap_forward_default_plain(P, X, self.act)]
+            jet = fc.fwdlap_forward_plain(P, X, self.act)
+            return [torch.cat([jet.value[:, None], jet.grad, jet.lap[:, None]], dim=1)]
+        if self.base == "fwdlap_backward":
+            dWs, dbs = fc.fwdlap_backward_plain(P, X, self.ct.to(dtype), self.act, dot)
+            return [t for pair in zip(dWs, dbs) for t in pair]
+        c = self.case
+        if self.base == "fused_linear_residual":
+            dWs, dbs, sums = fs.linear_residual_plain(P, X, c.coef.to(dtype), self.act, dot)
+        else:
+            dWs, dbs, sums = fs.poisson_analytic_plain(P, X, self.act,
+                                                       fs.PoissonSinCoef(L, c.ks), dot)
+        g = fs._scaled_grads(P, dWs, dbs, sums, 2.0 / self.N)
+        return [(sums[0] / self.N).reshape(1)] + [t for pair in g for t in pair]
+
+    def rel(self, a, b):
+        """The largest norm-relative difference: over the loss and every
+        gradient leaf, or over the jet's columns."""
+        if self.base == "fwdlap_forward":
+            return col_rel(a[0], b[0])
+        return max(float(torch.linalg.norm(x.double() - y.double())
+                         / max(float(torch.linalg.norm(y.double())), 1e-30))
+                   for x, y in zip(a, b))
+
+    def points_off(self, a, b):
+        """Share of points whose jet row differs from the plain version's by
+        more than 1e-5 of the column's rms (the jet forward)."""
+        out, ref = a[0].double(), b[0].double()
+        rms = torch.sqrt(torch.mean(ref * ref, dim=0))
+        return float(torch.mean((torch.max(torch.abs(out - ref) / rms, dim=1).values
+                                 > 1e-5).double()))
+
+    def distinct(self, bf, f32):
+        """How far the bf16-dot result is from the fp32 one: the Laplacian
+        column of the jet, else the largest gradient leaf difference."""
+        if self.base == "fwdlap_forward":
+            a, b = bf[0][:, -1].double(), f32[0][:, -1].double()
+            return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+        lo = 0 if self.base == "fwdlap_backward" else 1
+        return self.rel(bf[lo:], f32[lo:])
+
+    def flops(self):
+        per = 2.0 if self.base == "fwdlap_forward" else 6.0
+        return per * (self.d + 2) * macs(self.layers) * self.N
+
+    def bytes(self):
+        P = sum(a * b + b for a, b in zip(self.layers[:-1], self.layers[1:]))
+        if self.base.startswith("fused"):
+            return self.case.bytes()
+        if self.base == "fwdlap_forward":
+            return 4.0 * (self.N * (2 * self.d + 2) + P)
+        return 4.0 * (self.N * (2 * self.d + 2) + 2 * P)
+
+    def bound(self, peak):
+        """(bound ms, bound_by) with the products at ``peak`` FLOP/s."""
+        ops, mem = self.flops() / peak, self.bytes() / HBM_RATE
+        return 1e3 * max(ops, mem), "operations" if ops >= mem else "bytes"
+
+
+class unfolded:
+    """Within the block every wrapper takes the variant without the fold,
+    whatever the shape (to hold both variants at one shape)."""
+
+    def __enter__(self):
+        from nnpde_tpu_torch.kernels import _cuda
+
+        self.keep = _cuda.folds
+        _cuda.folds = lambda layers, S, T: False
+
+    def __exit__(self, *exc):
+        from nnpde_tpu_torch.kernels import _cuda
+
+        _cuda.folds = self.keep
+
+
+def phase_precision_kernels(dev):
+    """Each bf16-dot variant against its plain bf16-dot version (float32 on
+    the card): the loss and every gradient leaf within 1e-4 norm-relative,
+    the jet's columns within their shape's bar (PREC_TOL_JET), row 5 from a
+    random cotangent within PREC_TOL_BWD_RANDOM; apart from the fp32 kernel
+    by more than 10x the bar in force; no further from the float64 witness
+    than 2x the plain version is (+2e-6); two launches bitwise equal.  Rows
+    4 and 5 also at u64, d = 2 with the fold taken away, so that both
+    variants are held at one shape."""
+    rows, max_err = [], {}
+    U5, U50_5 = (5, 64, 64, 64, 64, 1), (5, 50, 50, 50, 50, 1)
+    # (kernel, N, layers, seed, options): the unfolded case takes the inputs
+    # of the folded one, the random cotangent the net and points of u50
+    cases = [(b, 20000, lay, 300 + i, {})
+             for b in ("fused_linear_residual", "fused_poisson_analytic")
+             for i, lay in enumerate((LAYERS, U5))]
+    for b in ("fwdlap_forward", "fwdlap_backward"):
+        cases += [(b, 20000, LAYERS, 300, {}), (b, 20000, U5, 301, {}),
+                  (b, EIGEN_N, U50, 302, {}), (b, EIGEN_N, U50_5, 303, {}),
+                  (b, 20000, LAYERS, 300, {"unfolded": True})]
+    cases.append(("fwdlap_backward", EIGEN_N, U50, 302, {"ct": "random"}))
+    for base, N, layers, seed, opt in cases:
+        case = PrecCase(base, N, layers, "sin", seed=seed, dev=dev,
+                        ct=opt.get("ct", "residual"))
+        same = None
+        if opt.get("unfolded"):
+            folded = case.kernel("bfloat16")
+            with unfolded():
+                fold = case.folds()
+                out, out2, f32 = case.kernel("bfloat16"), case.kernel("bfloat16"), \
+                    case.kernel("float32")
+            same = all(torch.equal(a, b) for a, b in zip(out, folded))
+            del folded
+        else:
+            fold = case.folds()
+            out, out2, f32 = case.kernel("bfloat16"), case.kernel("bfloat16"), \
+                case.kernel("float32")
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip(out, out2))
+        ref = case.plain("bfloat16")
+        wit = case.plain("bfloat16", torch.float64)
+        rel = case.rel(out, ref)
+        w_kernel, w_plain = case.rel(out, wit), case.rel(ref, wit)
+        apart = case.distinct(out, f32)
+        err = max(float(torch.max(torch.abs(a.double() - b.double())))
+                  for a, b in zip(out, ref))
+        name = base + ".bf16"
+        max_err[name] = max(max_err.get(name, 0.0), err)
+        if base == "fwdlap_forward":
+            tol = PREC_TOL_JET[(layers[0], layers[1])]
+        elif opt.get("ct") == "random":
+            tol = PREC_TOL_BWD_RANDOM
+        else:
+            tol = PREC_TOL
+        row = {"kernel": name, "N": N, "layers": list(layers), "fold": bool(fold),
+               "cotangent": opt.get("ct", "residual") if base == "fwdlap_backward" else None,
+               "rel": rel, "tol": tol, "rel_to_fp32_kernel": apart,
+               "witness_rel_kernel": w_kernel, "witness_rel_plain": w_plain,
+               "max_abs_err": err, "bitwise_repeat": bitwise, "equal_to_folded": same,
+               "ok": bool(rel <= tol and apart > 10 * tol and bitwise
+                          and w_kernel <= 2.0 * w_plain + 2e-6)}
+        if base == "fwdlap_forward":
+            row["points_off"] = case.points_off(out, ref)
+        rows.append(row)
+        del case, out, out2, f32, ref, wit
+        torch.cuda.empty_cache()
+    emit({"phase": "precision_kernels", "tol": PREC_TOL, "rows": rows})
+    if not all(r["ok"] for r in rows):
+        raise SystemExit("bf16-dot kernel vs plain comparison failed")
+    return max_err
+
+
+def phase_precision_timing(dev):
+    """Wrapper and device ms of the four kernels in both dot modes at the
+    path's N and at 262144 (d = 2, u64), and of rows 1, 4, 5 in fp32 at
+    d = 5 (S = 7: the variant without the fold), each with its plain
+    version's ms and its bound: the bf16-dot rows at the bf16 tensor cores'
+    peak, with their CUDA-core bound beside it."""
+    rows = []
+    U5 = (5, 64, 64, 64, 64, 1)
+    plan = [(b, LAYERS, dot) for b in ("fused_linear_residual", "fused_poisson_analytic",
+                                       "fwdlap_forward", "fwdlap_backward")
+            for dot in ("bfloat16", "float32")]
+    plan += [(b, U5, "float32") for b in ("fused_linear_residual", "fwdlap_forward",
+                                          "fwdlap_backward")]
+    for base, layers, dot in plan:
+        for N in (20000, 262144):
+            case = PrecCase(base, N, layers, "sin", seed=7, dev=dev)
+            ms = time_ms(lambda: case.kernel(dot))
+            dev_ms = device_ms(lambda: case.kernel(dot))
+            plain_ms = time_ms(lambda: case.plain(dot), warmup=2, reps=7)
+            # bf16 operands with fp32 accumulation run at the bf16 tensor
+            # cores' peak on this card: that is the bound of a bf16-dot row;
+            # its CUDA-core figure (the design these variants use) beside it
+            bound, by = case.bound(BF16_PEAK if dot == "bfloat16" else FP32_PEAK)
+            row = {"kernel": base + (".bf16" if dot == "bfloat16" else ""),
+                   "net": "u", "d": layers[0], "N": N, "ms": ms, "device_ms": dev_ms,
+                   "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                   "flop": case.flops(), "bytes": case.bytes(),
+                   "gflops": case.flops() / (dev_ms * 1e-3) / 1e9}
+            if dot == "bfloat16":
+                row["bound_cuda_core_ms"] = case.bound(FP32_PEAK)[0]
+            rows.append(row)
+            del case
+            torch.cuda.empty_cache()
+    emit({"phase": "precision_timing", "rows": rows})
+    return rows
+
+
+def _rate(r):
+    return r["result"].timing["steps_per_s"]
+
+
+def phase_precision_path():
+    """The reduced-precision training runs, each gated and with its launch
+    counts read right after it; steps/s beside the fp32 run of the same
+    route in this call."""
+    from nnpde_tpu_torch.kernels import LAUNCHES, reset_launches
+    from nnpde_tpu_torch.problems import (IPW2DConfig, PoissonConfig, train_ipw_2d,
+                                          train_poisson_nd)
+
+    out, counts, ok = {}, {}, True
+
+    def run(fn, cfg):
+        reset_launches()
+        t0 = time.time()
+        r = fn(cfg)
+        return r, {k: v for k, v in LAUNCHES.items() if v}, time.time() - t0
+
+    # poisson2d-pinn-hybrid-kernel: the main path's shape, the bf16-dot
+    # bulk on the fused kernels (stream and analytic coefficients) and on
+    # the jet pair
+    base = dict(dim=2, method="PINN", bc_mode="FBC", epochs=3000, n_interior=20000,
+                chunk=1000)
+    if not MAIN_FUSED:
+        r, _, _ = run(train_poisson_nd, PoissonConfig(jet_impl="fused", **base))
+        MAIN_FUSED.update(rel_l2=r["rel_l2"], total0=float(r["history"]["total"][0]),
+                          steps_per_s=_rate(r))
+    gate = max(2.0 * MAIN_FUSED["rel_l2"], 1e-3)
+    hk = {}
+    for name, kw, kern in (("fused", dict(jet_impl="fused"), "fused_linear_residual"),
+                           ("fused_analytic", dict(jet_impl="fused", coef_mode="analytic"),
+                            "fused_poisson_analytic")):
+        r, launches, wall = run(train_poisson_nd,
+                                PoissonConfig(compute_dtype="hybrid-kernel", **kw, **base))
+        t0 = float(r["history"]["total"][0])
+        apart = abs(t0 - MAIN_FUSED["total0"]) / abs(MAIN_FUSED["total0"])
+        want = {kern + ".bf16": 2400, kern: 600}
+        row = {"rel_l2": r["rel_l2"], "rel_l2_fp32_fused": MAIN_FUSED["rel_l2"], "gate": gate,
+               "total0_rel_to_fp32": apart,
+               "launches": launches, "steps_per_s": _rate(r),
+               "bulk_steps_per_s": r["result"].timing["bulk_steps_per_s"],
+               "tail_steps_per_s": r["result"].timing["tail_steps_per_s"],
+               "fp32_fused_steps_per_s": MAIN_FUSED["steps_per_s"], "wall_s": wall}
+        row["ok"] = bool(r["rel_l2"] <= gate and 1e-6 < apart <= 1e-2 and launches == want)
+        hk[name] = row
+        counts[kern + ".bf16"] = launches.get(kern + ".bf16", 0)
+    kcfg = dict(base, epochs=300, jet_impl="kernel")
+    r32, l32, _ = run(train_poisson_nd, PoissonConfig(**kcfg))
+    r, launches, wall = run(train_poisson_nd, PoissonConfig(compute_dtype="hybrid-kernel",
+                                                            **kcfg))
+    want = {"fwdlap_forward.bf16": 240, "fwdlap_backward.bf16": 240, "fwdlap_forward": 60,
+            "fwdlap_backward": 60}
+    hk["kernel"] = {"epochs": 300, "rel_l2": r["rel_l2"], "rel_l2_fp32": r32["rel_l2"],
+                    "launches": launches, "launches_fp32": l32, "steps_per_s": _rate(r),
+                    "fp32_steps_per_s": _rate(r32),
+                    "ok": bool(np.all(np.isfinite(r["history"]["total"])) and launches == want)}
+    counts["fwdlap_forward.bf16"] = launches.get("fwdlap_forward.bf16", 0)
+    counts["fwdlap_backward.bf16"] = launches.get("fwdlap_backward.bf16", 0)
+    out["poisson2d_pinn_hybrid_kernel"] = hk
+
+    # poisson5d-pinn-hybrid: u64 at d = 5, 1000 epochs (cut from 10000), on
+    # torch and on fused (torch bulk, fused tail), beside fp32 runs
+    b5 = dict(dim=5, method="PINN", bc_mode="FBC", epochs=1000, n_interior=20000, chunk=1000)
+    p5, runs5 = {}, {}
+    for route in ("torch", "fused"):
+        r32, l32, _ = run(train_poisson_nd, PoissonConfig(jet_impl=route, **b5))
+        rh, lh, _ = run(train_poisson_nd, PoissonConfig(jet_impl=route,
+                                                        compute_dtype="hybrid", **b5))
+        runs5[route] = rh
+        g = max(2.0 * r32["rel_l2"], 1e-3)
+        want = {} if route == "torch" else {"fused_linear_residual": 200}
+        want32 = {} if route == "torch" else {"fused_linear_residual": 1000}
+        p5[route] = {"rel_l2_hybrid": rh["rel_l2"], "rel_l2_fp32": r32["rel_l2"], "gate": g,
+                     "launches": lh, "launches_fp32": l32, "steps_per_s": _rate(rh),
+                     "bulk_steps_per_s": rh["result"].timing["bulk_steps_per_s"],
+                     "tail_steps_per_s": rh["result"].timing["tail_steps_per_s"],
+                     "fp32_steps_per_s": _rate(r32),
+                     "ok": bool(rh["rel_l2"] <= g and lh == want and l32 == want32)}
+    ht, hf = runs5["torch"]["history"]["total"], runs5["fused"]["history"]["total"]
+    bulk = int(len(ht) * PoissonConfig().hybrid_bf16_fraction)
+    p5["bulk_max_rel"] = float(np.max(np.abs(hf[:bulk] - ht[:bulk]) / np.abs(ht[:bulk])))
+    p5["tail_total0_rel"] = float(abs(hf[bulk] - ht[bulk]) / abs(ht[bulk]))
+    p5["ok"] = bool(p5["torch"]["ok"] and p5["fused"]["ok"] and p5["bulk_max_rel"] <= 1e-6
+                    and p5["tail_total0_rel"] <= 1e-3)
+    out["poisson5d_pinn_hybrid"] = p5
+
+    # poisson2d-wan-hybrid: the WAN path's config, 300 epochs on fused
+    r, launches, wall = run(train_poisson_nd, PoissonConfig(dim=2, method="WAN", epochs=300,
+                                                            chunk=1000, jet_impl="fused",
+                                                            compute_dtype="hybrid"))
+    h = r["history"]
+    l2_first = float(h["l2"][0]) / 0.5
+    want = {k: n * 60 for k, n in WAN_PER_EPOCH.items()}
+    out["poisson2d_wan_hybrid"] = {
+        "epochs": 300, "rel_l2": r["rel_l2"], "rel_l2_first": l2_first, "launches": launches,
+        "steps_per_s": _rate(r), "bulk_steps_per_s": r["result"].timing["bulk_steps_per_s"],
+        "tail_steps_per_s": r["result"].timing["tail_steps_per_s"],
+        "ok": bool(all(np.all(np.isfinite(h[k])) for k in ("total", "l2", "wan_loss_v"))
+                   and r["rel_l2"] < l2_first and launches == want)}
+
+    # ipw2d-n33-pinn-hybrid: 500 epochs (cut from 20000), torch and fused
+    ib = dict(nx=3, ny=3, technique="FN", method="PINN", epochs=500, chunk=1000,
+              weights={"data": 1e4})
+    i32, _, _ = run(train_ipw_2d, IPW2DConfig(jet_impl="torch", **ib))
+    g = max(2.0 * i32["rel_l2"], 1e-3)
+    ip = {"rel_l2_fp32_torch": i32["rel_l2"], "fp32_torch_steps_per_s": _rate(i32), "gate": g}
+    for route in ("torch", "fused"):
+        r, launches, _ = run(train_ipw_2d, IPW2DConfig(jet_impl=route, compute_dtype="hybrid",
+                                                       **ib))
+        want = {} if route == "torch" else {"fused_linear_residual": 100}
+        ip[route] = {"rel_l2": r["rel_l2"], "launches": launches, "steps_per_s": _rate(r),
+                     "bulk_steps_per_s": r["result"].timing["bulk_steps_per_s"],
+                     "tail_steps_per_s": r["result"].timing["tail_steps_per_s"],
+                     "ok": bool(r["rel_l2"] <= g and launches == want)}
+    ip["ok"] = ip["torch"]["ok"] and ip["fused"]["ok"]
+    out["ipw2d_n33_pinn_hybrid"] = ip
+
+    # one 100-epoch bfloat16 run of each entry point
+    rp, _, _ = run(train_poisson_nd, PoissonConfig(dim=2, epochs=100, chunk=1000,
+                                                   compute_dtype="bfloat16"))
+    ri, _, _ = run(train_ipw_2d, IPW2DConfig(**dict(ib, epochs=100), compute_dtype="bfloat16"))
+    out["bfloat16"] = {
+        "poisson_rel_l2": rp["rel_l2"], "poisson_steps_per_s": _rate(rp),
+        "ipw2d_rel_l2": ri["rel_l2"], "ipw2d_steps_per_s": _rate(ri),
+        "ok": bool(np.all(np.isfinite(rp["history"]["total"]))
+                   and np.all(np.isfinite(ri["history"]["total"])))}
+
+    ok = (all(v["ok"] for v in hk.values()) and p5["ok"]
+          and all(out[k]["ok"] for k in ("poisson2d_wan_hybrid", "ipw2d_n33_pinn_hybrid",
+                                         "bfloat16")))
+    emit({"phase": "precision_path", **out, "ok": ok})
+    if not ok:
+        raise SystemExit("precision path check failed")
+    return counts
+
+
+GROUPS = ("kernels", "wan", "main", "eigen", "timing", "precision")
 
 
 def main():
@@ -1373,6 +1832,8 @@ def main():
         max_err.update(phase_wan_kernels(dev))
     if "eigen" in want:
         max_err.update(phase_eigen_kernels(dev))
+    if "precision" in want:
+        max_err.update(phase_precision_kernels(dev))
     if "main" in want:
         counts, speed["steps_per_s_fused"] = phase_main_path()
         launches.update(counts)
@@ -1383,11 +1844,15 @@ def main():
         counts, eigen_speed = phase_eigen_path()
         launches.update(counts)
         speed["eigen"] = eigen_speed
-    rows = wan_rows = eigen_rows = []
+    if "precision" in want:
+        launches.update(phase_precision_path())
+    rows = wan_rows = eigen_rows = prec_rows = []
     if "timing" in want:
         rows = phase_timing(dev)
         wan_rows = phase_wan_timing(dev)
         eigen_rows = phase_eigen_timing(dev)
+    if "precision" in want:
+        prec_rows = phase_precision_timing(dev)
     emit({"phase": "train_step", **speed,
           "points_per_s_fused": speed.get("steps_per_s_fused", 0.0) * 20000})
     if not full:
@@ -1424,7 +1889,15 @@ def main():
             "max_abs_err": max_err[kind], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
         })
-    if len(kernels) != 12 or not all(k["launches"] > 0 for k in kernels):
+    for kind in PRECISION_REPLACES:
+        row = next(r for r in prec_rows if r["kernel"] == kind and r["N"] == 20000)
+        kernels.append({
+            "name": kind, "route": "cuda", "source": PRECISION_SOURCES[kind],
+            "replaces": PRECISION_REPLACES[kind], "launches": launches[kind],
+            "max_abs_err": max_err[kind], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
+        })
+    if len(kernels) != 16 or not all(k["launches"] > 0 for k in kernels):
         raise SystemExit("a kernel of the paths was launched no time on its path")
     emit({"kernels": kernels})
     print(card, flush=True)

@@ -22,6 +22,17 @@
 // only the earlier stages' pre-activations leave the SM (see
 // fwdlap_core.cuh for that scratch traffic).
 //
+// The bf16-dot mode (BF16 variants of the linear and analytic kernels;
+// the TPU kernels' dot_dtype='bfloat16', which the bulk of
+// compute_dtype='hybrid-kernel' runs): every product operand rounded to
+// bf16, fp32 accumulation, on the same CUDA-core FFMA products
+// (fwdlap_core.cuh, "BF16").  Bound: the same FLOP at the fp32 CUDA-core
+// rate; the rounding adds two instructions per operand read, so this
+// variant is no faster than the fp32 one.  The H100's bf16 tensor cores
+// (989 TFLOP/s dense) are where such a mode earns its speed, and moving
+// the 4 x 4 register tiles onto mma/wgmma fragments is a redesign of its
+// own.  The DRM kernel has no BF16 variant (no caller passes one).
+//
 // Interface: plain C (ctypes), float32 only, row-major (in, out) weights
 // flattened as [W0, b0, W1, b1, ...].  Every entry point launches on the
 // given stream, never synchronises, and returns cudaGetLastError().
@@ -74,7 +85,7 @@ __device__ __forceinline__ void poisson_sin_coef(const Analytic& an, int d,
   rhs = -(an.fscale * s);
 }
 
-template <int MODE, bool FOLD>
+template <int MODE, bool FOLD, bool BF16>
 __device__ void fused_body(const Args& A) {
   extern __shared__ __align__(16) float smem[];
   const Net& net = A.net;
@@ -105,7 +116,7 @@ __device__ void fused_body(const Args& A) {
     __syncthreads();
     float* cur = bufA;
     float* nxt = bufB;
-    fwd_recompute<false, FOLD>(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch);
+    fwd_recompute<false, FOLD, BF16>(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch);
     project_last(net, T, cur, wlast, blast, proj);
     __syncthreads();
     // per-point loss terms and cotangent seeds
@@ -173,26 +184,27 @@ __device__ void fused_body(const Args& A) {
       grow[net.P + 1] += a1;
       grow[net.P + 2] += a2;
     }
-    reverse_sweep<false, FOLD>(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch, ct, red,
-                               grow);
+    reverse_sweep<false, FOLD, BF16>(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch, ct,
+                                     red, grow);
   }
 }
 
 }  // namespace
 
 // (each kernel in two variants: FOLD, the activation in the products'
-// epilogues, for nets with at most 4 streams; the wrapper chooses)
-template <bool FOLD>
+// epilogues, for nets with at most 4 streams; and the linear and analytic
+// kernels in BF16 variants, the bf16-dot mode; the wrapper chooses)
+template <bool FOLD, bool BF16>
 __global__ void __launch_bounds__(NT) fused_linear_residual_kernel(Args a) {
-  fused_body<MODE_LINEAR, FOLD>(a);
+  fused_body<MODE_LINEAR, FOLD, BF16>(a);
 }
-template <bool FOLD>
+template <bool FOLD, bool BF16>
 __global__ void __launch_bounds__(NT) fused_poisson_analytic_kernel(Args a) {
-  fused_body<MODE_ANALYTIC, FOLD>(a);
+  fused_body<MODE_ANALYTIC, FOLD, BF16>(a);
 }
 template <bool FOLD>
 __global__ void __launch_bounds__(NT) fused_drm_energy_kernel(Args a) {
-  fused_body<MODE_DRM, FOLD>(a);
+  fused_body<MODE_DRM, FOLD, false>(a);
 }
 
 // out[j] = sum_g partial[g][j].  One loop over all G rows per output is a
@@ -228,13 +240,22 @@ namespace {
 
 typedef void (*KernelFn)(Args);
 
-KernelFn kernel_for(int mode, int fold) {
+KernelFn kernel_for(int mode, int fold, int bf16) {
   switch (mode) {
     case MODE_LINEAR:
-      return fold ? fused_linear_residual_kernel<true> : fused_linear_residual_kernel<false>;
+      if (bf16)
+        return fold ? fused_linear_residual_kernel<true, true>
+                    : fused_linear_residual_kernel<false, true>;
+      return fold ? fused_linear_residual_kernel<true, false>
+                  : fused_linear_residual_kernel<false, false>;
     case MODE_ANALYTIC:
-      return fold ? fused_poisson_analytic_kernel<true> : fused_poisson_analytic_kernel<false>;
+      if (bf16)
+        return fold ? fused_poisson_analytic_kernel<true, true>
+                    : fused_poisson_analytic_kernel<false, true>;
+      return fold ? fused_poisson_analytic_kernel<true, false>
+                  : fused_poisson_analytic_kernel<false, false>;
     case MODE_DRM:
+      if (bf16) return nullptr;
       return fold ? fused_drm_energy_kernel<true> : fused_drm_energy_kernel<false>;
     default: return nullptr;
   }
@@ -242,7 +263,7 @@ KernelFn kernel_for(int mode, int fold) {
 
 int launch(int mode, const float* X, const float* coef, const float* params,
            const int* layers, int n_layers, int act, int N, int T, int G, int fold,
-           const float* analytic, float* partial, float* scratch, float* out,
+           int bf16, const float* analytic, float* partial, float* scratch, float* out,
            int smem_bytes, void* stream) {
   Args a;
   if (!make_net(mode == MODE_DRM ? 0 : 1, layers, n_layers, act, &a.net) || N < 1 || T < 4 ||
@@ -265,7 +286,8 @@ int launch(int mode, const float* X, const float* coef, const float* params,
     a.an.fscale = analytic[2];
     for (int i = 0; i < a.net.d; ++i) a.an.kpi[i] = analytic[3 + i];
   }
-  KernelFn fn = kernel_for(mode, fold);
+  KernelFn fn = kernel_for(mode, fold, bf16);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
@@ -281,37 +303,38 @@ int launch(int mode, const float* X, const float* coef, const float* params,
 extern "C" {
 
 // fold: the variant with the activation in the products' epilogues (nets
-// with at most 4 streams).
+// with at most 4 streams); bf16: the bf16-dot variant.  Tensors are float32
+// in every variant.
 int fused_linear_residual_f32(const float* X, const float* coef,
                               const float* params, const int* layers,
                               int n_layers, int act, int N, int T, int G, int fold,
-                              float* partial, float* scratch, float* out,
+                              int bf16, float* partial, float* scratch, float* out,
                               int smem_bytes, void* stream) {
   return launch(MODE_LINEAR, X, coef, params, layers, n_layers, act, N, T, G, fold,
-                nullptr, partial, scratch, out, smem_bytes, stream);
+                bf16, nullptr, partial, scratch, out, smem_bytes, stream);
 }
 
 int fused_poisson_analytic_f32(const float* X, const float* params,
                                const int* layers, int n_layers, int act, int N,
-                               int T, int G, int fold, const float* analytic,
+                               int T, int G, int fold, int bf16, const float* analytic,
                                float* partial, float* scratch, float* out,
                                int smem_bytes, void* stream) {
   return launch(MODE_ANALYTIC, X, nullptr, params, layers, n_layers, act, N, T,
-                G, fold, analytic, partial, scratch, out, smem_bytes, stream);
+                G, fold, bf16, analytic, partial, scratch, out, smem_bytes, stream);
 }
 
 int fused_drm_energy_f32(const float* X, const float* coef, const float* params,
                          const int* layers, int n_layers, int act, int N, int T,
                          int G, int fold, float* partial, float* scratch, float* out,
                          int smem_bytes, void* stream) {
-  return launch(MODE_DRM, X, coef, params, layers, n_layers, act, N, T, G, fold,
+  return launch(MODE_DRM, X, coef, params, layers, n_layers, act, N, T, G, fold, 0,
                 nullptr, partial, scratch, out, smem_bytes, stream);
 }
 
 // Resident blocks per SM for a mode and variant at a dynamic shared-memory
 // size.
-int fused_blocks_per_sm(int mode, int fold, int smem_bytes, int* blocks) {
-  KernelFn fn = kernel_for(mode, fold);
+int fused_blocks_per_sm(int mode, int fold, int bf16, int smem_bytes, int* blocks) {
+  KernelFn fn = kernel_for(mode, fold, bf16);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);

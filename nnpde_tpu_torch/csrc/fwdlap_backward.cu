@@ -18,6 +18,13 @@
 // shared-memory product per layer over all d+2 streams, 4 x 4 register
 // tiles, cp.async for weights and saved stages).
 //
+// The BF16 variant is the TPU kernel's dot_dtype='bfloat16' (the backward
+// of the bulk of compute_dtype='hybrid-kernel' on the jet pair): every
+// product operand of the recompute and of the reverse sweep rounded to
+// bf16, fp32 accumulation on the same CUDA-core products (fwdlap_core.cuh,
+// "BF16").  Same FLOP at the same rate plus the rounding: no faster than
+// the fp32 variant; the bf16 tensor cores are a redesign of their own.
+//
 // Determinism: per-block partial rows, fixed in-block orders, one ordered
 // reduction in double, no atomics -- two launches are bitwise equal.
 //
@@ -42,9 +49,9 @@ struct BwdArgs {
 
 }  // namespace
 
-// (in two variants: FOLD, the activation in the products' epilogues, for
-// nets with at most 4 streams; the wrapper chooses)
-template <bool FOLD>
+// (in variants: FOLD, the activation in the products' epilogues, for nets
+// with at most 4 streams; BF16, the bf16-dot mode; the wrapper chooses)
+template <bool FOLD, bool BF16>
 __global__ void __launch_bounds__(NT) fwdlap_backward_kernel(BwdArgs A) {
   extern __shared__ __align__(16) float smem[];
   const Net& net = A.net;
@@ -73,9 +80,9 @@ __global__ void __launch_bounds__(NT) fwdlap_backward_kernel(BwdArgs A) {
     __syncthreads();
     float* cur = bufA;
     float* nxt = bufB;
-    fwd_recompute<false, FOLD>(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch);
-    reverse_sweep<false, FOLD>(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch, ct, red,
-                               grow);
+    fwd_recompute<false, FOLD, BF16>(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch);
+    reverse_sweep<false, FOLD, BF16>(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch, ct,
+                                     red, grow);
   }
 }
 
@@ -83,8 +90,9 @@ namespace {
 
 typedef void (*BwdKernelFn)(BwdArgs);
 
-BwdKernelFn bwd_kernel_for(int fold) {
-  return fold ? fwdlap_backward_kernel<true> : fwdlap_backward_kernel<false>;
+BwdKernelFn bwd_kernel_for(int fold, int bf16) {
+  if (bf16) return fold ? fwdlap_backward_kernel<true, true> : fwdlap_backward_kernel<false, true>;
+  return fold ? fwdlap_backward_kernel<true, false> : fwdlap_backward_kernel<false, false>;
 }
 
 }  // namespace
@@ -94,10 +102,11 @@ extern "C" {
 // X (N, d), ct (N, d+2), params flat; partial (G, P), scratch (G, K-2, d+2,
 // T, wmax), out (P): [dW0, db0, ..., dW_last, 0] (the last bias's slot is
 // left zero).  T points per tile, G blocks; fold: the variant with the
-// activation in the products' epilogues (nets with at most 4 streams).
+// activation in the products' epilogues (nets with at most 4 streams);
+// bf16: the bf16-dot variant.
 int fwdlap_backward_f32(const float* X, const float* ct, const float* params,
                         const int* layers, int n_layers, int act, int N, int T, int G,
-                        int fold, float* partial, float* scratch, float* out,
+                        int fold, int bf16, float* partial, float* scratch, float* out,
                         int smem_bytes, void* stream) {
   BwdArgs a;
   if (!make_net(1, layers, n_layers, act, &a.net) || N < 1 || T < 4 || T % 4 != 0 ||
@@ -111,7 +120,7 @@ int fwdlap_backward_f32(const float* X, const float* ct, const float* params,
   a.N = N;
   a.T = T;
   a.n_tiles = (N + T - 1) / T;
-  BwdKernelFn fn = bwd_kernel_for(fold);
+  BwdKernelFn fn = bwd_kernel_for(fold, bf16);
   cudaError_t err =
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
@@ -123,8 +132,8 @@ int fwdlap_backward_f32(const float* X, const float* ct, const float* params,
 }
 
 // Resident blocks per SM of a variant at a dynamic shared-memory size.
-int fwdlap_backward_blocks_per_sm(int fold, int smem_bytes, int* blocks) {
-  BwdKernelFn fn = bwd_kernel_for(fold);
+int fwdlap_backward_blocks_per_sm(int fold, int bf16, int smem_bytes, int* blocks) {
+  BwdKernelFn fn = bwd_kernel_for(fold, bf16);
   cudaError_t err =
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;

@@ -22,6 +22,16 @@
 // weights staged by cp.async), with no saved stages (there is no reverse
 // sweep), so nothing but X and the jet touches device memory.
 //
+// The row kernel also comes in a BF16 variant: _forward_kernel2's
+// fwd_dot='default' (fwd_impl='pallas2:default'), single-pass dots, which
+// on the TPU round every dot operand to bf16 and accumulate in fp32; here
+// every product operand is rounded to bf16 and the CUDA-core products
+// accumulate in fp32 (fwdlap_core.cuh, "BF16"); the Jacobian seed rows and
+// the projection on the last layer's row stay fp32.  Same FLOP at the same
+// CUDA-core rate plus the rounding, so no faster than the fp32 variant:
+// the bf16 tensor cores are a redesign of their own.  The stream-major
+// kernel has no such mode (_forward_kernel runs HIGHEST).
+//
 // Interface: plain C (ctypes), float32 only, weights flattened as
 // [W0, b0, W1, b1, ...] with row-major (in, out) W.  Launches on the given
 // stream, never synchronises, and returns cudaGetLastError().
@@ -42,8 +52,9 @@ struct FwdArgs {
 }  // namespace
 
 // (each kernel in two variants: FOLD, the activation in the products'
-// epilogues, for nets with at most 4 streams; the wrapper chooses)
-template <bool FOLD>
+// epilogues, for nets with at most 4 streams; the row kernel also in BF16
+// variants, the bf16-dot mode; the wrapper chooses)
+template <bool FOLD, bool BF16>
 __global__ void __launch_bounds__(NT) fwdlap_forward_kernel(FwdArgs A) {
   extern __shared__ __align__(16) float smem[];
   const Net& net = A.net;
@@ -62,7 +73,7 @@ __global__ void __launch_bounds__(NT) fwdlap_forward_kernel(FwdArgs A) {
     __syncthreads();
     float* cur = bufA;
     float* nxt = bufB;
-    fwd_recompute<false, FOLD>(net, T, xs, A.params, cur, nxt, nullptr, Wsh, nullptr);
+    fwd_recompute<false, FOLD, BF16>(net, T, xs, A.params, cur, nxt, nullptr, Wsh, nullptr);
     project_last(net, T, cur, wlast, blast, proj);
     __syncthreads();
     // out[(base + p) * S + s] = proj[s * T + p]: consecutive threads write
@@ -114,10 +125,13 @@ namespace {
 
 typedef void (*FwdKernelFn)(FwdArgs);
 
-FwdKernelFn fwd_kernel_for(int streams, int fold) {
-  if (streams)
+FwdKernelFn fwd_kernel_for(int streams, int fold, int bf16) {
+  if (streams) {
+    if (bf16) return nullptr;
     return fold ? fwdlap_forward_streams_kernel<true> : fwdlap_forward_streams_kernel<false>;
-  return fold ? fwdlap_forward_kernel<true> : fwdlap_forward_kernel<false>;
+  }
+  if (bf16) return fold ? fwdlap_forward_kernel<true, true> : fwdlap_forward_kernel<false, true>;
+  return fold ? fwdlap_forward_kernel<true, false> : fwdlap_forward_kernel<false, false>;
 }
 
 }  // namespace
@@ -126,10 +140,11 @@ extern "C" {
 
 // X (N, d), params flat; out (N, d+2), or (d+2, N) with streams != 0.  T
 // points per tile, G blocks; fold: the variant with the activation in the
-// products' epilogues (nets with at most 4 streams).
+// products' epilogues (nets with at most 4 streams); bf16: the bf16-dot
+// variant of the row kernel.
 int fwdlap_forward_f32(int streams, const float* X, const float* params,
                        const int* layers, int n_layers, int act, int N, int T, int G,
-                       int fold, float* out, int smem_bytes, void* stream) {
+                       int fold, int bf16, float* out, int smem_bytes, void* stream) {
   FwdArgs a;
   if (!make_net(1, layers, n_layers, act, &a.net) || N < 1 || T < 4 || T % 4 != 0 ||
       G < 1 || (fold && a.net.S > 4))
@@ -140,7 +155,8 @@ int fwdlap_forward_f32(int streams, const float* X, const float* params,
   a.N = N;
   a.T = T;
   a.n_tiles = (N + T - 1) / T;
-  FwdKernelFn fn = fwd_kernel_for(streams, fold);
+  FwdKernelFn fn = fwd_kernel_for(streams, fold, bf16);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err =
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
@@ -149,8 +165,10 @@ int fwdlap_forward_f32(int streams, const float* X, const float* params,
 }
 
 // Resident blocks per SM of a variant at a dynamic shared-memory size.
-int fwdlap_forward_blocks_per_sm(int streams, int fold, int smem_bytes, int* blocks) {
-  FwdKernelFn fn = fwd_kernel_for(streams, fold);
+int fwdlap_forward_blocks_per_sm(int streams, int fold, int bf16, int smem_bytes,
+                                 int* blocks) {
+  FwdKernelFn fn = fwd_kernel_for(streams, fold, bf16);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err =
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;

@@ -30,31 +30,34 @@ _I = ctypes.c_int
 
 # name -> argtypes of every C entry point of the csrc/*.cu files
 _SIGNATURES = {
-    # fold (last int before the pointers that follow G): the kernel variant
-    # with the activation in the products' epilogues
-    # X, coef, params, layers, n_layers, act, N, T, G, fold, partial,
+    # fold (the int after G): the kernel variant with the activation in the
+    # products' epilogues; bf16 (after fold, where a kernel has it): the
+    # bf16-dot variant
+    # X, coef, params, layers, n_layers, act, N, T, G, fold, bf16, partial,
     # scratch, out, smem_bytes, stream
     "fused_linear_residual_f32":
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
-    # X, params, layers, n_layers, act, N, T, G, fold, analytic, partial,
-    # scratch, out, smem_bytes, stream
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+    # X, params, layers, n_layers, act, N, T, G, fold, bf16, analytic,
+    # partial, scratch, out, smem_bytes, stream
     "fused_poisson_analytic_f32":
-        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
+        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
+    # X, coef, params, layers, n_layers, act, N, T, G, fold, partial,
+    # scratch, out, smem_bytes, stream
     "fused_drm_energy_f32":
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
-    # mode, fold, smem_bytes, int* blocks
-    "fused_blocks_per_sm": [_I, _I, _I, _P],
+    # mode, fold, bf16, smem_bytes, int* blocks
+    "fused_blocks_per_sm": [_I, _I, _I, _I, _P],
     # fwdlap_forward.cu: streams, X, params, layers, n_layers, act, N, T, G,
-    # fold, out, smem_bytes, stream
-    "fwdlap_forward_f32": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P],
-    # streams, fold, smem_bytes, int* blocks
-    "fwdlap_forward_blocks_per_sm": [_I, _I, _I, _P],
+    # fold, bf16, out, smem_bytes, stream
+    "fwdlap_forward_f32": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
+    # streams, fold, bf16, smem_bytes, int* blocks
+    "fwdlap_forward_blocks_per_sm": [_I, _I, _I, _I, _P],
     # fwdlap_backward.cu: X, ct, params, layers, n_layers, act, N, T, G,
-    # fold, partial, scratch, out, smem_bytes, stream
+    # fold, bf16, partial, scratch, out, smem_bytes, stream
     "fwdlap_backward_f32":
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
-    # fold, smem_bytes, int* blocks
-    "fwdlap_backward_blocks_per_sm": [_I, _I, _P],
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+    # fold, bf16, smem_bytes, int* blocks
+    "fwdlap_backward_blocks_per_sm": [_I, _I, _I, _P],
     # fused_quotient.cu: kind, lap, X, coef, params, scal, layers, n_layers,
     # act, N, T, G, flags, fold, partial, scratch, out, smem_bytes, stream
     "fused_quotient_f32":

@@ -13,7 +13,8 @@ import ctypes
 import torch
 
 # Launches of each kernel: incremented where a wrapper launches it, and
-# nowhere else.  Reset with reset_launches().
+# nowhere else.  Reset with reset_launches().  A kernel's bf16-dot variant
+# counts under its own name, "<kernel>.bf16" (variant_name).
 LAUNCHES = {
     "fused_linear_residual": 0,
     "fused_poisson_analytic": 0,
@@ -27,6 +28,10 @@ LAUNCHES = {
     "fwdlap_forward_streams": 0,
     "multi_sums": 0,
     "multi_seeded": 0,
+    "fused_linear_residual.bf16": 0,
+    "fused_poisson_analytic.bf16": 0,
+    "fwdlap_forward.bf16": 0,
+    "fwdlap_backward.bf16": 0,
 }
 
 ACTS = {"sin": 0, "tanh": 1, "gelu": 2}
@@ -43,6 +48,12 @@ _CAPTURED = None              # the open capture's list of launches, if any
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def variant_name(name: str, bf16: bool) -> str:
+    """The name a launch counts under: ``name``, or ``name + '.bf16'`` for
+    the kernel's bf16-dot variant (fwdlap_core.cuh, "BF16")."""
+    return name + ".bf16" if bf16 else name
 
 
 def on_cuda(X) -> bool:

@@ -21,6 +21,15 @@ plain version beside it, which differentiates the forward-Laplacian
 recurrence (:func:`~nnpde_tpu_torch.ops.fwdlap.mlp_fwdlap`) with
 ``torch.autograd`` in any dtype.  The plain versions take any device when
 called directly; ``chip_smoke.py`` holds the kernels to them on the card.
+
+``dot_dtype='bfloat16'`` (the residual kernels; the TPU kernels' one-pass
+bf16 dot mode, run by the bulk of ``compute_dtype='hybrid-kernel'``): every
+product operand of the recompute and the reverse sweep is rounded to bf16
+and the products accumulate in float32 (counted as ``<kernel>.bf16``).  Its
+plain version is the TPU kernels' per-tile arithmetic written out
+(:func:`~nnpde_tpu_torch.ops.fwdlap.recompute_plain`,
+:func:`~nnpde_tpu_torch.ops.fwdlap.reverse_plain`) with the operands rounded
+by ``.to(torch.bfloat16)``: autograd would leave the cotangents unrounded.
 """
 
 from __future__ import annotations
@@ -31,8 +40,10 @@ from typing import Sequence
 
 import torch
 
-from ..ops.fwdlap import mlp_fwdlap
+from ..ops.fwdlap import (mlp_fwdlap, project_plain, recompute_plain, reverse_plain,
+                          round_bf16)
 from . import _cuda
+from ._cuda import variant_name
 
 _MODES = {"fused_linear_residual": 0, "fused_poisson_analytic": 1,
           "fused_drm_energy": 2}
@@ -115,6 +126,22 @@ class PoissonSinCoef:
         return a0 * lapB, [2.0 * a0 * dBi for dBi in dB], a0 * B, -f
 
 
+def _residual_swept(params, X, coef, activation, cast):
+    """The linear-residual kernel's arithmetic in a dot mode: ``(dWs, dbs,
+    sums)`` as :func:`linear_residual_plain` returns them."""
+    d = X.shape[1]
+    params = [(W.detach(), b.detach()) for W, b in params]
+    saved, final = recompute_plain(params, X, activation, cast)
+    value, grad, lap = project_plain(params, final)
+    c, b, a = coef[:, 0], coef[:, 1:1 + d], coef[:, d + 1]
+    r = c * value + torch.sum(b * grad, dim=1) + a * lap + coef[:, d + 2]
+    ct = torch.cat([(r * c)[:, None], r[:, None] * b, (r * a)[:, None]], dim=1)
+    dWs, dbs = reverse_plain(params, X, cast, saved, final, ct)
+    sums = torch.stack([torch.sum(r * r), torch.sum(r * c),
+                        torch.sum(r * coef[:, d + 3] * value)])
+    return dWs, dbs, sums
+
+
 # ---------------------------------------------------------- plain versions
 def _leaves(params):
     return [(W.detach().requires_grad_(True), b.detach().requires_grad_(True))
@@ -126,10 +153,14 @@ def _grads_of(total, leaves):
     return list(flat[0::2]), list(flat[1::2])
 
 
-def linear_residual_plain(params, X, coef, activation: str):
+def linear_residual_plain(params, X, coef, activation: str,
+                          dot_dtype: str = "float32"):
     """Plain version of the linear-residual kernel: ``(dWs, dbs, sums)``
     with ``dW = sum_i r_i dr_i/dW`` (unscaled) and ``sums = [sum r^2,
-    sum r c, sum r e net]``."""
+    sum r c, sum r e net]``.  ``dot_dtype='bfloat16'``: the kernel's
+    bf16-dot variant (every product operand rounded to bf16)."""
+    if dot_dtype == "bfloat16":
+        return _residual_swept(params, X, coef, activation, round_bf16)
     d = X.shape[1]
     with torch.enable_grad():
         leaves = _leaves(params)
@@ -144,13 +175,13 @@ def linear_residual_plain(params, X, coef, activation: str):
     return dWs, dbs, sums
 
 
-def poisson_analytic_plain(params, X, activation: str, coef_fn):
+def poisson_analytic_plain(params, X, activation: str, coef_fn,
+                           dot_dtype: str = "float32"):
     """Plain version of the analytic kernel: the linear residual with the
     coefficients ``coef_fn(X)`` (no extra e lane)."""
     c, bs, a, rhs = coef_fn(X)
     coef = torch.stack([c, *bs, a, rhs, torch.zeros_like(c)], dim=1)
-    dWs, dbs, sums = linear_residual_plain(params, X, coef, activation)
-    return dWs, dbs, sums
+    return linear_residual_plain(params, X, coef, activation, dot_dtype)
 
 
 def drm_energy_plain(params, X, coef, activation: str):
@@ -182,9 +213,11 @@ def _plan(kind: str, layers, T: int):
             + S * T + _cuda.NT)
 
 
-def _launch(kind: str, params, X, coef, activation: str, analytic=None):
+def _launch(kind: str, params, X, coef, activation: str, analytic=None,
+            bf16: bool = False):
     """Launch one fused kernel plus its reduction; returns the flat
-    ``[grads (P) | sums (3)]`` float32 vector."""
+    ``[grads (P) | sums (3)]`` float32 vector.  ``bf16``: the bf16-dot
+    variant."""
     from . import _build
 
     lib = _build.load()
@@ -200,7 +233,9 @@ def _launch(kind: str, params, X, coef, activation: str, analytic=None):
     dev = X.device
     S = d + (1 if kind == "fused_drm_energy" else 2)
     fold = int(_cuda.folds(layers, S, T))
-    G = _cuda.grid(kind, lambda sm, ptr: lib.fused_blocks_per_sm(mode, fold, sm, ptr),
+    name = variant_name(kind, bf16)
+    G = _cuda.grid(name,
+                   lambda sm, ptr: lib.fused_blocks_per_sm(mode, fold, int(bf16), sm, ptr),
                    smem, dev, (N + T - 1) // T, fold)
     wmax = _cuda.padded_wmax(layers)
     partial = torch.empty((G, P + 3), dtype=torch.float32, device=dev)
@@ -214,9 +249,9 @@ def _launch(kind: str, params, X, coef, activation: str, analytic=None):
     keep = (X, flat, lay, partial, scratch, out)
     if kind == "fused_linear_residual":
         coef = coef.contiguous()
-        _cuda.launch(kind, lib.fused_linear_residual_f32, X.data_ptr(),
-                     coef.data_ptr(), flat.data_ptr(), *common, *tail, dev=dev,
-                     keep=keep + (coef,))
+        _cuda.launch(name, lib.fused_linear_residual_f32, X.data_ptr(),
+                     coef.data_ptr(), flat.data_ptr(), *common, int(bf16), *tail,
+                     dev=dev, keep=keep + (coef,))
     elif kind == "fused_drm_energy":
         coef = coef.contiguous()
         _cuda.launch(kind, lib.fused_drm_energy_f32, X.data_ptr(),
@@ -224,9 +259,9 @@ def _launch(kind: str, params, X, coef, activation: str, analytic=None):
                      keep=keep + (coef,))
     else:
         an = (ctypes.c_float * (3 + d))(*analytic)
-        _cuda.launch(kind, lib.fused_poisson_analytic_f32, X.data_ptr(),
-                     flat.data_ptr(), *common, ctypes.addressof(an), *tail, dev=dev,
-                     keep=keep + (an,))
+        _cuda.launch(name, lib.fused_poisson_analytic_f32, X.data_ptr(),
+                     flat.data_ptr(), *common, int(bf16), ctypes.addressof(an), *tail,
+                     dev=dev, keep=keep + (an,))
     return out
 
 
@@ -240,7 +275,8 @@ def _unflatten(params, out):
     return dWs, dbs, out[o:o + 3]
 
 
-def _fused_call(kind, activation, params, X, coef=None, coef_fn=None):
+def _fused_call(kind, activation, params, X, coef=None, coef_fn=None,
+                dot_dtype: str = "float32"):
     """Route one fused step: CUDA tensors to the kernel, CPU tensors to the
     plain version.  Returns ``(dWs, dbs, sums, N)`` (unscaled sums)."""
     N = X.shape[0]
@@ -250,7 +286,8 @@ def _fused_call(kind, activation, params, X, coef=None, coef_fn=None):
             if not isinstance(coef_fn, PoissonSinCoef):
                 raise NotImplementedError(
                     "in-kernel coefficients exist for the box-FBC prod-sin "
-                    "Poisson family (PoissonSinCoef) only")
+                    "Poisson family (PoissonSinCoef) only; other builders are "
+                    "ROADMAP B2")
             d = X.shape[1]
             if len(coef_fn.ks) != d:
                 raise ValueError(f"ks has {len(coef_fn.ks)} entries for d={d}")
@@ -258,17 +295,18 @@ def _fused_call(kind, activation, params, X, coef=None, coef_fn=None):
             analytic = [L, coef_fn.a0, sum((k * math.pi / L) ** 2 for k in coef_fn.ks)]
             analytic += [k * math.pi / L for k in coef_fn.ks]
         params = [(W.detach(), b.detach()) for W, b in params]
-        out = _launch(kind, params, X, coef, activation, analytic)
+        out = _launch(kind, params, X, coef, activation, analytic,
+                      bf16=dot_dtype == "bfloat16")
         dWs, dbs, sums = _unflatten(params, out)
         return dWs, dbs, sums, N
     if X.device.type != "cpu":
         raise ValueError(f"no fused path for device {X.device}")
     if kind == "fused_linear_residual":
-        dWs, dbs, sums = linear_residual_plain(params, X, coef, activation)
+        dWs, dbs, sums = linear_residual_plain(params, X, coef, activation, dot_dtype)
     elif kind == "fused_drm_energy":
         dWs, dbs, sums = drm_energy_plain(params, X, coef, activation)
     else:
-        dWs, dbs, sums = poisson_analytic_plain(params, X, activation, coef_fn)
+        dWs, dbs, sums = poisson_analytic_plain(params, X, activation, coef_fn, dot_dtype)
     return dWs, dbs, sums, N
 
 
@@ -290,11 +328,12 @@ def _scaled_grads(params, dWs, dbs, sums, scale):
 def fused_linear_residual(params, X, coef, activation: str, *,
                           weight: float = 1.0, dot_dtype: str = "float32"):
     """``loss = weight * mean(r^2)`` and its parameter gradients in one pass.
-    ``aux['sum_r_ufull'] = sum r e net`` (the trainable-E seed)."""
-    _check_dot(dot_dtype)
+    ``aux['sum_r_ufull'] = sum r e net`` (the trainable-E seed).
+    ``dot_dtype``: ``'float32'`` or ``'bfloat16'`` (the bf16-dot mode)."""
+    _check_dot(dot_dtype, bf16=True)
     _check_coef(X, coef, X.shape[1] + 4)
     dWs, dbs, sums, N = _fused_call("fused_linear_residual", activation,
-                                    params, X, coef=coef)
+                                    params, X, coef=coef, dot_dtype=dot_dtype)
     loss = weight * sums[0] / N
     grads = _scaled_grads(params, dWs, dbs, sums, 2.0 * weight / N)
     return loss, {"sum_r2": sums[0], "sum_r_ufull": sums[2], "n": N}, grads
@@ -317,10 +356,11 @@ def fused_residual_analytic(params, X, activation: str, coef_fn, *,
                             weight: float = 1.0, dot_dtype: str = "float32"):
     """Fused residual step with coefficients computed from X.  On the CPU
     ``coef_fn`` is any ``(N, d) -> (c, [b..], a, rhs)``; the CUDA kernel
-    takes :class:`PoissonSinCoef`."""
-    _check_dot(dot_dtype)
+    takes :class:`PoissonSinCoef`.  ``dot_dtype``: ``'float32'`` or
+    ``'bfloat16'``."""
+    _check_dot(dot_dtype, bf16=True)
     dWs, dbs, sums, N = _fused_call("fused_poisson_analytic", activation,
-                                    params, X, coef_fn=coef_fn)
+                                    params, X, coef_fn=coef_fn, dot_dtype=dot_dtype)
     loss = weight * sums[0] / N
     grads = _scaled_grads(params, dWs, dbs, sums, 2.0 * weight / N)
     return loss, {"sum_r2": sums[0], "n": N}, grads
@@ -336,8 +376,14 @@ def fused_poisson_analytic(params, X, activation: str, *, L: float,
                                    weight=weight, dot_dtype=dot_dtype)
 
 
-def _check_dot(dot_dtype: str) -> None:
-    if dot_dtype != "float32":
+def _check_dot(dot_dtype: str, bf16: bool = False) -> None:
+    """``bf16``: the kernel has a bf16-dot variant.  The other kernels'
+    ``'bfloat16'`` and every kernel's ``'bf16x3'`` are ROADMAP B1 (no entry
+    point of the JAX package passes them)."""
+    if dot_dtype == "float32" or (bf16 and dot_dtype == "bfloat16"):
+        return
+    if dot_dtype in ("bfloat16", "bf16x3"):
         raise NotImplementedError(
-            f"dot_dtype={dot_dtype!r}: the port's fused kernels run float32 "
-            "only; bf16 dot modes are ROADMAP queue B work")
+            f"dot_dtype={dot_dtype!r}: this kernel of the port runs float32 "
+            "only; its reduced-precision dot modes are ROADMAP B1")
+    raise ValueError(f"Unknown dot_dtype {dot_dtype!r}")

@@ -17,12 +17,29 @@ recurrence kept on chip, differentiable in the parameters.
   stream to dW/db.  The last bias's gradient is ``sum ct[:, 0]``, formed
   here; the points get no gradient.
 
+Two reduced-precision modes, independent of each other as in JAX (the
+arguments of ``mlp_fwdlap_pallas`` and ``SolutionModel.fields``, which
+take either alone; the ``hybrid-kernel`` bulk of ``train_poisson_nd``
+sets both):
+
+* ``fwd_impl='rows:default'`` (JAX ``'pallas2:default'``, whose single-pass
+  dots round every operand to bf16 on the TPU): the row forward's bf16-dot
+  variant, every product operand rounded to bf16, fp32 accumulation; the
+  Jacobian seed rows and the projection on the last layer's row stay fp32.
+  ``'streams'`` has no such mode (JAX ``_forward_kernel`` runs HIGHEST), so
+  ``'streams:default'`` raises;
+* ``dot_dtype='bfloat16'``: the backward's bf16-dot variant (recompute and
+  reverse sweep).
+
 A CUDA tensor goes to the kernels (float32; anything else raises), a CPU
 tensor to the plain versions: :func:`fwdlap_forward_plain`, which is
 :func:`~nnpde_tpu_torch.ops.fwdlap.mlp_fwdlap`, and
-:func:`fwdlap_backward_plain`, autograd through it.  The TPU-only knobs of
-the JAX function (``tile``, ``bwd_tile``, ``lane_pack``,
-``concat_streams``, ``dot_dtype``) have no counterpart.
+:func:`fwdlap_backward_plain`, autograd through it; in the bf16-dot modes
+:func:`fwdlap_forward_default_plain` and ``fwdlap_backward_plain(...,
+dot_dtype='bfloat16')``, the kernels' per-tile arithmetic written out
+(:func:`~nnpde_tpu_torch.ops.fwdlap.recompute_plain`).  The
+TPU-only knobs of the JAX function (``tile``, ``bwd_tile``,
+``lane_pack``, ``concat_streams``) have no counterpart.
 """
 
 from __future__ import annotations
@@ -31,24 +48,41 @@ import ctypes
 
 import torch
 
-from ..ops.fwdlap import Jet, mlp_fwdlap
+from ..ops.fwdlap import (Jet, mlp_fwdlap, project_plain, recompute_plain, reverse_plain,
+                          round_bf16)
 from . import _cuda
 from ._cuda import on_cuda as _on_cuda
-from .fused_step import _unflatten
+from ._cuda import variant_name
+from .fused_step import _check_dot, _unflatten
 
 fwdlap_forward_plain = mlp_fwdlap
 
-_FWD_IMPLS = ("rows", "streams")
+_FWD_IMPLS = ("rows", "rows:default", "streams")
 
 
 def _jet_rows(jet: Jet) -> torch.Tensor:
     return torch.cat([jet.value[:, None], jet.grad, jet.lap[:, None]], dim=1)
 
 
-def fwdlap_backward_plain(params, X, ct, activation: str):
+def fwdlap_forward_default_plain(params, X, activation: str):
+    """Plain version of the row forward's bf16-dot variant
+    (``fwd_impl='rows:default'``): the ``(N, d+2)`` rows of the recompute
+    with every product operand rounded to bf16, projected in fp32."""
+    _, final = recompute_plain(params, X, activation, round_bf16)
+    value, grad, lap = project_plain(params, final)
+    return torch.cat([value[:, None], grad, lap[:, None]], dim=1)
+
+
+def fwdlap_backward_plain(params, X, ct, activation: str, dot_dtype: str = "float32"):
     """Plain version of the backward kernel: ``(dWs, dbs)`` of ``sum(jet *
     ct)`` with ``jet`` the ``(N, d+2)`` rows ``[u, grad u, lap u]`` of
-    :func:`~nnpde_tpu_torch.ops.fwdlap.mlp_fwdlap`, by autograd."""
+    :func:`~nnpde_tpu_torch.ops.fwdlap.mlp_fwdlap`, by autograd;
+    ``dot_dtype='bfloat16'``: the bf16-dot variant's recompute and reverse
+    sweep, every product operand rounded to bf16."""
+    if dot_dtype == "bfloat16":
+        params = [(W.detach(), b.detach()) for W, b in params]
+        saved, final = recompute_plain(params, X, activation, round_bf16)
+        return reverse_plain(params, X, round_bf16, saved, final, ct)
     with torch.enable_grad():
         leaves = [(W.detach().requires_grad_(True), b.detach().requires_grad_(True))
                   for W, b in params]
@@ -75,11 +109,13 @@ def _plan_backward(layers, T: int):
 def fwdlap_forward(params, X, activation: str, fwd_impl: str = "rows") -> torch.Tensor:
     """Launch a jet-forward kernel: ``(N, d+2)`` float32 rows ``[u, grad_0 ..
     grad_{d-1}, lap]`` (with ``fwd_impl='streams'`` a view of the kernel's
-    stream-major ``(d+2, N)`` output)."""
+    stream-major ``(d+2, N)`` output; ``'rows:default'``: the row kernel's
+    bf16-dot variant)."""
     from . import _build
 
     streams = int(fwd_impl == "streams")
-    name = "fwdlap_forward_streams" if streams else "fwdlap_forward"
+    bf16 = int(fwd_impl == "rows:default")
+    name = variant_name("fwdlap_forward_streams" if streams else "fwdlap_forward", bf16)
     lib = _build.load()
     layers = _cuda.net_layers(name, params, X, activation)
     N, d = X.shape
@@ -89,25 +125,28 @@ def fwdlap_forward(params, X, activation: str, fwd_impl: str = "rows") -> torch.
     dev = X.device
     fold = int(_cuda.folds(layers, d + 2, T))
     G = _cuda.grid(name,
-                   lambda sm, ptr: lib.fwdlap_forward_blocks_per_sm(streams, fold, sm, ptr),
+                   lambda sm, ptr: lib.fwdlap_forward_blocks_per_sm(streams, fold, bf16, sm,
+                                                                    ptr),
                    smem, dev, (N + T - 1) // T, fold)
     shape = (d + 2, N) if streams else (N, d + 2)
     out = torch.empty(shape, dtype=torch.float32, device=dev)
     lay = _cuda.layers_arg(layers)
     _cuda.launch(name, lib.fwdlap_forward_f32, streams, X.data_ptr(), flat.data_ptr(),
                  ctypes.addressof(lay), len(layers), _cuda.ACTS[activation], N, T,
-                 G, fold, out.data_ptr(), smem, _cuda.stream(dev), dev=dev,
+                 G, fold, bf16, out.data_ptr(), smem, _cuda.stream(dev), dev=dev,
                  keep=(X, flat, lay, out))
     return out.t() if streams else out
 
 
-def fwdlap_backward(params, X, ct, activation: str):
+def fwdlap_backward(params, X, ct, activation: str, dot_dtype: str = "float32"):
     """Launch the recompute-backward kernel: ``(dWs, dbs)`` of ``sum(jet *
     ct)`` for the ``(N, d+2)`` cotangent ``ct``; the last bias's gradient,
-    ``sum ct[:, 0]``, is formed here."""
+    ``sum ct[:, 0]``, is formed here.  ``dot_dtype='bfloat16'``: the
+    bf16-dot variant."""
     from . import _build
 
-    name = "fwdlap_backward"
+    bf16 = int(dot_dtype == "bfloat16")
+    name = variant_name("fwdlap_backward", bf16)
     lib = _build.load()
     layers = _cuda.net_layers(name, params, X, activation, (ct,))
     N, d = X.shape
@@ -120,7 +159,8 @@ def fwdlap_backward(params, X, ct, activation: str):
     T, smem = _cuda.plan_tile(lambda t: _plan_backward(layers, t))
     dev = X.device
     fold = int(_cuda.folds(layers, d + 2, T))
-    G = _cuda.grid(name, lambda sm, ptr: lib.fwdlap_backward_blocks_per_sm(fold, sm, ptr),
+    G = _cuda.grid(name,
+                   lambda sm, ptr: lib.fwdlap_backward_blocks_per_sm(fold, bf16, sm, ptr),
                    smem, dev, (N + T - 1) // T, fold)
     wmax = _cuda.padded_wmax(layers)
     partial = torch.empty((G, P), dtype=torch.float32, device=dev)
@@ -130,7 +170,7 @@ def fwdlap_backward(params, X, ct, activation: str):
     lay = _cuda.layers_arg(layers)
     _cuda.launch(name, lib.fwdlap_backward_f32, X.data_ptr(), ct.data_ptr(),
                  flat.data_ptr(), ctypes.addressof(lay), len(layers),
-                 _cuda.ACTS[activation], N, T, G, fold, partial.data_ptr(),
+                 _cuda.ACTS[activation], N, T, G, fold, bf16, partial.data_ptr(),
                  scratch.data_ptr(), out.data_ptr(), smem, _cuda.stream(dev), dev=dev,
                  keep=(X, ct, flat, lay, partial, scratch, out))
     dWs, dbs, _ = _unflatten(params, out)
@@ -141,12 +181,14 @@ def fwdlap_backward(params, X, ct, activation: str):
 class _JetForward(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cfg, X, *leaves):
-        activation, fwd_impl = cfg
+        activation, fwd_impl, dot_dtype = cfg
         params = [(leaves[i], leaves[i + 1]) for i in range(0, len(leaves), 2)]
-        ctx.activation = activation
+        ctx.activation, ctx.dot_dtype = activation, dot_dtype
         ctx.save_for_backward(X, *leaves)
         if _on_cuda(X):
             return fwdlap_forward(params, X, activation, fwd_impl)
+        if fwd_impl == "rows:default":
+            return fwdlap_forward_default_plain(params, X, activation)
         return _jet_rows(fwdlap_forward_plain(params, X, activation))
 
     @staticmethod
@@ -155,20 +197,29 @@ class _JetForward(torch.autograd.Function):
         params = [(leaves[i].detach(), leaves[i + 1].detach())
                   for i in range(0, len(leaves), 2)]
         if _on_cuda(X):
-            dWs, dbs = fwdlap_backward(params, X, ct, ctx.activation)
+            dWs, dbs = fwdlap_backward(params, X, ct, ctx.activation, ctx.dot_dtype)
         else:
-            dWs, dbs = fwdlap_backward_plain(params, X, ct, ctx.activation)
+            dWs, dbs = fwdlap_backward_plain(params, X, ct, ctx.activation, ctx.dot_dtype)
         return (None, None) + tuple(g for pair in zip(dWs, dbs) for g in pair)
 
 
-def mlp_fwdlap_kernel(params, X, activation: str, fwd_impl: str = "rows") -> Jet:
-    """Exact ``(u, grad u, lap u)`` of a scalar MLP over a collocation batch
+def mlp_fwdlap_kernel(params, X, activation: str, fwd_impl: str = "rows",
+                      dot_dtype: str = "float32") -> Jet:
+    """``(u, grad u, lap u)`` of a scalar MLP over a collocation batch
     through the jet kernels (plain versions on the CPU), differentiable in
     ``params``.  ``fwd_impl``: ``'rows'`` or ``'streams'`` (which forward
-    kernel; the jet is the same)."""
+    kernel; the jet is the same, exact fp32), or ``'rows:default'`` (the
+    row kernel's bf16-dot variant).  ``dot_dtype``: the backward's dots,
+    ``'float32'`` or ``'bfloat16'``."""
+    if fwd_impl == "streams:default":
+        raise ValueError(
+            "fwd_impl='streams:default': the stream-major forward has no "
+            "single-pass mode (JAX _forward_kernel runs HIGHEST); use "
+            "'rows:default'")
     if fwd_impl not in _FWD_IMPLS:
         raise ValueError(f"fwd_impl must be one of {_FWD_IMPLS}, got {fwd_impl!r}")
+    _check_dot(dot_dtype, bf16=True)
     leaves = [t for pair in params for t in pair]
-    out = _JetForward.apply((activation, fwd_impl), X, *leaves)
+    out = _JetForward.apply((activation, fwd_impl, dot_dtype), X, *leaves)
     d = X.shape[1]
     return Jet(value=out[:, 0], grad=out[:, 1:1 + d], lap=out[:, 1 + d])

@@ -1,5 +1,9 @@
 """The loss zoo as functions on tensors (counterpart of
-``nnpde_tpu/losses/zoo.py``; every reduction is a mean over the batch)."""
+``nnpde_tpu/losses/zoo.py``; every reduction is a mean over the batch).
+
+The reduced-precision phases hand these functions float32 casts of their
+bf16 jets and values, so every reduction runs in float32, as the JAX
+callers cast before reducing."""
 
 from __future__ import annotations
 

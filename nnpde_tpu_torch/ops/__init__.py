@@ -3,6 +3,7 @@ from .bump import BUMP_I1, bump_grid, bump_w, bump_w_1d_jet, bump_w_multi
 from .fwdlap import (
     Jet,
     activation_jet,
+    activation_pack,
     compose_product_jet,
     constant_jet,
     exclusive_products,
@@ -19,6 +20,7 @@ __all__ = [
     "quadrature",
     "Jet",
     "activation_jet",
+    "activation_pack",
     "compose_product_jet",
     "constant_jet",
     "exclusive_products",

@@ -10,6 +10,11 @@ and the Laplacian are carried *forward* through the network with the value
 This recurrence is the oracle every CUDA kernel of the port is held to,
 and differentiating it with ``torch.autograd`` is the plain version of the
 fused loss+grad kernels (:mod:`nnpde_tpu_torch.kernels.fused_step`).
+
+The same recurrence written out as the TPU kernels compute it per tile
+(:func:`recompute_plain`, :func:`project_plain`, :func:`reverse_plain`),
+with every product operand passed through a cast, is the plain version of
+the kernels' bf16-dot mode (``cast=round_bf16``).
 """
 
 from __future__ import annotations
@@ -99,6 +104,106 @@ def mlp_fwdlap(params, X, activation: str, input_jet=None) -> Jet:
         l = l @ W
 
     return Jet(value=v[..., 0], grad=J[..., 0], lap=l[..., 0])
+
+
+# ------------------------------------- the TPU kernels' per-tile arithmetic
+def round_bf16(x):
+    """``x`` rounded to the nearest bfloat16 value (ties to even), in the
+    dtype of ``x``: one product operand of the bf16-dot mode."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def activation_pack(activation: str, v):
+    """``(s, s', s'', s''')`` at ``v`` with the fewest transcendentals: the
+    kernels' ``act_pack``, :func:`activation_jet` with the third derivative
+    that the reverse sweep needs."""
+    if activation == "sin":
+        sv, cv = torch.sin(v), torch.cos(v)
+        return sv, cv, -sv, -cv
+    if activation == "tanh":
+        t = torch.tanh(v)
+        u = 1.0 - t * t
+        return t, u, -2.0 * t * u, u * (6.0 * t * t - 2.0)
+    if activation == "gelu":
+        pdf = _INV_SQRT2PI * torch.exp(-0.5 * v * v)
+        cdf = 0.5 * (1.0 + torch.erf(v * 0.7071067811865476))
+        return v * cdf, cdf + v * pdf, (2.0 - v * v) * pdf, (v * v * v - 4.0 * v) * pdf
+    raise ValueError(f"Unknown activation {activation!r}")
+
+
+def _stage(activation, v, J, l):
+    """One hidden stage's nonlinearity: ``(pack, q, (A, Jmid, lmid))`` for
+    pre-activation streams ``v`` (N, w), ``J`` (d, N, w), ``l`` (N, w)."""
+    pack = activation_pack(activation, v)
+    q = torch.sum(J * J, dim=0)
+    return pack, q, (pack[0], pack[1] * J, pack[1] * l + pack[2] * q)
+
+
+def recompute_plain(params, X, activation: str, cast):
+    """The TPU kernels' forward recompute (``_fwd_recompute``: all streams
+    of a stage in one product) with every product operand passed through
+    ``cast``: X, the stacked mid streams and the weights.  The layer-0
+    Jacobian seed rows are not cast.  Returns ``(saved, final)``:
+    ``saved[k-1] = (J, l, q, pack, Jmid, lmid)`` of hidden stage k, and
+    ``final = (J, l, q, pack, (A, Jmid, lmid))`` of the last one."""
+    (W0, b0), (N, d) = params[0], X.shape
+    v = cast(X) @ cast(W0) + b0
+    J = W0[:, None, :].expand(d, N, W0.shape[1])
+    l = torch.zeros_like(v)
+    saved = []
+    for W, b in params[1:-1]:
+        pack, q, (A, Jm, lm) = _stage(activation, v, J, l)
+        saved.append((J, l, q, pack, Jm, lm))
+        O = cast(torch.cat([A[None], Jm, lm[None]], dim=0)) @ cast(W)
+        v, J, l = O[0] + b, O[1:1 + d], O[d + 1]
+    pack, q, mid = _stage(activation, v, J, l)
+    return saved, (J, l, q, pack, mid)
+
+
+def project_plain(params, final):
+    """``(value, grad (N, d), lap)`` of the net from the last stage's mid
+    streams: the projection on the last layer's row, never cast."""
+    (A, Jm, lm), (wl, bl) = final[-1], params[-1]
+    w = wl[:, 0]
+    return A @ w + bl[0], (Jm @ w).T, lm @ w
+
+
+def _nl_bwd(pack, J, l, q, dA, dJm, dlm):
+    """Backward through a stage's nonlinearity (``_nl_bwd_pack``)."""
+    _, s1, s2, s3 = pack
+    dq = s2 * dlm
+    dv = s1 * dA + (s2 * l + s3 * q) * dlm + torch.sum(s2 * J * dJm, dim=0)
+    return dv, s1 * dJm + 2.0 * J * dq, s1 * dlm
+
+
+def reverse_plain(params, X, cast, saved, final, ct):
+    """The TPU kernels' reverse sweep (``_reverse_sweep``) from per-point
+    cotangents ``ct`` (N, d+2) of ``[value, grad, lap]`` to ``(dWs, dbs)``,
+    every operand of the ``dW`` and pullback products passed through
+    ``cast``; ``dWlast``, the ``db`` sums and the Jacobian-row sums added to
+    ``dW0`` take the values as they are.  ``dbs[-1] = sum ct_v``."""
+    d, K = X.shape[1], len(params)
+    J, l, q, pack, (A, Jm, lm) = final
+    ct_v, ct_g, ct_l = ct[:, 0], ct[:, 1:1 + d].T, ct[:, d + 1]
+    w = params[-1][0][:, 0]
+    dWs, dbs = [None] * K, [None] * K
+    dWs[-1] = (A.T @ ct_v + torch.sum(Jm * ct_g[:, :, None], dim=(0, 1))
+               + lm.T @ ct_l)[:, None]
+    dbs[-1] = torch.sum(ct_v).reshape(1)
+    dv, dJ, dl = _nl_bwd(pack, J, l, q, ct_v[:, None] * w, ct_g[:, :, None] * w,
+                         ct_l[:, None] * w)
+    for k in range(K - 2, 0, -1):
+        J_e, l_e, q_e, pack_e, Jm_e, lm_e = saved[k - 1]
+        W = params[k][0]
+        M = cast(torch.cat([pack_e[0][None], Jm_e, lm_e[None]], dim=0))
+        D = cast(torch.cat([dv[None], dJ, dl[None]], dim=0))
+        dWs[k] = M.reshape(-1, W.shape[0]).T @ D.reshape(-1, W.shape[1])
+        dbs[k] = torch.sum(dv, dim=0)
+        P = D @ cast(W).T
+        dv, dJ, dl = _nl_bwd(pack_e, J_e, l_e, q_e, P[0], P[1:1 + d], P[d + 1])
+    dWs[0] = cast(X).T @ cast(dv) + torch.sum(dJ, dim=1)
+    dbs[0] = torch.sum(dv, dim=0)
+    return dWs, dbs
 
 
 def compose_product_jet(a: Jet, b: Jet) -> Jet:

@@ -24,6 +24,12 @@ term ``(L^2 mean(u^2) - 1)^2`` and ``v_steps`` critic steps per epoch.
   ``n_test_grid > 1``).
 
 On CPU tensors every kernel wrapper takes its plain version.
+
+``compute_dtype``: ``'bfloat16'`` runs the nets' jets and value-and-grad
+(and, for WAN, the reflected forwards) in bf16 on the torch route, every
+reduction on float32 casts; ``'hybrid'`` a bf16 bulk then a float32 tail on
+the ``jet_impl`` route, resumed from the bulk's full carry (as
+:mod:`.poisson`).  Segmented resume does not combine with ``'hybrid'``.
 """
 
 from __future__ import annotations
@@ -58,6 +64,7 @@ from ..prng import fold_in, generator
 from ..sampling import meshgrid_2d
 from ..train import fit, fit_wan, make_optimizer, make_wan_optimizers
 from ._fused_wan import make_fused_wan_multi_pair, make_fused_wan_pair
+from .poisson import join_phases, to_bf16
 
 _JET_IMPLS = ("torch", "kernel", "kernel:streams", "fused")
 
@@ -139,18 +146,18 @@ def _lower_states_2d(nx: int, ny: int, X, L: float):
     return torch.stack(cols, dim=1)
 
 
-def _validate(cfg: IPW2DConfig, start_epoch, run_epochs) -> int:
+def _validate(cfg: IPW2DConfig, init_carry, start_epoch, run_epochs) -> int:
     if cfg.method not in ("PINN", "DRM", "WAN"):
         raise ValueError("method must be 'PINN', 'DRM' or 'WAN'")
+    if ((init_carry is not None or start_epoch or run_epochs is not None)
+            and cfg.compute_dtype == "hybrid"):
+        raise ValueError("segmented resume is not supported with "
+                         "compute_dtype='hybrid'")
     seg_epochs = (cfg.epochs - start_epoch) if run_epochs is None else run_epochs
     if start_epoch + seg_epochs > cfg.epochs:
         raise ValueError("start_epoch + run_epochs exceeds cfg.epochs")
     if cfg.compute_dtype not in ("float32", "bfloat16", "hybrid"):
         raise ValueError("compute_dtype must be 'float32', 'bfloat16' or 'hybrid'")
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r}: this port runs float32 "
-            "only; reduced-precision phases are ROADMAP queue B work")
     if cfg.LBFGS:
         raise NotImplementedError(
             "LBFGS=True (the strong-Wolfe polish) arrives with ROADMAP A12 "
@@ -177,7 +184,7 @@ def train_ipw_2d(cfg: IPW2DConfig, init_params=None, init_v_params=None,
     ``result.carry``; the segments equal one continuous run (per-epoch keys
     fold in the absolute epoch index, the schedule rides the update count).
     """
-    seg_epochs = _validate(cfg, start_epoch, run_epochs)
+    seg_epochs = _validate(cfg, init_carry, start_epoch, run_epochs)
     dev = runtime.resolve_device(device)
     runtime.pin_fp32_precision()
     cap = runtime.pallas_chunk_cap()
@@ -252,18 +259,22 @@ def train_ipw_2d(cfg: IPW2DConfig, init_params=None, init_v_params=None,
 
     X_swap, X_px, X_py = reflections(X)
 
-    def shared_terms(params, u, Xq=None):
+    def shared_terms(params, u, Xq=None, dtype="float32"):
         """``Xq``: the quadrature set ``u`` was evaluated at (None = the
         fixed grid).  Under ``grid_jitter`` the jittered lattice is passed,
-        so every integral term rides the same forward."""
+        so every integral term rides the same forward.  ``dtype='bfloat16'``
+        runs the reflected forwards in bf16 (the WAN phases, as in JAX);
+        the data and bc terms stay float32."""
         if Xq is None:
             Xs, Xpx, Xpy, low = X_swap, X_px, X_py, lower
         else:
             Xs, Xpx, Xpy = reflections(Xq)
             low = _lower_states_2d(nx, ny, Xq, L) if w["orth"] > 0 else lower
         # one batched forward over the (up to 3) reflected point sets
-        refl = ([Xs] if nx == ny else []) + [Xpx, Xpy]
-        parts = torch.chunk(model.apply_batch(params, torch.cat(refl, dim=0)), len(refl))
+        refl = torch.cat(([Xs] if nx == ny else []) + [Xpx, Xpy], dim=0)
+        u_refl = (model.apply_batch(to_bf16(params), refl.to(torch.bfloat16)).float()
+                  if dtype == "bfloat16" else model.apply_batch(params, refl))
+        parts = torch.chunk(u_refl, 3 if nx == ny else 2)
         u_sym = parts[0] if nx == ny else None
         u_px, u_py = parts[-2], parts[-1]
         return {
@@ -284,24 +295,37 @@ def train_ipw_2d(cfg: IPW2DConfig, init_params=None, init_v_params=None,
         ray_loss = make_fused_rayleigh(act, weight=2.0 * w["drm"], den_eps=1e-8)
         coef_ray = quotient_coefficients(factor.jet(X))
 
-    def loss_terms(params):
-        if fused_drm:
-            total_drm, aux = ray_loss(params, X, coef_ray)
-            u = model.apply_batch(params, X)
-            terms = {"pde": zero, "drm": 2.0 * aux["rayleigh"]}
+    def make_loss_terms(dtype):
+        """The PINN / DRM objective of one precision phase; ``'bfloat16'``
+        rides the torch route (the kernels take float32)."""
+        def loss_terms(params):
+            if fused_drm and dtype == "float32":
+                total_drm, aux = ray_loss(params, X, coef_ray)
+                u = model.apply_batch(params, X)
+                terms = {"pde": zero, "drm": 2.0 * aux["rayleigh"]}
+                terms.update(shared_terms(params, u))
+                total = total_drm + sum(w[k] * terms[k] for k in w if k not in ("drm", "pde"))
+                return total, terms
+            if dtype == "bfloat16":
+                p_c, X_c, route, kw = to_bf16(params), X.to(torch.bfloat16), "torch", {}
+            else:
+                p_c, X_c, route, kw = params, X, jet_route, jet_kw
+            if cfg.method == "PINN":
+                jet = model.fields(p_c, X_c, impl=route, **kw)
+                u = jet.value.float()
+                pde, drm = pinn_helmholtz(u, jet.lap.float(), k_squared), zero
+            else:
+                u, g = model.value_and_grad(p_c, X_c, impl=route, **kw)
+                u = u.float()
+                pde, drm = zero, drm_rayleigh_unscaled(u, g.float(), den_eps=1e-8)
+            terms = {"pde": pde, "drm": drm}
             terms.update(shared_terms(params, u))
-            total = total_drm + sum(w[k] * terms[k] for k in w if k not in ("drm", "pde"))
-            return total, terms
-        if cfg.method == "PINN":
-            jet = model.fields(params, X, impl=jet_route, **jet_kw)
-            u = jet.value
-            pde, drm = pinn_helmholtz(u, jet.lap, k_squared), zero
-        else:
-            u, g = model.value_and_grad(params, X, impl=jet_route, **jet_kw)
-            pde, drm = zero, drm_rayleigh_unscaled(u, g, den_eps=1e-8)
-        terms = {"pde": pde, "drm": drm}
-        terms.update(shared_terms(params, u))
-        return sum(w[k] * terms[k] for k in w), terms
+            return sum(w[k] * terms[k] for k in w), terms
+
+        return loss_terms
+
+    loss_terms = make_loss_terms("float32" if cfg.compute_dtype == "hybrid"
+                                 else cfg.compute_dtype)
 
     def loss_fn(params, key):
         return loss_terms(params)
@@ -345,7 +369,12 @@ def train_ipw_2d(cfg: IPW2DConfig, init_params=None, init_v_params=None,
             Xl, Yl = torch.meshgrid(g_lat, g_lat, indexing="ij")
             X_lat = torch.stack([Xl.reshape(-1), Yl.reshape(-1)], -1)
 
-        def net_vg(m, p, Xw):
+        def net_vg(m, p, Xw, dtype):
+            """Value and grad at the phase's dtype (bf16 on the torch route,
+            returned as float32)."""
+            if dtype == "bfloat16":
+                u, g = m.value_and_grad(to_bf16(p), Xw.to(torch.bfloat16))
+                return u.float(), g.float()
             return m.value_and_grad(p, Xw, impl=jet_route, **jet_kw)
 
         def pick(key):
@@ -361,13 +390,13 @@ def train_ipw_2d(cfg: IPW2DConfig, init_params=None, init_v_params=None,
                 return (Xw, *windows(Xw))
             return X, wv_fix, dwv_fix
 
-        def wan_pde(u_params, v_params, key=None, ugu=None):
+        def wan_pde(u_params, v_params, key=None, ugu=None, dtype="float32"):
             # ``ugu``: optional precomputed (u, grad u) at the fixed grid --
             # the per-epoch critic context (u is frozen across the inner
             # critic steps)
             Xw, wv, dwv = pick(key)
-            u, gu = ugu if ugu is not None else net_vg(model, u_params, Xw)
-            v, gv = net_vg(v_model, v_params, Xw)
+            u, gu = ugu if ugu is not None else net_vg(model, u_params, Xw, dtype)
+            v, gv = net_vg(v_model, v_params, Xw, dtype)
             if multibump:
                 # one weak residual per localised test function phi_k = w_k v
                 phi = wv * v[None, :]                                    # (K, N)
@@ -401,7 +430,7 @@ def train_ipw_2d(cfg: IPW2DConfig, init_params=None, init_v_params=None,
             def fused_context_fn(u_params, key):
                 return pair.v_coef_fn(u_params, E_fix, X, wv_fix, dwv_fix)
 
-            def v_loss_fn(v_params, ctx, key):
+            def fused_v_loss_fn(v_params, ctx, key):
                 # ctx = the per-epoch coefficient stream (fixed grid) or the
                 # primal params (jitter/resample: the points, and therefore
                 # the u-jet, change per inner step)
@@ -412,7 +441,7 @@ def train_ipw_2d(cfg: IPW2DConfig, init_params=None, init_v_params=None,
                 lv, _ = pair.v_loss_fn(v_params, ctx, E_fix, Xw, wv_c, dwv_c)
                 return lv
 
-            def u_loss_fn(u_params, v_params, key):
+            def fused_u_loss_fn(u_params, v_params, key):
                 Xw, wv_c, dwv_c = pick(key)
                 pde_w, aux = pair.u_pde_fn(u_params, E_fix, v_params, Xw, wv_c, dwv_c)
                 # u forward for the quadrature terms (jitter rides the
@@ -426,27 +455,31 @@ def train_ipw_2d(cfg: IPW2DConfig, init_params=None, init_v_params=None,
                 total = pde_w + sum(w[k] * terms[k] for k in w if k != "pde")
                 return total, terms
 
-            v_context_fn = fused_context_fn if fixed_grid else None
-        else:
+        def make_wan_losses(dtype):
+            """``(u_loss_fn, v_loss_fn, v_context_fn)`` of one precision
+            phase; the fused kernels carry float32 phases only."""
+            if fused_wan and dtype == "float32":
+                return (fused_u_loss_fn, fused_v_loss_fn,
+                        fused_context_fn if fixed_grid else None)
             # the autograd path gets a per-epoch critic context too whenever
             # the grid is fixed: (u, grad u) at X, once per epoch (and at
             # the extragradient lookahead)
             if fixed_grid:
                 def v_context_fn(u_params, key):
-                    return net_vg(model, u_params, X)
+                    return net_vg(model, u_params, X, dtype)
 
                 def v_loss_fn(v_params, ugu, key):
-                    loss_pde, _, _ = wan_pde(None, v_params, None, ugu=ugu)
+                    loss_pde, _, _ = wan_pde(None, v_params, None, ugu=ugu, dtype=dtype)
                     return -torch.log(loss_pde + 1e-8)
             else:
                 v_context_fn = None
 
                 def v_loss_fn(v_params, u_params, key):
-                    loss_pde, _, _ = wan_pde(u_params, v_params, key)
+                    loss_pde, _, _ = wan_pde(u_params, v_params, key, dtype=dtype)
                     return -torch.log(loss_pde + 1e-8)
 
             def u_loss_fn(u_params, v_params, key):
-                loss_pde, u_w, Xw = wan_pde(u_params, v_params, key)
+                loss_pde, u_w, Xw = wan_pde(u_params, v_params, key, dtype=dtype)
                 if cfg.grid_jitter and cfg.jitter_anchors_fixed:
                     # jittered weak form + fixed-grid anchors
                     u, Xq = model.apply_batch(u_params, X), None
@@ -456,23 +489,42 @@ def train_ipw_2d(cfg: IPW2DConfig, init_params=None, init_v_params=None,
                 elif cfg.wan_resample:
                     # iid-uniform points make reflection/norm estimates
                     # noisy: those terms stay on the fixed grid
-                    u, Xq = model.apply_batch(u_params, X), None
+                    u = (model.apply_batch(to_bf16(u_params), X.to(torch.bfloat16)).float()
+                         if dtype == "bfloat16" else model.apply_batch(u_params, X))
+                    Xq = None
                 else:
                     u, Xq = u_w, None
                 terms = {"pde": loss_pde, "drm": zero}
-                terms.update(shared_terms(u_params, u, Xq=Xq))
+                terms.update(shared_terms(u_params, u, Xq=Xq, dtype=dtype))
                 return sum(w[k] * terms[k] for k in w), terms
+
+            return u_loss_fn, v_loss_fn, v_context_fn
 
         u_opt, v_opt = make_wan_optimizers(
             cfg.lr, v_lr=cfg.v_lr, schedule=cfg.lr_schedule, epochs=cfg.epochs,
             v_steps=cfg.v_steps, decay_steps=cfg.lr_decay_steps,
             final_scale=cfg.lr_final_scale)
-        result = fit_wan(
-            u_loss_fn, v_loss_fn, eval_fn, params, v_params, epochs=seg_epochs,
-            start_epoch=start_epoch, init_carry=init_carry, key=fold_in(key, 1),
-            v_steps=cfg.v_steps, u_optimizer=u_opt, v_optimizer=v_opt,
-            chunk=min(chunk, cap), minimax=cfg.minimax, u_ema=cfg.u_ema,
-            v_context_fn=v_context_fn)
+        wan_kw = dict(key=fold_in(key, 1), v_steps=cfg.v_steps, u_optimizer=u_opt,
+                      v_optimizer=v_opt, chunk=min(chunk, cap), minimax=cfg.minimax,
+                      u_ema=cfg.u_ema)
+        if cfg.compute_dtype == "hybrid":
+            # bf16 bulk, float32 tail from the full carry (both optimizer
+            # states, the best iterate, the EMA and the OGDA gradients)
+            bulk = int(cfg.epochs * cfg.hybrid_bf16_fraction)
+            u16, v16, ctx16 = make_wan_losses("bfloat16")
+            r1 = fit_wan(u16, v16, eval_fn, params, v_params, epochs=bulk,
+                         v_context_fn=ctx16, **wan_kw)
+            u32, v32, ctx32 = make_wan_losses("float32")
+            r2 = fit_wan(u32, v32, eval_fn, params, v_params, epochs=cfg.epochs - bulk,
+                         start_epoch=bulk, init_carry=r1.carry, v_context_fn=ctx32,
+                         **wan_kw)
+            result = join_phases(r1, r2)
+        else:
+            u_loss_fn, v_loss_fn, v_context_fn = make_wan_losses(cfg.compute_dtype)
+            result = fit_wan(
+                u_loss_fn, v_loss_fn, eval_fn, params, v_params, epochs=seg_epochs,
+                start_epoch=start_epoch, init_carry=init_carry,
+                v_context_fn=v_context_fn, **wan_kw)
     else:
         optimizer = make_optimizer(
             cfg.lr, schedule=cfg.lr_schedule, total_steps=cfg.epochs,
@@ -499,10 +551,25 @@ def train_ipw_2d(cfg: IPW2DConfig, init_params=None, init_v_params=None,
                 metrics.update({k: v.detach() for k, v in terms.items()})
                 return (total, metrics), grads
 
-            fused_kw = {"loss_and_grad_fn": lag_fn}
-        result = fit(loss_fn, eval_fn, params, epochs=seg_epochs, optimizer=optimizer,
-                     start_epoch=start_epoch, init_carry=init_carry,
-                     key=fold_in(key, 1), chunk=chunk, **fused_kw)
+            # the fused kernel carries the float32 phases only: a pure bf16
+            # run keeps the bf16 torch route it asked for
+            if cfg.compute_dtype != "bfloat16":
+                fused_kw = {"loss_and_grad_fn": lag_fn}
+        if cfg.compute_dtype == "hybrid":
+            # bf16 bulk, float32 tail from the full carry (Adam moments, the
+            # schedule's step and the running best continue)
+            bulk = int(cfg.epochs * cfg.hybrid_bf16_fraction)
+            lt16 = make_loss_terms("bfloat16")
+            r1 = fit(lambda p, k: lt16(p), eval_fn, params, epochs=bulk, optimizer=optimizer,
+                     key=fold_in(key, 1), chunk=chunk)
+            r2 = fit(loss_fn, eval_fn, params, epochs=cfg.epochs - bulk, optimizer=optimizer,
+                     key=fold_in(key, 1), chunk=chunk, start_epoch=bulk, init_carry=r1.carry,
+                     **fused_kw)
+            result = join_phases(r1, r2)
+        else:
+            result = fit(loss_fn, eval_fn, params, epochs=seg_epochs, optimizer=optimizer,
+                         start_epoch=start_epoch, init_carry=init_carry,
+                         key=fold_in(key, 1), chunk=chunk, **fused_kw)
 
     # relative L2: sqrt(MSE) / rms(psi_exact)
     rms_exact = float(rms_exact_t)

@@ -21,6 +21,23 @@ JAX package DRM and WAN run their ``'torch'`` path under it) or ``'fused'`` (the
 jet-forward kernel and the two-pass kernels of
 :mod:`nnpde_tpu_torch.kernels.fused_quotient`; on CPU tensors their plain
 versions).
+
+``compute_dtype`` (as in the JAX package):
+
+* ``'bfloat16'``: the nets' parameters and points are cast to bf16, the
+  jets (PINN) or value-and-grad (DRM, WAN) run in bf16 on the torch route
+  whatever ``jet_impl`` says, and every loss reduction takes their float32
+  casts; Adam keeps float32 master parameters;
+* ``'hybrid'``: a bf16 bulk of ``int(epochs * hybrid_bf16_fraction)``
+  epochs, then a float32 tail on the route ``jet_impl`` names, resumed from
+  the bulk's full carry (Adam moments, schedule step, running best; for WAN
+  both optimizers, the EMA and the OGDA gradients); the histories are
+  concatenated;
+* ``'hybrid-kernel'`` (PINN on ``'kernel'`` or ``'fused'``): the bulk keeps
+  float32 parameters and streams and runs the kernels in their bf16-dot
+  mode (``'kernel'``: the jet forward ``fwd_impl='rows:default'`` and the
+  backward ``dot_dtype='bfloat16'``; ``'fused'``: the residual kernel with
+  ``dot_dtype='bfloat16'``), the tail the exact float32 kernels.
 """
 
 from __future__ import annotations
@@ -28,6 +45,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .. import runtime
@@ -57,6 +75,26 @@ from ..prng import fold_in, generator, split
 from ..sampling import face_points, shifted_qmc, sobol_unit, uniform_box
 from ..train import fit, fit_wan, make_optimizer, make_wan_optimizers
 from ._fused_wan import factor_jet_or_one, make_fused_wan_pair
+
+_BF16 = torch.bfloat16
+
+
+def to_bf16(params):
+    """The nets' parameters cast to bf16 (differentiable: the gradient
+    reaches the float32 master copy in float32)."""
+    return [(W.to(_BF16), b.to(_BF16)) for W, b in params]
+
+
+def join_phases(bulk, tail):
+    """One result from a bulk and a tail that resumed from its carry: the
+    tail's state, the histories concatenated, the timing of both phases."""
+    hist = {k: np.concatenate([bulk.history[k], tail.history[k]]) for k in tail.history}
+    tb, tt = bulk.timing, tail.timing
+    elapsed = tb["elapsed_s"] + tt["elapsed_s"]
+    timing = {"elapsed_s": elapsed,
+              "steps_per_s": len(hist["l2"]) / elapsed if elapsed > 0 else float("nan"),
+              "bulk_steps_per_s": tb["steps_per_s"], "tail_steps_per_s": tt["steps_per_s"]}
+    return tail._replace(history=hist, timing=timing)
 
 
 @dataclasses.dataclass
@@ -157,10 +195,12 @@ def _validate(cfg: PoissonConfig) -> None:
                                  "hybrid-kernel"):
         raise ValueError("compute_dtype must be 'float32', 'bfloat16', "
                          "'hybrid' or 'hybrid-kernel'")
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r}: this port runs float32 "
-            "only; reduced-precision phases are ROADMAP queue B work")
+    if cfg.compute_dtype == "hybrid-kernel" and not (
+        cfg.method == "PINN" and cfg.jet_impl in ("kernel", "fused")
+    ):
+        raise ValueError(
+            "compute_dtype='hybrid-kernel' is the kernels' bf16-dot bulk mode "
+            "— requires method='PINN' and jet_impl='kernel' or 'fused'")
     if cfg.jet_impl == "pallas":
         raise NotImplementedError(
             "jet_impl='pallas' is the JAX package's name for the jet kernel "
@@ -265,19 +305,35 @@ def train_poisson_nd(cfg: PoissonConfig, device="cuda") -> Dict:
             return X_cur, rhs_f(X_cur, cfg.L, ks)
         return X_in, f_in
 
-    def loss_fn(params, key):
-        X_cur, f_cur = interior(key)
-        if cfg.method == "PINN":
-            jet = model.fields(params, X_cur, impl=cfg.jet_impl)
-            pde = pinn_poisson(jet.lap, f_cur)
-            u_int = jet.value
-        else:
-            u_int, g = model.value_and_grad(params, X_cur)
-            pde = drm_poisson_energy(u_int, g, f_cur)
-        bc, data, norm, mean_pen = aux_terms(params, key, u_int)
-        total = (w["pde"] * pde + w["bc"] * bc + w["data"] * data
-                 + w["norm"] * norm + w["mean"] * mean_pen)
-        return total, {"pde": pde, "bc": bc, "data": data, "norm": norm}
+    def make_loss_fn(dtype):
+        """The autograd objective of one precision phase: ``'float32'``,
+        ``'bfloat16'`` (bf16 nets on the torch route, float32 reductions)
+        or ``'kernel-bf16'`` (the jet kernels' bf16-dot mode)."""
+        def loss_fn(params, key):
+            X_cur, f_cur = interior(key)
+            if dtype == "bfloat16":
+                p_c, X_c = to_bf16(params), X_cur.to(_BF16)
+            else:
+                p_c, X_c = params, X_cur
+            if cfg.method == "PINN":
+                if dtype == "kernel-bf16":
+                    jet = model.fields(p_c, X_c, impl="kernel", fwd_impl="rows:default",
+                                       dot_dtype="bfloat16")
+                else:
+                    impl = "torch" if dtype == "bfloat16" else cfg.jet_impl
+                    jet = model.fields(p_c, X_c, impl=impl)
+                pde = pinn_poisson(jet.lap.float(), f_cur)
+                u_int = jet.value.float()
+            else:
+                u_int, g = model.value_and_grad(p_c, X_c)
+                u_int = u_int.float()
+                pde = drm_poisson_energy(u_int, g.float(), f_cur)
+            bc, data, norm, mean_pen = aux_terms(params, key, u_int)
+            total = (w["pde"] * pde + w["bc"] * bc + w["data"] * data
+                     + w["norm"] * norm + w["mean"] * mean_pen)
+            return total, {"pde": pde, "bc": bc, "data": data, "norm": norm}
+
+        return loss_fn
 
     if cfg.method == "WAN":
         result = _fit_wan(cfg, model, params, dev, w, ks, rhs_f, draw_interior,
@@ -299,9 +355,10 @@ def train_poisson_nd(cfg: PoissonConfig, device="cuda") -> Dict:
                   else coef_at(X_in, f_in))
     need_aux = (w["bc"] > 0 or w["data"] > 0 or w["norm"] > 0 or w["mean"] > 0)
 
-    def lag_fn(params, key):
+    def lag_fn(params, key, dot_dtype="float32"):
         """Fused loss+grad: the residual / energy through one kernel launch,
-        the aux terms (bc, data, norm, mean) on autograd."""
+        the aux terms (bc, data, norm, mean) on autograd.  ``dot_dtype``:
+        the residual kernel's dot mode."""
         if cfg.resample:
             X_cur, f_cur = interior(key)
             coef = coef_at(X_cur, f_cur)
@@ -309,12 +366,13 @@ def train_poisson_nd(cfg: PoissonConfig, device="cuda") -> Dict:
             X_cur, coef = X_in, coef_fixed
         act = model.spec.activation
         if cfg.coef_mode == "analytic":
-            pde, _, g_pde = fused_poisson_analytic(params, X_cur, act,
-                                                   L=cfg.L, ks=ks)
+            pde, _, g_pde = fused_poisson_analytic(params, X_cur, act, L=cfg.L, ks=ks,
+                                                   dot_dtype=dot_dtype)
         elif cfg.method == "DRM":
             pde, _, g_pde = fused_drm_energy(params, X_cur, coef, act)
         else:
-            pde, _, g_pde = fused_linear_residual(params, X_cur, coef, act)
+            pde, _, g_pde = fused_linear_residual(params, X_cur, coef, act,
+                                                  dot_dtype=dot_dtype)
         total = w["pde"] * pde
         grads = [(w["pde"] * gW, w["pde"] * gb) for gW, gb in g_pde]
         metrics = {"pde": pde, "bc": zero, "data": zero, "norm": zero}
@@ -337,15 +395,33 @@ def train_poisson_nd(cfg: PoissonConfig, device="cuda") -> Dict:
                        "norm": norm.detach()}
         return (total, metrics), grads
 
+    def phase_args(dtype):
+        """(loss_fn, extra fit kwargs) of one precision phase: the fused
+        kernel carries the float32 and kernel-bf16 phases, bf16 phases ride
+        the torch route."""
+        if cfg.jet_impl == "fused" and dtype in ("float32", "kernel-bf16"):
+            dot = "bfloat16" if dtype == "kernel-bf16" else "float32"
+            return None, {"loss_and_grad_fn": lambda p, k: lag_fn(p, k, dot)}
+        return make_loss_fn(dtype), {}
+
     optimizer = make_optimizer(cfg.lr, schedule=cfg.lr_schedule,
                                total_steps=cfg.epochs)
-    if cfg.jet_impl == "fused":
-        result = fit(None, eval_fn, params, epochs=cfg.epochs,
-                     optimizer=optimizer, key=k_train, chunk=chunk,
-                     loss_and_grad_fn=lag_fn)
+    if cfg.compute_dtype in ("hybrid", "hybrid-kernel"):
+        # the tail resumes from the bulk's full carry: Adam moments, the
+        # schedule's step and the running best continue across the switch
+        bulk = int(cfg.epochs * cfg.hybrid_bf16_fraction)
+        lf_b, kw_b = phase_args("kernel-bf16" if cfg.compute_dtype == "hybrid-kernel"
+                                else "bfloat16")
+        r1 = fit(lf_b, eval_fn, params, epochs=bulk, optimizer=optimizer,
+                 key=k_train, chunk=chunk, **kw_b)
+        lf_t, kw_t = phase_args("float32")
+        r2 = fit(lf_t, eval_fn, params, epochs=cfg.epochs - bulk, optimizer=optimizer,
+                 key=k_train, chunk=chunk, start_epoch=bulk, init_carry=r1.carry, **kw_t)
+        result = join_phases(r1, r2)
     else:
-        result = fit(loss_fn, eval_fn, params, epochs=cfg.epochs,
-                     optimizer=optimizer, key=k_train, chunk=chunk)
+        lf, kw = phase_args(cfg.compute_dtype)
+        result = fit(lf, eval_fn, params, epochs=cfg.epochs, optimizer=optimizer,
+                     key=k_train, chunk=chunk, **kw)
     return _report(cfg, model, result)
 
 
@@ -369,9 +445,16 @@ def _fit_wan(cfg, model, params, dev, w, ks, rhs_f, draw_interior, aux_terms,
         E_zero = torch.zeros((), device=dev)
     need_u = w["norm"] > 0 or w["mean"] > 0
 
-    def wan_core(u_params, v_params, X, f):
-        u, gu = model.value_and_grad(u_params, X)
-        v, gv = critic.value_and_grad(v_params, X)
+    def wan_core(u_params, v_params, X, f, dtype):
+        if dtype == "bfloat16":
+            # net streams in bf16; every reduction takes float32 casts
+            X16 = X.to(_BF16)
+            u, gu = model.value_and_grad(to_bf16(u_params), X16)
+            v, gv = critic.value_and_grad(to_bf16(v_params), X16)
+            u, gu, v, gv = u.float(), gu.float(), v.float(), gv.float()
+        else:
+            u, gu = model.value_and_grad(u_params, X)
+            v, gv = critic.value_and_grad(v_params, X)
         wv, dwv = bump_w(X, 0.0, cfg.L)
         phi = wv * v
         gphi = dwv * v[:, None] + wv[:, None] * gv
@@ -379,46 +462,65 @@ def _fit_wan(cfg, model, params, dev, w, ks, rhs_f, draw_interior, aux_terms,
         phi_norm = torch.mean(phi ** 2)
         return wan_pde_loss(weak, phi_norm), weak, phi_norm, u, v, gv
 
-    def v_loss_fn(v_params, u_params, key):
-        Xc = draw_interior(key)
-        fc = rhs_f(Xc, cfg.L, ks)
-        if fused:
-            wv, dwv = bump_w(Xc, 0.0, cfg.L)
-            lv, _ = pair.v_loss_fn(v_params, u_params, E_zero, Xc, wv, dwv, f=fc)
-            if quad_reg is not None:
-                coef_r = quotient_coefficients(factor_jet_or_one(critic, Xc), V=0.5)
-                reg2, _ = quad_reg(v_params, Xc, coef_r)
-                lv = lv + reg2
-            return lv
-        loss_pde, _, _, _, v, gv = wan_core(u_params, v_params, Xc, fc)
-        v_reg = torch.mean(torch.sum(gv * gv, dim=-1) + v * v)
-        return -torch.log(loss_pde + 1e-8) + cfg.wan_reg * v_reg
+    def make_losses(dtype):
+        """(u_loss_fn, v_loss_fn) of one precision phase; the fused kernels
+        carry float32 phases only."""
+        on_kernels = fused and dtype == "float32"
 
-    def u_loss_fn(u_params, v_params, key):
-        Xu = draw_interior(key)
-        fu = rhs_f(Xu, cfg.L, ks)
-        if fused:
-            wv, dwv = bump_w(Xu, 0.0, cfg.L)
-            pde_w, aux = pair.u_pde_fn(u_params, E_zero, v_params, Xu, wv, dwv, f=fu)
-            loss_pde, weak, phi_norm = aux["pde_loss"], aux["weak_residual"], aux["phi_norm"]
-            u_int = model.apply_batch(u_params, Xu) if need_u else None
-        else:
-            loss_pde, weak, phi_norm, u_int, _, _ = wan_core(u_params, v_params, Xu, fu)
-            pde_w = w["pde"] * loss_pde
-        bc, data, norm, mean_pen = aux_terms(u_params, fold_in(key, 7), u_int)
-        total = (pde_w + w["bc"] * bc + w["data"] * data + w["norm"] * norm
-                 + w["mean"] * mean_pen)
-        return total, {"pde": loss_pde, "bc": bc, "data": data, "norm": norm,
-                       "wan_weak": weak, "wan_phi_norm": phi_norm}
+        def v_loss_fn(v_params, u_params, key):
+            Xc = draw_interior(key)
+            fc = rhs_f(Xc, cfg.L, ks)
+            if on_kernels:
+                wv, dwv = bump_w(Xc, 0.0, cfg.L)
+                lv, _ = pair.v_loss_fn(v_params, u_params, E_zero, Xc, wv, dwv, f=fc)
+                if quad_reg is not None:
+                    coef_r = quotient_coefficients(factor_jet_or_one(critic, Xc), V=0.5)
+                    reg2, _ = quad_reg(v_params, Xc, coef_r)
+                    lv = lv + reg2
+                return lv
+            loss_pde, _, _, _, v, gv = wan_core(u_params, v_params, Xc, fc, dtype)
+            v_reg = torch.mean(torch.sum(gv * gv, dim=-1) + v * v)
+            return -torch.log(loss_pde + 1e-8) + cfg.wan_reg * v_reg
+
+        def u_loss_fn(u_params, v_params, key):
+            Xu = draw_interior(key)
+            fu = rhs_f(Xu, cfg.L, ks)
+            if on_kernels:
+                wv, dwv = bump_w(Xu, 0.0, cfg.L)
+                pde_w, aux = pair.u_pde_fn(u_params, E_zero, v_params, Xu, wv, dwv, f=fu)
+                loss_pde, weak = aux["pde_loss"], aux["weak_residual"]
+                phi_norm = aux["phi_norm"]
+                u_int = model.apply_batch(u_params, Xu) if need_u else None
+            else:
+                loss_pde, weak, phi_norm, u_int, _, _ = wan_core(u_params, v_params, Xu,
+                                                                 fu, dtype)
+                pde_w = w["pde"] * loss_pde
+            bc, data, norm, mean_pen = aux_terms(u_params, fold_in(key, 7), u_int)
+            total = (pde_w + w["bc"] * bc + w["data"] * data + w["norm"] * norm
+                     + w["mean"] * mean_pen)
+            return total, {"pde": loss_pde, "bc": bc, "data": data, "norm": norm,
+                           "wan_weak": weak, "wan_phi_norm": phi_norm}
+
+        return u_loss_fn, v_loss_fn
 
     u_opt, v_opt = make_wan_optimizers(
         cfg.lr, v_lr=cfg.v_lr, schedule=cfg.lr_schedule, epochs=cfg.epochs,
         v_steps=cfg.critic_steps)
-    return fit_wan(u_loss_fn, v_loss_fn, eval_fn, params, v_params,
-                   epochs=cfg.epochs, v_steps=cfg.critic_steps, u_optimizer=u_opt,
-                   v_optimizer=v_opt, key=k_train,
-                   chunk=min(chunk, runtime.pallas_chunk_cap()),
-                   minimax=cfg.minimax, u_ema=cfg.u_ema)
+    wan_kw = dict(v_steps=cfg.critic_steps, u_optimizer=u_opt, v_optimizer=v_opt,
+                  key=k_train, chunk=min(chunk, runtime.pallas_chunk_cap()),
+                  minimax=cfg.minimax, u_ema=cfg.u_ema)
+    if cfg.compute_dtype == "hybrid":
+        # the tail resumes from the bulk's full carry: both optimizers, the
+        # best iterate, the EMA and the OGDA gradients
+        bulk = int(cfg.epochs * cfg.hybrid_bf16_fraction)
+        r1 = fit_wan(*make_losses("bfloat16"), eval_fn, params, v_params, epochs=bulk,
+                     **wan_kw)
+        r2 = fit_wan(*make_losses("float32"), eval_fn, params, v_params,
+                     epochs=cfg.epochs - bulk, start_epoch=bulk, init_carry=r1.carry,
+                     **wan_kw)
+        return join_phases(r1, r2)
+    return fit_wan(*make_losses(cfg.compute_dtype), eval_fn, params, v_params,
+                   epochs=cfg.epochs, **wan_kw)
 
 
 def _report(cfg, model, result) -> Dict:

@@ -27,9 +27,13 @@ def resolve_device(device=None) -> torch.device:
 def pin_fp32_precision() -> None:
     """Full-fp32 matmuls and convolutions: second derivatives are
     precision-sensitive (the JAX trainer pins
-    ``default_matmul_precision('highest')``), and TF32 keeps ~3 digits."""
+    ``default_matmul_precision('highest')``), and TF32 keeps ~3 digits.
+    bf16 matmuls (the ``compute_dtype='bfloat16'`` phases) accumulate in
+    fp32, as JAX's bf16 dots do: cuBLAS may otherwise reduce bf16 products
+    in reduced precision (PyTorch's default allows it)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def pallas_chunk_cap() -> int:

@@ -465,3 +465,126 @@ def test_cuda_quotient_smem_layout_mirror(dev):
                         assert lib.fused_quotient_smem_bytes(
                             code, lap, ctypes.addressof(lay), len(layers), T,
                             flags) == 4 * tfq.smem_floats(kind, layers, T, lap, flags)
+
+
+# --------------------------------------------------------- bf16-dot variants
+_BF16_NETS = [
+    ((2, 64, 64, 64, 64, 1), "sin"),
+    ((5, 32, 32, 1), "tanh"),
+    ((3, 50, 50, 1), "gelu"),
+    ((2, 10, 10, 1), "sin"),
+]
+
+
+def _leaf_rel(a, b):
+    return max(float(torch.linalg.norm(x.double() - y.double()))
+               / max(float(torch.linalg.norm(y.double())), 1e-30) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["linear", "analytic", "forward", "backward"])
+@pytest.mark.parametrize("layers,act", _BF16_NETS)
+def test_cuda_bf16_kernel_matches_plain(dev, kind, layers, act):
+    """The bf16-dot variants (``dot_dtype='bfloat16'``, ``fwd_impl=
+    'rows:default'``) against their plain bf16-dot versions, float32 on the
+    card: loss and every gradient leaf norm-rel <= 1e-4, every jet column
+    <= 5e-4 (a per-point output keeps the rare operand that rounds to the
+    other bf16 neighbour under the two sum orders); two launches bitwise
+    equal, each counted under ``<kernel>.bf16``.  The backward takes the
+    cotangent a Poisson residual gives it."""
+    from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
+    from nnpde_tpu_torch.models import factor_for_technique
+
+    rng = np.random.default_rng(17)
+    N, d = 1000 + 7, layers[0]
+    tp = params_from_jax(_np_params(rng, layers), device=dev)
+    X = torch.as_tensor(rng.uniform(0.0, L, (N, d)).astype(np.float32), device=dev)
+    fj = factor_for_technique("FBC", dim=d, kind="box", L=L).jet(X)
+    coef = tfs.residual_coefficients(fj, a0=-1.0, rhs=torch.sin(X[:, 0]))
+    ks = (1,) * d
+
+    if kind == "linear":
+        name = "fused_linear_residual.bf16"
+
+        def run():
+            loss, _, g = tfs.fused_linear_residual(tp, X, coef, act, dot_dtype="bfloat16")
+            return [loss.reshape(1)] + [t for pair in g for t in pair]
+
+        dWs, dbs, sums = tfs.linear_residual_plain(tp, X, coef, act, "bfloat16")
+    elif kind == "analytic":
+        name = "fused_poisson_analytic.bf16"
+
+        def run():
+            loss, _, g = tfs.fused_poisson_analytic(tp, X, act, L=L, ks=ks,
+                                                    dot_dtype="bfloat16")
+            return [loss.reshape(1)] + [t for pair in g for t in pair]
+
+        dWs, dbs, sums = tfs.poisson_analytic_plain(tp, X, act, tfs.PoissonSinCoef(L, ks),
+                                                    "bfloat16")
+    elif kind == "forward":
+        name = "fwdlap_forward.bf16"
+
+        def run():
+            return [tfc.fwdlap_forward(tp, X, act, "rows:default")]
+
+        ref = tfc.fwdlap_forward_default_plain(tp, X, act)
+    else:
+        name = "fwdlap_backward.bf16"
+        jet = tfc.fwdlap_forward_plain(tp, X, act)
+        r = (coef[:, 0] * jet.value + torch.sum(coef[:, 1:1 + d] * jet.grad, dim=1)
+             + coef[:, d + 1] * jet.lap + coef[:, d + 2])
+        ct = ((2.0 / N) * r[:, None] * coef[:, :d + 2]).contiguous()
+
+        def run():
+            dW, db = tfc.fwdlap_backward(tp, X, ct, act, "bfloat16")
+            return [t for pair in zip(dW, db) for t in pair]
+
+        rW, rb = tfc.fwdlap_backward_plain(tp, X, ct, act, "bfloat16")
+        want = [t for pair in zip(rW, rb) for t in pair]
+    if kind in ("linear", "analytic"):
+        g = tfs._scaled_grads(tp, dWs, dbs, sums, 2.0 / N)
+        want = [(sums[0] / N).reshape(1)] + [t for pair in g for t in pair]
+    before = LAUNCHES[name]
+    out, out2 = run(), run()
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(out, out2))
+    if kind == "forward":
+        for c in range(d + 2):
+            assert (torch.linalg.norm(out[0][:, c].double() - ref[:, c].double())
+                    <= 5e-4 * torch.linalg.norm(ref[:, c].double()))
+    else:
+        assert _leaf_rel(out, want) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_jet_pair_is_differentiable(dev):
+    """``SolutionModel.fields(impl='kernel', fwd_impl='rows:default',
+    dot_dtype='bfloat16')`` on the card: one bf16-dot forward and one
+    bf16-dot backward launch, gradient leaves within 1e-4 of the plain
+    bf16-dot route on the same card."""
+    from nnpde_tpu_torch.models import NetSpec, SolutionModel, factor_for_technique
+
+    layers = (2, 64, 64, 64, 1)
+    rng = np.random.default_rng(19)
+    pn = _np_params(rng, layers)
+    X = torch.as_tensor(rng.uniform(0.0, L, (2001, 2)).astype(np.float32), device=dev)
+    model = SolutionModel(NetSpec(layers, activation="sin"),
+                          factor_for_technique("FBC", dim=2, kind="box", L=L))
+    kw = dict(impl="kernel", fwd_impl="rows:default", dot_dtype="bfloat16")
+
+    def grads(Xa):
+        tp = [(W.requires_grad_(True), b.requires_grad_(True))
+              for W, b in params_from_jax(pn, device=Xa.device)]
+        jet = model.fields(tp, Xa, **kw)
+        val = torch.mean((jet.lap + torch.sin(Xa[:, 0])) ** 2)
+        return [val.detach().reshape(1)] + list(
+            torch.autograd.grad(val, [t for pair in tp for t in pair]))
+
+    before = (LAUNCHES["fwdlap_forward.bf16"], LAUNCHES["fwdlap_backward.bf16"])
+    got = grads(X)
+    torch.cuda.synchronize()
+    assert (LAUNCHES["fwdlap_forward.bf16"], LAUNCHES["fwdlap_backward.bf16"]) == (
+        before[0] + 1, before[1] + 1)
+    ref = [t.to(dev) for t in grads(X.cpu())]
+    assert _leaf_rel(got, ref) <= 1e-4

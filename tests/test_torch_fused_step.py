@@ -154,4 +154,4 @@ def test_wrappers_reject_bad_input():
         tfs.fused_linear_residual(tp, Xt, torch.zeros(10, 5), "sin")
     with pytest.raises(NotImplementedError):
         tfs.fused_linear_residual(tp, Xt, torch.zeros(10, 6), "sin",
-                                  dot_dtype="bfloat16")
+                                  dot_dtype="bf16x3")

@@ -228,8 +228,8 @@ def test_streams_option_and_launch_counts_stay_zero_on_cpu():
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(compute_dtype="bfloat16"), NotImplementedError, "queue B"),
-    (dict(compute_dtype="hybrid"), NotImplementedError, "queue B"),
+    (dict(compute_dtype="bfloat16", LBFGS=True), NotImplementedError, "A12"),
+    (dict(compute_dtype="hybrid", LBFGS=True), NotImplementedError, "A12"),
     (dict(compute_dtype="float16"), ValueError, "compute_dtype"),
     (dict(LBFGS=True), NotImplementedError, "A12"),
     (dict(jet_impl="pallas-fused"), ValueError, "jet_impl"),
