@@ -51,7 +51,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
 8. timing, wan_timing, eigen_timing: CUDA events, median over repeats, for
    each kernel and its plain version at the path's N and at 262144 on the
    net it runs on, with the bound (bytes or operations) and, for the kernels
-   that plan by net, the plan; training steps per second.
+   that plan by net (the K-bump pair, the seeded quotients, rows 1-3 and
+   5), the plan: tile, tier, blocks per SM and, for rows 1-3 and 5, the
+   design and item shape; rows 1 and 4 also on u50 at 40000; training
+   steps per second.
 9. precision (group ``precision``): precision_kernels holds the bf16-dot
    variants of the fused residual (stream and analytic coefficients), the
    jet forward and the jet backward to their plain bf16-dot versions
@@ -72,7 +75,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
 ``python3 chip_smoke.py eigen`` (or any other phase-group name: kernels,
 wan, main, eigen, timing, precision) runs only those groups, for work on one slice;
 without arguments every phase runs.  ``python3 chip_smoke.py sweep`` is a
-further group that runs only when named: the K-bump pair and the two seeded
+further group that runs only when named: rows 1 and 5 in both planned
+designs (4 x 4 and two-point items), the K-bump pair and the two seeded
 quotient kernels at every plan tier and a range of tile sizes, each checked
 against float64 and timed.
 
@@ -707,8 +711,8 @@ def phase_timing(dev):
             case = Case(kind, N, 2, LAYERS, "sin", seed=7, dev=dev)
             ms = time_ms(case.kernel)
             plain_ms = time_ms(lambda: case.plain(torch.float32), warmup=2, reps=7)
-            rows.append({"kernel": kind, "N": N, "ms": ms,
-                         "device_ms": device_ms(case.kernel), "plain_ms": plain_ms,
+            rows.append({"kernel": kind, "N": N, "plan": fused_plan(kind, LAYERS, N, dev),
+                         "ms": ms, "device_ms": device_ms(case.kernel), "plain_ms": plain_ms,
                          "bound_ms": case.bound_ms(), "flop": case.flops(),
                          "bound_by": ("operations" if case.flops() / FP32_PEAK
                                       >= case.bytes() / HBM_RATE else "bytes"),
@@ -1202,7 +1206,8 @@ def phase_eigen_timing(dev):
                 rows.append({"kernel": kind, "net": net, "N": N, "n_bumps": case.Kb
                              if kind.startswith("multi") else None,
                              "plan": multibump_plan(case) if kind.startswith("multi")
-                             else None, "ms": ms,
+                             else fused_plan(kind, case.layers, N, dev)
+                             if kind == "fwdlap_backward" else None, "ms": ms,
                              "device_ms": device_ms(case.kernel),
                              "plain_ms": plain_ms, "bound_ms": case.bound_ms(),
                              "bound_by": case.bound_by(), "flop": case.flops(),
@@ -1217,7 +1222,8 @@ def phase_eigen_timing(dev):
     case = Case("fused_linear_residual", EIGEN_N, 2, EIGEN_U, "sin", seed=12, dev=dev)
     others.append({"kernel": "fused_linear_residual", "net": "u", "N": EIGEN_N,
                    "ms": time_ms(case.kernel), "device_ms": device_ms(case.kernel),
-                   "bound_ms": case.bound_ms()})
+                   "bound_ms": case.bound_ms(),
+                   "plan": fused_plan("fused_linear_residual", EIGEN_U, EIGEN_N, dev)})
     del case
     # (the DRM path's Rayleigh pair on u50 at 262144 as well)
     for kind, net, N in (("fwdlap_forward", "u", EIGEN_N), ("fwdlap_forward", "critic", EIGEN_N),
@@ -1369,6 +1375,136 @@ def phase_quotient_sweep(dev):
         raise SystemExit("quotient sweep: a case missed its bar")
 
 
+# rows 1 and 5 on the nets of their paths, at the path's N (and 262144)
+FSWEEP = (("fused_linear_residual", "u", LAYERS, 20000),
+          ("fused_linear_residual", "u50", EIGEN_U, EIGEN_N),
+          ("fwdlap_backward", "u50", EIGEN_U, EIGEN_N),
+          ("fwdlap_backward", "u", LAYERS, 20000))
+FSWEEP_TILES = (16, 20, 24, 28, 32, 36)
+
+
+def fused_plan(kind, layers, N, dev, bf16=False):
+    """The launch shape the fused residual or jet backward wrapper chose
+    (after a launch): tile, tier, design, blocks per SM, item shape; None on
+    a tree whose kernels take the constant tile only."""
+    from nnpde_tpu_torch.kernels import fused_step as fs
+    from nnpde_tpu_torch.kernels import fwdlap_cuda as fc
+
+    if not hasattr(fs, "planned"):
+        return None
+    des = 0 if bf16 else None
+    if kind == "fwdlap_backward":
+        pl, S = fc.backward_plan(layers, des), layers[0] + 2
+    else:
+        pl, S = fs.plan(kind, layers, des), fs._streams(kind, layers[0])
+    return plan_row(kind, layers, S, pl, N, dev, bf16)
+
+
+def plan_row(kind, layers, S, pl, N, dev, bf16=False):
+    """A launch shape as the timing and sweep lines print it (after a launch
+    of it): tile, tier, design, fold, item shape, blocks, blocks per SM."""
+    from nnpde_tpu_torch.kernels import _cuda, _plan
+    from nnpde_tpu_torch.kernels import fused_step as fs
+
+    dev = torch.device("cuda", torch.cuda.current_device()) if dev.index is None else dev
+    fold, key = fs.variant(layers, S, pl)
+    name = kind + (".bf16" if bf16 else "")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if not pl.design & _cuda.DES_ITEM2:
+        item = "4 rows x 4 units"
+    elif S <= 4:
+        item = f"2 points x {S} streams x 4 units"
+    else:
+        item = "8 rows x 4 units"
+    return {"T": pl.T, "smem_bytes": pl.smem, "tier": pl.tier, "design": pl.design,
+            "fold": bool(fold), "item": item,
+            "blocks": _cuda.grid(name, None, pl.smem, dev, (N + pl.T - 1) // pl.T, key),
+            "blocks_per_sm": _cuda.grid(name, None, pl.smem, dev, 1 << 30, key) // sms,
+            "resident": _plan.resident(pl, True)}
+
+
+def phase_fused_sweep(dev):
+    """Rows 1 and 5 in both planned designs (``_cuda.PLANNED_DESIGNS``: 4 x 4
+    and two-point items), each at its own plan and at the wrapper's tile and
+    tier, and the wrapper's design at every (tier, T) of FSWEEP_TILES that
+    fits.  Each launch held to its float64 plain version (loss and grad
+    rel <= 1e-5; row 5 gradient row rel <= 1e-5), launched twice for a
+    bitwise-equal repeat, and timed as device time.  One JSON line per
+    case; the wrapper's own choice carries ``"chosen": true``."""
+    from nnpde_tpu_torch.kernels import _build, _cuda
+    from nnpde_tpu_torch.kernels import fused_step as fs
+    from nnpde_tpu_torch.kernels import fwdlap_cuda as fc
+
+    log, sec, lines = _build.BUILD_LOG.get("ptxas", ""), "", []
+    for ln in log.splitlines():
+        sec = ln if ln.startswith("==") else sec
+        if ("fused_step" in sec or "fwdlap_backward" in sec) and (
+                "Compiling entry" in ln or "registers" in ln or "spill" in ln):
+            lines.append(ln.strip())
+    emit({"phase": "fused_sweep", "ptxas": lines})
+    ok = True
+    for kind, net_name, layers, n_path in FSWEEP:
+        bwd = kind == "fwdlap_backward"
+        S = layers[0] + 2
+
+        def plan(des, **pin):
+            return (fc.backward_plan(layers, des, **pin) if bwd
+                    else fs.plan(kind, layers, des, **pin))
+
+        main = plan(None)
+        plans = [main]
+
+        def add(des, **pin):
+            try:
+                pl = plan(des, **pin)
+            except ValueError:
+                return
+            if pl not in plans:
+                plans.append(pl)
+
+        for des in _cuda.PLANNED_DESIGNS:
+            add(des)
+            add(des, T=main.T, tier=main.tier)
+        for tier in SWEEP_TIERS:
+            for T in FSWEEP_TILES:
+                add(main.design, T=T, tier=tier)
+        for N in (n_path, 262144):
+            if bwd:
+                case = EigenCase(kind, N, layers, "sin", seed=27, dev=dev)
+                ref = case.plain(torch.float64)
+            else:
+                case = Case(kind, N, 2, layers, "sin", seed=27, dev=dev)
+                ref_loss, ref_grads = case.plain(torch.float64)
+            for pl in plans:
+                if bwd:
+                    def run(pl=pl):
+                        dWs, dbs = fc.fwdlap_backward(case.params, case.X, case.ct, "sin", pl=pl)
+                        return torch.cat([t.reshape(-1) for pr in zip(dWs, dbs) for t in pr])
+                else:
+                    def run(pl=pl):
+                        return fs._launch(kind, case.params, case.X, case.coef, "sin", pl=pl)
+                out, out2 = run(), run()
+                torch.cuda.synchronize()
+                if bwd:
+                    err = float(torch.linalg.norm(out.double() - ref) / torch.linalg.norm(ref))
+                else:
+                    dWs, dbs, sums = fs._unflatten(case.params, out)
+                    grads = fs._scaled_grads(case.params, dWs, dbs, sums, 2.0 / N)
+                    err = max(abs(float(sums[0] / N) - float(ref_loss)) / abs(float(ref_loss)),
+                              tree_rel(grads, ref_grads))
+                good = err <= 1e-5 and bool(torch.equal(out, out2))
+                ok = ok and good
+                row = {"kernel": kind, "net": net_name, "N": N, "err": err, "ok": good,
+                       "chosen": pl == main, "device_ms": device_ms(run),
+                       "bound_ms": case.bound_ms()}
+                row.update(plan_row(kind, layers, S, pl, N, dev))
+                emit(row)
+            del case
+            torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("fused sweep: a case missed its bar")
+
+
 # --------------------------------------------------------------- precision
 # The bf16-dot variants of the four kernels that compute_dtype='hybrid-kernel'
 # launches, and the reduced-precision training of both entry points.
@@ -1452,10 +1588,12 @@ class PrecCase:
         from nnpde_tpu_torch.kernels import fused_step as fs
         from nnpde_tpu_torch.kernels import fwdlap_cuda as fc
 
-        plan = {"fwdlap_forward": lambda t: fc._plan_forward(self.layers, t),
-                "fwdlap_backward": lambda t: fc._plan_backward(self.layers, t)}.get(
-                    self.base, lambda t: fs._plan(self.base, self.layers, t))
-        T, _ = _cuda.plan_tile(plan)
+        if self.base == "fwdlap_forward":
+            T, _ = _cuda.plan_tile(lambda t: fc._plan_forward(self.layers, t))
+        elif self.base == "fwdlap_backward":
+            T = fc.backward_plan(self.layers, 0).T
+        else:
+            T = fs.plan(self.base, self.layers, 0).T
         return _cuda.folds(self.layers, self.d + 2, T)
 
     def kernel(self, dot):
@@ -1554,7 +1692,7 @@ class unfolded:
         from nnpde_tpu_torch.kernels import _cuda
 
         self.keep = _cuda.folds
-        _cuda.folds = lambda layers, S, T: False
+        _cuda.folds = lambda *args: False
 
     def __exit__(self, *exc):
         from nnpde_tpu_torch.kernels import _cuda
@@ -1658,7 +1796,10 @@ def phase_precision_timing(dev):
             # its CUDA-core figure (the design these variants use) beside it
             bound, by = case.bound(BF16_PEAK if dot == "bfloat16" else FP32_PEAK)
             row = {"kernel": base + (".bf16" if dot == "bfloat16" else ""),
-                   "net": "u", "d": layers[0], "N": N, "ms": ms, "device_ms": dev_ms,
+                   "net": "u", "d": layers[0], "N": N,
+                   "plan": None if base == "fwdlap_forward" else
+                   fused_plan(base, layers, N, dev, dot == "bfloat16"),
+                   "ms": ms, "device_ms": dev_ms,
                    "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                    "flop": case.flops(), "bytes": case.bytes(),
                    "gflops": case.flops() / (dev_ms * 1e-3) / 1e9}
@@ -1823,6 +1964,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if "sweep" in want:
+        phase_fused_sweep(dev)
         phase_multibump_sweep(dev)
         phase_quotient_sweep(dev)
     max_err, launches, speed = {}, {}, {}

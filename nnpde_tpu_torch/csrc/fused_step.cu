@@ -1,13 +1,15 @@
 // Fused PINN / Deep-Ritz loss + parameter gradients in one pass per tile.
 //
 // Replaces the Pallas kernels of nnpde_tpu/kernels/fused_step.py:
-//   fused_linear_residual_kernel   <- _fused_kernel           (r linear in the
+//   fused_linear_residual_planned  <- _fused_kernel           (r linear in the
 //                                     net jet, (N, d+4) coefficient stream)
-//   fused_poisson_analytic_kernel  <- _fused_analytic_kernel  (coefficients of
+//   fused_poisson_analytic_planned <- _fused_analytic_kernel  (coefficients of
 //                                     the box-FBC prod-sin Poisson problem
 //                                     built in-kernel from X; only X is read)
-//   fused_drm_energy_kernel        <- _fused_drm_kernel       (Deep-Ritz
+//   fused_drm_energy_planned       <- _fused_drm_kernel       (Deep-Ritz
 //                                     energy, no Laplacian stream)
+// (fp32; the bf16-dot mode of the first two is fused_linear_residual_kernel
+// and fused_poisson_analytic_kernel)
 // plus reduce_rows, the deterministic cross-block sum that takes the
 // place of the TPU's accumulation over its sequential grid.
 //
@@ -16,11 +18,17 @@
 // at d=2, layers 2-64-64-64-64-1) against 32 bytes read per point, so the
 // fp32 CUDA-core rate is the ceiling (TF32 tensor cores are ruled out by
 // the 1e-5 gradient bar).  What the design does about it: every layer of a
-// tile is one shared-memory product over all d+2 streams at once with a
-// 4 x 4 register tile per thread (fwdlap_core.cuh); tiles of 16 points keep
-// three blocks resident per SM; weights and saved stages move by cp.async;
-// only the earlier stages' pre-activations leave the SM (see
-// fwdlap_core.cuh for that scratch traffic).
+// tile is one shared-memory product over all d+2 streams at once
+// (fwdlap_core.cuh); weights and saved stages move by cp.async; only the
+// earlier stages' pre-activations leave the SM.  Two sets of kernels:
+//   * design 0 -- the core's routines (4 x 4 register tiles, a constant
+//     16-point tile, each hidden W^T built per tile): the BF16 variants of
+//     the linear and analytic kernels;
+//   * the planned design (fused_body_p on fwdlap_planned.cuh) -- the fp32
+//     kernels: the launch plan of kernels/_plan.py at two blocks per SM,
+//     the hidden weights' transposes read from device memory, dW items dealt
+//     4 x 8 to a warp, and two-point items where their one-wave tile fits
+//     (fwdlap_planned.cuh has the design and what it is for).
 //
 // The bf16-dot mode (BF16 variants of the linear and analytic kernels;
 // the TPU kernels' dot_dtype='bfloat16', which the bulk of
@@ -36,7 +44,7 @@
 // Interface: plain C (ctypes), float32 only, row-major (in, out) weights
 // flattened as [W0, b0, W1, b1, ...].  Every entry point launches on the
 // given stream, never synchronises, and returns cudaGetLastError().
-#include "fwdlap_core.cuh"
+#include "fwdlap_planned.cuh"
 
 using namespace fwdlap;
 
@@ -59,6 +67,22 @@ struct Args {
   int N, T, n_tiles, row;
   Analytic an;
 };
+
+// The planned kernels' arguments: Args and what their plan adds.
+struct PArgs : Args {
+  const float* wt;            // the hidden weights' transposes (tpos)
+  int flags;                  // the plan's Flags
+};
+
+// Shared-memory floats of one block for (T, flags): fused_body_p's layout;
+// fused_body's (design 0) is that of flags 0.  Mirrored by
+// kernels/fused_step.py::smem_floats.
+__host__ __device__ inline int fused_smem_floats(const Net& net, int T, int flags) {
+  const int d = net.d, S = net.S, ld = net.wmax, stage = S * T * ld;
+  int n = 3 * stage + ((flags & RES_WEIGHTS) ? 2 * hidden_floats(net) : ld * ld);
+  if (flags & RES_GRAD) n += (net.P + 3 + 3) & ~3;
+  return n + T * d + (d + 2) * T + 3 * T + S * T + NT;
+}
 
 // In-kernel coefficients of r = a0*lap(B*net) - f for B = prod x_i (L - x_i)
 // (_poisson_sin_coef_builder): a = a0*B, b_i = 2*a0*dB_i, c = a0*lapB.
@@ -83,6 +107,93 @@ __device__ __forceinline__ void poisson_sin_coef(const Analytic& an, int d,
   a = an.a0 * B;
   c = an.a0 * lapB;
   rhs = -(an.fscale * s);
+}
+
+// The per-point loss terms and cotangent seeds of a tile from its projected
+// streams (proj), and the tile's three sums added to the block's row (the
+// planned kernels; fused_body keeps its own copy of this arithmetic).
+template <int MODE>
+__device__ __forceinline__ void point_terms(const Args& A, int T, int base, const float* proj,
+                                            const float* xs, float* ct, float* ps,
+                                            float* grow) {
+  const Net& net = A.net;
+  const int d = net.d;
+  // per-point loss terms and cotangent seeds
+  for (int p = threadIdx.x; p < T; p += NT) {
+    const bool valid = base + p < A.N;
+    float g[MAX_DIM];
+    const float value = proj[p];
+    for (int i = 0; i < d; ++i) g[i] = proj[(1 + i) * T + p];
+    const float lapv = net.lap ? proj[(d + 1) * T + p] : 0.f;
+
+    float s0 = 0.f, s1 = 0.f, s2 = 0.f, ctv = 0.f, ctl = 0.f;
+    if (MODE == MODE_DRM) {
+      const float* cf = A.coef + (size_t)(base + p) * (d + 2);
+      const float B = valid ? cf[0] : 0.f;
+      const float f = valid ? cf[d + 1] : 0.f;
+      float e = 0.f;
+      for (int i = 0; i < d; ++i) {
+        const float dB = valid ? cf[1 + i] : 0.f;
+        const float G = B * g[i] + dB * value;
+        e += 0.5f * G * G;
+        ctv += G * dB;
+        ct[(1 + i) * T + p] = G * B;
+      }
+      e -= f * B * value;
+      ctv -= f * B;
+      s0 = e;
+      s1 = ctv;
+    } else {
+      float c, a, rhs, e = 0.f, bb[MAX_DIM];
+      if (MODE == MODE_LINEAR) {
+        const float* cf = A.coef + (size_t)(base + p) * (d + 4);
+        c = valid ? cf[0] : 0.f;
+        for (int i = 0; i < d; ++i) bb[i] = valid ? cf[1 + i] : 0.f;
+        a = valid ? cf[d + 1] : 0.f;
+        rhs = valid ? cf[d + 2] : 0.f;
+        e = valid ? cf[d + 3] : 0.f;
+      } else {
+        poisson_sin_coef(A.an, d, xs + p * d, c, bb, a, rhs);
+      }
+      float r = c * value + a * lapv + rhs;
+      for (int i = 0; i < d; ++i) r += bb[i] * g[i];
+      if (!valid) r = 0.f;
+      s0 = r * r;
+      s1 = r * c;
+      s2 = r * e * value;
+      ctv = r * c;
+      ctl = r * a;
+      for (int i = 0; i < d; ++i) ct[(1 + i) * T + p] = r * bb[i];
+    }
+    ct[p] = ctv;
+    ct[(d + 1) * T + p] = ctl;
+    ps[p] = s0;
+    ps[T + p] = s1;
+    ps[2 * T + p] = s2;
+  }
+  __syncthreads();
+  // the tile's three sums by warp 0: lane l adds points l, l + 32, ... in
+  // order, then a fixed shuffle tree (the thread-0 loop of fused_body was a
+  // chain of 3 T dependent shared loads)
+  if (threadIdx.x < 32) {
+    float a0 = 0.f, a1 = 0.f, a2 = 0.f;
+    for (int p = threadIdx.x; p < T; p += 32) {
+      a0 += ps[p];
+      a1 += ps[T + p];
+      a2 += ps[2 * T + p];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      a0 += __shfl_xor_sync(0xffffffffu, a0, o);
+      a1 += __shfl_xor_sync(0xffffffffu, a1, o);
+      a2 += __shfl_xor_sync(0xffffffffu, a2, o);
+    }
+    if (threadIdx.x == 0) {
+      grow[net.P] += a0;
+      grow[net.P + 1] += a1;
+      grow[net.P + 2] += a2;
+    }
+  }
 }
 
 template <int MODE, bool FOLD, bool BF16>
@@ -189,11 +300,75 @@ __device__ void fused_body(const Args& A) {
   }
 }
 
+// The planned design (fwdlap_planned.cuh, DES != 0): fused_body on
+// fwd_recompute_p / reverse_sweep_p, with the plan's residency from A.flags
+// (hidden weights and their transposes, the block's gradient row).
+template <int MODE, bool FOLD, int DES>
+__device__ void fused_body_p(const PArgs& A) {
+  extern __shared__ __align__(16) float smem[];
+  const Net& net = A.net;
+  const int T = A.T, d = net.d, S = net.S, ld = net.wmax, stage = S * T * ld;
+  const bool res_w = (A.flags & RES_WEIGHTS) != 0;
+  const int hid = res_w ? hidden_floats(net) : 0;
+  float* bufA = smem;
+  float* bufB = bufA + stage;
+  float* bufC = bufB + stage;             // pre-activations of one stage
+  float* Wsh = bufC + stage;              // one layer's W, or the resident W, W^T
+  float* at = Wsh + (res_w ? 2 * hid : ld * ld);
+  float* gacc = nullptr;                  // the block's gradient row (RES_GRAD)
+  if (A.flags & RES_GRAD) {
+    gacc = at;
+    at += (A.row + 3) & ~3;
+  }
+  float* xs = at;
+  float* ct = xs + T * d;                 // [ct_v | ct_g (d) | ct_l] x T
+  float* ps = ct + (d + 2) * T;           // per-point sum terms, 3 x T
+  float* proj = ps + 3 * T;               // projected streams, S x T
+  float* red = proj + S * T;              // reduction scratch, NT
+  float* grow_g = A.partial + (size_t)blockIdx.x * A.row;
+  float* grow = gacc ? gacc : grow_g;     // where the tiles add their dW/db
+  float* scratch = A.scratch + (size_t)blockIdx.x * (net.K - 2) * stage;
+  Resident res;
+  if (res_w) {
+    stage_resident_p(net, A.params, A.wt, Wsh, Wsh + hid);
+    res.W = Wsh;
+    res.Wt = Wsh + hid;
+  }
+  res.narrow = (A.flags & NARROW) != 0;
+
+  for (int i = threadIdx.x; i < A.row; i += NT) grow[i] = 0.f;
+  if (res_w) copy_wait();
+  __syncthreads();
+
+  const int K = net.K;
+  const int wl = net.w[K - 1];
+  const float* wlast = A.params + net.off[K - 1];
+  const float blast = wlast[wl];
+
+  for (int tile = blockIdx.x; tile < A.n_tiles; tile += gridDim.x) {
+    const int base = tile * T;
+    load_tile(A.X, A.N, d, base, T, xs);
+    __syncthreads();
+    float* cur = bufA;
+    float* nxt = bufB;
+    fwd_recompute_p<FOLD, DES>(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch, res);
+    project_last(net, T, cur, wlast, blast, proj);
+    __syncthreads();
+    point_terms<MODE>(A, T, base, proj, xs, ct, ps, grow);
+    reverse_sweep_p<FOLD, DES>(net, T, xs, A.params, A.wt, cur, nxt, bufC, Wsh, scratch, ct,
+                               red, grow, res);
+  }
+  // the row on chip goes out once (the last tile ended in a barrier)
+  if (gacc)
+    for (int i = threadIdx.x; i < A.row; i += NT) grow_g[i] = gacc[i];
+}
+
 }  // namespace
 
 // (each kernel in two variants: FOLD, the activation in the products'
-// epilogues, for nets with at most 4 streams; and the linear and analytic
-// kernels in BF16 variants, the bf16-dot mode; the wrapper chooses)
+// epilogues, for nets with at most 4 streams; design 0, the core's
+// routines, runs the linear and analytic kernels' BF16 variants, the
+// bf16-dot mode; fp32 runs the planned kernels below; the wrapper chooses)
 template <bool FOLD, bool BF16>
 __global__ void __launch_bounds__(NT) fused_linear_residual_kernel(Args a) {
   fused_body<MODE_LINEAR, FOLD, BF16>(a);
@@ -202,9 +377,19 @@ template <bool FOLD, bool BF16>
 __global__ void __launch_bounds__(NT) fused_poisson_analytic_kernel(Args a) {
   fused_body<MODE_ANALYTIC, FOLD, BF16>(a);
 }
-template <bool FOLD>
-__global__ void __launch_bounds__(NT) fused_drm_energy_kernel(Args a) {
-  fused_body<MODE_DRM, FOLD, false>(a);
+// the planned design (DES != 0) at two blocks per SM: the plan counts on
+// them, so the register budget is stated
+template <bool FOLD, int DES>
+__global__ void __launch_bounds__(NT, 2) fused_linear_residual_planned(PArgs a) {
+  fused_body_p<MODE_LINEAR, FOLD, DES>(a);
+}
+template <bool FOLD, int DES>
+__global__ void __launch_bounds__(NT, 2) fused_poisson_analytic_planned(PArgs a) {
+  fused_body_p<MODE_ANALYTIC, FOLD, DES>(a);
+}
+template <bool FOLD, int DES>
+__global__ void __launch_bounds__(NT, 2) fused_drm_energy_planned(PArgs a) {
+  fused_body_p<MODE_DRM, FOLD, DES>(a);
 }
 
 // out[j] = sum_g partial[g][j].  One loop over all G rows per output is a
@@ -239,35 +424,68 @@ cudaError_t reduce_rows(const float* partial, int G, int R, float* out, cudaStre
 namespace {
 
 typedef void (*KernelFn)(Args);
+typedef void (*PKernelFn)(PArgs);
 
-KernelFn kernel_for(int mode, int fold, int bf16) {
+// design 0: the core's kernels, in their BF16 variants (the bf16-dot mode;
+// the DRM kernel has none, and fp32 takes a planned design)
+KernelFn bf16_kernel_for(int mode, int fold) {
   switch (mode) {
     case MODE_LINEAR:
-      if (bf16)
-        return fold ? fused_linear_residual_kernel<true, true>
-                    : fused_linear_residual_kernel<false, true>;
-      return fold ? fused_linear_residual_kernel<true, false>
-                  : fused_linear_residual_kernel<false, false>;
+      return fold ? fused_linear_residual_kernel<true, true>
+                  : fused_linear_residual_kernel<false, true>;
     case MODE_ANALYTIC:
-      if (bf16)
-        return fold ? fused_poisson_analytic_kernel<true, true>
-                    : fused_poisson_analytic_kernel<false, true>;
-      return fold ? fused_poisson_analytic_kernel<true, false>
-                  : fused_poisson_analytic_kernel<false, false>;
-    case MODE_DRM:
-      if (bf16) return nullptr;
-      return fold ? fused_drm_energy_kernel<true> : fused_drm_energy_kernel<false>;
+      return fold ? fused_poisson_analytic_kernel<true, true>
+                  : fused_poisson_analytic_kernel<false, true>;
     default: return nullptr;
   }
 }
 
+template <int MODE, bool FOLD, int DES>
+PKernelFn planned_of() {
+  if constexpr (MODE == MODE_LINEAR) return fused_linear_residual_planned<FOLD, DES>;
+  else if constexpr (MODE == MODE_ANALYTIC) return fused_poisson_analytic_planned<FOLD, DES>;
+  else return fused_drm_energy_planned<FOLD, DES>;
+}
+
+template <int MODE, bool FOLD>
+PKernelFn planned_by(int des) {
+  switch (des) {
+    case DES_PLANNED: return planned_of<MODE, FOLD, DES_PLANNED>();
+    case DES_PLANNED | DES_ITEM2: return planned_of<MODE, FOLD, DES_PLANNED | DES_ITEM2>();
+    default: return nullptr;
+  }
+}
+
+PKernelFn planned_for(int mode, int fold, int des) {
+  switch (mode) {
+    case MODE_LINEAR:
+      return fold ? planned_by<MODE_LINEAR, true>(des) : planned_by<MODE_LINEAR, false>(des);
+    case MODE_ANALYTIC:
+      return fold ? planned_by<MODE_ANALYTIC, true>(des)
+                  : planned_by<MODE_ANALYTIC, false>(des);
+    case MODE_DRM:
+      return fold ? planned_by<MODE_DRM, true>(des) : planned_by<MODE_DRM, false>(des);
+    default: return nullptr;
+  }
+}
+
+// The kernel of a variant, as the pointer the occupancy calls take.
+const void* variant_fn(int mode, int fold, int bf16, int des) {
+  if (bf16) return des == 0 ? (const void*)bf16_kernel_for(mode, fold) : nullptr;
+  return (const void*)planned_for(mode, fold, des);
+}
+
 int launch(int mode, const float* X, const float* coef, const float* params,
-           const int* layers, int n_layers, int act, int N, int T, int G, int fold,
-           int bf16, const float* analytic, float* partial, float* scratch, float* out,
-           int smem_bytes, void* stream) {
-  Args a;
-  if (!make_net(mode == MODE_DRM ? 0 : 1, layers, n_layers, act, &a.net) || N < 1 || T < 4 ||
-      T % 4 != 0 || G < 1 || (fold && a.net.S > 4))
+           const float* wt, const int* layers, int n_layers, int act, int N, int T, int G,
+           int fold, int bf16, int des, int flags, const float* analytic, float* partial,
+           float* scratch, float* out, int smem_bytes, void* stream) {
+  PArgs a;
+  const void* fn = variant_fn(mode, fold, bf16, des);
+  if (fn == nullptr || !make_net(mode == MODE_DRM ? 0 : 1, layers, n_layers, act, &a.net) ||
+      N < 1 || T < 4 || T % 4 != 0 || T > NT / 2 || G < 1 || (fold && a.net.S > 4) ||
+      flags < 0 || flags > 7 || (des == 0 && flags != 0) ||
+      (a.net.K > 2 && (scratch == nullptr || (des != 0 && wt == nullptr))) ||
+      4 * fused_smem_floats(a.net, T, flags) > smem_bytes)
     return (int)cudaErrorInvalidValue;
   a.X = X;
   a.coef = coef;
@@ -286,13 +504,15 @@ int launch(int mode, const float* X, const float* coef, const float* params,
     a.an.fscale = analytic[2];
     for (int i = 0; i < a.net.d; ++i) a.an.kpi[i] = analytic[3 + i];
   }
-  KernelFn fn = kernel_for(mode, fold, bf16);
-  if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  a.wt = wt;
+  a.flags = flags;
+  cudaError_t err = ensure_smem(fn, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  fn<<<G, NT, smem_bytes, s>>>(a);
+  if (des == 0)
+    ((KernelFn)fn)<<<G, NT, smem_bytes, s>>>(static_cast<const Args&>(a));
+  else
+    ((PKernelFn)fn)<<<G, NT, smem_bytes, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)reduce_rows(partial, G, a.row, out, s);
@@ -303,44 +523,57 @@ int launch(int mode, const float* X, const float* coef, const float* params,
 extern "C" {
 
 // fold: the variant with the activation in the products' epilogues (nets
-// with at most 4 streams); bf16: the bf16-dot variant.  Tensors are float32
-// in every variant.
+// with at most 4 streams); bf16: the bf16-dot variant (design 0); des: the
+// design (fwdlap_planned.cuh, Design); flags: the plan's Flags (design != 0,
+// else 0).  smem_bytes must hold the layout for (T, flags).  params:
+// the flat [W0, b0, W1, b1, ...]; wt: the hidden weights' transposes W_1^T,
+// ..., W_{K-2}^T (true sizes, row-major, back to back), read by a planned
+// design (may be null for design 0).  Tensors are float32 in every variant.
 int fused_linear_residual_f32(const float* X, const float* coef,
-                              const float* params, const int* layers,
+                              const float* params, const float* wt, const int* layers,
                               int n_layers, int act, int N, int T, int G, int fold,
-                              int bf16, float* partial, float* scratch, float* out,
-                              int smem_bytes, void* stream) {
-  return launch(MODE_LINEAR, X, coef, params, layers, n_layers, act, N, T, G, fold,
-                bf16, nullptr, partial, scratch, out, smem_bytes, stream);
+                              int bf16, int des, int flags, float* partial, float* scratch,
+                              float* out, int smem_bytes, void* stream) {
+  return launch(MODE_LINEAR, X, coef, params, wt, layers, n_layers, act, N, T, G, fold,
+                bf16, des, flags, nullptr, partial, scratch, out, smem_bytes, stream);
 }
 
-int fused_poisson_analytic_f32(const float* X, const float* params,
+int fused_poisson_analytic_f32(const float* X, const float* params, const float* wt,
                                const int* layers, int n_layers, int act, int N,
-                               int T, int G, int fold, int bf16, const float* analytic,
-                               float* partial, float* scratch, float* out,
-                               int smem_bytes, void* stream) {
-  return launch(MODE_ANALYTIC, X, nullptr, params, layers, n_layers, act, N, T,
-                G, fold, bf16, analytic, partial, scratch, out, smem_bytes, stream);
+                               int T, int G, int fold, int bf16, int des, int flags,
+                               const float* analytic, float* partial, float* scratch,
+                               float* out, int smem_bytes, void* stream) {
+  return launch(MODE_ANALYTIC, X, nullptr, params, wt, layers, n_layers, act, N, T,
+                G, fold, bf16, des, flags, analytic, partial, scratch, out, smem_bytes,
+                stream);
 }
 
 int fused_drm_energy_f32(const float* X, const float* coef, const float* params,
-                         const int* layers, int n_layers, int act, int N, int T,
-                         int G, int fold, float* partial, float* scratch, float* out,
-                         int smem_bytes, void* stream) {
-  return launch(MODE_DRM, X, coef, params, layers, n_layers, act, N, T, G, fold, 0,
-                nullptr, partial, scratch, out, smem_bytes, stream);
+                         const float* wt, const int* layers, int n_layers, int act, int N, int T,
+                         int G, int fold, int des, int flags, float* partial, float* scratch,
+                         float* out, int smem_bytes, void* stream) {
+  return launch(MODE_DRM, X, coef, params, wt, layers, n_layers, act, N, T, G, fold, 0, des,
+                flags, nullptr, partial, scratch, out, smem_bytes, stream);
 }
 
 // Resident blocks per SM for a mode and variant at a dynamic shared-memory
 // size.
-int fused_blocks_per_sm(int mode, int fold, int bf16, int smem_bytes, int* blocks) {
-  KernelFn fn = kernel_for(mode, fold, bf16);
+int fused_blocks_per_sm(int mode, int fold, int bf16, int des, int smem_bytes, int* blocks) {
+  const void* fn = variant_fn(mode, fold, bf16, des);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  cudaError_t err = ensure_smem(fn, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, NT, smem_bytes);
-  return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, NT, smem_bytes);
+}
+
+// The shared-memory bytes the kernels lay out for (T, flags), or -1 for a
+// mode or net they do not take.
+int fused_smem_bytes(int mode, const int* layers, int n_layers, int T, int flags) {
+  Net net;
+  if (mode < MODE_LINEAR || mode > MODE_DRM ||
+      !make_net(mode == MODE_DRM ? 0 : 1, layers, n_layers, 0, &net))
+    return -1;
+  return 4 * fused_smem_floats(net, T, flags);
 }
 
 }  // extern "C"

@@ -15,8 +15,11 @@
 // cost 3*(d+2)*sum(n_in*n_out) multiply-adds per point against
 // 4*(2d+2) bytes read, so the fp32 CUDA-core rate is the ceiling.  What the
 // design does about it: the shared per-tile core (fwdlap_core.cuh: one
-// shared-memory product per layer over all d+2 streams, 4 x 4 register
-// tiles, cp.async for weights and saved stages).
+// shared-memory product per layer over all d+2 streams, cp.async for
+// weights and saved stages), in the core's design 0 for the BF16 variant
+// and in the planned design of fwdlap_planned.cuh for fp32 (the launch
+// plan at two blocks per SM, W^T from device memory, two-point items where
+// their one-wave tile fits).
 //
 // The BF16 variant is the TPU kernel's dot_dtype='bfloat16' (the backward
 // of the bulk of compute_dtype='hybrid-kernel' on the jet pair): every
@@ -31,7 +34,7 @@
 // Interface: plain C (ctypes), float32 only, weights flattened as
 // [W0, b0, W1, b1, ...].  Launches on the given stream, never synchronises,
 // and returns cudaGetLastError().
-#include "fwdlap_core.cuh"
+#include "fwdlap_planned.cuh"
 
 using namespace fwdlap;
 
@@ -47,10 +50,27 @@ struct BwdArgs {
   int N, T, n_tiles;
 };
 
+// The planned kernel's arguments: BwdArgs and what its plan adds.
+struct PBwdArgs : BwdArgs {
+  const float* wt;            // the hidden weights' transposes (tpos)
+  int flags;                  // the plan's Flags
+};
+
+// Shared-memory floats of one block for (T, flags): the planned kernel's
+// layout; design 0's is that of flags 0.  Mirrored by
+// kernels/fwdlap_cuda.py::backward_smem_floats.
+__host__ __device__ inline int bwd_smem_floats(const Net& net, int T, int flags) {
+  const int d = net.d, S = net.S, ld = net.wmax, stage = S * T * ld;
+  int n = 3 * stage + ((flags & RES_WEIGHTS) ? 2 * hidden_floats(net) : ld * ld);
+  if (flags & RES_GRAD) n += (net.P + 3) & ~3;
+  return n + T * d + S * T + NT;
+}
+
 }  // namespace
 
 // (in variants: FOLD, the activation in the products' epilogues, for nets
-// with at most 4 streams; BF16, the bf16-dot mode; the wrapper chooses)
+// with at most 4 streams; BF16, the bf16-dot mode, the one this design-0
+// kernel runs: fp32 takes the planned kernel below; the wrapper chooses)
 template <bool FOLD, bool BF16>
 __global__ void __launch_bounds__(NT) fwdlap_backward_kernel(BwdArgs A) {
   extern __shared__ __align__(16) float smem[];
@@ -86,31 +106,114 @@ __global__ void __launch_bounds__(NT) fwdlap_backward_kernel(BwdArgs A) {
   }
 }
 
+// The planned design (fwdlap_planned.cuh, DES != 0) at two blocks per SM
+// (the plan counts on them, so the register budget is stated), with the
+// plan's residency from A.flags: hidden weights and their transposes, the
+// block's gradient row.
+template <bool FOLD, int DES>
+__global__ void __launch_bounds__(NT, 2) fwdlap_backward_planned(PBwdArgs A) {
+  extern __shared__ __align__(16) float smem[];
+  const Net& net = A.net;
+  const int T = A.T, d = net.d, S = net.S, ld = net.wmax, stage = S * T * ld;
+  const bool res_w = (A.flags & RES_WEIGHTS) != 0;
+  const int hid = res_w ? hidden_floats(net) : 0;
+  float* bufA = smem;
+  float* bufB = bufA + stage;
+  float* bufC = bufB + stage;             // pre-activations of one stage
+  float* Wsh = bufC + stage;              // one layer's W, or the resident W, W^T
+  float* at = Wsh + (res_w ? 2 * hid : ld * ld);
+  float* gacc = nullptr;                  // the block's gradient row (RES_GRAD)
+  if (A.flags & RES_GRAD) {
+    gacc = at;
+    at += (net.P + 3) & ~3;
+  }
+  float* xs = at;
+  float* ct = xs + T * d;                 // [ct_v | ct_g (d) | ct_l] x T
+  float* red = ct + S * T;                // reduction scratch, NT
+  float* grow_g = A.partial + (size_t)blockIdx.x * net.P;
+  float* grow = gacc ? gacc : grow_g;     // where the tiles add their dW/db
+  float* scratch = A.scratch + (size_t)blockIdx.x * (net.K - 2) * stage;
+  Resident res;
+  if (res_w) {
+    stage_resident_p(net, A.params, A.wt, Wsh, Wsh + hid);
+    res.W = Wsh;
+    res.Wt = Wsh + hid;
+  }
+  res.narrow = (A.flags & NARROW) != 0;
+
+  for (int i = threadIdx.x; i < net.P; i += NT) grow[i] = 0.f;
+  if (res_w) copy_wait();
+  __syncthreads();
+
+  for (int tile = blockIdx.x; tile < A.n_tiles; tile += gridDim.x) {
+    const int base = tile * T;
+    load_tile(A.X, A.N, d, base, T, xs);
+    // ct[s * T + p] = CT[base + p][s]; rows past N carry zero cotangents
+    for (int i = threadIdx.x; i < T * S; i += NT) {
+      const int p = i / S, s = i - p * S;
+      ct[s * T + p] = base + p < A.N ? A.ct[(size_t)(base + p) * S + s] : 0.f;
+    }
+    __syncthreads();
+    float* cur = bufA;
+    float* nxt = bufB;
+    fwd_recompute_p<FOLD, DES>(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch, res);
+    reverse_sweep_p<FOLD, DES>(net, T, xs, A.params, A.wt, cur, nxt, bufC, Wsh, scratch, ct,
+                               red, grow, res);
+  }
+  // the row on chip goes out once (the last tile ended in a barrier)
+  if (gacc)
+    for (int i = threadIdx.x; i < net.P; i += NT) grow_g[i] = gacc[i];
+}
+
 namespace {
 
 typedef void (*BwdKernelFn)(BwdArgs);
+typedef void (*PBwdKernelFn)(PBwdArgs);
 
-BwdKernelFn bwd_kernel_for(int fold, int bf16) {
-  if (bf16) return fold ? fwdlap_backward_kernel<true, true> : fwdlap_backward_kernel<false, true>;
-  return fold ? fwdlap_backward_kernel<true, false> : fwdlap_backward_kernel<false, false>;
+template <bool FOLD>
+PBwdKernelFn planned_by(int des) {
+  switch (des) {
+    case DES_PLANNED: return fwdlap_backward_planned<FOLD, DES_PLANNED>;
+    case DES_PLANNED | DES_ITEM2: return fwdlap_backward_planned<FOLD, DES_PLANNED | DES_ITEM2>;
+    default: return nullptr;
+  }
+}
+
+// The kernel of a variant: the BF16 variant is design 0, the core's kernel;
+// fp32 takes a planned design.
+const void* bwd_variant_fn(int fold, int bf16, int des) {
+  if (bf16)
+    return des != 0 ? nullptr
+                    : fold ? (const void*)fwdlap_backward_kernel<true, true>
+                           : (const void*)fwdlap_backward_kernel<false, true>;
+  return fold ? (const void*)planned_by<true>(des) : (const void*)planned_by<false>(des);
 }
 
 }  // namespace
 
 extern "C" {
 
-// X (N, d), ct (N, d+2), params flat; partial (G, P), scratch (G, K-2, d+2,
-// T, wmax), out (P): [dW0, db0, ..., dW_last, 0] (the last bias's slot is
-// left zero).  T points per tile, G blocks; fold: the variant with the
-// activation in the products' epilogues (nets with at most 4 streams);
-// bf16: the bf16-dot variant.
+// X (N, d), ct (N, d+2), params flat; partial (G, P), scratch (G, K-2,
+// d+2, T, wmax), out (P): [dW0, db0, ...,
+// dW_last, 0] (the last bias's slot is left zero).  T points per tile, G
+// blocks; fold: the variant with the activation in the products' epilogues
+// (nets with at most 4 streams); bf16: the bf16-dot variant (design 0); des:
+// the design (fwdlap_planned.cuh); flags: the plan's Flags (des != 0, else
+// 0).  smem_bytes must hold the kernel's layout for (T, flags).  wt:
+// the hidden weights' transposes W_1^T, ..., W_{K-2}^T (true sizes,
+// row-major, back to back), read by a planned design (may be null for
+// design 0).
 int fwdlap_backward_f32(const float* X, const float* ct, const float* params,
-                        const int* layers, int n_layers, int act, int N, int T, int G,
-                        int fold, int bf16, float* partial, float* scratch, float* out,
-                        int smem_bytes, void* stream) {
-  BwdArgs a;
-  if (!make_net(1, layers, n_layers, act, &a.net) || N < 1 || T < 4 || T % 4 != 0 ||
-      G < 1 || (fold && a.net.S > 4))
+                        const float* wt, const int* layers, int n_layers, int act, int N,
+                        int T, int G, int fold, int bf16, int des, int flags, float* partial,
+                        float* scratch, float* out, int smem_bytes, void* stream) {
+  PBwdArgs a;
+  const void* fn = bwd_variant_fn(fold, bf16, des);
+  if (fn == nullptr || !make_net(1, layers, n_layers, act, &a.net) || N < 1 || T < 4 ||
+      T % 4 != 0 || T > NT / 2 || G < 1 || (fold && a.net.S > 4) || flags < 0 ||
+      flags > 7 || (des == 0 && flags != 0) ||
+      (a.net.K > 2 && (scratch == nullptr || (des != 0 && wt == nullptr))) ||
+      4 * bwd_smem_floats(a.net, T, flags) > smem_bytes)
     return (int)cudaErrorInvalidValue;
   a.X = X;
   a.ct = ct;
@@ -120,24 +223,35 @@ int fwdlap_backward_f32(const float* X, const float* ct, const float* params,
   a.N = N;
   a.T = T;
   a.n_tiles = (N + T - 1) / T;
-  BwdKernelFn fn = bwd_kernel_for(fold, bf16);
-  cudaError_t err =
-      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  a.flags = flags;
+  a.wt = wt;
+  cudaError_t err = ensure_smem(fn, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  fn<<<G, NT, smem_bytes, s>>>(a);
+  if (des == 0)
+    ((BwdKernelFn)fn)<<<G, NT, smem_bytes, s>>>(static_cast<const BwdArgs&>(a));
+  else
+    ((PBwdKernelFn)fn)<<<G, NT, smem_bytes, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)reduce_rows(partial, G, a.net.P, out, s);
 }
 
 // Resident blocks per SM of a variant at a dynamic shared-memory size.
-int fwdlap_backward_blocks_per_sm(int fold, int bf16, int smem_bytes, int* blocks) {
-  BwdKernelFn fn = bwd_kernel_for(fold, bf16);
-  cudaError_t err =
-      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+int fwdlap_backward_blocks_per_sm(int fold, int bf16, int des, int smem_bytes, int* blocks) {
+  const void* fn = bwd_variant_fn(fold, bf16, des);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = ensure_smem(fn, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, NT, smem_bytes);
+}
+
+// The shared-memory bytes the kernel lays out for (T, flags), or -1 for a
+// net it does not take.
+int fwdlap_backward_smem_bytes(const int* layers, int n_layers, int T, int flags) {
+  Net net;
+  if (!make_net(1, layers, n_layers, 0, &net)) return -1;
+  return 4 * bwd_smem_floats(net, T, flags);
 }
 
 }  // extern "C"

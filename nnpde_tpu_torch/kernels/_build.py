@@ -32,32 +32,38 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # fold (the int after G): the kernel variant with the activation in the
     # products' epilogues; bf16 (after fold, where a kernel has it): the
-    # bf16-dot variant
-    # X, coef, params, layers, n_layers, act, N, T, G, fold, bf16, partial,
-    # scratch, out, smem_bytes, stream
+    # bf16-dot variant; des, flags (fused_step.cu and fwdlap_backward.cu):
+    # the design and the plan's residency flags
+    # X, coef, params, wt, layers, n_layers, act, N, T, G, fold, bf16, des,
+    # flags, partial, scratch, out, smem_bytes, stream (wt: the hidden
+    # weights' transposes, read by a planned design)
     "fused_linear_residual_f32":
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
-    # X, params, layers, n_layers, act, N, T, G, fold, bf16, analytic,
-    # partial, scratch, out, smem_bytes, stream
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+    # X, params, wt, layers, n_layers, act, N, T, G, fold, bf16, des, flags,
+    # analytic, partial, scratch, out, smem_bytes, stream
     "fused_poisson_analytic_f32":
-        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
-    # X, coef, params, layers, n_layers, act, N, T, G, fold, partial,
-    # scratch, out, smem_bytes, stream
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
+    # X, coef, params, wt, layers, n_layers, act, N, T, G, fold, des, flags,
+    # partial, scratch, out, smem_bytes, stream
     "fused_drm_energy_f32":
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
-    # mode, fold, bf16, smem_bytes, int* blocks
-    "fused_blocks_per_sm": [_I, _I, _I, _I, _P],
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+    # mode, fold, bf16, des, smem_bytes, int* blocks
+    "fused_blocks_per_sm": [_I, _I, _I, _I, _I, _P],
+    # mode, layers, n_layers, T, flags -> bytes (not an error code)
+    "fused_smem_bytes": [_I, _P, _I, _I, _I],
     # fwdlap_forward.cu: streams, X, params, layers, n_layers, act, N, T, G,
     # fold, bf16, out, smem_bytes, stream
     "fwdlap_forward_f32": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     # streams, fold, bf16, smem_bytes, int* blocks
     "fwdlap_forward_blocks_per_sm": [_I, _I, _I, _I, _P],
-    # fwdlap_backward.cu: X, ct, params, layers, n_layers, act, N, T, G,
-    # fold, bf16, partial, scratch, out, smem_bytes, stream
+    # fwdlap_backward.cu: X, ct, params, wt, layers, n_layers, act, N, T, G,
+    # fold, bf16, des, flags, partial, scratch, out, smem_bytes, stream
     "fwdlap_backward_f32":
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
-    # fold, bf16, smem_bytes, int* blocks
-    "fwdlap_backward_blocks_per_sm": [_I, _I, _I, _P],
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+    # fold, bf16, des, smem_bytes, int* blocks
+    "fwdlap_backward_blocks_per_sm": [_I, _I, _I, _I, _P],
+    # layers, n_layers, T, flags -> bytes (not an error code)
+    "fwdlap_backward_smem_bytes": [_P, _I, _I, _I],
     # fused_quotient.cu: kind, lap, X, coef, params, scal, layers, n_layers,
     # act, N, T, G, flags, fold, partial, scratch, out, smem_bytes, stream
     "fused_quotient_f32":

@@ -107,27 +107,54 @@ def flat_params(params) -> torch.Tensor:
     return torch.cat([t.detach().reshape(-1) for pair in params for t in pair])
 
 
+def hidden_transposes(params):
+    """``W_1^T, ..., W_{K-2}^T`` back to back (row-major, true sizes), the
+    hidden weights' transposes that a planned design of the fused residual
+    kernels and the jet backward reads; one ``torch.cat`` of transposed views
+    where the hidden widths are equal.  None for a net with one hidden
+    layer."""
+    hidden = [W.detach() for W, _ in params[1:-1]]
+    if not hidden:
+        return None
+    if all(W.shape[0] == hidden[0].shape[0] for W in hidden):
+        return torch.cat([W.t() for W in hidden]).reshape(-1)
+    return torch.cat([W.t().reshape(-1) for W in hidden])
+
+
 def plan_tile(smem_floats):
     """``(T, smem bytes)``: the largest tile up to ``TILE`` points whose
     shared memory, ``4 * smem_floats(T)`` bytes, fits ``SMEM_CAP``: the
-    constant-tile rule of every kernel but the K-bump pair and the seeded
-    quotient kernels, whose plan goes by the net (:mod:`._plan`: tile,
-    residency and resident blocks per SM within ``SMEM_MAX``)."""
+    constant-tile rule of the jet forwards, the quotient sums kinds and the
+    bf16-dot variants; the K-bump pair, the seeded quotient kernels and the
+    fp32 fused residual kernels and jet backward plan by the net
+    (:mod:`._plan`: tile, residency and resident blocks per SM within
+    ``SMEM_MAX``)."""
     T = TILE
     while 4 * smem_floats(T) > SMEM_CAP and T > 4:
         T //= 2
     return T, 4 * smem_floats(T)
 
 
-def folds(layers, S: int, T: int) -> bool:
+def folds(layers, S: int, T: int, points: int = 1) -> bool:
     """Whether a tile of T points runs the kernels' FOLD variant, which
     applies each stage's activation in the epilogue of the product that
     makes the stage (fwdlap_core.cuh: mm_act, mm_act_bwd): at most 4 streams
     (the variant's register tile holds every stream of a point), and the
-    ``T * wmax/4`` (point, 4 units) items of the widest product one wave of
-    the block's ``NT`` threads (a second, part-filled wave was measured to
-    cost more than the separate elementwise pass saves)."""
-    return S <= 4 and T * (padded_wmax(layers) // 4) <= NT
+    ``T/points * wmax/4`` (``points`` points, 4 units) items of the widest
+    product one wave of the block's ``NT`` threads (a second, part-filled
+    wave was measured to cost more than the separate elementwise pass
+    saves).  ``points``: 2 in the two-point design (``DES_ITEM2``)."""
+    return S <= 4 and (T // points) * (padded_wmax(layers) // 4) <= NT
+
+
+# The designs of the fused residual kernels and the jet backward
+# (fwdlap_planned.cuh, Design): bits of the ``des`` argument.  0 is the
+# shared core's kernels; DES_PLANNED the planned kernels, DES_ITEM2 their
+# lever.
+DES_ITEM2 = 1     # two-point items, register tiles of 8 rows x 4 units
+DES_PLANNED = 2   # the planned kernels (shared plan, transposes from device
+                  # memory, dW items dealt 4 x 8 to a warp, two blocks per SM)
+PLANNED_DESIGNS = (DES_PLANNED, DES_PLANNED | DES_ITEM2)
 
 
 def grid(name: str, query, smem: int, dev: torch.device, n_tiles: int,

@@ -2,11 +2,14 @@
 
 A plan is one launch shape: points per tile ``T``, the dynamic shared
 memory of a block, and what the block keeps in shared memory for its whole
-life (``flags``).  The K-bump pair (:mod:`.fused_multibump`) and the seeded
-quotient kernels (:mod:`.fused_quotient`) plan by the same rule; each brings
-its own shared-memory layout, ``smem_floats(T, flags) -> floats`` (the
-Python mirror of the kernel's C layout, checked against it on the card), and
-its stream count ``S`` (``d + 1``, or ``d + 2`` with the Laplacian).
+life (``flags``).  The K-bump pair (:mod:`.fused_multibump`), the seeded
+quotient kernels (:mod:`.fused_quotient`), and the planned design of the
+fused residual kernels and the jet backward (:mod:`.fused_step`,
+:mod:`.fwdlap_cuda`; rows = 8 for their two-point items, at most two blocks
+per SM) plan by the same rule; each brings its own shared-memory layout,
+``smem_floats(T, flags) -> floats`` (the Python mirror of the kernel's C
+layout, checked against it on the card), and its stream count ``S``
+(``d + 1``, or ``d + 2`` with the Laplacian).
 
 The rule.  The kernels are bound by instruction issue and by latency
 between barriers, so resident blocks per SM come first: the plan looks for a
@@ -53,11 +56,13 @@ T_MAX = 48        # points per tile the plan asks for at most (a multiple of 4;
 
 class Plan(NamedTuple):
     """One launch shape: points per tile, dynamic shared memory in bytes,
-    the residency flags and the tier's name."""
+    the residency flags, the tier's name, and the kernel design (the fused
+    residual kernels and the jet backward: ``_cuda.DES_*``; 0 elsewhere)."""
     T: int
     smem: int
     flags: int
     tier: str
+    design: int = 0
 
 
 def tiers(seeded: bool):
@@ -88,35 +93,52 @@ def narrow_items(layers) -> int:
                + [(layers[0] + 1) * layers[1]])
 
 
-def tile_for(layers, S: int) -> int:
+def tile_for(layers, S: int, rows: int = 4) -> int:
     """Points per tile the net asks for: the largest multiple of 4 (from 16
     to ``T_MAX``) at which the widest forward product, ``S*T/4`` row groups
     times ``width/4`` column groups of 4 x 4 register tiles, is still one
     wave of the block's ``NT`` threads (a second, part-filled wave costs a
-    full one: measured with ``chip_smoke.py sweep``)."""
+    full one: measured with ``chip_smoke.py sweep``).  ``rows=8``: the same
+    for items of 8 rows x 4 units (the two-point design, ``DES_ITEM2``):
+    two points and their streams at ``S <= 4``, eight stream-rows above."""
     cg = _cuda.padded_wmax(layers) // 4
+
+    def items(T):
+        if rows == 4:
+            return (S * T // 4) * cg
+        return (T // 2 if S <= 4 else (S * T + 7) // 8) * cg
+
     T = 16
-    while T + 4 <= T_MAX and (S * (T + 4) // 4) * cg <= _cuda.NT:
+    while T + 4 <= T_MAX and items(T + 4) <= _cuda.NT:
         T += 4
     return T
 
 
 def plan(smem_floats: Callable[[int, int], int], layers, S: int, seeded: bool, *,
-         T: int | None = None, tier: str | None = None, what: str = "plan") -> Plan:
+         T: int | None = None, tier: str | None = None, what: str = "plan",
+         rows: int = 4, blocks: int = 3) -> Plan:
     """The first shape of the ladder above that fits: ``smem_floats(T,
     flags)`` is the kernel's layout, ``S`` its stream count; ``what`` names
-    the kernel in the error raised when nothing fits."""
+    the kernel in the error raised when nothing fits.  ``rows=8`` (the
+    two-point design): the tile of :func:`tile_for` with 8-row items, and
+    in a share of 3 or 2 blocks per SM the staged tier too gives up at most
+    one step of 4 points before the plan takes fewer blocks: the design
+    pays for its larger items with the larger tile.  ``blocks``: the most
+    blocks per SM the kernel's register budget allows (its launch bounds);
+    the ladder starts there."""
     pinned = T is not None or tier is not None
-    for share in ((1,) if pinned else (3, 2, 1)):
+    t0 = tile_for(layers, S, rows)
+    for share in ((1,) if pinned else tuple(b for b in (3, 2, 1) if b <= blocks)):
         budget = _cuda.SMEM_MAX // share - (0 if share == 1 else 1024)
-        pl = fit(smem_floats, layers, S, seeded, budget, 4 if share == 1 else 16, T, tier)
+        floor = 4 if share == 1 else max(16, t0 - 4) if rows == 8 else 16
+        pl = fit(smem_floats, layers, S, seeded, budget, floor, T, tier, rows)
         if pl is not None:
             return pl
     raise ValueError(f"{what}: layers {list(layers)} do not fit {_cuda.SMEM_MAX} B of "
                      f"shared memory (T={T}, tier={tier})")
 
 
-def fit(smem_floats, layers, S, seeded, budget, staged_floor, T=None, tier=None):
+def fit(smem_floats, layers, S, seeded, budget, staged_floor, T=None, tier=None, rows=4):
     """The first shape within ``budget`` bytes in the step-down order of
     :func:`plan` (a resident tier's tile one step below :func:`tile_for`
     at most; the staged tier's down to ``staged_floor``), or None."""
@@ -125,7 +147,7 @@ def fit(smem_floats, layers, S, seeded, budget, staged_floor, T=None, tier=None)
         if tier is not None and name != tier:
             continue
         flags |= narrow
-        t = tile_for(layers, S) if T is None else T
+        t = tile_for(layers, S, rows) if T is None else T
         floor = (t if T is not None else staged_floor if name == "staged"
                  else max(16, t - 4))
         while t > floor and 4 * smem_floats(t, flags) > budget:

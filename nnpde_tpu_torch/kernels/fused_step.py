@@ -21,6 +21,9 @@ plain version beside it, which differentiates the forward-Laplacian
 recurrence (:func:`~nnpde_tpu_torch.ops.fwdlap.mlp_fwdlap`) with
 ``torch.autograd`` in any dtype.  The plain versions take any device when
 called directly; ``chip_smoke.py`` holds the kernels to them on the card.
+The launch shape and kernel design come from :func:`plan` (the fp32
+kernels' planned design on the shared plan of :mod:`._plan`; the bf16-dot
+variants' constant tile).
 
 ``dot_dtype='bfloat16'`` (the residual kernels; the TPU kernels' one-pass
 bf16 dot mode, run by the bulk of ``compute_dtype='hybrid-kernel'``): every
@@ -42,7 +45,7 @@ import torch
 
 from ..ops.fwdlap import (mlp_fwdlap, project_plain, recompute_plain, reverse_plain,
                           round_bf16)
-from . import _cuda
+from . import _cuda, _plan
 from ._cuda import variant_name
 
 _MODES = {"fused_linear_residual": 0, "fused_poisson_analytic": 1,
@@ -203,21 +206,84 @@ def drm_energy_plain(params, X, coef, activation: str):
 
 
 # ------------------------------------------------------------ CUDA launcher
-def _plan(kind: str, layers, T: int):
+PLANNED_BLOCKS = 2        # the planned kernels' __launch_bounds__(NT, 2)
+
+
+def _streams(kind: str, d: int) -> int:
+    return d + (1 if kind == "fused_drm_energy" else 2)
+
+
+def smem_floats(kind: str, layers, T: int, flags: int = 0) -> int:
     """Shared-memory floats per block for a tile of T points (the layout of
-    fused_step.cu's fused_body)."""
+    fused_step.cu's fused_body and fused_body_p, mirrored from its
+    fused_smem_floats): residency ``flags`` of :mod:`._plan` (0 for design
+    0)."""
     d = layers[0]
-    S = d + (1 if kind == "fused_drm_energy" else 2)
-    wmax = _cuda.padded_wmax(layers)
-    return (3 * S * T * wmax + wmax * wmax + T * d + (d + 2) * T + 3 * T
-            + S * T + _cuda.NT)
+    S, wmax = _streams(kind, d), _cuda.padded_wmax(layers)
+    n = 3 * S * T * wmax
+    n += 2 * _plan.hidden_floats(layers) if flags & _plan.RES_WEIGHTS else wmax * wmax
+    if flags & _plan.RES_GRAD:
+        n += (_cuda.n_params(layers) + 3 + 3) // 4 * 4
+    return n + T * d + (d + 2) * T + 3 * T + S * T + _cuda.NT
+
+
+def planned(smem_floats_of, layers, S: int, what: str, design: int | None = None, *,
+            T: int | None = None, tier: str | None = None) -> _plan.Plan:
+    """The launch shape of a kernel of fused_step.cu or fwdlap_backward.cu
+    in ``design`` (``smem_floats_of(T, flags)`` its layout, ``S`` its
+    streams).  Design 0 (the bf16-dot variants, and only they): the constant
+    tile of :func:`._cuda.plan_tile`, nothing resident.  A planned design: the shared
+    plan of :mod:`._plan` (seeded tiers; with ``DES_ITEM2`` the tile rule of
+    8-row items) at most ``PLANNED_BLOCKS`` blocks per SM.  ``design=None``
+    is the fp32 wrappers' choice: two-point items where their one-wave tile
+    fits two blocks per SM as it is; where it only fits a step below (u64:
+    28 points, 224 of 256 items), the planned 4 x 4 items (``chip_smoke.py
+    sweep``).  ``T`` and ``tier`` pin a choice and raise if it does not
+    fit."""
+    if design == 0:
+        if tier not in (None, "staged"):
+            raise ValueError(f"{what}: design 0 keeps nothing resident (tier={tier})")
+        if T is None:
+            t, smem = _cuda.plan_tile(lambda t: smem_floats_of(t, 0))
+        else:
+            t, smem = T, 4 * smem_floats_of(T, 0)
+            if smem > _cuda.SMEM_MAX:
+                raise ValueError(f"{what}: T={T} does not fit {_cuda.SMEM_MAX} B")
+        return _plan.Plan(t, smem, 0, "staged", 0)
+
+    def ladder(des):
+        pl = _plan.plan(smem_floats_of, layers, S, True, T=T, tier=tier, what=what,
+                        rows=8 if des & _cuda.DES_ITEM2 else 4, blocks=PLANNED_BLOCKS)
+        return pl._replace(design=des)
+
+    if design is not None:
+        return ladder(design)
+    two = ladder(_cuda.DES_PLANNED | _cuda.DES_ITEM2)
+    if T is not None or two.T == _plan.tile_for(layers, S, rows=8):
+        return two
+    return ladder(_cuda.DES_PLANNED)
+
+
+def plan(kind: str, layers, design: int | None = None, *, T: int | None = None,
+         tier: str | None = None) -> _plan.Plan:
+    """The launch shape of one fused kernel (:func:`planned`)."""
+    return planned(lambda t, f: smem_floats(kind, layers, t, f), layers,
+                   _streams(kind, layers[0]), f"{kind} plan", design, T=T, tier=tier)
+
+
+def variant(layers, S: int, pl: _plan.Plan) -> tuple[int, int]:
+    """``(fold, occupancy key)`` of a launch: whether it takes the FOLD
+    variant, and the key of its variant in :func:`._cuda.grid`'s cache."""
+    fold = int(_cuda.folds(layers, S, pl.T, 2 if pl.design & _cuda.DES_ITEM2 else 1))
+    return fold, fold | pl.design << 1
 
 
 def _launch(kind: str, params, X, coef, activation: str, analytic=None,
-            bf16: bool = False):
+            bf16: bool = False, *, pl: _plan.Plan | None = None):
     """Launch one fused kernel plus its reduction; returns the flat
     ``[grads (P) | sums (3)]`` float32 vector.  ``bf16``: the bf16-dot
-    variant."""
+    variant (design 0).  ``pl``: a launch shape (and design) other than the
+    wrapper's own (timing sweeps, tests)."""
     from . import _build
 
     lib = _build.load()
@@ -228,15 +294,22 @@ def _launch(kind: str, params, X, coef, activation: str, analytic=None,
     X = X.contiguous()
     flat = _cuda.flat_params(params)
     P = flat.numel()
-    T, smem = _cuda.plan_tile(lambda t: _plan(kind, layers, t))
+    if pl is None:
+        pl = _plan.cached(("fused", kind, tuple(layers), bf16),
+                          lambda: plan(kind, layers, 0 if bf16 else None))
+    if bool(bf16) != (pl.design == 0):
+        raise ValueError(f"{kind}: design 0 is the bf16-dot variant's and only its "
+                         f"(bf16={bf16}, design={pl.design})")
+    T, design = pl.T, pl.design
     mode = _MODES[kind]
     dev = X.device
-    S = d + (1 if kind == "fused_drm_energy" else 2)
-    fold = int(_cuda.folds(layers, S, T))
+    S = _streams(kind, d)
+    fold, key = variant(layers, S, pl)
     name = variant_name(kind, bf16)
     G = _cuda.grid(name,
-                   lambda sm, ptr: lib.fused_blocks_per_sm(mode, fold, int(bf16), sm, ptr),
-                   smem, dev, (N + T - 1) // T, fold)
+                   lambda sm, ptr: lib.fused_blocks_per_sm(mode, fold, int(bf16), design, sm,
+                                                           ptr),
+                   pl.smem, dev, (N + T - 1) // T, key)
     wmax = _cuda.padded_wmax(layers)
     partial = torch.empty((G, P + 3), dtype=torch.float32, device=dev)
     scratch = torch.empty((G, max(K - 2, 1) * S * T * wmax), dtype=torch.float32,
@@ -244,24 +317,26 @@ def _launch(kind: str, params, X, coef, activation: str, analytic=None,
     out = torch.empty((P + 3,), dtype=torch.float32, device=dev)
     lay = _cuda.layers_arg(layers)
     common = (ctypes.addressof(lay), len(layers), _cuda.ACTS[activation], N, T, G, fold)
-    tail = (partial.data_ptr(), scratch.data_ptr(), out.data_ptr(), smem,
+    tail = (partial.data_ptr(), scratch.data_ptr(), out.data_ptr(), pl.smem,
             _cuda.stream(dev))
-    keep = (X, flat, lay, partial, scratch, out)
+    wt = _cuda.hidden_transposes(params) if design else None
+    wt_ptr = None if wt is None else wt.data_ptr()
+    keep = (X, flat, wt, lay, partial, scratch, out)
     if kind == "fused_linear_residual":
         coef = coef.contiguous()
         _cuda.launch(name, lib.fused_linear_residual_f32, X.data_ptr(),
-                     coef.data_ptr(), flat.data_ptr(), *common, int(bf16), *tail,
-                     dev=dev, keep=keep + (coef,))
+                     coef.data_ptr(), flat.data_ptr(), wt_ptr, *common, int(bf16), design,
+                     pl.flags, *tail, dev=dev, keep=keep + (coef,))
     elif kind == "fused_drm_energy":
         coef = coef.contiguous()
         _cuda.launch(kind, lib.fused_drm_energy_f32, X.data_ptr(),
-                     coef.data_ptr(), flat.data_ptr(), *common, *tail, dev=dev,
-                     keep=keep + (coef,))
+                     coef.data_ptr(), flat.data_ptr(), wt_ptr, *common, design, pl.flags,
+                     *tail, dev=dev, keep=keep + (coef,))
     else:
         an = (ctypes.c_float * (3 + d))(*analytic)
         _cuda.launch(name, lib.fused_poisson_analytic_f32, X.data_ptr(),
-                     flat.data_ptr(), *common, int(bf16), ctypes.addressof(an), *tail,
-                     dev=dev, keep=keep + (an,))
+                     flat.data_ptr(), wt_ptr, *common, int(bf16), design, pl.flags,
+                     ctypes.addressof(an), *tail, dev=dev, keep=keep + (an,))
     return out
 
 
@@ -275,6 +350,22 @@ def _unflatten(params, out):
     return dWs, dbs, out[o:o + 3]
 
 
+def _analytic_args(coef_fn, d: int):
+    """The analytic kernel's ``[L, a0, sum_i (k_i pi / L)^2, k_0 pi / L,
+    ...]`` for ``coef_fn``; other builders than :class:`PoissonSinCoef`
+    raise."""
+    if not isinstance(coef_fn, PoissonSinCoef):
+        raise NotImplementedError(
+            "in-kernel coefficients exist for the box-FBC prod-sin "
+            "Poisson family (PoissonSinCoef) only; other builders are "
+            "ROADMAP B2")
+    if len(coef_fn.ks) != d:
+        raise ValueError(f"ks has {len(coef_fn.ks)} entries for d={d}")
+    L = coef_fn.L
+    return ([L, coef_fn.a0, sum((k * math.pi / L) ** 2 for k in coef_fn.ks)]
+            + [k * math.pi / L for k in coef_fn.ks])
+
+
 def _fused_call(kind, activation, params, X, coef=None, coef_fn=None,
                 dot_dtype: str = "float32"):
     """Route one fused step: CUDA tensors to the kernel, CPU tensors to the
@@ -283,17 +374,7 @@ def _fused_call(kind, activation, params, X, coef=None, coef_fn=None,
     if X.device.type == "cuda":
         analytic = None
         if kind == "fused_poisson_analytic":
-            if not isinstance(coef_fn, PoissonSinCoef):
-                raise NotImplementedError(
-                    "in-kernel coefficients exist for the box-FBC prod-sin "
-                    "Poisson family (PoissonSinCoef) only; other builders are "
-                    "ROADMAP B2")
-            d = X.shape[1]
-            if len(coef_fn.ks) != d:
-                raise ValueError(f"ks has {len(coef_fn.ks)} entries for d={d}")
-            L = coef_fn.L
-            analytic = [L, coef_fn.a0, sum((k * math.pi / L) ** 2 for k in coef_fn.ks)]
-            analytic += [k * math.pi / L for k in coef_fn.ks]
+            analytic = _analytic_args(coef_fn, X.shape[1])
         params = [(W.detach(), b.detach()) for W, b in params]
         out = _launch(kind, params, X, coef, activation, analytic,
                       bf16=dot_dtype == "bfloat16")

@@ -14,7 +14,9 @@ recurrence kept on chip, differentiable in the parameters.
   ``(N, d+2)`` view;
 * backward (``_backward_kernel``): ``csrc/fwdlap_backward.cu`` recomputes
   the recurrence per tile and reverse-sweeps from the ``(N, d+2)`` cotangent
-  stream to dW/db.  The last bias's gradient is ``sum ct[:, 0]``, formed
+  stream to dW/db, launched as :func:`backward_plan` says (the planned
+  design of ``csrc/fwdlap_planned.cuh`` in fp32, the constant tile in the
+  bf16-dot mode).  The last bias's gradient is ``sum ct[:, 0]``, formed
   here; the points get no gradient.
 
 Two reduced-precision modes, independent of each other as in JAX (the
@@ -50,10 +52,10 @@ import torch
 
 from ..ops.fwdlap import (Jet, mlp_fwdlap, project_plain, recompute_plain, reverse_plain,
                           round_bf16)
-from . import _cuda
+from . import _cuda, _plan
 from ._cuda import on_cuda as _on_cuda
 from ._cuda import variant_name
-from .fused_step import _check_dot, _unflatten
+from .fused_step import _check_dot, _unflatten, planned, variant
 
 fwdlap_forward_plain = mlp_fwdlap
 
@@ -99,11 +101,24 @@ def _plan_forward(layers, T: int):
     return 2 * S * T * wmax + wmax * wmax + T * d + S * T
 
 
-def _plan_backward(layers, T: int):
-    """The same for fwdlap_backward.cu."""
+def backward_smem_floats(layers, T: int, flags: int = 0) -> int:
+    """The same for fwdlap_backward.cu (mirrored from its bwd_smem_floats):
+    residency ``flags`` of :mod:`._plan` (0 for design 0)."""
     d = layers[0]
     S, wmax = d + 2, _cuda.padded_wmax(layers)
-    return 3 * S * T * wmax + wmax * wmax + T * d + S * T + _cuda.NT
+    n = 3 * S * T * wmax
+    n += 2 * _plan.hidden_floats(layers) if flags & _plan.RES_WEIGHTS else wmax * wmax
+    if flags & _plan.RES_GRAD:
+        n += (_cuda.n_params(layers) + 3) // 4 * 4
+    return n + T * d + S * T + _cuda.NT
+
+
+def backward_plan(layers, design: int | None = None, *, T: int | None = None,
+                  tier: str | None = None) -> _plan.Plan:
+    """The backward's launch shape (:func:`.fused_step.planned`, ``d + 2``
+    streams)."""
+    return planned(lambda t, f: backward_smem_floats(layers, t, f), layers, layers[0] + 2,
+                   "fwdlap_backward plan", design, T=T, tier=tier)
 
 
 def fwdlap_forward(params, X, activation: str, fwd_impl: str = "rows") -> torch.Tensor:
@@ -138,11 +153,13 @@ def fwdlap_forward(params, X, activation: str, fwd_impl: str = "rows") -> torch.
     return out.t() if streams else out
 
 
-def fwdlap_backward(params, X, ct, activation: str, dot_dtype: str = "float32"):
+def fwdlap_backward(params, X, ct, activation: str, dot_dtype: str = "float32", *,
+                    pl: _plan.Plan | None = None):
     """Launch the recompute-backward kernel: ``(dWs, dbs)`` of ``sum(jet *
     ct)`` for the ``(N, d+2)`` cotangent ``ct``; the last bias's gradient,
     ``sum ct[:, 0]``, is formed here.  ``dot_dtype='bfloat16'``: the
-    bf16-dot variant."""
+    bf16-dot variant (design 0).  ``pl``: a launch shape (and design) other
+    than the wrapper's own (timing sweeps, tests)."""
     from . import _build
 
     bf16 = int(dot_dtype == "bfloat16")
@@ -156,23 +173,32 @@ def fwdlap_backward(params, X, ct, activation: str, dot_dtype: str = "float32"):
     X, ct = X.contiguous(), ct.contiguous()
     flat = _cuda.flat_params(params)
     P = flat.numel()
-    T, smem = _cuda.plan_tile(lambda t: _plan_backward(layers, t))
+    if pl is None:
+        pl = _plan.cached(("fwdlap_backward", tuple(layers), bf16),
+                          lambda: backward_plan(layers, 0 if bf16 else None))
+    if bool(bf16) != (pl.design == 0):
+        raise ValueError("fwdlap_backward: design 0 is the bf16-dot variant's and only "
+                         f"its (bf16={bf16}, design={pl.design})")
+    T, design = pl.T, pl.design
     dev = X.device
-    fold = int(_cuda.folds(layers, d + 2, T))
+    fold, key = variant(layers, d + 2, pl)
     G = _cuda.grid(name,
-                   lambda sm, ptr: lib.fwdlap_backward_blocks_per_sm(fold, bf16, sm, ptr),
-                   smem, dev, (N + T - 1) // T, fold)
+                   lambda sm, ptr: lib.fwdlap_backward_blocks_per_sm(fold, bf16, design, sm,
+                                                                     ptr),
+                   pl.smem, dev, (N + T - 1) // T, key)
     wmax = _cuda.padded_wmax(layers)
     partial = torch.empty((G, P), dtype=torch.float32, device=dev)
     scratch = torch.empty((G, max(K - 2, 1) * (d + 2) * T * wmax), dtype=torch.float32,
                           device=dev)
     out = torch.empty((P,), dtype=torch.float32, device=dev)
     lay = _cuda.layers_arg(layers)
+    wt = _cuda.hidden_transposes(params) if design else None
     _cuda.launch(name, lib.fwdlap_backward_f32, X.data_ptr(), ct.data_ptr(),
-                 flat.data_ptr(), ctypes.addressof(lay), len(layers),
-                 _cuda.ACTS[activation], N, T, G, fold, bf16, partial.data_ptr(),
-                 scratch.data_ptr(), out.data_ptr(), smem, _cuda.stream(dev), dev=dev,
-                 keep=(X, ct, flat, lay, partial, scratch, out))
+                 flat.data_ptr(), None if wt is None else wt.data_ptr(),
+                 ctypes.addressof(lay), len(layers), _cuda.ACTS[activation], N, T, G, fold,
+                 bf16, design, pl.flags, partial.data_ptr(), scratch.data_ptr(),
+                 out.data_ptr(), pl.smem, _cuda.stream(dev), dev=dev,
+                 keep=(X, ct, flat, wt, lay, partial, scratch, out))
     dWs, dbs, _ = _unflatten(params, out)
     dbs[-1] = torch.sum(ct[:, 0]).reshape(params[-1][1].shape)
     return dWs, dbs

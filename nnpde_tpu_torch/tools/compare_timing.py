@@ -25,7 +25,8 @@ def rows_of(path):
             obj = json.loads(ln)
             for r in obj["rows"] + obj.get("earlier_kernels", []):
                 key = (obj["phase"], r["kernel"], r.get("net", "u"), r["N"],
-                       "earlier" if r in obj.get("earlier_kernels", []) else "")
+                       "earlier" if r in obj.get("earlier_kernels", []) else "",
+                       r.get("d", 2))
                 out[key] = r
     return out
 
@@ -39,7 +40,7 @@ def main(argv=None):
     for key in runs[0]:
         if not all(key in r for r in runs):
             continue
-        line = {"kernel": key[1], "net": key[2], "N": key[3]}
+        line = {"kernel": key[1], "net": key[2], "N": key[3], "d": key[5]}
         if key[4]:
             line["group"] = "earlier_kernels"
         for field in ("device_ms", "ms"):

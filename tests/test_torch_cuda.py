@@ -467,6 +467,206 @@ def test_cuda_quotient_smem_layout_mirror(dev):
                             flags) == 4 * tfq.smem_floats(kind, layers, T, lap, flags)
 
 
+# ------------------------------------------- rows 1-3 and 5: the planned design
+_FUSED = {"linear": "fused_linear_residual", "analytic": "fused_poisson_analytic",
+          "drm": "fused_drm_energy"}
+_EXTREMES = [(16,) + (128,) * 15 + (1,), (2, 1, 1, 1), (2, 50, 1, 50, 1), (2, 128, 128, 1),
+             (2, 12, 1)]
+
+
+def _fused_plan(kind, layers, **pin):
+    """The plan pinned by ``pin`` (T, tier, design), or None where it does
+    not fit SMEM_MAX (then the layout indeed exceeds it)."""
+    from nnpde_tpu_torch.kernels import _cuda
+
+    design = pin.pop("design", None)
+    try:
+        return tfs.plan(_FUSED[kind], layers, design, **pin)
+    except ValueError:
+        T = pin.get("T", 16)
+        flags = {"resident": 5, "gradient": 4, "staged": 0, None: 0}[pin.get("tier")]
+        assert 4 * tfs.smem_floats(_FUSED[kind], layers, T, flags) > _cuda.SMEM_MAX - 4096
+        return None
+
+
+def _check_fused(dev, kind, layers, act, N=1000 + 7, pl=None):
+    """One fused launch (at ``pl``, else the wrapper's plan) against the
+    float64 plain version: loss and grad-tree rel <= 1e-5; two launches
+    bitwise equal."""
+    rng = np.random.default_rng(17)
+    d = layers[0]
+    name = _FUSED[kind]
+    pn = _np_params(rng, layers)
+    tp = params_from_jax(pn, device=dev)
+    tp64 = params_from_jax(pn, device=dev, dtype=torch.float64)
+    X = torch.as_tensor(rng.uniform(0.0, L, (N, d)).astype(np.float32), device=dev)
+    nc = {"linear": d + 4, "analytic": 0, "drm": d + 2}[kind]
+    coef = (torch.as_tensor(rng.normal(size=(N, nc)).astype(np.float32), device=dev)
+            if nc else None)
+    coef_fn = tfs.PoissonSinCoef(L, (1,) * d)
+    analytic = tfs._analytic_args(coef_fn, d) if kind == "analytic" else None
+    before = LAUNCHES[name]
+    out = tfs._launch(name, tp, X, coef, act, analytic, pl=pl)
+    out2 = tfs._launch(name, tp, X, coef, act, analytic, pl=pl)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == before + 2
+    assert torch.equal(out, out2)
+    if kind == "analytic":
+        dWs, dbs, sums = tfs.poisson_analytic_plain(tp64, X.double(), act, coef_fn)
+    elif kind == "linear":
+        dWs, dbs, sums = tfs.linear_residual_plain(tp64, X.double(), coef.double(), act)
+    else:
+        dWs, dbs, sums = tfs.drm_energy_plain(tp64, X.double(), coef.double(), act)
+    scale = (1.0 if kind == "drm" else 2.0) / N
+    got = tfs._unflatten(tp, out)
+    grads = tfs._scaled_grads(tp, got[0], got[1], got[2], scale)
+    ref = tfs._scaled_grads(tp64, dWs, dbs, sums, scale)
+    assert abs(float(got[2][0]) - float(sums[0])) <= 1e-5 * abs(float(sums[0]))
+    assert _tree_rel(grads, ref) <= 1e-5
+
+
+def _check_backward(dev, layers, act, N=1000 + 7, pl=None):
+    """One jet-backward launch (at ``pl``, else the wrapper's plan) from a
+    random cotangent against autograd through the float64 recurrence: grad
+    tree rel <= 1e-5; two launches bitwise equal."""
+    from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
+
+    rng = np.random.default_rng(18)
+    d = layers[0]
+    pn = _np_params(rng, layers)
+    tp = params_from_jax(pn, device=dev)
+    tp64 = params_from_jax(pn, device=dev, dtype=torch.float64)
+    X = torch.as_tensor(rng.uniform(0.0, L, (N, d)).astype(np.float32), device=dev)
+    ct = torch.as_tensor(rng.normal(size=(N, d + 2)).astype(np.float32), device=dev)
+    before = LAUNCHES["fwdlap_backward"]
+    dWs, dbs = tfc.fwdlap_backward(tp, X, ct, act, pl=pl)
+    dWs2, dbs2 = tfc.fwdlap_backward(tp, X, ct, act, pl=pl)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fwdlap_backward"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(dWs + dbs, dWs2 + dbs2))
+    rW, rb = tfc.fwdlap_backward_plain(tp64, X.double(), ct.double(), act)
+    assert _tree_rel([dWs, dbs], [rW, rb]) <= 1e-5
+
+
+_TIER_SHAPES = [((2, 64, 64, 64, 64, 1), 16, "sin"), ((2, 64, 64, 64, 64, 1), 28, "sin"),
+                ((2, 50, 50, 50, 50, 1), 20, "gelu"), ((2, 50, 50, 50, 50, 1), 36, "sin"),
+                ((5, 32, 32, 1), 24, "tanh"), ((2, 20, 20, 1), 48, "tanh")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", [2, 3])
+@pytest.mark.parametrize("tier", ["resident", "gradient", "staged"])
+@pytest.mark.parametrize("layers,T,act", _TIER_SHAPES)
+@pytest.mark.parametrize("kind", ["linear", "analytic", "drm"])
+def test_cuda_fused_plan_tiers(dev, kind, layers, T, act, tier, design):
+    """Rows 1-3 in each planned design (2: 4 x 4 items, 3: two-point items)
+    at each tier, pinned, at a range of tiles; N = 1007 is a multiple of
+    none of them.  A pin that does not fit raises (and its layout exceeds
+    SMEM_MAX)."""
+    pl = _fused_plan(kind, layers, T=T, tier=tier, design=design)
+    if pl is not None:
+        assert (pl.T, pl.tier, pl.design) == (T, tier, design)
+        _check_fused(dev, kind, layers, act, pl=pl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", [2, 3])
+@pytest.mark.parametrize("tier", ["resident", "gradient", "staged"])
+@pytest.mark.parametrize("layers,T,act", _TIER_SHAPES)
+def test_cuda_backward_plan_tiers(dev, layers, T, act, tier, design):
+    """Row 5 the same way."""
+    from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
+
+    try:
+        pl = tfc.backward_plan(layers, design, T=T, tier=tier)
+    except ValueError:
+        return
+    assert (pl.T, pl.tier, pl.design) == (T, tier, design)
+    _check_backward(dev, layers, act, pl=pl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", [None, 2, 3])
+@pytest.mark.parametrize("layers", _EXTREMES)
+@pytest.mark.parametrize("kind", ["linear", "analytic", "drm", "backward"])
+def test_cuda_fused_extreme_shapes(dev, kind, layers, design):
+    """Rows 1-3 and 5 at the extremes the wrappers take (d = 16 with 16
+    layers of width 128, width 1, widths 1 and 50, one hidden layer), in
+    the wrappers' choice and each planned design at its own plan."""
+    from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
+
+    if kind == "backward":
+        _check_backward(dev, layers, "tanh", N=300 + 1, pl=tfc.backward_plan(layers, design))
+    else:
+        _check_fused(dev, kind, layers, "tanh", N=300 + 1,
+                     pl=tfs.plan(_FUSED[kind], layers, design))
+
+
+@pytest.mark.cuda
+def test_cuda_fused_smem_layout_mirror(dev):
+    """The layouts of rows 1-3 and 5 in Python (every residency; flags 0 is
+    design 0's) are the kernels' own count."""
+    import ctypes
+
+    from nnpde_tpu_torch.kernels import _build
+    from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
+
+    lib = _build.load()
+    for layers in [(2, 64, 64, 64, 64, 1), (2, 50, 50, 50, 50, 1), (5, 7, 9, 1), (2, 12, 1),
+                   (16,) + (128,) * 15 + (1,)]:
+        lay = (ctypes.c_int * len(layers))(*layers)
+        for flags in range(8):
+            for T in (4, 16, 28, 36, 48):
+                for mode, kind in enumerate(_FUSED.values()):
+                    assert lib.fused_smem_bytes(
+                        mode, ctypes.addressof(lay), len(layers), T,
+                        flags) == 4 * tfs.smem_floats(kind, layers, T, flags)
+                assert lib.fwdlap_backward_smem_bytes(
+                    ctypes.addressof(lay), len(layers), T,
+                    flags) == 4 * tfc.backward_smem_floats(layers, T, flags)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["linear", "backward"])
+def test_cuda_planned_designs_agree_at_one_plan(dev, kind):
+    """At one tile and tier the two planned designs sum every entry of a
+    tile in the same order (4 x 4 and two-point items, the same dW items):
+    on u64 at 16 points, staged, they agree bitwise where they launch the
+    same grid, and within 1e-6 in any case; a design-0 plan is refused in
+    fp32 (design 0 is the bf16-dot variants')."""
+    from nnpde_tpu_torch.kernels import _cuda
+    from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
+
+    layers = (2, 64, 64, 64, 64, 1)
+    rng = np.random.default_rng(19)
+    tp = params_from_jax(_np_params(rng, layers), device=dev)
+    X = torch.as_tensor(rng.uniform(0.0, L, (2000, 2)).astype(np.float32), device=dev)
+    other = torch.as_tensor(np.random.default_rng(20).normal(size=(2000, 6)).astype(
+        np.float32), device=dev)
+    name = "fwdlap_backward" if kind == "backward" else "fused_linear_residual"
+
+    def plan(des, **pin):
+        return (tfc.backward_plan(layers, des, **pin) if kind == "backward"
+                else tfs.plan(name, layers, des, **pin))
+
+    def run(pl):
+        if kind == "backward":
+            dWs, dbs = tfc.fwdlap_backward(tp, X, other[:, :4].contiguous(), "sin", pl=pl)
+            return torch.cat([t.reshape(-1) for pr in zip(dWs, dbs) for t in pr])
+        return tfs._launch(name, tp, X, other, "sin", pl=pl)
+
+    plans = [plan(des, T=16, tier="staged") for des in _cuda.PLANNED_DESIGNS]
+    outs = [run(pl) for pl in plans]
+    torch.cuda.synchronize()
+    grids = {_cuda.grid(name, None, pl.smem, X.device, 2000 // 16 + 1,
+                        tfs.variant(layers, 4, pl)[1]) for pl in plans}
+    if len(grids) == 1:
+        assert torch.equal(outs[0], outs[1])
+    assert float(torch.linalg.norm(outs[0] - outs[1]) / torch.linalg.norm(outs[0])) <= 1e-6
+    with pytest.raises(ValueError, match="design 0"):
+        run(plan(0))
+
+
 # --------------------------------------------------------- bf16-dot variants
 _BF16_NETS = [
     ((2, 64, 64, 64, 64, 1), "sin"),

@@ -155,3 +155,161 @@ def test_wrappers_reject_bad_input():
     with pytest.raises(NotImplementedError):
         tfs.fused_linear_residual(tp, Xt, torch.zeros(10, 6), "sin",
                                   dot_dtype="bf16x3")
+
+
+# ------------------------------------------------------------- launch plans
+# The fused residual kernels' launch shape (CPU-side: the kernels are held
+# to their plain versions at every tier on a card, tests/test_torch_cuda.py).
+FNETS = {"u64": (2, 64, 64, 64, 64, 1), "u50": (2, 50, 50, 50, 50, 1),
+         "u64_d5": (5, 64, 64, 64, 64, 1)}
+FEXTREMES = {
+    "d16_w128_16layers": (16,) + (128,) * 15 + (1,),
+    "width1": (2, 1, 1, 1),
+    "widths_1_and_50": (2, 50, 1, 50, 1),
+    "w128_shallow": (2, 128, 128, 1),
+    "one_hidden": (2, 12, 1),
+    **FNETS,
+}
+FKINDS = ("fused_linear_residual", "fused_poisson_analytic", "fused_drm_energy")
+
+
+def _budget(share):
+    from nnpde_tpu_torch.kernels import _cuda
+
+    return _cuda.SMEM_MAX // share - (0 if share == 1 else 1024)
+
+
+def _launchable(pl, kind, layers):
+    """What fused_step.cu's launch checks before it launches."""
+    from nnpde_tpu_torch.kernels import _cuda
+
+    return (4 <= pl.T <= _cuda.NT // 2 and pl.T % 4 == 0 and 0 <= pl.flags <= 7
+            and (pl.design or pl.flags == 0)
+            and pl.design in (0,) + _cuda.PLANNED_DESIGNS
+            and pl.smem >= 4 * tfs.smem_floats(kind, layers, pl.T, pl.flags)
+            and pl.smem <= _cuda.SMEM_MAX)
+
+
+@pytest.mark.parametrize("kind,net,want", [
+    ("fused_linear_residual", "u64", (16, 67392, "staged", "planned")),
+    ("fused_linear_residual", "u50", (36, 103568, "staged", "two-point")),
+    ("fused_linear_residual", "u64_d5", (16, 104832, "staged", "two-point")),
+    ("fused_poisson_analytic", "u64", (16, 67392, "staged", "planned")),
+    ("fused_drm_energy", "u64", (32, 92672, "staged", "two-point")),
+    ("fused_drm_energy", "u50", (36, 112384, "gradient", "two-point")),
+])
+def test_fused_plan_path_shapes(kind, net, want):
+    """The nets the paths run rows 1-3 on, at two blocks per SM (the planned
+    kernels' register budget): two-point items where their one-wave tile
+    fits two blocks as it is (u50 at 36 points; the DRM kernel's three
+    streams on u64 at 32; eight stream-rows at d = 5), else the planned
+    4 x 4 items at their 16-point tile (u64, where two-point items would
+    step down to 28 points); staged where no resident tier fits beside the
+    tile (the DRM kernel on u50 keeps its gradient row)."""
+    from nnpde_tpu_torch.kernels import _cuda, _plan
+
+    layers = FNETS[net]
+    pl = tfs.plan(kind, layers)
+    design = {"planned": _cuda.DES_PLANNED,
+              "two-point": _cuda.DES_PLANNED | _cuda.DES_ITEM2}[want[3]]
+    assert (pl.T, pl.smem, pl.tier, pl.design) == want[:3] + (design,)
+    assert pl.flags == dict(_plan.tiers(True))[pl.tier]
+    assert pl.smem <= _budget(2)
+    assert _launchable(pl, kind, layers)
+    S = tfs._streams(kind, layers[0])
+    t0 = _plan.tile_for(layers, S, rows=8 if design & _cuda.DES_ITEM2 else 4)
+    assert pl.T == t0
+    two = tfs.plan(kind, layers, _cuda.DES_PLANNED | _cuda.DES_ITEM2)
+    assert (two.T == _plan.tile_for(layers, S, rows=8)) == bool(design & _cuda.DES_ITEM2)
+    tiers = [name for name, _ in _plan.tiers(True)]
+    for name, flags in _plan.tiers(True)[:tiers.index(pl.tier)]:
+        assert all(4 * tfs.smem_floats(kind, layers, t, flags) > _budget(2)
+                   for t in range(max(16, t0 - 4), t0 + 1, 4))
+
+
+@pytest.mark.parametrize("design", ["wrapper", 0, 2, 3])
+@pytest.mark.parametrize("kind", FKINDS)
+@pytest.mark.parametrize("net", sorted(FEXTREMES))
+def test_fused_plan_takes_every_shape_the_wrapper_takes(net, kind, design):
+    """Every net the wrapper's check takes gets a plan the kernel takes, in
+    the wrappers' choice, in design 0 (the bf16-dot variants' constant tile)
+    and in each planned design; a pinned tier at 16 points fits or
+    raises."""
+    from nnpde_tpu_torch.kernels import _cuda, _plan
+
+    design = None if design == "wrapper" else design
+    layers = FEXTREMES[net]
+    params = [(torch.zeros(a, b), torch.zeros(b)) for a, b in zip(layers[:-1], layers[1:])]
+    assert _cuda.net_layers(kind, params, torch.zeros(8, layers[0]), "sin") == list(layers)
+    pl = tfs.plan(kind, layers, design)
+    assert _launchable(pl, kind, layers)
+    if design is not None:
+        assert pl.design == design
+    if design == 0:
+        assert (pl.T, pl.flags, pl.tier) == (_cuda.TILE, 0, "staged") or pl.T < _cuda.TILE
+        return
+    for tier, _ in _plan.tiers(True):
+        try:
+            pinned = tfs.plan(kind, layers, pl.design, T=16, tier=tier)
+        except ValueError:
+            continue
+        assert (pinned.T, pinned.tier, pinned.design) == (16, tier, pl.design)
+        assert _launchable(pinned, kind, layers)
+
+
+@pytest.mark.parametrize("kind", FKINDS)
+def test_fused_plan_pinned_misfit_raises(kind):
+    """A pinned tile or tier that does not fit SMEM_MAX raises; design 0
+    keeps nothing resident."""
+    u64 = FNETS["u64"]
+    with pytest.raises(ValueError, match="do not fit"):
+        tfs.plan(kind, u64, T=128)
+    with pytest.raises(ValueError, match="do not fit"):
+        tfs.plan(kind, u64, T=64, tier="resident")
+    with pytest.raises(ValueError, match="does not fit"):
+        tfs.plan(kind, u64, 0, T=128)
+    with pytest.raises(ValueError, match="nothing resident"):
+        tfs.plan(kind, u64, 0, tier="gradient")
+
+
+@pytest.mark.parametrize("layers,S,rows,want", [
+    ((2, 64, 64, 64, 64, 1), 4, 8, 32),     # row 1 on u64: 16 x 16 = 256 items
+    ((2, 50, 50, 50, 50, 1), 4, 8, 36),     # u50: 18 x 13 = 234
+    ((2, 64, 64, 64, 64, 1), 3, 8, 32),     # the DRM kernel (no Laplacian)
+    ((5, 64, 64, 64, 64, 1), 7, 8, 16),     # S > 4: eight stream-rows
+    ((2, 128, 128, 1), 4, 8, 16),
+    ((2, 12, 12, 1), 4, 8, 48),             # T_MAX
+    ((2, 64, 64, 64, 64, 1), 4, 4, 16),     # the 4 x 4 rule stays as it was
+    ((2, 64, 64, 64, 64, 1), 3, 4, 20),
+])
+def test_tile_rule_for_8_row_items(layers, S, rows, want):
+    """The largest tile (multiple of 4, 16..T_MAX) whose widest product is
+    one wave of the block's items: 2 points x S streams x 4 units at S <= 4,
+    8 stream-rows above; the FOLD variant takes such a tile."""
+    from nnpde_tpu_torch.kernels import _cuda, _plan
+
+    T = _plan.tile_for(layers, S, rows=rows)
+    assert T == want
+    if rows == 8 and S <= 4:
+        assert _cuda.folds(layers, S, T, points=2)
+        if T + 4 <= _plan.T_MAX:
+            assert not _cuda.folds(layers, S, T + 4, points=2)
+
+
+def test_fused_smem_layout_design0_is_the_constant_tile_layout():
+    """Design 0 (the core's kernels and the bf16-dot variants) keeps the
+    layout and the 16-point tile of _cuda.plan_tile; the planned designs add
+    the resident weights and transposes and the gradient row."""
+    from nnpde_tpu_torch.kernels import _cuda, _plan
+
+    for kind in FKINDS:
+        for layers in FNETS.values():
+            d = layers[0]
+            S, w = tfs._streams(kind, d), _cuda.padded_wmax(layers)
+            T = 16
+            base = 3 * S * T * w + w * w + T * d + (d + 2) * T + 3 * T + S * T + _cuda.NT
+            assert tfs.smem_floats(kind, layers, T) == base
+            assert tfs.plan(kind, layers, 0) == _plan.Plan(16, 4 * base, 0, "staged", 0)
+            hid, row = _plan.hidden_floats(layers), (_cuda.n_params(layers) + 6) // 4 * 4
+            full = tfs.smem_floats(kind, layers, T, _plan.RES_WEIGHTS | _plan.RES_GRAD)
+            assert full == base - w * w + 2 * hid + row

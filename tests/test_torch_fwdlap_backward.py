@@ -185,7 +185,7 @@ def test_wrapper_checks_and_tile_planning_take_any_width():
     assert _cuda.padded_wmax([2, 1, 1]) == 4
     # jet forward / backward plans: 2 or 3 stream buffers of (d+2)*T*wmax floats
     assert tfc._plan_forward([2, 50, 50, 1], 16) == 2 * 4 * 16 * 52 + 52 * 52 + 16 * 2 + 4 * 16
-    assert (tfc._plan_backward([2, 50, 50, 1], 16)
+    assert (tfc.backward_smem_floats([2, 50, 50, 1], 16)
             == 3 * 4 * 16 * 52 + 52 * 52 + 16 * 2 + 4 * 16 + _cuda.NT)
     # the coefficient tile is counted, per bump and per point
     lay = [2, 20, 20, 20, 1]
@@ -197,3 +197,94 @@ def test_wrapper_checks_and_tile_planning_take_any_width():
     assert pl.smem == 4 * tfm.smem_floats(True, wide, pl.T, 42, pl.flags) <= _cuda.SMEM_MAX
     pl = tfm.plan(True, [16] + [128] * 15 + [1], 42)
     assert pl.T < 16 and pl.tier == "staged"   # d = 16, 16 layers: the tile shrinks until it fits
+
+
+# ------------------------------------------------------------- launch plan
+# The jet backward's launch shape (CPU-side: the kernel is held to its plain
+# version at every tier on a card, tests/test_torch_cuda.py).
+BNETS = {"u64": (2, 64, 64, 64, 64, 1), "u50": (2, 50, 50, 50, 50, 1),
+         "u64_d5": (5, 64, 64, 64, 64, 1)}
+BEXTREMES = {
+    "d16_w128_16layers": (16,) + (128,) * 15 + (1,),
+    "width1": (2, 1, 1, 1),
+    "widths_1_and_50": (2, 50, 1, 50, 1),
+    "w128_shallow": (2, 128, 128, 1),
+    "one_hidden": (2, 12, 1),
+    **BNETS,
+}
+
+
+def _bwd_launchable(pl, layers):
+    """What fwdlap_backward.cu's entry point checks before it launches."""
+    from nnpde_tpu_torch.kernels import _cuda
+
+    return (4 <= pl.T <= _cuda.NT // 2 and pl.T % 4 == 0 and 0 <= pl.flags <= 7
+            and (pl.design or pl.flags == 0) and pl.design in (0,) + _cuda.PLANNED_DESIGNS
+            and pl.smem >= 4 * tfc.backward_smem_floats(layers, pl.T, pl.flags)
+            and pl.smem <= _cuda.SMEM_MAX)
+
+
+@pytest.mark.parametrize("net,want", [
+    ("u64", (16, 66944, "staged", 2)),      # planned 4 x 4 items (two-point: 28)
+    ("u50", (36, 102560, "staged", 3)),     # two-point items, one wave of 234
+    ("u64_d5", (16, 104192, "staged", 3)),  # eight stream-rows
+])
+def test_backward_plan_path_shapes(net, want):
+    """Row 5 on the nets of the infinite-well kernel route (u50) and of the
+    Poisson kernel route (u64, d = 2 and 5): two blocks per SM, staged, in
+    the design the wrappers choose."""
+    from nnpde_tpu_torch.kernels import _cuda, _plan
+
+    layers = BNETS[net]
+    pl = tfc.backward_plan(layers)
+    assert (pl.T, pl.smem, pl.tier, pl.design) == want
+    assert pl.flags == 0 and _bwd_launchable(pl, layers)
+    assert pl.smem <= _cuda.SMEM_MAX // 2 - 1024
+    # the gradient row on chip leaves no room for two blocks at this tile
+    assert 4 * tfc.backward_smem_floats(layers, pl.T, _plan.RES_GRAD) > _cuda.SMEM_MAX // 2 - 1024
+
+
+@pytest.mark.parametrize("design", ["wrapper", 0, 2, 3])
+@pytest.mark.parametrize("net", sorted(BEXTREMES))
+def test_backward_plan_takes_every_shape_the_wrapper_takes(net, design):
+    """Every net the wrapper's check takes gets a plan the kernel takes, in
+    every design; a pinned tier at 16 points fits or raises; a pinned tile
+    that does not fit raises."""
+    from nnpde_tpu_torch.kernels import _cuda, _plan
+
+    design = None if design == "wrapper" else design
+    layers = BEXTREMES[net]
+    params = [(torch.zeros(a, b), torch.zeros(b)) for a, b in zip(layers[:-1], layers[1:])]
+    ct = torch.zeros(8, layers[0] + 2)
+    assert _cuda.net_layers("fwdlap_backward", params, torch.zeros(8, layers[0]), "sin",
+                            (ct,)) == list(layers)
+    pl = tfc.backward_plan(layers, design)
+    assert _bwd_launchable(pl, layers)
+    if 4 * tfc.backward_smem_floats(layers, 128) > _cuda.SMEM_MAX:
+        with pytest.raises(ValueError, match="fit"):
+            tfc.backward_plan(layers, design, T=128)
+    if not pl.design:
+        return
+    for tier, _ in _plan.tiers(True):
+        try:
+            pinned = tfc.backward_plan(layers, pl.design, T=16, tier=tier)
+        except ValueError:
+            continue
+        assert (pinned.T, pinned.tier) == (16, tier) and _bwd_launchable(pinned, layers)
+
+
+def test_hidden_transposes_are_the_planned_kernels_wt():
+    """The planned kernels read W_1^T .. W_{K-2}^T back to back (row-major,
+    true sizes): one torch.cat of transposed views for equal widths, the
+    same values for unequal ones; none for one hidden layer."""
+    from nnpde_tpu_torch.kernels import _cuda
+
+    rng = np.random.default_rng(3)
+    for layers in ((2, 5, 5, 5, 1), (2, 5, 7, 3, 1), (3, 50, 50, 50, 50, 1)):
+        params = [(torch.as_tensor(rng.normal(size=(a, b))), torch.zeros(b))
+                  for a, b in zip(layers[:-1], layers[1:])]
+        wt = _cuda.hidden_transposes(params)
+        ref = torch.cat([W.t().reshape(-1) for W, _ in params[1:-1]])
+        assert wt.is_contiguous() and torch.equal(wt, ref)
+    assert _cuda.hidden_transposes([(torch.zeros(2, 4), torch.zeros(4)),
+                                    (torch.zeros(4, 1), torch.zeros(1))]) is None
