@@ -50,11 +50,15 @@ Phases (each prints one JSON line; any failure exits non-zero):
    minimax='extragradient', and 100 PINN epochs on 'kernel:streams'.
 8. timing, wan_timing, eigen_timing: CUDA events, median over repeats, for
    each kernel and its plain version at the path's N and at 262144 on the
-   net it runs on, with the bound (bytes or operations) and, for the kernels
-   that plan by net (the K-bump pair, the seeded quotients, rows 1-3 and
-   5), the plan: tile, tier, blocks per SM and, for rows 1-3 and 5, the
-   design and item shape; rows 1 and 4 also on u50 at 40000; training
-   steps per second.
+   net it runs on, with the bound (bytes or operations) and the plan of
+   every kernel that plans its launch (tile, tier, blocks per SM; for rows
+   1-5, 7 and 9 the design and item shape; for rows 4, 7 and 9 by N as
+   well as by net); rows 1 and 4 also on u50 at 40000 and 262144, rows 4
+   and 7 also at d = 5; training steps per second.
+   ``python3 chip_smoke.py timing --rows=KERNEL[,KERNEL...]`` times only
+   the rows of those kernels: one fresh process per row, so that what ran
+   earlier in a process does not move its times
+   (``nnpde_tpu_torch/tools/compare_timing.py`` reads such runs).
 9. precision (group ``precision``): precision_kernels holds the bf16-dot
    variants of the fused residual (stream and analytic coefficients), the
    jet forward and the jet backward to their plain bf16-dot versions
@@ -75,10 +79,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
 ``python3 chip_smoke.py eigen`` (or any other phase-group name: kernels,
 wan, main, eigen, timing, precision) runs only those groups, for work on one slice;
 without arguments every phase runs.  ``python3 chip_smoke.py sweep`` is a
-further group that runs only when named: rows 1 and 5 in both planned
-designs (4 x 4 and two-point items), the K-bump pair and the two seeded
-quotient kernels at every plan tier and a range of tile sizes, each checked
-against float64 and timed.
+further group that runs only when named: the jet forward (row 4) and the
+quotient sums (rows 7 and 9) in both planned designs at each tier and
+register budget, the seeded quotient kernels, rows 1 and 5 in both planned
+designs (4 x 4 and two-point items) and the K-bump pair at every plan tier
+and a range of tile sizes, each checked against float64 (repeats bitwise)
+and timed.
 
 The last two lines before the final one are the ``kernels`` summary and the
 card's ``name, power limit``; the final line is
@@ -425,7 +431,6 @@ def col_rel(a, b):
 
 def phase_wan_kernels(dev):
     """WAN kernels (fp32) vs plain (fp64) on the card; repeats bitwise."""
-    U5 = (5, 64, 64, 64, 64, 1)
     shapes = {
         "fwdlap_forward": [(20007, LAYERS, "sin", 0), (262144, LAYERS, "sin", 0),
                            (20007, CRITIC, "sin", 0), (20007, U5, "tanh", 0)],
@@ -704,9 +709,17 @@ def device_ms(fn, launches=30, reps=5):
     return statistics.median(times)
 
 
-def phase_timing(dev):
+def timed(kind, only):
+    """Whether a timing row of ``kind`` runs: every row without a filter
+    (``only`` None), else the kernels named in it (``--rows=``)."""
+    return only is None or kind in only
+
+
+def phase_timing(dev, only=None):
     rows = []
     for kind in REPLACES:
+        if not timed(kind, only):
+            continue
         for N in (20000, 262144):
             case = Case(kind, N, 2, LAYERS, "sin", seed=7, dev=dev)
             ms = time_ms(case.kernel)
@@ -735,6 +748,38 @@ def launch_blocks(kind, layers, S, pl, dev, N):
     return _cuda.grid(kind, None, pl.smem, dev, n_tiles)
 
 
+def pass_a_plan(kind, layers, lap, N, dev):
+    """The launch shape the wrapper of row 4, 7 or 9 takes on this net (as
+    :func:`plan_row` prints it); on a tree whose jet forward has no plan,
+    its constant tile."""
+    from nnpde_tpu_torch.kernels import _cuda, _plan
+    from nnpde_tpu_torch.kernels import fused_quotient as fq
+    from nnpde_tpu_torch.kernels import fwdlap_cuda as fc
+
+    if kind == "fwdlap_forward":
+        if not hasattr(fc, "forward_plan"):
+            T, smem = _cuda.plan_tile(lambda t: fc._plan_forward(layers, t))
+            return plan_row(kind, layers, layers[0] + 2, _plan.Plan(T, smem, 0, "staged", 0),
+                            N, dev)
+        pl = fc.forward_plan(layers, N=N, sms=_cuda.sm_count(dev))
+        return plan_row(kind, layers, layers[0] + 2, pl, N, dev)
+    if not hasattr(_plan, "forward_only"):
+        return plan_row(kind, layers, layers[0] + 1 + lap, fq.plan(kind, layers, lap), N, dev)
+    pl = fq.plan(kind, layers, lap, N=N, sms=_cuda.sm_count(dev))
+    return plan_row(kind, layers, layers[0] + 1 + lap, pl, N, dev)
+
+
+def design0_forward_plan(layers, N, dev):
+    """The constant tile of the row forward's bf16-dot variant (design 0), as
+    :func:`plan_row` prints it."""
+    from nnpde_tpu_torch.kernels import _cuda, _plan
+    from nnpde_tpu_torch.kernels import fwdlap_cuda as fc
+
+    T, smem = _cuda.plan_tile(lambda t: fc._plan_forward(layers, t))
+    return plan_row("fwdlap_forward", layers, layers[0] + 2, _plan.Plan(T, smem, 0, "staged", 0),
+                    N, dev, bf16=True)
+
+
 def quotient_plan(case):
     """The launch shape the quotient wrapper chose for this seeded case
     (after a launch): tile, shared memory, blocks, and what stays on chip;
@@ -752,17 +797,24 @@ def quotient_plan(case):
             "resident": _plan.resident(pl, True)}
 
 
-def phase_wan_timing(dev):
+def phase_wan_timing(dev, only=None):
+    """The WAN path's kernels on its nets at 20000 and 262144 points, and
+    rows 4 and 7 on u64 at d = 5 (S = 7 and 6: the variants without the
+    fold; ``"d": 5``)."""
     rows = []
-    nets = {"u": LAYERS, "critic": CRITIC}
+    nets = {"u": LAYERS, "critic": CRITIC, "u_d5": U5}
     for kind in WAN_REPLACES:
-        for net in (("u", "critic") if kind.startswith(("fwdlap", "linear")) else ("critic",)):
+        if not timed(kind, only):
+            continue
+        for net in (("u", "critic", "u_d5") if kind in ("fwdlap_forward", "linear_sums")
+                    else ("u", "critic") if kind.startswith("linear") else ("critic",)):
             for N in (20000, 262144):
                 case = WanCase(kind, N, nets[net], "sin", seed=9, dev=dev)
                 ms = time_ms(case.kernel)
                 plain_ms = time_ms(lambda: case.plain(torch.float32), warmup=2, reps=7)
-                rows.append({"kernel": kind, "net": net, "N": N,
-                             "plan": quotient_plan(case) if kind.endswith("seeded") else None,
+                rows.append({"kernel": kind, "net": net.split("_")[0], "d": case.d, "N": N,
+                             "plan": quotient_plan(case) if kind.endswith("seeded") else
+                             pass_a_plan(kind, case.layers, 0, N, dev),
                              "ms": ms,
                              "device_ms": device_ms(case.kernel),
                              "plain_ms": plain_ms, "bound_ms": case.bound_ms(),
@@ -1194,10 +1246,12 @@ def multibump_plan(case):
             "resident": resident(pl, seeded)}
 
 
-def phase_eigen_timing(dev):
+def phase_eigen_timing(dev, only=None):
     rows = []
     nets = {"u": EIGEN_U, "critic": EIGEN_V}
     for kind in EIGEN_REPLACES:
+        if not timed(kind, only):
+            continue
         for net in (("u", "critic") if kind.startswith("multi") else ("u",)):
             for N in (EIGEN_N, 262144):
                 case = EigenCase(kind, N, nets[net], "sin", seed=11, dev=dev)
@@ -1219,21 +1273,27 @@ def phase_eigen_timing(dev):
     # the earlier kernels that the infinite-well paths launch, at the shapes
     # those paths give them (width 50 and 20, 40000 points)
     others = []
-    case = Case("fused_linear_residual", EIGEN_N, 2, EIGEN_U, "sin", seed=12, dev=dev)
-    others.append({"kernel": "fused_linear_residual", "net": "u", "N": EIGEN_N,
-                   "ms": time_ms(case.kernel), "device_ms": device_ms(case.kernel),
-                   "bound_ms": case.bound_ms(),
-                   "plan": fused_plan("fused_linear_residual", EIGEN_U, EIGEN_N, dev)})
-    del case
-    # (the DRM path's Rayleigh pair on u50 at 262144 as well)
+    for N in ((EIGEN_N, 262144) if timed("fused_linear_residual", only) else ()):
+        case = Case("fused_linear_residual", N, 2, EIGEN_U, "sin", seed=12, dev=dev)
+        others.append({"kernel": "fused_linear_residual", "net": "u", "N": N,
+                       "ms": time_ms(case.kernel), "device_ms": device_ms(case.kernel),
+                       "bound_ms": case.bound_ms(),
+                       "plan": fused_plan("fused_linear_residual", EIGEN_U, N, dev)})
+        del case
+    # (the DRM path's Rayleigh pair, and the jet forward, at 262144 as well)
     for kind, net, N in (("fwdlap_forward", "u", EIGEN_N), ("fwdlap_forward", "critic", EIGEN_N),
+                         ("fwdlap_forward", "u", 262144), ("fwdlap_forward", "critic", 262144),
                          ("quad_sums", "u", EIGEN_N), ("quad_seeded", "u", EIGEN_N),
                          ("quad_sums", "u", 262144), ("quad_seeded", "u", 262144)):
+        if not timed(kind, only):
+            continue
         case = WanCase(kind, N, nets[net], "sin", seed=13, dev=dev)
         ms = time_ms(case.kernel)
         others.append({"kernel": kind, "net": net, "N": N, "ms": ms,
                        "device_ms": device_ms(case.kernel), "bound_ms": case.bound_ms(),
-                       "plan": quotient_plan(case) if kind.endswith("seeded") else None})
+                       "plain_ms": time_ms(lambda: case.plain(torch.float32), warmup=2, reps=7),
+                       "plan": quotient_plan(case) if kind.endswith("seeded") else
+                       pass_a_plan(kind, case.layers, 0, N, dev)})
         del case
         torch.cuda.empty_cache()
     emit({"phase": "eigen_timing", "rows": rows, "earlier_kernels": others})
@@ -1320,7 +1380,7 @@ def phase_quotient_sweep(dev):
     from nnpde_tpu_torch.kernels import fused_quotient as fq
 
     by_plan = hasattr(fq, "plan")
-    ok = True
+    ok = phase_pass_a_sweep(dev, SUMS_SWEEP, "sums")
     for kind, net_name, layers, n_path in QSWEEP:
         for N in (n_path, 262144):
             case = WanCase(kind, N, layers, "sin", seed=23, dev=dev)
@@ -1375,6 +1435,141 @@ def phase_quotient_sweep(dev):
         raise SystemExit("quotient sweep: a case missed its bar")
 
 
+# Rows 4, 7 and 9 (the forward-only kernels) on the nets of their paths, at
+# the path's N (and 262144): the jet forward on the Poisson WAN's u and
+# critic, the infinite-well u50 and c20 and u64 at d = 5; pass A of the
+# linear weak form (Poisson WAN critic and u, u64 at d = 5) and of the
+# quadratic energy (the critic regulariser, the infinite-well DRM's u50).
+U5 = (5, 64, 64, 64, 64, 1)
+FWD_SWEEP = (("fwdlap_forward", "u", LAYERS, 20000), ("fwdlap_forward", "critic", CRITIC, 20000),
+             ("fwdlap_forward", "u50", EIGEN_U, EIGEN_N),
+             ("fwdlap_forward", "c20", EIGEN_V, EIGEN_N), ("fwdlap_forward", "u_d5", U5, 20000))
+SUMS_SWEEP = (("linear_sums", "critic", CRITIC, 20000), ("linear_sums", "u", LAYERS, 20000),
+              ("quad_sums", "critic", CRITIC, 20000), ("quad_sums", "u50", EIGEN_U, EIGEN_N),
+              ("linear_sums", "u_d5", U5, 20000))
+PASS_A_TIERS = ("resident", "staged")
+
+
+def ptxas_of(*files):
+    """nvcc's -Xptxas -v lines (entries, registers, spills) of these sources."""
+    from nnpde_tpu_torch.kernels import _build
+
+    sec, lines = "", []
+    for ln in _build.BUILD_LOG.get("ptxas", "").splitlines():
+        sec = ln if ln.startswith("==") else sec
+        if any(f in sec for f in files) and (
+                "Compiling entry" in ln or "registers" in ln or "spill" in ln):
+            lines.append(ln.strip())
+    return lines
+
+
+def sass_global_stores(pattern):
+    """Global stores (STG) in the SASS of every kernel of the built library
+    whose name contains ``pattern``: ``{kernel: count}`` (cuobjdump), or
+    None where the toolkit has no cuobjdump."""
+    from nnpde_tpu_torch.kernels import _build
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", str(_build.library_path())], capture_output=True,
+                         text=True).stdout
+    counts, name = {}, None
+    for ln in out.splitlines():
+        if "Function : " in ln:
+            name = ln.split("Function : ", 1)[1].strip()
+            if pattern in name:
+                counts[name] = 0
+        elif name in counts and " STG" in ln:
+            counts[name] += 1
+    return counts
+
+
+def phase_pass_a_sweep(dev, cases, label):
+    """Rows 4, 7 and 9 (``cases``: kernel, net, layers, path N) at the
+    wrapper's plan and at every lever pinned on its own: each planned
+    design at its one-wave tile (the two-point design also a step below it
+    and at 16 points) in each tier, at each register budget (blocks per SM)
+    up to the design's most.  Each
+    launch held to its float64 plain version (the jet per column rel <=
+    1e-5; every sum within 1e-5 of the sum of its terms' magnitudes),
+    launched twice for a bitwise-equal repeat, and timed as device time at
+    the path's N and at 262144.  One JSON line per case; the wrapper's own
+    choice carries ``"chosen": true``."""
+    from nnpde_tpu_torch.kernels import _cuda, _plan
+    from nnpde_tpu_torch.kernels import fused_quotient as fq
+    from nnpde_tpu_torch.kernels import fwdlap_cuda as fc
+
+    ok = True
+    for kind, net_name, layers, n_path in cases:
+        fwd = kind == "fwdlap_forward"
+        S = layers[0] + (2 if fwd else 1)
+
+        def plan(**pin):
+            return (fc.forward_plan(layers, **pin) if fwd
+                    else fq.plan(kind, layers, 0, **pin))
+
+        for N in (n_path, 262144):
+            main = plan(N=N, sms=_cuda.sm_count(dev))
+            plans = [main]
+
+            def add(**pin):
+                try:
+                    pl = plan(**pin)
+                except ValueError:
+                    return
+                if pl not in plans:
+                    plans.append(pl)
+
+            for des in _cuda.PLANNED_DESIGNS:
+                two = des & _cuda.DES_ITEM2
+                t = _plan.fold_tile(layers, S, 2 if two else 1)
+                for T in ((t, t - 4, 16) if two else (t,)):
+                    for tier in PASS_A_TIERS:
+                        for blocks in range(_plan.FWD_BLOCKS, 1, -1):
+                            add(design=des, T=T, tier=tier, blocks=blocks)
+            case = WanCase(kind, N, layers, "sin", seed=29, dev=dev)
+            ref = case.plain(torch.float64)
+            scale = None if fwd else case.abs_terms()
+            for pl in plans:
+                def run(pl=pl):
+                    if fwd:
+                        return fc.fwdlap_forward(case.params, case.X, "sin", pl=pl)
+                    return fq._launch(kind, case.params, case.X, case.coef, None, "sin", 0,
+                                      pl=pl)
+                out, out2 = run(), run()
+                torch.cuda.synchronize()
+                if fwd:
+                    err = col_rel(out, ref)
+                else:
+                    err = float(torch.max(torch.abs(out.double() - ref) / scale))
+                good = err <= 1e-5 and bool(torch.equal(out, out2))
+                ok = ok and good
+                row = {"sweep": label, "kernel": kind, "net": net_name, "N": N, "err": err,
+                       "ok": good, "chosen": pl == main, "device_ms": device_ms(run),
+                       "bound_ms": case.bound_ms()}
+                row.update(plan_row(kind, layers, S, pl, N, dev))
+                emit(row)
+            del case, ref
+            torch.cuda.empty_cache()
+    return ok
+
+
+def phase_forward_sweep(dev):
+    """Row 4's levers (:func:`phase_pass_a_sweep`), with the ptxas report of
+    fwdlap_forward.cu and the global stores in the planned kernel's SASS
+    (its forward-only mode saves no stage: the jet rows are its only
+    global stores)."""
+    emit({"phase": "forward_sweep", "ptxas": ptxas_of("fwdlap_forward", "fused_quotient"),
+          "sass_global_stores": {"fwdlap_forward_planned":
+                                 sass_global_stores("fwdlap_forward_planned"),
+                                 "sums_planned": sass_global_stores("sums_planned"),
+                                 "fwdlap_backward_planned":
+                                 sass_global_stores("fwdlap_backward_planned")}})
+    if not phase_pass_a_sweep(dev, FWD_SWEEP, "forward"):
+        raise SystemExit("forward sweep: a case missed its bar")
+
+
 # rows 1 and 5 on the nets of their paths, at the path's N (and 262144)
 FSWEEP = (("fused_linear_residual", "u", LAYERS, 20000),
           ("fused_linear_residual", "u50", EIGEN_U, EIGEN_N),
@@ -1408,6 +1603,8 @@ def plan_row(kind, layers, S, pl, N, dev, bf16=False):
 
     dev = torch.device("cuda", torch.cuda.current_device()) if dev.index is None else dev
     fold, key = fs.variant(layers, S, pl)
+    if getattr(pl, "blocks", 0):     # a forward-only kernel's register budget
+        key = (key, pl.blocks)
     name = kind + (".bf16" if bf16 else "")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     if not pl.design & _cuda.DES_ITEM2:
@@ -1420,7 +1617,9 @@ def plan_row(kind, layers, S, pl, N, dev, bf16=False):
             "fold": bool(fold), "item": item,
             "blocks": _cuda.grid(name, None, pl.smem, dev, (N + pl.T - 1) // pl.T, key),
             "blocks_per_sm": _cuda.grid(name, None, pl.smem, dev, 1 << 30, key) // sms,
-            "resident": _plan.resident(pl, True)}
+            "launch_bounds_blocks": getattr(pl, "blocks", None),
+            "resident": _plan.resident(pl, kind not in ("fwdlap_forward", "linear_sums",
+                                                        "quad_sums"))}
 
 
 def phase_fused_sweep(dev):
@@ -1431,17 +1630,11 @@ def phase_fused_sweep(dev):
     rel <= 1e-5; row 5 gradient row rel <= 1e-5), launched twice for a
     bitwise-equal repeat, and timed as device time.  One JSON line per
     case; the wrapper's own choice carries ``"chosen": true``."""
-    from nnpde_tpu_torch.kernels import _build, _cuda
+    from nnpde_tpu_torch.kernels import _cuda
     from nnpde_tpu_torch.kernels import fused_step as fs
     from nnpde_tpu_torch.kernels import fwdlap_cuda as fc
 
-    log, sec, lines = _build.BUILD_LOG.get("ptxas", ""), "", []
-    for ln in log.splitlines():
-        sec = ln if ln.startswith("==") else sec
-        if ("fused_step" in sec or "fwdlap_backward" in sec) and (
-                "Compiling entry" in ln or "registers" in ln or "spill" in ln):
-            lines.append(ln.strip())
-    emit({"phase": "fused_sweep", "ptxas": lines})
+    emit({"phase": "fused_sweep", "ptxas": ptxas_of("fused_step", "fwdlap_backward")})
     ok = True
     for kind, net_name, layers, n_path in FSWEEP:
         bwd = kind == "fwdlap_backward"
@@ -1779,7 +1972,6 @@ def phase_precision_timing(dev):
     version's ms and its bound: the bf16-dot rows at the bf16 tensor cores'
     peak, with their CUDA-core bound beside it."""
     rows = []
-    U5 = (5, 64, 64, 64, 64, 1)
     plan = [(b, LAYERS, dot) for b in ("fused_linear_residual", "fused_poisson_analytic",
                                        "fwdlap_forward", "fwdlap_backward")
             for dot in ("bfloat16", "float32")]
@@ -1797,8 +1989,9 @@ def phase_precision_timing(dev):
             bound, by = case.bound(BF16_PEAK if dot == "bfloat16" else FP32_PEAK)
             row = {"kernel": base + (".bf16" if dot == "bfloat16" else ""),
                    "net": "u", "d": layers[0], "N": N,
-                   "plan": None if base == "fwdlap_forward" else
-                   fused_plan(base, layers, N, dev, dot == "bfloat16"),
+                   "plan": fused_plan(base, layers, N, dev, dot == "bfloat16")
+                   if base != "fwdlap_forward" else pass_a_plan(base, layers, 0, N, dev)
+                   if dot == "float32" else design0_forward_plan(layers, N, dev),
                    "ms": ms, "device_ms": dev_ms,
                    "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                    "flop": case.flops(), "bytes": case.bytes(),
@@ -1954,7 +2147,13 @@ GROUPS = ("kernels", "wan", "main", "eigen", "timing", "precision")
 
 
 def main():
-    want = set(sys.argv[1:]) or set(GROUPS)
+    args = [a for a in sys.argv[1:] if not a.startswith("--rows=")]
+    only = [a.split("=", 1)[1].split(",") for a in sys.argv[1:] if a.startswith("--rows=")]
+    only = set(only[-1]) if only else None
+    want = set(args) or set(GROUPS)
+    if only is not None and want != {"timing"}:
+        raise SystemExit("--rows= filters the timing group only: chip_smoke.py timing "
+                         "--rows=KERNEL[,KERNEL...]")
     if not want <= set(GROUPS) | {"sweep"}:
         raise SystemExit(f"unknown phase group in {sorted(want)}; choose from "
                          f"{GROUPS + ('sweep',)}")
@@ -1964,9 +2163,10 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if "sweep" in want:
+        phase_forward_sweep(dev)
+        phase_quotient_sweep(dev)
         phase_fused_sweep(dev)
         phase_multibump_sweep(dev)
-        phase_quotient_sweep(dev)
     max_err, launches, speed = {}, {}, {}
     if "kernels" in want:
         max_err.update(phase_kernels(dev))
@@ -1990,9 +2190,9 @@ def main():
         launches.update(phase_precision_path())
     rows = wan_rows = eigen_rows = prec_rows = []
     if "timing" in want:
-        rows = phase_timing(dev)
-        wan_rows = phase_wan_timing(dev)
-        eigen_rows = phase_eigen_timing(dev)
+        rows = phase_timing(dev, only)
+        wan_rows = phase_wan_timing(dev, only)
+        eigen_rows = phase_eigen_timing(dev, only)
     if "precision" in want:
         prec_rows = phase_precision_timing(dev)
     emit({"phase": "train_step", **speed,
@@ -2014,7 +2214,7 @@ def main():
         })
     for kind in WAN_REPLACES:
         row = next(r for r in wan_rows if r["kernel"] == kind and r["N"] == 20000
-                   and r["net"] == WAN_MAIN_NET[kind])
+                   and r["net"] == WAN_MAIN_NET[kind] and r["d"] == 2)
         kernels.append({
             "name": kind, "route": "cuda",
             "source": WAN_SOURCES.get(kind, "nnpde_tpu_torch/csrc/fused_quotient.cu"),

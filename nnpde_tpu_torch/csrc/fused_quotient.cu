@@ -2,12 +2,12 @@
 // quadratic means): pass A sums, pass B seeded gradients.
 //
 // Replaces the Pallas kernels of nnpde_tpu/kernels/fused_quotient.py:
-//   linear_sums_kernel   <- _linear_sums_kernel   sum r, sum r^2,
+//   linear_sums_planned  <- _linear_sums_kernel   sum r, sum r^2,
 //                           sum (e1 v)^2, sum e2 v; coef [c, b.., a, rhs,
 //                           e1, e2] (N, d+5), r = c v + b.g + a lap + rhs
 //   linear_seeded_kernel <- _linear_seeded_kernel dW/db of s_r sum r +
 //                           s_q sum (e1 v)^2 + s_l sum e2 v, and sum ct_v
-//   quad_sums_kernel     <- _quad_sums_kernel     sum e, sum u^2 with u =
+//   quad_sums_planned    <- _quad_sums_kernel     sum e, sum u^2 with u =
 //                           B v, G = B g + v dB, e = |G|^2/2 - f u + V u^2;
 //                           coef [B, dB.., f, V] (N, d+3)
 //   quad_seeded_kernel   <- _quad_seeded_kernel   dW/db of s_e sum e +
@@ -50,8 +50,13 @@
 //     each), and every sum is carried per point in double, in shared
 //     memory, across the block's tiles and added once, in a fixed order,
 //     when the block ends: no thread waits for a single summing thread.
-// The sums kinds (pass A) keep the constant tile of _cuda.plan_tile and
-// stage everything per tile; they share the epilogue.
+// The sums kinds (pass A) run the forward of the planned design
+// (fwdlap_planned.cuh: fwd_recompute_p in its forward-only mode) on the
+// launch plan of kernels/_plan.py::forward_only, the plan of the jet forward
+// (fwdlap_forward.cu): 4 x 4 or two-point items, the hidden weights (not
+// their transposes) resident where they fit the plan's share, and the
+// register budget stated at the blocks per SM the plan counts on (the
+// *_sums_planned kernels, MINB = 3 or 2).  They share the epilogue.
 
 // Determinism: the rule of fused_step.cu -- per-block partial rows, fixed
 // in-block orders, one ordered reduction, no atomics.  The sums are carried
@@ -60,7 +65,7 @@
 // Interface: plain C (ctypes), float32 only, weights flattened as
 // [W0, b0, W1, b1, ...].  Every entry point launches on the given stream,
 // never synchronises, and returns cudaGetLastError().
-#include "fwdlap_core.cuh"
+#include "fwdlap_planned.cuh"
 
 using namespace fwdlap;
 
@@ -104,9 +109,12 @@ __host__ __device__ inline int smem_floats(const Net& net, int kind, int T, int 
   return n + T * coef_stride(nc) + T * d + (seeded ? (d + 2) * T : 0) + S * T + NT + 4;
 }
 
-template <int KIND, bool FOLD>
+// DES: the seeded kinds' design 0 (the core's routines), or the sums kinds'
+// planned design.
+template <int KIND, bool FOLD, int DES = 0>
 __device__ void quotient_body(const QArgs& A) {
   constexpr bool SEEDED = KIND == LIN_SEEDED || KIND == QUAD_SEEDED;
+  static_assert(SEEDED == (DES == 0), "pass B runs design 0, pass A a planned design");
   constexpr bool LINEAR = KIND == LIN_SUMS || KIND == LIN_SEEDED;
   constexpr int NSUMS = SEEDED ? 1 : (LINEAR ? 4 : 2);
   extern __shared__ __align__(16) float smem[];
@@ -114,7 +122,7 @@ __device__ void quotient_body(const QArgs& A) {
   const int T = A.T, d = net.d, S = net.S, ld = net.wmax;
   const int nc = LINEAR ? d + 5 : d + 3, ncp = coef_stride(nc);
   const int stage = S * T * ld, hid = hidden_floats(net);
-  const bool res_w = SEEDED && (A.flags & RES_WEIGHTS) != 0;
+  const bool res_w = (A.flags & RES_WEIGHTS) != 0;
   // the per-point sums, NSUMS x T doubles: thread p adds point p of every
   // tile (kept in shared memory, not in registers held across the tile)
   double* psum = reinterpret_cast<double*>(smem);
@@ -126,7 +134,7 @@ __device__ void quotient_body(const QArgs& A) {
   float* Wsh = at;                        // resident W_k, or one layer's
   at += res_w ? hid : ld * ld;
   float* Wt = nullptr;
-  if (res_w) {
+  if (SEEDED && res_w) {
     Wt = at;
     at += hid;
   }
@@ -170,7 +178,11 @@ __device__ void quotient_body(const QArgs& A) {
     __syncthreads();
     float* cur = bufA;
     float* nxt = bufB;
-    fwd_recompute<SEEDED, FOLD>(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch, res);
+    if constexpr (SEEDED)
+      fwd_recompute<SEEDED, FOLD>(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch, res);
+    else
+      fwd_recompute_p<FOLD, DES, false>(net, T, xs, A.params, cur, nxt, nullptr, Wsh, nullptr,
+                                        res);
     project_last(net, T, cur, wlast, blast, proj);
     copy_wait();                          // the coefficient tile has landed
     __syncthreads();
@@ -254,10 +266,6 @@ __device__ void quotient_body(const QArgs& A) {
 
 // (each kernel in two variants: FOLD, the activation in the products'
 // epilogues, for nets with at most 4 streams; the wrapper chooses)
-template <bool FOLD>
-__global__ void __launch_bounds__(NT) linear_sums_kernel(QArgs a) {
-  quotient_body<LIN_SUMS, FOLD>(a);
-}
 // (three blocks per SM: the plan counts on them, so the register budget is
 // stated and not left to the compiler's choice)
 template <bool FOLD>
@@ -265,24 +273,57 @@ __global__ void __launch_bounds__(NT, 3) linear_seeded_kernel(QArgs a) {
   quotient_body<LIN_SEEDED, FOLD>(a);
 }
 template <bool FOLD>
-__global__ void __launch_bounds__(NT) quad_sums_kernel(QArgs a) {
-  quotient_body<QUAD_SUMS, FOLD>(a);
-}
-template <bool FOLD>
 __global__ void __launch_bounds__(NT, 3) quad_seeded_kernel(QArgs a) {
   quotient_body<QUAD_SEEDED, FOLD>(a);
+}
+// Pass A in a planned design (fwdlap_planned.cuh: fwd_recompute_p in its
+// forward-only mode), at the register budget of MINB blocks per SM.
+template <bool FOLD, int DES, int MINB>
+__global__ void __launch_bounds__(NT, MINB) linear_sums_planned(QArgs a) {
+  quotient_body<LIN_SUMS, FOLD, DES>(a);
+}
+template <bool FOLD, int DES, int MINB>
+__global__ void __launch_bounds__(NT, MINB) quad_sums_planned(QArgs a) {
+  quotient_body<QUAD_SUMS, FOLD, DES>(a);
 }
 
 namespace {
 
 typedef void (*QKernelFn)(QArgs);
 
-QKernelFn qkernel_for(int kind, int fold) {
+template <bool LIN, bool FOLD, int DES>
+QKernelFn sums_budget(int minb) {
+  switch (minb) {
+    case 2: return LIN ? linear_sums_planned<FOLD, DES, 2> : quad_sums_planned<FOLD, DES, 2>;
+    case 3: return LIN ? linear_sums_planned<FOLD, DES, 3> : quad_sums_planned<FOLD, DES, 3>;
+    default: return nullptr;
+  }
+}
+
+template <bool LIN>
+QKernelFn sums_planned(int fold, int des, int minb) {
+  switch (des) {
+    case DES_PLANNED:
+      return fold ? sums_budget<LIN, true, DES_PLANNED>(minb)
+                  : sums_budget<LIN, false, DES_PLANNED>(minb);
+    case DES_PLANNED | DES_ITEM2:
+      return fold ? sums_budget<LIN, true, DES_PLANNED | DES_ITEM2>(minb)
+                  : sums_budget<LIN, false, DES_PLANNED | DES_ITEM2>(minb);
+    default: return nullptr;
+  }
+}
+
+// The kernel of a kind, variant and design: the seeded kinds in design 0;
+// the sums kinds in a planned design at the register budget of minb blocks
+// per SM.
+QKernelFn qkernel_for(int kind, int fold, int des, int minb) {
   switch (kind) {
-    case LIN_SUMS: return fold ? linear_sums_kernel<true> : linear_sums_kernel<false>;
-    case LIN_SEEDED: return fold ? linear_seeded_kernel<true> : linear_seeded_kernel<false>;
-    case QUAD_SUMS: return fold ? quad_sums_kernel<true> : quad_sums_kernel<false>;
-    case QUAD_SEEDED: return fold ? quad_seeded_kernel<true> : quad_seeded_kernel<false>;
+    case LIN_SUMS: return sums_planned<true>(fold, des, minb);
+    case LIN_SEEDED:
+      return des ? nullptr : fold ? linear_seeded_kernel<true> : linear_seeded_kernel<false>;
+    case QUAD_SUMS: return sums_planned<false>(fold, des, minb);
+    case QUAD_SEEDED:
+      return des ? nullptr : fold ? quad_seeded_kernel<true> : quad_seeded_kernel<false>;
     default: return nullptr;
   }
 }
@@ -294,8 +335,10 @@ extern "C" {
 // kind: 0 linear sums, 1 linear seeded, 2 quadratic sums, 3 quadratic
 // seeded.  lap: carry the Laplacian stream (linear kinds only; 0 is
 // no_lap).  scal: device seeds (seeded kinds; else may be null).  flags:
-// the plan's Flags (seeded kinds; the sums kinds take 0).  fold: the variant
-// with the activation in the products' epilogues (at most 4 streams).
+// the plan's Flags (the sums kinds: RES_WEIGHTS or 0).  fold: the variant
+// with the activation in the products' epilogues (at most 4 streams).  des,
+// minb: the sums kinds' planned design (fwdlap_planned.cuh) and register
+// budget in blocks per SM (2 or 3); the seeded kinds take 0, 0.
 // partial (G, row)
 // and out (row) with row = 4 / P+1 / 2 / P+1; scratch (G, K-2, S, T, wmax)
 // for the seeded kinds on a net with more than one hidden layer (else may
@@ -304,15 +347,15 @@ extern "C" {
 int fused_quotient_f32(int kind, int lap, const float* X, const float* coef,
                        const float* params, const float* scal, const int* layers,
                        int n_layers, int act, int N, int T, int G, int flags, int fold,
-                       float* partial, float* scratch, float* out, int smem_bytes,
-                       void* stream) {
-  QKernelFn fn = qkernel_for(kind, fold);
+                       int des, int minb, float* partial, float* scratch, float* out,
+                       int smem_bytes, void* stream) {
+  QKernelFn fn = qkernel_for(kind, fold, des, minb);
   QArgs a;
   if (fn == nullptr || (lap != 0 && !is_linear(kind)) ||
       !make_net(lap != 0 ? 1 : 0, layers, n_layers, act, &a.net) || N < 1 || T < 4 ||
       T % 4 != 0 || T > NT / 2 || G < 1 || flags < 0 || flags > 7 ||
       (fold && a.net.S > 4) ||
-      (!is_seeded(kind) && flags != 0) ||
+      (!is_seeded(kind) && (flags & ~RES_WEIGHTS) != 0) ||
       (is_seeded(kind) && (scal == nullptr || (a.net.K > 2 && scratch == nullptr))) ||
       4 * smem_floats(a.net, kind, T, flags) > smem_bytes)
     return (int)cudaErrorInvalidValue;
@@ -338,8 +381,9 @@ int fused_quotient_f32(int kind, int lap, const float* X, const float* coef,
 
 // Resident blocks per SM for a kind and variant at a dynamic shared-memory
 // size.
-int fused_quotient_blocks_per_sm(int kind, int fold, int smem_bytes, int* blocks) {
-  QKernelFn fn = qkernel_for(kind, fold);
+int fused_quotient_blocks_per_sm(int kind, int fold, int des, int minb, int smem_bytes,
+                                 int* blocks) {
+  QKernelFn fn = qkernel_for(kind, fold, des, minb);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = ensure_smem((const void*)fn, smem_bytes);
   if (err != cudaSuccess) return (int)err;
@@ -351,7 +395,7 @@ int fused_quotient_blocks_per_sm(int kind, int fold, int smem_bytes, int* blocks
 int fused_quotient_smem_bytes(int kind, int lap, const int* layers, int n_layers, int T,
                               int flags) {
   Net net;
-  if (qkernel_for(kind, 0) == nullptr || (lap != 0 && !is_linear(kind)) ||
+  if (kind < LIN_SUMS || kind > QUAD_SEEDED || (lap != 0 && !is_linear(kind)) ||
       !make_net(lap != 0 ? 1 : 0, layers, n_layers, 0, &net))
     return -1;
   return 4 * smem_floats(net, kind, T, flags);

@@ -1,10 +1,10 @@
 // Jet forward: (value, grad, Laplacian) of a raw MLP at every point.
 //
-// fwdlap_forward_kernel replaces
-// nnpde_tpu/kernels/fwdlap_pallas.py::_forward_kernel2 (the VMEM-resident
-// jet forward behind mlp_fwdlap_pallas, fwd_impl='pallas2'): the
-// forward-Laplacian recurrence over a tile of points, kept on chip, with
-// only the (N, d+2) jet written out.
+// fwdlap_forward_planned (fp32) and fwdlap_forward_kernel (its BF16
+// variant) replace nnpde_tpu/kernels/fwdlap_pallas.py::_forward_kernel2 (the
+// VMEM-resident jet forward behind mlp_fwdlap_pallas, fwd_impl='pallas2'):
+// the forward-Laplacian recurrence over a tile of points, kept on chip,
+// with only the (N, d+2) jet written out.
 //
 // fwdlap_forward_streams_kernel replaces ::_forward_kernel (with
 // ::_fwd_streams; fwd_impl='pallas'): the same jet written stream-major,
@@ -16,11 +16,27 @@
 // What bounds it on the H100: operations.  Per point the recurrence costs
 // (d+2)*sum(n_in*n_out) multiply-adds (2.50e4 at d = 2 on the
 // 2-64-64-64-64-1 net) against 8 bytes in and 16 bytes out, so the fp32
-// CUDA-core rate is the ceiling.  What the design does about it: the
-// per-tile core of the fused kernels (fwdlap_core.cuh: every layer one
-// shared-memory product over all d+2 streams, 4 x 4 register tiles,
-// weights staged by cp.async), with no saved stages (there is no reverse
-// sweep), so nothing but X and the jet touches device memory.
+// CUDA-core rate is the ceiling.  In practice a tile is a chain of short
+// barrier-separated phases (input layer and stage 1's activation, one
+// product per hidden layer with the next activation in its epilogue, the
+// projection), so what the design buys first is resident blocks per SM.
+// The fp32 row kernel, fwdlap_forward_planned, is the planned design of
+// fwdlap_planned.cuh (fwd_recompute_p in its forward-only mode: no stage
+// saved, so nothing but X, the weights and the jet touches device memory)
+// on the launch plan of kernels/_plan.py::forward_only:
+//   * its register budget is stated at the blocks per SM its plan counts on
+//     (MINB = 3 or 2): left to the compiler the 4 x 4 kernel took 94
+//     registers and two blocks per SM, at 80 it runs three;
+//   * 4 x 4 items at the tile whose (point, 4 units) items are one wave, or
+//     two-point items (8 rows x 4 units: a weight float4 feeds 32 FMAs) at
+//     theirs where that tile fits as it is and its tiles fill 2.5 rounds of
+//     the card's slots at this N;
+//   * the hidden weights resident for the block's life where they fit the
+//     plan's share, else staged per layer per tile by cp.async (W_1 while the
+//     input layer runs).  A second staging buffer, each W_{k+1} copied while
+//     product k ran, was built and measured no faster (PERF.md, section 6).
+// The stream-major kernel and the row kernel's BF16 variant keep the core's
+// routines (fwdlap_core.cuh, "design 0") and the constant 16-point tile.
 //
 // The row kernel also comes in a BF16 variant: _forward_kernel2's
 // fwd_dot='default' (fwd_impl='pallas2:default'), single-pass dots, which
@@ -35,7 +51,7 @@
 // Interface: plain C (ctypes), float32 only, weights flattened as
 // [W0, b0, W1, b1, ...] with row-major (in, out) W.  Launches on the given
 // stream, never synchronises, and returns cudaGetLastError().
-#include "fwdlap_core.cuh"
+#include "fwdlap_planned.cuh"
 
 using namespace fwdlap;
 
@@ -49,11 +65,26 @@ struct FwdArgs {
   int N, T, n_tiles;
 };
 
+// The planned kernel's arguments: FwdArgs and the plan's Flags.
+struct PFwdArgs : FwdArgs {
+  int flags;
+};
+
+// Shared-memory floats of one block for (T, flags): the planned kernel's
+// layout; flags 0 is design 0's (both kernels).  Mirrored by
+// kernels/fwdlap_cuda.py::forward_smem_floats.
+__host__ __device__ inline int fwd_smem_floats(const Net& net, int T, int flags) {
+  const int ld = net.wmax;
+  const int n = 2 * net.S * T * ld + ((flags & RES_WEIGHTS) ? hidden_floats(net) : ld * ld);
+  return n + T * net.d + net.S * T;
+}
+
 }  // namespace
 
 // (each kernel in two variants: FOLD, the activation in the products'
-// epilogues, for nets with at most 4 streams; the row kernel also in BF16
-// variants, the bf16-dot mode; the wrapper chooses)
+// epilogues, for nets with at most 4 streams; this design-0 row kernel runs
+// the BF16 variant, the bf16-dot mode, and fp32 takes the planned kernel
+// below; the wrapper chooses)
 template <bool FOLD, bool BF16>
 __global__ void __launch_bounds__(NT) fwdlap_forward_kernel(FwdArgs A) {
   extern __shared__ __align__(16) float smem[];
@@ -74,6 +105,52 @@ __global__ void __launch_bounds__(NT) fwdlap_forward_kernel(FwdArgs A) {
     float* cur = bufA;
     float* nxt = bufB;
     fwd_recompute<false, FOLD, BF16>(net, T, xs, A.params, cur, nxt, nullptr, Wsh, nullptr);
+    project_last(net, T, cur, wlast, blast, proj);
+    __syncthreads();
+    // out[(base + p) * S + s] = proj[s * T + p]: consecutive threads write
+    // consecutive floats of the tile's rows
+    for (int i = threadIdx.x; i < T * S; i += NT) {
+      const int p = i / S, s = i - p * S;
+      if (base + p < A.N) A.out[(size_t)(base + p) * S + s] = proj[s * T + p];
+    }
+    __syncthreads();
+  }
+}
+
+// The planned design (fwdlap_planned.cuh: fwd_recompute_p in its
+// forward-only mode) with the plan's residency from A.flags: the hidden
+// weights staged once per block (RES_WEIGHTS), or per layer per tile.
+// MINB: the blocks per SM its plan counts on, so the register budget is
+// stated, not left to the compiler's choice.
+template <bool FOLD, int DES, int MINB>
+__global__ void __launch_bounds__(NT, MINB) fwdlap_forward_planned(PFwdArgs A) {
+  extern __shared__ __align__(16) float smem[];
+  const Net& net = A.net;
+  const int T = A.T, d = net.d, S = net.S, ld = net.wmax;
+  const bool res_w = (A.flags & RES_WEIGHTS) != 0;
+  float* bufA = smem;
+  float* bufB = bufA + S * T * ld;
+  float* Wsh = bufB + S * T * ld;         // one layer's W, or the resident W
+  float* xs = Wsh + (res_w ? hidden_floats(net) : ld * ld);
+  float* proj = xs + T * d;               // projected streams, S x T
+  const float* wlast = A.params + net.off[net.K - 1];
+  const float blast = wlast[net.w[net.K - 1]];
+  Resident res;
+  if (res_w) {
+    stage_resident(net, A.params, Wsh, nullptr);
+    res.W = Wsh;
+    copy_wait();
+    __syncthreads();
+  }
+
+  for (int tile = blockIdx.x; tile < A.n_tiles; tile += gridDim.x) {
+    const int base = tile * T;
+    load_tile(A.X, A.N, d, base, T, xs);
+    __syncthreads();
+    float* cur = bufA;
+    float* nxt = bufB;
+    fwd_recompute_p<FOLD, DES, false>(net, T, xs, A.params, cur, nxt, nullptr, Wsh, nullptr,
+                                      res);
     project_last(net, T, cur, wlast, blast, proj);
     __syncthreads();
     // out[(base + p) * S + s] = proj[s * T + p]: consecutive threads write
@@ -124,14 +201,40 @@ __global__ void __launch_bounds__(NT) fwdlap_forward_streams_kernel(FwdArgs A) {
 namespace {
 
 typedef void (*FwdKernelFn)(FwdArgs);
+typedef void (*PFwdKernelFn)(PFwdArgs);
 
-FwdKernelFn fwd_kernel_for(int streams, int fold, int bf16) {
-  if (streams) {
-    if (bf16) return nullptr;
-    return fold ? fwdlap_forward_streams_kernel<true> : fwdlap_forward_streams_kernel<false>;
+template <bool FOLD, int DES>
+PFwdKernelFn planned_budget(int minb) {
+  switch (minb) {
+    case 2: return fwdlap_forward_planned<FOLD, DES, 2>;
+    case 3: return fwdlap_forward_planned<FOLD, DES, 3>;
+    default: return nullptr;
   }
-  if (bf16) return fold ? fwdlap_forward_kernel<true, true> : fwdlap_forward_kernel<false, true>;
-  return fold ? fwdlap_forward_kernel<true, false> : fwdlap_forward_kernel<false, false>;
+}
+
+// The kernel of a variant: design 0 (des == 0) the core's kernels (the
+// stream-major one, and the row kernel's BF16 variant); a planned design
+// (fwdlap_planned.cuh's Design) the planned row kernel in fp32 at the
+// register budget of minb blocks per SM (2 or 3).
+const void* fwd_variant_fn(int streams, int fold, int bf16, int des, int minb) {
+  if (streams) {
+    if (bf16 || des) return nullptr;
+    return fold ? (const void*)fwdlap_forward_streams_kernel<true>
+                : (const void*)fwdlap_forward_streams_kernel<false>;
+  }
+  if (bf16)
+    return des ? nullptr
+               : fold ? (const void*)fwdlap_forward_kernel<true, true>
+                      : (const void*)fwdlap_forward_kernel<false, true>;
+  switch (des) {
+    case DES_PLANNED:
+      return fold ? (const void*)planned_budget<true, DES_PLANNED>(minb)
+                  : (const void*)planned_budget<false, DES_PLANNED>(minb);
+    case DES_PLANNED | DES_ITEM2:
+      return fold ? (const void*)planned_budget<true, DES_PLANNED | DES_ITEM2>(minb)
+                  : (const void*)planned_budget<false, DES_PLANNED | DES_ITEM2>(minb);
+    default: return nullptr;
+  }
 }
 
 }  // namespace
@@ -141,13 +244,20 @@ extern "C" {
 // X (N, d), params flat; out (N, d+2), or (d+2, N) with streams != 0.  T
 // points per tile, G blocks; fold: the variant with the activation in the
 // products' epilogues (nets with at most 4 streams); bf16: the bf16-dot
-// variant of the row kernel.
+// variant of the row kernel (design 0); des: the design (0, or a planned
+// design for the fp32 row kernel); flags: the plan's Flags (des != 0, else
+// 0); minb: a planned design's register budget in blocks per SM (its
+// plan's).  smem_bytes must hold the kernel's layout for (T, flags).
 int fwdlap_forward_f32(int streams, const float* X, const float* params,
                        const int* layers, int n_layers, int act, int N, int T, int G,
-                       int fold, int bf16, float* out, int smem_bytes, void* stream) {
-  FwdArgs a;
-  if (!make_net(1, layers, n_layers, act, &a.net) || N < 1 || T < 4 || T % 4 != 0 ||
-      G < 1 || (fold && a.net.S > 4))
+                       int fold, int bf16, int des, int minb, int flags, float* out,
+                       int smem_bytes, void* stream) {
+  PFwdArgs a;
+  const void* fn = fwd_variant_fn(streams, fold, bf16, des, minb);
+  if (fn == nullptr || !make_net(1, layers, n_layers, act, &a.net) || N < 1 || T < 4 ||
+      T % 4 != 0 || T > NT / 2 || G < 1 || (fold && a.net.S > 4) ||
+      (flags & ~RES_WEIGHTS) != 0 || (des == 0 && flags != 0) ||
+      4 * fwd_smem_floats(a.net, T, flags) > smem_bytes)
     return (int)cudaErrorInvalidValue;
   a.X = X;
   a.params = params;
@@ -155,24 +265,33 @@ int fwdlap_forward_f32(int streams, const float* X, const float* params,
   a.N = N;
   a.T = T;
   a.n_tiles = (N + T - 1) / T;
-  FwdKernelFn fn = fwd_kernel_for(streams, fold, bf16);
-  if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  cudaError_t err =
-      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  a.flags = flags;
+  cudaError_t err = ensure_smem(fn, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  fn<<<G, NT, smem_bytes, (cudaStream_t)stream>>>(a);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (des == 0)
+    ((FwdKernelFn)fn)<<<G, NT, smem_bytes, s>>>(static_cast<const FwdArgs&>(a));
+  else
+    ((PFwdKernelFn)fn)<<<G, NT, smem_bytes, s>>>(a);
   return (int)cudaGetLastError();
 }
 
 // Resident blocks per SM of a variant at a dynamic shared-memory size.
-int fwdlap_forward_blocks_per_sm(int streams, int fold, int bf16, int smem_bytes,
-                                 int* blocks) {
-  FwdKernelFn fn = fwd_kernel_for(streams, fold, bf16);
+int fwdlap_forward_blocks_per_sm(int streams, int fold, int bf16, int des, int minb,
+                                 int smem_bytes, int* blocks) {
+  const void* fn = fwd_variant_fn(streams, fold, bf16, des, minb);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  cudaError_t err =
-      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  cudaError_t err = ensure_smem(fn, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, NT, smem_bytes);
+}
+
+// The shared-memory bytes the row kernels lay out for (T, flags), or -1 for
+// a net they do not take.
+int fwdlap_forward_smem_bytes(const int* layers, int n_layers, int T, int flags) {
+  Net net;
+  if (!make_net(1, layers, n_layers, 0, &net)) return -1;
+  return 4 * fwd_smem_floats(net, T, flags);
 }
 
 }  // extern "C"

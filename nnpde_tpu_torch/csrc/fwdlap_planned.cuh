@@ -433,8 +433,11 @@ __device__ inline void stage_resident_p(const Net& net, const float* __restrict_
 }
 
 // fwd_recompute in design DES (header note), with the plan's residency
-// (`res`) taken at run time.
-template <bool FOLD, int DES>
+// (`res`) taken at run time.  SAVE = false, the forward-only mode of the
+// jet forward and the quotient sums: no stage is saved, and `last` and
+// `scratch` are not read; every `save` below is then a compile-time null,
+// so its stores are compiled out, not branched over per entry.
+template <bool FOLD, int DES, bool SAVE = true>
 __device__ inline void fwd_recompute_p(const Net& net, int T, const float* __restrict__ xs,
                                        const float* __restrict__ params, float*& cur,
                                        float*& nxt, float* last, float* Wsh, float* scratch,
@@ -450,7 +453,7 @@ __device__ inline void fwd_recompute_p(const Net& net, int T, const float* __res
     const int w1 = net.w[1];
     const float* W0 = params + net.off[0];
     const float* b0 = W0 + d * w1;
-    float* save = net.K == 2 ? last : scratch;
+    float* save = SAVE ? (net.K == 2 ? last : scratch) : nullptr;
     if constexpr (FOLD) {
       // and stage 1's activation (stage_mid's arithmetic), two entries per
       // pass; FOLD means S <= 4, so d <= 3
@@ -529,7 +532,8 @@ __device__ inline void fwd_recompute_p(const Net& net, int T, const float* __res
         copy_wait();
         __syncthreads();
       }
-      float* save = k + 1 == net.K - 1 ? last : scratch ? scratch + k * stage_sz : nullptr;
+      float* save = !SAVE ? nullptr
+                    : k + 1 == net.K - 1 ? last : scratch ? scratch + k * stage_sz : nullptr;
       const float* Wm = resW ? resW + woff : Wsh;
       if (S == 2)
         mm_actp<NP, 2>(net, T, cur, wkp, Wm, wnp, Wk + wk * wn, wn, nxt, save);
@@ -549,7 +553,8 @@ __device__ inline void fwd_recompute_p(const Net& net, int T, const float* __res
     if (!final_stage && !resW)
       stage_weights(net, Wsh, params + net.off[k], wk, net.w[k + 1], wkp, net.wp[k + 1]);
     stage_mid(net, T, k, cur, cur,
-              final_stage ? last : scratch ? scratch + (k - 1) * stage_sz : nullptr);
+              !SAVE ? nullptr
+              : final_stage ? last : scratch ? scratch + (k - 1) * stage_sz : nullptr);
     if (final_stage) break;
     const int wn = net.w[k + 1];
     const float* Wk = params + net.off[k];

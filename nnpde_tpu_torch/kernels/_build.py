@@ -52,10 +52,14 @@ _SIGNATURES = {
     # mode, layers, n_layers, T, flags -> bytes (not an error code)
     "fused_smem_bytes": [_I, _P, _I, _I, _I],
     # fwdlap_forward.cu: streams, X, params, layers, n_layers, act, N, T, G,
-    # fold, bf16, out, smem_bytes, stream
-    "fwdlap_forward_f32": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
-    # streams, fold, bf16, smem_bytes, int* blocks
-    "fwdlap_forward_blocks_per_sm": [_I, _I, _I, _I, _P],
+    # fold, bf16, des, minb, flags, out, smem_bytes, stream (minb: a planned
+    # design's register budget in blocks per SM)
+    "fwdlap_forward_f32":
+        [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
+    # streams, fold, bf16, des, minb, smem_bytes, int* blocks
+    "fwdlap_forward_blocks_per_sm": [_I, _I, _I, _I, _I, _I, _P],
+    # layers, n_layers, T, flags -> bytes (not an error code)
+    "fwdlap_forward_smem_bytes": [_P, _I, _I, _I],
     # fwdlap_backward.cu: X, ct, params, wt, layers, n_layers, act, N, T, G,
     # fold, bf16, des, flags, partial, scratch, out, smem_bytes, stream
     "fwdlap_backward_f32":
@@ -65,11 +69,12 @@ _SIGNATURES = {
     # layers, n_layers, T, flags -> bytes (not an error code)
     "fwdlap_backward_smem_bytes": [_P, _I, _I, _I],
     # fused_quotient.cu: kind, lap, X, coef, params, scal, layers, n_layers,
-    # act, N, T, G, flags, fold, partial, scratch, out, smem_bytes, stream
+    # act, N, T, G, flags, fold, des, minb, partial, scratch, out, smem_bytes,
+    # stream (des, minb: the sums kinds' design and register budget)
     "fused_quotient_f32":
-        [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
-    # kind, fold, smem_bytes, int* blocks
-    "fused_quotient_blocks_per_sm": [_I, _I, _I, _P],
+        [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+    # kind, fold, des, minb, smem_bytes, int* blocks
+    "fused_quotient_blocks_per_sm": [_I, _I, _I, _I, _I, _P],
     # kind, lap, layers, n_layers, T, flags -> bytes (not an error code)
     "fused_quotient_smem_bytes": [_I, _I, _P, _I, _I, _I],
     # fused_multibump.cu: seeded, n_bumps, X, coef, params, scal, layers,

@@ -124,11 +124,9 @@ def hidden_transposes(params):
 def plan_tile(smem_floats):
     """``(T, smem bytes)``: the largest tile up to ``TILE`` points whose
     shared memory, ``4 * smem_floats(T)`` bytes, fits ``SMEM_CAP``: the
-    constant-tile rule of the jet forwards, the quotient sums kinds and the
-    bf16-dot variants; the K-bump pair, the seeded quotient kernels and the
-    fp32 fused residual kernels and jet backward plan by the net
-    (:mod:`._plan`: tile, residency and resident blocks per SM within
-    ``SMEM_MAX``)."""
+    constant-tile rule of the stream-major jet forward and the bf16-dot
+    variants; every other kernel plans by the net (:mod:`._plan`: tile,
+    residency and resident blocks per SM within ``SMEM_MAX``)."""
     T = TILE
     while 4 * smem_floats(T) > SMEM_CAP and T > 4:
         T //= 2
@@ -174,6 +172,15 @@ def grid(name: str, query, smem: int, dev: torch.device, n_tiles: int,
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         _OCCUPANCY[key] = blocks.value * sms
     return min(n_tiles, _OCCUPANCY[key])
+
+
+def sm_count(dev: torch.device) -> int:
+    """Streaming multiprocessors of ``dev`` (cached): the forward-only plans
+    count the rounds of the card's slots that their tiles fill."""
+    key = ("sms", dev.index)
+    if key not in _OCCUPANCY:
+        _OCCUPANCY[key] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _OCCUPANCY[key]
 
 
 def layers_arg(layers):

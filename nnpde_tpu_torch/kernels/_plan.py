@@ -6,10 +6,12 @@ life (``flags``).  The K-bump pair (:mod:`.fused_multibump`), the seeded
 quotient kernels (:mod:`.fused_quotient`), and the planned design of the
 fused residual kernels and the jet backward (:mod:`.fused_step`,
 :mod:`.fwdlap_cuda`; rows = 8 for their two-point items, at most two blocks
-per SM) plan by the same rule; each brings its own shared-memory layout,
-``smem_floats(T, flags) -> floats`` (the Python mirror of the kernel's C
-layout, checked against it on the card), and its stream count ``S``
-(``d + 1``, or ``d + 2`` with the Laplacian).
+per SM) plan by the same rule; the forward-only kernels (the jet forward,
+the quotient sums) by their own, :func:`forward_only`, at the end.  Each
+brings its own shared-memory layout, ``smem_floats(T, flags) -> floats``
+(the Python mirror of the kernel's C layout, checked against it on the
+card), and its stream count ``S`` (``d + 1``, or ``d + 2`` with the
+Laplacian).
 
 The rule.  The kernels are bound by instruction issue and by latency
 between barriers, so resident blocks per SM come first: the plan looks for a
@@ -56,13 +58,16 @@ T_MAX = 48        # points per tile the plan asks for at most (a multiple of 4;
 
 class Plan(NamedTuple):
     """One launch shape: points per tile, dynamic shared memory in bytes,
-    the residency flags, the tier's name, and the kernel design (the fused
-    residual kernels and the jet backward: ``_cuda.DES_*``; 0 elsewhere)."""
+    the residency flags, the tier's name, the kernel design (the fused
+    residual kernels, the jet backward and the forward-only kernels:
+    ``_cuda.DES_*``; 0 elsewhere), and for the forward-only kernels the
+    blocks per SM their register budget counts on (0 elsewhere)."""
     T: int
     smem: int
     flags: int
     tier: str
     design: int = 0
+    blocks: int = 0     # the forward-only kernels: the register budget launched
 
 
 def tiers(seeded: bool):
@@ -178,4 +183,110 @@ def cached(key, build: Callable[[], Plan]) -> Plan:
     pl = _PLANS.get(key)
     if pl is None:
         pl = _PLANS[key] = build()
+    return pl
+
+
+# ------------------------------------------------------ forward-only kernels
+# The jet forward (row 4) and pass A of the quotients (rows 7, 9) in the
+# planned design: a forward recompute per tile and a short epilogue, nothing
+# saved.  Measured on an H100 (chip_smoke.py sweep, PERF.md):
+#   * blocks per SM come first, and the register budget has to say so: left
+#     to the compiler the 4 x 4 kernel takes 94 registers and two blocks;
+#     hence kernels compiled at __launch_bounds__(NT, 3) and (NT, 2), and a
+#     plan launches the one its shared memory leaves room for;
+#   * two-point items (8 rows x 4 units, FMA-bound where 4 x 4 items wait on
+#     shared memory) win per point where their one-wave tile fits as it is,
+#     but their larger tile has fewer tiles: at the paths' 20000 points a
+#     32-point tile is 625 tiles, 2.4 rounds of 264 slots, and the
+#     part-filled last round costs a whole one, so there the 4 x 4 plan is
+#     faster; the two-point plan is taken only where its tiles fill at least
+#     ROUNDS_MIN rounds of the card;
+#   * a two-point tile a step below its one-wave tile leaves items idle and
+#     loses (as it did for the fused residual kernels, and on u64 here);
+#   * the resident tier first within a share, and on a ragged net (a hidden
+#     width not a multiple of 4) before the share: its weights are staged 4
+#     bytes at a time, a sixth of a parent tile on u50 against a fourteenth
+#     on u64 (clock64 breakdown), so there the hidden weights staged once
+#     per block at two blocks per SM beat staging per tile at three.
+FWD_BLOCKS = 3          # the most blocks per SM of the kernels' register budgets
+SM_SMEM = 228 * 1024    # shared memory of one SM, of which a block may use SMEM_MAX
+ROUNDS_MIN = 2.5        # rounds of the card's slots the two-point plan must fill
+
+
+def fold_tile(layers, S: int, points: int) -> int:
+    """The forward-only kernels' one-wave tile for items of ``points``
+    points: with the fold (S <= 4) an item holds every stream of its points
+    at 4 units, ``T/points * wmax/4`` items; without it :func:`tile_for`
+    (4 or 8 stream-rows).  At least 16 points, at most ``T_MAX``."""
+    if S > 4:
+        return tile_for(layers, S, 4 * points)
+    cg = _cuda.padded_wmax(layers) // 4
+    T = 16
+    while T + 4 <= T_MAX and (T + 4) // points * cg <= _cuda.NT:
+        T += 4
+    return T
+
+
+def _fit_at(smem_floats, T, share, design, tier=None):
+    """The first pass-A tier at tile T that leaves room for ``share`` blocks
+    per SM (1: a block's SMEM_MAX), or None."""
+    budget = _cuda.SMEM_MAX if share == 1 else SM_SMEM // share - 1024
+    for name, flags in tiers(False):
+        if tier is not None and name != tier:
+            continue
+        smem = 4 * smem_floats(T, flags)
+        if smem <= budget:
+            return Plan(T, smem, flags, name, design, max(2, share))
+    return None
+
+
+def forward_only(smem_floats: Callable[[int, int], int], layers, S: int, what: str,
+                 N: int | None = None, sms: int = 132, *, design: int | None = None,
+                 T: int | None = None, tier: str | None = None,
+                 blocks: int = FWD_BLOCKS) -> Plan:
+    """The launch shape of a forward-only kernel over its layout
+    ``smem_floats(T, flags)`` and ``S`` streams, for N points on a card of
+    ``sms`` SMs (N None: many points).  The 4 x 4 plan: its fold tile at 3,
+    then 2 blocks per SM (resident, then staged), then staged at smaller
+    tiles down to 4 points in a block's whole budget.  The two-point plan:
+    its fold tile as it is (pinned, it steps down as the 4 x 4 one does),
+    at 3 or 2 blocks per SM, where that tile is
+    larger than the 4 x 4 one; taken where its tiles fill ``ROUNDS_MIN``
+    rounds of the card's slots (module note).  ``design``, ``T``, ``tier``
+    and ``blocks`` (the most blocks per SM) pin a choice; what fits nothing
+    raises, naming the shape.  On a ragged net the resident tier is tried
+    at 3 and 2 blocks per SM before the staged one (module note)."""
+    two = _cuda.DES_PLANNED | _cuda.DES_ITEM2
+    shares = [b for b in (3, 2) if b <= blocks]
+    names = [tier] if tier is not None else [name for name, _ in tiers(False)]
+    if all(w % 4 == 0 for w in layers[1:-1]):    # the share first, then the tier
+        order = [(share, name) for share in shares for name in names]
+    else:                                        # a ragged net: the tier first
+        order = [(share, name) for name in names for share in shares]
+
+    def ladder(des):
+        t0 = T if T is not None else fold_tile(layers, S, 2 if des & _cuda.DES_ITEM2 else 1)
+        for share, name in order:
+            pl = _fit_at(smem_floats, t0, share, des, name)
+            if pl is not None:
+                return pl
+        if T is None and (design is not None or not des & _cuda.DES_ITEM2):
+            for t in range(t0, 3, -4):
+                pl = _fit_at(smem_floats, t, 1, des, tier)
+                if pl is not None:
+                    return pl
+        return _fit_at(smem_floats, t0, 1, des, tier) if T is not None else None
+
+    if design is not None:
+        pl = ladder(design)
+    else:
+        pl = ladder(_cuda.DES_PLANNED)
+        if T is None and fold_tile(layers, S, 2) > fold_tile(layers, S, 1):
+            big = ladder(two)
+            if big is not None and (N is None or -(-N // big.T)
+                                    >= ROUNDS_MIN * big.blocks * sms):
+                pl = big
+    if pl is None:
+        raise ValueError(f"{what}: layers {list(layers)} do not fit {_cuda.SMEM_MAX} B of "
+                         f"shared memory (T={T}, tier={tier}, design={design})")
     return pl

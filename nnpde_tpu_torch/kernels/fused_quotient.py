@@ -32,9 +32,11 @@ anything else raises), a CPU tensor to the plain version beside it
 (``*_plain``: the forward-Laplacian recurrence under ``torch.autograd``, in
 any dtype).
 
-The seeded kinds choose their launch shape by :func:`plan` (the shared plan
-of :mod:`._plan`: tile, what stays on chip, blocks per SM); the sums kinds
-keep the constant tile of :func:`._cuda.plan_tile`.  The objectives flatten
+Both passes choose their launch shape by :func:`plan`: the seeded kinds the
+shared plan of :mod:`._plan` (tile, what stays on chip, blocks per SM), the
+sums kinds the plan of the forward-only kernels, by net and N
+(:func:`._plan.forward_only`: design, tile, resident weights, register
+budget).  The objectives flatten
 the parameters once per evaluation and hand the vector from ``forward`` to
 ``backward`` (``flat=``).
 """
@@ -57,6 +59,7 @@ from .fused_step import (
     _unflatten,
     drm_coefficients,
     residual_coefficients,
+    variant,
 )
 
 _KINDS = {"linear_sums": 0, "linear_seeded": 1, "quad_sums": 2, "quad_seeded": 3}
@@ -183,16 +186,22 @@ def smem_floats(kind: str, layers, T: int, lap: int, flags: int = 0) -> int:
 
 
 def plan(kind: str, layers, lap: int = 0, *, T: int | None = None,
-         tier: str | None = None) -> _plan.Plan:
-    """The launch shape of one kernel.  The seeded kinds take the shared plan
-    of :mod:`._plan` over their layout (``d + 1 + lap`` streams); ``T`` and
-    ``tier`` pin a choice and raise if it does not fit.  The sums kinds keep
-    the constant tile of :func:`._cuda.plan_tile`, nothing resident."""
+         tier: str | None = None, design: int | None = None,
+         blocks: int = _plan.FWD_BLOCKS, N: int | None = None, sms: int = 132) -> _plan.Plan:
+    """The launch shape of one kernel over its layout (``d + 1 + lap``
+    streams).  The seeded kinds (pass B) take the shared plan of
+    :mod:`._plan` in design 0; the sums kinds (pass A) the planned design of
+    the forward-only kernels (:func:`._plan.forward_only`, for N points on a
+    card of ``sms`` SMs: ``design`` pins its design, ``blocks`` caps its
+    blocks per SM).  ``T`` and ``tier`` pin a choice and raise if it does
+    not fit."""
+    S = layers[0] + 1 + lap
     if kind.endswith("sums"):
-        t, smem = _cuda.plan_tile(lambda t: smem_floats(kind, layers, t, lap))
-        return _plan.Plan(t, smem, 0, "staged")
+        return _plan.forward_only(lambda t, flags: smem_floats(kind, layers, t, lap, flags),
+                                  layers, S, f"{kind} plan", N, sms, design=design, T=T,
+                                  tier=tier, blocks=blocks)
     return _plan.plan(lambda t, flags: smem_floats(kind, layers, t, lap, flags), layers,
-                      layers[0] + 1 + lap, True, T=T, tier=tier, what=f"{kind} plan")
+                      S, True, T=T, tier=tier, what=f"{kind} plan")
 
 
 def _launch(kind: str, params, X, coef, scal, activation: str, lap: int, *,
@@ -214,14 +223,17 @@ def _launch(kind: str, params, X, coef, scal, activation: str, lap: int, *,
         flat = _cuda.flat_params(params)
     dev = X.device
     if pl is None:
-        pl = _plan.cached(("quotient", kind, tuple(layers), lap),
-                          lambda: plan(kind, layers, lap))
+        sms = _cuda.sm_count(dev)
+        n = N if not seeded else None       # pass B's plan is by net alone
+        pl = _plan.cached(("quotient", kind, tuple(layers), lap, n, sms),
+                          lambda: plan(kind, layers, lap, N=n, sms=sms))
     T = pl.T
     code = _KINDS[kind]
-    fold = int(_cuda.folds(layers, d + 1 + lap, T))
+    fold, key = variant(layers, d + 1 + lap, pl)
     G = _cuda.grid(kind,
-                   lambda sm, ptr: lib.fused_quotient_blocks_per_sm(code, fold, sm, ptr),
-                   pl.smem, dev, (N + T - 1) // T, fold)
+                   lambda sm, ptr: lib.fused_quotient_blocks_per_sm(code, fold, pl.design,
+                                                                    pl.blocks, sm, ptr),
+                   pl.smem, dev, (N + T - 1) // T, (key, pl.blocks) if pl.blocks else key)
     row = flat.numel() + 1 if seeded else _NSUMS[kind]
     partial = torch.empty((G, row), dtype=torch.float32, device=dev)
     out = torch.empty((row,), dtype=torch.float32, device=dev)
@@ -235,8 +247,8 @@ def _launch(kind: str, params, X, coef, scal, activation: str, lap: int, *,
     _cuda.launch(kind, lib.fused_quotient_f32, code, lap, X.data_ptr(),
                  coef.data_ptr(), flat.data_ptr(),
                  scal.data_ptr() if seeded else None, ctypes.addressof(lay),
-                 len(layers), _cuda.ACTS[activation], N, T, G, pl.flags, fold,
-                 partial.data_ptr(),
+                 len(layers), _cuda.ACTS[activation], N, T, G, pl.flags, fold, pl.design,
+                 pl.blocks, partial.data_ptr(),
                  scratch.data_ptr() if seeded else None, out.data_ptr(), pl.smem,
                  _cuda.stream(dev), dev=dev,
                  keep=(X, coef, flat, scal, lay, partial, scratch, out))

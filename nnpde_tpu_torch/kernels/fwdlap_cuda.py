@@ -6,7 +6,8 @@ recurrence kept on chip, differentiable in the parameters.
 
 * forward, ``fwd_impl='rows'`` (the default; JAX ``'pallas2'``,
   ``_forward_kernel2``): ``csrc/fwdlap_forward.cu`` writes the ``(N, d+2)``
-  jet rows;
+  jet rows, in fp32 in the planned design of ``csrc/fwdlap_planned.cuh``
+  on the plan of :func:`forward_plan` (by net and N);
 * forward, ``fwd_impl='streams'`` (JAX ``'pallas'``, ``_forward_kernel``):
   the same file's second kernel writes the jet stream-major, ``(d+2, N)``
   with each stream contiguous, the output layer through the same
@@ -95,10 +96,37 @@ def fwdlap_backward_plain(params, X, ct, activation: str, dot_dtype: str = "floa
 
 def _plan_forward(layers, T: int):
     """Shared-memory floats per block for a tile of T points (the layout of
-    fwdlap_forward.cu, both kernels)."""
+    fwdlap_forward.cu's design-0 kernels: the stream-major one and the row
+    kernel's bf16-dot variant)."""
     d = layers[0]
     S, wmax = d + 2, _cuda.padded_wmax(layers)
     return 2 * S * T * wmax + wmax * wmax + T * d + S * T
+
+
+def forward_smem_floats(layers, T: int, flags: int = 0) -> int:
+    """The same for the planned row kernel (mirrored from fwdlap_forward.cu's
+    fwd_smem_floats): residency ``flags`` of :mod:`._plan` (0 is design 0's
+    layout)."""
+    d = layers[0]
+    S, wmax = d + 2, _cuda.padded_wmax(layers)
+    n = 2 * S * T * wmax
+    n += _plan.hidden_floats(layers) if flags & _plan.RES_WEIGHTS else wmax * wmax
+    return n + T * d + S * T
+
+
+def forward_plan(layers, design: int | None = None, *, N: int | None = None,
+                 sms: int = 132, T: int | None = None, tier: str | None = None,
+                 blocks: int = _plan.FWD_BLOCKS) -> _plan.Plan:
+    """The row forward's launch shape for N points on a card of ``sms`` SMs:
+    design 0 (the bf16-dot variant, and only it) the constant tile of
+    :func:`._cuda.plan_tile`; fp32 the planned design
+    (:func:`._plan.forward_only`, ``d + 2`` streams)."""
+    if design == 0:
+        T0, smem = _cuda.plan_tile(lambda t: _plan_forward(layers, t))
+        return _plan.Plan(T0, smem, 0, "staged", 0)
+    return _plan.forward_only(lambda t, f: forward_smem_floats(layers, t, f), layers,
+                              layers[0] + 2, "fwdlap_forward plan", N, sms, design=design,
+                              T=T, tier=tier, blocks=blocks)
 
 
 def backward_smem_floats(layers, T: int, flags: int = 0) -> int:
@@ -121,11 +149,15 @@ def backward_plan(layers, design: int | None = None, *, T: int | None = None,
                    "fwdlap_backward plan", design, T=T, tier=tier)
 
 
-def fwdlap_forward(params, X, activation: str, fwd_impl: str = "rows") -> torch.Tensor:
+def fwdlap_forward(params, X, activation: str, fwd_impl: str = "rows", *,
+                   pl: _plan.Plan | None = None) -> torch.Tensor:
     """Launch a jet-forward kernel: ``(N, d+2)`` float32 rows ``[u, grad_0 ..
     grad_{d-1}, lap]`` (with ``fwd_impl='streams'`` a view of the kernel's
     stream-major ``(d+2, N)`` output; ``'rows:default'``: the row kernel's
-    bf16-dot variant)."""
+    bf16-dot variant).  ``'rows'`` launches the planned design on the plan
+    of :func:`forward_plan`, cached per shape; the other two keep design 0's
+    constant tile.  ``pl``: a launch shape (and design) other than the
+    wrapper's own for ``'rows'`` (timing sweeps, tests)."""
     from . import _build
 
     streams = int(fwd_impl == "streams")
@@ -136,20 +168,33 @@ def fwdlap_forward(params, X, activation: str, fwd_impl: str = "rows") -> torch.
     N, d = X.shape
     X = X.contiguous()
     flat = _cuda.flat_params(params)
-    T, smem = _cuda.plan_tile(lambda t: _plan_forward(layers, t))
+    if streams or bf16:
+        if pl is not None:
+            raise ValueError(f"{name}: only fwd_impl='rows' takes a plan")
+        T, smem = _cuda.plan_tile(lambda t: _plan_forward(layers, t))
+        pl = _plan.Plan(T, smem, 0, "staged", 0)
+    elif pl is None:
+        sms = _cuda.sm_count(X.device)
+        pl = _plan.cached(("fwdlap_forward", tuple(layers), N, sms),
+                          lambda: forward_plan(layers, N=N, sms=sms))
+    elif pl.design == 0:
+        raise ValueError("fwdlap_forward: design 0 is the bf16-dot variant's and the "
+                         "stream-major kernel's only")
+    T = pl.T
     dev = X.device
-    fold = int(_cuda.folds(layers, d + 2, T))
+    fold, key = variant(layers, d + 2, pl)
     G = _cuda.grid(name,
-                   lambda sm, ptr: lib.fwdlap_forward_blocks_per_sm(streams, fold, bf16, sm,
+                   lambda sm, ptr: lib.fwdlap_forward_blocks_per_sm(streams, fold, bf16,
+                                                                    pl.design, pl.blocks, sm,
                                                                     ptr),
-                   smem, dev, (N + T - 1) // T, fold)
+                   pl.smem, dev, (N + T - 1) // T, (key, pl.blocks) if pl.blocks else key)
     shape = (d + 2, N) if streams else (N, d + 2)
     out = torch.empty(shape, dtype=torch.float32, device=dev)
     lay = _cuda.layers_arg(layers)
     _cuda.launch(name, lib.fwdlap_forward_f32, streams, X.data_ptr(), flat.data_ptr(),
                  ctypes.addressof(lay), len(layers), _cuda.ACTS[activation], N, T,
-                 G, fold, bf16, out.data_ptr(), smem, _cuda.stream(dev), dev=dev,
-                 keep=(X, flat, lay, out))
+                 G, fold, bf16, pl.design, pl.blocks, pl.flags, out.data_ptr(), pl.smem,
+                 _cuda.stream(dev), dev=dev, keep=(X, flat, lay, out))
     return out.t() if streams else out
 
 

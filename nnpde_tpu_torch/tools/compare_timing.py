@@ -4,10 +4,14 @@
 
 Each argument is the output of ``python3 chip_smoke.py timing`` (the JSON
 lines of the ``timing``, ``wan_timing`` and ``eigen_timing`` phases) from
-one run; the four runs are made in one call on one card in the order
-parent, change, change, parent.  Prints, per kernel row, the four
-``device_ms`` and the four wrapper ``ms`` values, the ratio of the change's
-mean to the parent's mean for both, and the spread of the two parent runs.
+one run, or a comma-separated list of such outputs read as one run: the
+runs of ``chip_smoke.py timing --rows=KERNEL``, one fresh process per
+kernel row, so that no row is timed after another in its process.  The
+four runs are made in one call on one card in the order parent, change,
+change, parent.  Prints, per kernel row, the four ``device_ms`` and the four
+wrapper ``ms`` values, the ratio of the change's mean to the parent's mean
+for both, the spread of the two parent runs, and the change's plan where
+its timing line has one.
 """
 
 from __future__ import annotations
@@ -16,8 +20,14 @@ import json
 import sys
 
 
-def rows_of(path):
+def rows_of(paths):
     out = {}
+    for path in paths.split(","):
+        _read(path, out)
+    return out
+
+
+def _read(path, out):
     with open(path) as fh:
         for ln in fh:
             if not ln.startswith('{"phase": "') or "timing" not in ln[:40]:
@@ -28,7 +38,6 @@ def rows_of(path):
                        "earlier" if r in obj.get("earlier_kernels", []) else "",
                        r.get("d", 2))
                 out[key] = r
-    return out
 
 
 def main(argv=None):
@@ -48,6 +57,10 @@ def main(argv=None):
             line[field] = [p1, c1, c2, p2]
             line[field + "_change_over_parent"] = (c1 + c2) / (p1 + p2)
             line[field + "_parent_spread"] = abs(p1 - p2) / min(p1, p2)
+        plan = runs[1][key].get("plan")
+        if plan:
+            line["plan"] = {k: plan.get(k) for k in ("T", "tier", "design", "item", "blocks",
+                                                     "blocks_per_sm")}
         print(json.dumps(line))
     return 0
 

@@ -460,7 +460,7 @@ def test_cuda_quotient_smem_layout_mirror(dev):
         lay = (ctypes.c_int * len(layers))(*layers)
         for kind, code in codes.items():
             for lap in ((0, 1) if kind.startswith("linear") else (0,)):
-                for flags in (range(8) if kind.endswith("seeded") else (0,)):
+                for flags in (range(8) if kind.endswith("seeded") else (0, 1)):
                     for T in (4, 16, 20, 48):
                         assert lib.fused_quotient_smem_bytes(
                             code, lap, ctypes.addressof(lay), len(layers), T,
@@ -665,6 +665,139 @@ def test_cuda_planned_designs_agree_at_one_plan(dev, kind):
     assert float(torch.linalg.norm(outs[0] - outs[1]) / torch.linalg.norm(outs[0])) <= 1e-6
     with pytest.raises(ValueError, match="design 0"):
         run(plan(0))
+
+
+# ------------------------------- rows 4, 7 and 9: the planned forward-only design
+def _check_pass_a(dev, kind, layers, act, lap=0, N=1000 + 7, pl=None):
+    """One launch of the jet forward or a sums kind at ``pl`` (else the
+    wrapper's plan) against its float64 plain version: each jet column rel
+    <= 1e-5, every sum within 1e-5 of the sum of its terms' magnitudes; two
+    launches bitwise equal and counted."""
+    from nnpde_tpu_torch.kernels import fused_quotient as tfq
+    from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
+
+    rng = np.random.default_rng(33)
+    d = layers[0]
+    pn = _np_params(rng, layers)
+    tp = params_from_jax(pn, device=dev)
+    tp64 = params_from_jax(pn, device=dev, dtype=torch.float64)
+    X = torch.as_tensor(rng.uniform(0.0, L, (N, d)).astype(np.float32), device=dev)
+    nc = d + 5 if kind == "linear_sums" else d + 3
+    coef = torch.as_tensor(rng.normal(size=(N, nc)).astype(np.float32), device=dev)
+    before = LAUNCHES[kind]
+    if kind == "fwdlap_forward":
+        out, out2 = tfc.fwdlap_forward(tp, X, act, pl=pl), tfc.fwdlap_forward(tp, X, act, pl=pl)
+    else:
+        out = tfq._launch(kind, tp, X, coef, None, act, lap, pl=pl)
+        out2 = tfq._launch(kind, tp, X, coef, None, act, lap, pl=pl)
+    torch.cuda.synchronize()
+    assert LAUNCHES[kind] == before + 2
+    assert torch.equal(out, out2)
+    jet = tfc.fwdlap_forward_plain(tp64, X.double(), act)
+    if kind == "fwdlap_forward":
+        ref = torch.cat([jet.value[:, None], jet.grad, jet.lap[:, None]], dim=1)
+        for c in range(d + 2):
+            assert (torch.linalg.norm(out[:, c].double() - ref[:, c])
+                    <= 1e-5 * torch.linalg.norm(ref[:, c]))
+        return
+    c64 = coef.double()
+    if kind == "linear_sums":
+        r = (c64[:, 0] * jet.value + torch.sum(c64[:, 1:1 + d] * jet.grad, dim=1)
+             + c64[:, d + 2] + lap * c64[:, d + 1] * jet.lap)
+        scale = torch.stack([r.abs().sum(), (r * r).sum(),
+                             ((c64[:, d + 3] * jet.value) ** 2).sum(),
+                             (c64[:, d + 4] * jet.value).abs().sum()])
+        ref = tfq.linear_sums_plain(tp64, X.double(), c64, act, no_lap=lap == 0)
+    else:
+        u = c64[:, 0] * jet.value
+        G = c64[:, 0:1] * jet.grad + c64[:, 1:1 + d] * jet.value[:, None]
+        e = 0.5 * torch.sum(G * G, dim=1) - c64[:, d + 1] * u + c64[:, d + 2] * u * u
+        scale = torch.stack([e.abs().sum(), (u * u).sum()])
+        ref = tfq.quad_sums_plain(tp64, X.double(), c64, act)
+    assert torch.all(torch.abs(out.double() - ref) <= 1e-5 * scale)
+
+
+def _pass_a_plan(kind, layers, lap, **pin):
+    from nnpde_tpu_torch.kernels import fused_quotient as tfq
+    from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
+
+    if kind == "fwdlap_forward":
+        return tfc.forward_plan(layers, **pin)
+    return tfq.plan(kind, layers, lap, **pin)
+
+
+# (layers, T, act): the fold variant on u64 (S = 4 with the Laplacian, 3
+# without), ragged widths at 36 points, the variant without the fold at
+# d = 5, a narrow net at 48 points
+_PASS_A_SHAPES = [((2, 64, 64, 64, 64, 1), 16, "sin"), ((2, 64, 64, 64, 64, 1), 32, "sin"),
+                  ((2, 50, 50, 50, 50, 1), 36, "gelu"), ((5, 32, 32, 32, 1), 16, "tanh"),
+                  ((2, 20, 20, 20, 1), 48, "tanh")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [2, 3])
+@pytest.mark.parametrize("design", [2, 3])
+@pytest.mark.parametrize("tier", ["resident", "staged"])
+@pytest.mark.parametrize("layers,T,act", _PASS_A_SHAPES)
+@pytest.mark.parametrize("kind,lap", [("fwdlap_forward", 1), ("linear_sums", 0),
+                                      ("linear_sums", 1), ("quad_sums", 0)])
+def test_cuda_pass_a_plan_tiers(dev, kind, lap, layers, T, act, tier, design, blocks):
+    """Rows 4, 7 and 9 in each planned design (2: 4 x 4 items, 3: two-point
+    items) at each tier, pinned, with and without the fold, at each register
+    budget their shared memory allows; N = 1007 is a multiple of none of
+    these tiles."""
+    pl = _pass_a_plan(kind, layers, lap, design=design, T=T, tier=tier, blocks=blocks)
+    assert (pl.T, pl.tier, pl.design) == (T, tier, design) and pl.blocks <= blocks
+    _check_pass_a(dev, kind, layers, act, lap, pl=pl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", [None, 2, 3])
+@pytest.mark.parametrize("layers", _EXTREMES)
+@pytest.mark.parametrize("kind,lap", [("fwdlap_forward", 1), ("linear_sums", 1),
+                                      ("quad_sums", 0)])
+def test_cuda_pass_a_extreme_shapes(dev, kind, lap, layers, design):
+    """Rows 4, 7 and 9 at the extremes the wrappers take, in the wrappers'
+    choice and in each planned design at its own plan."""
+    _check_pass_a(dev, kind, layers, "tanh", lap, N=300 + 1,
+                  pl=_pass_a_plan(kind, layers, lap, design=design))
+
+
+@pytest.mark.cuda
+def test_cuda_forward_smem_layout_mirror(dev):
+    """The jet forward's layouts in Python (design 0's and the planned
+    kernel's, each residency) are the kernel's own count."""
+    import ctypes
+
+    from nnpde_tpu_torch.kernels import _build, _plan
+    from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
+
+    lib = _build.load()
+    for layers in [(2, 64, 64, 64, 64, 1), (2, 50, 50, 50, 50, 1), (5, 7, 9, 1), (2, 12, 1),
+                   (16,) + (128,) * 15 + (1,)]:
+        lay = (ctypes.c_int * len(layers))(*layers)
+        for flags in (0, _plan.RES_WEIGHTS):
+            for T in (4, 16, 28, 36, 48):
+                assert lib.fwdlap_forward_smem_bytes(
+                    ctypes.addressof(lay), len(layers), T,
+                    flags) == 4 * tfc.forward_smem_floats(layers, T, flags)
+        assert lib.fwdlap_forward_smem_bytes(ctypes.addressof(lay), len(layers), 16,
+                                             0) == 4 * tfc._plan_forward(layers, 16)
+
+
+@pytest.mark.cuda
+def test_cuda_forward_refuses_a_plan_outside_its_design(dev):
+    """fp32 rows take a planned design, the stream-major and bf16-dot
+    forwards design 0's constant tile only."""
+    from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
+
+    layers = (2, 16, 16, 1)
+    tp = params_from_jax(_np_params(np.random.default_rng(34), layers), device=dev)
+    X = torch.zeros((64, 2), device=dev)
+    with pytest.raises(ValueError, match="design 0"):
+        tfc.fwdlap_forward(tp, X, "sin", pl=tfc.forward_plan(layers, 0))
+    with pytest.raises(ValueError, match="only fwd_impl='rows'"):
+        tfc.fwdlap_forward(tp, X, "sin", "streams", pl=tfc.forward_plan(layers))
 
 
 # --------------------------------------------------------- bf16-dot variants

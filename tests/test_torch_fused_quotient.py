@@ -448,12 +448,22 @@ def test_quotient_plan_keeps_the_tile_before_residency(net, kind, lap):
 
 @pytest.mark.parametrize("kind", ["linear_sums", "quad_sums"])
 def test_quotient_sums_keep_the_constant_tile(kind):
-    from nnpde_tpu_torch.kernels import _cuda
+    """The sums kinds (pass A) used to keep the constant tile of
+    ``_cuda.plan_tile``; they now plan as the jet forward does, by net and
+    N (``_plan.forward_only``): a planned design, the hidden weights
+    resident or staged (never their transposes, nor a gradient row), and
+    the layout's bytes, no longer the constant 16-point tile on u64."""
+    from nnpde_tpu_torch.kernels import _cuda, _plan
 
     for layers in QNETS.values():
-        pl = tfq.plan(kind, layers, 0)
-        assert (pl.T, pl.flags, pl.tier) == (_cuda.TILE, 0, "staged")
-        assert pl.smem == 4 * tfq.smem_floats(kind, layers, pl.T, 0)
+        for N in (20000, 40000, 262144):
+            pl = tfq.plan(kind, layers, 0, N=N, sms=132)
+            assert pl == _plan.forward_only(
+                lambda t, f: tfq.smem_floats(kind, layers, t, 0, f), layers, layers[0] + 1,
+                f"{kind} plan", N, 132)
+            assert pl.design in _cuda.PLANNED_DESIGNS and pl.flags in (0, _plan.RES_WEIGHTS)
+            assert pl.smem == 4 * tfq.smem_floats(kind, layers, pl.T, 0, pl.flags)
+    assert tfq.plan(kind, QNETS["u64"], 0, N=262144, sms=132).T != _cuda.TILE
 
 
 def test_quotient_flat_vector_handoff_matches_params_route():
