@@ -60,8 +60,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
    earlier in a process does not move its times
    (``nnpde_tpu_torch/tools/compare_timing.py`` reads such runs).
 9. precision (group ``precision``): precision_kernels holds the bf16-dot
-   variants of the fused residual (stream and analytic coefficients), the
-   jet forward and the jet backward to their plain bf16-dot versions
+   variants of the fused residual (stream and analytic coefficients; the
+   tensor-core design, ``csrc/fwdlap_mma.cuh``), the jet forward and the
+   jet backward (design 0) to their plain bf16-dot versions
    (float32 on the card) on u64 at 20000 points and u50 at 40000, d = 2
    and 5: loss, gradient leaves and jet columns within 1e-4 norm-relative,
    more than 1e-3 from the fp32 kernel, repeats bitwise; precision_path
@@ -74,7 +75,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
    epochs), the infinite well (3, 3) PINN 'hybrid' (500 epochs, 'torch' and
    'fused') and one 100-epoch 'bfloat16' run of each entry point;
    precision_timing times the four kernels in both dot modes at the path's
-   N and at 262144 (d = 2), and rows 1, 4, 5 in fp32 at d = 5.
+   N and at 262144 (d = 2), and rows 1, 4, 5 in fp32 at d = 5
+   (``timing --rows=fused_linear_residual.bf16`` times one such row alone).
 
 ``python3 chip_smoke.py eigen`` (or any other phase-group name: kernels,
 wan, main, eigen, timing, precision) runs only those groups, for work on one slice;
@@ -82,9 +84,12 @@ without arguments every phase runs.  ``python3 chip_smoke.py sweep`` is a
 further group that runs only when named: the jet forward (row 4) and the
 quotient sums (rows 7 and 9) in both planned designs at each tier and
 register budget, the seeded quotient kernels, rows 1 and 5 in both planned
-designs (4 x 4 and two-point items) and the K-bump pair at every plan tier
-and a range of tile sizes, each checked against float64 (repeats bitwise)
-and timed.
+designs (4 x 4 and two-point items), the K-bump pair at every plan tier
+and a range of tile sizes, and rows 1 and 2 bf16 in the tensor-core design
+at each of its levers (tile, tier, blocks per SM; with the SASS count of
+HMMA in each variant), each
+checked against float64 (repeats bitwise) and timed; ``python3
+chip_smoke.py mma_sweep`` runs the last alone.
 
 The last two lines before the final one are the ``kernels`` summary and the
 card's ``name, power limit``; the final line is
@@ -1463,10 +1468,11 @@ def ptxas_of(*files):
     return lines
 
 
-def sass_global_stores(pattern):
-    """Global stores (STG) in the SASS of every kernel of the built library
-    whose name contains ``pattern``: ``{kernel: count}`` (cuobjdump), or
-    None where the toolkit has no cuobjdump."""
+def sass_count(pattern, opcode=" STG"):
+    """Instructions whose SASS line holds ``opcode`` (global stores, STG, by
+    default; ``" HMMA"`` the tensor-core products) in every kernel of the
+    built library whose name contains ``pattern``: ``{kernel: count}``
+    (cuobjdump), or None where the toolkit has no cuobjdump."""
     from nnpde_tpu_torch.kernels import _build
 
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
@@ -1480,9 +1486,15 @@ def sass_global_stores(pattern):
             name = ln.split("Function : ", 1)[1].strip()
             if pattern in name:
                 counts[name] = 0
-        elif name in counts and " STG" in ln:
+        elif name in counts and opcode in ln:
             counts[name] += 1
     return counts
+
+
+def sass_global_stores(pattern):
+    """Global stores (STG) in the SASS of every kernel whose name contains
+    ``pattern`` (:func:`sass_count`)."""
+    return sass_count(pattern)
 
 
 def phase_pass_a_sweep(dev, cases, label):
@@ -1581,7 +1593,9 @@ FSWEEP_TILES = (16, 20, 24, 28, 32, 36)
 def fused_plan(kind, layers, N, dev, bf16=False):
     """The launch shape the fused residual or jet backward wrapper chose
     (after a launch): tile, tier, design, blocks per SM, item shape; None on
-    a tree whose kernels take the constant tile only."""
+    a tree whose kernels take the constant tile only.  The bf16-dot mode of
+    the fused kinds: the tensor-core design's plan (a parent tree's design
+    0)."""
     from nnpde_tpu_torch.kernels import fused_step as fs
     from nnpde_tpu_torch.kernels import fwdlap_cuda as fc
 
@@ -1590,6 +1604,8 @@ def fused_plan(kind, layers, N, dev, bf16=False):
     des = 0 if bf16 else None
     if kind == "fwdlap_backward":
         pl, S = fc.backward_plan(layers, des), layers[0] + 2
+    elif bf16 and hasattr(fs, "mma_plan"):
+        pl, S = fs.mma_plan(kind, layers), layers[0] + 2
     else:
         pl, S = fs.plan(kind, layers, des), fs._streams(kind, layers[0])
     return plan_row(kind, layers, S, pl, N, dev, bf16)
@@ -1603,11 +1619,14 @@ def plan_row(kind, layers, S, pl, N, dev, bf16=False):
 
     dev = torch.device("cuda", torch.cuda.current_device()) if dev.index is None else dev
     fold, key = fs.variant(layers, S, pl)
-    if getattr(pl, "blocks", 0):     # a forward-only kernel's register budget
+    mma = pl.design & getattr(_cuda, "DES_MMA", 0)
+    if getattr(pl, "blocks", 0) and not mma:    # a forward-only kernel's register budget
         key = (key, pl.blocks)
     name = kind + (".bf16" if bf16 else "")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    if not pl.design & _cuda.DES_ITEM2:
+    if mma:
+        item = "16 points x 8 units x every stream, mma.sync m16n8k16 bf16"
+    elif not pl.design & _cuda.DES_ITEM2:
         item = "4 rows x 4 units"
     elif S <= 4:
         item = f"2 points x {S} streams x 4 units"
@@ -1698,6 +1717,76 @@ def phase_fused_sweep(dev):
         raise SystemExit("fused sweep: a case missed its bar")
 
 
+MSWEEP_TILES = (16, 32, 48, 64)
+
+
+def phase_mma_sweep(dev):
+    """Rows 1 and 2 bf16 in the tensor-core design (``DES_MMA``) at the
+    wrapper's plan and at each lever pinned on its own, on u64 at 20000 and
+    262144 points: the tile (MSWEEP_TILES), the tier (``fused_step.
+    MMA_TIERS``: the hidden weights and the gradient row on chip or not) and
+    the blocks per SM (two, the kernels' register budget, or one, by shared
+    memory).  Each case held to the plain bf16-dot version
+    (PREC_TOL) and to its float64 witness (no further than 2x the plain
+    version is, + 2e-6), launched twice for a bitwise-equal repeat, and
+    timed as device time.  First the ptxas report of the kernels' sources
+    and the SASS count of tensor-core products (HMMA) in each variant of
+    the design, and of local-memory traffic (LDL, STL)."""
+    from nnpde_tpu_torch.kernels import fused_step as fs
+
+    hmma = sass_count("fused_mma_kernel", " HMMA")
+    emit({"phase": "mma_sweep", "ptxas": ptxas_of("fused_step", "fwdlap_backward",
+                                                  "fwdlap_forward"),
+          "hmma": hmma, "local_loads": sass_count("fused_mma_kernel", " LDL"),
+          "local_stores": sass_count("fused_mma_kernel", " STL")})
+    ok = hmma is None or (len(hmma) == 2 and all(v > 0 for v in hmma.values()))
+    for kind in ("fused_linear_residual", "fused_poisson_analytic"):
+        main = fs.mma_plan(kind, LAYERS)
+        plans = [main]
+
+        for T in MSWEEP_TILES:
+            for tier, _ in fs.MMA_TIERS:
+                for blocks in (1, 2):
+                    try:
+                        pl = fs.mma_plan(kind, LAYERS, T=T, tier=tier, blocks=blocks)
+                    except ValueError:
+                        continue
+                    if pl not in plans:
+                        plans.append(pl)
+        for N in (20000, 262144):
+            case = PrecCase(kind, N, LAYERS, "sin", seed=27, dev=dev)
+            ref = case.plain("bfloat16")
+            wit = case.plain("bfloat16", torch.float64)
+            w_plain = case.rel(ref, wit)
+            c = case.case
+            an = None if kind == "fused_linear_residual" else \
+                fs._analytic_args(fs.PoissonSinCoef(L, c.ks), case.d)
+            for pl in plans:
+                def run(pl=pl):
+                    out = fs._launch(kind, c.params, c.X, c.coef if an is None else None,
+                                     "sin", an, bf16=True, pl=pl)
+                    dWs, dbs, sums = fs._unflatten(c.params, out)
+                    g = fs._scaled_grads(c.params, dWs, dbs, sums, 2.0 / N)
+                    return [(sums[0] / N).reshape(1)] + [t for pair in g for t in pair]
+
+                out, out2 = run(), run()
+                torch.cuda.synchronize()
+                rel, w_kernel = case.rel(out, ref), case.rel(out, wit)
+                good = bool(rel <= PREC_TOL and w_kernel <= 2.0 * w_plain + 2e-6
+                            and all(torch.equal(a, b) for a, b in zip(out, out2)))
+                ok = ok and good
+                row = {"kernel": kind + ".bf16", "net": "u", "N": N, "rel": rel,
+                       "witness_rel_kernel": w_kernel, "witness_rel_plain": w_plain,
+                       "ok": good, "chosen": pl == main, "device_ms": device_ms(run),
+                       "bound_ms": case.bound(BF16_PEAK)[0]}
+                row.update(plan_row(kind, LAYERS, case.d + 2, pl, N, dev, True))
+                emit(row)
+            del case, ref, wit
+            torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("mma sweep: a case missed its bar, or a variant has no HMMA")
+
+
 # --------------------------------------------------------------- precision
 # The bf16-dot variants of the four kernels that compute_dtype='hybrid-kernel'
 # launches, and the reduced-precision training of both entry points.
@@ -1785,6 +1874,8 @@ class PrecCase:
             T, _ = _cuda.plan_tile(lambda t: fc._plan_forward(self.layers, t))
         elif self.base == "fwdlap_backward":
             T = fc.backward_plan(self.layers, 0).T
+        elif hasattr(fs, "mma_plan"):
+            return False        # the tensor-core design has no fold variant
         else:
             T = fs.plan(self.base, self.layers, 0).T
         return _cuda.folds(self.layers, self.d + 2, T)
@@ -1965,12 +2056,13 @@ def phase_precision_kernels(dev):
     return max_err
 
 
-def phase_precision_timing(dev):
+def phase_precision_timing(dev, only=None):
     """Wrapper and device ms of the four kernels in both dot modes at the
     path's N and at 262144 (d = 2, u64), and of rows 1, 4, 5 in fp32 at
     d = 5 (S = 7: the variant without the fold), each with its plain
     version's ms and its bound: the bf16-dot rows at the bf16 tensor cores'
-    peak, with their CUDA-core bound beside it."""
+    peak, with their CUDA-core bound beside it.  ``only``: the rows of
+    these names (``timing --rows=KERNEL.bf16``) and no others."""
     rows = []
     plan = [(b, LAYERS, dot) for b in ("fused_linear_residual", "fused_poisson_analytic",
                                        "fwdlap_forward", "fwdlap_backward")
@@ -1978,6 +2070,8 @@ def phase_precision_timing(dev):
     plan += [(b, U5, "float32") for b in ("fused_linear_residual", "fwdlap_forward",
                                           "fwdlap_backward")]
     for base, layers, dot in plan:
+        if only is not None and base + (".bf16" if dot == "bfloat16" else "") not in only:
+            continue
         for N in (20000, 262144):
             case = PrecCase(base, N, layers, "sin", seed=7, dev=dev)
             ms = time_ms(lambda: case.kernel(dot))
@@ -2154,9 +2248,9 @@ def main():
     if only is not None and want != {"timing"}:
         raise SystemExit("--rows= filters the timing group only: chip_smoke.py timing "
                          "--rows=KERNEL[,KERNEL...]")
-    if not want <= set(GROUPS) | {"sweep"}:
+    if not want <= set(GROUPS) | {"sweep", "mma_sweep"}:
         raise SystemExit(f"unknown phase group in {sorted(want)}; choose from "
-                         f"{GROUPS + ('sweep',)}")
+                         f"{GROUPS + ('sweep', 'mma_sweep')}")
     full = want == set(GROUPS)
     card = phase_device()
     dev = torch.device("cuda")
@@ -2167,6 +2261,8 @@ def main():
         phase_quotient_sweep(dev)
         phase_fused_sweep(dev)
         phase_multibump_sweep(dev)
+    if want & {"sweep", "mma_sweep"}:
+        phase_mma_sweep(dev)
     max_err, launches, speed = {}, {}, {}
     if "kernels" in want:
         max_err.update(phase_kernels(dev))
@@ -2195,6 +2291,8 @@ def main():
         eigen_rows = phase_eigen_timing(dev, only)
     if "precision" in want:
         prec_rows = phase_precision_timing(dev)
+    elif only is not None and any(name.endswith(".bf16") for name in only):
+        phase_precision_timing(dev, only)
     emit({"phase": "train_step", **speed,
           "points_per_s_fused": speed.get("steps_per_s_fused", 0.0) * 20000})
     if not full:

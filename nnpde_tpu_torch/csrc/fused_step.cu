@@ -8,8 +8,7 @@
 //                                     built in-kernel from X; only X is read)
 //   fused_drm_energy_planned       <- _fused_drm_kernel       (Deep-Ritz
 //                                     energy, no Laplacian stream)
-// (fp32; the bf16-dot mode of the first two is fused_linear_residual_kernel
-// and fused_poisson_analytic_kernel)
+// (fp32; the bf16-dot mode of the first two is fused_mma_kernel)
 // plus reduce_rows, the deterministic cross-block sum that takes the
 // place of the TPU's accumulation over its sequential grid.
 //
@@ -21,30 +20,24 @@
 // tile is one shared-memory product over all d+2 streams at once
 // (fwdlap_core.cuh); weights and saved stages move by cp.async; only the
 // earlier stages' pre-activations leave the SM.  Two sets of kernels:
-//   * design 0 -- the core's routines (4 x 4 register tiles, a constant
-//     16-point tile, each hidden W^T built per tile): the BF16 variants of
-//     the linear and analytic kernels;
 //   * the planned design (fused_body_p on fwdlap_planned.cuh) -- the fp32
 //     kernels: the launch plan of kernels/_plan.py at two blocks per SM,
 //     the hidden weights' transposes read from device memory, dW items dealt
 //     4 x 8 to a warp, and two-point items where their one-wave tile fits
-//     (fwdlap_planned.cuh has the design and what it is for).
-//
-// The bf16-dot mode (BF16 variants of the linear and analytic kernels;
-// the TPU kernels' dot_dtype='bfloat16', which the bulk of
-// compute_dtype='hybrid-kernel' runs): every product operand rounded to
-// bf16, fp32 accumulation, on the same CUDA-core FFMA products
-// (fwdlap_core.cuh, "BF16").  Bound: the same FLOP at the fp32 CUDA-core
-// rate; the rounding adds two instructions per operand read, so this
-// variant is no faster than the fp32 one.  The H100's bf16 tensor cores
-// (989 TFLOP/s dense) are where such a mode earns its speed, and moving
-// the 4 x 4 register tiles onto mma/wgmma fragments is a redesign of its
-// own.  The DRM kernel has no BF16 variant (no caller passes one).
+//     (fwdlap_planned.cuh has the design and what it is for);
+//   * the tensor-core design (fused_body_mma on fwdlap_mma.cuh, DES_MMA) --
+//     the bf16-dot mode of the linear and analytic kernels (the TPU kernels'
+//     dot_dtype='bfloat16', which the bulk of compute_dtype='hybrid-kernel'
+//     runs): every product operand rounded to bf16 and fp32 accumulation,
+//     which is what mma.sync m16n8k16 bf16 computes; bound: the same FLOP at
+//     989 TFLOP/s, so the elementwise stages and barriers set its pace
+//     (fwdlap_mma.cuh has the design and its levers).  The DRM kernel has no
+//     bf16-dot mode (no caller passes one).
 //
 // Interface: plain C (ctypes), float32 only, row-major (in, out) weights
 // flattened as [W0, b0, W1, b1, ...].  Every entry point launches on the
 // given stream, never synchronises, and returns cudaGetLastError().
-#include "fwdlap_planned.cuh"
+#include "fwdlap_mma.cuh"
 
 using namespace fwdlap;
 
@@ -74,8 +67,8 @@ struct PArgs : Args {
   int flags;                  // the plan's Flags
 };
 
-// Shared-memory floats of one block for (T, flags): fused_body_p's layout;
-// fused_body's (design 0) is that of flags 0.  Mirrored by
+// Shared-memory floats of one block for (T, flags): fused_body_p's layout
+// (flags 0 is also the layout design 0 had).  Mirrored by
 // kernels/fused_step.py::smem_floats.
 __host__ __device__ inline int fused_smem_floats(const Net& net, int T, int flags) {
   const int d = net.d, S = net.S, ld = net.wmax, stage = S * T * ld;
@@ -110,8 +103,7 @@ __device__ __forceinline__ void poisson_sin_coef(const Analytic& an, int d,
 }
 
 // The per-point loss terms and cotangent seeds of a tile from its projected
-// streams (proj), and the tile's three sums added to the block's row (the
-// planned kernels; fused_body keeps its own copy of this arithmetic).
+// streams (proj), and the tile's three sums added to the block's row.
 template <int MODE>
 __device__ __forceinline__ void point_terms(const Args& A, int T, int base, const float* proj,
                                             const float* xs, float* ct, float* ps,
@@ -173,7 +165,7 @@ __device__ __forceinline__ void point_terms(const Args& A, int T, int base, cons
   }
   __syncthreads();
   // the tile's three sums by warp 0: lane l adds points l, l + 32, ... in
-  // order, then a fixed shuffle tree (the thread-0 loop of fused_body was a
+  // order, then a fixed shuffle tree (a single thread's loop would be a
   // chain of 3 T dependent shared loads)
   if (threadIdx.x < 32) {
     float a0 = 0.f, a1 = 0.f, a2 = 0.f;
@@ -196,113 +188,10 @@ __device__ __forceinline__ void point_terms(const Args& A, int T, int base, cons
   }
 }
 
-template <int MODE, bool FOLD, bool BF16>
-__device__ void fused_body(const Args& A) {
-  extern __shared__ __align__(16) float smem[];
-  const Net& net = A.net;
-  const int T = A.T, d = net.d, S = net.S, ld = net.wmax;
-  float* bufA = smem;
-  float* bufB = bufA + S * T * ld;
-  float* bufC = bufB + S * T * ld;        // pre-activations of one stage
-  float* Wsh = bufC + S * T * ld;
-  float* xs = Wsh + ld * ld;
-  float* ct = xs + T * d;                 // [ct_v | ct_g (d) | ct_l] x T
-  float* ps = ct + (d + 2) * T;           // per-point sum terms, 3 x T
-  float* proj = ps + 3 * T;               // projected streams, S x T
-  float* red = proj + S * T;              // reduction scratch, NT
-  float* grow = A.partial + (size_t)blockIdx.x * A.row;
-  float* scratch = A.scratch + (size_t)blockIdx.x * (net.K - 2) * S * T * ld;
-
-  for (int i = threadIdx.x; i < A.row; i += NT) grow[i] = 0.f;
-  __syncthreads();
-
-  const int K = net.K;
-  const int wl = net.w[K - 1];
-  const float* wlast = A.params + net.off[K - 1];
-  const float blast = wlast[wl];
-
-  for (int tile = blockIdx.x; tile < A.n_tiles; tile += gridDim.x) {
-    const int base = tile * T;
-    load_tile(A.X, A.N, d, base, T, xs);
-    __syncthreads();
-    float* cur = bufA;
-    float* nxt = bufB;
-    fwd_recompute<false, FOLD, BF16>(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch);
-    project_last(net, T, cur, wlast, blast, proj);
-    __syncthreads();
-    // per-point loss terms and cotangent seeds
-    for (int p = threadIdx.x; p < T; p += NT) {
-      const bool valid = base + p < A.N;
-      float g[MAX_DIM];
-      const float value = proj[p];
-      for (int i = 0; i < d; ++i) g[i] = proj[(1 + i) * T + p];
-      const float lapv = net.lap ? proj[(d + 1) * T + p] : 0.f;
-
-      float s0 = 0.f, s1 = 0.f, s2 = 0.f, ctv = 0.f, ctl = 0.f;
-      if (MODE == MODE_DRM) {
-        const float* cf = A.coef + (size_t)(base + p) * (d + 2);
-        const float B = valid ? cf[0] : 0.f;
-        const float f = valid ? cf[d + 1] : 0.f;
-        float e = 0.f;
-        for (int i = 0; i < d; ++i) {
-          const float dB = valid ? cf[1 + i] : 0.f;
-          const float G = B * g[i] + dB * value;
-          e += 0.5f * G * G;
-          ctv += G * dB;
-          ct[(1 + i) * T + p] = G * B;
-        }
-        e -= f * B * value;
-        ctv -= f * B;
-        s0 = e;
-        s1 = ctv;
-      } else {
-        float c, a, rhs, e = 0.f, bb[MAX_DIM];
-        if (MODE == MODE_LINEAR) {
-          const float* cf = A.coef + (size_t)(base + p) * (d + 4);
-          c = valid ? cf[0] : 0.f;
-          for (int i = 0; i < d; ++i) bb[i] = valid ? cf[1 + i] : 0.f;
-          a = valid ? cf[d + 1] : 0.f;
-          rhs = valid ? cf[d + 2] : 0.f;
-          e = valid ? cf[d + 3] : 0.f;
-        } else {
-          poisson_sin_coef(A.an, d, xs + p * d, c, bb, a, rhs);
-        }
-        float r = c * value + a * lapv + rhs;
-        for (int i = 0; i < d; ++i) r += bb[i] * g[i];
-        if (!valid) r = 0.f;
-        s0 = r * r;
-        s1 = r * c;
-        s2 = r * e * value;
-        ctv = r * c;
-        ctl = r * a;
-        for (int i = 0; i < d; ++i) ct[(1 + i) * T + p] = r * bb[i];
-      }
-      ct[p] = ctv;
-      ct[(d + 1) * T + p] = ctl;
-      ps[p] = s0;
-      ps[T + p] = s1;
-      ps[2 * T + p] = s2;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      float a0 = 0.f, a1 = 0.f, a2 = 0.f;
-      for (int p = 0; p < T; ++p) {
-        a0 += ps[p];
-        a1 += ps[T + p];
-        a2 += ps[2 * T + p];
-      }
-      grow[net.P] += a0;
-      grow[net.P + 1] += a1;
-      grow[net.P + 2] += a2;
-    }
-    reverse_sweep<false, FOLD, BF16>(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch, ct,
-                                     red, grow);
-  }
-}
-
-// The planned design (fwdlap_planned.cuh, DES != 0): fused_body on
-// fwd_recompute_p / reverse_sweep_p, with the plan's residency from A.flags
-// (hidden weights and their transposes, the block's gradient row).
+// The planned design (fwdlap_planned.cuh, DES_PLANNED): a tile's recompute
+// (fwd_recompute_p), loss terms and reverse sweep (reverse_sweep_p), with
+// the plan's residency from A.flags (hidden weights and their transposes,
+// the block's gradient row).
 template <int MODE, bool FOLD, int DES>
 __device__ void fused_body_p(const PArgs& A) {
   extern __shared__ __align__(16) float smem[];
@@ -363,20 +252,151 @@ __device__ void fused_body_p(const PArgs& A) {
     for (int i = threadIdx.x; i < A.row; i += NT) grow_g[i] = gacc[i];
 }
 
+
+// W_k for the tensor-core design: the resident copy, or staged into Wsm now
+// (bf16, then a barrier).
+__device__ __forceinline__ const __nv_bfloat16* stage_or_resident(const PArgs& A, bool res_w,
+                                                                  __nv_bfloat16* Wsm, int k) {
+  const Net& net = A.net;
+  if (res_w) return Wsm + mma::woff_bytes(net, k) / 2;
+  mma::stage_w(A.params + net.off[k], net.w[k], net.w[k + 1], Wsm, mma::ldw_of(net, k));
+  __syncthreads();
+  return Wsm;
+}
+
+// The tensor-core design (fwdlap_mma.cuh, DES_MMA) of the bf16-dot mode: per
+// tile the input layer and the hidden products with the activation in
+// their epilogues (the last stage's projection partials too), the loss
+// terms, the last stage's reverse nonlinearity with dW_last, then per hidden
+// layer the dA product with the reverse nonlinearity in its epilogue and
+// the dW product, and dW0.  The plan's residency from A.flags: the hidden
+// weights (bf16, staged once) and the block's gradient row.
+template <int MODE>
+__device__ void fused_body_mma(const PArgs& A) {
+  extern __shared__ __align__(16) float smem[];
+  const Net& net = A.net;
+  mma::Geo g;
+  mma::make_geo(net, A.T, &g);
+  const mma::Layout ly = mma::layout(net, g, A.flags);
+  unsigned char* sm = reinterpret_cast<unsigned char*>(smem);
+  const int T = A.T, d = net.d, K = net.K, S = g.S;
+  __nv_bfloat16* const stages = reinterpret_cast<__nv_bfloat16*>(sm + ly.bufs);
+  const int stage = g.ST * g.ldb;
+  __nv_bfloat16* Wsm = reinterpret_cast<__nv_bfloat16*>(sm + ly.w);
+  const bool res_w = (A.flags & RES_WEIGHTS) != 0;
+  float* gacc = (A.flags & RES_GRAD) ? reinterpret_cast<float*>(sm + ly.gacc) : nullptr;
+  float* red = reinterpret_cast<float*>(sm + ly.red);
+  float* red2 = reinterpret_cast<float*>(sm + ly.red2);
+  float* xs = reinterpret_cast<float*>(sm + ly.xs);
+  float* ct = reinterpret_cast<float*>(sm + ly.ct);
+  float* ps = reinterpret_cast<float*>(sm + ly.ps);
+  float* proj = reinterpret_cast<float*>(sm + ly.proj);
+  float* grow_g = A.partial + (size_t)blockIdx.x * A.row;
+  float* grow = gacc ? gacc : grow_g;     // where the tiles add their dW/db
+  // the hidden dW on chip in fragment order (mma::frag_ok)
+  const bool frag = gacc && mma::frag_ok(net);
+  // the saved stages: stage k at scr + (k-1) * sst, this thread's lane
+  const size_t sst = (size_t)g.nblk * (g.NU + 1) * 32;
+  float4* scr = reinterpret_cast<float4*>(A.scratch +
+                                          (size_t)blockIdx.x * mma::scratch_floats(net, g)) +
+                (threadIdx.x & 31);
+
+  for (int i = threadIdx.x; i < A.row; i += NT) grow[i] = 0.f;
+  {  // the stages start at zero: padding rows and columns are never written
+    uint4* z = reinterpret_cast<uint4*>(sm + ly.bufs);
+    for (int i = threadIdx.x; i < (ly.w - ly.bufs) / 16; i += NT) z[i] = make_uint4(0, 0, 0, 0);
+  }
+  if (res_w)
+    for (int k = 1; k < K - 1; ++k)
+      mma::stage_w(A.params + net.off[k], net.w[k], net.w[k + 1],
+                   Wsm + mma::woff_bytes(net, k) / 2, mma::ldw_of(net, k));
+  __syncthreads();
+
+  const int wl = net.w[K - 1];
+  const float* wlast = A.params + net.off[K - 1];
+  const float blast = wlast[wl];
+
+  for (int tile = blockIdx.x; tile < A.n_tiles; tile += gridDim.x) {
+    const int base = tile * T;
+    load_tile(A.X, A.N, d, base, T, xs);
+    __syncthreads();
+    // forward: stage 1 from the input layer, then the hidden products
+    mma::fwd_input(net, g, xs, A.params + net.off[0], stages, scr, K == 2, wlast, red);
+    __syncthreads();
+    __nv_bfloat16 *in = stages, *out = stages + stage;
+    for (int k = 1; k < K - 1; ++k) {
+      const __nv_bfloat16* Wk = stage_or_resident(A, res_w, Wsm, k);
+      mma::fwd_product(net, g, k, in, Wk, mma::ldw_of(net, k),
+                       A.params + net.off[k] + net.w[k] * net.w[k + 1], out, scr + k * sst,
+                       k + 1 == K - 1, wlast, red);
+      __syncthreads();
+      __nv_bfloat16* t = in;
+      in = out;
+      out = t;
+    }
+    // the projection: the n-blocks' partials in order
+    {
+      const int nbl = mma::np8(wl) / 8;
+      for (int r = threadIdx.x; r < S * T; r += NT) {
+        float acc = 0.f;
+        for (int nb = 0; nb < nbl; ++nb) acc += red[nb * g.ST + r];
+        proj[r] = r < T ? acc + blast : acc;
+      }
+    }
+    __syncthreads();
+    point_terms<MODE>(A, T, base, proj, xs, ct, ps, grow);
+    // reverse: the last stage from the rank-one cotangent ct * wlast
+    mma::bwd_stage(net, g, K - 1, true, nullptr, nullptr, 0, ct, wlast, scr + (K - 2) * sst,
+                   nullptr, stages, red2);
+    __syncthreads();
+    for (int j = threadIdx.x; j < wl; j += NT) {
+      float a = 0.f, b = 0.f;
+      for (int pb = 0; pb < g.NPB; ++pb) {
+        a += red2[(pb * S + S - 1) * g.wq + j];
+        b += red2[pb * S * g.wq + j];
+      }
+      grow[net.off[K - 1] + j] += a;
+      if (K > 2) grow[net.off[K - 2] + net.w[K - 2] * wl + j] += b;
+    }
+    // stage k: D holds D_{k+1}; M_k and D_k go to the two free stages
+    __nv_bfloat16 *D = stages, *F1 = stages + stage, *F2 = stages + 2 * stage;
+    for (int k = K - 2; k >= 1; --k) {
+      __syncthreads();
+      const __nv_bfloat16* Wk = stage_or_resident(A, res_w, Wsm, k);
+      mma::bwd_stage(net, g, k, false, D, Wk, mma::ldw_of(net, k), ct, wlast,
+                     scr + (k - 1) * sst, F1, F2, red2);
+      __syncthreads();
+      if (k >= 2)
+        for (int j = threadIdx.x; j < net.w[k]; j += NT) {
+          float b = 0.f;
+          for (int pb = 0; pb < g.NPB; ++pb) b += red2[pb * S * g.wq + j];
+          grow[net.off[k - 1] + net.w[k - 1] * net.w[k] + j] += b;
+        }
+      mma::dw_product(net, g, k, F1, D, grow, frag);
+      __nv_bfloat16* freed = D;
+      D = F2;
+      F2 = F1;
+      F1 = freed;
+    }
+    __syncthreads();
+    mma::dw0(net, g, xs, D, red2, grow);
+    __syncthreads();
+  }
+  // the row on chip goes out once (its hidden dW in flat order)
+  if (gacc) {
+    for (int i = threadIdx.x; i < A.row; i += NT) grow_g[i] = gacc[i];
+    if (frag) {
+      __syncthreads();
+      mma::dw_unfrag(net, gacc, grow_g);
+    }
+  }
+}
+
 }  // namespace
 
-// (each kernel in two variants: FOLD, the activation in the products'
-// epilogues, for nets with at most 4 streams; design 0, the core's
-// routines, runs the linear and analytic kernels' BF16 variants, the
-// bf16-dot mode; fp32 runs the planned kernels below; the wrapper chooses)
-template <bool FOLD, bool BF16>
-__global__ void __launch_bounds__(NT) fused_linear_residual_kernel(Args a) {
-  fused_body<MODE_LINEAR, FOLD, BF16>(a);
-}
-template <bool FOLD, bool BF16>
-__global__ void __launch_bounds__(NT) fused_poisson_analytic_kernel(Args a) {
-  fused_body<MODE_ANALYTIC, FOLD, BF16>(a);
-}
+// The planned kernels come in two variants (FOLD, the activation in the
+// products' epilogues, for nets with at most 4 streams); the wrapper
+// chooses.
 // the planned design (DES != 0) at two blocks per SM: the plan counts on
 // them, so the register budget is stated
 template <bool FOLD, int DES>
@@ -390,6 +410,12 @@ __global__ void __launch_bounds__(NT, 2) fused_poisson_analytic_planned(PArgs a)
 template <bool FOLD, int DES>
 __global__ void __launch_bounds__(NT, 2) fused_drm_energy_planned(PArgs a) {
   fused_body_p<MODE_DRM, FOLD, DES>(a);
+}
+// the tensor-core design at two blocks per SM (the plan counts on them; a
+// third block's 85-register budget spills, chip_smoke.py mma_sweep)
+template <int MODE>
+__global__ void __launch_bounds__(NT, 2) fused_mma_kernel(PArgs a) {
+  fused_body_mma<MODE>(a);
 }
 
 // out[j] = sum_g partial[g][j].  One loop over all G rows per output is a
@@ -423,22 +449,7 @@ cudaError_t reduce_rows(const float* partial, int G, int R, float* out, cudaStre
 
 namespace {
 
-typedef void (*KernelFn)(Args);
 typedef void (*PKernelFn)(PArgs);
-
-// design 0: the core's kernels, in their BF16 variants (the bf16-dot mode;
-// the DRM kernel has none, and fp32 takes a planned design)
-KernelFn bf16_kernel_for(int mode, int fold) {
-  switch (mode) {
-    case MODE_LINEAR:
-      return fold ? fused_linear_residual_kernel<true, true>
-                  : fused_linear_residual_kernel<false, true>;
-    case MODE_ANALYTIC:
-      return fold ? fused_poisson_analytic_kernel<true, true>
-                  : fused_poisson_analytic_kernel<false, true>;
-    default: return nullptr;
-  }
-}
 
 template <int MODE, bool FOLD, int DES>
 PKernelFn planned_of() {
@@ -469,9 +480,16 @@ PKernelFn planned_for(int mode, int fold, int des) {
   }
 }
 
-// The kernel of a variant, as the pointer the occupancy calls take.
+// The kernel of a variant, as the pointer the occupancy calls take: the
+// bf16-dot mode runs the tensor-core design (des has DES_MMA), and only it;
+// fp32 a planned design.
 const void* variant_fn(int mode, int fold, int bf16, int des) {
-  if (bf16) return des == 0 ? (const void*)bf16_kernel_for(mode, fold) : nullptr;
+  if (bf16) {
+    if (des != DES_MMA || fold) return nullptr;
+    if (mode == MODE_LINEAR) return (const void*)fused_mma_kernel<MODE_LINEAR>;
+    if (mode == MODE_ANALYTIC) return (const void*)fused_mma_kernel<MODE_ANALYTIC>;
+    return nullptr;
+  }
   return (const void*)planned_for(mode, fold, des);
 }
 
@@ -481,12 +499,18 @@ int launch(int mode, const float* X, const float* coef, const float* params,
            float* scratch, float* out, int smem_bytes, void* stream) {
   PArgs a;
   const void* fn = variant_fn(mode, fold, bf16, des);
-  if (fn == nullptr || !make_net(mode == MODE_DRM ? 0 : 1, layers, n_layers, act, &a.net) ||
-      N < 1 || T < 4 || T % 4 != 0 || T > NT / 2 || G < 1 || (fold && a.net.S > 4) ||
-      flags < 0 || flags > 7 || (des == 0 && flags != 0) ||
-      (a.net.K > 2 && (scratch == nullptr || (des != 0 && wt == nullptr))) ||
-      4 * fused_smem_floats(a.net, T, flags) > smem_bytes)
-    return (int)cudaErrorInvalidValue;
+  bool ok = fn != nullptr && make_net(mode == MODE_DRM ? 0 : 1, layers, n_layers, act, &a.net) &&
+            N >= 1 && G >= 1 && flags >= 0 && flags <= 7;
+  if (ok && (des & DES_MMA)) {
+    mma::Geo g;
+    ok = mma::make_geo(a.net, T, &g) && scratch != nullptr &&
+         mma::layout(a.net, g, flags).total <= smem_bytes;
+  } else if (ok) {
+    ok = T >= 4 && T % 4 == 0 && T <= NT / 2 && !(fold && a.net.S > 4) &&
+         !(a.net.K > 2 && (scratch == nullptr || wt == nullptr)) &&
+         4 * fused_smem_floats(a.net, T, flags) <= smem_bytes;
+  }
+  if (!ok) return (int)cudaErrorInvalidValue;
   a.X = X;
   a.coef = coef;
   a.params = params;
@@ -509,13 +533,16 @@ int launch(int mode, const float* X, const float* coef, const float* params,
   cudaError_t err = ensure_smem(fn, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  if (des == 0)
-    ((KernelFn)fn)<<<G, NT, smem_bytes, s>>>(static_cast<const Args&>(a));
-  else
-    ((PKernelFn)fn)<<<G, NT, smem_bytes, s>>>(a);
+  ((PKernelFn)fn)<<<G, NT, smem_bytes, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)reduce_rows(partial, G, a.row, out, s);
+}
+
+// The net and tile geometry of a tensor-core query (fused_mma_*).
+bool mma_net(int mode, const int* layers, int n_layers, int T, Net* net, mma::Geo* g) {
+  return (mode == MODE_LINEAR || mode == MODE_ANALYTIC) &&
+         make_net(1, layers, n_layers, 0, net) && mma::make_geo(*net, T, g);
 }
 
 }  // namespace
@@ -523,12 +550,16 @@ int launch(int mode, const float* X, const float* coef, const float* params,
 extern "C" {
 
 // fold: the variant with the activation in the products' epilogues (nets
-// with at most 4 streams); bf16: the bf16-dot variant (design 0); des: the
-// design (fwdlap_planned.cuh, Design); flags: the plan's Flags (design != 0,
-// else 0).  smem_bytes must hold the layout for (T, flags).  params:
-// the flat [W0, b0, W1, b1, ...]; wt: the hidden weights' transposes W_1^T,
-// ..., W_{K-2}^T (true sizes, row-major, back to back), read by a planned
-// design (may be null for design 0).  Tensors are float32 in every variant.
+// with at most 4 streams; a planned design); bf16: the bf16-dot mode, which
+// runs the tensor-core design (des == DES_MMA) and only it; des: the design
+// (fwdlap_planned.cuh, Design; DES_MMA, fwdlap_mma.cuh); flags: the plan's
+// Flags.  smem_bytes must hold the layout for (T, flags).  params: the flat
+// [W0, b0, W1, b1, ...]; wt: the hidden weights' transposes W_1^T, ...,
+// W_{K-2}^T (true sizes, row-major, back to back), read by a planned design
+// (null for the tensor-core design, which reads W_k both ways).  scratch:
+// the saved stages, (G, K-2, S, T, wmax) floats in a planned design, (G,
+// fused_mma_scratch_floats) in the tensor-core one.  Tensors are float32 in
+// every variant.
 int fused_linear_residual_f32(const float* X, const float* coef,
                               const float* params, const float* wt, const int* layers,
                               int n_layers, int act, int N, int T, int G, int fold,
@@ -574,6 +605,23 @@ int fused_smem_bytes(int mode, const int* layers, int n_layers, int T, int flags
       !make_net(mode == MODE_DRM ? 0 : 1, layers, n_layers, 0, &net))
     return -1;
   return 4 * fused_smem_floats(net, T, flags);
+}
+
+// The tensor-core design's shared-memory bytes for (T, flags) and its
+// saved-stage floats per block, or -1 for a mode, net or tile it does not
+// take.
+int fused_mma_smem_bytes(int mode, const int* layers, int n_layers, int T, int flags) {
+  Net net;
+  mma::Geo g;
+  if (!mma_net(mode, layers, n_layers, T, &net, &g)) return -1;
+  return mma::layout(net, g, flags).total;
+}
+
+int fused_mma_scratch_floats(int mode, const int* layers, int n_layers, int T) {
+  Net net;
+  mma::Geo g;
+  if (!mma_net(mode, layers, n_layers, T, &net, &g)) return -1;
+  return (int)mma::scratch_floats(net, g);
 }
 
 }  // extern "C"

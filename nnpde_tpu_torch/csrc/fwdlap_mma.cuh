@@ -1,0 +1,747 @@
+// The tensor-core design (DES_MMA) of the bf16-dot fused residual kernels
+// (fused_step.cu: fused_linear_residual and fused_poisson_analytic with
+// dot_dtype='bfloat16', the bulk of compute_dtype='hybrid-kernel').
+//
+// What it computes is the core's BF16 recompute and reverse sweep
+// (fwdlap_core.cuh, "BF16"): every product operand rounded to bf16, fp32
+// accumulation, as the TPU kernels' dot_dtype='bfloat16' does.  That is
+// what mma.sync.m16n8k16 bf16 with fp32 accumulators computes, so here the
+// products run on the H100's bf16 tensor cores instead of design 0's fp32
+// FFMA register tiles (which paid for the rounding and got no speed).  Only
+// this header's kernels include it; rows 4 bf16 and 5 bf16 keep the core's
+// BF16 routines, and every fp32 kernel its own design, byte for byte.
+//
+// Bound on the H100: the same FLOP as the fp32 kernels at 989 TFLOP/s
+// (bf16 dense), ~15x below the CUDA-core bound; with the products that
+// cheap, a tile's pace is set by its elementwise stages (a sincos pack per
+// unit and stream pass), its barriers and the saved stages' traffic.
+//
+// Layout.  A block owns a tile of T points (T = 8 or a multiple of 16).  A
+// stage lives in shared memory as bf16 only: row r = s*T + p (stream s,
+// point p), columns the units, row stride ldb = kp16(widest) + 8 (an odd
+// number of 16-byte chunks: ldmatrix rows fall in distinct banks).  Streams
+// are padded to Sp so that Sp*T is a multiple of 16 (T = 8 with S odd adds
+// one zero stream).  The products:
+//   * forward  Z = A W: A rows from the stage by ldmatrix, W (in, out) by
+//     ldmatrix.trans for the .col B fragment;
+//   * backward dA = D W^T: the same bf16 bytes of W by plain ldmatrix;
+//   * dW = M^T D with K = the tile's stream rows: both operands by
+//     ldmatrix.trans from the stages.
+// One bf16 copy of each hidden W_k (rounded once where it is staged, zero
+// padded to kp16 x kp16) serves both directions: no transposed copy.
+//
+// Stream-major fragments.  A warp owns blocks of (16 points x 8 units) (T =
+// 8: 8 points) and loops over every stream's m16 tile: each thread then
+// holds, in its own accumulators, the same (point, unit) entries of every
+// stream (rows g and g+8, columns 2t and 2t+1), so the activation (forward)
+// and the reverse nonlinearity run in the epilogue from registers, one
+// stream at a time in stream order, with no shuffle and no S limit (d = 16
+// has S = 18).  The pre-activations every stage saves for the reverse sweep
+// go to device memory in that fragment order (a float4 per lane per stream
+// tile, plus one for q = sum J^2): the thread that reads them back in the
+// reverse sweep is the one that wrote them.
+//
+// Kept in fp32, as the BF16 note of fwdlap_core.cuh lists: q, the
+// activation packs, the reverse nonlinearity, the layer-0 Jacobian seed
+// rows, the last-layer projection and dW_last (folded into the epilogues of
+// the last stage: shuffle sums over the thread's lanes, then a fixed-order
+// sum over the warps), the db sums and the Jacobian-row sums added to dW0
+// (column sums in the epilogues, likewise).  On the CUDA cores, rounded where
+// design 0 rounds them: the input layer (K = d) and its dW0, the projection.
+//
+// The plan (kernels/fused_step.py::mma_plan) chooses the tile, the blocks
+// per SM (two, the kernels' register budget, or one) and the residency at
+// run time (RES_WEIGHTS: every hidden W_k bf16 for the block's life;
+// RES_GRAD: the block's gradient row, whose hidden dW then accumulates in
+// fragment order, dw_product); chip_smoke.py mma_sweep measures each.
+// Built, measured and taken out (PERF.md): the A operands read as fp32 and
+// converted in the fragment (cvt.rn.bf16x2.f32) instead of ldmatrix of the
+// bf16 stages, dW fragments in registers across the block's tiles, two
+// MMA chains interleaved per warp, a three-blocks-per-SM register budget.
+//
+// Determinism: every dW/db entry and column sum is owned by one thread (or a
+// fixed shuffle tree) and summed in tile order; no atomics.
+#pragma once
+
+#include <stdint.h>
+
+#include "fwdlap_planned.cuh"
+
+namespace fwdlap {
+
+// The tensor-core design (a bit beside Design).
+enum MmaDesign { DES_MMA = 4 };
+
+namespace mma {
+
+constexpr int NW = NT / 32;                  // warps per block
+constexpr int KS_MAX = MAX_WIDTH / 16;       // k-steps of the widest product
+
+__host__ __device__ inline int kp16(int w) { return (w + 15) & ~15; }
+__host__ __device__ inline int np8(int w) { return (w + 7) & ~7; }
+__host__ __device__ inline int rnd4(int n) { return (n + 3) & ~3; }
+
+// The tile's geometry.
+struct Geo {
+  int T, S, Sp;     // points, streams, streams padded (Sp*T % 16 == 0)
+  int NU;           // m16 tiles of a warp block (one per stream; T = 8: two streams each)
+  int NPB;          // 16-point blocks of the tile (T = 8: one of 8 points)
+  int t8;           // T == 8
+  int ST;           // stage rows, Sp*T
+  int ldb;          // bf16 stage row stride (elements)
+  int wq;           // widest hidden layer, rounded up to 8 (red2's row)
+  int nbmax;        // n-blocks of the widest layer
+  int nblk;         // warp blocks of the widest stage, NPB * nbmax
+};
+
+__host__ __device__ inline bool make_geo(const Net& net, int T, Geo* g) {
+  if (!net.lap || !(T == 8 || (T >= 16 && T % 16 == 0 && T <= NT / 2))) return false;
+  int wt = 0;
+  for (int k = 1; k < net.K; ++k) wt = net.w[k] > wt ? net.w[k] : wt;
+  g->T = T;
+  g->S = net.S;
+  g->t8 = T == 8;
+  g->Sp = g->t8 ? (net.S + 1) & ~1 : net.S;
+  g->NU = g->t8 ? g->Sp / 2 : net.S;
+  g->NPB = g->t8 ? 1 : T / 16;
+  g->ST = g->Sp * T;
+  g->ldb = kp16(wt) + 8;
+  g->wq = np8(wt);
+  g->nbmax = g->wq / 8;
+  g->nblk = g->NPB * g->nbmax;
+  return true;
+}
+
+// W_k (k = 1..K-2) in shared memory: kp16(w_k) rows of ldw(k) bf16.
+__host__ __device__ inline int ldw_of(const Net& net, int k) { return kp16(net.w[k + 1]) + 8; }
+__host__ __device__ inline int wbytes(const Net& net, int k) {
+  return kp16(net.w[k]) * ldw_of(net, k) * 2;
+}
+__host__ __device__ inline int woff_bytes(const Net& net, int k) {
+  int o = 0;
+  for (int m = 1; m < k; ++m) o += wbytes(net, m);
+  return o;
+}
+
+// Byte offsets of a block's shared memory (every region 16-byte aligned).
+// Mirrored by kernels/fused_step.py::mma_smem_bytes.
+struct Layout {
+  int bufs, w, gacc, red, red2, xs, ct, ps, proj, total;
+};
+
+__host__ __device__ inline Layout layout(const Net& net, const Geo& g, int flags) {
+  Layout L;
+  int o = 0;
+  L.bufs = o;
+  o += 3 * g.ST * g.ldb * 2;                           // three bf16 stages
+  L.w = o;
+  int wb = 0;
+  for (int k = 1; k < net.K - 1; ++k) {
+    const int b = wbytes(net, k);
+    wb = (flags & RES_WEIGHTS) ? wb + b : (b > wb ? b : wb);
+  }
+  o += wb;
+  L.gacc = o;
+  if (flags & RES_GRAD) o += 4 * rnd4(net.P + 3);
+  L.red = o;                                           // projection partials
+  o += 4 * rnd4(g.nbmax * g.ST);
+  L.red2 = o;                                          // column sums
+  o += 4 * rnd4(g.NPB * g.S * g.wq);
+  L.xs = o;
+  o += 4 * rnd4(g.T * net.d);
+  L.ct = o;
+  o += 4 * rnd4(g.S * g.T);
+  L.ps = o;
+  o += 4 * rnd4(3 * g.T);
+  L.proj = o;
+  o += 4 * rnd4(g.ST);
+  L.total = o;
+  return L;
+}
+
+// Saved-stage floats of one block in device memory: K-1 stages of nblk warp
+// blocks, each NU stream tiles and the q tile of 32 float4s.
+__host__ __device__ inline long scratch_floats(const Net& net, const Geo& g) {
+  return (long)(net.K - 1) * g.nblk * (g.NU + 1) * 128;
+}
+
+// ---------------------------------------------------------------- PTX
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+// c += a b, m16n8k16, bf16 operands, fp32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// (lo, hi) rounded to bf16 (nearest even) in one 32-bit word, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The sum over the 8 lanes that share lane % 4 (rows g of a fragment), a
+// fixed xor tree.
+__device__ __forceinline__ float sum_g(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  v += __shfl_xor_sync(0xffffffffu, v, 16);
+  return v;
+}
+
+__device__ __forceinline__ int stream_of(const Geo& g, int u, int h) {
+  return g.t8 ? 2 * u + h : u;
+}
+__device__ __forceinline__ int tile_row(const Geo& g, int pb, int u) {
+  return g.t8 ? 16 * u : u * g.T + pb * 16;
+}
+
+// The A fragment of rows rb..rb+15, columns k0..k0+15 of the bf16 stage B.
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* B, const Geo& g,
+                                       int rb, int k0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(a, B + (rb + (lane & 7) + ((lane >> 3) & 1) * 8) * g.ldb + k0 + (lane >> 4) * 8);
+}
+
+// Stage the (wi, wo) fp32 matrix W of device memory as bf16 (rounded to
+// nearest even) in dst, kp16(wi) rows of ldw, zero past (wi, wo) up to
+// kp16 x kp16.  No barrier of its own.
+__device__ __forceinline__ void stage_w(const float* __restrict__ W, int wi, int wo,
+                                        __nv_bfloat16* dst, int ldw) {
+  const int half = kp16(wo) >> 1, pairs = kp16(wi) * half;
+  for (int f = threadIdx.x; f < pairs; f += NT) {
+    const int i = f / half, j = 2 * (f - i * half);
+    const bool row = i < wi;
+    const float a = row && j < wo ? W[i * wo + j] : 0.f;
+    const float b = row && j + 1 < wo ? W[i * wo + j + 1] : 0.f;
+    *reinterpret_cast<uint32_t*>(dst + i * ldw + j) = pack_bf16(a, b);
+  }
+}
+
+// ------------------------------------------------------------ forward
+// A thread's state over the streams of its points: [h][e] = (point of row
+// half h, unit 2t + e).  T = 8: both halves are the one point, the pack is
+// copied to both slots and q is split by half.
+struct FwdSt {
+  float s1[2][2], s2[2][2], q[2][2];
+};
+
+// One stream tile u of a warp block (pb, nb): c holds the pre-activations
+// (bias not yet added); applies the activation (stage_mid's arithmetic),
+// writes the mid streams to the next stage `ob` and the pre-activations to
+// the saved frags; at the last stage, instead of the mid streams, the
+// projection partials (8 units) to red.
+__device__ __forceinline__ void fwd_epi(const Net& net, const Geo& g, int pb, int nb, int u,
+                                        float (&c)[4], const float (&bv)[2], FwdSt& st,
+                                        __nv_bfloat16* ob, float4* save, bool last,
+                                        const float (&wl)[2], float* red) {
+  const int lane = threadIdx.x & 31, j0 = nb * 8 + 2 * (lane & 3);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int s = stream_of(g, u, h);
+    if (s >= g.S) continue;                 // the zero stream of T = 8
+    float m[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v = c[2 * h + e];
+      if (s == 0) {
+        v += bv[e];
+        c[2 * h + e] = v;
+        const Pack pk = act_pack(net.act, v);
+        m[e] = pk.s0;
+        st.s1[h][e] = pk.s1;
+        st.s2[h][e] = pk.s2;
+        st.q[h][e] = 0.f;
+        if (g.t8) {
+          st.s1[1][e] = pk.s1;
+          st.s2[1][e] = pk.s2;
+          st.q[1][e] = 0.f;
+        }
+      } else if (s == g.S - 1) {
+        const float q = g.t8 ? st.q[0][e] + st.q[1][e] : st.q[h][e];
+        m[e] = st.s1[h][e] * v + st.s2[h][e] * q;
+      } else {
+        st.q[h][e] = fmaf(v, v, st.q[h][e]);
+        m[e] = st.s1[h][e] * v;
+      }
+    }
+    const int r = tile_row(g, pb, u) + (lane >> 2) + 8 * h;
+    if (!last) {
+      *reinterpret_cast<uint32_t*>(ob + r * g.ldb + j0) = pack_bf16(m[0], m[1]);
+    } else {
+      float part = fmaf(m[0], wl[0], m[1] * wl[1]);
+      part += __shfl_xor_sync(0xffffffffu, part, 1);
+      part += __shfl_xor_sync(0xffffffffu, part, 2);
+      if ((lane & 3) == 0) red[nb * g.ST + r] = part;
+    }
+  }
+  save[u * 32] = make_float4(c[0], c[1], c[2], c[3]);
+}
+
+__device__ __forceinline__ void save_q(const Geo& g, const FwdSt& st, float4* save) {
+  float q[4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) q[2 * h + e] = g.t8 ? st.q[0][e] + st.q[1][e] : st.q[h][e];
+  save[g.NU * 32] = make_float4(q[0], q[1], q[2], q[3]);
+}
+
+// The bias and, at the last stage, the last layer's row at the thread's two
+// units (zero past the layer's width).
+__device__ __forceinline__ void unit_consts(int n0, int w, const float* bias, bool last,
+                                            const float* wlast, float (&bv)[2],
+                                            float (&wl)[2]) {
+  const int j = n0 + 2 * (threadIdx.x & 3);
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    bv[e] = j + e < w ? bias[j + e] : 0.f;
+    wl[e] = last && j + e < w ? wlast[j + e] : 0.f;
+  }
+}
+
+// Stage 1 from the input layer on the CUDA cores (K = d): v = x W0 + b0 with
+// x and W0 rounded (design 0's rounding), J_i = W0[i, :] in fp32, l = 0; then
+// fwd_epi.  save_st: stage 1's saved frags (the thread's lane included).
+__device__ void fwd_input(const Net& net, const Geo& g, const float* __restrict__ xs,
+                          const float* __restrict__ W0, __nv_bfloat16* ob, float4* save_st,
+                          bool last, const float* __restrict__ wlast, float* red) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int d = net.d, w1 = net.w[1], NB = np8(w1) / 8;
+  const float* b0 = W0 + d * w1;
+  for (int b = warp; b < g.NPB * NB; b += NW) {
+    const int pb = b / NB, nb = b - pb * NB;
+    float bv[2], wl[2];
+    unit_consts(nb * 8, w1, b0, last, wlast, bv, wl);
+    FwdSt st = {};
+    float4* save = save_st + (size_t)b * (g.NU + 1) * 32;
+    for (int u = 0; u < g.NU; ++u) {
+      float c[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int s = stream_of(g, u, h);
+        const int p = g.t8 ? (lane >> 2) : pb * 16 + (lane >> 2) + 8 * h;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = nb * 8 + 2 * (lane & 3) + e;
+          const bool real = j < w1;
+          float v = 0.f;
+          if (s == 0) {
+            for (int i = 0; i < d; ++i)
+              v = fmaf(rd<true>(xs[p * d + i]), rd<true>(real ? W0[i * w1 + j] : 0.f), v);
+          } else if (s <= d) {
+            v = real ? W0[(s - 1) * w1 + j] : 0.f;   // the Jacobian seed rows stay fp32
+          }
+          c[2 * h + e] = v;
+        }
+      }
+      fwd_epi(net, g, pb, nb, u, c, bv, st, ob, save, last, wl, red);
+    }
+    save_q(g, st, save);
+  }
+}
+
+// Stage k+1 from stage k (k >= 1): Z = A W_k on the tensor cores, A the bf16
+// stage `ib`, W_k bf16 in shared memory (ldw), then fwd_epi.  Each warp
+// block loads its B fragments for all k once.
+__device__ void fwd_product(const Net& net, const Geo& g, int k, const __nv_bfloat16* ib,
+                            const __nv_bfloat16* Wk, int ldw, const float* __restrict__ bias,
+                            __nv_bfloat16* ob, float4* save_st, bool last,
+                            const float* __restrict__ wlast, float* red) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wn = net.w[k + 1], NB = np8(wn) / 8, nks = kp16(net.w[k]) / 16;
+  for (int b = warp; b < g.NPB * NB; b += NW) {
+    const int pb = b / NB, nb = b - pb * NB, n0 = nb * 8;
+    uint32_t bf[KS_MAX][2];
+#pragma unroll
+    for (int ks = 0; ks < KS_MAX; ++ks)
+      if (ks < nks) ldsm_x2_t(bf[ks], Wk + (ks * 16 + (lane & 15)) * ldw + n0);
+    float bv[2], wl[2];
+    unit_consts(n0, wn, bias, last, wlast, bv, wl);
+    FwdSt st = {};
+    float4* save = save_st + (size_t)b * (g.NU + 1) * 32;
+    for (int u = 0; u < g.NU; ++u) {
+      float c[4] = {0.f, 0.f, 0.f, 0.f};
+      const int rb = tile_row(g, pb, u);
+#pragma unroll
+      for (int ks = 0; ks < KS_MAX; ++ks) {
+        if (ks < nks) {
+          uint32_t a[4];
+          load_a(a, ib, g, rb, ks * 16);
+          mma_bf16(c, a, bf[ks]);
+        }
+      }
+      fwd_epi(net, g, pb, nb, u, c, bv, st, ob, save, last, wl, red);
+    }
+    save_q(g, st, save);
+  }
+}
+
+// ------------------------------------------------------------ reverse
+// Column sums of a warp block: (v0, v1) of the thread's units summed over
+// its 8 row lanes, written by lanes 0..3 to red2[pb][slot][n0 + 2t + e].
+__device__ __forceinline__ void put_colsum(const Geo& g, float* red2, int pb, int slot, int n0,
+                                           float v0, float v1) {
+  v0 = sum_g(v0);
+  v1 = sum_g(v1);
+  const int lane = threadIdx.x & 31;
+  if (lane < 4)
+    *reinterpret_cast<float2*>(red2 + (pb * g.S + slot) * g.wq + n0 + 2 * lane) =
+        make_float2(v0, v1);
+}
+
+// A thread's state in the reverse nonlinearity of a stage, [h][e] as in
+// FwdSt (T = 8: both slots the one point, dq copied to both, the shares of
+// dv split by half); aw: the last stage's dW_last partials at its two
+// units.  dv = s1 dA + (s2 l + s3 q) dlm + sum_i s2 J_i dJ_i, its three
+// shares kept apart (dva, dvl, dvj) and added in that order, the
+// reference's (_nl_bwd): where they cancel, as a bottleneck layer's do
+// under mixed-sign cotangents, another order moved dW0 by 1e-5 (PERF.md).
+struct BwdSt {
+  float s0[2][2], s1[2][2], s2[2][2], s3[2][2], q[2][2], dq[2][2];
+  float dva[2][2], dvl[2][2], dvj[2][2];
+  float aw[2];
+};
+
+// The cotangents of the mid streams of stream tile u: rank one at the last
+// stage (ct * wlast), else D_{k+1} W_k^T on the tensor cores.
+__device__ __forceinline__ void dmid(const Geo& g, bool rank1, int pb, int u,
+                                     const float (&wl)[2], const float* __restrict__ ct,
+                                     const __nv_bfloat16* Din, const uint32_t (&bf)[KS_MAX][2],
+                                     int nks, float (&c)[4]) {
+  const int gr = (threadIdx.x & 31) >> 2;
+  if (rank1) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int s = stream_of(g, u, h);
+      const float a = s < g.S ? ct[s * g.T + (g.t8 ? gr : pb * 16 + gr + 8 * h)] : 0.f;
+      c[2 * h] = a * wl[0];
+      c[2 * h + 1] = a * wl[1];
+    }
+    return;
+  }
+  c[0] = c[1] = c[2] = c[3] = 0.f;
+  const int rb = tile_row(g, pb, u);
+#pragma unroll
+  for (int ks = 0; ks < KS_MAX; ++ks) {
+    if (ks < nks) {
+      uint32_t a[4];
+      load_a(a, Din, g, rb, ks * 16);
+      mma_bf16(c, a, bf[ks]);
+    }
+  }
+}
+
+// Write the mid streams (M_k, when given) and the pre-activation cotangents
+// (D_k) of row r at the thread's two units.
+__device__ __forceinline__ void bwd_put(const Geo& g, int r, int j0, __nv_bfloat16* Mo,
+                                        __nv_bfloat16* Do, float m0, float m1, float o0,
+                                        float o1) {
+  if (Mo) *reinterpret_cast<uint32_t*>(Mo + r * g.ldb + j0) = pack_bf16(m0, m1);
+  *reinterpret_cast<uint32_t*>(Do + r * g.ldb + j0) = pack_bf16(o0, o1);
+}
+
+// The Laplacian halves of tile u (the last tile): dq = s'' dlm for every
+// Jacobian stream, the lap stream's mid and cotangent, its share of dv.
+__device__ __forceinline__ void bwd_lap(const Geo& g, BwdSt& st, int pb, int u,
+                                        const float (&c)[4], const float (&pr)[4], bool rank1,
+                                        const float* __restrict__ ct, int j0,
+                                        __nv_bfloat16* Mo, __nv_bfloat16* Do) {
+  const int gr = (threadIdx.x & 31) >> 2;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (stream_of(g, u, h) != g.S - 1) continue;
+    float m[2], o[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float l = pr[2 * h + e], dlm = c[2 * h + e];
+      m[e] = st.s1[h][e] * l + st.s2[h][e] * st.q[h][e];
+      o[e] = st.s1[h][e] * dlm;
+      const float dqv = st.s2[h][e] * dlm;
+      st.dvl[h][e] = (st.s2[h][e] * l + st.s3[h][e] * st.q[h][e]) * dlm;
+      if (g.t8) {
+        st.dq[0][e] = dqv;
+        st.dq[1][e] = dqv;
+      } else {
+        st.dq[h][e] = dqv;
+      }
+      if (rank1) {
+        const int p = g.t8 ? gr : pb * 16 + gr + 8 * h;
+        st.aw[e] = fmaf(m[e], ct[(g.S - 1) * g.T + p], st.aw[e]);
+      }
+    }
+    bwd_put(g, tile_row(g, pb, u) + gr + 8 * h, j0, Mo, Do, m[0], m[1], o[0], o[1]);
+  }
+}
+
+// The value and Jacobian halves of tile u: the value stream's share of dv
+// (its cotangent is written once every stream has added to it) and mid
+// (s); each Jacobian stream's mid and cotangent and share of dv; at k = 1
+// the Jacobian streams' column sums (dW0).
+__device__ __forceinline__ void bwd_rest(const Geo& g, BwdSt& st, int pb, int n0, int u,
+                                         const float (&c)[4], const float (&pr)[4],
+                                         bool rank1, bool jsum, const float* __restrict__ ct,
+                                         int j0, __nv_bfloat16* Mo, __nv_bfloat16* Do,
+                                         float* red2) {
+  const int gr = (threadIdx.x & 31) >> 2;
+  float od[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  bool isj[2] = {false, false};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int s = stream_of(g, u, h);
+    const int p = g.t8 ? gr : pb * 16 + gr + 8 * h;
+    const int r = tile_row(g, pb, u) + gr + 8 * h;
+    if (s == 0) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        st.dva[h][e] = st.s1[h][e] * c[2 * h + e];
+        if (rank1) st.aw[e] = fmaf(st.s0[h][e], ct[p], st.aw[e]);
+      }
+      if (Mo)
+        *reinterpret_cast<uint32_t*>(Mo + r * g.ldb + j0) =
+            pack_bf16(st.s0[h][0], st.s0[h][1]);
+    } else if (s < g.S - 1) {
+      float m[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float J = pr[2 * h + e], dJm = c[2 * h + e];
+        st.dvj[h][e] += st.s2[h][e] * J * dJm;
+        m[e] = st.s1[h][e] * J;
+        od[h][e] = st.s1[h][e] * dJm + 2.0f * J * st.dq[h][e];
+        if (rank1) st.aw[e] = fmaf(m[e], ct[s * g.T + p], st.aw[e]);
+      }
+      bwd_put(g, r, j0, Mo, Do, m[0], m[1], od[h][0], od[h][1]);
+      isj[h] = true;
+    }
+  }
+  if (jsum) {                 // both halves one stream (T >= 16), or each its own
+    if (!g.t8) {
+      if (isj[0]) put_colsum(g, red2, pb, u, n0, od[0][0] + od[1][0], od[0][1] + od[1][1]);
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (isj[h]) put_colsum(g, red2, pb, 2 * u + h, n0, od[h][0], od[h][1]);
+    }
+  }
+}
+
+// The reverse nonlinearity of hidden stage k for every warp block (pb, nb)
+// of its units (mm_act_bwd's arithmetic, _nl_bwd_pack).  dmid, the
+// cotangent of the stage's mid streams: rank one at the last stage (k =
+// K-1: ct * wlast, `rank1`), else D_{k+1} W_k^T on the tensor cores (A the
+// bf16 stage `Din`, W_k bf16 by ldmatrix).  From the saved frags of the
+// stage (`saved_st`) it writes the stage's mid streams (M_k, bf16; not at
+// the last stage) and the cotangents of its pre-activations (D_k, bf16),
+// and the column sums to red2: slot 0 sum_p dv (the db below), at k = 1
+// slots 1..d sum_p dJ_i (dW0), at the last stage slot S-1 dW_last (sum over
+// the mid streams x ct).  The lap tile comes first (dq = s'' dlm is needed
+// by every J stream); the value stream's cotangent is written last, from
+// the sum of all streams.
+__device__ void bwd_stage(const Net& net, const Geo& g, int k, bool rank1,
+                          const __nv_bfloat16* Din, const __nv_bfloat16* Wk, int ldw,
+                          const float* __restrict__ ct, const float* __restrict__ wlast,
+                          const float4* saved_st, __nv_bfloat16* Mo, __nv_bfloat16* Do,
+                          float* red2) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gr = lane >> 2;
+  const int wk = net.w[k], NB = np8(wk) / 8, NU = g.NU;
+  const int nks = rank1 ? 0 : kp16(net.w[k + 1]) / 16;
+  const bool jsum = k == 1;
+  for (int b = warp; b < g.NPB * NB; b += NW) {
+    const int pb = b / NB, nb = b - pb * NB, n0 = nb * 8, j0 = n0 + 2 * (lane & 3);
+    uint32_t bf[KS_MAX][2];
+#pragma unroll
+    for (int ks = 0; ks < KS_MAX; ++ks)
+      if (ks < nks) ldsm_x2(bf[ks], Wk + (n0 + (lane & 7)) * ldw + ks * 16 + ((lane >> 3) & 1) * 8);
+    float wl[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) wl[e] = rank1 && j0 + e < wk ? wlast[j0 + e] : 0.f;
+    const float4* sv = saved_st + (size_t)b * (NU + 1) * 32;
+    BwdSt st;
+    const float4 f0 = sv[0], fl = sv[(NU - 1) * 32], fq = sv[NU * 32];
+    const float p0[4] = {f0.x, f0.y, f0.z, f0.w}, pl[4] = {fl.x, fl.y, fl.z, fl.w};
+    {
+      const float q4[4] = {fq.x, fq.y, fq.z, fq.w};
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const Pack pk = act_pack(net.act, g.t8 ? p0[e] : p0[2 * h + e]);
+          st.s0[h][e] = pk.s0;
+          st.s1[h][e] = pk.s1;
+          st.s2[h][e] = pk.s2;
+          st.s3[h][e] = pk.s3;
+          st.q[h][e] = q4[2 * h + e];
+          st.dq[h][e] = 0.f;
+          st.dva[h][e] = st.dvl[h][e] = st.dvj[h][e] = 0.f;
+        }
+      st.aw[0] = st.aw[1] = 0.f;
+    }
+    {  // the lap tile first
+      float c[4];
+      dmid(g, rank1, pb, NU - 1, wl, ct, Din, bf, nks, c);
+      bwd_lap(g, st, pb, NU - 1, c, pl, rank1, ct, j0, Mo, Do);
+      bwd_rest(g, st, pb, n0, NU - 1, c, pl, rank1, jsum, ct, j0, Mo, Do, red2);
+    }
+    for (int u = 0; u < NU - 1; ++u) {
+      const float4 f = u ? sv[u * 32] : f0;
+      const float pr[4] = {f.x, f.y, f.z, f.w};
+      float c[4];
+      dmid(g, rank1, pb, u, wl, ct, Din, bf, nks, c);
+      bwd_rest(g, st, pb, n0, u, c, pr, rank1, jsum, ct, j0, Mo, Do, red2);
+    }
+    // the value stream's cotangent, from every stream's share
+    float cs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (g.t8 && h == 1) continue;
+      float o[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        o[e] = g.t8 ? st.dva[0][e] + (st.dvl[0][e] + st.dvl[1][e]) +
+                          (st.dvj[0][e] + st.dvj[1][e])
+                    : st.dva[h][e] + st.dvl[h][e] + st.dvj[h][e];
+        cs[e] += o[e];
+      }
+      *reinterpret_cast<uint32_t*>(Do + (tile_row(g, pb, 0) + gr + 8 * h) * g.ldb + j0) =
+          pack_bf16(o[0], o[1]);
+    }
+    put_colsum(g, red2, pb, 0, n0, cs[0], cs[1]);
+    if (rank1) put_colsum(g, red2, pb, g.S - 1, n0, st.aw[0], st.aw[1]);
+  }
+}
+
+// One 16 x 8 block (ib, jb) of dW_k = M^T D over the tile's stream rows,
+// added to c: both operands by ldmatrix.trans from the bf16 stages.
+__device__ __forceinline__ void dw_block(const Geo& g, const __nv_bfloat16* M,
+                                         const __nv_bfloat16* D, int i0, int j0, float (&c)[4]) {
+  const int lane = threadIdx.x & 31;
+  const __nv_bfloat16* pa = M + (((lane >> 4) & 1) * 8 + (lane & 7)) * g.ldb + i0 +
+                            ((lane >> 3) & 1) * 8;
+  const __nv_bfloat16* pbb = D + (lane & 15) * g.ldb + j0;
+  for (int r0 = 0; r0 < g.ST; r0 += 16) {
+    uint32_t a[4], b[2];
+    ldsm_x4_t(a, pa + r0 * g.ldb);
+    ldsm_x2_t(b, pbb + r0 * g.ldb);
+    mma_bf16(c, a, b);
+  }
+}
+
+// Whether the block's gradient row on chip can hold the hidden dW in
+// fragment order in place (dw_product, dw_unfrag): every hidden width a
+// multiple of 16, so that layer k's 16 x 8 blocks fill exactly its w_k x
+// w_{k+1} entries, 16-byte aligned.
+__host__ __device__ inline bool frag_ok(const Net& net) {
+  for (int k = 1; k < net.K; ++k)
+    if (net.w[k] % 16) return false;
+  return true;
+}
+
+// dW_k of this tile, each warp its blocks in turn, added to grow: to the
+// flat dW_k (dropping the padding), or (frag) to the layer's fragment-order
+// accumulator in place of it on chip (a float4 per lane and block: a
+// conflict-free read-modify-write, where the flat rows, 64 floats apart on
+// u64, put a warp's 8 row groups in one bank); dw_unfrag writes it out in
+// flat order once per block.
+__device__ __forceinline__ void dw_product(const Net& net, const Geo& g, int k,
+                                           const __nv_bfloat16* M, const __nv_bfloat16* D,
+                                           float* grow, bool frag) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wi = net.w[k], wo = net.w[k + 1], NJ = np8(wo) / 8;
+  const int nblk = (kp16(wi) / 16) * NJ;
+  float* dW = grow + net.off[k];
+  const int i = lane >> 2, j = 2 * (lane & 3);
+  for (int blk = warp; blk < nblk; blk += NW) {
+    const int ib = blk / NJ, jb = blk - ib * NJ;
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+    dw_block(g, M, D, ib * 16, jb * 8, c);
+    if (frag) {
+      float4* f = reinterpret_cast<float4*>(dW) + blk * 32 + lane;
+      float4 v = *f;
+      v.x += c[0];
+      v.y += c[1];
+      v.z += c[2];
+      v.w += c[3];
+      *f = v;
+      continue;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int ii = ib * 16 + i + 8 * h, jj = jb * 8 + j + e;
+        if (ii < wi && jj < wo) dW[ii * wo + jj] += c[2 * h + e];
+      }
+  }
+}
+
+// The hidden dW of the row on chip (fragment order, dw_product) written to
+// the block's row in device memory in flat order, after the row was copied
+// there as it is and a barrier.
+__device__ __forceinline__ void dw_unfrag(const Net& net, const float* gacc, float* grow_g) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int k = 1; k < net.K - 1; ++k) {
+    const int wo = net.w[k + 1], NJ = wo / 8, nblk = (net.w[k] / 16) * NJ;
+    const float4* f = reinterpret_cast<const float4*>(gacc + net.off[k]);
+    float* dW = grow_g + net.off[k];
+    for (int blk = warp; blk < nblk; blk += NW) {
+      const int ib = blk / NJ, jb = blk - ib * NJ;
+      const float4 v = f[blk * 32 + lane];
+      const int i = ib * 16 + (lane >> 2), j = jb * 8 + 2 * (lane & 3);
+      dW[i * wo + j] = v.x;          // scalar: a block's row may start at any float
+      dW[i * wo + j + 1] = v.y;
+      dW[(i + 8) * wo + j] = v.z;
+      dW[(i + 8) * wo + j + 1] = v.w;
+    }
+  }
+}
+
+// dW0 (and db0) from stage 1's cotangents: dW0[i][j] = sum_p rd(x[p][i])
+// dv[p][j] (the bf16 D_1, value rows) + sum_p dJ_i[p][j] (red2 slot 1 + i),
+// db0[j] = sum_p dv[p][j] (slot 0), on the CUDA cores.
+__device__ __forceinline__ void dw0(const Net& net, const Geo& g, const float* xs,
+                                    const __nv_bfloat16* D1, const float* red2, float* grow) {
+  const int d = net.d, w1 = net.w[1], items = (d + 1) * w1;
+  float* dW0 = grow + net.off[0];
+  for (int it = threadIdx.x; it < items; it += NT) {
+    const int i = it / w1, j = it - i * w1;
+    float acc = 0.f;
+    if (i < d)
+      for (int p = 0; p < g.T; ++p)
+        acc = fmaf(rd<true>(xs[p * d + i]), __bfloat162float(D1[p * g.ldb + j]), acc);
+    float sj = 0.f;
+    const int slot = i < d ? 1 + i : 0;
+    for (int pb = 0; pb < g.NPB; ++pb) sj += red2[(pb * g.S + slot) * g.wq + j];
+    dW0[it] += acc + sj;
+  }
+}
+
+}  // namespace mma
+}  // namespace fwdlap

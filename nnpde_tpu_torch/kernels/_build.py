@@ -51,6 +51,11 @@ _SIGNATURES = {
     "fused_blocks_per_sm": [_I, _I, _I, _I, _I, _P],
     # mode, layers, n_layers, T, flags -> bytes (not an error code)
     "fused_smem_bytes": [_I, _P, _I, _I, _I],
+    # the tensor-core design: mode, layers, n_layers, T, flags -> bytes;
+    # mode, layers, n_layers, T -> saved-stage floats per block (neither an
+    # error code)
+    "fused_mma_smem_bytes": [_I, _P, _I, _I, _I],
+    "fused_mma_scratch_floats": [_I, _P, _I, _I],
     # fwdlap_forward.cu: streams, X, params, layers, n_layers, act, N, T, G,
     # fold, bf16, des, minb, flags, out, smem_bytes, stream (minb: a planned
     # design's register budget in blocks per SM)

@@ -124,8 +124,8 @@ def hidden_transposes(params):
 def plan_tile(smem_floats):
     """``(T, smem bytes)``: the largest tile up to ``TILE`` points whose
     shared memory, ``4 * smem_floats(T)`` bytes, fits ``SMEM_CAP``: the
-    constant-tile rule of the stream-major jet forward and the bf16-dot
-    variants; every other kernel plans by the net (:mod:`._plan`: tile,
+    constant-tile rule of the stream-major jet forward and the jet pair's
+    bf16-dot variants; every other kernel plans by the net (:mod:`._plan`: tile,
     residency and resident blocks per SM within ``SMEM_MAX``)."""
     T = TILE
     while 4 * smem_floats(T) > SMEM_CAP and T > 4:
@@ -146,12 +146,15 @@ def folds(layers, S: int, T: int, points: int = 1) -> bool:
 
 
 # The designs of the fused residual kernels and the jet backward
-# (fwdlap_planned.cuh, Design): bits of the ``des`` argument.  0 is the
-# shared core's kernels; DES_PLANNED the planned kernels, DES_ITEM2 their
-# lever.
+# (fwdlap_planned.cuh, Design; fwdlap_mma.cuh, MmaDesign): bits of the
+# ``des`` argument.  0 is the shared core's kernels (the jet pair's bf16-dot
+# variants); DES_PLANNED the planned kernels, DES_ITEM2 their lever;
+# DES_MMA the tensor-core design of the fused residual kernels' bf16-dot
+# mode.
 DES_ITEM2 = 1     # two-point items, register tiles of 8 rows x 4 units
 DES_PLANNED = 2   # the planned kernels (shared plan, transposes from device
                   # memory, dW items dealt 4 x 8 to a warp, two blocks per SM)
+DES_MMA = 4       # bf16 mma.sync m16n8k16 products, stream-major fragments
 PLANNED_DESIGNS = (DES_PLANNED, DES_PLANNED | DES_ITEM2)
 
 

@@ -23,12 +23,13 @@ recurrence (:func:`~nnpde_tpu_torch.ops.fwdlap.mlp_fwdlap`) with
 called directly; ``chip_smoke.py`` holds the kernels to them on the card.
 The launch shape and kernel design come from :func:`plan` (the fp32
 kernels' planned design on the shared plan of :mod:`._plan`; the bf16-dot
-variants' constant tile).
+mode's tensor-core design on :func:`mma_plan`).
 
 ``dot_dtype='bfloat16'`` (the residual kernels; the TPU kernels' one-pass
 bf16 dot mode, run by the bulk of ``compute_dtype='hybrid-kernel'``): every
 product operand of the recompute and the reverse sweep is rounded to bf16
-and the products accumulate in float32 (counted as ``<kernel>.bf16``).  Its
+and the products accumulate in float32 (counted as ``<kernel>.bf16``), on
+the card's bf16 tensor cores (``csrc/fwdlap_mma.cuh``, ``DES_MMA``).  Its
 plain version is the TPU kernels' per-tile arithmetic written out
 (:func:`~nnpde_tpu_torch.ops.fwdlap.recompute_plain`,
 :func:`~nnpde_tpu_torch.ops.fwdlap.reverse_plain`) with the operands rounded
@@ -39,7 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -231,15 +232,16 @@ def planned(smem_floats_of, layers, S: int, what: str, design: int | None = None
             T: int | None = None, tier: str | None = None) -> _plan.Plan:
     """The launch shape of a kernel of fused_step.cu or fwdlap_backward.cu
     in ``design`` (``smem_floats_of(T, flags)`` its layout, ``S`` its
-    streams).  Design 0 (the bf16-dot variants, and only they): the constant
-    tile of :func:`._cuda.plan_tile`, nothing resident.  A planned design: the shared
-    plan of :mod:`._plan` (seeded tiers; with ``DES_ITEM2`` the tile rule of
-    8-row items) at most ``PLANNED_BLOCKS`` blocks per SM.  ``design=None``
-    is the fp32 wrappers' choice: two-point items where their one-wave tile
-    fits two blocks per SM as it is; where it only fits a step below (u64:
-    28 points, 224 of 256 items), the planned 4 x 4 items (``chip_smoke.py
-    sweep``).  ``T`` and ``tier`` pin a choice and raise if it does not
-    fit."""
+    streams).  Design 0 (the jet backward's bf16-dot variant, and only it;
+    the fused kinds' layout at flags 0 is the same): the constant tile of
+    :func:`._cuda.plan_tile`, nothing resident.  A planned design: the
+    shared plan of :mod:`._plan` (seeded tiers; with ``DES_ITEM2`` the tile
+    rule of 8-row items) at most ``PLANNED_BLOCKS`` blocks per SM.
+    ``design=None`` is the fp32 wrappers' choice: two-point items where
+    their one-wave tile fits two blocks per SM as it is; where it only fits
+    a step below (u64: 28 points, 224 of 256 items), the planned 4 x 4 items
+    (``chip_smoke.py sweep``).  ``T`` and ``tier`` pin a choice and raise if
+    it does not fit."""
     if design == 0:
         if tier not in (None, "staged"):
             raise ValueError(f"{what}: design 0 keeps nothing resident (tier={tier})")
@@ -266,14 +268,127 @@ def planned(smem_floats_of, layers, S: int, what: str, design: int | None = None
 
 def plan(kind: str, layers, design: int | None = None, *, T: int | None = None,
          tier: str | None = None) -> _plan.Plan:
-    """The launch shape of one fused kernel (:func:`planned`)."""
+    """The launch shape of one fused kernel (:func:`planned`; a design with
+    ``DES_MMA``: :func:`mma_plan`)."""
+    if design == _cuda.DES_MMA:
+        return mma_plan(kind, layers, T=T, tier=tier)
     return planned(lambda t, f: smem_floats(kind, layers, t, f), layers,
                    _streams(kind, layers[0]), f"{kind} plan", design, T=T, tier=tier)
 
 
+# ------------------------------------------- the tensor-core design (DES_MMA)
+# The bf16-dot mode of the linear and analytic kernels (fwdlap_mma.cuh): bf16
+# stages of Sp*T rows (T = 8 or a multiple of 16), hidden weights bf16 padded
+# to multiples of 16, the saved stages in fragment order in device memory.
+# Measured on an H100 (chip_smoke.py mma_sweep; PERF.md): the block's
+# gradient row on chip comes first (its hidden dW accumulates there in
+# fragment order), then the resident weights; 16-point tiles at two blocks
+# per SM (the kernels' register budget) beat larger tiles.
+MMA_T = 16                # the tile the plan asks for first
+MMA_TIERS = (("resident", _plan.RES_WEIGHTS | _plan.RES_GRAD), ("gradient", _plan.RES_GRAD),
+             ("weights", _plan.RES_WEIGHTS), ("staged", 0))
+
+
+def _kp16(w: int) -> int:
+    return -(-w // 16) * 16
+
+
+def _np8(w: int) -> int:
+    return -(-w // 8) * 8
+
+
+def _rnd4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+class MmaGeo(NamedTuple):
+    """A tile's geometry in the tensor-core design (``mma::Geo``)."""
+    S: int        # streams, d + 2
+    Sp: int       # streams padded so that Sp * T is a multiple of 16
+    NU: int       # m16 tiles of a warp block
+    NPB: int      # 16-point blocks of the tile (T = 8: one of 8 points)
+    ST: int       # stage rows, Sp * T
+    ldb: int      # bf16 stage row stride: kp16(widest) + 8
+    wq: int       # widest hidden layer rounded up to 8
+    nblk: int     # warp blocks of the widest stage
+
+
+def mma_geometry(layers, T: int) -> MmaGeo:
+    """The geometry of a tile of T points (8, or a multiple of 16 up to
+    ``NT / 2``) on this net; other tiles raise."""
+    if not (T == 8 or (16 <= T <= _cuda.NT // 2 and T % 16 == 0)):
+        raise ValueError(f"the tensor-core design takes T = 8 or a multiple of 16, got {T}")
+    S = layers[0] + 2
+    t8 = T == 8
+    Sp = S + (S & 1) if t8 else S
+    wt = max(layers[1:-1])
+    return MmaGeo(S, Sp, Sp // 2 if t8 else S, 1 if t8 else T // 16, Sp * T,
+                  _kp16(wt) + 8, _np8(wt), (1 if t8 else T // 16) * _np8(wt) // 8)
+
+
+def mma_smem_bytes(layers, T: int, flags: int = 0) -> int:
+    """Shared-memory bytes of one block (``mma::layout``): three bf16
+    stages, the hidden weights in bf16 (all with ``RES_WEIGHTS``, else the
+    largest one), the gradient row (``RES_GRAD``), the projection partials,
+    the column sums, the tile's points, cotangents, sum terms and projected
+    streams."""
+    g = mma_geometry(layers, T)
+    d = layers[0]
+    n = 3 * g.ST * g.ldb * 2
+    hid = [_kp16(a) * (_kp16(b) + 8) * 2 for a, b in zip(layers[1:-2], layers[2:-1])]
+    n += sum(hid) if flags & _plan.RES_WEIGHTS else max(hid, default=0)
+    if flags & _plan.RES_GRAD:
+        n += 4 * _rnd4(_cuda.n_params(layers) + 3)
+    floats = (_rnd4(g.wq // 8 * g.ST) + _rnd4(g.NPB * g.S * g.wq) + _rnd4(T * d)
+              + _rnd4(g.S * T) + _rnd4(3 * T) + _rnd4(g.ST))
+    return n + 4 * floats
+
+
+def mma_scratch_floats(layers, T: int) -> int:
+    """Saved-stage floats of one block in device memory: the K-1 hidden
+    stages, each warp block's stream tiles and its q tile, a float4 per
+    lane."""
+    g = mma_geometry(layers, T)
+    return (len(layers) - 2) * g.nblk * (g.NU + 1) * 128
+
+
+def mma_plan(kind: str, layers, *, T: int | None = None, tier: str | None = None,
+             blocks: int | None = None) -> _plan.Plan:
+    """The launch shape of the bf16-dot mode of the linear or analytic
+    kernel in the tensor-core design.  Two blocks per SM (the kernels'
+    register budget) first, then one; within them the tile (``MMA_T``, then
+    multiples of 16 down to 16, and with a whole SM to itself 8), then the
+    tiers of ``MMA_TIERS`` in order.  ``T``, ``tier`` and ``blocks`` pin a
+    choice; what fits nothing raises, naming the shape."""
+    if kind not in ("fused_linear_residual", "fused_poisson_analytic"):
+        raise ValueError(f"{kind}: no bf16-dot mode, so no tensor-core design")
+    if blocks not in (None, 1, 2):
+        raise ValueError(f"{kind}: the kernels' register budget is 2 blocks per SM, "
+                         f"not {blocks}")
+    names = [tier] if tier is not None else [name for name, _ in MMA_TIERS]
+    for share in (2, 1) if blocks is None else (blocks,):
+        budget = _cuda.SMEM_MAX if share == 1 else _plan.SM_SMEM // share - 1024
+        if T is not None:
+            tiles = (T,)
+        else:
+            tiles = tuple(range(MMA_T, 15, -16)) + ((8,) if share == 1 else ())
+        for t in tiles:
+            for name, flags in MMA_TIERS:
+                if name not in names:
+                    continue
+                smem = mma_smem_bytes(layers, t, flags)
+                if smem <= budget:
+                    return _plan.Plan(t, smem, flags, name, _cuda.DES_MMA)
+    raise ValueError(f"{kind} mma plan: layers {list(layers)} do not fit {_cuda.SMEM_MAX} B "
+                     f"of shared memory (T={T}, tier={tier}, blocks={blocks})")
+
+
 def variant(layers, S: int, pl: _plan.Plan) -> tuple[int, int]:
     """``(fold, occupancy key)`` of a launch: whether it takes the FOLD
-    variant, and the key of its variant in :func:`._cuda.grid`'s cache."""
+    variant (a planned design), and the key of its variant in
+    :func:`._cuda.grid`'s cache."""
+    if pl.design == _cuda.DES_MMA:
+        return 0, pl.design << 1
     fold = int(_cuda.folds(layers, S, pl.T, 2 if pl.design & _cuda.DES_ITEM2 else 1))
     return fold, fold | pl.design << 1
 
@@ -282,8 +397,9 @@ def _launch(kind: str, params, X, coef, activation: str, analytic=None,
             bf16: bool = False, *, pl: _plan.Plan | None = None):
     """Launch one fused kernel plus its reduction; returns the flat
     ``[grads (P) | sums (3)]`` float32 vector.  ``bf16``: the bf16-dot
-    variant (design 0).  ``pl``: a launch shape (and design) other than the
-    wrapper's own (timing sweeps, tests)."""
+    mode, which runs the tensor-core design (``DES_MMA``) and only it.
+    ``pl``: a launch shape (and design) other than the wrapper's own
+    (timing sweeps, tests)."""
     from . import _build
 
     lib = _build.load()
@@ -296,10 +412,12 @@ def _launch(kind: str, params, X, coef, activation: str, analytic=None,
     P = flat.numel()
     if pl is None:
         pl = _plan.cached(("fused", kind, tuple(layers), bf16),
-                          lambda: plan(kind, layers, 0 if bf16 else None))
-    if bool(bf16) != (pl.design == 0):
-        raise ValueError(f"{kind}: design 0 is the bf16-dot variant's and only its "
-                         f"(bf16={bf16}, design={pl.design})")
+                          lambda: mma_plan(kind, layers) if bf16 else plan(kind, layers))
+    mma = pl.design == _cuda.DES_MMA
+    if bool(bf16) != mma or not (mma or pl.design in _cuda.PLANNED_DESIGNS):
+        raise ValueError(f"{kind}: the bf16-dot mode runs the tensor-core design and only it; "
+                         f"fp32 a planned design (design 0 has no fused kernels; bf16={bf16}, "
+                         f"design={pl.design})")
     T, design = pl.T, pl.design
     mode = _MODES[kind]
     dev = X.device
@@ -310,16 +428,18 @@ def _launch(kind: str, params, X, coef, activation: str, analytic=None,
                    lambda sm, ptr: lib.fused_blocks_per_sm(mode, fold, int(bf16), design, sm,
                                                            ptr),
                    pl.smem, dev, (N + T - 1) // T, key)
-    wmax = _cuda.padded_wmax(layers)
     partial = torch.empty((G, P + 3), dtype=torch.float32, device=dev)
-    scratch = torch.empty((G, max(K - 2, 1) * S * T * wmax), dtype=torch.float32,
-                          device=dev)
+    if mma:
+        per_block = mma_scratch_floats(layers, T)
+    else:
+        per_block = max(K - 2, 1) * S * T * _cuda.padded_wmax(layers)
+    scratch = torch.empty((G, per_block), dtype=torch.float32, device=dev)
     out = torch.empty((P + 3,), dtype=torch.float32, device=dev)
     lay = _cuda.layers_arg(layers)
     common = (ctypes.addressof(lay), len(layers), _cuda.ACTS[activation], N, T, G, fold)
     tail = (partial.data_ptr(), scratch.data_ptr(), out.data_ptr(), pl.smem,
             _cuda.stream(dev))
-    wt = _cuda.hidden_transposes(params) if design else None
+    wt = None if mma else _cuda.hidden_transposes(params)
     wt_ptr = None if wt is None else wt.data_ptr()
     keep = (X, flat, wt, lay, partial, scratch, out)
     if kind == "fused_linear_residual":

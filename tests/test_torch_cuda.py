@@ -806,6 +806,15 @@ _BF16_NETS = [
     ((5, 32, 32, 1), "tanh"),
     ((3, 50, 50, 1), "gelu"),
     ((2, 10, 10, 1), "sin"),
+    # the tensor-core design of rows 1 and 2 at the paths' nets (u50; u64 at
+    # d = 5) and its padding shapes: width 1, width 50 between widths 1, width
+    # 128, d = 16 (18 streams: 8-point tiles)
+    ((2, 50, 50, 50, 50, 1), "sin"),
+    ((5, 64, 64, 64, 64, 1), "sin"),
+    ((2, 1, 1, 1), "tanh"),
+    ((2, 50, 1, 50, 1), "sin"),
+    ((2, 128, 128, 1), "gelu"),
+    ((16, 32, 32, 1), "sin"),
 ]
 
 
@@ -824,7 +833,9 @@ def test_cuda_bf16_kernel_matches_plain(dev, kind, layers, act):
     <= 5e-4 (a per-point output keeps the rare operand that rounds to the
     other bf16 neighbour under the two sum orders); two launches bitwise
     equal, each counted under ``<kernel>.bf16``.  The backward takes the
-    cotangent a Poisson residual gives it."""
+    cotangent a Poisson residual gives it.  Rows 1 and 2 run the
+    tensor-core design (``DES_MMA``) on every net; rows 4 and 5 design 0."""
+    from nnpde_tpu_torch.kernels import _cuda
     from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
     from nnpde_tpu_torch.models import factor_for_technique
 
@@ -877,6 +888,8 @@ def test_cuda_bf16_kernel_matches_plain(dev, kind, layers, act):
     if kind in ("linear", "analytic"):
         g = tfs._scaled_grads(tp, dWs, dbs, sums, 2.0 / N)
         want = [(sums[0] / N).reshape(1)] + [t for pair in g for t in pair]
+    if kind in ("linear", "analytic"):
+        assert tfs.mma_plan(name[:-5], list(layers)).design & _cuda.DES_MMA
     before = LAUNCHES[name]
     out, out2 = run(), run()
     torch.cuda.synchronize()
@@ -921,3 +934,104 @@ def test_cuda_bf16_jet_pair_is_differentiable(dev):
         before[0] + 1, before[1] + 1)
     ref = [t.to(dev) for t in grads(X.cpu())]
     assert _leaf_rel(got, ref) <= 1e-4
+
+
+# ----------------------------------- rows 1 and 2 bf16: the tensor-core design
+@pytest.mark.cuda
+def test_cuda_mma_layout_mirror(dev):
+    """The tensor-core design's layout and saved-stage size in Python are
+    the kernel's own count, for every tile and residency; tiles it does not
+    take are refused."""
+    import ctypes
+
+    from nnpde_tpu_torch.kernels import _build, _plan
+
+    lib = _build.load()
+    for layers in [(2, 64, 64, 64, 64, 1), (2, 50, 50, 50, 50, 1), (5, 7, 9, 1), (2, 12, 1),
+                   (3, 1, 1, 1), (16,) + (128,) * 15 + (1,)]:
+        lay = (ctypes.c_int * len(layers))(*layers)
+        for T in (8, 16, 32, 48):
+            for mode in (0, 1):
+                assert lib.fused_mma_scratch_floats(mode, ctypes.addressof(lay), len(layers),
+                                                    T) == tfs.mma_scratch_floats(layers, T)
+                for flags in (0, _plan.RES_WEIGHTS, _plan.RES_GRAD,
+                              _plan.RES_WEIGHTS | _plan.RES_GRAD):
+                    assert lib.fused_mma_smem_bytes(mode, ctypes.addressof(lay), len(layers),
+                                                    T, flags) == tfs.mma_smem_bytes(
+                                                        layers, T, flags)
+        for T in (4, 12, 24):
+            assert lib.fused_mma_smem_bytes(0, ctypes.addressof(lay), len(layers), T, 0) == -1
+        assert lib.fused_mma_smem_bytes(2, ctypes.addressof(lay), len(layers), 16, 0) == -1
+
+
+def _mma_pins(layers):
+    """Every tensor-core plan of this net at tiles 8, 16 and 32: each tier
+    that fits two blocks per SM or one."""
+    out = []
+    for T in (8, 16, 32):
+        for tier, _ in tfs.MMA_TIERS:
+            for blocks in (1, 2):
+                try:
+                    pl = tfs.mma_plan("fused_linear_residual", layers, T=T, tier=tier,
+                                      blocks=blocks)
+                except ValueError:
+                    continue
+                if pl not in out:
+                    out.append(pl)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("coef_kind", ["residual", "random"])
+@pytest.mark.parametrize("layers", [(2, 64, 64, 64, 64, 1), (3, 50, 50, 1), (2, 50, 1, 50, 1)])
+def test_cuda_mma_plans_match_plain(dev, layers, coef_kind):
+    """Every tier and tile (8, 16, 32; 8 pads an odd stream count) of the
+    tensor-core design, two launches bitwise equal (the gradient row on
+    chip in fragment order on u64, flat on the ragged nets).  With the
+    coefficients a Poisson residual gives: loss and every gradient leaf
+    within 1e-4 of the plain bf16-dot version.  With random coefficients,
+    whose random-sign sums keep the bf16 rounding's flips (on u64 the plain
+    version alone is 5.4e-5 and 1.5e-4 from its float64 witness at two
+    seeds, the kernel 1.4e-4 and 1.3e-4): within 8e-4 of the plain version,
+    the bar chip_smoke.py holds the bf16-dot mode's random cotangents to
+    (PREC_TOL_BWD_RANDOM), and, where the plain version is within 1e-5 of
+    the witness, no further from it than 2x the plain version is, + 2e-6
+    (on the bottleneck net dv summed in another order than the reference's
+    put dW0 1.2e-5 from the witness)."""
+    from nnpde_tpu_torch.models import factor_for_technique
+
+    rng = np.random.default_rng(23)
+    N, d = 1000 + 7, layers[0]
+    tp = params_from_jax(_np_params(rng, layers), device=dev)
+    X = torch.as_tensor(rng.uniform(0.0, L, (N, d)).astype(np.float32), device=dev)
+    if coef_kind == "residual":
+        fj = factor_for_technique("FBC", dim=d, kind="box", L=L).jet(X)
+        coef = tfs.residual_coefficients(fj, a0=-1.0, rhs=torch.sin(X[:, 0]))
+    else:
+        coef = torch.as_tensor(rng.normal(size=(N, d + 4)).astype(np.float32), device=dev)
+
+    def plain(dtype):
+        P = [(W.to(dtype), b.to(dtype)) for W, b in tp]
+        dWs, dbs, sums = tfs.linear_residual_plain(P, X.to(dtype), coef.to(dtype), "sin",
+                                                   "bfloat16")
+        g = tfs._scaled_grads(P, dWs, dbs, sums, 2.0 / N)
+        return [(sums[0] / N).reshape(1)] + [t for pair in g for t in pair]
+
+    want, witness = plain(torch.float32), plain(torch.float64)
+    w_plain = _leaf_rel(want, witness)
+    for pl in _mma_pins(layers):
+        def run():
+            out = tfs._launch("fused_linear_residual", tp, X, coef, "sin", bf16=True, pl=pl)
+            dW, db, sm = tfs._unflatten(tp, out)
+            gr = tfs._scaled_grads(tp, dW, db, sm, 2.0 / N)
+            return [(sm[0] / N).reshape(1)] + [t for pair in gr for t in pair]
+
+        out, out2 = run(), run()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, out2)), pl
+        if coef_kind == "residual":
+            assert _leaf_rel(out, want) <= 1e-4, pl
+        else:
+            assert _leaf_rel(out, want) <= 8e-4, pl
+            if w_plain <= 1e-5:
+                assert _leaf_rel(out, witness) <= 2.0 * w_plain + 2e-6, pl

@@ -1,0 +1,310 @@
+"""The tensor-core design (``DES_MMA``) of the bf16-dot fused residual
+kernels (rows 1 and 2 with ``dot_dtype='bfloat16'``) on the CPU.
+
+What runs here is the Python half of the design: its shared-memory layout
+mirror (held to a formula written out below, and on a card to the kernel's
+own count, ``tests/test_torch_cuda.py``), the plans every shape the wrapper
+takes gets, which design each wrapper routes to (the launches recorded
+through a stand-in for the library), and the CPU route of the bf16-dot mode
+to its plain version.  The kernels themselves are held to their plain
+bf16-dot versions on a card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from nnpde_tpu_torch.kernels import _build, _cuda, _plan
+from nnpde_tpu_torch.kernels import fused_step as tfs
+from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
+
+NETS = {"u64": (2, 64, 64, 64, 64, 1), "c64": (2, 64, 64, 1), "u50": (2, 50, 50, 50, 50, 1),
+        "c20": (2, 20, 20, 20, 1), "u64_d5": (5, 64, 64, 64, 64, 1)}
+EXTREMES = {
+    "d16_w128_16layers": (16,) + (128,) * 15 + (1,),
+    "width1": (2, 1, 1, 1),
+    "widths_1_and_50": (2, 50, 1, 50, 1),
+    "w128_shallow": (2, 128, 128, 1),
+    "one_hidden": (2, 12, 1),
+    **NETS,
+}
+KINDS = ("fused_linear_residual", "fused_poisson_analytic")
+FLAGS = (0, _plan.RES_WEIGHTS, _plan.RES_GRAD, _plan.RES_WEIGHTS | _plan.RES_GRAD)
+
+
+def _up(n, m):
+    return -(-n // m) * m
+
+
+def _written_out_bytes(layers, T, flags):
+    """The kernel's layout, written out: three bf16 stages of Sp*T rows at
+    a row stride of the widest layer rounded up to 16 plus 8; the hidden
+    weights in bf16, each kp16(in) rows of kp16(out) + 8 (all of them
+    resident, else the largest); the gradient row; then float regions, each
+    rounded up to 4 floats: projection partials (n-blocks of 8 x rows),
+    column sums (16-point blocks x S x widest rounded to 8), the points, the
+    cotangents, the sum terms and the projected rows."""
+    d, hidden = layers[0], layers[1:-1]
+    S = d + 2
+    Sp = S + S % 2 if T == 8 else S
+    rows = Sp * T
+    k16, n8 = _up(max(hidden), 16), _up(max(hidden), 8)
+    n = 3 * rows * (k16 + 8) * 2
+    weights = [_up(a, 16) * (_up(b, 16) + 8) * 2 for a, b in zip(hidden[:-1], hidden[1:])]
+    n += sum(weights) if flags & _plan.RES_WEIGHTS else max(weights, default=0)
+    if flags & _plan.RES_GRAD:
+        P = sum(a * b + b for a, b in zip(layers[:-1], layers[1:]))
+        n += 4 * _up(P + 3, 4)
+    blocks16 = 1 if T == 8 else T // 16
+    for floats in (n8 // 8 * rows, blocks16 * S * n8, T * d, S * T, 3 * T, rows):
+        n += 4 * _up(floats, 4)
+    return n
+
+
+# ------------------------------------------------------------ layout mirror
+@pytest.mark.parametrize("net", sorted(EXTREMES))
+def test_mma_layout_mirror_is_the_written_out_layout(net):
+    layers = EXTREMES[net]
+    for T in (8, 16, 32, 48):
+        for flags in FLAGS:
+            assert tfs.mma_smem_bytes(layers, T, flags) == _written_out_bytes(layers, T, flags)
+
+
+@pytest.mark.parametrize("layers,T,flags,want", [
+    # u64: stages 64 rows x 72 bf16; three 64 x 72 hidden matrices resident
+    ((2, 64, 64, 64, 64, 1), 16, _plan.RES_WEIGHTS,
+     3 * 64 * 72 * 2 + 3 * 64 * 72 * 2 + 4 * (8 * 64 + 4 * 64 + 32 + 64 + 48 + 64)),
+    # width 50: k padded to 64 (rows of 72), n to 56 (7 n-blocks)
+    ((2, 50, 50, 1), 16, _plan.RES_WEIGHTS,
+     3 * 64 * 72 * 2 + 64 * 72 * 2 + 4 * (7 * 64 + 4 * 56 + 32 + 64 + 48 + 64)),
+    # width 1: k padded to 16 (rows of 24), n to 8; d = 3 at T = 8 pads the
+    # five streams to six
+    ((3, 1, 1, 1), 8, 0, 3 * 48 * 24 * 2 + 16 * 24 * 2 + 4 * (48 + 5 * 8 + 24 + 40 + 24 + 48)),
+])
+def test_mma_layout_pads_to_k16_and_n8(layers, T, flags, want):
+    """Worked values: the bf16 stages and weights padded to multiples of 16
+    along k (and 8 more per row), the n-blocks to multiples of 8."""
+    assert tfs.mma_smem_bytes(layers, T, flags) == want
+
+
+@pytest.mark.parametrize("net", sorted(EXTREMES))
+def test_mma_scratch_floats(net):
+    """The saved stages: K-1 stages x warp blocks x (stream tiles + the q
+    tile) x 32 float4s."""
+    layers = EXTREMES[net]
+    d, hidden = layers[0], layers[1:-1]
+    for T in (8, 16, 32):
+        S = d + 2
+        tiles = (S + S % 2) // 2 if T == 8 else S
+        blocks = (1 if T == 8 else T // 16) * _up(max(hidden), 8) // 8
+        assert tfs.mma_scratch_floats(layers, T) == len(hidden) * blocks * (tiles + 1) * 128
+
+
+# ---------------------------------------------------------------- the plans
+def _fits(pl):
+    """What fused_step.cu checks before a tensor-core launch."""
+    return (pl.design == _cuda.DES_MMA and pl.smem <= _cuda.SMEM_MAX
+            and (pl.T == 8 or pl.T % 16 == 0))
+
+
+def _two_blocks(pl):
+    """Whether two blocks of the plan fit one SM (1 KB of it per block)."""
+    return 2 * (pl.smem + 1024) <= _plan.SM_SMEM
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("net", sorted(EXTREMES))
+def test_mma_plan_takes_every_shape_the_wrapper_takes(net, kind):
+    """Every net the wrapper's check takes (d <= 16, widths 1-128, 2-16
+    weight matrices) gets a tensor-core plan that fits the card's shared
+    memory, with stage rows Sp*T a multiple of 16 (T = 8 pads an odd stream
+    count by one); a pinned tier at 16 points fits or raises naming the
+    net."""
+    layers = EXTREMES[net]
+    params = [(torch.zeros(a, b), torch.zeros(b)) for a, b in zip(layers[:-1], layers[1:])]
+    assert _cuda.net_layers(kind, params, torch.zeros(8, layers[0]), "sin") == list(layers)
+    pl = tfs.mma_plan(kind, layers)
+    assert _fits(pl) and pl.design == _cuda.DES_MMA
+    g = tfs.mma_geometry(layers, pl.T)
+    assert g.ST % 16 == 0 and g.ST == g.Sp * pl.T and g.Sp - g.S in (0, 1)
+    assert pl.smem == tfs.mma_smem_bytes(layers, pl.T, pl.flags)
+    assert pl == tfs.plan(kind, layers, _cuda.DES_MMA)
+    for tier, flags in tfs.MMA_TIERS:
+        try:
+            pinned = tfs.mma_plan(kind, layers, T=16, tier=tier)
+        except ValueError as err:
+            assert str(list(layers)) in str(err)
+            continue
+        assert (pinned.T, pinned.tier, pinned.flags) == (16, tier, flags) and _fits(pinned)
+
+
+@pytest.mark.parametrize("net,want", [
+    ("u64", (16, "resident", True)),          # the hybrid-kernel bulk's net
+    ("u50", (16, "resident", True)),
+    ("u64_d5", (16, "weights", True)),        # the gradient row does not fit beside 7 streams
+    ("w128_shallow", (16, "weights", True)),
+    ("d16_w128_16layers", (8, "staged", False)),
+])
+def test_mma_plan_path_shapes(net, want):
+    """The plan's choices on the order measured on u64 (chip_smoke.py
+    mma_sweep): the gradient row on chip first, then the resident weights,
+    at 16-point tiles and two blocks per SM; 8-point tiles only where
+    nothing else fits."""
+    pl = tfs.mma_plan("fused_linear_residual", EXTREMES[net])
+    assert (pl.T, pl.tier, _two_blocks(pl)) == want
+    assert pl.flags == dict(tfs.MMA_TIERS)[pl.tier]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_mma_plan_pins_and_refusals(kind):
+    """Pinned tile, tier and blocks per SM are taken as given or raise: a
+    tile that is neither 8 nor a multiple of 16, one that does not fit, more
+    blocks than the kernels' register budget; the DRM kernel has no
+    bf16-dot mode."""
+    u64 = NETS["u64"]
+    pl = tfs.mma_plan(kind, u64, T=32, tier="staged", blocks=2)
+    assert (pl.T, pl.tier, pl.flags) == (32, "staged", 0) and _two_blocks(pl)
+    one = tfs.mma_plan(kind, u64, T=32, tier="resident", blocks=1)
+    assert one.tier == "resident" and not _two_blocks(one) and _fits(one)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tfs.mma_plan(kind, u64, T=24)
+    with pytest.raises(ValueError, match="do not fit"):
+        tfs.mma_plan(kind, u64, T=128, tier="resident")
+    with pytest.raises(ValueError, match="do not fit"):
+        tfs.mma_plan(kind, u64, T=32, tier="resident", blocks=2)
+    with pytest.raises(ValueError, match="register budget"):
+        tfs.mma_plan(kind, u64, blocks=3)
+    with pytest.raises(ValueError, match="no bf16-dot mode"):
+        tfs.mma_plan("fused_drm_energy", u64)
+
+
+# ------------------------------------------------------------ the routing
+class _Recorder:
+    """Stands in for the kernel library and the card: records each launch's
+    entry point and arguments; every occupancy query answers one block."""
+
+    def __init__(self, monkeypatch):
+        self.calls = []
+
+        class Lib:
+            def __getattr__(lib, name):
+                return name
+
+        monkeypatch.setattr(_build, "load", lambda: Lib())
+        monkeypatch.setattr(_cuda, "grid", lambda name, query, smem, dev, n, key=0: 1)
+        monkeypatch.setattr(_cuda, "stream", lambda dev: 0)
+        monkeypatch.setattr(_cuda, "sm_count", lambda dev: 132)
+        monkeypatch.setattr(_cuda, "launch",
+                            lambda name, fn, *args, dev, keep=(): self.calls.append(
+                                (name, fn, args)))
+
+
+def _inputs(layers, N=40):
+    rng = np.random.default_rng(41)
+    params = [(torch.as_tensor(rng.uniform(-0.5, 0.5, (a, b)).astype(np.float32)),
+               torch.as_tensor(rng.uniform(-0.5, 0.5, (b,)).astype(np.float32)))
+              for a, b in zip(layers[:-1], layers[1:])]
+    X = torch.as_tensor(rng.uniform(0.0, 2.0, (N, layers[0])).astype(np.float32))
+    coef = torch.as_tensor(rng.normal(size=(N, layers[0] + 4)).astype(np.float32))
+    return params, X, coef
+
+
+@pytest.mark.parametrize("net", ["u64", "u50", "u64_d5", "width1", "d16_w128_16layers"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_bf16_fused_kinds_route_to_the_tensor_core_design(monkeypatch, kind, net):
+    """The bf16-dot mode of rows 1 and 2 launches DES_MMA on the wrapper's
+    mma plan (its tile and flags passed through, no transposes),
+    counted under ``<kernel>.bf16``; fp32 launches a planned design as
+    before."""
+    layers = EXTREMES[net]
+    rec = _Recorder(monkeypatch)
+    params, X, coef = _inputs(layers)
+    analytic = tfs._analytic_args(tfs.PoissonSinCoef(2.0, (1,) * layers[0]), layers[0])
+    for bf16 in (True, False):
+        tfs._launch(kind, params, X, coef if kind == "fused_linear_residual" else None, "sin",
+                    analytic, bf16=bf16)
+    (name_b, fn_b, args_b), (name_f, fn_f, args_f) = rec.calls
+    entry = kind + "_f32"
+    assert (name_b, fn_b, name_f, fn_f) == (kind + ".bf16", entry, kind, entry)
+    # (..., fold, bf16, des, flags, ...) after the layers and N, T, G
+    at = 10 if kind == "fused_linear_residual" else 9
+    fold, bf, des, flags = args_b[at:at + 4]
+    pl = tfs.mma_plan(kind, layers)
+    assert (fold, bf, des, flags) == (0, 1, _cuda.DES_MMA, pl.flags)
+    assert args_b[3 if kind == "fused_linear_residual" else 2] is None    # no transposes
+    assert args_b[at - 2] == pl.T
+    _, bf, des, _ = args_f[at:at + 4]
+    assert bf == 0 and des in _cuda.PLANNED_DESIGNS and des == tfs.plan(kind, layers).design
+
+
+@pytest.mark.parametrize("net", ["u64", "u50", "u64_d5"])
+def test_jet_pair_bf16_keeps_design_0(monkeypatch, net):
+    """Rows 4 bf16 and 5 bf16 (the jet forward's 'rows:default', the jet
+    backward's bf16-dot mode) still launch design 0 on the constant tile;
+    their fp32 modes a planned design."""
+    layers = NETS[net]
+    rec = _Recorder(monkeypatch)
+    params, X, _ = _inputs(layers)
+    ct = torch.zeros((X.shape[0], layers[0] + 2))
+    tfc.fwdlap_forward(params, X, "sin", "rows:default")
+    tfc.fwdlap_forward(params, X, "sin", "rows")
+    tfc.fwdlap_backward(params, X, ct, "sin", "bfloat16")
+    tfc.fwdlap_backward(params, X, ct, "sin")
+    names = [c[0] for c in rec.calls]
+    assert names == ["fwdlap_forward.bf16", "fwdlap_forward", "fwdlap_backward.bf16",
+                     "fwdlap_backward"]
+    # fwdlap_forward_f32(streams, X, params, layers, n, act, N, T, G, fold, bf16, des, ...)
+    assert rec.calls[0][2][10:12] == (1, 0) and rec.calls[0][2][7] == _cuda.TILE
+    assert rec.calls[1][2][10] == 0 and rec.calls[1][2][11] in _cuda.PLANNED_DESIGNS
+    # fwdlap_backward_f32(X, ct, params, wt, layers, n, act, N, T, G, fold, bf16, des, ...)
+    assert rec.calls[2][2][11:13] == (1, 0)
+    assert rec.calls[2][2][8] == tfc.backward_plan(layers, 0).T
+    assert rec.calls[3][2][11] == 0 and rec.calls[3][2][12] in _cuda.PLANNED_DESIGNS
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_fused_launch_refuses_design_0_and_crossed_designs(monkeypatch, kind):
+    """Design 0 has no fused kernels any more; the bf16-dot mode takes only
+    the tensor-core design and fp32 only a planned one."""
+    layers = NETS["u64"]
+    _Recorder(monkeypatch)
+    params, X, coef = _inputs(layers)
+    c = coef if kind == "fused_linear_residual" else None
+    an = tfs._analytic_args(tfs.PoissonSinCoef(2.0, (1, 1)), 2)
+    for bf16, pl in ((True, tfs.plan(kind, layers, 0)), (False, tfs.plan(kind, layers, 0)),
+                     (True, tfs.plan(kind, layers)), (False, tfs.mma_plan(kind, layers))):
+        with pytest.raises(ValueError, match="design 0 has no fused kernels"):
+            tfs._launch(kind, params, X, c, "sin", an, bf16=bf16, pl=pl)
+
+
+# ------------------------------------------------------------ CPU route
+@pytest.mark.parametrize("kind", KINDS)
+def test_cpu_bf16_route_runs_the_plain_bf16_version(monkeypatch, kind):
+    """On the CPU the bf16-dot mode of rows 1 and 2 routes to the plain
+    bf16-dot version without building or loading the kernels, and gives
+    exactly its loss and scaled gradients."""
+    def no_build():
+        raise AssertionError("a CPU tensor reached the kernel library")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    layers = (2, 12, 12, 1)
+    params, X, coef = _inputs(layers, N=33)
+    N = X.shape[0]
+    if kind == "fused_linear_residual":
+        loss, _, grads = tfs.fused_linear_residual(params, X, coef, "sin", dot_dtype="bfloat16")
+        dWs, dbs, sums = tfs.linear_residual_plain(params, X, coef, "sin", "bfloat16")
+    else:
+        loss, _, grads = tfs.fused_poisson_analytic(params, X, "sin", L=2.0, ks=(1, 1),
+                                                    dot_dtype="bfloat16")
+        dWs, dbs, sums = tfs.poisson_analytic_plain(params, X, "sin",
+                                                    tfs.PoissonSinCoef(2.0, (1, 1)),
+                                                    "bfloat16")
+    want = tfs._scaled_grads(params, dWs, dbs, sums, 2.0 / N)
+    assert torch.equal(loss, sums[0] / N)
+    for (gw, gb), (ww, wb) in zip(grads, want):
+        assert torch.equal(gw, ww) and torch.equal(gb, wb)
+    # and the bf16-dot mode is not the fp32 one
+    loss32, _, _ = tfs.fused_linear_residual(params, X, coef, "sin") \
+        if kind == "fused_linear_residual" else tfs.fused_poisson_analytic(
+            params, X, "sin", L=2.0, ks=(1, 1))
+    assert not torch.equal(loss, loss32)
