@@ -60,16 +60,17 @@ Phases (each prints one JSON line; any failure exits non-zero):
    earlier in a process does not move its times
    (``nnpde_tpu_torch/tools/compare_timing.py`` reads such runs).
 9. precision (group ``precision``): precision_kernels holds the bf16-dot
-   variants of the fused residual (stream and analytic coefficients; the
-   tensor-core design, ``csrc/fwdlap_mma.cuh``), the jet forward and the
-   jet backward (design 0) to their plain bf16-dot versions
+   variants of the fused residual (stream and analytic coefficients), the
+   jet forward and the jet backward, all four in the tensor-core design
+   (``csrc/fwdlap_mma.cuh``, asserted from their launches), to their plain
+   bf16-dot versions
    (float32 on the card) on u64 at 20000 points and u50 at 40000, d = 2
    and 5: loss, gradient leaves and jet columns within 1e-4 norm-relative,
    more than 1e-3 from the fp32 kernel, repeats bitwise; precision_path
    trains ``compute_dtype='hybrid-kernel'`` on the main path's shape (3000
    epochs on 'fused' with stream and analytic coefficients, 300 on
    'kernel'; exact bf16 and fp32 launch counts; rel_l2 <= max(2 x the fp32
-   fused run, 1e-3)), the 5D Poisson PINN 'hybrid' on 'torch' and 'fused'
+   fused run, 1e-3), the 'kernel' run against its own fp32 run), the 5D Poisson PINN 'hybrid' on 'torch' and 'fused'
    (1000 epochs; rel_l2 <= max(2 x the route's fp32 run, 1e-3); the two
    tails from one bulk agree at 1e-3), the Poisson WAN 'hybrid' (300 fused
    epochs), the infinite well (3, 3) PINN 'hybrid' (500 epochs, 'torch' and
@@ -86,10 +87,14 @@ quotient sums (rows 7 and 9) in both planned designs at each tier and
 register budget, the seeded quotient kernels, rows 1 and 5 in both planned
 designs (4 x 4 and two-point items), the K-bump pair at every plan tier
 and a range of tile sizes, and rows 1 and 2 bf16 in the tensor-core design
-at each of its levers (tile, tier, blocks per SM; with the SASS count of
-HMMA in each variant), each
-checked against float64 (repeats bitwise) and timed; ``python3
-chip_smoke.py mma_sweep`` runs the last alone.
+and the jet pair's bf16-dot rows 5 and 4 in the tensor-core design at
+each of its levers (tile, tier, blocks per SM; with the SASS count of
+HMMA, LDL and STL in each variant), each checked against float64 (repeats
+bitwise) and timed; ``python3 chip_smoke.py mma_sweep`` runs the last
+alone.  ``python3 chip_smoke.py mma_depth`` (only when named) holds row 1
+bf16 on the wide nets by depth, per gradient leaf, against the plain
+version, its float64 witness and the plain version on a permutation of the
+net's hidden units (the spread of two fp32 orders).
 
 The last two lines before the final one are the ``kernels`` summary and the
 card's ``name, power limit``; the final line is
@@ -774,15 +779,20 @@ def pass_a_plan(kind, layers, lap, N, dev):
     return plan_row(kind, layers, layers[0] + 1 + lap, pl, N, dev)
 
 
-def design0_forward_plan(layers, N, dev):
-    """The constant tile of the row forward's bf16-dot variant (design 0), as
-    :func:`plan_row` prints it."""
+def bf16_forward_plan(layers, N, dev):
+    """The launch shape of the row forward's bf16-dot variant, as
+    :func:`plan_row` prints it: its tensor-core plan (a tree whose variant
+    is design 0: the constant tile)."""
     from nnpde_tpu_torch.kernels import _cuda, _plan
+    from nnpde_tpu_torch.kernels import fused_step as fs
     from nnpde_tpu_torch.kernels import fwdlap_cuda as fc
 
-    T, smem = _cuda.plan_tile(lambda t: fc._plan_forward(layers, t))
-    return plan_row("fwdlap_forward", layers, layers[0] + 2, _plan.Plan(T, smem, 0, "staged", 0),
-                    N, dev, bf16=True)
+    try:
+        pl = fs.mma_plan("fwdlap_forward", layers)
+    except (AttributeError, ValueError):
+        T, smem = _cuda.plan_tile(lambda t: fc._plan_forward(layers, t))
+        pl = _plan.Plan(T, smem, 0, "staged", 0)
+    return plan_row("fwdlap_forward", layers, layers[0] + 2, pl, N, dev, bf16=True)
 
 
 def quotient_plan(case):
@@ -1602,10 +1612,16 @@ def fused_plan(kind, layers, N, dev, bf16=False):
     if not hasattr(fs, "planned"):
         return None
     des = 0 if bf16 else None
-    if kind == "fwdlap_backward":
+    pl = None
+    if bf16 and hasattr(fs, "mma_plan"):
+        try:
+            pl, S = fs.mma_plan(kind, layers), layers[0] + 2
+        except ValueError:          # a tree whose jet backward is design 0
+            pl = None
+    if pl is not None:
+        pass
+    elif kind == "fwdlap_backward":
         pl, S = fc.backward_plan(layers, des), layers[0] + 2
-    elif bf16 and hasattr(fs, "mma_plan"):
-        pl, S = fs.mma_plan(kind, layers), layers[0] + 2
     else:
         pl, S = fs.plan(kind, layers, des), fs._streams(kind, layers[0])
     return plan_row(kind, layers, S, pl, N, dev, bf16)
@@ -1620,7 +1636,7 @@ def plan_row(kind, layers, S, pl, N, dev, bf16=False):
     dev = torch.device("cuda", torch.cuda.current_device()) if dev.index is None else dev
     fold, key = fs.variant(layers, S, pl)
     mma = pl.design & getattr(_cuda, "DES_MMA", 0)
-    if getattr(pl, "blocks", 0) and not mma:    # a forward-only kernel's register budget
+    if getattr(pl, "blocks", 0):                # a forward-only kernel's register budget
         key = (key, pl.blocks)
     name = kind + (".bf16" if bf16 else "")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1718,6 +1734,10 @@ def phase_fused_sweep(dev):
 
 
 MSWEEP_TILES = (16, 32, 48, 64)
+JSWEEP_TILES = (8, 16, 32)
+# the kernels of the tensor-core design: rows 1/2 bf16 (two), row 5 bf16,
+# row 4 bf16 at its two register budgets
+MMA_KERNELS = 5
 
 
 def phase_mma_sweep(dev):
@@ -1726,20 +1746,24 @@ def phase_mma_sweep(dev):
     262144 points: the tile (MSWEEP_TILES), the tier (``fused_step.
     MMA_TIERS``: the hidden weights and the gradient row on chip or not) and
     the blocks per SM (two, the kernels' register budget, or one, by shared
-    memory).  Each case held to the plain bf16-dot version
-    (PREC_TOL) and to its float64 witness (no further than 2x the plain
-    version is, + 2e-6), launched twice for a bitwise-equal repeat, and
-    timed as device time.  First the ptxas report of the kernels' sources
-    and the SASS count of tensor-core products (HMMA) in each variant of
-    the design, and of local-memory traffic (LDL, STL)."""
+    memory); then rows 5 bf16 and 4 bf16 (the jet pair) the same way at
+    tiles JSWEEP_TILES (row 4: its tiers ``MMA_FWD_TIERS`` and also three
+    blocks per SM, a register budget of its own).  Each case held to the
+    plain bf16-dot version (PREC_TOL; row 4's columns PREC_TOL_JET) and to
+    its float64 witness (no further than 2x the plain version is, + 2e-6),
+    launched twice for a bitwise-equal repeat, and timed as device time.
+    First the ptxas report of the kernels' sources and the SASS count of
+    tensor-core products (HMMA) in each kernel of the design, and of
+    local-memory traffic (LDL, STL)."""
     from nnpde_tpu_torch.kernels import fused_step as fs
+    from nnpde_tpu_torch.kernels import fwdlap_cuda as fc
 
-    hmma = sass_count("fused_mma_kernel", " HMMA")
+    hmma = sass_count("_mma", " HMMA")
     emit({"phase": "mma_sweep", "ptxas": ptxas_of("fused_step", "fwdlap_backward",
                                                   "fwdlap_forward"),
-          "hmma": hmma, "local_loads": sass_count("fused_mma_kernel", " LDL"),
-          "local_stores": sass_count("fused_mma_kernel", " STL")})
-    ok = hmma is None or (len(hmma) == 2 and all(v > 0 for v in hmma.values()))
+          "hmma": hmma, "local_loads": sass_count("_mma", " LDL"),
+          "local_stores": sass_count("_mma", " STL")})
+    ok = hmma is None or (len(hmma) == MMA_KERNELS and all(v > 0 for v in hmma.values()))
     for kind in ("fused_linear_residual", "fused_poisson_analytic"):
         main = fs.mma_plan(kind, LAYERS)
         plans = [main]
@@ -1783,8 +1807,166 @@ def phase_mma_sweep(dev):
                 emit(row)
             del case, ref, wit
             torch.cuda.empty_cache()
+    for kind in ("fwdlap_backward", "fwdlap_forward"):
+        main = fs.mma_plan(kind, LAYERS)
+        plans = [main]
+        tiers = fs.MMA_FWD_TIERS if kind == "fwdlap_forward" else fs.MMA_TIERS
+        for T in JSWEEP_TILES:
+            for tier, _ in tiers:
+                for blocks in fs.MMA_SHARES.get(kind, (2, 1)):
+                    try:
+                        pl = fs.mma_plan(kind, LAYERS, T=T, tier=tier, blocks=blocks)
+                    except ValueError:
+                        continue
+                    if pl not in plans:
+                        plans.append(pl)
+        for N in (20000, 262144):
+            case = PrecCase(kind, N, LAYERS, "sin", seed=27, dev=dev)
+            ref = case.plain("bfloat16")
+            wit = case.plain("bfloat16", torch.float64)
+            w_plain = case.rel(ref, wit)
+            tol = PREC_TOL_JET[(2, 64)] if kind == "fwdlap_forward" else PREC_TOL
+            for pl in plans:
+                def run(pl=pl):
+                    if kind == "fwdlap_forward":
+                        return [fc.fwdlap_forward(case.params, case.X, "sin", "rows:default",
+                                                  pl=pl)]
+                    dWs, dbs = fc.fwdlap_backward(case.params, case.X, case.ct, "sin",
+                                                  "bfloat16", pl=pl)
+                    return [t for pair in zip(dWs, dbs) for t in pair]
+
+                out, out2 = run(), run()
+                torch.cuda.synchronize()
+                rel, w_kernel = case.rel(out, ref), case.rel(out, wit)
+                good = bool(rel <= tol and w_kernel <= 2.0 * w_plain + 2e-6
+                            and all(torch.equal(a, b) for a, b in zip(out, out2)))
+                ok = ok and good
+                row = {"kernel": kind + ".bf16", "net": "u", "N": N, "rel": rel, "tol": tol,
+                       "witness_rel_kernel": w_kernel, "witness_rel_plain": w_plain,
+                       "ok": good, "chosen": pl == main, "device_ms": device_ms(run),
+                       "bound_ms": case.bound(BF16_PEAK)[0]}
+                row.update(plan_row(kind, LAYERS, case.d + 2, pl, N, dev, True))
+                emit(row)
+            del case, ref, wit
+            torch.cuda.empty_cache()
     if not ok:
         raise SystemExit("mma sweep: a case missed its bar, or a variant has no HMMA")
+
+
+DEPTH_HIDDEN = (3, 5, 9, 15)
+
+
+def mma_leaf_rels(layers, act, pl=None, N=1000 + 7, seed=23, dev=None):
+    """Row 1 bf16 at one net and plan on the card's test case (the
+    coefficients a Poisson residual gives, ``tests/test_torch_cuda.py``'s
+    seed): per leaf (loss, dW0, db0, dW1, ...) the norm-relative distance
+    of the kernel from the plain bf16-dot version and from its float64
+    witness, and of the plain version from the witness; two launches
+    bitwise equal."""
+    from nnpde_tpu_torch.kernels import fused_step as fs
+    from nnpde_tpu_torch.models import factor_for_technique
+
+    rng = np.random.default_rng(seed)
+    d = layers[0]
+    tp = rand_params(rng, layers, dev)
+    X = torch.as_tensor(rng.uniform(0.0, L, (N, d)).astype(np.float32), device=dev)
+    fj = factor_for_technique("FBC", dim=d, kind="box", L=L).jet(X)
+    coef = fs.residual_coefficients(fj, a0=-1.0, rhs=torch.sin(X[:, 0]))
+
+    def plain(dtype):
+        P = [(W.to(dtype), b.to(dtype)) for W, b in tp]
+        dWs, dbs, sums = fs.linear_residual_plain(P, X.to(dtype), coef.to(dtype), act,
+                                                  "bfloat16")
+        g = fs._scaled_grads(P, dWs, dbs, sums, 2.0 / N)
+        return [(sums[0] / N).reshape(1)] + [t for pair in g for t in pair]
+
+    def run():
+        out = fs._launch("fused_linear_residual", tp, X, coef, act, bf16=True, pl=pl)
+        dW, db, sm = fs._unflatten(tp, out)
+        gr = fs._scaled_grads(tp, dW, db, sm, 2.0 / N)
+        return [(sm[0] / N).reshape(1)] + [t for pair in gr for t in pair]
+
+    def rels(a, b):
+        return [float(torch.linalg.norm(x.double() - y.double())
+                      / max(float(torch.linalg.norm(y.double())), 1e-30))
+                for x, y in zip(a, b)]
+
+    want, wit = plain(torch.float32), plain(torch.float64)
+    out, out2 = run(), run()
+    torch.cuda.synchronize()
+    # the same net with its hidden units permuted, results mapped back: the
+    # same function and the same bf16 roundings, every product's sum taken
+    # in another order (the spread of two fp32 orders of one computation)
+    g = torch.Generator().manual_seed(seed)
+    perm = [torch.arange(layers[0])] + [torch.randperm(w, generator=g).to(dev)
+                                        for w in layers[1:-1]] + [torch.arange(1)]
+    perm = [p.to(dev) for p in perm]
+    keep = tp
+    tp = [(W[perm[k]][:, perm[k + 1]].contiguous(), b[perm[k + 1]].contiguous())
+          for k, (W, b) in enumerate(keep)]
+
+    def back(leaves):
+        inv = [torch.argsort(p) for p in perm]
+        out = [leaves[0]]
+        for k in range(len(keep)):
+            dW, db = leaves[1 + 2 * k], leaves[2 + 2 * k]
+            out += [dW[inv[k]][:, inv[k + 1]], db[inv[k + 1]]]
+        return out
+
+    want_p, out_p = back(plain(torch.float32)), back(run())
+    tp = keep
+    used = pl or fs.mma_plan("fused_linear_residual", layers)
+    return {"layers": [layers[0], layers[1], len(layers) - 2], "act": act, "T": used.T,
+            "tier": used.tier, "smem": used.smem,
+            "bitwise": all(torch.equal(a, b) for a, b in zip(out, out2)),
+            "kernel_plain": rels(out, want), "kernel_witness": rels(out, wit),
+            "plain_witness": rels(want, wit), "plain_permuted": rels(want_p, want),
+            "kernel_permuted": rels(out_p, out)}
+
+
+def phase_mma_depth(dev):
+    """Row 1 bf16 on the wide nets the wrapper takes, by depth (3, 5, 9, 15
+    hidden layers of 128 units) at d = 16 (18 streams: 8-point tiles only)
+    and at d = 2 with the tile pinned to 8 and to 16 points, in sin and
+    tanh; at d = 2 and 3 hidden layers every tier (the gradient row on chip
+    in fragment order, or flat in device memory).  Per leaf: the kernel's
+    distance from the plain bf16-dot version and from the float64 witness,
+    beside the plain version's own, and the spread of two fp32 orders (the
+    plain version, and the kernel, on the net with its hidden units
+    permuted).  Each case passes at mma_sweep's bars (every
+    leaf within PREC_TOL of the plain version, no further from the witness
+    than 2x the plain version + 2e-6) and repeats bitwise."""
+    from nnpde_tpu_torch.kernels import fused_step as fs
+
+    ok, rows = True, []
+    cases = []
+    for n in DEPTH_HIDDEN:
+        for act in ("sin", "tanh"):
+            cases.append(((16,) + (128,) * n + (1,), act, None, 23))
+            for T in (8, 16):
+                lay = (2,) + (128,) * n + (1,)
+                cases.append((lay, act, fs.mma_plan("fused_linear_residual", lay, T=T), 23))
+    lay = (2, 128, 128, 128, 1)
+    for tier, _ in fs.MMA_TIERS:
+        try:
+            pl = fs.mma_plan("fused_linear_residual", lay, T=16, tier=tier)
+        except ValueError:
+            continue
+        cases.append((lay, "sin", pl, 23))
+    cases += [((16,) + (128,) * 15 + (1,), act, None, seed)
+              for seed in (24, 25) for act in ("sin", "tanh")]
+    for lay, act, pl, seed in cases:
+        row = mma_leaf_rels(lay, act, pl, seed=seed, dev=dev)
+        row["seed"] = seed
+        row["ok"] = bool(row["bitwise"] and max(row["kernel_plain"]) <= PREC_TOL
+                         and max(row["kernel_witness"]) <= 2.0 * max(row["plain_witness"])
+                         + 2e-6)
+        ok = ok and row["ok"]
+        rows.append(row)
+        emit({"phase": "mma_depth", **row})
+        torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("mma depth: a case missed its bar")
 
 
 # --------------------------------------------------------------- precision
@@ -1802,6 +1984,11 @@ PRECISION_SOURCES = {
     "fwdlap_forward.bf16": "nnpde_tpu_torch/csrc/fwdlap_forward.cu",
     "fwdlap_backward.bf16": "nnpde_tpu_torch/csrc/fwdlap_backward.cu",
 }
+# the tensor-core design's body, beside each bf16-dot row's entry point
+MMA_SOURCE = "nnpde_tpu_torch/csrc/fwdlap_mma.cuh"
+# where each entry point takes its design among its arguments
+DES_ARG = {"fused_linear_residual_f32": 12, "fused_poisson_analytic_f32": 11,
+           "fwdlap_forward_f32": 11, "fwdlap_backward_f32": 12}
 BF16_PEAK = 989e12       # H100 SXM bf16 tensor cores, dense (FLOP/s)
 PREC_TOL = 1e-4
 # The jet forward's columns are per-point outputs: an operand that rounds to
@@ -1865,20 +2052,10 @@ class PrecCase:
                 self.ct = ((2.0 / N) * r[:, None] * coef[:, :d + 2]).contiguous()
 
     def folds(self):
-        """Whether the wrapper takes the FOLD variant at this shape."""
-        from nnpde_tpu_torch.kernels import _cuda
-        from nnpde_tpu_torch.kernels import fused_step as fs
-        from nnpde_tpu_torch.kernels import fwdlap_cuda as fc
-
-        if self.base == "fwdlap_forward":
-            T, _ = _cuda.plan_tile(lambda t: fc._plan_forward(self.layers, t))
-        elif self.base == "fwdlap_backward":
-            T = fc.backward_plan(self.layers, 0).T
-        elif hasattr(fs, "mma_plan"):
-            return False        # the tensor-core design has no fold variant
-        else:
-            T = fs.plan(self.base, self.layers, 0).T
-        return _cuda.folds(self.layers, self.d + 2, T)
+        """Whether the wrapper's bf16-dot variant takes the FOLD variant at
+        this shape: never (the tensor-core design of every bf16-dot row has
+        no fold variant)."""
+        return False
 
     def kernel(self, dot):
         from nnpde_tpu_torch.kernels import fused_step as fs
@@ -1990,9 +2167,19 @@ def phase_precision_kernels(dev):
     the jet's columns within their shape's bar (PREC_TOL_JET), row 5 from a
     random cotangent within PREC_TOL_BWD_RANDOM; apart from the fp32 kernel
     by more than 10x the bar in force; no further from the float64 witness
-    than 2x the plain version is (+2e-6); two launches bitwise equal.  Rows
-    4 and 5 also at u64, d = 2 with the fold taken away, so that both
-    variants are held at one shape."""
+    than 2x the plain version is (+2e-6); two launches bitwise equal; every
+    bf16-dot launch in the tensor-core design (``DES_MMA``, read from the
+    launch's own arguments).  Rows 4 and 5 also at u64, d = 2 with the fold
+    taken away (which the tensor-core design does not have: the same
+    launch)."""
+    from nnpde_tpu_torch.kernels import _cuda
+
+    def launched(dot):
+        """The bf16-dot result and the designs its launches passed."""
+        with _cuda.capture() as cap:
+            out = case.kernel(dot)
+        return out, sorted({args[DES_ARG[fn.__name__]] for _, fn, args, _, _ in cap.calls})
+
     rows, max_err = [], {}
     U5, U50_5 = (5, 64, 64, 64, 64, 1), (5, 50, 50, 50, 50, 1)
     # (kernel, N, layers, seed, options): the unfolded case takes the inputs
@@ -2013,14 +2200,14 @@ def phase_precision_kernels(dev):
             folded = case.kernel("bfloat16")
             with unfolded():
                 fold = case.folds()
-                out, out2, f32 = case.kernel("bfloat16"), case.kernel("bfloat16"), \
-                    case.kernel("float32")
+                out, designs = launched("bfloat16")
+                out2, f32 = case.kernel("bfloat16"), case.kernel("float32")
             same = all(torch.equal(a, b) for a, b in zip(out, folded))
             del folded
         else:
             fold = case.folds()
-            out, out2, f32 = case.kernel("bfloat16"), case.kernel("bfloat16"), \
-                case.kernel("float32")
+            out, designs = launched("bfloat16")
+            out2, f32 = case.kernel("bfloat16"), case.kernel("float32")
         torch.cuda.synchronize()
         bitwise = all(torch.equal(a, b) for a, b in zip(out, out2))
         ref = case.plain("bfloat16")
@@ -2043,8 +2230,10 @@ def phase_precision_kernels(dev):
                "rel": rel, "tol": tol, "rel_to_fp32_kernel": apart,
                "witness_rel_kernel": w_kernel, "witness_rel_plain": w_plain,
                "max_abs_err": err, "bitwise_repeat": bitwise, "equal_to_folded": same,
+               "designs": designs,
                "ok": bool(rel <= tol and apart > 10 * tol and bitwise
-                          and w_kernel <= 2.0 * w_plain + 2e-6)}
+                          and w_kernel <= 2.0 * w_plain + 2e-6
+                          and designs == [_cuda.DES_MMA])}
         if base == "fwdlap_forward":
             row["points_off"] = case.points_off(out, ref)
         rows.append(row)
@@ -2079,13 +2268,13 @@ def phase_precision_timing(dev, only=None):
             plain_ms = time_ms(lambda: case.plain(dot), warmup=2, reps=7)
             # bf16 operands with fp32 accumulation run at the bf16 tensor
             # cores' peak on this card: that is the bound of a bf16-dot row;
-            # its CUDA-core figure (the design these variants use) beside it
+            # its CUDA-core figure beside it
             bound, by = case.bound(BF16_PEAK if dot == "bfloat16" else FP32_PEAK)
             row = {"kernel": base + (".bf16" if dot == "bfloat16" else ""),
                    "net": "u", "d": layers[0], "N": N,
                    "plan": fused_plan(base, layers, N, dev, dot == "bfloat16")
                    if base != "fwdlap_forward" else pass_a_plan(base, layers, 0, N, dev)
-                   if dot == "float32" else design0_forward_plan(layers, N, dev),
+                   if dot == "float32" else bf16_forward_plan(layers, N, dev),
                    "ms": ms, "device_ms": dev_ms,
                    "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                    "flop": case.flops(), "bytes": case.bytes(),
@@ -2153,10 +2342,13 @@ def phase_precision_path():
                                                             **kcfg))
     want = {"fwdlap_forward.bf16": 240, "fwdlap_backward.bf16": 240, "fwdlap_forward": 60,
             "fwdlap_backward": 60}
+    # the route's own fp32 run sets the gate (PERF.md section 2)
+    kgate = max(2.0 * r32["rel_l2"], 1e-3)
     hk["kernel"] = {"epochs": 300, "rel_l2": r["rel_l2"], "rel_l2_fp32": r32["rel_l2"],
-                    "launches": launches, "launches_fp32": l32, "steps_per_s": _rate(r),
-                    "fp32_steps_per_s": _rate(r32),
-                    "ok": bool(np.all(np.isfinite(r["history"]["total"])) and launches == want)}
+                    "gate": kgate, "launches": launches, "launches_fp32": l32,
+                    "steps_per_s": _rate(r), "fp32_steps_per_s": _rate(r32),
+                    "ok": bool(np.all(np.isfinite(r["history"]["total"]))
+                               and r["rel_l2"] <= kgate and launches == want)}
     counts["fwdlap_forward.bf16"] = launches.get("fwdlap_forward.bf16", 0)
     counts["fwdlap_backward.bf16"] = launches.get("fwdlap_backward.bf16", 0)
     out["poisson2d_pinn_hybrid_kernel"] = hk
@@ -2248,9 +2440,9 @@ def main():
     if only is not None and want != {"timing"}:
         raise SystemExit("--rows= filters the timing group only: chip_smoke.py timing "
                          "--rows=KERNEL[,KERNEL...]")
-    if not want <= set(GROUPS) | {"sweep", "mma_sweep"}:
+    if not want <= set(GROUPS) | {"sweep", "mma_sweep", "mma_depth"}:
         raise SystemExit(f"unknown phase group in {sorted(want)}; choose from "
-                         f"{GROUPS + ('sweep', 'mma_sweep')}")
+                         f"{GROUPS + ('sweep', 'mma_sweep', 'mma_depth')}")
     full = want == set(GROUPS)
     card = phase_device()
     dev = torch.device("cuda")
@@ -2263,6 +2455,8 @@ def main():
         phase_multibump_sweep(dev)
     if want & {"sweep", "mma_sweep"}:
         phase_mma_sweep(dev)
+    if "mma_depth" in want:
+        phase_mma_depth(dev)
     max_err, launches, speed = {}, {}, {}
     if "kernels" in want:
         max_err.update(phase_kernels(dev))
@@ -2333,6 +2527,7 @@ def main():
         row = next(r for r in prec_rows if r["kernel"] == kind and r["N"] == 20000)
         kernels.append({
             "name": kind, "route": "cuda", "source": PRECISION_SOURCES[kind],
+            "design_source": MMA_SOURCE,
             "replaces": PRECISION_REPLACES[kind], "launches": launches[kind],
             "max_abs_err": max_err[kind], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,

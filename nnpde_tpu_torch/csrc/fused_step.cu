@@ -25,7 +25,7 @@
 //     the hidden weights' transposes read from device memory, dW items dealt
 //     4 x 8 to a warp, and two-point items where their one-wave tile fits
 //     (fwdlap_planned.cuh has the design and what it is for);
-//   * the tensor-core design (fused_body_mma on fwdlap_mma.cuh, DES_MMA) --
+//   * the tensor-core design (body<KIND_FUSED> of fwdlap_mma.cuh, DES_MMA) --
 //     the bf16-dot mode of the linear and analytic kernels (the TPU kernels'
 //     dot_dtype='bfloat16', which the bulk of compute_dtype='hybrid-kernel'
 //     runs): every product operand rounded to bf16 and fp32 accumulation,
@@ -252,146 +252,6 @@ __device__ void fused_body_p(const PArgs& A) {
     for (int i = threadIdx.x; i < A.row; i += NT) grow_g[i] = gacc[i];
 }
 
-
-// W_k for the tensor-core design: the resident copy, or staged into Wsm now
-// (bf16, then a barrier).
-__device__ __forceinline__ const __nv_bfloat16* stage_or_resident(const PArgs& A, bool res_w,
-                                                                  __nv_bfloat16* Wsm, int k) {
-  const Net& net = A.net;
-  if (res_w) return Wsm + mma::woff_bytes(net, k) / 2;
-  mma::stage_w(A.params + net.off[k], net.w[k], net.w[k + 1], Wsm, mma::ldw_of(net, k));
-  __syncthreads();
-  return Wsm;
-}
-
-// The tensor-core design (fwdlap_mma.cuh, DES_MMA) of the bf16-dot mode: per
-// tile the input layer and the hidden products with the activation in
-// their epilogues (the last stage's projection partials too), the loss
-// terms, the last stage's reverse nonlinearity with dW_last, then per hidden
-// layer the dA product with the reverse nonlinearity in its epilogue and
-// the dW product, and dW0.  The plan's residency from A.flags: the hidden
-// weights (bf16, staged once) and the block's gradient row.
-template <int MODE>
-__device__ void fused_body_mma(const PArgs& A) {
-  extern __shared__ __align__(16) float smem[];
-  const Net& net = A.net;
-  mma::Geo g;
-  mma::make_geo(net, A.T, &g);
-  const mma::Layout ly = mma::layout(net, g, A.flags);
-  unsigned char* sm = reinterpret_cast<unsigned char*>(smem);
-  const int T = A.T, d = net.d, K = net.K, S = g.S;
-  __nv_bfloat16* const stages = reinterpret_cast<__nv_bfloat16*>(sm + ly.bufs);
-  const int stage = g.ST * g.ldb;
-  __nv_bfloat16* Wsm = reinterpret_cast<__nv_bfloat16*>(sm + ly.w);
-  const bool res_w = (A.flags & RES_WEIGHTS) != 0;
-  float* gacc = (A.flags & RES_GRAD) ? reinterpret_cast<float*>(sm + ly.gacc) : nullptr;
-  float* red = reinterpret_cast<float*>(sm + ly.red);
-  float* red2 = reinterpret_cast<float*>(sm + ly.red2);
-  float* xs = reinterpret_cast<float*>(sm + ly.xs);
-  float* ct = reinterpret_cast<float*>(sm + ly.ct);
-  float* ps = reinterpret_cast<float*>(sm + ly.ps);
-  float* proj = reinterpret_cast<float*>(sm + ly.proj);
-  float* grow_g = A.partial + (size_t)blockIdx.x * A.row;
-  float* grow = gacc ? gacc : grow_g;     // where the tiles add their dW/db
-  // the hidden dW on chip in fragment order (mma::frag_ok)
-  const bool frag = gacc && mma::frag_ok(net);
-  // the saved stages: stage k at scr + (k-1) * sst, this thread's lane
-  const size_t sst = (size_t)g.nblk * (g.NU + 1) * 32;
-  float4* scr = reinterpret_cast<float4*>(A.scratch +
-                                          (size_t)blockIdx.x * mma::scratch_floats(net, g)) +
-                (threadIdx.x & 31);
-
-  for (int i = threadIdx.x; i < A.row; i += NT) grow[i] = 0.f;
-  {  // the stages start at zero: padding rows and columns are never written
-    uint4* z = reinterpret_cast<uint4*>(sm + ly.bufs);
-    for (int i = threadIdx.x; i < (ly.w - ly.bufs) / 16; i += NT) z[i] = make_uint4(0, 0, 0, 0);
-  }
-  if (res_w)
-    for (int k = 1; k < K - 1; ++k)
-      mma::stage_w(A.params + net.off[k], net.w[k], net.w[k + 1],
-                   Wsm + mma::woff_bytes(net, k) / 2, mma::ldw_of(net, k));
-  __syncthreads();
-
-  const int wl = net.w[K - 1];
-  const float* wlast = A.params + net.off[K - 1];
-  const float blast = wlast[wl];
-
-  for (int tile = blockIdx.x; tile < A.n_tiles; tile += gridDim.x) {
-    const int base = tile * T;
-    load_tile(A.X, A.N, d, base, T, xs);
-    __syncthreads();
-    // forward: stage 1 from the input layer, then the hidden products
-    mma::fwd_input(net, g, xs, A.params + net.off[0], stages, scr, K == 2, wlast, red);
-    __syncthreads();
-    __nv_bfloat16 *in = stages, *out = stages + stage;
-    for (int k = 1; k < K - 1; ++k) {
-      const __nv_bfloat16* Wk = stage_or_resident(A, res_w, Wsm, k);
-      mma::fwd_product(net, g, k, in, Wk, mma::ldw_of(net, k),
-                       A.params + net.off[k] + net.w[k] * net.w[k + 1], out, scr + k * sst,
-                       k + 1 == K - 1, wlast, red);
-      __syncthreads();
-      __nv_bfloat16* t = in;
-      in = out;
-      out = t;
-    }
-    // the projection: the n-blocks' partials in order
-    {
-      const int nbl = mma::np8(wl) / 8;
-      for (int r = threadIdx.x; r < S * T; r += NT) {
-        float acc = 0.f;
-        for (int nb = 0; nb < nbl; ++nb) acc += red[nb * g.ST + r];
-        proj[r] = r < T ? acc + blast : acc;
-      }
-    }
-    __syncthreads();
-    point_terms<MODE>(A, T, base, proj, xs, ct, ps, grow);
-    // reverse: the last stage from the rank-one cotangent ct * wlast
-    mma::bwd_stage(net, g, K - 1, true, nullptr, nullptr, 0, ct, wlast, scr + (K - 2) * sst,
-                   nullptr, stages, red2);
-    __syncthreads();
-    for (int j = threadIdx.x; j < wl; j += NT) {
-      float a = 0.f, b = 0.f;
-      for (int pb = 0; pb < g.NPB; ++pb) {
-        a += red2[(pb * S + S - 1) * g.wq + j];
-        b += red2[pb * S * g.wq + j];
-      }
-      grow[net.off[K - 1] + j] += a;
-      if (K > 2) grow[net.off[K - 2] + net.w[K - 2] * wl + j] += b;
-    }
-    // stage k: D holds D_{k+1}; M_k and D_k go to the two free stages
-    __nv_bfloat16 *D = stages, *F1 = stages + stage, *F2 = stages + 2 * stage;
-    for (int k = K - 2; k >= 1; --k) {
-      __syncthreads();
-      const __nv_bfloat16* Wk = stage_or_resident(A, res_w, Wsm, k);
-      mma::bwd_stage(net, g, k, false, D, Wk, mma::ldw_of(net, k), ct, wlast,
-                     scr + (k - 1) * sst, F1, F2, red2);
-      __syncthreads();
-      if (k >= 2)
-        for (int j = threadIdx.x; j < net.w[k]; j += NT) {
-          float b = 0.f;
-          for (int pb = 0; pb < g.NPB; ++pb) b += red2[pb * S * g.wq + j];
-          grow[net.off[k - 1] + net.w[k - 1] * net.w[k] + j] += b;
-        }
-      mma::dw_product(net, g, k, F1, D, grow, frag);
-      __nv_bfloat16* freed = D;
-      D = F2;
-      F2 = F1;
-      F1 = freed;
-    }
-    __syncthreads();
-    mma::dw0(net, g, xs, D, red2, grow);
-    __syncthreads();
-  }
-  // the row on chip goes out once (its hidden dW in flat order)
-  if (gacc) {
-    for (int i = threadIdx.x; i < A.row; i += NT) grow_g[i] = gacc[i];
-    if (frag) {
-      __syncthreads();
-      mma::dw_unfrag(net, gacc, grow_g);
-    }
-  }
-}
-
 }  // namespace
 
 // The planned kernels come in two variants (FOLD, the activation in the
@@ -413,9 +273,13 @@ __global__ void __launch_bounds__(NT, 2) fused_drm_energy_planned(PArgs a) {
 }
 // the tensor-core design at two blocks per SM (the plan counts on them; a
 // third block's 85-register budget spills, chip_smoke.py mma_sweep)
+// (fwdlap_mma.cuh's body: the loss terms form the cotangents)
 template <int MODE>
 __global__ void __launch_bounds__(NT, 2) fused_mma_kernel(PArgs a) {
-  fused_body_mma<MODE>(a);
+  mma::body<mma::KIND_FUSED>(a, [&](int base, const float* proj, const float* xs, float* ct,
+                                    float* ps, float* grow) {
+    point_terms<MODE>(a, a.T, base, proj, xs, ct, ps, grow);
+  });
 }
 
 // out[j] = sum_g partial[g][j].  One loop over all G rows per output is a

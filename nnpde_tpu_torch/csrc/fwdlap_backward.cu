@@ -16,17 +16,18 @@
 // 4*(2d+2) bytes read, so the fp32 CUDA-core rate is the ceiling.  What the
 // design does about it: the shared per-tile core (fwdlap_core.cuh: one
 // shared-memory product per layer over all d+2 streams, cp.async for
-// weights and saved stages), in the core's design 0 for the BF16 variant
-// and in the planned design of fwdlap_planned.cuh for fp32 (the launch
-// plan at two blocks per SM, W^T from device memory, two-point items where
-// their one-wave tile fits).
+// weights and saved stages) in the planned design of fwdlap_planned.cuh
+// (the launch plan at two blocks per SM, W^T from device memory, two-point
+// items where their one-wave tile fits).
 //
-// The BF16 variant is the TPU kernel's dot_dtype='bfloat16' (the backward
-// of the bulk of compute_dtype='hybrid-kernel' on the jet pair): every
-// product operand of the recompute and of the reverse sweep rounded to
-// bf16, fp32 accumulation on the same CUDA-core products (fwdlap_core.cuh,
-// "BF16").  Same FLOP at the same rate plus the rounding: no faster than
-// the fp32 variant; the bf16 tensor cores are a redesign of their own.
+// The bf16-dot mode (fwdlap_backward_mma) is the TPU kernel's
+// dot_dtype='bfloat16' (the backward of the bulk of
+// compute_dtype='hybrid-kernel' on the jet pair): every product operand of
+// the recompute and of the reverse sweep rounded to bf16, fp32
+// accumulation, on the bf16 tensor cores in the design of fwdlap_mma.cuh
+// (DES_MMA; bound: the same FLOP at 989 TFLOP/s).  It is the fused
+// kernels' tensor-core body with the cotangent rows loaded in place of the
+// loss terms and without the projection (body<KIND_BWD>).
 //
 // Determinism: per-block partial rows, fixed in-block orders, one ordered
 // reduction in double, no atomics -- two launches are bitwise equal.
@@ -34,7 +35,7 @@
 // Interface: plain C (ctypes), float32 only, weights flattened as
 // [W0, b0, W1, b1, ...].  Launches on the given stream, never synchronises,
 // and returns cudaGetLastError().
-#include "fwdlap_planned.cuh"
+#include "fwdlap_mma.cuh"
 
 using namespace fwdlap;
 
@@ -57,7 +58,7 @@ struct PBwdArgs : BwdArgs {
 };
 
 // Shared-memory floats of one block for (T, flags): the planned kernel's
-// layout; design 0's is that of flags 0.  Mirrored by
+// layout.  Mirrored by
 // kernels/fwdlap_cuda.py::backward_smem_floats.
 __host__ __device__ inline int bwd_smem_floats(const Net& net, int T, int flags) {
   const int d = net.d, S = net.S, ld = net.wmax, stage = S * T * ld;
@@ -67,44 +68,6 @@ __host__ __device__ inline int bwd_smem_floats(const Net& net, int T, int flags)
 }
 
 }  // namespace
-
-// (in variants: FOLD, the activation in the products' epilogues, for nets
-// with at most 4 streams; BF16, the bf16-dot mode, the one this design-0
-// kernel runs: fp32 takes the planned kernel below; the wrapper chooses)
-template <bool FOLD, bool BF16>
-__global__ void __launch_bounds__(NT) fwdlap_backward_kernel(BwdArgs A) {
-  extern __shared__ __align__(16) float smem[];
-  const Net& net = A.net;
-  const int T = A.T, d = net.d, S = net.S, ld = net.wmax;
-  float* bufA = smem;
-  float* bufB = bufA + S * T * ld;
-  float* bufC = bufB + S * T * ld;        // pre-activations of one stage
-  float* Wsh = bufC + S * T * ld;
-  float* xs = Wsh + ld * ld;
-  float* ct = xs + T * d;                 // [ct_v | ct_g (d) | ct_l] x T
-  float* red = ct + S * T;                // reduction scratch, NT
-  float* grow = A.partial + (size_t)blockIdx.x * net.P;
-  float* scratch = A.scratch + (size_t)blockIdx.x * (net.K - 2) * S * T * ld;
-
-  for (int i = threadIdx.x; i < net.P; i += NT) grow[i] = 0.f;
-  __syncthreads();
-
-  for (int tile = blockIdx.x; tile < A.n_tiles; tile += gridDim.x) {
-    const int base = tile * T;
-    load_tile(A.X, A.N, d, base, T, xs);
-    // ct[s * T + p] = CT[base + p][s]; rows past N carry zero cotangents
-    for (int i = threadIdx.x; i < T * S; i += NT) {
-      const int p = i / S, s = i - p * S;
-      ct[s * T + p] = base + p < A.N ? A.ct[(size_t)(base + p) * S + s] : 0.f;
-    }
-    __syncthreads();
-    float* cur = bufA;
-    float* nxt = bufB;
-    fwd_recompute<false, FOLD, BF16>(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch);
-    reverse_sweep<false, FOLD, BF16>(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch, ct,
-                                     red, grow);
-  }
-}
 
 // The planned design (fwdlap_planned.cuh, DES != 0) at two blocks per SM
 // (the plan counts on them, so the register budget is stated), with the
@@ -165,9 +128,15 @@ __global__ void __launch_bounds__(NT, 2) fwdlap_backward_planned(PBwdArgs A) {
     for (int i = threadIdx.x; i < net.P; i += NT) grow_g[i] = gacc[i];
 }
 
+// The tensor-core design (fwdlap_mma.cuh, DES_MMA) of the bf16-dot mode at
+// two blocks per SM (its plan counts on them, so the register budget is
+// stated).
+__global__ void __launch_bounds__(NT, 2) fwdlap_backward_mma(mma::JetArgs a) {
+  mma::body<mma::KIND_BWD>(a, [](int, const float*, const float*, float*, float*, float*) {});
+}
+
 namespace {
 
-typedef void (*BwdKernelFn)(BwdArgs);
 typedef void (*PBwdKernelFn)(PBwdArgs);
 
 template <bool FOLD>
@@ -179,42 +148,52 @@ PBwdKernelFn planned_by(int des) {
   }
 }
 
-// The kernel of a variant: the BF16 variant is design 0, the core's kernel;
-// fp32 takes a planned design.
+// The kernel of a variant: the bf16-dot mode runs the tensor-core design
+// (des == DES_MMA, no fold) and only it; fp32 a planned design.
 const void* bwd_variant_fn(int fold, int bf16, int des) {
-  if (bf16)
-    return des != 0 ? nullptr
-                    : fold ? (const void*)fwdlap_backward_kernel<true, true>
-                           : (const void*)fwdlap_backward_kernel<false, true>;
+  if (bf16) return des == DES_MMA && !fold ? (const void*)fwdlap_backward_mma : nullptr;
   return fold ? (const void*)planned_by<true>(des) : (const void*)planned_by<false>(des);
+}
+
+// The net and tile geometry of a tensor-core query (fwdlap_backward_mma_*).
+bool mma_net(const int* layers, int n_layers, int T, Net* net, mma::Geo* g) {
+  return make_net(1, layers, n_layers, 0, net) && mma::make_geo(*net, T, g);
 }
 
 }  // namespace
 
 extern "C" {
 
-// X (N, d), ct (N, d+2), params flat; partial (G, P), scratch (G, K-2,
-// d+2, T, wmax), out (P): [dW0, db0, ...,
-// dW_last, 0] (the last bias's slot is left zero).  T points per tile, G
-// blocks; fold: the variant with the activation in the products' epilogues
-// (nets with at most 4 streams); bf16: the bf16-dot variant (design 0); des:
-// the design (fwdlap_planned.cuh); flags: the plan's Flags (des != 0, else
-// 0).  smem_bytes must hold the kernel's layout for (T, flags).  wt:
-// the hidden weights' transposes W_1^T, ..., W_{K-2}^T (true sizes,
-// row-major, back to back), read by a planned design (may be null for
-// design 0).
+// X (N, d), ct (N, d+2), params flat; partial (G, P); out (P): [dW0, db0,
+// ..., dW_last, 0] (the last bias's slot is left zero).  T points per tile,
+// G blocks; fold: the variant with the activation in the products'
+// epilogues (nets with at most 4 streams; a planned design); bf16: the
+// bf16-dot mode, which runs the tensor-core design (des == DES_MMA) and
+// only it; des: the design (fwdlap_planned.cuh's Design, or DES_MMA);
+// flags: the plan's Flags.  smem_bytes must hold the kernel's layout for
+// (T, flags).  scratch: the saved stages, (G, K-2, d+2, T, wmax) floats in
+// a planned design, (G, fwdlap_backward_mma_scratch_floats) in the
+// tensor-core one.  wt: the hidden weights' transposes W_1^T, ...,
+// W_{K-2}^T (true sizes, row-major, back to back), read by a planned design
+// (null for the tensor-core design, which reads W_k both ways).
 int fwdlap_backward_f32(const float* X, const float* ct, const float* params,
                         const float* wt, const int* layers, int n_layers, int act, int N,
                         int T, int G, int fold, int bf16, int des, int flags, float* partial,
                         float* scratch, float* out, int smem_bytes, void* stream) {
   PBwdArgs a;
   const void* fn = bwd_variant_fn(fold, bf16, des);
-  if (fn == nullptr || !make_net(1, layers, n_layers, act, &a.net) || N < 1 || T < 4 ||
-      T % 4 != 0 || T > NT / 2 || G < 1 || (fold && a.net.S > 4) || flags < 0 ||
-      flags > 7 || (des == 0 && flags != 0) ||
-      (a.net.K > 2 && (scratch == nullptr || (des != 0 && wt == nullptr))) ||
-      4 * bwd_smem_floats(a.net, T, flags) > smem_bytes)
-    return (int)cudaErrorInvalidValue;
+  bool ok = fn != nullptr && make_net(1, layers, n_layers, act, &a.net) && N >= 1 &&
+            G >= 1 && flags >= 0 && flags <= 7;
+  if (ok && des == DES_MMA) {
+    mma::Geo g;
+    ok = mma::make_geo(a.net, T, &g) && scratch != nullptr &&
+         mma::layout(a.net, g, flags, mma::KIND_BWD).total <= smem_bytes;
+  } else if (ok) {
+    ok = T >= 4 && T % 4 == 0 && T <= NT / 2 && !(fold && a.net.S > 4) &&
+         !(a.net.K > 2 && (scratch == nullptr || wt == nullptr)) &&
+         4 * bwd_smem_floats(a.net, T, flags) <= smem_bytes;
+  }
+  if (!ok) return (int)cudaErrorInvalidValue;
   a.X = X;
   a.ct = ct;
   a.params = params;
@@ -228,10 +207,24 @@ int fwdlap_backward_f32(const float* X, const float* ct, const float* params,
   cudaError_t err = ensure_smem(fn, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  if (des == 0)
-    ((BwdKernelFn)fn)<<<G, NT, smem_bytes, s>>>(static_cast<const BwdArgs&>(a));
-  else
+  if (des == DES_MMA) {
+    mma::JetArgs m;
+    m.net = a.net;
+    m.X = X;
+    m.ct = ct;
+    m.params = params;
+    m.partial = partial;
+    m.scratch = scratch;
+    m.out = nullptr;
+    m.N = N;
+    m.T = T;
+    m.n_tiles = a.n_tiles;
+    m.row = a.net.P;
+    m.flags = flags;
+    fwdlap_backward_mma<<<G, NT, smem_bytes, s>>>(m);
+  } else {
     ((PBwdKernelFn)fn)<<<G, NT, smem_bytes, s>>>(a);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)reduce_rows(partial, G, a.net.P, out, s);
@@ -252,6 +245,22 @@ int fwdlap_backward_smem_bytes(const int* layers, int n_layers, int T, int flags
   Net net;
   if (!make_net(1, layers, n_layers, 0, &net)) return -1;
   return 4 * bwd_smem_floats(net, T, flags);
+}
+
+// The tensor-core design's shared-memory bytes for (T, flags) and its
+// saved-stage floats per block, or -1 for a net or tile it does not take.
+int fwdlap_backward_mma_smem_bytes(const int* layers, int n_layers, int T, int flags) {
+  Net net;
+  mma::Geo g;
+  if (!mma_net(layers, n_layers, T, &net, &g)) return -1;
+  return mma::layout(net, g, flags, mma::KIND_BWD).total;
+}
+
+int fwdlap_backward_mma_scratch_floats(const int* layers, int n_layers, int T) {
+  Net net;
+  mma::Geo g;
+  if (!mma_net(layers, n_layers, T, &net, &g)) return -1;
+  return (int)mma::scratch_floats(net, g, mma::KIND_BWD);
 }
 
 }  // extern "C"

@@ -64,22 +64,6 @@
 // activation pack and the mid streams are recomputed from the saved
 // pre-activations.
 
-// BF16 (template parameter of fwd_recompute and reverse_sweep, beside RES
-// and FOLD; the four kernels of the bf16-dot training bulk come in BF16
-// variants, the wrapper picks one): the TPU kernels' dot_dtype='bfloat16'
-// (and _forward_kernel2's single-pass 'default' dots).  Every product
-// operand is rounded to bf16 (round to nearest even) and the products
-// accumulate in fp32 on the CUDA cores, as in the fp32 variant: the product
-// of two bf16 values is exact in fp32, so only the order of the sums differs
-// from the TPU.  Weights are rounded once, where a tile stages them
-// (round_staged after stage_weights, load_transposed); stream operands are
-// rounded where a product reads them into its register tile (mm_rows,
-// mm_act, mm_act_bwd, accum_dW, the input layer's products), because their
-// fp32 values also feed q = sum J^2, the activation packs and the reverse
-// nonlinearity.  Not rounded: the layer-0 Jacobian seed rows, the
-// last-layer projection and dWlast, the db sums and the Jacobian-row sums
-// added to dW0.
-//
 // Determinism.  Each element of dW/db and each loss sum is always updated by
 // the same thread (or the same group of lanes through a fixed shuffle tree)
 // in the same tile order, in-block reductions use fixed trees, and a second
@@ -87,7 +71,6 @@
 // on the same inputs are bitwise equal.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -164,24 +147,6 @@ __device__ __forceinline__ float lane(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-// x rounded to the nearest bf16 value (ties to even), kept as a float; the
-// identity unless BF16.
-template <bool BF16>
-__device__ __forceinline__ float rd(float x) {
-  if constexpr (BF16) return __bfloat162float(__float2bfloat16_rn(x));
-  return x;
-}
-
-template <bool BF16>
-__device__ __forceinline__ float4 rd4(float4 v) {
-  if constexpr (BF16) {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-    return make_float4(__low2float(lo), __high2float(lo), __low2float(hi), __high2float(hi));
-  }
-  return v;
-}
-
 // acc[q][c] += a[q].(kk) * w.(c) for a 4 x 4 register tile.
 __device__ __forceinline__ void fma_tile(float (&acc)[4][4], const float4 (&a)[4],
                                          int kk, const float4& w) {
@@ -199,9 +164,7 @@ __device__ __forceinline__ void fma_tile(float (&acc)[4][4], const float4 (&a)[4
 // j < bias_cols).  rows, kdim, ncols, ld_in, ld_out all multiples of 4.
 // Each item is a 4-row x 4-column register tile: per 4 k's it reads 4 + 4
 // float4s from shared memory for 64 FMAs (the row reads are warp
-// broadcasts).  BF16: the rows are rounded as they are read (W is rounded
-// where it was staged).
-template <bool BF16 = false>
+// broadcasts).
 __device__ __forceinline__ void mm_rows(const float* __restrict__ in, int ld_in,
                                         int rows, int kdim,
                                         const float* __restrict__ W, int ncols,
@@ -219,7 +182,7 @@ __device__ __forceinline__ void mm_rows(const float* __restrict__ in, int ld_in,
       float4 a[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q)
-        a[q] = rd4<BF16>(*reinterpret_cast<const float4*>(in + (r0 + q) * ld_in + k));
+        a[q] = *reinterpret_cast<const float4*>(in + (r0 + q) * ld_in + k);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         fma_tile(acc, a, kk,
@@ -303,7 +266,7 @@ __device__ __forceinline__ void stage_mid(const Net& net, int T, int k,
 // one thread holds all it needs for the activation: it saves pre to `save`
 // (same layout; may be null) and writes the mid streams (stage_mid's
 // arithmetic, in its order) to `out`.  kdim, ncols multiples of 4.
-template <int SS, bool BF16 = false>
+template <int SS>
 __device__ __forceinline__ void mm_act(const Net& net, int T, const float* __restrict__ in,
                                        int kdim, const float* __restrict__ W, int ncols,
                                        const float* __restrict__ bias, int bias_cols,
@@ -319,7 +282,7 @@ __device__ __forceinline__ void mm_act(const Net& net, int T, const float* __res
       float4 a[SS];
 #pragma unroll
       for (int s = 0; s < SS; ++s)
-        a[s] = rd4<BF16>(*reinterpret_cast<const float4*>(in + p * ld + s * sT + k));
+        a[s] = *reinterpret_cast<const float4*>(in + p * ld + s * sT + k);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         const float4 w = *reinterpret_cast<const float4*>(W + (k + kk) * ncols + j0);
@@ -390,35 +353,15 @@ __device__ __forceinline__ void stage_weights(const Net& net, float* Wsh, const 
   __pipeline_commit();
 }
 
-// BF16: round the (wip, wop) matrix that stage_weights put in Wsh to bf16,
-// each thread the entries it staged itself (stage_weights's distribution),
-// after copy_wait() and before the barrier that publishes them: no barrier
-// of its own.  Nothing unless BF16.
-template <bool BF16>
-__device__ __forceinline__ void round_staged(const Net& net, float* Wsh, int wip, int wop) {
-  if constexpr (BF16) {
-    const int n = wip * wop;
-    if (net.aligned) {
-      for (int f = threadIdx.x * 4; f < n; f += NT * 4) {
-        float4* w = reinterpret_cast<float4*>(Wsh + f);
-        *w = rd4<true>(*w);
-      }
-    } else {
-      for (int f = threadIdx.x; f < n; f += NT) Wsh[f] = rd<true>(Wsh[f]);
-    }
-  }
-}
-
 // Wt[j][i] = W[i][j] (j < wop, i < wip; zero past the (wi, wo) matrix of
-// device memory), rounded to bf16 when BF16.  Aligned nets: four float4
-// loads in flight per thread, scattered stores.
-template <bool BF16 = false>
+// device memory).  Aligned nets: four float4 loads in flight per thread,
+// scattered stores.
 __device__ __forceinline__ void load_transposed(const Net& net, float* Wt, const float* W,
                                                 int wi, int wo, int wip, int wop) {
   if (!net.aligned) {
     for (int f = threadIdx.x; f < wip * wop; f += NT) {
       const int i = f / wop, j = f - i * wop;
-      Wt[j * wip + i] = (i < wi && j < wo) ? rd<BF16>(W[i * wo + j]) : 0.f;
+      Wt[j * wip + i] = (i < wi && j < wo) ? W[i * wo + j] : 0.f;
     }
     return;
   }
@@ -428,7 +371,7 @@ __device__ __forceinline__ void load_transposed(const Net& net, float* Wt, const
     float4 v[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u)
-      if (f0 + u * NT < n4) v[u] = rd4<BF16>(W4[f0 + u * NT]);
+      if (f0 + u * NT < n4) v[u] = W4[f0 + u * NT];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int f = f0 + u * NT;
@@ -495,9 +438,8 @@ __device__ __forceinline__ void load_coef_tile(const float* __restrict__ coef, i
 // On return `cur` holds the mid streams of the last hidden stage, `last`
 // (shared) its pre-activation streams, and the scratch slice the earlier
 // stages' pre-activation streams.  A kernel with no reverse sweep passes
-// null for `last` and `scratch`: nothing is saved.  BF16: the bf16-dot
-// variant (the products' operands rounded; header note).
-template <bool RES = false, bool FOLD = false, bool BF16 = false>
+// null for `last` and `scratch`: nothing is saved.
+template <bool RES = false, bool FOLD = false>
 __device__ inline void fwd_recompute(const Net& net, int T, const float* __restrict__ xs,
                                      const float* __restrict__ params, float*& cur,
                                      float*& nxt, float* last, float* Wsh, float* scratch,
@@ -507,7 +449,6 @@ __device__ inline void fwd_recompute(const Net& net, int T, const float* __restr
   // without RES the policy is the default whatever `res` holds, and the
   // compiler sees it: kernels that stage per tile compile to exactly that
   const float* resW = RES ? res.W : nullptr;
-  static_assert(!(RES && BF16), "the resident weights are not rounded: no BF16 variant");
   // FOLD (S <= 4): the activation is applied in the epilogue of the product
   // that makes each stage (mm_act); otherwise a separate pass (stage_mid)
   // after mm_rows.  A compile-time choice: each kernel comes in both
@@ -529,7 +470,7 @@ __device__ inline void fwd_recompute(const Net& net, int T, const float* __restr
 #pragma unroll 1
       for (int i = 0; i < d; ++i) {
         const float wij = real ? W0[i * w1 + j] : 0.f;
-        v = fmaf(rd<BF16>(xs[p * d + i]), rd<BF16>(wij), v);
+        v = fmaf(xs[p * d + i], wij, v);
         cur[o0 + (1 + i) * sT] = wij;   // the Jacobian seed rows stay fp32
       }
       v = real ? v + b0[j] : 0.f;
@@ -565,17 +506,16 @@ __device__ inline void fwd_recompute(const Net& net, int T, const float* __restr
       if (!resW) {
         if (k > 1) stage_weights(net, Wsh, Wk, wk, wn, wkp, wnp);
         copy_wait();
-        round_staged<BF16>(net, Wsh, wkp, wnp);
         __syncthreads();
       }
       float* save = k + 1 == net.K - 1 ? last : scratch ? scratch + k * stage_sz : nullptr;
       const float* Wm = resW ? resW + woff : Wsh;
       if (S == 2)
-        mm_act<2, BF16>(net, T, cur, wkp, Wm, wnp, Wk + wk * wn, wn, nxt, save);
+        mm_act<2>(net, T, cur, wkp, Wm, wnp, Wk + wk * wn, wn, nxt, save);
       else if (S == 3)
-        mm_act<3, BF16>(net, T, cur, wkp, Wm, wnp, Wk + wk * wn, wn, nxt, save);
+        mm_act<3>(net, T, cur, wkp, Wm, wnp, Wk + wk * wn, wn, nxt, save);
       else                                // S == 4 (the launch checks S <= 4)
-        mm_act<4, BF16>(net, T, cur, wkp, Wm, wnp, Wk + wk * wn, wn, nxt, save);
+        mm_act<4>(net, T, cur, wkp, Wm, wnp, Wk + wk * wn, wn, nxt, save);
       woff += wkp * wnp;
       __syncthreads();
       float* t = cur; cur = nxt; nxt = t;
@@ -592,13 +532,10 @@ __device__ inline void fwd_recompute(const Net& net, int T, const float* __restr
     if (final_stage) break;
     const int wn = net.w[k + 1];
     const float* Wk = params + net.off[k];
-    if (!resW) {
-      copy_wait();
-      round_staged<BF16>(net, Wsh, wkp, net.wp[k + 1]);
-    }
+    if (!resW) copy_wait();
     __syncthreads();
-    mm_rows<BF16>(cur, ld, S * T, wkp, resW ? resW + woff : Wsh, net.wp[k + 1], nxt, ld,
-                  Wk + wk * wn, T, wn);
+    mm_rows(cur, ld, S * T, wkp, resW ? resW + woff : Wsh, net.wp[k + 1], nxt, ld,
+            Wk + wk * wn, T, wn);
     woff += wkp * net.wp[k + 1];
     __syncthreads();
     float* t = cur; cur = nxt; nxt = t;
@@ -726,7 +663,7 @@ __device__ __forceinline__ void stage_mid_bwd(const Net& net, int T, int k, floa
 // pre-activations of those entries from `saved` (device memory) to `pre` by
 // cp.async while the product runs, overwrites them with their cotangents,
 // and writes the mid streams to `x`.  kdim, ncols multiples of 4.
-template <int SS, bool BF16 = false>
+template <int SS>
 __device__ __forceinline__ void mm_act_bwd(const Net& net, int T, const float* __restrict__ D,
                                            int kdim, const float* __restrict__ Wt, int ncols,
                                            const float* __restrict__ saved,
@@ -747,7 +684,7 @@ __device__ __forceinline__ void mm_act_bwd(const Net& net, int T, const float* _
       float4 a[SS];
 #pragma unroll
       for (int s = 0; s < SS; ++s)
-        a[s] = rd4<BF16>(*reinterpret_cast<const float4*>(D + p * ld + s * sT + k));
+        a[s] = *reinterpret_cast<const float4*>(D + p * ld + s * sT + k);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         const float4 w = *reinterpret_cast<const float4*>(Wt + (k + kk) * ncols + j0);
@@ -809,8 +746,7 @@ __device__ __forceinline__ void mm_act_bwd(const Net& net, int T, const float* _
 // the value rows (r < T) of D.  dW is the true (wi, wo) matrix of device
 // memory; the products run over the rounded (wip, wop) tiles of shared
 // memory and entries past (wi, wo) are dropped.  Each item is a 4 x 4
-// register tile of dW: two float4 reads per row feed 16 FMAs.  BF16: M and D
-// are rounded as they are read; the db sums take D's fp32 values.
+// register tile of dW: two float4 reads per row feed 16 FMAs.
 //
 // `narrow` with at most NT/2 items: a group of 8 neighbouring lanes shares
 // one item, lane c of the group taking rows c, c + 8, ..., and the group's
@@ -822,7 +758,6 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
-template <bool BF16 = false>
 __device__ __forceinline__ void accum_dW(int rows, int T, int ld, int wi, int wo,
                                          int wip, int wop, const float* M,
                                          const float* D, float* dW, float* db,
@@ -839,8 +774,8 @@ __device__ __forceinline__ void accum_dW(int rows, int T, int ld, int wi, int wo
       float acc[4][4] = {};
       if (live) {
         for (int r = c; r < rows; r += 8) {
-          const float4 m = rd4<BF16>(*reinterpret_cast<const float4*>(M + r * ld + i0));
-          const float4 dv = rd4<BF16>(*reinterpret_cast<const float4*>(D + r * ld + j0));
+          const float4 m = *reinterpret_cast<const float4*>(M + r * ld + i0);
+          const float4 dv = *reinterpret_cast<const float4*>(D + r * ld + j0);
           const float4 a[4] = {make_float4(m.x, 0.f, 0.f, 0.f), make_float4(m.y, 0.f, 0.f, 0.f),
                                make_float4(m.z, 0.f, 0.f, 0.f), make_float4(m.w, 0.f, 0.f, 0.f)};
           fma_tile(acc, a, 0, dv);
@@ -876,8 +811,8 @@ __device__ __forceinline__ void accum_dW(int rows, int T, int ld, int wi, int wo
     const int i0 = ig << 2, j0 = (it - ig * jgs) << 2;
     float acc[4][4] = {};
     for (int r = 0; r < rows; ++r) {
-      const float4 m = rd4<BF16>(*reinterpret_cast<const float4*>(M + r * ld + i0));
-      const float4 dv = rd4<BF16>(*reinterpret_cast<const float4*>(D + r * ld + j0));
+      const float4 m = *reinterpret_cast<const float4*>(M + r * ld + i0);
+      const float4 dv = *reinterpret_cast<const float4*>(D + r * ld + j0);
       const float4 a[4] = {make_float4(m.x, 0.f, 0.f, 0.f), make_float4(m.y, 0.f, 0.f, 0.f),
                            make_float4(m.z, 0.f, 0.f, 0.f), make_float4(m.w, 0.f, 0.f, 0.f)};
       fma_tile(acc, a, 0, dv);
@@ -908,8 +843,8 @@ __device__ __forceinline__ void accum_dW(int rows, int T, int ld, int wi, int wo
 // grad, lap).  Each earlier stage's pre-activations are copied back from
 // scratch and overwritten by their cotangents; `cur`, `nxt` and `pre` are
 // all consumed.  Accumulates dW/db into the block's partial row `grow` (flat
-// parameter layout).  BF16: the bf16-dot variant (header note).
-template <bool RES = false, bool FOLD = false, bool BF16 = false>
+// parameter layout).
+template <bool RES = false, bool FOLD = false>
 __device__ inline void reverse_sweep(const Net& net, int T, const float* __restrict__ xs,
                                      const float* __restrict__ params, float* cur,
                                      float* nxt, float* pre, float* Wsh,
@@ -919,7 +854,6 @@ __device__ inline void reverse_sweep(const Net& net, int T, const float* __restr
   const int stage_sz = S * T * ld;
   const int wl = net.w[K - 1];
   const float* wlast = params + net.off[K - 1];
-  static_assert(!(RES && BF16), "the resident weights are not rounded: no BF16 variant");
   // dWlast[j] += sum_r mid[r][j] * ct[r] over the S*T rows r = (s, p):
   // `parts` threads per column, each over every parts-th row, then the
   // partial sums are added in a fixed order
@@ -959,31 +893,31 @@ __device__ inline void reverse_sweep(const Net& net, int T, const float* __restr
       // dmid = D W^T and the stage's nonlinearity in one pass (mm_act_bwd),
       // each thread copying back the saved entries it reads
       if (!resWt) {
-        load_transposed<BF16>(net, Wsh, params + net.off[k], wk, wn, wkp, wnp);
+        load_transposed(net, Wsh, params + net.off[k], wk, wn, wkp, wnp);
         __syncthreads();
       }
       if (S == 2)
-        mm_act_bwd<2, BF16>(net, T, D, wnp, Wm, wkp, saved, P, X);
+        mm_act_bwd<2>(net, T, D, wnp, Wm, wkp, saved, P, X);
       else if (S == 3)
-        mm_act_bwd<3, BF16>(net, T, D, wnp, Wm, wkp, saved, P, X);
+        mm_act_bwd<3>(net, T, D, wnp, Wm, wkp, saved, P, X);
       else                                // S == 4
-        mm_act_bwd<4, BF16>(net, T, D, wnp, Wm, wkp, saved, P, X);
+        mm_act_bwd<4>(net, T, D, wnp, Wm, wkp, saved, P, X);
       __syncthreads();
     } else {
       copy_async(P, saved, stage_sz);
       if (!resWt) {
-        load_transposed<BF16>(net, Wsh, params + net.off[k], wk, wn, wkp, wnp);
+        load_transposed(net, Wsh, params + net.off[k], wk, wn, wkp, wnp);
         __syncthreads();
       }
       // dmid = D W^T
-      mm_rows<BF16>(D, ld, S * T, wnp, Wm, wkp, X, ld, nullptr, 0, 0);
+      mm_rows(D, ld, S * T, wnp, Wm, wkp, X, ld, nullptr, 0, 0);
       copy_wait();
       __syncthreads();
       stage_mid_bwd(net, T, k, P, X);
       __syncthreads();
     }
     float* dW = grow + net.off[k];
-    accum_dW<BF16>(S * T, T, ld, wk, wn, wkp, wnp, X, D, dW, dW + wk * wn, narrow);
+    accum_dW(S * T, T, ld, wk, wn, wkp, wnp, X, D, dW, dW + wk * wn, narrow);
     __syncthreads();
     float* freed = D;
     D = P;
@@ -993,8 +927,7 @@ __device__ inline void reverse_sweep(const Net& net, int T, const float* __restr
   // input layer: v = x W0 + b0, J_i = W0[i, :]
   const int w1 = net.w[1];
   float* dW0 = grow + net.off[0];
-  // dW0[i][j] += sum_p x[p][i] dv[p][j] + sum_p dJ_i[p][j]; db0 = row d.
-  // BF16: x and dv rounded in the product; the dJ and db sums stay fp32
+  // dW0[i][j] += sum_p x[p][i] dv[p][j] + sum_p dJ_i[p][j]; db0 = row d
   const int items0 = (d + 1) * w1;
   if (narrow && 2 * items0 <= NT) {
     // a group of 8 lanes per entry, the points dealt to its lanes
@@ -1009,7 +942,7 @@ __device__ inline void reverse_sweep(const Net& net, int T, const float* __restr
           // selects, not a branch: the lane groups of a warp take
           // different entries (i), and a branch here diverges
           const float dv = D[p * ld + j];
-          acc = fmaf(i < d ? rd<BF16>(xs[p * d + i]) : 1.f, i < d ? rd<BF16>(dv) : dv, acc);
+          acc = fmaf(i < d ? xs[p * d + i] : 1.f, dv, acc);
           if (i < d) acc += D[((1 + i) * T + p) * ld + j];
         }
       }
@@ -1025,7 +958,7 @@ __device__ inline void reverse_sweep(const Net& net, int T, const float* __restr
     if (i < d) {
       float sj = 0.f;
       for (int p = 0; p < T; ++p) {
-        acc = fmaf(rd<BF16>(xs[p * d + i]), rd<BF16>(D[p * ld + j]), acc);
+        acc = fmaf(xs[p * d + i], D[p * ld + j], acc);
         sj += D[((1 + i) * T + p) * ld + j];
       }
       acc += sj;

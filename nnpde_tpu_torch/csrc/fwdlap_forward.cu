@@ -1,7 +1,7 @@
 // Jet forward: (value, grad, Laplacian) of a raw MLP at every point.
 //
-// fwdlap_forward_planned (fp32) and fwdlap_forward_kernel (its BF16
-// variant) replace nnpde_tpu/kernels/fwdlap_pallas.py::_forward_kernel2 (the
+// fwdlap_forward_planned (fp32) and fwdlap_forward_mma (its bf16-dot mode)
+// replace nnpde_tpu/kernels/fwdlap_pallas.py::_forward_kernel2 (the
 // VMEM-resident jet forward behind mlp_fwdlap_pallas, fwd_impl='pallas2'):
 // the forward-Laplacian recurrence over a tile of points, kept on chip,
 // with only the (N, d+2) jet written out.
@@ -35,23 +35,24 @@
 //     plan's share, else staged per layer per tile by cp.async (W_1 while the
 //     input layer runs).  A second staging buffer, each W_{k+1} copied while
 //     product k ran, was built and measured no faster (PERF.md, section 6).
-// The stream-major kernel and the row kernel's BF16 variant keep the core's
-// routines (fwdlap_core.cuh, "design 0") and the constant 16-point tile.
+// The stream-major kernel keeps the core's routines (fwdlap_core.cuh,
+// "design 0") and the constant 16-point tile.
 //
-// The row kernel also comes in a BF16 variant: _forward_kernel2's
+// The row kernel's bf16-dot mode, fwdlap_forward_mma: _forward_kernel2's
 // fwd_dot='default' (fwd_impl='pallas2:default'), single-pass dots, which
 // on the TPU round every dot operand to bf16 and accumulate in fp32; here
-// every product operand is rounded to bf16 and the CUDA-core products
-// accumulate in fp32 (fwdlap_core.cuh, "BF16"); the Jacobian seed rows and
-// the projection on the last layer's row stay fp32.  Same FLOP at the same
-// CUDA-core rate plus the rounding, so no faster than the fp32 variant:
-// the bf16 tensor cores are a redesign of their own.  The stream-major
-// kernel has no such mode (_forward_kernel runs HIGHEST).
+// the products run on the bf16 tensor cores in the design of
+// fwdlap_mma.cuh (DES_MMA; body<KIND_FWD>: the fused kernels' forward half
+// with nothing saved, the projection partials from the last stage's
+// epilogue), the Jacobian seed rows and the projection on the last layer's
+// row in fp32; its register budget is stated at the blocks per SM its plan
+// counts on (MINB = 3 or 2).  The stream-major kernel has no such mode
+// (_forward_kernel runs HIGHEST).
 //
 // Interface: plain C (ctypes), float32 only, weights flattened as
 // [W0, b0, W1, b1, ...] with row-major (in, out) W.  Launches on the given
 // stream, never synchronises, and returns cudaGetLastError().
-#include "fwdlap_planned.cuh"
+#include "fwdlap_mma.cuh"
 
 using namespace fwdlap;
 
@@ -71,7 +72,7 @@ struct PFwdArgs : FwdArgs {
 };
 
 // Shared-memory floats of one block for (T, flags): the planned kernel's
-// layout; flags 0 is design 0's (both kernels).  Mirrored by
+// layout; flags 0 is the stream-major kernel's.  Mirrored by
 // kernels/fwdlap_cuda.py::forward_smem_floats.
 __host__ __device__ inline int fwd_smem_floats(const Net& net, int T, int flags) {
   const int ld = net.wmax;
@@ -80,42 +81,6 @@ __host__ __device__ inline int fwd_smem_floats(const Net& net, int T, int flags)
 }
 
 }  // namespace
-
-// (each kernel in two variants: FOLD, the activation in the products'
-// epilogues, for nets with at most 4 streams; this design-0 row kernel runs
-// the BF16 variant, the bf16-dot mode, and fp32 takes the planned kernel
-// below; the wrapper chooses)
-template <bool FOLD, bool BF16>
-__global__ void __launch_bounds__(NT) fwdlap_forward_kernel(FwdArgs A) {
-  extern __shared__ __align__(16) float smem[];
-  const Net& net = A.net;
-  const int T = A.T, d = net.d, S = net.S, ld = net.wmax;
-  float* bufA = smem;
-  float* bufB = bufA + S * T * ld;
-  float* Wsh = bufB + S * T * ld;
-  float* xs = Wsh + ld * ld;
-  float* proj = xs + T * d;               // projected streams, S x T
-  const float* wlast = A.params + net.off[net.K - 1];
-  const float blast = wlast[net.w[net.K - 1]];
-
-  for (int tile = blockIdx.x; tile < A.n_tiles; tile += gridDim.x) {
-    const int base = tile * T;
-    load_tile(A.X, A.N, d, base, T, xs);
-    __syncthreads();
-    float* cur = bufA;
-    float* nxt = bufB;
-    fwd_recompute<false, FOLD, BF16>(net, T, xs, A.params, cur, nxt, nullptr, Wsh, nullptr);
-    project_last(net, T, cur, wlast, blast, proj);
-    __syncthreads();
-    // out[(base + p) * S + s] = proj[s * T + p]: consecutive threads write
-    // consecutive floats of the tile's rows
-    for (int i = threadIdx.x; i < T * S; i += NT) {
-      const int p = i / S, s = i - p * S;
-      if (base + p < A.N) A.out[(size_t)(base + p) * S + s] = proj[s * T + p];
-    }
-    __syncthreads();
-  }
-}
 
 // The planned design (fwdlap_planned.cuh: fwd_recompute_p in its
 // forward-only mode) with the plan's residency from A.flags: the hidden
@@ -163,6 +128,15 @@ __global__ void __launch_bounds__(NT, MINB) fwdlap_forward_planned(PFwdArgs A) {
   }
 }
 
+// The tensor-core design (fwdlap_mma.cuh, DES_MMA) of the bf16-dot mode:
+// MINB, the blocks per SM its plan counts on (the register budget).
+template <int MINB>
+__global__ void __launch_bounds__(NT, MINB) fwdlap_forward_mma(mma::JetArgs a) {
+  mma::body<mma::KIND_FWD>(a, [](int, const float*, const float*, float*, float*, float*) {});
+}
+
+// (in two variants: FOLD, the activation in the products' epilogues, for
+// nets with at most 4 streams; the wrapper chooses)
 template <bool FOLD>
 __global__ void __launch_bounds__(NT) fwdlap_forward_streams_kernel(FwdArgs A) {
   extern __shared__ __align__(16) float smem[];
@@ -212,20 +186,21 @@ PFwdKernelFn planned_budget(int minb) {
   }
 }
 
-// The kernel of a variant: design 0 (des == 0) the core's kernels (the
-// stream-major one, and the row kernel's BF16 variant); a planned design
-// (fwdlap_planned.cuh's Design) the planned row kernel in fp32 at the
-// register budget of minb blocks per SM (2 or 3).
+// The kernel of a variant: design 0 (des == 0) the stream-major kernel; the
+// row kernel's bf16-dot mode the tensor-core design (des == DES_MMA, no
+// fold) and only it; fp32 rows a planned design (fwdlap_planned.cuh's
+// Design); both at the register budget of minb blocks per SM (2 or 3).
 const void* fwd_variant_fn(int streams, int fold, int bf16, int des, int minb) {
   if (streams) {
     if (bf16 || des) return nullptr;
     return fold ? (const void*)fwdlap_forward_streams_kernel<true>
                 : (const void*)fwdlap_forward_streams_kernel<false>;
   }
-  if (bf16)
-    return des ? nullptr
-               : fold ? (const void*)fwdlap_forward_kernel<true, true>
-                      : (const void*)fwdlap_forward_kernel<false, true>;
+  if (bf16) {
+    if (des != DES_MMA || fold) return nullptr;
+    return minb == 2 ? (const void*)fwdlap_forward_mma<2>
+                     : minb == 3 ? (const void*)fwdlap_forward_mma<3> : nullptr;
+  }
   switch (des) {
     case DES_PLANNED:
       return fold ? (const void*)planned_budget<true, DES_PLANNED>(minb)
@@ -243,22 +218,30 @@ extern "C" {
 
 // X (N, d), params flat; out (N, d+2), or (d+2, N) with streams != 0.  T
 // points per tile, G blocks; fold: the variant with the activation in the
-// products' epilogues (nets with at most 4 streams); bf16: the bf16-dot
-// variant of the row kernel (design 0); des: the design (0, or a planned
-// design for the fp32 row kernel); flags: the plan's Flags (des != 0, else
-// 0); minb: a planned design's register budget in blocks per SM (its
-// plan's).  smem_bytes must hold the kernel's layout for (T, flags).
+// products' epilogues (nets with at most 4 streams); bf16: the row
+// kernel's bf16-dot mode, which runs the tensor-core design (des ==
+// DES_MMA) and only it; des: the design (0 for the stream-major kernel, a
+// planned design for the fp32 row kernel, DES_MMA); flags: the plan's Flags
+// (RES_WEIGHTS or 0); minb: the register budget in blocks per SM (the
+// row kernels': its plan's).  smem_bytes must hold the kernel's layout for
+// (T, flags).
 int fwdlap_forward_f32(int streams, const float* X, const float* params,
                        const int* layers, int n_layers, int act, int N, int T, int G,
                        int fold, int bf16, int des, int minb, int flags, float* out,
                        int smem_bytes, void* stream) {
   PFwdArgs a;
   const void* fn = fwd_variant_fn(streams, fold, bf16, des, minb);
-  if (fn == nullptr || !make_net(1, layers, n_layers, act, &a.net) || N < 1 || T < 4 ||
-      T % 4 != 0 || T > NT / 2 || G < 1 || (fold && a.net.S > 4) ||
-      (flags & ~RES_WEIGHTS) != 0 || (des == 0 && flags != 0) ||
-      4 * fwd_smem_floats(a.net, T, flags) > smem_bytes)
-    return (int)cudaErrorInvalidValue;
+  bool ok = fn != nullptr && make_net(1, layers, n_layers, act, &a.net) && N >= 1 && G >= 1 &&
+            (flags & ~RES_WEIGHTS) == 0 && !(des == 0 && flags != 0);
+  if (ok && des == DES_MMA) {
+    mma::Geo g;
+    ok = mma::make_geo(a.net, T, &g) &&
+         mma::layout(a.net, g, flags, mma::KIND_FWD).total <= smem_bytes;
+  } else if (ok) {
+    ok = T >= 4 && T % 4 == 0 && T <= NT / 2 && !(fold && a.net.S > 4) &&
+         4 * fwd_smem_floats(a.net, T, flags) <= smem_bytes;
+  }
+  if (!ok) return (int)cudaErrorInvalidValue;
   a.X = X;
   a.params = params;
   a.out = out;
@@ -269,10 +252,26 @@ int fwdlap_forward_f32(int streams, const float* X, const float* params,
   cudaError_t err = ensure_smem(fn, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  if (des == 0)
+  if (des == DES_MMA) {
+    mma::JetArgs m;
+    m.net = a.net;
+    m.X = X;
+    m.ct = nullptr;
+    m.params = params;
+    m.partial = nullptr;
+    m.scratch = nullptr;
+    m.out = out;
+    m.N = N;
+    m.T = T;
+    m.n_tiles = a.n_tiles;
+    m.row = 0;
+    m.flags = flags;
+    ((void (*)(mma::JetArgs))fn)<<<G, NT, smem_bytes, s>>>(m);
+  } else if (des == 0) {
     ((FwdKernelFn)fn)<<<G, NT, smem_bytes, s>>>(static_cast<const FwdArgs&>(a));
-  else
+  } else {
     ((PFwdKernelFn)fn)<<<G, NT, smem_bytes, s>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -292,6 +291,23 @@ int fwdlap_forward_smem_bytes(const int* layers, int n_layers, int T, int flags)
   Net net;
   if (!make_net(1, layers, n_layers, 0, &net)) return -1;
   return 4 * fwd_smem_floats(net, T, flags);
+}
+
+// The tensor-core design's shared-memory bytes for (T, flags) and its
+// saved-stage floats per block (none: it saves nothing), or -1 for a net or
+// tile it does not take.
+int fwdlap_forward_mma_smem_bytes(const int* layers, int n_layers, int T, int flags) {
+  Net net;
+  mma::Geo g;
+  if (!make_net(1, layers, n_layers, 0, &net) || !mma::make_geo(net, T, &g)) return -1;
+  return mma::layout(net, g, flags, mma::KIND_FWD).total;
+}
+
+int fwdlap_forward_mma_scratch_floats(const int* layers, int n_layers, int T) {
+  Net net;
+  mma::Geo g;
+  if (!make_net(1, layers, n_layers, 0, &net) || !mma::make_geo(net, T, &g)) return -1;
+  return (int)mma::scratch_floats(net, g, mma::KIND_FWD);
 }
 
 }  // extern "C"

@@ -1,15 +1,24 @@
-// The tensor-core design (DES_MMA) of the bf16-dot fused residual kernels
-// (fused_step.cu: fused_linear_residual and fused_poisson_analytic with
-// dot_dtype='bfloat16', the bulk of compute_dtype='hybrid-kernel').
+// The tensor-core design (DES_MMA) of the bf16-dot kernels: the fused
+// residual kernels (fused_step.cu: fused_linear_residual and
+// fused_poisson_analytic with dot_dtype='bfloat16', the bulk of
+// compute_dtype='hybrid-kernel') and the jet pair of that bulk
+// (fwdlap_backward.cu with dot_dtype='bfloat16', fwdlap_forward.cu with
+// fwd_impl='rows:default').  One body, `body<KIND>`, serves all three
+// kinds: the fused kernels (KIND_FUSED: the cotangents from the loss
+// terms), the jet backward (KIND_BWD: the cotangents loaded, no projection,
+// no loss terms) and the jet forward (KIND_FWD: the forward half, nothing
+// saved, the jet rows written out).
 //
-// What it computes is the core's BF16 recompute and reverse sweep
-// (fwdlap_core.cuh, "BF16"): every product operand rounded to bf16, fp32
-// accumulation, as the TPU kernels' dot_dtype='bfloat16' does.  That is
-// what mma.sync.m16n8k16 bf16 with fp32 accumulators computes, so here the
-// products run on the H100's bf16 tensor cores instead of design 0's fp32
-// FFMA register tiles (which paid for the rounding and got no speed).  Only
-// this header's kernels include it; rows 4 bf16 and 5 bf16 keep the core's
-// BF16 routines, and every fp32 kernel its own design, byte for byte.
+// What it computes is the TPU kernels' dot_dtype='bfloat16' (and
+// _forward_kernel2's single-pass 'default' dots): every product operand
+// rounded to bf16 (nearest even), fp32 accumulation.  That is what
+// mma.sync.m16n8k16 bf16 with fp32 accumulators computes, so the products
+// run on the H100's bf16 tensor cores.  Not rounded (fp32, as the TPU
+// kernels keep them): the layer-0 Jacobian seed rows, q = sum J^2, the
+// activation packs and the reverse nonlinearity, the last-layer projection
+// and dW_last, the db sums and the Jacobian-row sums added to dW0.  The
+// products of the input layer (K = d) and its dW0 run on the CUDA cores
+// with their operands rounded (rd_bf16).
 //
 // Bound on the H100: the same FLOP as the fp32 kernels at 989 TFLOP/s
 // (bf16 dense), ~15x below the CUDA-core bound; with the products that
@@ -39,30 +48,36 @@
 // has S = 18).  The pre-activations every stage saves for the reverse sweep
 // go to device memory in that fragment order (a float4 per lane per stream
 // tile, plus one for q = sum J^2): the thread that reads them back in the
-// reverse sweep is the one that wrote them.
+// reverse sweep is the one that wrote them.  The projection, dW_last, the
+// db sums and the Jacobian-row sums of dW0 are folded into the epilogues as
+// column sums (shuffle sums over the thread's lanes, then a fixed-order sum
+// over the warps).
 //
-// Kept in fp32, as the BF16 note of fwdlap_core.cuh lists: q, the
-// activation packs, the reverse nonlinearity, the layer-0 Jacobian seed
-// rows, the last-layer projection and dW_last (folded into the epilogues of
-// the last stage: shuffle sums over the thread's lanes, then a fixed-order
-// sum over the warps), the db sums and the Jacobian-row sums added to dW0
-// (column sums in the epilogues, likewise).  On the CUDA cores, rounded where
-// design 0 rounds them: the input layer (K = d) and its dW0, the projection.
-//
-// The plan (kernels/fused_step.py::mma_plan) chooses the tile, the blocks
-// per SM (two, the kernels' register budget, or one) and the residency at
-// run time (RES_WEIGHTS: every hidden W_k bf16 for the block's life;
-// RES_GRAD: the block's gradient row, whose hidden dW then accumulates in
+// The plan (kernels/fused_step.py::mma_plan, by kind) chooses the tile, the
+// blocks per SM and the residency at run time (RES_WEIGHTS: every hidden
+// W_k bf16 for the block's life; RES_GRAD, the fused kernels and the jet
+// backward: the block's gradient row, whose hidden dW then accumulates in
 // fragment order, dw_product); chip_smoke.py mma_sweep measures each.
 // Built, measured and taken out (PERF.md): the A operands read as fp32 and
 // converted in the fragment (cvt.rn.bf16x2.f32) instead of ldmatrix of the
 // bf16 stages, dW fragments in registers across the block's tiles, two
-// MMA chains interleaved per warp, a three-blocks-per-SM register budget.
+// MMA chains interleaved per warp, a three-blocks-per-SM register budget
+// for the kernels with a reverse sweep.
+//
+// Accuracy.  The bf16 rounding makes the result depend on the fp32 order of
+// the sums before each rounding: an operand within an fp32 error of a bf16
+// rounding boundary goes to the other neighbour.  On deep, wide nets these
+// flips add up: on (16, 128 x 15, 1) the plain version and the same plain
+// version on the net with its hidden units permuted (the same roundings,
+// every sum in another order) are 4e-5 to 5e-4 apart in dW0, and the
+// float64 witness is 1e-4 to 2e-4 from either, as far as this design is
+// (chip_smoke.py mma_depth; PERF.md).
 //
 // Determinism: every dW/db entry and column sum is owned by one thread (or a
 // fixed shuffle tree) and summed in tile order; no atomics.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "fwdlap_planned.cuh"
@@ -73,6 +88,13 @@ namespace fwdlap {
 enum MmaDesign { DES_MMA = 4 };
 
 namespace mma {
+
+// What a kernel of the design computes (body<KIND>).
+enum Kind {
+  KIND_FUSED = 0,   // loss + gradients: the cotangents from the loss terms
+  KIND_BWD = 1,     // the jet backward: the cotangents loaded, gradients
+  KIND_FWD = 2      // the jet forward: the (N, d+2) jet rows, nothing saved
+};
 
 constexpr int NW = NT / 32;                  // warps per block
 constexpr int KS_MAX = MAX_WIDTH / 16;       // k-steps of the widest product
@@ -123,17 +145,26 @@ __host__ __device__ inline int woff_bytes(const Net& net, int k) {
   return o;
 }
 
-// Byte offsets of a block's shared memory (every region 16-byte aligned).
-// Mirrored by kernels/fused_step.py::mma_smem_bytes.
+// The floats of a block's gradient row: the parameters, and in the fused
+// kernels the loss sums (3).
+__host__ __device__ inline int row_floats(const Net& net, int kind) {
+  return kind == KIND_FUSED ? net.P + 3 : kind == KIND_BWD ? net.P : 0;
+}
+
+// Byte offsets of a block's shared memory (every region 16-byte aligned;
+// a region the kind does not use is empty).  Mirrored by
+// kernels/fused_step.py::mma_smem_bytes.
 struct Layout {
   int bufs, w, gacc, red, red2, xs, ct, ps, proj, total;
 };
 
-__host__ __device__ inline Layout layout(const Net& net, const Geo& g, int flags) {
+__host__ __device__ inline Layout layout(const Net& net, const Geo& g, int flags,
+                                         int kind = KIND_FUSED) {
+  const bool rev = kind != KIND_FWD, proj = kind != KIND_BWD;
   Layout L;
   int o = 0;
   L.bufs = o;
-  o += 3 * g.ST * g.ldb * 2;                           // three bf16 stages
+  o += (rev ? 3 : 2) * g.ST * g.ldb * 2;               // bf16 stages
   L.w = o;
   int wb = 0;
   for (int k = 1; k < net.K - 1; ++k) {
@@ -142,27 +173,29 @@ __host__ __device__ inline Layout layout(const Net& net, const Geo& g, int flags
   }
   o += wb;
   L.gacc = o;
-  if (flags & RES_GRAD) o += 4 * rnd4(net.P + 3);
+  if (rev && (flags & RES_GRAD)) o += 4 * rnd4(row_floats(net, kind));
   L.red = o;                                           // projection partials
-  o += 4 * rnd4(g.nbmax * g.ST);
+  if (proj) o += 4 * rnd4(g.nbmax * g.ST);
   L.red2 = o;                                          // column sums
-  o += 4 * rnd4(g.NPB * g.S * g.wq);
+  if (rev) o += 4 * rnd4(g.NPB * g.S * g.wq);
   L.xs = o;
   o += 4 * rnd4(g.T * net.d);
   L.ct = o;
-  o += 4 * rnd4(g.S * g.T);
+  if (rev) o += 4 * rnd4(g.S * g.T);
   L.ps = o;
-  o += 4 * rnd4(3 * g.T);
+  if (kind == KIND_FUSED) o += 4 * rnd4(3 * g.T);
   L.proj = o;
-  o += 4 * rnd4(g.ST);
+  if (proj) o += 4 * rnd4(g.ST);
   L.total = o;
   return L;
 }
 
 // Saved-stage floats of one block in device memory: K-1 stages of nblk warp
-// blocks, each NU stream tiles and the q tile of 32 float4s.
-__host__ __device__ inline long scratch_floats(const Net& net, const Geo& g) {
-  return (long)(net.K - 1) * g.nblk * (g.NU + 1) * 128;
+// blocks, each NU stream tiles and the q tile of 32 float4s (none in the
+// jet forward, which saves nothing).
+__host__ __device__ inline long scratch_floats(const Net& net, const Geo& g,
+                                               int kind = KIND_FUSED) {
+  return kind == KIND_FWD ? 0 : (long)(net.K - 1) * g.nblk * (g.NU + 1) * 128;
 }
 
 // ---------------------------------------------------------------- PTX
@@ -201,6 +234,11 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// x rounded to the nearest bf16 value (ties to even), kept as a float: an
+// operand of the products on the CUDA cores (the input layer, dW0)
+__device__ __forceinline__ float rd_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 // (lo, hi) rounded to bf16 (nearest even) in one 32-bit word, lo in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -256,9 +294,10 @@ struct FwdSt {
 
 // One stream tile u of a warp block (pb, nb): c holds the pre-activations
 // (bias not yet added); applies the activation (stage_mid's arithmetic),
-// writes the mid streams to the next stage `ob` and the pre-activations to
-// the saved frags; at the last stage, instead of the mid streams, the
-// projection partials (8 units) to red.
+// writes the mid streams to the next stage `ob` and (SAVE) the
+// pre-activations to the saved frags; at the last stage, instead of the mid
+// streams, (PROJ) the projection partials (8 units) to red, or nothing.
+template <bool SAVE, bool PROJ>
 __device__ __forceinline__ void fwd_epi(const Net& net, const Geo& g, int pb, int nb, int u,
                                         float (&c)[4], const float (&bv)[2], FwdSt& st,
                                         __nv_bfloat16* ob, float4* save, bool last,
@@ -296,14 +335,14 @@ __device__ __forceinline__ void fwd_epi(const Net& net, const Geo& g, int pb, in
     const int r = tile_row(g, pb, u) + (lane >> 2) + 8 * h;
     if (!last) {
       *reinterpret_cast<uint32_t*>(ob + r * g.ldb + j0) = pack_bf16(m[0], m[1]);
-    } else {
+    } else if (PROJ) {
       float part = fmaf(m[0], wl[0], m[1] * wl[1]);
       part += __shfl_xor_sync(0xffffffffu, part, 1);
       part += __shfl_xor_sync(0xffffffffu, part, 2);
       if ((lane & 3) == 0) red[nb * g.ST + r] = part;
     }
   }
-  save[u * 32] = make_float4(c[0], c[1], c[2], c[3]);
+  if (SAVE) save[u * 32] = make_float4(c[0], c[1], c[2], c[3]);
 }
 
 __device__ __forceinline__ void save_q(const Geo& g, const FwdSt& st, float4* save) {
@@ -329,8 +368,9 @@ __device__ __forceinline__ void unit_consts(int n0, int w, const float* bias, bo
 }
 
 // Stage 1 from the input layer on the CUDA cores (K = d): v = x W0 + b0 with
-// x and W0 rounded (design 0's rounding), J_i = W0[i, :] in fp32, l = 0; then
-// fwd_epi.  save_st: stage 1's saved frags (the thread's lane included).
+// x and W0 rounded, J_i = W0[i, :] in fp32, l = 0; then fwd_epi.  save_st:
+// stage 1's saved frags (the thread's lane included; unused unless SAVE).
+template <bool SAVE, bool PROJ>
 __device__ void fwd_input(const Net& net, const Geo& g, const float* __restrict__ xs,
                           const float* __restrict__ W0, __nv_bfloat16* ob, float4* save_st,
                           bool last, const float* __restrict__ wlast, float* red) {
@@ -340,9 +380,9 @@ __device__ void fwd_input(const Net& net, const Geo& g, const float* __restrict_
   for (int b = warp; b < g.NPB * NB; b += NW) {
     const int pb = b / NB, nb = b - pb * NB;
     float bv[2], wl[2];
-    unit_consts(nb * 8, w1, b0, last, wlast, bv, wl);
+    unit_consts(nb * 8, w1, b0, PROJ && last, wlast, bv, wl);
     FwdSt st = {};
-    float4* save = save_st + (size_t)b * (g.NU + 1) * 32;
+    float4* save = SAVE ? save_st + (size_t)b * (g.NU + 1) * 32 : nullptr;
     for (int u = 0; u < g.NU; ++u) {
       float c[4];
 #pragma unroll
@@ -356,22 +396,23 @@ __device__ void fwd_input(const Net& net, const Geo& g, const float* __restrict_
           float v = 0.f;
           if (s == 0) {
             for (int i = 0; i < d; ++i)
-              v = fmaf(rd<true>(xs[p * d + i]), rd<true>(real ? W0[i * w1 + j] : 0.f), v);
+              v = fmaf(rd_bf16(xs[p * d + i]), rd_bf16(real ? W0[i * w1 + j] : 0.f), v);
           } else if (s <= d) {
             v = real ? W0[(s - 1) * w1 + j] : 0.f;   // the Jacobian seed rows stay fp32
           }
           c[2 * h + e] = v;
         }
       }
-      fwd_epi(net, g, pb, nb, u, c, bv, st, ob, save, last, wl, red);
+      fwd_epi<SAVE, PROJ>(net, g, pb, nb, u, c, bv, st, ob, save, last, wl, red);
     }
-    save_q(g, st, save);
+    if (SAVE) save_q(g, st, save);
   }
 }
 
 // Stage k+1 from stage k (k >= 1): Z = A W_k on the tensor cores, A the bf16
 // stage `ib`, W_k bf16 in shared memory (ldw), then fwd_epi.  Each warp
 // block loads its B fragments for all k once.
+template <bool SAVE, bool PROJ>
 __device__ void fwd_product(const Net& net, const Geo& g, int k, const __nv_bfloat16* ib,
                             const __nv_bfloat16* Wk, int ldw, const float* __restrict__ bias,
                             __nv_bfloat16* ob, float4* save_st, bool last,
@@ -385,9 +426,9 @@ __device__ void fwd_product(const Net& net, const Geo& g, int k, const __nv_bflo
     for (int ks = 0; ks < KS_MAX; ++ks)
       if (ks < nks) ldsm_x2_t(bf[ks], Wk + (ks * 16 + (lane & 15)) * ldw + n0);
     float bv[2], wl[2];
-    unit_consts(n0, wn, bias, last, wlast, bv, wl);
+    unit_consts(n0, wn, bias, PROJ && last, wlast, bv, wl);
     FwdSt st = {};
-    float4* save = save_st + (size_t)b * (g.NU + 1) * 32;
+    float4* save = SAVE ? save_st + (size_t)b * (g.NU + 1) * 32 : nullptr;
     for (int u = 0; u < g.NU; ++u) {
       float c[4] = {0.f, 0.f, 0.f, 0.f};
       const int rb = tile_row(g, pb, u);
@@ -399,9 +440,9 @@ __device__ void fwd_product(const Net& net, const Geo& g, int k, const __nv_bflo
           mma_bf16(c, a, bf[ks]);
         }
       }
-      fwd_epi(net, g, pb, nb, u, c, bv, st, ob, save, last, wl, red);
+      fwd_epi<SAVE, PROJ>(net, g, pb, nb, u, c, bv, st, ob, save, last, wl, red);
     }
-    save_q(g, st, save);
+    if (SAVE) save_q(g, st, save);
   }
 }
 
@@ -565,11 +606,11 @@ __device__ __forceinline__ void bwd_rest(const Geo& g, BwdSt& st, int pb, int n0
 // the mid streams x ct).  The lap tile comes first (dq = s'' dlm is needed
 // by every J stream); the value stream's cotangent is written last, from
 // the sum of all streams.
-__device__ void bwd_stage(const Net& net, const Geo& g, int k, bool rank1,
-                          const __nv_bfloat16* Din, const __nv_bfloat16* Wk, int ldw,
-                          const float* __restrict__ ct, const float* __restrict__ wlast,
-                          const float4* saved_st, __nv_bfloat16* Mo, __nv_bfloat16* Do,
-                          float* red2) {
+static __device__ void bwd_stage(const Net& net, const Geo& g, int k, bool rank1,
+                                 const __nv_bfloat16* Din, const __nv_bfloat16* Wk, int ldw,
+                                 const float* __restrict__ ct, const float* __restrict__ wlast,
+                                 const float4* saved_st, __nv_bfloat16* Mo,
+                                 __nv_bfloat16* Do, float* red2) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gr = lane >> 2;
   const int wk = net.w[k], NB = np8(wk) / 8, NU = g.NU;
   const int nks = rank1 ? 0 : kp16(net.w[k + 1]) / 16;
@@ -735,11 +776,185 @@ __device__ __forceinline__ void dw0(const Net& net, const Geo& g, const float* x
     float acc = 0.f;
     if (i < d)
       for (int p = 0; p < g.T; ++p)
-        acc = fmaf(rd<true>(xs[p * d + i]), __bfloat162float(D1[p * g.ldb + j]), acc);
+        acc = fmaf(rd_bf16(xs[p * d + i]), __bfloat162float(D1[p * g.ldb + j]), acc);
     float sj = 0.f;
     const int slot = i < d ? 1 + i : 0;
     for (int pb = 0; pb < g.NPB; ++pb) sj += red2[(pb * g.S + slot) * g.wq + j];
     dW0[it] += acc + sj;
+  }
+}
+
+// The jet pair's kernel arguments (fwdlap_backward.cu, fwdlap_forward.cu).
+struct JetArgs {
+  Net net;
+  const float* X;
+  const float* ct;            // KIND_BWD: (N, d+2) cotangent rows
+  const float* params;
+  float* partial;             // KIND_BWD: (G, row) per-block gradient rows
+  float* scratch;             // KIND_BWD: (G, scratch_floats) saved stages
+  float* out;                 // KIND_FWD: (N, d+2) jet rows
+  int N, T, n_tiles, row, flags;
+};
+
+// W_k: the resident copy, or staged into Wsm now (bf16, then a barrier).
+template <class Args>
+__device__ __forceinline__ const __nv_bfloat16* stage_or_resident(const Args& A, bool res_w,
+                                                                  __nv_bfloat16* Wsm, int k) {
+  const Net& net = A.net;
+  if (res_w) return Wsm + woff_bytes(net, k) / 2;
+  stage_w(A.params + net.off[k], net.w[k], net.w[k + 1], Wsm, ldw_of(net, k));
+  __syncthreads();
+  return Wsm;
+}
+
+// The design's tile loop.  Per tile: X (KIND_BWD: and the cotangent rows,
+// stream-major), the input layer and the hidden products with the
+// activation in their epilogues (the stages saved unless KIND_FWD; the
+// last stage's projection partials unless KIND_BWD); KIND_FWD: the jet rows
+// written for the valid points; KIND_FUSED: the projection, then the loss
+// terms and the cotangents by `terms(base, proj, xs, ct, ps, grow)`; then
+// the reverse sweep: the last stage's reverse nonlinearity from the
+// rank-one cotangent ct * wlast with dW_last, per hidden layer the dA
+// product with the reverse nonlinearity in its epilogue and the dW
+// product, and dW0.  The plan's residency from A.flags: the hidden weights
+// (bf16, staged once) and the block's gradient row (A.row floats).
+template <int KIND, class Args, class Terms>
+__device__ void body(const Args& A, Terms terms) {
+  constexpr bool REV = KIND != KIND_FWD, PROJ = KIND != KIND_BWD;
+  extern __shared__ __align__(16) float smem[];
+  const Net& net = A.net;
+  Geo g;
+  make_geo(net, A.T, &g);
+  const Layout ly = layout(net, g, A.flags, KIND);
+  unsigned char* sm = reinterpret_cast<unsigned char*>(smem);
+  const int T = A.T, d = net.d, K = net.K, S = g.S;
+  __nv_bfloat16* const stages = reinterpret_cast<__nv_bfloat16*>(sm + ly.bufs);
+  const int stage = g.ST * g.ldb;
+  __nv_bfloat16* Wsm = reinterpret_cast<__nv_bfloat16*>(sm + ly.w);
+  const bool res_w = (A.flags & RES_WEIGHTS) != 0;
+  float* gacc = REV && (A.flags & RES_GRAD) ? reinterpret_cast<float*>(sm + ly.gacc) : nullptr;
+  float* red = reinterpret_cast<float*>(sm + ly.red);
+  float* red2 = reinterpret_cast<float*>(sm + ly.red2);
+  float* xs = reinterpret_cast<float*>(sm + ly.xs);
+  float* ct = reinterpret_cast<float*>(sm + ly.ct);
+  float* ps = reinterpret_cast<float*>(sm + ly.ps);
+  float* proj = reinterpret_cast<float*>(sm + ly.proj);
+  float* grow_g = REV ? A.partial + (size_t)blockIdx.x * A.row : nullptr;
+  float* grow = gacc ? gacc : grow_g;     // where the tiles add their dW/db
+  // the hidden dW on chip in fragment order (frag_ok)
+  const bool frag = gacc && frag_ok(net);
+  // the saved stages: stage k at scr + (k-1) * sst, this thread's lane
+  const size_t sst = (size_t)g.nblk * (g.NU + 1) * 32;
+  float4* scr = REV ? reinterpret_cast<float4*>(A.scratch +
+                                                (size_t)blockIdx.x * scratch_floats(net, g)) +
+                          (threadIdx.x & 31)
+                    : nullptr;
+
+  if (REV)
+    for (int i = threadIdx.x; i < A.row; i += NT) grow[i] = 0.f;
+  {  // the stages start at zero: padding rows and columns are never written
+    uint4* z = reinterpret_cast<uint4*>(sm + ly.bufs);
+    for (int i = threadIdx.x; i < (ly.w - ly.bufs) / 16; i += NT) z[i] = make_uint4(0, 0, 0, 0);
+  }
+  if (res_w)
+    for (int k = 1; k < K - 1; ++k)
+      stage_w(A.params + net.off[k], net.w[k], net.w[k + 1], Wsm + woff_bytes(net, k) / 2,
+              ldw_of(net, k));
+  __syncthreads();
+
+  const int wl = net.w[K - 1];
+  const float* wlast = A.params + net.off[K - 1];
+  const float blast = wlast[wl];
+
+  for (int tile = blockIdx.x; tile < A.n_tiles; tile += gridDim.x) {
+    const int base = tile * T;
+    load_tile(A.X, A.N, d, base, T, xs);
+    if constexpr (KIND == KIND_BWD) {
+      // ct[s * T + p] = CT[base + p][s]; rows past N carry zero cotangents
+      for (int i = threadIdx.x; i < T * S; i += NT) {
+        const int p = i / S, s = i - p * S;
+        ct[s * T + p] = base + p < A.N ? A.ct[(size_t)(base + p) * S + s] : 0.f;
+      }
+    }
+    __syncthreads();
+    // forward: stage 1 from the input layer, then the hidden products
+    fwd_input<REV, PROJ>(net, g, xs, A.params + net.off[0], stages, scr, K == 2, wlast, red);
+    __syncthreads();
+    __nv_bfloat16 *in = stages, *out = stages + stage;
+    for (int k = 1; k < K - 1; ++k) {
+      const __nv_bfloat16* Wk = stage_or_resident(A, res_w, Wsm, k);
+      fwd_product<REV, PROJ>(net, g, k, in, Wk, ldw_of(net, k),
+                             A.params + net.off[k] + net.w[k] * net.w[k + 1], out,
+                             scr + k * sst, k + 1 == K - 1, wlast, red);
+      __syncthreads();
+      __nv_bfloat16* t = in;
+      in = out;
+      out = t;
+    }
+    if constexpr (PROJ) {
+      // the projection: the n-blocks' partials in order
+      const int nbl = np8(wl) / 8;
+      for (int r = threadIdx.x; r < S * T; r += NT) {
+        float acc = 0.f;
+        for (int nb = 0; nb < nbl; ++nb) acc += red[nb * g.ST + r];
+        proj[r] = r < T ? acc + blast : acc;
+      }
+      __syncthreads();
+    }
+    if constexpr (KIND == KIND_FWD) {
+      // out[(base + p) * S + s] = proj[s * T + p]: consecutive threads
+      // write consecutive floats of the tile's rows
+      for (int i = threadIdx.x; i < T * S; i += NT) {
+        const int p = i / S, s = i - p * S;
+        if (base + p < A.N) A.out[(size_t)(base + p) * S + s] = proj[s * T + p];
+      }
+      continue;
+    }
+    if constexpr (KIND == KIND_FUSED) terms(base, proj, xs, ct, ps, grow);
+    // reverse: the last stage from the rank-one cotangent ct * wlast
+    bwd_stage(net, g, K - 1, true, nullptr, nullptr, 0, ct, wlast, scr + (K - 2) * sst,
+              nullptr, stages, red2);
+    __syncthreads();
+    for (int j = threadIdx.x; j < wl; j += NT) {
+      float a = 0.f, b = 0.f;
+      for (int pb = 0; pb < g.NPB; ++pb) {
+        a += red2[(pb * S + S - 1) * g.wq + j];
+        b += red2[pb * S * g.wq + j];
+      }
+      grow[net.off[K - 1] + j] += a;
+      if (K > 2) grow[net.off[K - 2] + net.w[K - 2] * wl + j] += b;
+    }
+    // stage k: D holds D_{k+1}; M_k and D_k go to the two free stages
+    __nv_bfloat16 *D = stages, *F1 = stages + stage, *F2 = stages + 2 * stage;
+    for (int k = K - 2; k >= 1; --k) {
+      __syncthreads();
+      const __nv_bfloat16* Wk = stage_or_resident(A, res_w, Wsm, k);
+      bwd_stage(net, g, k, false, D, Wk, ldw_of(net, k), ct, wlast, scr + (k - 1) * sst, F1,
+                F2, red2);
+      __syncthreads();
+      if (k >= 2)
+        for (int j = threadIdx.x; j < net.w[k]; j += NT) {
+          float b = 0.f;
+          for (int pb = 0; pb < g.NPB; ++pb) b += red2[pb * S * g.wq + j];
+          grow[net.off[k - 1] + net.w[k - 1] * net.w[k] + j] += b;
+        }
+      dw_product(net, g, k, F1, D, grow, frag);
+      __nv_bfloat16* freed = D;
+      D = F2;
+      F2 = F1;
+      F1 = freed;
+    }
+    __syncthreads();
+    dw0(net, g, xs, D, red2, grow);
+    __syncthreads();
+  }
+  // the row on chip goes out once (its hidden dW in flat order)
+  if (gacc) {
+    for (int i = threadIdx.x; i < A.row; i += NT) grow_g[i] = gacc[i];
+    if (frag) {
+      __syncthreads();
+      dw_unfrag(net, gacc, grow_g);
+    }
   }
 }
 

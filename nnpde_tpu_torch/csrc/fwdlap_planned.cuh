@@ -110,7 +110,7 @@ __device__ __forceinline__ void mm_rows_p(const float* __restrict__ in, int ld, 
                                           const float* __restrict__ bias, int bias_rows,
                                           int bias_cols) {
   if constexpr (NQ == 4) {
-    mm_rows<false>(in, ld, rows, kdim, W, ncols, out, ld, bias, bias_rows, bias_cols);
+    mm_rows(in, ld, rows, kdim, W, ncols, out, ld, bias, bias_rows, bias_cols);
   } else {
     const int cg = ncols >> 2;
     const int items8 = (rows >> 3) * cg;
@@ -374,7 +374,7 @@ __device__ __forceinline__ void accum_dW_p(int rows, int T, int ld, int wi, int 
                                            float* dW, float* db, bool narrow) {
   const int IG = wip >> 2, JG = wop >> 2;
   if (narrow && 2 * IG * JG <= NT) {
-    accum_dW<false>(rows, T, ld, wi, wo, wip, wop, M, D, dW, db, true);
+    accum_dW(rows, T, ld, wi, wo, wip, wop, M, D, dW, db, true);
     return;
   }
   const int TJ = (JG + 7) >> 3;

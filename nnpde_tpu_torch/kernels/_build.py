@@ -57,14 +57,19 @@ _SIGNATURES = {
     "fused_mma_smem_bytes": [_I, _P, _I, _I, _I],
     "fused_mma_scratch_floats": [_I, _P, _I, _I],
     # fwdlap_forward.cu: streams, X, params, layers, n_layers, act, N, T, G,
-    # fold, bf16, des, minb, flags, out, smem_bytes, stream (minb: a planned
-    # design's register budget in blocks per SM)
+    # fold, bf16, des, minb, flags, out, smem_bytes, stream (minb: a row
+    # kernel's register budget in blocks per SM)
     "fwdlap_forward_f32":
         [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     # streams, fold, bf16, des, minb, smem_bytes, int* blocks
     "fwdlap_forward_blocks_per_sm": [_I, _I, _I, _I, _I, _I, _P],
     # layers, n_layers, T, flags -> bytes (not an error code)
     "fwdlap_forward_smem_bytes": [_P, _I, _I, _I],
+    # the tensor-core design of the bf16-dot mode: layers, n_layers, T,
+    # flags -> bytes; layers, n_layers, T -> saved-stage floats per block
+    # (0: nothing saved); neither an error code
+    "fwdlap_forward_mma_smem_bytes": [_P, _I, _I, _I],
+    "fwdlap_forward_mma_scratch_floats": [_P, _I, _I],
     # fwdlap_backward.cu: X, ct, params, wt, layers, n_layers, act, N, T, G,
     # fold, bf16, des, flags, partial, scratch, out, smem_bytes, stream
     "fwdlap_backward_f32":
@@ -73,6 +78,9 @@ _SIGNATURES = {
     "fwdlap_backward_blocks_per_sm": [_I, _I, _I, _I, _P],
     # layers, n_layers, T, flags -> bytes (not an error code)
     "fwdlap_backward_smem_bytes": [_P, _I, _I, _I],
+    # the tensor-core design of the bf16-dot mode, as the forward's
+    "fwdlap_backward_mma_smem_bytes": [_P, _I, _I, _I],
+    "fwdlap_backward_mma_scratch_floats": [_P, _I, _I],
     # fused_quotient.cu: kind, lap, X, coef, params, scal, layers, n_layers,
     # act, N, T, G, flags, fold, des, minb, partial, scratch, out, smem_bytes,
     # stream (des, minb: the sums kinds' design and register budget)

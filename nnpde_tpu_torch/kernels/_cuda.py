@@ -52,7 +52,7 @@ def reset_launches() -> None:
 
 def variant_name(name: str, bf16: bool) -> str:
     """The name a launch counts under: ``name``, or ``name + '.bf16'`` for
-    the kernel's bf16-dot variant (fwdlap_core.cuh, "BF16")."""
+    the kernel's bf16-dot variant (fwdlap_mma.cuh)."""
     return name + ".bf16" if bf16 else name
 
 
@@ -145,12 +145,12 @@ def folds(layers, S: int, T: int, points: int = 1) -> bool:
     return S <= 4 and (T // points) * (padded_wmax(layers) // 4) <= NT
 
 
-# The designs of the fused residual kernels and the jet backward
+# The designs of the fused residual kernels and the jet pair
 # (fwdlap_planned.cuh, Design; fwdlap_mma.cuh, MmaDesign): bits of the
-# ``des`` argument.  0 is the shared core's kernels (the jet pair's bf16-dot
-# variants); DES_PLANNED the planned kernels, DES_ITEM2 their lever;
-# DES_MMA the tensor-core design of the fused residual kernels' bf16-dot
-# mode.
+# ``des`` argument.  0 is the shared core's kernels (only the stream-major
+# jet forward's); DES_PLANNED the planned kernels, DES_ITEM2 their lever;
+# DES_MMA the tensor-core design of the bf16-dot modes of the fused residual
+# kernels and the jet pair.
 DES_ITEM2 = 1     # two-point items, register tiles of 8 rows x 4 units
 DES_PLANNED = 2   # the planned kernels (shared plan, transposes from device
                   # memory, dW items dealt 4 x 8 to a warp, two blocks per SM)

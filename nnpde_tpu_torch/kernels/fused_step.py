@@ -216,9 +216,8 @@ def _streams(kind: str, d: int) -> int:
 
 def smem_floats(kind: str, layers, T: int, flags: int = 0) -> int:
     """Shared-memory floats per block for a tile of T points (the layout of
-    fused_step.cu's fused_body and fused_body_p, mirrored from its
-    fused_smem_floats): residency ``flags`` of :mod:`._plan` (0 for design
-    0)."""
+    fused_step.cu's fused_body_p, mirrored from its fused_smem_floats):
+    residency ``flags`` of :mod:`._plan`."""
     d = layers[0]
     S, wmax = _streams(kind, d), _cuda.padded_wmax(layers)
     n = 3 * S * T * wmax
@@ -232,9 +231,9 @@ def planned(smem_floats_of, layers, S: int, what: str, design: int | None = None
             T: int | None = None, tier: str | None = None) -> _plan.Plan:
     """The launch shape of a kernel of fused_step.cu or fwdlap_backward.cu
     in ``design`` (``smem_floats_of(T, flags)`` its layout, ``S`` its
-    streams).  Design 0 (the jet backward's bf16-dot variant, and only it;
-    the fused kinds' layout at flags 0 is the same): the constant tile of
-    :func:`._cuda.plan_tile`, nothing resident.  A planned design: the
+    streams).  Design 0: the constant tile of :func:`._cuda.plan_tile`,
+    nothing resident (the layout at flags 0; no kernel of these files runs
+    design 0 any more, and their wrappers refuse it).  A planned design: the
     shared plan of :mod:`._plan` (seeded tiers; with ``DES_ITEM2`` the tile
     rule of 8-row items) at most ``PLANNED_BLOCKS`` blocks per SM.
     ``design=None`` is the fp32 wrappers' choice: two-point items where
@@ -277,16 +276,25 @@ def plan(kind: str, layers, design: int | None = None, *, T: int | None = None,
 
 
 # ------------------------------------------- the tensor-core design (DES_MMA)
-# The bf16-dot mode of the linear and analytic kernels (fwdlap_mma.cuh): bf16
-# stages of Sp*T rows (T = 8 or a multiple of 16), hidden weights bf16 padded
-# to multiples of 16, the saved stages in fragment order in device memory.
-# Measured on an H100 (chip_smoke.py mma_sweep; PERF.md): the block's
-# gradient row on chip comes first (its hidden dW accumulates there in
-# fragment order), then the resident weights; 16-point tiles at two blocks
-# per SM (the kernels' register budget) beat larger tiles.
+# The bf16-dot mode of the linear and analytic kernels and of the jet pair
+# (fwdlap_mma.cuh, one body for the three kinds): bf16 stages of Sp*T rows
+# (T = 8 or a multiple of 16), hidden weights bf16 padded to multiples of
+# 16, the saved stages in fragment order in device memory (none in the jet
+# forward).  Measured on an H100 (chip_smoke.py mma_sweep; PERF.md): the
+# block's gradient row on chip comes first (its hidden dW accumulates there
+# in fragment order), then the resident weights; 16-point tiles at two
+# blocks per SM (the kernels' register budget) beat larger tiles.
 MMA_T = 16                # the tile the plan asks for first
 MMA_TIERS = (("resident", _plan.RES_WEIGHTS | _plan.RES_GRAD), ("gradient", _plan.RES_GRAD),
              ("weights", _plan.RES_WEIGHTS), ("staged", 0))
+# the jet forward keeps no gradient row
+MMA_FWD_TIERS = (("weights", _plan.RES_WEIGHTS), ("staged", 0))
+MMA_KINDS = ("fused_linear_residual", "fused_poisson_analytic", "fwdlap_backward",
+             "fwdlap_forward")
+# blocks per SM a plan may count on: the kernels with a reverse sweep have a
+# two-block register budget (a third block's spills, PERF.md); the jet forward
+# comes at three and at two (its launch bounds, the plan's ``blocks``)
+MMA_SHARES = {"fwdlap_forward": (3, 2, 1)}
 
 
 def _kp16(w: int) -> int:
@@ -326,59 +334,83 @@ def mma_geometry(layers, T: int) -> MmaGeo:
                   _kp16(wt) + 8, _np8(wt), (1 if t8 else T // 16) * _np8(wt) // 8)
 
 
-def mma_smem_bytes(layers, T: int, flags: int = 0) -> int:
-    """Shared-memory bytes of one block (``mma::layout``): three bf16
-    stages, the hidden weights in bf16 (all with ``RES_WEIGHTS``, else the
-    largest one), the gradient row (``RES_GRAD``), the projection partials,
-    the column sums, the tile's points, cotangents, sum terms and projected
-    streams."""
+def _check_mma_kind(kind: str) -> None:
+    if kind not in MMA_KINDS:
+        raise ValueError(f"{kind}: no bf16-dot mode, so no tensor-core design")
+
+
+def mma_smem_bytes(layers, T: int, flags: int = 0,
+                   kind: str = "fused_linear_residual") -> int:
+    """Shared-memory bytes of one block of ``kind`` (``mma::layout``): the
+    bf16 stages (three; two in the jet forward), the hidden weights in bf16
+    (all with ``RES_WEIGHTS``, else the largest one), the gradient row
+    (``RES_GRAD``; the loss sums too in the fused kinds; none in the jet
+    forward), the projection partials (not in the jet backward), the column
+    sums (not in the jet forward), the tile's points, cotangents (not in the
+    jet forward), sum terms (the fused kinds) and projected streams (not in
+    the jet backward)."""
+    _check_mma_kind(kind)
     g = mma_geometry(layers, T)
     d = layers[0]
-    n = 3 * g.ST * g.ldb * 2
+    rev, proj = kind != "fwdlap_forward", kind != "fwdlap_backward"
+    fused = kind.startswith("fused")
+    n = (3 if rev else 2) * g.ST * g.ldb * 2
     hid = [_kp16(a) * (_kp16(b) + 8) * 2 for a, b in zip(layers[1:-2], layers[2:-1])]
     n += sum(hid) if flags & _plan.RES_WEIGHTS else max(hid, default=0)
-    if flags & _plan.RES_GRAD:
-        n += 4 * _rnd4(_cuda.n_params(layers) + 3)
-    floats = (_rnd4(g.wq // 8 * g.ST) + _rnd4(g.NPB * g.S * g.wq) + _rnd4(T * d)
-              + _rnd4(g.S * T) + _rnd4(3 * T) + _rnd4(g.ST))
+    if rev and flags & _plan.RES_GRAD:
+        n += 4 * _rnd4(_cuda.n_params(layers) + (3 if fused else 0))
+    floats = ((_rnd4(g.wq // 8 * g.ST) if proj else 0)
+              + (_rnd4(g.NPB * g.S * g.wq) if rev else 0) + _rnd4(T * d)
+              + (_rnd4(g.S * T) if rev else 0) + (_rnd4(3 * T) if fused else 0)
+              + (_rnd4(g.ST) if proj else 0))
     return n + 4 * floats
 
 
-def mma_scratch_floats(layers, T: int) -> int:
+def mma_scratch_floats(layers, T: int, kind: str = "fused_linear_residual") -> int:
     """Saved-stage floats of one block in device memory: the K-1 hidden
     stages, each warp block's stream tiles and its q tile, a float4 per
-    lane."""
+    lane; none in the jet forward, which saves nothing."""
+    _check_mma_kind(kind)
     g = mma_geometry(layers, T)
+    if kind == "fwdlap_forward":
+        return 0
     return (len(layers) - 2) * g.nblk * (g.NU + 1) * 128
 
 
 def mma_plan(kind: str, layers, *, T: int | None = None, tier: str | None = None,
              blocks: int | None = None) -> _plan.Plan:
     """The launch shape of the bf16-dot mode of the linear or analytic
-    kernel in the tensor-core design.  Two blocks per SM (the kernels'
-    register budget) first, then one; within them the tile (``MMA_T``, then
-    multiples of 16 down to 16, and with a whole SM to itself 8), then the
-    tiers of ``MMA_TIERS`` in order.  ``T``, ``tier`` and ``blocks`` pin a
-    choice; what fits nothing raises, naming the shape."""
-    if kind not in ("fused_linear_residual", "fused_poisson_analytic"):
-        raise ValueError(f"{kind}: no bf16-dot mode, so no tensor-core design")
-    if blocks not in (None, 1, 2):
-        raise ValueError(f"{kind}: the kernels' register budget is 2 blocks per SM, "
+    kernel or of the jet pair in the tensor-core design.  The most blocks
+    per SM first (two, the register budget of the kinds with a reverse
+    sweep; the jet forward three, then two), then one; within them the tile
+    (``MMA_T``, then multiples of 16 down to 16, and with a whole SM to
+    itself 8), then the tiers (``MMA_TIERS``; the jet forward's
+    ``MMA_FWD_TIERS``) in order.  The jet forward's plan carries its
+    register budget in ``blocks`` (3 at three blocks per SM, else 2).
+    ``T``, ``tier`` and ``blocks`` pin a choice; what fits nothing raises,
+    naming the shape."""
+    _check_mma_kind(kind)
+    fwd = kind == "fwdlap_forward"
+    shares = MMA_SHARES.get(kind, (2, 1))
+    if blocks is not None and blocks not in shares:
+        raise ValueError(f"{kind}: the register budget is {max(shares)} blocks per SM, "
                          f"not {blocks}")
-    names = [tier] if tier is not None else [name for name, _ in MMA_TIERS]
-    for share in (2, 1) if blocks is None else (blocks,):
+    tiers = MMA_FWD_TIERS if fwd else MMA_TIERS
+    names = [tier] if tier is not None else [name for name, _ in tiers]
+    for share in shares if blocks is None else (blocks,):
         budget = _cuda.SMEM_MAX if share == 1 else _plan.SM_SMEM // share - 1024
         if T is not None:
             tiles = (T,)
         else:
             tiles = tuple(range(MMA_T, 15, -16)) + ((8,) if share == 1 else ())
         for t in tiles:
-            for name, flags in MMA_TIERS:
+            for name, flags in tiers:
                 if name not in names:
                     continue
-                smem = mma_smem_bytes(layers, t, flags)
+                smem = mma_smem_bytes(layers, t, flags, kind)
                 if smem <= budget:
-                    return _plan.Plan(t, smem, flags, name, _cuda.DES_MMA)
+                    return _plan.Plan(t, smem, flags, name, _cuda.DES_MMA,
+                                      (3 if share == 3 else 2) if fwd else 0)
     raise ValueError(f"{kind} mma plan: layers {list(layers)} do not fit {_cuda.SMEM_MAX} B "
                      f"of shared memory (T={T}, tier={tier}, blocks={blocks})")
 

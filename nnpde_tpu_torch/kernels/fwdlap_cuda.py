@@ -16,9 +16,8 @@ recurrence kept on chip, differentiable in the parameters.
 * backward (``_backward_kernel``): ``csrc/fwdlap_backward.cu`` recomputes
   the recurrence per tile and reverse-sweeps from the ``(N, d+2)`` cotangent
   stream to dW/db, launched as :func:`backward_plan` says (the planned
-  design of ``csrc/fwdlap_planned.cuh`` in fp32, the constant tile in the
-  bf16-dot mode).  The last bias's gradient is ``sum ct[:, 0]``, formed
-  here; the points get no gradient.
+  design of ``csrc/fwdlap_planned.cuh`` in fp32).  The last bias's gradient
+  is ``sum ct[:, 0]``, formed here; the points get no gradient.
 
 Two reduced-precision modes, independent of each other as in JAX (the
 arguments of ``mlp_fwdlap_pallas`` and ``SolutionModel.fields``, which
@@ -33,6 +32,12 @@ sets both):
   ``'streams:default'`` raises;
 * ``dot_dtype='bfloat16'``: the backward's bf16-dot variant (recompute and
   reverse sweep).
+
+Both bf16-dot variants run on the card's bf16 tensor cores, in the design
+of ``csrc/fwdlap_mma.cuh`` (``DES_MMA``) on the plan of
+:func:`.fused_step.mma_plan` (kinds ``'fwdlap_forward'`` and
+``'fwdlap_backward'``), and only there; the fp32 modes run a planned design,
+and a plan of the other mode's design raises.
 
 A CUDA tensor goes to the kernels (float32; anything else raises), a CPU
 tensor to the plain versions: :func:`fwdlap_forward_plain`, which is
@@ -56,7 +61,7 @@ from ..ops.fwdlap import (Jet, mlp_fwdlap, project_plain, recompute_plain, rever
 from . import _cuda, _plan
 from ._cuda import on_cuda as _on_cuda
 from ._cuda import variant_name
-from .fused_step import _check_dot, _unflatten, planned, variant
+from .fused_step import _check_dot, _unflatten, mma_plan, mma_scratch_floats, planned, variant
 
 fwdlap_forward_plain = mlp_fwdlap
 
@@ -96,8 +101,7 @@ def fwdlap_backward_plain(params, X, ct, activation: str, dot_dtype: str = "floa
 
 def _plan_forward(layers, T: int):
     """Shared-memory floats per block for a tile of T points (the layout of
-    fwdlap_forward.cu's design-0 kernels: the stream-major one and the row
-    kernel's bf16-dot variant)."""
+    fwdlap_forward.cu's design-0 kernel, the stream-major one)."""
     d = layers[0]
     S, wmax = d + 2, _cuda.padded_wmax(layers)
     return 2 * S * T * wmax + wmax * wmax + T * d + S * T
@@ -105,8 +109,8 @@ def _plan_forward(layers, T: int):
 
 def forward_smem_floats(layers, T: int, flags: int = 0) -> int:
     """The same for the planned row kernel (mirrored from fwdlap_forward.cu's
-    fwd_smem_floats): residency ``flags`` of :mod:`._plan` (0 is design 0's
-    layout)."""
+    fwd_smem_floats): residency ``flags`` of :mod:`._plan` (0 is the
+    stream-major kernel's layout)."""
     d = layers[0]
     S, wmax = d + 2, _cuda.padded_wmax(layers)
     n = 2 * S * T * wmax
@@ -118,9 +122,10 @@ def forward_plan(layers, design: int | None = None, *, N: int | None = None,
                  sms: int = 132, T: int | None = None, tier: str | None = None,
                  blocks: int = _plan.FWD_BLOCKS) -> _plan.Plan:
     """The row forward's launch shape for N points on a card of ``sms`` SMs:
-    design 0 (the bf16-dot variant, and only it) the constant tile of
-    :func:`._cuda.plan_tile`; fp32 the planned design
-    (:func:`._plan.forward_only`, ``d + 2`` streams)."""
+    fp32 the planned design (:func:`._plan.forward_only`, ``d + 2``
+    streams); design 0 the stream-major kernel's constant tile of
+    :func:`._cuda.plan_tile`.  (The bf16-dot variant's is
+    :func:`.fused_step.mma_plan`.)"""
     if design == 0:
         T0, smem = _cuda.plan_tile(lambda t: _plan_forward(layers, t))
         return _plan.Plan(T0, smem, 0, "staged", 0)
@@ -131,7 +136,7 @@ def forward_plan(layers, design: int | None = None, *, N: int | None = None,
 
 def backward_smem_floats(layers, T: int, flags: int = 0) -> int:
     """The same for fwdlap_backward.cu (mirrored from its bwd_smem_floats):
-    residency ``flags`` of :mod:`._plan` (0 for design 0)."""
+    residency ``flags`` of :mod:`._plan`."""
     d = layers[0]
     S, wmax = d + 2, _cuda.padded_wmax(layers)
     n = 3 * S * T * wmax
@@ -143,8 +148,15 @@ def backward_smem_floats(layers, T: int, flags: int = 0) -> int:
 
 def backward_plan(layers, design: int | None = None, *, T: int | None = None,
                   tier: str | None = None) -> _plan.Plan:
-    """The backward's launch shape (:func:`.fused_step.planned`, ``d + 2``
-    streams)."""
+    """The backward's launch shape: fp32 a planned design
+    (:func:`.fused_step.planned`, ``d + 2`` streams; design 0 raises);
+    ``DES_MMA`` the bf16-dot variant's tensor-core design
+    (:func:`.fused_step.mma_plan`)."""
+    if design == _cuda.DES_MMA:
+        return mma_plan("fwdlap_backward", layers, T=T, tier=tier)
+    if design == 0:
+        raise ValueError("fwdlap_backward: no design 0 (the bf16-dot variant runs the "
+                         "tensor-core design, DES_MMA)")
     return planned(lambda t, f: backward_smem_floats(layers, t, f), layers, layers[0] + 2,
                    "fwdlap_backward plan", design, T=T, tier=tier)
 
@@ -155,9 +167,11 @@ def fwdlap_forward(params, X, activation: str, fwd_impl: str = "rows", *,
     grad_{d-1}, lap]`` (with ``fwd_impl='streams'`` a view of the kernel's
     stream-major ``(d+2, N)`` output; ``'rows:default'``: the row kernel's
     bf16-dot variant).  ``'rows'`` launches the planned design on the plan
-    of :func:`forward_plan`, cached per shape; the other two keep design 0's
-    constant tile.  ``pl``: a launch shape (and design) other than the
-    wrapper's own for ``'rows'`` (timing sweeps, tests)."""
+    of :func:`forward_plan`, cached per shape, ``'rows:default'`` the
+    tensor-core design on its :func:`.fused_step.mma_plan`, cached per net;
+    ``'streams'`` keeps design 0's constant tile.  ``pl``: a launch shape
+    (and design) other than the wrapper's own for the row kernels (timing
+    sweeps, tests); a design of the other mode raises."""
     from . import _build
 
     streams = int(fwd_impl == "streams")
@@ -168,18 +182,24 @@ def fwdlap_forward(params, X, activation: str, fwd_impl: str = "rows", *,
     N, d = X.shape
     X = X.contiguous()
     flat = _cuda.flat_params(params)
-    if streams or bf16:
+    if streams:
         if pl is not None:
-            raise ValueError(f"{name}: only fwd_impl='rows' takes a plan")
+            raise ValueError(f"{name}: only the row kernels (fwd_impl='rows', "
+                             "'rows:default') take a plan")
         T, smem = _cuda.plan_tile(lambda t: _plan_forward(layers, t))
         pl = _plan.Plan(T, smem, 0, "staged", 0)
+    elif pl is None and bf16:
+        pl = _plan.cached(("fwdlap_forward", tuple(layers), bf16),
+                          lambda: mma_plan("fwdlap_forward", layers))
     elif pl is None:
         sms = _cuda.sm_count(X.device)
         pl = _plan.cached(("fwdlap_forward", tuple(layers), N, sms),
                           lambda: forward_plan(layers, N=N, sms=sms))
-    elif pl.design == 0:
-        raise ValueError("fwdlap_forward: design 0 is the bf16-dot variant's and the "
-                         "stream-major kernel's only")
+    if not streams and (bool(bf16) != (pl.design == _cuda.DES_MMA)
+                        or not (bf16 or pl.design in _cuda.PLANNED_DESIGNS)):
+        raise ValueError("fwdlap_forward: the bf16-dot variant runs the tensor-core design "
+                         "and only it; fp32 rows a planned design (design 0 is the "
+                         f"stream-major kernel's; bf16={bf16}, design={pl.design})")
     T = pl.T
     dev = X.device
     fold, key = variant(layers, d + 2, pl)
@@ -203,8 +223,10 @@ def fwdlap_backward(params, X, ct, activation: str, dot_dtype: str = "float32", 
     """Launch the recompute-backward kernel: ``(dWs, dbs)`` of ``sum(jet *
     ct)`` for the ``(N, d+2)`` cotangent ``ct``; the last bias's gradient,
     ``sum ct[:, 0]``, is formed here.  ``dot_dtype='bfloat16'``: the
-    bf16-dot variant (design 0).  ``pl``: a launch shape (and design) other
-    than the wrapper's own (timing sweeps, tests)."""
+    bf16-dot variant, on the tensor-core design (``DES_MMA``) and only it;
+    fp32 a planned design.  ``pl``: a launch shape (and design) other than
+    the wrapper's own (timing sweeps, tests); a design of the other mode
+    raises."""
     from . import _build
 
     bf16 = int(dot_dtype == "bfloat16")
@@ -220,10 +242,13 @@ def fwdlap_backward(params, X, ct, activation: str, dot_dtype: str = "float32", 
     P = flat.numel()
     if pl is None:
         pl = _plan.cached(("fwdlap_backward", tuple(layers), bf16),
-                          lambda: backward_plan(layers, 0 if bf16 else None))
-    if bool(bf16) != (pl.design == 0):
-        raise ValueError("fwdlap_backward: design 0 is the bf16-dot variant's and only "
-                         f"its (bf16={bf16}, design={pl.design})")
+                          lambda: mma_plan("fwdlap_backward", layers) if bf16
+                          else backward_plan(layers))
+    mma = pl.design == _cuda.DES_MMA
+    if bool(bf16) != mma or not (mma or pl.design in _cuda.PLANNED_DESIGNS):
+        raise ValueError("fwdlap_backward: the bf16-dot variant runs the tensor-core design "
+                         f"and only it; fp32 a planned design (bf16={bf16}, "
+                         f"design={pl.design})")
     T, design = pl.T, pl.design
     dev = X.device
     fold, key = variant(layers, d + 2, pl)
@@ -231,13 +256,15 @@ def fwdlap_backward(params, X, ct, activation: str, dot_dtype: str = "float32", 
                    lambda sm, ptr: lib.fwdlap_backward_blocks_per_sm(fold, bf16, design, sm,
                                                                      ptr),
                    pl.smem, dev, (N + T - 1) // T, key)
-    wmax = _cuda.padded_wmax(layers)
+    if mma:
+        per_block = mma_scratch_floats(layers, T, "fwdlap_backward")
+    else:
+        per_block = max(K - 2, 1) * (d + 2) * T * _cuda.padded_wmax(layers)
     partial = torch.empty((G, P), dtype=torch.float32, device=dev)
-    scratch = torch.empty((G, max(K - 2, 1) * (d + 2) * T * wmax), dtype=torch.float32,
-                          device=dev)
+    scratch = torch.empty((G, per_block), dtype=torch.float32, device=dev)
     out = torch.empty((P,), dtype=torch.float32, device=dev)
     lay = _cuda.layers_arg(layers)
-    wt = _cuda.hidden_transposes(params) if design else None
+    wt = None if mma else _cuda.hidden_transposes(params)
     _cuda.launch(name, lib.fwdlap_backward_f32, X.data_ptr(), ct.data_ptr(),
                  flat.data_ptr(), None if wt is None else wt.data_ptr(),
                  ctypes.addressof(lay), len(layers), _cuda.ACTS[activation], N, T, G, fold,

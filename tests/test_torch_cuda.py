@@ -632,8 +632,8 @@ def test_cuda_planned_designs_agree_at_one_plan(dev, kind):
     """At one tile and tier the two planned designs sum every entry of a
     tile in the same order (4 x 4 and two-point items, the same dW items):
     on u64 at 16 points, staged, they agree bitwise where they launch the
-    same grid, and within 1e-6 in any case; a design-0 plan is refused in
-    fp32 (design 0 is the bf16-dot variants')."""
+    same grid, and within 1e-6 in any case; a design-0 plan is refused (no
+    kernel of these rows runs design 0)."""
     from nnpde_tpu_torch.kernels import _cuda
     from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
 
@@ -787,8 +787,10 @@ def test_cuda_forward_smem_layout_mirror(dev):
 
 @pytest.mark.cuda
 def test_cuda_forward_refuses_a_plan_outside_its_design(dev):
-    """fp32 rows take a planned design, the stream-major and bf16-dot
-    forwards design 0's constant tile only."""
+    """fp32 rows take a planned design and the bf16-dot rows the
+    tensor-core design, each only its own (a crossed pin, or design 0,
+    raises); the stream-major forward keeps design 0's constant tile and
+    takes no plan."""
     from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
 
     layers = (2, 16, 16, 1)
@@ -796,7 +798,11 @@ def test_cuda_forward_refuses_a_plan_outside_its_design(dev):
     X = torch.zeros((64, 2), device=dev)
     with pytest.raises(ValueError, match="design 0"):
         tfc.fwdlap_forward(tp, X, "sin", pl=tfc.forward_plan(layers, 0))
-    with pytest.raises(ValueError, match="only fwd_impl='rows'"):
+    with pytest.raises(ValueError, match="tensor-core design and only it"):
+        tfc.fwdlap_forward(tp, X, "sin", pl=tfs.mma_plan("fwdlap_forward", layers))
+    with pytest.raises(ValueError, match="tensor-core design and only it"):
+        tfc.fwdlap_forward(tp, X, "sin", "rows:default", pl=tfc.forward_plan(layers))
+    with pytest.raises(ValueError, match="take a plan"):
         tfc.fwdlap_forward(tp, X, "sin", "streams", pl=tfc.forward_plan(layers))
 
 
@@ -833,8 +839,8 @@ def test_cuda_bf16_kernel_matches_plain(dev, kind, layers, act):
     <= 5e-4 (a per-point output keeps the rare operand that rounds to the
     other bf16 neighbour under the two sum orders); two launches bitwise
     equal, each counted under ``<kernel>.bf16``.  The backward takes the
-    cotangent a Poisson residual gives it.  Rows 1 and 2 run the
-    tensor-core design (``DES_MMA``) on every net; rows 4 and 5 design 0."""
+    cotangent a Poisson residual gives it.  All four run the tensor-core
+    design (``DES_MMA``) on every net."""
     from nnpde_tpu_torch.kernels import _cuda
     from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
     from nnpde_tpu_torch.models import factor_for_technique
@@ -888,8 +894,7 @@ def test_cuda_bf16_kernel_matches_plain(dev, kind, layers, act):
     if kind in ("linear", "analytic"):
         g = tfs._scaled_grads(tp, dWs, dbs, sums, 2.0 / N)
         want = [(sums[0] / N).reshape(1)] + [t for pair in g for t in pair]
-    if kind in ("linear", "analytic"):
-        assert tfs.mma_plan(name[:-5], list(layers)).design & _cuda.DES_MMA
+    assert tfs.mma_plan(name[:-5], list(layers)).design == _cuda.DES_MMA
     before = LAUNCHES[name]
     out, out2 = run(), run()
     torch.cuda.synchronize()
@@ -1035,3 +1040,188 @@ def test_cuda_mma_plans_match_plain(dev, layers, coef_kind):
             assert _leaf_rel(out, want) <= 8e-4, pl
             if w_plain <= 1e-5:
                 assert _leaf_rel(out, witness) <= 2.0 * w_plain + 2e-6, pl
+
+
+# ---------------------- the deep, wide net (ROADMAP C2) and rows 4/5 bf16 on DES_MMA
+C2_NET = (16,) + (128,) * 15 + (1,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["sin", "tanh"])
+def test_cuda_mma_deep_wide_net(dev, act):
+    """Row 1 bf16 on the deepest, widest net the wrapper takes, (16, 128 x
+    15, 1) (18 streams: 8-point tiles), at 1007 points with the
+    coefficients a Poisson residual gives: every leaf within 1e-4 of the
+    plain bf16-dot version, no further from the float64 witness than 2x the
+    plain version + 2e-6, two launches bitwise equal (the bars of
+    test_cuda_mma_plans_match_plain)."""
+    from nnpde_tpu_torch.models import factor_for_technique
+
+    rng = np.random.default_rng(23)
+    N, d = 1000 + 7, C2_NET[0]
+    tp = params_from_jax(_np_params(rng, C2_NET), device=dev)
+    X = torch.as_tensor(rng.uniform(0.0, L, (N, d)).astype(np.float32), device=dev)
+    fj = factor_for_technique("FBC", dim=d, kind="box", L=L).jet(X)
+    coef = tfs.residual_coefficients(fj, a0=-1.0, rhs=torch.sin(X[:, 0]))
+
+    def plain(dtype):
+        P = [(W.to(dtype), b.to(dtype)) for W, b in tp]
+        dWs, dbs, sums = tfs.linear_residual_plain(P, X.to(dtype), coef.to(dtype), act,
+                                                   "bfloat16")
+        g = tfs._scaled_grads(P, dWs, dbs, sums, 2.0 / N)
+        return [(sums[0] / N).reshape(1)] + [t for pair in g for t in pair]
+
+    def run():
+        loss, _, g = tfs.fused_linear_residual(tp, X, coef, act, dot_dtype="bfloat16")
+        return [loss.reshape(1)] + [t for pair in g for t in pair]
+
+    want, witness = plain(torch.float32), plain(torch.float64)
+    out, out2 = run(), run()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, out2))
+    assert _leaf_rel(out, want) <= 1e-4
+    assert _leaf_rel(out, witness) <= 2.0 * _leaf_rel(want, witness) + 2e-6
+
+
+@pytest.mark.cuda
+def test_cuda_jet_mma_layout_mirror(dev):
+    """The jet pair's tensor-core layouts and saved-stage sizes in Python
+    are the kernels' own count (fwdlap_backward_mma_*, fwdlap_forward_mma_*)
+    for every tile and residency; tiles the design does not take are
+    refused."""
+    import ctypes
+
+    from nnpde_tpu_torch.kernels import _build, _plan
+
+    lib = _build.load()
+    for layers in [(2, 64, 64, 64, 64, 1), (2, 50, 50, 50, 50, 1), (5, 7, 9, 1), (2, 12, 1),
+                   (3, 1, 1, 1), C2_NET]:
+        lay = (ctypes.c_int * len(layers))(*layers)
+        args = (ctypes.addressof(lay), len(layers))
+        for T in (8, 16, 32, 48):
+            assert lib.fwdlap_backward_mma_scratch_floats(*args, T) == tfs.mma_scratch_floats(
+                layers, T, "fwdlap_backward")
+            assert lib.fwdlap_forward_mma_scratch_floats(*args, T) == 0
+            for flags in (0, _plan.RES_WEIGHTS, _plan.RES_GRAD,
+                          _plan.RES_WEIGHTS | _plan.RES_GRAD):
+                assert lib.fwdlap_backward_mma_smem_bytes(*args, T, flags) == tfs.mma_smem_bytes(
+                    layers, T, flags, "fwdlap_backward")
+                assert lib.fwdlap_forward_mma_smem_bytes(*args, T, flags) == tfs.mma_smem_bytes(
+                    layers, T, flags, "fwdlap_forward")
+        for T in (4, 12, 24):
+            assert lib.fwdlap_backward_mma_smem_bytes(*args, T, 0) == -1
+            assert lib.fwdlap_forward_mma_smem_bytes(*args, T, 0) == -1
+
+
+def _jet_mma_pins(kind, layers):
+    """Every tensor-core plan of a jet kernel on this net at tiles 8, 16 and
+    32: each tier at each blocks per SM (the forward also three) that fits."""
+    out = []
+    tiers = tfs.MMA_FWD_TIERS if kind == "fwdlap_forward" else tfs.MMA_TIERS
+    for T in (8, 16, 32):
+        for tier, _ in tiers:
+            for blocks in tfs.MMA_SHARES.get(kind, (2, 1)):
+                try:
+                    pl = tfs.mma_plan(kind, layers, T=T, tier=tier, blocks=blocks)
+                except ValueError:
+                    continue
+                if pl not in out:
+                    out.append(pl)
+    return out
+
+
+_JET_NETS = [(2, 64, 64, 64, 64, 1), (3, 50, 50, 1), (2, 50, 1, 50, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ct_kind", ["residual", "random"])
+@pytest.mark.parametrize("layers", _JET_NETS)
+def test_cuda_jet_backward_mma_plans_match_plain(dev, layers, ct_kind):
+    """Row 5 bf16 at every tile, tier and blocks per SM of the tensor-core
+    design, two launches bitwise equal and counted under
+    ``fwdlap_backward.bf16``.  With the cotangent a Poisson residual gives:
+    every leaf within 1e-4 of the plain bf16-dot version.  With a random
+    one: within PREC_TOL_BWD_RANDOM (8e-4, chip_smoke.py), and where the
+    plain version is within 1e-5 of the float64 witness, no further from it
+    than 2x the plain version + 2e-6."""
+    from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
+    from nnpde_tpu_torch.models import factor_for_technique
+
+    rng = np.random.default_rng(29)
+    N, d = 1000 + 7, layers[0]
+    tp = params_from_jax(_np_params(rng, layers), device=dev)
+    X = torch.as_tensor(rng.uniform(0.0, L, (N, d)).astype(np.float32), device=dev)
+    if ct_kind == "residual":
+        fj = factor_for_technique("FBC", dim=d, kind="box", L=L).jet(X)
+        coef = tfs.residual_coefficients(fj, a0=-1.0, rhs=torch.sin(X[:, 0]))
+        jet = tfc.fwdlap_forward_plain(tp, X, "sin")
+        r = (coef[:, 0] * jet.value + torch.sum(coef[:, 1:1 + d] * jet.grad, dim=1)
+             + coef[:, d + 1] * jet.lap + coef[:, d + 2])
+        ct = ((2.0 / N) * r[:, None] * coef[:, :d + 2]).contiguous()
+    else:
+        ct = torch.as_tensor((rng.standard_normal((N, d + 2)) / N).astype(np.float32),
+                             device=dev)
+
+    def plain(dtype):
+        P = [(W.to(dtype), b.to(dtype)) for W, b in tp]
+        dW, db = tfc.fwdlap_backward_plain(P, X.to(dtype), ct.to(dtype), "sin", "bfloat16")
+        return [t for pair in zip(dW, db) for t in pair]
+
+    want, witness = plain(torch.float32), plain(torch.float64)
+    w_plain = _leaf_rel(want, witness)
+    pins = _jet_mma_pins("fwdlap_backward", layers)
+    assert tfs.mma_plan("fwdlap_backward", layers) in pins
+    for pl in pins:
+        def run():
+            dW, db = tfc.fwdlap_backward(tp, X, ct, "sin", "bfloat16", pl=pl)
+            return [t for pair in zip(dW, db) for t in pair]
+
+        before = LAUNCHES["fwdlap_backward.bf16"]
+        out, out2 = run(), run()
+        torch.cuda.synchronize()
+        assert LAUNCHES["fwdlap_backward.bf16"] == before + 2
+        assert all(torch.equal(a, b) for a, b in zip(out, out2)), pl
+        if ct_kind == "residual":
+            assert _leaf_rel(out, want) <= 1e-4, pl
+        else:
+            assert _leaf_rel(out, want) <= 8e-4, pl
+            if w_plain <= 1e-5:
+                assert _leaf_rel(out, witness) <= 2.0 * w_plain + 2e-6, pl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layers", _JET_NETS)
+def test_cuda_jet_forward_mma_plans_match_plain(dev, layers):
+    """Row 4 bf16 at every tile, tier and blocks per SM (two and three
+    register budgets) of the tensor-core design: every jet column within
+    5e-4 of the plain bf16-dot version (the bar of
+    test_cuda_bf16_kernel_matches_plain for a per-point output) and no
+    further from the float64 witness than 2x the plain version + 2e-6; two
+    launches bitwise equal and counted."""
+    from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
+
+    rng = np.random.default_rng(31)
+    N, d = 1000 + 7, layers[0]
+    tp = params_from_jax(_np_params(rng, layers), device=dev)
+    X = torch.as_tensor(rng.uniform(0.0, L, (N, d)).astype(np.float32), device=dev)
+    want = tfc.fwdlap_forward_default_plain(tp, X, "sin").double()
+    witness = tfc.fwdlap_forward_default_plain(
+        [(W.double(), b.double()) for W, b in tp], X.double(), "sin")
+
+    def col_rel(a, b):
+        return max(float(torch.linalg.norm(a[:, c] - b[:, c]) / torch.linalg.norm(b[:, c]))
+                   for c in range(d + 2))
+
+    w_plain = col_rel(want, witness)
+    pins = _jet_mma_pins("fwdlap_forward", layers)
+    assert tfs.mma_plan("fwdlap_forward", layers) in pins
+    assert {pl.blocks for pl in pins} == {2, 3}
+    for pl in pins:
+        before = LAUNCHES["fwdlap_forward.bf16"]
+        out = tfc.fwdlap_forward(tp, X, "sin", "rows:default", pl=pl)
+        out2 = tfc.fwdlap_forward(tp, X, "sin", "rows:default", pl=pl)
+        torch.cuda.synchronize()
+        assert LAUNCHES["fwdlap_forward.bf16"] == before + 2
+        assert torch.equal(out, out2), pl
+        assert col_rel(out.double(), want) <= 5e-4, pl
+        assert col_rel(out.double(), witness) <= 2.0 * w_plain + 2e-6, pl

@@ -1,5 +1,7 @@
-"""The tensor-core design (``DES_MMA``) of the bf16-dot fused residual
-kernels (rows 1 and 2 with ``dot_dtype='bfloat16'``) on the CPU.
+"""The tensor-core design (``DES_MMA``) of the bf16-dot kernels on the CPU:
+the fused residual kernels (rows 1 and 2 with ``dot_dtype='bfloat16'``) and
+the jet pair (row 4 with ``fwd_impl='rows:default'``, row 5 with
+``dot_dtype='bfloat16'``).
 
 What runs here is the Python half of the design: its shared-memory layout
 mirror (held to a formula written out below, and on a card to the kernel's
@@ -29,6 +31,7 @@ EXTREMES = {
     **NETS,
 }
 KINDS = ("fused_linear_residual", "fused_poisson_analytic")
+JET_KINDS = ("fwdlap_backward", "fwdlap_forward")
 FLAGS = (0, _plan.RES_WEIGHTS, _plan.RES_GRAD, _plan.RES_WEIGHTS | _plan.RES_GRAD)
 
 
@@ -36,28 +39,38 @@ def _up(n, m):
     return -(-n // m) * m
 
 
-def _written_out_bytes(layers, T, flags):
+def _written_out_bytes(layers, T, flags, kind="fused_linear_residual"):
     """The kernel's layout, written out: three bf16 stages of Sp*T rows at
-    a row stride of the widest layer rounded up to 16 plus 8; the hidden
-    weights in bf16, each kp16(in) rows of kp16(out) + 8 (all of them
-    resident, else the largest); the gradient row; then float regions, each
-    rounded up to 4 floats: projection partials (n-blocks of 8 x rows),
-    column sums (16-point blocks x S x widest rounded to 8), the points, the
-    cotangents, the sum terms and the projected rows."""
+    a row stride of the widest layer rounded up to 16 plus 8 (the jet
+    forward two); the hidden weights in bf16, each kp16(in) rows of kp16(out)
+    + 8 (all of them resident, else the largest); the gradient row (the
+    fused kinds with the three loss sums, the jet backward without, the jet
+    forward none); then float regions, each rounded up to 4 floats:
+    projection partials (n-blocks of 8 x rows; not in the jet backward),
+    column sums (16-point blocks x S x widest rounded to 8; not in the jet
+    forward), the points, the cotangents (not in the jet forward), the sum
+    terms (the fused kinds) and the projected rows (not in the jet
+    backward)."""
     d, hidden = layers[0], layers[1:-1]
+    fwd, bwd = kind == "fwdlap_forward", kind == "fwdlap_backward"
     S = d + 2
     Sp = S + S % 2 if T == 8 else S
     rows = Sp * T
     k16, n8 = _up(max(hidden), 16), _up(max(hidden), 8)
-    n = 3 * rows * (k16 + 8) * 2
+    n = (2 if fwd else 3) * rows * (k16 + 8) * 2
     weights = [_up(a, 16) * (_up(b, 16) + 8) * 2 for a, b in zip(hidden[:-1], hidden[1:])]
     n += sum(weights) if flags & _plan.RES_WEIGHTS else max(weights, default=0)
-    if flags & _plan.RES_GRAD:
+    if flags & _plan.RES_GRAD and not fwd:
         P = sum(a * b + b for a, b in zip(layers[:-1], layers[1:]))
-        n += 4 * _up(P + 3, 4)
+        n += 4 * _up(P + (0 if bwd else 3), 4)
     blocks16 = 1 if T == 8 else T // 16
-    for floats in (n8 // 8 * rows, blocks16 * S * n8, T * d, S * T, 3 * T, rows):
-        n += 4 * _up(floats, 4)
+    regions = {"partials": n8 // 8 * rows, "colsums": blocks16 * S * n8, "points": T * d,
+               "cotangents": S * T, "sums": 3 * T, "projected": rows}
+    drop = {"fwdlap_forward": ("colsums", "cotangents", "sums"),
+            "fwdlap_backward": ("partials", "sums", "projected")}.get(kind, ())
+    for name, floats in regions.items():
+        if name not in drop:
+            n += 4 * _up(floats, 4)
     return n
 
 
@@ -238,10 +251,11 @@ def test_bf16_fused_kinds_route_to_the_tensor_core_design(monkeypatch, kind, net
 
 
 @pytest.mark.parametrize("net", ["u64", "u50", "u64_d5"])
-def test_jet_pair_bf16_keeps_design_0(monkeypatch, net):
+def test_jet_pair_bf16_routes_to_the_tensor_core_design(monkeypatch, net):
     """Rows 4 bf16 and 5 bf16 (the jet forward's 'rows:default', the jet
-    backward's bf16-dot mode) still launch design 0 on the constant tile;
-    their fp32 modes a planned design."""
+    backward's bf16-dot mode) launch the tensor-core design on their mma
+    plans (tile, flags and, for the forward, the register budget passed
+    through; no transposes, no fold); their fp32 modes a planned design."""
     layers = NETS[net]
     rec = _Recorder(monkeypatch)
     params, X, _ = _inputs(layers)
@@ -253,12 +267,17 @@ def test_jet_pair_bf16_keeps_design_0(monkeypatch, net):
     names = [c[0] for c in rec.calls]
     assert names == ["fwdlap_forward.bf16", "fwdlap_forward", "fwdlap_backward.bf16",
                      "fwdlap_backward"]
-    # fwdlap_forward_f32(streams, X, params, layers, n, act, N, T, G, fold, bf16, des, ...)
-    assert rec.calls[0][2][10:12] == (1, 0) and rec.calls[0][2][7] == _cuda.TILE
+    fpl = tfs.mma_plan("fwdlap_forward", layers)
+    bpl = tfs.mma_plan("fwdlap_backward", layers)
+    # fwdlap_forward_f32(streams, X, params, layers, n, act, N, T, G, fold, bf16, des,
+    # minb, flags, ...)
+    assert rec.calls[0][2][9:14] == (0, 1, _cuda.DES_MMA, fpl.blocks, fpl.flags)
+    assert rec.calls[0][2][7] == fpl.T and fpl.blocks in (2, 3)
     assert rec.calls[1][2][10] == 0 and rec.calls[1][2][11] in _cuda.PLANNED_DESIGNS
-    # fwdlap_backward_f32(X, ct, params, wt, layers, n, act, N, T, G, fold, bf16, des, ...)
-    assert rec.calls[2][2][11:13] == (1, 0)
-    assert rec.calls[2][2][8] == tfc.backward_plan(layers, 0).T
+    # fwdlap_backward_f32(X, ct, params, wt, layers, n, act, N, T, G, fold, bf16, des,
+    # flags, ...)
+    assert rec.calls[2][2][10:14] == (0, 1, _cuda.DES_MMA, bpl.flags)
+    assert rec.calls[2][2][8] == bpl.T and rec.calls[2][2][3] is None
     assert rec.calls[3][2][11] == 0 and rec.calls[3][2][12] in _cuda.PLANNED_DESIGNS
 
 
@@ -275,6 +294,138 @@ def test_fused_launch_refuses_design_0_and_crossed_designs(monkeypatch, kind):
                      (True, tfs.plan(kind, layers)), (False, tfs.mma_plan(kind, layers))):
         with pytest.raises(ValueError, match="design 0 has no fused kernels"):
             tfs._launch(kind, params, X, c, "sin", an, bf16=bf16, pl=pl)
+
+
+def test_jet_pair_refuses_crossed_designs(monkeypatch):
+    """The jet pair's bf16-dot modes take only the tensor-core design and
+    their fp32 modes only a planned one; the row forward no design 0 (the
+    stream-major kernel's), the stream-major forward no plan; the jet
+    backward has no design 0."""
+    layers = NETS["u64"]
+    rec = _Recorder(monkeypatch)
+    params, X, _ = _inputs(layers)
+    ct = torch.zeros((X.shape[0], layers[0] + 2))
+    crossed = ((True, tfc.forward_plan(layers)), (False, tfs.mma_plan("fwdlap_forward", layers)),
+               (True, tfc.forward_plan(layers, 0)), (False, tfc.forward_plan(layers, 0)))
+    for bf16, pl in crossed:
+        with pytest.raises(ValueError, match="tensor-core design and only it"):
+            tfc.fwdlap_forward(params, X, "sin", "rows:default" if bf16 else "rows", pl=pl)
+    with pytest.raises(ValueError, match="take a plan"):
+        tfc.fwdlap_forward(params, X, "sin", "streams", pl=tfc.forward_plan(layers, 0))
+    for dot, pl in (("bfloat16", tfc.backward_plan(layers)),
+                    ("float32", tfs.mma_plan("fwdlap_backward", layers))):
+        with pytest.raises(ValueError, match="tensor-core design and only it"):
+            tfc.fwdlap_backward(params, X, ct, "sin", dot, pl=pl)
+    with pytest.raises(ValueError, match="no design 0"):
+        tfc.backward_plan(layers, 0)
+    assert rec.calls == []
+
+
+# ------------------------------------------ the jet pair's layouts and plans
+@pytest.mark.parametrize("kind", JET_KINDS)
+@pytest.mark.parametrize("net", sorted(EXTREMES))
+def test_jet_mma_layout_mirror_is_the_written_out_layout(net, kind):
+    """The jet pair's layouts (``mma::layout`` of KIND_BWD and KIND_FWD) in
+    Python are the written-out ones: the backward without the projection
+    and the loss sums, the forward with two stages and no reverse regions;
+    the forward keeps no gradient row whatever its flags say."""
+    layers = EXTREMES[net]
+    for T in (8, 16, 32, 48):
+        for flags in FLAGS:
+            assert tfs.mma_smem_bytes(layers, T, flags, kind) == _written_out_bytes(
+                layers, T, flags, kind)
+    fwd = tfs.mma_smem_bytes(layers, 16, _plan.RES_GRAD, "fwdlap_forward")
+    assert fwd == tfs.mma_smem_bytes(layers, 16, 0, "fwdlap_forward")
+
+
+@pytest.mark.parametrize("net", sorted(EXTREMES))
+def test_jet_mma_scratch_floats(net):
+    """The jet backward saves what the fused kernels save; the jet forward
+    saves nothing."""
+    layers = EXTREMES[net]
+    for T in (8, 16, 32):
+        assert tfs.mma_scratch_floats(layers, T, "fwdlap_backward") == tfs.mma_scratch_floats(
+            layers, T)
+        assert tfs.mma_scratch_floats(layers, T, "fwdlap_forward") == 0
+
+
+def _fits_jet(pl, layers, kind):
+    """What fwdlap_backward.cu / fwdlap_forward.cu check before a
+    tensor-core launch; the forward's register budget is 2 or 3 blocks."""
+    return (_fits(pl) and pl.smem >= tfs.mma_smem_bytes(layers, pl.T, pl.flags, kind)
+            and (pl.blocks in (2, 3) if kind == "fwdlap_forward" else pl.blocks == 0))
+
+
+@pytest.mark.parametrize("kind", JET_KINDS)
+@pytest.mark.parametrize("net", sorted(EXTREMES))
+def test_jet_mma_plan_takes_every_shape_the_wrapper_takes(net, kind):
+    """Every net the jet pair's wrappers take gets a tensor-core plan the
+    kernel takes (the deep d = 16 net included; the backward's equal to
+    backward_plan's in DES_MMA); a pinned tier at 16 points fits or raises
+    naming the net."""
+    layers = EXTREMES[net]
+    params = [(torch.zeros(a, b), torch.zeros(b)) for a, b in zip(layers[:-1], layers[1:])]
+    assert _cuda.net_layers(kind, params, torch.zeros(8, layers[0]), "sin") == list(layers)
+    pl = tfs.mma_plan(kind, layers)
+    assert _fits_jet(pl, layers, kind)
+    if kind == "fwdlap_backward":
+        assert tfc.backward_plan(layers, _cuda.DES_MMA) == pl
+    tiers = tfs.MMA_FWD_TIERS if kind == "fwdlap_forward" else tfs.MMA_TIERS
+    for tier, flags in tiers:
+        try:
+            pinned = tfs.mma_plan(kind, layers, T=16, tier=tier)
+        except ValueError as err:
+            assert str(list(layers)) in str(err)
+            continue
+        assert (pinned.T, pinned.tier, pinned.flags) == (16, tier, flags)
+        assert _fits_jet(pinned, layers, kind)
+
+
+@pytest.mark.parametrize("kind,net,want", [
+    # (T, tier, blocks per SM by shared memory, the forward's register budget)
+    ("fwdlap_backward", "u64", (16, "resident", 2, 0)),
+    ("fwdlap_backward", "u50", (16, "resident", 2, 0)),
+    # without the loss regions the gradient row fits beside 7 streams
+    ("fwdlap_backward", "u64_d5", (16, "gradient", 2, 0)),
+    ("fwdlap_backward", "d16_w128_16layers", (8, "staged", 1, 0)),
+    ("fwdlap_forward", "u64", (16, "weights", 3, 3)),
+    ("fwdlap_forward", "u50", (16, "weights", 3, 3)),
+    ("fwdlap_forward", "u64_d5", (16, "weights", 3, 3)),
+    ("fwdlap_forward", "d16_w128_16layers", (16, "staged", 1, 2)),
+])
+def test_jet_mma_plan_path_shapes(kind, net, want):
+    """The jet pair's plans on the hybrid-kernel route's nets (u64 at d = 2
+    and 5; u50) and on the deep net: the backward as the fused kernels
+    plan, the forward at three blocks per SM where its two stages and the
+    resident weights fit a third of an SM."""
+    pl = tfs.mma_plan(kind, EXTREMES[net])
+    share = 3 if 3 * (pl.smem + 1024) <= _plan.SM_SMEM else 2 if _two_blocks(pl) else 1
+    assert (pl.T, pl.tier, share, pl.blocks) == want
+
+
+@pytest.mark.parametrize("kind", JET_KINDS)
+def test_jet_mma_plan_pins_and_refusals(kind):
+    """Pins on the jet pair's plans: tile, tier, blocks per SM (the forward
+    also three); the forward has no gradient tier; more blocks than a
+    kind's register budget raise."""
+    u64 = NETS["u64"]
+    pl = tfs.mma_plan(kind, u64, T=32, tier="staged", blocks=2)
+    assert (pl.T, pl.tier, pl.flags) == (32, "staged", 0) and _two_blocks(pl)
+    one = tfs.mma_plan(kind, u64, T=8, tier="staged", blocks=1)
+    assert one.T == 8 and _fits(one)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tfs.mma_plan(kind, u64, T=24)
+    if kind == "fwdlap_forward":
+        three = tfs.mma_plan(kind, u64, T=16, tier="weights", blocks=3)
+        assert three.blocks == 3 and 3 * (three.smem + 1024) <= _plan.SM_SMEM
+        assert tfs.mma_plan(kind, u64, blocks=2).blocks == 2
+        with pytest.raises(ValueError, match="do not fit"):
+            tfs.mma_plan(kind, u64, tier="resident")
+        with pytest.raises(ValueError, match="register budget"):
+            tfs.mma_plan(kind, u64, blocks=4)
+    else:
+        with pytest.raises(ValueError, match="register budget"):
+            tfs.mma_plan(kind, u64, blocks=3)
 
 
 # ------------------------------------------------------------ CPU route

@@ -215,11 +215,18 @@ BEXTREMES = {
 
 
 def _bwd_launchable(pl, layers):
-    """What fwdlap_backward.cu's entry point checks before it launches."""
+    """What fwdlap_backward.cu's entry point checks before it launches: a
+    planned design's tile and layout, or the tensor-core design's (T = 8 or
+    a multiple of 16, its own layout)."""
     from nnpde_tpu_torch.kernels import _cuda
+    from nnpde_tpu_torch.kernels import fused_step as tfs
 
+    if pl.design == _cuda.DES_MMA:
+        return ((pl.T == 8 or (16 <= pl.T <= _cuda.NT // 2 and pl.T % 16 == 0))
+                and 0 <= pl.flags <= 7 and pl.smem <= _cuda.SMEM_MAX
+                and pl.smem >= tfs.mma_smem_bytes(layers, pl.T, pl.flags, "fwdlap_backward"))
     return (4 <= pl.T <= _cuda.NT // 2 and pl.T % 4 == 0 and 0 <= pl.flags <= 7
-            and (pl.design or pl.flags == 0) and pl.design in (0,) + _cuda.PLANNED_DESIGNS
+            and pl.design in _cuda.PLANNED_DESIGNS
             and pl.smem >= 4 * tfc.backward_smem_floats(layers, pl.T, pl.flags)
             and pl.smem <= _cuda.SMEM_MAX)
 
@@ -244,13 +251,15 @@ def test_backward_plan_path_shapes(net, want):
     assert 4 * tfc.backward_smem_floats(layers, pl.T, _plan.RES_GRAD) > _cuda.SMEM_MAX // 2 - 1024
 
 
-@pytest.mark.parametrize("design", ["wrapper", 0, 2, 3])
+@pytest.mark.parametrize("design", ["wrapper", 4, 2, 3])
 @pytest.mark.parametrize("net", sorted(BEXTREMES))
 def test_backward_plan_takes_every_shape_the_wrapper_takes(net, design):
     """Every net the wrapper's check takes gets a plan the kernel takes, in
-    every design; a pinned tier at 16 points fits or raises; a pinned tile
-    that does not fit raises."""
+    every design (the planned ones, and the bf16-dot mode's tensor-core
+    design, 4 = DES_MMA); a pinned tier at 16 points fits or raises; a
+    pinned tile that does not fit raises."""
     from nnpde_tpu_torch.kernels import _cuda, _plan
+    from nnpde_tpu_torch.kernels import fused_step as tfs
 
     design = None if design == "wrapper" else design
     layers = BEXTREMES[net]
@@ -260,12 +269,14 @@ def test_backward_plan_takes_every_shape_the_wrapper_takes(net, design):
                             (ct,)) == list(layers)
     pl = tfc.backward_plan(layers, design)
     assert _bwd_launchable(pl, layers)
-    if 4 * tfc.backward_smem_floats(layers, 128) > _cuda.SMEM_MAX:
+    mma = design == _cuda.DES_MMA
+    assert (pl.design == _cuda.DES_MMA) == mma
+    big = (tfs.mma_smem_bytes(layers, 128, 0, "fwdlap_backward") if mma
+           else 4 * tfc.backward_smem_floats(layers, 128))
+    if big > _cuda.SMEM_MAX:
         with pytest.raises(ValueError, match="fit"):
             tfc.backward_plan(layers, design, T=128)
-    if not pl.design:
-        return
-    for tier, _ in _plan.tiers(True):
+    for tier, _ in tfs.MMA_TIERS if mma else _plan.tiers(True):
         try:
             pinned = tfc.backward_plan(layers, pl.design, T=16, tier=tier)
         except ValueError:
