@@ -48,18 +48,37 @@ Phases (each prints one JSON line; any failure exits non-zero):
    weak-form term within 1e-3, all finite, rel_l2 falling, exact launch
    counts; then 100 epochs each of grid_jitter and
    minimax='extragradient', and 100 PINN epochs on 'kernel:streams'.
-8. timing, wan_timing, eigen_timing: CUDA events, median over repeats, for
+   (The stream-major jet forward is the row forward's kernel and plan with
+   a stream-major write: eigen_kernels also holds it equal to the row
+   layout's output.)
+8. ipw3d (group ``ipw3d``): ipw3d_kernels holds rows 1, 4, 5, 9 and 10 at
+   the 3D infinite well's shape (u64 at d = 3, 131072 and 131079 points) to
+   their float64 plain versions by the bars above; ipw3d_path runs
+   ``train_ipw_3d`` at its default config (131072 Sobol points redrawn
+   every epoch, FN ground state), PINN for 500 of its 5000 epochs on
+   'torch', 'kernel' and 'fused' and DRM for 300 on 'torch' and 'fused':
+   the kernel routes start as 'torch' does (rtol 1e-4, first 10 within
+   5e-2), PINN rel_l2 <= max(2 x torch, 1e-3), DRM falling, all finite,
+   exact launch counts.  neumann (group ``neumann``): neumann_path runs
+   ``train_poisson_nd`` at ACCEPTANCE.json's poisson_5d_pinn_neumann config
+   (5D PINN, hard Neumann through the cosine input map, 32768 Sobol points
+   redrawn, cosine schedule) for 2000 of its 60000 epochs on 'torch': best
+   rel_l2 at most a tenth of the first eval's, finite, no kernel launched,
+   |du/dn| <= 1e-5 max |grad u| at 1000 face points; 'kernel' and 'fused'
+   must raise on it.
+9. timing, wan_timing, eigen_timing, ipw3d_timing: CUDA events, median over repeats, for
    each kernel and its plain version at the path's N and at 262144 on the
    net it runs on, with the bound (bytes or operations) and the plan of
    every kernel that plans its launch (tile, tier, blocks per SM; for rows
    1-5, 7 and 9 the design and item shape; for rows 4, 7 and 9 by N as
    well as by net); rows 1 and 4 also on u50 at 40000 and 262144, rows 4
-   and 7 also at d = 5; training steps per second.
+   and 7 also at d = 5, rows 1, 4, 5, 9 and 10 at d = 3 (u64 at 131072 and
+   262144); training steps per second.
    ``python3 chip_smoke.py timing --rows=KERNEL[,KERNEL...]`` times only
    the rows of those kernels: one fresh process per row, so that what ran
    earlier in a process does not move its times
    (``nnpde_tpu_torch/tools/compare_timing.py`` reads such runs).
-9. precision (group ``precision``): precision_kernels holds the bf16-dot
+10. precision (group ``precision``): precision_kernels holds the bf16-dot
    variants of the fused residual (stream and analytic coefficients), the
    jet forward and the jet backward, all four in the tensor-core design
    (``csrc/fwdlap_mma.cuh``, asserted from their launches), to their plain
@@ -80,9 +99,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
    (``timing --rows=fused_linear_residual.bf16`` times one such row alone).
 
 ``python3 chip_smoke.py eigen`` (or any other phase-group name: kernels,
-wan, main, eigen, timing, precision) runs only those groups, for work on one slice;
-without arguments every phase runs.  ``python3 chip_smoke.py sweep`` is a
-further group that runs only when named: the jet forward (row 4) and the
+wan, main, eigen, ipw3d, neumann, timing, precision) runs only those groups,
+for work on one slice; without arguments every phase runs.  ``python3
+chip_smoke.py sweep`` is a further group that runs only when named: the jet
+forward in both layouts (rows 4 and 6) and the
 quotient sums (rows 7 and 9) in both planned designs at each tier and
 register budget, the seeded quotient kernels, rows 1 and 5 in both planned
 designs (4 x 4 and two-point items), the K-bump pair at every plan tier
@@ -275,6 +295,52 @@ class Case:
         return 1e3 * max(self.flops() / FP32_PEAK, self.bytes() / HBM_RATE)
 
 
+def hold(case):
+    """A case's kernel launched twice (the repeat bitwise equal) against its
+    float64 plain version, by its kind's bar in the kernels phases: rows
+    1-3 the loss and the grad tree rel <= 1e-5; the jet forward each column;
+    a sums kind each sum within 1e-5 of the sum of its terms' magnitudes;
+    the jet backward and the seeded kinds the gradient row (and sum ct_v)
+    rel <= 1e-5.  Returns the phase's row."""
+    kind = case.kind
+    row = {"kernel": kind, "N": case.N, "layers": list(case.layers)}
+    if isinstance(case, Case):
+        (loss, _, grads), (loss2, _, grads2) = case.kernel(), case.kernel()
+        torch.cuda.synchronize()
+        bitwise = bool(torch.equal(loss, loss2)) and all(
+            torch.equal(x, y) for pa, pb in zip(grads, grads2) for x, y in zip(pa, pb))
+        ref_loss, ref_grads = case.plain(torch.float64)
+        row["loss_rel"] = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+        row["grad_rel"] = tree_rel(grads, ref_grads)
+        row["max_abs_err"] = max(abs(float(loss) - float(ref_loss)),
+                                 tree_max_abs(grads, ref_grads))
+        ok = row["loss_rel"] <= 1e-5 and row["grad_rel"] <= 1e-5
+    else:
+        out, out2 = case.kernel(), case.kernel()
+        torch.cuda.synchronize()
+        bitwise = bool(torch.equal(out, out2))
+        ref = case.plain(torch.float64)
+        row["max_abs_err"] = float(torch.max(torch.abs(out.double() - ref)))
+        if kind == "fwdlap_forward":
+            row["col_rel"] = col_rel(out, ref)
+            ok = row["col_rel"] <= 1e-5
+        elif kind.endswith("sums"):
+            row["sum_err_over_abs_terms"] = float(torch.max(
+                torch.abs(out.double() - ref) / case.abs_terms()))
+            ok = row["sum_err_over_abs_terms"] <= 1e-5
+        else:
+            P = out.numel() - (0 if kind == "fwdlap_backward" else 1)
+            row["grad_rel"] = float(torch.linalg.norm(out[:P].double() - ref[:P])
+                                    / torch.linalg.norm(ref[:P]))
+            ok = row["grad_rel"] <= 1e-5
+            if P < out.numel():
+                row["ctv_rel"] = abs(float(out[P]) - float(ref[P])) / abs(float(ref[P]))
+                ok = ok and row["ctv_rel"] <= 1e-5
+    row["bitwise_repeat"] = bitwise
+    row["ok"] = bool(ok and bitwise)
+    return row
+
+
 def phase_device():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -302,20 +368,9 @@ def phase_kernels(dev):
     for kind in REPLACES:
         for i, (N, d, layers, act) in enumerate(shapes):
             case = Case(kind, N, d, layers, act, seed=100 + i, dev=dev)
-            loss, _, grads = case.kernel()
-            loss2, _, grads2 = case.kernel()
-            torch.cuda.synchronize()
-            bitwise = bool(torch.equal(loss, loss2)) and all(
-                torch.equal(x, y) for pa, pb in zip(grads, grads2) for x, y in zip(pa, pb))
-            ref_loss, ref_grads = case.plain(torch.float64)
-            loss_rel = abs(float(loss) - float(ref_loss)) / max(abs(float(ref_loss)), 1e-300)
-            grad_rel = tree_rel(grads, ref_grads)
-            err = max(abs(float(loss) - float(ref_loss)), tree_max_abs(grads, ref_grads))
-            max_err[kind] = max(max_err.get(kind, 0.0), err)
-            ok = loss_rel <= 1e-5 and grad_rel <= 1e-5 and bitwise
-            rows.append({"kernel": kind, "N": N, "d": d, "act": act, "loss_rel": loss_rel,
-                         "grad_rel": grad_rel, "max_abs_err": err, "bitwise_repeat": bitwise,
-                         "ok": ok})
+            row = dict(hold(case), d=d, act=act)
+            max_err[kind] = max(max_err.get(kind, 0.0), row["max_abs_err"])
+            rows.append(row)
             del case
             torch.cuda.empty_cache()
     emit({"phase": "kernels", "tol": 1e-5, "rows": rows})
@@ -456,31 +511,10 @@ def phase_wan_kernels(dev):
     for kind in WAN_REPLACES:
         for i, (N, layers, act, lap) in enumerate(shapes[kind]):
             case = WanCase(kind, N, layers, act, seed=200 + i, dev=dev, lap=lap)
-            out, out2 = case.kernel(), case.kernel()
-            torch.cuda.synchronize()
-            bitwise = bool(torch.equal(out, out2))
-            ref = case.plain(torch.float64)
-            err = float(torch.max(torch.abs(out.double() - ref)))
-            row = {"kernel": kind, "N": N, "layers": list(layers), "act": act, "lap": lap,
-                   "max_abs_err": err, "bitwise_repeat": bitwise}
-            if kind == "fwdlap_forward":
-                row["col_rel"] = col_rel(out, ref)
-                ok = row["col_rel"] <= 1e-5
-            elif kind.endswith("sums"):
-                scale = case.abs_terms()
-                row["sum_err_over_abs_terms"] = float(torch.max(
-                    torch.abs(out.double() - ref) / scale))
-                ok = row["sum_err_over_abs_terms"] <= 1e-5
-            else:
-                P = out.numel() - 1
-                row["grad_rel"] = float(torch.linalg.norm(out[:P].double() - ref[:P])
-                                        / torch.linalg.norm(ref[:P]))
-                row["ctv_rel"] = abs(float(out[P]) - float(ref[P])) / abs(float(ref[P]))
-                ok = row["grad_rel"] <= 1e-5 and row["ctv_rel"] <= 1e-5
-            row["ok"] = ok and bitwise
-            max_err[kind] = max(max_err.get(kind, 0.0), err)
+            row = dict(hold(case), act=act, lap=lap)
+            max_err[kind] = max(max_err.get(kind, 0.0), row["max_abs_err"])
             rows.append(row)
-            del case, out, out2, ref
+            del case
             torch.cuda.empty_cache()
     emit({"phase": "wan_kernels", "tol": 1e-5, "rows": rows})
     obj = wan_objectives(dev)
@@ -759,51 +793,36 @@ def launch_blocks(kind, layers, S, pl, dev, N):
 
 
 def pass_a_plan(kind, layers, lap, N, dev):
-    """The launch shape the wrapper of row 4, 7 or 9 takes on this net (as
-    :func:`plan_row` prints it); on a tree whose jet forward has no plan,
-    its constant tile."""
+    """The launch shape the wrapper of row 4, 6, 7 or 9 takes on this net
+    (as :func:`plan_row` prints it); row 6 on a tree whose stream-major
+    forward still takes the constant 16-point tile: that tile."""
     from nnpde_tpu_torch.kernels import _cuda, _plan
     from nnpde_tpu_torch.kernels import fused_quotient as fq
     from nnpde_tpu_torch.kernels import fwdlap_cuda as fc
 
-    if kind == "fwdlap_forward":
-        if not hasattr(fc, "forward_plan"):
-            T, smem = _cuda.plan_tile(lambda t: fc._plan_forward(layers, t))
-            return plan_row(kind, layers, layers[0] + 2, _plan.Plan(T, smem, 0, "staged", 0),
-                            N, dev)
+    if kind.startswith("fwdlap_forward"):
+        if kind == "fwdlap_forward_streams" and not hasattr(_plan, "check_planned"):
+            return {"T": 16, "tier": "constant tile"}
         pl = fc.forward_plan(layers, N=N, sms=_cuda.sm_count(dev))
         return plan_row(kind, layers, layers[0] + 2, pl, N, dev)
-    if not hasattr(_plan, "forward_only"):
-        return plan_row(kind, layers, layers[0] + 1 + lap, fq.plan(kind, layers, lap), N, dev)
     pl = fq.plan(kind, layers, lap, N=N, sms=_cuda.sm_count(dev))
     return plan_row(kind, layers, layers[0] + 1 + lap, pl, N, dev)
 
 
 def bf16_forward_plan(layers, N, dev):
     """The launch shape of the row forward's bf16-dot variant, as
-    :func:`plan_row` prints it: its tensor-core plan (a tree whose variant
-    is design 0: the constant tile)."""
-    from nnpde_tpu_torch.kernels import _cuda, _plan
+    :func:`plan_row` prints it: its tensor-core plan."""
     from nnpde_tpu_torch.kernels import fused_step as fs
-    from nnpde_tpu_torch.kernels import fwdlap_cuda as fc
 
-    try:
-        pl = fs.mma_plan("fwdlap_forward", layers)
-    except (AttributeError, ValueError):
-        T, smem = _cuda.plan_tile(lambda t: fc._plan_forward(layers, t))
-        pl = _plan.Plan(T, smem, 0, "staged", 0)
+    pl = fs.mma_plan("fwdlap_forward", layers)
     return plan_row("fwdlap_forward", layers, layers[0] + 2, pl, N, dev, bf16=True)
 
 
 def quotient_plan(case):
     """The launch shape the quotient wrapper chose for this seeded case
-    (after a launch): tile, shared memory, blocks, and what stays on chip;
-    None on a tree whose quotient kernels take the constant tile."""
-    from nnpde_tpu_torch.kernels import fused_quotient as fq
-
-    if not hasattr(fq, "plan"):
-        return None
+    (after a launch): tile, shared memory, blocks, and what stays on chip."""
     from nnpde_tpu_torch.kernels import _plan
+    from nnpde_tpu_torch.kernels import fused_quotient as fq
 
     pl = fq.plan(case.kind, case.layers, case.lap)
     blocks = launch_blocks(case.kind, case.layers, case.d + 1 + case.lap, pl, case.X.device,
@@ -970,8 +989,14 @@ def phase_eigen_kernels(dev):
             row = {"kernel": kind, "N": N, "layers": list(layers), "act": act,
                    "max_abs_err": err, "bitwise_repeat": bitwise}
             if kind == "fwdlap_forward_streams":
+                # row 6 is row 4's kernel on row 4's plan with its stream-major
+                # write: the same floats
+                from nnpde_tpu_torch.kernels import fwdlap_cuda as fc
+
                 row["col_rel"] = col_rel(out, ref)
-                ok = row["col_rel"] <= 1e-5
+                row["equals_rows"] = bool(torch.equal(
+                    out, fc.fwdlap_forward(case.params, case.X, case.act)))
+                ok = row["col_rel"] <= 1e-5 and row["equals_rows"]
             elif kind == "fwdlap_backward":
                 row["grad_rel"] = float(torch.linalg.norm(out.double() - ref)
                                         / torch.linalg.norm(ref))
@@ -1276,7 +1301,8 @@ def phase_eigen_timing(dev, only=None):
                              if kind.startswith("multi") else None,
                              "plan": multibump_plan(case) if kind.startswith("multi")
                              else fused_plan(kind, case.layers, N, dev)
-                             if kind == "fwdlap_backward" else None, "ms": ms,
+                             if kind == "fwdlap_backward"
+                             else pass_a_plan(kind, case.layers, 0, N, dev), "ms": ms,
                              "device_ms": device_ms(case.kernel),
                              "plain_ms": plain_ms, "bound_ms": case.bound_ms(),
                              "bound_by": case.bound_by(), "flop": case.flops(),
@@ -1388,45 +1414,29 @@ def phase_quotient_sweep(dev):
     that fits, at each net's path N and at 262144: each launch held to its
     float64 plain version (gradient row and sum ct_v rel <= 1e-5), launched
     twice for a bitwise-equal repeat, and timed as device time.  One JSON
-    line per case; ``chosen`` marks the plan's own choice.  On a tree whose
-    quotient kernels take the constant tile of ``_cuda.plan_tile`` (no
-    ``plan``), the tile is swept through that constant instead."""
-    from nnpde_tpu_torch.kernels import _cuda
+    line per case; ``chosen`` marks the plan's own choice."""
     from nnpde_tpu_torch.kernels import fused_quotient as fq
 
-    by_plan = hasattr(fq, "plan")
     ok = phase_pass_a_sweep(dev, SUMS_SWEEP, "sums")
     for kind, net_name, layers, n_path in QSWEEP:
         for N in (n_path, 262144):
             case = WanCase(kind, N, layers, "sin", seed=23, dev=dev)
             ref = case.plain(torch.float64)
             P = ref.numel() - 1
-            if by_plan:
-                chosen = fq.plan(kind, layers, 0)
-                plans = [chosen]
-                for tier in SWEEP_TIERS:
-                    for T in QSWEEP_TILES:
-                        try:
-                            pl = fq.plan(kind, layers, 0, T=T, tier=tier)
-                        except ValueError:
-                            continue
-                        if pl not in plans:
-                            plans.append(pl)
-            else:
-                plans = list(QSWEEP_TILES)
+            chosen = fq.plan(kind, layers, 0)
+            plans = [chosen]
+            for tier in SWEEP_TIERS:
+                for T in QSWEEP_TILES:
+                    try:
+                        pl = fq.plan(kind, layers, 0, T=T, tier=tier)
+                    except ValueError:
+                        continue
+                    if pl not in plans:
+                        plans.append(pl)
             for pl in plans:
-                if by_plan:
-                    def run(pl=pl):
-                        return fq._launch(kind, case.params, case.X, case.coef, case.scal,
-                                          case.act, 0, pl=pl)
-                else:
-                    def run(T=pl):
-                        tile, _cuda.TILE = _cuda.TILE, T
-                        try:
-                            return fq._launch(kind, case.params, case.X, case.coef, case.scal,
-                                              case.act, 0)
-                        finally:
-                            _cuda.TILE = tile
+                def run(pl=pl):
+                    return fq._launch(kind, case.params, case.X, case.coef, case.scal,
+                                      case.act, 0, pl=pl)
                 out, out2 = run(), run()
                 torch.cuda.synchronize()
                 err = max(float(torch.linalg.norm(out[:P].double() - ref[:P])
@@ -1434,31 +1444,29 @@ def phase_quotient_sweep(dev):
                           abs(float(out[P]) - float(ref[P])) / abs(float(ref[P])))
                 good = err <= 1e-5 and bool(torch.equal(out, out2))
                 ok = ok and good
-                row = {"kernel": kind, "net": net_name, "N": N, "err": err, "ok": good,
-                       "device_ms": device_ms(run), "bound_ms": case.bound_ms()}
-                if by_plan:
-                    row.update(tier=pl.tier, T=pl.T, flags=pl.flags, smem=pl.smem,
-                               blocks=launch_blocks(kind, layers, layers[0] + 1, pl,
-                                                    case.X.device, N),
-                               chosen=pl == chosen)
-                else:
-                    row.update(tier="constant tile", T=pl)
-                emit(row)
+                emit({"kernel": kind, "net": net_name, "N": N, "err": err, "ok": good,
+                      "device_ms": device_ms(run), "bound_ms": case.bound_ms(),
+                      "tier": pl.tier, "T": pl.T, "flags": pl.flags, "smem": pl.smem,
+                      "blocks": launch_blocks(kind, layers, layers[0] + 1, pl, case.X.device,
+                                              N),
+                      "chosen": pl == chosen})
             del case, ref
             torch.cuda.empty_cache()
     if not ok:
         raise SystemExit("quotient sweep: a case missed its bar")
 
 
-# Rows 4, 7 and 9 (the forward-only kernels) on the nets of their paths, at
-# the path's N (and 262144): the jet forward on the Poisson WAN's u and
-# critic, the infinite-well u50 and c20 and u64 at d = 5; pass A of the
+# Rows 4, 6, 7 and 9 (the forward-only kernels) on the nets of their paths,
+# at the path's N (and 262144): the jet forward on the Poisson WAN's u and
+# critic, the infinite-well u50 and c20 and u64 at d = 5, and in its
+# stream-major layout (row 6) on the infinite-well u50; pass A of the
 # linear weak form (Poisson WAN critic and u, u64 at d = 5) and of the
 # quadratic energy (the critic regulariser, the infinite-well DRM's u50).
 U5 = (5, 64, 64, 64, 64, 1)
 FWD_SWEEP = (("fwdlap_forward", "u", LAYERS, 20000), ("fwdlap_forward", "critic", CRITIC, 20000),
              ("fwdlap_forward", "u50", EIGEN_U, EIGEN_N),
-             ("fwdlap_forward", "c20", EIGEN_V, EIGEN_N), ("fwdlap_forward", "u_d5", U5, 20000))
+             ("fwdlap_forward", "c20", EIGEN_V, EIGEN_N), ("fwdlap_forward", "u_d5", U5, 20000),
+             ("fwdlap_forward_streams", "u50", EIGEN_U, EIGEN_N))
 SUMS_SWEEP = (("linear_sums", "critic", CRITIC, 20000), ("linear_sums", "u", LAYERS, 20000),
               ("quad_sums", "critic", CRITIC, 20000), ("quad_sums", "u50", EIGEN_U, EIGEN_N),
               ("linear_sums", "u_d5", U5, 20000))
@@ -1508,7 +1516,7 @@ def sass_global_stores(pattern):
 
 
 def phase_pass_a_sweep(dev, cases, label):
-    """Rows 4, 7 and 9 (``cases``: kernel, net, layers, path N) at the
+    """Rows 4, 6, 7 and 9 (``cases``: kernel, net, layers, path N) at the
     wrapper's plan and at every lever pinned on its own: each planned
     design at its one-wave tile (the two-point design also a step below it
     and at 16 points) in each tier, at each register budget (blocks per SM)
@@ -1524,7 +1532,8 @@ def phase_pass_a_sweep(dev, cases, label):
 
     ok = True
     for kind, net_name, layers, n_path in cases:
-        fwd = kind == "fwdlap_forward"
+        fwd = kind.startswith("fwdlap_forward")
+        impl = "streams" if kind == "fwdlap_forward_streams" else "rows"
         S = layers[0] + (2 if fwd else 1)
 
         def plan(**pin):
@@ -1550,13 +1559,15 @@ def phase_pass_a_sweep(dev, cases, label):
                     for tier in PASS_A_TIERS:
                         for blocks in range(_plan.FWD_BLOCKS, 1, -1):
                             add(design=des, T=T, tier=tier, blocks=blocks)
-            case = WanCase(kind, N, layers, "sin", seed=29, dev=dev)
+            # (row 6: row 4's inputs, plain version and bound)
+            case = WanCase("fwdlap_forward" if fwd else kind, N, layers, "sin", seed=29,
+                           dev=dev)
             ref = case.plain(torch.float64)
             scale = None if fwd else case.abs_terms()
             for pl in plans:
                 def run(pl=pl):
                     if fwd:
-                        return fc.fwdlap_forward(case.params, case.X, "sin", pl=pl)
+                        return fc.fwdlap_forward(case.params, case.X, "sin", impl, pl=pl)
                     return fq._launch(kind, case.params, case.X, case.coef, None, "sin", 0,
                                       pl=pl)
                 out, out2 = run(), run()
@@ -1578,10 +1589,10 @@ def phase_pass_a_sweep(dev, cases, label):
 
 
 def phase_forward_sweep(dev):
-    """Row 4's levers (:func:`phase_pass_a_sweep`), with the ptxas report of
-    fwdlap_forward.cu and the global stores in the planned kernel's SASS
-    (its forward-only mode saves no stage: the jet rows are its only
-    global stores)."""
+    """Rows 4 and 6's levers (:func:`phase_pass_a_sweep`), with the ptxas
+    report of fwdlap_forward.cu and the global stores in the planned
+    kernel's SASS (its forward-only mode saves no stage: the jet rows or
+    streams are its only global stores)."""
     emit({"phase": "forward_sweep", "ptxas": ptxas_of("fwdlap_forward", "fused_quotient"),
           "sass_global_stores": {"fwdlap_forward_planned":
                                  sass_global_stores("fwdlap_forward_planned"),
@@ -1602,28 +1613,17 @@ FSWEEP_TILES = (16, 20, 24, 28, 32, 36)
 
 def fused_plan(kind, layers, N, dev, bf16=False):
     """The launch shape the fused residual or jet backward wrapper chose
-    (after a launch): tile, tier, design, blocks per SM, item shape; None on
-    a tree whose kernels take the constant tile only.  The bf16-dot mode of
-    the fused kinds: the tensor-core design's plan (a parent tree's design
-    0)."""
+    (after a launch): tile, tier, design, blocks per SM, item shape; the
+    bf16-dot mode's: the tensor-core design's plan."""
     from nnpde_tpu_torch.kernels import fused_step as fs
     from nnpde_tpu_torch.kernels import fwdlap_cuda as fc
 
-    if not hasattr(fs, "planned"):
-        return None
-    des = 0 if bf16 else None
-    pl = None
-    if bf16 and hasattr(fs, "mma_plan"):
-        try:
-            pl, S = fs.mma_plan(kind, layers), layers[0] + 2
-        except ValueError:          # a tree whose jet backward is design 0
-            pl = None
-    if pl is not None:
-        pass
+    if bf16:
+        pl, S = fs.mma_plan(kind, layers), layers[0] + 2
     elif kind == "fwdlap_backward":
-        pl, S = fc.backward_plan(layers, des), layers[0] + 2
+        pl, S = fc.backward_plan(layers), layers[0] + 2
     else:
-        pl, S = fs.plan(kind, layers, des), fs._streams(kind, layers[0])
+        pl, S = fs.plan(kind, layers), fs._streams(kind, layers[0])
     return plan_row(kind, layers, S, pl, N, dev, bf16)
 
 
@@ -1653,8 +1653,9 @@ def plan_row(kind, layers, S, pl, N, dev, bf16=False):
             "blocks": _cuda.grid(name, None, pl.smem, dev, (N + pl.T - 1) // pl.T, key),
             "blocks_per_sm": _cuda.grid(name, None, pl.smem, dev, 1 << 30, key) // sms,
             "launch_bounds_blocks": getattr(pl, "blocks", None),
-            "resident": _plan.resident(pl, kind not in ("fwdlap_forward", "linear_sums",
-                                                        "quad_sums"))}
+            "resident": _plan.resident(pl, kind not in ("fwdlap_forward",
+                                                        "fwdlap_forward_streams",
+                                                        "linear_sums", "quad_sums"))}
 
 
 def phase_fused_sweep(dev):
@@ -2429,7 +2430,197 @@ def phase_precision_path():
     return counts
 
 
-GROUPS = ("kernels", "wan", "main", "eigen", "timing", "precision")
+# ------------------------------------------------------- the 3D well, hard Neumann
+# The 3D infinite well (``train_ipw_3d`` at its default config: u64 at
+# d = 3, 131072 Sobol points redrawn every epoch, the FN ground state) and
+# the 5D hard-Neumann Poisson PINN (ACCEPTANCE.json poisson_5d_pinn_neumann).
+IPW3D_U = (3, 64, 64, 64, 64, 1)
+IPW3D_N = 131072
+# the kernels the 3D well's routes launch: rows 1 (PINN 'fused'), 4 and 5
+# (PINN 'kernel'), 9 and 10 (DRM 'fused')
+IPW3D_KERNELS = ("fused_linear_residual", "fwdlap_forward", "fwdlap_backward",
+                 "quad_sums", "quad_seeded")
+
+
+def ipw3d_case(kind, N, seed, dev):
+    """One of IPW3D_KERNELS at d = 3 on u64 over N random points."""
+    if kind == "fused_linear_residual":
+        return Case(kind, N, 3, IPW3D_U, "sin", seed=seed, dev=dev)
+    if kind == "fwdlap_backward":
+        return EigenCase(kind, N, IPW3D_U, "sin", seed=seed, dev=dev)
+    return WanCase(kind, N, IPW3D_U, "sin", seed=seed, dev=dev)
+
+
+def phase_ipw3d_kernels(dev):
+    """Rows 1, 4, 5, 9 and 10 at the 3D well's shape (u64 at d = 3, 131072
+    points, and 7 more: a multiple of no tile) against their float64 plain
+    versions (:func:`hold`)."""
+    rows, max_err = [], {}
+    for kind in IPW3D_KERNELS:
+        for i, N in enumerate((IPW3D_N, IPW3D_N + 7)):
+            case = ipw3d_case(kind, N, seed=600 + i, dev=dev)
+            row = hold(case)
+            rows.append(row)
+            max_err[kind] = max(max_err.get(kind, 0.0), row["max_abs_err"])
+            del case
+            torch.cuda.empty_cache()
+    emit({"phase": "ipw3d_kernels", "tol": 1e-5, "rows": rows})
+    if not all(r["ok"] for r in rows):
+        raise SystemExit("3D well kernel vs plain comparison failed")
+    return max_err
+
+
+def phase_ipw3d_path():
+    """``train_ipw_3d`` at its default config, cut: PINN for 500 of its 5000
+    epochs on 'torch', 'kernel' and 'fused', DRM for 300 on 'torch' and
+    'fused', each from one seed.  The kernel routes start as 'torch' does
+    (first total within rtol 1e-4, the first 10 within 5e-2), PINN rel_l2
+    <= max(2 x torch, 1e-3), DRM falling (the last 20 epochs' mean total
+    below the first 20's, the best eval below the first), every value
+    finite, launches per step exact."""
+    from nnpde_tpu_torch.kernels import LAUNCHES, reset_launches
+    from nnpde_tpu_torch.problems import IPW3DConfig, train_ipw_3d
+
+    default = IPW3DConfig()
+    if (tuple(default.layers), default.n_interior) != (IPW3D_U, IPW3D_N):
+        raise SystemExit("IPW3DConfig's defaults are not the full-width net and batch")
+
+    def run(**kw):
+        reset_launches()
+        t0 = time.time()
+        out = train_ipw_3d(IPW3DConfig(**kw))
+        return out, {k: v for k, v in LAUNCHES.items() if v}, time.time() - t0
+
+    report = {"phase": "ipw3d_path", "layers": list(IPW3D_U), "n_interior": IPW3D_N,
+              "state": [1, 1, 1], "technique": "FN", "sampler": "sobol", "resample": True,
+              "cut_from": default.epochs}
+    ok = True
+    for method, epochs, per_step in (
+            ("PINN", 500, {"torch": {}, "fused": {"fused_linear_residual": 1},
+                           "kernel": {"fwdlap_forward": 1, "fwdlap_backward": 1}}),
+            ("DRM", 300, {"torch": {}, "fused": {"quad_sums": 1, "quad_seeded": 1}})):
+        runs = {impl: run(method=method, jet_impl=impl, epochs=epochs) for impl in per_step}
+        ref = runs["torch"][0]
+        rows = {}
+        for impl, (out, counts, wall) in runs.items():
+            first, first10 = _first_band(ref, out)
+            h = out["history"]
+            want = {k: n * epochs for k, n in per_step[impl].items()}
+            windows = h["total"].reshape(-1, 20).mean(axis=1)
+            row = {"epochs": epochs, "rel_l2": out["rel_l2"], "min_epoch": out["min_epoch"],
+                   "wall_s": wall, "steps_per_s": out["result"].timing["steps_per_s"],
+                   "launches": counts, "per_step": per_step[impl], "total0_rel": first,
+                   "first10_max_rel": first10, "total_first20": float(windows[0]),
+                   "total_last20": float(windows[-1]), "l2_first": float(h["l2"][0])}
+            good = bool(all(np.all(np.isfinite(h[k])) for k in ("total", "l2"))
+                        and first <= 1e-4 and first10 <= 5e-2 and counts == want)
+            if method == "PINN":
+                good = good and out["rel_l2"] <= max(2.0 * ref["rel_l2"], 1e-3)
+            else:
+                good = good and windows[-1] < windows[0] and out["L2_error"] < h["l2"][0]
+            row["ok"] = bool(good)
+            ok = ok and row["ok"]
+            rows[impl] = row
+        report[method.lower()] = rows
+    report["ok"] = bool(ok)
+    emit(report)
+    if not ok:
+        raise SystemExit("3D well path check failed")
+    return {m: {impl: r["steps_per_s"] for impl, r in report[m].items()}
+            for m in ("pinn", "drm")}
+
+
+def phase_neumann_path():
+    """``train_poisson_nd`` at the config of ACCEPTANCE.json's
+    poisson_5d_pinn_neumann (5D PINN, hard Neumann: bc_mode 'FBC' with
+    bc_type 'neumann', the raw net on cosine input features; solution 'cos',
+    32768 Sobol points redrawn every epoch, cosine schedule), cut to 2000 of
+    its 60000 epochs, on the 'torch' route (the only one that takes the
+    map: 'kernel' and 'fused' must raise).  Gates: finite; best rel_l2 at
+    most a tenth of the first eval's; no kernel launched; the hard boundary
+    condition on the card, |du/dn| <= 1e-5 max |grad u| at 1000 points on
+    the faces."""
+    from nnpde_tpu_torch.kernels import LAUNCHES, reset_launches
+    from nnpde_tpu_torch.problems import PoissonConfig, train_poisson_nd
+
+    dim, epochs = 5, 2000
+    cfg = dict(dim=dim, method="PINN", bc_mode="FBC", bc_type="neumann", solution="cos",
+               n_interior=32768, sampler="sobol", resample=True, lr_schedule="cosine",
+               epochs=epochs, chunk=1000)
+    refused = {}
+    for impl in ("kernel", "fused"):
+        try:
+            train_poisson_nd(PoissonConfig(jet_impl=impl, **cfg))
+            refused[impl] = False
+        except ValueError as err:
+            refused[impl] = "input_map" in str(err)
+    reset_launches()
+    t0 = time.time()
+    out = train_poisson_nd(PoissonConfig(jet_impl="torch", **cfg))
+    wall = time.time() - t0
+    counts = {k: v for k, v in LAUNCHES.items() if v}
+    h = out["history"]
+    rel_first = float(h["l2"][0]) / 0.5 ** (dim / 2.0)
+    # du/dn on the faces: point p on face (axis p % d, side (p // d) % 2)
+    model, params = out["model"], out["result"].best_params
+    dev = params[0][0].device
+    X = torch.rand((1000, dim), generator=torch.Generator(device=dev).manual_seed(0),
+                   device=dev) * L
+    idx = torch.arange(1000, device=dev)
+    axis = idx % dim
+    X[idx, axis] = ((idx // dim) % 2).to(X.dtype) * L
+    g = model.fields(params, X).grad
+    dn, gmax = float(g[idx, axis].abs().max()), float(g.abs().max())
+    finite = all(np.all(np.isfinite(h[k])) for k in ("total", "l2", "pde"))
+    ok = bool(finite and out["rel_l2"] <= 0.1 * rel_first and dn <= 1e-5 * gmax
+              and counts == {} and all(refused.values()))
+    report = {"phase": "neumann_path", "dim": dim, "epochs": epochs, "cut_from": 60000,
+              "n_interior": 32768, "layers": [dim] + [64] * 4 + [1],
+              "rel_l2": out["rel_l2"], "rel_l2_first": rel_first,
+              "best_epoch": out["best_epoch"], "wall_s": wall,
+              "steps_per_s": out["result"].timing["steps_per_s"],
+              "face_points": 1000, "max_abs_dudn": dn, "max_abs_grad": gmax,
+              "refused": refused, "launches": counts, "finite": finite, "ok": ok}
+    emit(report)
+    if not ok:
+        raise SystemExit("hard-Neumann path check failed")
+    return report["steps_per_s"]
+
+
+def phase_ipw3d_timing(dev, only=None):
+    """Rows 1, 4, 5, 9 and 10 at d = 3 on u64 (the 3D well's routes; rows 1,
+    4 and 5 at S = 5 streams run their variants without the fold, rows 9
+    and 10 at S = 4 with it) at its 131072 points and at 262144, each with
+    its plan."""
+    rows = []
+    for kind in IPW3D_KERNELS:
+        if not timed(kind, only):
+            continue
+        for N in (IPW3D_N, 262144):
+            case = ipw3d_case(kind, N, seed=17, dev=dev)
+            ms = time_ms(case.kernel)
+            if kind in ("fwdlap_forward", "quad_sums"):
+                plan = pass_a_plan(kind, IPW3D_U, 0, N, dev)
+            elif kind == "quad_seeded":
+                plan = quotient_plan(case)
+            else:
+                plan = fused_plan(kind, IPW3D_U, N, dev)
+            flop, nbytes = case.flops(), case.bytes()
+            rows.append({"kernel": kind, "net": "u", "d": 3, "N": N, "plan": plan, "ms": ms,
+                         "device_ms": device_ms(case.kernel),
+                         "plain_ms": time_ms(lambda: case.plain(torch.float32), warmup=2,
+                                             reps=7),
+                         "bound_ms": case.bound_ms(),
+                         "bound_by": ("operations" if flop / FP32_PEAK >= nbytes / HBM_RATE
+                                      else "bytes"),
+                         "flop": flop, "bytes": nbytes, "gflops": flop / (ms * 1e-3) / 1e9})
+            del case
+            torch.cuda.empty_cache()
+    emit({"phase": "ipw3d_timing", "rows": rows})
+    return rows
+
+
+GROUPS = ("kernels", "wan", "main", "eigen", "ipw3d", "neumann", "timing", "precision")
 
 
 def main():
@@ -2466,6 +2657,9 @@ def main():
         max_err.update(phase_eigen_kernels(dev))
     if "precision" in want:
         max_err.update(phase_precision_kernels(dev))
+    if "ipw3d" in want:
+        for kind, err in phase_ipw3d_kernels(dev).items():
+            max_err[kind] = max(max_err.get(kind, 0.0), err)
     if "main" in want:
         counts, speed["steps_per_s_fused"] = phase_main_path()
         launches.update(counts)
@@ -2476,6 +2670,10 @@ def main():
         counts, eigen_speed = phase_eigen_path()
         launches.update(counts)
         speed["eigen"] = eigen_speed
+    if "ipw3d" in want:
+        speed["ipw3d_steps_per_s"] = phase_ipw3d_path()
+    if "neumann" in want:
+        speed["neumann_steps_per_s"] = phase_neumann_path()
     if "precision" in want:
         launches.update(phase_precision_path())
     rows = wan_rows = eigen_rows = prec_rows = []
@@ -2483,6 +2681,7 @@ def main():
         rows = phase_timing(dev, only)
         wan_rows = phase_wan_timing(dev, only)
         eigen_rows = phase_eigen_timing(dev, only)
+        phase_ipw3d_timing(dev, only)
     if "precision" in want:
         prec_rows = phase_precision_timing(dev)
     elif only is not None and any(name.endswith(".bf16") for name in only):

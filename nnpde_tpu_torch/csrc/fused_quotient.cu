@@ -109,12 +109,12 @@ __host__ __device__ inline int smem_floats(const Net& net, int kind, int T, int 
   return n + T * coef_stride(nc) + T * d + (seeded ? (d + 2) * T : 0) + S * T + NT + 4;
 }
 
-// DES: the seeded kinds' design 0 (the core's routines), or the sums kinds'
-// planned design.
+// DES: 0 for the seeded kinds, which run the core's routines
+// (fwdlap_core.cuh) on the shared plan, or the sums kinds' planned design.
 template <int KIND, bool FOLD, int DES = 0>
 __device__ void quotient_body(const QArgs& A) {
   constexpr bool SEEDED = KIND == LIN_SEEDED || KIND == QUAD_SEEDED;
-  static_assert(SEEDED == (DES == 0), "pass B runs design 0, pass A a planned design");
+  static_assert(SEEDED == (DES == 0), "pass B: the core's routines; pass A: a planned design");
   constexpr bool LINEAR = KIND == LIN_SUMS || KIND == LIN_SEEDED;
   constexpr int NSUMS = SEEDED ? 1 : (LINEAR ? 4 : 2);
   extern __shared__ __align__(16) float smem[];
@@ -313,9 +313,9 @@ QKernelFn sums_planned(int fold, int des, int minb) {
   }
 }
 
-// The kernel of a kind, variant and design: the seeded kinds in design 0;
-// the sums kinds in a planned design at the register budget of minb blocks
-// per SM.
+// The kernel of a kind, variant and design: the seeded kinds on the core's
+// routines (des 0); the sums kinds in a planned design at the register
+// budget of minb blocks per SM.
 QKernelFn qkernel_for(int kind, int fold, int des, int minb) {
   switch (kind) {
     case LIN_SUMS: return sums_planned<true>(fold, des, minb);

@@ -67,9 +67,8 @@ struct PArgs : Args {
   int flags;                  // the plan's Flags
 };
 
-// Shared-memory floats of one block for (T, flags): fused_body_p's layout
-// (flags 0 is also the layout design 0 had).  Mirrored by
-// kernels/fused_step.py::smem_floats.
+// Shared-memory floats of one block for (T, flags): fused_body_p's layout.
+// Mirrored by kernels/fused_step.py::smem_floats.
 __host__ __device__ inline int fused_smem_floats(const Net& net, int T, int flags) {
   const int d = net.d, S = net.S, ld = net.wmax, stage = S * T * ld;
   int n = 3 * stage + ((flags & RES_WEIGHTS) ? 2 * hidden_floats(net) : ld * ld);

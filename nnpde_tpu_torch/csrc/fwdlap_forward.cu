@@ -6,12 +6,9 @@
 // the forward-Laplacian recurrence over a tile of points, kept on chip,
 // with only the (N, d+2) jet written out.
 //
-// fwdlap_forward_streams_kernel replaces ::_forward_kernel (with
-// ::_fwd_streams; fwd_impl='pallas'): the same jet written stream-major,
-// (d+2, N) with each stream one contiguous run, and the output layer taken
-// through the same shared-memory product as the hidden layers (the (w, 1)
-// output weights staged as a (w, 4) matrix whose other columns are zero)
-// where the row kernel reduces each row over a warp.  Both are exact fp32.
+// The same kernel with its stream-major write (STREAMS) replaces
+// ::_forward_kernel (with ::_fwd_streams; fwd_impl='pallas'): the same jet
+// written (d+2, N), each stream one contiguous run.  Both are exact fp32.
 //
 // What bounds it on the H100: operations.  Per point the recurrence costs
 // (d+2)*sum(n_in*n_out) multiply-adds (2.50e4 at d = 2 on the
@@ -35,8 +32,9 @@
 //     plan's share, else staged per layer per tile by cp.async (W_1 while the
 //     input layer runs).  A second staging buffer, each W_{k+1} copied while
 //     product k ran, was built and measured no faster (PERF.md, section 6).
-// The stream-major kernel keeps the core's routines (fwdlap_core.cuh,
-// "design 0") and the constant 16-point tile.
+// The two layouts differ only in the write: project_last leaves the jet
+// stream-major in shared memory, proj[s * T + p], so the row layout writes
+// each point's d+2 floats and the stream-major one each stream's run.
 //
 // The row kernel's bf16-dot mode, fwdlap_forward_mma: _forward_kernel2's
 // fwd_dot='default' (fwd_impl='pallas2:default'), single-pass dots, which
@@ -46,7 +44,7 @@
 // with nothing saved, the projection partials from the last stage's
 // epilogue), the Jacobian seed rows and the projection on the last layer's
 // row in fp32; its register budget is stated at the blocks per SM its plan
-// counts on (MINB = 3 or 2).  The stream-major kernel has no such mode
+// counts on (MINB = 3 or 2).  The stream-major layout has no such mode
 // (_forward_kernel runs HIGHEST).
 //
 // Interface: plain C (ctypes), float32 only, weights flattened as
@@ -64,15 +62,11 @@ struct FwdArgs {
   const float* params;
   float* out;                 // (N, S) rows [value, grad.., lap]; or (S, N)
   int N, T, n_tiles;
-};
-
-// The planned kernel's arguments: FwdArgs and the plan's Flags.
-struct PFwdArgs : FwdArgs {
-  int flags;
+  int flags;                  // the plan's Flags
 };
 
 // Shared-memory floats of one block for (T, flags): the planned kernel's
-// layout; flags 0 is the stream-major kernel's.  Mirrored by
+// layout (both output layouts).  Mirrored by
 // kernels/fwdlap_cuda.py::forward_smem_floats.
 __host__ __device__ inline int fwd_smem_floats(const Net& net, int T, int flags) {
   const int ld = net.wmax;
@@ -86,9 +80,10 @@ __host__ __device__ inline int fwd_smem_floats(const Net& net, int T, int flags)
 // forward-only mode) with the plan's residency from A.flags: the hidden
 // weights staged once per block (RES_WEIGHTS), or per layer per tile.
 // MINB: the blocks per SM its plan counts on, so the register budget is
-// stated, not left to the compiler's choice.
-template <bool FOLD, int DES, int MINB>
-__global__ void __launch_bounds__(NT, MINB) fwdlap_forward_planned(PFwdArgs A) {
+// stated, not left to the compiler's choice.  STREAMS: the stream-major
+// output (S, N) of row 6, else the rows (N, S) of row 4.
+template <bool FOLD, int DES, int MINB, bool STREAMS>
+__global__ void __launch_bounds__(NT, MINB) fwdlap_forward_planned(FwdArgs A) {
   extern __shared__ __align__(16) float smem[];
   const Net& net = A.net;
   const int T = A.T, d = net.d, S = net.S, ld = net.wmax;
@@ -118,11 +113,20 @@ __global__ void __launch_bounds__(NT, MINB) fwdlap_forward_planned(PFwdArgs A) {
                                       res);
     project_last(net, T, cur, wlast, blast, proj);
     __syncthreads();
-    // out[(base + p) * S + s] = proj[s * T + p]: consecutive threads write
-    // consecutive floats of the tile's rows
-    for (int i = threadIdx.x; i < T * S; i += NT) {
-      const int p = i / S, s = i - p * S;
-      if (base + p < A.N) A.out[(size_t)(base + p) * S + s] = proj[s * T + p];
+    if (STREAMS) {
+      // out[s * N + base + p] = proj[s * T + p]: consecutive threads write
+      // consecutive floats of one stream
+      for (int i = threadIdx.x; i < S * T; i += NT) {
+        const int s = i / T, p = i - s * T;
+        if (base + p < A.N) A.out[(size_t)s * A.N + base + p] = proj[i];
+      }
+    } else {
+      // out[(base + p) * S + s] = proj[s * T + p]: consecutive threads write
+      // consecutive floats of the tile's rows
+      for (int i = threadIdx.x; i < T * S; i += NT) {
+        const int p = i / S, s = i - p * S;
+        if (base + p < A.N) A.out[(size_t)(base + p) * S + s] = proj[s * T + p];
+      }
     }
     __syncthreads();
   }
@@ -135,81 +139,44 @@ __global__ void __launch_bounds__(NT, MINB) fwdlap_forward_mma(mma::JetArgs a) {
   mma::body<mma::KIND_FWD>(a, [](int, const float*, const float*, float*, float*, float*) {});
 }
 
-// (in two variants: FOLD, the activation in the products' epilogues, for
-// nets with at most 4 streams; the wrapper chooses)
-template <bool FOLD>
-__global__ void __launch_bounds__(NT) fwdlap_forward_streams_kernel(FwdArgs A) {
-  extern __shared__ __align__(16) float smem[];
-  const Net& net = A.net;
-  const int T = A.T, d = net.d, S = net.S, ld = net.wmax;
-  float* bufA = smem;
-  float* bufB = bufA + S * T * ld;
-  float* Wsh = bufB + S * T * ld;
-  float* xs = Wsh + ld * ld;
-  const int wl = net.w[net.K - 1], wlp = net.wp[net.K - 1];
-  const float* wlast = A.params + net.off[net.K - 1];
-
-  for (int tile = blockIdx.x; tile < A.n_tiles; tile += gridDim.x) {
-    const int base = tile * T;
-    load_tile(A.X, A.N, d, base, T, xs);
-    __syncthreads();
-    float* cur = bufA;
-    float* nxt = bufB;
-    fwd_recompute<false, FOLD>(net, T, xs, A.params, cur, nxt, nullptr, Wsh, nullptr);
-    // output layer: column 0 of a (wlp, 4) product, bias on the value rows
-    for (int f = threadIdx.x; f < wlp * 4; f += NT)
-      Wsh[f] = ((f & 3) == 0 && (f >> 2) < wl) ? wlast[f >> 2] : 0.f;
-    __syncthreads();
-    mm_rows(cur, ld, S * T, wlp, Wsh, 4, nxt, 4, wlast + wl, T, 1);
-    __syncthreads();
-    // out[s * N + base + p] = stream s of point p: consecutive threads write
-    // consecutive floats of one stream
-    for (int i = threadIdx.x; i < S * T; i += NT) {
-      const int s = i / T, p = i - s * T;
-      if (base + p < A.N) A.out[(size_t)s * A.N + base + p] = nxt[i * 4];
-    }
-    __syncthreads();
-  }
-}
-
 namespace {
 
 typedef void (*FwdKernelFn)(FwdArgs);
-typedef void (*PFwdKernelFn)(PFwdArgs);
 
-template <bool FOLD, int DES>
-PFwdKernelFn planned_budget(int minb) {
+template <bool FOLD, int DES, bool STREAMS>
+FwdKernelFn planned_budget(int minb) {
   switch (minb) {
-    case 2: return fwdlap_forward_planned<FOLD, DES, 2>;
-    case 3: return fwdlap_forward_planned<FOLD, DES, 3>;
+    case 2: return fwdlap_forward_planned<FOLD, DES, 2, STREAMS>;
+    case 3: return fwdlap_forward_planned<FOLD, DES, 3, STREAMS>;
     default: return nullptr;
   }
 }
 
-// The kernel of a variant: design 0 (des == 0) the stream-major kernel; the
-// row kernel's bf16-dot mode the tensor-core design (des == DES_MMA, no
-// fold) and only it; fp32 rows a planned design (fwdlap_planned.cuh's
-// Design); both at the register budget of minb blocks per SM (2 or 3).
-const void* fwd_variant_fn(int streams, int fold, int bf16, int des, int minb) {
-  if (streams) {
-    if (bf16 || des) return nullptr;
-    return fold ? (const void*)fwdlap_forward_streams_kernel<true>
-                : (const void*)fwdlap_forward_streams_kernel<false>;
+template <bool STREAMS>
+const void* planned_fn(int fold, int des, int minb) {
+  switch (des) {
+    case DES_PLANNED:
+      return fold ? (const void*)planned_budget<true, DES_PLANNED, STREAMS>(minb)
+                  : (const void*)planned_budget<false, DES_PLANNED, STREAMS>(minb);
+    case DES_PLANNED | DES_ITEM2:
+      return fold ? (const void*)planned_budget<true, DES_PLANNED | DES_ITEM2, STREAMS>(minb)
+                  : (const void*)planned_budget<false, DES_PLANNED | DES_ITEM2, STREAMS>(minb);
+    default: return nullptr;
   }
+}
+
+// The kernel of a variant: the row kernel's bf16-dot mode the tensor-core
+// design (des == DES_MMA, no fold) and only it; fp32, in either layout, a
+// planned design (fwdlap_planned.cuh's Design); both at the register budget
+// of minb blocks per SM (2 or 3).  The stream-major layout has no bf16-dot
+// mode.
+const void* fwd_variant_fn(int streams, int fold, int bf16, int des, int minb) {
   if (bf16) {
-    if (des != DES_MMA || fold) return nullptr;
+    if (streams || des != DES_MMA || fold) return nullptr;
     return minb == 2 ? (const void*)fwdlap_forward_mma<2>
                      : minb == 3 ? (const void*)fwdlap_forward_mma<3> : nullptr;
   }
-  switch (des) {
-    case DES_PLANNED:
-      return fold ? (const void*)planned_budget<true, DES_PLANNED>(minb)
-                  : (const void*)planned_budget<false, DES_PLANNED>(minb);
-    case DES_PLANNED | DES_ITEM2:
-      return fold ? (const void*)planned_budget<true, DES_PLANNED | DES_ITEM2>(minb)
-                  : (const void*)planned_budget<false, DES_PLANNED | DES_ITEM2>(minb);
-    default: return nullptr;
-  }
+  return streams ? planned_fn<true>(fold, des, minb) : planned_fn<false>(fold, des, minb);
 }
 
 }  // namespace
@@ -220,19 +187,18 @@ extern "C" {
 // points per tile, G blocks; fold: the variant with the activation in the
 // products' epilogues (nets with at most 4 streams); bf16: the row
 // kernel's bf16-dot mode, which runs the tensor-core design (des ==
-// DES_MMA) and only it; des: the design (0 for the stream-major kernel, a
-// planned design for the fp32 row kernel, DES_MMA); flags: the plan's Flags
-// (RES_WEIGHTS or 0); minb: the register budget in blocks per SM (the
-// row kernels': its plan's).  smem_bytes must hold the kernel's layout for
-// (T, flags).
+// DES_MMA) and only it; des: the design (a planned design in fp32, in
+// either layout, or DES_MMA); flags: the plan's Flags (RES_WEIGHTS or 0);
+// minb: the register budget in blocks per SM, its plan's.  smem_bytes must
+// hold the kernel's layout for (T, flags).
 int fwdlap_forward_f32(int streams, const float* X, const float* params,
                        const int* layers, int n_layers, int act, int N, int T, int G,
                        int fold, int bf16, int des, int minb, int flags, float* out,
                        int smem_bytes, void* stream) {
-  PFwdArgs a;
+  FwdArgs a;
   const void* fn = fwd_variant_fn(streams, fold, bf16, des, minb);
   bool ok = fn != nullptr && make_net(1, layers, n_layers, act, &a.net) && N >= 1 && G >= 1 &&
-            (flags & ~RES_WEIGHTS) == 0 && !(des == 0 && flags != 0);
+            (flags & ~RES_WEIGHTS) == 0;
   if (ok && des == DES_MMA) {
     mma::Geo g;
     ok = mma::make_geo(a.net, T, &g) &&
@@ -267,10 +233,8 @@ int fwdlap_forward_f32(int streams, const float* X, const float* params,
     m.row = 0;
     m.flags = flags;
     ((void (*)(mma::JetArgs))fn)<<<G, NT, smem_bytes, s>>>(m);
-  } else if (des == 0) {
-    ((FwdKernelFn)fn)<<<G, NT, smem_bytes, s>>>(static_cast<const FwdArgs&>(a));
   } else {
-    ((PFwdKernelFn)fn)<<<G, NT, smem_bytes, s>>>(a);
+    ((FwdKernelFn)fn)<<<G, NT, smem_bytes, s>>>(a);
   }
   return (int)cudaGetLastError();
 }
@@ -285,8 +249,8 @@ int fwdlap_forward_blocks_per_sm(int streams, int fold, int bf16, int des, int m
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, NT, smem_bytes);
 }
 
-// The shared-memory bytes the row kernels lay out for (T, flags), or -1 for
-// a net they do not take.
+// The shared-memory bytes the planned kernels (either layout) lay out for
+// (T, flags), or -1 for a net they do not take.
 int fwdlap_forward_smem_bytes(const int* layers, int n_layers, int T, int flags) {
   Net net;
   if (!make_net(1, layers, n_layers, 0, &net)) return -1;

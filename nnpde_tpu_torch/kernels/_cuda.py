@@ -37,9 +37,7 @@ LAUNCHES = {
 ACTS = {"sin": 0, "tanh": 1, "gelu": 2}
 NT = 256                      # threads per block (fwdlap_core.cuh)
 MAX_LAYERS, MAX_DIM, MAX_WIDTH = 16, 16, 128
-SMEM_CAP = 160 * 1024
 SMEM_MAX = 227 * 1024         # dynamic shared memory one block can get on an H100
-TILE = 16                     # points per tile (halved until shared memory fits)
 
 _OCCUPANCY = {}
 _CAPTURED = None              # the open capture's list of launches, if any
@@ -121,18 +119,6 @@ def hidden_transposes(params):
     return torch.cat([W.t().reshape(-1) for W in hidden])
 
 
-def plan_tile(smem_floats):
-    """``(T, smem bytes)``: the largest tile up to ``TILE`` points whose
-    shared memory, ``4 * smem_floats(T)`` bytes, fits ``SMEM_CAP``: the
-    constant-tile rule of the stream-major jet forward and the jet pair's
-    bf16-dot variants; every other kernel plans by the net (:mod:`._plan`: tile,
-    residency and resident blocks per SM within ``SMEM_MAX``)."""
-    T = TILE
-    while 4 * smem_floats(T) > SMEM_CAP and T > 4:
-        T //= 2
-    return T, 4 * smem_floats(T)
-
-
 def folds(layers, S: int, T: int, points: int = 1) -> bool:
     """Whether a tile of T points runs the kernels' FOLD variant, which
     applies each stage's activation in the epilogue of the product that
@@ -145,12 +131,13 @@ def folds(layers, S: int, T: int, points: int = 1) -> bool:
     return S <= 4 and (T // points) * (padded_wmax(layers) // 4) <= NT
 
 
-# The designs of the fused residual kernels and the jet pair
-# (fwdlap_planned.cuh, Design; fwdlap_mma.cuh, MmaDesign): bits of the
-# ``des`` argument.  0 is the shared core's kernels (only the stream-major
-# jet forward's); DES_PLANNED the planned kernels, DES_ITEM2 their lever;
+# The designs of the fused residual kernels, the jet pair and the quotient
+# sums (fwdlap_planned.cuh, Design; fwdlap_mma.cuh, MmaDesign): bits of the
+# ``des`` argument.  DES_PLANNED the planned kernels, DES_ITEM2 their lever;
 # DES_MMA the tensor-core design of the bf16-dot modes of the fused residual
-# kernels and the jet pair.
+# kernels and the jet pair.  None of these kernels takes 0: the kernels on
+# the shared core's routines (fwdlap_core.cuh: the seeded quotient kernels
+# and the K-bump pair) have no design argument, or take 0 for it.
 DES_ITEM2 = 1     # two-point items, register tiles of 8 rows x 4 units
 DES_PLANNED = 2   # the planned kernels (shared plan, transposes from device
                   # memory, dW items dealt 4 x 8 to a warp, two blocks per SM)

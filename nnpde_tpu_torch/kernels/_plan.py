@@ -227,6 +227,15 @@ def fold_tile(layers, S: int, points: int) -> int:
     return T
 
 
+def check_planned(design, what: str) -> None:
+    """Raise unless ``design`` is None (the plan's own choice) or a planned
+    design (``_cuda.PLANNED_DESIGNS``): what the fp32 jet pair, the fused
+    residual kernels and the quotient sums take."""
+    if design is not None and design not in _cuda.PLANNED_DESIGNS:
+        raise ValueError(f"{what}: design {design} is not a planned design "
+                         f"({_cuda.PLANNED_DESIGNS})")
+
+
 def _fit_at(smem_floats, T, share, design, tier=None):
     """The first pass-A tier at tile T that leaves room for ``share`` blocks
     per SM (1: a block's SMEM_MAX), or None."""
@@ -256,6 +265,7 @@ def forward_only(smem_floats: Callable[[int, int], int], layers, S: int, what: s
     and ``blocks`` (the most blocks per SM) pin a choice; what fits nothing
     raises, naming the shape.  On a ragged net the resident tier is tried
     at 3 and 2 blocks per SM before the staged one (module note)."""
+    check_planned(design, what)
     two = _cuda.DES_PLANNED | _cuda.DES_ITEM2
     shares = [b for b in (3, 2) if b <= blocks]
     names = [tier] if tier is not None else [name for name, _ in tiers(False)]

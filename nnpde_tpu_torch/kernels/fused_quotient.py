@@ -190,8 +190,8 @@ def plan(kind: str, layers, lap: int = 0, *, T: int | None = None,
          blocks: int = _plan.FWD_BLOCKS, N: int | None = None, sms: int = 132) -> _plan.Plan:
     """The launch shape of one kernel over its layout (``d + 1 + lap``
     streams).  The seeded kinds (pass B) take the shared plan of
-    :mod:`._plan` in design 0; the sums kinds (pass A) the planned design of
-    the forward-only kernels (:func:`._plan.forward_only`, for N points on a
+    :mod:`._plan` on the core's routines (``design`` 0); the sums kinds
+    (pass A) the planned design of the forward-only kernels (:func:`._plan.forward_only`, for N points on a
     card of ``sms`` SMs: ``design`` pins its design, ``blocks`` caps its
     blocks per SM).  ``T`` and ``tier`` pin a choice and raise if it does
     not fit."""

@@ -230,27 +230,15 @@ def smem_floats(kind: str, layers, T: int, flags: int = 0) -> int:
 def planned(smem_floats_of, layers, S: int, what: str, design: int | None = None, *,
             T: int | None = None, tier: str | None = None) -> _plan.Plan:
     """The launch shape of a kernel of fused_step.cu or fwdlap_backward.cu
-    in ``design`` (``smem_floats_of(T, flags)`` its layout, ``S`` its
-    streams).  Design 0: the constant tile of :func:`._cuda.plan_tile`,
-    nothing resident (the layout at flags 0; no kernel of these files runs
-    design 0 any more, and their wrappers refuse it).  A planned design: the
-    shared plan of :mod:`._plan` (seeded tiers; with ``DES_ITEM2`` the tile
-    rule of 8-row items) at most ``PLANNED_BLOCKS`` blocks per SM.
-    ``design=None`` is the fp32 wrappers' choice: two-point items where
-    their one-wave tile fits two blocks per SM as it is; where it only fits
-    a step below (u64: 28 points, 224 of 256 items), the planned 4 x 4 items
-    (``chip_smoke.py sweep``).  ``T`` and ``tier`` pin a choice and raise if
-    it does not fit."""
-    if design == 0:
-        if tier not in (None, "staged"):
-            raise ValueError(f"{what}: design 0 keeps nothing resident (tier={tier})")
-        if T is None:
-            t, smem = _cuda.plan_tile(lambda t: smem_floats_of(t, 0))
-        else:
-            t, smem = T, 4 * smem_floats_of(T, 0)
-            if smem > _cuda.SMEM_MAX:
-                raise ValueError(f"{what}: T={T} does not fit {_cuda.SMEM_MAX} B")
-        return _plan.Plan(t, smem, 0, "staged", 0)
+    in a planned ``design`` (``smem_floats_of(T, flags)`` its layout, ``S``
+    its streams): the shared plan of :mod:`._plan` (seeded tiers; with
+    ``DES_ITEM2`` the tile rule of 8-row items) at most ``PLANNED_BLOCKS``
+    blocks per SM; any other design raises.  ``design=None`` is the fp32
+    wrappers' choice: two-point items where their one-wave tile fits two
+    blocks per SM as it is; where it only fits a step below (u64: 28 points,
+    224 of 256 items), the planned 4 x 4 items (``chip_smoke.py sweep``).
+    ``T`` and ``tier`` pin a choice and raise if it does not fit."""
+    _plan.check_planned(design, what)
 
     def ladder(des):
         pl = _plan.plan(smem_floats_of, layers, S, True, T=T, tier=tier, what=what,
@@ -448,8 +436,7 @@ def _launch(kind: str, params, X, coef, activation: str, analytic=None,
     mma = pl.design == _cuda.DES_MMA
     if bool(bf16) != mma or not (mma or pl.design in _cuda.PLANNED_DESIGNS):
         raise ValueError(f"{kind}: the bf16-dot mode runs the tensor-core design and only it; "
-                         f"fp32 a planned design (design 0 has no fused kernels; bf16={bf16}, "
-                         f"design={pl.design})")
+                         f"fp32 a planned design (bf16={bf16}, design={pl.design})")
     T, design = pl.T, pl.design
     mode = _MODES[kind]
     dev = X.device

@@ -9,9 +9,8 @@ recurrence kept on chip, differentiable in the parameters.
   jet rows, in fp32 in the planned design of ``csrc/fwdlap_planned.cuh``
   on the plan of :func:`forward_plan` (by net and N);
 * forward, ``fwd_impl='streams'`` (JAX ``'pallas'``, ``_forward_kernel``):
-  the same file's second kernel writes the jet stream-major, ``(d+2, N)``
-  with each stream contiguous, the output layer through the same
-  shared-memory product as the hidden ones; the wrapper returns the
+  the same planned kernel on the same plan, with its stream-major write:
+  ``(d+2, N)`` with each stream contiguous; the wrapper returns the
   ``(N, d+2)`` view;
 * backward (``_backward_kernel``): ``csrc/fwdlap_backward.cu`` recomputes
   the recurrence per tile and reverse-sweeps from the ``(N, d+2)`` cotangent
@@ -99,18 +98,11 @@ def fwdlap_backward_plain(params, X, ct, activation: str, dot_dtype: str = "floa
     return list(flat[0::2]), list(flat[1::2])
 
 
-def _plan_forward(layers, T: int):
-    """Shared-memory floats per block for a tile of T points (the layout of
-    fwdlap_forward.cu's design-0 kernel, the stream-major one)."""
-    d = layers[0]
-    S, wmax = d + 2, _cuda.padded_wmax(layers)
-    return 2 * S * T * wmax + wmax * wmax + T * d + S * T
-
-
 def forward_smem_floats(layers, T: int, flags: int = 0) -> int:
-    """The same for the planned row kernel (mirrored from fwdlap_forward.cu's
-    fwd_smem_floats): residency ``flags`` of :mod:`._plan` (0 is the
-    stream-major kernel's layout)."""
+    """Shared-memory floats per block for a tile of T points: the planned
+    jet forward's layout in either output layout (mirrored from
+    fwdlap_forward.cu's fwd_smem_floats), residency ``flags`` of
+    :mod:`._plan`."""
     d = layers[0]
     S, wmax = d + 2, _cuda.padded_wmax(layers)
     n = 2 * S * T * wmax
@@ -121,14 +113,10 @@ def forward_smem_floats(layers, T: int, flags: int = 0) -> int:
 def forward_plan(layers, design: int | None = None, *, N: int | None = None,
                  sms: int = 132, T: int | None = None, tier: str | None = None,
                  blocks: int = _plan.FWD_BLOCKS) -> _plan.Plan:
-    """The row forward's launch shape for N points on a card of ``sms`` SMs:
-    fp32 the planned design (:func:`._plan.forward_only`, ``d + 2``
-    streams); design 0 the stream-major kernel's constant tile of
-    :func:`._cuda.plan_tile`.  (The bf16-dot variant's is
-    :func:`.fused_step.mma_plan`.)"""
-    if design == 0:
-        T0, smem = _cuda.plan_tile(lambda t: _plan_forward(layers, t))
-        return _plan.Plan(T0, smem, 0, "staged", 0)
+    """The fp32 jet forward's launch shape (both output layouts) for N
+    points on a card of ``sms`` SMs: the planned design on
+    :func:`._plan.forward_only`, ``d + 2`` streams.  (The bf16-dot
+    variant's is :func:`.fused_step.mma_plan`.)"""
     return _plan.forward_only(lambda t, f: forward_smem_floats(layers, t, f), layers,
                               layers[0] + 2, "fwdlap_forward plan", N, sms, design=design,
                               T=T, tier=tier, blocks=blocks)
@@ -149,14 +137,11 @@ def backward_smem_floats(layers, T: int, flags: int = 0) -> int:
 def backward_plan(layers, design: int | None = None, *, T: int | None = None,
                   tier: str | None = None) -> _plan.Plan:
     """The backward's launch shape: fp32 a planned design
-    (:func:`.fused_step.planned`, ``d + 2`` streams; design 0 raises);
-    ``DES_MMA`` the bf16-dot variant's tensor-core design
+    (:func:`.fused_step.planned`, ``d + 2`` streams; any other design
+    raises); ``DES_MMA`` the bf16-dot variant's tensor-core design
     (:func:`.fused_step.mma_plan`)."""
     if design == _cuda.DES_MMA:
         return mma_plan("fwdlap_backward", layers, T=T, tier=tier)
-    if design == 0:
-        raise ValueError("fwdlap_backward: no design 0 (the bf16-dot variant runs the "
-                         "tensor-core design, DES_MMA)")
     return planned(lambda t, f: backward_smem_floats(layers, t, f), layers, layers[0] + 2,
                    "fwdlap_backward plan", design, T=T, tier=tier)
 
@@ -166,12 +151,12 @@ def fwdlap_forward(params, X, activation: str, fwd_impl: str = "rows", *,
     """Launch a jet-forward kernel: ``(N, d+2)`` float32 rows ``[u, grad_0 ..
     grad_{d-1}, lap]`` (with ``fwd_impl='streams'`` a view of the kernel's
     stream-major ``(d+2, N)`` output; ``'rows:default'``: the row kernel's
-    bf16-dot variant).  ``'rows'`` launches the planned design on the plan
-    of :func:`forward_plan`, cached per shape, ``'rows:default'`` the
-    tensor-core design on its :func:`.fused_step.mma_plan`, cached per net;
-    ``'streams'`` keeps design 0's constant tile.  ``pl``: a launch shape
-    (and design) other than the wrapper's own for the row kernels (timing
-    sweeps, tests); a design of the other mode raises."""
+    bf16-dot variant).  ``'rows'`` and ``'streams'`` launch the planned
+    design on the plan of :func:`forward_plan`, cached per shape,
+    ``'rows:default'`` the tensor-core design on its
+    :func:`.fused_step.mma_plan`, cached per net.  ``pl``: a launch shape
+    (and design) other than the wrapper's own (timing sweeps, tests); a
+    design of the other mode raises."""
     from . import _build
 
     streams = int(fwd_impl == "streams")
@@ -182,24 +167,17 @@ def fwdlap_forward(params, X, activation: str, fwd_impl: str = "rows", *,
     N, d = X.shape
     X = X.contiguous()
     flat = _cuda.flat_params(params)
-    if streams:
-        if pl is not None:
-            raise ValueError(f"{name}: only the row kernels (fwd_impl='rows', "
-                             "'rows:default') take a plan")
-        T, smem = _cuda.plan_tile(lambda t: _plan_forward(layers, t))
-        pl = _plan.Plan(T, smem, 0, "staged", 0)
-    elif pl is None and bf16:
+    if pl is None and bf16:
         pl = _plan.cached(("fwdlap_forward", tuple(layers), bf16),
                           lambda: mma_plan("fwdlap_forward", layers))
     elif pl is None:
         sms = _cuda.sm_count(X.device)
         pl = _plan.cached(("fwdlap_forward", tuple(layers), N, sms),
                           lambda: forward_plan(layers, N=N, sms=sms))
-    if not streams and (bool(bf16) != (pl.design == _cuda.DES_MMA)
-                        or not (bf16 or pl.design in _cuda.PLANNED_DESIGNS)):
-        raise ValueError("fwdlap_forward: the bf16-dot variant runs the tensor-core design "
-                         "and only it; fp32 rows a planned design (design 0 is the "
-                         f"stream-major kernel's; bf16={bf16}, design={pl.design})")
+    if bool(bf16) != (pl.design == _cuda.DES_MMA) or not (bf16 or
+                                                         pl.design in _cuda.PLANNED_DESIGNS):
+        raise ValueError(f"{name}: the bf16-dot variant runs the tensor-core design and only "
+                         f"it; fp32 a planned design (bf16={bf16}, design={pl.design})")
     T = pl.T
     dev = X.device
     fold, key = variant(layers, d + 2, pl)
@@ -305,8 +283,8 @@ def mlp_fwdlap_kernel(params, X, activation: str, fwd_impl: str = "rows",
                       dot_dtype: str = "float32") -> Jet:
     """``(u, grad u, lap u)`` of a scalar MLP over a collocation batch
     through the jet kernels (plain versions on the CPU), differentiable in
-    ``params``.  ``fwd_impl``: ``'rows'`` or ``'streams'`` (which forward
-    kernel; the jet is the same, exact fp32), or ``'rows:default'`` (the
+    ``params``.  ``fwd_impl``: ``'rows'`` or ``'streams'`` (which output
+    layout the forward kernel writes; the jet is the same, exact fp32), or ``'rows:default'`` (the
     row kernel's bf16-dot variant).  ``dot_dtype``: the backward's dots,
     ``'float32'`` or ``'bfloat16'``."""
     if fwd_impl == "streams:default":

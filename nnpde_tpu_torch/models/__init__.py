@@ -1,8 +1,10 @@
+from .inputmap import CosineInputMap
 from .mlp import NetSpec, init_mlp, mlp_apply_batch, mlp_apply_point
 from .solution import SolutionModel
 from .trial import SeparableFactor, factor_for_technique
 
 __all__ = [
+    "CosineInputMap",
     "NetSpec",
     "init_mlp",
     "mlp_apply_batch",

@@ -2,7 +2,9 @@
 
 Counterpart of ``nnpde_tpu/models/solution.py``: ``u = B * u_raw`` with the
 jet of the product formed analytically from the MLP's forward-Laplacian
-jet and the factor's closed-form jet.
+jet and the factor's closed-form jet, and optionally the raw net applied
+to elementwise input features, ``u = B(x) * g(z(x))`` (the hard-Neumann
+cosine map, :mod:`.inputmap`).
 """
 
 from __future__ import annotations
@@ -28,26 +30,36 @@ def _check_impl(impl: str) -> None:
 class SolutionModel:
     """Static model description; parameters live in a separate list."""
 
-    def __init__(self, spec: NetSpec, factor: Optional[SeparableFactor] = None):
+    def __init__(self, spec: NetSpec, factor: Optional[SeparableFactor] = None,
+                 input_map=None):
         self.spec = spec
         self.factor = factor
+        # optional elementwise input map with analytic jets (models/inputmap.py):
+        # hard-enforces zero-Neumann as the factor hard-enforces Dirichlet
+        self.input_map = input_map
         self.dim = spec.layers[0]
         if factor is not None and factor.dim != self.dim:
             raise ValueError(
                 f"factor dim {factor.dim} != net input dim {self.dim}"
+            )
+        if input_map is not None and input_map.dim != self.dim:
+            raise ValueError(
+                f"input_map dim {input_map.dim} != net input dim {self.dim}"
             )
 
     def init(self, gen: torch.Generator, dtype=torch.float32):
         return init_mlp(gen, self.spec, dtype)
 
     def apply_point(self, params, x):
-        u = mlp_apply_point(params, x, self.spec.activation)
+        z = self.input_map.value(x) if self.input_map is not None else x
+        u = mlp_apply_point(params, z, self.spec.activation)
         if self.factor is not None:
             u = u * self.factor.value_point(x)
         return u
 
     def apply_batch(self, params, X):
-        u = mlp_apply_batch(params, X, self.spec.activation)
+        Z = self.input_map.value(X) if self.input_map is not None else X
+        u = mlp_apply_batch(params, Z, self.spec.activation)
         if self.factor is not None:
             u = u * self.factor.value(X)
         return u
@@ -57,16 +69,23 @@ class SolutionModel:
         forward-Laplacian recurrence, differentiable in ``params``:
         ``impl='torch'`` through autograd, ``impl='kernel'`` through the
         jet kernels (:func:`~nnpde_tpu_torch.kernels.mlp_fwdlap_kernel`;
-        ``kernel_kw`` are its options, e.g. ``fwd_impl='streams'``)."""
+        ``kernel_kw`` are its options, e.g. ``fwd_impl='streams'``).  The
+        kernels do not take an input map: with one, ``impl='kernel'``
+        raises, as the JAX package's ``impl='pallas'`` does."""
         _check_impl(impl)
         if impl == "kernel":
+            if self.input_map is not None:
+                raise ValueError(
+                    "input_map (hard-Neumann features) is supported on the "
+                    "torch jet path only: use impl='torch'")
             from ..kernels import mlp_fwdlap_kernel
 
             jet = mlp_fwdlap_kernel(params, X, self.spec.activation, **kernel_kw)
         else:
             if kernel_kw:
                 raise TypeError(f"impl='torch' takes no kernel options, got {kernel_kw}")
-            jet = mlp_fwdlap(params, X, self.spec.activation)
+            seed = self.input_map.jet(X) if self.input_map is not None else None
+            jet = mlp_fwdlap(params, X, self.spec.activation, input_jet=seed)
         if self.factor is not None:
             jet = compose_product_jet(jet, self.factor.jet(X))
         return jet

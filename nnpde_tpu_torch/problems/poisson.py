@@ -5,8 +5,10 @@ Counterpart of ``nnpde_tpu/problems/poisson.py``, with the same
 
 * methods PINN (strong residual), DRM (energy) and WAN (minimax against a
   bump-windowed critic, fresh points for every critic and primal step);
-  bc modes FBC (hard ``prod x_i (L - x_i)`` trial) and RB (soft penalty on
-  fresh per-face samples each epoch);
+  bc modes FBC (hard ``prod x_i (L - x_i)`` trial; with ``bc_type='neumann'``
+  hard Neumann, the raw net on cosine input features,
+  :class:`~nnpde_tpu_torch.models.CosineInputMap`, on the torch jet route
+  only) and RB (soft penalty on fresh per-face samples each epoch);
 * default weights ``{pde: 1, bc: 1e4 if RB, data: 1e3 if n_data, norm: 0}``;
 * per-epoch eval on fresh uniform points, RMSE vs the manufactured
   solution, best-state tracking.
@@ -66,7 +68,7 @@ from ..losses import (
     wan_pde_loss,
     wan_weak_residual,
 )
-from ..models import NetSpec, SolutionModel, factor_for_technique
+from ..models import CosineInputMap, NetSpec, SolutionModel, factor_for_technique
 from ..ops import bump_w
 from ..ops.fwdlap import constant_jet
 from ..pde import poisson as phys
@@ -167,9 +169,10 @@ def _solution_model(cfg: PoissonConfig) -> SolutionModel:
             "pass solution='cos'"
         )
     if cfg.bc_type == "neumann" and cfg.bc_mode == "FBC":
-        raise NotImplementedError(
-            "hard Neumann (FBC + neumann) needs the cosine input map, which "
-            "arrives with ROADMAP A3 (models/inputmap.py)")
+        # hard Neumann: the raw net on cosine features (du/dn = 0 exactly on
+        # every face, models/inputmap.py), no output factor
+        return SolutionModel(NetSpec(layers, activation="sin"),
+                             input_map=CosineInputMap(cfg.dim, 0.0, cfg.L))
     factor = (factor_for_technique("FBC", dim=cfg.dim, kind="box", L=cfg.L)
               if cfg.bc_mode == "FBC" else None)
     return SolutionModel(NetSpec(layers, activation="sin"), factor)
@@ -218,6 +221,15 @@ def _validate(cfg: PoissonConfig) -> None:
             "prod-sin Poisson PINN — requires method='PINN', "
             "jet_impl='fused', bc_mode='FBC', solution='sin'"
         )
+    # hard Neumann puts the raw net on cosine input features, which no kernel
+    # takes: the jet kernels (PINN on 'kernel') and every fused objective
+    # would drop the map
+    hard_neumann = cfg.bc_mode == "FBC" and cfg.bc_type == "neumann"
+    if hard_neumann and (cfg.jet_impl == "fused"
+                         or (cfg.jet_impl == "kernel" and cfg.method == "PINN")):
+        raise ValueError(
+            "input_map (hard Neumann: bc_mode='FBC', bc_type='neumann') is "
+            f"supported on the torch jet route only, not jet_impl={cfg.jet_impl!r}")
 
 
 def train_poisson_nd(cfg: PoissonConfig, device="cuda") -> Dict:

@@ -283,40 +283,48 @@ def test_jet_pair_bf16_routes_to_the_tensor_core_design(monkeypatch, net):
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_fused_launch_refuses_design_0_and_crossed_designs(monkeypatch, kind):
-    """Design 0 has no fused kernels any more; the bf16-dot mode takes only
-    the tensor-core design and fp32 only a planned one."""
+    """Design 0 has no fused kernels any more (its plan is refused, and a
+    plan made by hand with design 0 is not launched); the bf16-dot mode
+    takes only the tensor-core design and fp32 only a planned one."""
     layers = NETS["u64"]
     _Recorder(monkeypatch)
     params, X, coef = _inputs(layers)
     c = coef if kind == "fused_linear_residual" else None
     an = tfs._analytic_args(tfs.PoissonSinCoef(2.0, (1, 1)), 2)
-    for bf16, pl in ((True, tfs.plan(kind, layers, 0)), (False, tfs.plan(kind, layers, 0)),
+    with pytest.raises(ValueError, match="design 0 is not a planned design"):
+        tfs.plan(kind, layers, 0)
+    design0 = tfs.plan(kind, layers)._replace(design=0)
+    for bf16, pl in ((True, design0), (False, design0),
                      (True, tfs.plan(kind, layers)), (False, tfs.mma_plan(kind, layers))):
-        with pytest.raises(ValueError, match="design 0 has no fused kernels"):
+        with pytest.raises(ValueError, match="tensor-core design and only it"):
             tfs._launch(kind, params, X, c, "sin", an, bf16=bf16, pl=pl)
 
 
 def test_jet_pair_refuses_crossed_designs(monkeypatch):
     """The jet pair's bf16-dot modes take only the tensor-core design and
-    their fp32 modes only a planned one; the row forward no design 0 (the
-    stream-major kernel's), the stream-major forward no plan; the jet
-    backward has no design 0."""
+    their fp32 modes, the stream-major forward's included, only a planned
+    one; design 0 (the retired constant tile) gets no plan in either
+    direction, and a plan made by hand with it is not launched."""
     layers = NETS["u64"]
     rec = _Recorder(monkeypatch)
     params, X, _ = _inputs(layers)
     ct = torch.zeros((X.shape[0], layers[0] + 2))
+    with pytest.raises(ValueError, match="design 0 is not a planned design"):
+        tfc.forward_plan(layers, 0)
+    design0 = tfc.forward_plan(layers)._replace(design=0)
     crossed = ((True, tfc.forward_plan(layers)), (False, tfs.mma_plan("fwdlap_forward", layers)),
-               (True, tfc.forward_plan(layers, 0)), (False, tfc.forward_plan(layers, 0)))
+               (True, design0), (False, design0))
     for bf16, pl in crossed:
         with pytest.raises(ValueError, match="tensor-core design and only it"):
             tfc.fwdlap_forward(params, X, "sin", "rows:default" if bf16 else "rows", pl=pl)
-    with pytest.raises(ValueError, match="take a plan"):
-        tfc.fwdlap_forward(params, X, "sin", "streams", pl=tfc.forward_plan(layers, 0))
+    for pl in (tfs.mma_plan("fwdlap_forward", layers), design0):
+        with pytest.raises(ValueError, match="tensor-core design and only it"):
+            tfc.fwdlap_forward(params, X, "sin", "streams", pl=pl)
     for dot, pl in (("bfloat16", tfc.backward_plan(layers)),
                     ("float32", tfs.mma_plan("fwdlap_backward", layers))):
         with pytest.raises(ValueError, match="tensor-core design and only it"):
             tfc.fwdlap_backward(params, X, ct, "sin", dot, pl=pl)
-    with pytest.raises(ValueError, match="no design 0"):
+    with pytest.raises(ValueError, match="design 0 is not a planned design"):
         tfc.backward_plan(layers, 0)
     assert rec.calls == []
 

@@ -448,8 +448,8 @@ def test_quotient_plan_keeps_the_tile_before_residency(net, kind, lap):
 
 @pytest.mark.parametrize("kind", ["linear_sums", "quad_sums"])
 def test_quotient_sums_keep_the_constant_tile(kind):
-    """The sums kinds (pass A) used to keep the constant tile of
-    ``_cuda.plan_tile``; they now plan as the jet forward does, by net and
+    """The sums kinds (pass A) used to keep a constant 16-point tile; they
+    now plan as the jet forward does, by net and
     N (``_plan.forward_only``): a planned design, the hidden weights
     resident or staged (never their transposes, nor a gradient row), and
     the layout's bytes, no longer the constant 16-point tile on u64."""
@@ -463,7 +463,7 @@ def test_quotient_sums_keep_the_constant_tile(kind):
                 f"{kind} plan", N, 132)
             assert pl.design in _cuda.PLANNED_DESIGNS and pl.flags in (0, _plan.RES_WEIGHTS)
             assert pl.smem == 4 * tfq.smem_floats(kind, layers, pl.T, 0, pl.flags)
-    assert tfq.plan(kind, QNETS["u64"], 0, N=262144, sms=132).T != _cuda.TILE
+    assert tfq.plan(kind, QNETS["u64"], 0, N=262144, sms=132).T != 16   # the old tile
 
 
 def test_quotient_flat_vector_handoff_matches_params_route():

@@ -232,22 +232,22 @@ def test_fused_plan_path_shapes(kind, net, want):
 @pytest.mark.parametrize("net", sorted(FEXTREMES))
 def test_fused_plan_takes_every_shape_the_wrapper_takes(net, kind, design):
     """Every net the wrapper's check takes gets a plan the kernel takes, in
-    the wrappers' choice, in design 0 (the bf16-dot variants' constant tile)
-    and in each planned design; a pinned tier at 16 points fits or
-    raises."""
+    the wrappers' choice and in each planned design; design 0 (the retired
+    constant tile) gets none; a pinned tier at 16 points fits or raises."""
     from nnpde_tpu_torch.kernels import _cuda, _plan
 
     design = None if design == "wrapper" else design
     layers = FEXTREMES[net]
     params = [(torch.zeros(a, b), torch.zeros(b)) for a, b in zip(layers[:-1], layers[1:])]
     assert _cuda.net_layers(kind, params, torch.zeros(8, layers[0]), "sin") == list(layers)
+    if design == 0:
+        with pytest.raises(ValueError, match="design 0 is not a planned design"):
+            tfs.plan(kind, layers, design)
+        return
     pl = tfs.plan(kind, layers, design)
     assert _launchable(pl, kind, layers)
     if design is not None:
         assert pl.design == design
-    if design == 0:
-        assert (pl.T, pl.flags, pl.tier) == (_cuda.TILE, 0, "staged") or pl.T < _cuda.TILE
-        return
     for tier, _ in _plan.tiers(True):
         try:
             pinned = tfs.plan(kind, layers, pl.design, T=16, tier=tier)
@@ -259,16 +259,16 @@ def test_fused_plan_takes_every_shape_the_wrapper_takes(net, kind, design):
 
 @pytest.mark.parametrize("kind", FKINDS)
 def test_fused_plan_pinned_misfit_raises(kind):
-    """A pinned tile or tier that does not fit SMEM_MAX raises; design 0
-    keeps nothing resident."""
+    """A pinned tile or tier that does not fit SMEM_MAX raises; so does
+    design 0, whatever the pin (no kernel takes it)."""
     u64 = FNETS["u64"]
     with pytest.raises(ValueError, match="do not fit"):
         tfs.plan(kind, u64, T=128)
     with pytest.raises(ValueError, match="do not fit"):
         tfs.plan(kind, u64, T=64, tier="resident")
-    with pytest.raises(ValueError, match="does not fit"):
+    with pytest.raises(ValueError, match="not a planned design"):
         tfs.plan(kind, u64, 0, T=128)
-    with pytest.raises(ValueError, match="nothing resident"):
+    with pytest.raises(ValueError, match="not a planned design"):
         tfs.plan(kind, u64, 0, tier="gradient")
 
 
@@ -297,9 +297,10 @@ def test_tile_rule_for_8_row_items(layers, S, rows, want):
 
 
 def test_fused_smem_layout_design0_is_the_constant_tile_layout():
-    """Design 0 (the core's kernels and the bf16-dot variants) keeps the
-    layout and the 16-point tile of _cuda.plan_tile; the planned designs add
-    the resident weights and transposes and the gradient row."""
+    """The planned layout at flags 0 is the one the retired constant tile
+    had, and design 0 itself gets no plan any more; the planned designs add
+    the resident weights and transposes and the gradient row, and the plan's
+    bytes are its layout's at its own tile and flags."""
     from nnpde_tpu_torch.kernels import _cuda, _plan
 
     for kind in FKINDS:
@@ -309,7 +310,10 @@ def test_fused_smem_layout_design0_is_the_constant_tile_layout():
             T = 16
             base = 3 * S * T * w + w * w + T * d + (d + 2) * T + 3 * T + S * T + _cuda.NT
             assert tfs.smem_floats(kind, layers, T) == base
-            assert tfs.plan(kind, layers, 0) == _plan.Plan(16, 4 * base, 0, "staged", 0)
+            with pytest.raises(ValueError, match="not a planned design"):
+                tfs.plan(kind, layers, 0)
+            pl = tfs.plan(kind, layers)
+            assert pl.smem == 4 * tfs.smem_floats(kind, layers, pl.T, pl.flags)
             hid, row = _plan.hidden_floats(layers), (_cuda.n_params(layers) + 6) // 4 * 4
             full = tfs.smem_floats(kind, layers, T, _plan.RES_WEIGHTS | _plan.RES_GRAD)
             assert full == base - w * w + 2 * hid + row

@@ -2,9 +2,9 @@
 the CPU.
 
 ``mlp_fwdlap_kernel`` is the counterpart of ``mlp_fwdlap_pallas``: the jet
-forward (two kernels: ``fwd_impl='rows'`` / ``'streams'``, JAX ``'pallas2'``
-/ ``'pallas'``) and the recompute backward.  Inputs come from a numpy seed
-and go through both packages; the JAX side runs its Pallas kernels in
+forward (one kernel in two output layouts: ``fwd_impl='rows'`` /
+``'streams'``, JAX ``'pallas2'`` / ``'pallas'``) and the recompute
+backward.  Inputs come from a numpy seed and go through both packages; the JAX side runs its Pallas kernels in
 interpret mode (``interpret=True, dot_dtype="float32", bwd_tile=128``,
 ``lane_pack`` 1 and 2), the port's wrappers take their plain versions here
 (CPU tensors).
@@ -184,7 +184,8 @@ def test_wrapper_checks_and_tile_planning_take_any_width():
     assert _cuda.padded_wmax([2, 64, 20, 1]) == 64
     assert _cuda.padded_wmax([2, 1, 1]) == 4
     # jet forward / backward plans: 2 or 3 stream buffers of (d+2)*T*wmax floats
-    assert tfc._plan_forward([2, 50, 50, 1], 16) == 2 * 4 * 16 * 52 + 52 * 52 + 16 * 2 + 4 * 16
+    assert (tfc.forward_smem_floats([2, 50, 50, 1], 16)
+            == 2 * 4 * 16 * 52 + 52 * 52 + 16 * 2 + 4 * 16)
     assert (tfc.backward_smem_floats([2, 50, 50, 1], 16)
             == 3 * 4 * 16 * 52 + 52 * 52 + 16 * 2 + 4 * 16 + _cuda.NT)
     # the coefficient tile is counted, per bump and per point

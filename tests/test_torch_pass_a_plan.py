@@ -43,16 +43,16 @@ def _hidden(layers):
 # ------------------------------------------------------------ layout mirrors
 @pytest.mark.parametrize("net", sorted(EXTREMES))
 def test_forward_layout_mirror_is_the_written_out_layout(net):
-    """Row 4's planned layout: two stream buffers of (d+2) x T x wmax, one
-    staged layer (wmax^2) or the resident hidden weights, the tile's points
-    and its projected streams; flags 0 is also design 0's layout."""
+    """The jet forward's planned layout (rows 4 and 6: both output layouts):
+    two stream buffers of (d+2) x T x wmax, one staged layer (wmax^2) or
+    the resident hidden weights, the tile's points and its projected
+    streams."""
     layers = EXTREMES[net]
     d, wmax = layers[0], _padded(max(layers[1:-1]))
     for T in (4, 16, 36, 48):
         common = 2 * (d + 2) * T * wmax + T * d + (d + 2) * T
         assert tfc.forward_smem_floats(layers, T, 0) == common + wmax * wmax
         assert tfc.forward_smem_floats(layers, T, _plan.RES_WEIGHTS) == common + _hidden(layers)
-        assert tfc.forward_smem_floats(layers, T, 0) == tfc._plan_forward(layers, T)
 
 
 @pytest.mark.parametrize("kind,lap", SUMS)
@@ -166,6 +166,28 @@ def test_forward_only_budget_follows_the_share():
     assert pl.blocks == 2 and not _room(pl.smem, 2)
 
 
+def _record_launches(monkeypatch):
+    """Stand in for the kernel library and the card: the launches made are
+    recorded as ``(name, entry point, args)``; every occupancy query answers
+    one block, the card has 132 SMs."""
+    from nnpde_tpu_torch.kernels import _build
+
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return name
+
+    monkeypatch.setattr(_build, "load", lambda: Lib())
+    monkeypatch.setattr(_cuda, "grid", lambda name, query, smem, dev, n, key=0: 1)
+    monkeypatch.setattr(_cuda, "stream", lambda dev: 0)
+    monkeypatch.setattr(_cuda, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(_cuda, "launch", lambda name, fn, *args, dev, keep=(): calls.append(
+        (name, fn, args)))
+    return calls
+
+
+@pytest.mark.parametrize("fwd_impl", ["rows", "streams"])
 @pytest.mark.parametrize("net,N,want", [
     ("u64", 20000, (16, "staged", 2, 3)),      # 4 x 4: the two-point plan fills 2.4 rounds
     ("u64", 262144, (32, "resident", 3, 2)),
@@ -175,12 +197,30 @@ def test_forward_only_budget_follows_the_share():
     ("c20", 40000, (48, "resident", 2, 3)),    # the two tiles are one: 4 x 4 items
     ("u64_d5", 20000, (16, "staged", 2, 3)),   # S = 7: the same 16 points
 ])
-def test_forward_plan_path_shapes(net, N, want):
-    """Row 4 on the nets of its paths at their N (and 262144 points) on a
-    card of 132 SMs: (T, tier, design, blocks per SM)."""
-    pl = tfc.forward_plan(NETS[net], N=N, sms=132)
+def test_forward_plan_path_shapes(monkeypatch, net, N, want, fwd_impl):
+    """Rows 4 and 6 on the nets of their paths at their N (and 262144
+    points) on a card of 132 SMs: (T, tier, design, blocks per SM).  The
+    wrapper launches each output layout (``fwd_impl='rows'``: row 4,
+    ``'streams'``: row 6) on exactly that plan, the stream-major one
+    returning the ``(N, d+2)`` view of its ``(d+2, N)`` output."""
+    layers = NETS[net]
+    pl = tfc.forward_plan(layers, N=N, sms=132)
     assert (pl.T, pl.tier, pl.design, pl.blocks) == want
     assert _room(pl.smem, pl.blocks)
+    calls = _record_launches(monkeypatch)
+    params = [(torch.zeros(a, b), torch.zeros(b)) for a, b in zip(layers[:-1], layers[1:])]
+    out = tfc.fwdlap_forward(params, torch.zeros(N, layers[0]), "sin", fwd_impl)
+    streams = fwd_impl == "streams"
+    [(name, entry, args)] = calls
+    assert (name, entry) == ("fwdlap_forward_streams" if streams else "fwdlap_forward",
+                             "fwdlap_forward_f32")
+    # (streams, X, params, layers, n_layers, act, N, T, G, fold, bf16, des, minb, flags,
+    #  out, smem, stream)
+    assert args[0] == int(streams) and args[10] == 0
+    assert (args[7], args[11], args[12], args[13], args[15]) == (pl.T, pl.design, pl.blocks,
+                                                                 pl.flags, pl.smem)
+    assert out.shape == (N, layers[0] + 2)
+    assert (out.t() if streams else out).is_contiguous()
 
 
 @pytest.mark.parametrize("kind,net,N,want", [

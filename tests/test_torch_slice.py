@@ -162,16 +162,18 @@ def test_fused_and_torch_paths_agree_on_cpu_at_other_dims(dim):
     assert _rel(b["history"]["l2"], a["history"]["l2"]) <= 1e-4
 
 
-# compute_dtype's reduced-precision modes are ported (tests/test_torch_precision.py);
-# the hard-Neumann trial under them still raises
+# compute_dtype's reduced-precision modes are ported (tests/test_torch_precision.py)
+# and so is the hard-Neumann trial (tests/test_torch_inputmap.py), but not on the
+# routes whose kernels would drop its input map
 @pytest.mark.parametrize("kw,exc", [
-    (dict(method="WAN", compute_dtype="hybrid", bc_type="neumann", solution="cos"),
-     NotImplementedError),
+    (dict(method="WAN", compute_dtype="hybrid", bc_type="neumann", solution="cos",
+          jet_impl="fused"), ValueError),
     (dict(jet_impl="pallas"), NotImplementedError),
-    (dict(compute_dtype="bfloat16", bc_type="neumann", solution="cos"), NotImplementedError),
+    (dict(compute_dtype="hybrid-kernel", jet_impl="kernel", bc_type="neumann",
+          solution="cos"), ValueError),
     (dict(jet_impl="xla"), ValueError),
     (dict(coef_mode="analytic"), ValueError),
-    (dict(bc_type="neumann", solution="cos"), NotImplementedError),
+    (dict(bc_type="neumann", solution="cos", jet_impl="fused"), ValueError),
 ])
 def test_unported_options_raise(kw, exc):
     with pytest.raises(exc):
