@@ -66,7 +66,28 @@ Phases (each prints one JSON line; any failure exits non-zero):
    rel_l2 at most a tenth of the first eval's, finite, no kernel launched,
    |du/dn| <= 1e-5 max |grad u| at 1000 face points; 'kernel' and 'fused'
    must raise on it.
-9. timing, wan_timing, eigen_timing, ipw3d_timing: CUDA events, median over repeats, for
+9. eigen1d (group ``eigen1d``): eigen1d_kernels holds rows 1, 4, 5 and 7-10
+   at d = 1 on the 1D paths' nets (the well's u50 and critic c20, tanh; the
+   oscillator's u200, sin for PINN and DRM, tanh for WAN, and its critic
+   v100) at 1000 and 1007 points, and on a ragged wide net (1, 130, 256, 1),
+   to their float64 plain versions by the bars above; eigen1d_path runs
+   ``train_ipw_1d(n=3, technique='FN')`` (300 of 3000 epochs: PINN on three
+   routes, DRM on two), ``train_ipw_1d_wan(technique='FN')`` (120 epochs,
+   'torch' and 'fused'), ``train_qho_1d(n=1, technique='FN')`` at u200
+   (300 of 10000 epochs, PINN on three routes, DRM on two), the
+   full-length L-BFGS rows qho1d_n0_drm_fn_lbfgs ('fused') and
+   qho1d_n2_pinn_fn_lbfgs ('kernel') of ACCEPTANCE.json (3000 iterations,
+   best MSE <= 1e-5), ``train_qho_1d_wan(n=0, technique='OG',
+   minimax='extragradient', v_lr=2e-3)`` (120 of 30000 epochs) and
+   ``train_ipw_2d(LBFGS=True)`` (100 fused epochs and the 500-iteration
+   polish): kernel routes start as 'torch' does (rtol 1e-4, first 10 within
+   5e-2), PINN best MSE <= max(2 x torch, 1e-3), DRM and WAN falling, all
+   finite, exact launch counts (the L-BFGS rows' from their evaluations);
+   eigen1d_timing times the rows at 1000 and 262144 points with their plans;
+   graph_trace replays rows 9 and 10 on u200 in one CUDA graph, as the
+   L-BFGS evaluations run, under torch.profiler (the kernels the device ran
+   beside the counts; reported, not gated).
+10. timing, wan_timing, eigen_timing, ipw3d_timing: CUDA events, median over repeats, for
    each kernel and its plain version at the path's N and at 262144 on the
    net it runs on, with the bound (bytes or operations) and the plan of
    every kernel that plans its launch (tile, tier, blocks per SM; for rows
@@ -78,7 +99,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    the rows of those kernels: one fresh process per row, so that what ran
    earlier in a process does not move its times
    (``nnpde_tpu_torch/tools/compare_timing.py`` reads such runs).
-10. precision (group ``precision``): precision_kernels holds the bf16-dot
+11. precision (group ``precision``): precision_kernels holds the bf16-dot
    variants of the fused residual (stream and analytic coefficients), the
    jet forward and the jet backward, all four in the tensor-core design
    (``csrc/fwdlap_mma.cuh``, asserted from their launches), to their plain
@@ -99,7 +120,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    (``timing --rows=fused_linear_residual.bf16`` times one such row alone).
 
 ``python3 chip_smoke.py eigen`` (or any other phase-group name: kernels,
-wan, main, eigen, ipw3d, neumann, timing, precision) runs only those groups,
+wan, main, eigen, ipw3d, neumann, eigen1d, timing, precision) runs only those groups,
 for work on one slice; without arguments every phase runs.  ``python3
 chip_smoke.py sweep`` is a further group that runs only when named: the jet
 forward in both layouts (rows 4 and 6) and the
@@ -114,7 +135,11 @@ bitwise) and timed; ``python3 chip_smoke.py mma_sweep`` runs the last
 alone.  ``python3 chip_smoke.py mma_depth`` (only when named) holds row 1
 bf16 on the wide nets by depth, per gradient leaf, against the plain
 version, its float64 witness and the plain version on a permutation of the
-net's hidden units (the spread of two fp32 orders).
+net's hidden units (the spread of two fp32 orders).  ``python3
+chip_smoke.py devw_sweep`` (only when named) times rows 1, 4, 5 and 7-10 on
+the 1D paths' u200 and v100 and on (1, 130, 256, 1) in the design that reads
+the hidden weights from device memory against the plans' own choice, each
+shape held to float64.
 
 The last two lines before the final one are the ``kernels`` summary and the
 card's ``name, power limit``; the final line is
@@ -352,8 +377,10 @@ def phase_device():
     card = card_line()
     t0 = time.time()
     _build.load()
+    # each kernel's entry line, then its stack and spills and its registers
+    # (nnpde_tpu_torch/tools/compare_ptxas.py compares two builds' lines)
     regs = [ln.strip() for ln in _build.BUILD_LOG.get("ptxas", "").splitlines()
-            if "registers" in ln or "spill" in ln]
+            if "registers" in ln or "spill" in ln or "Compiling entry function" in ln]
     emit({"phase": "device", "card": card, "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": time.time() - t0, "ptxas": regs})
@@ -2620,7 +2647,409 @@ def phase_ipw3d_timing(dev, only=None):
     return rows
 
 
-GROUPS = ("kernels", "wan", "main", "eigen", "ipw3d", "neumann", "timing", "precision")
+# ------------------------------------------------------- the 1D eigenproblems
+# The 1D infinite well (``train_ipw_1d`` / ``train_ipw_1d_wan``: u50 and
+# critic c20, tanh) and the 1D oscillator (``train_qho_1d``: u200 sin;
+# ``train_qho_1d_wan``: u200 and critic v100, tanh), 1000 grid points, d = 1
+# (S = 3 with the Laplacian, 2 without).
+E1_N = 1000
+E1_NETS = {"u50": (1, 50, 50, 50, 1), "c20": (1, 20, 20, 20, 1),
+           "u200": (1, 200, 200, 200, 1), "v100": (1, 100, 100, 100, 1)}
+# (kernel, net, activation): the shapes the 1D paths give rows 1, 4, 5, 7-10
+E1_CASES = (
+    ("fused_linear_residual", "u50", "tanh"), ("fused_linear_residual", "u200", "sin"),
+    ("fwdlap_forward", "u50", "tanh"), ("fwdlap_forward", "u200", "sin"),
+    ("fwdlap_forward", "c20", "tanh"), ("fwdlap_forward", "u200", "tanh"),
+    ("fwdlap_forward", "v100", "tanh"),
+    ("fwdlap_backward", "u50", "tanh"), ("fwdlap_backward", "u200", "sin"),
+    ("linear_sums", "u50", "tanh"), ("linear_sums", "c20", "tanh"),
+    ("linear_sums", "u200", "tanh"), ("linear_sums", "v100", "tanh"),
+    ("linear_seeded", "u50", "tanh"), ("linear_seeded", "c20", "tanh"),
+    ("linear_seeded", "u200", "tanh"), ("linear_seeded", "v100", "tanh"),
+    ("quad_sums", "u50", "tanh"), ("quad_sums", "u200", "sin"),
+    ("quad_seeded", "u50", "tanh"), ("quad_seeded", "u200", "sin"),
+)
+E1_KERNELS = ("fused_linear_residual", "fwdlap_forward", "fwdlap_backward", "linear_sums",
+              "linear_seeded", "quad_sums", "quad_seeded")
+E1_WIDE = (1, 130, 256, 1)     # a ragged wide net: a layer of 130 (padded to 132) and 256
+# the Adam paths' epochs, cut (PERF.md section 4) so that the group's training
+# stays near 150 s beside the two full-length L-BFGS rows
+E1_EPOCHS = 300                # of 3000 (ipw1d) and 10000 (qho1d)
+E1_WAN_EPOCHS = 120            # of 3000 (ipw1d WAN) and 30000 (qho1d WAN)
+
+
+def e1_case(kind, layers, act, N, seed, dev):
+    """One of E1_KERNELS at d = 1 over N random points (the WAN rows without
+    the Laplacian stream, as the weak form runs them)."""
+    if kind == "fused_linear_residual":
+        return Case(kind, N, 1, layers, act, seed=seed, dev=dev)
+    if kind == "fwdlap_backward":
+        return EigenCase(kind, N, layers, act, seed=seed, dev=dev)
+    return WanCase(kind, N, layers, act, seed=seed, dev=dev)
+
+
+def phase_eigen1d_kernels(dev):
+    """Rows 1, 4, 5 and 7-10 at d = 1 on the 1D paths' nets (E1_CASES), at
+    1000 points and 1007 (a multiple of no tile), and on the ragged wide net
+    E1_WIDE, against their float64 plain versions (:func:`hold`: the bars of
+    the earlier kernel phases, two launches bitwise equal)."""
+    rows, max_err = [], {}
+    cases = [(kind, E1_NETS[net], net, act) for kind, net, act in E1_CASES]
+    cases += [(kind, E1_WIDE, "wide", "tanh") for kind in E1_KERNELS]
+    for i, (kind, layers, net, act) in enumerate(cases):
+        for N in ((E1_N, E1_N + 7) if net != "wide" else (E1_N + 7,)):
+            case = e1_case(kind, layers, act, N, seed=700 + i, dev=dev)
+            row = dict(hold(case), net=net, act=act)
+            rows.append(row)
+            max_err[kind] = max(max_err.get(kind, 0.0), row["max_abs_err"])
+            del case
+    torch.cuda.empty_cache()
+    emit({"phase": "eigen1d_kernels", "tol": 1e-5, "rows": rows})
+    if not all(r["ok"] for r in rows):
+        raise SystemExit("1D eigenproblem kernel vs plain comparison failed")
+    return max_err
+
+
+def phase_eigen1d_path():
+    """The 1D entry points at their default nets and 1000-point grids (cuts
+    in PERF.md section 4), each route from one seed:
+
+    * ``train_ipw_1d(n=3, technique='FN')``, E1_EPOCHS of its 3000 epochs:
+      PINN on 'torch', 'kernel' and 'fused', DRM on 'torch' and 'fused';
+    * ``train_ipw_1d_wan(technique='FN')``, E1_WAN_EPOCHS of its 3000,
+      'torch' and 'fused';
+    * ``train_qho_1d(n=1, technique='FN')`` on u200, E1_EPOCHS of its 10000
+      epochs: PINN on three routes, DRM on two;
+    * the L-BFGS rows of ACCEPTANCE.json at full length (3000 iterations,
+      ``lbfgs_mode='replace'``): qho1d_n0_drm_fn_lbfgs on 'fused',
+      qho1d_n2_pinn_fn_lbfgs on 'kernel';
+    * ``train_qho_1d_wan(n=0, technique='OG', minimax='extragradient',
+      v_lr=2e-3)`` (the qho1d_n0_wan_og_trainE schedule) for E1_WAN_EPOCHS of
+      its 30000 epochs on 'torch' and 'fused';
+    * ``train_ipw_2d(LBFGS=True)`` (state (3, 3), FN, weights {'data': 1e4},
+      the default nets and 40000 grid points): 100 epochs on 'fused' and the
+      500-iteration polish.
+
+    Gates: the kernel routes start as 'torch' does (first total within rtol
+    1e-4, the first 10 within 5e-2); PINN best MSE <= max(2 x torch, 1e-3);
+    DRM and WAN best eval below the first, every value finite; the L-BFGS
+    rows' best MSE <= 1e-5 (ACCEPTANCE.json's bar); exact launch counts per
+    step, epoch or evaluation."""
+    from nnpde_tpu_torch.kernels import LAUNCHES, reset_launches
+    from nnpde_tpu_torch.problems import (IPW1DConfig, IPW1DWanConfig, IPW2DConfig,
+                                          QHO1DConfig, QHO1DWanConfig, train_ipw_1d,
+                                          train_ipw_1d_wan, train_ipw_2d, train_qho_1d,
+                                          train_qho_1d_wan)
+
+    for cfg, net in ((IPW1DConfig(), "u50"), (IPW1DWanConfig(), "u50"),
+                     (QHO1DConfig(), "u200"), (QHO1DWanConfig(), "u200")):
+        if tuple(cfg.layers) != E1_NETS[net] or cfg.grid_n != E1_N:
+            raise SystemExit(f"{type(cfg).__name__}'s defaults are not the full-width net")
+
+    def run(fn, cfg):
+        reset_launches()
+        t0 = time.time()
+        out = fn(cfg)
+        return out, {k: v for k, v in LAUNCHES.items() if v}, time.time() - t0
+
+    def finite(out):
+        return all(np.all(np.isfinite(v)) for v in out["history"].values())
+
+    report, launches, ok = {"phase": "eigen1d_path", "grid_points": E1_N}, {}, True
+    t_group = time.time()
+    # ---- PINN and DRM, Adam, the routes from one seed
+    per_step = {"PINN": {"torch": {}, "kernel": {"fwdlap_forward": 1, "fwdlap_backward": 1},
+                         "fused": {"fused_linear_residual": 1}},
+                "DRM": {"torch": {}, "fused": {"quad_sums": 1, "quad_seeded": 1}}}
+    for entry, fn, cfg_cls, kw, epochs, cut_from in (
+            ("ipw1d_n3_fn", train_ipw_1d, IPW1DConfig, dict(n=3, technique="FN"), E1_EPOCHS,
+             3000),
+            ("qho1d_n1_fn", train_qho_1d, QHO1DConfig, dict(n=1, technique="FN"), E1_EPOCHS,
+             10000)):
+        for method in ("PINN", "DRM"):
+            runs = {impl: run(fn, cfg_cls(method=method, jet_impl=impl, epochs=epochs, **kw))
+                    for impl in per_step[method]}
+            ref = runs["torch"][0]
+            rows = {}
+            for impl, (out, counts, wall) in runs.items():
+                first, first10 = _first_band(ref, out)
+                want = {k: n * epochs for k, n in per_step[method][impl].items()}
+                row = {"epochs": epochs, "cut_from": cut_from, "best_mse": out["L2_error"],
+                       "min_epoch": out["min_epoch"], "mse_first": float(out["history"]["l2"][0]),
+                       "wall_s": wall, "steps_per_s": out["result"].timing["steps_per_s"],
+                       "launches": counts, "total0_rel": first, "first10_max_rel": first10}
+                good = (finite(out) and first <= 1e-4 and first10 <= 5e-2 and counts == want)
+                if method == "PINN":
+                    good = good and out["L2_error"] <= max(2.0 * ref["L2_error"], 1e-3)
+                else:
+                    good = good and out["L2_error"] < out["history"]["l2"][0]
+                row["ok"] = bool(good)
+                ok = ok and row["ok"]
+                rows[impl] = row
+                for k, v in counts.items():
+                    launches[k] = launches.get(k, 0) + v
+            report[f"{entry}_{method.lower()}"] = rows
+    # ---- WAN: the well's FN table, the oscillator's trainable E
+    for entry, fn, cfg, per_epoch in (
+            ("ipw1d_wan_fn", train_ipw_1d_wan, dict(technique="FN", epochs=E1_WAN_EPOCHS),
+             {"fwdlap_forward": 2, "linear_sums": 6, "linear_seeded": 6}),
+            ("qho1d_n0_wan_og_trainE", train_qho_1d_wan,
+             dict(n=0, technique="OG", epochs=E1_WAN_EPOCHS, minimax="extragradient", v_lr=2e-3,
+                  lr_schedule="cosine", lr_decay_steps=15000),
+             {"fwdlap_forward": 4, "linear_sums": 8, "linear_seeded": 8})):
+        cls = IPW1DWanConfig if entry.startswith("ipw") else QHO1DWanConfig
+        (wt, ct, wall_t), (wf, cf, wall_f) = (run(fn, cls(jet_impl=impl, **cfg))
+                                              for impl in ("torch", "fused"))
+        first, first10 = _first_band(wt, wf)
+        want = {k: n * cfg["epochs"] for k, n in per_epoch.items()}
+        row = {"epochs": cfg["epochs"], "cut_from": 30000 if "trainE" in entry else 3000,
+               "total0_rel": first, "first10_max_rel": first10,
+               "best_mse_torch": wt["L2_error"], "best_mse_fused": wf["L2_error"],
+               "mse_first": float(wt["history"]["l2"][0]),
+               "epochs_per_s_torch": wt["result"].timing["steps_per_s"],
+               "epochs_per_s_fused": wf["result"].timing["steps_per_s"],
+               "wall_s_torch": wall_t, "wall_s_fused": wall_f, "launches": cf,
+               "per_epoch": per_epoch}
+        if "E_est" in wf:
+            row.update(E_est_fused=wf["E_est"], E_rayleigh_fused=wf["E_rayleigh"],
+                       E_est_torch=wt["E_est"], E_exact=wf["E_exact"])
+        row["ok"] = bool(finite(wt) and finite(wf) and first <= 1e-4 and first10 <= 5e-2
+                         and all(r["L2_error"] < r["history"]["l2"][0] for r in (wt, wf))
+                         and ct == {} and cf == want)
+        ok = ok and row["ok"]
+        report[entry] = row
+        for k, v in cf.items():
+            launches[k] = launches.get(k, 0) + v
+    # ---- the L-BFGS rows at full length (L-BFGS in place of Adam)
+    for entry, impl, method, n, kern in (
+            ("qho1d_n0_drm_fn_lbfgs", "fused", "DRM", 0, ("quad_sums", "quad_seeded")),
+            ("qho1d_n2_pinn_fn_lbfgs", "kernel", "PINN", 2,
+             ("fwdlap_forward", "fwdlap_backward"))):
+        out, counts, wall = run(train_qho_1d, QHO1DConfig(
+            n=n, method=method, technique="FN", epochs=0, LBFGS=True, lbfgs_mode="replace",
+            lbfgs_iters=3000, jet_impl=impl))
+        t = out["result"].timing
+        # one value and gradient per line-search evaluation and at the start,
+        # and the loss alone once more where the fit converged before 3000
+        done = int(t["iterations"] < 3000)
+        want = {kern[0]: 1 + t["evaluations"] + done, kern[1]: 1 + t["evaluations"]}
+        row = {"iterations": t["iterations"], "evaluations": t["evaluations"],
+               "host_syncs": t["host_syncs"],
+               "host_syncs_per_iteration": t["host_syncs"] / max(t["iterations"], 1),
+               "best_mse": out["L2_error"], "best_iteration": out["min_epoch"],
+               "acceptance_best_mse": {"qho1d_n0_drm_fn_lbfgs": 2.868810050626891e-11,
+                                       "qho1d_n2_pinn_fn_lbfgs": 1.454312403836866e-08}[entry],
+               "wall_s": wall, "iterations_per_s": t["steps_per_s"], "launches": counts}
+        row["ok"] = bool(finite(out) and out["L2_error"] <= 1e-5 and counts == want
+                         and out["history"]["total"].shape == (3000,))
+        ok = ok and row["ok"]
+        report[entry] = row
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    # ---- train_ipw_2d's polish after Adam
+    out, counts, wall = run(train_ipw_2d, IPW2DConfig(
+        nx=3, ny=3, technique="FN", method="PINN", weights={"data": 1e4}, epochs=100,
+        chunk=1000, LBFGS=True, jet_impl="fused"))
+    adam_best = float(np.min(out["history"]["l2"]))
+    row = {"epochs": 100, "polish_iterations": 500, "adam_best_mse": adam_best,
+           "best_mse": out["L2_error"], "rel_l2": out["rel_l2"], "best_epoch": out["min_epoch"],
+           "wall_s": wall, "launches": counts}
+    # the polish (on the torch jet, as JAX's 'pallas-fused' polishes on its
+    # XLA jet) must improve on Adam's best: it becomes the best at epoch 100
+    row["ok"] = bool(finite(out) and out["min_epoch"] == 100 and out["L2_error"] < adam_best
+                     and counts == {"fused_linear_residual": 100})
+    ok = ok and row["ok"]
+    report["ipw2d_n33_pinn_fn_lbfgs_polish"] = row
+    report["training_s"] = time.time() - t_group
+    report["ok"] = bool(ok)
+    emit(report)
+    if not ok:
+        raise SystemExit("1D eigenproblem path check failed")
+    rates = {k: {impl: r["steps_per_s"] for impl, r in v.items()}
+             for k, v in report.items() if k.endswith(("_pinn", "_drm"))}
+    rates.update({k: {"torch": report[k]["epochs_per_s_torch"],
+                      "fused": report[k]["epochs_per_s_fused"]}
+                  for k in ("ipw1d_wan_fn", "qho1d_n0_wan_og_trainE")})
+    rates.update({k: report[k]["iterations_per_s"]
+                  for k in ("qho1d_n0_drm_fn_lbfgs", "qho1d_n2_pinn_fn_lbfgs")})
+    return launches, rates
+
+
+def e1_plan(case, N, dev):
+    """The launch shape the wrapper of this case's kernel takes at N."""
+    if case.kind in ("fwdlap_forward", "linear_sums", "quad_sums"):
+        return pass_a_plan(case.kind, case.layers, 0, N, dev)
+    if case.kind.endswith("seeded"):
+        return quotient_plan(case)
+    return fused_plan(case.kind, case.layers, N, dev)
+
+
+def phase_eigen1d_timing(dev, only=None):
+    """Rows 1, 4, 5 and 7-10 on the 1D paths' nets (E1_CASES) at the paths'
+    1000 points and at 262144: wrapper ms, device ms, plan, bound, and the
+    plain version's ms."""
+    rows = []
+    for kind, net, act in E1_CASES:
+        if not timed(kind, only):
+            continue
+        for N in (E1_N, 262144):
+            case = e1_case(kind, E1_NETS[net], act, N, seed=19, dev=dev)
+            ms = time_ms(case.kernel)
+            flop, nbytes = case.flops(), case.bytes()
+            rows.append({"kernel": kind, "net": net, "act": act, "d": 1, "N": N,
+                         "plan": e1_plan(case, N, dev), "ms": ms,
+                         "device_ms": device_ms(case.kernel),
+                         "plain_ms": time_ms(lambda: case.plain(torch.float32), warmup=2,
+                                             reps=7),
+                         "bound_ms": case.bound_ms(),
+                         "bound_by": ("operations" if flop / FP32_PEAK >= nbytes / HBM_RATE
+                                      else "bytes"),
+                         "flop": flop, "bytes": nbytes, "gflops": flop / (ms * 1e-3) / 1e9})
+            del case
+            torch.cuda.empty_cache()
+    emit({"phase": "eigen1d_timing", "rows": rows})
+    return rows
+
+
+def phase_graph_trace(dev):
+    """Rows 9 and 10 on u200 captured into one CUDA graph as the L-BFGS rows
+    capture their evaluations (``_cuda.graph``) and replayed once under
+    ``torch.profiler``: the kernels the device ran, by name, beside the
+    launches the replay adds to the counts (which the L-BFGS rows' gate
+    reads).  Reported, not gated: the profiler's device trace is a second
+    witness where the card's tracing works."""
+    from nnpde_tpu_torch.kernels import _cuda
+
+    cases = [e1_case(kind, E1_NETS["u200"], "sin", E1_N, seed=41, dev=dev)
+             for kind in ("quad_sums", "quad_seeded")]
+
+    def evaluation():
+        return [case.kernel() for case in cases]
+
+    evaluation()                       # plans, builds and workspaces outside the capture
+    torch.cuda.synchronize()
+    g = _cuda.graph(evaluation)
+    before = dict(_cuda.LAUNCHES)
+    row = {"phase": "graph_trace", "graph_counts": dict(g.counts)}
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            g.replay()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+        row["traced_kernels"] = {k: sum(k in n for n in names) for k in g.counts}
+        row["traced_device_events"] = len(names)
+    except Exception as exc:            # the card's tracing, not the kernels, failed
+        g.replay()
+        torch.cuda.synchronize()
+        row["traced_kernels"], row["trace_error"] = None, repr(exc)[:300]
+    row["counted"] = {k: _cuda.LAUNCHES[k] - before.get(k, 0) for k in g.counts}
+    emit(row)
+    return row
+
+
+# The design that reads the hidden weights from device memory (DES_DEVW)
+# against the plans' own choice on the 1D paths' widest nets, u200 and v100,
+# and on E1_WIDE (where it is the only fit): the design's own plan and each
+# of its tiers at DEVW_TILES
+DEVW_CASES = tuple(c for i, c in enumerate(E1_CASES) if c[1] in ("u200", "v100")
+                   and all(e[:2] != c[:2] for e in E1_CASES[:i]))
+DEVW_TILES = (8, 12, 16, 24)
+
+
+def devw_plans(case, N, dev):
+    """The wrapper's plan for this case at N, then the DES_DEVW plans that
+    fit (the design's own, each device tier at DEVW_TILES), without
+    repeats."""
+    from nnpde_tpu_torch.kernels import _cuda
+    from nnpde_tpu_torch.kernels import fused_quotient as fq
+    from nnpde_tpu_torch.kernels import fused_step as fs
+    from nnpde_tpu_torch.kernels import fwdlap_cuda as fc
+
+    kind, layers, sms = case.kind, case.layers, _cuda.sm_count(dev)
+    seeded = kind.endswith("seeded")
+    devw = _cuda.DES_DEVW if seeded else _cuda.DES_PLANNED | _cuda.DES_DEVW
+
+    def plan(**pin):
+        if kind == "fused_linear_residual":
+            return fs.plan(kind, layers, **pin)
+        if kind == "fwdlap_backward":
+            return fc.backward_plan(layers, **pin)
+        if kind == "fwdlap_forward":
+            return fc.forward_plan(layers, N=N, sms=sms, **pin)
+        return fq.plan(kind, layers, case.lap, **pin,
+                       **({} if seeded else {"N": N, "sms": sms}))
+
+    plans = [plan()]
+    tiers = ("gradient-device", "device") if seeded else ("device",)
+    for pin in [{}] + [{"T": T, "tier": t} for t in tiers for T in DEVW_TILES]:
+        try:
+            pl = plan(design=devw, **pin)
+        except ValueError:
+            continue
+        if pl not in plans:
+            plans.append(pl)
+    return plans
+
+
+def pinned_case(case, pl):
+    """``case`` with its kernel launched on the plan ``pl`` (the form
+    :func:`hold` reads)."""
+    from nnpde_tpu_torch.kernels import fused_quotient as fq
+    from nnpde_tpu_torch.kernels import fused_step as fs
+    from nnpde_tpu_torch.kernels import fwdlap_cuda as fc
+
+    kind, p, X, act = case.kind, case.params, case.X, case.act
+    if kind == "fused_linear_residual":
+        def run():
+            dWs, dbs, sums = fs._unflatten(p, fs._launch(kind, p, X, case.coef, act, pl=pl))
+            return sums[0] / case.N, None, fs._scaled_grads(p, dWs, dbs, sums, 2.0 / case.N)
+    elif kind == "fwdlap_backward":
+        def run():
+            dWs, dbs = fc.fwdlap_backward(p, X, case.ct, act, pl=pl)
+            return torch.cat([t.reshape(-1) for pair in zip(dWs, dbs) for t in pair])
+    elif kind == "fwdlap_forward":
+        def run():
+            return fc.fwdlap_forward(p, X, act, pl=pl)
+    else:
+        def run():
+            return fq._launch(kind, p, X, case.coef, case.scal, act, case.lap, pl=pl)
+    case.kernel = run
+    return case
+
+
+def phase_devw_sweep(dev):
+    """DEVW_CASES at the paths' 1000 points and at 262144, and rows 1, 4, 5
+    and 7-10 on E1_WIDE at 262144: the wrapper's plan and the DES_DEVW plans
+    (:func:`devw_plans`), each held to its float64 plain version by
+    :func:`hold` and timed as device time.  One JSON line per launch shape;
+    the wrapper's own choice carries ``"chosen": true``."""
+    cases = [(kind, E1_NETS[net], net, act, N) for kind, net, act in DEVW_CASES
+             for N in (E1_N, 262144)]
+    cases += [(kind, E1_WIDE, "wide", "tanh", 262144) for kind in E1_KERNELS]
+    ok = True
+    for kind, layers, net, act, N in cases:
+        case = e1_case(kind, layers, act, N, seed=31, dev=dev)
+        plans = devw_plans(case, N, dev)
+        for pl in plans:
+            pinned_case(case, pl)
+            row = dict(hold(case), net=net, act=act, chosen=pl == plans[0],
+                       device_ms=device_ms(case.kernel), bound_ms=case.bound_ms())
+            row.update(plan_row(kind, layers, case.d + (2 if kind.startswith("fwdlap") or
+                                                        kind == "fused_linear_residual"
+                                                        else 1 + case.lap),
+                                pl, N, dev))
+            ok = ok and row["ok"]
+            emit(dict(row, sweep="devw"))
+        del case
+        torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("devw sweep: a launch shape missed its bar")
+
+
+GROUPS = ("kernels", "wan", "main", "eigen", "ipw3d", "neumann", "eigen1d", "timing",
+          "precision")
 
 
 def main():
@@ -2631,9 +3060,9 @@ def main():
     if only is not None and want != {"timing"}:
         raise SystemExit("--rows= filters the timing group only: chip_smoke.py timing "
                          "--rows=KERNEL[,KERNEL...]")
-    if not want <= set(GROUPS) | {"sweep", "mma_sweep", "mma_depth"}:
+    if not want <= set(GROUPS) | {"sweep", "mma_sweep", "mma_depth", "devw_sweep"}:
         raise SystemExit(f"unknown phase group in {sorted(want)}; choose from "
-                         f"{GROUPS + ('sweep', 'mma_sweep', 'mma_depth')}")
+                         f"{GROUPS + ('sweep', 'mma_sweep', 'mma_depth', 'devw_sweep')}")
     full = want == set(GROUPS)
     card = phase_device()
     dev = torch.device("cuda")
@@ -2648,6 +3077,8 @@ def main():
         phase_mma_sweep(dev)
     if "mma_depth" in want:
         phase_mma_depth(dev)
+    if "devw_sweep" in want:
+        phase_devw_sweep(dev)
     max_err, launches, speed = {}, {}, {}
     if "kernels" in want:
         max_err.update(phase_kernels(dev))
@@ -2659,6 +3090,9 @@ def main():
         max_err.update(phase_precision_kernels(dev))
     if "ipw3d" in want:
         for kind, err in phase_ipw3d_kernels(dev).items():
+            max_err[kind] = max(max_err.get(kind, 0.0), err)
+    if "eigen1d" in want:
+        for kind, err in phase_eigen1d_kernels(dev).items():
             max_err[kind] = max(max_err.get(kind, 0.0), err)
     if "main" in want:
         counts, speed["steps_per_s_fused"] = phase_main_path()
@@ -2674,6 +3108,8 @@ def main():
         speed["ipw3d_steps_per_s"] = phase_ipw3d_path()
     if "neumann" in want:
         speed["neumann_steps_per_s"] = phase_neumann_path()
+    if "eigen1d" in want:
+        _, speed["eigen1d"] = phase_eigen1d_path()
     if "precision" in want:
         launches.update(phase_precision_path())
     rows = wan_rows = eigen_rows = prec_rows = []
@@ -2682,6 +3118,10 @@ def main():
         wan_rows = phase_wan_timing(dev, only)
         eigen_rows = phase_eigen_timing(dev, only)
         phase_ipw3d_timing(dev, only)
+    if want & {"timing", "eigen1d"}:
+        phase_eigen1d_timing(dev, only)
+    if "eigen1d" in want:
+        phase_graph_trace(dev)
     if "precision" in want:
         prec_rows = phase_precision_timing(dev)
     elif only is not None and any(name.endswith(".bf16") for name in only):

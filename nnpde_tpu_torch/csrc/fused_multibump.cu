@@ -82,6 +82,7 @@ using namespace fwdlap;
 namespace {
 
 constexpr int MAX_BUMPS = 42;   // the cap of the JAX package (3 Kb <= 128)
+constexpr int MULTI_MAX_WIDTH = 128;   // hidden width the pair takes (ROADMAP.md B6)
 
 struct MArgs {
   Net net;
@@ -310,7 +311,7 @@ int fused_multibump_f32(int seeded, int n_bumps, const float* X, const float* co
                         void* stream) {
   MArgs a;
   if (n_bumps < 1 || n_bumps > MAX_BUMPS || !make_net(0, layers, n_layers, act, &a.net) ||
-      N < 1 || T < 4 || T % 4 != 0 || T > NT / 2 || G < 1 || flags < 0 || flags > 7 ||
+      a.net.wmax > MULTI_MAX_WIDTH || N < 1 || T < 4 || T % 4 != 0 || T > NT / 2 || G < 1 || flags < 0 || flags > 7 ||
       (fold && a.net.S > 4) ||
       (seeded && a.net.K > 2 && scratch == nullptr) ||
       4 * smem_floats(a.net, seeded, T, n_bumps, flags) > smem_bytes)
@@ -351,7 +352,7 @@ int fused_multibump_blocks_per_sm(int seeded, int fold, int smem_bytes, int* blo
 int fused_multibump_smem_bytes(int seeded, int n_bumps, const int* layers, int n_layers,
                                int T, int flags) {
   Net net;
-  if (!make_net(0, layers, n_layers, 0, &net)) return -1;
+  if (!make_net(0, layers, n_layers, 0, &net) || net.wmax > MULTI_MAX_WIDTH) return -1;
   return 4 * smem_floats(net, seeded, T, n_bumps, flags);
 }
 

@@ -82,6 +82,8 @@ struct QArgs {
   float* partial;             // (G, row): sums, or [grads (P) | sum ct_v]
   float* scratch;             // (G, K-2, S, T, wmax), pass B only
   int N, T, n_tiles, row, flags;
+  const float* wd;            // DES_DEVW: the padded hidden weights (pass B: then
+                              // their transposes) in the resident layout
 };
 
 __host__ __device__ inline bool is_seeded(int kind) {
@@ -102,7 +104,7 @@ __host__ __device__ inline int smem_floats(const Net& net, int kind, int T, int 
   const int d = net.d, S = net.S, ld = net.wmax, stage = S * T * ld;
   const int hid = hidden_floats(net);
   int n = 2 * n_sums(kind) * T + (seeded ? 3 : 2) * stage;
-  n += (flags & RES_WEIGHTS) ? hid : ld * ld;
+  n += (flags & DEV_WEIGHTS) ? 0 : (flags & RES_WEIGHTS) ? hid : ld * ld;
   if (seeded && (flags & RES_WEIGHTS)) n += hid;
   if (seeded && (flags & RES_GRAD)) n += (net.P + 1 + 3) & ~3;
   const int nc = d + (is_linear(kind) ? 5 : 3);
@@ -110,11 +112,14 @@ __host__ __device__ inline int smem_floats(const Net& net, int kind, int T, int 
 }
 
 // DES: 0 for the seeded kinds, which run the core's routines
-// (fwdlap_core.cuh) on the shared plan, or the sums kinds' planned design.
+// (fwdlap_core.cuh) on the shared plan, or the sums kinds' planned design;
+// with DES_DEVW the hidden weights are read from A.wd (Flags::DEV_WEIGHTS).
 template <int KIND, bool FOLD, int DES = 0>
 __device__ void quotient_body(const QArgs& A) {
   constexpr bool SEEDED = KIND == LIN_SEEDED || KIND == QUAD_SEEDED;
-  static_assert(SEEDED == (DES == 0), "pass B: the core's routines; pass A: a planned design");
+  static_assert(SEEDED == ((DES & DES_PLANNED) == 0),
+                "pass B: the core's routines; pass A: a planned design");
+  constexpr bool DEVW = (DES & DES_DEVW) != 0;
   constexpr bool LINEAR = KIND == LIN_SUMS || KIND == LIN_SEEDED;
   constexpr int NSUMS = SEEDED ? 1 : (LINEAR ? 4 : 2);
   extern __shared__ __align__(16) float smem[];
@@ -132,7 +137,7 @@ __device__ void quotient_body(const QArgs& A) {
   float* at = bufB + (SEEDED ? 2 : 1) * stage;
   Resident res;
   float* Wsh = at;                        // resident W_k, or one layer's
-  at += res_w ? hid : ld * ld;
+  at += DEVW ? 0 : res_w ? hid : ld * ld;
   float* Wt = nullptr;
   if (SEEDED && res_w) {
     Wt = at;
@@ -155,7 +160,10 @@ __device__ void quotient_body(const QArgs& A) {
   float* scratch =
       SEEDED ? A.scratch + (size_t)blockIdx.x * (net.K - 2) * stage : nullptr;
 
-  if (res_w) {
+  if constexpr (DEVW) {
+    res.W = A.wd;
+    res.Wt = SEEDED ? A.wd + hid : nullptr;
+  } else if (res_w) {
     stage_resident(net, A.params, Wsh, Wt);
     res.W = Wsh;
     res.Wt = Wt;
@@ -286,6 +294,15 @@ template <bool FOLD, int DES, int MINB>
 __global__ void __launch_bounds__(NT, MINB) quad_sums_planned(QArgs a) {
   quotient_body<QUAD_SUMS, FOLD, DES>(a);
 }
+// Pass B with the weights read from device memory (DES_DEVW), without the
+// fold, at two blocks per SM: the plan of a net whose weights do not fit
+// shared memory beside a tile.
+__global__ void __launch_bounds__(NT, 2) linear_seeded_devw(QArgs a) {
+  quotient_body<LIN_SEEDED, false, DES_DEVW>(a);
+}
+__global__ void __launch_bounds__(NT, 2) quad_seeded_devw(QArgs a) {
+  quotient_body<QUAD_SEEDED, false, DES_DEVW>(a);
+}
 
 namespace {
 
@@ -309,6 +326,10 @@ QKernelFn sums_planned(int fold, int des, int minb) {
     case DES_PLANNED | DES_ITEM2:
       return fold ? sums_budget<LIN, true, DES_PLANNED | DES_ITEM2>(minb)
                   : sums_budget<LIN, false, DES_PLANNED | DES_ITEM2>(minb);
+    case DES_PLANNED | DES_DEVW:   // no fold, the two-block budget
+      if (fold || minb != 2) return nullptr;
+      return LIN ? linear_sums_planned<false, DES_PLANNED | DES_DEVW, 2>
+                 : quad_sums_planned<false, DES_PLANNED | DES_DEVW, 2>;
     default: return nullptr;
   }
 }
@@ -320,9 +341,11 @@ QKernelFn qkernel_for(int kind, int fold, int des, int minb) {
   switch (kind) {
     case LIN_SUMS: return sums_planned<true>(fold, des, minb);
     case LIN_SEEDED:
+      if (des == DES_DEVW) return fold ? nullptr : linear_seeded_devw;
       return des ? nullptr : fold ? linear_seeded_kernel<true> : linear_seeded_kernel<false>;
     case QUAD_SUMS: return sums_planned<false>(fold, des, minb);
     case QUAD_SEEDED:
+      if (des == DES_DEVW) return fold ? nullptr : quad_seeded_devw;
       return des ? nullptr : fold ? quad_seeded_kernel<true> : quad_seeded_kernel<false>;
     default: return nullptr;
   }
@@ -338,7 +361,11 @@ extern "C" {
 // the plan's Flags (the sums kinds: RES_WEIGHTS or 0).  fold: the variant
 // with the activation in the products' epilogues (at most 4 streams).  des,
 // minb: the sums kinds' planned design (fwdlap_planned.cuh) and register
-// budget in blocks per SM (2 or 3); the seeded kinds take 0, 0.
+// budget in blocks per SM (2 or 3); the seeded kinds take 0, 0 (DES_DEVW,
+// 0 for their variant reading the weights from device memory).  wd: with
+// DES_DEVW the hidden weights (the seeded kinds: then their transposes),
+// each rounded up to multiples of 4 with zeros, back to back (the resident
+// layout), else ignored.
 // partial (G, row)
 // and out (row) with row = 4 / P+1 / 2 / P+1; scratch (G, K-2, S, T, wmax)
 // for the seeded kinds on a net with more than one hidden layer (else may
@@ -348,14 +375,16 @@ int fused_quotient_f32(int kind, int lap, const float* X, const float* coef,
                        const float* params, const float* scal, const int* layers,
                        int n_layers, int act, int N, int T, int G, int flags, int fold,
                        int des, int minb, float* partial, float* scratch, float* out,
-                       int smem_bytes, void* stream) {
+                       int smem_bytes, void* stream, const float* wd) {
   QKernelFn fn = qkernel_for(kind, fold, des, minb);
   QArgs a;
   if (fn == nullptr || (lap != 0 && !is_linear(kind)) ||
       !make_net(lap != 0 ? 1 : 0, layers, n_layers, act, &a.net) || N < 1 || T < 4 ||
-      T % 4 != 0 || T > NT / 2 || G < 1 || flags < 0 || flags > 7 ||
+      T % 4 != 0 || T > NT / 2 || G < 1 || flags < 0 || flags > 15 ||
       (fold && a.net.S > 4) ||
-      (!is_seeded(kind) && (flags & ~RES_WEIGHTS) != 0) ||
+      (!is_seeded(kind) && (flags & ~(RES_WEIGHTS | DEV_WEIGHTS)) != 0) ||
+      ((flags & DEV_WEIGHTS) != 0) != ((des & DES_DEVW) != 0) ||
+      ((flags & DEV_WEIGHTS) && ((flags & RES_WEIGHTS) || (a.net.K > 2 && wd == nullptr))) ||
       (is_seeded(kind) && (scal == nullptr || (a.net.K > 2 && scratch == nullptr))) ||
       4 * smem_floats(a.net, kind, T, flags) > smem_bytes)
     return (int)cudaErrorInvalidValue;
@@ -370,6 +399,7 @@ int fused_quotient_f32(int kind, int lap, const float* X, const float* coef,
   a.n_tiles = (N + T - 1) / T;
   a.row = is_seeded(kind) ? a.net.P + 1 : (is_linear(kind) ? 4 : 2);
   a.flags = flags;
+  a.wd = wd;
   cudaError_t err = ensure_smem((const void*)fn, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;

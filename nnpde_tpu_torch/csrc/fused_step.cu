@@ -71,7 +71,9 @@ struct PArgs : Args {
 // Mirrored by kernels/fused_step.py::smem_floats.
 __host__ __device__ inline int fused_smem_floats(const Net& net, int T, int flags) {
   const int d = net.d, S = net.S, ld = net.wmax, stage = S * T * ld;
-  int n = 3 * stage + ((flags & RES_WEIGHTS) ? 2 * hidden_floats(net) : ld * ld);
+  int n = 3 * stage + ((flags & DEV_WEIGHTS)   ? 0
+                       : (flags & RES_WEIGHTS) ? 2 * hidden_floats(net)
+                                               : ld * ld);
   if (flags & RES_GRAD) n += (net.P + 3 + 3) & ~3;
   return n + T * d + (d + 2) * T + 3 * T + S * T + NT;
 }
@@ -196,13 +198,16 @@ __device__ void fused_body_p(const PArgs& A) {
   extern __shared__ __align__(16) float smem[];
   const Net& net = A.net;
   const int T = A.T, d = net.d, S = net.S, ld = net.wmax, stage = S * T * ld;
+  // DES_DEVW: A.wt holds the padded W and W^T in the resident layout, read
+  // from device memory; nothing of them in shared memory
+  constexpr bool DEVW = (DES & DES_DEVW) != 0;
   const bool res_w = (A.flags & RES_WEIGHTS) != 0;
-  const int hid = res_w ? hidden_floats(net) : 0;
+  const int hid = res_w || DEVW ? hidden_floats(net) : 0;
   float* bufA = smem;
   float* bufB = bufA + stage;
   float* bufC = bufB + stage;             // pre-activations of one stage
   float* Wsh = bufC + stage;              // one layer's W, or the resident W, W^T
-  float* at = Wsh + (res_w ? 2 * hid : ld * ld);
+  float* at = Wsh + (DEVW ? 0 : res_w ? 2 * hid : ld * ld);
   float* gacc = nullptr;                  // the block's gradient row (RES_GRAD)
   if (A.flags & RES_GRAD) {
     gacc = at;
@@ -217,7 +222,10 @@ __device__ void fused_body_p(const PArgs& A) {
   float* grow = gacc ? gacc : grow_g;     // where the tiles add their dW/db
   float* scratch = A.scratch + (size_t)blockIdx.x * (net.K - 2) * stage;
   Resident res;
-  if (res_w) {
+  if constexpr (DEVW) {
+    res.W = A.wt;
+    res.Wt = A.wt + hid;
+  } else if (res_w) {
     stage_resident_p(net, A.params, A.wt, Wsh, Wsh + hid);
     res.W = Wsh;
     res.Wt = Wsh + hid;
@@ -326,6 +334,9 @@ PKernelFn planned_by(int des) {
   switch (des) {
     case DES_PLANNED: return planned_of<MODE, FOLD, DES_PLANNED>();
     case DES_PLANNED | DES_ITEM2: return planned_of<MODE, FOLD, DES_PLANNED | DES_ITEM2>();
+    case DES_PLANNED | DES_DEVW:
+      if constexpr (FOLD) return nullptr;
+      else return planned_of<MODE, false, DES_PLANNED | DES_DEVW>();
     default: return nullptr;
   }
 }
@@ -363,7 +374,9 @@ int launch(int mode, const float* X, const float* coef, const float* params,
   PArgs a;
   const void* fn = variant_fn(mode, fold, bf16, des);
   bool ok = fn != nullptr && make_net(mode == MODE_DRM ? 0 : 1, layers, n_layers, act, &a.net) &&
-            N >= 1 && G >= 1 && flags >= 0 && flags <= 7;
+            N >= 1 && G >= 1 && flags >= 0 && flags <= 15 &&
+            ((flags & DEV_WEIGHTS) != 0) == ((des & DES_DEVW) != 0) &&
+            !((flags & DEV_WEIGHTS) && (flags & RES_WEIGHTS));
   if (ok && (des & DES_MMA)) {
     mma::Geo g;
     ok = mma::make_geo(a.net, T, &g) && scratch != nullptr &&
@@ -419,7 +432,9 @@ extern "C" {
 // Flags.  smem_bytes must hold the layout for (T, flags).  params: the flat
 // [W0, b0, W1, b1, ...]; wt: the hidden weights' transposes W_1^T, ...,
 // W_{K-2}^T (true sizes, row-major, back to back), read by a planned design
-// (null for the tensor-core design, which reads W_k both ways).  scratch:
+// (null for the tensor-core design, which reads W_k both ways); with
+// DES_DEVW the hidden weights and then their transposes, each rounded up to
+// multiples of 4 with zeros, back to back (the resident layout).  scratch:
 // the saved stages, (G, K-2, S, T, wmax) floats in a planned design, (G,
 // fused_mma_scratch_floats) in the tensor-core one.  Tensors are float32 in
 // every variant.

@@ -62,7 +62,9 @@ struct PBwdArgs : BwdArgs {
 // kernels/fwdlap_cuda.py::backward_smem_floats.
 __host__ __device__ inline int bwd_smem_floats(const Net& net, int T, int flags) {
   const int d = net.d, S = net.S, ld = net.wmax, stage = S * T * ld;
-  int n = 3 * stage + ((flags & RES_WEIGHTS) ? 2 * hidden_floats(net) : ld * ld);
+  int n = 3 * stage + ((flags & DEV_WEIGHTS)   ? 0
+                       : (flags & RES_WEIGHTS) ? 2 * hidden_floats(net)
+                                               : ld * ld);
   if (flags & RES_GRAD) n += (net.P + 3) & ~3;
   return n + T * d + S * T + NT;
 }
@@ -78,13 +80,16 @@ __global__ void __launch_bounds__(NT, 2) fwdlap_backward_planned(PBwdArgs A) {
   extern __shared__ __align__(16) float smem[];
   const Net& net = A.net;
   const int T = A.T, d = net.d, S = net.S, ld = net.wmax, stage = S * T * ld;
+  // DES_DEVW: A.wt holds the padded W and W^T in the resident layout, read
+  // from device memory; nothing of them in shared memory
+  constexpr bool DEVW = (DES & DES_DEVW) != 0;
   const bool res_w = (A.flags & RES_WEIGHTS) != 0;
-  const int hid = res_w ? hidden_floats(net) : 0;
+  const int hid = res_w || DEVW ? hidden_floats(net) : 0;
   float* bufA = smem;
   float* bufB = bufA + stage;
   float* bufC = bufB + stage;             // pre-activations of one stage
   float* Wsh = bufC + stage;              // one layer's W, or the resident W, W^T
-  float* at = Wsh + (res_w ? 2 * hid : ld * ld);
+  float* at = Wsh + (DEVW ? 0 : res_w ? 2 * hid : ld * ld);
   float* gacc = nullptr;                  // the block's gradient row (RES_GRAD)
   if (A.flags & RES_GRAD) {
     gacc = at;
@@ -97,7 +102,10 @@ __global__ void __launch_bounds__(NT, 2) fwdlap_backward_planned(PBwdArgs A) {
   float* grow = gacc ? gacc : grow_g;     // where the tiles add their dW/db
   float* scratch = A.scratch + (size_t)blockIdx.x * (net.K - 2) * stage;
   Resident res;
-  if (res_w) {
+  if constexpr (DEVW) {
+    res.W = A.wt;
+    res.Wt = A.wt + hid;
+  } else if (res_w) {
     stage_resident_p(net, A.params, A.wt, Wsh, Wsh + hid);
     res.W = Wsh;
     res.Wt = Wsh + hid;
@@ -144,6 +152,9 @@ PBwdKernelFn planned_by(int des) {
   switch (des) {
     case DES_PLANNED: return fwdlap_backward_planned<FOLD, DES_PLANNED>;
     case DES_PLANNED | DES_ITEM2: return fwdlap_backward_planned<FOLD, DES_PLANNED | DES_ITEM2>;
+    case DES_PLANNED | DES_DEVW:
+      if constexpr (FOLD) return nullptr;
+      else return fwdlap_backward_planned<false, DES_PLANNED | DES_DEVW>;
     default: return nullptr;
   }
 }
@@ -175,7 +186,9 @@ extern "C" {
 // a planned design, (G, fwdlap_backward_mma_scratch_floats) in the
 // tensor-core one.  wt: the hidden weights' transposes W_1^T, ...,
 // W_{K-2}^T (true sizes, row-major, back to back), read by a planned design
-// (null for the tensor-core design, which reads W_k both ways).
+// (null for the tensor-core design, which reads W_k both ways); with
+// DES_DEVW the hidden weights and then their transposes, each rounded up to
+// multiples of 4 with zeros, back to back (the resident layout).
 int fwdlap_backward_f32(const float* X, const float* ct, const float* params,
                         const float* wt, const int* layers, int n_layers, int act, int N,
                         int T, int G, int fold, int bf16, int des, int flags, float* partial,
@@ -183,7 +196,9 @@ int fwdlap_backward_f32(const float* X, const float* ct, const float* params,
   PBwdArgs a;
   const void* fn = bwd_variant_fn(fold, bf16, des);
   bool ok = fn != nullptr && make_net(1, layers, n_layers, act, &a.net) && N >= 1 &&
-            G >= 1 && flags >= 0 && flags <= 7;
+            G >= 1 && flags >= 0 && flags <= 15 &&
+            ((flags & DEV_WEIGHTS) != 0) == ((des & DES_DEVW) != 0) &&
+            !((flags & DEV_WEIGHTS) && (flags & RES_WEIGHTS));
   if (ok && des == DES_MMA) {
     mma::Geo g;
     ok = mma::make_geo(a.net, T, &g) && scratch != nullptr &&

@@ -12,7 +12,10 @@
 // Every linear layer is then one (S*T, w_in) x (w_in, w_out) product over
 // all streams at once (the TPU kernels' concat_streams form).
 //
-// Widths.  Any hidden width from 1 to MAX_WIDTH is taken.  Device memory
+// Widths.  Any hidden width from 1 to MAX_WIDTH (= NT) is taken: the
+// elementwise walks (UnitWalk), the last layer's dW split (NT / width
+// threads per column) and Net::ntq need NT / width >= 1; what a wide net
+// costs is shared memory (the launch plans, kernels/_plan.py).  Device memory
 // keeps the true sizes (net.w: the parameter vector, the gradient rows);
 // shared memory holds every hidden layer rounded up to a multiple of 4
 // (net.wp, and wmax is the widest rounded width), the extra rows and
@@ -51,6 +54,10 @@
 // shared memory for the block's life (struct Resident, filled by
 // stage_resident); with the default, all null, the weights of one layer are
 // staged per tile (cp.async forward, a transposed copy for the backward).
+// Where one layer's weights do not fit shared memory beside a tile (a
+// 256 x 256 layer is 256 KB), Resident points at a padded copy of them in
+// device memory in the resident layout, and the products read them from
+// there through the caches (Flags::DEV_WEIGHTS, the kernels' DES_DEVW).
 // Separately, `grow`, where the reverse sweep adds dW/db, may be the block's
 // row of the partial buffer in device memory (a read-modify-write of P
 // floats per tile) or a row of shared memory that the kernel writes out once
@@ -80,7 +87,7 @@ namespace fwdlap {
 constexpr int NT = 256;          // threads per block
 constexpr int MAX_LAYERS = 16;   // weight matrices
 constexpr int MAX_DIM = 16;      // input dimension
-constexpr int MAX_WIDTH = 128;   // hidden width
+constexpr int MAX_WIDTH = NT;    // hidden width (header note)
 
 enum Act { ACT_SIN = 0, ACT_TANH = 1, ACT_GELU = 2 };
 
@@ -108,6 +115,9 @@ enum Flags {
   NARROW = 2,        // pass B: gradient products with few entries dealt by
                      // rows to groups of lanes (accum_dW)
   RES_GRAD = 4,      // pass B: the block's gradient row
+  DEV_WEIGHTS = 8,   // no weights in shared memory: the products read the
+                     // hidden weights (and transposes) from device memory,
+                     // a padded copy in the resident layout (design DES_DEVW)
 };
 
 // What a kernel keeps in shared memory for the block's whole life, where the

@@ -63,6 +63,7 @@ struct FwdArgs {
   float* out;                 // (N, S) rows [value, grad.., lap]; or (S, N)
   int N, T, n_tiles;
   int flags;                  // the plan's Flags
+  const float* wd;            // DES_DEVW: the padded hidden weights (resident layout)
 };
 
 // Shared-memory floats of one block for (T, flags): the planned kernel's
@@ -70,7 +71,9 @@ struct FwdArgs {
 // kernels/fwdlap_cuda.py::forward_smem_floats.
 __host__ __device__ inline int fwd_smem_floats(const Net& net, int T, int flags) {
   const int ld = net.wmax;
-  const int n = 2 * net.S * T * ld + ((flags & RES_WEIGHTS) ? hidden_floats(net) : ld * ld);
+  const int n = 2 * net.S * T * ld + ((flags & DEV_WEIGHTS)   ? 0
+                                      : (flags & RES_WEIGHTS) ? hidden_floats(net)
+                                                              : ld * ld);
   return n + T * net.d + net.S * T;
 }
 
@@ -87,16 +90,19 @@ __global__ void __launch_bounds__(NT, MINB) fwdlap_forward_planned(FwdArgs A) {
   extern __shared__ __align__(16) float smem[];
   const Net& net = A.net;
   const int T = A.T, d = net.d, S = net.S, ld = net.wmax;
+  constexpr bool DEVW = (DES & DES_DEVW) != 0;   // the weights read from A.wd
   const bool res_w = (A.flags & RES_WEIGHTS) != 0;
   float* bufA = smem;
   float* bufB = bufA + S * T * ld;
   float* Wsh = bufB + S * T * ld;         // one layer's W, or the resident W
-  float* xs = Wsh + (res_w ? hidden_floats(net) : ld * ld);
+  float* xs = Wsh + (DEVW ? 0 : res_w ? hidden_floats(net) : ld * ld);
   float* proj = xs + T * d;               // projected streams, S x T
   const float* wlast = A.params + net.off[net.K - 1];
   const float blast = wlast[net.w[net.K - 1]];
   Resident res;
-  if (res_w) {
+  if constexpr (DEVW) {
+    res.W = A.wd;
+  } else if (res_w) {
     stage_resident(net, A.params, Wsh, nullptr);
     res.W = Wsh;
     copy_wait();
@@ -161,6 +167,10 @@ const void* planned_fn(int fold, int des, int minb) {
     case DES_PLANNED | DES_ITEM2:
       return fold ? (const void*)planned_budget<true, DES_PLANNED | DES_ITEM2, STREAMS>(minb)
                   : (const void*)planned_budget<false, DES_PLANNED | DES_ITEM2, STREAMS>(minb);
+    case DES_PLANNED | DES_DEVW:   // no fold, the two-block budget
+      return fold || minb != 2
+                 ? nullptr
+                 : (const void*)fwdlap_forward_planned<false, DES_PLANNED | DES_DEVW, 2, STREAMS>;
     default: return nullptr;
   }
 }
@@ -188,17 +198,22 @@ extern "C" {
 // products' epilogues (nets with at most 4 streams); bf16: the row
 // kernel's bf16-dot mode, which runs the tensor-core design (des ==
 // DES_MMA) and only it; des: the design (a planned design in fp32, in
-// either layout, or DES_MMA); flags: the plan's Flags (RES_WEIGHTS or 0);
-// minb: the register budget in blocks per SM, its plan's.  smem_bytes must
-// hold the kernel's layout for (T, flags).
+// either layout, or DES_MMA); flags: the plan's Flags (RES_WEIGHTS,
+// DEV_WEIGHTS with DES_DEVW, or 0); minb: the register budget in blocks per
+// SM, its plan's.  smem_bytes must hold the kernel's layout for (T, flags).
+// wd: with DES_DEVW the hidden weights, each rounded up to multiples of 4
+// with zeros, back to back (the resident layout), else ignored.
 int fwdlap_forward_f32(int streams, const float* X, const float* params,
                        const int* layers, int n_layers, int act, int N, int T, int G,
                        int fold, int bf16, int des, int minb, int flags, float* out,
-                       int smem_bytes, void* stream) {
+                       int smem_bytes, void* stream, const float* wd) {
   FwdArgs a;
   const void* fn = fwd_variant_fn(streams, fold, bf16, des, minb);
+  const bool devw = (des & DES_DEVW) != 0;
   bool ok = fn != nullptr && make_net(1, layers, n_layers, act, &a.net) && N >= 1 && G >= 1 &&
-            (flags & ~RES_WEIGHTS) == 0;
+            (flags == 0 || flags == (devw ? DEV_WEIGHTS : RES_WEIGHTS)) &&
+            devw == ((flags & DEV_WEIGHTS) != 0);
+  ok = ok && !(devw && a.net.K > 2 && wd == nullptr);
   if (ok && des == DES_MMA) {
     mma::Geo g;
     ok = mma::make_geo(a.net, T, &g) &&
@@ -215,6 +230,7 @@ int fwdlap_forward_f32(int streams, const float* X, const float* params,
   a.T = T;
   a.n_tiles = (N + T - 1) / T;
   a.flags = flags;
+  a.wd = wd;
   cudaError_t err = ensure_smem(fn, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;

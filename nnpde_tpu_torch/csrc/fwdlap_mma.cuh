@@ -97,7 +97,8 @@ enum Kind {
 };
 
 constexpr int NW = NT / 32;                  // warps per block
-constexpr int KS_MAX = MAX_WIDTH / 16;       // k-steps of the widest product
+constexpr int MMA_MAX_WIDTH = 128;           // hidden width the design takes
+constexpr int KS_MAX = MMA_MAX_WIDTH / 16;   // k-steps of the widest product
 
 __host__ __device__ inline int kp16(int w) { return (w + 15) & ~15; }
 __host__ __device__ inline int np8(int w) { return (w + 7) & ~7; }
@@ -131,7 +132,9 @@ __host__ __device__ inline bool make_geo(const Net& net, int T, Geo* g) {
   g->wq = np8(wt);
   g->nbmax = g->wq / 8;
   g->nblk = g->NPB * g->nbmax;
-  return true;
+  // checked last: the kernels' own call discards the result, so their code
+  // does not depend on it
+  return wt <= MMA_MAX_WIDTH;
 }
 
 // W_k (k = 1..K-2) in shared memory: kp16(w_k) rows of ldw(k) bf16.

@@ -47,8 +47,10 @@ namespace fwdlap {
 
 // The designs (header note): DES_PLANNED marks a planned design, the
 // kernels on this header's routines; DES_ITEM2 is its lever.  Design 0 is
-// the core's kernels.
-enum Design { DES_ITEM2 = 1, DES_PLANNED = 2 };
+// the core's kernels.  DES_DEVW (with either): the hidden weights read
+// from device memory (Flags::DEV_WEIGHTS), for nets whose weights do not
+// fit shared memory beside a tile; compiled without the fold only.
+enum Design { DES_ITEM2 = 1, DES_PLANNED = 2, DES_DEVW = 8 };
 
 // W_k^T's offset in `wt` (the hidden weights' transposes back to back, true
 // sizes): the sum over m = 1..k-1 of w[m] * w[m+1].

@@ -57,10 +57,10 @@ _SIGNATURES = {
     "fused_mma_smem_bytes": [_I, _P, _I, _I, _I],
     "fused_mma_scratch_floats": [_I, _P, _I, _I],
     # fwdlap_forward.cu: streams, X, params, layers, n_layers, act, N, T, G,
-    # fold, bf16, des, minb, flags, out, smem_bytes, stream (minb: a row
-    # kernel's register budget in blocks per SM)
+    # fold, bf16, des, minb, flags, out, smem_bytes, stream, wd (minb: a row
+    # kernel's register budget in blocks per SM; wd: DES_DEVW's weights)
     "fwdlap_forward_f32":
-        [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
+        [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P],
     # streams, fold, bf16, des, minb, smem_bytes, int* blocks
     "fwdlap_forward_blocks_per_sm": [_I, _I, _I, _I, _I, _I, _P],
     # layers, n_layers, T, flags -> bytes (not an error code)
@@ -83,9 +83,11 @@ _SIGNATURES = {
     "fwdlap_backward_mma_scratch_floats": [_P, _I, _I],
     # fused_quotient.cu: kind, lap, X, coef, params, scal, layers, n_layers,
     # act, N, T, G, flags, fold, des, minb, partial, scratch, out, smem_bytes,
-    # stream (des, minb: the sums kinds' design and register budget)
+    # stream, wd (des, minb: the sums kinds' design and register budget,
+    # DES_DEVW for either kind; wd: DES_DEVW's weights)
     "fused_quotient_f32":
-        [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+        [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P,
+         _P],
     # kind, fold, des, minb, smem_bytes, int* blocks
     "fused_quotient_blocks_per_sm": [_I, _I, _I, _I, _I, _P],
     # kind, lap, layers, n_layers, T, flags -> bytes (not an error code)

@@ -36,7 +36,15 @@ LAUNCHES = {
 
 ACTS = {"sin": 0, "tanh": 1, "gelu": 2}
 NT = 256                      # threads per block (fwdlap_core.cuh)
-MAX_LAYERS, MAX_DIM, MAX_WIDTH = 16, 16, 128
+MAX_LAYERS, MAX_DIM = 16, 16
+MAX_WIDTH = 256               # hidden width, the fp32 core (fwdlap_core.cuh: NT)
+MMA_MAX_WIDTH = 128           # the tensor-core design (fwdlap_mma.cuh: KS_MAX = 8)
+WIDE_ITEM = "ROADMAP.md B6"   # widths 129-256 at two blocks per SM, and these kernels
+# The widest hidden layer each kernel takes, by launch name: the fp32 kernels
+# on the core 256, the bf16-dot variants (the tensor-core design) and the
+# K-bump pair 128.
+WIDTH_LIMITS = {name: MMA_MAX_WIDTH if name.endswith(".bf16") or name.startswith("multi_")
+                else MAX_WIDTH for name in LAUNCHES}
 SMEM_MAX = 227 * 1024         # dynamic shared memory one block can get on an H100
 
 _OCCUPANCY = {}
@@ -64,19 +72,29 @@ def on_cuda(X) -> bool:
     return False
 
 
+def check_width(name: str, layers) -> None:
+    """Raise unless kernel ``name`` (a launch name) takes every hidden width
+    of ``layers`` (``WIDTH_LIMITS``)."""
+    limit = WIDTH_LIMITS[name]
+    if not all(1 <= w <= limit for w in layers[1:-1]):
+        wider = f" (widths {limit + 1}-{MAX_WIDTH}: {WIDE_ITEM})" if limit < MAX_WIDTH else ""
+        raise ValueError(f"{name}: the kernel takes hidden widths from 1 to {limit}{wider}; "
+                         f"got layers {list(layers)}")
+
+
 def net_layers(name: str, params, X, activation: str, others=()):
     """The layer sizes ``[d, w1, ..., 1]`` of ``params`` after checking
-    that the kernels take this net, these tensors and this activation."""
+    that kernel ``name`` (a launch name) takes this net, these tensors and
+    this activation."""
     if activation not in ACTS:
         raise ValueError(f"Unknown activation {activation!r}")
     layers = [params[0][0].shape[0]] + [W.shape[1] for W, _ in params]
     N, d = X.shape
-    if not (2 <= len(params) <= MAX_LAYERS and d <= MAX_DIM and layers[-1] == 1
-            and all(1 <= w <= MAX_WIDTH for w in layers[1:-1])):
+    if not (2 <= len(params) <= MAX_LAYERS and d <= MAX_DIM and layers[-1] == 1):
         raise ValueError(
             f"{name}: the CUDA kernels take 2..{MAX_LAYERS} layers, d <= "
-            f"{MAX_DIM}, hidden widths from 1 to {MAX_WIDTH}, and one output; "
-            f"got layers {layers}")
+            f"{MAX_DIM} and one output; got layers {layers}")
+    check_width(name, layers)
     for t in [X, *others, *[t for pair in params for t in pair]]:
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: the CUDA kernels take float32, got {t.dtype}")
@@ -119,6 +137,27 @@ def hidden_transposes(params):
     return torch.cat([W.t().reshape(-1) for W in hidden])
 
 
+def device_weights(params, transposes: bool):
+    """The hidden-to-hidden weights ``W_1 .. W_{K-2}``, each rounded up to
+    multiples of 4 with zero rows and columns (``wp[k] x wp[k+1]``), back to
+    back, and with ``transposes`` their transposes after them in the same
+    way: the resident layout of the kernels' shared memory, in device
+    memory, for the plans that read the weights from there
+    (``DES_DEVW``).  None for a net with one hidden layer."""
+    hidden = [W.detach() for W, _ in params[1:-1]]
+    if not hidden:
+        return None
+
+    def padded(M):
+        r, c = M.shape
+        return torch.nn.functional.pad(M, (0, (-c) % 4, 0, (-r) % 4)).reshape(-1)
+
+    parts = [padded(W) for W in hidden]
+    if transposes:
+        parts += [padded(W.t()) for W in hidden]
+    return torch.cat(parts)
+
+
 def folds(layers, S: int, T: int, points: int = 1) -> bool:
     """Whether a tile of T points runs the kernels' FOLD variant, which
     applies each stage's activation in the epilogue of the product that
@@ -142,7 +181,11 @@ DES_ITEM2 = 1     # two-point items, register tiles of 8 rows x 4 units
 DES_PLANNED = 2   # the planned kernels (shared plan, transposes from device
                   # memory, dW items dealt 4 x 8 to a warp, two blocks per SM)
 DES_MMA = 4       # bf16 mma.sync m16n8k16 products, stream-major fragments
+DES_DEVW = 8      # the hidden weights read from device memory by the products
+                  # (_plan.DEV_WEIGHTS): nets whose weights do not fit shared
+                  # memory beside a tile; 4 x 4 items, no fold
 PLANNED_DESIGNS = (DES_PLANNED, DES_PLANNED | DES_ITEM2)
+FP32_DESIGNS = PLANNED_DESIGNS + (DES_PLANNED | DES_DEVW,)   # what the fp32 kernels take
 
 
 def grid(name: str, query, smem: int, dev: torch.device, n_tiles: int,
@@ -192,6 +235,31 @@ def launch(name: str, fn, *args, dev: torch.device, keep=()) -> None:
     LAUNCHES[name] += 1
     if _CAPTURED is not None:
         _CAPTURED.append((name, fn, args, dev, keep))
+
+
+class graph:
+    """``fn(*static_args)`` captured once into a CUDA graph on the current
+    stream, and replayed: the wrappers' host work (checks, plans,
+    allocation, ``torch.cat``) and every other operation of ``fn`` run once,
+    at the capture, so a replay costs one launch of the host's time.  The
+    capture runs nothing, so its launches are taken off ``LAUNCHES``; every
+    replay counts them again, as :meth:`capture.replay` does.  ``fn`` must
+    make no host sync; its outputs (``self.out``) are overwritten by each
+    replay."""
+
+    def __init__(self, fn, *static_args):
+        before = dict(LAUNCHES)
+        self.g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.g):
+            self.out = fn(*static_args)
+        self.counts = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
+        LAUNCHES.update(before)
+
+    def replay(self):
+        self.g.replay()
+        for name, n in self.counts.items():
+            LAUNCHES[name] += n
+        return self.out
 
 
 class capture:

@@ -34,7 +34,12 @@ than residency (``chip_smoke.py sweep`` on an H100: u50 pass B of the
 quadratic kernel staged at T = 24 against the gradient row on chip at
 T = 16, 0.43 against 0.48 ms at 40000 points); the staged tier steps down to
 16, and with a whole SM to itself to 4.  Pass B on a net whose gradient
-products have few entries deals their rows to groups of lanes (``NARROW``).  Every shape that the wrappers
+products have few entries deals their rows to groups of lanes (``NARROW``).
+Where no tier fits even at 4 points (one layer's weights do not fit beside
+a tile: a 256 x 256 matrix is 256 KB), the kernels that have it take the
+design that reads the weights from device memory (``DEV_WEIGHTS``,
+``_cuda.DES_DEVW``; pass B may still keep its gradient row on chip), at two
+blocks per SM, then one.  Every shape that the wrappers
 accept gets a plan; ``T`` and ``tier`` pin a choice (tests, timing sweeps)
 and raise if it does not fit ``SMEM_MAX``.
 """
@@ -51,9 +56,17 @@ RES_WEIGHTS = 1   # hidden weights; in pass B their transposes too
 NARROW = 2        # pass B: gradient products with few entries dealt by rows to
                   # groups of lanes
 RES_GRAD = 4      # pass B: the block's gradient row
+DEV_WEIGHTS = 8   # none of the weights: the products read them from device
+                  # memory (design _cuda.DES_DEVW), where one layer's weights
+                  # do not fit beside a tile (a 256 x 256 layer is 256 KB)
 T_MAX = 48        # points per tile the plan asks for at most (a multiple of 4;
                   # the kernels take up to NT / 2 = 128): above 48 no measured
                   # shape gained, and smaller tiles balance the SMs better
+
+
+class NoFit(ValueError):
+    """No launch shape of a ladder fits ``SMEM_MAX`` (a pinned one
+    included)."""
 
 
 class Plan(NamedTuple):
@@ -70,11 +83,22 @@ class Plan(NamedTuple):
     blocks: int = 0     # the forward-only kernels: the register budget launched
 
 
-def tiers(seeded: bool):
-    """``(name, flags)`` in the order a plan steps down through them."""
+def tiers(seeded: bool, device: bool = False):
+    """``(name, flags)`` in the order a plan steps down through them;
+    ``device``: the tiers of the design that reads the weights from device
+    memory (``DEV_WEIGHTS``), which a plan takes where no other fits."""
+    if device:
+        if seeded:
+            return (("gradient-device", RES_GRAD | DEV_WEIGHTS), ("device", DEV_WEIGHTS))
+        return (("device", DEV_WEIGHTS),)
     if seeded:
         return (("resident", RES_WEIGHTS | RES_GRAD), ("gradient", RES_GRAD), ("staged", 0))
     return (("resident", RES_WEIGHTS), ("staged", 0))
+
+
+def device_tier(tier) -> bool:
+    """Whether a pinned tier name is one of the device-weights design's."""
+    return tier is not None and tier.endswith("device")
 
 
 def hidden_floats(layers) -> int:
@@ -121,7 +145,7 @@ def tile_for(layers, S: int, rows: int = 4) -> int:
 
 def plan(smem_floats: Callable[[int, int], int], layers, S: int, seeded: bool, *,
          T: int | None = None, tier: str | None = None, what: str = "plan",
-         rows: int = 4, blocks: int = 3) -> Plan:
+         rows: int = 4, blocks: int = 3, device: bool | None = False) -> Plan:
     """The first shape of the ladder above that fits: ``smem_floats(T,
     flags)`` is the kernel's layout, ``S`` its stream count; ``what`` names
     the kernel in the error raised when nothing fits.  ``rows=8`` (the
@@ -130,30 +154,47 @@ def plan(smem_floats: Callable[[int, int], int], layers, S: int, seeded: bool, *
     one step of 4 points before the plan takes fewer blocks: the design
     pays for its larger items with the larger tile.  ``blocks``: the most
     blocks per SM the kernel's register budget allows (its launch bounds);
-    the ladder starts there."""
+    the ladder starts there.  ``device``: the tiers that read the weights
+    from device memory (``DEV_WEIGHTS``; the plan's design ``DES_DEVW``, 4 x
+    4 items, at most two blocks per SM) never (False, the kernels without
+    that design), where nothing else fits (None), or only (True)."""
     pinned = T is not None or tier is not None
     t0 = tile_for(layers, S, rows)
-    for share in ((1,) if pinned else tuple(b for b in (3, 2, 1) if b <= blocks)):
-        budget = _cuda.SMEM_MAX // share - (0 if share == 1 else 1024)
-        floor = 4 if share == 1 else max(16, t0 - 4) if rows == 8 else 16
-        pl = fit(smem_floats, layers, S, seeded, budget, floor, T, tier, rows)
-        if pl is not None:
-            return pl
-    raise ValueError(f"{what}: layers {list(layers)} do not fit {_cuda.SMEM_MAX} B of "
-                     f"shared memory (T={T}, tier={tier})")
+    if device_tier(tier):
+        device = True
+    if not device:
+        for share in ((1,) if pinned else tuple(b for b in (3, 2, 1) if b <= blocks)):
+            budget = _cuda.SMEM_MAX // share - (0 if share == 1 else 1024)
+            floor = 4 if share == 1 else max(16, t0 - 4) if rows == 8 else 16
+            pl = fit(smem_floats, layers, S, seeded, budget, floor, T, tier, rows)
+            if pl is not None:
+                return pl
+    if rows == 4 and device is not False and (device or tier is None):
+        # nothing else fits: the weights from device memory, at two blocks
+        # per SM (its kernels' budget), then one; 4 x 4 items only
+        for share in ((1,) if pinned else (2, 1)):
+            budget = _cuda.SMEM_MAX // share - (0 if share == 1 else 1024)
+            pl = fit(smem_floats, layers, S, seeded, budget, 4 if share == 1 else 16, T,
+                     tier, rows, device=True)
+            if pl is not None:
+                return pl._replace(design=_cuda.DES_DEVW)
+    raise NoFit(f"{what}: layers {list(layers)} do not fit {_cuda.SMEM_MAX} B of "
+                f"shared memory (T={T}, tier={tier})")
 
 
-def fit(smem_floats, layers, S, seeded, budget, staged_floor, T=None, tier=None, rows=4):
+def fit(smem_floats, layers, S, seeded, budget, staged_floor, T=None, tier=None, rows=4,
+        device=False):
     """The first shape within ``budget`` bytes in the step-down order of
     :func:`plan` (a resident tier's tile one step below :func:`tile_for`
-    at most; the staged tier's down to ``staged_floor``), or None."""
+    at most; the staged tier's, and the device tiers', down to
+    ``staged_floor``), or None."""
     narrow = NARROW if seeded and 2 * narrow_items(layers) <= _cuda.NT else 0
-    for name, flags in tiers(seeded):
+    for name, flags in tiers(seeded, device):
         if tier is not None and name != tier:
             continue
         flags |= narrow
         t = tile_for(layers, S, rows) if T is None else T
-        floor = (t if T is not None else staged_floor if name == "staged"
+        floor = (t if T is not None else staged_floor if name in ("staged", "device")
                  else max(16, t - 4))
         while t > floor and 4 * smem_floats(t, flags) > budget:
             t -= 4
@@ -170,6 +211,8 @@ def resident(pl: Plan, seeded: bool):
         out.append("hidden weights")
         if seeded:
             out.append("their transposes")
+    if pl.flags & DEV_WEIGHTS:
+        out.append("no weights (read from device memory)")
     if seeded and pl.flags & RES_GRAD:
         out.append("gradient row")
     return out
@@ -228,19 +271,21 @@ def fold_tile(layers, S: int, points: int) -> int:
 
 
 def check_planned(design, what: str) -> None:
-    """Raise unless ``design`` is None (the plan's own choice) or a planned
-    design (``_cuda.PLANNED_DESIGNS``): what the fp32 jet pair, the fused
-    residual kernels and the quotient sums take."""
-    if design is not None and design not in _cuda.PLANNED_DESIGNS:
+    """Raise unless ``design`` is None (the plan's own choice) or an fp32
+    design (``_cuda.FP32_DESIGNS``: the planned designs and the one that
+    reads the weights from device memory): what the fp32 jet pair, the
+    fused residual kernels and the quotient sums take."""
+    if design is not None and design not in _cuda.FP32_DESIGNS:
         raise ValueError(f"{what}: design {design} is not a planned design "
-                         f"({_cuda.PLANNED_DESIGNS})")
+                         f"({_cuda.FP32_DESIGNS})")
 
 
 def _fit_at(smem_floats, T, share, design, tier=None):
     """The first pass-A tier at tile T that leaves room for ``share`` blocks
-    per SM (1: a block's SMEM_MAX), or None."""
+    per SM (1: a block's SMEM_MAX), or None; ``design`` with ``DES_DEVW``:
+    its tier, the weights in device memory."""
     budget = _cuda.SMEM_MAX if share == 1 else SM_SMEM // share - 1024
-    for name, flags in tiers(False):
+    for name, flags in tiers(False, bool(design & _cuda.DES_DEVW)):
         if tier is not None and name != tier:
             continue
         smem = 4 * smem_floats(T, flags)
@@ -267,14 +312,15 @@ def forward_only(smem_floats: Callable[[int, int], int], layers, S: int, what: s
     at 3 and 2 blocks per SM before the staged one (module note)."""
     check_planned(design, what)
     two = _cuda.DES_PLANNED | _cuda.DES_ITEM2
-    shares = [b for b in (3, 2) if b <= blocks]
-    names = [tier] if tier is not None else [name for name, _ in tiers(False)]
-    if all(w % 4 == 0 for w in layers[1:-1]):    # the share first, then the tier
-        order = [(share, name) for share in shares for name in names]
-    else:                                        # a ragged net: the tier first
-        order = [(share, name) for name in names for share in shares]
 
     def ladder(des):
+        devw = bool(des & _cuda.DES_DEVW)     # its kernels: the two-block budget
+        shares = [b for b in ((2,) if devw else (3, 2)) if b <= blocks]
+        names = [tier] if tier is not None else [name for name, _ in tiers(False, devw)]
+        if all(w % 4 == 0 for w in layers[1:-1]):    # the share first, then the tier
+            order = [(share, name) for share in shares for name in names]
+        else:                                        # a ragged net: the tier first
+            order = [(share, name) for name in names for share in shares]
         t0 = T if T is not None else fold_tile(layers, S, 2 if des & _cuda.DES_ITEM2 else 1)
         for share, name in order:
             pl = _fit_at(smem_floats, t0, share, des, name)
@@ -287,8 +333,11 @@ def forward_only(smem_floats: Callable[[int, int], int], layers, S: int, what: s
                     return pl
         return _fit_at(smem_floats, t0, 1, des, tier) if T is not None else None
 
+    devw = _cuda.DES_PLANNED | _cuda.DES_DEVW
     if design is not None:
-        pl = ladder(design)
+        pl = ladder(design) if (design == devw) == device_tier(tier) or tier is None else None
+    elif device_tier(tier):
+        pl = ladder(devw)
     else:
         pl = ladder(_cuda.DES_PLANNED)
         if T is None and fold_tile(layers, S, 2) > fold_tile(layers, S, 1):
@@ -296,7 +345,11 @@ def forward_only(smem_floats: Callable[[int, int], int], layers, S: int, what: s
             if big is not None and (N is None or -(-N // big.T)
                                     >= ROUNDS_MIN * big.blocks * sms):
                 pl = big
+        if pl is None and tier is None:
+            # nothing else fits: the weights from device memory (4 x 4 items,
+            # the two-block budget)
+            pl = ladder(devw)
     if pl is None:
-        raise ValueError(f"{what}: layers {list(layers)} do not fit {_cuda.SMEM_MAX} B of "
-                         f"shared memory (T={T}, tier={tier}, design={design})")
+        raise NoFit(f"{what}: layers {list(layers)} do not fit {_cuda.SMEM_MAX} B of "
+                    f"shared memory (T={T}, tier={tier}, design={design})")
     return pl

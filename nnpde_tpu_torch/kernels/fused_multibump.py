@@ -138,7 +138,8 @@ def plan(seeded: bool, layers, Kb: int, *, T: int | None = None,
     """The launch shape of one pass for this net and bump count: the shared
     plan of :mod:`._plan` over this kernel's layout (``d + 1`` streams, no
     Laplacian).  ``T`` and ``tier`` pin a choice and raise if it does not
-    fit."""
+    fit; hidden widths above the pair's limit raise (``_cuda.WIDTH_LIMITS``)."""
+    _cuda.check_width("multi_seeded" if seeded else "multi_sums", layers)
     return _plan.plan(lambda t, flags: smem_floats(seeded, layers, t, Kb, flags), layers,
                       layers[0] + 1, seeded, T=T, tier=tier,
                       what=f"multibump plan ({Kb} bumps)")

@@ -175,7 +175,8 @@ def smem_floats(kind: str, layers, T: int, lap: int, flags: int = 0) -> int:
     S, wmax = d + 1 + lap, _cuda.padded_wmax(layers)
     stage, hid = S * T * wmax, _plan.hidden_floats(layers)
     n = 2 * _NSUMS[kind] * T + (3 if seeded else 2) * stage
-    n += hid if flags & _plan.RES_WEIGHTS else wmax * wmax
+    if not flags & _plan.DEV_WEIGHTS:
+        n += hid if flags & _plan.RES_WEIGHTS else wmax * wmax
     if seeded and flags & _plan.RES_WEIGHTS:
         n += hid
     if seeded and flags & _plan.RES_GRAD:
@@ -200,8 +201,12 @@ def plan(kind: str, layers, lap: int = 0, *, T: int | None = None,
         return _plan.forward_only(lambda t, flags: smem_floats(kind, layers, t, lap, flags),
                                   layers, S, f"{kind} plan", N, sms, design=design, T=T,
                                   tier=tier, blocks=blocks)
+    if design not in (None, 0, _cuda.DES_DEVW):
+        raise ValueError(f"{kind} plan: design {design} is not the core's (0) or "
+                         f"{_cuda.DES_DEVW} (the weights from device memory)")
     return _plan.plan(lambda t, flags: smem_floats(kind, layers, t, lap, flags), layers,
-                      S, True, T=T, tier=tier, what=f"{kind} plan")
+                      S, True, T=T, tier=tier, what=f"{kind} plan",
+                      device=None if design is None else bool(design))
 
 
 def _launch(kind: str, params, X, coef, scal, activation: str, lap: int, *,
@@ -244,14 +249,15 @@ def _launch(kind: str, params, X, coef, scal, activation: str, lap: int, *,
         scratch = torch.empty((G, max(K - 2, 1) * S * T * wmax), dtype=torch.float32,
                               device=dev)
     lay = _cuda.layers_arg(layers)
+    wd = (_cuda.device_weights(params, seeded) if pl.design & _cuda.DES_DEVW else None)
     _cuda.launch(kind, lib.fused_quotient_f32, code, lap, X.data_ptr(),
                  coef.data_ptr(), flat.data_ptr(),
                  scal.data_ptr() if seeded else None, ctypes.addressof(lay),
                  len(layers), _cuda.ACTS[activation], N, T, G, pl.flags, fold, pl.design,
                  pl.blocks, partial.data_ptr(),
                  scratch.data_ptr() if seeded else None, out.data_ptr(), pl.smem,
-                 _cuda.stream(dev), dev=dev,
-                 keep=(X, coef, flat, scal, lay, partial, scratch, out))
+                 _cuda.stream(dev), None if wd is None else wd.data_ptr(), dev=dev,
+                 keep=(X, coef, flat, wd, scal, lay, partial, scratch, out))
     return out
 
 

@@ -221,7 +221,8 @@ def smem_floats(kind: str, layers, T: int, flags: int = 0) -> int:
     d = layers[0]
     S, wmax = _streams(kind, d), _cuda.padded_wmax(layers)
     n = 3 * S * T * wmax
-    n += 2 * _plan.hidden_floats(layers) if flags & _plan.RES_WEIGHTS else wmax * wmax
+    if not flags & _plan.DEV_WEIGHTS:
+        n += 2 * _plan.hidden_floats(layers) if flags & _plan.RES_WEIGHTS else wmax * wmax
     if flags & _plan.RES_GRAD:
         n += (_cuda.n_params(layers) + 3 + 3) // 4 * 4
     return n + T * d + (d + 2) * T + 3 * T + S * T + _cuda.NT
@@ -236,21 +237,28 @@ def planned(smem_floats_of, layers, S: int, what: str, design: int | None = None
     blocks per SM; any other design raises.  ``design=None`` is the fp32
     wrappers' choice: two-point items where their one-wave tile fits two
     blocks per SM as it is; where it only fits a step below (u64: 28 points,
-    224 of 256 items), the planned 4 x 4 items (``chip_smoke.py sweep``).
-    ``T`` and ``tier`` pin a choice and raise if it does not fit."""
+    224 of 256 items), the planned 4 x 4 items (``chip_smoke.py sweep``);
+    where no tile with the weights on chip fits, the 4 x 4 items reading the
+    weights from device memory (``DES_DEVW``).  ``T`` and ``tier`` pin a
+    choice and raise if it does not fit."""
     _plan.check_planned(design, what)
 
-    def ladder(des):
+    def ladder(des, device=False):
         pl = _plan.plan(smem_floats_of, layers, S, True, T=T, tier=tier, what=what,
-                        rows=8 if des & _cuda.DES_ITEM2 else 4, blocks=PLANNED_BLOCKS)
-        return pl._replace(design=des)
+                        rows=8 if des & _cuda.DES_ITEM2 else 4, blocks=PLANNED_BLOCKS,
+                        device=True if des & _cuda.DES_DEVW else device)
+        return pl._replace(design=des | (pl.design & _cuda.DES_DEVW))
 
     if design is not None:
         return ladder(design)
-    two = ladder(_cuda.DES_PLANNED | _cuda.DES_ITEM2)
-    if T is not None or two.T == _plan.tile_for(layers, S, rows=8):
+    try:
+        two = ladder(_cuda.DES_PLANNED | _cuda.DES_ITEM2)
+    except _plan.NoFit:
+        two = None
+    if two is not None and (T is not None or two.T == _plan.tile_for(layers, S, rows=8)):
         return two
-    return ladder(_cuda.DES_PLANNED)
+    # the 4 x 4 items, and where nothing fits the weights from device memory
+    return ladder(_cuda.DES_PLANNED, device=None)
 
 
 def plan(kind: str, layers, design: int | None = None, *, T: int | None = None,
@@ -378,6 +386,7 @@ def mma_plan(kind: str, layers, *, T: int | None = None, tier: str | None = None
     ``T``, ``tier`` and ``blocks`` pin a choice; what fits nothing raises,
     naming the shape."""
     _check_mma_kind(kind)
+    _cuda.check_width(kind + ".bf16", layers)
     fwd = kind == "fwdlap_forward"
     shares = MMA_SHARES.get(kind, (2, 1))
     if blocks is not None and blocks not in shares:
@@ -409,7 +418,8 @@ def variant(layers, S: int, pl: _plan.Plan) -> tuple[int, int]:
     :func:`._cuda.grid`'s cache."""
     if pl.design == _cuda.DES_MMA:
         return 0, pl.design << 1
-    fold = int(_cuda.folds(layers, S, pl.T, 2 if pl.design & _cuda.DES_ITEM2 else 1))
+    fold = int(_cuda.folds(layers, S, pl.T, 2 if pl.design & _cuda.DES_ITEM2 else 1)
+               and not pl.design & _cuda.DES_DEVW)     # compiled without the fold
     return fold, fold | pl.design << 1
 
 
@@ -423,7 +433,8 @@ def _launch(kind: str, params, X, coef, activation: str, analytic=None,
     from . import _build
 
     lib = _build.load()
-    layers = _cuda.net_layers(kind, params, X, activation,
+    name = variant_name(kind, bf16)
+    layers = _cuda.net_layers(name, params, X, activation,
                               () if coef is None else (coef,))
     N, d = X.shape
     K = len(params)
@@ -434,7 +445,7 @@ def _launch(kind: str, params, X, coef, activation: str, analytic=None,
         pl = _plan.cached(("fused", kind, tuple(layers), bf16),
                           lambda: mma_plan(kind, layers) if bf16 else plan(kind, layers))
     mma = pl.design == _cuda.DES_MMA
-    if bool(bf16) != mma or not (mma or pl.design in _cuda.PLANNED_DESIGNS):
+    if bool(bf16) != mma or not (mma or pl.design in _cuda.FP32_DESIGNS):
         raise ValueError(f"{kind}: the bf16-dot mode runs the tensor-core design and only it; "
                          f"fp32 a planned design (bf16={bf16}, design={pl.design})")
     T, design = pl.T, pl.design
@@ -442,7 +453,6 @@ def _launch(kind: str, params, X, coef, activation: str, analytic=None,
     dev = X.device
     S = _streams(kind, d)
     fold, key = variant(layers, S, pl)
-    name = variant_name(kind, bf16)
     G = _cuda.grid(name,
                    lambda sm, ptr: lib.fused_blocks_per_sm(mode, fold, int(bf16), design, sm,
                                                            ptr),
@@ -458,7 +468,8 @@ def _launch(kind: str, params, X, coef, activation: str, analytic=None,
     common = (ctypes.addressof(lay), len(layers), _cuda.ACTS[activation], N, T, G, fold)
     tail = (partial.data_ptr(), scratch.data_ptr(), out.data_ptr(), pl.smem,
             _cuda.stream(dev))
-    wt = None if mma else _cuda.hidden_transposes(params)
+    wt = (None if mma else _cuda.device_weights(params, True) if pl.design & _cuda.DES_DEVW
+          else _cuda.hidden_transposes(params))
     wt_ptr = None if wt is None else wt.data_ptr()
     keep = (X, flat, wt, lay, partial, scratch, out)
     if kind == "fused_linear_residual":

@@ -106,7 +106,8 @@ def forward_smem_floats(layers, T: int, flags: int = 0) -> int:
     d = layers[0]
     S, wmax = d + 2, _cuda.padded_wmax(layers)
     n = 2 * S * T * wmax
-    n += _plan.hidden_floats(layers) if flags & _plan.RES_WEIGHTS else wmax * wmax
+    if not flags & _plan.DEV_WEIGHTS:
+        n += _plan.hidden_floats(layers) if flags & _plan.RES_WEIGHTS else wmax * wmax
     return n + T * d + S * T
 
 
@@ -128,7 +129,8 @@ def backward_smem_floats(layers, T: int, flags: int = 0) -> int:
     d = layers[0]
     S, wmax = d + 2, _cuda.padded_wmax(layers)
     n = 3 * S * T * wmax
-    n += 2 * _plan.hidden_floats(layers) if flags & _plan.RES_WEIGHTS else wmax * wmax
+    if not flags & _plan.DEV_WEIGHTS:
+        n += 2 * _plan.hidden_floats(layers) if flags & _plan.RES_WEIGHTS else wmax * wmax
     if flags & _plan.RES_GRAD:
         n += (_cuda.n_params(layers) + 3) // 4 * 4
     return n + T * d + S * T + _cuda.NT
@@ -175,7 +177,7 @@ def fwdlap_forward(params, X, activation: str, fwd_impl: str = "rows", *,
         pl = _plan.cached(("fwdlap_forward", tuple(layers), N, sms),
                           lambda: forward_plan(layers, N=N, sms=sms))
     if bool(bf16) != (pl.design == _cuda.DES_MMA) or not (bf16 or
-                                                         pl.design in _cuda.PLANNED_DESIGNS):
+                                                         pl.design in _cuda.FP32_DESIGNS):
         raise ValueError(f"{name}: the bf16-dot variant runs the tensor-core design and only "
                          f"it; fp32 a planned design (bf16={bf16}, design={pl.design})")
     T = pl.T
@@ -189,10 +191,12 @@ def fwdlap_forward(params, X, activation: str, fwd_impl: str = "rows", *,
     shape = (d + 2, N) if streams else (N, d + 2)
     out = torch.empty(shape, dtype=torch.float32, device=dev)
     lay = _cuda.layers_arg(layers)
+    wd = (_cuda.device_weights(params, False) if pl.design & _cuda.DES_DEVW else None)
     _cuda.launch(name, lib.fwdlap_forward_f32, streams, X.data_ptr(), flat.data_ptr(),
                  ctypes.addressof(lay), len(layers), _cuda.ACTS[activation], N, T,
                  G, fold, bf16, pl.design, pl.blocks, pl.flags, out.data_ptr(), pl.smem,
-                 _cuda.stream(dev), dev=dev, keep=(X, flat, lay, out))
+                 _cuda.stream(dev), None if wd is None else wd.data_ptr(), dev=dev,
+                 keep=(X, flat, wd, lay, out))
     return out.t() if streams else out
 
 
@@ -223,7 +227,7 @@ def fwdlap_backward(params, X, ct, activation: str, dot_dtype: str = "float32", 
                           lambda: mma_plan("fwdlap_backward", layers) if bf16
                           else backward_plan(layers))
     mma = pl.design == _cuda.DES_MMA
-    if bool(bf16) != mma or not (mma or pl.design in _cuda.PLANNED_DESIGNS):
+    if bool(bf16) != mma or not (mma or pl.design in _cuda.FP32_DESIGNS):
         raise ValueError("fwdlap_backward: the bf16-dot variant runs the tensor-core design "
                          f"and only it; fp32 a planned design (bf16={bf16}, "
                          f"design={pl.design})")
@@ -242,7 +246,8 @@ def fwdlap_backward(params, X, ct, activation: str, dot_dtype: str = "float32", 
     scratch = torch.empty((G, per_block), dtype=torch.float32, device=dev)
     out = torch.empty((P,), dtype=torch.float32, device=dev)
     lay = _cuda.layers_arg(layers)
-    wt = None if mma else _cuda.hidden_transposes(params)
+    wt = (None if mma else _cuda.device_weights(params, True) if design & _cuda.DES_DEVW
+          else _cuda.hidden_transposes(params))
     _cuda.launch(name, lib.fwdlap_backward_f32, X.data_ptr(), ct.data_ptr(),
                  flat.data_ptr(), None if wt is None else wt.data_ptr(),
                  ctypes.addressof(lay), len(layers), _cuda.ACTS[activation], N, T, G, fold,

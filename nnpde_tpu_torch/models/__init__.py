@@ -1,7 +1,7 @@
 from .inputmap import CosineInputMap
 from .mlp import NetSpec, init_mlp, mlp_apply_batch, mlp_apply_point
 from .solution import SolutionModel
-from .trial import SeparableFactor, factor_for_technique
+from .trial import SeparableFactor, factor_for_technique, unit_factor
 
 __all__ = [
     "CosineInputMap",
@@ -12,4 +12,5 @@ __all__ = [
     "SolutionModel",
     "SeparableFactor",
     "factor_for_technique",
+    "unit_factor",
 ]

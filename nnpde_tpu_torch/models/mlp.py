@@ -86,3 +86,8 @@ def mlp_apply_batch(params, X, activation: str):
     W, b = params[-1]
     return (h @ W + b)[..., 0]
 
+
+
+def num_params(params) -> int:
+    """Entries of every ``(W, b)`` leaf of ``params``."""
+    return sum(W.numel() + b.numel() for W, b in params)

@@ -119,6 +119,11 @@ class SeparableFactor:
                    lap=torch.sum(F2 * excl, dim=1))
 
 
+def unit_factor(dim: int) -> SeparableFactor:
+    """``B = 1`` in ``dim`` dimensions (a factor whose jet is the identity)."""
+    return SeparableFactor([one()] * dim)
+
+
 def factor_for_technique(
     technique: str,
     *,

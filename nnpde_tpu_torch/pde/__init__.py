@@ -1,4 +1,4 @@
-from . import ipw, poisson
+from . import ipw, poisson, qho
 from .domain import Box
 
-__all__ = ["Box", "ipw", "poisson"]
+__all__ = ["Box", "ipw", "poisson", "qho"]

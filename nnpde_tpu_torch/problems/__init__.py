@@ -1,6 +1,10 @@
+from .ipw import IPW1DConfig, IPW1DWanConfig, train_ipw_1d, train_ipw_1d_wan
 from .ipw2d import IPW2DConfig, train_ipw_2d, unit_normalize
 from .ipw3d import IPW3DConfig, train_ipw_3d
 from .poisson import PoissonConfig, train_poisson_nd
+from .qho import QHO1DConfig, QHO1DWanConfig, train_qho_1d, train_qho_1d_wan
 
-__all__ = ["IPW2DConfig", "IPW3DConfig", "PoissonConfig", "train_ipw_2d", "train_ipw_3d",
-           "train_poisson_nd", "unit_normalize"]
+__all__ = ["IPW1DConfig", "IPW1DWanConfig", "IPW2DConfig", "IPW3DConfig", "PoissonConfig",
+           "QHO1DConfig", "QHO1DWanConfig", "train_ipw_1d", "train_ipw_1d_wan", "train_ipw_2d",
+           "train_ipw_3d", "train_poisson_nd", "train_qho_1d", "train_qho_1d_wan",
+           "unit_normalize"]

@@ -25,6 +25,12 @@ term ``(L^2 mean(u^2) - 1)^2`` and ``v_steps`` critic steps per epoch.
 
 On CPU tensors every kernel wrapper takes its plain version.
 
+``LBFGS=True`` (PINN, DRM): after the run's last epoch, 500 iterations of
+L-BFGS (:func:`~nnpde_tpu_torch.train.lbfgs_polish`) from the final iterate
+on the objective of ``loss_terms`` (on ``'fused'`` PINN the torch jet, as the
+JAX package's ``'pallas-fused'`` polishes on its XLA jet); the polished
+iterate becomes the best where it scores better.
+
 ``compute_dtype``: ``'bfloat16'`` runs the nets' jets and value-and-grad
 (and, for WAN, the reflected forwards) in bf16 on the torch route, every
 reduction on float32 casts; ``'hybrid'`` a bf16 bulk then a float32 tail on
@@ -64,6 +70,7 @@ from ..prng import fold_in, generator
 from ..sampling import meshgrid_2d
 from ..train import fit, fit_wan, make_optimizer, make_wan_optimizers
 from ._fused_wan import make_fused_wan_multi_pair, make_fused_wan_pair
+from .ipw import polish
 from .poisson import join_phases, to_bf16
 
 _JET_IMPLS = ("torch", "kernel", "kernel:streams", "fused")
@@ -158,10 +165,6 @@ def _validate(cfg: IPW2DConfig, init_carry, start_epoch, run_epochs) -> int:
         raise ValueError("start_epoch + run_epochs exceeds cfg.epochs")
     if cfg.compute_dtype not in ("float32", "bfloat16", "hybrid"):
         raise ValueError("compute_dtype must be 'float32', 'bfloat16' or 'hybrid'")
-    if cfg.LBFGS:
-        raise NotImplementedError(
-            "LBFGS=True (the strong-Wolfe polish) arrives with ROADMAP A12 "
-            "(train/lbfgs.py)")
     if cfg.jet_impl not in _JET_IMPLS:
         raise ValueError(f"jet_impl must be one of {_JET_IMPLS}")
     if cfg.technique not in ("FBC", "FN", "OG"):
@@ -309,7 +312,11 @@ def train_ipw_2d(cfg: IPW2DConfig, init_params=None, init_v_params=None,
             if dtype == "bfloat16":
                 p_c, X_c, route, kw = to_bf16(params), X.to(torch.bfloat16), "torch", {}
             else:
-                p_c, X_c, route, kw = params, X, jet_route, jet_kw
+                # 'fused' PINN trains on lag_fn; its loss_terms (the polish's
+                # objective) takes the torch jet, as JAX's 'pallas-fused' takes
+                # its XLA jet
+                p_c, X_c, kw = params, X, jet_kw
+                route = "torch" if cfg.jet_impl == "fused" else jet_route
             if cfg.method == "PINN":
                 jet = model.fields(p_c, X_c, impl=route, **kw)
                 u = jet.value.float()
@@ -570,6 +577,11 @@ def train_ipw_2d(cfg: IPW2DConfig, init_params=None, init_v_params=None,
             result = fit(loss_fn, eval_fn, params, epochs=seg_epochs, optimizer=optimizer,
                          start_epoch=start_epoch, init_carry=init_carry,
                          key=fold_in(key, 1), chunk=chunk, **fused_kw)
+        # the polish runs once, after the last segment (per segment it would
+        # overwrite the best tracking with a polish the carry does not hold)
+        if cfg.LBFGS and start_epoch + seg_epochs == cfg.epochs:
+            result = polish(result, lambda p: loss_terms(p)[0], eval_fn, result.params,
+                            500, cfg.epochs)
 
     # relative L2: sqrt(MSE) / rms(psi_exact)
     rms_exact = float(rms_exact_t)

@@ -48,9 +48,7 @@ from ..pde.domain import Box
 from ..prng import fold_in, generator
 from ..sampling import shifted_qmc, sobol_unit, uniform_box
 from ..train import fit, make_optimizer
-
-_JET_IMPLS = ("torch", "kernel", "fused")
-_JAX_NAMES = {"xla": "torch", "pallas": "kernel", "pallas-fused": "fused"}
+from .ipw import check_jet_impl
 
 
 @dataclasses.dataclass
@@ -81,11 +79,7 @@ def _validate(cfg: IPW3DConfig) -> None:
         raise ValueError("method must be 'PINN' or 'DRM'")
     if cfg.technique not in ("FBC", "FN"):
         raise ValueError(f"Unknown technique: {cfg.technique}")
-    if cfg.jet_impl in _JAX_NAMES:
-        raise ValueError(f"jet_impl={cfg.jet_impl!r} is the JAX package's name; this port "
-                         f"calls it jet_impl={_JAX_NAMES[cfg.jet_impl]!r}")
-    if cfg.jet_impl not in _JET_IMPLS:
-        raise ValueError(f"jet_impl must be one of {_JET_IMPLS}")
+    check_jet_impl(cfg.jet_impl)
     if cfg.sampler not in ("uniform", "sobol"):
         raise ValueError("sampler must be 'uniform' or 'sobol'")
 

@@ -34,6 +34,11 @@ def sobol_unit(seed: int, n: int, d: int, dtype=torch.float32, device="cpu"):
     return torch.as_tensor(eng.random(n), dtype=dtype, device=device)
 
 
+def sobol_box(seed: int, n: int, box: Box, dtype=torch.float32, device="cpu"):
+    """n scrambled-Sobol quasi-Monte-Carlo points in the box — (n, d)."""
+    return _to_box(sobol_unit(seed, n, box.dim, dtype, device), box)
+
+
 def shifted_qmc(u_base, gen: torch.Generator, box: Box):
     """Cranley-Patterson rotation ``(u_base + shift) mod 1`` of a fixed
     Sobol base set with a fresh uniform shift per call."""
@@ -65,3 +70,26 @@ def face_points(gen: torch.Generator, n_per_face: int, box: Box,
             pts[:, i] = val
             outs.append(pts)
     return torch.cat(outs, dim=0)
+
+
+def first_fraction_every_kth(n_total: int, fraction: float = 0.25, k: int = 10,
+                             device=None):
+    """Index rule of the 1D well's data: the first ``fraction`` of the grid,
+    every ``k``-th point."""
+    return torch.arange(0, int(fraction * n_total), k, device=device)
+
+
+def mid_fraction_every_kth(n_total: int, fraction: float = 0.25, k: int = 10,
+                           device=None):
+    """The QHO variant: points in ``[fraction, 2*fraction)`` of the grid,
+    every ``k``-th."""
+    n_data = int(fraction * n_total)
+    return torch.arange(n_data, 2 * n_data, k, device=device)
+
+
+def first_fraction_indices(m: int, fraction: float = 0.25, max_points=None, device=None):
+    """The first ``max(1, m*fraction)`` indices, optionally capped."""
+    k = max(1, int(m * fraction))
+    if max_points is not None:
+        k = min(k, int(max_points))
+    return torch.arange(k, device=device)

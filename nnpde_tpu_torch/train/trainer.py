@@ -51,8 +51,28 @@ def _pairs(leaves):
     return [(leaves[i], leaves[i + 1]) for i in range(0, len(leaves), 2)]
 
 
+def _leaves_of(params):
+    """The leaves of ``[(W, b), ...]``, or of ``{"net": [(W, b), ...],
+    <name>: tensor, ...}`` (a net with extra trainable leaves, such as a
+    WAN's eigenvalue E): the net's first, then the others by name."""
+    if isinstance(params, dict):
+        return (_leaves_of(params["net"])
+                + [params[k] for k in sorted(params) if k != "net"])
+    return [t for W, b in params for t in (W, b)]
+
+
+def _rebuild(like, leaves):
+    """The inverse of :func:`_leaves_of` for the structure of ``like``."""
+    if isinstance(like, dict):
+        n = 2 * len(like["net"])
+        out = {"net": _pairs(leaves[:n])}
+        out.update(zip([k for k in sorted(like) if k != "net"], leaves[n:]))
+        return out
+    return _pairs(leaves)
+
+
 def _trainable(params):
-    return [t.detach().clone().requires_grad_(True) for W, b in params for t in (W, b)]
+    return [t.detach().clone().requires_grad_(True) for t in _leaves_of(params)]
 
 
 class _History:
@@ -181,8 +201,8 @@ class WanCarry(NamedTuple):
     prev_g: Any                      # previous (u, v) gradients (OGDA)
 
 
-def _detached(leaves):
-    return _pairs([t.detach() for t in leaves])
+def _detached(leaves, like=None):
+    return _rebuild(like, [t.detach() for t in leaves])
 
 
 def fit_wan(
@@ -245,7 +265,7 @@ def fit_wan(
     hist = _History(chunk)
 
     def u_grad(u_lv, v_p, k):
-        (loss, metrics) = u_loss_fn(_pairs(u_lv), v_p, k)
+        (loss, metrics) = u_loss_fn(_rebuild(u_params, u_lv), v_p, k)
         return loss, metrics, torch.autograd.grad(loss, u_lv)
 
     def v_grad(v_lv, ctx, k):
@@ -256,7 +276,7 @@ def fit_wan(
     for i in range(epochs):
         epoch = start_epoch + i
         k = fold_in(key, epoch)
-        v_ctx = v_context_fn(_detached(u_leaves), k)
+        v_ctx = v_context_fn(_detached(u_leaves, u_params), k)
         last_v_loss = torch.zeros((), device=dev)
         for j in range(max(n_plain, 0)):
             last_v_loss, gv = v_grad(v_leaves, v_ctx, fold_in(k, j))
@@ -275,7 +295,7 @@ def fit_wan(
             v_bar = [t.requires_grad_(True) for t in
                      v_optimizer.lookahead(v_opt, v_count, v_leaves, gv1)]
             loss, metrics, gu2 = u_grad(u_bar, _detached(v_bar), uk)
-            _, gv2 = v_grad(v_bar, v_context_fn(_detached(u_bar), vk), vk)
+            _, gv2 = v_grad(v_bar, v_context_fn(_detached(u_bar, u_params), vk), vk)
             _adam_step(u_optimizer, u_opt, u_leaves, gu2, u_count)
             _adam_step(v_optimizer, v_opt, v_leaves, gv2, v_count)
             u_count += 1
@@ -292,14 +312,14 @@ def fit_wan(
             v_count += 1
             prev_g = (list(gu), list(gv))
         with torch.no_grad():
-            m = eval_fn(_pairs(u_leaves), fold_in(k, 0x5EED)).to(torch.float32)
+            m = eval_fn(_rebuild(u_params, u_leaves), fold_in(k, 0x5EED)).to(torch.float32)
             row = {**metrics, "total": loss, "l2": m}
             cand = u_leaves
             if u_ema > 0.0:
                 # warmup-corrected decay so early epochs average properly
                 dcy = min(u_ema, (epoch + 1.0) / (epoch + 10.0))
                 ema = [dcy * e + (1.0 - dcy) * t for e, t in zip(ema, u_leaves)]
-                m_ema = eval_fn(_pairs(ema), fold_in(k, 0x3333)).to(torch.float32)
+                m_ema = eval_fn(_rebuild(u_params, ema), fold_in(k, 0x3333)).to(torch.float32)
                 use_ema = m_ema < m
                 m_eff = torch.where(use_ema, m_ema, m)
                 cand = [torch.where(use_ema, e, t) for e, t in zip(ema, u_leaves)]
@@ -321,8 +341,8 @@ def fit_wan(
     carry = WanCarry(u_leaves, v_leaves, u_opt, v_opt, u_count, v_count, best_m,
                      best_u, best_v, best_e, ema, prev_g)
     return FitResult(
-        params=_detached(u_leaves),
-        best_params=_pairs(best_u),
+        params=_detached(u_leaves, u_params),
+        best_params=_rebuild(u_params, best_u),
         best_metric=float(best_m),
         best_epoch=int(best_e),
         history=hist.result(),

@@ -105,7 +105,7 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(dev):
     rng = np.random.default_rng(0)
     X = torch.rand(64, 2, device=dev)
     coef = torch.zeros(64, 6, device=dev)
-    wide = params_from_jax(_np_params(rng, (2, 132, 1)), device=dev)
+    wide = params_from_jax(_np_params(rng, (2, 257, 1)), device=dev)
     with pytest.raises(ValueError):
         tfs.fused_linear_residual(wide, X, coef, "sin")
     p64 = params_from_jax(_np_params(rng, (2, 32, 1)), device=dev, dtype=torch.float64)
@@ -1261,3 +1261,112 @@ def test_cuda_jet_forward_mma_plans_match_plain(dev, layers):
         assert torch.equal(out, out2), pl
         assert col_rel(out.double(), want) <= 5e-4, pl
         assert col_rel(out.double(), witness) <= 2.0 * w_plain + 2e-6, pl
+
+
+# The hidden widths 129-256 of the fp32 kernels (the 1D oscillator's u200 and
+# critic v100, a 256-wide net, a ragged one), at d = 1 and 2: (layers, act).
+_WIDE_NETS = [((1, 200, 200, 200, 1), "sin"), ((1, 100, 100, 100, 1), "tanh"),
+              ((2, 200, 200, 1), "tanh"), ((1, 256, 256, 1), "tanh"),
+              ((1, 130, 130, 1), "sin"), ((1, 130, 256, 1), "tanh")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layers,act", _WIDE_NETS)
+@pytest.mark.parametrize("kind", ["linear", "analytic", "drm", "backward", "fwdlap_forward",
+                                  "fwdlap_forward_streams", "linear_sums", "quad_sums",
+                                  "linear_seeded", "quad_seeded"])
+def test_cuda_wide_nets_match_float64(dev, kind, layers, act):
+    """Rows 1-10 at hidden widths 100-256 (the wrapper's own plan) against
+    their float64 plain versions by the bars above, two launches bitwise
+    equal; N = 1007 is a multiple of no tile."""
+    if kind == "backward":
+        _check_backward(dev, layers, act)
+    elif kind in _FUSED:
+        _check_fused(dev, kind, layers, act)
+    elif kind.endswith("seeded"):
+        _check_quotient(dev, kind, layers, act, 0)
+    else:
+        _check_pass_a(dev, kind, layers, act, 1 if kind.startswith("fwdlap") else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layers", [(1, 200, 200, 1), (2, 130, 1), (1, 129, 129, 1)])
+def test_cuda_wide_nets_refused_where_the_limit_is_128(dev, layers):
+    """The bf16-dot variants (the tensor-core design) and the K-bump pair
+    take hidden widths up to 128 and raise above, naming the roadmap item."""
+    from nnpde_tpu_torch.kernels import fused_multibump as tfm
+    from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
+
+    rng = np.random.default_rng(4)
+    d, N = layers[0], 64
+    tp = params_from_jax(_np_params(rng, layers), device=dev)
+    X = torch.rand(N, d, device=dev)
+    coef = torch.zeros(N, d + 4, device=dev)
+    calls = [lambda: tfs.fused_linear_residual(tp, X, coef, "sin", dot_dtype="bfloat16"),
+             lambda: tfc.fwdlap_forward(tp, X, "sin", "rows:default"),
+             lambda: tfm._launch(False, tp, X, torch.zeros(N, 4 * (d + 4), device=dev),
+                                 None, "sin", 4)]
+    for call in calls:
+        with pytest.raises(ValueError, match="B6"):
+            call()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layers,act", [((1, 50, 50, 50, 1), "tanh"), ((2, 64, 64, 1), "sin"),
+                                        ((2, 50, 1, 50, 1), "gelu"), ((1, 256, 1), "tanh")])
+@pytest.mark.parametrize("kind", ["linear", "drm", "backward", "fwdlap_forward",
+                                  "fwdlap_forward_streams", "linear_sums", "quad_sums",
+                                  "linear_seeded", "quad_seeded"])
+def test_cuda_device_weights_design_matches_plain(dev, kind, layers, act):
+    """The design that reads the weights from device memory (``DES_DEVW``),
+    pinned on nets whose weights would fit on chip (ragged ones, and one
+    hidden layer, which has no hidden-to-hidden weights): the same bars,
+    two launches bitwise equal."""
+    from nnpde_tpu_torch.kernels import _cuda
+    from nnpde_tpu_torch.kernels import fused_quotient as tfq
+    from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
+
+    devw = _cuda.DES_PLANNED | _cuda.DES_DEVW
+    if kind == "backward":
+        _check_backward(dev, layers, act, pl=tfc.backward_plan(layers, devw))
+    elif kind in _FUSED:
+        _check_fused(dev, kind, layers, act, pl=tfs.plan(_FUSED[kind], layers, devw))
+    elif kind.endswith("seeded"):
+        _check_quotient(dev, kind, layers, act, 0, design=_cuda.DES_DEVW)
+    else:
+        lap = 1 if kind.startswith("fwdlap") else 0
+        _check_pass_a(dev, kind, layers, act, lap,
+                      pl=_pass_a_plan(kind, layers, lap, design=devw, N=1007))
+
+
+@pytest.mark.cuda
+def test_cuda_device_weights_smem_layout_mirror(dev):
+    """With ``DEV_WEIGHTS`` (no weights on chip) the Python layouts of rows
+    1-5, 7-10 are the kernels' own counts."""
+    import ctypes
+
+    from nnpde_tpu_torch.kernels import _build, _plan
+    from nnpde_tpu_torch.kernels import fused_quotient as tfq
+    from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
+
+    lib = _build.load()
+    flags = (_plan.DEV_WEIGHTS, _plan.DEV_WEIGHTS | _plan.RES_GRAD)
+    for layers in [(1, 256, 256, 1), (1, 130, 256, 1), (2, 64, 64, 1), (3, 50, 1, 50, 1)]:
+        lay = (ctypes.c_int * len(layers))(*layers)
+        ptr, n = ctypes.addressof(lay), len(layers)
+        for T in (4, 16, 24):
+            for f in flags:
+                assert lib.fwdlap_backward_smem_bytes(ptr, n, T, f) == 4 * \
+                    tfc.backward_smem_floats(layers, T, f)
+                for kind, mode in (("fused_linear_residual", 0), ("fused_drm_energy", 2)):
+                    assert lib.fused_smem_bytes(mode, ptr, n, T, f) == 4 * \
+                        tfs.smem_floats(kind, layers, T, f)
+                for kind, code in (("linear_seeded", 1), ("quad_seeded", 3)):
+                    assert lib.fused_quotient_smem_bytes(code, 0, ptr, n, T, f) == 4 * \
+                        tfq.smem_floats(kind, layers, T, 0, f)
+            f = _plan.DEV_WEIGHTS
+            assert lib.fwdlap_forward_smem_bytes(ptr, n, T, f) == 4 * \
+                tfc.forward_smem_floats(layers, T, f)
+            for kind, code in (("linear_sums", 0), ("quad_sums", 2)):
+                assert lib.fused_quotient_smem_bytes(code, 0, ptr, n, T, f) == 4 * \
+                    tfq.smem_floats(kind, layers, T, 0, f)

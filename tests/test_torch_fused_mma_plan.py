@@ -467,3 +467,15 @@ def test_cpu_bf16_route_runs_the_plain_bf16_version(monkeypatch, kind):
         if kind == "fused_linear_residual" else tfs.fused_poisson_analytic(
             params, X, "sin", L=2.0, ks=(1, 1))
     assert not torch.equal(loss, loss32)
+
+
+@pytest.mark.parametrize("layers", [(1, 129, 1), (2, 200, 200, 1), (1, 64, 256, 1)])
+@pytest.mark.parametrize("kind", tfs.MMA_KINDS)
+def test_mma_plans_refuse_widths_above_128(kind, layers):
+    """The tensor-core design takes hidden widths up to 128 (``KS_MAX`` = 8
+    k-steps): its plans raise above, naming the kernel, its limit and the
+    roadmap item of the wider nets."""
+    with pytest.raises(ValueError, match=r"\.bf16: the kernel takes hidden widths from 1 to "
+                                         r"128 \(widths 129-256: ROADMAP.md B6\)"):
+        tfs.mma_plan(kind, layers)
+    assert tfs.mma_plan(kind, (1, 128, 128, 1)).design == _cuda.DES_MMA

@@ -162,9 +162,11 @@ def test_poisson_pinn_kernel_path_matches_torch_on_cpu():
 
 def test_wrapper_checks_and_tile_planning_take_any_width():
     """The CPU-side half of the width repair: the wrappers' net check takes
-    hidden widths 1..128 (not only multiples of 4), the shared-memory plans
-    use the width rounded up to a multiple of 4, and the multibump plan
-    counts the K*(d+4)*T coefficient tile (rows padded to an odd stride)."""
+    hidden widths 1..256 on the fp32 kernels and 1..128 on the K-bump pair
+    (not only multiples of 4; ``_cuda.WIDTH_LIMITS``), the shared-memory
+    plans use the width rounded up to a multiple of 4, and the multibump
+    plan counts the K*(d+4)*T coefficient tile (rows padded to an odd
+    stride)."""
     from nnpde_tpu_torch.kernels import _cuda
     from nnpde_tpu_torch.kernels import fused_multibump as tfm
 
@@ -174,12 +176,18 @@ def test_wrapper_checks_and_tile_planning_take_any_width():
         return [(torch.zeros(a, b), torch.zeros(b)) for a, b in zip(layers[:-1], layers[1:])]
 
     for layers in ((2, 50, 50, 50, 50, 1), (2, 10, 10, 1), (2, 1, 7, 1), (2, 128, 1)):
-        assert _cuda.net_layers("k", net(*layers), X, "sin") == list(layers)
-    for layers in ((2, 129, 1), (2, 8, 2)):
-        with pytest.raises(ValueError, match="hidden widths from 1 to 128"):
-            _cuda.net_layers("k", net(*layers), X, "sin")
+        for k in ("fwdlap_backward", "multi_seeded"):
+            assert _cuda.net_layers(k, net(*layers), X, "sin") == list(layers)
+    for layers in ((2, 200, 200, 1), (2, 130, 256, 1)):
+        assert _cuda.net_layers("fwdlap_backward", net(*layers), X, "sin") == list(layers)
+    with pytest.raises(ValueError, match="hidden widths from 1 to 128"):
+        _cuda.net_layers("multi_seeded", net(2, 129, 1), X, "sin")
+    with pytest.raises(ValueError, match="hidden widths from 1 to 256"):
+        _cuda.net_layers("fwdlap_backward", net(2, 257, 1), X, "sin")
+    with pytest.raises(ValueError, match="one output"):
+        _cuda.net_layers("fwdlap_backward", net(2, 8, 2), X, "sin")
     with pytest.raises(TypeError):
-        _cuda.net_layers("k", net(2, 8, 1), X.double(), "sin")
+        _cuda.net_layers("fwdlap_backward", net(2, 8, 1), X.double(), "sin")
     assert _cuda.padded_wmax([2, 50, 50, 1]) == 52
     assert _cuda.padded_wmax([2, 64, 20, 1]) == 64
     assert _cuda.padded_wmax([2, 1, 1]) == 4

@@ -228,10 +228,10 @@ def test_streams_option_and_launch_counts_stay_zero_on_cpu():
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(compute_dtype="bfloat16", LBFGS=True), NotImplementedError, "A12"),
-    (dict(compute_dtype="hybrid", LBFGS=True), NotImplementedError, "A12"),
+    (dict(compute_dtype="bfloat16", LBFGS=True, jet_impl="xla"), ValueError, "jet_impl"),
+    (dict(compute_dtype="hybrid", LBFGS=True, method="FEM"), ValueError, "method"),
     (dict(compute_dtype="float16"), ValueError, "compute_dtype"),
-    (dict(LBFGS=True), NotImplementedError, "A12"),
+    (dict(LBFGS=True, technique="RB"), ValueError, "technique"),
     (dict(jet_impl="pallas-fused"), ValueError, "jet_impl"),
     (dict(method="FEM"), ValueError, "method"),
     (dict(technique="RB"), ValueError, "technique"),
@@ -240,6 +240,29 @@ def test_streams_option_and_launch_counts_stay_zero_on_cpu():
 def test_options_that_raise(kw, exc, match):
     with pytest.raises(exc, match=match):
         train_ipw_2d(IPW2DConfig(**dict(BASE, **kw)), device="cpu")
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16", "hybrid"])
+def test_lbfgs_polish_runs_in_every_precision(monkeypatch, compute_dtype):
+    """``LBFGS=True`` polishes after the last epoch in every precision (the
+    polish differentiates the run's own objective: float32 in the
+    ``hybrid`` tail); the polished iterate is the result's params.  The
+    polish is cut to 20 of its 500 iterations (its full length is held to
+    JAX in ``tests/test_torch_eigen1d.py``)."""
+    import nnpde_tpu_torch.problems.ipw as tipw
+
+    real = tipw.lbfgs_polish
+    monkeypatch.setattr(tipw, "lbfgs_polish",
+                        lambda loss, p, max_iter: real(loss, p, max_iter=20))
+    kw = dict(BASE, **CASES["PINN"], compute_dtype=compute_dtype, jet_impl="kernel")
+    a = train_ipw_2d(IPW2DConfig(**kw), device="cpu")
+    b = train_ipw_2d(IPW2DConfig(LBFGS=True, **kw), device="cpu")
+    assert np.array_equal(a["history"]["total"], b["history"]["total"])
+    assert np.isfinite(b["L2_error"]) and b["L2_error"] <= a["L2_error"]
+    moved = max(float(torch.max(torch.abs(x - y)))
+                for pa, pb in zip(a["result"].params, b["result"].params)
+                for x, y in zip(pa, pb))
+    assert moved > 0.0
 
 
 def test_segment_past_the_horizon_and_missing_card_raise(monkeypatch):

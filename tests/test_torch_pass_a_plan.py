@@ -289,3 +289,112 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     q = tfq.fused_quad_sums(params, X, qcoef, "sin")
     want = tfq.quad_sums_plain(params, X, qcoef, "sin")
     assert torch.equal(q["sum_e"], want[0]) and torch.equal(q["sum_u2"], want[1])
+
+
+# ------------------------------------------------------------- the wide nets
+# Hidden widths 129-256 (the fp32 kernels' limit since the 1D oscillator's
+# u200): every fp32 row's plan at u200 with d = 1 and 2, on the critic v100,
+# on (1, 256, 256, 1) and on a ragged (1, 130, 256, 1).
+WIDE = {"u200": (1, 200, 200, 200, 1), "u200_d2": (2, 200, 200, 200, 1),
+        "v100": (1, 100, 100, 100, 1), "w256": (1, 256, 256, 1), "r130": (1, 130, 256, 1)}
+
+
+def _wide_plan(row, layers, N=1000):
+    """Row ``row``'s plan on ``layers`` (the wrapper's own), with its stream
+    count and layout."""
+    from nnpde_tpu_torch.kernels import fused_step as tfs
+
+    if row in (1, 2, 3):
+        kind = {1: "fused_linear_residual", 2: "fused_poisson_analytic",
+                3: "fused_drm_energy"}[row]
+        return tfs.plan(kind, layers), lambda T, f: tfs.smem_floats(kind, layers, T, f)
+    if row in (4, 6):
+        return (tfc.forward_plan(layers, N=N), lambda T, f: tfc.forward_smem_floats(layers, T, f))
+    if row == 5:
+        return tfc.backward_plan(layers), lambda T, f: tfc.backward_smem_floats(layers, T, f)
+    kind, lap = {7: ("linear_sums", 0), 8: ("linear_seeded", 0), 9: ("quad_sums", 0),
+                 10: ("quad_seeded", 0)}[row]
+    return (tfq.plan(kind, layers, lap, N=N),
+            lambda T, f: tfq.smem_floats(kind, layers, T, lap, f))
+
+
+# (T, tier, design) of rows 1, 4, 5, 7, 8, 9, 10 on the 1D paths' wide nets
+# at their 1000 points: one block per SM, every weight matrix staged per tile
+WIDE_PATH = {
+    ("u200", 1): (8, "staged", 2), ("u200", 4): (12, "staged", 2),
+    ("u200", 5): (8, "staged", 2), ("u200", 7): (16, "staged", 2),
+    ("u200", 8): (12, "staged", 0), ("u200", 9): (16, "staged", 2),
+    ("u200", 10): (12, "staged", 0),
+    ("v100", 4): (16, "staged", 2), ("v100", 7): (16, "staged", 2),
+    ("v100", 8): (20, "staged", 0),
+}
+
+
+@pytest.mark.parametrize("row", [1, 2, 3, 4, 5, 6, 7, 8, 9, 10])
+@pytest.mark.parametrize("net", sorted(WIDE))
+def test_wide_net_plans(net, row):
+    """Every fp32 row gets a plan on the wide nets, within SMEM_MAX and its
+    own layout; the weights are read from device memory (``DES_DEVW``,
+    ``DEV_WEIGHTS``, no weights in shared memory) exactly where no plan with
+    the weights on chip fits, and the 1D paths' shapes take the plans of WIDE_PATH."""
+    layers = WIDE[net]
+    pl, layout = _wide_plan(row, layers)
+    assert pl.T >= 4 and pl.T % 4 == 0
+    assert pl.smem == 4 * layout(pl.T, pl.flags) <= _cuda.SMEM_MAX
+    devw = bool(pl.design & _cuda.DES_DEVW)
+    assert devw == bool(pl.flags & _plan.DEV_WEIGHTS)
+    # no tier with the weights on chip (staged or resident) fits
+    assert devw == all(4 * layout(4, f) > _cuda.SMEM_MAX for f in (0, _plan.RES_WEIGHTS))
+    if devw:
+        assert pl.tier.endswith("device") and not pl.flags & _plan.RES_WEIGHTS
+        assert pl.design in (_cuda.DES_DEVW, _cuda.DES_PLANNED | _cuda.DES_DEVW)
+    if (net, row) in WIDE_PATH:
+        assert (pl.T, pl.tier, pl.design) == WIDE_PATH[(net, row)]
+
+
+@pytest.mark.parametrize("net", ["u50", "c20"])
+def test_device_weights_design_pins_and_layouts(net):
+    """The device-weights design pinned on a net that fits shared memory
+    (the card tests hold its kernels there too): its layout is the staged
+    one without the weight region, and a pinned other tier refuses it."""
+    layers = {"u50": (1, 50, 50, 50, 1), "c20": (1, 20, 20, 20, 1)}[net]
+    d, wmax = layers[0], _padded(max(layers[1:-1]))
+    devw = _cuda.DES_PLANNED | _cuda.DES_DEVW
+    for T in (8, 16):
+        assert (tfc.forward_smem_floats(layers, T, _plan.DEV_WEIGHTS)
+                == tfc.forward_smem_floats(layers, T, 0) - wmax * wmax)
+        assert (tfq.smem_floats("quad_seeded", layers, T, 0, _plan.DEV_WEIGHTS)
+                == tfq.smem_floats("quad_seeded", layers, T, 0, 0) - wmax * wmax)
+    pl = tfc.forward_plan(layers, design=devw, N=1000)
+    assert (pl.design, pl.flags, pl.tier, pl.blocks) == (devw, _plan.DEV_WEIGHTS, "device", 2)
+    pl = tfq.plan("linear_seeded", layers, 0, design=_cuda.DES_DEVW)
+    assert pl.design == _cuda.DES_DEVW and pl.flags & _plan.DEV_WEIGHTS
+    pl = tfc.backward_plan(layers, devw)
+    assert pl.design == devw and pl.flags & _plan.DEV_WEIGHTS
+    with pytest.raises(_plan.NoFit):
+        tfc.forward_plan(layers, design=devw, tier="staged", N=1000)
+    with pytest.raises(ValueError) as bad:
+        tfq.plan("quad_seeded", layers, 0, design=2)
+    assert not isinstance(bad.value, _plan.NoFit)     # a bad pin is not a missing fit
+    assert d == 1
+
+
+def test_device_weights_buffer_is_the_resident_layout():
+    """``_cuda.device_weights``: the hidden weights rounded up to multiples
+    of 4 with zeros, back to back, then (pass B) their transposes."""
+    rng = np.random.default_rng(0)
+    layers = (1, 6, 5, 9, 1)
+    params = [(torch.as_tensor(rng.normal(size=(a, b))), torch.as_tensor(rng.normal(size=b)))
+              for a, b in zip(layers[:-1], layers[1:])]
+    W1, W2 = params[1][0], params[2][0]
+    fw = _cuda.device_weights(params, False)
+    both = _cuda.device_weights(params, True)
+    assert fw.numel() == _hidden(layers) == 8 * 8 + 8 * 12
+    assert both.numel() == 2 * _hidden(layers)
+    P1 = fw[:64].reshape(8, 8)
+    assert torch.equal(P1[:6, :5], W1) and not P1[6:].any() and not P1[:, 5:].any()
+    P2 = fw[64:].reshape(8, 12)
+    assert torch.equal(P2[:5, :9], W2)
+    T1 = both[160:224].reshape(8, 8)
+    assert torch.equal(T1[:5, :6], W1.t()) and not T1[5:].any()
+    assert _cuda.device_weights(params[:1] + params[-1:], True) is None
