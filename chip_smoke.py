@@ -87,7 +87,22 @@ Phases (each prints one JSON line; any failure exits non-zero):
    graph_trace replays rows 9 and 10 on u200 in one CUDA graph, as the
    L-BFGS evaluations run, under torch.profiler (the kernels the device ran
    beside the counts; reported, not gated).
-10. timing, wan_timing, eigen_timing, ipw3d_timing: CUDA events, median over repeats, for
+10. qho2d, kh (groups ``qho2d`` and ``kh``): trainE_kernels holds row 1
+   with the e lane (``r = -1/2 lap u + (V - E) u``, the e column B) on the
+   KH nets u100 (window and raw) and u64 at 1024 and 1031 points and on u50
+   at d = 2 (40000, 40007), its ``sum r e net`` and repeats included, and
+   rows 4, 5, 9, 10 on u100 and rows 7, 8 on the KH critic c50 (sin), to
+   their float64 plain versions; qho2d_path runs ``train_qho_2d(nx=1,
+   ny=1, technique='FN')`` at its published nets and 40000 points (PINN
+   with the trainable E and ``energy_lr`` on three routes, DRM and WAN on
+   two, the L-BFGS polish over the net and E) and kh_path ``train_kh`` on
+   ``KHGroundTruth(alpha=10, L=60, N=5000)`` with the acceptance config
+   (u100, 1024 points; PINN on three routes, DRM and WAN on two), epochs
+   cut: the kernel routes start as 'torch' does, PINN best <= max(2 x
+   torch, 1e-3), DRM and WAN falling, exact launch counts, each trainable
+   E's final error <= max(2 x torch's, 1e-4); kh_timing times the KH
+   shapes at 1024 and 262144 points.
+11. timing, wan_timing, eigen_timing, ipw3d_timing: CUDA events, median over repeats, for
    each kernel and its plain version at the path's N and at 262144 on the
    net it runs on, with the bound (bytes or operations) and the plan of
    every kernel that plans its launch (tile, tier, blocks per SM; for rows
@@ -99,7 +114,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    the rows of those kernels: one fresh process per row, so that what ran
    earlier in a process does not move its times
    (``nnpde_tpu_torch/tools/compare_timing.py`` reads such runs).
-11. precision (group ``precision``): precision_kernels holds the bf16-dot
+12. precision (group ``precision``): precision_kernels holds the bf16-dot
    variants of the fused residual (stream and analytic coefficients), the
    jet forward and the jet backward, all four in the tensor-core design
    (``csrc/fwdlap_mma.cuh``, asserted from their launches), to their plain
@@ -120,7 +135,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    (``timing --rows=fused_linear_residual.bf16`` times one such row alone).
 
 ``python3 chip_smoke.py eigen`` (or any other phase-group name: kernels,
-wan, main, eigen, ipw3d, neumann, eigen1d, timing, precision) runs only those groups,
+wan, main, eigen, ipw3d, neumann, eigen1d, qho2d, kh, timing, precision) runs only those groups,
 for work on one slice; without arguments every phase runs.  ``python3
 chip_smoke.py sweep`` is a further group that runs only when named: the jet
 forward in both layouts (rows 4 and 6) and the
@@ -139,7 +154,10 @@ net's hidden units (the spread of two fp32 orders).  ``python3
 chip_smoke.py devw_sweep`` (only when named) times rows 1, 4, 5 and 7-10 on
 the 1D paths' u200 and v100 and on (1, 130, 256, 1) in the design that reads
 the hidden weights from device memory against the plans' own choice, each
-shape held to float64.
+shape held to float64.  ``python3 chip_smoke.py full`` (only when named)
+runs the full-length acceptance rows ``ipw2d_n33_pinn_fn``,
+``kh1d_alpha10_pinn`` and ``kh1d_alpha10_{pinn,drm,wan}_dense`` on 'fused'
+(``full --route=torch`` on 'torch') against their ACCEPTANCE.json targets.
 
 The last two lines before the final one are the ``kernels`` summary and the
 card's ``name, power limit``; the final line is
@@ -3048,21 +3066,421 @@ def phase_devw_sweep(dev):
         raise SystemExit("devw sweep: a launch shape missed its bar")
 
 
-GROUPS = ("kernels", "wan", "main", "eigen", "ipw3d", "neumann", "eigen1d", "timing",
-          "precision")
+# ------------------------------------------ the trainable-energy eigenproblems
+# The 2D oscillator (``train_qho_2d``: u50 at d = 2 on [-6, 6]^2, 40000 grid
+# points, the critic c20) and Kramers-Henneberger (``train_kh``: the
+# acceptance net (1, 100 x 3, 1) sin and the default (1, 64 x 3, 1) sin at
+# 1024 points; the WAN critic (1, 50 x 3, 1) sin with no trial factor).
+KH_N = 1024
+KH_NETS = {"u100": (1, 100, 100, 100, 1), "u64": (1, 64, 64, 64, 1),
+           "c50": (1, 50, 50, 50, 1)}
+# (kernel, net): the shapes the KH paths first give rows 1, 4, 5, 7-10
+KH_CASES = (("fused_linear_residual", "u100"), ("fwdlap_forward", "u100"),
+            ("fwdlap_backward", "u100"), ("quad_sums", "u100"), ("quad_seeded", "u100"),
+            ("linear_sums", "c50"), ("linear_seeded", "c50"))
+# the KH acceptance rows' config (scripts/acceptance.py run_kh, run_kh_methods)
+KH_GT = dict(alpha=10.0, L=60.0, N=5000, n_levels=6)
+KH_ACC = dict(layers=KH_NETS["u100"], train_n=KH_N, lambda_pde=10.0, lambda_data=1e4,
+              lambda_norm=10.0, data_fraction=0.5, max_data_points=500, lambda_parity=1e4)
+# the paths' epochs, cut (never the widths) so that both groups add about
+# 150 s to the whole run
+Q2_EPOCHS = 1000              # of 10000 (QHO2DConfig) and 50000 (the paper sweep)
+Q2_DRM_EPOCHS = 300
+Q2_WAN_EPOCHS = 150
+KH_EPOCHS = 1000              # of 10000 (kh1d_alpha10_pinn)
+KH_DRM_EPOCHS = 500           # of 5000 (kh1d_alpha10_*_dense)
+KH_WAN_EPOCHS = 200
+
+
+def elane_case(net, N, seed, dev):
+    """Row 1 with the e lane as the trainable-E paths build it: ``r = -1/2
+    lap u + (V - E) u`` on ``u = B net``, the e column B.  ``net``: u100 /
+    u64 with the KH window (FBC) or u100 raw (``"u100 raw"``, B = 1), x on
+    [-60, 60] with the cycle-averaged KH potential; or u50 at d = 2 with
+    the 2D oscillator's FN window of state (1, 1) on [-6, 6]^2."""
+    from nnpde_tpu_torch.kernels import fused_step as fs
+    from nnpde_tpu_torch.models import factor_for_technique
+    from nnpde_tpu_torch.ops.fwdlap import Jet
+    from nnpde_tpu_torch.pde import kh, qho
+
+    name, raw = net.split()[0], net.endswith("raw")
+    layers = EIGEN_U if name == "u50" else KH_NETS[name]
+    d = layers[0]
+    case = Case("fused_linear_residual", N, d, layers, "sin", seed=seed, dev=dev)
+    rng = np.random.default_rng(seed + 1)
+    if d == 1:
+        X = np.sort(rng.uniform(-60.0, 60.0, (N, 1)), axis=0)
+        factor = None if raw else factor_for_technique("FBC", dim=1, kind="window", L=60.0)
+    else:
+        X = rng.uniform(-6.0, 6.0, (N, 2))
+        factor = factor_for_technique("FN", dim=2, kind="window", L=6.0,
+                                      nodes_per_dim=[qho.nodes(1), qho.nodes(1)])
+    case.X = X = torch.as_tensor(X.astype(np.float32), device=dev)
+    if d == 1:
+        V, E = kh.v_kh_avg(X[:, 0], alpha0=10.0), -0.0112
+    else:
+        V, E = qho.potential_2d(X[:, 0], X[:, 1]), qho.energy_2d(1, 1) + 0.05
+    if factor is None:
+        one = torch.ones((N,), device=dev)
+        fj = Jet(one, torch.zeros_like(X), torch.zeros_like(one))
+    else:
+        fj = factor.jet(X)
+    case.coef = fs.residual_coefficients(fj, a0=-0.5, c0=V - E, e_lane=True).contiguous()
+    return case
+
+
+def hold_elane(case):
+    """:func:`hold` (loss and gradients within 1e-5 of float64, repeats
+    bitwise) and the e lane's sum ``sum r e net``: within 1e-5 of the sum of
+    its terms' magnitudes, the same bits on a repeat."""
+    from nnpde_tpu_torch.ops.fwdlap import mlp_fwdlap
+
+    row = hold(case)
+    s1, s2 = (case.kernel()[1]["sum_r_ufull"] for _ in range(2))
+    torch.cuda.synchronize()
+    p = [(W.double(), b.double()) for W, b in case.params]
+    X, c, d = case.X.double(), case.coef.double(), case.d
+    _, _, sums = case.fs.linear_residual_plain(p, X, c, case.act)
+    jet = mlp_fwdlap(p, X, case.act)
+    r = (c[:, 0] * jet.value + torch.sum(c[:, 1:1 + d] * jet.grad, dim=1)
+         + c[:, d + 1] * jet.lap + c[:, d + 2])
+    terms = float(torch.sum(torch.abs(r * c[:, d + 3] * jet.value)))
+    err = abs(float(s1) - float(sums[2]))
+    row.update(sum_r_ufull=float(s1), sum_r_ufull_ref=float(sums[2]),
+               sum_err_over_abs_terms=err / terms, e_lane_bitwise=bool(torch.equal(s1, s2)))
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    row["ok"] = bool(row["ok"] and err <= 1e-5 * terms and row["e_lane_bitwise"])
+    return row
+
+
+def phase_trainE_kernels(dev):
+    """Before any training of the ``kh`` group: row 1 with the e lane on
+    u100 (the KH window and raw), u64 and u50 at d = 2 (:func:`elane_case`,
+    :func:`hold_elane`), and rows 4, 5, 9, 10 on u100 and rows 7, 8 on the
+    critic c50 (sin), at 1024 and 1031 points (u50: 40000 and 40007),
+    against their float64 plain versions by :func:`hold`."""
+    rows, max_err = [], {}
+    for i, (net, N) in enumerate([(net, N) for net in ("u100", "u100 raw", "u64")
+                                  for N in (KH_N, KH_N + 7)]
+                                 + [("u50", EIGEN_N), ("u50", EIGEN_N + 7)]):
+        row = dict(hold_elane(elane_case(net, N, seed=900 + i, dev=dev)), net=net, e_lane=True)
+        rows.append(row)
+        max_err["fused_linear_residual"] = max(max_err.get("fused_linear_residual", 0.0),
+                                               row["max_abs_err"])
+    for i, (kind, net) in enumerate(KH_CASES[1:]):
+        for N in (KH_N, KH_N + 7):
+            row = dict(hold(e1_case(kind, KH_NETS[net], "sin", N, seed=950 + i, dev=dev)),
+                       net=net, act="sin")
+            rows.append(row)
+            max_err[kind] = max(max_err.get(kind, 0.0), row["max_abs_err"])
+    torch.cuda.empty_cache()
+    emit({"phase": "trainE_kernels", "tol": 1e-5, "rows": rows})
+    if not all(r["ok"] for r in rows):
+        raise SystemExit("trainable-energy kernel vs plain comparison failed")
+    return max_err
+
+
+def _run_counted(fn, *args, **kw):
+    """``fn(*args, **kw)`` with the launch counts set to 0 just before and
+    read just after: (output, non-zero counts, wall seconds)."""
+    from nnpde_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    reset_launches()
+    t0 = time.time()
+    out = fn(*args, **kw)
+    return out, {k: v for k, v in LAUNCHES.items() if v}, time.time() - t0
+
+
+def _finite(out):
+    return all(np.all(np.isfinite(v)) for v in out["history"].values())
+
+
+def _gate_routes(runs, per_step, epochs, method, E_of=None, E_ref=None):
+    """The cut paths' gates over ``runs`` ({route: (out, counts, wall)},
+    'torch' first): the kernel routes start as 'torch' does (first total
+    within rtol 1e-4, the first 10 within 5e-2), PINN best eval <= max(2 x
+    torch, 1e-3), DRM and WAN best below the first, all finite, exact
+    launch counts; with ``E_of``, each route's final |E - E_ref| <= max(2 x
+    torch's, 1e-4)."""
+    ref = runs["torch"][0]
+    e_torch = abs(E_of(ref) - E_ref) if E_of else None
+    rows, ok = {}, True
+    for impl, (out, counts, wall) in runs.items():
+        first, first10 = _first_band(ref, out)
+        best = out.get("L2_error", out.get("L2"))
+        want = {k: n * epochs for k, n in per_step[impl].items()}
+        row = {"epochs": epochs, "best_eval": best, "eval_first": float(out["history"]["l2"][0]),
+               "wall_s": wall, "steps_per_s": out["result"].timing["steps_per_s"],
+               "launches": counts, "total0_rel": first, "first10_max_rel": first10}
+        good = _finite(out) and first <= 1e-4 and first10 <= 5e-2 and counts == want
+        if method == "PINN":
+            good = good and best <= max(2.0 * (ref.get("L2_error", ref.get("L2"))), 1e-3)
+        else:
+            good = good and best < out["history"]["l2"][0]
+        if E_of:
+            row["E_final"], row["E_err"] = E_of(out), abs(E_of(out) - E_ref)
+            good = good and row["E_err"] <= max(2.0 * e_torch, 1e-4)
+        row["ok"] = bool(good)
+        ok = ok and row["ok"]
+        rows[impl] = row
+    return rows, ok
+
+
+PINN_STEP = {"torch": {}, "kernel": {"fwdlap_forward": 1, "fwdlap_backward": 1},
+             "fused": {"fused_linear_residual": 1}}
+DRM_STEP = {"torch": {}, "fused": {"quad_sums": 1, "quad_seeded": 1}}
+
+
+def phase_qho2d_path():
+    """``train_qho_2d(nx=1, ny=1, technique='FN')`` at its published nets
+    (u50, critic c20) and 40000 grid points, each route from one seed:
+
+    * PINN with the paper sweep's trainable E (``trainable_energy``,
+      ``energy_variant``, ``energy_lr=1e-4``) on 'torch', 'kernel' and
+      'fused' (row 1 reads the e lane), Q2_EPOCHS of 10000;
+    * DRM on 'torch' and 'fused' (rows 9, 10 with V), Q2_DRM_EPOCHS;
+    * WAN on 'torch' and 'fused' (rows 4, 7, 8 with V, the exact E),
+      Q2_WAN_EPOCHS;
+    * the PINN config on 'fused' for 100 epochs, then the 500-iteration
+      L-BFGS polish over the net and E.
+
+    Gates: :func:`_gate_routes`, E against the exact 2 sqrt(2); the polish
+    moves E and improves on Adam's best."""
+    from nnpde_tpu_torch.problems import QHO2DConfig, train_qho_2d
+
+    default = QHO2DConfig()
+    if (default.layers, default.v_layers, default.grid_n ** 2) != (EIGEN_U, EIGEN_V, EIGEN_N):
+        raise SystemExit("QHO2DConfig's defaults are not the published nets and grid")
+    base = dict(nx=1, ny=1, technique="FN", chunk=1000)
+    pinn = dict(base, method="PINN", trainable_energy=True, energy_variant=True,
+                energy_lr=1e-4)
+    report, ok = {"phase": "qho2d_path", "layers": list(EIGEN_U), "v_layers": list(EIGEN_V),
+                  "grid_points": EIGEN_N, "state": [1, 1], "technique": "FN"}, True
+    t_group = time.time()
+    runs = {impl: _run_counted(train_qho_2d, QHO2DConfig(jet_impl=impl, epochs=Q2_EPOCHS,
+                                                         **pinn))
+            for impl in PINN_STEP}
+    E_exact = runs["torch"][0]["E_exact"]
+    report["pinn_trainE"], good = _gate_routes(
+        runs, PINN_STEP, Q2_EPOCHS, "PINN",
+        E_of=lambda out: float(out["result"].params["E"]), E_ref=E_exact)
+    for impl, (out, _, _) in runs.items():
+        report["pinn_trainE"][impl]["learned_energy"] = out["learned_energy"]
+    report["E_exact"] = E_exact
+    ok = ok and good
+    runs = {impl: _run_counted(train_qho_2d, QHO2DConfig(method="DRM", jet_impl=impl,
+                                                         epochs=Q2_DRM_EPOCHS, **base))
+            for impl in DRM_STEP}
+    report["drm"], good = _gate_routes(runs, DRM_STEP, Q2_DRM_EPOCHS, "DRM")
+    ok = ok and good
+    wan_epoch = {"torch": {}, "fused": {"fwdlap_forward": 2, "linear_sums": 6,
+                                        "linear_seeded": 6}}
+    runs = {impl: _run_counted(train_qho_2d, QHO2DConfig(method="WAN", jet_impl=impl,
+                                                         epochs=Q2_WAN_EPOCHS, **base))
+            for impl in wan_epoch}
+    report["wan"], good = _gate_routes(runs, wan_epoch, Q2_WAN_EPOCHS, "WAN")
+    ok = ok and good
+    # ---- the polish over {net, E}
+    out, counts, wall = _run_counted(train_qho_2d, QHO2DConfig(
+        jet_impl="fused", epochs=100, LBFGS=True, **pinn))
+    adam_best = float(np.min(out["history"]["l2"]))
+    E_adam = float(out["history"]["E"][-1])
+    row = {"epochs": 100, "polish_iterations": 500, "adam_best_mse": adam_best,
+           "best_mse": out["L2_error"], "best_epoch": out["min_epoch"],
+           "E_at_adam_epoch_99": E_adam, "E_polished": float(out["result"].params["E"]),
+           "learned_energy": out["learned_energy"], "wall_s": wall, "launches": counts}
+    row["ok"] = bool(_finite(out) and out["min_epoch"] == 100 and out["L2_error"] < adam_best
+                     and row["E_polished"] != E_adam
+                     and counts == {"fused_linear_residual": 100})
+    ok = ok and row["ok"]
+    report["pinn_trainE_lbfgs_polish"] = row
+    report["training_s"] = time.time() - t_group
+    report["ok"] = bool(ok)
+    emit(report)
+    if not ok:
+        raise SystemExit("2D oscillator path check failed")
+    return {k: {impl: r["steps_per_s"] for impl, r in report[k].items()}
+            for k in ("pinn_trainE", "drm", "wan")}
+
+
+def kh_ground_truth():
+    from nnpde_tpu_torch.pde.kh import KHGroundTruth
+
+    t0 = time.time()
+    gt = KHGroundTruth(**KH_GT)
+    return gt, time.time() - t0
+
+
+def phase_kh_path():
+    """``train_kh`` against ``KHGroundTruth(alpha=10, L=60, N=5000,
+    n_levels=6)`` with the acceptance rows' config (KH_ACC: the net u100 at
+    1024 points, ground state), each route from one seed:
+
+    * PINN (FBC, trainable E, row 1 with the e lane) on 'torch', 'kernel'
+      and 'fused', KH_EPOCHS of 10000;
+    * DRM (FBC, E the Rayleigh quotient; rows 9, 10 with V) on 'torch' and
+      'fused', KH_DRM_EPOCHS of 5000;
+    * WAN (RAW, trainable E; the ratio-squared pair with the critic's
+      direct ascent, rows 4, 7, 8 on u100 and the critic c50) on 'torch' and
+      'fused', KH_WAN_EPOCHS of 5000.
+
+    Gates: :func:`_gate_routes`, E (PINN, WAN) against the FD eigenvalue."""
+    from nnpde_tpu_torch.problems import KHConfig, train_kh
+
+    gt, gt_s = kh_ground_truth()
+    E_ref = gt.energy(0)
+    report, ok = {"phase": "kh_path", "layers": list(KH_NETS["u100"]),
+                  "v_layers": list(KH_NETS["c50"]), "train_points": KH_N, "n": 0,
+                  "ground_truth_s": gt_s, "E_ref": E_ref}, True
+    t_group = time.time()
+
+    def final_E(out):
+        return float(out["result"].params["E"])
+
+    for method, tech, epochs, per_step, E_of in (
+            ("PINN", "FBC", KH_EPOCHS, PINN_STEP, final_E),
+            ("DRM", "FBC", KH_DRM_EPOCHS, DRM_STEP, None),
+            ("WAN", "RAW", KH_WAN_EPOCHS,
+             {"torch": {}, "fused": {"fwdlap_forward": 2, "linear_sums": 4,
+                                     "linear_seeded": 4}}, final_E)):
+        runs = {impl: _run_counted(train_kh, KHConfig(method=method, technique=tech,
+                                                      epochs=epochs, jet_impl=impl, **KH_ACC),
+                                   gt)
+                for impl in per_step}
+        rows, good = _gate_routes(runs, per_step, epochs, method, E_of=E_of, E_ref=E_ref)
+        for impl, (out, _, _) in runs.items():
+            rows[impl]["E_est"] = out["E_est"]
+        report[method.lower()] = rows
+        ok = ok and good
+    report["training_s"] = time.time() - t_group
+    report["ok"] = bool(ok)
+    emit(report)
+    if not ok:
+        raise SystemExit("Kramers-Henneberger path check failed")
+    return {k: {impl: r["steps_per_s"] for impl, r in report[k].items()}
+            for k in ("pinn", "drm", "wan")}
+
+
+def phase_kh_timing(dev, only=None):
+    """KH_CASES at the path's 1024 points and at 262144 (row 1 with the e
+    lane, u100 and the KH window): wrapper ms, device ms, plan, bound, and
+    the plain version's ms.  The e lane is a column the stream always
+    carries, so it adds no bytes."""
+    rows = []
+    for kind, net in KH_CASES:
+        if not timed(kind, only):
+            continue
+        for N in (KH_N, 262144):
+            case = (elane_case(net, N, seed=23, dev=dev) if kind == "fused_linear_residual"
+                    else e1_case(kind, KH_NETS[net], "sin", N, seed=23, dev=dev))
+            ms = time_ms(case.kernel)
+            flop, nbytes = case.flops(), case.bytes()
+            rows.append({"kernel": kind, "net": net, "act": "sin", "d": 1, "N": N,
+                         "e_lane": kind == "fused_linear_residual",
+                         "plan": e1_plan(case, N, dev), "ms": ms,
+                         "device_ms": device_ms(case.kernel),
+                         "plain_ms": time_ms(lambda: case.plain(torch.float32), warmup=2,
+                                             reps=7),
+                         "bound_ms": case.bound_ms(),
+                         "bound_by": ("operations" if flop / FP32_PEAK >= nbytes / HBM_RATE
+                                      else "bytes"),
+                         "flop": flop, "bytes": nbytes, "gflops": flop / (ms * 1e-3) / 1e9})
+            del case
+            torch.cuda.empty_cache()
+    emit({"phase": "kh_timing", "rows": rows})
+    return rows
+
+
+def phase_full(route):
+    """The full-length acceptance rows (``python3 chip_smoke.py full``, not
+    in the default run), on ``route`` ('fused' unless ``--route=`` names
+    another), each against its ACCEPTANCE.json target:
+
+    * ``ipw2d_n33_pinn_fn``: ``train_ipw_2d`` (3, 3) FN PINN, 20000 epochs,
+      weights {'data': 1e4}: rel_l2 <= 1e-3;
+    * ``kh1d_alpha10_pinn``: ``train_kh`` KH_ACC FBC, 10000 epochs: best
+      MSE <= 1e-6 and |E - E_ref| <= 1e-4;
+    * ``kh1d_alpha10_{pinn,drm,wan}_dense``: ``run_compare(n_max=1,
+      epochs=5000, data_fraction=0.5, max_data_points=500)``: dense L2 <=
+      1e-6 and |E - E_ref| <= 1e-4 (WAN 1e-3).
+
+    A miss is reported (``pass`` false) and the group exits non-zero after
+    every row has run."""
+    from nnpde_tpu_torch.problems import (IPW2DConfig, KHCompareConfig, KHConfig, run_compare,
+                                          train_ipw_2d, train_kh)
+
+    rows = []
+
+    def record(name, row):
+        row = dict(name=name, route=route, **row)
+        rows.append(row)
+        emit(dict(phase="full", **row))
+
+    out, counts, wall = _run_counted(train_ipw_2d, IPW2DConfig(
+        nx=3, ny=3, method="PINN", technique="FN", epochs=20000, chunk=2000,
+        weights={"data": 1e4}, jet_impl=route))
+    record("ipw2d_n33_pinn_fn", {
+        "rel_l2": out["rel_l2"], "best_mse": out["L2_error"], "best_epoch": out["min_epoch"],
+        "epochs": 20000, "wall_s": wall, "steps_per_s": out["result"].timing["steps_per_s"],
+        "launches": counts, "acceptance_rel_l2": 6.138212943059301e-05,
+        "target": "rel_l2 <= 1e-3", "pass": bool(out["rel_l2"] <= 1e-3 and _finite(out))})
+    gt, _ = kh_ground_truth()
+    out, counts, wall = _run_counted(train_kh, KHConfig(
+        method="PINN", n=0, technique="FBC", epochs=10000, chunk=2000, jet_impl=route,
+        **KH_ACC), gt)
+    e_err = abs(out["E_est"] - out["E_ref"])
+    record("kh1d_alpha10_pinn", {
+        "best_mse": out["L2"], "E_est": out["E_est"], "E_ref": out["E_ref"],
+        "E_abs_err": e_err, "best_epoch": out["best_epoch"], "epochs": 10000, "wall_s": wall,
+        "steps_per_s": out["result"].timing["steps_per_s"], "launches": counts,
+        "acceptance_best_mse": 3.731924991257074e-09, "acceptance_E_abs_err": 1.56e-06,
+        "target": "best_mse <= 1e-6; E_abs_err <= 1e-4",
+        "pass": bool(out["L2"] <= 1e-6 and e_err <= 1e-4)})
+    targets = {"PINN": (1e-6, 1e-4), "DRM": (1e-6, 1e-4), "WAN": (1e-6, 1e-3)}
+    acceptance = {"PINN": (5.757583920740217e-08, 8.391216397285461e-06),
+                  "DRM": (5.70526346166389e-08, 5.1567330956459045e-06),
+                  "WAN": (7.600196028079154e-08, 0.000269436277449131)}
+    dense, counts, wall = _run_counted(run_compare, KHCompareConfig(
+        n_max=1, epochs=5000, data_fraction=0.5, max_data_points=500, jet_impl=route))
+    for row in dense:
+        m = row["method"]
+        l2_t, e_t = targets[m]
+        e_err = abs(row["E_est"] - row["E_ref"])
+        record(f"kh1d_alpha10_{m.lower()}_dense", {
+            "dense_L2": row["L2_error_dense"], "E_est": row["E_est"], "E_ref": row["E_ref"],
+            "E_abs_err": e_err, "best_epoch": row["best_epoch"], "epochs": 5000,
+            "wall_s": row["elapsed_time_sec"], "acceptance_dense_L2": acceptance[m][0],
+            "acceptance_E_abs_err": acceptance[m][1],
+            "target": f"dense_L2 <= {l2_t}; E_abs_err <= {e_t}",
+            "pass": bool(row["L2_error_dense"] <= l2_t and e_err <= e_t)})
+    emit({"phase": "full_summary", "route": route, "launches_dense": counts,
+          "pass": {r["name"]: r["pass"] for r in rows}})
+    if not all(r["pass"] for r in rows):
+        raise SystemExit("full: a row missed its ACCEPTANCE.json target (reported above)")
+
+
+GROUPS = ("kernels", "wan", "main", "eigen", "ipw3d", "neumann", "eigen1d", "qho2d", "kh",
+          "timing", "precision")
+# groups that run only when named
+NAMED = ("sweep", "mma_sweep", "mma_depth", "devw_sweep", "full")
 
 
 def main():
-    args = [a for a in sys.argv[1:] if not a.startswith("--rows=")]
+    args = [a for a in sys.argv[1:] if not a.startswith("--")]
     only = [a.split("=", 1)[1].split(",") for a in sys.argv[1:] if a.startswith("--rows=")]
     only = set(only[-1]) if only else None
+    route = [a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--route=")]
+    route = route[-1] if route else "fused"
     want = set(args) or set(GROUPS)
     if only is not None and want != {"timing"}:
         raise SystemExit("--rows= filters the timing group only: chip_smoke.py timing "
                          "--rows=KERNEL[,KERNEL...]")
-    if not want <= set(GROUPS) | {"sweep", "mma_sweep", "mma_depth", "devw_sweep"}:
+    if route != "fused" and want != {"full"}:
+        raise SystemExit("--route= applies to the full group only: chip_smoke.py full "
+                         "--route=torch")
+    if not want <= set(GROUPS) | set(NAMED):
         raise SystemExit(f"unknown phase group in {sorted(want)}; choose from "
-                         f"{GROUPS + ('sweep', 'mma_sweep', 'mma_depth', 'devw_sweep')}")
+                         f"{GROUPS + NAMED}")
     full = want == set(GROUPS)
     card = phase_device()
     dev = torch.device("cuda")
@@ -3094,6 +3512,9 @@ def main():
     if "eigen1d" in want:
         for kind, err in phase_eigen1d_kernels(dev).items():
             max_err[kind] = max(max_err.get(kind, 0.0), err)
+    if "kh" in want:
+        for kind, err in phase_trainE_kernels(dev).items():
+            max_err[kind] = max(max_err.get(kind, 0.0), err)
     if "main" in want:
         counts, speed["steps_per_s_fused"] = phase_main_path()
         launches.update(counts)
@@ -3110,6 +3531,12 @@ def main():
         speed["neumann_steps_per_s"] = phase_neumann_path()
     if "eigen1d" in want:
         _, speed["eigen1d"] = phase_eigen1d_path()
+    if "qho2d" in want:
+        speed["qho2d"] = phase_qho2d_path()
+    if "kh" in want:
+        speed["kh"] = phase_kh_path()
+    if "full" in want:
+        phase_full(route)
     if "precision" in want:
         launches.update(phase_precision_path())
     rows = wan_rows = eigen_rows = prec_rows = []
@@ -3120,6 +3547,8 @@ def main():
         phase_ipw3d_timing(dev, only)
     if want & {"timing", "eigen1d"}:
         phase_eigen1d_timing(dev, only)
+    if want & {"timing", "kh"}:
+        phase_kh_timing(dev, only)
     if "eigen1d" in want:
         phase_graph_trace(dev)
     if "precision" in want:

@@ -1,4 +1,4 @@
-from . import ipw, poisson, qho
+from . import ipw, kh, poisson, qho
 from .domain import Box
 
-__all__ = ["Box", "ipw", "poisson", "qho"]
+__all__ = ["Box", "ipw", "kh", "poisson", "qho"]

@@ -60,6 +60,7 @@ from ..pde import ipw as phys
 from ..prng import fold_in, generator
 from ..sampling import first_fraction_every_kth, linspace_grid
 from ..train import fit, fit_wan, lbfgs_polish, make_optimizer, make_wan_optimizers
+from ..train.trainer import _grad
 from ._fused_wan import factor_jet_or_one, make_fused_wan_pair
 
 JET_IMPLS = ("torch", "kernel", "fused")
@@ -83,21 +84,40 @@ def on_device(params, dev):
 def fused_residual_step(model, X, coef, w_pde: float, aux_terms, zero):
     """``lag_fn(params, key)`` of :func:`~nnpde_tpu_torch.train.fit` for a
     residual linear in the net's jet: ``w_pde * mean(r^2)`` through one
-    fused launch (coefficients ``coef``), plus ``aux_terms(params, u) ->
-    (weighted total, terms)`` on autograd."""
+    fused launch, plus ``aux_terms(params, u) -> (weighted total, terms)``
+    on autograd (``params`` as ``lag_fn`` gets them).
+
+    ``params``: the net ``[(W, b), ...]``, or ``{"net": [...]}`` (the
+    gradients then come back in the same structure), or ``{"net": [...],
+    "E": E}`` for a trainable eigenvalue; ``coef`` is the coefficient stream,
+    or with an E leaf a function of E (called on E detached) that puts the
+    factor in the e lane (``residual_coefficients(..., c0=V - E,
+    e_lane=True)``).  ``dr/dE = -u``, so E's gradient is ``-(2 w_pde / N)
+    sum r*u`` (the kernel's ``sum_r_ufull``) plus what ``aux_terms`` gives
+    E.  ``zero``: the ``drm`` metric (None: no such metric)."""
     act = model.spec.activation
 
     def lag_fn(params, key):
-        pde, _, g_pde = fused_linear_residual(params, X, coef, act)
+        net = params["net"] if isinstance(params, dict) else params
+        E = params.get("E") if isinstance(params, dict) else None
+        c = coef(E.detach()) if callable(coef) else coef
+        pde, kaux, g_pde = fused_linear_residual(net, X, c, act)
+        leaves = ([t for pair in net for t in pair] + ([] if E is None else [E]))
         with torch.enable_grad():
-            aux_tot, terms = aux_terms(params, model.apply_batch(params, X))
-            g_aux = torch.autograd.grad(aux_tot, [t for pair in params for t in pair])
+            aux_tot, terms = aux_terms(params, model.apply_batch(net, X))
+            g_aux = _grad(aux_tot, leaves)
         total = w_pde * pde + aux_tot.detach()
         grads = [(w_pde * gW + g_aux[2 * i], w_pde * gb + g_aux[2 * i + 1])
                  for i, (gW, gb) in enumerate(g_pde)]
-        metrics = {"pde": pde, "drm": zero}
+        metrics = {"pde": pde} if zero is None else {"pde": pde, "drm": zero}
         metrics.update({k: v.detach() for k, v in terms.items()})
-        return (total, metrics), grads
+        if not isinstance(params, dict):
+            return (total, metrics), grads
+        out = {"net": grads}
+        if E is not None:
+            out["E"] = (-2.0 * w_pde / kaux["n"]) * kaux["sum_r_ufull"] + g_aux[-1]
+            metrics["E"] = E.detach()
+        return (total, metrics), out
 
     return lag_fn
 

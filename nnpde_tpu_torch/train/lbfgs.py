@@ -40,7 +40,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .trainer import FitResult, _History
+from .trainer import FitResult, _History, _leaves_of, _rebuild
 
 # optax's defaults of scale_by_zoom_linesearch, and the lbfgs alias's
 # max_linesearch_steps
@@ -53,18 +53,26 @@ STEPSIZE_PRECISION = 1e-5
 
 
 class _Flat:
-    """The leaves of ``[(W, b), ...]`` as one flat vector, and back."""
+    """The leaves of ``[(W, b), ...]`` (or of a ``{"net": [...], <name>:
+    tensor}`` dict, such as a net with its trainable eigenvalue ``E``) as one
+    flat vector, and back."""
 
     def __init__(self, params):
-        self.shapes = [t.shape for pair in params for t in pair]
-        self.sizes = [t.numel() for pair in params for t in pair]
+        self.like = params
+        self.shapes = [t.shape for t in _leaves_of(params)]
+        self.sizes = [t.numel() for t in _leaves_of(params)]
 
     def flatten(self, params) -> torch.Tensor:
-        return torch.cat([t.detach().reshape(-1) for pair in params for t in pair]).clone()
+        return torch.cat([t.detach().reshape(-1) for t in _leaves_of(params)]).clone()
 
     def unflatten(self, x):
-        leaves = [v.view(s) for v, s in zip(torch.split(x, self.sizes), self.shapes)]
-        return [(leaves[i], leaves[i + 1]) for i in range(0, len(leaves), 2)]
+        return _rebuild(self.like, [v.view(s) for v, s in
+                                    zip(torch.split(x, self.sizes), self.shapes)])
+
+    def copy(self, x):
+        """Parameters from the flat vector ``x``, each leaf with its own
+        storage."""
+        return _rebuild(self.like, [t.clone() for t in _leaves_of(self.unflatten(x.detach()))])
 
 
 def _nanmax(a, b):
@@ -353,10 +361,10 @@ def lbfgs_polish(
     while opt.count < max_iter:
         if not opt.step(tol):
             break
-    out = opt.flat.unflatten(opt.x.detach())
+    out = opt.flat.copy(opt.x)
     with torch.no_grad():
         value = loss_fn(out)
-    return [(W.clone(), b.clone()) for W, b in out], value
+    return out, value
 
 
 def lbfgs_fit(
@@ -406,11 +414,9 @@ def lbfgs_fit(
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     elapsed = time.time() - t0
-    final = [(W.clone(), b.clone()) for W, b in opt.flat.unflatten(opt.x.detach())]
-    best = [(W.clone(), b.clone()) for W, b in opt.flat.unflatten(best_x)]
     return FitResult(
-        params=final,
-        best_params=best,
+        params=opt.flat.copy(opt.x),
+        best_params=opt.flat.copy(best_x),
         best_metric=float(best_m),
         best_epoch=int(best_e),
         history=hist.result(),

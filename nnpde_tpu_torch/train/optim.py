@@ -16,12 +16,16 @@ so far (0 for the first update):
 torch's ``lr_scheduler`` classes follow other conventions, so the
 schedule is a plain function and :func:`set_lr` writes its value into the
 parameter groups before every step.
+
+:class:`MultiTransformAdam` is ``optax.multi_transform`` over such Adams:
+a learning rate (and schedule) per labelled group of leaves, as the 2D
+oscillator gives its trainable eigenvalue ``E`` its own.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, Dict, Sequence
 
 import torch
 
@@ -120,6 +124,50 @@ class ScheduledAdam:
             m_hat = m / (1.0 - b1 ** step)
             v_hat = v / (1.0 - b2 ** step)
             out.append(t.detach() - lr * m_hat / (torch.sqrt(v_hat) + self.eps))
+        return out
+
+
+class MultiTransformAdam:
+    """``optax.multi_transform({label: adam, ...}, labels)``: one
+    ``torch.optim.Adam`` with a parameter group per label, each on its own
+    :class:`ScheduledAdam`'s schedule, betas and eps.
+
+    ``labels``: the label of each leaf, in the order the trainer hands
+    :meth:`init` its leaves (:func:`~nnpde_tpu_torch.train.leaf_labels`).
+    The update count is shared, as in optax, where every inner transform
+    sees every step: :meth:`set_lr` evaluates each group's schedule at the
+    same ``count``."""
+
+    def __init__(self, transforms: Dict[str, ScheduledAdam], labels: Sequence[str]):
+        unknown = sorted(set(labels) - set(transforms))
+        if unknown:
+            raise ValueError(f"leaves labelled {unknown} have no transform")
+        self.transforms = dict(transforms)
+        self.labels = list(labels)
+
+    def _lrs(self, count: int):
+        return {name: float(tr.schedule(count)) for name, tr in self.transforms.items()}
+
+    def init(self, tensors) -> torch.optim.Adam:
+        tensors = list(tensors)
+        if len(tensors) != len(self.labels):
+            raise ValueError(f"{len(tensors)} leaves for {len(self.labels)} labels")
+        lrs = self._lrs(0)
+        groups = [{"params": [t for t, lab in zip(tensors, self.labels) if lab == name],
+                   "lr": lrs[name], "betas": tr.betas, "eps": tr.eps, "label": name}
+                  for name, tr in self.transforms.items() if name in self.labels]
+        return torch.optim.Adam(groups)
+
+    def set_lr(self, opt: torch.optim.Optimizer, count: int) -> None:
+        lrs = self._lrs(count)
+        for group in opt.param_groups:
+            group["lr"] = lrs[group["label"]]
+
+    def lookahead(self, opt: torch.optim.Optimizer, count: int, tensors, grads):
+        """:meth:`ScheduledAdam.lookahead` with each leaf's own transform."""
+        out = []
+        for t, g, lab in zip(tensors, grads, self.labels):
+            out += self.transforms[lab].lookahead(opt, count, [t], [g])
         return out
 
 

@@ -71,6 +71,23 @@ def _rebuild(like, leaves):
     return _pairs(leaves)
 
 
+def leaf_labels(params, labels: Dict[str, str]):
+    """The label of each leaf of ``params`` in the trainer's leaf order
+    (:func:`_leaves_of`), from ``labels``, one label per top-level key of a
+    ``{"net": ..., <name>: ...}`` dict: every leaf under a key takes its
+    label (``optax.multi_transform``'s labels, for
+    :class:`~nnpde_tpu_torch.train.optim.MultiTransformAdam`)."""
+    return ([labels["net"]] * len(_leaves_of(params["net"]))
+            + [labels[k] for k in sorted(params) if k != "net"])
+
+
+def _grad(loss, leaves):
+    """d loss / d leaves, zeros for a leaf the loss does not read (a DRM's
+    tracked E), as JAX's gradient of an unused leaf."""
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)]
+
+
 def _trainable(params):
     return [t.detach().clone().requires_grad_(True) for t in _leaves_of(params)]
 
@@ -129,7 +146,9 @@ def fit(
     start_epoch: int = 0,
     loss_and_grad_fn: Optional[Callable] = None,
 ) -> FitResult:
-    """Train ``params`` for ``epochs`` steps of Adam.
+    """Train ``params`` (``[(W, b), ...]``, or a ``{"net": [...], <name>:
+    tensor}`` dict with extra trainable leaves) for ``epochs`` steps of
+    Adam.
 
     ``loss_and_grad_fn``: optional ``(params, key) -> ((loss, metrics),
     grads)`` replacing autograd of ``loss_fn`` — the hook for the fused
@@ -150,17 +169,17 @@ def fit(
     for i in range(epochs):
         epoch = start_epoch + i
         k = fold_in(key, epoch)
-        p = _pairs(leaves)
+        p = _rebuild(params, leaves)
         if loss_and_grad_fn is not None:
             (loss, metrics), grads = loss_and_grad_fn(p, k)
-            grads = [g for gW, gb in grads for g in (gW, gb)]
+            grads = _leaves_of(grads)
         else:
             loss, metrics = loss_fn(p, k)
-            grads = torch.autograd.grad(loss, leaves)
+            grads = _grad(loss, leaves)
         _adam_step(optimizer, opt, leaves, grads, count)
         count += 1
         with torch.no_grad():
-            m = eval_fn(_pairs(leaves), fold_in(k, 0x5EED)).to(torch.float32)
+            m = eval_fn(_rebuild(params, leaves), fold_in(k, 0x5EED)).to(torch.float32)
             improved = m < best_m
             best_leaves = [torch.where(improved, t, bt)
                            for t, bt in zip(leaves, best_leaves)]
@@ -175,8 +194,8 @@ def fit(
     history = hist.result()
     carry = Carry(leaves, opt, count, best_m, best_leaves, best_e)
     return FitResult(
-        params=[(W.detach(), b.detach()) for W, b in _pairs(leaves)],
-        best_params=_pairs(best_leaves),
+        params=_detached(leaves, params),
+        best_params=_rebuild(params, best_leaves),
         best_metric=float(best_m),
         best_epoch=int(best_e),
         history=history,
@@ -266,7 +285,7 @@ def fit_wan(
 
     def u_grad(u_lv, v_p, k):
         (loss, metrics) = u_loss_fn(_rebuild(u_params, u_lv), v_p, k)
-        return loss, metrics, torch.autograd.grad(loss, u_lv)
+        return loss, metrics, _grad(loss, u_lv)
 
     def v_grad(v_lv, ctx, k):
         loss = v_loss_fn(_pairs(v_lv), ctx, k)

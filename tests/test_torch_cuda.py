@@ -1370,3 +1370,146 @@ def test_cuda_device_weights_smem_layout_mirror(dev):
             for kind, code in (("linear_sums", 0), ("quad_sums", 2)):
                 assert lib.fused_quotient_smem_bytes(code, 0, ptr, n, T, f) == 4 * \
                     tfq.smem_floats(kind, layers, T, 0, f)
+
+
+# ----------------------------------------- the trainable-energy eigenproblems
+def _elane_inputs(rng, layers, factor, N, device):
+    """Row 1's inputs as the trainable-E paths build them: ``r = -1/2 lap u
+    + (V - E) u`` with the e column B.  d = 1: x on [-60, 60], the
+    cycle-averaged KH potential, the KH window (``'window'``) or B = 1
+    (``'raw'``); d = 2: the 2D oscillator's FN window of state (1, 1) on
+    [-6, 6]^2."""
+    from nnpde_tpu_torch.models import factor_for_technique
+    from nnpde_tpu_torch.ops.fwdlap import Jet
+    from nnpde_tpu_torch.pde import kh, qho
+
+    d = layers[0]
+    if d == 1:
+        X = torch.as_tensor(np.sort(rng.uniform(-60.0, 60.0, (N, 1)), axis=0).astype(np.float32),
+                            device=device)
+        V, E = kh.v_kh_avg(X[:, 0], alpha0=10.0), -0.0112
+        fac = (None if factor == "raw"
+               else factor_for_technique("FBC", dim=1, kind="window", L=60.0))
+    else:
+        X = torch.as_tensor(rng.uniform(-6.0, 6.0, (N, 2)).astype(np.float32), device=device)
+        V, E = qho.potential_2d(X[:, 0], X[:, 1]), qho.energy_2d(1, 1) + 0.05
+        fac = factor_for_technique("FN", dim=2, kind="window", L=6.0,
+                                   nodes_per_dim=[qho.nodes(1), qho.nodes(1)])
+    if fac is None:
+        one = torch.ones((N,), device=device)
+        fj = Jet(one, torch.zeros_like(X), torch.zeros_like(one))
+    else:
+        fj = fac.jet(X)
+    return X, tfs.residual_coefficients(fj, a0=-0.5, c0=V - E, e_lane=True).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layers,factor", [((1, 100, 100, 100, 1), "window"),
+                                           ((1, 100, 100, 100, 1), "raw"),
+                                           ((1, 64, 64, 64, 1), "window"),
+                                           ((2, 50, 50, 50, 50, 1), "qho2d")])
+def test_cuda_elane_residual_matches_float64(dev, layers, factor):
+    """Row 1 with a non-zero e lane (the KH nets and the 2D oscillator's
+    u50) against its float64 plain version: loss and grad tree rel <= 1e-5,
+    ``sum_r_ufull`` within 1e-5 of the sum of its terms' magnitudes, two
+    launches bitwise equal, the e-lane sum included."""
+    from nnpde_tpu_torch.ops.fwdlap import mlp_fwdlap
+
+    rng = np.random.default_rng(61)
+    N = 1031 if layers[0] == 1 else 4007
+    params = params_from_jax(_np_params(rng, layers), device=dev)
+    X, coef = _elane_inputs(rng, layers, factor, N, dev)
+    (l1, a1, g1), (l2, a2, g2) = (tfs.fused_linear_residual(params, X, coef, "sin")
+                                  for _ in range(2))
+    assert torch.equal(l1, l2) and torch.equal(a1["sum_r_ufull"], a2["sum_r_ufull"])
+    assert all(torch.equal(x, y) for pa, pb in zip(g1, g2) for x, y in zip(pa, pb))
+    p64 = [(W.double(), b.double()) for W, b in params]
+    X64, c64 = X.double(), coef.double()
+    dWs, dbs, sums = tfs.linear_residual_plain(p64, X64, c64, "sin")
+    assert abs(float(l1) - float(sums[0]) / N) <= 1e-5 * abs(float(sums[0]) / N)
+    assert _tree_rel(g1, tfs._scaled_grads(p64, dWs, dbs, sums, 2.0 / N)) <= 1e-5
+    d = layers[0]
+    jet = mlp_fwdlap(p64, X64, "sin")
+    r = (c64[:, 0] * jet.value + torch.sum(c64[:, 1:1 + d] * jet.grad, dim=1)
+         + c64[:, d + 1] * jet.lap + c64[:, d + 2])
+    terms = float(torch.sum(torch.abs(r * c64[:, d + 3] * jet.value)))
+    assert terms > 0.0
+    assert abs(float(a1["sum_r_ufull"]) - float(sums[2])) <= 1e-5 * terms
+
+
+@pytest.mark.cuda
+def test_cuda_ratio_sq_neg_pair_on_raw_critic(dev):
+    """KH's fused WAN pair (``convention='ratio_sq'``, ``eps=1e-12/(2L)``,
+    ``objective='neg'``; a raw primal and a critic with no trial factor) on
+    the card against the same objectives on the plain route in float64
+    (CPU): values, parameter gradients and dE, each within the larger of
+    1e-5 and twice the plain route's own float32 error."""
+    from nnpde_tpu_torch.models import NetSpec, SolutionModel
+    from nnpde_tpu_torch.ops import bump_w
+    from nnpde_tpu_torch.pde import kh
+    from nnpde_tpu_torch.problems._fused_wan import make_fused_wan_pair
+
+    Lk, N = 60.0, 1031
+    u_model = SolutionModel(NetSpec((1, 100, 100, 100, 1), activation="sin"))
+    v_model = SolutionModel(NetSpec((1, 50, 50, 50, 1), activation="sin"))
+    pair = make_fused_wan_pair(u_model, v_model, w_pde=10.0, convention="ratio_sq",
+                               eps=1e-12 / (2.0 * Lk), objective="neg")
+    rng = np.random.default_rng(62)
+    up, vp = _np_params(rng, (1, 100, 100, 100, 1)), _np_params(rng, (1, 50, 50, 50, 1))
+    x = np.linspace(-Lk, Lk, N, dtype=np.float32)[:, None]
+    got = []
+    for device, dtype in ((dev, torch.float32), ("cpu", torch.float32),
+                          ("cpu", torch.float64)):
+        X = torch.as_tensor(x, device=device, dtype=dtype)
+        V = kh.v_kh_avg(X[:, 0], alpha0=10.0)
+        wv, dwv = bump_w(X, -Lk, Lk)
+        u = [(W.requires_grad_(True), b.requires_grad_(True))
+             for W, b in params_from_jax(up, device=device, dtype=dtype)]
+        v = [(W.requires_grad_(True), b.requires_grad_(True))
+             for W, b in params_from_jax(vp, device=device, dtype=dtype)]
+        E = torch.tensor(-0.0112, device=device, dtype=dtype, requires_grad=True)
+        total, _ = pair.u_pde_fn(u, E, [(W.detach(), b.detach()) for W, b in v], X, wv, dwv,
+                                 V=V)
+        gu = torch.autograd.grad(total, [t for pr in u for t in pr] + [E])
+        coef = pair.v_coef_fn([(W.detach(), b.detach()) for W, b in u], E.detach(), X, wv,
+                              dwv, V=V)
+        lv, _ = pair.v_loss_from_coef(v, X, coef)
+        gv = torch.autograd.grad(lv, [t for pr in v for t in pr])
+        got.append([float(total), torch.cat([g.reshape(-1).double().cpu() for g in gu[:-1]]),
+                    float(gu[-1]), float(lv),
+                    torch.cat([g.reshape(-1).double().cpu() for g in gv])])
+    ref = got[2]
+
+    def errs(side):
+        return [abs(side[0] - ref[0]) / abs(ref[0]),
+                float(torch.linalg.norm(side[1] - ref[1]) / torch.linalg.norm(ref[1])),
+                abs(side[2] - ref[2]) / abs(ref[2]),
+                abs(side[3] - ref[3]) / abs(ref[3]),
+                float(torch.linalg.norm(side[4] - ref[4]) / torch.linalg.norm(ref[4]))]
+
+    for kern, plain32 in zip(errs(got[0]), errs(got[1])):
+        assert kern <= max(1e-5, 2.0 * plain32), (kern, plain32)
+
+
+@pytest.mark.cuda
+def test_cuda_interp_and_ground_truth_match_cpu(dev):
+    """The device interpolation (``pde/kh.py::interp``) on the card against
+    the CPU, at, between and beyond the nodes, and the KH ground truth's
+    ``resample`` on the card against the CPU's."""
+    from nnpde_tpu_torch.pde import kh
+
+    rng = np.random.default_rng(63)
+    xp = np.sort(rng.uniform(-5.0, 5.0, 40))
+    fp = rng.normal(size=40)
+    x = np.concatenate([xp, (xp[1:] + xp[:-1]) / 2, [-9.0, 9.0], rng.uniform(-6.0, 6.0, 50)])
+    for dtype in (torch.float64, torch.float32):
+        args = [torch.as_tensor(a, dtype=dtype) for a in (x, xp, fp)]
+        want = kh.interp(*args)
+        got = kh.interp(*[a.to(dev) for a in args]).cpu()
+        torch.testing.assert_close(got, want, rtol=1e-6 if dtype == torch.float32 else 1e-12,
+                                   atol=0.0)
+    kw = dict(alpha=10.0, L=60.0, N=600, n_levels=3, n_theta=64)
+    g_dev, g_cpu = kh.KHGroundTruth(**kw, device=dev), kh.KHGroundTruth(**kw, device="cpu")
+    xs = torch.linspace(-61.0, 61.0, 257)
+    for a, b in zip(g_dev.resample(xs.to(dev)), g_cpu.resample(xs)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-7)

@@ -74,3 +74,53 @@ def _optax_schedule(lr, count, *, schedule, total_steps, warmup, final_scale):
                                  [warmup])
     with jax.enable_x64(True):
         return float(s(count))
+
+
+@pytest.mark.parametrize("schedule", ["constant", "cosine"])
+def test_multi_transform_matches_optax(schedule):
+    """``MultiTransformAdam`` against ``optax.multi_transform`` of two
+    scheduled Adams (a net and its scalar E at a tenth of the rate, as
+    ``train_qho_2d``'s ``energy_lr`` builds them): five updates, float64,
+    rel <= 1e-6; the extragradient lookahead equals a real step."""
+    from nnpde_tpu_torch.train import MultiTransformAdam, leaf_labels
+
+    kw = dict(schedule=schedule, total_steps=6)
+    rng = np.random.default_rng(2)
+    net0 = [(rng.normal(size=(3, 4)), rng.normal(size=(4,)))]
+    E0 = 1.5
+    gs = [([(rng.normal(size=(3, 4)), rng.normal(size=(4,)))], rng.normal()) for _ in range(5)]
+    with jax.enable_x64(True):
+        params = {"net": [tuple(jnp.asarray(a) for a in pr) for pr in net0],
+                  "E": jnp.asarray(E0)}
+        labels = {"net": jax.tree_util.tree_map(lambda _: "net", params["net"]), "E": "E"}
+        opt_j = optax.multi_transform({"net": j_make_optimizer(1e-2, **kw),
+                                       "E": j_make_optimizer(1e-3, **kw)}, labels)
+        state = opt_j.init(params)
+        for gn, gE in gs:
+            g = {"net": [tuple(jnp.asarray(a) for a in pr) for pr in gn],
+                 "E": jnp.asarray(gE)}
+            upd, state = opt_j.update(g, state, params)
+            params = optax.apply_updates(params, upd)
+        want = [np.asarray(x) for x in jax.tree_util.tree_leaves(params["net"])] + [
+            np.asarray(params["E"])]
+    tparams = {"net": [tuple(torch.tensor(a) for a in pr) for pr in net0],
+               "E": torch.tensor(E0, dtype=torch.float64)}
+    leaves = [t for pr in tparams["net"] for t in pr] + [tparams["E"]]
+    assert leaf_labels(tparams, {"net": "net", "E": "E"}) == ["net", "net", "E"]
+    opt_t = MultiTransformAdam({"net": make_optimizer(1e-2, **kw),
+                                "E": make_optimizer(1e-3, **kw)}, ["net", "net", "E"])
+    adam = opt_t.init(leaves)
+    for count, (gn, gE) in enumerate(gs):
+        grads = [torch.tensor(a) for pr in gn for a in pr] + [torch.tensor(gE, dtype=torch.float64)]
+        ahead = opt_t.lookahead(adam, count, leaves, grads)
+        for t, g in zip(leaves, grads):
+            t.grad = g
+        opt_t.set_lr(adam, count)
+        adam.step()
+        for a, t in zip(ahead, leaves):
+            assert _rel(a.numpy(), t.detach().numpy()) <= 1e-12
+    start = [a for pr in net0 for a in pr] + [np.asarray(E0)]
+    for got, ref, s0 in zip(leaves, want, start):
+        assert _rel(got.detach().numpy() - s0, ref - s0) <= 1e-6
+    with pytest.raises(ValueError, match="no transform"):
+        MultiTransformAdam({"net": make_optimizer(1e-2)}, ["net", "E"])
