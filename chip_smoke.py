@@ -39,12 +39,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
    fused residual kernel once more at width 50.
 7. eigen_path: ``train_ipw_2d`` at the default nets and grid (40000 points),
    state nx = ny = 3, technique FN.  PINN with weights {'data': 1e4} on
-   jet_impl 'torch', 'kernel' and 'fused' (2000 epochs, cut from the 20000
+   jet_impl 'torch', 'kernel' and 'fused' (1000 epochs, cut from the 20000
    of the acceptance row): first total within rtol 1e-4, first 10 within
    5e-2, kernel and fused rel_l2 <= max(2 x torch, 1e-3), exact launch
    counts; DRM on 'fused' (300 epochs; the same band against 100 'torch'
    epochs, loss falling below its first value); WAN with n_test_grid = 4 (16
-   bumps) on 'torch' and 'fused' (1000 epochs): the same band, the first
+   bumps) on 'torch' and 'fused' (500 epochs): the same band, the first
    weak-form term within 1e-3, all finite, rel_l2 falling, exact launch
    counts; then 100 epochs each of grid_jitter and
    minimax='extragradient', and 100 PINN epochs on 'kernel:streams'.
@@ -102,7 +102,20 @@ Phases (each prints one JSON line; any failure exits non-zero):
    torch, 1e-3), DRM and WAN falling, exact launch counts, each trainable
    E's final error <= max(2 x torch's, 1e-4); kh_timing times the KH
    shapes at 1024 and 262144 points.
-11. timing, wan_timing, eigen_timing, ipw3d_timing: CUDA events, median over repeats, for
+11. subspace, floquet (groups ``subspace`` and ``floquet``): subspace_path
+   runs ``train_subspace`` at the JAX package's end-to-end test
+   configurations (ipw and qho k = 3, width 48, 300 points, 2500 / 3000
+   epochs; the KH well k = 4 against its 4000-point FD truth, 3000 epochs;
+   the 2D well k = 3 on 48 x 48, 2500 epochs), from the JAX package's
+   initial weights for seed 0 as its tests start, one worker process each,
+   with those tests' bars, ascending distinct eigenvalues and the
+   variational bound;
+   floquet_path runs ``train_kh_floquet`` (M = 2, 384 points, 1200
+   epochs) with the gates of the JAX package's short-training test.  Both
+   assert their tensors on the card and that no kernel was launched (the
+   channel jet is the forward-Laplacian recurrence; the k x k Cholesky and
+   the Floquet coupling are plain PyTorch).
+12. timing, wan_timing, eigen_timing, ipw3d_timing: CUDA events, median over repeats, for
    each kernel and its plain version at the path's N and at 262144 on the
    net it runs on, with the bound (bytes or operations) and the plan of
    every kernel that plans its launch (tile, tier, blocks per SM; for rows
@@ -114,7 +127,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    the rows of those kernels: one fresh process per row, so that what ran
    earlier in a process does not move its times
    (``nnpde_tpu_torch/tools/compare_timing.py`` reads such runs).
-12. precision (group ``precision``): precision_kernels holds the bf16-dot
+13. precision (group ``precision``): precision_kernels holds the bf16-dot
    variants of the fused residual (stream and analytic coefficients), the
    jet forward and the jet backward, all four in the tensor-core design
    (``csrc/fwdlap_mma.cuh``, asserted from their launches), to their plain
@@ -135,7 +148,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
    (``timing --rows=fused_linear_residual.bf16`` times one such row alone).
 
 ``python3 chip_smoke.py eigen`` (or any other phase-group name: kernels,
-wan, main, eigen, ipw3d, neumann, eigen1d, qho2d, kh, timing, precision) runs only those groups,
+wan, main, eigen, ipw3d, neumann, eigen1d, qho2d, kh, subspace, floquet,
+timing, precision) runs only those groups,
 for work on one slice; without arguments every phase runs.  ``python3
 chip_smoke.py sweep`` is a further group that runs only when named: the jet
 forward in both layouts (rows 4 and 6) and the
@@ -158,6 +172,14 @@ shape held to float64.  ``python3 chip_smoke.py full`` (only when named)
 runs the full-length acceptance rows ``ipw2d_n33_pinn_fn``,
 ``kh1d_alpha10_pinn`` and ``kh1d_alpha10_{pinn,drm,wan}_dense`` on 'fused'
 (``full --route=torch`` on 'torch') against their ACCEPTANCE.json targets.
+``python3 chip_smoke.py subspace_full`` and ``floquet_full`` (only when
+named) run the four subspace rows (``subspace_{qho1d_k6,ipw1d_k4,qho2d_k6,
+kh_k4}``) and the four Floquet rows (``kh_floquet_{n0,n1,a4_w03_n0,
+a4_w03_n1}_pinn``, 20000 epochs each) at full length against their
+ACCEPTANCE.json targets, beside the JAX package's recorded numbers;
+``--rows=NAME[,NAME...]`` runs only those rows.  ``python3 chip_smoke.py
+subspace_seeds`` (only when named) reports the subspace group's
+configurations over seeds 0-9.
 
 The last two lines before the final one are the ``kernels`` summary and the
 card's ``name, power limit``; the final line is
@@ -1214,7 +1236,7 @@ def phase_eigen_path():
                         "v_layers": list(EIGEN_V), "grid_points": EIGEN_N, "state": [3, 3],
                         "technique": "FN"}, {}
     # ---- PINN, weights {'data': 1e4}, the three jet routes from one seed
-    epochs = 2000
+    epochs = 1000
     pinn = dict(method="PINN", weights={"data": 1e4}, epochs=epochs)
     runs = {impl: run(jet_impl=impl, **pinn) for impl in ("torch", "kernel", "fused")}
     rel_t = runs["torch"][0]["rel_l2"]
@@ -1258,7 +1280,7 @@ def phase_eigen_path():
                            "rayleigh_min": float(out["history"]["drm"].min()),
                            "rel_l2": out["rel_l2"], "ok": drm_ok}
     # ---- WAN, 16 localised bumps, both jet routes from one seed
-    epochs = 1000
+    epochs = 500
     wan = dict(method="WAN", n_test_grid=4, epochs=epochs)
     wt, ct, wall_t = run(jet_impl="torch", **wan)
     wf, cf, wall_f = run(jet_impl="fused", **wan)
@@ -3084,10 +3106,10 @@ KH_ACC = dict(layers=KH_NETS["u100"], train_n=KH_N, lambda_pde=10.0, lambda_data
               lambda_norm=10.0, data_fraction=0.5, max_data_points=500, lambda_parity=1e4)
 # the paths' epochs, cut (never the widths) so that both groups add about
 # 150 s to the whole run
-Q2_EPOCHS = 1000              # of 10000 (QHO2DConfig) and 50000 (the paper sweep)
+Q2_EPOCHS = 500               # of 10000 (QHO2DConfig) and 50000 (the paper sweep)
 Q2_DRM_EPOCHS = 300
 Q2_WAN_EPOCHS = 150
-KH_EPOCHS = 1000              # of 10000 (kh1d_alpha10_pinn)
+KH_EPOCHS = 500               # of 10000 (kh1d_alpha10_pinn)
 KH_DRM_EPOCHS = 500           # of 5000 (kh1d_alpha10_*_dense)
 KH_WAN_EPOCHS = 200
 
@@ -3459,10 +3481,275 @@ def phase_full(route):
         raise SystemExit("full: a row missed its ACCEPTANCE.json target (reported above)")
 
 
+def _on_card(*tensors):
+    return all(t.device.type == "cuda" for t in tensors)
+
+
+# the JAX package's own end-to-end configurations and bars
+# (tests/test_subspace.py): name -> (config, bars)
+SUBSPACE_RUNS = {
+    "ipw1d_k3": (dict(problem="ipw", k=3, x_max=1.0, epochs=2500, width=48, depth=3,
+                      grid_n=300, eval_grid_n=1000, chunk=500),
+                 {"max_eig_rel_err": 2e-2, "max_state_rel_l2": 0.15}),
+    "qho1d_k3": (dict(problem="qho", k=3, x_max=6.0, epochs=3000, width=48, depth=3,
+                      grid_n=300, eval_grid_n=1000, chunk=500),
+                 {"max_eig_rel_err": 2e-2, "max_state_rel_l2": 0.15}),
+    "kh_k4": (dict(problem="kh", k=4, x_max=10.0, alpha=10.0, epochs=3000, width=48, depth=3,
+                   grid_n=400, eval_grid_n=1200, fd_grid_n=4000, chunk=500),
+              {"max_eig_abs_err": 2e-2, "max_state_rel_l2": 0.2}),
+    "ipw2d_k3": (dict(problem="ipw", dim=2, k=3, x_max=1.0, epochs=2500, grid_n=48,
+                      eval_grid_n=96, width=32, depth=3),
+                 {"max_eig_rel_err": 5e-2, "max_subspace_sin": 0.2}),
+}
+
+
+def _subspace_row(out):
+    """The report's numbers, with the largest absolute eigenvalue error."""
+    row = {k: out[k] for k in ("eigenvalues", "exact", "max_eig_rel_err", "best_epoch",
+                               "best_sum_lambda") if k in out}
+    row["max_eig_abs_err"] = float(max(out["eig_abs_err"]))
+    for k in ("max_state_rel_l2", "max_subspace_sin", "subspace_groups"):
+        if k in out:
+            row[k] = out[k]
+    row["steps_per_s"] = out["timing"]["steps_per_s"]
+    return row
+
+
+def _subspace_task(name, seed):
+    """One seed of a SUBSPACE_RUNS configuration, in a worker process: the
+    report's numbers, wall seconds, launch counts, and whether the result
+    is finite and its tensors lived on the card."""
+    from nnpde_tpu_torch.problems.subspace import SubspaceConfig, train_subspace
+
+    kw = SUBSPACE_RUNS[name][0]
+    out, counts, wall = _run_counted(train_subspace, SubspaceConfig(**kw, seed=seed))
+    row = _subspace_row(out)
+    row.update(seed=seed, wall_s=wall, launches=counts, finite=_finite(out),
+               on_card=_on_card(*(t for pair in out["best_params"] for t in pair)))
+    return row
+
+
+def _pool_map(jobs, workers=6):
+    """``{key: fn(*args)}`` for ``jobs = {key: (fn, args)}`` over worker
+    processes (spawned, each reaching the card itself; the paths they run
+    are host-bound, so they overlap on one card), every worker joined on
+    return."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from nnpde_tpu_torch import native
+
+    native.load()                      # build the FD eigensolver once, before the workers
+    with ProcessPoolExecutor(max_workers=min(len(jobs), workers),
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = {key: pool.submit(fn, *args) for key, (fn, args) in jobs.items()}
+        return {key: f.result() for key, f in futures.items()}
+
+
+def phase_subspace_path(with_floquet=False):
+    """``train_subspace`` at the JAX package's end-to-end test
+    configurations (SUBSPACE_RUNS: ipw and qho k = 3 at width 48 on 300
+    points, the KH well k = 4 against its 4000-point FD truth, the 2D well k
+    = 3 on 48 x 48), from the JAX package's initial weights for seed 0 as
+    its tests start, one worker process each (``_pool_map``).  Gates: the
+    tests' bars; the eigenvalues ascending and distinct; the variational
+    bound (the sum of the reported eigenvalues >= (1 - 5e-3) x the exact
+    sum; KH: each level above its FD one less 1e-4); finite; the tensors on
+    the card; no kernel launched (the channel jet is the recurrence only).
+    The bound is read on the dense report grid: the trace on the training
+    grid (``best_sum_lambda``) carries that grid's quadrature bias, -2/(n+1)
+    on the box's n interior points (-0.66% for ipw at 300, beyond the
+    bound's slack once converged).  With ``with_floquet`` the Floquet
+    group's run (``_floquet_task``) joins the pool; its row is returned for
+    :func:`phase_floquet_path` to gate."""
+    report, ok = {"phase": "subspace_path", "runs": {}}, True
+    t_group = time.time()
+    jobs = {name: (_subspace_task, (name, 0)) for name in SUBSPACE_RUNS}
+    if with_floquet:
+        jobs["floquet"] = (_floquet_task, ())
+    results = _pool_map(jobs)
+    for name, (kw, bars) in SUBSPACE_RUNS.items():
+        row = results[name]
+        lam, exact = row["eigenvalues"], row["exact"]
+        row["ok"] = bool(
+            all(row[k] < bar for k, bar in bars.items())
+            and all(lam[i] < lam[i + 1] for i in range(len(lam) - 1))
+            and sum(lam) >= sum(exact) * (1 - 5e-3)
+            and (kw["problem"] != "kh" or all(lv > e - 1e-4 for lv, e in zip(lam, exact)))
+            and row["finite"] and row["on_card"] and row["launches"] == {})
+        report["runs"][name] = dict(row, epochs=kw["epochs"], bars=bars)
+        ok = ok and row["ok"]
+    report["training_s"] = time.time() - t_group
+    report["ok"] = bool(ok)
+    emit(report)
+    if not ok:
+        raise SystemExit("subspace path check failed")
+    return ({name: run["steps_per_s"] for name, run in report["runs"].items()},
+            results.get("floquet"))
+
+
+def phase_subspace_seeds(only=None):
+    """The seed-to-seed spread of SUBSPACE_RUNS on the card (``python3
+    chip_smoke.py subspace_seeds [--rows=NAME,...]``, only when named):
+    each configuration from the JAX package's initial weights for seeds 0-9
+    in the worker pool, with each seed's bar metrics and how many seeds meet
+    every bar.  Reported, not gated."""
+    names = [n for n in SUBSPACE_RUNS if only is None or n in only]
+    results = _pool_map({(n, seed): (_subspace_task, (n, seed))
+                         for n in names for seed in range(10)})
+    for name in names:
+        bars = SUBSPACE_RUNS[name][1]
+        rows = [{k: results[(name, seed)][k] for k in ("seed", *bars, "steps_per_s")}
+                for seed in range(10)]
+        emit({"phase": "subspace_seeds", "name": name, "bars": bars, "by_seed": rows,
+              "seeds_within_bars": sum(all(r[k] < b for k, b in bars.items()) for r in rows)})
+
+
+FLOQUET_SHORT = dict(epochs=1200, chunk=400, train_n=384, n_ref=800, M=2, seed=0)
+
+
+def _floquet_task():
+    """The Floquet group's run (FLOQUET_SHORT) and its gate, as a row."""
+    from nnpde_tpu_torch.problems import KHFloquetConfig, train_kh_floquet
+
+    cfg = KHFloquetConfig(**FLOQUET_SHORT)
+    out, counts, wall = _run_counted(train_kh_floquet, cfg)
+    h, w = out["history"], np.asarray(out["harmonic_weights"])
+    eps_err = abs(out["eps_est"] - out["eps_ref"])
+    best = out["result"].best_params
+    row = {"phase": "floquet_path", **FLOQUET_SHORT, "l2_first": float(h["l2"][0]),
+           "l2_last": float(h["l2"][-1]), "rel_l2": out["rel_l2"], "mse": out["mse"],
+           "eps_est": out["eps_est"], "eps_ref": out["eps_ref"], "eps_avg": out["eps_avg"],
+           "eps_abs_err": eps_err, "harmonic_weights": w.tolist(),
+           "best_epoch": out["best_epoch"], "wall_s": wall,
+           "steps_per_s": out["result"].timing["steps_per_s"], "launches": counts}
+    row["ok"] = bool(_finite(out) and h["l2"][-1] < 0.05 * h["l2"][0] and out["rel_l2"] < 0.2
+                     and eps_err < 5e-3 and w[cfg.M] > 0.5 and abs(w.sum() - 1.0) <= 1e-6
+                     and counts == {} and _on_card(best["E"], out["gt"].x,
+                                                   *(t for pr in best["net"] for t in pr)))
+    return row
+
+
+def phase_floquet_path(row=None):
+    """``train_kh_floquet`` at the JAX package's short-training
+    configuration (FLOQUET_SHORT: M = 2, 384 points, 1200 epochs) with that
+    test's gates (tests/test_kh_floquet.py): the last eval below 0.05 x the
+    first, rel_l2 < 0.2, |eps - eps_ref| < 5e-3, the m = 0 harmonic's weight
+    above 0.5, the weights summing to 1 within 1e-6; its tensors on the card
+    and no kernel launched.  ``row``: the run made in the subspace group's
+    pool, else it runs here."""
+    row = row if row is not None else _floquet_task()
+    emit(row)
+    if not row["ok"]:
+        raise SystemExit("Floquet path check failed")
+    return row["steps_per_s"]
+
+
+# the acceptance rows (scripts/acceptance.py): name -> (config, JAX's recorded
+# numbers in ACCEPTANCE.json, the target)
+SUBSPACE_FULL = {
+    "subspace_qho1d_k6": (
+        dict(problem="qho", k=6, x_max=7.0, epochs=8000, width=64, depth=3, grid_n=600,
+             eval_grid_n=3000, chunk=1000),
+        {"max_eig_rel_err": 0.003768414288050805, "max_state_rel_l2": 0.032072015869627386},
+        {"max_eig_rel_err": 5e-3, "max_state_rel_l2": 5e-2}),
+    "subspace_ipw1d_k4": (
+        dict(problem="ipw", k=4, x_max=1.0, epochs=8000, width=64, depth=3, grid_n=600,
+             eval_grid_n=3000, chunk=1000),
+        {"max_eig_rel_err": 0.0011160642768562672, "max_state_rel_l2": 0.017632187376052936},
+        {"max_eig_rel_err": 5e-3, "max_state_rel_l2": 5e-2}),
+    "subspace_qho2d_k6": (
+        dict(problem="qho", dim=2, k=6, x_max=6.0, epochs=12000, width=96, depth=3,
+             grid_n=120, eval_grid_n=300, chunk=500),
+        {"max_eig_rel_err": 0.0013761655119161748, "max_subspace_sin": 0.017442746619425385},
+        {"max_eig_rel_err": 1e-2, "max_subspace_sin": 5e-2}),
+    "subspace_kh_k4": (
+        dict(problem="kh", k=4, x_max=10.0, alpha=10.0, epochs=20000, width=64, depth=3,
+             grid_n=800, eval_grid_n=4000, fd_grid_n=20000, chunk=1000),
+        {"max_eig_abs_err": 0.0002329905185491643, "max_state_rel_l2": 0.01240099683284145},
+        {"max_eig_abs_err": 2e-3, "max_state_rel_l2": 5e-2}),
+}
+FLOQUET_FULL = {
+    "kh_floquet_n0_pinn": (dict(n=0), {"rel_l2": 0.005393134468997009,
+                                       "eps_abs_err": 4.3585896492004395e-07,
+                                       "cycle_avg_gap": 0.0010312093375734119}),
+    "kh_floquet_n1_pinn": (dict(n=1), {"rel_l2": 0.006001827621587691,
+                                       "eps_abs_err": 9.609851986169815e-06,
+                                       "cycle_avg_gap": 0.00030020097105172474}),
+    "kh_floquet_a4_w03_n0_pinn": (dict(n=0, alpha=4.0, omega=0.3, M=3),
+                                  {"rel_l2": 0.006433605693995072,
+                                   "eps_abs_err": 3.1832605600357056e-06,
+                                   "cycle_avg_gap": 0.0007385670423235846}),
+    "kh_floquet_a4_w03_n1_pinn": (dict(n=1, alpha=4.0, omega=0.3, M=3),
+                                  {"rel_l2": 0.0077146422248619345,
+                                   "eps_abs_err": 1.8461141735315323e-05,
+                                   "cycle_avg_gap": 0.0011742313603280421}),
+}
+
+
+def phase_subspace_full(only=None):
+    """The four subspace acceptance rows at full length (``python3
+    chip_smoke.py subspace_full [--rows=NAME,...]``, not in the default
+    run), each against its ACCEPTANCE.json target beside the JAX package's
+    recorded numbers.  A miss is reported (``pass`` false); returns whether
+    every row passed (the run exits non-zero after both full groups)."""
+    from nnpde_tpu_torch.problems.subspace import SubspaceConfig, train_subspace
+
+    passed = {}
+    for name, (kw, jax_rec, target) in SUBSPACE_FULL.items():
+        if only is not None and name not in only:
+            continue
+        out, counts, wall = _run_counted(train_subspace, SubspaceConfig(**kw))
+        row = _subspace_row(out)
+        row.update(name=name, epochs=kw["epochs"], wall_s=wall, launches=counts,
+                   acceptance=jax_rec, target=" AND ".join(f"{k} <= {v}"
+                                                          for k, v in target.items()))
+        row["pass"] = bool(_finite(out) and all(row[k] <= v for k, v in target.items()))
+        passed[name] = row["pass"]
+        emit(dict(phase="subspace_full", **row))
+    emit({"phase": "subspace_full_summary", "pass": passed})
+    return all(passed.values())
+
+
+def phase_floquet_full(only=None):
+    """The four Floquet acceptance rows at full length (``python3
+    chip_smoke.py floquet_full [--rows=NAME,...]``, not in the default run;
+    20000 epochs each), each against its ACCEPTANCE.json target (rel_l2 <=
+    1e-2 and |eps - eps_ref| <= 0.1 x the cycle-average gap) beside the JAX
+    package's recorded numbers.  A miss is reported; returns whether every
+    row passed."""
+    from nnpde_tpu_torch.problems import KHFloquetConfig, train_kh_floquet
+
+    passed = {}
+    for name, (kw, jax_rec) in FLOQUET_FULL.items():
+        if only is not None and name not in only:
+            continue
+        out, counts, wall = _run_counted(train_kh_floquet,
+                                         KHFloquetConfig(epochs=20000, chunk=1000, **kw))
+        e_err = abs(out["eps_est"] - out["eps_ref"])
+        gap = abs(out["eps_avg"] - out["eps_ref"])
+        row = {"name": name, **kw, "rel_l2": out["rel_l2"], "best_epoch": out["best_epoch"],
+               "eps_est": out["eps_est"], "eps_ref": out["eps_ref"], "eps_avg": out["eps_avg"],
+               "eps_abs_err": e_err, "cycle_avg_gap": gap,
+               "harmonic_weights": out["harmonic_weights"], "epochs": 20000, "wall_s": wall,
+               "steps_per_s": out["result"].timing["steps_per_s"], "launches": counts,
+               "acceptance": jax_rec,
+               "target": "rel_l2 <= 1e-2; eps_abs_err <= 0.1 * cycle_avg_gap",
+               "pass": bool(_finite(out) and out["rel_l2"] <= 1e-2 and e_err <= 0.1 * gap)}
+        passed[name] = row["pass"]
+        emit(dict(phase="floquet_full", **row))
+    emit({"phase": "floquet_full_summary", "pass": passed})
+    return all(passed.values())
+
+
 GROUPS = ("kernels", "wan", "main", "eigen", "ipw3d", "neumann", "eigen1d", "qho2d", "kh",
-          "timing", "precision")
+          "subspace", "floquet", "timing", "precision")
 # groups that run only when named
-NAMED = ("sweep", "mma_sweep", "mma_depth", "devw_sweep", "full")
+NAMED = ("sweep", "mma_sweep", "mma_depth", "devw_sweep", "full", "subspace_full",
+         "floquet_full", "subspace_seeds")
+# the named groups whose rows --rows= selects by name
+ROW_GROUPS = {"subspace_full": SUBSPACE_FULL, "floquet_full": FLOQUET_FULL,
+              "subspace_seeds": SUBSPACE_RUNS}
 
 
 def main():
@@ -3472,9 +3759,14 @@ def main():
     route = [a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--route=")]
     route = route[-1] if route else "fused"
     want = set(args) or set(GROUPS)
-    if only is not None and want != {"timing"}:
-        raise SystemExit("--rows= filters the timing group only: chip_smoke.py timing "
-                         "--rows=KERNEL[,KERNEL...]")
+    if only is not None and want != {"timing"} and not want <= set(ROW_GROUPS):
+        raise SystemExit("--rows= filters the timing group (chip_smoke.py timing "
+                         "--rows=KERNEL[,KERNEL...]) or the rows of subspace_full, "
+                         "floquet_full and subspace_seeds (--rows=NAME[,NAME...])")
+    if only is not None and want <= set(ROW_GROUPS):
+        names = {n for g in want for n in ROW_GROUPS[g]}
+        if not only <= names:
+            raise SystemExit(f"unknown rows {sorted(only - names)}; choose from {sorted(names)}")
     if route != "fused" and want != {"full"}:
         raise SystemExit("--route= applies to the full group only: chip_smoke.py full "
                          "--route=torch")
@@ -3535,8 +3827,22 @@ def main():
         speed["qho2d"] = phase_qho2d_path()
     if "kh" in want:
         speed["kh"] = phase_kh_path()
+    floquet_row = None
+    if "subspace" in want:
+        speed["subspace"], floquet_row = phase_subspace_path(with_floquet="floquet" in want)
+    if "floquet" in want:
+        speed["floquet"] = phase_floquet_path(floquet_row)
     if "full" in want:
         phase_full(route)
+    missed = []
+    if "subspace_full" in want and not phase_subspace_full(only):
+        missed.append("subspace_full")
+    if "subspace_seeds" in want:
+        phase_subspace_seeds(only)
+    if "floquet_full" in want and not phase_floquet_full(only):
+        missed.append("floquet_full")
+    if missed:
+        raise SystemExit(f"{', '.join(missed)}: a row missed its ACCEPTANCE.json target (above)")
     if "precision" in want:
         launches.update(phase_precision_path())
     rows = wan_rows = eigen_rows = prec_rows = []

@@ -12,7 +12,10 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
+
+from ..prng import threefry_key, threefry_split, threefry_uniform
 
 
 class NetSpec(NamedTuple):
@@ -53,6 +56,30 @@ def init_mlp(gen: torch.Generator, spec: NetSpec, dtype=torch.float32,
     return params
 
 
+def init_mlp_threefry(seed: int, spec: NetSpec, dtype=torch.float32, device=None):
+    """The JAX package's ``init_mlp(jax.random.PRNGKey(seed), spec)``, number
+    for number (up to the rounding of its last multiply-add): the layer keys
+    split from the seed's, each split again for W and b, drawn by
+    :func:`~nnpde_tpu_torch.prng.threefry_uniform` on the host."""
+    scheme = spec.resolved_init()
+    keys = threefry_split(threefry_key(seed), len(spec.layers) - 1)
+    params = []
+    for k, fan_in, fan_out in zip(keys, spec.layers[:-1], spec.layers[1:]):
+        kw, kb = threefry_split(k, 2)
+        if scheme == "xavier_tanh":
+            bound = (5.0 / 3.0) * math.sqrt(6.0 / (fan_in + fan_out))
+            W = threefry_uniform(kw, (fan_in, fan_out), -bound, bound)
+            b = np.zeros((fan_out,), np.float32)
+        elif scheme == "torch_default":
+            bound = 1.0 / math.sqrt(fan_in)
+            W = threefry_uniform(kw, (fan_in, fan_out), -bound, bound)
+            b = threefry_uniform(kb, (fan_out,), -bound, bound)
+        else:
+            raise ValueError(f"Unknown init scheme {scheme!r}")
+        params.append(tuple(torch.as_tensor(a, dtype=dtype, device=device) for a in (W, b)))
+    return params
+
+
 def _gelu(v):
     return torch.nn.functional.gelu(v, approximate="none")
 
@@ -86,6 +113,15 @@ def mlp_apply_batch(params, X, activation: str):
     W, b = params[-1]
     return (h @ W + b)[..., 0]
 
+
+def mlp_apply_batch_channels(params, X, activation: str):
+    """Batched multi-output forward: X (N, d) -> (N, C)."""
+    act = _resolve_activation(activation)
+    h = X
+    for (W, b) in params[:-1]:
+        h = act(h @ W + b)
+    W, b = params[-1]
+    return h @ W + b
 
 
 def num_params(params) -> int:

@@ -4,7 +4,8 @@ Counterpart of ``nnpde_tpu/models/solution.py``: ``u = B * u_raw`` with the
 jet of the product formed analytically from the MLP's forward-Laplacian
 jet and the factor's closed-form jet, and optionally the raw net applied
 to elementwise input features, ``u = B(x) * g(z(x))`` (the hard-Neumann
-cosine map, :mod:`.inputmap`).
+cosine map, :mod:`.inputmap`).  :class:`ChannelSolutionModel` is the same
+composition for a C-output net, every channel times the one factor.
 """
 
 from __future__ import annotations
@@ -13,9 +14,13 @@ from typing import Optional
 
 import torch
 
+from torch.func import hessian, jacfwd, vmap
+
 from ..ops import calculus
-from ..ops.fwdlap import Jet, compose_product_jet, mlp_fwdlap
-from .mlp import NetSpec, init_mlp, mlp_apply_batch, mlp_apply_point
+from ..ops.fwdlap import (ChannelJet, Jet, compose_product_jet, compose_product_jet_channels,
+                          mlp_fwdlap, mlp_fwdlap_channels)
+from .mlp import (NetSpec, _resolve_activation, init_mlp, mlp_apply_batch,
+                  mlp_apply_batch_channels, mlp_apply_point)
 from .trial import SeparableFactor
 
 
@@ -108,3 +113,65 @@ class SolutionModel:
         return calculus.batched_value_and_grad_x(
             lambda x: self.apply_point(params, x)
         )(X)
+
+
+class ChannelSolutionModel:
+    """Coupled-system solution model: one MLP parameterises C component
+    fields that share the hidden streams (the output layer fans them out).
+
+    The composition contract of :class:`SolutionModel`: an optional scalar
+    trial factor multiplies every channel and propagates analytically
+    through the jet, and value / grad / lap come back with a trailing
+    channel axis.  The Floquet KH atom (2(2M+1) channels, the real and
+    imaginary parts of the harmonics) and the subspace eigen-solver (k
+    channels) train on it.  The jet is the recurrence only: no kernel."""
+
+    def __init__(self, spec: NetSpec, factor: Optional[SeparableFactor] = None):
+        self.spec = spec
+        self.factor = factor
+        self.dim = spec.layers[0]
+        self.channels = spec.layers[-1]
+        if factor is not None and factor.dim != self.dim:
+            raise ValueError(
+                f"factor dim {factor.dim} != net input dim {self.dim}"
+            )
+
+    def init(self, gen: torch.Generator, dtype=torch.float32):
+        return init_mlp(gen, self.spec, dtype)
+
+    def apply_batch(self, params, X):
+        u = mlp_apply_batch_channels(params, X, self.spec.activation)
+        if self.factor is not None:
+            u = u * self.factor.value(X)[:, None]
+        return u
+
+    def fields(self, params, X) -> ChannelJet:
+        """Per-channel (u, grad u, lap u) over the batch, differentiable in
+        ``params``."""
+        jet = mlp_fwdlap_channels(params, X, self.spec.activation)
+        if self.factor is not None:
+            jet = compose_product_jet_channels(jet, self.factor.jet(X))
+        return jet
+
+    def fields_generic(self, params, X) -> ChannelJet:
+        """Oracle for :meth:`fields` by ``torch.func`` autodiff."""
+        def f(x):
+            u = calculus_point_channels(params, x, self.spec.activation)
+            if self.factor is not None:
+                u = u * self.factor.value_point(x)
+            return u
+
+        val = vmap(f)(X)
+        grad = vmap(jacfwd(f))(X).transpose(1, 2)
+        lap = torch.diagonal(vmap(hessian(f))(X), dim1=2, dim2=3).sum(-1)
+        return ChannelJet(value=val, grad=grad, lap=lap)
+
+
+def calculus_point_channels(params, x, activation: str):
+    """Per-point multi-output forward: x (d,) -> (C,)."""
+    act = _resolve_activation(activation)
+    h = x
+    for (W, b) in params[:-1]:
+        h = act(h @ W + b)
+    W, b = params[-1]
+    return h @ W + b

@@ -206,6 +206,44 @@ def reverse_plain(params, X, cast, saved, final, ct):
     return dWs, dbs
 
 
+class ChannelJet(NamedTuple):
+    """Batched second-order jet of a C-channel vector field."""
+
+    value: torch.Tensor  # (N, C)
+    grad: torch.Tensor   # (N, d, C)
+    lap: torch.Tensor    # (N, C)
+
+
+def mlp_fwdlap_channels(params, X, activation: str) -> ChannelJet:
+    """Exact per-channel (u, grad u, lap u) of a C-output MLP.
+
+    The recurrence of :func:`mlp_fwdlap`, stage by stage through
+    :func:`_stage`: the output layer is one more linear map, so all C
+    channels ride the same hidden streams and the last product fans them
+    out (the coupled harmonics of ``problems/kh_floquet.py``, the k
+    eigenstates of ``problems/subspace.py``)."""
+    (W0, b0), (N, d) = params[0], X.shape
+    v = X @ W0 + b0
+    J = W0[:, None, :].expand(d, N, W0.shape[1])      # (d, N, w)
+    l = torch.zeros_like(v)
+    for W, b in params[1:]:
+        _, _, (A, Jm, lm) = _stage(activation, v, J, l)
+        v, J, l = A @ W + b, Jm @ W, lm @ W
+    return ChannelJet(value=v, grad=J.permute(1, 0, 2), lap=l)
+
+
+def compose_product_jet_channels(a: ChannelJet, f: Jet) -> ChannelJet:
+    """Jet of ``a * f`` where the scalar trial factor f multiplies every
+    channel:  (af, a∇f + f∇a, aΔf + 2∇a·∇f + fΔa)  per channel."""
+    value = a.value * f.value[:, None]
+    grad = (a.value[:, None, :] * f.grad[:, :, None]
+            + f.value[:, None, None] * a.grad)
+    lap = (a.value * f.lap[:, None]
+           + 2.0 * torch.einsum("ndc,nd->nc", a.grad, f.grad)
+           + f.value[:, None] * a.lap)
+    return ChannelJet(value=value, grad=grad, lap=lap)
+
+
 def compose_product_jet(a: Jet, b: Jet) -> Jet:
     """Jet of the product ``a * b``:  (ab, a∇b + b∇a, aΔb + 2∇a·∇b + bΔa)."""
     value = a.value * b.value

@@ -92,14 +92,21 @@ def _trainable(params):
     return [t.detach().clone().requires_grad_(True) for t in _leaves_of(params)]
 
 
+def _own(metrics, live):
+    """``metrics`` with each one that shares storage with a ``live`` leaf (a
+    tracked trainable E, which the optimizer then updates in place) copied."""
+    return {k: v.detach().clone() if v.data_ptr() in live else v for k, v in metrics.items()}
+
+
 class _History:
     """Per-epoch metrics buffered as device scalars and moved to the host
     once every ``chunk`` epochs (the loop's only host sync)."""
 
-    def __init__(self, chunk: int):
+    def __init__(self, chunk: int, progress=None, start_epoch: int = 0):
         self.chunk = min(chunk, runtime.scan_chunk_cap())
         self.parts: Dict[str, list] = {}
         self.buf: Dict[str, list] = {}
+        self.progress, self.start_epoch = progress, start_epoch
 
     def add(self, i: int, epochs: int, row: Dict[str, torch.Tensor]) -> None:
         for name, v in row.items():
@@ -108,6 +115,9 @@ class _History:
             for name, vals in self.buf.items():
                 self.parts.setdefault(name, []).append(torch.stack(vals).cpu().numpy())
             self.buf.clear()
+            if self.progress is not None:
+                self.progress(self.start_epoch + i + 1,
+                              {k: float(v[-1][-1]) for k, v in self.parts.items()})
 
     def result(self) -> Dict[str, np.ndarray]:
         return {n: np.concatenate(v) for n, v in self.parts.items()}
@@ -145,6 +155,7 @@ def fit(
     init_carry: Optional[Carry] = None,
     start_epoch: int = 0,
     loss_and_grad_fn: Optional[Callable] = None,
+    progress: Optional[Callable[[int, Dict[str, float]], None]] = None,
 ) -> FitResult:
     """Train ``params`` (``[(W, b), ...]``, or a ``{"net": [...], <name>:
     tensor}`` dict with extra trainable leaves) for ``epochs`` steps of
@@ -155,7 +166,8 @@ def fit(
     loss+gradient kernels (:mod:`nnpde_tpu_torch.kernels.fused_step`).
     ``init_carry``/``start_epoch`` resume from a previous
     ``FitResult.carry``.  ``chunk``: epochs between moves of the history
-    from the device to the host (the only host sync in the loop).
+    from the device to the host (the only host sync in the loop);
+    ``progress(epoch, {metric: last value})`` is called after each move.
     """
     if epochs > 0 and chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
@@ -163,7 +175,8 @@ def fit(
     leaves, opt, count = carry.leaves, carry.opt, carry.count
     best_m, best_leaves, best_e = carry.best_m, carry.best_leaves, carry.best_e
     dev = leaves[0].device
-    hist = _History(chunk)
+    hist = _History(chunk, progress, start_epoch)
+    live = {t.data_ptr() for t in leaves}
 
     t0 = time.time()
     for i in range(epochs):
@@ -176,6 +189,7 @@ def fit(
         else:
             loss, metrics = loss_fn(p, k)
             grads = _grad(loss, leaves)
+        metrics = _own(metrics, live)
         _adam_step(optimizer, opt, leaves, grads, count)
         count += 1
         with torch.no_grad():
@@ -282,10 +296,11 @@ def fit_wan(
     dev = u_leaves[0].device
     n_plain = v_steps if minimax == "alternating" else v_steps - 1
     hist = _History(chunk)
+    live = {t.data_ptr() for t in u_leaves}
 
     def u_grad(u_lv, v_p, k):
         (loss, metrics) = u_loss_fn(_rebuild(u_params, u_lv), v_p, k)
-        return loss, metrics, _grad(loss, u_lv)
+        return loss, _own(metrics, live), _grad(loss, u_lv)
 
     def v_grad(v_lv, ctx, k):
         loss = v_loss_fn(_pairs(v_lv), ctx, k)

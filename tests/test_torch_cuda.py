@@ -1513,3 +1513,70 @@ def test_cuda_interp_and_ground_truth_match_cpu(dev):
     xs = torch.linspace(-61.0, 61.0, 257)
     for a, b in zip(g_dev.resample(xs.to(dev)), g_cpu.resample(xs)):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act,d,C,factor", [("sin", 1, 6, True), ("tanh", 2, 5, False),
+                                            ("sin", 1, 10, True), ("sin", 2, 3, True)])
+def test_cuda_channel_jet_matches_float64(dev, act, d, C, factor):
+    """The channel jet (``ChannelSolutionModel.fields``, the recurrence on
+    the card, no kernel) in float32 against the float64 plain version on
+    the CPU: value and gradient norm-relative within 1e-5, the Laplacian
+    within 1e-4; the model's forward equal to the jet's value."""
+    from nnpde_tpu_torch.kernels import LAUNCHES
+    from nnpde_tpu_torch.models import ChannelSolutionModel, NetSpec, factor_for_technique
+    from nnpde_tpu_torch.runtime import pin_fp32_precision
+
+    pin_fp32_precision()
+    rng = np.random.default_rng(71 + d + C)
+    layers = (d, 64, 64, 64, C)
+    pn = _np_params(rng, layers)
+    X = rng.uniform(-2.5, 2.5, (1000 + 7, d))
+    model = ChannelSolutionModel(
+        NetSpec(layers, act),
+        factor_for_technique("FBC", dim=d, kind="window", L=3.0) if factor else None)
+    before = dict(LAUNCHES)
+    got = model.fields(params_from_jax(pn, device=dev), torch.as_tensor(X, dtype=torch.float32,
+                                                                       device=dev))
+    want = model.fields(params_from_jax(pn, dtype=torch.float64), torch.as_tensor(X))
+    assert dict(LAUNCHES) == before
+    for name, g, w, bar in zip(got._fields, got, want, (1e-5, 1e-5, 1e-4)):
+        assert g.device.type == "cuda" and g.shape == w.shape, name
+        rel = float(torch.linalg.norm(g.double().cpu() - w) / torch.linalg.norm(w))
+        assert rel <= bar, (name, rel)
+    u = model.apply_batch(params_from_jax(pn, device=dev),
+                          torch.as_tensor(X, dtype=torch.float32, device=dev))
+    torch.testing.assert_close(u, got.value, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_subspace_trace_nan_on_failed_cholesky_without_sync(dev):
+    """``subspace_trace`` on the card: NaN on a Gram that is not positive
+    definite (as ``jnp.linalg.cholesky``; ``cholesky_ex``'s own factor is
+    finite), the value and gradient of a positive-definite one equal to
+    the CPU's, and its forward and backward raise nothing under
+    ``torch.cuda.set_sync_debug_mode("error")``: the failure check costs
+    no host sync."""
+    from nnpde_tpu_torch.problems.subspace import subspace_matrices, subspace_trace
+
+    rng = np.random.default_rng(5)
+    value = torch.as_tensor(rng.normal(size=(500, 4)), dtype=torch.float32, device=dev)
+    grad = torch.as_tensor(rng.normal(size=(500, 1, 4)), dtype=torch.float32, device=dev)
+    V = torch.as_tensor(rng.uniform(0.0, 2.0, 500), dtype=torch.float32, device=dev)
+    G_bad = torch.tensor([[1.0, 2.0], [2.0, 1.0]], device=dev)
+    A_bad = torch.eye(2, device=dev)
+    value.requires_grad_(True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        bad = subspace_trace(A_bad, G_bad)
+        tr = subspace_trace(*subspace_matrices(value, grad, V))
+        (g,) = torch.autograd.grad(tr, value)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isnan(bad).item()
+    v_cpu = value.detach().cpu().double().requires_grad_(True)
+    tr_cpu = subspace_trace(*subspace_matrices(v_cpu, grad.cpu().double(), V.cpu().double()))
+    (g_cpu,) = torch.autograd.grad(tr_cpu, v_cpu)
+    assert abs(float(tr) - float(tr_cpu)) <= 1e-5 * abs(float(tr_cpu))
+    assert float(torch.linalg.norm(g.double().cpu() - g_cpu) / torch.linalg.norm(g_cpu)) <= 1e-4
