@@ -115,7 +115,22 @@ Phases (each prints one JSON line; any failure exits non-zero):
    assert their tensors on the card and that no kernel was launched (the
    channel jet is the forward-Laplacian recurrence; the k x k Cholesky and
    the Floquet coupling are plain PyTorch).
-12. timing, wan_timing, eigen_timing, ipw3d_timing: CUDA events, median over repeats, for
+12. cli, parallel (groups ``cli`` and ``parallel``): the command line as
+   a user starts the system, each run in a worker process (with the
+   subspace group's pool where both run): ``cli.main`` on the main path's
+   fused configuration (exactly 3000 fused_linear_residual launches, its
+   persisted rel_l2 equal to main_path's fused one, its checkpoint
+   reloaded through the registry onto the card reproducing it within
+   1e-6), ``ipw1d --method DRM --jet-impl fused`` (300 launches of rows 9
+   and 10 each), ``sweep ipw1d`` (8 rows) and one ``python -m
+   nnpde_tpu_torch.exp.cli poisson --epochs 200`` process with
+   ``results_process`` on its ledger; no plot.  parallel: the
+   data-parallel steps at the main path's shapes on an NCCL world of one
+   (bitwise equal to the direct kernel calls, exact launches) and on two
+   spawned gloo ranks sharing cuda:0 (within 1e-5 of one process on the
+   whole batch, parameters bitwise equal on both ranks after 100 Adam
+   steps), with the two-rank and one-process Adam rates (reported).
+13. timing, wan_timing, eigen_timing, ipw3d_timing: CUDA events, median over repeats, for
    each kernel and its plain version at the path's N and at 262144 on the
    net it runs on, with the bound (bytes or operations) and the plan of
    every kernel that plans its launch (tile, tier, blocks per SM; for rows
@@ -127,7 +142,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    the rows of those kernels: one fresh process per row, so that what ran
    earlier in a process does not move its times
    (``nnpde_tpu_torch/tools/compare_timing.py`` reads such runs).
-13. precision (group ``precision``): precision_kernels holds the bf16-dot
+14. precision (group ``precision``): precision_kernels holds the bf16-dot
    variants of the fused residual (stream and analytic coefficients), the
    jet forward and the jet backward, all four in the tensor-core design
    (``csrc/fwdlap_mma.cuh``, asserted from their launches), to their plain
@@ -149,7 +164,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
 
 ``python3 chip_smoke.py eigen`` (or any other phase-group name: kernels,
 wan, main, eigen, ipw3d, neumann, eigen1d, qho2d, kh, subspace, floquet,
-timing, precision) runs only those groups,
+cli, parallel, timing, precision) runs only those groups,
 for work on one slice; without arguments every phase runs.  ``python3
 chip_smoke.py sweep`` is a further group that runs only when named: the jet
 forward in both layouts (rows 4 and 6) and the
@@ -3546,7 +3561,7 @@ def _pool_map(jobs, workers=6):
         return {key: f.result() for key, f in futures.items()}
 
 
-def phase_subspace_path(with_floquet=False):
+def phase_subspace_path(with_floquet=False, extra=None):
     """``train_subspace`` at the JAX package's end-to-end test
     configurations (SUBSPACE_RUNS: ipw and qho k = 3 at width 48 on 300
     points, the KH well k = 4 against its 4000-point FD truth, the 2D well k
@@ -3561,13 +3576,15 @@ def phase_subspace_path(with_floquet=False):
     on the box's n interior points (-0.66% for ipw at 300, beyond the
     bound's slack once converged).  With ``with_floquet`` the Floquet
     group's run (``_floquet_task``) joins the pool; its row is returned for
-    :func:`phase_floquet_path` to gate."""
+    :func:`phase_floquet_path` to gate.  ``extra``: other groups' jobs
+    (``cli_jobs``) that join the pool; their results are returned too."""
     report, ok = {"phase": "subspace_path", "runs": {}}, True
     t_group = time.time()
     jobs = {name: (_subspace_task, (name, 0)) for name in SUBSPACE_RUNS}
     if with_floquet:
         jobs["floquet"] = (_floquet_task, ())
-    results = _pool_map(jobs)
+    jobs.update(extra or {})
+    results = _pool_map(jobs, workers=8)
     for name, (kw, bars) in SUBSPACE_RUNS.items():
         row = results[name]
         lam, exact = row["eigenvalues"], row["exact"]
@@ -3585,7 +3602,7 @@ def phase_subspace_path(with_floquet=False):
     if not ok:
         raise SystemExit("subspace path check failed")
     return ({name: run["steps_per_s"] for name, run in report["runs"].items()},
-            results.get("floquet"))
+            results.get("floquet"), {k: results[k] for k in extra or {}})
 
 
 def phase_subspace_seeds(only=None):
@@ -3742,8 +3759,450 @@ def phase_floquet_full(only=None):
     return all(passed.values())
 
 
+# ------------------------------------------------------------------ cli
+# the main path's fused configuration (phase_main_path) through the command
+# line; the CLI's defaults are PoissonConfig's (width 64, depth 5, 20000
+# points, 4000 boundary points, lr 1e-3, seed 0)
+CLI_MAIN = ["poisson", "--dim", "2", "--method", "PINN", "--bc-mode", "FBC", "--jet-impl",
+            "fused", "--epochs", "3000", "--chunk", "1000", "--n-interior", "20000"]
+CLI_IPW1D = ["ipw1d", "--method", "DRM", "--jet-impl", "fused", "--epochs", "300"]
+CLI_SWEEP = ["sweep", "ipw1d", "--n-values", "1", "--epochs", "50", "--chunk", "50"]
+CLI_SUBPROCESS = ["poisson", "--epochs", "200"]
+CLI_EPOCHS = {"main": 3000, "ipw1d": 300}
+
+
+def _poisson_checkpoint_rel_l2(ckpt, min_epoch, seed=0, n_eval=10000, dim=2, L=2.0):
+    """The 2D Poisson run's rel_l2 again from its checkpoint, reloaded
+    through the registry onto the card: the eval of ``train_poisson_nd`` at
+    the best epoch (its n_eval uniform points from that epoch's key) over
+    the manufactured solution's rms."""
+    from nnpde_tpu_torch.exp.plotting import load_checkpoint_model
+    from nnpde_tpu_torch.pde import poisson
+    from nnpde_tpu_torch.pde.domain import Box
+    from nnpde_tpu_torch.prng import fold_in, generator, split
+    from nnpde_tpu_torch.sampling import uniform_box
+
+    dev = torch.device("cuda")
+    model, params, meta = load_checkpoint_model(ckpt, device=dev)
+    k_train = split(seed, 4)[3]
+    X = uniform_box(generator(fold_in(fold_in(k_train, min_epoch), 0x5EED), dev), n_eval,
+                    Box.cube(dim, 0.0, L))
+    with torch.no_grad():
+        u = model.apply_batch(params, X)
+        rmse = torch.sqrt(torch.mean((u - poisson.exact_u_prod_sin(X, L, [1] * dim)) ** 2))
+    return float(rmse) / 0.5 ** (dim / 2.0), meta
+
+
+def _cli_task(name, argv):
+    """``cli.main(argv)`` in a worker process with a fresh save directory
+    and the counts set to 0 just before: (printed rows, ledger rows, counts,
+    wall seconds, and what the group checks of the files before they go)."""
+    import contextlib
+    import glob
+    import io
+    import tempfile
+
+    from nnpde_tpu_torch.exp import cli
+    from nnpde_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    with tempfile.TemporaryDirectory() as d:
+        buf = io.StringIO()
+        reset_launches()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv + ["--save-dir", d])
+        wall = time.time() - t0
+        counts = {k: v for k, v in LAUNCHES.items() if v}
+        printed = [json.loads(ln) for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+        ledger = [r for f in sorted(glob.glob(os.path.join(d, "results_*.json")))
+                  for r in json.load(open(f))]
+        row = {"argv": argv, "rc": rc, "wall_s": wall, "launches": counts,
+               "printed": printed, "ledger_rows": len(ledger),
+               "files": len(os.listdir(d)), "plots": len(glob.glob(os.path.join(d, "*.png")))}
+        if name == "main":
+            r = ledger[0]
+            row["rel_l2"] = r["L2_error"] / 0.5
+            row["reload_rel_l2"], meta = _poisson_checkpoint_rel_l2(r["best_model_path"],
+                                                                     r["min_epoch"])
+            row["meta_problem"] = meta["problem"]
+            row["best_epoch"] = r["min_epoch"]
+        if name == "ipw1d":
+            l2 = np.load(ledger[0]["L2_errors"])
+            row.update(best=ledger[0]["L2_error"], first=float(l2[0]),
+                       finite=bool(np.all(np.isfinite(l2))))
+        if name == "sweep":
+            row["finite"] = all(math.isfinite(r["L2_error"]) for r in ledger)
+    return row
+
+
+def _cli_subprocess_task():
+    """``python -m nnpde_tpu_torch.exp.cli poisson --epochs 200`` in a
+    process of its own, then ``results_process`` on the ledger it wrote."""
+    import tempfile
+
+    from nnpde_tpu_torch.exp.results_process import results_to_csv
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.time()
+        r = subprocess.run([sys.executable, "-m", "nnpde_tpu_torch.exp.cli", *CLI_SUBPROCESS,
+                            "--save-dir", d], cwd=root, capture_output=True, text=True,
+                           timeout=600)
+        wall = time.time() - t0
+        ledger = os.path.join(d, "results_poisson_nd.json")
+        csv = open(results_to_csv(ledger)).read().splitlines() if os.path.exists(ledger) else []
+    last = r.stdout.strip().splitlines()[-1:] or [""]
+    return {"argv": CLI_SUBPROCESS, "rc": r.returncode, "wall_s": wall,
+            "printed": last[0][:300], "csv_lines": len(csv), "csv_header": csv[:1],
+            "stderr_tail": r.stderr[-2000:] if r.returncode else ""}
+
+
+def _main_fused_task():
+    """The main path's fused run, for a ``cli`` group run without ``main``."""
+    from nnpde_tpu_torch.problems import PoissonConfig, train_poisson_nd
+
+    out = train_poisson_nd(PoissonConfig(dim=2, method="PINN", bc_mode="FBC", epochs=3000,
+                                         n_interior=20000, chunk=1000, jet_impl="fused"))
+    return {"rel_l2": out["rel_l2"]}
+
+
+def cli_jobs():
+    """The cli group's runs, for the worker pool (``_pool_map``)."""
+    jobs = {("cli", "main"): (_cli_task, ("main", CLI_MAIN)),
+            ("cli", "ipw1d"): (_cli_task, ("ipw1d", CLI_IPW1D)),
+            ("cli", "sweep"): (_cli_task, ("sweep", CLI_SWEEP)),
+            ("cli", "subprocess"): (_cli_subprocess_task, ())}
+    if "rel_l2" not in MAIN_FUSED:
+        jobs[("cli", "reference")] = (_main_fused_task, ())
+    return jobs
+
+
+def phase_cli(results):
+    """The command line, ``python -m nnpde_tpu_torch.exp.cli``, as a user
+    starts the system (README), each run in a worker process of the pool:
+
+    * the main path's fused configuration (CLI_MAIN: 2D Poisson PINN, FBC,
+      20000 points, 3000 epochs, chunk 1000, seed 0): exactly 3000
+      fused_linear_residual launches; the persisted rel_l2 (``L2_error``
+      over the solution's rms) equal to the main path phase's fused
+      rel_l2 (the kernels repeat bitwise, so the gate is equality, with
+      1e-6 relative as the stated fallback); the best checkpoint reloaded
+      through the registry onto the card reproduces it within 1e-6;
+    * ``ipw1d --method DRM --jet-impl fused`` (300 of 3000 epochs, u50):
+      exactly 300 quad_sums and 300 quad_seeded launches (rows 9 and 10 at
+      d = 1), the best eval below the first, finite;
+    * ``sweep ipw1d --n-values 1 --epochs 50 --chunk 50``: 8 rows printed
+      and in the ledger, finite, no kernel (the torch route);
+    * ``python -m nnpde_tpu_torch.exp.cli poisson --epochs 200`` as a
+      process of its own: exit 0, and ``results_process`` writes a CSV of
+      its one ledger row.
+    No run draws a plot."""
+    ref = MAIN_FUSED.get("rel_l2", results.get(("cli", "reference"), {}).get("rel_l2"))
+    main, ipw, sweep, sub = (results[("cli", k)] for k in
+                             ("main", "ipw1d", "sweep", "subprocess"))
+    main["main_path_rel_l2"] = ref
+    main["bitwise"] = main["rel_l2"] == ref
+    main["rel_diff"] = abs(main["rel_l2"] - ref) / ref
+    main["reload_rel_diff"] = abs(main["reload_rel_l2"] - main["rel_l2"]) / main["rel_l2"]
+    main["ok"] = bool(main["rc"] == 0
+                      and main["launches"] == {"fused_linear_residual": CLI_EPOCHS["main"]}
+                      and main["rel_diff"] <= 1e-6 and main["reload_rel_diff"] <= 1e-6
+                      and main["meta_problem"] == "poisson_nd" and main["plots"] == 0)
+    ipw["ok"] = bool(ipw["rc"] == 0 and ipw["finite"] and ipw["best"] < ipw["first"]
+                     and ipw["launches"] == {"quad_sums": CLI_EPOCHS["ipw1d"],
+                                             "quad_seeded": CLI_EPOCHS["ipw1d"]}
+                     and ipw["plots"] == 0)
+    sweep["ok"] = bool(sweep["rc"] == 0 and len(sweep["printed"]) == 8
+                       and sweep["ledger_rows"] == 8 and sweep["finite"]
+                       and sweep["launches"] == {} and sweep["plots"] == 0)
+    sub["ok"] = bool(sub["rc"] == 0 and sub["csv_lines"] == 2)
+    report = {"phase": "cli", "runs": {"main": main, "ipw1d": ipw, "sweep": sweep,
+                                       "subprocess": sub}}
+    report["ok"] = all(r["ok"] for r in report["runs"].values())
+    emit(report)
+    if not report["ok"]:
+        raise SystemExit("cli check failed")
+    return {"main": main["launches"], "ipw1d": ipw["launches"]}
+
+
+# ------------------------------------------------------------- parallel
+PAR_N = 20000
+PAR_ADAM = 100
+PAR_STEP_LAUNCHES = {"fused_linear_residual": 1, "fused_drm_energy": 1, "quad_sums": 1,
+                     "quad_seeded": 1, "linear_sums": 2, "linear_seeded": 2}
+
+
+def _par_inputs(dev):
+    """The main path's shapes (u64 and the critic c64, 20000 points), from
+    one seed in every process: the parameters, the points and each step's
+    coefficient streams."""
+    from nnpde_tpu_torch.kernels import (drm_coefficients, linear_functional_coefficients,
+                                         quotient_coefficients, residual_coefficients)
+    from nnpde_tpu_torch.models import factor_for_technique
+    from nnpde_tpu_torch.pde import poisson
+
+    rng = np.random.default_rng(29)
+    u, c = rand_params(rng, LAYERS, dev), rand_params(rng, CRITIC, dev)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    X = t(rng.uniform(0.0, L, (PAR_N, 2)))
+    phi, u_dat = t(rng.normal(size=PAR_N)), t(rng.normal(size=PAR_N))
+    gphi, gu = t(rng.normal(size=(PAR_N, 2))), t(rng.normal(size=(PAR_N, 2)))
+    B = factor_for_technique("FBC", dim=2, kind="box", L=L).jet(X)
+    f = poisson.rhs_f_for_u_sin(X, L, [1, 1])
+    V = 0.3 * torch.sum(X ** 2, dim=1)
+    return {"u": u, "c": c, "X": X, "phi": phi,
+            "coef_pinn": residual_coefficients(B, a0=-1.0, rhs=-f),
+            "coef_drm": drm_coefficients(B, f),
+            "coef_ray": quotient_coefficients(B, V=0.5 * torch.sum(X ** 2, dim=1)),
+            "base": linear_functional_coefficients(B, c0=V * phi, b0=0.5 * gphi, e1=B.value,
+                                                   e2=B.value * phi),
+            "coef_v": linear_functional_coefficients(B, c0=(V - 2.1) * u_dat, b0=0.5 * gu,
+                                                     e1=B.value)}
+
+
+def _par_steps(mesh, inp):
+    """Every data-parallel step of ``nnpde_tpu_torch.parallel`` on this
+    process's shards: name -> (value, gradient pairs, sums)."""
+    from nnpde_tpu_torch.parallel import (fused_rayleigh_step, fused_residual_step,
+                                          fused_wan_u_step, fused_wan_v_step, shard_batch)
+
+    def sh(k):
+        return shard_batch(inp[k], mesh)
+
+    X, out = sh("X"), {}
+    for kind in ("pinn", "drm"):
+        loss, sums, g = fused_residual_step(mesh, "sin", kind=kind)(inp["u"], X,
+                                                                   sh(f"coef_{kind}"))
+        out[f"fused_{kind}"] = (loss, g, sums)
+    loss, aux, g = fused_rayleigh_step(mesh, "sin", weight=3.0, den_eps=1e-8)(
+        inp["u"], X, sh("coef_ray"))
+    out["rayleigh"] = (loss, g, aux)
+    loss, aux, g, dE = fused_wan_u_step(mesh, "sin", vol=4.0, w_pde=10.0, w_norm=100.0)(
+        inp["u"], 2.1, X, sh("base"), sh("phi"))
+    out["wan_u"] = (loss, g, dict(aux, dE=dE))
+    loss, aux, g = fused_wan_v_step(mesh, "sin")(inp["c"], X, sh("coef_v"))
+    out["wan_v"] = (loss, g, aux)
+    return out
+
+
+def _par_direct(inp):
+    """The same objectives by direct kernel calls on the whole batch."""
+    from nnpde_tpu_torch.kernels import (fused_drm_energy, fused_linear_residual,
+                                         make_fused_rayleigh, make_fused_wan_u,
+                                         make_fused_wan_v)
+
+    def grad_of(obj, params, *args, extra=()):
+        leaves = [t.clone().requires_grad_(True) for pair in params for t in pair]
+        xs = [torch.as_tensor(e, dtype=torch.float32, device=inp["X"].device)
+              .requires_grad_(True) for e in extra]
+        val, aux = obj([(leaves[i], leaves[i + 1]) for i in range(0, len(leaves), 2)],
+                       *xs, *args)
+        g = torch.autograd.grad(val, leaves + xs)
+        pairs = [(g[i], g[i + 1]) for i in range(0, len(leaves), 2)]
+        return val.detach(), pairs, aux, g[len(leaves):]
+
+    X, out = inp["X"], {}
+    loss, aux, g = fused_linear_residual(inp["u"], X, inp["coef_pinn"], "sin")
+    out["fused_pinn"] = (loss, g, {k: v for k, v in aux.items() if k != "n"})
+    loss, aux, g = fused_drm_energy(inp["u"], X, inp["coef_drm"], "sin")
+    out["fused_drm"] = (loss, g, {k: v for k, v in aux.items() if k != "n"})
+    val, g, aux, _ = grad_of(make_fused_rayleigh("sin", weight=3.0, den_eps=1e-8), inp["u"], X,
+                             inp["coef_ray"])
+    out["rayleigh"] = (val, g, aux)
+    pn = torch.mean(inp["phi"] ** 2)
+    wan_u = make_fused_wan_u("sin", vol=4.0, w_pde=10.0, w_norm=100.0)
+    val, g, aux, (dE,) = grad_of(lambda p, E, X_, b: wan_u(p, E, X_, b, pn), inp["u"], X,
+                                 inp["base"], extra=(2.1,))
+    out["wan_u"] = (val, g, dict(aux, dE=dE))
+    val, g, aux, _ = grad_of(make_fused_wan_v("sin"), inp["c"], X, inp["coef_v"])
+    out["wan_v"] = (val, g, aux)
+    return out
+
+
+def _par_adam(mesh, inp, steps=PAR_ADAM, untimed=10):
+    """``steps`` Adam steps (lr 1e-3) of the fused PINN step on this
+    process's shard: (final parameters, steps per second over the steps
+    after the first ``untimed``, which take the first calls' set-up)."""
+    from nnpde_tpu_torch.parallel import fused_residual_step, replicate, shard_batch
+
+    step = fused_residual_step(mesh, "sin")
+    ps = replicate(inp["u"], mesh)
+    X, coef = shard_batch(inp["X"], mesh), shard_batch(inp["coef_pinn"], mesh)
+    leaves = [t for pair in ps for t in pair]
+    opt = torch.optim.Adam(leaves, lr=1e-3)
+    for i in range(steps):
+        if i == untimed:
+            torch.cuda.synchronize()
+            t0 = time.time()
+        _, _, grads = step(ps, X, coef)
+        for t, g in zip(leaves, [g for pair in grads for g in pair]):
+            t.grad = g
+        opt.step()
+    torch.cuda.synchronize()
+    return ps, (steps - untimed) / (time.time() - t0)
+
+
+def _host_tree(res):
+    """name -> (value, grads, sums) of tensors as numpy arrays."""
+    return {name: (v.detach().cpu().numpy(), [(a.cpu().numpy(), b.cpu().numpy()) for a, b in g],
+                   {k: torch.as_tensor(x).detach().cpu().numpy() for k, x in s.items()})
+            for name, (v, g, s) in res.items()}
+
+
+def _parallel_rank(rank, world, workdir):
+    """One gloo rank on cuda:0 (every rank shares the card): the steps on
+    its share of the batch, then PAR_ADAM Adam steps of the fused PINN step;
+    writes ``rank{rank}.json`` and ``rank{rank}.npz`` into ``workdir``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from nnpde_tpu_torch.kernels import LAUNCHES, reset_launches
+    from nnpde_tpu_torch.parallel import make_mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/rendezvous", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh(device=dev)
+        inp = _par_inputs(dev)
+        reset_launches()
+        res = _host_tree(_par_steps(mesh, inp))
+        counts = {k: v for k, v in LAUNCHES.items() if v}
+        params, rate = _par_adam(mesh, inp)
+        arrays = {f"p{i}": t.cpu().numpy() for i, t in enumerate(t for pr in params for t in pr)}
+        for name, (v, g, s) in res.items():
+            arrays[f"{name}/value"] = v
+            for i, (a, b) in enumerate(g):
+                arrays[f"{name}/gW{i}"], arrays[f"{name}/gb{i}"] = a, b
+            for k, x in s.items():
+                arrays[f"{name}/sum/{k}"] = x
+        np.savez(os.path.join(workdir, f"rank{rank}.npz"), **arrays)
+        with open(os.path.join(workdir, f"rank{rank}.json"), "w") as fh:
+            json.dump({"launches": counts, "adam_steps_per_s": rate,
+                       "launches_total": {k: v for k, v in LAUNCHES.items() if v}}, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _np_rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def phase_parallel():
+    """Data parallelism (``nnpde_tpu_torch.parallel``) on the card, at the
+    main path's shapes (u64, the critic c64, 20000 points):
+
+    * a world of one on NCCL (a process group of one rank): the fused
+      residual step (pinn, drm), the Rayleigh step and the WAN u / v steps
+      bitwise equal to the direct kernel calls, each step's kernels launched
+      exactly (PAR_STEP_LAUNCHES);
+    * two spawned gloo ranks sharing cuda:0, each running the kernels on
+      half the batch: every value, gradient leaf and sum within 1e-5
+      (relative) of the one process on the whole batch, and after PAR_ADAM
+      Adam steps of the fused PINN step the two ranks' parameters bitwise
+      equal;
+    * the two-rank Adam steps/s beside the one-process rate (reported, not
+      gated)."""
+    import datetime
+    import multiprocessing
+    import socket
+    import tempfile
+
+    import torch.distributed as dist
+
+    from nnpde_tpu_torch.kernels import LAUNCHES, reset_launches
+    from nnpde_tpu_torch.parallel import make_mesh
+
+    dev = torch.device("cuda")
+    inp = _par_inputs(dev)
+    report, ok = {"phase": "parallel", "N": PAR_N, "layers": list(LAYERS),
+                  "critic": list(CRITIC)}, True
+    # a world of one on NCCL
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.time()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh(device="cuda")
+        reset_launches()
+        res = _par_steps(mesh, inp)
+        counts = {k: v for k, v in LAUNCHES.items() if v}
+    finally:
+        dist.destroy_process_group()
+    direct = _par_direct(inp)
+    bitwise = {}
+    for name, (v, g, s) in res.items():
+        dv, dg, ds = direct[name]
+        bitwise[name] = bool(torch.equal(v, dv)
+                             and all(torch.equal(a, b) for pa, pb in zip(g, dg)
+                                     for a, b in zip(pa, pb))
+                             and all(torch.equal(torch.as_tensor(s[k]), torch.as_tensor(ds[k]))
+                                     for k in ds))
+    report["nccl_world_of_one"] = {"bitwise": bitwise, "launches": counts,
+                                   "wall_s": time.time() - t0}
+    ok = ok and all(bitwise.values()) and counts == PAR_STEP_LAUNCHES
+    # the one process on the whole batch: reference and rate
+    ref = _host_tree(direct)
+    _, rate_one = _par_adam(make_mesh(device="cuda"), inp)
+    # two gloo ranks on cuda:0
+    ctx = multiprocessing.get_context("spawn")
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as d:
+        procs = [ctx.Process(target=_parallel_rank, args=(r, 2, d)) for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=300)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        ranks = ([(json.load(open(os.path.join(d, f"rank{r}.json"))),
+                   dict(np.load(os.path.join(d, f"rank{r}.npz")))) for r in range(2)]
+                 if codes == [0, 0] else [])
+    two = {"exit_codes": codes, "wall_s": time.time() - t0}
+    if ranks:
+        worst = {}
+        for name, (v, g, s) in ref.items():
+            errs = []
+            for _, arr in ranks:
+                errs.append(_np_rel(arr[f"{name}/value"], v))
+                errs += [_np_rel(arr[f"{name}/gW{i}"], a) for i, (a, _) in enumerate(g)]
+                errs += [_np_rel(arr[f"{name}/gb{i}"], b) for i, (_, b) in enumerate(g)]
+                errs += [_np_rel(arr[f"{name}/sum/{k}"], x) for k, x in s.items()]
+            worst[name] = max(errs)
+        p0, p1 = ranks[0][1], ranks[1][1]
+        same = all(np.array_equal(p0[k], p1[k]) for k in p0 if k.startswith("p"))
+        want = dict(PAR_STEP_LAUNCHES, fused_linear_residual=1 + PAR_ADAM)
+        two.update(max_rel_vs_one_process=worst, params_bitwise_after_adam=same,
+                   adam_steps=PAR_ADAM, launches=[m["launches"] for m, _ in ranks],
+                   launches_total=[m["launches_total"] for m, _ in ranks],
+                   adam_steps_per_s_two_ranks=[m["adam_steps_per_s"] for m, _ in ranks],
+                   adam_steps_per_s_one_process=rate_one)
+        ok = ok and all(e <= 1e-5 for e in worst.values()) and same and all(
+            m["launches"] == PAR_STEP_LAUNCHES and m["launches_total"] == want
+            for m, _ in ranks)
+    else:
+        ok = False
+    report["two_gloo_ranks"] = two
+    report["ok"] = bool(ok)
+    emit(report)
+    if not report["ok"]:
+        raise SystemExit("parallel check failed")
+    return {"one_process": rate_one, "two_ranks": two.get("adam_steps_per_s_two_ranks")}
+
+
 GROUPS = ("kernels", "wan", "main", "eigen", "ipw3d", "neumann", "eigen1d", "qho2d", "kh",
-          "subspace", "floquet", "timing", "precision")
+          "subspace", "floquet", "cli", "parallel", "timing", "precision")
 # groups that run only when named
 NAMED = ("sweep", "mma_sweep", "mma_depth", "devw_sweep", "full", "subspace_full",
          "floquet_full", "subspace_seeds")
@@ -3827,11 +4286,18 @@ def main():
         speed["qho2d"] = phase_qho2d_path()
     if "kh" in want:
         speed["kh"] = phase_kh_path()
-    floquet_row = None
+    floquet_row, pooled = None, {}
     if "subspace" in want:
-        speed["subspace"], floquet_row = phase_subspace_path(with_floquet="floquet" in want)
+        speed["subspace"], floquet_row, pooled = phase_subspace_path(
+            with_floquet="floquet" in want, extra=cli_jobs() if "cli" in want else None)
+    elif "cli" in want:
+        pooled = _pool_map(cli_jobs())
     if "floquet" in want:
         speed["floquet"] = phase_floquet_path(floquet_row)
+    if "cli" in want:
+        phase_cli(pooled)
+    if "parallel" in want:
+        speed["parallel_adam_steps_per_s"] = phase_parallel()
     if "full" in want:
         phase_full(route)
     missed = []

@@ -41,6 +41,8 @@ from . import _cuda, _plan
 from .fused_quotient import (
     _check_axis,
     _flat_grads,
+    _global_grads,
+    _global_sums,
     _on_cuda,
     _pairs,
     _seeded_grads,
@@ -268,11 +270,11 @@ def _fold_E(base, E, K):
 class _WanMultiU(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cfg, E, X, base, phi_norms, *leaves):
-        activation, K, convention, eps, vol, w_pde, w_norm, dot = cfg
+        activation, K, convention, eps, vol, w_pde, w_norm, dot, axis = cfg
         coef = _fold_E(base, E, K)
         flat = _cuda.flat_params(_pairs(leaves))     # built once, reused by backward
-        s = fused_multi_sums(_pairs(leaves), X, coef, activation, K, dot_dtype=dot,
-                             flat=flat)
+        s = _global_sums(fused_multi_sums(_pairs(leaves), X, coef, activation, K, dot_dtype=dot,
+                                          flat=flat), axis)
         n = s["n"]
         wr = s["sum_r"] / n                            # (K,)
         mu2 = s["sum_mass"][0] / n                     # u mass (e1_0 = Bu)
@@ -287,7 +289,7 @@ class _WanMultiU(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g, *_):
-        activation, K, convention, eps, vol, w_pde, w_norm, dot = ctx.cfg
+        activation, K, convention, eps, vol, w_pde, w_norm, dot, axis = ctx.cfg
         X, coef, wr, mu2, phi_norms, sum_uphi, flat, *leaves = ctx.saved_tensors
         n = ctx.n
         _, dp_dwr, dp_dpn = _wan_dp(convention, wr, phi_norms, eps)   # (K,)
@@ -296,9 +298,9 @@ class _WanMultiU(torch.autograd.Function):
         s_q[0] = g * w_norm * 2.0 * (vol * mu2 - 1.0) * vol / n
         grads = (None,) * len(leaves)
         if any(ctx.needs_input_grad[5:]):
-            grads = _flat_grads(fused_multi_seeded_grads(
+            grads = _flat_grads(_global_grads(fused_multi_seeded_grads(
                 _pairs(leaves), X, coef, (s_r, s_q, torch.zeros_like(s_r)), activation, K,
-                dot_dtype=dot, flat=flat))
+                dot_dtype=dot, flat=flat), axis))
         # dwr_k/dE = -(1/n) sum u*phi_k (the e2 lanes)
         dE = g * w_pde * torch.sum(dp_dwr * (-sum_uphi / n)) / K
         d_pn = g * w_pde * dp_dpn / K                  # (K,)
@@ -326,7 +328,7 @@ def make_fused_wan_multi_u(activation: str, n_bumps: int, *,
     _check_axis(axis)
     _check_dot(dot_dtype)
     _wan_dp(convention, 0.0, 1.0, eps)
-    cfg = (activation, n_bumps, convention, eps, vol, w_pde, w_norm, dot_dtype)
+    cfg = (activation, n_bumps, convention, eps, vol, w_pde, w_norm, dot_dtype, axis)
 
     def loss(params, E, X, base, phi_norms):
         E = torch.as_tensor(E, dtype=X.dtype, device=X.device)
@@ -341,10 +343,10 @@ def make_fused_wan_multi_u(activation: str, n_bumps: int, *,
 class _WanMultiV(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cfg, X, coef, *leaves):
-        activation, K, convention, eps, objective, log_eps, dot = cfg
+        activation, K, convention, eps, objective, log_eps, dot, axis = cfg
         flat = _cuda.flat_params(_pairs(leaves))     # built once, reused by backward
-        s = fused_multi_sums(_pairs(leaves), X, coef, activation, K, dot_dtype=dot,
-                             flat=flat)
+        s = _global_sums(fused_multi_sums(_pairs(leaves), X, coef, activation, K, dot_dtype=dot,
+                                          flat=flat), axis)
         n = s["n"]
         wr, pn = s["sum_r"] / n, s["sum_mass"] / n     # (K,), (K,)
         p_k, _, _ = _wan_dp(convention, wr, pn, eps)
@@ -357,15 +359,16 @@ class _WanMultiV(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g, *_):
-        activation, K, convention, eps, objective, log_eps, dot = ctx.cfg
+        activation, K, convention, eps, objective, log_eps, dot, axis = ctx.cfg
         X, coef, wr, pn, p, flat, *leaves = ctx.saved_tensors
         _, dp_dwr, dp_dpn = _wan_dp(convention, wr, pn, eps)          # (K,)
         outer = -g / (p + log_eps) if objective == "neg_log" else -g
         s_r = outer * dp_dwr / (K * ctx.n)
         s_q = outer * dp_dpn / (K * ctx.n)
-        grads = fused_multi_seeded_grads(_pairs(leaves), X, coef,
-                                         (s_r, s_q, torch.zeros_like(s_r)), activation, K,
-                                         dot_dtype=dot, flat=flat)
+        grads = _global_grads(fused_multi_seeded_grads(_pairs(leaves), X, coef,
+                                                       (s_r, s_q, torch.zeros_like(s_r)),
+                                                       activation, K, dot_dtype=dot, flat=flat),
+                              axis)
         return (None, None, None) + _flat_grads(grads)
 
 
@@ -385,7 +388,7 @@ def make_fused_wan_multi_v(activation: str, n_bumps: int, *,
     _check_axis(axis)
     _check_dot(dot_dtype)
     _wan_dp(convention, 0.0, 1.0, eps)
-    cfg = (activation, n_bumps, convention, eps, objective, log_eps, dot_dtype)
+    cfg = (activation, n_bumps, convention, eps, objective, log_eps, dot_dtype, axis)
 
     def loss_v(params, X, coef):
         val, wr, p, pn = _WanMultiV.apply(cfg, X, coef,

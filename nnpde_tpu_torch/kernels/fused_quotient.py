@@ -17,6 +17,10 @@ critic objectives ``-log(p + eps)`` / ``-p``, the Rayleigh quotient
 The factories :func:`make_fused_rayleigh`, :func:`make_fused_quad_mean`,
 :func:`make_fused_wan_u` and :func:`make_fused_wan_v` wrap the pair in a
 ``torch.autograd.Function``: pass A in ``forward``, pass B in ``backward``.
+With ``axis=`` a process group, each rank holds a shard of the points:
+pass A's sums are all-reduced (in float64) before the quotient is formed
+and pass B's gradients are summed, so every rank gets the global
+objective and its gradient (:mod:`nnpde_tpu_torch.parallel`).
 Gradients flow to the network params (and to ``E`` and ``phi_norm`` for
 the WAN primal), never to the points or the coefficient streams; the aux
 values are metrics and carry no gradient.
@@ -46,6 +50,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.distributed as dist
 
 from ..ops.fwdlap import mlp_fwdlap
 from . import _cuda, _plan
@@ -372,10 +377,52 @@ def _flat_grads(grads):
 
 
 def _check_axis(axis) -> None:
-    if axis is not None:
-        raise NotImplementedError(
-            "axis= (the sums and gradients reduced across devices) arrives "
-            "with ROADMAP A13 (parallel/mesh.py)")
+    """``axis`` names the ranks a quotient is summed over: ``None`` (this
+    process) or a ``torch.distributed`` process group, such as
+    ``parallel.Mesh.group("data")``.  A mesh axis *name* has no meaning
+    outside a mesh and raises."""
+    if axis is not None and not isinstance(axis, dist.ProcessGroup):
+        raise TypeError(f"axis={axis!r}: pass a torch.distributed process group "
+                        "(parallel.Mesh.group(name)) or None, not a mesh axis name")
+
+
+def _global_sums(s, axis):
+    """The pass-A sums over every rank of the process group ``axis`` (None:
+    this process alone): all-reduced in float64 in one collective before
+    the quotient is formed, returned in their own dtype, with ``n`` scaled
+    by the group's size (equal shards, as
+    :func:`nnpde_tpu_torch.parallel.shard_batch` makes them).  Sums only:
+    the caller differentiates nothing through the collective, so nothing
+    is counted twice."""
+    if axis is None:
+        return s
+    keys = [k for k in s if k != "n"]
+    flat = torch.cat([s[k].reshape(-1).to(torch.float64) for k in keys])
+    dist.all_reduce(flat, group=axis)
+    out, o = {}, 0
+    for k in keys:
+        v = s[k]
+        out[k] = flat[o:o + v.numel()].view(v.shape).to(v.dtype)
+        o += v.numel()
+    out["n"] = s["n"] * dist.get_world_size(axis)
+    return out
+
+
+def _global_grads(grads, axis):
+    """The pass-B gradients summed over the ranks of ``axis`` in one
+    collective: the seeds already carry the global 1/n, so the plain sum
+    of the shards' gradient sums is the gradient of the global objective."""
+    if axis is None:
+        return grads
+    flat = torch.cat([t.reshape(-1) for pair in grads for t in pair])
+    dist.all_reduce(flat, group=axis)
+    out, o = [], 0
+    for W, b in grads:
+        Wr = flat[o:o + W.numel()].view(W.shape)
+        o += W.numel()
+        out.append((Wr, flat[o:o + b.numel()].view(b.shape)))
+        o += b.numel()
+    return out
 
 
 def _wan_dp(convention, wr, pn, eps):
@@ -393,9 +440,10 @@ def _wan_dp(convention, wr, pn, eps):
 class _Rayleigh(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cfg, X, coef, *leaves):
-        activation, weight, den_eps, dot = cfg
+        activation, weight, den_eps, dot, axis = cfg
         flat = _cuda.flat_params(_pairs(leaves))     # built once, reused by backward
-        s = fused_quad_sums(_pairs(leaves), X, coef, activation, dot_dtype=dot, flat=flat)
+        s = _global_sums(fused_quad_sums(_pairs(leaves), X, coef, activation, dot_dtype=dot,
+                                         flat=flat), axis)
         n = s["n"]
         num, den = s["sum_e"] / n, s["sum_u2"] / n
         q = num / (den + den_eps)
@@ -406,13 +454,14 @@ class _Rayleigh(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g, *_):
-        activation, weight, den_eps, dot = ctx.cfg
+        activation, weight, den_eps, dot, axis = ctx.cfg
         X, coef, num, den, flat, *leaves = ctx.saved_tensors
         g = g * weight
         s_e = g / ((den + den_eps) * ctx.n)
         s_q = -g * num / ((den + den_eps) ** 2 * ctx.n)
-        grads = fused_quad_seeded_grads(_pairs(leaves), X, coef, (s_e, s_q),
-                                        activation, dot_dtype=dot, flat=flat)
+        grads = _global_grads(fused_quad_seeded_grads(_pairs(leaves), X, coef, (s_e, s_q),
+                                                      activation, dot_dtype=dot, flat=flat),
+                              axis)
         return (None, None, None) + _flat_grads(grads)
 
 
@@ -425,7 +474,7 @@ def make_fused_rayleigh(activation: str, *, weight: float = 1.0,
     unweighted quotient), ``mean_e`` and ``mean_u2``."""
     _check_axis(axis)
     _check_dot(dot_dtype)
-    cfg = (activation, weight, den_eps, dot_dtype)
+    cfg = (activation, weight, den_eps, dot_dtype, axis)
 
     def loss(params, X, coef):
         total, q, num, den = _Rayleigh.apply(cfg, X, coef,
@@ -438,9 +487,10 @@ def make_fused_rayleigh(activation: str, *, weight: float = 1.0,
 class _QuadMean(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cfg, X, coef, *leaves):
-        activation, weight, dot = cfg
+        activation, weight, dot, axis = cfg
         flat = _cuda.flat_params(_pairs(leaves))     # built once, reused by backward
-        s = fused_quad_sums(_pairs(leaves), X, coef, activation, dot_dtype=dot, flat=flat)
+        s = _global_sums(fused_quad_sums(_pairs(leaves), X, coef, activation, dot_dtype=dot,
+                                         flat=flat), axis)
         n = s["n"]
         mean_e, mean_u2 = s["sum_e"] / n, s["sum_u2"] / n
         ctx.cfg, ctx.n = cfg, n
@@ -450,12 +500,12 @@ class _QuadMean(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g, *_):
-        activation, weight, dot = ctx.cfg
+        activation, weight, dot, axis = ctx.cfg
         X, coef, flat, *leaves = ctx.saved_tensors
         s_e = g * weight / ctx.n
-        grads = fused_quad_seeded_grads(_pairs(leaves), X, coef,
-                                        (s_e, torch.zeros_like(s_e)), activation,
-                                        dot_dtype=dot, flat=flat)
+        grads = _global_grads(fused_quad_seeded_grads(_pairs(leaves), X, coef,
+                                                      (s_e, torch.zeros_like(s_e)), activation,
+                                                      dot_dtype=dot, flat=flat), axis)
         return (None, None, None) + _flat_grads(grads)
 
 
@@ -467,7 +517,7 @@ def make_fused_quad_mean(activation: str, *, weight: float = 1.0, axis=None,
     ``aux`` holds ``mean_e`` and ``mean_u2``."""
     _check_axis(axis)
     _check_dot(dot_dtype)
-    cfg = (activation, weight, dot_dtype)
+    cfg = (activation, weight, dot_dtype, axis)
 
     def loss(params, X, coef):
         total, mean_e, mean_u2 = _QuadMean.apply(cfg, X, coef,
@@ -480,14 +530,14 @@ def make_fused_quad_mean(activation: str, *, weight: float = 1.0, axis=None,
 class _WanU(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cfg, E, X, base, phi_norm, *leaves):
-        activation, convention, eps, vol, w_pde, w_norm, dot = cfg
+        activation, convention, eps, vol, w_pde, w_norm, dot, axis = cfg
         d = X.shape[1]
         # the trainable eigenvalue enters as c -= E * e2 (e2 = B*phi)
         coef = torch.cat([(base[:, 0] - E * base[:, d + 4])[:, None], base[:, 1:]], dim=1)
         # the weak form has no Laplacian term (a == 0 by the contract)
         flat = _cuda.flat_params(_pairs(leaves))     # built once, reused by backward
-        s = fused_linear_sums(_pairs(leaves), X, coef, activation, no_lap=True,
-                              dot_dtype=dot, flat=flat)
+        s = _global_sums(fused_linear_sums(_pairs(leaves), X, coef, activation, no_lap=True,
+                                           dot_dtype=dot, flat=flat), axis)
         n = s["n"]
         wr, mu2 = s["sum_r"] / n, s["sum_mass"] / n
         p, _, _ = _wan_dp(convention, wr, phi_norm, eps)
@@ -500,7 +550,7 @@ class _WanU(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g, *_):
-        activation, convention, eps, vol, w_pde, w_norm, dot = ctx.cfg
+        activation, convention, eps, vol, w_pde, w_norm, dot, axis = ctx.cfg
         X, coef, wr, mu2, phi_norm, sum_uphi, flat, *leaves = ctx.saved_tensors
         n = ctx.n
         _, dp_dwr, dp_dpn = _wan_dp(convention, wr, phi_norm, eps)
@@ -508,9 +558,9 @@ class _WanU(torch.autograd.Function):
         s_q = g * w_norm * 2.0 * (vol * mu2 - 1.0) * vol / n
         grads = (None,) * len(leaves)
         if any(ctx.needs_input_grad[5:]):
-            grads = _flat_grads(fused_seeded_grads(
+            grads = _flat_grads(_global_grads(fused_seeded_grads(
                 _pairs(leaves), X, coef, (s_r, s_q, torch.zeros_like(s_r)),
-                activation, no_lap=True, dot_dtype=dot, flat=flat))
+                activation, no_lap=True, dot_dtype=dot, flat=flat), axis))
         # dwr/dE = -(1/n) sum u*phi (the e2 lane)
         dE = g * w_pde * dp_dwr * (-sum_uphi / n)
         d_pn = g * w_pde * dp_dpn
@@ -532,7 +582,7 @@ def make_fused_wan_u(activation: str, *, convention: str = "wr2_over_norm",
     _check_axis(axis)
     _check_dot(dot_dtype)
     _wan_dp(convention, 0.0, 1.0, eps)
-    cfg = (activation, convention, eps, vol, w_pde, w_norm, dot_dtype)
+    cfg = (activation, convention, eps, vol, w_pde, w_norm, dot_dtype, axis)
 
     def loss(params, E, X, base, phi_norm):
         E = torch.as_tensor(E, dtype=X.dtype, device=X.device)
@@ -547,10 +597,10 @@ def make_fused_wan_u(activation: str, *, convention: str = "wr2_over_norm",
 class _WanV(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cfg, X, coef, *leaves):
-        activation, convention, eps, objective, log_eps, dot = cfg
+        activation, convention, eps, objective, log_eps, dot, axis = cfg
         flat = _cuda.flat_params(_pairs(leaves))     # built once, reused by backward
-        s = fused_linear_sums(_pairs(leaves), X, coef, activation, no_lap=True,
-                              dot_dtype=dot, flat=flat)
+        s = _global_sums(fused_linear_sums(_pairs(leaves), X, coef, activation, no_lap=True,
+                                           dot_dtype=dot, flat=flat), axis)
         n = s["n"]
         wr, pn = s["sum_r"] / n, s["sum_mass"] / n
         p, _, _ = _wan_dp(convention, wr, pn, eps)
@@ -562,15 +612,15 @@ class _WanV(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g, *_):
-        activation, convention, eps, objective, log_eps, dot = ctx.cfg
+        activation, convention, eps, objective, log_eps, dot, axis = ctx.cfg
         X, coef, wr, pn, p, flat, *leaves = ctx.saved_tensors
         _, dp_dwr, dp_dpn = _wan_dp(convention, wr, pn, eps)
         outer = -g / (p + log_eps) if objective == "neg_log" else -g
         s_r = outer * dp_dwr / ctx.n
         s_q = outer * dp_dpn / ctx.n
-        grads = fused_seeded_grads(_pairs(leaves), X, coef,
-                                   (s_r, s_q, torch.zeros_like(s_r)), activation,
-                                   no_lap=True, dot_dtype=dot, flat=flat)
+        grads = _global_grads(fused_seeded_grads(_pairs(leaves), X, coef,
+                                                 (s_r, s_q, torch.zeros_like(s_r)), activation,
+                                                 no_lap=True, dot_dtype=dot, flat=flat), axis)
         return (None, None, None) + _flat_grads(grads)
 
 
@@ -587,7 +637,7 @@ def make_fused_wan_v(activation: str, *, convention: str = "wr2_over_norm",
     _check_axis(axis)
     _check_dot(dot_dtype)
     _wan_dp(convention, 0.0, 1.0, eps)
-    cfg = (activation, convention, eps, objective, log_eps, dot_dtype)
+    cfg = (activation, convention, eps, objective, log_eps, dot_dtype, axis)
 
     def loss_v(params, X, coef):
         val, wr, p, pn = _WanV.apply(cfg, X, coef,
