@@ -3,8 +3,8 @@
 Counterpart of ``nnpde_tpu/models/mlp.py``.  The ``(in, out)`` layout is
 kept (no ``nn.Linear``, whose weight is ``(out, in)``), so parameters move
 between the packages without a transpose and feed the fused kernels as
-they are.  Initialisation draws from an explicit ``torch.Generator``; the
-numbers differ from ``jax.random`` but the distributions are the same.
+they are.  :func:`init_mlp` draws the JAX package's weights for a seed or
+a threefry key, bit for bit.
 """
 
 from __future__ import annotations
@@ -29,40 +29,15 @@ class NetSpec(NamedTuple):
         return "xavier_tanh" if self.activation == "tanh" else "torch_default"
 
 
-def _uniform(gen, shape, bound, dtype, device):
-    u = torch.rand(shape, generator=gen, dtype=dtype, device=device)
-    return (2.0 * u - 1.0) * bound
-
-
-def init_mlp(gen: torch.Generator, spec: NetSpec, dtype=torch.float32,
-             device=None):
-    """Initialise MLP params: list of (W (in,out), b (out,)) on the
-    generator's device (or ``device``)."""
-    device = gen.device if device is None else device
+def init_mlp(key, spec: NetSpec, dtype=torch.float32, device=None):
+    """The JAX package's ``init_mlp(key, spec)``, bit for bit: the layer keys
+    split from ``key``, each split again for W and b, drawn by
+    :func:`~nnpde_tpu_torch.prng.threefry_uniform` on the host.  ``key`` is
+    a seed (``jax.random.PRNGKey(seed)``) or a threefry key pair (e.g. from
+    :func:`~nnpde_tpu_torch.prng.threefry_split` or ``threefry_fold_in``)."""
     scheme = spec.resolved_init()
-    params = []
-    for fan_in, fan_out in zip(spec.layers[:-1], spec.layers[1:]):
-        if scheme == "xavier_tanh":
-            bound = (5.0 / 3.0) * math.sqrt(6.0 / (fan_in + fan_out))
-            W = _uniform(gen, (fan_in, fan_out), bound, dtype, device)
-            b = torch.zeros((fan_out,), dtype=dtype, device=device)
-        elif scheme == "torch_default":
-            bound = 1.0 / math.sqrt(fan_in)
-            W = _uniform(gen, (fan_in, fan_out), bound, dtype, device)
-            b = _uniform(gen, (fan_out,), bound, dtype, device)
-        else:
-            raise ValueError(f"Unknown init scheme {scheme!r}")
-        params.append((W, b))
-    return params
-
-
-def init_mlp_threefry(seed: int, spec: NetSpec, dtype=torch.float32, device=None):
-    """The JAX package's ``init_mlp(jax.random.PRNGKey(seed), spec)``, number
-    for number (up to the rounding of its last multiply-add): the layer keys
-    split from the seed's, each split again for W and b, drawn by
-    :func:`~nnpde_tpu_torch.prng.threefry_uniform` on the host."""
-    scheme = spec.resolved_init()
-    keys = threefry_split(threefry_key(seed), len(spec.layers) - 1)
+    key = tuple(key) if isinstance(key, (tuple, list, np.ndarray)) else threefry_key(int(key))
+    keys = threefry_split(key, len(spec.layers) - 1)
     params = []
     for k, fan_in, fan_out in zip(keys, spec.layers[:-1], spec.layers[1:]):
         kw, kb = threefry_split(k, 2)

@@ -52,8 +52,10 @@ class SolutionModel:
                 f"input_map dim {input_map.dim} != net input dim {self.dim}"
             )
 
-    def init(self, gen: torch.Generator, dtype=torch.float32):
-        return init_mlp(gen, self.spec, dtype)
+    def init(self, key, dtype=torch.float32, device=None):
+        """The JAX package's ``init(key)`` for a seed or a threefry key pair
+        (:func:`~nnpde_tpu_torch.models.mlp.init_mlp`)."""
+        return init_mlp(key, self.spec, dtype, device)
 
     def apply_point(self, params, x):
         z = self.input_map.value(x) if self.input_map is not None else x
@@ -136,8 +138,10 @@ class ChannelSolutionModel:
                 f"factor dim {factor.dim} != net input dim {self.dim}"
             )
 
-    def init(self, gen: torch.Generator, dtype=torch.float32):
-        return init_mlp(gen, self.spec, dtype)
+    def init(self, key, dtype=torch.float32, device=None):
+        """The JAX package's ``init(key)`` for a seed or a threefry key pair
+        (:func:`~nnpde_tpu_torch.models.mlp.init_mlp`)."""
+        return init_mlp(key, self.spec, dtype, device)
 
     def apply_batch(self, params, X):
         u = mlp_apply_batch_channels(params, X, self.spec.activation)

@@ -71,37 +71,49 @@ def activation_jet(name: str):
     raise ValueError(f"Unknown activation {name!r}")
 
 
-def mlp_fwdlap(params, X, activation: str, input_jet=None) -> Jet:
+def mlp_fwdlap(params, X, activation: str, input_jet=None, through=None) -> Jet:
     """Exact (u, grad u, lap u) of a scalar MLP over a collocation batch.
 
     ``params``: sequence of ``(W (in,out), b (out,))``, activation between
     layers (not after the last).  ``X``: (N, d).  ``input_jet``: optional
     ``(z, z', z'')`` seed, each (N, d), for a net applied to elementwise
     features ``z(x)`` (diagonal Jacobian): the first layer then seeds
-    ``J[n,i,:] = z_i'(x_n) W0[i,:]`` and ``l = z'' @ W0``.
+    ``J[n,i,:] = z_i'(x_n) W0[i,:]`` and ``l = z'' @ W0``.  ``through``:
+    optional ``(k, before, v, J, l) -> (v, J, l)``, applied to the three
+    streams at layer ``k`` before its product (``before=True``, k >= 1) and
+    after it, ahead of its bias (``before=False``); the collectives of
+    tensor parallelism (``parallel/mesh.py::tp_mlp_fwdlap``).
     """
     s, s1, s2 = activation_jet(activation)
     N, d = X.shape
+    if through is None:
+        def through(k, before, v, J, l):
+            return v, J, l
 
     W0, b0 = params[0]
     if input_jet is None:
-        v = X @ W0 + b0                                    # (N, w)
+        v = X @ W0                                         # (N, w)
         J = W0.unsqueeze(0).expand(N, d, W0.shape[1])      # (N, d, w)
         l = torch.zeros_like(v)
     else:
         z, z1, z2 = input_jet
-        v = z @ W0 + b0
+        v = z @ W0
         J = z1[:, :, None] * W0[None, :, :]
         l = z2 @ W0
+    v, J, l = through(0, False, v, J, l)
+    v = v + b0
 
-    for (W, b) in params[1:]:
+    for k, (W, b) in enumerate(params[1:], start=1):
         s1v = s1(v)
         l = s1v * l + s2(v) * torch.sum(J * J, dim=1)
         J = s1v[:, None, :] * J
         v = s(v)
+        v, J, l = through(k, True, v, J, l)
         J = (J.reshape(N * d, -1) @ W).reshape(N, d, W.shape[1])
-        v = v @ W + b
+        v = v @ W
         l = l @ W
+        v, J, l = through(k, False, v, J, l)
+        v = v + b
 
     return Jet(value=v[..., 0], grad=J[..., 0], lap=l[..., 0])
 

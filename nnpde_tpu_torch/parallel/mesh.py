@@ -12,6 +12,11 @@ sharing one card over gloo), and the collectives are explicit:
   caller's device, and every collective is the identity;
 * :func:`shard_batch` hands each rank its contiguous slice of the batch,
   :func:`replicate` gives every rank rank 0's parameters;
+* tensor parallelism is an explicit Megatron column / row pair
+  (:func:`tp_shard_mlp`): :func:`tp_mlp_apply` forms the value and
+  :func:`tp_mlp_fwdlap` the forward-Laplacian jet, so that a PINN residual
+  (:func:`tp_fields`) runs with the batch over one axis and the layers
+  over another (:func:`tp_mean_step`);
 * the steps reduce ONCE.  ``torch.distributed``'s all-reduce sums where
   JAX's ``pmean`` averages, and its differentiable form
   (``torch.distributed.nn``) all-reduces again in the backward pass:
@@ -352,8 +357,9 @@ def tp_shard_mlp(params, mesh: Mesh, axis: str = "model"):
 
 class _SumRanks(torch.autograd.Function):
     """All-reduce (sum) whose backward passes the cotangent through: the
-    cotangent of a row-split product is already whole on every rank, so
-    reducing it again would count it once per rank."""
+    cotangent of a row-split product is whole on every rank (what reads the
+    sum is replicated, or is a column layer whose input :class:`_CopyToRanks`
+    reduces), so reducing it again would count it once per rank."""
 
     @staticmethod
     def forward(ctx, x, group):
@@ -367,18 +373,39 @@ class _SumRanks(torch.autograd.Function):
         return g, None
 
 
+class _CopyToRanks(torch.autograd.Function):
+    """Identity whose backward all-reduces (sums) the cotangent: a column
+    layer reads its whole input into this rank's columns only, so each
+    rank holds one part of that input's cotangent (Megatron's pair of
+    operators: this one before a column layer, :class:`_SumRanks` after a
+    row layer)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
 def tp_mlp_apply(layers, X, activation: str, mesh: Mesh, axis: str = "model"):
     """The MLP's value on ``X`` (N, d) -> (N,), as ``mlp_apply_batch``, from
     this rank's :func:`tp_shard_mlp` parts (every rank of ``axis`` gets the
-    whole value); differentiable in the
-    parts, each rank's gradient being that of its own part.  Derivatives in
-    ``X`` are not formed across ranks: a loss on the value only."""
+    whole value); differentiable in the parts, each rank's gradient being
+    that of its own part.  :func:`tp_mlp_fwdlap` forms the derivatives in
+    ``X`` as well."""
     from ..models.mlp import _resolve_activation
 
     act = _resolve_activation(activation)
     group = mesh.group(axis)
     h = X
     for k, (W, b, kind) in enumerate(layers):
+        if kind == "col" and k > 0 and group is not None:
+            h = _CopyToRanks.apply(h, group)
         if kind == "row":
             h = _SumRanks.apply(h @ W, group) + b
         else:
@@ -386,6 +413,86 @@ def tp_mlp_apply(layers, X, activation: str, mesh: Mesh, axis: str = "model"):
         if k < len(layers) - 1:
             h = act(h)
     return h[..., 0]
+
+
+def _streams_through(fn, v, J, l, group):
+    """``fn`` (:class:`_SumRanks` or :class:`_CopyToRanks`) applied to the
+    value, Jacobian and Laplacian streams as one flat buffer (N (d + 2) x
+    width): one collective for the three."""
+    if group is None:
+        return v, J, l
+    nv, nJ = v.numel(), J.numel()
+    flat = fn.apply(torch.cat([v.reshape(-1), J.reshape(-1), l.reshape(-1)]), group)
+    return flat[:nv].view(v.shape), flat[nv:nv + nJ].view(J.shape), flat[nv + nJ:].view(l.shape)
+
+
+def tp_mlp_fwdlap(layers, X, activation: str, mesh: Mesh, axis: str = "model",
+                  input_jet=None):
+    """The forward-Laplacian jet (u, grad u, lap u) of the MLP on ``X`` (N,
+    d), as :func:`~nnpde_tpu_torch.ops.fwdlap.mlp_fwdlap`, from this rank's
+    :func:`tp_shard_mlp` parts (every rank of ``axis`` gets the whole jet).
+
+    A column layer maps the value, Jacobian and Laplacian streams through
+    its column shard; the nonlinearity's jet rule (``l = s'(v) l + s''(v)
+    sum J^2``, ``J = s'(v) J``) is elementwise in the hidden unit, so it
+    stays on the rank; a row layer forms its partial products of the three
+    streams and all-reduces them in one buffer before adding ``b``, and a
+    column layer that reads such a sum all-reduces the streams' cotangents
+    in its backward, in one buffer as well.  On a
+    world of one (or tp = 1) the operations are ``mlp_fwdlap``'s, bit for
+    bit.  Differentiable in the parts as :func:`tp_mlp_apply`.
+    ``input_jet``: the ``(z, z', z'')`` seed of an elementwise input map."""
+    from ..ops.fwdlap import mlp_fwdlap
+
+    group = mesh.group(axis)
+    kinds = [kind for _, _, kind in layers]
+
+    def through(k, before, v, J, l):
+        if kinds[k] == ("col" if before else "row"):
+            return _streams_through(_CopyToRanks if before else _SumRanks, v, J, l, group)
+        return v, J, l
+
+    return mlp_fwdlap([(W, b) for W, b, _ in layers], X, activation, input_jet, through)
+
+
+def tp_fields(model, layers, X, mesh: Mesh, axis: str = "model"):
+    """``model.fields(params, X)`` (a ``SolutionModel`` on the torch route:
+    the input map's seed, the net's jet, the factor's product) with the net
+    under tensor parallelism: ``layers`` are this rank's
+    :func:`tp_shard_mlp` parts of ``params``."""
+    from ..ops.fwdlap import compose_product_jet
+
+    seed = model.input_map.jet(X) if model.input_map is not None else None
+    jet = tp_mlp_fwdlap(layers, X, model.spec.activation, mesh, axis, input_jet=seed)
+    if model.factor is not None:
+        jet = compose_product_jet(jet, model.factor.jet(X))
+    return jet
+
+
+def tp_mean_step(loss_fn, mesh: Mesh, data_axis="data"):
+    """Data x tensor parallel value and gradient: ``step(layers, X) ->
+    (loss, grads)``, ``layers`` this rank's :func:`tp_shard_mlp` parts and
+    ``X`` its shard of the batch over ``data_axis``.  ``loss_fn(layers, X)
+    -> scalar`` reduces over the batch with plain means (e.g. a PINN
+    residual through :func:`tp_fields`); each rank differentiates it in
+    its own parts (``grads``: one ``(gW, gb)`` per part, the matching slice
+    of the whole net's gradient), and the loss and gradients are
+    all-reduced once over ``data_axis`` as means, as
+    :func:`psum_mean_step` does."""
+    group = mesh.group(data_axis)
+
+    def step(layers, X):
+        live = [t.detach().requires_grad_(True) for part in layers for t in (part.W, part.b)]
+        parts = [TPLayer(live[2 * i], live[2 * i + 1], part.kind)
+                 for i, part in enumerate(layers)]
+        with torch.enable_grad():
+            loss = loss_fn(parts, X)
+            grads = torch.autograd.grad(loss, live, allow_unused=True)
+        grads = [torch.zeros_like(t) if g is None else g for t, g in zip(live, grads)]
+        out = _reduce([loss.detach()] + grads, group, 1 + len(grads))
+        return out[0], [(out[1 + 2 * i], out[2 + 2 * i]) for i in range(len(layers))]
+
+    return step
 
 
 def fused_residual_step(mesh: Mesh, activation: str, axis="data", kind: str = "pinn",

@@ -9,10 +9,11 @@ key.  The numbers differ from ``jax.random``'s; parity tests feed both
 packages the same numpy inputs instead.
 
 The exception is the JAX package's own generator for initial weights:
-:func:`threefry_key`, :func:`threefry_split` and :func:`threefry_uniform`
-are ``jax.random.PRNGKey``, ``split`` and ``uniform`` (threefry-2x32, the
-partitionable counter layout) in numpy, so that an entry point can start
-from the weights the JAX package draws for the same seed.
+:func:`threefry_key`, :func:`threefry_split`, :func:`threefry_fold_in` and
+:func:`threefry_uniform` are ``jax.random.PRNGKey``, ``split``,
+``fold_in`` and ``uniform`` (threefry-2x32, the partitionable counter
+layout) in numpy, so that every entry point starts from the weights the
+JAX package draws for the same seed.
 """
 
 from __future__ import annotations
@@ -80,6 +81,14 @@ def threefry_split(key, n: int):
     """``jax.random.split(key, n)``."""
     hi, lo = _bits(key, n)
     return [(hi[i], lo[i]) for i in range(n)]
+
+
+def threefry_fold_in(key, data: int):
+    """``jax.random.fold_in(key, data)``: the hash of the one counter pair
+    ``(0, data)``, ``data`` taken as uint32."""
+    hi, lo = _threefry2x32(key[0], key[1], np.zeros(1, np.uint32),
+                           np.array([data & 0xFFFFFFFF], np.uint32))
+    return (hi[0], lo[0])
 
 
 def threefry_uniform(key, shape, minval: float, maxval: float) -> np.ndarray:

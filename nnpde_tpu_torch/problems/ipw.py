@@ -57,7 +57,7 @@ from ..models import NetSpec, SolutionModel, factor_for_technique
 from ..ops import bump_w
 from ..ops.quadrature import sign_aware_mse
 from ..pde import ipw as phys
-from ..prng import fold_in, generator
+from ..prng import fold_in, threefry_fold_in, threefry_key
 from ..sampling import first_fraction_every_kth, linspace_grid
 from ..train import fit, fit_wan, lbfgs_polish, make_optimizer, make_wan_optimizers
 from ..train.trainer import _grad
@@ -171,7 +171,12 @@ def train_ipw_1d(cfg: IPW1DConfig, init_params=None, device="cuda") -> Dict:
     """PINN / DRM on the 1D well; returns the JAX entry point's keys
     (``config``, ``model``, ``result``, ``history``, ``L2_error``,
     ``min_epoch``, ``weights``).  ``init_params`` warm-starts the net (e.g.
-    weights carried over by :func:`nnpde_tpu_torch.interop.params_from_jax`)."""
+    weights carried over by :func:`nnpde_tpu_torch.interop.params_from_jax`).
+
+    ``cfg.seed`` gives the JAX package's initial weights (same seed, the
+    same weights bit for bit); the points and the epochs' keys draw from
+    torch's generators, so they differ from JAX's.
+    """
     if cfg.method not in ("PINN", "DRM"):
         raise ValueError("method must be 'PINN' or 'DRM'")
     check_jet_impl(cfg.jet_impl)
@@ -184,7 +189,7 @@ def train_ipw_1d(cfg: IPW1DConfig, init_params=None, device="cuda") -> Dict:
     model = _make_model(cfg.layers, cfg.technique, n, L)
     key = cfg.seed
     params = on_device(init_params if init_params is not None
-                       else model.init(generator(key, dev)), dev)
+                       else model.init(key), dev)
 
     x_grid = linspace_grid(cfg.grid_n, 0.0, L, device=dev)
     x_flat = x_grid[:, 0]
@@ -307,7 +312,12 @@ def train_ipw_1d_wan(cfg: IPW1DWanConfig, init_params=None, init_v_params=None,
                      device="cuda") -> Dict:
     """WAN on the 1D well; returns the JAX entry point's keys (``config``,
     ``model``, ``v_model``, ``result``, ``history``, ``L2_error``,
-    ``min_epoch``, ``weights``)."""
+    ``min_epoch``, ``weights``).
+
+    ``cfg.seed`` gives the JAX package's initial weights (same seed, the
+    same weights bit for bit); the points and the epochs' keys draw from
+    torch's generators, so they differ from JAX's.
+    """
     check_jet_impl(cfg.jet_impl)
     dev = runtime.resolve_device(device)
     runtime.pin_fp32_precision()
@@ -318,9 +328,10 @@ def train_ipw_1d_wan(cfg: IPW1DWanConfig, init_params=None, init_v_params=None,
 
     key = cfg.seed
     u_params = on_device(init_params if init_params is not None
-                         else u_model.init(generator(key, dev)), dev)
+                         else u_model.init(key), dev)
     v_params = on_device(init_v_params if init_v_params is not None
-                         else v_model.init(generator(fold_in(key, 1), dev)), dev)
+                         else v_model.init(threefry_fold_in(threefry_key(key), 1)),
+                         dev)
 
     x_grid = linspace_grid(cfg.grid_n, 0.0, L, device=dev)
     x_flat = x_grid[:, 0]

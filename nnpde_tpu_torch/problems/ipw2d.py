@@ -66,7 +66,7 @@ from ..models import NetSpec, SolutionModel, factor_for_technique
 from ..ops import bump_grid, bump_w, bump_w_multi
 from ..ops.quadrature import sign_aware_mse
 from ..pde import ipw as phys
-from ..prng import fold_in, generator
+from ..prng import fold_in, generator, threefry_fold_in, threefry_key
 from ..sampling import meshgrid_2d
 from ..train import fit, fit_wan, make_optimizer, make_wan_optimizers
 from ._fused_wan import make_fused_wan_multi_pair, make_fused_wan_pair
@@ -174,7 +174,7 @@ def _validate(cfg: IPW2DConfig, init_carry, start_epoch, run_epochs) -> int:
 
 def train_ipw_2d(cfg: IPW2DConfig, init_params=None, init_v_params=None,
                  init_carry=None, start_epoch: int = 0, run_epochs=None,
-                 device="cuda") -> Dict:
+                 compile_only: bool = False, device="cuda") -> Dict:
     """Train the configured 2D-well eigen-solver; returns the JAX entry
     point's keys (``config``, ``model``, ``result``, ``history``,
     ``L2_error``, ``rel_l2``, ``min_epoch``, ``weights``).
@@ -186,6 +186,14 @@ def train_ipw_2d(cfg: IPW2DConfig, init_params=None, init_v_params=None,
     ``cfg.epochs`` schedule from global epoch ``start_epoch`` and a prior
     ``result.carry``; the segments equal one continuous run (per-epoch keys
     fold in the absolute epoch index, the schedule rides the update count).
+    ``compile_only``: return the trainer's memory probe of one training
+    epoch instead of training (measured on the card, not analysed: see
+    :func:`nnpde_tpu_torch.train.fit`); a hybrid config probes its bf16
+    bulk phase, as the JAX package's does.
+
+    ``cfg.seed`` gives the JAX package's initial weights (same seed, the
+    same weights bit for bit); the points and the epochs' keys draw from
+    torch's generators, so they differ from JAX's.
     """
     seg_epochs = _validate(cfg, init_carry, start_epoch, run_epochs)
     dev = runtime.resolve_device(device)
@@ -205,7 +213,7 @@ def train_ipw_2d(cfg: IPW2DConfig, init_params=None, init_v_params=None,
     act = model.spec.activation
     key = cfg.seed
     params = (init_params if init_params is not None
-              else model.init(generator(key, dev)))
+              else model.init(key))
     params = [(W.to(dev), b.to(dev)) for W, b in params]
 
     # every fixed tensor is made once, on the device
@@ -354,7 +362,7 @@ def train_ipw_2d(cfg: IPW2DConfig, init_params=None, init_v_params=None,
         v_model = SolutionModel(NetSpec(tuple(cfg.v_layers), activation="sin"),
                                 factor_for_technique("FBC", dim=2, kind="box", L=L))
         v_params = (init_v_params if init_v_params is not None
-                    else v_model.init(generator(fold_in(key, 9), dev)))
+                    else v_model.init(threefry_fold_in(threefry_key(key), 9)))
         v_params = [(W.to(dev), b.to(dev)) for W, b in v_params]
         multibump = cfg.n_test_grid > 1
         if multibump:
@@ -520,7 +528,9 @@ def train_ipw_2d(cfg: IPW2DConfig, init_params=None, init_v_params=None,
             bulk = int(cfg.epochs * cfg.hybrid_bf16_fraction)
             u16, v16, ctx16 = make_wan_losses("bfloat16")
             r1 = fit_wan(u16, v16, eval_fn, params, v_params, epochs=bulk,
-                         v_context_fn=ctx16, **wan_kw)
+                         v_context_fn=ctx16, compile_only=compile_only, **wan_kw)
+            if compile_only:
+                return r1
             u32, v32, ctx32 = make_wan_losses("float32")
             r2 = fit_wan(u32, v32, eval_fn, params, v_params, epochs=cfg.epochs - bulk,
                          start_epoch=bulk, init_carry=r1.carry, v_context_fn=ctx32,
@@ -531,7 +541,9 @@ def train_ipw_2d(cfg: IPW2DConfig, init_params=None, init_v_params=None,
             result = fit_wan(
                 u_loss_fn, v_loss_fn, eval_fn, params, v_params, epochs=seg_epochs,
                 start_epoch=start_epoch, init_carry=init_carry,
-                v_context_fn=v_context_fn, **wan_kw)
+                v_context_fn=v_context_fn, compile_only=compile_only, **wan_kw)
+            if compile_only:
+                return result
     else:
         optimizer = make_optimizer(
             cfg.lr, schedule=cfg.lr_schedule, total_steps=cfg.epochs,
@@ -568,7 +580,9 @@ def train_ipw_2d(cfg: IPW2DConfig, init_params=None, init_v_params=None,
             bulk = int(cfg.epochs * cfg.hybrid_bf16_fraction)
             lt16 = make_loss_terms("bfloat16")
             r1 = fit(lambda p, k: lt16(p), eval_fn, params, epochs=bulk, optimizer=optimizer,
-                     key=fold_in(key, 1), chunk=chunk)
+                     key=fold_in(key, 1), chunk=chunk, compile_only=compile_only)
+            if compile_only:
+                return r1
             r2 = fit(loss_fn, eval_fn, params, epochs=cfg.epochs - bulk, optimizer=optimizer,
                      key=fold_in(key, 1), chunk=chunk, start_epoch=bulk, init_carry=r1.carry,
                      **fused_kw)
@@ -576,7 +590,10 @@ def train_ipw_2d(cfg: IPW2DConfig, init_params=None, init_v_params=None,
         else:
             result = fit(loss_fn, eval_fn, params, epochs=seg_epochs, optimizer=optimizer,
                          start_epoch=start_epoch, init_carry=init_carry,
-                         key=fold_in(key, 1), chunk=chunk, **fused_kw)
+                         key=fold_in(key, 1), chunk=chunk, compile_only=compile_only,
+                         **fused_kw)
+            if compile_only:
+                return result
         # the polish runs once, after the last segment (per segment it would
         # overwrite the best tracking with a polish the carry does not hold)
         if cfg.LBFGS and start_epoch + seg_epochs == cfg.epochs:

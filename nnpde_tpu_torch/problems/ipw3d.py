@@ -138,7 +138,12 @@ def _objective(cfg: IPW3DConfig, model: SolutionModel, w, k_squared, X_data, u_d
 def train_ipw_3d(cfg: IPW3DConfig, device="cuda") -> Dict:
     """Train the configured 3D-well eigen-solver; returns the JAX entry
     point's keys (``config``, ``model``, ``result``, ``history``,
-    ``L2_error``, ``rel_l2``, ``min_epoch``, ``E_exact``, ``weights``)."""
+    ``L2_error``, ``rel_l2``, ``min_epoch``, ``E_exact``, ``weights``).
+
+    ``cfg.seed`` gives the JAX package's initial weights (same seed, the
+    same weights bit for bit); the points and the epochs' keys draw from
+    torch's generators, so they differ from JAX's.
+    """
     _validate(cfg)
     dev = runtime.resolve_device(device)
     runtime.pin_fp32_precision()
@@ -150,7 +155,7 @@ def train_ipw_3d(cfg: IPW3DConfig, device="cuda") -> Dict:
         nodes_per_dim=[phys.nodes(n, L) for n in nq] if cfg.technique == "FN" else None)
     model = SolutionModel(NetSpec(tuple(cfg.layers), activation="sin"), factor)
     key = cfg.seed
-    params = model.init(generator(key, dev))
+    params = model.init(key, device=dev)
     box = Box.cube(3, 0.0, L)
 
     def psi(X):

@@ -49,7 +49,7 @@ from ..models import NetSpec, SolutionModel, factor_for_technique
 from ..ops import bump_w
 from ..ops.quadrature import integral_mean, sign_aware_mse
 from ..pde import kh as phys
-from ..prng import fold_in, generator
+from ..prng import fold_in, threefry_fold_in, threefry_key
 from ..train import fit, fit_wan, make_optimizer
 from ._fused_wan import factor_jet_or_one, make_fused_wan_pair
 from .ipw import check_jet_impl, fused_residual_step, on_device
@@ -93,7 +93,12 @@ def train_kh(cfg: KHConfig, gt: phys.KHGroundTruth, x_train=None, init_params=No
     ``E_est``, ``E_ref``, ``E_track``, ``idx_data``).  ``x_train``: the
     training grid (default ``train_n`` points on ``[-L, L]``);
     ``init_params`` / ``init_v_params`` warm-start the nets (E starts at
-    the reference energy, as in JAX)."""
+    the reference energy, as in JAX).
+
+    ``cfg.seed`` gives the JAX package's initial weights (same seed, the
+    same weights bit for bit); the points and the epochs' keys draw from
+    torch's generators, so they differ from JAX's.
+    """
     if cfg.method not in ("PINN", "DRM", "WAN"):
         raise ValueError("method must be 'PINN' | 'DRM' | 'WAN'")
     check_jet_impl(cfg.jet_impl)
@@ -124,7 +129,7 @@ def train_kh(cfg: KHConfig, gt: phys.KHGroundTruth, x_train=None, init_params=No
 
     E_init = gt.energy(n)
     net = on_device(init_params if init_params is not None
-                    else model.init(generator(key, dev)), dev)
+                    else model.init(key), dev)
     u_params = {"net": net, "E": torch.tensor(E_init, dtype=torch.float32, device=dev)}
     zero = torch.zeros((), device=dev)
 
@@ -210,7 +215,8 @@ def train_kh(cfg: KHConfig, gt: phys.KHGroundTruth, x_train=None, init_params=No
     else:  # WAN
         v_model = SolutionModel(NetSpec(tuple(cfg.v_layers), activation="sin"))
         v_params = on_device(init_v_params if init_v_params is not None
-                             else v_model.init(generator(fold_in(key, 9), dev)), dev)
+                             else v_model.init(threefry_fold_in(threefry_key(key), 9)),
+                             dev)
         wv, dwv = bump_w(X, -L, L)
 
         # the fused pair: KH's ratio-squared convention with integral means

@@ -35,7 +35,7 @@ import torch
 
 from .. import runtime
 from ..models import ChannelSolutionModel, NetSpec, factor_for_technique
-from ..models.mlp import init_mlp_threefry
+from ..models.mlp import init_mlp
 from ..ops.quadrature import integral_mean
 from ..pde import kh as phys
 from ..prng import fold_in
@@ -99,7 +99,7 @@ def train_kh_floquet(cfg: KHFloquetConfig, gt: Optional[phys.FloquetGroundTruth]
     ``gt``: a :class:`~nnpde_tpu_torch.pde.kh.FloquetGroundTruth` on the
     device (built from the config when None).  The net starts from the JAX
     package's initial weights for ``cfg.seed``
-    (:func:`~nnpde_tpu_torch.models.mlp.init_mlp_threefry`), or from
+    (:func:`~nnpde_tpu_torch.models.mlp.init_mlp`), or from
     ``init_params``."""
     dev = runtime.resolve_device(device)
     runtime.pin_fp32_precision()
@@ -136,7 +136,7 @@ def train_kh_floquet(cfg: KHFloquetConfig, gt: Optional[phys.FloquetGroundTruth]
 
     u_params = {
         "net": on_device(init_params if init_params is not None
-                         else init_mlp_threefry(cfg.seed, model.spec), dev),
+                         else init_mlp(cfg.seed, model.spec), dev),
         "E": torch.tensor(gt.energy(n), dtype=torch.float32, device=dev),
     }
     zero = torch.zeros((), device=dev)

@@ -73,7 +73,7 @@ from ..ops import bump_w
 from ..ops.fwdlap import constant_jet
 from ..pde import poisson as phys
 from ..pde.domain import Box
-from ..prng import fold_in, generator, split
+from ..prng import fold_in, generator, split, threefry_fold_in, threefry_key, threefry_split
 from ..sampling import face_points, shifted_qmc, sobol_unit, uniform_box
 from ..train import fit, fit_wan, make_optimizer, make_wan_optimizers
 from ._fused_wan import factor_jet_or_one, make_fused_wan_pair
@@ -234,7 +234,12 @@ def _validate(cfg: PoissonConfig) -> None:
 
 def train_poisson_nd(cfg: PoissonConfig, device="cuda") -> Dict:
     """Train the configured Poisson solver; returns the same keys as the
-    JAX entry point (``rel_l2``, ``best_l2``, ``history``, ``result`` ...)."""
+    JAX entry point (``rel_l2``, ``best_l2``, ``history``, ``result`` ...).
+
+    ``cfg.seed`` gives the JAX package's initial weights (same seed, the
+    same weights bit for bit); the points and the epochs' keys draw from
+    torch's generators, so they differ from JAX's.
+    """
     _validate(cfg)
     dev = runtime.resolve_device(device)
     runtime.pin_fp32_precision()
@@ -247,8 +252,11 @@ def train_poisson_nd(cfg: PoissonConfig, device="cuda") -> Dict:
     model = _solution_model(cfg)
     exact_u, rhs_f = _exact_fns(cfg)
 
-    k_init, k_x, k_data, k_train = split(cfg.seed, 4)
-    params = model.init(generator(k_init, dev))
+    # the JAX package's initial weights (split(PRNGKey(seed), 4)[0]); the
+    # points and the epochs draw from torch's generators
+    k_init = threefry_split(threefry_key(cfg.seed), 4)[0]
+    _, k_x, k_data, k_train = split(cfg.seed, 4)
+    params = model.init(k_init, device=dev)
 
     if cfg.sampler == "sobol":
         U_base = sobol_unit(cfg.seed, cfg.n_interior, cfg.dim, device=dev)
@@ -444,7 +452,7 @@ def _fit_wan(cfg, model, params, dev, w, ks, rhs_f, draw_interior, aux_terms,
     ``-log(loss_pde) + reg * mean(|grad v|^2 + v^2)``), the primal
     minimises it; every critic and primal step draws fresh points."""
     critic = _critic_model(cfg)
-    v_params = critic.init(generator(fold_in(k_init, 1), dev))
+    v_params = critic.init(threefry_fold_in(k_init, 1), device=dev)
     fused = cfg.jet_impl == "fused"
     if fused:
         # two-pass fused WAN: the Poisson weak form rides the rhs lane

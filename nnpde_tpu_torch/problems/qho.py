@@ -46,7 +46,7 @@ from ..models import NetSpec, SolutionModel, factor_for_technique
 from ..ops import bump_w
 from ..ops.quadrature import sign_aware_mse
 from ..pde import qho as phys
-from ..prng import fold_in, generator
+from ..prng import fold_in, threefry_fold_in, threefry_key
 from ..sampling import linspace_grid, mid_fraction_every_kth
 from ..train import fit, fit_wan, lbfgs_fit, make_optimizer, make_wan_optimizers
 from ._fused_wan import factor_jet_or_one, make_fused_wan_pair
@@ -90,7 +90,12 @@ class QHO1DConfig:
 def train_qho_1d(cfg: QHO1DConfig, init_params=None, device="cuda") -> Dict:
     """PINN / DRM on the 1D oscillator; returns the JAX entry point's keys
     (``config``, ``model``, ``result``, ``history``, ``L2_error``,
-    ``min_epoch``, ``weights``)."""
+    ``min_epoch``, ``weights``).
+
+    ``cfg.seed`` gives the JAX package's initial weights (same seed, the
+    same weights bit for bit); the points and the epochs' keys draw from
+    torch's generators, so they differ from JAX's.
+    """
     if cfg.method not in ("PINN", "DRM"):
         raise ValueError("method must be 'PINN' or 'DRM'")
     check_jet_impl(cfg.jet_impl)
@@ -104,7 +109,7 @@ def train_qho_1d(cfg: QHO1DConfig, init_params=None, device="cuda") -> Dict:
                           _qho_factor(cfg.technique, n, x_max))
     key = cfg.seed
     params = on_device(init_params if init_params is not None
-                       else model.init(generator(key, dev)), dev)
+                       else model.init(key), dev)
 
     x_grid = linspace_grid(cfg.grid_n, -x_max, x_max, device=dev)
     x_flat = x_grid[:, 0]
@@ -233,7 +238,12 @@ def train_qho_1d_wan(cfg: QHO1DWanConfig, init_params=None, init_v_params=None,
     """WAN with a trainable energy; returns the JAX entry point's keys (also
     ``E_est``, the trained E of the best iterate, ``E_rayleigh``, its
     Rayleigh quotient, and ``E_exact``).  ``init_params`` warm-starts the
-    primal net (E starts at the exact energy, as in JAX)."""
+    primal net (E starts at the exact energy, as in JAX).
+
+    ``cfg.seed`` gives the JAX package's initial weights (same seed, the
+    same weights bit for bit); the points and the epochs' keys draw from
+    torch's generators, so they differ from JAX's.
+    """
     check_jet_impl(cfg.jet_impl)
     dev = runtime.resolve_device(device)
     runtime.pin_fp32_precision()
@@ -246,11 +256,12 @@ def train_qho_1d_wan(cfg: QHO1DWanConfig, init_params=None, init_v_params=None,
 
     key = cfg.seed
     net = on_device(init_params if init_params is not None
-                    else u_model.init(generator(key, dev)), dev)
+                    else u_model.init(key), dev)
     u_params = {"net": net,
                 "E": torch.tensor(phys.energy_1d(n), dtype=torch.float32, device=dev)}
     v_params = on_device(init_v_params if init_v_params is not None
-                         else v_model.init(generator(fold_in(key, 1), dev)), dev)
+                         else v_model.init(threefry_fold_in(threefry_key(key), 1)),
+                         dev)
 
     x_grid = linspace_grid(cfg.grid_n, -x_max, x_max, device=dev)
     x_flat = x_grid[:, 0]

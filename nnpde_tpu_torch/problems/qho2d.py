@@ -58,7 +58,7 @@ from ..models import NetSpec, SolutionModel, factor_for_technique
 from ..ops import bump_w
 from ..ops.quadrature import sign_aware_mse
 from ..pde import qho as phys
-from ..prng import fold_in, generator
+from ..prng import fold_in, threefry_fold_in, threefry_key
 from ..sampling import meshgrid_2d
 from ..train import (MultiTransformAdam, fit, fit_wan, leaf_labels, make_optimizer,
                      make_wan_optimizers)
@@ -125,7 +125,12 @@ def train_qho_2d(cfg: QHO2DConfig, init_params=None, init_v_params=None,
     ``L2_error``, ``min_epoch``, ``learned_energy``, ``E_exact``,
     ``weights``).  ``init_params`` / ``init_v_params`` warm-start the nets
     (e.g. weights carried over by
-    :func:`nnpde_tpu_torch.interop.params_from_jax`)."""
+    :func:`nnpde_tpu_torch.interop.params_from_jax`).
+
+    ``cfg.seed`` gives the JAX package's initial weights (same seed, the
+    same weights bit for bit); the points and the epochs' keys draw from
+    torch's generators, so they differ from JAX's.
+    """
     if cfg.method not in ("PINN", "DRM", "WAN"):
         raise ValueError("method must be 'PINN', 'DRM' or 'WAN'")
     if cfg.technique not in ("FBC", "FN", "OG"):
@@ -143,7 +148,7 @@ def train_qho_2d(cfg: QHO2DConfig, init_params=None, init_v_params=None,
                             _factor(cfg.technique, nx, ny, L))
     key = cfg.seed
     net_params = on_device(init_params if init_params is not None
-                           else u_model.init(generator(key, dev)), dev)
+                           else u_model.init(key), dev)
     zero = torch.zeros((), device=dev)
 
     X = meshgrid_2d(cfg.grid_n, -L, L, device=dev)
@@ -297,7 +302,8 @@ def train_qho_2d(cfg: QHO2DConfig, init_params=None, init_v_params=None,
                                 _factor("FBC", nx, ny, L))
         u_params = {"net": net_params}
         v_params = on_device(init_v_params if init_v_params is not None
-                             else v_model.init(generator(fold_in(key, 9), dev)), dev)
+                             else v_model.init(threefry_fold_in(threefry_key(key), 9)),
+                             dev)
         wv, dwv = bump_w(X, -L, L)
 
         # the two-pass fused WAN objectives with the fixed exact E

@@ -34,7 +34,7 @@ import torch
 
 from .. import runtime
 from ..models import NetSpec, factor_for_technique
-from ..models.mlp import init_mlp_threefry
+from ..models.mlp import init_mlp
 from ..models.solution import ChannelSolutionModel
 from ..pde import ipw as ipw_phys
 from ..pde import kh as kh_phys
@@ -308,7 +308,7 @@ def train_subspace(cfg: SubspaceConfig, *, progress=None, init_params=None,
     ``best_epoch``, ``best_sum_lambda`` (the best ridged trace), ``timing``,
     ``history``, ``best_params`` and ``result``, the JAX entry point's
     keys.  The raw net before the two init transforms is the JAX package's
-    for ``cfg.seed`` (:func:`~nnpde_tpu_torch.models.mlp.init_mlp_threefry`:
+    for ``cfg.seed`` (:func:`~nnpde_tpu_torch.models.mlp.init_mlp`:
     which basin a run settles in is set by its initial weights, and the
     JAX package's bars were set on its own), or ``init_params``;
     ``progress(epoch, metrics)`` is called once per ``chunk``."""
@@ -337,7 +337,7 @@ def train_subspace(cfg: SubspaceConfig, *, progress=None, init_params=None,
     sched = (cosine_decay_schedule(cfg.lr, cfg.epochs) if cfg.lr_schedule == "cosine"
              else constant_schedule(cfg.lr))
     params = on_device(init_params if init_params is not None
-                       else init_mlp_threefry(cfg.seed, model.spec), dev)
+                       else init_mlp(cfg.seed, model.spec), dev)
     params = normalize_input_layer(params, lo, hi)
     params = whiten_output_layer(model, params, X, floor=cfg.whiten_floor)
     res = fit(loss_fn, eval_fn, params, epochs=cfg.epochs, optimizer=ScheduledAdam(sched),

@@ -15,6 +15,7 @@ over a chunk of epochs becomes a Python loop; what the scan bought is kept:
 
 from __future__ import annotations
 
+import copy
 import time
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
@@ -123,6 +124,58 @@ class _History:
         return {n: np.concatenate(v) for n, v in self.parts.items()}
 
 
+def _tensor_bytes(obj) -> int:
+    """Bytes of the distinct tensors in ``obj`` (tuples, lists, dicts and
+    optimizers, whose state tensors count), each storage once."""
+    seen, total = set(), 0
+
+    def walk(x):
+        nonlocal total
+        if isinstance(x, torch.Tensor):
+            ptr = x.untyped_storage().data_ptr()
+            if ptr not in seen:
+                seen.add(ptr)
+                total += x.untyped_storage().nbytes()
+        elif isinstance(x, torch.optim.Optimizer):
+            for state in x.state.values():
+                walk(list(state.values()))
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+
+    walk(obj)
+    return total
+
+
+def _memory_probe(run_one, dev) -> Dict[str, int]:
+    """Run one epoch of a trainer's step on ``dev`` (``run_one() ->
+    FitResult``) and return the JAX package's memory-analysis keys,
+    measured on the card: see :func:`fit`'s ``compile_only``."""
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    res = run_one()
+    args = _tensor_bytes(res.carry)
+    out = {
+        "argument_size_in_bytes": args,
+        "output_size_in_bytes": int(sum(v.nbytes for v in res.history.values())),
+        "temp_size_in_bytes": -1,
+        "alias_size_in_bytes": -1,
+        "generated_code_size_in_bytes": -1,
+        "total_nonalias_bytes": -1,
+        "device_bytes_limit": -1,
+    }
+    if cuda:
+        peak = int(torch.cuda.max_memory_allocated(dev))
+        out.update(temp_size_in_bytes=peak - args, total_nonalias_bytes=peak,
+                   device_bytes_limit=int(torch.cuda.get_device_properties(dev).total_memory))
+    return out
+
+
 def _adam_step(optimizer: ScheduledAdam, opt, leaves, grads, count: int) -> None:
     for t, g in zip(leaves, grads):
         t.grad = g.detach()
@@ -156,7 +209,8 @@ def fit(
     start_epoch: int = 0,
     loss_and_grad_fn: Optional[Callable] = None,
     progress: Optional[Callable[[int, Dict[str, float]], None]] = None,
-) -> FitResult:
+    compile_only: bool = False,
+):
     """Train ``params`` (``[(W, b), ...]``, or a ``{"net": [...], <name>:
     tensor}`` dict with extra trainable leaves) for ``epochs`` steps of
     Adam.
@@ -168,9 +222,32 @@ def fit(
     ``FitResult.carry``.  ``chunk``: epochs between moves of the history
     from the device to the host (the only host sync in the loop);
     ``progress(epoch, {metric: last value})`` is called after each move.
+
+    ``compile_only=True`` is the memory probe: it returns the JAX package's
+    memory-analysis dict instead of a ``FitResult``.  Eager torch has
+    nothing to compile, so the numbers are measured, not analysed: after
+    ``torch.cuda.reset_peak_memory_stats`` one epoch of this trainer's own
+    step (the eval included) runs from the initial carry (a copy of
+    ``init_carry``), and ``argument_size_in_bytes`` is the bytes of the
+    carry's tensors (Adam's moments included, which torch makes at the
+    first step), ``output_size_in_bytes`` those of the epoch's metrics,
+    ``total_nonalias_bytes`` is ``torch.cuda.max_memory_allocated``,
+    ``temp_size_in_bytes`` that peak less the arguments, and
+    ``device_bytes_limit`` the card's total memory.  The fields that mean
+    nothing in torch (aliases, generated code) are -1, as JAX's
+    ``getattr(ma, f, -1)``; on the CPU the measured ones are -1 too.  A
+    step that does not fit raises ``torch.cuda.OutOfMemoryError`` in the
+    caller's process.
     """
     if epochs > 0 and chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if compile_only:
+        carry = (copy.deepcopy(init_carry) if init_carry is not None
+                 else _init_carry(params, optimizer))
+        return _memory_probe(
+            lambda: fit(loss_fn, eval_fn, params, epochs=1, optimizer=optimizer, key=key,
+                        chunk=1, init_carry=carry, start_epoch=start_epoch,
+                        loss_and_grad_fn=loss_and_grad_fn), carry.leaves[0].device)
     carry = init_carry if init_carry is not None else _init_carry(params, optimizer)
     leaves, opt, count = carry.leaves, carry.opt, carry.count
     best_m, best_leaves, best_e = carry.best_m, carry.best_leaves, carry.best_e
@@ -256,7 +333,9 @@ def fit_wan(
     minimax: str = "alternating",    # alternating | extragradient | optimistic
     u_ema: float = 0.0,              # > 0: track an EMA of u and eval it too
     v_context_fn: Optional[Callable] = None,
-) -> FitResult:
+    progress: Optional[Callable[[int, Dict[str, float]], None]] = None,
+    compile_only: bool = False,      # the memory probe (see fit)
+):
     """The WAN minimax: per epoch ``v_steps`` critic updates then one primal
     update (counterpart of ``nnpde_tpu/train/trainer.py::fit_wan``).
 
@@ -270,7 +349,10 @@ def fit_wan(
     objective needs from the frozen primal, computed once per epoch (and at
     the extragradient lookahead); ``v_loss_fn`` then receives it in place of
     ``u_params``.  Each objective is differentiated in its own net only:
-    the other net's params come detached.
+    the other net's params come detached.  ``progress(epoch, {metric: last
+    value})`` is called once per chunk, as in :func:`fit`;
+    ``compile_only=True`` returns :func:`fit`'s memory probe of one epoch
+    (``v_steps`` critic steps and the primal step) instead of training.
     """
     if minimax not in ("alternating", "extragradient", "optimistic"):
         raise ValueError(f"Unknown minimax mode {minimax!r}")
@@ -290,12 +372,19 @@ def fit_wan(
             [t.detach().clone() for t in u_leaves],
             ([torch.zeros_like(t) for t in u_leaves], [torch.zeros_like(t) for t in v_leaves]))
     else:
-        carry = init_carry
+        carry = copy.deepcopy(init_carry) if compile_only else init_carry
+    if compile_only:
+        return _memory_probe(
+            lambda: fit_wan(u_loss_fn, v_loss_fn, eval_fn, u_params, v_params, epochs=1,
+                            v_steps=v_steps, u_optimizer=u_optimizer, v_optimizer=v_optimizer,
+                            key=key, chunk=1, init_carry=carry, start_epoch=start_epoch,
+                            minimax=minimax, u_ema=u_ema, v_context_fn=v_context_fn),
+            carry.u_leaves[0].device)
     (u_leaves, v_leaves, u_opt, v_opt, u_count, v_count, best_m, best_u, best_v,
      best_e, ema, prev_g) = carry
     dev = u_leaves[0].device
     n_plain = v_steps if minimax == "alternating" else v_steps - 1
-    hist = _History(chunk)
+    hist = _History(chunk, progress, start_epoch)
     live = {t.data_ptr() for t in u_leaves}
 
     def u_grad(u_lv, v_p, k):

@@ -14,8 +14,8 @@ factor, 9 points drawn with numpy from a seed.
 * The port's ``fields`` against its own ``fields_generic`` (``torch.func``
   autodiff): rel 1e-10 in float64.
 * The factor/net dim mismatch raises ``ValueError``.
-* ``models/mlp.py::init_mlp_threefry`` (threefry-2x32 in numpy, the
-  entry points' default) draws the JAX package's ``init_mlp`` weights for
+* ``models/mlp.py::init_mlp`` (threefry-2x32 in numpy, the entry
+  points' initial weights) draws the JAX package's ``init_mlp`` weights for
   the same seed bit for bit, and ``prng``'s key, split and uniform equal
   ``jax.random``'s.
 
@@ -143,7 +143,7 @@ def test_channel_model_dim_mismatch_raises():
 @pytest.mark.parametrize("seed", [0, 1, 5, 123456])
 def test_init_mlp_threefry_matches_jax_bit_for_bit(act, layers, seed):
     want = jmlp.init_mlp(jax.random.PRNGKey(seed), jmodels.NetSpec(layers, act))
-    got = tmlp.init_mlp_threefry(seed, tmodels.NetSpec(layers, act))
+    got = tmlp.init_mlp(seed, tmodels.NetSpec(layers, act))
     for (jW, jb), (tW, tb) in zip(want, got):
         np.testing.assert_array_equal(tW.numpy(), np.asarray(jW))
         np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))

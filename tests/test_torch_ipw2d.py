@@ -13,6 +13,11 @@ CPU at a small size (widths 12-16, ``grid_n`` 12).
   package's own fused-vs-XLA tests), the first PDE/DRM term within 1e-3,
   the ``weights`` table and history keys equal.
 * Resume in two segments equals one run, exactly.
+* ``compile_only=True`` (the memory probe, measured on the card) returns
+  the JAX package's keys for the WAN and PINN configurations of
+  ``tests/test_minimax.py::test_fit_compile_only_memory_probe`` (the key
+  set equal to the JAX probe's), and the hybrid config probes its bf16
+  bulk phase; nothing trains.
 * Each option that raises.
 """
 
@@ -291,3 +296,27 @@ def test_train_ipw_2d_kernel_paths_match_jax_pallas(case, j_impl, t_impl):
     np.testing.assert_allclose(tt, tj, rtol=5e-2)
     np.testing.assert_allclose(tout["history"]["pde"][0],
                                np.asarray(jout["history"]["pde"])[0], rtol=1e-3)
+
+
+PROBE_WAN = dict(nx=1, ny=1, method="WAN", technique="FN", epochs=10, chunk=5, grid_n=12,
+                 data_grid_n=8, n_boundary=8, layers=(2, 8, 8, 1), v_layers=(2, 8, 1),
+                 v_steps=1)
+PROBE_PINN = dict(nx=1, ny=1, method="PINN", technique="FBC", epochs=10, chunk=5, grid_n=12,
+                  data_grid_n=8, n_boundary=8, layers=(2, 8, 8, 1))
+
+
+@pytest.mark.parametrize("cfg", [PROBE_WAN, PROBE_PINN, dict(PROBE_PINN, compute_dtype="hybrid"),
+                                 dict(PROBE_PINN, jet_impl="fused")],
+                         ids=["wan", "pinn", "pinn_hybrid", "pinn_fused"])
+def test_compile_only_returns_the_jax_probe_keys(cfg):
+    stats = train_ipw_2d(IPW2DConfig(**cfg), compile_only=True, device="cpu")
+    assert isinstance(stats, dict)
+    for k in ("argument_size_in_bytes", "temp_size_in_bytes", "total_nonalias_bytes"):
+        assert k in stats
+    assert set(stats) == set(_jax_probe_keys())
+    assert stats["argument_size_in_bytes"] > 0 and stats["total_nonalias_bytes"] == -1
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_probe_keys():
+    return tuple(j_train(JConfig(**PROBE_PINN), compile_only=True))

@@ -39,7 +39,7 @@ import nnpde_tpu_torch.pde.kh as tkh
 import nnpde_tpu_torch.problems as tproblems
 import nnpde_tpu_torch.problems.kh_floquet as tfloq
 from nnpde_tpu_torch.interop import params_from_jax
-from nnpde_tpu_torch.models.mlp import init_mlp_threefry
+from nnpde_tpu_torch.models.mlp import init_mlp
 
 GT = dict(alpha=2.0, omega=0.3, L=30.0, N=300, M=1, n_levels=2, n_theta=64)
 SMALL = dict(width=16, depth=2, train_n=64, n_ref=300, M=1, epochs=3, chunk=3)
@@ -174,7 +174,7 @@ def test_training_starts_as_jax(n):
     want, net0 = _jax_run(n)
     _, tgt = _gts()
     cfg = _cfgs(n=n)[1]
-    for (W, b), (tW, tb) in zip(net0, init_mlp_threefry(cfg.seed, tfloq.ChannelSolutionModel(
+    for (W, b), (tW, tb) in zip(net0, init_mlp(cfg.seed, tfloq.ChannelSolutionModel(
             tfloq.NetSpec((1, 16, 16, 6), activation="sin")).spec)):
         np.testing.assert_array_equal(tW.numpy(), W)
         np.testing.assert_array_equal(tb.numpy(), b)

@@ -26,9 +26,28 @@ Tolerances, and why:
 * a world of one (no process group) equals the plain call bitwise;
 * on 4 ranks: DP x TP on a 2 x 2 mesh, the two-level mean of
   ``dp_dcn_step`` and the fused step over the product axis against the
-  port's one-process float64 autograd at 1e-12.
+  port's one-process float64 autograd at 1e-12;
+* on 4 ranks, DP x TP through the jet (``tp_mean_step`` over
+  ``tp_fields``, the forward-Laplacian jet through the column / row
+  pairs): the configuration of the JAX package's dp x tp test
+  (``tests/test_parallel.py``: box-FBC, (2, 32, 32, 1) sin, its own
+  initial weights and 1024 points, the batch over "data" and the layers
+  over "model") against JAX's single-device numbers at that test's
+  tolerances: the loss rtol 1e-5, each rank's gradient parts and its
+  parts after one Adam step (lr 1e-3) against the matching slices at rtol
+  5e-5, atol 1e-6 (the port in float32, as JAX); in float64 against the
+  port's one process at 1e-12;
+* on 4 ranks, a net of two column / row pairs ((2, 16 x 4, 1) sin, float64):
+  the PINN loss through the TP jet and a data fit through
+  ``tp_mlp_apply``, each rank's gradient parts against the one process's
+  slices at 1e-12 (the cotangent of a column layer's whole input is
+  all-reduced in its backward);
+* on a world of one (tp = 1) the TP jet is ``mlp_fwdlap`` and
+  ``tp_fields`` is ``SolutionModel.fields`` bit for bit (with the factor,
+  and with the hard-Neumann input map), and ``tp_mean_step`` is
+  ``psum_mean_step``.
 
-Cost: about 23 s alone on one worker (the ranks overlap the JAX compiles).
+Cost: about 25 s alone on one worker (the ranks overlap the JAX compiles).
 """
 
 import os
@@ -102,7 +121,49 @@ def _inputs():
     }
     for i, (W, b) in enumerate(params):
         z[f"pW{i}"], z[f"pb{i}"] = np.asarray(W), np.asarray(b)
+    z["dp_layers"] = np.asarray(DEEP_LAYERS)
+    for i, (W, b) in enumerate(_np_net(rng, DEEP_LAYERS)):
+        z[f"dpW{i}"], z[f"dpb{i}"] = W, b
+    tp_model, tp_params, tp_X = _tp_inputs()
+    z["tp_layers"], z["tpX"] = np.asarray(TP_LAYERS), np.asarray(tp_X)
+    for i, (W, b) in enumerate(tp_params):
+        z[f"tpW{i}"], z[f"tpb{i}"] = np.asarray(W), np.asarray(b)
     return model, params, z
+
+
+TP_LAYERS = (2, 32, 32, 1)
+DEEP_LAYERS = (2, 16, 16, 16, 16, 1)          # two column / row pairs, then the output
+
+
+def _np_net(rng, layers):
+    return [(rng.uniform(-0.5, 0.5, (i, o)), rng.uniform(-0.3, 0.3, (o,)))
+            for i, o in zip(layers[:-1], layers[1:])]
+
+
+def _tp_inputs():
+    """The JAX package's dp x tp test setup (``tests/test_parallel.py``)."""
+    model = SolutionModel(NetSpec(TP_LAYERS, "sin"),
+                          factor_for_technique("FBC", dim=2, kind="box", L=L))
+    params = model.init(jax.random.PRNGKey(0))
+    X = jax.random.uniform(jax.random.PRNGKey(1), (1024, 2), maxval=L)
+    return model, params, X
+
+
+def _jax_tp_reference():
+    """JAX's single-device loss, gradients and parameters after one Adam
+    step (lr 1e-3) of the PINN loss of its dp x tp test."""
+    model, params, X = _tp_inputs()
+    f = jphys.rhs_f_for_u_sin(X, L, [1, 1])
+
+    def loss_fn(p):
+        return pinn_poisson(model.fields(p, X).lap, f)
+
+    loss, g = jax.jit(jax.value_and_grad(loss_fn))(params)
+    opt = optax.adam(1e-3)
+    up, _ = opt.update(g, opt.init(params), params)
+    p1 = optax.apply_updates(params, up)
+    to_np = lambda t: [(np.asarray(W), np.asarray(b)) for W, b in t]
+    return float(loss), to_np(g), to_np(p1)
 
 
 def _launch(world, workdir):
@@ -191,12 +252,13 @@ def runs(tmp_path_factory):
     try:
         refs = {w: _jax_refs(model, params, z, w) for w in (2, 4)}
         train_loss = _jax_training(model, params, jnp.asarray(z["X"]))
+        tp_ref = _jax_tp_reference()
     finally:
         for world in (2, 4):
             _join(procs[world])
     ranks = {w: [dict(np.load(dirs[w] / f"rank{r}.npz")) for r in range(w)] for w in (2, 4)}
     return {"model": model, "params": params, "z": z, "refs": refs, "ranks": ranks,
-            "train_loss": train_loss}
+            "train_loss": train_loss, "tp_ref": tp_ref}
 
 
 def _tree(out, name):
@@ -375,6 +437,131 @@ def test_four_rank_meshes_match_one_process(runs):
         for out in runs["ranks"][4]:
             assert _rel(out[f"{name}/value"], val.numpy()) <= 1e-12
             assert _grads_rel(_tree(out, name), grads) <= 1e-12
+
+
+def _tp_slice(a, kind, j, n=2):
+    """Rank ``j``'s part of a whole (W or b) leaf under ``kind``."""
+    if kind == "col":
+        m = a.shape[-1] // n
+        return a[..., j * m:(j + 1) * m]
+    if kind == "row" and a.ndim == 2:
+        m = a.shape[0] // n
+        return a[j * m:(j + 1) * m]
+    return a
+
+
+def _tp_one_process_float64(z):
+    """The port's one process on the whole batch in float64: the loss, its
+    gradients and the parameters after one Adam step (lr 1e-3)."""
+    from nnpde_tpu_torch.losses import pinn_poisson as tpinn
+    from nnpde_tpu_torch.pde import poisson as tphys
+
+    model = TSolutionModel(TNetSpec(TP_LAYERS, "sin"), t_factor("FBC", dim=2, kind="box", L=L))
+    P = params_from_jax([(z[f"tpW{i}"], z[f"tpb{i}"]) for i in range(len(TP_LAYERS) - 1)],
+                        dtype=torch.float64)
+    X = torch.as_tensor(z["tpX"], dtype=torch.float64)
+    loss, g = tpar.psum_mean_step(
+        lambda p, X_: tpinn(model.fields(p, X_).lap, tphys.rhs_f_for_u_sin(X_, L, [1, 1])),
+        tpar.make_mesh(device="cpu"))(P, X)
+    leaves = [t.clone() for pair in P for t in pair]
+    opt = torch.optim.Adam(leaves, lr=1e-3)
+    for t, gr in zip(leaves, [t for pair in g for t in pair]):
+        t.grad = gr
+    opt.step()
+    p1 = [(leaves[2 * i].detach().numpy(), leaves[2 * i + 1].detach().numpy())
+          for i in range(len(P))]
+    return float(loss), [(W.numpy(), b.numpy()) for W, b in g], p1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_dp_tp_jet_matches_jax_single_device(runs, dtype):
+    """DP x TP through the jet on the 2 x 2 (data, model) mesh: the PINN
+    loss, each rank's gradient parts and its parts after one Adam step
+    against JAX's single-device run at its dp x tp test's tolerances
+    (float32), or against the port's one process at 1e-12 (float64)."""
+    if dtype == "float32":
+        loss, grads, p1 = runs["tp_ref"]
+        rtol, atol = dict(loss=1e-5, tree=5e-5), 1e-6
+    else:
+        loss, grads, p1 = _tp_one_process_float64(runs["z"])
+        rtol, atol = dict(loss=1e-12, tree=1e-12), 0.0
+    tag = f"tp/jet_{dtype}"
+    for out in runs["ranks"][4]:
+        j = int(out["tp/coords"][1])                      # this rank's model index
+        np.testing.assert_allclose(float(out[f"{tag}/value"]), loss, rtol=rtol["loss"])
+        for i in range(len(TP_LAYERS) - 1):
+            kind = str(out[f"{tag}/kind{i}"])
+            for got, want in ((out[f"{tag}/gW{i}"], grads[i][0]),
+                              (out[f"{tag}/gb{i}"], grads[i][1]),
+                              (out[f"{tag}/W{i}"], p1[i][0]), (out[f"{tag}/b{i}"], p1[i][1])):
+                want = _tp_slice(np.asarray(want), kind, j)
+                assert got.shape == want.shape
+                np.testing.assert_allclose(got, want, rtol=rtol["tree"], atol=atol)
+
+
+@pytest.mark.parametrize("name", ["jet", "value"])
+def test_dp_tp_two_pairs_match_one_process(runs, name):
+    """Two column / row pairs on the 2 x 2 mesh: the second column layer
+    reads the first pair's sum, so its input's cotangent is all-reduced in
+    the backward; each rank's gradient parts equal the one process's slices
+    (float64, 1e-12), for the PINN loss on the jet and a fit on the value."""
+    from nnpde_tpu_torch.losses import pinn_poisson as tpinn
+    from nnpde_tpu_torch.models import mlp_apply_batch
+    from nnpde_tpu_torch.pde import poisson as tphys
+
+    z = runs["z"]
+    model = TSolutionModel(TNetSpec(DEEP_LAYERS, "sin"), t_factor("FBC", dim=2, kind="box", L=L))
+    P = params_from_jax([(z[f"dpW{i}"], z[f"dpb{i}"]) for i in range(len(DEEP_LAYERS) - 1)],
+                        dtype=torch.float64)
+    leaves = [t.requires_grad_(True) for pair in P for t in pair]
+    X, y = (torch.as_tensor(z[k], dtype=torch.float64) for k in ("X", "y"))
+    if name == "jet":
+        loss = tpinn(model.fields(P, X).lap, tphys.rhs_f_for_u_sin(X, L, [1, 1]))
+    else:
+        loss = torch.mean((mlp_apply_batch(P, X, "sin") - y) ** 2)
+    g = torch.autograd.grad(loss, leaves)
+    tag = f"tp/deep_{name}"
+    for out in runs["ranks"][4]:
+        j = int(out["tp/coords"][1])
+        assert _rel(out[f"{tag}/value"], loss.detach().numpy()) <= 1e-12
+        kinds = [str(out[f"{tag}/kind{i}"]) for i in range(len(DEEP_LAYERS) - 1)]
+        assert kinds == ["col", "row", "col", "row", "rep"]
+        for i, kind in enumerate(kinds):
+            assert _rel(out[f"{tag}/gW{i}"], _tp_slice(g[2 * i].numpy(), kind, j)) <= 1e-12
+            assert _rel(out[f"{tag}/gb{i}"], _tp_slice(g[2 * i + 1].numpy(), kind, j)) <= 1e-12
+
+
+def test_tp_jet_on_a_world_of_one_is_the_plain_jet_bitwise():
+    """tp = 1 (no process group): the TP jet, ``tp_fields`` and
+    ``tp_mean_step`` take ``mlp_fwdlap``'s, ``fields``' and
+    ``psum_mean_step``'s operations, bit for bit."""
+    from nnpde_tpu_torch.losses import pinn_poisson as tpinn
+    from nnpde_tpu_torch.models.inputmap import CosineInputMap
+    from nnpde_tpu_torch.ops.fwdlap import mlp_fwdlap
+
+    mesh = tpar.make_mesh_2d(1, 1, device="cpu")
+    rng = np.random.default_rng(11)
+    X = torch.as_tensor(rng.uniform(0.0, L, (96, 2)), dtype=torch.float32)
+    for layers, act in (((2, 16, 16, 16, 16, 1), "sin"), ((2, 12, 12, 1), "tanh"),
+                        ((2, 8, 1), "gelu")):
+        model = TSolutionModel(TNetSpec(layers, act), t_factor("FBC", dim=2, kind="box", L=L))
+        P = model.init(5)
+        parts = tpar.tp_shard_mlp(P, mesh)
+        for a, b in zip(tpar.tp_mlp_fwdlap(parts, X, act, mesh), mlp_fwdlap(P, X, act)):
+            assert torch.equal(a, b)
+        for m in (model, TSolutionModel(TNetSpec(layers, act), model.factor,
+                                        input_map=CosineInputMap(2, 0.0, L))):
+            for a, b in zip(tpar.tp_fields(m, parts, X, mesh), m.fields(P, X)):
+                assert torch.equal(a, b)
+
+        def loss_of(jet_of):
+            return lambda p, X_: tpinn(jet_of(p, X_).lap, torch.sin(X_[:, 0]))
+
+        l1, g1 = tpar.tp_mean_step(loss_of(lambda p, X_: tpar.tp_fields(model, p, X_, mesh)),
+                                   mesh)(parts, X)
+        l0, g0 = tpar.psum_mean_step(loss_of(model.fields), mesh)(P, X)
+        assert torch.equal(l1, l0)
+        assert all(torch.equal(a, b) for pa, pb in zip(g1, g0) for a, b in zip(pa, pb))
 
 
 def test_world_of_one_equals_plain_call_bitwise():

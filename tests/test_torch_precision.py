@@ -241,7 +241,7 @@ def _patch_inits(monkeypatch, params_by_layers, X):
         return [(jnp.asarray(W), jnp.asarray(b))
                 for W, b in params_by_layers[tuple(self.spec.layers)]]
 
-    def t_init(self, gen, dtype=torch.float32):
+    def t_init(self, key, dtype=torch.float32, device=None):
         return params_from_jax(params_by_layers[tuple(self.spec.layers)])
 
     monkeypatch.setattr(JSolutionModel, "init", j_init)

@@ -6,6 +6,8 @@
   same fixed points, with a deterministic eval.  Tolerance: loss history
   and final params rel <= 1e-4 (float32 on both sides; Adam's first steps
   are close to sign(g), so per-step rounding stays small).
+* ``fit(compile_only=True)`` returns the memory probe's dict (the JAX
+  package's keys), not a ``FitResult``, and leaves a given carry as it was.
 * Short CPU trainings of ``train_poisson_nd`` for PINN and DRM on both
   jet paths: the loss and rel-L2 must fall.
 * The port imports neither ``jax`` nor ``nnpde_tpu`` (a static check: the
@@ -118,6 +120,34 @@ def test_fit_resume_matches_one_run():
     for (W1, b1), (W2, b2) in zip(full.params, b.params):
         assert torch.equal(W1, W2) and torch.equal(b1, b2)
     assert full.best_epoch == b.best_epoch
+
+
+def test_fit_compile_only_returns_the_memory_probe():
+    """One epoch from a copy of the carry; the JAX keys, the argument bytes
+    (the params, Adam's two moments, the best copy) counted and the
+    measured fields -1 on the CPU."""
+    torch.manual_seed(0)
+    params = [(torch.randn(2, 8), torch.zeros(8)), (torch.randn(8, 1), torch.zeros(1))]
+    X = torch.rand(64, 2)
+
+    def loss_fn(p, key):
+        return torch.mean(mlp_apply_batch(p, X, "tanh") ** 2), {"a": torch.zeros(())}
+
+    def eval_fn(p, key):
+        return torch.mean(mlp_apply_batch(p, X, "tanh") ** 2)
+
+    opt = make_optimizer(1e-2)
+    a = fit(loss_fn, eval_fn, params, epochs=2, optimizer=opt, key=3)
+    before = [t.clone() for t in a.carry.leaves]
+    stats = fit(loss_fn, eval_fn, params, epochs=10, optimizer=opt, key=3,
+                init_carry=a.carry, start_epoch=2, compile_only=True)
+    assert isinstance(stats, dict) and not isinstance(stats, tuple)
+    n = sum(W.numel() + b.numel() for W, b in params)
+    assert stats["argument_size_in_bytes"] >= 4 * 4 * n
+    assert stats["output_size_in_bytes"] == 3 * 4            # a, total, l2
+    assert stats["total_nonalias_bytes"] == stats["temp_size_in_bytes"] == -1
+    assert stats["device_bytes_limit"] == -1
+    assert all(torch.equal(x, y) for x, y in zip(before, a.carry.leaves))
 
 
 @pytest.mark.parametrize("method,jet_impl,coef_mode", [

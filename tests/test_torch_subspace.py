@@ -450,9 +450,9 @@ def test_float32_spread_that_the_bars_rest_on():
 
 
 def tmlp_init(cfg):
-    from nnpde_tpu_torch.models.mlp import init_mlp_threefry
+    from nnpde_tpu_torch.models.mlp import init_mlp
 
-    return init_mlp_threefry(cfg.seed, tsub._setup(cfg)[0].spec)
+    return init_mlp(cfg.seed, tsub._setup(cfg)[0].spec)
 
 
 # ------------------------------------------------------------------ raises

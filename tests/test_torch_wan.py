@@ -6,6 +6,12 @@ pair, the WAN losses, and short CPU trainings of the 2D Poisson WAN.
   the loss closures built on one fixed point set on both sides (the two
   packages' random streams differ).  Tolerance: the ``total``, ``l2`` and
   ``wan_loss_v`` histories rel <= 1e-4 (float32 on both sides).
+* ``fit_wan(progress=)`` against the JAX ``fit_wan``'s callback: 5
+  epochs in chunks of 2, then 3 more resumed from the carry, the same
+  epochs (2, 4, 5, 7, 8) and metric names, each value rel <= 1e-4 (the
+  tolerance above).
+* ``fit_wan(compile_only=True)`` returns the memory probe's dict (the JAX
+  package's keys), not a ``FitResult``, and leaves a given carry as it was.
 * ``make_wan_optimizers`` against optax: the critic's horizon and five
   Adam updates of each net, rel <= 1e-6 (float64).
 * ``wan_weak_residual``, ``wan_pde_loss`` and ``norm_nontrivial`` against
@@ -156,6 +162,81 @@ def test_fit_wan_resume_matches_one_run():
                           full.history["total"])
     for (W1, b1), (W2, b2) in zip(full.v_params, b.v_params):
         assert torch.equal(W1, W2) and torch.equal(b1, b2)
+
+
+def _progress_case():
+    """The first test's fixed-point WAN problem in both packages."""
+    d = 2
+    rng = np.random.default_rng(0)
+    X = rng.uniform(0.0, L, (128, d)).astype(np.float32)
+    X_ev = rng.uniform(0.0, L, (64, d)).astype(np.float32)
+    ju = JSolutionModel(JNetSpec((d, 16, 16, 1), activation="sin"),
+                        j_factor("FBC", dim=d, kind="box", L=L))
+    jv = JSolutionModel(JNetSpec((d, 12, 12, 1), activation="sin"))
+    jup, jvp = ju.init(jax.random.PRNGKey(1)), jv.init(jax.random.PRNGKey(2))
+    j_api = (j_bump_w, j_wan_weak_residual, j_wan_pde_loss, jphys.rhs_f_for_u_sin,
+             jphys.exact_u_prod_sin, jnp.mean, lambda a, ax: jnp.sum(a, axis=ax),
+             jnp.log, jnp.sqrt)
+    tu = SolutionModel(NetSpec((d, 16, 16, 1), activation="sin"),
+                       factor_for_technique("FBC", dim=d, kind="box", L=L))
+    tv = SolutionModel(NetSpec((d, 12, 12, 1), activation="sin"))
+    t_api = (bump_w, wan_weak_residual, wan_pde_loss, phys.rhs_f_for_u_sin,
+             phys.exact_u_prod_sin, torch.mean, lambda a, ax: torch.sum(a, dim=ax),
+             torch.log, torch.sqrt)
+    to_np = lambda p: [(np.array(W), np.array(b)) for W, b in p]
+    return ((_wan_closures(j_api, ju, jv, jnp.asarray(X), jnp.asarray(X_ev)), jup, jvp),
+            (_wan_closures(t_api, tu, tv, torch.as_tensor(X), torch.as_tensor(X_ev)),
+             params_from_jax(to_np(jup)), params_from_jax(to_np(jvp))))
+
+
+def test_fit_wan_progress_matches_jax():
+    """``progress(epoch, {metric: last value})`` once per chunk, as JAX's
+    ``_run_chunks`` calls it: the epochs exact (the resumed run counts from
+    its ``start_epoch``), the metrics within the fit_wan parity bar."""
+    (jl, jup, jvp), (tl, tup, tvp) = _progress_case()
+    jcalls, tcalls = [], []
+    kw = dict(v_steps=2, chunk=2, u_ema=0.9)
+    jkw = dict(kw, u_optimizer=j_make_optimizer(1e-3), v_optimizer=j_make_optimizer(1e-3),
+               key=jax.random.PRNGKey(3), progress=lambda e, m: jcalls.append((e, m)))
+    tkw = dict(kw, u_optimizer=make_optimizer(1e-3), v_optimizer=make_optimizer(1e-3), key=3,
+               progress=lambda e, m: tcalls.append((e, m)))
+    ja = j_fit_wan(*jl, jup, jvp, epochs=5, **jkw)
+    j_fit_wan(*jl, jup, jvp, epochs=3, init_carry=ja.carry, start_epoch=5, **jkw)
+    ta = fit_wan(*tl, tup, tvp, epochs=5, **tkw)
+    fit_wan(*tl, tup, tvp, epochs=3, init_carry=ta.carry, start_epoch=5, **tkw)
+    assert [e for e, _ in tcalls] == [e for e, _ in jcalls] == [2, 4, 5, 7, 8]
+    for (_, tm), (_, jm) in zip(tcalls, jcalls):
+        assert sorted(tm) == sorted(jm)
+        assert all(isinstance(v, float) for v in tm.values())
+        for k in jm:
+            assert _rel(tm[k], jm[k]) <= 1e-4, k
+
+
+def test_fit_wan_compile_only_returns_the_memory_probe():
+    """The probe runs one epoch from a copy of the carry: the JAX package's
+    keys, the measured ones -1 on the CPU, the argument bytes counted (u
+    and v, their Adam moments, the best and EMA copies, the OGDA
+    gradients), and the given carry left as it was."""
+    _, (tl, tup, tvp) = _progress_case()
+    kw = dict(v_steps=2, u_optimizer=make_optimizer(1e-3), v_optimizer=make_optimizer(1e-3),
+              key=3, minimax="optimistic")
+    a = fit_wan(*tl, tup, tvp, epochs=2, **kw)
+    before = [t.clone() for t in a.carry.u_leaves + a.carry.v_leaves]
+    stats = fit_wan(*tl, tup, tvp, epochs=5, init_carry=a.carry, start_epoch=2,
+                    compile_only=True, **kw)
+    assert isinstance(stats, dict)
+    assert set(stats) == {"argument_size_in_bytes", "output_size_in_bytes",
+                          "temp_size_in_bytes", "alias_size_in_bytes",
+                          "generated_code_size_in_bytes", "total_nonalias_bytes",
+                          "device_bytes_limit"}
+    n_u = sum(W.numel() + b.numel() for W, b in tup)
+    n_v = sum(W.numel() + b.numel() for W, b in tvp)
+    assert stats["argument_size_in_bytes"] >= 4 * (6 * n_u + 5 * n_v)
+    assert stats["output_size_in_bytes"] > 0
+    for k in ("temp_size_in_bytes", "total_nonalias_bytes", "device_bytes_limit",
+              "alias_size_in_bytes", "generated_code_size_in_bytes"):
+        assert stats[k] == -1, k
+    assert all(torch.equal(x, y) for x, y in zip(before, a.carry.u_leaves + a.carry.v_leaves))
 
 
 def test_make_wan_optimizers_match_optax():

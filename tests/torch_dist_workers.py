@@ -53,11 +53,13 @@ def pinn_loss(model):
 
 def run(rank: int, world: int, z) -> dict:
     from nnpde_tpu_torch.kernels import make_fused_rayleigh
+    from nnpde_tpu_torch.losses import pinn_poisson
+    from nnpde_tpu_torch.pde import poisson
     from nnpde_tpu_torch.models import NetSpec, SolutionModel, factor_for_technique
     from nnpde_tpu_torch.parallel import (
         dp_dcn_step, fused_rayleigh_step, fused_residual_step, fused_wan_u_step,
         fused_wan_v_step, make_mesh, make_mesh_2d, make_mesh_dcn, psum_mean_step, replicate,
-        shard_batch, tp_mlp_apply, tp_shard_mlp)
+        shard_batch, tp_fields, tp_mean_step, tp_mlp_apply, tp_shard_mlp)
 
     layers = tuple(int(w) for w in z["layers"])
     model = SolutionModel(NetSpec(layers, ACT), factor_for_technique("FBC", dim=2, kind="box",
@@ -148,6 +150,50 @@ def run(rank: int, world: int, z) -> dict:
             out[f"tp/gW{i}"] = gW.numpy()
             out[f"tp/gb{i}"] = gb.numpy()
             out[f"tp/kind{i}"] = np.asarray(part.kind)
+        # DP x TP through the jet: the PINN residual of JAX's dp x tp test
+        # (its own net and points, tp* in inputs.npz), loss and gradients,
+        # then one Adam step on this rank's parts
+        for dtype in (torch.float32, torch.float64):
+            tag = str(dtype).split(".")[1]
+            tp_model = SolutionModel(NetSpec(tuple(int(w) for w in z["tp_layers"]), ACT),
+                                     factor_for_technique("FBC", dim=2, kind="box", L=L))
+            parts = tp_shard_mlp(_pairs(z, dtype, "tp"), m2)
+            Xt = shard_batch(torch.as_tensor(z["tpX"], dtype=dtype), m2, "data")
+
+            def tp_pinn(lay, X_):
+                return pinn_poisson(tp_fields(tp_model, lay, X_, m2).lap,
+                                    poisson.rhs_f_for_u_sin(X_, L, [1, 1]))
+
+            loss, grads = tp_mean_step(tp_pinn, m2)(parts, Xt)
+            leaves = [t.clone() for part in parts for t in part[:2]]
+            opt = torch.optim.Adam(leaves, lr=1e-3)
+            for t, gr in zip(leaves, [t for pair in grads for t in pair]):
+                t.grad = gr
+            opt.step()
+            out[f"tp/jet_{tag}/value"] = loss.numpy()
+            for i, (part, (gW, gb)) in enumerate(zip(parts, grads)):
+                out[f"tp/jet_{tag}/gW{i}"], out[f"tp/jet_{tag}/gb{i}"] = gW.numpy(), gb.numpy()
+                out[f"tp/jet_{tag}/W{i}"] = leaves[2 * i].detach().numpy()
+                out[f"tp/jet_{tag}/b{i}"] = leaves[2 * i + 1].detach().numpy()
+                out[f"tp/jet_{tag}/kind{i}"] = np.asarray(part.kind)
+        # two column / row pairs (the backward all-reduce before the second
+        # column layer): the PINN loss through the TP jet and a data fit on
+        # the value, float64
+        deep = SolutionModel(NetSpec(tuple(int(w) for w in z["dp_layers"]), ACT),
+                             factor_for_technique("FBC", dim=2, kind="box", L=L))
+        dparts = tp_shard_mlp(_pairs(z, torch.float64, "dp"), m2)
+        Xd = shard_batch(torch.as_tensor(z["X"], dtype=torch.float64), m2, "data")
+        yd = shard_batch(torch.as_tensor(z["y"], dtype=torch.float64), m2, "data")
+        deep_losses = {
+            "jet": lambda lay, X_: pinn_poisson(tp_fields(deep, lay, X_, m2).lap,
+                                                poisson.rhs_f_for_u_sin(X_, L, [1, 1])),
+            "value": lambda lay, X_: torch.mean((tp_mlp_apply(lay, X_, ACT, m2) - yd) ** 2)}
+        for name, fn in deep_losses.items():
+            loss, grads = tp_mean_step(fn, m2)(dparts, Xd)
+            out[f"tp/deep_{name}/value"] = loss.numpy()
+            for i, (part, (gW, gb)) in enumerate(zip(dparts, grads)):
+                out[f"tp/deep_{name}/gW{i}"], out[f"tp/deep_{name}/gb{i}"] = gW.numpy(), gb.numpy()
+                out[f"tp/deep_{name}/kind{i}"] = np.asarray(part.kind)
         # the two-level mean over a (dcn, data) mesh
         m3 = make_mesh_dcn(2, 2, device="cpu")
         ps = replicate(_pairs(z, torch.float64), m3)
