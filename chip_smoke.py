@@ -171,10 +171,24 @@ Phases (each prints one JSON line; any failure exits non-zero):
    precision_timing times the four kernels in both dot modes at the path's
    N and at 262144 (d = 2), and rows 1, 4, 5 in fp32 at d = 5
    (``timing --rows=fused_linear_residual.bf16`` times one such row alone).
+15. wide (group ``wide``): hidden widths 129-256.  wide_kernels holds rows
+   1, 2, 4, 5 bf16 (the tensor-core design's device tiers where the
+   weights do not fit beside the stages) on (2, w x 4, 1) at w = 136, 200,
+   256 and on (5, 200 x 3, 1) to their plain bf16-dot versions at C2's bar
+   (max(1e-4, 4.2 x the plain version's permutation spread)), every other
+   tier at the plan's tile bitwise equal to the plan's, and rows 11, 12
+   (16 bumps; the tier reading the weights from device memory at 256) to
+   float64 at 1e-5, repeats bitwise, each shape's plan printed with ptxas'
+   registers and spills; wide_path trains ``train_poisson_nd`` with
+   ``compute_dtype='hybrid-kernel'`` at width 200 (``fused``, ``fused``
+   analytic, ``kernel``; 200 epochs, bulk 160) and the 2D well's 16-bump
+   WAN at width 200 (40 epochs, 'torch' and 'fused'), with exact launch
+   counts, and ``cli.main`` on the first, bitwise its rel_l2; wide_timing
+   times the six kernels at width 200, d = 2, at the paths' N and 262144.
 
 ``python3 chip_smoke.py eigen`` (or any other phase-group name: kernels,
 wan, main, eigen, ipw3d, neumann, eigen1d, qho2d, kh, subspace, floquet,
-cli, parallel, probe, timing, precision) runs only those groups,
+cli, parallel, probe, timing, precision, wide) runs only those groups,
 for work on one slice; without arguments every phase runs.  ``python3
 chip_smoke.py sweep`` is a further group that runs only when named: the jet
 forward in both layouts (rows 4 and 6) and the
@@ -1375,9 +1389,16 @@ def multibump_plan(case):
         from nnpde_tpu_torch.kernels._plan import resident
     except ImportError:        # a tree whose plan lives in fused_multibump.py
         resident = fm.resident
+    from nnpde_tpu_torch.kernels import _cuda, _plan
+
     seeded = case.kind == "multi_seeded"
     pl = fm.plan(seeded, case.layers, case.Kb)
-    blocks = launch_blocks(case.kind, case.layers, case.d + 1, pl, case.X.device, case.N)
+    devw = pl.flags & getattr(_plan, "DEV_WEIGHTS", 0)
+    if devw:      # the variant reading the weights from device memory (no fold)
+        blocks = _cuda.grid(case.kind, None, pl.smem, case.X.device,
+                            (case.N + pl.T - 1) // pl.T, devw)
+    else:
+        blocks = launch_blocks(case.kind, case.layers, case.d + 1, pl, case.X.device, case.N)
     return {"T": pl.T, "smem_bytes": pl.smem, "blocks": blocks, "tier": pl.tier,
             "resident": resident(pl, seeded)}
 
@@ -2524,6 +2545,380 @@ def phase_precision_path():
     if not ok:
         raise SystemExit("precision path check failed")
     return counts
+
+
+# ------------------------------------------------------------- wide nets
+# Hidden widths 129-256 on the tensor-core rows (1, 2, 4, 5 in the bf16-dot
+# mode, fwdlap_mma.cuh) and on the K-bump pair (rows 11, 12,
+# fused_multibump.cu): the nets, the kernels against their plain versions,
+# the two entry points that reach them at width 200, the CLI, and timing.
+WIDE_NETS = {"u136": (2,) + (136,) * 4 + (1,), "u200": (2,) + (200,) * 4 + (1,),
+             "u256": (2,) + (256,) * 4 + (1,), "u200_d5": (5, 200, 200, 200, 1)}
+WIDE_N = 20000 + 7
+# C2's bar (ROADMAP.md C, tests/test_torch_cuda.py C2_SPREAD_MULTIPLE): a
+# bf16-dot row within max(PREC_TOL, 4.2 x the plain version's own spread of
+# two fp32 sum orders) of its plain version
+WIDE_SPREAD_MULTIPLE = 4.2
+WIDE_EPOCHS = 200             # each hybrid-kernel run: a bulk of 160, a tail of 40
+WIDE_WAN_EPOCHS = 40          # each multi-bump WAN run (16 bumps)
+WIDE_IPW_LAYERS = (2, 200, 200, 200, 200, 1)
+WIDE_IPW_V_LAYERS = (2, 200, 200, 200, 1)
+WIDE_CLI = ["poisson", "--dim", "2", "--method", "PINN", "--bc-mode", "FBC", "--jet-impl",
+            "fused", "--width", "200", "--depth", "5", "--compute-dtype", "hybrid-kernel",
+            "--epochs", str(WIDE_EPOCHS), "--chunk", "1000", "--n-interior", "20000"]
+
+
+def permuted(params, layers, seed):
+    """``params`` with their hidden units permuted (seeded), and the map of
+    a gradient-leaf list of the permuted net back to the original's
+    (``mma_leaf_rels``' permutation)."""
+    dev = params[0][0].device
+    g = torch.Generator().manual_seed(seed)
+    perm = ([torch.arange(layers[0])] + [torch.randperm(w, generator=g) for w in layers[1:-1]]
+            + [torch.arange(1)])
+    perm = [p.to(dev) for p in perm]
+    inv = [torch.argsort(p) for p in perm]
+    moved = [(W[perm[k]][:, perm[k + 1]].contiguous(), b[perm[k + 1]].contiguous())
+             for k, (W, b) in enumerate(params)]
+
+    def back(leaves):
+        out = []
+        for k in range(len(params)):
+            out += [leaves[2 * k][inv[k]][:, inv[k + 1]], leaves[2 * k + 1][inv[k + 1]]]
+        return out
+
+    return moved, back
+
+
+def prec_spread(case, seed=23):
+    """A bf16-dot case's plain version against itself on the net with its
+    hidden units permuted (the same function and bf16 roundings, every sum
+    in another fp32 order), folded back: C2's spread."""
+    want = case.plain("bfloat16")
+    keep = case.params
+    moved, back = permuted(keep, case.layers, seed)
+    case.params = moved
+    try:
+        got = case.plain("bfloat16")
+    finally:
+        case.params = keep
+    if case.base == "fwdlap_forward":
+        return case.rel(got, want)              # the jet rows do not move
+    lo = 0 if case.base == "fwdlap_backward" else 1
+    return case.rel(got[:lo] + back(got[lo:]), want)
+
+
+def wide_launch(case, pl=None):
+    """A bf16-dot case's kernel on plan ``pl`` (None: the wrapper's own) as
+    one flat tensor."""
+    from nnpde_tpu_torch.kernels import fused_step as fs
+    from nnpde_tpu_torch.kernels import fwdlap_cuda as fc
+
+    if case.base == "fwdlap_forward":
+        return fc.fwdlap_forward(case.params, case.X, case.act, "rows:default", pl=pl).reshape(-1)
+    if case.base == "fwdlap_backward":
+        dWs, dbs = fc.fwdlap_backward(case.params, case.X, case.ct, case.act, "bfloat16", pl=pl)
+        return torch.cat([t.reshape(-1) for pair in zip(dWs, dbs) for t in pair])
+    c = case.case
+    an = fs._analytic_args(fs.PoissonSinCoef(L, c.ks), case.d)
+    return fs._launch(case.base, case.params, case.X,
+                      c.coef if case.base == "fused_linear_residual" else None, case.act, an,
+                      bf16=True, pl=pl)
+
+
+def wide_tiers(case, pl, dev):
+    """The plan's output against every other tier of the tensor-core
+    design that fits at the plan's tile, bitwise equal (the device tiers
+    build the same bf16 operands and sum in the same order), on this
+    case's net over T x 100 + 7 points: fewer tiles than the card has SMs,
+    so that every tier launches one block per tile (a tier with another
+    occupancy would otherwise deal the tiles to another number of blocks
+    and sum the blocks' rows in another order)."""
+    from nnpde_tpu_torch.kernels import fused_step as fs
+
+    case = PrecCase(case.base, pl.T * 100 + 7, case.layers, case.act, seed=690, dev=dev)
+    tiers = fs.MMA_FWD_TIERS if case.base == "fwdlap_forward" else fs.MMA_TIERS
+    ref = wide_launch(case, pl)
+    out = {}
+    for tier, _ in tiers:
+        if tier == pl.tier:
+            continue
+        try:
+            other = fs.mma_plan(case.base, case.layers, T=pl.T, tier=tier, blocks=1)
+        except ValueError:
+            continue
+        if case.base == "fwdlap_forward":
+            other = other._replace(blocks=pl.blocks)
+        out[tier] = bool(torch.equal(wide_launch(case, other), ref))
+    return out
+
+
+def phase_wide_kernels(dev):
+    """Rows 1, 2, 4, 5 bf16 on (2, w x 4, 1) at w = 136, 200, 256 and on (5,
+    200 x 3, 1), and rows 11, 12 on the three (2, w x 4, 1) nets (16 bumps),
+    at 20007 points: the bf16-dot rows within C2's bar (max(1e-4, 4.2 x the
+    plain version's permutation spread)) of their plain bf16-dot versions
+    and no further from the float64 witness than 2x the plain version
+    (+2e-6), every launch in the tensor-core design; the K-bump pair within
+    1e-5 of float64 (eigen_kernels' bars); repeats bitwise; each shape's
+    plan (tile, tier, blocks per SM); on u200 (and u136 and u256 for rows 1
+    and 5) every other tier that fits the plan's tile bitwise equal to the
+    plan's; ptxas' registers and spills of every variant."""
+    from nnpde_tpu_torch.kernels import _cuda
+    from nnpde_tpu_torch.kernels import fused_step as fs
+
+    t0 = time.time()
+    rows, max_err = [], {}
+    for net, layers in WIDE_NETS.items():
+        for i, name in enumerate(PRECISION_REPLACES):
+            base = name[:-len(".bf16")]
+            case = PrecCase(base, WIDE_N, layers, "sin", seed=600 + i, dev=dev)
+            with _cuda.capture() as cap:
+                out = case.kernel("bfloat16")
+            designs = sorted({args[DES_ARG[fn.__name__]] for _, fn, args, _, _ in cap.calls})
+            out2 = case.kernel("bfloat16")
+            torch.cuda.synchronize()
+            bitwise = all(torch.equal(a, b) for a, b in zip(out, out2))
+            ref = case.plain("bfloat16")
+            wit = case.plain("bfloat16", torch.float64)
+            spread = prec_spread(case)
+            bar = max(PREC_TOL, WIDE_SPREAD_MULTIPLE * spread)
+            rel = case.rel(out, ref)
+            w_kernel, w_plain = case.rel(out, wit), case.rel(ref, wit)
+            err = max(float(torch.max(torch.abs(a.double() - b.double())))
+                      for a, b in zip(out, ref))
+            max_err[name] = max(max_err.get(name, 0.0), err)
+            pl = fs.mma_plan(base, layers)
+            des = fs.mma_des(layers, pl.flags)
+            row = {"kernel": name, "net": net, "N": WIDE_N, "layers": list(layers),
+                   "plan": (bf16_forward_plan(layers, WIDE_N, dev) if base == "fwdlap_forward"
+                            else fused_plan(base, layers, WIDE_N, dev, True)),
+                   "rel": rel, "spread": spread, "bar": bar,
+                   "witness_rel_kernel": w_kernel, "witness_rel_plain": w_plain,
+                   "max_abs_err": err, "bitwise_repeat": bitwise, "designs": designs,
+                   "wide_variant": bool(des & _cuda.DES_WIDE)}
+            if net == "u200" or (net in ("u136", "u256") and base in (
+                    "fused_linear_residual", "fwdlap_backward")):
+                row["tiers_bitwise"] = wide_tiers(case, pl, dev)
+            row["ok"] = bool(rel <= bar and bitwise and w_kernel <= 2.0 * w_plain + 2e-6
+                             and designs == [des] and des & _cuda.DES_MMA
+                             and all(row.get("tiers_bitwise", {}).values()))
+            rows.append(row)
+            del case, out, out2, ref, wit
+            torch.cuda.empty_cache()
+    for net, layers in WIDE_NETS.items():
+        if layers[0] != 2:
+            continue
+        for kind in ("multi_sums", "multi_seeded"):
+            case = EigenCase(kind, WIDE_N, layers, "sin", seed=650, dev=dev)
+            row = dict(hold(case), net=net, n_bumps=case.Kb, plan=multibump_plan(case))
+            max_err[kind] = max(max_err.get(kind, 0.0), row["max_abs_err"])
+            rows.append(row)
+            del case
+            torch.cuda.empty_cache()
+    # each tensor-core and K-bump variant's entry, with its spills and registers
+    ptx, keep = [], False
+    for ln in ptxas_of("fused_step.cu", "fwdlap_forward.cu", "fwdlap_backward.cu",
+                       "fused_multibump.cu"):
+        if "Compiling entry" in ln:
+            keep = "_mma" in ln or "multi_" in ln
+        if keep:
+            ptx.append(ln)
+    emit({"phase": "wide_kernels", "phase_s": time.time() - t0, "rows": rows, "ptxas": ptx})
+    if not all(r["ok"] for r in rows):
+        raise SystemExit("wide kernel vs plain comparison failed")
+    return max_err
+
+
+def phase_wide_path():
+    """The entry points at width 200: ``train_poisson_nd`` in
+    ``compute_dtype='hybrid-kernel'`` (2D PINN, box-FBC, 20000 points,
+    (2, 200 x 4, 1); WIDE_EPOCHS of them, the 80/20 bulk/tail split) on
+    'fused', on 'fused' with coef_mode='analytic' and on 'kernel': the
+    bf16 kernels launched once per bulk epoch and the fp32 ones once per
+    tail epoch, exactly; every rel_l2 below its first eval's; 'fused' and
+    'kernel' within 2x of each other (the hybrid-kernel gate's band, 1e-3
+    floor); ``train_ipw_2d`` WAN with 16 bumps at (2, 200 x 4, 1) and a
+    critic (2, 200 x 3, 1), 40000 grid points, WIDE_WAN_EPOCHS on 'torch'
+    and 'fused' from one seed: the wan16 gate (first total within 1e-4,
+    first 10 within 5e-2, the weak-form term within 1e-3, finite, falling,
+    fused rel_l2 <= 1.2 x torch) with the K-bump pair launched 6 times per
+    epoch each; then ``cli.main`` on the fused hybrid-kernel configuration
+    (WIDE_CLI): the same launches, its persisted rel_l2 bitwise the entry
+    point's."""
+    from nnpde_tpu_torch.kernels import LAUNCHES, reset_launches
+    from nnpde_tpu_torch.problems import (IPW2DConfig, PoissonConfig, train_ipw_2d,
+                                          train_poisson_nd)
+
+    def run(fn, cfg):
+        reset_launches()
+        t0 = time.time()
+        r = fn(cfg)
+        return r, {k: v for k, v in LAUNCHES.items() if v}, time.time() - t0
+
+    t0 = time.time()
+    report, launches = {"phase": "wide_path"}, {}
+    base = dict(dim=2, method="PINN", bc_mode="FBC", width=200, depth=5,
+                epochs=WIDE_EPOCHS, n_interior=20000, chunk=1000,
+                compute_dtype="hybrid-kernel")
+    bulk = int(WIDE_EPOCHS * PoissonConfig().hybrid_bf16_fraction)
+    hk = {}
+    for name, kw, kerns in (
+            ("fused", dict(jet_impl="fused"), ("fused_linear_residual",)),
+            ("fused_analytic", dict(jet_impl="fused", coef_mode="analytic"),
+             ("fused_poisson_analytic",)),
+            ("kernel", dict(jet_impl="kernel"), ("fwdlap_forward", "fwdlap_backward"))):
+        r, counts, wall = run(train_poisson_nd, PoissonConfig(**kw, **base))
+        want = {k + sfx: n for k in kerns
+                for sfx, n in ((".bf16", bulk), ("", WIDE_EPOCHS - bulk))}
+        first = float(r["history"]["l2"][0]) / 0.5
+        hk[name] = {"rel_l2": r["rel_l2"], "rel_l2_first": first, "launches": counts,
+                    "want": want, "wall_s": wall, "steps_per_s": _rate(r),
+                    "bulk_steps_per_s": r["result"].timing["bulk_steps_per_s"],
+                    "tail_steps_per_s": r["result"].timing["tail_steps_per_s"],
+                    "finite": bool(np.all(np.isfinite(r["history"]["total"]))),
+                    "ok": bool(np.all(np.isfinite(r["history"]["total"]))
+                               and r["rel_l2"] < first and counts == want)}
+        launches.update({k: v for k, v in counts.items() if k.endswith(".bf16")})
+        hk[name]["r"] = r
+    f, k = hk["fused"]["rel_l2"], hk["kernel"]["rel_l2"]
+    hk["routes_agree"] = bool(k <= max(2.0 * f, 1e-3) and f <= max(2.0 * k, 1e-3))
+    fused_rel = hk["fused"]["rel_l2"]
+    for name in ("fused", "fused_analytic", "kernel"):
+        hk[name].pop("r")
+    report["poisson2d_pinn_hybrid_kernel_u200"] = hk
+    ok = all(hk[n]["ok"] for n in ("fused", "fused_analytic", "kernel")) and hk["routes_agree"]
+
+    # the 2D well's multi-bump WAN at width 200, both routes from one seed
+    wb = dict(nx=3, ny=3, technique="FN", chunk=1000, method="WAN", n_test_grid=4,
+              layers=WIDE_IPW_LAYERS, v_layers=WIDE_IPW_V_LAYERS, epochs=WIDE_WAN_EPOCHS)
+    wt, ct, wall_t = run(train_ipw_2d, IPW2DConfig(jet_impl="torch", **wb))
+    wf, cf, wall_f = run(train_ipw_2d, IPW2DConfig(jet_impl="fused", **wb))
+    first, first10 = _first_band(wt, wf)
+    pde0 = float(abs(wf["history"]["pde"][0] - wt["history"]["pde"][0])
+                 / abs(wt["history"]["pde"][0]))
+    finite = all(np.all(np.isfinite(r["history"][k])) for r in (wt, wf)
+                 for k in ("total", "l2", "wan_loss_v", "pde"))
+    falling = all(r["L2_error"] < r["history"]["l2"][0] for r in (wt, wf))
+    want = {k: n * WIDE_WAN_EPOCHS for k, n in EIGEN_WAN_PER_EPOCH.items()}
+    wan = {"epochs": WIDE_WAN_EPOCHS, "n_bumps": EIGEN_BUMPS, "layers": list(WIDE_IPW_LAYERS),
+           "v_layers": list(WIDE_IPW_V_LAYERS), "total0_rel": first, "first10_max_rel": first10,
+           "pde0_rel": pde0, "finite": finite, "falling": falling,
+           "rel_l2_torch": wt["rel_l2"], "rel_l2_fused": wf["rel_l2"],
+           "rel_l2_first_torch": _rel_l2_first(wt), "rel_l2_first_fused": _rel_l2_first(wf),
+           "wall_s_torch": wall_t, "wall_s_fused": wall_f,
+           "epochs_per_s_torch": wt["result"].timing["steps_per_s"],
+           "epochs_per_s_fused": wf["result"].timing["steps_per_s"],
+           "launches_torch": ct, "launches": cf, "want": want}
+    wan["ok"] = bool(first <= 1e-4 and first10 <= 5e-2 and pde0 <= 1e-3 and finite and falling
+                     and wf["rel_l2"] <= 1.2 * wt["rel_l2"] and ct == {} and cf == want)
+    launches.update({k: cf.get(k, 0) for k in ("multi_sums", "multi_seeded")})
+    report["ipw2d_wan16_u200"] = wan
+    ok = ok and wan["ok"]
+
+    # the command line on the fused hybrid-kernel configuration
+    cli = _cli_task("wide", WIDE_CLI)
+    cli["entry_point_rel_l2"] = fused_rel
+    cli["bitwise"] = cli["rel_l2"] == fused_rel
+    cli["ok"] = bool(cli["rc"] == 0 and cli["bitwise"] and cli["plots"] == 0
+                     and cli["launches"] == hk["fused"]["want"])
+    report["cli"] = cli
+    report["ok"] = bool(ok and cli["ok"])
+    report["phase_s"] = time.time() - t0
+    emit(report)
+    if not report["ok"]:
+        raise SystemExit("wide path check failed")
+    return launches
+
+
+def phase_wide_timing(dev):
+    """The six kernels at width 200, d = 2 ((2, 200 x 4, 1), 16 bumps for
+    the K-bump pair): wrapper and device ms at the path's N (20000; 40000,
+    the 2D well's grid, for the pair) and at 262144, the plain version's
+    ms, the bound (the bf16-dot rows at the tensor cores' peak with their
+    CUDA-core bound beside it; the pair as eigen_timing bounds it) and the
+    plan, and at 262144 the bf16-dot rows' device ms in every tier that
+    fits the plan's tile; at 262144 fewer repeats (a launch there takes
+    tens of ms)."""
+    from nnpde_tpu_torch.kernels import fused_step as fs
+
+    t0 = time.time()
+    layers = WIDE_NETS["u200"]
+    rows = []
+    for name in PRECISION_REPLACES:
+        base = name[:-len(".bf16")]
+        for N in (20000, 262144):
+            big = N > 100000
+            case = PrecCase(base, N, layers, "sin", seed=7, dev=dev)
+            ms = time_ms(lambda: case.kernel("bfloat16"), warmup=2, reps=5 if big else 15)
+            dev_ms = device_ms(lambda: case.kernel("bfloat16"), launches=5 if big else 30,
+                               reps=3 if big else 5)
+            plain_ms = time_ms(lambda: case.plain("bfloat16"), warmup=1, reps=3 if big else 7)
+            bound, by = case.bound(BF16_PEAK)
+            row = {"kernel": name, "net": "u200", "d": 2, "N": N,
+                   "plan": (bf16_forward_plan(layers, N, dev) if base == "fwdlap_forward"
+                            else fused_plan(base, layers, N, dev, True)),
+                   "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                   "bound_ms": bound, "bound_by": by,
+                   "bound_cuda_core_ms": case.bound(FP32_PEAK)[0],
+                   "flop": case.flops(), "bytes": case.bytes(),
+                   "tflops": case.flops() / (dev_ms * 1e-3) / 1e12}
+            if big:
+                # the tiers and tiles the plan passed over, pinned (which
+                # tier u200 takes: the weights on chip at fewer blocks per
+                # SM; larger tiles at one block per SM, which share each
+                # dW product's read-modify-write of the gradient row in
+                # device memory among more points)
+                pl = fs.mma_plan(base, layers)
+                row["tiers_device_ms"] = {}
+                tiers = fs.MMA_FWD_TIERS if base == "fwdlap_forward" else fs.MMA_TIERS
+                for T in (pl.T, 32, 48, 64):
+                    for tier, _ in tiers:
+                        try:
+                            other = fs.mma_plan(base, layers, T=T, tier=tier, blocks=1)
+                        except ValueError:
+                            continue
+                        if base == "fwdlap_forward":
+                            other = other._replace(blocks=pl.blocks)
+                        key = tier if T == pl.T else f"{tier}@T{T}"
+                        row["tiers_device_ms"][key] = device_ms(
+                            lambda: wide_launch(case, other), launches=5, reps=3)
+            rows.append(row)
+            del case
+            torch.cuda.empty_cache()
+    for kind in ("multi_sums", "multi_seeded"):
+        for N in (EIGEN_N, 262144):
+            big = N > 100000
+            case = EigenCase(kind, N, layers, "sin", seed=11, dev=dev)
+            ms = time_ms(case.kernel, warmup=2, reps=5 if big else 15)
+            row = {"kernel": kind, "net": "u200", "d": 2, "N": N, "n_bumps": case.Kb,
+                   "plan": multibump_plan(case), "ms": ms,
+                   "device_ms": device_ms(case.kernel, launches=5 if big else 30,
+                                          reps=3 if big else 5),
+                   "plain_ms": time_ms(lambda: case.plain(torch.float32), warmup=1,
+                                       reps=3 if big else 7),
+                   "bound_ms": case.bound_ms(), "bound_by": case.bound_by(),
+                   "flop": case.flops(), "bytes": case.bytes()}
+            if big:
+                # the weights from device memory at tiles of 16 to 32 points
+                # (two blocks per SM), against the plan's tier on chip
+                from nnpde_tpu_torch.kernels import fused_multibump as fm
+
+                seeded = kind == "multi_seeded"
+                row["tiers_device_ms"] = {}
+                for T in (16, 24, 32):
+                    try:
+                        other = fm.plan(seeded, layers, case.Kb, T=T, tier="device")
+                    except ValueError:
+                        continue
+                    row["tiers_device_ms"][f"device@T{T}"] = device_ms(
+                        lambda: fm._launch(seeded, case.params, case.X, case.coef, case.scal,
+                                           case.act, case.Kb, pl=other), launches=5, reps=3)
+            rows.append(row)
+            del case
+            torch.cuda.empty_cache()
+    emit({"phase": "wide_timing", "phase_s": time.time() - t0, "rows": rows})
+    return rows
 
 
 # ------------------------------------------------------- the 3D well, hard Neumann
@@ -3845,7 +4240,7 @@ def _cli_task(name, argv):
         row = {"argv": argv, "rc": rc, "wall_s": wall, "launches": counts,
                "printed": printed, "ledger_rows": len(ledger),
                "files": len(os.listdir(d)), "plots": len(glob.glob(os.path.join(d, "*.png")))}
-        if name == "main":
+        if name in ("main", "wide"):
             r = ledger[0]
             row["rel_l2"] = r["L2_error"] / 0.5
             row["reload_rel_l2"], meta = _poisson_checkpoint_rel_l2(r["best_model_path"],
@@ -4482,7 +4877,7 @@ def phase_probe():
 
 
 GROUPS = ("kernels", "wan", "main", "eigen", "ipw3d", "neumann", "eigen1d", "qho2d", "kh",
-          "subspace", "floquet", "cli", "parallel", "probe", "timing", "precision")
+          "subspace", "floquet", "cli", "parallel", "probe", "timing", "precision", "wide")
 # groups that run only when named
 NAMED = ("sweep", "mma_sweep", "mma_depth", "devw_sweep", "full", "subspace_full",
          "floquet_full", "subspace_seeds")
@@ -4593,6 +4988,12 @@ def main():
         raise SystemExit(f"{', '.join(missed)}: a row missed its ACCEPTANCE.json target (above)")
     if "precision" in want:
         launches.update(phase_precision_path())
+    wide_launches = {}
+    if "wide" in want:
+        for kind, err in phase_wide_kernels(dev).items():
+            max_err[kind] = max(max_err.get(kind, 0.0), err)
+        wide_launches = phase_wide_path()
+        phase_wide_timing(dev)
     rows = wan_rows = eigen_rows = prec_rows = []
     if "timing" in want:
         rows = phase_timing(dev, only)
@@ -4654,8 +5055,16 @@ def main():
             "max_abs_err": max_err[kind], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
         })
+    # the launches of the width-200 paths (phase wide_path), beside each
+    # kernel's own path's
+    for k in kernels:
+        if k["name"] in wide_launches:
+            k["launches_wide"] = wide_launches[k["name"]]
     if len(kernels) != 16 or not all(k["launches"] > 0 for k in kernels):
         raise SystemExit("a kernel of the paths was launched no time on its path")
+    if set(wide_launches) != set(PRECISION_REPLACES) | {"multi_sums", "multi_seeded"} or not all(
+            wide_launches.values()):
+        raise SystemExit("a kernel of the width-200 paths was launched no time there")
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -57,10 +57,18 @@
 // split at fragment load) were right to 6e-6 on the card but 16-26% slower
 // at these tile sizes, and their registers cost a resident block.
 //
+// Widths.  Every hidden width to 256, as the core takes.  One wmax^2 staging
+// matrix is 256 KB at width 256, more than a block gets: where no tier with
+// the weights on chip fits even at 4 points, the plan takes the core's
+// DEV_WEIGHTS tier (the kernels' _devw variants, no fold, two blocks per
+// SM): the products read a padded copy of the hidden weights (pass B: and
+// their transposes) in the resident layout from device memory, through the
+// caches.  The products stay fp32 FFMA and the sums stay double.
+//
 // Shared memory per block, floats (smem_floats): block-end sums 2-6 NT;
 // 2 (pass A) or 3 (pass B) stream buffers of (d+1)*T*wmax; the resident
-// weights sum wp[k]*wp[k+1] (twice in pass B) or one wmax^2 staging
-// matrix; pass B's gradient row P+1; the coefficient tile T*(Kb*(d+4)|1);
+// weights sum wp[k]*wp[k+1] (twice in pass B), one wmax^2 staging matrix,
+// or none (DEV_WEIGHTS); pass B's gradient row P+1; the coefficient tile T*(Kb*(d+4)|1);
 // and ~(3d+6)*T + NT + 3 Kb of small vectors.  2-50-50-50-50-1 pass B at
 // T = 24 staged: 69 KB, three blocks per SM; with weights, transposes and
 // gradient row resident it would take 151 KB and one block.
@@ -82,7 +90,6 @@ using namespace fwdlap;
 namespace {
 
 constexpr int MAX_BUMPS = 42;   // the cap of the JAX package (3 Kb <= 128)
-constexpr int MULTI_MAX_WIDTH = 128;   // hidden width the pair takes (ROADMAP.md B6)
 
 struct MArgs {
   Net net;
@@ -92,6 +99,8 @@ struct MArgs {
   const float* scal;          // pass B seeds (3 Kb)
   float* partial;             // (G, row): sums (3 Kb), or [grads (P) | sum ct_v]
   float* scratch;             // (G, K-2, S, T, wmax), pass B's saved stages
+  const float* wd;            // DEV_WEIGHTS: the padded hidden weights (pass B:
+                              // then their transposes), the resident layout
   int N, T, n_tiles, row, Kb, flags;
 };
 
@@ -102,14 +111,15 @@ __host__ __device__ inline int smem_floats(const Net& net, int seeded, int T, in
   const int d = net.d, S = net.S, ld = net.wmax, stage = S * T * ld;
   const int hid = hidden_floats(net), row = seeded ? net.P + 1 : 3 * Kb;
   int n = (seeded ? 2 : 6) * NT + (seeded ? 3 : 2) * stage;
-  n += (flags & RES_WEIGHTS) ? hid : ld * ld;
+  n += (flags & DEV_WEIGHTS) ? 0 : (flags & RES_WEIGHTS) ? hid : ld * ld;
   if (seeded && (flags & RES_WEIGHTS)) n += hid;
   if (seeded && (flags & RES_GRAD)) n += (row + 3) & ~3;
   n += T * coef_stride(Kb * (d + 4)) + T * d + (d + 2) * T + S * T + NT + 3 * Kb;
   return n;
 }
 
-template <bool SEEDED, bool FOLD>
+// DEVW: the hidden weights read from A.wd (Flags::DEV_WEIGHTS).
+template <bool SEEDED, bool FOLD, bool DEVW = false>
 __device__ void multibump_body(const MArgs& A) {
   extern __shared__ __align__(16) float smem[];
   const Net& net = A.net;
@@ -125,7 +135,7 @@ __device__ void multibump_body(const MArgs& A) {
   float* at = bufB + (SEEDED ? 2 : 1) * stage;
   Resident res;
   float* Wsh = at;                        // resident W_k, or one layer's
-  at += res_w ? hid : ld * ld;
+  at += DEVW ? 0 : res_w ? hid : ld * ld;
   float* Wt = nullptr;
   if (SEEDED && res_w) {
     Wt = at;
@@ -148,7 +158,10 @@ __device__ void multibump_body(const MArgs& A) {
   float* scratch =
       SEEDED ? A.scratch + (size_t)blockIdx.x * (net.K - 2) * stage : nullptr;
 
-  if (res_w) {
+  if constexpr (DEVW) {
+    res.W = A.wd;
+    res.Wt = SEEDED ? A.wd + hid : nullptr;
+  } else if (res_w) {
     stage_resident(net, A.params, Wsh, Wt);
     res.W = Wsh;
     res.Wt = Wt;
@@ -259,12 +272,22 @@ template <bool FOLD>
 __global__ void __launch_bounds__(NT, 3) multi_seeded_kernel(MArgs a) {
   multibump_body<true, FOLD>(a);
 }
+// The weights from device memory (DEV_WEIGHTS), without the fold, at two
+// blocks per SM: the plan of a net whose weights do not fit shared memory
+// beside a tile.
+__global__ void __launch_bounds__(NT, 2) multi_sums_devw(MArgs a) {
+  multibump_body<false, false, true>(a);
+}
+__global__ void __launch_bounds__(NT, 2) multi_seeded_devw(MArgs a) {
+  multibump_body<true, false, true>(a);
+}
 
 namespace {
 
 typedef void (*MKernelFn)(MArgs);
 
-MKernelFn mkernel_for(int seeded, int fold) {
+MKernelFn mkernel_for(int seeded, int fold, int flags) {
+  if (flags & DEV_WEIGHTS) return fold ? nullptr : seeded ? multi_seeded_devw : multi_sums_devw;
   if (seeded) return fold ? multi_seeded_kernel<true> : multi_seeded_kernel<false>;
   return fold ? multi_sums_kernel<true> : multi_sums_kernel<false>;
 }
@@ -303,15 +326,20 @@ extern "C" {
 // products' epilogues.  partial (G, row) and out (row) with row = 3
 // n_bumps or P+1; scratch (G, K-2, d+1, T, wmax) for pass B on a net with
 // more than one hidden layer (else may be null).  smem_bytes must hold the
-// layout of multibump_body for (T, flags).
+// layout of multibump_body for (T, flags).  wd: with DEV_WEIGHTS the hidden
+// weights (pass B: then their transposes), each rounded up to multiples of
+// 4 with zeros, back to back (the resident layout), else ignored.
 int fused_multibump_f32(int seeded, int n_bumps, const float* X, const float* coef,
                         const float* params, const float* scal, const int* layers,
                         int n_layers, int act, int N, int T, int G, int flags, int fold,
                         float* partial, float* scratch, float* out, int smem_bytes,
-                        void* stream) {
+                        void* stream, const float* wd) {
   MArgs a;
-  if (n_bumps < 1 || n_bumps > MAX_BUMPS || !make_net(0, layers, n_layers, act, &a.net) ||
-      a.net.wmax > MULTI_MAX_WIDTH || N < 1 || T < 4 || T % 4 != 0 || T > NT / 2 || G < 1 || flags < 0 || flags > 7 ||
+  MKernelFn fn = mkernel_for(seeded, fold, flags);
+  if (fn == nullptr || n_bumps < 1 || n_bumps > MAX_BUMPS ||
+      !make_net(0, layers, n_layers, act, &a.net) || N < 1 || T < 4 || T % 4 != 0 ||
+      T > NT / 2 || G < 1 || flags < 0 || flags > 15 ||
+      ((flags & DEV_WEIGHTS) && ((flags & RES_WEIGHTS) || (a.net.K > 2 && wd == nullptr))) ||
       (fold && a.net.S > 4) ||
       (seeded && a.net.K > 2 && scratch == nullptr) ||
       4 * smem_floats(a.net, seeded, T, n_bumps, flags) > smem_bytes)
@@ -328,7 +356,7 @@ int fused_multibump_f32(int seeded, int n_bumps, const float* X, const float* co
   a.Kb = n_bumps;
   a.flags = flags;
   a.row = seeded ? a.net.P + 1 : 3 * n_bumps;
-  MKernelFn fn = mkernel_for(seeded, fold);
+  a.wd = wd;
   cudaError_t err = ensure_smem((const void*)fn, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
@@ -338,10 +366,12 @@ int fused_multibump_f32(int seeded, int n_bumps, const float* X, const float* co
   return (int)reduce_rows(partial, G, a.row, out, s);
 }
 
-// Resident blocks per SM for a pass and variant at a dynamic shared-memory
-// size.
-int fused_multibump_blocks_per_sm(int seeded, int fold, int smem_bytes, int* blocks) {
-  MKernelFn fn = mkernel_for(seeded, fold);
+// Resident blocks per SM for a pass and variant (fold; flags: DEV_WEIGHTS
+// or not) at a dynamic shared-memory size.
+int fused_multibump_blocks_per_sm(int seeded, int fold, int flags, int smem_bytes,
+                                  int* blocks) {
+  MKernelFn fn = mkernel_for(seeded, fold, flags);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = ensure_smem((const void*)fn, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, NT, smem_bytes);
@@ -352,7 +382,7 @@ int fused_multibump_blocks_per_sm(int seeded, int fold, int smem_bytes, int* blo
 int fused_multibump_smem_bytes(int seeded, int n_bumps, const int* layers, int n_layers,
                                int T, int flags) {
   Net net;
-  if (!make_net(0, layers, n_layers, 0, &net) || net.wmax > MULTI_MAX_WIDTH) return -1;
+  if (!make_net(0, layers, n_layers, 0, &net)) return -1;
   return 4 * smem_floats(net, seeded, T, n_bumps, flags);
 }
 

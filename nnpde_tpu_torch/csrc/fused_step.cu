@@ -281,10 +281,12 @@ __global__ void __launch_bounds__(NT, 2) fused_drm_energy_planned(PArgs a) {
 // the tensor-core design at two blocks per SM (the plan counts on them; a
 // third block's 85-register budget spills, chip_smoke.py mma_sweep)
 // (fwdlap_mma.cuh's body: the loss terms form the cotangents)
-template <int MODE>
+// (WIDE: the variant for widths above 128 or the weights or sums in device
+// memory)
+template <int MODE, bool WIDE>
 __global__ void __launch_bounds__(NT, 2) fused_mma_kernel(PArgs a) {
-  mma::body<mma::KIND_FUSED>(a, [&](int base, const float* proj, const float* xs, float* ct,
-                                    float* ps, float* grow) {
+  mma::body<mma::KIND_FUSED, WIDE>(
+      a, [&](int base, const float* proj, const float* xs, float* ct, float* ps, float* grow) {
     point_terms<MODE>(a, a.T, base, proj, xs, ct, ps, grow);
   });
 }
@@ -355,13 +357,18 @@ PKernelFn planned_for(int mode, int fold, int des) {
 }
 
 // The kernel of a variant, as the pointer the occupancy calls take: the
-// bf16-dot mode runs the tensor-core design (des has DES_MMA), and only it;
-// fp32 a planned design.
+// bf16-dot mode runs the tensor-core design (des DES_MMA, with DES_WIDE its
+// wide variant), and only it; fp32 a planned design.
 const void* variant_fn(int mode, int fold, int bf16, int des) {
   if (bf16) {
-    if (des != DES_MMA || fold) return nullptr;
-    if (mode == MODE_LINEAR) return (const void*)fused_mma_kernel<MODE_LINEAR>;
-    if (mode == MODE_ANALYTIC) return (const void*)fused_mma_kernel<MODE_ANALYTIC>;
+    if ((des & ~mma::DES_WIDE) != DES_MMA || fold) return nullptr;
+    const bool wide = (des & mma::DES_WIDE) != 0;
+    if (mode == MODE_LINEAR)
+      return wide ? (const void*)fused_mma_kernel<MODE_LINEAR, true>
+                  : (const void*)fused_mma_kernel<MODE_LINEAR, false>;
+    if (mode == MODE_ANALYTIC)
+      return wide ? (const void*)fused_mma_kernel<MODE_ANALYTIC, true>
+                  : (const void*)fused_mma_kernel<MODE_ANALYTIC, false>;
     return nullptr;
   }
   return (const void*)planned_for(mode, fold, des);
@@ -374,15 +381,16 @@ int launch(int mode, const float* X, const float* coef, const float* params,
   PArgs a;
   const void* fn = variant_fn(mode, fold, bf16, des);
   bool ok = fn != nullptr && make_net(mode == MODE_DRM ? 0 : 1, layers, n_layers, act, &a.net) &&
-            N >= 1 && G >= 1 && flags >= 0 && flags <= 15 &&
-            ((flags & DEV_WEIGHTS) != 0) == ((des & DES_DEVW) != 0) &&
-            !((flags & DEV_WEIGHTS) && (flags & RES_WEIGHTS));
+            N >= 1 && G >= 1;
   if (ok && (des & DES_MMA)) {
     mma::Geo g;
-    ok = mma::make_geo(a.net, T, &g) && scratch != nullptr &&
-         mma::layout(a.net, g, flags).total <= smem_bytes;
+    ok = mma::flags_ok(flags, mma::KIND_FUSED) && mma::make_geo(a.net, T, &g) &&
+         scratch != nullptr && mma::layout(a.net, g, flags).total <= smem_bytes &&
+         (!mma::needs_wide(a.net, flags) || (des & mma::DES_WIDE));
   } else if (ok) {
-    ok = T >= 4 && T % 4 == 0 && T <= NT / 2 && !(fold && a.net.S > 4) &&
+    ok = flags >= 0 && flags <= 15 && ((flags & DEV_WEIGHTS) != 0) == ((des & DES_DEVW) != 0) &&
+         !((flags & DEV_WEIGHTS) && (flags & RES_WEIGHTS)) &&
+         T >= 4 && T % 4 == 0 && T <= NT / 2 && !(fold && a.net.S > 4) &&
          !(a.net.K > 2 && (scratch == nullptr || wt == nullptr)) &&
          4 * fused_smem_floats(a.net, T, flags) <= smem_bytes;
   }
@@ -427,8 +435,11 @@ extern "C" {
 
 // fold: the variant with the activation in the products' epilogues (nets
 // with at most 4 streams; a planned design); bf16: the bf16-dot mode, which
-// runs the tensor-core design (des == DES_MMA) and only it; des: the design
-// (fwdlap_planned.cuh, Design; DES_MMA, fwdlap_mma.cuh); flags: the plan's
+// runs the tensor-core design (des DES_MMA, with DES_WIDE where
+// mma::needs_wide) and only it; des: the design (fwdlap_planned.cuh,
+// Design; DES_MMA, fwdlap_mma.cuh; the tensor-core design's flags may add
+// DEV_WEIGHTS and DEV_SUMS, the latter with the sums in scratch,
+// mma::scratch_floats with the flags); flags: the plan's
 // Flags.  smem_bytes must hold the layout for (T, flags).  params: the flat
 // [W0, b0, W1, b1, ...]; wt: the hidden weights' transposes W_1^T, ...,
 // W_{K-2}^T (true sizes, row-major, back to back), read by a planned design
@@ -499,7 +510,7 @@ int fused_mma_scratch_floats(int mode, const int* layers, int n_layers, int T) {
   Net net;
   mma::Geo g;
   if (!mma_net(mode, layers, n_layers, T, &net, &g)) return -1;
-  return (int)mma::scratch_floats(net, g);
+  return (int)mma::scratch_floats(net, g, mma::KIND_FUSED);
 }
 
 }  // extern "C"

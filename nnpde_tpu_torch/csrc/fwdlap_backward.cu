@@ -139,8 +139,10 @@ __global__ void __launch_bounds__(NT, 2) fwdlap_backward_planned(PBwdArgs A) {
 // The tensor-core design (fwdlap_mma.cuh, DES_MMA) of the bf16-dot mode at
 // two blocks per SM (its plan counts on them, so the register budget is
 // stated).
+template <bool WIDE>
 __global__ void __launch_bounds__(NT, 2) fwdlap_backward_mma(mma::JetArgs a) {
-  mma::body<mma::KIND_BWD>(a, [](int, const float*, const float*, float*, float*, float*) {});
+  mma::body<mma::KIND_BWD, WIDE>(
+      a, [](int, const float*, const float*, float*, float*, float*) {});
 }
 
 namespace {
@@ -160,9 +162,14 @@ PBwdKernelFn planned_by(int des) {
 }
 
 // The kernel of a variant: the bf16-dot mode runs the tensor-core design
-// (des == DES_MMA, no fold) and only it; fp32 a planned design.
+// (des DES_MMA, with DES_WIDE its wide variant; no fold) and only it; fp32
+// a planned design.
 const void* bwd_variant_fn(int fold, int bf16, int des) {
-  if (bf16) return des == DES_MMA && !fold ? (const void*)fwdlap_backward_mma : nullptr;
+  if (bf16) {
+    if (fold) return nullptr;
+    if (des == DES_MMA) return (const void*)fwdlap_backward_mma<false>;
+    return des == (DES_MMA | mma::DES_WIDE) ? (const void*)fwdlap_backward_mma<true> : nullptr;
+  }
   return fold ? (const void*)planned_by<true>(des) : (const void*)planned_by<false>(des);
 }
 
@@ -179,8 +186,11 @@ extern "C" {
 // ..., dW_last, 0] (the last bias's slot is left zero).  T points per tile,
 // G blocks; fold: the variant with the activation in the products'
 // epilogues (nets with at most 4 streams; a planned design); bf16: the
-// bf16-dot mode, which runs the tensor-core design (des == DES_MMA) and
-// only it; des: the design (fwdlap_planned.cuh's Design, or DES_MMA);
+// bf16-dot mode, which runs the tensor-core design (des DES_MMA, with
+// DES_WIDE where mma::needs_wide) and only it; des: the design
+// (fwdlap_planned.cuh's Design, or the tensor-core one; its flags may add
+// DEV_WEIGHTS and DEV_SUMS, the latter with fwdlap_mma.cuh's sums in
+// scratch, mma::scratch_floats with the flags);
 // flags: the plan's Flags.  smem_bytes must hold the kernel's layout for
 // (T, flags).  scratch: the saved stages, (G, K-2, d+2, T, wmax) floats in
 // a planned design, (G, fwdlap_backward_mma_scratch_floats) in the
@@ -195,16 +205,17 @@ int fwdlap_backward_f32(const float* X, const float* ct, const float* params,
                         float* scratch, float* out, int smem_bytes, void* stream) {
   PBwdArgs a;
   const void* fn = bwd_variant_fn(fold, bf16, des);
-  bool ok = fn != nullptr && make_net(1, layers, n_layers, act, &a.net) && N >= 1 &&
-            G >= 1 && flags >= 0 && flags <= 15 &&
-            ((flags & DEV_WEIGHTS) != 0) == ((des & DES_DEVW) != 0) &&
-            !((flags & DEV_WEIGHTS) && (flags & RES_WEIGHTS));
-  if (ok && des == DES_MMA) {
+  bool ok = fn != nullptr && make_net(1, layers, n_layers, act, &a.net) && N >= 1 && G >= 1;
+  const bool mma_des = bf16 != 0;     // (bwd_variant_fn took it: DES_MMA, maybe DES_WIDE)
+  if (ok && mma_des) {
     mma::Geo g;
-    ok = mma::make_geo(a.net, T, &g) && scratch != nullptr &&
-         mma::layout(a.net, g, flags, mma::KIND_BWD).total <= smem_bytes;
+    ok = mma::flags_ok(flags, mma::KIND_BWD) && mma::make_geo(a.net, T, &g) &&
+         scratch != nullptr && mma::layout(a.net, g, flags, mma::KIND_BWD).total <= smem_bytes &&
+         (!mma::needs_wide(a.net, flags) || (des & mma::DES_WIDE));
   } else if (ok) {
-    ok = T >= 4 && T % 4 == 0 && T <= NT / 2 && !(fold && a.net.S > 4) &&
+    ok = flags >= 0 && flags <= 15 && ((flags & DEV_WEIGHTS) != 0) == ((des & DES_DEVW) != 0) &&
+         !((flags & DEV_WEIGHTS) && (flags & RES_WEIGHTS)) &&
+         T >= 4 && T % 4 == 0 && T <= NT / 2 && !(fold && a.net.S > 4) &&
          !(a.net.K > 2 && (scratch == nullptr || wt == nullptr)) &&
          4 * bwd_smem_floats(a.net, T, flags) <= smem_bytes;
   }
@@ -222,7 +233,7 @@ int fwdlap_backward_f32(const float* X, const float* ct, const float* params,
   cudaError_t err = ensure_smem(fn, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  if (des == DES_MMA) {
+  if (mma_des) {
     mma::JetArgs m;
     m.net = a.net;
     m.X = X;
@@ -236,7 +247,7 @@ int fwdlap_backward_f32(const float* X, const float* ct, const float* params,
     m.n_tiles = a.n_tiles;
     m.row = a.net.P;
     m.flags = flags;
-    fwdlap_backward_mma<<<G, NT, smem_bytes, s>>>(m);
+    ((void (*)(mma::JetArgs))fn)<<<G, NT, smem_bytes, s>>>(m);
   } else {
     ((PBwdKernelFn)fn)<<<G, NT, smem_bytes, s>>>(a);
   }

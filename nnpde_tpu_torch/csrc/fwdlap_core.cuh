@@ -117,7 +117,11 @@ enum Flags {
   RES_GRAD = 4,      // pass B: the block's gradient row
   DEV_WEIGHTS = 8,   // no weights in shared memory: the products read the
                      // hidden weights (and transposes) from device memory,
-                     // a padded copy in the resident layout (design DES_DEVW)
+                     // a padded copy in the resident layout (design DES_DEVW;
+                     // the tensor-core design and the K-bump pair: the
+                     // weights as they are, fwdlap_mma.cuh, fused_multibump.cu)
+  DEV_SUMS = 16,     // the tensor-core design: the projection partials and the
+                     // column sums in device scratch (fwdlap_mma.cuh)
 };
 
 // What a kernel keeps in shared memory for the block's whole life, where the

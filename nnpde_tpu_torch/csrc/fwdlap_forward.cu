@@ -139,10 +139,12 @@ __global__ void __launch_bounds__(NT, MINB) fwdlap_forward_planned(FwdArgs A) {
 }
 
 // The tensor-core design (fwdlap_mma.cuh, DES_MMA) of the bf16-dot mode:
-// MINB, the blocks per SM its plan counts on (the register budget).
-template <int MINB>
+// MINB, the blocks per SM its plan counts on (the register budget); WIDE,
+// the variant for widths above 128 or the weights in device memory.
+template <int MINB, bool WIDE>
 __global__ void __launch_bounds__(NT, MINB) fwdlap_forward_mma(mma::JetArgs a) {
-  mma::body<mma::KIND_FWD>(a, [](int, const float*, const float*, float*, float*, float*) {});
+  mma::body<mma::KIND_FWD, WIDE>(
+      a, [](int, const float*, const float*, float*, float*, float*) {});
 }
 
 namespace {
@@ -176,15 +178,19 @@ const void* planned_fn(int fold, int des, int minb) {
 }
 
 // The kernel of a variant: the row kernel's bf16-dot mode the tensor-core
-// design (des == DES_MMA, no fold) and only it; fp32, in either layout, a
-// planned design (fwdlap_planned.cuh's Design); both at the register budget
+// design (des DES_MMA, with DES_WIDE its wide variant; no fold) and only
+// it; fp32, in either layout, a planned design (fwdlap_planned.cuh's
+// Design); both at the register budget
 // of minb blocks per SM (2 or 3).  The stream-major layout has no bf16-dot
 // mode.
 const void* fwd_variant_fn(int streams, int fold, int bf16, int des, int minb) {
   if (bf16) {
-    if (streams || des != DES_MMA || fold) return nullptr;
-    return minb == 2 ? (const void*)fwdlap_forward_mma<2>
-                     : minb == 3 ? (const void*)fwdlap_forward_mma<3> : nullptr;
+    if (streams || (des & ~mma::DES_WIDE) != DES_MMA || fold) return nullptr;
+    if (des & mma::DES_WIDE)
+      return minb == 2 ? (const void*)fwdlap_forward_mma<2, true>
+                       : minb == 3 ? (const void*)fwdlap_forward_mma<3, true> : nullptr;
+    return minb == 2 ? (const void*)fwdlap_forward_mma<2, false>
+                     : minb == 3 ? (const void*)fwdlap_forward_mma<3, false> : nullptr;
   }
   return streams ? planned_fn<true>(fold, des, minb) : planned_fn<false>(fold, des, minb);
 }
@@ -196,10 +202,11 @@ extern "C" {
 // X (N, d), params flat; out (N, d+2), or (d+2, N) with streams != 0.  T
 // points per tile, G blocks; fold: the variant with the activation in the
 // products' epilogues (nets with at most 4 streams); bf16: the row
-// kernel's bf16-dot mode, which runs the tensor-core design (des ==
-// DES_MMA) and only it; des: the design (a planned design in fp32, in
-// either layout, or DES_MMA); flags: the plan's Flags (RES_WEIGHTS,
-// DEV_WEIGHTS with DES_DEVW, or 0); minb: the register budget in blocks per
+// kernel's bf16-dot mode, which runs the tensor-core design (des DES_MMA,
+// with DES_WIDE where mma::needs_wide) and only it; des: the design (a
+// planned design in fp32, in either layout, or the tensor-core one); flags:
+// the plan's Flags (RES_WEIGHTS, DEV_WEIGHTS with DES_DEVW or with the
+// tensor-core design's DES_WIDE, or 0); minb: the register budget in blocks per
 // SM, its plan's.  smem_bytes must hold the kernel's layout for (T, flags).
 // wd: with DES_DEVW the hidden weights, each rounded up to multiples of 4
 // with zeros, back to back (the resident layout), else ignored.
@@ -210,16 +217,16 @@ int fwdlap_forward_f32(int streams, const float* X, const float* params,
   FwdArgs a;
   const void* fn = fwd_variant_fn(streams, fold, bf16, des, minb);
   const bool devw = (des & DES_DEVW) != 0;
-  bool ok = fn != nullptr && make_net(1, layers, n_layers, act, &a.net) && N >= 1 && G >= 1 &&
-            (flags == 0 || flags == (devw ? DEV_WEIGHTS : RES_WEIGHTS)) &&
-            devw == ((flags & DEV_WEIGHTS) != 0);
-  ok = ok && !(devw && a.net.K > 2 && wd == nullptr);
-  if (ok && des == DES_MMA) {
+  bool ok = fn != nullptr && make_net(1, layers, n_layers, act, &a.net) && N >= 1 && G >= 1;
+  if (ok && bf16) {      // (fwd_variant_fn took des: DES_MMA, maybe DES_WIDE)
     mma::Geo g;
-    ok = mma::make_geo(a.net, T, &g) &&
-         mma::layout(a.net, g, flags, mma::KIND_FWD).total <= smem_bytes;
+    ok = mma::flags_ok(flags, mma::KIND_FWD) && mma::make_geo(a.net, T, &g) &&
+         mma::layout(a.net, g, flags, mma::KIND_FWD).total <= smem_bytes &&
+         (!mma::needs_wide(a.net, flags) || (des & mma::DES_WIDE));
   } else if (ok) {
-    ok = T >= 4 && T % 4 == 0 && T <= NT / 2 && !(fold && a.net.S > 4) &&
+    ok = (flags == 0 || flags == (devw ? DEV_WEIGHTS : RES_WEIGHTS)) &&
+         devw == ((flags & DEV_WEIGHTS) != 0) && !(devw && a.net.K > 2 && wd == nullptr) &&
+         T >= 4 && T % 4 == 0 && T <= NT / 2 && !(fold && a.net.S > 4) &&
          4 * fwd_smem_floats(a.net, T, flags) <= smem_bytes;
   }
   if (!ok) return (int)cudaErrorInvalidValue;
@@ -234,7 +241,7 @@ int fwdlap_forward_f32(int streams, const float* X, const float* params,
   cudaError_t err = ensure_smem(fn, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  if (des == DES_MMA) {
+  if (bf16) {
     mma::JetArgs m;
     m.net = a.net;
     m.X = X;

@@ -58,6 +58,26 @@
 // W_k bf16 for the block's life; RES_GRAD, the fused kernels and the jet
 // backward: the block's gradient row, whose hidden dW then accumulates in
 // fragment order, dw_product); chip_smoke.py mma_sweep measures each.
+//
+// Widths to 256.  A 256-wide W_k is 135 KB in bf16, and three stages of 18
+// streams at T = 8 are 228 KB: beside the stages of a wide net there may be
+// no room for a weight matrix, and at large d none for the column sums.  So
+// two tiers more: DEV_WEIGHTS builds each B fragment from the fp32 W_k in
+// device memory (through the caches), rounded to bf16 as stage_w rounds,
+// with no copy on chip; DEV_SUMS keeps the projection partials and the
+// column sums in the block's slice of device scratch after its saved
+// stages.  Both give the same bits as the tiers on chip (the same
+// roundings, the same sums in the same order).  Two variants of every
+// kernel (body's WIDE, design bit DES_WIDE): the narrow one holds a warp
+// block's B fragments of every k-step (KS_REG, widths to 128) in registers
+// across its stream tiles, read once from shared memory; the wide one
+// (widths above 128, DEV_WEIGHTS or DEV_SUMS) runs the k-steps in a rolled
+// loop and fetches each B fragment at its k-step, once for a chunk of
+// UC_FWD stream tiles in the forward products (keeping the chunk's
+// accumulators) and once per tile in the reverse sweep's, so that neither
+// variant's registers grow with the width (holding 16 k-steps spilled
+// 0.5-1 KB per thread, PERF.md).  Only the wide variant may keep its sums
+// in device memory: the narrow one's stay shared-memory accesses.
 // Built, measured and taken out (PERF.md): the A operands read as fp32 and
 // converted in the fragment (cvt.rn.bf16x2.f32) instead of ldmatrix of the
 // bf16 stages, dW fragments in registers across the block's tiles, two
@@ -97,8 +117,13 @@ enum Kind {
 };
 
 constexpr int NW = NT / 32;                  // warps per block
-constexpr int MMA_MAX_WIDTH = 128;           // hidden width the design takes
+constexpr int MMA_MAX_WIDTH = 256;           // hidden width the design takes
 constexpr int KS_MAX = MMA_MAX_WIDTH / 16;   // k-steps of the widest product
+constexpr int KS_REG = 8;                    // k-steps whose B fragments the
+                                             // narrow variant holds in registers
+
+// The design bit of the wide variant (beside DES_MMA).
+enum MmaVariant { DES_WIDE = 16 };
 
 __host__ __device__ inline int kp16(int w) { return (w + 15) & ~15; }
 __host__ __device__ inline int np8(int w) { return (w + 7) & ~7; }
@@ -154,8 +179,34 @@ __host__ __device__ inline int row_floats(const Net& net, int kind) {
   return kind == KIND_FUSED ? net.P + 3 : kind == KIND_BWD ? net.P : 0;
 }
 
+// Whether a launch needs the wide variant (DES_WIDE): a hidden width above
+// the narrow variant's KS_REG k-steps, or the weights or the sums in device
+// memory.
+__host__ __device__ inline bool needs_wide(const Net& net, int flags) {
+  int wt = 0;
+  for (int k = 1; k < net.K; ++k) wt = net.w[k] > wt ? net.w[k] : wt;
+  return wt > KS_REG * 16 || (flags & (DEV_WEIGHTS | DEV_SUMS)) != 0;
+}
+
+// The tiers' flags a kind takes: no weights both resident and in device
+// memory; the jet forward keeps no gradient row and no sums off chip.
+__host__ __device__ inline bool flags_ok(int flags, int kind) {
+  const int any = kind == KIND_FWD ? RES_WEIGHTS | DEV_WEIGHTS
+                                   : RES_WEIGHTS | RES_GRAD | DEV_WEIGHTS | DEV_SUMS;
+  return (flags & ~any) == 0 && !((flags & RES_WEIGHTS) && (flags & DEV_WEIGHTS));
+}
+
+// Floats of the projection partials (not in the jet backward) and of the
+// column sums (not in the jet forward).
+__host__ __device__ inline int red_floats(const Geo& g, int kind) {
+  return kind != KIND_BWD ? rnd4(g.nbmax * g.ST) : 0;
+}
+__host__ __device__ inline int red2_floats(const Geo& g, int kind) {
+  return kind != KIND_FWD ? rnd4(g.NPB * g.S * g.wq) : 0;
+}
+
 // Byte offsets of a block's shared memory (every region 16-byte aligned;
-// a region the kind does not use is empty).  Mirrored by
+// a region the kind or the tier does not keep there is empty).  Mirrored by
 // kernels/fused_step.py::mma_smem_bytes.
 struct Layout {
   int bufs, w, gacc, red, red2, xs, ct, ps, proj, total;
@@ -164,13 +215,14 @@ struct Layout {
 __host__ __device__ inline Layout layout(const Net& net, const Geo& g, int flags,
                                          int kind = KIND_FUSED) {
   const bool rev = kind != KIND_FWD, proj = kind != KIND_BWD;
+  const bool on_chip = !(flags & DEV_SUMS);
   Layout L;
   int o = 0;
   L.bufs = o;
   o += (rev ? 3 : 2) * g.ST * g.ldb * 2;               // bf16 stages
   L.w = o;
   int wb = 0;
-  for (int k = 1; k < net.K - 1; ++k) {
+  for (int k = 1; k < net.K - 1 && !(flags & DEV_WEIGHTS); ++k) {
     const int b = wbytes(net, k);
     wb = (flags & RES_WEIGHTS) ? wb + b : (b > wb ? b : wb);
   }
@@ -178,9 +230,9 @@ __host__ __device__ inline Layout layout(const Net& net, const Geo& g, int flags
   L.gacc = o;
   if (rev && (flags & RES_GRAD)) o += 4 * rnd4(row_floats(net, kind));
   L.red = o;                                           // projection partials
-  if (proj) o += 4 * rnd4(g.nbmax * g.ST);
+  if (on_chip) o += 4 * red_floats(g, kind);
   L.red2 = o;                                          // column sums
-  if (rev) o += 4 * rnd4(g.NPB * g.S * g.wq);
+  if (on_chip) o += 4 * red2_floats(g, kind);
   L.xs = o;
   o += 4 * rnd4(g.T * net.d);
   L.ct = o;
@@ -196,9 +248,16 @@ __host__ __device__ inline Layout layout(const Net& net, const Geo& g, int flags
 // Saved-stage floats of one block in device memory: K-1 stages of nblk warp
 // blocks, each NU stream tiles and the q tile of 32 float4s (none in the
 // jet forward, which saves nothing).
-__host__ __device__ inline long scratch_floats(const Net& net, const Geo& g,
-                                               int kind = KIND_FUSED) {
+__host__ __device__ inline long saved_floats(const Net& net, const Geo& g, int kind) {
   return kind == KIND_FWD ? 0 : (long)(net.K - 1) * g.nblk * (g.NU + 1) * 128;
+}
+
+// Floats of one block's slice of device scratch: the saved stages, then
+// (DEV_SUMS) the projection partials and the column sums.
+__host__ __device__ inline long scratch_floats(const Net& net, const Geo& g,
+                                               int kind = KIND_FUSED, int flags = 0) {
+  return saved_floats(net, g, kind) +
+         ((flags & DEV_SUMS) ? red_floats(g, kind) + red2_floats(g, kind) : 0);
 }
 
 // ---------------------------------------------------------------- PTX
@@ -284,6 +343,128 @@ __device__ __forceinline__ void stage_w(const float* __restrict__ W, int wi, int
     const float a = row && j < wo ? W[i * wo + j] : 0.f;
     const float b = row && j + 1 < wo ? W[i * wo + j + 1] : 0.f;
     *reinterpret_cast<uint32_t*>(dst + i * ldw + j) = pack_bf16(a, b);
+  }
+}
+
+// Where a product reads W_k (wi x wo): the bf16 copy in shared memory
+// (sm, rows of ldw), or (dev, DEV_WEIGHTS) the fp32 W_k in device memory.
+struct WSrc {
+  const __nv_bfloat16* sm;
+  int ldw;
+  const float* dev;
+  int wi, wo;
+};
+
+// W_k[i][j] of the device copy, zero past (wi, wo) as the staged copy is.
+__device__ __forceinline__ float w_at(const WSrc& w, int i, int j) {
+  return i < w.wi && j < w.wo ? __ldg(w.dev + i * w.wo + j) : 0.f;
+}
+
+// The .col B fragment of k-step ks and n-block n0 of the forward product
+// A W_k: rows k (in) ks*16 + 2t, +1 and +8, +9, column n0 + g (out).
+__device__ __forceinline__ void frag_fwd(uint32_t (&b)[2], const WSrc& w, int ks, int n0) {
+  const int lane = threadIdx.x & 31;
+  if (w.dev) {
+    const int n = n0 + (lane >> 2), k = ks * 16 + 2 * (lane & 3);
+    b[0] = pack_bf16(w_at(w, k, n), w_at(w, k + 1, n));
+    b[1] = pack_bf16(w_at(w, k + 8, n), w_at(w, k + 9, n));
+  } else {
+    ldsm_x2_t(b, w.sm + (ks * 16 + (lane & 15)) * w.ldw + n0);
+  }
+}
+
+// The same for the backward product D W_k^T: k over W_k's columns (out),
+// n over its rows (in).
+__device__ __forceinline__ void frag_bwd(uint32_t (&b)[2], const WSrc& w, int ks, int n0) {
+  const int lane = threadIdx.x & 31;
+  if (w.dev) {
+    const int n = n0 + (lane >> 2), k = ks * 16 + 2 * (lane & 3);
+    b[0] = pack_bf16(w_at(w, n, k), w_at(w, n, k + 1));
+    b[1] = pack_bf16(w_at(w, n, k + 8), w_at(w, n, k + 9));
+  } else {
+    ldsm_x2(b, w.sm + (n0 + (lane & 7)) * w.ldw + ks * 16 + ((lane >> 3) & 1) * 8);
+  }
+}
+
+// c += the rows rb.. of the bf16 stage B times W_k over nks k-steps, the
+// narrow variant's B fragments from bf (held, every k-step).
+__device__ __forceinline__ void product(float (&c)[4], const __nv_bfloat16* B, const Geo& g,
+                                        int rb, const uint32_t (&bf)[KS_REG][2], int nks) {
+#pragma unroll
+  for (int ks = 0; ks < KS_REG; ++ks) {
+    if (ks < nks) {
+      uint32_t a[4];
+      load_a(a, B, g, rb, ks * 16);
+      mma_bf16(c, a, bf[ks]);
+    }
+  }
+}
+
+// The wide variant's products: the forward's stream tiles share each B
+// fragment in chunks of UC_FWD (of a warp block's NU; d = 2 has 4), so a
+// fragment fetched at its k-step serves a chunk of products (on u200 the
+// jet forward in chunks of 2 took 1.27x the time of 4).  The reverse sweep
+// takes one tile at a time: its state (BwdSt) leaves no room for a chunk's
+// accumulators at the two-block budget (chunks of 4 spilled 0.1 KB per
+// thread, of 2 64 B; PERF.md).
+constexpr int UC_FWD = 4;
+
+// c[i] = the rows of stream tile u0 + i (i < nu) of the bf16 stage B times
+// W_k over nks k-steps, each B fragment fetched once for the chunk (FWD:
+// the forward product, frag_fwd; else the backward one, frag_bwd).  Each
+// c[i] sums its k-steps in order, as the narrow variant's c does.
+template <bool FWD, int U>
+__device__ __forceinline__ void wide_products(float (&c)[U][4], const __nv_bfloat16* B,
+                                              const Geo& g, int pb, int u0, int nu, int nks,
+                                              const WSrc& w, int n0) {
+#pragma unroll
+  for (int i = 0; i < U; ++i) c[i][0] = c[i][1] = c[i][2] = c[i][3] = 0.f;
+#pragma unroll 1
+  for (int ks = 0; ks < nks; ++ks) {
+    uint32_t b[2];
+    if (FWD)
+      frag_fwd(b, w, ks, n0);
+    else
+      frag_bwd(b, w, ks, n0);
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      if (i < nu) {
+        uint32_t a[4];
+        load_a(a, B, g, tile_row(g, pb, u0 + i), ks * 16);
+        mma_bf16(c[i], a, b);
+      }
+    }
+  }
+}
+
+// out = c[i] for a rolled loop over the chunk (selects: c stays in registers).
+template <int U>
+__device__ __forceinline__ void pick(float (&out)[4], const float (&c)[U][4], int i) {
+#pragma unroll
+  for (int j = 0; j < U; ++j) {
+    if (j == i) {
+      out[0] = c[j][0];
+      out[1] = c[j][1];
+      out[2] = c[j][2];
+      out[3] = c[j][3];
+    }
+  }
+}
+
+// The narrow variant's held B fragments of a warp block (n-block n0): every
+// k-step, from the bf16 W_k in shared memory.
+template <bool FWD>
+__device__ __forceinline__ void hold_frags(uint32_t (&bf)[KS_REG][2], const WSrc& w, int nks,
+                                           int n0) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int ks = 0; ks < KS_REG; ++ks) {
+    if (ks < nks) {
+      if (FWD)
+        ldsm_x2_t(bf[ks], w.sm + (ks * 16 + (lane & 15)) * w.ldw + n0);
+      else
+        ldsm_x2(bf[ks], w.sm + (n0 + (lane & 7)) * w.ldw + ks * 16 + ((lane >> 3) & 1) * 8);
+    }
   }
 }
 
@@ -413,37 +594,42 @@ __device__ void fwd_input(const Net& net, const Geo& g, const float* __restrict_
 }
 
 // Stage k+1 from stage k (k >= 1): Z = A W_k on the tensor cores, A the bf16
-// stage `ib`, W_k bf16 in shared memory (ldw), then fwd_epi.  Each warp
-// block loads its B fragments for all k once.
-template <bool SAVE, bool PROJ>
+// stage `ib`, W_k from `w` (product), then fwd_epi.  The narrow variant's
+// warp block loads its B fragments once; the wide one's products run in
+// chunks of UC_FWD stream tiles.
+template <bool SAVE, bool PROJ, bool WIDE>
 __device__ void fwd_product(const Net& net, const Geo& g, int k, const __nv_bfloat16* ib,
-                            const __nv_bfloat16* Wk, int ldw, const float* __restrict__ bias,
+                            const WSrc& w, const float* __restrict__ bias,
                             __nv_bfloat16* ob, float4* save_st, bool last,
                             const float* __restrict__ wlast, float* red) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int wn = net.w[k + 1], NB = np8(wn) / 8, nks = kp16(net.w[k]) / 16;
   for (int b = warp; b < g.NPB * NB; b += NW) {
     const int pb = b / NB, nb = b - pb * NB, n0 = nb * 8;
-    uint32_t bf[KS_MAX][2];
-#pragma unroll
-    for (int ks = 0; ks < KS_MAX; ++ks)
-      if (ks < nks) ldsm_x2_t(bf[ks], Wk + (ks * 16 + (lane & 15)) * ldw + n0);
+    uint32_t bf[KS_REG][2];
+    if constexpr (!WIDE) hold_frags<true>(bf, w, nks, n0);
     float bv[2], wl[2];
     unit_consts(n0, wn, bias, PROJ && last, wlast, bv, wl);
     FwdSt st = {};
     float4* save = SAVE ? save_st + (size_t)b * (g.NU + 1) * 32 : nullptr;
-    for (int u = 0; u < g.NU; ++u) {
-      float c[4] = {0.f, 0.f, 0.f, 0.f};
-      const int rb = tile_row(g, pb, u);
-#pragma unroll
-      for (int ks = 0; ks < KS_MAX; ++ks) {
-        if (ks < nks) {
-          uint32_t a[4];
-          load_a(a, ib, g, rb, ks * 16);
-          mma_bf16(c, a, bf[ks]);
+    if constexpr (WIDE) {
+      for (int u0 = 0; u0 < g.NU; u0 += UC_FWD) {
+        const int nu = g.NU - u0 < UC_FWD ? g.NU - u0 : UC_FWD;
+        float cc[UC_FWD][4];
+        wide_products<true>(cc, ib, g, pb, u0, nu, nks, w, n0);
+#pragma unroll 1
+        for (int i = 0; i < nu; ++i) {
+          float c[4];
+          pick(c, cc, i);
+          fwd_epi<SAVE, PROJ>(net, g, pb, nb, u0 + i, c, bv, st, ob, save, last, wl, red);
         }
       }
-      fwd_epi<SAVE, PROJ>(net, g, pb, nb, u, c, bv, st, ob, save, last, wl, red);
+    } else {
+      for (int u = 0; u < g.NU; ++u) {
+        float c[4] = {0.f, 0.f, 0.f, 0.f};
+        product(c, ib, g, tile_row(g, pb, u), bf, nks);
+        fwd_epi<SAVE, PROJ>(net, g, pb, nb, u, c, bv, st, ob, save, last, wl, red);
+      }
     }
     if (SAVE) save_q(g, st, save);
   }
@@ -476,11 +662,13 @@ struct BwdSt {
 };
 
 // The cotangents of the mid streams of stream tile u: rank one at the last
-// stage (ct * wlast), else D_{k+1} W_k^T on the tensor cores.
+// stage (ct * wlast), else D_{k+1} W_k^T on the tensor cores (the narrow
+// variant from its held bf, the wide one by wide_products).
+template <bool WIDE>
 __device__ __forceinline__ void dmid(const Geo& g, bool rank1, int pb, int u,
                                      const float (&wl)[2], const float* __restrict__ ct,
-                                     const __nv_bfloat16* Din, const uint32_t (&bf)[KS_MAX][2],
-                                     int nks, float (&c)[4]) {
+                                     const __nv_bfloat16* Din, const uint32_t (&bf)[KS_REG][2],
+                                     int nks, const WSrc& w, int n0, float (&c)[4]) {
   const int gr = (threadIdx.x & 31) >> 2;
   if (rank1) {
 #pragma unroll
@@ -492,15 +680,16 @@ __device__ __forceinline__ void dmid(const Geo& g, bool rank1, int pb, int u,
     }
     return;
   }
-  c[0] = c[1] = c[2] = c[3] = 0.f;
-  const int rb = tile_row(g, pb, u);
-#pragma unroll
-  for (int ks = 0; ks < KS_MAX; ++ks) {
-    if (ks < nks) {
-      uint32_t a[4];
-      load_a(a, Din, g, rb, ks * 16);
-      mma_bf16(c, a, bf[ks]);
-    }
+  if constexpr (WIDE) {
+    float cc[1][4];
+    wide_products<false>(cc, Din, g, pb, u, 1, nks, w, n0);
+    c[0] = cc[0][0];
+    c[1] = cc[0][1];
+    c[2] = cc[0][2];
+    c[3] = cc[0][3];
+  } else {
+    c[0] = c[1] = c[2] = c[3] = 0.f;
+    product(c, Din, g, tile_row(g, pb, u), bf, nks);
   }
 }
 
@@ -601,7 +790,7 @@ __device__ __forceinline__ void bwd_rest(const Geo& g, BwdSt& st, int pb, int n0
 // of its units (mm_act_bwd's arithmetic, _nl_bwd_pack).  dmid, the
 // cotangent of the stage's mid streams: rank one at the last stage (k =
 // K-1: ct * wlast, `rank1`), else D_{k+1} W_k^T on the tensor cores (A the
-// bf16 stage `Din`, W_k bf16 by ldmatrix).  From the saved frags of the
+// bf16 stage `Din`, W_k from `w`, frag_bwd).  From the saved frags of the
 // stage (`saved_st`) it writes the stage's mid streams (M_k, bf16; not at
 // the last stage) and the cotangents of its pre-activations (D_k, bf16),
 // and the column sums to red2: slot 0 sum_p dv (the db below), at k = 1
@@ -609,8 +798,9 @@ __device__ __forceinline__ void bwd_rest(const Geo& g, BwdSt& st, int pb, int n0
 // the mid streams x ct).  The lap tile comes first (dq = s'' dlm is needed
 // by every J stream); the value stream's cotangent is written last, from
 // the sum of all streams.
-static __device__ void bwd_stage(const Net& net, const Geo& g, int k, bool rank1,
-                                 const __nv_bfloat16* Din, const __nv_bfloat16* Wk, int ldw,
+template <bool WIDE>
+__device__ void bwd_stage(const Net& net, const Geo& g, int k, bool rank1,
+                                 const __nv_bfloat16* Din, const WSrc& w,
                                  const float* __restrict__ ct, const float* __restrict__ wlast,
                                  const float4* saved_st, __nv_bfloat16* Mo,
                                  __nv_bfloat16* Do, float* red2) {
@@ -620,10 +810,8 @@ static __device__ void bwd_stage(const Net& net, const Geo& g, int k, bool rank1
   const bool jsum = k == 1;
   for (int b = warp; b < g.NPB * NB; b += NW) {
     const int pb = b / NB, nb = b - pb * NB, n0 = nb * 8, j0 = n0 + 2 * (lane & 3);
-    uint32_t bf[KS_MAX][2];
-#pragma unroll
-    for (int ks = 0; ks < KS_MAX; ++ks)
-      if (ks < nks) ldsm_x2(bf[ks], Wk + (n0 + (lane & 7)) * ldw + ks * 16 + ((lane >> 3) & 1) * 8);
+    uint32_t bf[KS_REG][2];
+    if constexpr (!WIDE) hold_frags<false>(bf, w, nks, n0);
     float wl[2];
 #pragma unroll
     for (int e = 0; e < 2; ++e) wl[e] = rank1 && j0 + e < wk ? wlast[j0 + e] : 0.f;
@@ -650,7 +838,7 @@ static __device__ void bwd_stage(const Net& net, const Geo& g, int k, bool rank1
     }
     {  // the lap tile first
       float c[4];
-      dmid(g, rank1, pb, NU - 1, wl, ct, Din, bf, nks, c);
+      dmid<WIDE>(g, rank1, pb, NU - 1, wl, ct, Din, bf, nks, w, n0, c);
       bwd_lap(g, st, pb, NU - 1, c, pl, rank1, ct, j0, Mo, Do);
       bwd_rest(g, st, pb, n0, NU - 1, c, pl, rank1, jsum, ct, j0, Mo, Do, red2);
     }
@@ -658,7 +846,7 @@ static __device__ void bwd_stage(const Net& net, const Geo& g, int k, bool rank1
       const float4 f = u ? sv[u * 32] : f0;
       const float pr[4] = {f.x, f.y, f.z, f.w};
       float c[4];
-      dmid(g, rank1, pb, u, wl, ct, Din, bf, nks, c);
+      dmid<WIDE>(g, rank1, pb, u, wl, ct, Din, bf, nks, w, n0, c);
       bwd_rest(g, st, pb, n0, u, c, pr, rank1, jsum, ct, j0, Mo, Do, red2);
     }
     // the value stream's cotangent, from every stream's share
@@ -799,15 +987,23 @@ struct JetArgs {
   int N, T, n_tiles, row, flags;
 };
 
-// W_k: the resident copy, or staged into Wsm now (bf16, then a barrier).
+// Where the products of layer k read W_k: the fp32 W_k in device memory
+// (DEV_WEIGHTS), the resident copy, or staged into Wsm now (bf16, then a
+// barrier).
 template <class Args>
-__device__ __forceinline__ const __nv_bfloat16* stage_or_resident(const Args& A, bool res_w,
-                                                                  __nv_bfloat16* Wsm, int k) {
+__device__ __forceinline__ WSrc weights_of(const Args& A, bool res_w, __nv_bfloat16* Wsm,
+                                           int k) {
   const Net& net = A.net;
-  if (res_w) return Wsm + woff_bytes(net, k) / 2;
-  stage_w(A.params + net.off[k], net.w[k], net.w[k + 1], Wsm, ldw_of(net, k));
-  __syncthreads();
-  return Wsm;
+  WSrc w{Wsm, ldw_of(net, k), nullptr, net.w[k], net.w[k + 1]};
+  if (A.flags & DEV_WEIGHTS) {
+    w.dev = A.params + net.off[k];
+  } else if (res_w) {
+    w.sm = Wsm + woff_bytes(net, k) / 2;
+  } else {
+    stage_w(A.params + net.off[k], net.w[k], net.w[k + 1], Wsm, w.ldw);
+    __syncthreads();
+  }
+  return w;
 }
 
 // The design's tile loop.  Per tile: X (KIND_BWD: and the cotangent rows,
@@ -819,9 +1015,11 @@ __device__ __forceinline__ const __nv_bfloat16* stage_or_resident(const Args& A,
 // the reverse sweep: the last stage's reverse nonlinearity from the
 // rank-one cotangent ct * wlast with dW_last, per hidden layer the dA
 // product with the reverse nonlinearity in its epilogue and the dW
-// product, and dW0.  The plan's residency from A.flags: the hidden weights
-// (bf16, staged once) and the block's gradient row (A.row floats).
-template <int KIND, class Args, class Terms>
+// product, and dW0.  WIDE: the wide variant.  The plan's residency from
+// A.flags: the hidden weights
+// (bf16, staged once; or read from device memory), the block's gradient
+// row (A.row floats) and the sums (on chip, or in device scratch).
+template <int KIND, bool WIDE, class Args, class Terms>
 __device__ void body(const Args& A, Terms terms) {
   constexpr bool REV = KIND != KIND_FWD, PROJ = KIND != KIND_BWD;
   extern __shared__ __align__(16) float smem[];
@@ -836,8 +1034,17 @@ __device__ void body(const Args& A, Terms terms) {
   __nv_bfloat16* Wsm = reinterpret_cast<__nv_bfloat16*>(sm + ly.w);
   const bool res_w = (A.flags & RES_WEIGHTS) != 0;
   float* gacc = REV && (A.flags & RES_GRAD) ? reinterpret_cast<float*>(sm + ly.gacc) : nullptr;
+  // the block's slice of device scratch: the saved stages, then (DEV_SUMS)
+  // the projection partials and the column sums
+  float* const bscr = A.scratch ? A.scratch + (size_t)blockIdx.x *
+                                                  scratch_floats(net, g, KIND, A.flags)
+                                : nullptr;
   float* red = reinterpret_cast<float*>(sm + ly.red);
   float* red2 = reinterpret_cast<float*>(sm + ly.red2);
+  if (WIDE && (A.flags & DEV_SUMS)) {
+    red = bscr + saved_floats(net, g, KIND);
+    red2 = red + red_floats(g, KIND);
+  }
   float* xs = reinterpret_cast<float*>(sm + ly.xs);
   float* ct = reinterpret_cast<float*>(sm + ly.ct);
   float* ps = reinterpret_cast<float*>(sm + ly.ps);
@@ -848,10 +1055,7 @@ __device__ void body(const Args& A, Terms terms) {
   const bool frag = gacc && frag_ok(net);
   // the saved stages: stage k at scr + (k-1) * sst, this thread's lane
   const size_t sst = (size_t)g.nblk * (g.NU + 1) * 32;
-  float4* scr = REV ? reinterpret_cast<float4*>(A.scratch +
-                                                (size_t)blockIdx.x * scratch_floats(net, g)) +
-                          (threadIdx.x & 31)
-                    : nullptr;
+  float4* scr = REV ? reinterpret_cast<float4*>(bscr) + (threadIdx.x & 31) : nullptr;
 
   if (REV)
     for (int i = threadIdx.x; i < A.row; i += NT) grow[i] = 0.f;
@@ -885,10 +1089,10 @@ __device__ void body(const Args& A, Terms terms) {
     __syncthreads();
     __nv_bfloat16 *in = stages, *out = stages + stage;
     for (int k = 1; k < K - 1; ++k) {
-      const __nv_bfloat16* Wk = stage_or_resident(A, res_w, Wsm, k);
-      fwd_product<REV, PROJ>(net, g, k, in, Wk, ldw_of(net, k),
-                             A.params + net.off[k] + net.w[k] * net.w[k + 1], out,
-                             scr + k * sst, k + 1 == K - 1, wlast, red);
+      const WSrc w = weights_of(A, res_w, Wsm, k);
+      fwd_product<REV, PROJ, WIDE>(net, g, k, in, w,
+                                   A.params + net.off[k] + net.w[k] * net.w[k + 1], out,
+                                   scr + k * sst, k + 1 == K - 1, wlast, red);
       __syncthreads();
       __nv_bfloat16* t = in;
       in = out;
@@ -915,8 +1119,8 @@ __device__ void body(const Args& A, Terms terms) {
     }
     if constexpr (KIND == KIND_FUSED) terms(base, proj, xs, ct, ps, grow);
     // reverse: the last stage from the rank-one cotangent ct * wlast
-    bwd_stage(net, g, K - 1, true, nullptr, nullptr, 0, ct, wlast, scr + (K - 2) * sst,
-              nullptr, stages, red2);
+    bwd_stage<WIDE>(net, g, K - 1, true, nullptr, WSrc{}, ct, wlast, scr + (K - 2) * sst,
+                    nullptr, stages, red2);
     __syncthreads();
     for (int j = threadIdx.x; j < wl; j += NT) {
       float a = 0.f, b = 0.f;
@@ -931,9 +1135,8 @@ __device__ void body(const Args& A, Terms terms) {
     __nv_bfloat16 *D = stages, *F1 = stages + stage, *F2 = stages + 2 * stage;
     for (int k = K - 2; k >= 1; --k) {
       __syncthreads();
-      const __nv_bfloat16* Wk = stage_or_resident(A, res_w, Wsm, k);
-      bwd_stage(net, g, k, false, D, Wk, ldw_of(net, k), ct, wlast, scr + (k - 1) * sst, F1,
-                F2, red2);
+      const WSrc w = weights_of(A, res_w, Wsm, k);
+      bwd_stage<WIDE>(net, g, k, false, D, w, ct, wlast, scr + (k - 1) * sst, F1, F2, red2);
       __syncthreads();
       if (k >= 2)
         for (int j = threadIdx.x; j < net.w[k]; j += NT) {

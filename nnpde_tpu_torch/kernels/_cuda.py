@@ -37,14 +37,13 @@ LAUNCHES = {
 ACTS = {"sin": 0, "tanh": 1, "gelu": 2}
 NT = 256                      # threads per block (fwdlap_core.cuh)
 MAX_LAYERS, MAX_DIM = 16, 16
-MAX_WIDTH = 256               # hidden width, the fp32 core (fwdlap_core.cuh: NT)
-MMA_MAX_WIDTH = 128           # the tensor-core design (fwdlap_mma.cuh: KS_MAX = 8)
-WIDE_ITEM = "ROADMAP.md B6"   # widths 129-256 at two blocks per SM, and these kernels
-# The widest hidden layer each kernel takes, by launch name: the fp32 kernels
-# on the core 256, the bf16-dot variants (the tensor-core design) and the
-# K-bump pair 128.
-WIDTH_LIMITS = {name: MMA_MAX_WIDTH if name.endswith(".bf16") or name.startswith("multi_")
-                else MAX_WIDTH for name in LAUNCHES}
+# hidden width: the fp32 core (fwdlap_core.cuh: NT) and the tensor-core
+# design (fwdlap_mma.cuh: MMA_MAX_WIDTH, KS_MAX = 16 k-steps)
+MAX_WIDTH = 256
+BEYOND_ITEM = "ROADMAP.md B7"   # wider, deeper or higher-dimensional nets than these
+# The widest hidden layer each kernel takes, by launch name: 256 for every
+# kernel (the fp32 core, the bf16-dot variants and the K-bump pair alike).
+WIDTH_LIMITS = dict.fromkeys(LAUNCHES, MAX_WIDTH)
 SMEM_MAX = 227 * 1024         # dynamic shared memory one block can get on an H100
 
 _OCCUPANCY = {}
@@ -77,9 +76,8 @@ def check_width(name: str, layers) -> None:
     of ``layers`` (``WIDTH_LIMITS``)."""
     limit = WIDTH_LIMITS[name]
     if not all(1 <= w <= limit for w in layers[1:-1]):
-        wider = f" (widths {limit + 1}-{MAX_WIDTH}: {WIDE_ITEM})" if limit < MAX_WIDTH else ""
-        raise ValueError(f"{name}: the kernel takes hidden widths from 1 to {limit}{wider}; "
-                         f"got layers {list(layers)}")
+        raise ValueError(f"{name}: the kernel takes hidden widths from 1 to {limit} "
+                         f"(wider nets: {BEYOND_ITEM}); got layers {list(layers)}")
 
 
 def net_layers(name: str, params, X, activation: str, others=()):
@@ -93,7 +91,7 @@ def net_layers(name: str, params, X, activation: str, others=()):
     if not (2 <= len(params) <= MAX_LAYERS and d <= MAX_DIM and layers[-1] == 1):
         raise ValueError(
             f"{name}: the CUDA kernels take 2..{MAX_LAYERS} layers, d <= "
-            f"{MAX_DIM} and one output; got layers {layers}")
+            f"{MAX_DIM} and one output ({BEYOND_ITEM}); got layers {layers}")
     check_width(name, layers)
     for t in [X, *others, *[t for pair in params for t in pair]]:
         if t.dtype != torch.float32:
@@ -181,9 +179,15 @@ DES_ITEM2 = 1     # two-point items, register tiles of 8 rows x 4 units
 DES_PLANNED = 2   # the planned kernels (shared plan, transposes from device
                   # memory, dW items dealt 4 x 8 to a warp, two blocks per SM)
 DES_MMA = 4       # bf16 mma.sync m16n8k16 products, stream-major fragments
+DES_WIDE = 16     # the tensor-core design's wide variant (beside DES_MMA in a
+                  # launch's design argument, fused_step.mma_des): each B
+                  # fragment fetched at its k-step, for widths above 128 or
+                  # the weights in device memory
 DES_DEVW = 8      # the hidden weights read from device memory by the products
                   # (_plan.DEV_WEIGHTS): nets whose weights do not fit shared
-                  # memory beside a tile; 4 x 4 items, no fold
+                  # memory beside a tile; 4 x 4 items, no fold (the
+                  # tensor-core design has its own such tier, a flag of its
+                  # plan: fused_step.MMA_TIERS)
 PLANNED_DESIGNS = (DES_PLANNED, DES_PLANNED | DES_ITEM2)
 FP32_DESIGNS = PLANNED_DESIGNS + (DES_PLANNED | DES_DEVW,)   # what the fp32 kernels take
 

@@ -57,8 +57,11 @@ NARROW = 2        # pass B: gradient products with few entries dealt by rows to
                   # groups of lanes
 RES_GRAD = 4      # pass B: the block's gradient row
 DEV_WEIGHTS = 8   # none of the weights: the products read them from device
-                  # memory (design _cuda.DES_DEVW), where one layer's weights
-                  # do not fit beside a tile (a 256 x 256 layer is 256 KB)
+                  # memory (design _cuda.DES_DEVW; a tier of the tensor-core
+                  # design), where one layer's weights do not fit beside a
+                  # tile (a 256 x 256 layer is 256 KB)
+DEV_SUMS = 16     # the tensor-core design: the projection partials and the
+                  # column sums in device scratch (large d at width 256)
 T_MAX = 48        # points per tile the plan asks for at most (a multiple of 4;
                   # the kernels take up to NT / 2 = 128): above 48 no measured
                   # shape gained, and smaller tiles balance the SMs better

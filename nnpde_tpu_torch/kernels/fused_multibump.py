@@ -127,7 +127,8 @@ def smem_floats(seeded: bool, layers, T: int, Kb: int, flags: int) -> int:
     S, wmax = d + 1, _cuda.padded_wmax(layers)
     stage, hid = S * T * wmax, _plan.hidden_floats(layers)
     n = (2 if seeded else 6) * _cuda.NT + (3 if seeded else 2) * stage
-    n += hid if flags & _plan.RES_WEIGHTS else wmax * wmax
+    if not flags & _plan.DEV_WEIGHTS:
+        n += hid if flags & _plan.RES_WEIGHTS else wmax * wmax
     if seeded and flags & _plan.RES_WEIGHTS:
         n += hid
     if seeded and flags & _plan.RES_GRAD:
@@ -139,12 +140,15 @@ def plan(seeded: bool, layers, Kb: int, *, T: int | None = None,
          tier: str | None = None) -> _plan.Plan:
     """The launch shape of one pass for this net and bump count: the shared
     plan of :mod:`._plan` over this kernel's layout (``d + 1`` streams, no
-    Laplacian).  ``T`` and ``tier`` pin a choice and raise if it does not
-    fit; hidden widths above the pair's limit raise (``_cuda.WIDTH_LIMITS``)."""
+    Laplacian); where no tier with the weights on chip fits (one 256 x 256
+    staging matrix is 256 KB), the tiers that read them from device memory
+    (``DEV_WEIGHTS``, design ``DES_DEVW``).  ``T`` and ``tier`` pin a choice
+    and raise if it does not fit; hidden widths above the pair's limit raise
+    (``_cuda.WIDTH_LIMITS``)."""
     _cuda.check_width("multi_seeded" if seeded else "multi_sums", layers)
     return _plan.plan(lambda t, flags: smem_floats(seeded, layers, t, Kb, flags), layers,
                       layers[0] + 1, seeded, T=T, tier=tier,
-                      what=f"multibump plan ({Kb} bumps)")
+                      what=f"multibump plan ({Kb} bumps)", device=None)
 
 
 _WORKSPACE = {}        # (pass, device, stream) -> (partial, scratch), flat buffers
@@ -189,11 +193,12 @@ def _launch(seeded: bool, params, X, coef, scal, activation: str, Kb: int, *,
                           lambda: plan(seeded, layers, Kb))
     T = pl.T
     dev = X.device
-    fold = int(_cuda.folds(layers, d + 1, T))
+    devw = pl.flags & _plan.DEV_WEIGHTS
+    fold = int(_cuda.folds(layers, d + 1, T) and not devw)    # DEV_WEIGHTS has no fold
     G = _cuda.grid(name,
-                   lambda sm, ptr: lib.fused_multibump_blocks_per_sm(int(seeded), fold, sm,
-                                                                     ptr),
-                   pl.smem, dev, (N + T - 1) // T, fold)
+                   lambda sm, ptr: lib.fused_multibump_blocks_per_sm(int(seeded), fold,
+                                                                     pl.flags, sm, ptr),
+                   pl.smem, dev, (N + T - 1) // T, fold | devw)
     row = flat.numel() + 1 if seeded else 3 * Kb
     stream = _cuda.stream(dev)
     partial, scratch = _workspace(
@@ -203,13 +208,14 @@ def _launch(seeded: bool, params, X, coef, scal, activation: str, Kb: int, *,
     if seeded:
         scal = scal.contiguous()
     lay = _cuda.layers_arg(layers)
+    wd = _cuda.device_weights(params, seeded) if devw else None
     _cuda.launch(name, lib.fused_multibump_f32, int(seeded), Kb, X.data_ptr(),
                  coef.data_ptr(), flat.data_ptr(), scal.data_ptr() if seeded else None,
                  ctypes.addressof(lay), len(layers), _cuda.ACTS[activation], N, T, G,
                  pl.flags, fold, partial.data_ptr(),
                  scratch.data_ptr() if scratch is not None else None,
-                 out.data_ptr(), pl.smem, stream, dev=dev,
-                 keep=(X, coef, flat, scal, lay, partial, scratch, out))
+                 out.data_ptr(), pl.smem, stream, None if wd is None else wd.data_ptr(),
+                 dev=dev, keep=(X, coef, flat, wd, scal, lay, partial, scratch, out))
     return out
 
 

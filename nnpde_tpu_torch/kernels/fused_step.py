@@ -279,12 +279,18 @@ def plan(kind: str, layers, design: int | None = None, *, T: int | None = None,
 # forward).  Measured on an H100 (chip_smoke.py mma_sweep; PERF.md): the
 # block's gradient row on chip comes first (its hidden dW accumulates there
 # in fragment order), then the resident weights; 16-point tiles at two
-# blocks per SM (the kernels' register budget) beat larger tiles.
+# blocks per SM (the kernels' register budget) beat larger tiles.  Widths
+# 129-256 add two tiers for the shapes whose weights or sums do not fit
+# beside the stages: ``device`` reads W_k from device memory (each B
+# fragment rounded to bf16 at its load), ``device-sums`` also keeps the
+# projection partials and column sums in device scratch (d near 16 at
+# width 256); both give the bits of the tiers on chip.
 MMA_T = 16                # the tile the plan asks for first
 MMA_TIERS = (("resident", _plan.RES_WEIGHTS | _plan.RES_GRAD), ("gradient", _plan.RES_GRAD),
-             ("weights", _plan.RES_WEIGHTS), ("staged", 0))
-# the jet forward keeps no gradient row
-MMA_FWD_TIERS = (("weights", _plan.RES_WEIGHTS), ("staged", 0))
+             ("weights", _plan.RES_WEIGHTS), ("staged", 0), ("device", _plan.DEV_WEIGHTS),
+             ("device-sums", _plan.DEV_WEIGHTS | _plan.DEV_SUMS))
+# the jet forward keeps no gradient row, and its sums fit beside two stages
+MMA_FWD_TIERS = (("weights", _plan.RES_WEIGHTS), ("staged", 0), ("device", _plan.DEV_WEIGHTS))
 MMA_KINDS = ("fused_linear_residual", "fused_poisson_analytic", "fwdlap_backward",
              "fwdlap_forward")
 # blocks per SM a plan may count on: the kernels with a reverse sweep have a
@@ -335,16 +341,25 @@ def _check_mma_kind(kind: str) -> None:
         raise ValueError(f"{kind}: no bf16-dot mode, so no tensor-core design")
 
 
+def _mma_sums_floats(g: MmaGeo, kind: str) -> int:
+    """Floats of the projection partials (not in the jet backward) and the
+    column sums (not in the jet forward): on chip, or with ``DEV_SUMS`` in
+    device scratch."""
+    return ((_rnd4(g.wq // 8 * g.ST) if kind != "fwdlap_backward" else 0)
+            + (_rnd4(g.NPB * g.S * g.wq) if kind != "fwdlap_forward" else 0))
+
+
 def mma_smem_bytes(layers, T: int, flags: int = 0,
                    kind: str = "fused_linear_residual") -> int:
     """Shared-memory bytes of one block of ``kind`` (``mma::layout``): the
     bf16 stages (three; two in the jet forward), the hidden weights in bf16
-    (all with ``RES_WEIGHTS``, else the largest one), the gradient row
-    (``RES_GRAD``; the loss sums too in the fused kinds; none in the jet
-    forward), the projection partials (not in the jet backward), the column
-    sums (not in the jet forward), the tile's points, cotangents (not in the
-    jet forward), sum terms (the fused kinds) and projected streams (not in
-    the jet backward)."""
+    (all with ``RES_WEIGHTS``, none with ``DEV_WEIGHTS``, else the largest
+    one), the gradient row (``RES_GRAD``; the loss sums too in the fused
+    kinds; none in the jet forward), the projection partials (not in the jet
+    backward) and the column sums (not in the jet forward) unless
+    ``DEV_SUMS``, the tile's points, cotangents (not in the jet forward),
+    sum terms (the fused kinds) and projected streams (not in the jet
+    backward)."""
     _check_mma_kind(kind)
     g = mma_geometry(layers, T)
     d = layers[0]
@@ -352,25 +367,27 @@ def mma_smem_bytes(layers, T: int, flags: int = 0,
     fused = kind.startswith("fused")
     n = (3 if rev else 2) * g.ST * g.ldb * 2
     hid = [_kp16(a) * (_kp16(b) + 8) * 2 for a, b in zip(layers[1:-2], layers[2:-1])]
-    n += sum(hid) if flags & _plan.RES_WEIGHTS else max(hid, default=0)
+    if not flags & _plan.DEV_WEIGHTS:
+        n += sum(hid) if flags & _plan.RES_WEIGHTS else max(hid, default=0)
     if rev and flags & _plan.RES_GRAD:
         n += 4 * _rnd4(_cuda.n_params(layers) + (3 if fused else 0))
-    floats = ((_rnd4(g.wq // 8 * g.ST) if proj else 0)
-              + (_rnd4(g.NPB * g.S * g.wq) if rev else 0) + _rnd4(T * d)
+    floats = ((0 if flags & _plan.DEV_SUMS else _mma_sums_floats(g, kind)) + _rnd4(T * d)
               + (_rnd4(g.S * T) if rev else 0) + (_rnd4(3 * T) if fused else 0)
               + (_rnd4(g.ST) if proj else 0))
     return n + 4 * floats
 
 
-def mma_scratch_floats(layers, T: int, kind: str = "fused_linear_residual") -> int:
-    """Saved-stage floats of one block in device memory: the K-1 hidden
-    stages, each warp block's stream tiles and its q tile, a float4 per
-    lane; none in the jet forward, which saves nothing."""
+def mma_scratch_floats(layers, T: int, kind: str = "fused_linear_residual",
+                       flags: int = 0) -> int:
+    """Floats of one block's slice of device scratch (``mma::scratch_floats``):
+    the saved stages, the K-1 hidden stages of each warp block's stream
+    tiles and its q tile, a float4 per lane (none in the jet forward, which
+    saves nothing); then with ``DEV_SUMS`` the projection partials and the
+    column sums."""
     _check_mma_kind(kind)
     g = mma_geometry(layers, T)
-    if kind == "fwdlap_forward":
-        return 0
-    return (len(layers) - 2) * g.nblk * (g.NU + 1) * 128
+    saved = 0 if kind == "fwdlap_forward" else (len(layers) - 2) * g.nblk * (g.NU + 1) * 128
+    return saved + (_mma_sums_floats(g, kind) if flags & _plan.DEV_SUMS else 0)
 
 
 def mma_plan(kind: str, layers, *, T: int | None = None, tier: str | None = None,
@@ -412,12 +429,26 @@ def mma_plan(kind: str, layers, *, T: int | None = None, tier: str | None = None
                      f"of shared memory (T={T}, tier={tier}, blocks={blocks})")
 
 
+MMA_REG_WIDTH = 128      # widest layer the narrow variant holds in registers (KS_REG)
+
+
+def mma_des(layers, flags: int) -> int:
+    """The design argument of a tensor-core launch: ``DES_MMA``, with
+    ``DES_WIDE`` for the wide variant (``mma::needs_wide``): a hidden width
+    above 128, whose k-steps the narrow variant cannot hold in registers, or
+    the weights or the sums in device memory."""
+    wide = (max(layers[1:-1]) > MMA_REG_WIDTH
+            or flags & (_plan.DEV_WEIGHTS | _plan.DEV_SUMS))
+    return _cuda.DES_MMA | (_cuda.DES_WIDE if wide else 0)
+
+
 def variant(layers, S: int, pl: _plan.Plan) -> tuple[int, int]:
     """``(fold, occupancy key)`` of a launch: whether it takes the FOLD
     variant (a planned design), and the key of its variant in
-    :func:`._cuda.grid`'s cache."""
+    :func:`._cuda.grid`'s cache (the tensor-core design's: its narrow or
+    wide variant)."""
     if pl.design == _cuda.DES_MMA:
-        return 0, pl.design << 1
+        return 0, mma_des(layers, pl.flags) << 1
     fold = int(_cuda.folds(layers, S, pl.T, 2 if pl.design & _cuda.DES_ITEM2 else 1)
                and not pl.design & _cuda.DES_DEVW)     # compiled without the fold
     return fold, fold | pl.design << 1
@@ -448,7 +479,8 @@ def _launch(kind: str, params, X, coef, activation: str, analytic=None,
     if bool(bf16) != mma or not (mma or pl.design in _cuda.FP32_DESIGNS):
         raise ValueError(f"{kind}: the bf16-dot mode runs the tensor-core design and only it; "
                          f"fp32 a planned design (bf16={bf16}, design={pl.design})")
-    T, design = pl.T, pl.design
+    T = pl.T
+    design = mma_des(layers, pl.flags) if mma else pl.design
     mode = _MODES[kind]
     dev = X.device
     S = _streams(kind, d)
@@ -459,7 +491,7 @@ def _launch(kind: str, params, X, coef, activation: str, analytic=None,
                    pl.smem, dev, (N + T - 1) // T, key)
     partial = torch.empty((G, P + 3), dtype=torch.float32, device=dev)
     if mma:
-        per_block = mma_scratch_floats(layers, T)
+        per_block = mma_scratch_floats(layers, T, kind, pl.flags)
     else:
         per_block = max(K - 2, 1) * S * T * _cuda.padded_wmax(layers)
     scratch = torch.empty((G, per_block), dtype=torch.float32, device=dev)

@@ -60,7 +60,8 @@ from ..ops.fwdlap import (Jet, mlp_fwdlap, project_plain, recompute_plain, rever
 from . import _cuda, _plan
 from ._cuda import on_cuda as _on_cuda
 from ._cuda import variant_name
-from .fused_step import _check_dot, _unflatten, mma_plan, mma_scratch_floats, planned, variant
+from .fused_step import (_check_dot, _unflatten, mma_des, mma_plan, mma_scratch_floats,
+                         planned, variant)
 
 fwdlap_forward_plain = mlp_fwdlap
 
@@ -181,12 +182,12 @@ def fwdlap_forward(params, X, activation: str, fwd_impl: str = "rows", *,
         raise ValueError(f"{name}: the bf16-dot variant runs the tensor-core design and only "
                          f"it; fp32 a planned design (bf16={bf16}, design={pl.design})")
     T = pl.T
+    des = mma_des(layers, pl.flags) if bf16 else pl.design
     dev = X.device
     fold, key = variant(layers, d + 2, pl)
     G = _cuda.grid(name,
-                   lambda sm, ptr: lib.fwdlap_forward_blocks_per_sm(streams, fold, bf16,
-                                                                    pl.design, pl.blocks, sm,
-                                                                    ptr),
+                   lambda sm, ptr: lib.fwdlap_forward_blocks_per_sm(streams, fold, bf16, des,
+                                                                    pl.blocks, sm, ptr),
                    pl.smem, dev, (N + T - 1) // T, (key, pl.blocks) if pl.blocks else key)
     shape = (d + 2, N) if streams else (N, d + 2)
     out = torch.empty(shape, dtype=torch.float32, device=dev)
@@ -194,7 +195,7 @@ def fwdlap_forward(params, X, activation: str, fwd_impl: str = "rows", *,
     wd = (_cuda.device_weights(params, False) if pl.design & _cuda.DES_DEVW else None)
     _cuda.launch(name, lib.fwdlap_forward_f32, streams, X.data_ptr(), flat.data_ptr(),
                  ctypes.addressof(lay), len(layers), _cuda.ACTS[activation], N, T,
-                 G, fold, bf16, pl.design, pl.blocks, pl.flags, out.data_ptr(), pl.smem,
+                 G, fold, bf16, des, pl.blocks, pl.flags, out.data_ptr(), pl.smem,
                  _cuda.stream(dev), None if wd is None else wd.data_ptr(), dev=dev,
                  keep=(X, flat, wd, lay, out))
     return out.t() if streams else out
@@ -231,7 +232,8 @@ def fwdlap_backward(params, X, ct, activation: str, dot_dtype: str = "float32", 
         raise ValueError("fwdlap_backward: the bf16-dot variant runs the tensor-core design "
                          f"and only it; fp32 a planned design (bf16={bf16}, "
                          f"design={pl.design})")
-    T, design = pl.T, pl.design
+    T = pl.T
+    design = mma_des(layers, pl.flags) if mma else pl.design
     dev = X.device
     fold, key = variant(layers, d + 2, pl)
     G = _cuda.grid(name,
@@ -239,7 +241,7 @@ def fwdlap_backward(params, X, ct, activation: str, dot_dtype: str = "float32", 
                                                                      ptr),
                    pl.smem, dev, (N + T - 1) // T, key)
     if mma:
-        per_block = mma_scratch_floats(layers, T, "fwdlap_backward")
+        per_block = mma_scratch_floats(layers, T, "fwdlap_backward", pl.flags)
     else:
         per_block = max(K - 2, 1) * (d + 2) * T * _cuda.padded_wmax(layers)
     partial = torch.empty((G, P), dtype=torch.float32, device=dev)

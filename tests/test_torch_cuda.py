@@ -1292,22 +1292,35 @@ def test_cuda_wide_nets_match_float64(dev, kind, layers, act):
 @pytest.mark.cuda
 @pytest.mark.parametrize("layers", [(1, 200, 200, 1), (2, 130, 1), (1, 129, 129, 1)])
 def test_cuda_wide_nets_refused_where_the_limit_is_128(dev, layers):
-    """The bf16-dot variants (the tensor-core design) and the K-bump pair
-    take hidden widths up to 128 and raise above, naming the roadmap item."""
+    """The limit of the bf16-dot variants (the tensor-core design) and the
+    K-bump pair is 256 since their device tiers: these nets above 128 launch
+    (each launch counted), and a width of 257 raises, naming the roadmap
+    item of the wider nets."""
     from nnpde_tpu_torch.kernels import fused_multibump as tfm
     from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
 
     rng = np.random.default_rng(4)
     d, N = layers[0], 64
-    tp = params_from_jax(_np_params(rng, layers), device=dev)
-    X = torch.rand(N, d, device=dev)
-    coef = torch.zeros(N, d + 4, device=dev)
-    calls = [lambda: tfs.fused_linear_residual(tp, X, coef, "sin", dot_dtype="bfloat16"),
-             lambda: tfc.fwdlap_forward(tp, X, "sin", "rows:default"),
-             lambda: tfm._launch(False, tp, X, torch.zeros(N, 4 * (d + 4), device=dev),
-                                 None, "sin", 4)]
-    for call in calls:
-        with pytest.raises(ValueError, match="B6"):
+
+    def calls(tp):
+        X = torch.rand(N, d, device=dev)
+        coef = torch.zeros(N, d + 4, device=dev)
+        return [("fused_linear_residual.bf16",
+                 lambda: tfs.fused_linear_residual(tp, X, coef, "sin", dot_dtype="bfloat16")),
+                ("fwdlap_forward.bf16", lambda: tfc.fwdlap_forward(tp, X, "sin", "rows:default")),
+                ("multi_sums", lambda: tfm._launch(False, tp, X,
+                                                   torch.zeros(N, 4 * (d + 4), device=dev),
+                                                   None, "sin", 4))]
+
+    for name, call in calls(params_from_jax(_np_params(rng, layers), device=dev)):
+        before = LAUNCHES[name]
+        out = call()
+        torch.cuda.synchronize()
+        assert LAUNCHES[name] == before + 1
+        assert torch.isfinite(out[0] if isinstance(out, tuple) else out).all()
+    wider = (d, 257) + layers[2:]
+    for _, call in calls(params_from_jax(_np_params(rng, wider), device=dev)):
+        with pytest.raises(ValueError, match="ROADMAP.md B7"):
             call()
 
 
@@ -1580,3 +1593,185 @@ def test_cuda_subspace_trace_nan_on_failed_cholesky_without_sync(dev):
     (g_cpu,) = torch.autograd.grad(tr_cpu, v_cpu)
     assert abs(float(tr) - float(tr_cpu)) <= 1e-5 * abs(float(tr_cpu))
     assert float(torch.linalg.norm(g.double().cpu() - g_cpu) / torch.linalg.norm(g_cpu)) <= 1e-4
+
+
+# ------------- widths 129-256: rows 1, 2, 4, 5 bf16 (device tiers) and rows 11, 12
+_WIDE_NETS = [(2, 136, 136, 136, 136, 1), (2, 200, 200, 200, 200, 1), (2, 256, 256, 256, 1),
+              (5, 200, 200, 200, 1)]
+
+
+def _bf16_case(dev, kind, layers, act, seed, N):
+    """A bf16-dot row's launch on a plan (``run(pl)``, None: the wrapper's),
+    and its plain bf16-dot version (``plain(params)``), on the inputs
+    test_cuda_bf16_kernel_matches_plain gives; both lists of tensors."""
+    from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
+    from nnpde_tpu_torch.models import factor_for_technique
+
+    rng = np.random.default_rng(seed)
+    d = layers[0]
+    tp = params_from_jax(_np_params(rng, layers), device=dev)
+    X = torch.as_tensor(rng.uniform(0.0, L, (N, d)).astype(np.float32), device=dev)
+    fj = factor_for_technique("FBC", dim=d, kind="box", L=L).jet(X)
+    coef = tfs.residual_coefficients(fj, a0=-1.0, rhs=torch.sin(X[:, 0]))
+    ks = (1,) * d
+    jet = tfc.fwdlap_forward_plain(tp, X, act)
+    r = (coef[:, 0] * jet.value + torch.sum(coef[:, 1:1 + d] * jet.grad, dim=1)
+         + coef[:, d + 1] * jet.lap + coef[:, d + 2])
+    ct = ((2.0 / N) * r[:, None] * coef[:, :d + 2]).contiguous()
+
+    def run(pl=None):
+        if kind == "forward":
+            return [tfc.fwdlap_forward(tp, X, act, "rows:default", pl=pl)]
+        if kind == "backward":
+            dW, db = tfc.fwdlap_backward(tp, X, ct, act, "bfloat16", pl=pl)
+            return [t for pair in zip(dW, db) for t in pair]
+        base = "fused_linear_residual" if kind == "linear" else "fused_poisson_analytic"
+        an = tfs._analytic_args(tfs.PoissonSinCoef(L, ks), d)
+        out = tfs._launch(base, tp, X, coef if kind == "linear" else None, act, an,
+                          bf16=True, pl=pl)
+        dW, db, sm = tfs._unflatten(tp, out)
+        g = tfs._scaled_grads(tp, dW, db, sm, 2.0 / N)
+        return [(sm[0] / N).reshape(1)] + [t for pair in g for t in pair]
+
+    def plain(params):
+        if kind == "forward":
+            return [tfc.fwdlap_forward_default_plain(params, X, act)]
+        if kind == "backward":
+            rW, rb = tfc.fwdlap_backward_plain(params, X, ct, act, "bfloat16")
+            return [t for pair in zip(rW, rb) for t in pair]
+        if kind == "linear":
+            dWs, dbs, sums = tfs.linear_residual_plain(params, X, coef, act, "bfloat16")
+        else:
+            dWs, dbs, sums = tfs.poisson_analytic_plain(params, X, act,
+                                                        tfs.PoissonSinCoef(L, ks), "bfloat16")
+        g = tfs._scaled_grads(params, dWs, dbs, sums, 2.0 / N)
+        return [(sums[0] / N).reshape(1)] + [t for pair in g for t in pair]
+
+    return tp, run, plain
+
+
+def _col_rel(a, b):
+    return max(float(torch.linalg.norm(a[:, c].double() - b[:, c].double())
+                     / torch.linalg.norm(b[:, c].double())) for c in range(b.shape[1]))
+
+
+def _wide_spread(kind, tp, layers, plain, seed=23):
+    """C2's spread for any bf16-dot row (:func:`_permuted_spread`): the
+    plain version against itself on the net with its hidden units
+    permuted, the gradient leaves folded back (the jet rows do not move)."""
+    g = torch.Generator().manual_seed(seed)
+    perm = ([torch.arange(layers[0])] + [torch.randperm(w, generator=g) for w in layers[1:-1]]
+            + [torch.arange(1)])
+    perm = [p.to(tp[0][0].device) for p in perm]
+    inv = [torch.argsort(p) for p in perm]
+    moved = [(W[perm[k]][:, perm[k + 1]].contiguous(), b[perm[k + 1]].contiguous())
+             for k, (W, b) in enumerate(tp)]
+    got, want = plain(moved), plain(tp)
+    if kind == "forward":
+        return _col_rel(got[0], want[0])
+    lo = 0 if kind == "backward" else 1
+    back = got[:lo]
+    for k in range(len(tp)):
+        back += [got[lo + 2 * k][inv[k]][:, inv[k + 1]], got[lo + 2 * k + 1][inv[k + 1]]]
+    return _leaf_rel(back, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["linear", "analytic", "forward", "backward"])
+@pytest.mark.parametrize("layers", _WIDE_NETS)
+def test_cuda_wide_bf16_rows_match_plain(dev, kind, layers):
+    """Rows 1, 2, 4, 5 bf16 at hidden widths 136, 200 and 256 (the device
+    tiers where the weights do not fit beside the stages): within C2's bar,
+    max(1e-4, C2_SPREAD_MULTIPLE x the plain version's own permutation
+    spread), of the plain bf16-dot version (the jet forward per column);
+    two launches bitwise equal; every other tier that fits the plan's tile
+    bitwise equal to the plan's (the device tiers build the same bf16
+    operands and sum in the same order)."""
+    act = "sin"
+    tp, run, plain = _bf16_case(dev, kind, layers, act, 31, 1000 + 7)
+    base = {"linear": "fused_linear_residual", "analytic": "fused_poisson_analytic",
+            "forward": "fwdlap_forward", "backward": "fwdlap_backward"}[kind]
+    pl = tfs.mma_plan(base, list(layers))
+    out, out2 = run(), run()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, out2))
+    want = plain(tp)
+    bar = max(1e-4, C2_SPREAD_MULTIPLE * _wide_spread(kind, tp, layers, plain))
+    if kind == "forward":
+        assert _col_rel(out[0], want[0]) <= bar
+    else:
+        assert _leaf_rel(out, want) <= bar
+    tiers = tfs.MMA_FWD_TIERS if kind == "forward" else tfs.MMA_TIERS
+    for tier, _ in tiers:
+        if tier == pl.tier:
+            continue
+        try:
+            other = tfs.mma_plan(base, list(layers), T=pl.T, tier=tier, blocks=1)
+        except ValueError:
+            continue
+        if kind == "forward":
+            other = other._replace(blocks=pl.blocks)
+        assert all(torch.equal(a, b) for a, b in zip(run(other), out)), tier
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["linear", "backward"])
+def test_cuda_mma_widest_deepest_net(dev, kind):
+    """Row 1 and row 5 bf16 on (16, 256 x 15, 1): the device-sums tier (the
+    weights and the sums in device memory beside three stages of 18 streams
+    at 8 points) within C2's bar of the plain version, repeats bitwise."""
+    layers = (16,) + (256,) * 15 + (1,)
+    base = "fused_linear_residual" if kind == "linear" else "fwdlap_backward"
+    assert tfs.mma_plan(base, list(layers)).tier == "device-sums"
+    tp, run, plain = _bf16_case(dev, kind, layers, "tanh", 32, 300 + 7)
+    out, out2 = run(), run()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, out2))
+    bar = max(1e-4, C2_SPREAD_MULTIPLE * _wide_spread(kind, tp, layers, plain))
+    assert _leaf_rel(out, plain(tp)) <= bar
+
+
+@pytest.mark.cuda
+def test_cuda_wide_mma_layout_mirror(dev):
+    """The device tiers' layouts in Python are the kernels' own count, for
+    the three kinds with a C count, at the wide nets."""
+    import ctypes
+
+    from nnpde_tpu_torch.kernels import _build, _plan
+
+    lib = _build.load()
+    flags_all = (0, _plan.RES_WEIGHTS, _plan.DEV_WEIGHTS, _plan.DEV_WEIGHTS | _plan.DEV_SUMS)
+    for layers in _WIDE_NETS + [(16,) + (256,) * 15 + (1,)]:
+        lay = (ctypes.c_int * len(layers))(*layers)
+        args = (ctypes.addressof(lay), len(layers))
+        for T in (8, 16):
+            for flags in flags_all:
+                for mode in (0, 1):
+                    assert lib.fused_mma_smem_bytes(mode, *args, T, flags) == tfs.mma_smem_bytes(
+                        layers, T, flags)
+                assert lib.fwdlap_backward_mma_smem_bytes(*args, T, flags) == tfs.mma_smem_bytes(
+                    layers, T, flags, "fwdlap_backward")
+                assert lib.fwdlap_forward_mma_smem_bytes(*args, T, flags) == tfs.mma_smem_bytes(
+                    layers, T, flags, "fwdlap_forward")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seeded", [False, True])
+@pytest.mark.parametrize("layers,Kb,act", [
+    ((2, 200, 200, 200, 200, 1), 16, "sin"),       # tiers on chip
+    ((2, 256, 256, 256, 256, 1), 16, "sin"),       # DEV_WEIGHTS
+    ((2, 136, 256, 1), 4, "tanh"),
+    ((16, 256, 256, 1), 42, "gelu"),
+])
+def test_cuda_multibump_wide_nets(dev, seeded, layers, Kb, act):
+    """The K-bump pair at hidden widths 136-256: the bars of
+    test_cuda_multibump_kernel_matches_plain, repeats bitwise; at width 256
+    the tier that reads the weights from device memory."""
+    from nnpde_tpu_torch.kernels import _plan
+    from nnpde_tpu_torch.kernels import fused_multibump as tfm
+
+    pl = tfm.plan(seeded, layers, Kb)
+    # one 256-wide staging matrix (256 KB) fits no block
+    assert bool(pl.flags & _plan.DEV_WEIGHTS) == (max(layers[1:-1]) == 256)
+    _check_multibump(dev, seeded, Kb, layers, act, N=600 + 7)
+

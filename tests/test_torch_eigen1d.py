@@ -480,11 +480,11 @@ def test_missing_card_raises(monkeypatch):
 @pytest.mark.parametrize("name", sorted(_cuda.LAUNCHES))
 def test_widths_above_each_kernels_limit_raise(name):
     """Every kernel's wrapper check takes hidden widths up to its limit (256
-    for the fp32 kernels on the core, 128 for the tensor-core design's
+    for every kernel: the fp32 kernels on the core, the tensor-core design's
     bf16-dot variants and the K-bump pair) and raises above it, naming the
-    kernel and its limit (and, below 256, the roadmap item)."""
+    kernel, its limit and the roadmap item of the wider nets."""
     limit = _cuda.WIDTH_LIMITS[name]
-    assert limit == (128 if name.endswith(".bf16") or name.startswith("multi_") else 256)
+    assert limit == 256
     X = torch.zeros(4, 1)
 
     def net(w):
@@ -495,4 +495,4 @@ def test_widths_above_each_kernels_limit_raise(name):
     with pytest.raises(ValueError, match=f"{name}: the kernel takes hidden widths from 1 "
                                          f"to {limit}") as err:
         _cuda.net_layers(name, net(limit + 1), X, "tanh")
-    assert ("ROADMAP.md B6" in str(err.value)) == (limit < 256)
+    assert "ROADMAP.md B7" in str(err.value)

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from nnpde_tpu_torch.kernels import _build, _cuda, _plan
+from nnpde_tpu_torch.kernels import fused_multibump as tfm
 from nnpde_tpu_torch.kernels import fused_step as tfs
 from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
 
@@ -24,6 +25,11 @@ NETS = {"u64": (2, 64, 64, 64, 64, 1), "c64": (2, 64, 64, 1), "u50": (2, 50, 50,
         "c20": (2, 20, 20, 20, 1), "u64_d5": (5, 64, 64, 64, 64, 1)}
 EXTREMES = {
     "d16_w128_16layers": (16,) + (128,) * 15 + (1,),
+    # widths 129-256: the device tiers (DEV_WEIGHTS; DEV_SUMS at d = 16)
+    "w200_d2": (2,) + (200,) * 4 + (1,),
+    "w256_d2": (2,) + (256,) * 4 + (1,),
+    "w256_d5": (5,) + (256,) * 3 + (1,),
+    "d16_w256_16layers": (16,) + (256,) * 15 + (1,),
     "width1": (2, 1, 1, 1),
     "widths_1_and_50": (2, 50, 1, 50, 1),
     "w128_shallow": (2, 128, 128, 1),
@@ -32,7 +38,8 @@ EXTREMES = {
 }
 KINDS = ("fused_linear_residual", "fused_poisson_analytic")
 JET_KINDS = ("fwdlap_backward", "fwdlap_forward")
-FLAGS = (0, _plan.RES_WEIGHTS, _plan.RES_GRAD, _plan.RES_WEIGHTS | _plan.RES_GRAD)
+FLAGS = (0, _plan.RES_WEIGHTS, _plan.RES_GRAD, _plan.RES_WEIGHTS | _plan.RES_GRAD,
+         _plan.DEV_WEIGHTS, _plan.DEV_WEIGHTS | _plan.DEV_SUMS)
 
 
 def _up(n, m):
@@ -43,12 +50,13 @@ def _written_out_bytes(layers, T, flags, kind="fused_linear_residual"):
     """The kernel's layout, written out: three bf16 stages of Sp*T rows at
     a row stride of the widest layer rounded up to 16 plus 8 (the jet
     forward two); the hidden weights in bf16, each kp16(in) rows of kp16(out)
-    + 8 (all of them resident, else the largest); the gradient row (the
-    fused kinds with the three loss sums, the jet backward without, the jet
-    forward none); then float regions, each rounded up to 4 floats:
-    projection partials (n-blocks of 8 x rows; not in the jet backward),
-    column sums (16-point blocks x S x widest rounded to 8; not in the jet
-    forward), the points, the cotangents (not in the jet forward), the sum
+    + 8 (all of them resident, none read from device memory, else the
+    largest); the gradient row (the fused kinds with the three loss sums,
+    the jet backward without, the jet forward none); then float regions,
+    each rounded up to 4 floats: projection partials (n-blocks of 8 x rows;
+    not in the jet backward), column sums (16-point blocks x S x widest
+    rounded to 8; not in the jet forward), both in device scratch with
+    DEV_SUMS, the points, the cotangents (not in the jet forward), the sum
     terms (the fused kinds) and the projected rows (not in the jet
     backward)."""
     d, hidden = layers[0], layers[1:-1]
@@ -59,7 +67,8 @@ def _written_out_bytes(layers, T, flags, kind="fused_linear_residual"):
     k16, n8 = _up(max(hidden), 16), _up(max(hidden), 8)
     n = (2 if fwd else 3) * rows * (k16 + 8) * 2
     weights = [_up(a, 16) * (_up(b, 16) + 8) * 2 for a, b in zip(hidden[:-1], hidden[1:])]
-    n += sum(weights) if flags & _plan.RES_WEIGHTS else max(weights, default=0)
+    if not flags & _plan.DEV_WEIGHTS:
+        n += sum(weights) if flags & _plan.RES_WEIGHTS else max(weights, default=0)
     if flags & _plan.RES_GRAD and not fwd:
         P = sum(a * b + b for a, b in zip(layers[:-1], layers[1:]))
         n += 4 * _up(P + (0 if bwd else 3), 4)
@@ -68,6 +77,8 @@ def _written_out_bytes(layers, T, flags, kind="fused_linear_residual"):
                "cotangents": S * T, "sums": 3 * T, "projected": rows}
     drop = {"fwdlap_forward": ("colsums", "cotangents", "sums"),
             "fwdlap_backward": ("partials", "sums", "projected")}.get(kind, ())
+    if flags & _plan.DEV_SUMS:
+        drop += ("partials", "colsums")
     for name, floats in regions.items():
         if name not in drop:
             n += 4 * _up(floats, 4)
@@ -103,14 +114,20 @@ def test_mma_layout_pads_to_k16_and_n8(layers, T, flags, want):
 @pytest.mark.parametrize("net", sorted(EXTREMES))
 def test_mma_scratch_floats(net):
     """The saved stages: K-1 stages x warp blocks x (stream tiles + the q
-    tile) x 32 float4s."""
+    tile) x 32 float4s; with DEV_SUMS the projection partials and the column
+    sums after them."""
     layers = EXTREMES[net]
     d, hidden = layers[0], layers[1:-1]
     for T in (8, 16, 32):
         S = d + 2
         tiles = (S + S % 2) // 2 if T == 8 else S
         blocks = (1 if T == 8 else T // 16) * _up(max(hidden), 8) // 8
-        assert tfs.mma_scratch_floats(layers, T) == len(hidden) * blocks * (tiles + 1) * 128
+        saved = len(hidden) * blocks * (tiles + 1) * 128
+        assert tfs.mma_scratch_floats(layers, T) == saved
+        rows, n8 = (S + S % 2 if T == 8 else S) * T, _up(max(hidden), 8)
+        sums = _up(n8 // 8 * rows, 4) + _up((1 if T == 8 else T // 16) * S * n8, 4)
+        assert tfs.mma_scratch_floats(layers, T, flags=_plan.DEV_SUMS) == saved + sums
+        assert tfs.mma_scratch_floats(layers, T, flags=_plan.DEV_WEIGHTS) == saved
 
 
 # ---------------------------------------------------------------- the plans
@@ -128,7 +145,7 @@ def _two_blocks(pl):
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("net", sorted(EXTREMES))
 def test_mma_plan_takes_every_shape_the_wrapper_takes(net, kind):
-    """Every net the wrapper's check takes (d <= 16, widths 1-128, 2-16
+    """Every net the wrapper's check takes (d <= 16, widths 1-256, 2-16
     weight matrices) gets a tensor-core plan that fits the card's shared
     memory, with stage rows Sp*T a multiple of 16 (T = 8 pads an odd stream
     count by one); a pinned tier at 16 points fits or raises naming the
@@ -157,12 +174,18 @@ def test_mma_plan_takes_every_shape_the_wrapper_takes(net, kind):
     ("u64_d5", (16, "weights", True)),        # the gradient row does not fit beside 7 streams
     ("w128_shallow", (16, "weights", True)),
     ("d16_w128_16layers", (8, "staged", False)),
+    # widths 129-256: the weights from device memory at two blocks per SM
+    # where a staged matrix does not fit beside two 16-point tiles
+    ("w200_d2", (16, "device", True)),
+    ("w256_d2", (16, "device", True)),
+    ("w256_d5", (16, "device", False)),
+    ("d16_w256_16layers", (8, "device-sums", False)),
 ])
 def test_mma_plan_path_shapes(net, want):
     """The plan's choices on the order measured on u64 (chip_smoke.py
     mma_sweep): the gradient row on chip first, then the resident weights,
     at 16-point tiles and two blocks per SM; 8-point tiles only where
-    nothing else fits."""
+    nothing else fits; the device tiers last."""
     pl = tfs.mma_plan("fused_linear_residual", EXTREMES[net])
     assert (pl.T, pl.tier, _two_blocks(pl)) == want
     assert pl.flags == dict(tfs.MMA_TIERS)[pl.tier]
@@ -222,7 +245,8 @@ def _inputs(layers, N=40):
     return params, X, coef
 
 
-@pytest.mark.parametrize("net", ["u64", "u50", "u64_d5", "width1", "d16_w128_16layers"])
+@pytest.mark.parametrize("net", ["u64", "u50", "u64_d5", "width1", "d16_w128_16layers",
+                                 "w200_d2", "d16_w256_16layers"])
 @pytest.mark.parametrize("kind", KINDS)
 def test_bf16_fused_kinds_route_to_the_tensor_core_design(monkeypatch, kind, net):
     """The bf16-dot mode of rows 1 and 2 launches DES_MMA on the wrapper's
@@ -243,11 +267,15 @@ def test_bf16_fused_kinds_route_to_the_tensor_core_design(monkeypatch, kind, net
     at = 10 if kind == "fused_linear_residual" else 9
     fold, bf, des, flags = args_b[at:at + 4]
     pl = tfs.mma_plan(kind, layers)
-    assert (fold, bf, des, flags) == (0, 1, _cuda.DES_MMA, pl.flags)
+    # (the wide variant above width 128 or with the weights in device memory)
+    assert (fold, bf, des, flags) == (0, 1, tfs.mma_des(layers, pl.flags), pl.flags)
+    assert des == _cuda.DES_MMA | (_cuda.DES_WIDE if max(layers[1:-1]) > 128 else 0)
     assert args_b[3 if kind == "fused_linear_residual" else 2] is None    # no transposes
     assert args_b[at - 2] == pl.T
     _, bf, des, _ = args_f[at:at + 4]
-    assert bf == 0 and des in _cuda.PLANNED_DESIGNS and des == tfs.plan(kind, layers).design
+    # (fp32 nets wider than 128 may read their weights from device memory)
+    fp32 = _cuda.PLANNED_DESIGNS if max(layers[1:-1]) <= 128 else _cuda.FP32_DESIGNS
+    assert bf == 0 and des in fp32 and des == tfs.plan(kind, layers).design
 
 
 @pytest.mark.parametrize("net", ["u64", "u50", "u64_d5"])
@@ -400,6 +428,11 @@ def test_jet_mma_plan_takes_every_shape_the_wrapper_takes(net, kind):
     ("fwdlap_forward", "u50", (16, "weights", 3, 3)),
     ("fwdlap_forward", "u64_d5", (16, "weights", 3, 3)),
     ("fwdlap_forward", "d16_w128_16layers", (16, "staged", 1, 2)),
+    ("fwdlap_backward", "w200_d2", (16, "device", 2, 0)),
+    ("fwdlap_backward", "d16_w256_16layers", (8, "device-sums", 1, 0)),
+    ("fwdlap_forward", "w200_d2", (16, "device", 3, 3)),
+    ("fwdlap_forward", "w256_d5", (16, "device", 1, 2)),
+    ("fwdlap_forward", "d16_w256_16layers", (8, "device", 1, 2)),
 ])
 def test_jet_mma_plan_path_shapes(kind, net, want):
     """The jet pair's plans on the hybrid-kernel route's nets (u64 at d = 2
@@ -472,10 +505,78 @@ def test_cpu_bf16_route_runs_the_plain_bf16_version(monkeypatch, kind):
 @pytest.mark.parametrize("layers", [(1, 129, 1), (2, 200, 200, 1), (1, 64, 256, 1)])
 @pytest.mark.parametrize("kind", tfs.MMA_KINDS)
 def test_mma_plans_refuse_widths_above_128(kind, layers):
-    """The tensor-core design takes hidden widths up to 128 (``KS_MAX`` = 8
-    k-steps): its plans raise above, naming the kernel, its limit and the
-    roadmap item of the wider nets."""
+    """The tensor-core design takes hidden widths up to 256 (``KS_MAX`` =
+    16 k-steps) since the device tiers: these nets above 128 get its plan,
+    and a width of 257 raises, naming the kernel, its limit and the roadmap
+    item of the wider nets."""
+    pl = tfs.mma_plan(kind, layers)
+    assert pl.design == _cuda.DES_MMA and pl.smem <= _cuda.SMEM_MAX
+    wider = tuple(257 if w == max(layers[1:-1]) else w for w in layers[:-1]) + (1,)
     with pytest.raises(ValueError, match=r"\.bf16: the kernel takes hidden widths from 1 to "
-                                         r"128 \(widths 129-256: ROADMAP.md B6\)"):
-        tfs.mma_plan(kind, layers)
+                                         r"256 \(wider nets: ROADMAP.md B7\)"):
+        tfs.mma_plan(kind, wider)
     assert tfs.mma_plan(kind, (1, 128, 128, 1)).design == _cuda.DES_MMA
+
+
+# ------------------------------------------------ the K-bump pair's plans
+@pytest.mark.parametrize("seeded", [False, True])
+@pytest.mark.parametrize("d,hidden,Kb", [(2, 4, 16), (1, 1, 1), (16, 2, 42)])
+def test_multibump_plan_takes_every_width(seeded, d, hidden, Kb):
+    """Every hidden width 1-256 (``hidden`` layers of it; the 2D well's four
+    at its 16 bumps, one layer, and d = 16 at the most bumps) gets a plan of
+    the K-bump pair that fits the card's shared memory, its bytes the
+    kernel's layout; the tiers that read the weights from device memory
+    (``DES_DEVW``) only where no tier with the weights on chip fits even at
+    4 points at one block per SM, and at width 256 wherever the net has
+    hidden-to-hidden weights (one 256 x 256 staging matrix is 256 KB); a
+    width of 257 raises, naming the roadmap item of the wider nets."""
+    devw_from = None
+    for w in range(1, 257):
+        layers = (d,) + (w,) * hidden + (1,)
+        pl = tfm.plan(seeded, layers, Kb)
+        assert pl.smem <= _cuda.SMEM_MAX, layers
+        assert pl.smem == 4 * tfm.smem_floats(seeded, layers, pl.T, Kb, pl.flags), layers
+        assert 4 <= pl.T <= _plan.T_MAX and pl.T % 4 == 0, layers
+        devw = bool(pl.flags & _plan.DEV_WEIGHTS)
+        assert devw == (pl.design == _cuda.DES_DEVW), layers
+        assert not (devw and pl.flags & _plan.RES_WEIGHTS), layers
+        on_chip = min(4 * tfm.smem_floats(seeded, layers, 4, Kb, flags)
+                      for _, flags in _plan.tiers(seeded)) <= _cuda.SMEM_MAX
+        assert devw == (not on_chip), layers
+        if devw and devw_from is None:
+            devw_from = w
+    # one hidden layer has no hidden-to-hidden weights: its resident tier
+    # holds none
+    assert devw_from is None if hidden == 1 else devw_from <= 256
+    with pytest.raises(ValueError, match=r"hidden widths from 1 to 256 \(wider nets: "
+                                         r"ROADMAP.md B7\)"):
+        tfm.plan(seeded, (d, 257) + (1,), Kb)
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+@pytest.mark.parametrize("net,devw", [("w200_d2", False), ("w256_d2", True)])
+def test_multibump_device_tier_routes(monkeypatch, seeded, net, devw):
+    """The K-bump pair's launches on the wide nets: u256 takes the
+    device-weights tier (flags DEV_WEIGHTS, no fold, the hidden weights
+    padded to multiples of 4 in the resident layout, pass B with their
+    transposes after them, as ``wd``), u200 a tier on chip (no ``wd``)."""
+    layers = EXTREMES[net]
+    rec = _Recorder(monkeypatch)
+    params, X, _ = _inputs(layers)
+    Kb = 4
+    coef = torch.zeros((X.shape[0], Kb * (layers[0] + 4)))
+    scal = torch.zeros(3 * Kb)
+    tfm._launch(seeded, params, X, coef, scal if seeded else None, "sin", Kb)
+    ((name, fn, args),) = rec.calls
+    assert (name, fn) == ("multi_seeded" if seeded else "multi_sums", "fused_multibump_f32")
+    pl = tfm.plan(seeded, layers, Kb)
+    # (seeded, n_bumps, X, coef, params, scal, layers, n_layers, act, N, T, G,
+    # flags, fold, partial, scratch, out, smem_bytes, stream, wd)
+    assert args[10] == pl.T and args[12] == pl.flags and args[17] == pl.smem
+    assert bool(pl.flags & _plan.DEV_WEIGHTS) == devw
+    if devw:
+        assert args[13] == 0 and args[19] is not None
+        want = _cuda.device_weights(params, seeded)
+        assert want.numel() == _plan.hidden_floats(layers) * (2 if seeded else 1)
+    else:
+        assert args[19] is None

@@ -162,8 +162,8 @@ def test_poisson_pinn_kernel_path_matches_torch_on_cpu():
 
 def test_wrapper_checks_and_tile_planning_take_any_width():
     """The CPU-side half of the width repair: the wrappers' net check takes
-    hidden widths 1..256 on the fp32 kernels and 1..128 on the K-bump pair
-    (not only multiples of 4; ``_cuda.WIDTH_LIMITS``), the shared-memory
+    hidden widths 1..256 on the fp32 kernels and on the K-bump pair (not
+    only multiples of 4; ``_cuda.WIDTH_LIMITS``), the shared-memory
     plans use the width rounded up to a multiple of 4, and the multibump
     plan counts the K*(d+4)*T coefficient tile (rows padded to an odd
     stride)."""
@@ -179,9 +179,10 @@ def test_wrapper_checks_and_tile_planning_take_any_width():
         for k in ("fwdlap_backward", "multi_seeded"):
             assert _cuda.net_layers(k, net(*layers), X, "sin") == list(layers)
     for layers in ((2, 200, 200, 1), (2, 130, 256, 1)):
-        assert _cuda.net_layers("fwdlap_backward", net(*layers), X, "sin") == list(layers)
-    with pytest.raises(ValueError, match="hidden widths from 1 to 128"):
-        _cuda.net_layers("multi_seeded", net(2, 129, 1), X, "sin")
+        for k in ("fwdlap_backward", "multi_seeded"):
+            assert _cuda.net_layers(k, net(*layers), X, "sin") == list(layers)
+    with pytest.raises(ValueError, match="hidden widths from 1 to 256"):
+        _cuda.net_layers("multi_seeded", net(2, 257, 1), X, "sin")
     with pytest.raises(ValueError, match="hidden widths from 1 to 256"):
         _cuda.net_layers("fwdlap_backward", net(2, 257, 1), X, "sin")
     with pytest.raises(ValueError, match="one output"):
@@ -227,12 +228,17 @@ def _bwd_launchable(pl, layers):
     """What fwdlap_backward.cu's entry point checks before it launches: a
     planned design's tile and layout, or the tensor-core design's (T = 8 or
     a multiple of 16, its own layout)."""
-    from nnpde_tpu_torch.kernels import _cuda
+    from nnpde_tpu_torch.kernels import _cuda, _plan
     from nnpde_tpu_torch.kernels import fused_step as tfs
 
     if pl.design == _cuda.DES_MMA:
+        # (mma::flags_ok: the residencies, the device tiers, not the weights
+        # both resident and in device memory)
+        mma_flags = _plan.RES_WEIGHTS | _plan.RES_GRAD | _plan.DEV_WEIGHTS | _plan.DEV_SUMS
         return ((pl.T == 8 or (16 <= pl.T <= _cuda.NT // 2 and pl.T % 16 == 0))
-                and 0 <= pl.flags <= 7 and pl.smem <= _cuda.SMEM_MAX
+                and not pl.flags & ~mma_flags
+                and not (pl.flags & _plan.RES_WEIGHTS and pl.flags & _plan.DEV_WEIGHTS)
+                and pl.smem <= _cuda.SMEM_MAX
                 and pl.smem >= tfs.mma_smem_bytes(layers, pl.T, pl.flags, "fwdlap_backward"))
     return (4 <= pl.T <= _cuda.NT // 2 and pl.T % 4 == 0 and 0 <= pl.flags <= 7
             and pl.design in _cuda.PLANNED_DESIGNS
@@ -280,7 +286,10 @@ def test_backward_plan_takes_every_shape_the_wrapper_takes(net, design):
     assert _bwd_launchable(pl, layers)
     mma = design == _cuda.DES_MMA
     assert (pl.design == _cuda.DES_MMA) == mma
-    big = (tfs.mma_smem_bytes(layers, 128, 0, "fwdlap_backward") if mma
+    # (the tensor-core design's smallest tier at 128 points: since its device
+    # tiers, neither the weights nor the sums on chip)
+    big = (min(tfs.mma_smem_bytes(layers, 128, flags, "fwdlap_backward")
+               for _, flags in tfs.MMA_TIERS) if mma
            else 4 * tfc.backward_smem_floats(layers, 128))
     if big > _cuda.SMEM_MAX:
         with pytest.raises(ValueError, match="fit"):
