@@ -25,7 +25,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    and method='DRM' for a few hundred epochs (kernel launched, loss finite
    and falling).
 5. wan_path: ``train_poisson_nd(method='WAN')`` (the default 2D Poisson WAN,
-   critic 2-64-64-1, 5 critic steps, 1000 epochs) on jet_impl 'torch' and
+   critic 2-64-64-1, 5 critic steps, 400 epochs) on jet_impl 'torch' and
    'fused' from one seed: first total within rtol 1e-3 and the first 10
    within 5e-2, both best rel_l2 <= 5e-2, all finite, and exactly 6 jet
    forward, 6 linear sums, 6 linear seeded, 5 quad sums and 5 quad seeded
@@ -164,13 +164,28 @@ Phases (each prints one JSON line; any failure exits non-zero):
    epochs on 'fused' with stream and analytic coefficients, 300 on
    'kernel'; exact bf16 and fp32 launch counts; rel_l2 <= max(2 x the fp32
    fused run, 1e-3), the 'kernel' run against its own fp32 run), the 5D Poisson PINN 'hybrid' on 'torch' and 'fused'
-   (1000 epochs; rel_l2 <= max(2 x the route's fp32 run, 1e-3); the two
-   tails from one bulk agree at 1e-3), the Poisson WAN 'hybrid' (300 fused
-   epochs), the infinite well (3, 3) PINN 'hybrid' (500 epochs, 'torch' and
+   (500 epochs; rel_l2 <= max(2 x the route's fp32 run, 1e-3); the two
+   tails from one bulk agree at 1e-3), the Poisson WAN 'hybrid' (150 fused
+   epochs), the infinite well (3, 3) PINN 'hybrid' (250 epochs, 'torch' and
    'fused') and one 100-epoch 'bfloat16' run of each entry point;
    precision_timing times the four kernels in both dot modes at the path's
    N and at 262144 (d = 2), and rows 1, 4, 5 in fp32 at d = 5
    (``timing --rows=fused_linear_residual.bf16`` times one such row alone).
+   Rows 3 and 7-10 in the bf16-dot mode (the Deep-Ritz energy and the
+   quotients' two passes on the same tensor-core body): precision_b1_kernels
+   holds each to its plain bf16-dot version on u64 / c64 at 20000 points,
+   u50 at 40000, (1, 200 x 3, 1) tanh (the wide variant), (5, 64 x 4, 1) and
+   (16, 256, 256, 1) (device-sums), rows 7-8 with and without the
+   Laplacian stream, by the rules above (pass A's sums within 5e-6 of the
+   sum of their terms' magnitudes), and ``dot_dtype='bf16x3'`` to the fp32
+   kernel bitwise; precision_b1_path trains the Poisson 2D DRM
+   (``fused_drm_energy``, 300 epochs), the 2D well's Rayleigh DRM
+   (``make_fused_rayleigh``, (3, 3) FN, u50, 300 epochs) and the Poisson 2D
+   WAN (``make_fused_wan_pair``, 150 epochs), each built with
+   ``dot_dtype='bfloat16'`` and once in float32: exact launches by name,
+   the bf16 metric <= max(2 x the float32 run's, 1e-3) and falling;
+   precision_b1_timing times the five rows at their path cells' N and at
+   262144.
 15. wide (group ``wide``): hidden widths 129-256.  wide_kernels holds rows
    1, 2, 4, 5 bf16 (the tensor-core design's device tiers where the
    weights do not fit beside the stages) on (2, w x 4, 1) at w = 136, 200,
@@ -301,7 +316,14 @@ EIGEN_JITTER_PER_EPOCH = {"fwdlap_forward": 6, "multi_sums": 6, "multi_seeded": 
 EIGEN_EG_PER_EPOCH = {"fwdlap_forward": 4, "multi_sums": 8, "multi_seeded": 8}
 
 
+_T0 = time.time()
+
+
 def emit(obj):
+    """One JSON line; a phase's line carries the seconds since the start
+    (``at_s``: where the run's clock goes)."""
+    if "phase" in obj:
+        obj = dict(obj, at_s=time.time() - _T0)
     print(json.dumps(obj, default=float), flush=True)
 
 
@@ -762,11 +784,13 @@ def phase_main_path():
 
 
 def phase_wan_path():
-    """The default 2D Poisson WAN on both jet paths, then extragradient."""
+    """The default 2D Poisson WAN on both jet paths (400 epochs, cut from
+    1000 for the run's clock: at 300 the fused route is at 1.4e-2 against
+    the 5e-2 gate), then extragradient."""
     from nnpde_tpu_torch.kernels import LAUNCHES, reset_launches
     from nnpde_tpu_torch.problems import PoissonConfig, train_poisson_nd
 
-    epochs = 1000
+    epochs = 400
     base = dict(dim=2, method="WAN", epochs=epochs, chunk=1000)
     t0 = time.time()
     torch_run = train_poisson_nd(PoissonConfig(jet_impl="torch", **base))
@@ -2106,7 +2130,8 @@ PRECISION_SOURCES = {
 MMA_SOURCE = "nnpde_tpu_torch/csrc/fwdlap_mma.cuh"
 # where each entry point takes its design among its arguments
 DES_ARG = {"fused_linear_residual_f32": 12, "fused_poisson_analytic_f32": 11,
-           "fwdlap_forward_f32": 11, "fwdlap_backward_f32": 12}
+           "fwdlap_forward_f32": 11, "fwdlap_backward_f32": 12, "fused_drm_energy_f32": 12,
+           "fused_quotient_mma_f32": 13}
 BF16_PEAK = 989e12       # H100 SXM bf16 tensor cores, dense (FLOP/s)
 PREC_TOL = 1e-4
 # The jet forward's columns are per-point outputs: an operand that rounds to
@@ -2471,9 +2496,10 @@ def phase_precision_path():
     counts["fwdlap_backward.bf16"] = launches.get("fwdlap_backward.bf16", 0)
     out["poisson2d_pinn_hybrid_kernel"] = hk
 
-    # poisson5d-pinn-hybrid: u64 at d = 5, 1000 epochs (cut from 10000), on
+    # poisson5d-pinn-hybrid: u64 at d = 5, 500 epochs (cut from 10000), on
     # torch and on fused (torch bulk, fused tail), beside fp32 runs
-    b5 = dict(dim=5, method="PINN", bc_mode="FBC", epochs=1000, n_interior=20000, chunk=1000)
+    e5 = 500
+    b5 = dict(dim=5, method="PINN", bc_mode="FBC", epochs=e5, n_interior=20000, chunk=1000)
     p5, runs5 = {}, {}
     for route in ("torch", "fused"):
         r32, l32, _ = run(train_poisson_nd, PoissonConfig(jet_impl=route, **b5))
@@ -2481,8 +2507,8 @@ def phase_precision_path():
                                                         compute_dtype="hybrid", **b5))
         runs5[route] = rh
         g = max(2.0 * r32["rel_l2"], 1e-3)
-        want = {} if route == "torch" else {"fused_linear_residual": 200}
-        want32 = {} if route == "torch" else {"fused_linear_residual": 1000}
+        want = {} if route == "torch" else {"fused_linear_residual": e5 // 5}
+        want32 = {} if route == "torch" else {"fused_linear_residual": e5}
         p5[route] = {"rel_l2_hybrid": rh["rel_l2"], "rel_l2_fp32": r32["rel_l2"], "gate": g,
                      "launches": lh, "launches_fp32": l32, "steps_per_s": _rate(rh),
                      "bulk_steps_per_s": rh["result"].timing["bulk_steps_per_s"],
@@ -2497,22 +2523,23 @@ def phase_precision_path():
                     and p5["tail_total0_rel"] <= 1e-3)
     out["poisson5d_pinn_hybrid"] = p5
 
-    # poisson2d-wan-hybrid: the WAN path's config, 300 epochs on fused
-    r, launches, wall = run(train_poisson_nd, PoissonConfig(dim=2, method="WAN", epochs=300,
+    # poisson2d-wan-hybrid: the WAN path's config, 150 epochs on fused
+    ew = 150
+    r, launches, wall = run(train_poisson_nd, PoissonConfig(dim=2, method="WAN", epochs=ew,
                                                             chunk=1000, jet_impl="fused",
                                                             compute_dtype="hybrid"))
     h = r["history"]
     l2_first = float(h["l2"][0]) / 0.5
-    want = {k: n * 60 for k, n in WAN_PER_EPOCH.items()}
+    want = {k: n * ew // 5 for k, n in WAN_PER_EPOCH.items()}
     out["poisson2d_wan_hybrid"] = {
-        "epochs": 300, "rel_l2": r["rel_l2"], "rel_l2_first": l2_first, "launches": launches,
+        "epochs": ew, "rel_l2": r["rel_l2"], "rel_l2_first": l2_first, "launches": launches,
         "steps_per_s": _rate(r), "bulk_steps_per_s": r["result"].timing["bulk_steps_per_s"],
         "tail_steps_per_s": r["result"].timing["tail_steps_per_s"],
         "ok": bool(all(np.all(np.isfinite(h[k])) for k in ("total", "l2", "wan_loss_v"))
                    and r["rel_l2"] < l2_first and launches == want)}
 
-    # ipw2d-n33-pinn-hybrid: 500 epochs (cut from 20000), torch and fused
-    ib = dict(nx=3, ny=3, technique="FN", method="PINN", epochs=500, chunk=1000,
+    # ipw2d-n33-pinn-hybrid: 250 epochs (cut from 20000), torch and fused
+    ib = dict(nx=3, ny=3, technique="FN", method="PINN", epochs=250, chunk=1000,
               weights={"data": 1e4})
     i32, _, _ = run(train_ipw_2d, IPW2DConfig(jet_impl="torch", **ib))
     g = max(2.0 * i32["rel_l2"], 1e-3)
@@ -2520,7 +2547,7 @@ def phase_precision_path():
     for route in ("torch", "fused"):
         r, launches, _ = run(train_ipw_2d, IPW2DConfig(jet_impl=route, compute_dtype="hybrid",
                                                        **ib))
-        want = {} if route == "torch" else {"fused_linear_residual": 100}
+        want = {} if route == "torch" else {"fused_linear_residual": ib["epochs"] // 5}
         ip[route] = {"rel_l2": r["rel_l2"], "launches": launches, "steps_per_s": _rate(r),
                      "bulk_steps_per_s": r["result"].timing["bulk_steps_per_s"],
                      "tail_steps_per_s": r["result"].timing["tail_steps_per_s"],
@@ -2544,6 +2571,508 @@ def phase_precision_path():
     emit({"phase": "precision_path", **out, "ok": ok})
     if not ok:
         raise SystemExit("precision path check failed")
+    return counts
+
+
+# -------------------------------- rows 3 and 7-10 in the bf16-dot mode (B1)
+# The Deep-Ritz energy and the quotients' two passes on the tensor-core body
+# (fwdlap_mma.cuh: row 3 KIND_FUSED without the Laplacian stream, pass B
+# KIND_FUSED with the seeded cotangents, pass A KIND_SUMS): the kernels
+# against their plain bf16-dot versions, three short trainings built through
+# the public constructors, and their times.
+B1_REPLACES = {
+    "fused_drm_energy.bf16": "nnpde_tpu/kernels/fused_step.py:170",
+    "linear_sums.bf16": "nnpde_tpu/kernels/fused_quotient.py:111",
+    "linear_seeded.bf16": "nnpde_tpu/kernels/fused_quotient.py:189",
+    "quad_sums.bf16": "nnpde_tpu/kernels/fused_quotient.py:268",
+    "quad_seeded.bf16": "nnpde_tpu/kernels/fused_quotient.py:333",
+}
+B1_SOURCES = {name: ("nnpde_tpu_torch/csrc/fused_step.cu" if name.startswith("fused")
+                     else "nnpde_tpu_torch/csrc/fused_quotient_mma.cu") for name in B1_REPLACES}
+U200_1D = (1, 200, 200, 200, 1)
+U5 = (5, 64, 64, 64, 64, 1)
+D16 = (16, 256, 256, 1)       # the device-sums tier of the kinds with a reverse sweep
+# (kind, lap): lap 0 drops the Laplacian stream (row 3, the quadratic
+# quotients, the WAN weak forms' no_lap), lap 1 carries it (rows 7-8)
+B1_KINDS = (("fused_drm_energy", 0), ("linear_sums", 0), ("linear_sums", 1),
+            ("linear_seeded", 0), ("linear_seeded", 1), ("quad_sums", 0), ("quad_seeded", 0))
+# the shapes each kind is held at: (layers, N, act)
+B1_SHAPES = {
+    "fused_drm_energy": ((LAYERS, 20000, "sin"), (U50, 40000, "sin")),
+    "linear_sums": ((CRITIC, 20000, "sin"), (LAYERS, 20000, "sin")),
+    "linear_seeded": ((CRITIC, 20000, "sin"), (LAYERS, 20000, "sin")),
+    "quad_sums": ((CRITIC, 20000, "sin"), (U50, 40000, "sin")),
+    "quad_seeded": ((CRITIC, 20000, "sin"), (U50, 40000, "sin")),
+}
+B1_COMMON = ((U200_1D, 20000, "tanh"), (U5, 20000, "sin"), (D16, 8000, "sin"))
+# each row's cell on its path, timed at its n and at 262144 (the kernels
+# line takes the first): row 3 the Poisson DRM's u64; rows 7-8 the Poisson
+# WAN's critic (5 of its 6 launches an epoch) and u; rows 9-10 the WAN
+# critic's regulariser and the 2D well's Rayleigh DRM
+B1_CELLS = {
+    "fused_drm_energy": ((LAYERS, 20000),),
+    "linear_sums": ((CRITIC, 20000), (LAYERS, 20000)),
+    "linear_seeded": ((CRITIC, 20000), (LAYERS, 20000)),
+    "quad_sums": ((CRITIC, 20000), (U50, 40000)),
+    "quad_seeded": ((CRITIC, 20000), (U50, 40000)),
+}
+B1_EPOCHS = {"drm": 300, "rayleigh": 300, "wan": 150}
+# pass A's sums are held as the kernels phase holds the fp32 sums: each
+# sum's difference over the sum of its terms' magnitudes (a sum whose terms
+# cancel, such as the weak residual, amplifies any relative bar: on the
+# critic the plain float32 version's sum r is 1.1e-2 from its float64
+# witness, and the bf16 kernel 3.4e-4 from its plain version).  By that
+# measure the kernel is 2.1e-9 to 3.6e-6 from its plain version at these
+# shapes and the fp32 kernel 9.5e-5 to 1.9e-2 from it, so, as the jet
+# forward's bars are set (PREC_TOL_JET), the bar lies above the one and
+# below a tenth of the other.
+PREC_TOL_SUMS = 5e-6
+
+
+class B1Case:
+    """Row 3 or one of rows 7-10 at one shape, through its public wrapper in
+    any dot mode, and its plain version of either mode: lists of tensors
+    (the loss or the sums one by one, then the gradient leaves; pass B's
+    last bias leaf is sum ct_v).  Inputs as the paths build them: row 3 the
+    Poisson energy's [B, dB, f], the linear quotients the WAN weak form (a
+    nonzero ``a`` column where the Laplacian is carried), the quadratic ones
+    the critic regulariser with a source."""
+
+    def __init__(self, kind, N, layers, act, seed, dev, lap=0):
+        self.kind, self.N, self.layers, self.act, self.lap = kind, N, layers, act, lap
+        self.d = layers[0]
+        if kind == "fused_drm_energy":
+            self.src = Case(kind, N, self.d, layers, act, seed, dev)
+            self.scal = None
+        else:
+            self.src = WanCase(kind, N, layers, act, seed, dev, lap)
+            self.scal = self.src.scal
+        self.params, self.X, self.coef = self.src.params, self.src.X, self.src.coef
+
+    def kernel(self, dot):
+        from nnpde_tpu_torch.kernels import fused_quotient as fq
+        from nnpde_tpu_torch.kernels import fused_step as fs
+
+        p, X, c, k = self.params, self.X, self.coef, self.kind
+        if k == "fused_drm_energy":
+            loss, _, g = fs.fused_drm_energy(p, X, c, self.act, dot_dtype=dot)
+            return [loss.reshape(1)] + [t for pair in g for t in pair]
+        if k == "linear_sums":
+            s = fq.fused_linear_sums(p, X, c, self.act, no_lap=not self.lap, dot_dtype=dot)
+            return [s[n].reshape(1) for n in ("sum_r", "sum_r2", "sum_mass", "sum_e2")]
+        if k == "quad_sums":
+            s = fq.fused_quad_sums(p, X, c, self.act, dot_dtype=dot)
+            return [s[n].reshape(1) for n in ("sum_e", "sum_u2")]
+        if k == "linear_seeded":
+            g = fq.fused_seeded_grads(p, X, c, self.scal, self.act, no_lap=not self.lap,
+                                      dot_dtype=dot)
+        else:
+            g = fq.fused_quad_seeded_grads(p, X, c, self.scal, self.act, dot_dtype=dot)
+        return [t for pair in g for t in pair]
+
+    def plain(self, dot, dtype=torch.float32):
+        """The plain version of the ``dot`` mode on the card (float64: in the
+        bf16-dot mode the witness, its operands rounded from float64)."""
+        from nnpde_tpu_torch.kernels import fused_quotient as fq
+        from nnpde_tpu_torch.kernels import fused_step as fs
+
+        P = [(W.to(dtype), b.to(dtype)) for W, b in self.params]
+        X, c, k = self.X.to(dtype), self.coef.to(dtype), self.kind
+        if k == "fused_drm_energy":
+            dWs, dbs, sums = fs.drm_energy_plain(P, X, c, self.act, dot)
+            g = fs._scaled_grads(P, dWs, dbs, sums, 1.0 / self.N)
+            return [(sums[0] / self.N).reshape(1)] + [t for pair in g for t in pair]
+        if k == "linear_sums":
+            return list(fq.linear_sums_plain(P, X, c, self.act, not self.lap, dot).reshape(-1, 1))
+        if k == "quad_sums":
+            return list(fq.quad_sums_plain(P, X, c, self.act, dot).reshape(-1, 1))
+        s = self.scal.to(dtype)
+        if k == "linear_seeded":
+            dWs, dbs, sums = fq.linear_seeded_plain(P, X, c, s, self.act, not self.lap, dot)
+        else:
+            dWs, dbs, sums = fq.quad_seeded_plain(P, X, c, s, self.act, dot)
+        return [t for pair in fq._seeded_grads(P, dWs, dbs, sums) for t in pair]
+
+    def tol(self):
+        return PREC_TOL_SUMS if self.kind.endswith("_sums") else PREC_TOL
+
+    def rel(self, a, b):
+        """The largest difference over the loss and every leaf, each
+        norm-relative; pass A's over its sums, each over the float64 sum of
+        its terms' magnitudes."""
+        if self.kind.endswith("_sums"):
+            if not hasattr(self, "scale"):
+                self.scale = self.src.abs_terms()
+            return max(float(torch.abs(x.double() - y.double()).max()) / float(m)
+                       for x, y, m in zip(a, b, self.scale))
+        return max(float(torch.linalg.norm(x.double() - y.double())
+                         / max(float(torch.linalg.norm(y.double())), 1e-30))
+                   for x, y in zip(a, b))
+
+    def distinct(self, bf, f32):
+        """How far the bf16-dot result is from the fp32 one: the largest
+        gradient leaf difference (row 3 past its loss), or sum difference."""
+        lo = 1 if self.kind == "fused_drm_energy" else 0
+        return self.rel(bf[lo:], f32[lo:])
+
+    def streams(self):
+        return self.d + 1 + self.lap
+
+    def flops(self):
+        per = 2.0 if self.kind.endswith("_sums") else 6.0
+        return per * self.streams() * macs(self.layers) * self.N
+
+    def bytes(self):
+        P = sum(a * b + b for a, b in zip(self.layers[:-1], self.layers[1:]))
+        out = {"fused_drm_energy": P + 3, "linear_sums": 4, "quad_sums": 2}.get(self.kind, P + 1)
+        return 4.0 * (self.N * (self.d + self.coef.shape[1]) + P + out)
+
+    def bound(self, peak):
+        ops, mem = self.flops() / peak, self.bytes() / HBM_RATE
+        return 1e3 * max(ops, mem), "operations" if ops >= mem else "bytes"
+
+    def plan(self):
+        from nnpde_tpu_torch.kernels import fused_step as fs
+
+        return fs.mma_plan(self.kind, list(self.layers), lap=self.lap)
+
+
+def phase_precision_b1_kernels(dev):
+    """Rows 3 and 7-10 bf16 against their plain bf16-dot versions (float32
+    on the card) by the precision phase's rules: the loss and every
+    gradient leaf within 1e-4 norm-relative (pass A: every sum within 1e-5
+    of the sum of its terms' magnitudes, PREC_TOL_SUMS); more than 10x that
+    bar from the fp32 kernel; no further from the float64 witness than 2x
+    the plain version (+2e-6); two launches bitwise equal; every launch the
+    tensor-core design of its plan (narrow or wide, read from the launch's
+    own arguments).  Shapes: each kind at its paths' nets (u64 / c64 at d =
+    2, 20000 points; u50 at 40000), the oscillator's width (1, 200 x 3, 1)
+    tanh (the wide variant), (5, 64 x 4, 1) and (16, 256, 256, 1) (the
+    device tiers: device-sums for the kinds with a reverse sweep); rows 7-8
+    with and without the Laplacian stream.  ``bf16x3`` launches the fp32
+    kernel (its plain name) bitwise equal to ``float32`` at every kind's
+    first shape."""
+    from nnpde_tpu_torch.kernels import LAUNCHES, _cuda
+    from nnpde_tpu_torch.kernels import fused_step as fs
+
+    rows, x3_rows, max_err = [], [], {}
+    seed = 400
+    for kind, lap in B1_KINDS:
+        name = kind + ".bf16"
+        for i, (layers, N, act) in enumerate(B1_SHAPES[kind] + B1_COMMON):
+            seed += 1
+            case = B1Case(kind, N, layers, act, seed, dev, lap)
+            pl = case.plan()
+            with _cuda.capture() as cap:
+                out = case.kernel("bfloat16")
+            designs = sorted({args[DES_ARG[fn.__name__]] for _, fn, args, _, _ in cap.calls})
+            names = [c[0] for c in cap.calls]
+            del cap
+            out2, f32 = case.kernel("bfloat16"), case.kernel("float32")
+            torch.cuda.synchronize()
+            bitwise = all(torch.equal(a, b) for a, b in zip(out, out2))
+            ref = case.plain("bfloat16")
+            wit = case.plain("bfloat16", torch.float64)
+            rel = case.rel(out, ref)
+            w_kernel, w_plain = case.rel(out, wit), case.rel(ref, wit)
+            apart = case.distinct(out, f32)
+            err = max(float(torch.max(torch.abs(a.double() - b.double())))
+                      for a, b in zip(out, ref))
+            max_err[name] = max(max_err.get(name, 0.0), err)
+            want_des = fs.mma_des(list(layers), pl.flags)
+            tol = case.tol()
+            row = {"kernel": name, "lap": lap, "N": N, "layers": list(layers), "act": act,
+                   "plan": {"T": pl.T, "tier": pl.tier, "smem": pl.smem}, "rel": rel,
+                   "tol": tol, "rel_to_fp32_kernel": apart,
+                   "witness_rel_kernel": w_kernel, "witness_rel_plain": w_plain,
+                   "max_abs_err": err, "bitwise_repeat": bitwise, "designs": designs,
+                   "launch_names": names}
+            row["ok"] = bool(rel <= tol and apart > 10 * tol and bitwise
+                             and w_kernel <= 2.0 * w_plain + 2e-6
+                             and designs == [want_des] and names == [name]
+                             and (layers != D16 or kind.endswith("_sums")
+                                  or pl.tier == "device-sums"))
+            if i == 0:
+                before = LAUNCHES[kind]
+                same = all(torch.equal(a, b) for a, b in zip(case.kernel("bf16x3"), f32))
+                torch.cuda.synchronize()
+                x3_rows.append({"kernel": kind, "lap": lap, "layers": list(layers),
+                                "bitwise_float32": same,
+                                "fp32_launches": LAUNCHES[kind] - before,
+                                "ok": bool(same and LAUNCHES[kind] - before == 1)})
+            rows.append(row)
+            del case, out, out2, f32, ref, wit
+            torch.cuda.empty_cache()
+    x3_rows += bf16x3_other_rows(dev)
+    emit({"phase": "precision_b1_kernels", "tol": PREC_TOL, "tol_sums": PREC_TOL_SUMS,
+          "rows": rows, "bf16x3": x3_rows})
+    if not all(r["ok"] for r in rows + x3_rows):
+        raise SystemExit("rows 3 and 7-10 bf16-dot kernel vs plain comparison failed")
+    return max_err
+
+
+def bf16x3_other_rows(dev):
+    """``dot_dtype='bf16x3'`` on the kernels other than rows 3 and 7-10: rows
+    1 and 2, the jet pair through ``mlp_fwdlap_kernel`` (rows 4 and 5 by the
+    row forward, 6 and 5 by the stream-major one) and the K-bump pair (rows
+    11-12), at the main path's u64 and 20000 points: the same launches by
+    name as ``'float32'`` and bitwise its result."""
+    from nnpde_tpu_torch.kernels import LAUNCHES, reset_launches
+    from nnpde_tpu_torch.kernels import fused_multibump as fm
+    from nnpde_tpu_torch.kernels import fused_step as fs
+    from nnpde_tpu_torch.kernels import mlp_fwdlap_kernel
+
+    rng = np.random.default_rng(450)
+    N, Kb = 20000, 4
+    params = rand_params(rng, LAYERS, dev)
+    X = torch.as_tensor(rng.uniform(0.0, L, (N, 2)).astype(np.float32), device=dev)
+    coef = torch.as_tensor(rng.normal(size=(N, 6)).astype(np.float32), device=dev)
+    mcoef = torch.as_tensor(rng.normal(size=(N, Kb * 6)).astype(np.float32), device=dev)
+    scal = tuple(torch.as_tensor(rng.normal(size=Kb).astype(np.float32), device=dev)
+                 for _ in range(3))
+
+    def jet(dot, fwd_impl):
+        leaves = [(W.clone().requires_grad_(True), b.clone().requires_grad_(True))
+                  for W, b in params]
+        j = mlp_fwdlap_kernel(leaves, X, "sin", fwd_impl=fwd_impl, dot_dtype=dot)
+        val = j.value.mean() + (j.lap ** 2).mean()
+        return [val.detach()] + list(torch.autograd.grad(val, [t for p in leaves for t in p]))
+
+    def flat(out):
+        return [t for x in out for t in (x if isinstance(x, (tuple, list)) else (x,))]
+
+    calls = {
+        "fused_linear_residual": lambda dot: fs.fused_linear_residual(
+            params, X, coef, "sin", dot_dtype=dot)[2],
+        "fused_poisson_analytic": lambda dot: fs.fused_poisson_analytic(
+            params, X, "sin", L=L, ks=(1, 1), dot_dtype=dot)[2],
+        "jet rows": lambda dot: jet(dot, "rows"),
+        "jet streams": lambda dot: jet(dot, "streams"),
+        "multi_sums": lambda dot: list(fm.fused_multi_sums(
+            params, X, mcoef, "sin", Kb, dot_dtype=dot).values())[:3],
+        "multi_seeded": lambda dot: fm.fused_multi_seeded_grads(
+            params, X, mcoef, scal, "sin", Kb, dot_dtype=dot),
+    }
+    rows = []
+    for name, call in calls.items():
+        launched = {}
+        outs = {}
+        for dot in ("bf16x3", "float32"):
+            reset_launches()
+            outs[dot] = flat(call(dot))
+            torch.cuda.synchronize()
+            launched[dot] = {k: v for k, v in LAUNCHES.items() if v}
+        same = all(torch.equal(a, b) for a, b in zip(outs["bf16x3"], outs["float32"]))
+        rows.append({"kernel": name, "bitwise_float32": same, "launches": launched["bf16x3"],
+                     "ok": bool(same and launched["bf16x3"] == launched["float32"]
+                                and not any(k.endswith(".bf16") for k in launched["bf16x3"]))})
+    reset_launches()
+    return rows
+
+
+def phase_precision_b1_timing(dev, only=None):
+    """Wrapper and device ms of rows 3 and 7-10 bf16 at their path cells'
+    N and at 262144, each with its plain bf16-dot version's ms, its bound
+    at the bf16 tensor cores' peak and its CUDA-core bound beside it, and
+    its plan.  ``only``: the rows of these names (``timing
+    --rows=KERNEL.bf16``)."""
+    rows = []
+    for kind, cells in B1_CELLS.items():
+        name = kind + ".bf16"
+        if only is not None and name not in only:
+            continue
+        for layers, n in cells:
+            for N in (n, 262144):
+                case = B1Case(kind, N, layers, "sin", seed=9, dev=dev)
+                ms = time_ms(lambda: case.kernel("bfloat16"))
+                dev_ms = device_ms(lambda: case.kernel("bfloat16"))
+                plain_ms = time_ms(lambda: case.plain("bfloat16"), warmup=2, reps=7)
+                bound, by = case.bound(BF16_PEAK)
+                pl = case.plan()
+                rows.append({"kernel": name, "layers": list(layers), "d": layers[0], "N": N,
+                             "path_n": n, "plan": {"T": pl.T, "tier": pl.tier,
+                                                   "smem": pl.smem},
+                             "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                             "bound_ms": bound, "bound_by": by,
+                             "bound_cuda_core_ms": case.bound(FP32_PEAK)[0],
+                             "flop": case.flops(), "bytes": case.bytes(),
+                             "gflops": case.flops() / (dev_ms * 1e-3) / 1e9})
+                del case
+                torch.cuda.empty_cache()
+    emit({"phase": "precision_b1_timing", "rows": rows})
+    return rows
+
+
+def _b1_poisson_drm(dev, dot):
+    """The 2D Poisson Deep-Ritz energy on ``fused_drm_energy`` as
+    ``fit(loss_and_grad_fn=...)``: the box-FBC u64 net, 20000 fixed points,
+    Adam 1e-3; eval the MSE against the product-sine solution on 10000
+    points (rel_l2 = sqrt(best) / rms)."""
+    from nnpde_tpu_torch.kernels import drm_coefficients, fused_drm_energy
+    from nnpde_tpu_torch.models import NetSpec, SolutionModel, factor_for_technique
+    from nnpde_tpu_torch.pde.poisson import exact_u_prod_sin, rhs_f_for_u_sin
+    from nnpde_tpu_torch.train import fit, make_optimizer
+
+    model = SolutionModel(NetSpec(LAYERS, activation="sin"),
+                          factor_for_technique("FBC", dim=2, kind="box", L=L))
+    params = [(W.to(dev), b.to(dev)) for W, b in model.init(0)]
+    g = torch.Generator(device=dev).manual_seed(11)
+    X = torch.rand((20000, 2), generator=g, device=dev) * L
+    Xe = torch.rand((10000, 2), generator=g, device=dev) * L
+    ue = exact_u_prod_sin(Xe, L, (1, 1))
+    coef = drm_coefficients(model.factor.jet(X), rhs_f_for_u_sin(X, L, (1, 1)))
+
+    def lag(p, key):
+        loss, _, grads = fused_drm_energy(p, X, coef, "sin", dot_dtype=dot)
+        return (loss, {"pde": loss}), grads
+
+    def eval_fn(p, key):
+        return torch.mean((model.apply_batch(p, Xe) - ue) ** 2)
+
+    n = B1_EPOCHS["drm"]
+    r = fit(None, eval_fn, params, epochs=n, optimizer=make_optimizer(1e-3, total_steps=n),
+            key=0, chunk=n, loss_and_grad_fn=lag)
+    return {"metric": math.sqrt(r.best_metric) / 0.5,
+            "first": math.sqrt(float(r.history["l2"][0])) / 0.5, "result": r}
+
+
+def _b1_rayleigh(dev, dot):
+    """The 2D infinite well's Rayleigh DRM, ``make_fused_rayleigh`` under
+    ``fit``: state (3, 3) with the FN factor (its nodal lines), u50, the
+    200 x 200 grid (40000 points), weight 2 (the unscaled convention), Adam
+    1e-3; eval the relative error of the quotient 1/2 mean|grad u|^2 /
+    mean u^2 (torch route, fp32) against E_33 on every fourth point."""
+    from nnpde_tpu_torch.kernels import make_fused_rayleigh, quotient_coefficients
+    from nnpde_tpu_torch.models import NetSpec, SolutionModel, factor_for_technique
+    from nnpde_tpu_torch.pde import ipw as phys
+    from nnpde_tpu_torch.sampling import meshgrid_2d
+    from nnpde_tpu_torch.train import fit, make_optimizer
+
+    factor = factor_for_technique("FN", dim=2, kind="box", L=L,
+                                  nodes_per_dim=[phys.nodes(3, L), phys.nodes(3, L)])
+    model = SolutionModel(NetSpec(U50, activation="sin"), factor)
+    params = [(W.to(dev), b.to(dev)) for W, b in model.init(0)]
+    X = meshgrid_2d(200, 0.0, L, device=dev)
+    Xe = X[::4]
+    E = phys.energy_2d(3, 3, L)
+    coef = quotient_coefficients(factor.jet(X))
+    ray = make_fused_rayleigh("sin", weight=2.0, den_eps=1e-8, dot_dtype=dot)
+
+    def loss_fn(p, key):
+        total, aux = ray(p, X, coef)
+        return total, {"rayleigh": aux["rayleigh"]}
+
+    def eval_fn(p, key):
+        u, gu = model.value_and_grad(p, Xe)
+        q = 0.5 * torch.mean(torch.sum(gu * gu, dim=1)) / torch.mean(u * u)
+        return torch.abs(q - E) / E
+
+    n = B1_EPOCHS["rayleigh"]
+    r = fit(loss_fn, eval_fn, params, epochs=n, optimizer=make_optimizer(1e-3, total_steps=n),
+            key=0, chunk=n)
+    return {"metric": r.best_metric, "first": float(r.history["l2"][0]), "result": r}
+
+
+def _b1_poisson_wan(dev, dot):
+    """The 2D Poisson WAN on ``make_fused_wan_pair(..., dot_dtype=dot)``
+    and ``make_fused_quad_mean`` (the critic regulariser mean(|grad v|^2 +
+    v^2), weight 2) under ``fit_wan``: the box-FBC u64 primal, the raw c64
+    critic, the bump window, 20000 fixed points, 5 critic steps an epoch,
+    Adam 1e-3; eval as the Poisson DRM run's."""
+    from nnpde_tpu_torch.kernels import make_fused_quad_mean, quotient_coefficients
+    from nnpde_tpu_torch.models import NetSpec, SolutionModel, factor_for_technique
+    from nnpde_tpu_torch.ops import bump_w
+    from nnpde_tpu_torch.pde.poisson import exact_u_prod_sin, rhs_f_for_u_sin
+    from nnpde_tpu_torch.problems._fused_wan import factor_jet_or_one, make_fused_wan_pair
+    from nnpde_tpu_torch.train import fit_wan, make_wan_optimizers
+
+    model = SolutionModel(NetSpec(LAYERS, activation="sin"),
+                          factor_for_technique("FBC", dim=2, kind="box", L=L))
+    critic = SolutionModel(NetSpec(CRITIC, activation="sin"))
+    up = [(W.to(dev), b.to(dev)) for W, b in model.init(0)]
+    vp = [(W.to(dev), b.to(dev)) for W, b in critic.init(1)]
+    g = torch.Generator(device=dev).manual_seed(12)
+    X = torch.rand((20000, 2), generator=g, device=dev) * L
+    Xe = torch.rand((10000, 2), generator=g, device=dev) * L
+    ue = exact_u_prod_sin(Xe, L, (1, 1))
+    f = rhs_f_for_u_sin(X, L, (1, 1))
+    wv, dwv = bump_w(X, 0.0, L)
+    E0 = torch.zeros((), device=dev)
+    pair = make_fused_wan_pair(model, critic, w_pde=1.0, prefactor=1.0, dot_dtype=dot)
+    reg = make_fused_quad_mean("sin", weight=2.0, dot_dtype=dot)
+    coef_r = quotient_coefficients(factor_jet_or_one(critic, X), V=0.5)
+
+    def v_loss_fn(v_params, u_params, key):
+        lv, _ = pair.v_loss_fn(v_params, u_params, E0, X, wv, dwv, f=f)
+        r2, _ = reg(v_params, X, coef_r)
+        return lv + r2
+
+    def u_loss_fn(u_params, v_params, key):
+        pde, aux = pair.u_pde_fn(u_params, E0, v_params, X, wv, dwv, f=f)
+        return pde, {"pde": aux["pde_loss"]}
+
+    def eval_fn(p, key):
+        return torch.mean((model.apply_batch(p, Xe) - ue) ** 2)
+
+    n = B1_EPOCHS["wan"]
+    u_opt, v_opt = make_wan_optimizers(1e-3, epochs=n, v_steps=5)
+    r = fit_wan(u_loss_fn, v_loss_fn, eval_fn, up, vp, epochs=n, v_steps=5, u_optimizer=u_opt,
+                v_optimizer=v_opt, key=0, chunk=n)
+    return {"metric": math.sqrt(r.best_metric) / 0.5,
+            "first": math.sqrt(float(r.history["l2"][0])) / 0.5, "result": r}
+
+
+def phase_precision_b1_path(dev):
+    """Three short trainings at the main path's widths, each built with
+    ``dot_dtype='bfloat16'`` through the public constructors and once more
+    in float32 (the same seed, points and steps): the Poisson 2D DRM on row
+    3, the 2D well's Rayleigh DRM on rows 9-10, the Poisson 2D WAN on rows
+    7-10 (and the frozen nets' jets on row 4, fp32).  Each bf16 run's launches
+    are asserted exactly by name, and its metric (rel_l2; the Rayleigh run's
+    relative energy error) is held to PERF.md section 2's reduced-precision
+    bar, <= max(2 x the float32 run's, 1e-3), and must fall below its first
+    value.  Returns the bf16 runs' launches."""
+    from nnpde_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    n = B1_EPOCHS
+    want = {
+        "drm": {"fused_drm_energy.bf16": n["drm"]},
+        "rayleigh": {"quad_sums.bf16": n["rayleigh"], "quad_seeded.bf16": n["rayleigh"]},
+        "wan": {"fwdlap_forward": 6 * n["wan"], "linear_sums.bf16": 6 * n["wan"],
+                "linear_seeded.bf16": 6 * n["wan"], "quad_sums.bf16": 5 * n["wan"],
+                "quad_seeded.bf16": 5 * n["wan"]},
+    }
+    fns = {"drm": _b1_poisson_drm, "rayleigh": _b1_rayleigh, "wan": _b1_poisson_wan}
+    out, counts = {}, {}
+    for name, fn in fns.items():
+        runs = {}
+        for dot in ("float32", "bfloat16"):
+            reset_launches()
+            t0 = time.time()
+            r = fn(dev, dot)
+            torch.cuda.synchronize()
+            runs[dot] = dict(r, wall_s=time.time() - t0,
+                             launches={k: v for k, v in LAUNCHES.items() if v})
+        b, f = runs["bfloat16"], runs["float32"]
+        gate = max(2.0 * f["metric"], 1e-3)
+        want32 = {k[:-5] if k.endswith(".bf16") else k: v for k, v in want[name].items()}
+        out[name] = {
+            "epochs": n[name], "metric_bf16": b["metric"], "metric_fp32": f["metric"],
+            "first_bf16": b["first"], "gate": gate, "launches": b["launches"],
+            "launches_fp32": f["launches"],
+            "steps_per_s": b["result"].timing["steps_per_s"],
+            "fp32_steps_per_s": f["result"].timing["steps_per_s"],
+            "wall_s": b["wall_s"] + f["wall_s"],
+            "ok": bool(math.isfinite(b["metric"]) and b["metric"] <= gate
+                       and b["metric"] < b["first"] and b["launches"] == want[name]
+                       and f["launches"] == want32)}
+        for k, v in b["launches"].items():
+            if k.endswith(".bf16"):
+                counts[k] = counts.get(k, 0) + v
+    ok = all(v["ok"] for v in out.values())
+    emit({"phase": "precision_b1_path", **out, "ok": ok})
+    if not ok:
+        raise SystemExit("bf16 DRM / Rayleigh / WAN path check failed")
     return counts
 
 
@@ -4932,6 +5461,7 @@ def main():
         max_err.update(phase_eigen_kernels(dev))
     if "precision" in want:
         max_err.update(phase_precision_kernels(dev))
+        max_err.update(phase_precision_b1_kernels(dev))
     if "ipw3d" in want:
         for kind, err in phase_ipw3d_kernels(dev).items():
             max_err[kind] = max(max_err.get(kind, 0.0), err)
@@ -4988,13 +5518,14 @@ def main():
         raise SystemExit(f"{', '.join(missed)}: a row missed its ACCEPTANCE.json target (above)")
     if "precision" in want:
         launches.update(phase_precision_path())
+        launches.update(phase_precision_b1_path(dev))
     wide_launches = {}
     if "wide" in want:
         for kind, err in phase_wide_kernels(dev).items():
             max_err[kind] = max(max_err.get(kind, 0.0), err)
         wide_launches = phase_wide_path()
         phase_wide_timing(dev)
-    rows = wan_rows = eigen_rows = prec_rows = []
+    rows = wan_rows = eigen_rows = prec_rows = b1_rows = []
     if "timing" in want:
         rows = phase_timing(dev, only)
         wan_rows = phase_wan_timing(dev, only)
@@ -5008,8 +5539,10 @@ def main():
         phase_graph_trace(dev)
     if "precision" in want:
         prec_rows = phase_precision_timing(dev)
+        b1_rows = phase_precision_b1_timing(dev)
     elif only is not None and any(name.endswith(".bf16") for name in only):
         phase_precision_timing(dev, only)
+        phase_precision_b1_timing(dev, only)
     emit({"phase": "train_step", **speed,
           "points_per_s_fused": speed.get("steps_per_s_fused", 0.0) * 20000})
     if not full:
@@ -5055,12 +5588,21 @@ def main():
             "max_abs_err": max_err[kind], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
         })
+    for kind in B1_REPLACES:
+        row = next(r for r in b1_rows if r["kernel"] == kind and r["N"] == r["path_n"])
+        kernels.append({
+            "name": kind, "route": "cuda", "source": B1_SOURCES[kind],
+            "design_source": MMA_SOURCE,
+            "replaces": B1_REPLACES[kind], "launches": launches[kind],
+            "max_abs_err": max_err[kind], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
+        })
     # the launches of the width-200 paths (phase wide_path), beside each
     # kernel's own path's
     for k in kernels:
         if k["name"] in wide_launches:
             k["launches_wide"] = wide_launches[k["name"]]
-    if len(kernels) != 16 or not all(k["launches"] > 0 for k in kernels):
+    if len(kernels) != 21 or not all(k["launches"] > 0 for k in kernels):
         raise SystemExit("a kernel of the paths was launched no time on its path")
     if set(wide_launches) != set(PRECISION_REPLACES) | {"multi_sums", "multi_seeded"} or not all(
             wide_launches.values()):

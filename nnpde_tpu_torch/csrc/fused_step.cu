@@ -26,13 +26,14 @@
 //     4 x 8 to a warp, and two-point items where their one-wave tile fits
 //     (fwdlap_planned.cuh has the design and what it is for);
 //   * the tensor-core design (body<KIND_FUSED> of fwdlap_mma.cuh, DES_MMA) --
-//     the bf16-dot mode of the linear and analytic kernels (the TPU kernels'
+//     the bf16-dot mode of the three kernels (the TPU kernels'
 //     dot_dtype='bfloat16', which the bulk of compute_dtype='hybrid-kernel'
-//     runs): every product operand rounded to bf16 and fp32 accumulation,
-//     which is what mma.sync m16n8k16 bf16 computes; bound: the same FLOP at
-//     989 TFLOP/s, so the elementwise stages and barriers set its pace
-//     (fwdlap_mma.cuh has the design and its levers).  The DRM kernel has no
-//     bf16-dot mode (no caller passes one).
+//     runs on the linear and analytic ones): every product operand rounded
+//     to bf16 and fp32 accumulation, which is what mma.sync m16n8k16 bf16
+//     computes; bound: the same FLOP at 989 TFLOP/s, so the elementwise
+//     stages and barriers set its pace (fwdlap_mma.cuh has the design and
+//     its levers).  The DRM kernel's policy is the Ritz energy's terms on
+//     the body without the Laplacian stream (LAP = false, S = d + 1).
 //
 // Interface: plain C (ctypes), float32 only, row-major (in, out) weights
 // flattened as [W0, b0, W1, b1, ...].  Every entry point launches on the
@@ -282,10 +283,10 @@ __global__ void __launch_bounds__(NT, 2) fused_drm_energy_planned(PArgs a) {
 // third block's 85-register budget spills, chip_smoke.py mma_sweep)
 // (fwdlap_mma.cuh's body: the loss terms form the cotangents)
 // (WIDE: the variant for widths above 128 or the weights or sums in device
-// memory)
+// memory; the DRM energy carries no Laplacian stream)
 template <int MODE, bool WIDE>
 __global__ void __launch_bounds__(NT, 2) fused_mma_kernel(PArgs a) {
-  mma::body<mma::KIND_FUSED, WIDE>(
+  mma::body<mma::KIND_FUSED, WIDE, MODE != MODE_DRM>(
       a, [&](int base, const float* proj, const float* xs, float* ct, float* ps, float* grow) {
     point_terms<MODE>(a, a.T, base, proj, xs, ct, ps, grow);
   });
@@ -369,6 +370,9 @@ const void* variant_fn(int mode, int fold, int bf16, int des) {
     if (mode == MODE_ANALYTIC)
       return wide ? (const void*)fused_mma_kernel<MODE_ANALYTIC, true>
                   : (const void*)fused_mma_kernel<MODE_ANALYTIC, false>;
+    if (mode == MODE_DRM)
+      return wide ? (const void*)fused_mma_kernel<MODE_DRM, true>
+                  : (const void*)fused_mma_kernel<MODE_DRM, false>;
     return nullptr;
   }
   return (const void*)planned_for(mode, fold, des);
@@ -384,8 +388,10 @@ int launch(int mode, const float* X, const float* coef, const float* params,
             N >= 1 && G >= 1;
   if (ok && (des & DES_MMA)) {
     mma::Geo g;
-    ok = mma::flags_ok(flags, mma::KIND_FUSED) && mma::make_geo(a.net, T, &g) &&
-         scratch != nullptr && mma::layout(a.net, g, flags).total <= smem_bytes &&
+    const bool lap = a.net.lap != 0;
+    ok = mma::flags_ok(flags, mma::KIND_FUSED) && mma::make_geo(a.net, T, &g, lap) &&
+         scratch != nullptr &&
+         mma::layout(a.net, g, flags, mma::KIND_FUSED, lap).total <= smem_bytes &&
          (!mma::needs_wide(a.net, flags) || (des & mma::DES_WIDE));
   } else if (ok) {
     ok = flags >= 0 && flags <= 15 && ((flags & DEV_WEIGHTS) != 0) == ((des & DES_DEVW) != 0) &&
@@ -423,10 +429,12 @@ int launch(int mode, const float* X, const float* coef, const float* params,
   return (int)reduce_rows(partial, G, a.row, out, s);
 }
 
-// The net and tile geometry of a tensor-core query (fused_mma_*).
+// The net and tile geometry of a tensor-core query (fused_mma_*): the DRM
+// energy's net without the Laplacian stream.
 bool mma_net(int mode, const int* layers, int n_layers, int T, Net* net, mma::Geo* g) {
-  return (mode == MODE_LINEAR || mode == MODE_ANALYTIC) &&
-         make_net(1, layers, n_layers, 0, net) && mma::make_geo(*net, T, g);
+  return mode >= MODE_LINEAR && mode <= MODE_DRM &&
+         make_net(mode == MODE_DRM ? 0 : 1, layers, n_layers, 0, net) &&
+         mma::make_geo(*net, T, g, mode != MODE_DRM);
 }
 
 }  // namespace
@@ -470,9 +478,9 @@ int fused_poisson_analytic_f32(const float* X, const float* params, const float*
 
 int fused_drm_energy_f32(const float* X, const float* coef, const float* params,
                          const float* wt, const int* layers, int n_layers, int act, int N, int T,
-                         int G, int fold, int des, int flags, float* partial, float* scratch,
-                         float* out, int smem_bytes, void* stream) {
-  return launch(MODE_DRM, X, coef, params, wt, layers, n_layers, act, N, T, G, fold, 0, des,
+                         int G, int fold, int bf16, int des, int flags, float* partial,
+                         float* scratch, float* out, int smem_bytes, void* stream) {
+  return launch(MODE_DRM, X, coef, params, wt, layers, n_layers, act, N, T, G, fold, bf16, des,
                 flags, nullptr, partial, scratch, out, smem_bytes, stream);
 }
 
@@ -503,7 +511,7 @@ int fused_mma_smem_bytes(int mode, const int* layers, int n_layers, int T, int f
   Net net;
   mma::Geo g;
   if (!mma_net(mode, layers, n_layers, T, &net, &g)) return -1;
-  return mma::layout(net, g, flags).total;
+  return mma::layout(net, g, flags, mma::KIND_FUSED, mode != MODE_DRM).total;
 }
 
 int fused_mma_scratch_floats(int mode, const int* layers, int n_layers, int T) {

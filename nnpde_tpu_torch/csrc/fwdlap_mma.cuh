@@ -3,11 +3,18 @@
 // fused_poisson_analytic with dot_dtype='bfloat16', the bulk of
 // compute_dtype='hybrid-kernel') and the jet pair of that bulk
 // (fwdlap_backward.cu with dot_dtype='bfloat16', fwdlap_forward.cu with
-// fwd_impl='rows:default').  One body, `body<KIND>`, serves all three
-// kinds: the fused kernels (KIND_FUSED: the cotangents from the loss
-// terms), the jet backward (KIND_BWD: the cotangents loaded, no projection,
-// no loss terms) and the jet forward (KIND_FWD: the forward half, nothing
-// saved, the jet rows written out).
+// fwd_impl='rows:default'), the Deep-Ritz energy (fused_step.cu) and the
+// quotients' two passes (fused_quotient_mma.cu).  One body, `body<KIND>`,
+// serves four kinds: the fused kernels (KIND_FUSED: the cotangents from the
+// loss terms, a policy the kernel is instantiated with: the residual, the
+// Ritz energy, the quotients' seeded cotangents), the jet backward
+// (KIND_BWD: the cotangents loaded, no projection, no loss terms), the jet
+// forward (KIND_FWD: the forward half, nothing saved, the jet rows written
+// out) and the quotients' pass A (KIND_SUMS: the forward half, nothing
+// saved, the policy's per-point terms summed in double).  LAP (a template
+// parameter of the body): the Laplacian stream is carried, S = d + 2; the
+// Ritz energy, the quadratic quotients and the WAN weak forms drop it, S =
+// d + 1, with the same roundings in the streams they keep.
 //
 // What it computes is the TPU kernels' dot_dtype='bfloat16' (and
 // _forward_kernel2's single-pass 'default' dots): every product operand
@@ -113,8 +120,17 @@ namespace mma {
 enum Kind {
   KIND_FUSED = 0,   // loss + gradients: the cotangents from the loss terms
   KIND_BWD = 1,     // the jet backward: the cotangents loaded, gradients
-  KIND_FWD = 2      // the jet forward: the (N, d+2) jet rows, nothing saved
+  KIND_FWD = 2,     // the jet forward: the (N, d+2) jet rows, nothing saved
+  KIND_SUMS = 3     // pass A: the policy's per-point terms summed, nothing saved
 };
+
+// The kinds with a reverse sweep (the stages saved, the gradient row).
+__host__ __device__ inline bool has_rev(int kind) {
+  return kind == KIND_FUSED || kind == KIND_BWD;
+}
+
+// Per-point double lanes of KIND_SUMS (the linear quotient's four sums).
+constexpr int SUM_LANES = 4;
 
 constexpr int NW = NT / 32;                  // warps per block
 constexpr int MMA_MAX_WIDTH = 256;           // hidden width the design takes
@@ -162,6 +178,21 @@ __host__ __device__ inline bool make_geo(const Net& net, int T, Geo* g) {
   return wt <= MMA_MAX_WIDTH;
 }
 
+// The geometry of a kind that carries the Laplacian stream or not (lap; the
+// net's own must agree): make_geo past its check of the stream.  Here and in
+// layout, red2_floats and scratch_floats, the kinds with the Laplacian
+// stream and no pass A (the fused residual kernels and the jet pair) keep
+// their own functions word for word, and the kinds without the stream or
+// with pass A take the general overloads: folded into one, the former's
+// kernels moved by 1-3 registers and the jet forward's wide variant spilled
+// (tools/compare_ptxas.py; PERF.md).
+__host__ __device__ inline bool make_geo(const Net& net, int T, Geo* g, bool lap) {
+  if (lap != (net.lap != 0)) return false;
+  Net n = net;
+  n.lap = 1;
+  return make_geo(n, T, g);
+}
+
 // W_k (k = 1..K-2) in shared memory: kp16(w_k) rows of ldw(k) bf16.
 __host__ __device__ inline int ldw_of(const Net& net, int k) { return kp16(net.w[k + 1]) + 8; }
 __host__ __device__ inline int wbytes(const Net& net, int k) {
@@ -174,7 +205,7 @@ __host__ __device__ inline int woff_bytes(const Net& net, int k) {
 }
 
 // The floats of a block's gradient row: the parameters, and in the fused
-// kernels the loss sums (3).
+// kernels the loss sums (3); none in the kinds without a reverse sweep.
 __host__ __device__ inline int row_floats(const Net& net, int kind) {
   return kind == KIND_FUSED ? net.P + 3 : kind == KIND_BWD ? net.P : 0;
 }
@@ -189,20 +220,30 @@ __host__ __device__ inline bool needs_wide(const Net& net, int flags) {
 }
 
 // The tiers' flags a kind takes: no weights both resident and in device
-// memory; the jet forward keeps no gradient row and no sums off chip.
+// memory; the kinds without a reverse sweep keep no gradient row and no
+// sums off chip.
 __host__ __device__ inline bool flags_ok(int flags, int kind) {
-  const int any = kind == KIND_FWD ? RES_WEIGHTS | DEV_WEIGHTS
-                                   : RES_WEIGHTS | RES_GRAD | DEV_WEIGHTS | DEV_SUMS;
+  const int any = !has_rev(kind) ? RES_WEIGHTS | DEV_WEIGHTS
+                                 : RES_WEIGHTS | RES_GRAD | DEV_WEIGHTS | DEV_SUMS;
   return (flags & ~any) == 0 && !((flags & RES_WEIGHTS) && (flags & DEV_WEIGHTS));
 }
 
 // Floats of the projection partials (not in the jet backward) and of the
-// column sums (not in the jet forward).
+// column sums (the kinds with a reverse sweep).
 __host__ __device__ inline int red_floats(const Geo& g, int kind) {
   return kind != KIND_BWD ? rnd4(g.nbmax * g.ST) : 0;
 }
 __host__ __device__ inline int red2_floats(const Geo& g, int kind) {
   return kind != KIND_FWD ? rnd4(g.NPB * g.S * g.wq) : 0;
+}
+// The column-sum slots and cotangent rows of a 16-point block, d + 2: S
+// with the Laplacian stream (the last slot dW_last's), one more without, so
+// that dW_last's slot never meets a Jacobian row's.
+__host__ __device__ inline int slots_of(const Geo& g, bool lap) { return lap ? g.S : g.S + 1; }
+// red2_floats of any kind (KIND_SUMS keeps no column sums), with or without
+// the Laplacian stream.
+__host__ __device__ inline int red2_floats(const Geo& g, int kind, bool lap) {
+  return has_rev(kind) ? rnd4(g.NPB * slots_of(g, lap) * g.wq) : 0;
 }
 
 // Byte offsets of a block's shared memory (every region 16-byte aligned;
@@ -245,6 +286,44 @@ __host__ __device__ inline Layout layout(const Net& net, const Geo& g, int flags
   return L;
 }
 
+// The layout of any kind, with or without the Laplacian stream (the kinds
+// this design added use it; its regions as layout's, the cotangents and the
+// column sums over slots_of rows, KIND_SUMS its doubles in ps).  Mirrored by
+// kernels/fused_step.py::mma_smem_bytes.
+__host__ __device__ inline Layout layout(const Net& net, const Geo& g, int flags, int kind,
+                                         bool lap) {
+  const bool rev = has_rev(kind), proj = kind != KIND_BWD;
+  const bool on_chip = !(flags & DEV_SUMS);
+  Layout L;
+  int o = 0;
+  L.bufs = o;
+  o += (rev ? 3 : 2) * g.ST * g.ldb * 2;               // bf16 stages
+  L.w = o;
+  int wb = 0;
+  for (int k = 1; k < net.K - 1 && !(flags & DEV_WEIGHTS); ++k) {
+    const int b = wbytes(net, k);
+    wb = (flags & RES_WEIGHTS) ? wb + b : (b > wb ? b : wb);
+  }
+  o += wb;
+  L.gacc = o;
+  if (rev && (flags & RES_GRAD)) o += 4 * rnd4(row_floats(net, kind));
+  L.red = o;                                           // projection partials
+  if (on_chip) o += 4 * red_floats(g, kind);
+  L.red2 = o;                                          // column sums
+  if (on_chip) o += 4 * red2_floats(g, kind, lap);
+  L.xs = o;
+  o += 4 * rnd4(g.T * net.d);
+  L.ct = o;
+  if (rev) o += 4 * rnd4(slots_of(g, lap) * g.T);
+  L.ps = o;                                            // the tile's sum terms
+  if (kind == KIND_FUSED) o += 4 * rnd4(3 * g.T);
+  if (kind == KIND_SUMS) o += 8 * SUM_LANES * g.T;     // doubles, kept across tiles
+  L.proj = o;
+  if (proj) o += 4 * rnd4(g.ST);
+  L.total = o;
+  return L;
+}
+
 // Saved-stage floats of one block in device memory: K-1 stages of nblk warp
 // blocks, each NU stream tiles and the q tile of 32 float4s (none in the
 // jet forward, which saves nothing).
@@ -258,6 +337,14 @@ __host__ __device__ inline long scratch_floats(const Net& net, const Geo& g,
                                                int kind = KIND_FUSED, int flags = 0) {
   return saved_floats(net, g, kind) +
          ((flags & DEV_SUMS) ? red_floats(g, kind) + red2_floats(g, kind) : 0);
+}
+
+// The same for any kind, with or without the Laplacian stream: nothing saved
+// without a reverse sweep (without the Laplacian the q tile is not written).
+__host__ __device__ inline long scratch_floats(const Net& net, const Geo& g, int kind, int flags,
+                                               bool lap) {
+  const long saved = has_rev(kind) ? (long)(net.K - 1) * g.nblk * (g.NU + 1) * 128 : 0;
+  return saved + ((flags & DEV_SUMS) ? red_floats(g, kind) + red2_floats(g, kind, lap) : 0);
 }
 
 // ---------------------------------------------------------------- PTX
@@ -481,7 +568,8 @@ struct FwdSt {
 // writes the mid streams to the next stage `ob` and (SAVE) the
 // pre-activations to the saved frags; at the last stage, instead of the mid
 // streams, (PROJ) the projection partials (8 units) to red, or nothing.
-template <bool SAVE, bool PROJ>
+// LAP: the last stream is the Laplacian's (q = sum J^2 accumulated for it).
+template <bool SAVE, bool PROJ, bool LAP>
 __device__ __forceinline__ void fwd_epi(const Net& net, const Geo& g, int pb, int nb, int u,
                                         float (&c)[4], const float (&bv)[2], FwdSt& st,
                                         __nv_bfloat16* ob, float4* save, bool last,
@@ -508,11 +596,11 @@ __device__ __forceinline__ void fwd_epi(const Net& net, const Geo& g, int pb, in
           st.s2[1][e] = pk.s2;
           st.q[1][e] = 0.f;
         }
-      } else if (s == g.S - 1) {
+      } else if (LAP && s == g.S - 1) {
         const float q = g.t8 ? st.q[0][e] + st.q[1][e] : st.q[h][e];
         m[e] = st.s1[h][e] * v + st.s2[h][e] * q;
       } else {
-        st.q[h][e] = fmaf(v, v, st.q[h][e]);
+        if constexpr (LAP) st.q[h][e] = fmaf(v, v, st.q[h][e]);
         m[e] = st.s1[h][e] * v;
       }
     }
@@ -554,7 +642,7 @@ __device__ __forceinline__ void unit_consts(int n0, int w, const float* bias, bo
 // Stage 1 from the input layer on the CUDA cores (K = d): v = x W0 + b0 with
 // x and W0 rounded, J_i = W0[i, :] in fp32, l = 0; then fwd_epi.  save_st:
 // stage 1's saved frags (the thread's lane included; unused unless SAVE).
-template <bool SAVE, bool PROJ>
+template <bool SAVE, bool PROJ, bool LAP>
 __device__ void fwd_input(const Net& net, const Geo& g, const float* __restrict__ xs,
                           const float* __restrict__ W0, __nv_bfloat16* ob, float4* save_st,
                           bool last, const float* __restrict__ wlast, float* red) {
@@ -587,9 +675,11 @@ __device__ void fwd_input(const Net& net, const Geo& g, const float* __restrict_
           c[2 * h + e] = v;
         }
       }
-      fwd_epi<SAVE, PROJ>(net, g, pb, nb, u, c, bv, st, ob, save, last, wl, red);
+      fwd_epi<SAVE, PROJ, LAP>(net, g, pb, nb, u, c, bv, st, ob, save, last, wl, red);
     }
-    if (SAVE) save_q(g, st, save);
+    if constexpr (LAP) {
+      if (SAVE) save_q(g, st, save);
+    }
   }
 }
 
@@ -597,7 +687,7 @@ __device__ void fwd_input(const Net& net, const Geo& g, const float* __restrict_
 // stage `ib`, W_k from `w` (product), then fwd_epi.  The narrow variant's
 // warp block loads its B fragments once; the wide one's products run in
 // chunks of UC_FWD stream tiles.
-template <bool SAVE, bool PROJ, bool WIDE>
+template <bool SAVE, bool PROJ, bool WIDE, bool LAP>
 __device__ void fwd_product(const Net& net, const Geo& g, int k, const __nv_bfloat16* ib,
                             const WSrc& w, const float* __restrict__ bias,
                             __nv_bfloat16* ob, float4* save_st, bool last,
@@ -621,30 +711,40 @@ __device__ void fwd_product(const Net& net, const Geo& g, int k, const __nv_bflo
         for (int i = 0; i < nu; ++i) {
           float c[4];
           pick(c, cc, i);
-          fwd_epi<SAVE, PROJ>(net, g, pb, nb, u0 + i, c, bv, st, ob, save, last, wl, red);
+          fwd_epi<SAVE, PROJ, LAP>(net, g, pb, nb, u0 + i, c, bv, st, ob, save, last, wl,
+                                   red);
         }
       }
     } else {
       for (int u = 0; u < g.NU; ++u) {
         float c[4] = {0.f, 0.f, 0.f, 0.f};
         product(c, ib, g, tile_row(g, pb, u), bf, nks);
-        fwd_epi<SAVE, PROJ>(net, g, pb, nb, u, c, bv, st, ob, save, last, wl, red);
+        fwd_epi<SAVE, PROJ, LAP>(net, g, pb, nb, u, c, bv, st, ob, save, last, wl, red);
       }
     }
-    if (SAVE) save_q(g, st, save);
+    if constexpr (LAP) {
+      if (SAVE) save_q(g, st, save);
+    }
   }
 }
 
 // ------------------------------------------------------------ reverse
+// slots_of with the kind's LAP.
+template <bool LAP>
+__device__ __forceinline__ int slots(const Geo& g) {
+  return LAP ? g.S : g.S + 1;
+}
+
 // Column sums of a warp block: (v0, v1) of the thread's units summed over
 // its 8 row lanes, written by lanes 0..3 to red2[pb][slot][n0 + 2t + e].
+template <bool LAP>
 __device__ __forceinline__ void put_colsum(const Geo& g, float* red2, int pb, int slot, int n0,
                                            float v0, float v1) {
   v0 = sum_g(v0);
   v1 = sum_g(v1);
   const int lane = threadIdx.x & 31;
   if (lane < 4)
-    *reinterpret_cast<float2*>(red2 + (pb * g.S + slot) * g.wq + n0 + 2 * lane) =
+    *reinterpret_cast<float2*>(red2 + (pb * slots<LAP>(g) + slot) * g.wq + n0 + 2 * lane) =
         make_float2(v0, v1);
 }
 
@@ -704,10 +804,13 @@ __device__ __forceinline__ void bwd_put(const Geo& g, int r, int j0, __nv_bfloat
 
 // The Laplacian halves of tile u (the last tile): dq = s'' dlm for every
 // Jacobian stream, the lap stream's mid and cotangent, its share of dv.
+// Nothing without the Laplacian stream (dq and its share stay zero).
+template <bool LAP>
 __device__ __forceinline__ void bwd_lap(const Geo& g, BwdSt& st, int pb, int u,
                                         const float (&c)[4], const float (&pr)[4], bool rank1,
                                         const float* __restrict__ ct, int j0,
                                         __nv_bfloat16* Mo, __nv_bfloat16* Do) {
+  if constexpr (!LAP) return;
   const int gr = (threadIdx.x & 31) >> 2;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -739,6 +842,7 @@ __device__ __forceinline__ void bwd_lap(const Geo& g, BwdSt& st, int pb, int u,
 // (its cotangent is written once every stream has added to it) and mid
 // (s); each Jacobian stream's mid and cotangent and share of dv; at k = 1
 // the Jacobian streams' column sums (dW0).
+template <bool LAP>
 __device__ __forceinline__ void bwd_rest(const Geo& g, BwdSt& st, int pb, int n0, int u,
                                          const float (&c)[4], const float (&pr)[4],
                                          bool rank1, bool jsum, const float* __restrict__ ct,
@@ -761,7 +865,7 @@ __device__ __forceinline__ void bwd_rest(const Geo& g, BwdSt& st, int pb, int n0
       if (Mo)
         *reinterpret_cast<uint32_t*>(Mo + r * g.ldb + j0) =
             pack_bf16(st.s0[h][0], st.s0[h][1]);
-    } else if (s < g.S - 1) {
+    } else if (s < g.S - (LAP ? 1 : 0)) {
       float m[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
@@ -777,11 +881,12 @@ __device__ __forceinline__ void bwd_rest(const Geo& g, BwdSt& st, int pb, int n0
   }
   if (jsum) {                 // both halves one stream (T >= 16), or each its own
     if (!g.t8) {
-      if (isj[0]) put_colsum(g, red2, pb, u, n0, od[0][0] + od[1][0], od[0][1] + od[1][1]);
+      if (isj[0])
+        put_colsum<LAP>(g, red2, pb, u, n0, od[0][0] + od[1][0], od[0][1] + od[1][1]);
     } else {
 #pragma unroll
       for (int h = 0; h < 2; ++h)
-        if (isj[h]) put_colsum(g, red2, pb, 2 * u + h, n0, od[h][0], od[h][1]);
+        if (isj[h]) put_colsum<LAP>(g, red2, pb, 2 * u + h, n0, od[h][0], od[h][1]);
     }
   }
 }
@@ -794,11 +899,12 @@ __device__ __forceinline__ void bwd_rest(const Geo& g, BwdSt& st, int pb, int n0
 // stage (`saved_st`) it writes the stage's mid streams (M_k, bf16; not at
 // the last stage) and the cotangents of its pre-activations (D_k, bf16),
 // and the column sums to red2: slot 0 sum_p dv (the db below), at k = 1
-// slots 1..d sum_p dJ_i (dW0), at the last stage slot S-1 dW_last (sum over
-// the mid streams x ct).  The lap tile comes first (dq = s'' dlm is needed
-// by every J stream); the value stream's cotangent is written last, from
-// the sum of all streams.
-template <bool WIDE>
+// slots 1..d sum_p dJ_i (dW0), at the last stage the last slot dW_last (sum
+// over the mid streams x ct).  The lap tile comes first (dq = s'' dlm is
+// needed by every J stream; without the Laplacian the last tile comes first
+// all the same); the value stream's cotangent is written last, from the sum
+// of all streams.
+template <bool WIDE, bool LAP>
 __device__ void bwd_stage(const Net& net, const Geo& g, int k, bool rank1,
                                  const __nv_bfloat16* Din, const WSrc& w,
                                  const float* __restrict__ ct, const float* __restrict__ wlast,
@@ -839,15 +945,15 @@ __device__ void bwd_stage(const Net& net, const Geo& g, int k, bool rank1,
     {  // the lap tile first
       float c[4];
       dmid<WIDE>(g, rank1, pb, NU - 1, wl, ct, Din, bf, nks, w, n0, c);
-      bwd_lap(g, st, pb, NU - 1, c, pl, rank1, ct, j0, Mo, Do);
-      bwd_rest(g, st, pb, n0, NU - 1, c, pl, rank1, jsum, ct, j0, Mo, Do, red2);
+      bwd_lap<LAP>(g, st, pb, NU - 1, c, pl, rank1, ct, j0, Mo, Do);
+      bwd_rest<LAP>(g, st, pb, n0, NU - 1, c, pl, rank1, jsum, ct, j0, Mo, Do, red2);
     }
     for (int u = 0; u < NU - 1; ++u) {
       const float4 f = u ? sv[u * 32] : f0;
       const float pr[4] = {f.x, f.y, f.z, f.w};
       float c[4];
       dmid<WIDE>(g, rank1, pb, u, wl, ct, Din, bf, nks, w, n0, c);
-      bwd_rest(g, st, pb, n0, u, c, pr, rank1, jsum, ct, j0, Mo, Do, red2);
+      bwd_rest<LAP>(g, st, pb, n0, u, c, pr, rank1, jsum, ct, j0, Mo, Do, red2);
     }
     // the value stream's cotangent, from every stream's share
     float cs[2] = {0.f, 0.f};
@@ -865,8 +971,8 @@ __device__ void bwd_stage(const Net& net, const Geo& g, int k, bool rank1,
       *reinterpret_cast<uint32_t*>(Do + (tile_row(g, pb, 0) + gr + 8 * h) * g.ldb + j0) =
           pack_bf16(o[0], o[1]);
     }
-    put_colsum(g, red2, pb, 0, n0, cs[0], cs[1]);
-    if (rank1) put_colsum(g, red2, pb, g.S - 1, n0, st.aw[0], st.aw[1]);
+    put_colsum<LAP>(g, red2, pb, 0, n0, cs[0], cs[1]);
+    if (rank1) put_colsum<LAP>(g, red2, pb, slots<LAP>(g) - 1, n0, st.aw[0], st.aw[1]);
   }
 }
 
@@ -958,6 +1064,7 @@ __device__ __forceinline__ void dw_unfrag(const Net& net, const float* gacc, flo
 // dW0 (and db0) from stage 1's cotangents: dW0[i][j] = sum_p rd(x[p][i])
 // dv[p][j] (the bf16 D_1, value rows) + sum_p dJ_i[p][j] (red2 slot 1 + i),
 // db0[j] = sum_p dv[p][j] (slot 0), on the CUDA cores.
+template <bool LAP>
 __device__ __forceinline__ void dw0(const Net& net, const Geo& g, const float* xs,
                                     const __nv_bfloat16* D1, const float* red2, float* grow) {
   const int d = net.d, w1 = net.w[1], items = (d + 1) * w1;
@@ -970,7 +1077,7 @@ __device__ __forceinline__ void dw0(const Net& net, const Geo& g, const float* x
         acc = fmaf(rd_bf16(xs[p * d + i]), __bfloat162float(D1[p * g.ldb + j]), acc);
     float sj = 0.f;
     const int slot = i < d ? 1 + i : 0;
-    for (int pb = 0; pb < g.NPB; ++pb) sj += red2[(pb * g.S + slot) * g.wq + j];
+    for (int pb = 0; pb < g.NPB; ++pb) sj += red2[(pb * slots<LAP>(g) + slot) * g.wq + j];
     dW0[it] += acc + sj;
   }
 }
@@ -1008,25 +1115,37 @@ __device__ __forceinline__ WSrc weights_of(const Args& A, bool res_w, __nv_bfloa
 
 // The design's tile loop.  Per tile: X (KIND_BWD: and the cotangent rows,
 // stream-major), the input layer and the hidden products with the
-// activation in their epilogues (the stages saved unless KIND_FWD; the
-// last stage's projection partials unless KIND_BWD); KIND_FWD: the jet rows
-// written for the valid points; KIND_FUSED: the projection, then the loss
-// terms and the cotangents by `terms(base, proj, xs, ct, ps, grow)`; then
+// activation in their epilogues (the stages saved in the kinds with a
+// reverse sweep; the last stage's projection partials unless KIND_BWD);
+// KIND_FWD: the jet rows written for the valid points; KIND_SUMS: the
+// policy `terms(base, proj, xs, ct, ps, grow)` adds each point's terms to
+// its lanes of the block's doubles (ps, SUM_LANES x T), which go out once,
+// summed in point order, as the block's row of A.row floats; KIND_FUSED:
+// the projection, then the loss terms and the cotangents by the policy
+// `terms(base, proj, xs, ct, ps, grow)`; then
 // the reverse sweep: the last stage's reverse nonlinearity from the
 // rank-one cotangent ct * wlast with dW_last, per hidden layer the dA
 // product with the reverse nonlinearity in its epilogue and the dW
 // product, and dW0.  WIDE: the wide variant.  The plan's residency from
 // A.flags: the hidden weights
 // (bf16, staged once; or read from device memory), the block's gradient
-// row (A.row floats) and the sums (on chip, or in device scratch).
-template <int KIND, bool WIDE, class Args, class Terms>
+// row (A.row floats) and the sums (on chip, or in device scratch).  LAP:
+// the Laplacian stream is carried (the net's lap, checked by the launcher).
+template <int KIND, bool WIDE, bool LAP = true, class Args, class Terms>
 __device__ void body(const Args& A, Terms terms) {
-  constexpr bool REV = KIND != KIND_FWD, PROJ = KIND != KIND_BWD;
+  constexpr bool REV = KIND == KIND_FUSED || KIND == KIND_BWD, PROJ = KIND != KIND_BWD;
+  constexpr bool SUMS = KIND == KIND_SUMS;
   extern __shared__ __align__(16) float smem[];
   const Net& net = A.net;
+  // the kinds this design added (pass A; no Laplacian stream) on the
+  // general layout, the parent's kinds on their own
+  constexpr bool GEN = SUMS || !LAP;
   Geo g;
-  make_geo(net, A.T, &g);
-  const Layout ly = layout(net, g, A.flags, KIND);
+  if constexpr (GEN)
+    make_geo(net, A.T, &g, LAP);
+  else
+    make_geo(net, A.T, &g);
+  const Layout ly = GEN ? layout(net, g, A.flags, KIND, LAP) : layout(net, g, A.flags, KIND);
   unsigned char* sm = reinterpret_cast<unsigned char*>(smem);
   const int T = A.T, d = net.d, K = net.K, S = g.S;
   __nv_bfloat16* const stages = reinterpret_cast<__nv_bfloat16*>(sm + ly.bufs);
@@ -1036,9 +1155,11 @@ __device__ void body(const Args& A, Terms terms) {
   float* gacc = REV && (A.flags & RES_GRAD) ? reinterpret_cast<float*>(sm + ly.gacc) : nullptr;
   // the block's slice of device scratch: the saved stages, then (DEV_SUMS)
   // the projection partials and the column sums
-  float* const bscr = A.scratch ? A.scratch + (size_t)blockIdx.x *
-                                                  scratch_floats(net, g, KIND, A.flags)
-                                : nullptr;
+  float* const bscr =
+      A.scratch ? A.scratch + (size_t)blockIdx.x *
+                                  (GEN ? scratch_floats(net, g, KIND, A.flags, LAP)
+                                       : scratch_floats(net, g, KIND, A.flags))
+                : nullptr;
   float* red = reinterpret_cast<float*>(sm + ly.red);
   float* red2 = reinterpret_cast<float*>(sm + ly.red2);
   if (WIDE && (A.flags & DEV_SUMS)) {
@@ -1059,6 +1180,8 @@ __device__ void body(const Args& A, Terms terms) {
 
   if (REV)
     for (int i = threadIdx.x; i < A.row; i += NT) grow[i] = 0.f;
+  if constexpr (SUMS)
+    for (int i = threadIdx.x; i < SUM_LANES * T; i += NT) reinterpret_cast<double*>(ps)[i] = 0.0;
   {  // the stages start at zero: padding rows and columns are never written
     uint4* z = reinterpret_cast<uint4*>(sm + ly.bufs);
     for (int i = threadIdx.x; i < (ly.w - ly.bufs) / 16; i += NT) z[i] = make_uint4(0, 0, 0, 0);
@@ -1085,14 +1208,15 @@ __device__ void body(const Args& A, Terms terms) {
     }
     __syncthreads();
     // forward: stage 1 from the input layer, then the hidden products
-    fwd_input<REV, PROJ>(net, g, xs, A.params + net.off[0], stages, scr, K == 2, wlast, red);
+    fwd_input<REV, PROJ, LAP>(net, g, xs, A.params + net.off[0], stages, scr, K == 2, wlast,
+                              red);
     __syncthreads();
     __nv_bfloat16 *in = stages, *out = stages + stage;
     for (int k = 1; k < K - 1; ++k) {
       const WSrc w = weights_of(A, res_w, Wsm, k);
-      fwd_product<REV, PROJ, WIDE>(net, g, k, in, w,
-                                   A.params + net.off[k] + net.w[k] * net.w[k + 1], out,
-                                   scr + k * sst, k + 1 == K - 1, wlast, red);
+      fwd_product<REV, PROJ, WIDE, LAP>(net, g, k, in, w,
+                                        A.params + net.off[k] + net.w[k] * net.w[k + 1], out,
+                                        scr + k * sst, k + 1 == K - 1, wlast, red);
       __syncthreads();
       __nv_bfloat16* t = in;
       in = out;
@@ -1117,16 +1241,22 @@ __device__ void body(const Args& A, Terms terms) {
       }
       continue;
     }
+    if constexpr (SUMS) {
+      terms(base, proj, xs, ct, ps, nullptr);
+      __syncthreads();
+      continue;
+    }
     if constexpr (KIND == KIND_FUSED) terms(base, proj, xs, ct, ps, grow);
     // reverse: the last stage from the rank-one cotangent ct * wlast
-    bwd_stage<WIDE>(net, g, K - 1, true, nullptr, WSrc{}, ct, wlast, scr + (K - 2) * sst,
-                    nullptr, stages, red2);
+    bwd_stage<WIDE, LAP>(net, g, K - 1, true, nullptr, WSrc{}, ct, wlast, scr + (K - 2) * sst,
+                         nullptr, stages, red2);
     __syncthreads();
+    const int R = LAP ? S : S + 1;
     for (int j = threadIdx.x; j < wl; j += NT) {
       float a = 0.f, b = 0.f;
       for (int pb = 0; pb < g.NPB; ++pb) {
-        a += red2[(pb * S + S - 1) * g.wq + j];
-        b += red2[pb * S * g.wq + j];
+        a += red2[(pb * R + R - 1) * g.wq + j];
+        b += red2[pb * R * g.wq + j];
       }
       grow[net.off[K - 1] + j] += a;
       if (K > 2) grow[net.off[K - 2] + net.w[K - 2] * wl + j] += b;
@@ -1136,12 +1266,13 @@ __device__ void body(const Args& A, Terms terms) {
     for (int k = K - 2; k >= 1; --k) {
       __syncthreads();
       const WSrc w = weights_of(A, res_w, Wsm, k);
-      bwd_stage<WIDE>(net, g, k, false, D, w, ct, wlast, scr + (k - 1) * sst, F1, F2, red2);
+      bwd_stage<WIDE, LAP>(net, g, k, false, D, w, ct, wlast, scr + (k - 1) * sst, F1, F2,
+                           red2);
       __syncthreads();
       if (k >= 2)
         for (int j = threadIdx.x; j < net.w[k]; j += NT) {
           float b = 0.f;
-          for (int pb = 0; pb < g.NPB; ++pb) b += red2[pb * S * g.wq + j];
+          for (int pb = 0; pb < g.NPB; ++pb) b += red2[pb * R * g.wq + j];
           grow[net.off[k - 1] + net.w[k - 1] * net.w[k] + j] += b;
         }
       dw_product(net, g, k, F1, D, grow, frag);
@@ -1151,8 +1282,18 @@ __device__ void body(const Args& A, Terms terms) {
       F1 = freed;
     }
     __syncthreads();
-    dw0(net, g, xs, D, red2, grow);
+    dw0<LAP>(net, g, xs, D, red2, grow);
     __syncthreads();
+  }
+  if constexpr (SUMS) {
+    // the block's row of sums, each lane's points in order (the last tile
+    // ended in a barrier)
+    if (threadIdx.x < A.row) {
+      const double* psum = reinterpret_cast<const double*>(ps);
+      double s = 0.0;
+      for (int p = 0; p < T; ++p) s += psum[threadIdx.x * T + p];
+      A.partial[(size_t)blockIdx.x * A.row + threadIdx.x] = (float)s;
+    }
   }
   // the row on chip goes out once (its hidden dW in flat order)
   if (gacc) {

@@ -43,10 +43,10 @@ _SIGNATURES = {
     # analytic, partial, scratch, out, smem_bytes, stream
     "fused_poisson_analytic_f32":
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
-    # X, coef, params, wt, layers, n_layers, act, N, T, G, fold, des, flags,
-    # partial, scratch, out, smem_bytes, stream
+    # X, coef, params, wt, layers, n_layers, act, N, T, G, fold, bf16, des,
+    # flags, partial, scratch, out, smem_bytes, stream
     "fused_drm_energy_f32":
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
     # mode, fold, bf16, des, smem_bytes, int* blocks
     "fused_blocks_per_sm": [_I, _I, _I, _I, _I, _P],
     # mode, layers, n_layers, T, flags -> bytes (not an error code)
@@ -92,6 +92,17 @@ _SIGNATURES = {
     "fused_quotient_blocks_per_sm": [_I, _I, _I, _I, _I, _P],
     # kind, lap, layers, n_layers, T, flags -> bytes (not an error code)
     "fused_quotient_smem_bytes": [_I, _I, _P, _I, _I, _I],
+    # fused_quotient_mma.cu (the bf16-dot mode): kind, lap, X, coef, params,
+    # scal, layers, n_layers, act, N, T, G, flags, des, partial, scratch, out,
+    # smem_bytes, stream
+    "fused_quotient_mma_f32":
+        [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+    # kind, lap, des, smem_bytes, int* blocks
+    "fused_quotient_mma_blocks_per_sm": [_I, _I, _I, _I, _P],
+    # kind, lap, layers, n_layers, T, flags -> bytes / scratch floats per
+    # block (neither an error code)
+    "fused_quotient_mma_smem_bytes": [_I, _I, _P, _I, _I, _I],
+    "fused_quotient_mma_scratch_floats": [_I, _I, _P, _I, _I, _I],
     # fused_multibump.cu: seeded, n_bumps, X, coef, params, scal, layers,
     # n_layers, act, N, T, G, flags, fold, partial, scratch, out, smem_bytes,
     # stream, wd (DEV_WEIGHTS's weights)

@@ -34,7 +34,14 @@ layout (``nc = d + 3``): ``[B, dB_0..dB_{d-1}, f, V]`` with ``u = B*net``,
 Where it runs: a CUDA tensor goes to ``csrc/fused_quotient.cu`` (float32;
 anything else raises), a CPU tensor to the plain version beside it
 (``*_plain``: the forward-Laplacian recurrence under ``torch.autograd``, in
-any dtype).
+any dtype).  ``dot_dtype='bfloat16'`` (every kernel here; the TPU kernels'
+one-pass bf16 dot mode) rounds every product operand of the recompute and
+the reverse sweep to bf16 and accumulates in float32, on the tensor-core
+design (``csrc/fused_quotient_mma.cu`` on ``csrc/fwdlap_mma.cuh``, counted
+as ``<kernel>.bf16``); its plain versions are the per-tile arithmetic
+written out (:func:`~nnpde_tpu_torch.ops.fwdlap.recompute_plain`,
+:func:`~nnpde_tpu_torch.ops.fwdlap.reverse_plain` with ``round_bf16``).
+``'bf16x3'`` runs the float32 kernels (:func:`.fused_step._check_dot`).
 
 Both passes choose their launch shape by :func:`plan`: the seeded kinds the
 shared plan of :mod:`._plan` (tile, what stays on chip, blocks per SM), the
@@ -48,11 +55,12 @@ the parameters once per evaluation and hand the vector from ``forward`` to
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
 
-from ..ops.fwdlap import mlp_fwdlap
+from ..ops.fwdlap import mlp_fwdlap, project_plain, recompute_plain, reverse_plain, round_bf16
 from . import _cuda, _plan
 from ._cuda import on_cuda as _on_cuda
 from .fused_step import (
@@ -63,6 +71,9 @@ from .fused_step import (
     _leaves,
     _unflatten,
     drm_coefficients,
+    mma_des,
+    mma_plan,
+    mma_scratch_floats,
     residual_coefficients,
     variant,
 )
@@ -106,12 +117,41 @@ def _linear_r(jet, coef, d, no_lap):
     return r
 
 
-def linear_sums_plain(params, X, coef, activation: str, no_lap: bool = False):
+class _SweptJet(NamedTuple):
+    """The bf16-dot recompute's projected jet, with what its reverse sweep
+    needs."""
+    value: torch.Tensor
+    grad: torch.Tensor
+    lap: torch.Tensor
+    saved: list
+    final: tuple
+
+
+def _swept_jet(params, X, activation) -> _SweptJet:
+    """The kernels' bf16-dot recompute (every product operand rounded to
+    bf16) projected on the last layer's row."""
+    params = [(W.detach(), b.detach()) for W, b in params]
+    saved, final = recompute_plain(params, X, activation, round_bf16)
+    value, grad, lap = project_plain(params, final)
+    return _SweptJet(value, grad, lap, saved, final)
+
+
+def _swept_grads(params, X, jet: _SweptJet, ct):
+    """The bf16-dot reverse sweep from per-point cotangents ``ct`` (N, d+2)
+    of ``[value, grad, lap]``: ``(dWs, dbs)`` with ``dbs[-1] = sum ct_v``."""
+    params = [(W.detach(), b.detach()) for W, b in params]
+    return reverse_plain(params, X, round_bf16, jet.saved, jet.final, ct)
+
+
+def linear_sums_plain(params, X, coef, activation: str, no_lap: bool = False,
+                      dot_dtype: str = "float32"):
     """Plain version of the linear sums kernel: ``[sum r, sum r^2, sum
-    (e1 net)^2, sum e2 net]``; ``no_lap`` drops the ``a`` column."""
+    (e1 net)^2, sum e2 net]``; ``no_lap`` drops the ``a`` column.
+    ``dot_dtype='bfloat16'``: the kernel's bf16-dot variant."""
     d = X.shape[1]
     with torch.no_grad():
-        jet = mlp_fwdlap(params, X, activation)
+        jet = (_swept_jet(params, X, activation) if dot_dtype == "bfloat16"
+               else mlp_fwdlap(params, X, activation))
         r = _linear_r(jet, coef, d, no_lap)
         v, e1, e2 = jet.value, coef[:, d + 3], coef[:, d + 4]
         return torch.stack([torch.sum(r), torch.sum(r * r),
@@ -119,13 +159,21 @@ def linear_sums_plain(params, X, coef, activation: str, no_lap: bool = False):
 
 
 def linear_seeded_plain(params, X, coef, scal, activation: str,
-                        no_lap: bool = False):
+                        no_lap: bool = False, dot_dtype: str = "float32"):
     """Plain version of the linear seeded kernel: ``(dWs, dbs, sums)`` with
     the gradients of ``s_r sum r + s_q sum (e1 net)^2 + s_l sum e2 net``
-    and ``sums = [sum ct_v]``, ``ct_v = s_r c + 2 s_q e1^2 net + s_l e2``."""
+    and ``sums = [sum ct_v]``, ``ct_v = s_r c + 2 s_q e1^2 net + s_l e2``.
+    ``dot_dtype='bfloat16'``: the kernel's bf16-dot variant."""
     d = X.shape[1]
     s_r, s_q, s_l = scal[0], scal[1], scal[2]
     e1, e2 = coef[:, d + 3], coef[:, d + 4]
+    if dot_dtype == "bfloat16":
+        jet = _swept_jet(params, X, activation)
+        ctv = s_r * coef[:, 0] + s_q * 2.0 * e1 * e1 * jet.value + s_l * e2
+        ctl = torch.zeros_like(ctv) if no_lap else s_r * coef[:, d + 1]
+        ct = torch.cat([ctv[:, None], s_r * coef[:, 1:1 + d], ctl[:, None]], dim=1)
+        dWs, dbs = _swept_grads(params, X, jet, ct)
+        return dWs, dbs, torch.sum(ctv).reshape(1)
     with torch.enable_grad():
         leaves = _leaves(params)
         jet = mlp_fwdlap(leaves, X, activation)
@@ -144,30 +192,46 @@ def _quad_terms(jet, coef, d):
     return 0.5 * torch.sum(G * G, dim=1) - f * u + V * u * u, u
 
 
-def quad_sums_plain(params, X, coef, activation: str):
-    """Plain version of the quadratic sums kernel: ``[sum e, sum u^2]``."""
+def quad_sums_plain(params, X, coef, activation: str, dot_dtype: str = "float32"):
+    """Plain version of the quadratic sums kernel: ``[sum e, sum u^2]``.
+    ``dot_dtype='bfloat16'``: the kernel's bf16-dot variant."""
     d = X.shape[1]
     with torch.no_grad():
-        e, u = _quad_terms(mlp_fwdlap(params, X, activation), coef, d)
+        jet = (_swept_jet(params, X, activation) if dot_dtype == "bfloat16"
+               else mlp_fwdlap(params, X, activation))
+        e, u = _quad_terms(jet, coef, d)
         return torch.stack([torch.sum(e), torch.sum(u * u)])
 
 
-def quad_seeded_plain(params, X, coef, scal, activation: str):
+def _quad_ct(coef, scal, value, grad, d):
+    """The quadratic seeded kernel's per-point cotangents ``(ct_v, ct_g)``."""
+    s_e, s_q = scal[0], scal[1]
+    B, dB, f, V = coef[:, 0], coef[:, 1:1 + d], coef[:, d + 1], coef[:, d + 2]
+    G = B[:, None] * grad + dB * value[:, None]
+    ctv = (s_e * (torch.sum(G * dB, dim=1) - f * B + 2.0 * V * B * value * B)
+           + s_q * 2.0 * B * B * value)
+    return ctv, s_e * G * B[:, None]
+
+
+def quad_seeded_plain(params, X, coef, scal, activation: str, dot_dtype: str = "float32"):
     """Plain version of the quadratic seeded kernel: gradients of ``s_e sum
     e + s_q sum u^2`` and ``sums = [sum ct_v]`` (``ct_v`` = its derivative
-    in the net's value)."""
+    in the net's value).  ``dot_dtype='bfloat16'``: the kernel's bf16-dot
+    variant."""
     d = X.shape[1]
     s_e, s_q = scal[0], scal[1]
+    if dot_dtype == "bfloat16":
+        jet = _swept_jet(params, X, activation)
+        ctv, ctg = _quad_ct(coef, scal, jet.value, jet.grad, d)
+        ct = torch.cat([ctv[:, None], ctg, torch.zeros_like(ctv)[:, None]], dim=1)
+        dWs, dbs = _swept_grads(params, X, jet, ct)
+        return dWs, dbs, torch.sum(ctv).reshape(1)
     with torch.enable_grad():
         leaves = _leaves(params)
         jet = mlp_fwdlap(leaves, X, activation)
         e, u = _quad_terms(jet, coef, d)
         dWs, dbs = _grads_of(s_e * torch.sum(e) + s_q * torch.sum(u * u), leaves)
-    B, dB, f, V = coef[:, 0], coef[:, 1:1 + d], coef[:, d + 1], coef[:, d + 2]
-    v, g = jet.value.detach(), jet.grad.detach()
-    G = B[:, None] * g + dB * v[:, None]
-    ctv = (s_e * (torch.sum(G * dB, dim=1) - f * B + 2.0 * V * B * v * B)
-           + s_q * 2.0 * B * B * v)
+    ctv, _ = _quad_ct(coef, scal, jet.value.detach(), jet.grad.detach(), d)
     return dWs, dbs, torch.sum(ctv).reshape(1)
 
 
@@ -215,11 +279,15 @@ def plan(kind: str, layers, lap: int = 0, *, T: int | None = None,
 
 
 def _launch(kind: str, params, X, coef, scal, activation: str, lap: int, *,
-            flat=None, pl: _plan.Plan | None = None):
+            flat=None, pl: _plan.Plan | None = None, bf16: bool = False):
     """Launch one quotient kernel plus its reduction; returns the flat
-    float32 row: the sums, or ``[grads (P) | sum ct_v]``.  ``flat``: the
-    parameters already flattened by :func:`._cuda.flat_params`; ``pl``: a
-    launch shape other than the plan's own (timing sweeps, tests)."""
+    float32 row: the sums, or ``[grads (P) | sum ct_v, ...]``.  ``flat``:
+    the parameters already flattened by :func:`._cuda.flat_params`; ``pl``:
+    a launch shape other than the plan's own (timing sweeps, tests).
+    ``bf16``: the bf16-dot mode, which runs the tensor-core design
+    (``DES_MMA``, :func:`.fused_step.mma_plan`) and only it."""
+    if bf16:
+        return _launch_mma(kind, params, X, coef, scal, activation, lap, flat=flat, pl=pl)
     from . import _build
 
     lib = _build.load()
@@ -266,6 +334,52 @@ def _launch(kind: str, params, X, coef, scal, activation: str, lap: int, *,
     return out
 
 
+def _launch_mma(kind: str, params, X, coef, scal, activation: str, lap: int, *,
+                flat=None, pl: _plan.Plan | None = None):
+    """The bf16-dot mode of one quotient kernel (``csrc/fused_quotient_mma.cu``)
+    plus its reduction: the sums, or ``[grads (P) | sum ct_v, 0, 0]``."""
+    from . import _build
+
+    lib = _build.load()
+    name = kind + ".bf16"
+    seeded = kind.endswith("seeded")
+    layers = _cuda.net_layers(name, params, X, activation,
+                              (coef, scal) if seeded else (coef,))
+    N = X.shape[0]
+    X, coef = X.contiguous(), coef.contiguous()
+    if flat is None:
+        flat = _cuda.flat_params(params)
+    dev = X.device
+    if pl is None:
+        pl = _plan.cached(("quotient", kind, tuple(layers), lap, True),
+                          lambda: mma_plan(kind, layers, lap=lap))
+    if pl.design != _cuda.DES_MMA:
+        raise ValueError(f"{kind}: the bf16-dot mode runs the tensor-core design and only it "
+                         f"(design={pl.design})")
+    T, code = pl.T, _KINDS[kind]
+    design = mma_des(layers, pl.flags)
+    G = _cuda.grid(name,
+                   lambda sm, ptr: lib.fused_quotient_mma_blocks_per_sm(code, lap, design, sm,
+                                                                        ptr),
+                   pl.smem, dev, (N + T - 1) // T, (design << 1) | lap)
+    row = flat.numel() + 3 if seeded else _NSUMS[kind]
+    partial = torch.empty((G, row), dtype=torch.float32, device=dev)
+    out = torch.empty((row,), dtype=torch.float32, device=dev)
+    per_block = mma_scratch_floats(layers, T, kind, pl.flags, lap)
+    scratch = (torch.empty((G, per_block), dtype=torch.float32, device=dev) if per_block
+               else None)
+    if seeded:
+        scal = scal.contiguous()
+    lay = _cuda.layers_arg(layers)
+    _cuda.launch(name, lib.fused_quotient_mma_f32, code, lap, X.data_ptr(), coef.data_ptr(),
+                 flat.data_ptr(), scal.data_ptr() if seeded else None, ctypes.addressof(lay),
+                 len(layers), _cuda.ACTS[activation], N, T, G, pl.flags, design,
+                 partial.data_ptr(), None if scratch is None else scratch.data_ptr(),
+                 out.data_ptr(), pl.smem, _cuda.stream(dev), dev=dev,
+                 keep=(X, coef, flat, scal, lay, partial, scratch, out))
+    return out
+
+
 def _views(flat, params):
     """``params``' ``(W, b)`` pairs as views of the flat vector."""
     out, o = [], 0
@@ -300,16 +414,17 @@ def fused_linear_sums(params, X, coef, activation: str, *, no_lap: bool = False,
     ``no_lap=True`` drops the Laplacian stream: only valid when the ``a``
     column is identically zero (the WAN weak forms).  ``flat``: ``params``
     already flattened (``[W0, b0, W1, b1, ...]``); the values are then read
-    from it and ``params`` gives the shapes."""
-    _check_dot(dot_dtype)
+    from it and ``params`` gives the shapes.  ``dot_dtype``: ``'float32'``,
+    ``'bf16x3'`` or ``'bfloat16'`` (the bf16-dot mode)."""
+    _check_dot(dot_dtype, bf16=True)
     _check_coef(X, coef, X.shape[1] + 5)
     if _on_cuda(X):
         s = _launch("linear_sums", params, X, coef, None, activation, 0 if no_lap else 1,
-                    flat=flat)
+                    flat=flat, bf16=dot_dtype == "bfloat16")
     else:
         if flat is not None:
             params = _views(flat, params)
-        s = linear_sums_plain(params, X, coef, activation, no_lap)
+        s = linear_sums_plain(params, X, coef, activation, no_lap, dot_dtype)
     return {"sum_r": s[0], "sum_r2": s[1], "sum_mass": s[2], "sum_e2": s[3],
             "n": X.shape[0]}
 
@@ -318,52 +433,57 @@ def fused_seeded_grads(params, X, coef, scalars, activation: str, *,
                        no_lap: bool = False, dot_dtype: str = "float32", flat=None):
     """Pass B: grads of ``s_r*sum r + s_q*sum (e1 v)^2 + s_l*sum e2 v`` for
     ``scalars = (s_r, s_q, s_l)`` (already holding every 1/N and chain
-    factor), in the params layout.  ``flat`` as in :func:`fused_linear_sums`."""
-    _check_dot(dot_dtype)
+    factor), in the params layout.  ``flat`` and ``dot_dtype`` as in
+    :func:`fused_linear_sums`."""
+    _check_dot(dot_dtype, bf16=True)
     _check_coef(X, coef, X.shape[1] + 5)
     scal = _scalars(scalars, X)
     if _on_cuda(X):
         params = [(W.detach(), b.detach()) for W, b in params]
         out = _launch("linear_seeded", params, X, coef, scal, activation,
-                      0 if no_lap else 1, flat=flat)
+                      0 if no_lap else 1, flat=flat, bf16=dot_dtype == "bfloat16")
         dWs, dbs, sums = _unflatten(params, out)
     else:
         if flat is not None:
             params = _views(flat, params)
-        dWs, dbs, sums = linear_seeded_plain(params, X, coef, scal, activation, no_lap)
+        dWs, dbs, sums = linear_seeded_plain(params, X, coef, scal, activation, no_lap,
+                                             dot_dtype)
     return _seeded_grads(params, dWs, dbs, sums)
 
 
 def fused_quad_sums(params, X, coef, activation: str, *, dot_dtype: str = "float32",
                     flat=None):
-    """Pass A (quadratic): ``{'sum_e', 'sum_u2', 'n'}``.  ``flat`` as in
-    :func:`fused_linear_sums`."""
-    _check_dot(dot_dtype)
+    """Pass A (quadratic): ``{'sum_e', 'sum_u2', 'n'}``.  ``flat`` and
+    ``dot_dtype`` as in :func:`fused_linear_sums`."""
+    _check_dot(dot_dtype, bf16=True)
     _check_coef(X, coef, X.shape[1] + 3)
     if _on_cuda(X):
-        s = _launch("quad_sums", params, X, coef, None, activation, 0, flat=flat)
+        s = _launch("quad_sums", params, X, coef, None, activation, 0, flat=flat,
+                    bf16=dot_dtype == "bfloat16")
     else:
         if flat is not None:
             params = _views(flat, params)
-        s = quad_sums_plain(params, X, coef, activation)
+        s = quad_sums_plain(params, X, coef, activation, dot_dtype)
     return {"sum_e": s[0], "sum_u2": s[1], "n": X.shape[0]}
 
 
 def fused_quad_seeded_grads(params, X, coef, scalars, activation: str, *,
                             dot_dtype: str = "float32", flat=None):
     """Pass B (quadratic): grads of ``s_e*sum e + s_q*sum u^2`` for
-    ``scalars = (s_e, s_q)``.  ``flat`` as in :func:`fused_linear_sums`."""
-    _check_dot(dot_dtype)
+    ``scalars = (s_e, s_q)``.  ``flat`` and ``dot_dtype`` as in
+    :func:`fused_linear_sums`."""
+    _check_dot(dot_dtype, bf16=True)
     _check_coef(X, coef, X.shape[1] + 3)
     scal = _scalars(scalars, X)
     if _on_cuda(X):
         params = [(W.detach(), b.detach()) for W, b in params]
-        out = _launch("quad_seeded", params, X, coef, scal, activation, 0, flat=flat)
+        out = _launch("quad_seeded", params, X, coef, scal, activation, 0, flat=flat,
+                      bf16=dot_dtype == "bfloat16")
         dWs, dbs, sums = _unflatten(params, out)
     else:
         if flat is not None:
             params = _views(flat, params)
-        dWs, dbs, sums = quad_seeded_plain(params, X, coef, scal, activation)
+        dWs, dbs, sums = quad_seeded_plain(params, X, coef, scal, activation, dot_dtype)
     return _seeded_grads(params, dWs, dbs, sums)
 
 
@@ -473,7 +593,7 @@ def make_fused_rayleigh(activation: str, *, weight: float = 1.0,
     from :func:`quotient_coefficients`; ``aux`` holds ``rayleigh`` (the
     unweighted quotient), ``mean_e`` and ``mean_u2``."""
     _check_axis(axis)
-    _check_dot(dot_dtype)
+    _check_dot(dot_dtype, bf16=True)
     cfg = (activation, weight, den_eps, dot_dtype, axis)
 
     def loss(params, X, coef):
@@ -516,7 +636,7 @@ def make_fused_quad_mean(activation: str, *, weight: float = 1.0, axis=None,
     ``mean(|grad v|^2 + v^2)`` with ``V = 1/2`` and ``weight = 2*reg``;
     ``aux`` holds ``mean_e`` and ``mean_u2``."""
     _check_axis(axis)
-    _check_dot(dot_dtype)
+    _check_dot(dot_dtype, bf16=True)
     cfg = (activation, weight, dot_dtype, axis)
 
     def loss(params, X, coef):
@@ -580,7 +700,7 @@ def make_fused_wan_u(activation: str, *, convention: str = "wr2_over_norm",
     computed outside.  Gradients flow to ``params``, ``E`` and
     ``phi_norm``."""
     _check_axis(axis)
-    _check_dot(dot_dtype)
+    _check_dot(dot_dtype, bf16=True)
     _wan_dp(convention, 0.0, 1.0, eps)
     cfg = (activation, convention, eps, vol, w_pde, w_norm, dot_dtype, axis)
 
@@ -635,7 +755,7 @@ def make_fused_wan_v(activation: str, *, convention: str = "wr2_over_norm",
     if objective not in ("neg_log", "neg"):
         raise ValueError(f"Unknown critic objective {objective!r}")
     _check_axis(axis)
-    _check_dot(dot_dtype)
+    _check_dot(dot_dtype, bf16=True)
     _wan_dp(convention, 0.0, 1.0, eps)
     cfg = (activation, convention, eps, objective, log_eps, dot_dtype, axis)
 

@@ -30,7 +30,8 @@ sets both):
   ``'streams'`` has no such mode (JAX ``_forward_kernel`` runs HIGHEST), so
   ``'streams:default'`` raises;
 * ``dot_dtype='bfloat16'``: the backward's bf16-dot variant (recompute and
-  reverse sweep).
+  reverse sweep); ``'bf16x3'`` (JAX's three-pass split, float32-class) the
+  float32 backward.
 
 Both bf16-dot variants run on the card's bf16 tensor cores, in the design
 of ``csrc/fwdlap_mma.cuh`` (``DES_MMA``) on the plan of
@@ -293,7 +294,7 @@ def mlp_fwdlap_kernel(params, X, activation: str, fwd_impl: str = "rows",
     ``params``.  ``fwd_impl``: ``'rows'`` or ``'streams'`` (which output
     layout the forward kernel writes; the jet is the same, exact fp32), or ``'rows:default'`` (the
     row kernel's bf16-dot variant).  ``dot_dtype``: the backward's dots,
-    ``'float32'`` or ``'bfloat16'``."""
+    ``'float32'``, ``'bf16x3'`` (as float32) or ``'bfloat16'``."""
     if fwd_impl == "streams:default":
         raise ValueError(
             "fwd_impl='streams:default': the stream-major forward has no "

@@ -16,6 +16,8 @@ The frozen net's ``(value, grad)`` comes from ``value_and_grad(impl=...)``:
 ``'kernel'`` (the default, the jet-forward kernel; JAX's ``'pallas'``) or
 ``'torch'``.  :func:`make_fused_wan_multi_pair` is the multi-test-function
 variant on the K-bump kernels (:mod:`nnpde_tpu_torch.kernels.fused_multibump`).
+Both take the kernels' ``dot_dtype`` (JAX's ``**call_kw``, whose only key
+with a meaning on the card) and pass it to the objectives they build.
 """
 
 from __future__ import annotations
@@ -60,8 +62,10 @@ def make_fused_wan_pair(u_model, v_model, *, w_pde: float = 1.0,
                         convention: str = "wr2_over_norm",
                         eps: float = 1e-8, objective: str = "neg_log",
                         log_eps: float = 1e-8, impl: str = "kernel",
-                        w_norm: float = 0.0, vol: float = 1.0):
-    """Build the fused objectives.
+                        w_norm: float = 0.0, vol: float = 1.0,
+                        dot_dtype: str = "float32"):
+    """Build the fused objectives (``dot_dtype``: the quotient kernels'
+    dot mode, :func:`~nnpde_tpu_torch.kernels.make_fused_wan_u`).
 
     * ``u_pde_fn(u_net_params, E, v_params, X, wv, dwv, V=None, f=None)``
       returns ``(w_pde * pde_loss [+ w_norm * (vol*mean(u^2)-1)^2], aux)``,
@@ -75,10 +79,10 @@ def make_fused_wan_pair(u_model, v_model, *, w_pde: float = 1.0,
     """
     fused_u = make_fused_wan_u(
         u_model.spec.activation, convention=convention, eps=eps,
-        w_pde=w_pde, w_norm=w_norm, vol=vol)
+        w_pde=w_pde, w_norm=w_norm, vol=vol, dot_dtype=dot_dtype)
     fused_v = make_fused_wan_v(
         v_model.spec.activation, convention=convention, eps=eps,
-        objective=objective, log_eps=log_eps)
+        objective=objective, log_eps=log_eps, dot_dtype=dot_dtype)
 
     def u_pde_fn(u_net_params, E, v_params, X, wv, dwv, V=None, f=None):
         v, gv = v_model.value_and_grad(v_params, X, impl=impl)
@@ -122,18 +126,21 @@ def make_fused_wan_multi_pair(u_model, v_model, n_bumps: int, *,
                               convention: str = "wr2_over_norm",
                               eps: float = 1e-8, objective: str = "neg_log",
                               log_eps: float = 1e-8, impl: str = "kernel",
-                              w_norm: float = 0.0, vol: float = 1.0):
+                              w_norm: float = 0.0, vol: float = 1.0,
+                              dot_dtype: str = "float32"):
     """The multi-test-function variant of :func:`make_fused_wan_pair`: one
     weak residual per localised bump ``phi_k = w_k * v``.  ``wv``/``dwv``
     are the stacked bump windows ``(K, N)`` / ``(K, N, d)`` from
     :func:`nnpde_tpu_torch.ops.bump_w_multi`; the objectives are ``mean_k``
-    of the per-bump quotients, matching the autograd multibump path."""
+    of the per-bump quotients, matching the autograd multibump path.
+    ``dot_dtype``: the K-bump kernels' (``'float32'`` or ``'bf16x3'``;
+    their ``'bfloat16'`` is ROADMAP B1)."""
     fused_u = make_fused_wan_multi_u(
         u_model.spec.activation, n_bumps, convention=convention, eps=eps,
-        w_pde=w_pde, w_norm=w_norm, vol=vol)
+        w_pde=w_pde, w_norm=w_norm, vol=vol, dot_dtype=dot_dtype)
     fused_v = make_fused_wan_multi_v(
         v_model.spec.activation, n_bumps, convention=convention, eps=eps,
-        objective=objective, log_eps=log_eps)
+        objective=objective, log_eps=log_eps, dot_dtype=dot_dtype)
 
     def u_pde_fn(u_net_params, E, v_params, X, wv, dwv, V=None, f=None):
         v, gv = v_model.value_and_grad(v_params, X, impl=impl)

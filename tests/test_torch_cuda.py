@@ -971,7 +971,11 @@ def test_cuda_mma_layout_mirror(dev):
                                                         layers, T, flags)
         for T in (4, 12, 24):
             assert lib.fused_mma_smem_bytes(0, ctypes.addressof(lay), len(layers), T, 0) == -1
-        assert lib.fused_mma_smem_bytes(2, ctypes.addressof(lay), len(layers), 16, 0) == -1
+        # the DRM energy's (mode 2) without the Laplacian stream; no mode 3
+        assert lib.fused_mma_smem_bytes(2, ctypes.addressof(lay), len(layers), 16,
+                                        0) == tfs.mma_smem_bytes(layers, 16, 0,
+                                                                 "fused_drm_energy")
+        assert lib.fused_mma_smem_bytes(3, ctypes.addressof(lay), len(layers), 16, 0) == -1
 
 
 def _mma_pins(layers):
@@ -1775,3 +1779,228 @@ def test_cuda_multibump_wide_nets(dev, seeded, layers, Kb, act):
     assert bool(pl.flags & _plan.DEV_WEIGHTS) == (max(layers[1:-1]) == 256)
     _check_multibump(dev, seeded, Kb, layers, act, N=600 + 7)
 
+
+
+# ------------------------------- rows 3 and 7-10 bf16 on the tensor-core body
+# (kind, lap): the Deep-Ritz energy and the quadratic quotients without the
+# Laplacian stream, the linear quotients with it and without (no_lap)
+_NEW_BF16 = [("drm", 0), ("linear_sums", 1), ("linear_sums", 0), ("linear_seeded", 1),
+             ("linear_seeded", 0), ("quad_sums", 0), ("quad_seeded", 0)]
+_NEW_BF16_NETS = [
+    ((2, 64, 64, 64, 64, 1), "sin"),       # u64: the Poisson DRM and WAN primal
+    ((2, 64, 64, 1), "sin"),               # c64: the Poisson WAN critic
+    ((2, 50, 50, 50, 50, 1), "sin"),       # u50: the 2D well's Rayleigh DRM
+    ((1, 200, 200, 200, 1), "tanh"),       # the oscillator's width: the wide variant
+    ((5, 64, 64, 64, 64, 1), "gelu"),      # S = 6 or 7
+    ((4, 32, 32, 1), "sin"),               # S = 5 at d = 4: the zero stream at T = 8
+    ((2, 50, 1, 50, 1), "tanh"),           # width 1 between widths 50
+    ((16, 32, 32, 1), "sin"),              # d = 16: 17 or 18 streams
+]
+
+
+def _new_bf16_case(dev, kind, lap, layers, act, N=1000 + 7, seed=19):
+    """A launch of row 3 or one of rows 7-10 through its public wrapper
+    (``run(dot)``, a list of tensors: the loss or the sums, then the
+    gradient leaves), its plain version on the card (``plain(dot,
+    dtype)``) and a measure ``rel(a, b)`` of the distance between two
+    results: the largest norm-relative difference of the loss and the
+    leaves, and for pass A the largest difference of a sum over the sum of
+    its terms' magnitudes (float64), the rule of the fp32 sums (a sum whose
+    terms cancel amplifies a relative bar).  Inputs of a Poisson-like
+    problem: the box-FBC factor, a source, a potential and a mass lane."""
+    from nnpde_tpu_torch.kernels import fused_quotient as tfq
+    from nnpde_tpu_torch.models import factor_for_technique
+
+    rng = np.random.default_rng(seed)
+    d = layers[0]
+    pn = _np_params(rng, layers)
+    X = torch.as_tensor(rng.uniform(0.0, L, (N, d)).astype(np.float32), device=dev)
+    fj = factor_for_technique("FBC", dim=d, kind="box", L=L).jet(X)
+    f = torch.sin(X[:, 0]) + 0.5
+    V = 0.5 * torch.sum(X * X, dim=1)
+    if kind == "drm":
+        coef = tfs.drm_coefficients(fj, f)
+    elif kind.startswith("quad"):
+        coef = tfq.quotient_coefficients(fj, f=f, V=V)
+    else:
+        coef = tfq.linear_functional_coefficients(
+            fj, c0=V, b0=0.5 * torch.cos(X), a0=-1.0 if lap else 0.0, rhs=-f, e1=fj.value,
+            e2=fj.value * f)
+    scal = torch.tensor([0.7, -0.3, 0.2] if kind == "linear_seeded" else [0.7, -0.3],
+                        device=dev)
+
+    def call(params, Xa, c, s, dot):
+        if kind == "drm":
+            loss, _, g = tfs.fused_drm_energy(params, Xa, c, act, dot_dtype=dot)
+            return [loss.reshape(1)] + [t for pair in g for t in pair]
+        if kind == "linear_sums":
+            o = tfq.fused_linear_sums(params, Xa, c, act, no_lap=not lap, dot_dtype=dot)
+            return [o[k].reshape(1) for k in ("sum_r", "sum_r2", "sum_mass", "sum_e2")]
+        if kind == "quad_sums":
+            o = tfq.fused_quad_sums(params, Xa, c, act, dot_dtype=dot)
+            return [o[k].reshape(1) for k in ("sum_e", "sum_u2")]
+        if kind == "linear_seeded":
+            g = tfq.fused_seeded_grads(params, Xa, c, s, act, no_lap=not lap, dot_dtype=dot)
+        else:
+            g = tfq.fused_quad_seeded_grads(params, Xa, c, s, act, dot_dtype=dot)
+        return [t for pair in g for t in pair]
+
+    tp = params_from_jax(pn, device=dev)
+
+    def run(dot):
+        return call(tp, X, coef, scal, dot)
+
+    def rel(a, b):
+        if not kind.endswith("_sums"):
+            return _leaf_rel(a, b)
+        from nnpde_tpu_torch.ops.fwdlap import mlp_fwdlap
+
+        P = params_from_jax(pn, device=dev, dtype=torch.float64)
+        c = coef.double()
+        jet = mlp_fwdlap(P, X.double(), act)
+        v = jet.value
+        if kind == "linear_sums":
+            r = c[:, 0] * v + torch.sum(c[:, 1:1 + d] * jet.grad, dim=1) + c[:, d + 2]
+            if lap:
+                r = r + c[:, d + 1] * jet.lap
+            scale = [r.abs().sum(), (r * r).sum(), ((c[:, d + 3] * v) ** 2).sum(),
+                     (c[:, d + 4] * v).abs().sum()]
+        else:
+            u = c[:, 0] * v
+            G = c[:, 0:1] * jet.grad + c[:, 1:1 + d] * v[:, None]
+            e = 0.5 * torch.sum(G * G, dim=1) - c[:, d + 1] * u + c[:, d + 2] * u * u
+            scale = [e.abs().sum(), (u * u).sum()]
+        return max(float(torch.abs(x.double() - y.double()).max() / m)
+                   for x, y, m in zip(a, b, scale))
+
+    def plain(dot, dtype=torch.float32):
+        P = params_from_jax(pn, device=dev, dtype=dtype)
+        Xc, cc, sc = X.to(dtype), coef.to(dtype), scal.to(dtype)
+        if kind == "drm":
+            dWs, dbs, sums = tfs.drm_energy_plain(P, Xc, cc, act, dot)
+            g = tfs._scaled_grads(P, dWs, dbs, sums, 1.0 / N)
+            return [(sums[0] / N).reshape(1)] + [t for pair in g for t in pair]
+        if kind == "linear_sums":
+            return list(tfq.linear_sums_plain(P, Xc, cc, act, not lap, dot).reshape(-1, 1))
+        if kind == "quad_sums":
+            return list(tfq.quad_sums_plain(P, Xc, cc, act, dot).reshape(-1, 1))
+        if kind == "linear_seeded":
+            dWs, dbs, sums = tfq.linear_seeded_plain(P, Xc, cc, sc, act, not lap, dot)
+        else:
+            dWs, dbs, sums = tfq.quad_seeded_plain(P, Xc, cc, sc, act, dot)
+        g = tfq._seeded_grads(P, dWs, dbs, sums)
+        return [t for pair in g for t in pair]
+
+    return run, plain, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layers,act", _NEW_BF16_NETS)
+@pytest.mark.parametrize("kind,lap", _NEW_BF16)
+def test_cuda_bf16_row3_and_quotients_match_plain(dev, kind, lap, layers, act):
+    """The bf16-dot variants of rows 3 and 7-10 against their plain
+    bf16-dot versions, float32 on the card: the loss and every gradient leaf
+    norm-rel <= 1e-4, every pass-A sum within 1e-5 of the sum of its terms'
+    magnitudes; more than 10x that bar from the fp32 kernel (the cast is
+    delivered); two launches bitwise equal, each counted under
+    ``<kernel>.bf16`` and launched in the tensor-core design."""
+    from nnpde_tpu_torch.kernels import _cuda
+
+    name = ("fused_drm_energy" if kind == "drm" else kind) + ".bf16"
+    run, plain, rel = _new_bf16_case(dev, kind, lap, layers, act)
+    bar = 1e-5 if kind.endswith("_sums") else 1e-4
+    before = LAUNCHES[name]
+    with _cuda.capture() as cap:
+        out = run("bfloat16")
+    out2 = run("bfloat16")
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == before + 2
+    assert [c[0] for c in cap.calls] == [name]
+    # the design argument: DES_MMA, with DES_WIDE above width 128
+    des = cap.calls[0][2][12 if kind == "drm" else 13]
+    assert des & ~_cuda.DES_WIDE == _cuda.DES_MMA
+    assert all(torch.equal(a, b) for a, b in zip(out, out2))
+    assert rel(out, plain("bfloat16")) <= bar
+    assert rel(out, run("float32")) > 10 * bar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,lap", _NEW_BF16)
+def test_cuda_bf16x3_runs_the_float32_kernels(dev, kind, lap):
+    """``dot_dtype='bf16x3'`` launches the float32 kernel (counted under its
+    plain name) and is bitwise the ``'float32'`` result."""
+    name = "fused_drm_energy" if kind == "drm" else kind
+    run, _, _ = _new_bf16_case(dev, kind, lap, (2, 64, 64, 64, 64, 1), "sin")
+    before = (LAUNCHES[name], LAUNCHES[name + ".bf16"])
+    x3, f32 = run("bf16x3"), run("float32")
+    torch.cuda.synchronize()
+    assert (LAUNCHES[name], LAUNCHES[name + ".bf16"]) == (before[0] + 2, before[1])
+    assert all(torch.equal(a, b) for a, b in zip(x3, f32))
+
+
+@pytest.mark.cuda
+def test_cuda_bf16x3_every_other_kernel_is_float32(dev):
+    """``'bf16x3'`` on rows 1, 2, the jet pair and rows 11-12 is bitwise
+    their ``'float32'``."""
+    from nnpde_tpu_torch.kernels import fused_multibump as tfm
+    from nnpde_tpu_torch.kernels import mlp_fwdlap_kernel
+
+    rng = np.random.default_rng(3)
+    layers, N = (2, 64, 64, 64, 64, 1), 1000 + 7
+    tp = params_from_jax(_np_params(rng, layers), device=dev)
+    X = torch.as_tensor(rng.uniform(0.0, L, (N, 2)).astype(np.float32), device=dev)
+    coef = torch.as_tensor(rng.normal(size=(N, 6)).astype(np.float32), device=dev)
+    mcoef = torch.as_tensor(rng.normal(size=(N, 3 * 6)).astype(np.float32), device=dev)
+    scal = tuple(torch.as_tensor(rng.normal(size=3).astype(np.float32), device=dev)
+                 for _ in range(3))
+
+    def jet_grads(dot, fwd_impl):
+        leaves = [(W.clone().requires_grad_(True), b.clone().requires_grad_(True))
+                  for W, b in tp]
+        jet = mlp_fwdlap_kernel(leaves, X, "sin", fwd_impl=fwd_impl, dot_dtype=dot)
+        val = jet.value.mean() + (jet.lap ** 2).mean()
+        return [val.detach()] + list(torch.autograd.grad(val, [t for p in leaves for t in p]))
+
+    calls = [
+        lambda dot: tfs.fused_linear_residual(tp, X, coef, "sin", dot_dtype=dot)[2],
+        lambda dot: tfs.fused_poisson_analytic(tp, X, "sin", L=L, ks=(1, 1), dot_dtype=dot)[2],
+        lambda dot: jet_grads(dot, "rows"),
+        lambda dot: jet_grads(dot, "streams"),
+        lambda dot: [tfm.fused_multi_sums(tp, X, mcoef, "sin", 3, dot_dtype=dot)["sum_r"]],
+        lambda dot: tfm.fused_multi_seeded_grads(tp, X, mcoef, scal, "sin", 3, dot_dtype=dot),
+    ]
+    for call in calls:
+        flat = lambda o: [t for x in o for t in (x if isinstance(x, tuple) else (x,))]
+        assert all(torch.equal(a, b) for a, b in zip(flat(call("bf16x3")),
+                                                     flat(call("float32"))))
+
+
+@pytest.mark.cuda
+def test_cuda_quotient_mma_layout_mirror(dev):
+    """Rows 7-10's tensor-core layouts and scratch in Python are the
+    kernels' own count, with and without the Laplacian stream, for every
+    tile and tier; a quadratic kind with the Laplacian is refused."""
+    import ctypes
+
+    from nnpde_tpu_torch.kernels import _build, _plan
+    from nnpde_tpu_torch.kernels import fused_quotient as tfq
+
+    lib = _build.load()
+    flags_all = (0, _plan.RES_WEIGHTS, _plan.RES_GRAD, _plan.RES_WEIGHTS | _plan.RES_GRAD,
+                 _plan.DEV_WEIGHTS, _plan.DEV_WEIGHTS | _plan.DEV_SUMS)
+    for layers in [(2, 64, 64, 64, 64, 1), (2, 64, 64, 1), (2, 50, 50, 50, 50, 1), (5, 7, 9, 1),
+                   (2, 12, 1), (1, 200, 200, 200, 1), (16,) + (256,) * 15 + (1,)]:
+        lay = (ctypes.c_int * len(layers))(*layers)
+        args = (ctypes.addressof(lay), len(layers))
+        for kind, code in tfq._KINDS.items():
+            for lap in ((0, 1) if kind.startswith("linear") else (0,)):
+                for T in (8, 16, 32):
+                    for flags in flags_all:
+                        assert lib.fused_quotient_mma_smem_bytes(
+                            code, lap, *args, T, flags) == tfs.mma_smem_bytes(
+                                layers, T, flags, kind, lap)
+                        assert lib.fused_quotient_mma_scratch_floats(
+                            code, lap, *args, T, flags) == tfs.mma_scratch_floats(
+                                layers, T, kind, flags, lap)
+        assert lib.fused_quotient_mma_smem_bytes(2, 1, *args, 16, 0) == -1
+        assert lib.fused_quotient_mma_smem_bytes(0, 0, *args, 24, 0) == -1

@@ -1,7 +1,9 @@
 """The tensor-core design (``DES_MMA``) of the bf16-dot kernels on the CPU:
-the fused residual kernels (rows 1 and 2 with ``dot_dtype='bfloat16'``) and
+the fused residual kernels (rows 1 and 2 with ``dot_dtype='bfloat16'``),
 the jet pair (row 4 with ``fwd_impl='rows:default'``, row 5 with
-``dot_dtype='bfloat16'``).
+``dot_dtype='bfloat16'``), the Deep-Ritz energy (row 3) and the quotients'
+two passes (rows 7-10), the last without the Laplacian stream where their
+objectives drop it.
 
 What runs here is the Python half of the design: its shared-memory layout
 mirror (held to a formula written out below, and on a card to the kernel's
@@ -46,22 +48,25 @@ def _up(n, m):
     return -(-n // m) * m
 
 
-def _written_out_bytes(layers, T, flags, kind="fused_linear_residual"):
+def _written_out_bytes(layers, T, flags, kind="fused_linear_residual", lap=1):
     """The kernel's layout, written out: three bf16 stages of Sp*T rows at
     a row stride of the widest layer rounded up to 16 plus 8 (the jet
-    forward two); the hidden weights in bf16, each kp16(in) rows of kp16(out)
-    + 8 (all of them resident, none read from device memory, else the
-    largest); the gradient row (the fused kinds with the three loss sums,
-    the jet backward without, the jet forward none); then float regions,
-    each rounded up to 4 floats: projection partials (n-blocks of 8 x rows;
-    not in the jet backward), column sums (16-point blocks x S x widest
-    rounded to 8; not in the jet forward), both in device scratch with
-    DEV_SUMS, the points, the cotangents (not in the jet forward), the sum
-    terms (the fused kinds) and the projected rows (not in the jet
-    backward)."""
+    forward and pass A two); the hidden weights in bf16, each kp16(in) rows
+    of kp16(out) + 8 (all of them resident, none read from device memory,
+    else the largest); the gradient row (the fused and seeded kinds with the
+    three loss sums, the jet backward without, the jet forward and pass A
+    none); then float regions, each rounded up to 4 floats: projection
+    partials (n-blocks of 8 x rows; not in the jet backward), column sums
+    (16-point blocks x (d + 2) x widest rounded to 8; not in the jet forward
+    or pass A), both in device scratch with DEV_SUMS, the points, the
+    cotangents (d + 2 rows; not in the jet forward or pass A), the sum terms
+    (the fused and seeded kinds: 3 floats a point; pass A: 4 doubles) and
+    the projected rows (not in the jet backward).  ``lap``: S = d + 1 + lap
+    streams."""
     d, hidden = layers[0], layers[1:-1]
-    fwd, bwd = kind == "fwdlap_forward", kind == "fwdlap_backward"
-    S = d + 2
+    fwd = kind in ("fwdlap_forward", "linear_sums", "quad_sums")
+    bwd = kind == "fwdlap_backward"
+    S = d + 1 + lap
     Sp = S + S % 2 if T == 8 else S
     rows = Sp * T
     k16, n8 = _up(max(hidden), 16), _up(max(hidden), 8)
@@ -73,10 +78,13 @@ def _written_out_bytes(layers, T, flags, kind="fused_linear_residual"):
         P = sum(a * b + b for a, b in zip(layers[:-1], layers[1:]))
         n += 4 * _up(P + (0 if bwd else 3), 4)
     blocks16 = 1 if T == 8 else T // 16
-    regions = {"partials": n8 // 8 * rows, "colsums": blocks16 * S * n8, "points": T * d,
-               "cotangents": S * T, "sums": 3 * T, "projected": rows}
-    drop = {"fwdlap_forward": ("colsums", "cotangents", "sums"),
-            "fwdlap_backward": ("partials", "sums", "projected")}.get(kind, ())
+    regions = {"partials": n8 // 8 * rows, "colsums": blocks16 * (d + 2) * n8, "points": T * d,
+               "cotangents": (d + 2) * T, "sums": 3 * T, "doubles": 8 * T, "projected": rows}
+    drop = {"fwdlap_forward": ("colsums", "cotangents", "sums", "doubles"),
+            "linear_sums": ("colsums", "cotangents", "sums"),
+            "quad_sums": ("colsums", "cotangents", "sums"),
+            "fwdlap_backward": ("partials", "sums", "doubles", "projected")}.get(
+                kind, ("doubles",))
     if flags & _plan.DEV_SUMS:
         drop += ("partials", "colsums")
     for name, floats in regions.items():
@@ -195,8 +203,8 @@ def test_mma_plan_path_shapes(net, want):
 def test_mma_plan_pins_and_refusals(kind):
     """Pinned tile, tier and blocks per SM are taken as given or raise: a
     tile that is neither 8 nor a multiple of 16, one that does not fit, more
-    blocks than the kernels' register budget; the DRM kernel has no
-    bf16-dot mode."""
+    blocks than the kernels' register budget; the K-bump pair has no
+    bf16-dot mode yet (ROADMAP B1)."""
     u64 = NETS["u64"]
     pl = tfs.mma_plan(kind, u64, T=32, tier="staged", blocks=2)
     assert (pl.T, pl.tier, pl.flags) == (32, "staged", 0) and _two_blocks(pl)
@@ -211,7 +219,7 @@ def test_mma_plan_pins_and_refusals(kind):
     with pytest.raises(ValueError, match="register budget"):
         tfs.mma_plan(kind, u64, blocks=3)
     with pytest.raises(ValueError, match="no bf16-dot mode"):
-        tfs.mma_plan("fused_drm_energy", u64)
+        tfs.mma_plan("multi_sums", u64)
 
 
 # ------------------------------------------------------------ the routing
@@ -580,3 +588,204 @@ def test_multibump_device_tier_routes(monkeypatch, seeded, net, devw):
         assert want.numel() == _plan.hidden_floats(layers) * (2 if seeded else 1)
     else:
         assert args[19] is None
+
+
+# ------------------------------------- row 3 and rows 7-10 in bf16-dot mode
+# (kind, lap): the Deep-Ritz energy and the quadratic quotients never carry
+# the Laplacian stream (S = d + 1), the linear quotients with it (rows 7-8
+# on a residual functional) and without it (the WAN weak forms, no_lap)
+NEW_KINDS = (("fused_drm_energy", 0), ("linear_sums", 1), ("linear_sums", 0),
+             ("linear_seeded", 1), ("linear_seeded", 0), ("quad_sums", 0), ("quad_seeded", 0))
+PASS_A = ("linear_sums", "quad_sums")
+
+
+@pytest.mark.parametrize("kind,lap", NEW_KINDS)
+@pytest.mark.parametrize("net", sorted(EXTREMES))
+def test_new_kind_layout_mirror_is_the_written_out_layout(net, kind, lap):
+    """The layouts of the Deep-Ritz energy (KIND_FUSED without the
+    Laplacian stream), the seeded pass B (KIND_FUSED) and pass A
+    (KIND_SUMS: two stages, four doubles a point, no reverse regions) are
+    the written-out ones; pass A keeps no gradient row whatever its flags
+    say."""
+    layers = EXTREMES[net]
+    for T in (8, 16, 32, 48):
+        for flags in FLAGS:
+            assert tfs.mma_smem_bytes(layers, T, flags, kind, lap) == _written_out_bytes(
+                layers, T, flags, kind, lap)
+    if kind in PASS_A:
+        assert tfs.mma_smem_bytes(layers, 16, _plan.RES_GRAD, kind, lap) == tfs.mma_smem_bytes(
+            layers, 16, 0, kind, lap)
+
+
+@pytest.mark.parametrize("kind,lap", NEW_KINDS)
+@pytest.mark.parametrize("net", sorted(EXTREMES))
+def test_new_kind_scratch_floats(net, kind, lap):
+    """The Deep-Ritz energy and pass B save what the fused kernels save,
+    over their own stream count; pass A saves nothing."""
+    layers = EXTREMES[net]
+    d, hidden = layers[0], layers[1:-1]
+    for T in (8, 16, 32):
+        S = d + 1 + lap
+        tiles = (S + S % 2) // 2 if T == 8 else S
+        blocks = (1 if T == 8 else T // 16) * _up(max(hidden), 8) // 8
+        saved = 0 if kind in PASS_A else len(hidden) * blocks * (tiles + 1) * 128
+        assert tfs.mma_scratch_floats(layers, T, kind, 0, lap) == saved
+
+
+@pytest.mark.parametrize("kind,lap", NEW_KINDS)
+def test_new_kind_plans_take_every_width_and_dimension(kind, lap):
+    """Every hidden width 1-256 at every d 1-16 (four hidden layers, and
+    one) gets a tensor-core plan that fits the card's shared memory, its
+    bytes the layout's, stage rows a multiple of 16 (T = 8 pads an odd
+    stream count: S = d + 1 is odd at d = 2 and 4); pass A takes the
+    forward tiers only."""
+    tiers = dict(tfs.MMA_FWD_TIERS if kind in PASS_A else tfs.MMA_TIERS)
+    for d in range(1, 17):
+        for w in range(1, 257):
+            for layers in ((d, w, w, w, w, 1), (d, w, 1)):
+                pl = tfs.mma_plan(kind, layers, lap=lap)
+                assert _fits(pl) and pl.blocks == 0, layers
+                assert pl.smem == tfs.mma_smem_bytes(layers, pl.T, pl.flags, kind, lap), layers
+                assert tiers[pl.tier] == pl.flags, layers
+                g = tfs.mma_geometry(layers, pl.T, lap)
+                assert g.S == d + 1 + lap and g.ST % 16 == 0 and g.Sp - g.S in (0, 1), layers
+
+
+@pytest.mark.parametrize("kind,lap,net,want", [
+    # (T, tier, blocks per SM by shared memory)
+    ("fused_drm_energy", 0, "u64", (16, "resident", 2)),
+    ("linear_sums", 0, "c64", (16, "weights", 2)),
+    ("linear_sums", 1, "u64", (16, "weights", 2)),
+    ("linear_seeded", 0, "c64", (16, "resident", 2)),
+    ("linear_seeded", 0, "u64", (16, "resident", 2)),
+    ("quad_sums", 0, "u50", (16, "weights", 2)),
+    ("quad_seeded", 0, "u50", (16, "resident", 2)),
+    ("quad_seeded", 0, "c64", (16, "resident", 2)),
+    ("fused_drm_energy", 0, "w200_d2", (16, "device", 2)),
+    ("linear_seeded", 1, "d16_w256_16layers", (8, "device-sums", 1)),
+    ("quad_sums", 0, "d16_w256_16layers", (8, "device", 1)),
+])
+def test_new_kind_plan_path_shapes(kind, lap, net, want):
+    """The plans on the paths' nets (u64 the Poisson DRM, c64 / u64 the
+    Poisson WAN, u50 the 2D well's Rayleigh DRM) and on the widest: 16-point
+    tiles at two blocks per SM, the device tiers where nothing else fits."""
+    pl = tfs.mma_plan(kind, EXTREMES[net], lap=lap)
+    assert (pl.T, pl.tier, 2 if _two_blocks(pl) else 1) == want
+
+
+def test_mma_lap_of_each_kind():
+    """The stream count is the kind's: fixed for all but the linear
+    quotients, which take ``lap``; a lap a kind cannot take raises."""
+    assert [tfs.mma_lap(k) for k in tfs.MMA_KINDS] == [1, 1, 0, 1, 1, 1, 1, 0, 0]
+    assert tfs.mma_lap("linear_sums", 0) == 0 and tfs.mma_lap("linear_seeded", False) == 0
+    with pytest.raises(ValueError, match="never carried"):
+        tfs.mma_plan("quad_sums", NETS["u64"], lap=1)
+    with pytest.raises(ValueError, match="always carried"):
+        tfs.mma_smem_bytes(NETS["u64"], 16, 0, "fwdlap_backward", 0)
+
+
+@pytest.mark.parametrize("net", ["u64", "u50", "width1", "w200_d2", "d16_w256_16layers"])
+def test_bf16_drm_routes_to_the_tensor_core_design(monkeypatch, net):
+    """Row 3's bf16-dot mode launches DES_MMA on its mma plan (no
+    transposes), counted as ``fused_drm_energy.bf16``; fp32 and ``bf16x3``
+    launch the planned design under the plain name."""
+    layers = EXTREMES[net]
+    rec = _Recorder(monkeypatch)
+    params, X, _ = _inputs(layers)
+    coef = torch.zeros((X.shape[0], layers[0] + 2))
+    tfs._launch("fused_drm_energy", params, X, coef, "sin", None, bf16=True)
+    tfs._launch("fused_drm_energy", params, X, coef, "sin", None)
+    (name_b, fn_b, args_b), (name_f, fn_f, args_f) = rec.calls
+    assert (name_b, fn_b) == ("fused_drm_energy.bf16", "fused_drm_energy_f32")
+    assert (name_f, fn_f) == ("fused_drm_energy", "fused_drm_energy_f32")
+    pl = tfs.mma_plan("fused_drm_energy", layers)
+    # (X, coef, params, wt, layers, n, act, N, T, G, fold, bf16, des, flags, ...)
+    assert args_b[10:14] == (0, 1, tfs.mma_des(layers, pl.flags), pl.flags)
+    assert args_b[8] == pl.T and args_b[3] is None
+    assert args_f[11] == 0 and args_f[12] == tfs.plan("fused_drm_energy", layers).design
+
+
+@pytest.mark.parametrize("net", ["c64", "u64", "u50", "width1", "w200_d2",
+                                 "d16_w256_16layers"])
+@pytest.mark.parametrize("kind,lap", NEW_KINDS[1:])
+def test_bf16_quotients_route_to_the_tensor_core_design(monkeypatch, kind, lap, net):
+    """Rows 7-10's bf16-dot modes launch ``fused_quotient_mma_f32`` on the
+    kind's mma plan, counted as ``<kernel>.bf16``, with the Laplacian flag,
+    tile, flags and narrow or wide variant passed through and scratch for
+    pass B alone; fp32 launches ``fused_quotient_f32`` under the plain
+    name."""
+    from nnpde_tpu_torch.kernels import fused_quotient as tfq
+
+    layers = EXTREMES[net]
+    rec = _Recorder(monkeypatch)
+    params, X, _ = _inputs(layers)
+    d = layers[0]
+    coef = torch.zeros((X.shape[0], d + (5 if kind.startswith("linear") else 3)))
+    scal = torch.zeros(3)
+    seeded = kind.endswith("seeded")
+    tfq._launch(kind, params, X, coef, scal if seeded else None, "sin", lap, bf16=True)
+    tfq._launch(kind, params, X, coef, scal if seeded else None, "sin", lap)
+    (name_b, fn_b, args_b), (name_f, fn_f, args_f) = rec.calls
+    assert (name_b, fn_b, name_f, fn_f) == (kind + ".bf16", "fused_quotient_mma_f32", kind,
+                                            "fused_quotient_f32")
+    pl = tfs.mma_plan(kind, layers, lap=lap)
+    # (kind, lap, X, coef, params, scal, layers, n, act, N, T, G, flags, des,
+    # partial, scratch, out, smem_bytes, stream)
+    assert args_b[:2] == (tfq._KINDS[kind], lap)
+    assert (args_b[10], args_b[12], args_b[13], args_b[17]) == (
+        pl.T, pl.flags, tfs.mma_des(layers, pl.flags), pl.smem)
+    assert (args_b[15] is not None) == seeded and (args_b[5] is not None) == seeded
+    assert args_f[1] == lap and args_f[14] in (0, _cuda.DES_DEVW) + _cuda.PLANNED_DESIGNS + (
+        _cuda.DES_PLANNED | _cuda.DES_DEVW,)
+
+
+def test_bf16_quotient_launch_refuses_other_designs(monkeypatch):
+    """The bf16-dot mode of the quotients takes only the tensor-core
+    design: a planned plan handed to it is not launched."""
+    from nnpde_tpu_torch.kernels import fused_quotient as tfq
+
+    layers = NETS["c64"]
+    rec = _Recorder(monkeypatch)
+    params, X, _ = _inputs(layers)
+    coef = torch.zeros((X.shape[0], 7))
+    pl = tfq.plan("linear_sums", layers, 0, N=X.shape[0])
+    with pytest.raises(ValueError, match="tensor-core design and only it"):
+        tfq._launch("linear_sums", params, X, coef, None, "sin", 0, pl=pl, bf16=True)
+    assert rec.calls == []
+
+
+def test_cpu_bf16_row3_and_quotients_run_their_plain_versions(monkeypatch):
+    """On the CPU the bf16-dot modes of rows 3 and 7-10 route to their plain
+    bf16-dot versions without building or loading the kernels, and give
+    exactly their results; ``bf16x3`` gives the float32 results."""
+    from nnpde_tpu_torch.kernels import fused_quotient as tfq
+
+    def no_build():
+        raise AssertionError("a CPU tensor reached the kernel library")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    layers = (2, 12, 12, 1)
+    params, X, _ = _inputs(layers, N=33)
+    rng = np.random.default_rng(5)
+    c4 = torch.as_tensor(rng.normal(size=(33, 4)).astype(np.float32))
+    c7 = torch.as_tensor(rng.normal(size=(33, 7)).astype(np.float32))
+    c5 = torch.as_tensor(rng.normal(size=(33, 5)).astype(np.float32))
+    scal = torch.tensor([0.3, -0.2, 0.1])
+    loss, _, grads = tfs.fused_drm_energy(params, X, c4, "sin", dot_dtype="bfloat16")
+    dWs, dbs, sums = tfs.drm_energy_plain(params, X, c4, "sin", "bfloat16")
+    assert torch.equal(loss, sums[0] / 33)
+    want = tfs._scaled_grads(params, dWs, dbs, sums, 1.0 / 33)
+    assert all(torch.equal(a, b) for g, w in zip(grads, want) for a, b in zip(g, w))
+    s = tfq.fused_linear_sums(params, X, c7, "sin", no_lap=True, dot_dtype="bfloat16")
+    assert torch.equal(s["sum_r2"], tfq.linear_sums_plain(params, X, c7, "sin", True,
+                                                          "bfloat16")[1])
+    g = tfq.fused_quad_seeded_grads(params, X, c5, scal[:2], "sin", dot_dtype="bfloat16")
+    dWs, _, sums = tfq.quad_seeded_plain(params, X, c5, scal[:2], "sin", "bfloat16")
+    assert torch.equal(g[0][0], dWs[0]) and torch.equal(g[-1][1], sums[0].reshape(1))
+    for dot in ("bf16x3", "float32"):
+        l3, _, g3 = tfs.fused_drm_energy(params, X, c4, "sin", dot_dtype=dot)
+        if dot == "bf16x3":
+            first = (l3, g3)
+        else:
+            assert torch.equal(first[0], l3) and torch.equal(first[1][0][0], g3[0][0])
+    assert not torch.equal(loss, l3)

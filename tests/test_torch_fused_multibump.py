@@ -275,7 +275,7 @@ def test_multibump_options_that_raise():
     X, coef = torch.zeros(8, 2), torch.zeros(8, 12)
     p = [(torch.zeros(2, 4), torch.zeros(4)), (torch.zeros(4, 1), torch.zeros(1))]
     with pytest.raises(NotImplementedError, match="dot_dtype"):
-        fused_multi_sums(p, X, coef, "sin", 2, dot_dtype="bf16x3")
+        fused_multi_sums(p, X, coef, "sin", 2, dot_dtype="bfloat16")
     with pytest.raises(TypeError, match="process group"):
         make_fused_wan_multi_u("sin", 2, axis="batch")
     with pytest.raises(ValueError, match="coef"):

@@ -309,8 +309,8 @@ def test_wan_v_matches_jax(objective, convention):
 def test_factories_reject_what_is_not_ported():
     with pytest.raises(TypeError, match="process group"):
         tfq.make_fused_wan_u("sin", axis="data")
-    with pytest.raises(NotImplementedError):
-        tfq.make_fused_rayleigh("sin", dot_dtype="bf16x3")
+    with pytest.raises(ValueError, match="dot_dtype"):
+        tfq.make_fused_rayleigh("sin", dot_dtype="fp8")
     with pytest.raises(ValueError):
         tfq.make_fused_wan_v("sin", objective="max")
     with pytest.raises(ValueError):

@@ -152,9 +152,9 @@ def test_wrappers_reject_bad_input():
     Xt = torch.as_tensor(X)
     with pytest.raises(ValueError):
         tfs.fused_linear_residual(tp, Xt, torch.zeros(10, 5), "sin")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="dot_dtype"):
         tfs.fused_linear_residual(tp, Xt, torch.zeros(10, 6), "sin",
-                                  dot_dtype="bf16x3")
+                                  dot_dtype="fp8")
 
 
 # ------------------------------------------------------------- launch plans

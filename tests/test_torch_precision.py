@@ -54,7 +54,6 @@ import nnpde_tpu_torch.problems.poisson as t_poisson_mod
 from nnpde_tpu_torch.interop import params_from_jax
 from nnpde_tpu_torch.kernels import LAUNCHES
 from nnpde_tpu_torch.kernels import fused_multibump as tfm
-from nnpde_tpu_torch.kernels import fused_quotient as tfq
 from nnpde_tpu_torch.kernels import fused_step as tfs
 from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
 from nnpde_tpu_torch.models import SolutionModel, factor_for_technique
@@ -497,11 +496,10 @@ def test_unported_dot_modes_raise_naming_the_roadmap():
     with pytest.raises(ValueError, match="streams:default"):
         tfc.mlp_fwdlap_kernel(tp, X, "sin", fwd_impl="streams:default")
     with pytest.raises(NotImplementedError, match="B1"):
-        tfs.fused_drm_energy(tp, X, torch.zeros(16, 4), "sin", dot_dtype="bfloat16")
+        tfm.fused_multi_seeded_grads(tp, X, torch.zeros(16, 6), (torch.zeros(1),) * 3, "sin",
+                                     1, dot_dtype="bfloat16")
     with pytest.raises(NotImplementedError, match="B1"):
-        tfs.fused_linear_residual(tp, X, torch.zeros(16, 6), "sin", dot_dtype="bf16x3")
-    with pytest.raises(NotImplementedError, match="B1"):
-        tfq.fused_quad_sums(tp, X, torch.zeros(16, 5), "sin", dot_dtype="bfloat16")
+        tfm.make_fused_wan_multi_v("sin", 1, dot_dtype="bfloat16")
     with pytest.raises(NotImplementedError, match="B1"):
         tfm.fused_multi_sums(tp, X, torch.zeros(16, 6), "sin", 1, dot_dtype="bfloat16")
     with pytest.raises(ValueError, match="dot_dtype"):
