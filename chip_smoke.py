@@ -25,7 +25,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    and method='DRM' for a few hundred epochs (kernel launched, loss finite
    and falling).
 5. wan_path: ``train_poisson_nd(method='WAN')`` (the default 2D Poisson WAN,
-   critic 2-64-64-1, 5 critic steps, 400 epochs) on jet_impl 'torch' and
+   critic 2-64-64-1, 5 critic steps, 300 epochs) on jet_impl 'torch' and
    'fused' from one seed: first total within rtol 1e-3 and the first 10
    within 5e-2, both best rel_l2 <= 5e-2, all finite, and exactly 6 jet
    forward, 6 linear sums, 6 linear seeded, 5 quad sums and 5 quad seeded
@@ -39,12 +39,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
    fused residual kernel once more at width 50.
 7. eigen_path: ``train_ipw_2d`` at the default nets and grid (40000 points),
    state nx = ny = 3, technique FN.  PINN with weights {'data': 1e4} on
-   jet_impl 'torch', 'kernel' and 'fused' (500 epochs, cut from the 20000
+   jet_impl 'torch', 'kernel' and 'fused' (300 epochs, cut from the 20000
    of the acceptance row): first total within rtol 1e-4, first 10 within
    5e-2, kernel and fused rel_l2 <= max(2 x torch, 1e-3), exact launch
    counts; DRM on 'fused' (300 epochs; the same band against 100 'torch'
    epochs, loss falling below its first value); WAN with n_test_grid = 4 (16
-   bumps) on 'torch' and 'fused' (250 epochs): the same band, the first
+   bumps) on 'torch' and 'fused' (150 epochs): the same band, the first
    weak-form term within 1e-3, all finite, rel_l2 falling, exact launch
    counts; then 100 epochs each of grid_jitter and
    minimax='extragradient', and 100 PINN epochs on 'kernel:streams'.
@@ -72,13 +72,13 @@ Phases (each prints one JSON line; any failure exits non-zero):
    v100) at 1000 and 1007 points, and on a ragged wide net (1, 130, 256, 1),
    to their float64 plain versions by the bars above; eigen1d_path runs
    ``train_ipw_1d(n=3, technique='FN')`` (200 of 3000 epochs: PINN on three
-   routes, DRM on two), ``train_ipw_1d_wan(technique='FN')`` (120 epochs,
+   routes, DRM on two), ``train_ipw_1d_wan(technique='FN')`` (80 epochs,
    'torch' and 'fused'), ``train_qho_1d(n=1, technique='FN')`` at u200
    (200 of 10000 epochs, PINN on three routes, DRM on two), the
-   full-length L-BFGS rows qho1d_n0_drm_fn_lbfgs ('fused') and
-   qho1d_n2_pinn_fn_lbfgs ('kernel') of ACCEPTANCE.json (3000 iterations,
-   best MSE <= 1e-5), ``train_qho_1d_wan(n=0, technique='OG',
-   minimax='extragradient', v_lr=2e-3)`` (120 of 30000 epochs) and
+   L-BFGS rows qho1d_n0_drm_fn_lbfgs ('fused') and qho1d_n2_pinn_fn_lbfgs
+   ('kernel') of ACCEPTANCE.json (E1_LBFGS_ITERS = 1000 of their 3000
+   iterations, best MSE <= 1e-5, ACCEPTANCE.json's bar), ``train_qho_1d_wan(n=0, technique='OG',
+   minimax='extragradient', v_lr=2e-3)`` (80 of 30000 epochs) and
    ``train_ipw_2d(LBFGS=True)`` (100 fused epochs and the 500-iteration
    polish): kernel routes start as 'torch' does (rtol 1e-4, first 10 within
    5e-2), PINN best MSE <= max(2 x torch, 1e-3), DRM and WAN falling, all
@@ -138,7 +138,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    (reported).  probe (group ``probe``): ``train_ipw_2d(compile_only=True)``
    at ``scripts/wan_mem_probe.py``'s four cells (the 2D well's WAN
    winner, grid 300 and 400, jitter off and on), each probe's total within
-   0.98-1.02 of ``max_memory_allocated`` over 50 epochs of the same
+   0.98-1.02 of ``max_memory_allocated`` over 20 epochs of the same
    configuration and below the card's memory.
 13. timing, wan_timing, eigen_timing, ipw3d_timing: CUDA events, median over repeats, for
    each kernel and its plain version at the path's N and at 262144 on the
@@ -178,14 +178,19 @@ Phases (each prints one JSON line; any failure exits non-zero):
    (16, 256, 256, 1) (device-sums), rows 7-8 with and without the
    Laplacian stream, by the rules above (pass A's sums within 5e-6 of the
    sum of their terms' magnitudes), and ``dot_dtype='bf16x3'`` to the fp32
-   kernel bitwise; precision_b1_path trains the Poisson 2D DRM
-   (``fused_drm_energy``, 300 epochs), the 2D well's Rayleigh DRM
-   (``make_fused_rayleigh``, (3, 3) FN, u50, 300 epochs) and the Poisson 2D
-   WAN (``make_fused_wan_pair``, 150 epochs), each built with
-   ``dot_dtype='bfloat16'`` and once in float32: exact launches by name,
-   the bf16 metric <= max(2 x the float32 run's, 1e-3) and falling;
-   precision_b1_timing times the five rows at their path cells' N and at
-   262144.
+   kernel bitwise; rows 11-12 (the K-bump WAN pair on the same body, a
+   weak-form coefficient stream) likewise on c20 and u50 at 40000 points
+   and 16 bumps, (2, 200 x 4, 1), u50 at 1, 36 and 42 bumps and (16, 256,
+   256, 1) at 42 (the plans' largest tiers); precision_b1_path trains the
+   Poisson 2D DRM (``fused_drm_energy``, 300 epochs), the 2D well's
+   Rayleigh DRM (``make_fused_rayleigh``, (3, 3) FN, u50, 300 epochs), the
+   Poisson 2D WAN (``make_fused_wan_pair``, 150 epochs) and the 2D well's
+   16-bump WAN (``make_fused_wan_multi_pair``, (3, 3) FN, u50 / c20, 150
+   epochs), each built with ``dot_dtype='bfloat16'`` and once in float32:
+   exact launches by name, the bf16 metric <= max(2 x the float32 run's,
+   1e-3) and falling; precision_b1_timing times the seven rows at their
+   path cells' N and at 262144 (rows 11-12 on c20, u50 and u200 beside
+   their fp32 kernel).
 15. wide (group ``wide``): hidden widths 129-256.  wide_kernels holds rows
    1, 2, 4, 5 bf16 (the tensor-core design's device tiers where the
    weights do not fit beside the stages) on (2, w x 4, 1) at w = 136, 200,
@@ -784,13 +789,13 @@ def phase_main_path():
 
 
 def phase_wan_path():
-    """The default 2D Poisson WAN on both jet paths (400 epochs, cut from
+    """The default 2D Poisson WAN on both jet paths (300 epochs, cut from
     1000 for the run's clock: at 300 the fused route is at 1.4e-2 against
     the 5e-2 gate), then extragradient."""
     from nnpde_tpu_torch.kernels import LAUNCHES, reset_launches
     from nnpde_tpu_torch.problems import PoissonConfig, train_poisson_nd
 
-    epochs = 400
+    epochs = 300
     base = dict(dim=2, method="WAN", epochs=epochs, chunk=1000)
     t0 = time.time()
     torch_run = train_poisson_nd(PoissonConfig(jet_impl="torch", **base))
@@ -858,19 +863,31 @@ def time_ms(fn, warmup=3, reps=15):
     return statistics.median(times)
 
 
-def device_ms(fn, launches=30, reps=5):
+def device_ms(fn, launches=30, reps=5, window_ms=150.0):
     """Device time of the launches ``fn`` makes, per call of ``fn``: the
     launches are captured once (pointers and workspace prepared by the
     wrapper, outside the timed window) and issued again ``launches`` times
     back to back inside one event pair, so the queue never runs dry and the
     wrapper's host work (checks, torch.cat, allocation) is not timed.  The
-    floor is the host's time for one ctypes call, a few microseconds."""
+    floor is the host's time for one ctypes call, a few microseconds.  A
+    call of more than 5 ms takes fewer launches a window (at least 3, about
+    ``window_ms`` of them): the window stays long, the run's clock short;
+    ``window_ms=None`` keeps ``launches`` for every call."""
     from nnpde_tpu_torch.kernels import _cuda
 
     with _cuda.capture() as cap:
         fn()
     cap.replay(3)
     torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    cap.replay(1)
+    b.record()
+    b.synchronize()
+    one = a.elapsed_time(b)
+    if window_ms is not None and one > 5.0:
+        launches = min(launches, max(3, int(window_ms / one)))
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
@@ -1304,7 +1321,7 @@ def phase_eigen_path():
                         "v_layers": list(EIGEN_V), "grid_points": EIGEN_N, "state": [3, 3],
                         "technique": "FN"}, {}
     # ---- PINN, weights {'data': 1e4}, the three jet routes from one seed
-    epochs = 500
+    epochs = 300
     pinn = dict(method="PINN", weights={"data": 1e4}, epochs=epochs)
     runs = {impl: run(jet_impl=impl, **pinn) for impl in ("torch", "kernel", "fused")}
     rel_t = runs["torch"][0]["rel_l2"]
@@ -1350,7 +1367,7 @@ def phase_eigen_path():
                            "rayleigh_min": float(out["history"]["drm"].min()),
                            "rel_l2": out["rel_l2"], "ok": drm_ok}
     # ---- WAN, 16 localised bumps, both jet routes from one seed
-    epochs = 250
+    epochs = 150
     wan = dict(method="WAN", n_test_grid=4, epochs=epochs)
     wt, ct, wall_t = run(jet_impl="torch", **wan)
     wf, cf, wall_f = run(jet_impl="fused", **wan)
@@ -2131,7 +2148,7 @@ MMA_SOURCE = "nnpde_tpu_torch/csrc/fwdlap_mma.cuh"
 # where each entry point takes its design among its arguments
 DES_ARG = {"fused_linear_residual_f32": 12, "fused_poisson_analytic_f32": 11,
            "fwdlap_forward_f32": 11, "fwdlap_backward_f32": 12, "fused_drm_energy_f32": 12,
-           "fused_quotient_mma_f32": 13}
+           "fused_quotient_mma_f32": 13, "fused_multibump_mma_f32": 13}
 BF16_PEAK = 989e12       # H100 SXM bf16 tensor cores, dense (FLOP/s)
 PREC_TOL = 1e-4
 # The jet forward's columns are per-point outputs: an operand that rounds to
@@ -2574,20 +2591,24 @@ def phase_precision_path():
     return counts
 
 
-# -------------------------------- rows 3 and 7-10 in the bf16-dot mode (B1)
-# The Deep-Ritz energy and the quotients' two passes on the tensor-core body
-# (fwdlap_mma.cuh: row 3 KIND_FUSED without the Laplacian stream, pass B
-# KIND_FUSED with the seeded cotangents, pass A KIND_SUMS): the kernels
-# against their plain bf16-dot versions, three short trainings built through
-# the public constructors, and their times.
+# ------------------------ rows 3, 7-10 and 11-12 in the bf16-dot mode (B1)
+# The Deep-Ritz energy, the quotients' and the K-bump pair's two passes on
+# the tensor-core body (fwdlap_mma.cuh: row 3 KIND_FUSED without the
+# Laplacian stream, pass B KIND_FUSED with the seeded cotangents, pass A
+# KIND_SUMS): the kernels against their plain bf16-dot versions, four short
+# trainings built through the public constructors, and their times.
 B1_REPLACES = {
     "fused_drm_energy.bf16": "nnpde_tpu/kernels/fused_step.py:170",
     "linear_sums.bf16": "nnpde_tpu/kernels/fused_quotient.py:111",
     "linear_seeded.bf16": "nnpde_tpu/kernels/fused_quotient.py:189",
     "quad_sums.bf16": "nnpde_tpu/kernels/fused_quotient.py:268",
     "quad_seeded.bf16": "nnpde_tpu/kernels/fused_quotient.py:333",
+    "multi_sums.bf16": "nnpde_tpu/kernels/fused_multibump.py:62",
+    "multi_seeded.bf16": "nnpde_tpu/kernels/fused_multibump.py:131",
 }
 B1_SOURCES = {name: ("nnpde_tpu_torch/csrc/fused_step.cu" if name.startswith("fused")
+                     else "nnpde_tpu_torch/csrc/fused_multibump_mma.cu"
+                     if name.startswith("multi")
                      else "nnpde_tpu_torch/csrc/fused_quotient_mma.cu") for name in B1_REPLACES}
 U200_1D = (1, 200, 200, 200, 1)
 U5 = (5, 64, 64, 64, 64, 1)
@@ -2616,7 +2637,23 @@ B1_CELLS = {
     "quad_sums": ((CRITIC, 20000), (U50, 40000)),
     "quad_seeded": ((CRITIC, 20000), (U50, 40000)),
 }
-B1_EPOCHS = {"drm": 300, "rayleigh": 300, "wan": 150}
+B1_EPOCHS = {"drm": 300, "rayleigh": 300, "wan": 150, "ipw_wan": 150}
+# rows 11-12: (layers, N, act, bumps) each pass is held at: the 2D well's
+# critic and primal at its 16 bumps and 40000 grid points, the wide variant
+# on (2, 200 x 4, 1) and on the 1D oscillator's (1, 200 x 3, 1) tanh, one
+# bump, 36 (n_test_grid = 6) and the cap of 42 on u50, and d = 16 at width
+# 256 at the cap (the plans' largest tiers: device for pass A, device-sums
+# for pass B)
+U200 = (2, 200, 200, 200, 200, 1)
+B1_MULTI_SHAPES = ((EIGEN_V, EIGEN_N, "sin", 16), (EIGEN_U, EIGEN_N, "sin", 16),
+                   (U200, 20000, "sin", 16), (U200_1D, 20000, "tanh", 16),
+                   (EIGEN_U, EIGEN_N, "sin", 1),
+                   (EIGEN_U, EIGEN_N, "sin", 36), (EIGEN_U, EIGEN_N, "sin", 42),
+                   (D16, 8000, "sin", 42))
+B1_MULTI_LARGEST = {"multi_sums": "device", "multi_seeded": "device-sums"}
+# rows 11-12's timing cells at 16 bumps (the kernels line takes the first:
+# the critic, 5 of the 6 launches of each pass an epoch)
+B1_MULTI_CELLS = (EIGEN_V, EIGEN_U, U200)
 # pass A's sums are held as the kernels phase holds the fp32 sums: each
 # sum's difference over the sum of its terms' magnitudes (a sum whose terms
 # cancel, such as the weak residual, amplifies any relative bar: on the
@@ -2737,10 +2774,130 @@ class B1Case:
         return fs.mma_plan(self.kind, list(self.layers), lap=self.lap)
 
 
+class B1MultiCase:
+    """Row 11 or 12 at one shape and bump count (:class:`EigenCase`'s net
+    and points, :func:`weak_form_stream`'s coefficients and seeds), through
+    its public wrapper in any dot mode, and its plain version of either
+    mode: lists of tensors (pass A's 3K sums one by one; pass B's gradient
+    leaves, the last bias leaf sum ct_v)."""
+
+    def __init__(self, kind, N, layers, act, seed, dev, Kb):
+        from nnpde_tpu_torch.kernels.fused_multibump import weak_form_stream
+
+        self.kind, self.N, self.layers, self.act, self.Kb = kind, N, layers, act, Kb
+        self.src = EigenCase(kind, N, layers, act, seed, dev, Kb)
+        self.src.coef, self.src.scal = weak_form_stream(self.src.X, Kb,
+                                                        np.random.default_rng(seed + 1), L)
+        self.params, self.X, self.coef = self.src.params, self.src.X, self.src.coef
+        K = Kb
+        self.seeds = (self.src.scal[:K], self.src.scal[K:2 * K], self.src.scal[2 * K:])
+
+    def kernel(self, dot):
+        from nnpde_tpu_torch.kernels import fused_multibump as fm
+
+        p, X, c, K = self.params, self.X, self.coef, self.Kb
+        if self.kind == "multi_sums":
+            s = fm.fused_multi_sums(p, X, c, self.act, K, dot_dtype=dot)
+            return list(torch.cat([s["sum_r"], s["sum_mass"], s["sum_e2"]]).reshape(-1, 1))
+        g = fm.fused_multi_seeded_grads(p, X, c, self.seeds, self.act, K, dot_dtype=dot)
+        return [t for pair in g for t in pair]
+
+    def plain(self, dot, dtype=torch.float32):
+        """The plain version of the ``dot`` mode on the card (float64: in the
+        bf16-dot mode the witness, its operands rounded from float64)."""
+        from nnpde_tpu_torch.kernels import fused_multibump as fm
+        from nnpde_tpu_torch.kernels import fused_quotient as fq
+
+        P = [(W.to(dtype), b.to(dtype)) for W, b in self.params]
+        X, c = self.X.to(dtype), self.coef.to(dtype)
+        if self.kind == "multi_sums":
+            return list(fm.fused_multi_sums_plain(P, X, c, self.act, self.Kb, dot).reshape(-1, 1))
+        dWs, dbs, sums = fm.fused_multi_seeded_grads_plain(P, X, c, self.src.scal.to(dtype),
+                                                           self.act, self.Kb, dot)
+        return [t for pair in fq._seeded_grads(P, dWs, dbs, sums) for t in pair]
+
+    def tol(self):
+        return PREC_TOL_SUMS if self.kind == "multi_sums" else PREC_TOL
+
+    def rel(self, a, b):
+        """Pass A: the largest difference of a sum over the float64 sum of its
+        terms' magnitudes; pass B: the largest norm-relative difference over
+        the leaves and sum ct_v."""
+        if self.kind == "multi_sums":
+            if not hasattr(self, "scale"):
+                self.scale = self.src.abs_terms()
+            return max(float(torch.abs(x.double() - y.double()).max()) / float(m)
+                       for x, y, m in zip(a, b, self.scale))
+        return max(float(torch.linalg.norm(x.double() - y.double())
+                         / max(float(torch.linalg.norm(y.double())), 1e-30))
+                   for x, y in zip(a, b))
+
+    def distinct(self, bf, f32):
+        return self.rel(bf, f32)
+
+    def flops(self):
+        return self.src.flops()
+
+    def bytes(self):
+        return self.src.bytes()
+
+    def bound(self, peak):
+        ops, mem = self.flops() / peak, self.bytes() / HBM_RATE
+        return 1e3 * max(ops, mem), "operations" if ops >= mem else "bytes"
+
+    def plan(self):
+        from nnpde_tpu_torch.kernels import fused_step as fs
+
+        return fs.mma_plan(self.kind, list(self.layers), n_bumps=self.Kb)
+
+
+def b1_check(case, name, tier=None):
+    """One bf16-dot case held by the precision phase's rules: the kernel
+    within ``case.tol()`` of its plain bf16-dot version (float32 on the
+    card) or of the float64 witness, more than 10x that from the fp32
+    kernel, no further from the witness than 2x the plain version (+2e-6),
+    two launches bitwise equal, each launch the tensor-core design of its
+    plan (read from the launch's own arguments) under ``name``; ``tier``:
+    the plan's tier it must take.  (The witness counts where the plain
+    version is itself further from it than the bar: on (1, 200 x 3, 1) tanh
+    row 7's plain float32 sums are 8.7e-6 of their terms' magnitudes from
+    float64 and the kernel 1.9e-6.)  Returns ``(row, max_abs_err, fp32
+    result)``."""
+    from nnpde_tpu_torch.kernels import _cuda
+    from nnpde_tpu_torch.kernels import fused_step as fs
+
+    pl = case.plan()
+    with _cuda.capture() as cap:
+        out = case.kernel("bfloat16")
+    designs = sorted({args[DES_ARG[fn.__name__]] for _, fn, args, _, _ in cap.calls})
+    names = [c[0] for c in cap.calls]
+    del cap
+    out2, f32 = case.kernel("bfloat16"), case.kernel("float32")
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in zip(out, out2))
+    ref = case.plain("bfloat16")
+    wit = case.plain("bfloat16", torch.float64)
+    rel = case.rel(out, ref)
+    w_kernel, w_plain = case.rel(out, wit), case.rel(ref, wit)
+    apart = case.distinct(out, f32)
+    err = max(float(torch.max(torch.abs(a.double() - b.double()))) for a, b in zip(out, ref))
+    tol = case.tol()
+    row = {"kernel": name, "N": case.N, "layers": list(case.layers), "act": case.act,
+           "plan": {"T": pl.T, "tier": pl.tier, "smem": pl.smem}, "rel": rel, "tol": tol,
+           "rel_to_fp32_kernel": apart, "witness_rel_kernel": w_kernel,
+           "witness_rel_plain": w_plain, "max_abs_err": err, "bitwise_repeat": bitwise,
+           "designs": designs, "launch_names": names}
+    row["ok"] = bool(min(rel, w_kernel) <= tol and apart > 10 * tol and bitwise
+                     and w_kernel <= 2.0 * w_plain + 2e-6
+                     and designs == [fs.mma_des(list(case.layers), pl.flags)]
+                     and names == [name] and (tier is None or pl.tier == tier))
+    return row, err, f32
+
+
 def phase_precision_b1_kernels(dev):
-    """Rows 3 and 7-10 bf16 against their plain bf16-dot versions (float32
-    on the card) by the precision phase's rules: the loss and every
-    gradient leaf within 1e-4 norm-relative (pass A: every sum within 1e-5
+    """Rows 3, 7-10 and 11-12 bf16 against their plain bf16-dot versions
+    (float32 on the card) by the precision phase's rules: the loss and every
+    gradient leaf within 1e-4 norm-relative (pass A: every sum within 5e-6
     of the sum of its terms' magnitudes, PREC_TOL_SUMS); more than 10x that
     bar from the fp32 kernel; no further from the float64 witness than 2x
     the plain version (+2e-6); two launches bitwise equal; every launch the
@@ -2751,9 +2908,11 @@ def phase_precision_b1_kernels(dev):
     device tiers: device-sums for the kinds with a reverse sweep); rows 7-8
     with and without the Laplacian stream.  ``bf16x3`` launches the fp32
     kernel (its plain name) bitwise equal to ``float32`` at every kind's
-    first shape."""
-    from nnpde_tpu_torch.kernels import LAUNCHES, _cuda
-    from nnpde_tpu_torch.kernels import fused_step as fs
+    first shape.  Rows 11-12 (``B1_MULTI_SHAPES``) by the same rules, pass
+    A's 3K sums each over the sum of its terms' magnitudes, pass B's leaves
+    and sum ct_v norm-relative; at d = 16 each pass takes its plan's largest
+    tier.  ``bf16x3`` on rows 11-12: :func:`bf16x3_other_rows`."""
+    from nnpde_tpu_torch.kernels import LAUNCHES
 
     rows, x3_rows, max_err = [], [], {}
     seed = 400
@@ -2762,36 +2921,10 @@ def phase_precision_b1_kernels(dev):
         for i, (layers, N, act) in enumerate(B1_SHAPES[kind] + B1_COMMON):
             seed += 1
             case = B1Case(kind, N, layers, act, seed, dev, lap)
-            pl = case.plan()
-            with _cuda.capture() as cap:
-                out = case.kernel("bfloat16")
-            designs = sorted({args[DES_ARG[fn.__name__]] for _, fn, args, _, _ in cap.calls})
-            names = [c[0] for c in cap.calls]
-            del cap
-            out2, f32 = case.kernel("bfloat16"), case.kernel("float32")
-            torch.cuda.synchronize()
-            bitwise = all(torch.equal(a, b) for a, b in zip(out, out2))
-            ref = case.plain("bfloat16")
-            wit = case.plain("bfloat16", torch.float64)
-            rel = case.rel(out, ref)
-            w_kernel, w_plain = case.rel(out, wit), case.rel(ref, wit)
-            apart = case.distinct(out, f32)
-            err = max(float(torch.max(torch.abs(a.double() - b.double())))
-                      for a, b in zip(out, ref))
+            row, err, f32 = b1_check(case, name, "device-sums" if layers == D16
+                                     and not kind.endswith("_sums") else None)
+            row["lap"] = lap
             max_err[name] = max(max_err.get(name, 0.0), err)
-            want_des = fs.mma_des(list(layers), pl.flags)
-            tol = case.tol()
-            row = {"kernel": name, "lap": lap, "N": N, "layers": list(layers), "act": act,
-                   "plan": {"T": pl.T, "tier": pl.tier, "smem": pl.smem}, "rel": rel,
-                   "tol": tol, "rel_to_fp32_kernel": apart,
-                   "witness_rel_kernel": w_kernel, "witness_rel_plain": w_plain,
-                   "max_abs_err": err, "bitwise_repeat": bitwise, "designs": designs,
-                   "launch_names": names}
-            row["ok"] = bool(rel <= tol and apart > 10 * tol and bitwise
-                             and w_kernel <= 2.0 * w_plain + 2e-6
-                             and designs == [want_des] and names == [name]
-                             and (layers != D16 or kind.endswith("_sums")
-                                  or pl.tier == "device-sums"))
             if i == 0:
                 before = LAUNCHES[kind]
                 same = all(torch.equal(a, b) for a, b in zip(case.kernel("bf16x3"), f32))
@@ -2801,18 +2934,30 @@ def phase_precision_b1_kernels(dev):
                                 "fp32_launches": LAUNCHES[kind] - before,
                                 "ok": bool(same and LAUNCHES[kind] - before == 1)})
             rows.append(row)
-            del case, out, out2, f32, ref, wit
+            del case, f32
+            torch.cuda.empty_cache()
+    for kind in ("multi_sums", "multi_seeded"):
+        name = kind + ".bf16"
+        for layers, N, act, Kb in B1_MULTI_SHAPES:
+            seed += 1
+            case = B1MultiCase(kind, N, layers, act, seed, dev, Kb)
+            row, err, _ = b1_check(case, name, B1_MULTI_LARGEST[kind] if layers == D16
+                                   else None)
+            row["n_bumps"] = Kb
+            max_err[name] = max(max_err.get(name, 0.0), err)
+            rows.append(row)
+            del case
             torch.cuda.empty_cache()
     x3_rows += bf16x3_other_rows(dev)
     emit({"phase": "precision_b1_kernels", "tol": PREC_TOL, "tol_sums": PREC_TOL_SUMS,
           "rows": rows, "bf16x3": x3_rows})
     if not all(r["ok"] for r in rows + x3_rows):
-        raise SystemExit("rows 3 and 7-10 bf16-dot kernel vs plain comparison failed")
+        raise SystemExit("rows 3, 7-10 and 11-12 bf16-dot kernel vs plain comparison failed")
     return max_err
 
 
 def bf16x3_other_rows(dev):
-    """``dot_dtype='bf16x3'`` on the kernels other than rows 3 and 7-10: rows
+    """``dot_dtype='bf16x3'`` on the kernels that B1Case does not hold: rows
     1 and 2, the jet pair through ``mlp_fwdlap_kernel`` (rows 4 and 5 by the
     row forward, 6 and 5 by the stream-major one) and the K-bump pair (rows
     11-12), at the main path's u64 and 20000 points: the same launches by
@@ -2871,12 +3016,49 @@ def bf16x3_other_rows(dev):
 
 
 def phase_precision_b1_timing(dev, only=None):
-    """Wrapper and device ms of rows 3 and 7-10 bf16 at their path cells'
-    N and at 262144, each with its plain bf16-dot version's ms, its bound
-    at the bf16 tensor cores' peak and its CUDA-core bound beside it, and
-    its plan.  ``only``: the rows of these names (``timing
+    """Wrapper and device ms of rows 3, 7-10 and 11-12 bf16 at their path
+    cells' N and at 262144, each with its plain bf16-dot version's ms, its
+    bound at the bf16 tensor cores' peak and its CUDA-core bound beside it,
+    and its plan; rows 11-12 (c20, u50, u200 at 16 bumps) also with the fp32
+    kernel's ms and device ms, and row 12 on u200 at 262144 also with the
+    device ms of 30 launches a window (``device_ms_30``, beside the capped
+    window).  ``only``: the rows of these names (``timing
     --rows=KERNEL.bf16``)."""
     rows = []
+    for kind in ("multi_sums", "multi_seeded"):
+        name = kind + ".bf16"
+        if only is not None and name not in only:
+            continue
+        for layers in B1_MULTI_CELLS:
+            for N in (EIGEN_N, 262144):
+                case = B1MultiCase(kind, N, layers, "sin", 9, dev, EIGEN_BUMPS)
+                ms = time_ms(lambda: case.kernel("bfloat16"))
+                dev_ms = device_ms(lambda: case.kernel("bfloat16"))
+                fp32_ms = time_ms(lambda: case.kernel("float32"))
+                fp32_dev = device_ms(lambda: case.kernel("float32"))
+                plain_ms = time_ms(lambda: case.plain("bfloat16"), warmup=2, reps=7)
+                bound, by = case.bound(BF16_PEAK)
+                pl = case.plan()
+                rows.append({"kernel": name, "layers": list(layers), "d": layers[0], "N": N,
+                             "n_bumps": EIGEN_BUMPS, "path_n": EIGEN_N,
+                             "plan": {"T": pl.T, "tier": pl.tier, "smem": pl.smem},
+                             "ms": ms, "device_ms": dev_ms, "fp32_ms": fp32_ms,
+                             "fp32_device_ms": fp32_dev, "plain_ms": plain_ms,
+                             "bound_ms": bound, "bound_by": by,
+                             "bound_cuda_core_ms": case.bound(FP32_PEAK)[0],
+                             "flop": case.flops(), "bytes": case.bytes(),
+                             "gflops": case.flops() / (dev_ms * 1e-3) / 1e9,
+                             "gbytes_per_s": case.bytes() / (dev_ms * 1e-3) / 1e9})
+                if kind == "multi_seeded" and layers == U200 and N == 262144:
+                    # the same launches timed with 30 a window, as every
+                    # call was timed before the window was capped
+                    rows[-1].update(
+                        device_ms_30=device_ms(lambda: case.kernel("bfloat16"),
+                                               window_ms=None),
+                        fp32_device_ms_30=device_ms(lambda: case.kernel("float32"),
+                                                    window_ms=None))
+                del case
+                torch.cuda.empty_cache()
     for kind, cells in B1_CELLS.items():
         name = kind + ".bf16"
         if only is not None and name not in only:
@@ -3022,12 +3204,117 @@ def _b1_poisson_wan(dev, dot):
             "first": math.sqrt(float(r.history["l2"][0])) / 0.5, "result": r}
 
 
+def _b1_ipw_wan(dev, dot):
+    """The 2D infinite well's 16-bump WAN on
+    ``make_fused_wan_multi_pair(..., dot_dtype=dot)`` under ``fit_wan``, as
+    ``train_ipw_2d`` builds it for ``n_test_grid = 4``: state (3, 3) with
+    the FN factor, the u50 primal and the c20 critic (FBC) from the entry
+    point's seed 0 keys, the 200 x 200 grid (40000 points) and its 4 x 4
+    bump grid, the fixed E, 5 critic steps an epoch with the critic's
+    stream built once an epoch, Adam 1e-3; the weights of ``train_ipw_2d``'s
+    WAN (data 1e4, pde 10, parity 1, symmetry 1, norm 1000), the norm
+    penalty riding e1_0 in the kernels (``w_norm``, ``vol = L^2``) and the
+    data, parity and symmetry terms on the autograd path.  Eval: the
+    sign-aware MSE on the grid; rel_l2 = sqrt(best) / rms(psi)."""
+    from nnpde_tpu_torch.losses.zoo import data_mse, reflection_mse
+    from nnpde_tpu_torch.models import NetSpec, SolutionModel, factor_for_technique
+    from nnpde_tpu_torch.ops import bump_grid, bump_w_multi
+    from nnpde_tpu_torch.ops.quadrature import sign_aware_mse
+    from nnpde_tpu_torch.pde import ipw as phys
+    from nnpde_tpu_torch.problems import IPW2DConfig
+    from nnpde_tpu_torch.problems._fused_wan import make_fused_wan_multi_pair
+    from nnpde_tpu_torch.prng import fold_in, threefry_fold_in, threefry_key
+    from nnpde_tpu_torch.sampling import meshgrid_2d
+    from nnpde_tpu_torch.train import fit_wan, make_wan_optimizers
+
+    cfg = IPW2DConfig(nx=3, ny=3, technique="FN", method="WAN", n_test_grid=4)
+    Lw = cfg.L
+    factor = factor_for_technique("FN", dim=2, kind="box", L=Lw,
+                                  nodes_per_dim=[phys.nodes(3, Lw), phys.nodes(3, Lw)])
+    model = SolutionModel(NetSpec(cfg.layers, activation="sin"), factor)
+    critic = SolutionModel(NetSpec(cfg.v_layers, activation="sin"),
+                           factor_for_technique("FBC", dim=2, kind="box", L=Lw))
+    up = [(W.to(dev), b.to(dev)) for W, b in model.init(cfg.seed)]
+    vp = [(W.to(dev), b.to(dev))
+          for W, b in critic.init(threefry_fold_in(threefry_key(cfg.seed), 9))]
+    X = meshgrid_2d(cfg.grid_n, 0.0, Lw, device=dev)
+    u_exact = phys.psi_2d(3, 3, X[:, 0], X[:, 1], Lw)
+    Xd = meshgrid_2d(cfg.data_grid_n, 0.0, Lw, device=dev)
+    half = cfg.data_grid_n // 2
+    ii = torch.arange(half, device=dev)
+    X_data = Xd[(ii[:, None] * cfg.data_grid_n + ii[None, :]).reshape(-1)]
+    u_data = phys.psi_2d(3, 3, X_data[:, 0], X_data[:, 1], Lw)
+    centers, hw = bump_grid(0.0, Lw, 2, cfg.n_test_grid)
+    wv, dwv = bump_w_multi(X, centers.to(dev), hw)
+    E = torch.tensor(phys.energy_2d(3, 3, Lw), dtype=torch.float32, device=dev)
+    w = {"data": 10000.0, "pde": 10.0, "parity": 1.0, "symmetry": 1.0, "norm": 1000.0}
+    pair = make_fused_wan_multi_pair(model, critic, int(centers.shape[0]), w_pde=w["pde"],
+                                     w_norm=w["norm"], vol=Lw * Lw, dot_dtype=dot)
+    X_swap, X_px = X.flip(1), torch.stack([Lw - X[:, 0], X[:, 1]], 1)
+    X_py = torch.stack([X[:, 0], Lw - X[:, 1]], 1)
+    refl = torch.cat([X_swap, X_px, X_py])
+
+    def context(u_params, key):
+        return pair.v_coef_fn(u_params, E, X, wv, dwv)
+
+    def v_loss_fn(v_params, coef, key):
+        return pair.v_loss_from_coef(v_params, X, coef)[0]
+
+    def u_loss_fn(u_params, v_params, key):
+        total, aux = pair.u_pde_fn(u_params, E, v_params, X, wv, dwv)
+        u = model.apply_batch(u_params, X)
+        u_sym, u_px, u_py = torch.chunk(model.apply_batch(u_params, refl), 3)
+        # n = 3 is odd in both directions: even reflections
+        terms = {"data": data_mse(model.apply_batch(u_params, X_data), u_data),
+                 "symmetry": reflection_mse(u, u_sym),
+                 "parity": reflection_mse(u, u_px) + reflection_mse(u, u_py)}
+        total = total + sum(w[k] * t for k, t in terms.items())
+        return total, dict(terms, pde=aux["pde_loss"], norm=aux["norm"])
+
+    def eval_fn(p, key):
+        return sign_aware_mse(model.apply_batch(p, X), u_exact)
+
+    n = B1_EPOCHS["ipw_wan"]
+    u_opt, v_opt = make_wan_optimizers(cfg.lr, epochs=n, v_steps=cfg.v_steps)
+    r = fit_wan(u_loss_fn, v_loss_fn, eval_fn, up, vp, epochs=n, v_steps=cfg.v_steps,
+                u_optimizer=u_opt, v_optimizer=v_opt, key=fold_in(cfg.seed, 1), chunk=n,
+                v_context_fn=context)
+    rms = float(torch.sqrt(torch.mean(u_exact * u_exact)))
+    return {"metric": math.sqrt(r.best_metric) / rms,
+            "first": math.sqrt(float(r.history["l2"][0])) / rms, "result": r}
+
+
+# the 16-bump WAN's bf16 run held to its float32 run from the same seed over
+# its first epochs: after 150 epochs both sit near rel_l2 0.69, where the
+# rel_l2 gate tells a wrong kernel from a right one only if training
+# diverges.  The cast alone moves the first weak-form term by 8.8e-3, the
+# first critic loss by 1.1e-4 and the eval over 10 epochs by 1.2e-7; pass
+# B without its mass seeds moves the eval by 9.5e-5, with the bumps'
+# weights off by 10% the first weak-form term by 1.29 and the critic loss
+# by 4.2e-2 (PERF.md section 6)
+B1_TRACK = {"ipw_wan": {"pde0": 5e-2, "v0": 1e-3, "l2_10": 1e-5}}
+
+
+def _b1_tracking(hb, hf):
+    """The bf16 run's history against the float32 run's: the first
+    weak-form term (``pde0``), the first critic loss (``v0``) and the
+    largest relative difference of the eval over the first 10 epochs
+    (``l2_10``)."""
+    def rel(k, n):
+        a, b = np.asarray(hb[k][:n], np.float64), np.asarray(hf[k][:n], np.float64)
+        return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+    keys = {"pde0": ("pde", 1), "v0": ("wan_loss_v", 1), "l2_10": ("l2", 10)}
+    return {name: rel(k, n) for name, (k, n) in keys.items() if k in hb and k in hf}
+
+
 def phase_precision_b1_path(dev):
-    """Three short trainings at the main path's widths, each built with
+    """Four short trainings at the main path's widths, each built with
     ``dot_dtype='bfloat16'`` through the public constructors and once more
     in float32 (the same seed, points and steps): the Poisson 2D DRM on row
     3, the 2D well's Rayleigh DRM on rows 9-10, the Poisson 2D WAN on rows
-    7-10 (and the frozen nets' jets on row 4, fp32).  Each bf16 run's launches
+    7-10 (and the frozen nets' jets on row 4, fp32), the 2D well's 16-bump
+    WAN on rows 11-12 (the jets on row 4, fp32).  Each bf16 run's launches
     are asserted exactly by name, and its metric (rel_l2; the Rayleigh run's
     relative energy error) is held to PERF.md section 2's reduced-precision
     bar, <= max(2 x the float32 run's, 1e-3), and must fall below its first
@@ -3041,8 +3328,11 @@ def phase_precision_b1_path(dev):
         "wan": {"fwdlap_forward": 6 * n["wan"], "linear_sums.bf16": 6 * n["wan"],
                 "linear_seeded.bf16": 6 * n["wan"], "quad_sums.bf16": 5 * n["wan"],
                 "quad_seeded.bf16": 5 * n["wan"]},
+        "ipw_wan": {k if k == "fwdlap_forward" else k + ".bf16": m * n["ipw_wan"]
+                    for k, m in EIGEN_WAN_PER_EPOCH.items()},
     }
-    fns = {"drm": _b1_poisson_drm, "rayleigh": _b1_rayleigh, "wan": _b1_poisson_wan}
+    fns = {"drm": _b1_poisson_drm, "rayleigh": _b1_rayleigh, "wan": _b1_poisson_wan,
+           "ipw_wan": _b1_ipw_wan}
     out, counts = {}, {}
     for name, fn in fns.items():
         runs = {}
@@ -3056,6 +3346,7 @@ def phase_precision_b1_path(dev):
         b, f = runs["bfloat16"], runs["float32"]
         gate = max(2.0 * f["metric"], 1e-3)
         want32 = {k[:-5] if k.endswith(".bf16") else k: v for k, v in want[name].items()}
+        track = _b1_tracking(b["result"].history, f["result"].history)
         out[name] = {
             "epochs": n[name], "metric_bf16": b["metric"], "metric_fp32": f["metric"],
             "first_bf16": b["first"], "gate": gate, "launches": b["launches"],
@@ -3063,16 +3354,19 @@ def phase_precision_b1_path(dev):
             "steps_per_s": b["result"].timing["steps_per_s"],
             "fp32_steps_per_s": f["result"].timing["steps_per_s"],
             "wall_s": b["wall_s"] + f["wall_s"],
+            "tracking": track,
             "ok": bool(math.isfinite(b["metric"]) and b["metric"] <= gate
                        and b["metric"] < b["first"] and b["launches"] == want[name]
-                       and f["launches"] == want32)}
+                       and f["launches"] == want32
+                       and all(track.get(k, math.inf) <= bar
+                               for k, bar in B1_TRACK.get(name, {}).items()))}
         for k, v in b["launches"].items():
             if k.endswith(".bf16"):
                 counts[k] = counts.get(k, 0) + v
     ok = all(v["ok"] for v in out.values())
     emit({"phase": "precision_b1_path", **out, "ok": ok})
     if not ok:
-        raise SystemExit("bf16 DRM / Rayleigh / WAN path check failed")
+        raise SystemExit("bf16 DRM / Rayleigh / WAN / 16-bump WAN path check failed")
     return counts
 
 
@@ -3668,7 +3962,11 @@ E1_WIDE = (1, 130, 256, 1)     # a ragged wide net: a layer of 130 (padded to 13
 # the Adam paths' epochs, cut (PERF.md section 4) so that the group's training
 # stays near 150 s beside the two full-length L-BFGS rows
 E1_EPOCHS = 200                # of 3000 (ipw1d) and 10000 (qho1d)
-E1_WAN_EPOCHS = 120            # of 3000 (ipw1d WAN) and 30000 (qho1d WAN)
+E1_WAN_EPOCHS = 80             # of 3000 (ipw1d WAN) and 30000 (qho1d WAN)
+# of the L-BFGS rows' 3000 iterations: run to 3000 on an H100,
+# qho1d_n2_pinn_fn_lbfgs had its best at iteration 831 and
+# qho1d_n0_drm_fn_lbfgs reached 5.9e-11, against the 1e-5 bar (PERF.md)
+E1_LBFGS_ITERS = 1000
 
 
 def e1_case(kind, layers, act, N, seed, dev):
@@ -3713,9 +4011,9 @@ def phase_eigen1d_path():
       'torch' and 'fused';
     * ``train_qho_1d(n=1, technique='FN')`` on u200, E1_EPOCHS of its 10000
       epochs: PINN on three routes, DRM on two;
-    * the L-BFGS rows of ACCEPTANCE.json at full length (3000 iterations,
-      ``lbfgs_mode='replace'``): qho1d_n0_drm_fn_lbfgs on 'fused',
-      qho1d_n2_pinn_fn_lbfgs on 'kernel';
+    * the L-BFGS rows of ACCEPTANCE.json, E1_LBFGS_ITERS of their 3000
+      iterations (``lbfgs_mode='replace'``): qho1d_n0_drm_fn_lbfgs on
+      'fused', qho1d_n2_pinn_fn_lbfgs on 'kernel';
     * ``train_qho_1d_wan(n=0, technique='OG', minimax='extragradient',
       v_lr=2e-3)`` (the qho1d_n0_wan_og_trainE schedule) for E1_WAN_EPOCHS of
       its 30000 epochs on 'torch' and 'fused';
@@ -3826,20 +4124,21 @@ def phase_eigen1d_path():
         report[entry] = row
         for k, v in cf.items():
             launches[k] = launches.get(k, 0) + v
-    # ---- the L-BFGS rows at full length (L-BFGS in place of Adam)
+    # ---- the L-BFGS rows, cut (L-BFGS in place of Adam)
     for entry, impl, method, n, kern in (
             ("qho1d_n0_drm_fn_lbfgs", "fused", "DRM", 0, ("quad_sums", "quad_seeded")),
             ("qho1d_n2_pinn_fn_lbfgs", "kernel", "PINN", 2,
              ("fwdlap_forward", "fwdlap_backward"))):
         out, counts, wall = run(train_qho_1d, QHO1DConfig(
             n=n, method=method, technique="FN", epochs=0, LBFGS=True, lbfgs_mode="replace",
-            lbfgs_iters=3000, jet_impl=impl))
+            lbfgs_iters=E1_LBFGS_ITERS, jet_impl=impl))
         t = out["result"].timing
         # one value and gradient per line-search evaluation and at the start,
-        # and the loss alone once more where the fit converged before 3000
-        done = int(t["iterations"] < 3000)
+        # and the loss alone once more where the fit converged before the end
+        done = int(t["iterations"] < E1_LBFGS_ITERS)
         want = {kern[0]: 1 + t["evaluations"] + done, kern[1]: 1 + t["evaluations"]}
-        row = {"iterations": t["iterations"], "evaluations": t["evaluations"],
+        row = {"iterations": t["iterations"], "cut_from": 3000,
+               "evaluations": t["evaluations"],
                "host_syncs": t["host_syncs"],
                "host_syncs_per_iteration": t["host_syncs"] / max(t["iterations"], 1),
                "best_mse": out["L2_error"], "best_iteration": out["min_epoch"],
@@ -3847,7 +4146,7 @@ def phase_eigen1d_path():
                                        "qho1d_n2_pinn_fn_lbfgs": 1.454312403836866e-08}[entry],
                "wall_s": wall, "iterations_per_s": t["steps_per_s"], "launches": counts}
         row["ok"] = bool(finite(out) and out["L2_error"] <= 1e-5 and counts == want
-                         and out["history"]["total"].shape == (3000,))
+                         and out["history"]["total"].shape == (E1_LBFGS_ITERS,))
         ok = ok and row["ok"]
         report[entry] = row
         for k, v in counts.items():
@@ -4075,8 +4374,8 @@ KH_ACC = dict(layers=KH_NETS["u100"], train_n=KH_N, lambda_pde=10.0, lambda_data
 Q2_EPOCHS = 300               # of 10000 (QHO2DConfig) and 50000 (the paper sweep)
 Q2_DRM_EPOCHS = 300
 Q2_WAN_EPOCHS = 150
-KH_EPOCHS = 500               # of 10000 (kh1d_alpha10_pinn)
-KH_DRM_EPOCHS = 500           # of 5000 (kh1d_alpha10_*_dense)
+KH_EPOCHS = 300               # of 10000 (kh1d_alpha10_pinn)
+KH_DRM_EPOCHS = 300           # of 5000 (kh1d_alpha10_*_dense)
 KH_WAN_EPOCHS = 200
 
 
@@ -4387,6 +4686,8 @@ def phase_full(route):
       weights {'data': 1e4}: rel_l2 <= 1e-3;
     * ``kh1d_alpha10_pinn``: ``train_kh`` KH_ACC FBC, 10000 epochs: best
       MSE <= 1e-6 and |E - E_ref| <= 1e-4;
+    * ``qho1d_n0_drm_fn_lbfgs``: ``train_qho_1d`` (n = 0, DRM, FN) with
+      L-BFGS in place of Adam for its full 3000 iterations: best MSE <= 1e-5;
     * ``kh1d_alpha10_{pinn,drm,wan}_dense``: ``run_compare(n_max=1,
       epochs=5000, data_fraction=0.5, max_data_points=500)``: dense L2 <=
       1e-6 and |E - E_ref| <= 1e-4 (WAN 1e-3).
@@ -4423,6 +4724,20 @@ def phase_full(route):
         "acceptance_best_mse": 3.731924991257074e-09, "acceptance_E_abs_err": 1.56e-06,
         "target": "best_mse <= 1e-6; E_abs_err <= 1e-4",
         "pass": bool(out["L2"] <= 1e-6 and e_err <= 1e-4)})
+    # the L-BFGS acceptance row at its full 3000 iterations (the default run's
+    # eigen1d group takes E1_LBFGS_ITERS of them)
+    from nnpde_tpu_torch.problems import QHO1DConfig, train_qho_1d
+
+    out, counts, wall = _run_counted(train_qho_1d, QHO1DConfig(
+        n=0, method="DRM", technique="FN", epochs=0, LBFGS=True, lbfgs_mode="replace",
+        lbfgs_iters=3000, jet_impl=route))
+    t = out["result"].timing
+    record("qho1d_n0_drm_fn_lbfgs", {
+        "best_mse": out["L2_error"], "best_iteration": out["min_epoch"],
+        "iterations": t["iterations"], "evaluations": t["evaluations"], "wall_s": wall,
+        "iterations_per_s": t["steps_per_s"], "launches": counts,
+        "acceptance_best_mse": 2.868810050626891e-11, "target": "best_mse <= 1e-5",
+        "pass": bool(out["L2_error"] <= 1e-5 and _finite(out))})
     targets = {"PINN": (1e-6, 1e-4), "DRM": (1e-6, 1e-4), "WAN": (1e-6, 1e-3)}
     acceptance = {"PINN": (5.757583920740217e-08, 8.391216397285461e-06),
                   "DRM": (5.70526346166389e-08, 5.1567330956459045e-06),
@@ -5344,7 +5659,7 @@ def phase_parallel():
 
 # ------------------------------------------------------------- probe
 PROBE_CELLS = ((300, False), (300, True), (400, False), (400, True))
-PROBE_RUN_EPOCHS = 50
+PROBE_RUN_EPOCHS = 20
 
 
 def _winner_cfg(grid_n, jitter):
@@ -5602,7 +5917,7 @@ def main():
     for k in kernels:
         if k["name"] in wide_launches:
             k["launches_wide"] = wide_launches[k["name"]]
-    if len(kernels) != 21 or not all(k["launches"] > 0 for k in kernels):
+    if len(kernels) != 23 or not all(k["launches"] > 0 for k in kernels):
         raise SystemExit("a kernel of the paths was launched no time on its path")
     if set(wide_launches) != set(PRECISION_REPLACES) | {"multi_sums", "multi_seeded"} or not all(
             wide_launches.values()):

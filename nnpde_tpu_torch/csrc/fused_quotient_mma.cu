@@ -57,21 +57,7 @@ __host__ __device__ inline bool is_seeded(int kind) {
 __host__ __device__ inline bool is_linear(int kind) {
   return kind == LIN_SUMS || kind == LIN_SEEDED;
 }
-__host__ __device__ inline int mma_kind(int kind) {
-  return is_seeded(kind) ? mma::KIND_FUSED : mma::KIND_SUMS;
-}
-
-// The tile's sum of ps[0..T) added to *dst by warp 0: lane l adds points l,
-// l + 32, ... in order, then a fixed shuffle tree.
-__device__ __forceinline__ void tile_sum(int T, const float* ps, float* dst) {
-  if (threadIdx.x < 32) {
-    float a = 0.f;
-    for (int p = threadIdx.x; p < T; p += 32) a += ps[p];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
-    if (threadIdx.x == 0) *dst += a;
-  }
-}
+__host__ __device__ inline int mma_kind(int kind) { return mma::pass_kind(is_seeded(kind)); }
 
 // Pass A (linear): r = c v + b.g + rhs (+ a lap), the four sums' terms
 // added to the point's lanes; padded points add nothing.
@@ -134,7 +120,7 @@ __device__ __forceinline__ void lin_seeded_terms(const MArgs& A, int base, const
     ps[p] = ctv;
   }
   __syncthreads();
-  tile_sum(T, ps, grow + A.net.P);
+  mma::tile_sum(T, ps, grow + A.net.P);
 }
 
 // Pass B (quadratic): ct_v = s_e (sum_i G_i dB_i - f B + 2 V u B) + 2 s_q
@@ -161,7 +147,7 @@ __device__ __forceinline__ void quad_seeded_terms(const MArgs& A, int base, cons
     ps[p] = out;
   }
   __syncthreads();
-  tile_sum(T, ps, grow + A.net.P);
+  mma::tile_sum(T, ps, grow + A.net.P);
 }
 
 }  // namespace
@@ -217,14 +203,12 @@ MKernelFn mma_kernel_of(int kind, int lap) {
 // The kernel of a kind, its Laplacian stream and a design: DES_MMA, with
 // DES_WIDE the wide variant; anything else is refused.
 MKernelFn mma_kernel_for(int kind, int lap, int des) {
-  if ((des & ~mma::DES_WIDE) != DES_MMA) return nullptr;
-  return (des & mma::DES_WIDE) ? mma_kernel_of<true>(kind, lap) : mma_kernel_of<false>(kind, lap);
+  return mma::kernel_for(des, mma_kernel_of<false>(kind, lap), mma_kernel_of<true>(kind, lap));
 }
 
 bool mma_qnet(int kind, int lap, const int* layers, int n_layers, int T, Net* net, mma::Geo* g) {
   return kind >= LIN_SUMS && kind <= QUAD_SEEDED && (lap == 0 || is_linear(kind)) &&
-         make_net(lap != 0 ? 1 : 0, layers, n_layers, 0, net) &&
-         mma::make_geo(*net, T, g, lap != 0);
+         mma::net_geo(lap, layers, n_layers, T, net, g);
 }
 
 }  // namespace
@@ -265,23 +249,13 @@ int fused_quotient_mma_f32(int kind, int lap, const float* X, const float* coef,
   a.n_tiles = (N + T - 1) / T;
   a.row = is_seeded(kind) ? a.net.P + 3 : (is_linear(kind) ? 4 : 2);
   a.flags = flags;
-  cudaError_t err = ensure_smem((const void*)fn, smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = (cudaStream_t)stream;
-  fn<<<G, NT, smem_bytes, s>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)reduce_rows(partial, G, a.row, out, s);
+  return mma::launch_rows(fn, a, G, smem_bytes, out, stream);
 }
 
 // Resident blocks per SM for a kind, Laplacian stream and design at a
 // dynamic shared-memory size.
 int fused_quotient_mma_blocks_per_sm(int kind, int lap, int des, int smem_bytes, int* blocks) {
-  MKernelFn fn = mma_kernel_for(kind, lap, des);
-  if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  cudaError_t err = ensure_smem((const void*)fn, smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, NT, smem_bytes);
+  return mma::blocks_per_sm(mma_kernel_for(kind, lap, des), smem_bytes, blocks);
 }
 
 // The shared-memory bytes of a block for (T, flags), and the floats of its

@@ -3,24 +3,25 @@
 // fused_poisson_analytic with dot_dtype='bfloat16', the bulk of
 // compute_dtype='hybrid-kernel') and the jet pair of that bulk
 // (fwdlap_backward.cu with dot_dtype='bfloat16', fwdlap_forward.cu with
-// fwd_impl='rows:default'), the Deep-Ritz energy (fused_step.cu) and the
-// quotients' two passes (fused_quotient_mma.cu).  One body, `body<KIND>`,
-// serves four kinds: the fused kernels (KIND_FUSED: the cotangents from the
-// loss terms, a policy the kernel is instantiated with: the residual, the
-// Ritz energy, the quotients' seeded cotangents), the jet backward
+// fwd_impl='rows:default'), the Deep-Ritz energy (fused_step.cu), the
+// quotients' two passes (fused_quotient_mma.cu) and the K-bump WAN pair's
+// (fused_multibump_mma.cu).  One body, `body<KIND>`, serves four kinds:
+// the fused kernels (KIND_FUSED: the cotangents from the loss terms, a
+// policy the kernel is instantiated with: the residual, the Ritz energy,
+// the quotients' and the K-bump pair's seeded cotangents), the jet backward
 // (KIND_BWD: the cotangents loaded, no projection, no loss terms), the jet
 // forward (KIND_FWD: the forward half, nothing saved, the jet rows written
-// out) and the quotients' pass A (KIND_SUMS: the forward half, nothing
-// saved, the policy's per-point terms summed in double).  LAP (a template
-// parameter of the body): the Laplacian stream is carried, S = d + 2; the
-// Ritz energy, the quadratic quotients and the WAN weak forms drop it, S =
-// d + 1, with the same roundings in the streams they keep.
+// out) and pass A (KIND_SUMS: the forward half, nothing saved, the policy's
+// per-point terms summed in double; the quotients' and the K-bump pair's).
+// LAP (a template parameter of the body): the Laplacian stream is carried,
+// S = d + 2; the Ritz energy, the quadratic quotients and the WAN weak forms
+// drop it, S = d + 1, with the same roundings in the streams they keep.
 //
 // What it computes is the TPU kernels' dot_dtype='bfloat16' (and
 // _forward_kernel2's single-pass 'default' dots): every product operand
-// rounded to bf16 (nearest even), fp32 accumulation.  That is what
-// mma.sync.m16n8k16 bf16 with fp32 accumulators computes, so the products
-// run on the H100's bf16 tensor cores.  Not rounded (fp32, as the TPU
+// rounded to bf16 (nearest even), fp32 accumulation.  The products run on
+// the H100's bf16 tensor cores (mma.sync, fp32 accumulators), each half
+// k-step of 8 into a zero accumulator and summed in fp32 (mma_bf16).  Not rounded (fp32, as the TPU
 // kernels keep them): the layer-0 Jacobian seed rows, q = sum J^2, the
 // activation packs and the reverse nonlinearity, the last-layer projection
 // and dW_last, the db sums and the Jacobian-row sums added to dW0.  The
@@ -129,8 +130,20 @@ __host__ __device__ inline bool has_rev(int kind) {
   return kind == KIND_FUSED || kind == KIND_BWD;
 }
 
-// Per-point double lanes of KIND_SUMS (the linear quotient's four sums).
+// Per-point double lanes of KIND_SUMS: a row of `row` sums keeps at least
+// four (the quotients' layout: the linear quotient's four sums, the
+// quadratic one's two in the same room); the K-bump pass A has 3K, to 126.
 constexpr int SUM_LANES = 4;
+__host__ __device__ inline int sum_lanes(int row) { return row > SUM_LANES ? row : SUM_LANES; }
+// The lanes a kernel's args ask for: SUM_LANES, a constant, unless the args'
+// own namespace declares lanes_of for their type (found by argument-
+// dependent lookup where body is instantiated): the K-bump pass A's returns
+// sum_lanes(A.row).  A constant keeps the quotients' pass-A code: lanes read
+// from their A.row move five of their kernels' registers (PERF.md).
+template <class Args>
+__host__ __device__ constexpr int lanes_of(const Args&) {
+  return SUM_LANES;
+}
 
 constexpr int NW = NT / 32;                  // warps per block
 constexpr int MMA_MAX_WIDTH = 256;           // hidden width the design takes
@@ -288,10 +301,10 @@ __host__ __device__ inline Layout layout(const Net& net, const Geo& g, int flags
 
 // The layout of any kind, with or without the Laplacian stream (the kinds
 // this design added use it; its regions as layout's, the cotangents and the
-// column sums over slots_of rows, KIND_SUMS its doubles in ps).  Mirrored by
-// kernels/fused_step.py::mma_smem_bytes.
+// column sums over slots_of rows, KIND_SUMS its `lanes` doubles a point in
+// ps, sum_lanes of its row).  Mirrored by kernels/fused_step.py::mma_smem_bytes.
 __host__ __device__ inline Layout layout(const Net& net, const Geo& g, int flags, int kind,
-                                         bool lap) {
+                                         bool lap, int lanes = SUM_LANES) {
   const bool rev = has_rev(kind), proj = kind != KIND_BWD;
   const bool on_chip = !(flags & DEV_SUMS);
   Layout L;
@@ -317,7 +330,7 @@ __host__ __device__ inline Layout layout(const Net& net, const Geo& g, int flags
   if (rev) o += 4 * rnd4(slots_of(g, lap) * g.T);
   L.ps = o;                                            // the tile's sum terms
   if (kind == KIND_FUSED) o += 4 * rnd4(3 * g.T);
-  if (kind == KIND_SUMS) o += 8 * SUM_LANES * g.T;     // doubles, kept across tiles
+  if (kind == KIND_SUMS) o += 8 * lanes * g.T;         // doubles, kept across tiles
   L.proj = o;
   if (proj) o += 4 * rnd4(g.ST);
   L.total = o;
@@ -375,14 +388,26 @@ __device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* p) {
                : "r"(smem_u32(p))
                : "memory");
 }
-// c += a b, m16n8k16, bf16 operands, fp32 accumulators
+// c += a b over one k-step of 16, bf16 operands, fp32 accumulators: the
+// k-step as its two m16n8k8 halves (a[0..1] b[0], a[2..3] b[1]), each into
+// a zero accumulator, then added to c in fp32 (round to nearest).  The
+// tensor cores add a product into a running accumulator with its low bits
+// cut, not rounded (see Accuracy above).
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float t0 = 0.f, t1 = 0.f, t2 = 0.f, t3 = 0.f;
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+        : "+f"(t0), "+f"(t1), "+f"(t2), "+f"(t3)
+        : "r"(a[2 * h]), "r"(a[2 * h + 1]), "r"(b[h]));
+    c[0] += t0;
+    c[1] += t1;
+    c[2] += t2;
+    c[3] += t3;
+  }
 }
 // x rounded to the nearest bf16 value (ties to even), kept as a float: an
 // operand of the products on the CUDA cores (the input layer, dW0)
@@ -1119,8 +1144,9 @@ __device__ __forceinline__ WSrc weights_of(const Args& A, bool res_w, __nv_bfloa
 // reverse sweep; the last stage's projection partials unless KIND_BWD);
 // KIND_FWD: the jet rows written for the valid points; KIND_SUMS: the
 // policy `terms(base, proj, xs, ct, ps, grow)` adds each point's terms to
-// its lanes of the block's doubles (ps, SUM_LANES x T), which go out once,
-// summed in point order, as the block's row of A.row floats; KIND_FUSED:
+// its lanes of the block's doubles (ps, lanes_of(A) x T; A.row <= NT), which
+// go out once, summed in point order, as the block's row of A.row floats;
+// KIND_FUSED:
 // the projection, then the loss terms and the cotangents by the policy
 // `terms(base, proj, xs, ct, ps, grow)`; then
 // the reverse sweep: the last stage's reverse nonlinearity from the
@@ -1145,7 +1171,10 @@ __device__ void body(const Args& A, Terms terms) {
     make_geo(net, A.T, &g, LAP);
   else
     make_geo(net, A.T, &g);
-  const Layout ly = GEN ? layout(net, g, A.flags, KIND, LAP) : layout(net, g, A.flags, KIND);
+  // KIND_SUMS: the double lanes of its row of sums
+  const int lanes = SUMS ? lanes_of(A) : SUM_LANES;
+  const Layout ly =
+      GEN ? layout(net, g, A.flags, KIND, LAP, lanes) : layout(net, g, A.flags, KIND);
   unsigned char* sm = reinterpret_cast<unsigned char*>(smem);
   const int T = A.T, d = net.d, K = net.K, S = g.S;
   __nv_bfloat16* const stages = reinterpret_cast<__nv_bfloat16*>(sm + ly.bufs);
@@ -1181,7 +1210,7 @@ __device__ void body(const Args& A, Terms terms) {
   if (REV)
     for (int i = threadIdx.x; i < A.row; i += NT) grow[i] = 0.f;
   if constexpr (SUMS)
-    for (int i = threadIdx.x; i < SUM_LANES * T; i += NT) reinterpret_cast<double*>(ps)[i] = 0.0;
+    for (int i = threadIdx.x; i < lanes * T; i += NT) reinterpret_cast<double*>(ps)[i] = 0.0;
   {  // the stages start at zero: padding rows and columns are never written
     uint4* z = reinterpret_cast<uint4*>(sm + ly.bufs);
     for (int i = threadIdx.x; i < (ly.w - ly.bufs) / 16; i += NT) z[i] = make_uint4(0, 0, 0, 0);
@@ -1303,6 +1332,59 @@ __device__ void body(const Args& A, Terms terms) {
       dw_unfrag(net, gacc, grow_g);
     }
   }
+}
+
+// ------------------------------------------------- the policies' and launchers' helpers
+// The tile's sum of ps[0..T) added to *dst by warp 0 (pass B's sum ct_v):
+// lane l adds points l, l + 32, ... in order, then a fixed shuffle tree.
+__device__ __forceinline__ void tile_sum(int T, const float* ps, float* dst) {
+  if (threadIdx.x < 32) {
+    float a = 0.f;
+    for (int p = threadIdx.x; p < T; p += 32) a += ps[p];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+    if (threadIdx.x == 0) *dst += a;
+  }
+}
+
+// The kind of a two-pass kernel: pass B (seeded) KIND_FUSED, pass A KIND_SUMS.
+__host__ __device__ inline int pass_kind(bool seeded) { return seeded ? KIND_FUSED : KIND_SUMS; }
+
+// The kernel of a launch's design: DES_MMA the narrow variant, with DES_WIDE
+// the wide one; anything else nullptr (refused).
+template <class Fn>
+Fn kernel_for(int des, Fn narrow, Fn wide) {
+  if ((des & ~DES_WIDE) != DES_MMA) return nullptr;
+  return (des & DES_WIDE) ? wide : narrow;
+}
+
+// The net and the tile geometry of the general layout (lap: the Laplacian
+// stream), false for a net or tile the design does not take.
+inline bool net_geo(int lap, const int* layers, int n_layers, int T, Net* net, Geo* g) {
+  return make_net(lap != 0 ? 1 : 0, layers, n_layers, 0, net) && make_geo(*net, T, g, lap != 0);
+}
+
+// Launch a two-pass kernel on G blocks and reduce its per-block rows
+// (a.partial, a.row floats each) into out in one ordered pass.
+template <class Args>
+int launch_rows(void (*fn)(Args), const Args& a, int G, int smem_bytes, float* out,
+                void* stream) {
+  cudaError_t err = ensure_smem((const void*)fn, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  fn<<<G, NT, smem_bytes, s>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)reduce_rows(a.partial, G, a.row, out, s);
+}
+
+// Resident blocks per SM of a kernel at a dynamic shared-memory size.
+template <class Args>
+int blocks_per_sm(void (*fn)(Args), int smem_bytes, int* blocks) {
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = ensure_smem((const void*)fn, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, NT, smem_bytes);
 }
 
 }  // namespace mma

@@ -112,6 +112,17 @@ _SIGNATURES = {
     "fused_multibump_blocks_per_sm": [_I, _I, _I, _I, _P],
     # seeded, n_bumps, layers, n_layers, T, flags -> bytes (not an error code)
     "fused_multibump_smem_bytes": [_I, _I, _P, _I, _I, _I],
+    # fused_multibump_mma.cu (the bf16-dot mode): seeded, n_bumps, X, coef,
+    # params, scal, layers, n_layers, act, N, T, G, flags, des, partial,
+    # scratch, out, smem_bytes, stream
+    "fused_multibump_mma_f32":
+        [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+    # seeded, des, smem_bytes, int* blocks
+    "fused_multibump_mma_blocks_per_sm": [_I, _I, _I, _P],
+    # seeded, n_bumps, layers, n_layers, T, flags -> bytes; seeded, layers,
+    # n_layers, T, flags -> scratch floats per block (neither an error code)
+    "fused_multibump_mma_smem_bytes": [_I, _I, _P, _I, _I, _I],
+    "fused_multibump_mma_scratch_floats": [_I, _P, _I, _I, _I],
 }
 
 _LIB = None

@@ -37,6 +37,8 @@ LAUNCHES = {
     "linear_seeded.bf16": 0,
     "quad_sums.bf16": 0,
     "quad_seeded.bf16": 0,
+    "multi_sums.bf16": 0,
+    "multi_seeded.bf16": 0,
 }
 
 ACTS = {"sin": 0, "tanh": 1, "gelu": 2}
@@ -177,7 +179,7 @@ def folds(layers, S: int, T: int, points: int = 1) -> bool:
 # sums (fwdlap_planned.cuh, Design; fwdlap_mma.cuh, MmaDesign): bits of the
 # ``des`` argument.  DES_PLANNED the planned kernels, DES_ITEM2 their lever;
 # DES_MMA the tensor-core design of every bf16-dot mode (the fused kernels,
-# the jet pair, the quotients' two passes).  None of these kernels takes 0: the kernels on
+# the jet pair, the quotients' and the K-bump pair's two passes).  None of these kernels takes 0: the kernels on
 # the shared core's routines (fwdlap_core.cuh: the seeded quotient kernels
 # and the K-bump pair) have no design argument, or take 0 for it.
 DES_ITEM2 = 1     # two-point items, register tiles of 8 rows x 4 units

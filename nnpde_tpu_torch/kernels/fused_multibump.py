@@ -23,11 +23,20 @@ Where it runs: a CUDA tensor goes to ``csrc/fused_multibump.cu`` (float32;
 anything else raises), a CPU tensor to the plain versions beside it
 (``fused_multi_sums_plain``, ``fused_multi_seeded_grads_plain``: the
 forward-Laplacian recurrence under ``torch.autograd``, in any dtype).
+``dot_dtype='bfloat16'`` (the TPU kernels' one-pass bf16 dot mode) rounds
+every product operand of the recompute and the reverse sweep to bf16 and
+accumulates in float32, on the tensor-core design
+(``csrc/fused_multibump_mma.cu`` on ``csrc/fwdlap_mma.cuh``, counted as
+``multi_sums.bf16`` / ``multi_seeded.bf16``, planned by
+:func:`.fused_step.mma_plan`); its plain versions are the per-tile
+arithmetic written out, as the quotients' are.  ``'bf16x3'`` runs the
+float32 kernels (:func:`.fused_step._check_dot`).
 
-The launch shape is chosen per net by :func:`plan`, the shared plan of
-:mod:`._plan`: points per tile, what stays in shared memory for a block's
-whole life, and how many blocks an SM can hold.  The objectives flatten the parameters once per evaluation and
-hand the vector from ``forward`` to ``backward`` (``flat=``).
+The float32 launch shape is chosen per net by :func:`plan`, the shared plan
+of :mod:`._plan`: points per tile, what stays in shared memory for a
+block's whole life, and how many blocks an SM can hold.  The objectives
+flatten the parameters once per evaluation and hand the vector from
+``forward`` to ``backward`` (``flat=``).
 """
 
 from __future__ import annotations
@@ -46,10 +55,21 @@ from .fused_quotient import (
     _on_cuda,
     _pairs,
     _seeded_grads,
+    _swept_grads,
+    _swept_jet,
     _views,
     _wan_dp,
 )
-from .fused_step import _check_coef, _check_dot, _grads_of, _leaves, _unflatten
+from .fused_step import (
+    _check_coef,
+    _check_dot,
+    _grads_of,
+    _leaves,
+    _unflatten,
+    mma_des,
+    mma_plan,
+    mma_scratch_floats,
+)
 
 MAX_BUMPS = 42   # the JAX package's cap: 3K accumulator lanes in one 128-lane row
 
@@ -74,6 +94,41 @@ def pack_multibump_coefficients(cores):
     return torch.cat(blocks + e1s + e2s, dim=1)
 
 
+def weak_form_stream(X, n_bumps: int, rng, L: float = 2.0):
+    """A K-bump coefficient stream with the weak form's structure, and
+    seeds for pass B: the stream that checks of rows 11-12 hold the kernels
+    on.  Per bump k the critic's functional of ``W_k v`` (the stream
+    ``make_fused_wan_multi_pair`` builds, with an e2 lane), ``W_k`` a bump
+    (centres in [0.3 L, 0.7 L]^d, half-width 0.9 L, so every point of
+    [0, L]^d sees every bump at any d), ``c0 = (V - 1) u``, ``b0 = grad u /
+    2``, ``rhs = -f W_k``, ``e1 = W_k``, ``e2 = W_k u`` for the smooth
+    fields ``u = sin(sum x) + 1/2``, ``V = |x|^2 / 2``, ``f = sin x_0 +
+    1/2``; the 3K seeds normal, of either sign, over K N.  ``rng``: a numpy
+    Generator (centres, then seeds).  Returns ``(coef (N, K (d+4)), scal
+    (3K,))`` on X's device.  (A stream of independent normal entries makes
+    pass B's leaves sums that cancel: there the plain bf16-dot version is
+    itself 1.4e-4 to 2.2e-4 from its float64 witness.)"""
+    import numpy as np
+
+    from ..ops import bump_w_multi
+    from ..ops.fwdlap import Jet
+    from .fused_quotient import linear_functional_coefficients
+
+    N, d = X.shape
+    centers = torch.as_tensor(rng.uniform(0.3 * L, 0.7 * L, (n_bumps, d)).astype(np.float32),
+                              device=X.device)
+    w, dw = bump_w_multi(X, centers, 0.9 * L)
+    s = torch.sum(X, dim=1)
+    u, gu = torch.sin(s) + 0.5, torch.cos(s)[:, None].expand(N, d)
+    V, f = 0.5 * torch.sum(X * X, dim=1), torch.sin(X[:, 0]) + 0.5
+    coef = pack_multibump_coefficients([linear_functional_coefficients(
+        Jet(w[k], dw[k], torch.zeros_like(w[k])), c0=(V - 1.0) * u, b0=0.5 * gu,
+        rhs=-f * w[k], e1=w[k], e2=w[k] * u) for k in range(n_bumps)])
+    scal = torch.as_tensor((rng.normal(size=3 * n_bumps) / (n_bumps * N)).astype(np.float32),
+                           device=X.device)
+    return coef.contiguous(), scal
+
+
 # ---------------------------------------------------------- plain versions
 def _multi_terms(jet, coef, K, d):
     """Per point and bump: ``(r (N, K), (e1 net)^2 (N, K), e2 net (N, K))``."""
@@ -87,21 +142,49 @@ def _multi_terms(jet, coef, K, d):
     return r, (e1 * v) ** 2, e2 * v
 
 
-def fused_multi_sums_plain(params, X, coef, activation: str, n_bumps: int):
+def _multi_ct(coef, scal, value, K, d):
+    """Pass B's per-point cotangents ``(ct_v (N,), ct_g (N, d))``, each
+    summed over the bumps in bump order (the TPU kernel's order):
+    ``ct_v = sum_k (s_r_k c_k + 2 s_q_k e1_k^2 v + s_l_k e2_k)``, ``ct_g_j
+    = sum_k s_r_k b_kj``."""
+    blk = d + 2
+    ctv = torch.zeros_like(value)
+    ctg = torch.zeros_like(coef[:, 1:1 + d])
+    for k in range(K):
+        e1, e2 = coef[:, K * blk + k], coef[:, K * blk + K + k]
+        ctv = ctv + scal[k] * coef[:, k * blk] + scal[K + k] * 2.0 * e1 * e1 * value \
+            + scal[2 * K + k] * e2
+        ctg = ctg + scal[k] * coef[:, k * blk + 1:k * blk + 1 + d]
+    return ctv, ctg
+
+
+def fused_multi_sums_plain(params, X, coef, activation: str, n_bumps: int,
+                           dot_dtype: str = "float32"):
     """Plain version of the multibump sums kernel: ``(3K,)`` = ``[sum r_k |
-    sum (e1_k net)^2 | sum e2_k net]``."""
+    sum (e1_k net)^2 | sum e2_k net]``.  ``dot_dtype='bfloat16'``: the
+    kernel's bf16-dot variant."""
     with torch.no_grad():
-        r, mass, lin = _multi_terms(mlp_fwdlap(params, X, activation), coef, n_bumps,
-                                    X.shape[1])
+        jet = (_swept_jet(params, X, activation) if dot_dtype == "bfloat16"
+               else mlp_fwdlap(params, X, activation))
+        r, mass, lin = _multi_terms(jet, coef, n_bumps, X.shape[1])
         return torch.cat([torch.sum(r, dim=0), torch.sum(mass, dim=0), torch.sum(lin, dim=0)])
 
 
-def fused_multi_seeded_grads_plain(params, X, coef, scal, activation: str, n_bumps: int):
+def fused_multi_seeded_grads_plain(params, X, coef, scal, activation: str, n_bumps: int,
+                                   dot_dtype: str = "float32"):
     """Plain version of the multibump seeded kernel: ``(dWs, dbs, sums)``
     with the gradients of ``sum_k (s_r_k sum r_k + s_q_k sum (e1_k net)^2 +
     s_l_k sum e2_k net)`` for ``scal = [s_r | s_q | s_l]`` and ``sums =
-    [sum ct_v]``."""
+    [sum ct_v]``.  ``dot_dtype='bfloat16'``: the kernel's bf16-dot variant
+    (the cotangents of :func:`_multi_ct` through the bf16-dot reverse
+    sweep)."""
     K, d = n_bumps, X.shape[1]
+    if dot_dtype == "bfloat16":
+        jet = _swept_jet(params, X, activation)
+        ctv, ctg = _multi_ct(coef, scal, jet.value, K, d)
+        ct = torch.cat([ctv[:, None], ctg, torch.zeros_like(ctv)[:, None]], dim=1)
+        dWs, dbs = _swept_grads(params, X, jet, ct)
+        return dWs, dbs, torch.sum(ctv).reshape(1)
     s_r, s_q, s_l = scal[:K], scal[K:2 * K], scal[2 * K:3 * K]
     with torch.enable_grad():
         leaves = _leaves(params)
@@ -174,9 +257,10 @@ def _workspace(seeded: bool, dev, stream: int, partial_floats: int, scratch_floa
 
 def _launch(seeded: bool, params, X, coef, scal, activation: str, Kb: int, *,
             flat=None, pl: _plan.Plan | None = None):
-    """Launch one multibump kernel plus its reduction; returns the flat
-    float32 row: the ``3 Kb`` sums, or ``[grads (P) | sum ct_v]``.  ``flat``:
-    the parameters already flattened by :func:`._cuda.flat_params`."""
+    """Launch one float32 multibump kernel plus its reduction; returns the
+    flat float32 row: the ``3 Kb`` sums, or ``[grads (P) | sum ct_v]``.
+    ``flat``: the parameters already flattened by
+    :func:`._cuda.flat_params`."""
     from . import _build
 
     name = "multi_seeded" if seeded else "multi_sums"
@@ -219,21 +303,73 @@ def _launch(seeded: bool, params, X, coef, scal, activation: str, Kb: int, *,
     return out
 
 
+def _launch_mma(seeded: bool, params, X, coef, scal, activation: str, Kb: int, *,
+                flat=None, pl: _plan.Plan | None = None):
+    """The bf16-dot mode of one multibump kernel
+    (``csrc/fused_multibump_mma.cu``) plus its reduction: the ``3 Kb``
+    sums, or ``[grads (P) | sum ct_v, 0, 0]``.  It runs the tensor-core
+    design (``DES_MMA``, :func:`.fused_step.mma_plan`) and only it."""
+    from . import _build
+
+    lib = _build.load()
+    kind = "multi_seeded" if seeded else "multi_sums"
+    name = kind + ".bf16"
+    layers = _cuda.net_layers(name, params, X, activation,
+                              (coef, scal) if seeded else (coef,))
+    N = X.shape[0]
+    X, coef = X.contiguous(), coef.contiguous()
+    if flat is None:
+        flat = _cuda.flat_params(params)
+    dev = X.device
+    if pl is None:
+        pl = _plan.cached(("multibump", seeded, tuple(layers), Kb, True),
+                          lambda: mma_plan(kind, layers, n_bumps=Kb))
+    if pl.design != _cuda.DES_MMA:
+        raise ValueError(f"{kind}: the bf16-dot mode runs the tensor-core design and only it "
+                         f"(design={pl.design})")
+    T = pl.T
+    design = mma_des(layers, pl.flags)
+    G = _cuda.grid(name,
+                   lambda sm, ptr: lib.fused_multibump_mma_blocks_per_sm(int(seeded), design,
+                                                                         sm, ptr),
+                   pl.smem, dev, (N + T - 1) // T, design << 1)
+    row = flat.numel() + 3 if seeded else 3 * Kb
+    partial = torch.empty((G, row), dtype=torch.float32, device=dev)
+    out = torch.empty((row,), dtype=torch.float32, device=dev)
+    per_block = mma_scratch_floats(layers, T, kind, pl.flags)
+    scratch = (torch.empty((G, per_block), dtype=torch.float32, device=dev) if per_block
+               else None)
+    if seeded:
+        scal = scal.contiguous()
+    lay = _cuda.layers_arg(layers)
+    _cuda.launch(name, lib.fused_multibump_mma_f32, int(seeded), Kb, X.data_ptr(),
+                 coef.data_ptr(), flat.data_ptr(), scal.data_ptr() if seeded else None,
+                 ctypes.addressof(lay), len(layers), _cuda.ACTS[activation], N, T, G,
+                 pl.flags, design, partial.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), out.data_ptr(), pl.smem,
+                 _cuda.stream(dev), dev=dev,
+                 keep=(X, coef, flat, scal, lay, partial, scratch, out))
+    return out
+
+
 # ------------------------------------------------------------------- raw API
 def fused_multi_sums(params, X, coef, activation: str, n_bumps: int, *,
                      dot_dtype: str = "float32", flat=None):
     """Pass A: ``{'sum_r' (K,), 'sum_mass' (K,), 'sum_e2' (K,), 'n'}``.
     ``flat``: ``params`` already flattened (``[W0, b0, W1, b1, ...]``); the
-    values are then read from it and ``params`` gives the shapes."""
+    values are then read from it and ``params`` gives the shapes.
+    ``dot_dtype``: ``'float32'``, ``'bf16x3'`` or ``'bfloat16'`` (the
+    bf16-dot mode)."""
     _check_K(n_bumps)
     _check_dot(dot_dtype)
     _check_coef(X, coef, n_bumps * (X.shape[1] + 4))
     if _on_cuda(X):
-        s = _launch(False, params, X, coef, None, activation, n_bumps, flat=flat)
+        launch = _launch_mma if dot_dtype == "bfloat16" else _launch
+        s = launch(False, params, X, coef, None, activation, n_bumps, flat=flat)
     else:
         if flat is not None:
             params = _views(flat, params)
-        s = fused_multi_sums_plain(params, X, coef, activation, n_bumps)
+        s = fused_multi_sums_plain(params, X, coef, activation, n_bumps, dot_dtype)
     K = n_bumps
     return {"sum_r": s[0:K], "sum_mass": s[K:2 * K], "sum_e2": s[2 * K:3 * K],
             "n": X.shape[0]}
@@ -244,7 +380,7 @@ def fused_multi_seeded_grads(params, X, coef, scalars, activation: str, n_bumps:
     """Pass B: grads of ``sum_k s_r_k*sum r_k + s_q_k*sum (e1_k v)^2 +
     s_l_k*sum e2_k v`` for ``scalars = (s_r (K,), s_q (K,), s_l (K,))``
     (already holding every 1/N and chain factor), in the params layout.
-    ``flat`` as in :func:`fused_multi_sums`."""
+    ``flat`` and ``dot_dtype`` as in :func:`fused_multi_sums`."""
     _check_K(n_bumps)
     _check_dot(dot_dtype)
     _check_coef(X, coef, n_bumps * (X.shape[1] + 4))
@@ -252,13 +388,14 @@ def fused_multi_seeded_grads(params, X, coef, scalars, activation: str, n_bumps:
                       for s in scalars])
     if _on_cuda(X):
         params = [(W.detach(), b.detach()) for W, b in params]
-        out = _launch(True, params, X, coef, scal, activation, n_bumps, flat=flat)
+        launch = _launch_mma if dot_dtype == "bfloat16" else _launch
+        out = launch(True, params, X, coef, scal, activation, n_bumps, flat=flat)
         dWs, dbs, sums = _unflatten(params, out)
     else:
         if flat is not None:
             params = _views(flat, params)
         dWs, dbs, sums = fused_multi_seeded_grads_plain(params, X, coef, scal, activation,
-                                                        n_bumps)
+                                                        n_bumps, dot_dtype)
     return _seeded_grads(params, dWs, dbs, sums)
 
 
@@ -329,7 +466,8 @@ def make_fused_wan_multi_u(activation: str, n_bumps: int, *,
     * ``phi_norms``: ``(K,)`` critic masses ``mean(phi_k^2)``.
     * ``loss = w_pde * mean_k p_k + w_norm*(vol*mean(u^2) - 1)^2``.
 
-    Gradients flow to ``params``, ``E`` and ``phi_norms``."""
+    Gradients flow to ``params``, ``E`` and ``phi_norms``.  ``dot_dtype``:
+    the kernels' (:func:`fused_multi_sums`)."""
     _check_K(n_bumps)
     _check_axis(axis)
     _check_dot(dot_dtype)
@@ -387,7 +525,8 @@ def make_fused_wan_multi_v(activation: str, n_bumps: int, *,
     the critic net with per-bump effective factors ``W_k = w_k * Bv`` (``c0
     = (V-E)*u``, ``b0 = pref*grad u``, ``e1_k = W_k``, so mass lane k is
     ``sum phi_k^2``).  The per-bump masses are in the objective: their
-    gradients seed the K quadratic lanes.  Gradients flow to ``params``."""
+    gradients seed the K quadratic lanes.  Gradients flow to ``params``.
+    ``dot_dtype``: the kernels' (:func:`fused_multi_sums`)."""
     if objective not in ("neg_log", "neg"):
         raise ValueError(f"Unknown critic objective {objective!r}")
     _check_K(n_bumps)

@@ -416,7 +416,7 @@ def fused_linear_sums(params, X, coef, activation: str, *, no_lap: bool = False,
     already flattened (``[W0, b0, W1, b1, ...]``); the values are then read
     from it and ``params`` gives the shapes.  ``dot_dtype``: ``'float32'``,
     ``'bf16x3'`` or ``'bfloat16'`` (the bf16-dot mode)."""
-    _check_dot(dot_dtype, bf16=True)
+    _check_dot(dot_dtype)
     _check_coef(X, coef, X.shape[1] + 5)
     if _on_cuda(X):
         s = _launch("linear_sums", params, X, coef, None, activation, 0 if no_lap else 1,
@@ -435,7 +435,7 @@ def fused_seeded_grads(params, X, coef, scalars, activation: str, *,
     ``scalars = (s_r, s_q, s_l)`` (already holding every 1/N and chain
     factor), in the params layout.  ``flat`` and ``dot_dtype`` as in
     :func:`fused_linear_sums`."""
-    _check_dot(dot_dtype, bf16=True)
+    _check_dot(dot_dtype)
     _check_coef(X, coef, X.shape[1] + 5)
     scal = _scalars(scalars, X)
     if _on_cuda(X):
@@ -455,7 +455,7 @@ def fused_quad_sums(params, X, coef, activation: str, *, dot_dtype: str = "float
                     flat=None):
     """Pass A (quadratic): ``{'sum_e', 'sum_u2', 'n'}``.  ``flat`` and
     ``dot_dtype`` as in :func:`fused_linear_sums`."""
-    _check_dot(dot_dtype, bf16=True)
+    _check_dot(dot_dtype)
     _check_coef(X, coef, X.shape[1] + 3)
     if _on_cuda(X):
         s = _launch("quad_sums", params, X, coef, None, activation, 0, flat=flat,
@@ -472,7 +472,7 @@ def fused_quad_seeded_grads(params, X, coef, scalars, activation: str, *,
     """Pass B (quadratic): grads of ``s_e*sum e + s_q*sum u^2`` for
     ``scalars = (s_e, s_q)``.  ``flat`` and ``dot_dtype`` as in
     :func:`fused_linear_sums`."""
-    _check_dot(dot_dtype, bf16=True)
+    _check_dot(dot_dtype)
     _check_coef(X, coef, X.shape[1] + 3)
     scal = _scalars(scalars, X)
     if _on_cuda(X):
@@ -593,7 +593,7 @@ def make_fused_rayleigh(activation: str, *, weight: float = 1.0,
     from :func:`quotient_coefficients`; ``aux`` holds ``rayleigh`` (the
     unweighted quotient), ``mean_e`` and ``mean_u2``."""
     _check_axis(axis)
-    _check_dot(dot_dtype, bf16=True)
+    _check_dot(dot_dtype)
     cfg = (activation, weight, den_eps, dot_dtype, axis)
 
     def loss(params, X, coef):
@@ -636,7 +636,7 @@ def make_fused_quad_mean(activation: str, *, weight: float = 1.0, axis=None,
     ``mean(|grad v|^2 + v^2)`` with ``V = 1/2`` and ``weight = 2*reg``;
     ``aux`` holds ``mean_e`` and ``mean_u2``."""
     _check_axis(axis)
-    _check_dot(dot_dtype, bf16=True)
+    _check_dot(dot_dtype)
     cfg = (activation, weight, dot_dtype, axis)
 
     def loss(params, X, coef):
@@ -700,7 +700,7 @@ def make_fused_wan_u(activation: str, *, convention: str = "wr2_over_norm",
     computed outside.  Gradients flow to ``params``, ``E`` and
     ``phi_norm``."""
     _check_axis(axis)
-    _check_dot(dot_dtype, bf16=True)
+    _check_dot(dot_dtype)
     _wan_dp(convention, 0.0, 1.0, eps)
     cfg = (activation, convention, eps, vol, w_pde, w_norm, dot_dtype, axis)
 
@@ -755,7 +755,7 @@ def make_fused_wan_v(activation: str, *, convention: str = "wr2_over_norm",
     if objective not in ("neg_log", "neg"):
         raise ValueError(f"Unknown critic objective {objective!r}")
     _check_axis(axis)
-    _check_dot(dot_dtype, bf16=True)
+    _check_dot(dot_dtype)
     _wan_dp(convention, 0.0, 1.0, eps)
     cfg = (activation, convention, eps, objective, log_eps, dot_dtype, axis)
 

@@ -294,11 +294,11 @@ def plan(kind: str, layers, design: int | None = None, *, T: int | None = None,
 
 
 # ------------------------------------------- the tensor-core design (DES_MMA)
-# The bf16-dot mode of the fused kernels, the jet pair and the quotients'
-# two passes (fwdlap_mma.cuh, one body for the four kinds): bf16 stages of
-# Sp*T rows (T = 8 or a multiple of 16), hidden weights bf16 padded to
-# multiples of 16, the saved stages in fragment order in device memory (none
-# in the kinds without a reverse sweep).  Measured on an H100 (chip_smoke.py
+# The bf16-dot mode of the fused kernels, the jet pair, the quotients' and
+# the K-bump pair's two passes (fwdlap_mma.cuh, one body for the four
+# kinds): bf16 stages of Sp*T rows (T = 8 or a multiple of 16), hidden
+# weights bf16 padded to multiples of 16, the saved stages in fragment order
+# in device memory (none in the kinds without a reverse sweep).  Measured on an H100 (chip_smoke.py
 # mma_sweep; PERF.md): the block's gradient row on chip comes first (its
 # hidden dW accumulates there in fragment order), then the resident
 # weights; 16-point tiles at two blocks per SM (the kernels' register
@@ -317,13 +317,17 @@ MMA_TIERS = (("resident", _plan.RES_WEIGHTS | _plan.RES_GRAD), ("gradient", _pla
 MMA_FWD_TIERS = (("weights", _plan.RES_WEIGHTS), ("staged", 0), ("device", _plan.DEV_WEIGHTS))
 MMA_KINDS = ("fused_linear_residual", "fused_poisson_analytic", "fused_drm_energy",
              "fwdlap_backward", "fwdlap_forward", "linear_sums", "linear_seeded",
-             "quad_sums", "quad_seeded")
+             "quad_sums", "quad_seeded", "multi_sums", "multi_seeded")
 # the kinds without a reverse sweep (mma::has_rev): nothing saved, no
-# gradient row, no column sums; the quotients' pass A sums its terms
-MMA_FORWARD = ("fwdlap_forward", "linear_sums", "quad_sums")
+# gradient row, no column sums; the quotients' and the K-bump pair's pass A
+# sums its terms
+MMA_FORWARD = ("fwdlap_forward", "linear_sums", "quad_sums", "multi_sums")
 # the kinds that never carry the Laplacian stream (S = d + 1); the linear
 # quotients carry it or not (``lap``), the others always
-MMA_NO_LAP = ("fused_drm_energy", "quad_sums", "quad_seeded")
+MMA_NO_LAP = ("fused_drm_energy", "quad_sums", "quad_seeded", "multi_sums", "multi_seeded")
+# pass A's double lanes a point, at least (mma::SUM_LANES): the quotients'
+# four (the quadratic one's two sums in the same room)
+MMA_SUM_LANES = 4
 # blocks per SM a plan may count on: the kernels with a reverse sweep have a
 # two-block register budget (a third block's spills, PERF.md), as the pass-A
 # kernels do; the jet forward comes at three and at two (its launch bounds,
@@ -390,6 +394,18 @@ def mma_lap(kind: str, lap=None) -> int:
     return fixed
 
 
+def mma_sum_lanes(kind: str, n_bumps: int | None = None) -> int:
+    """Pass A's double lanes a point (``mma::sum_lanes`` of its row of
+    sums): the K-bump pass A's ``3 n_bumps`` sums (at least
+    ``MMA_SUM_LANES``), the quotients' ``MMA_SUM_LANES``.  The K-bump pass A
+    without ``n_bumps`` raises: its shared memory grows with the bumps."""
+    if kind != "multi_sums":
+        return MMA_SUM_LANES
+    if n_bumps is None:
+        raise ValueError("multi_sums: the tensor-core layout needs the bump count (n_bumps)")
+    return max(3 * n_bumps, MMA_SUM_LANES)
+
+
 def _mma_sums_floats(g: MmaGeo, kind: str) -> int:
     """Floats of the projection partials (not in the jet backward) and the
     column sums (the kinds with a reverse sweep): on chip, or with
@@ -399,7 +415,8 @@ def _mma_sums_floats(g: MmaGeo, kind: str) -> int:
 
 
 def mma_smem_bytes(layers, T: int, flags: int = 0,
-                   kind: str = "fused_linear_residual", lap=None) -> int:
+                   kind: str = "fused_linear_residual", lap=None,
+                   n_bumps: int | None = None) -> int:
     """Shared-memory bytes of one block of ``kind`` (``mma::layout``): the
     bf16 stages (three; two without a reverse sweep), the hidden weights in
     bf16 (all with ``RES_WEIGHTS``, none with ``DEV_WEIGHTS``, else the
@@ -408,8 +425,9 @@ def mma_smem_bytes(layers, T: int, flags: int = 0,
     backward) and the column sums (the kinds with a reverse sweep) unless
     ``DEV_SUMS``, the tile's points, cotangents (d + 2 rows, the kinds with
     a reverse sweep), sum terms (the fused and seeded kinds: three floats a
-    point; pass A: four doubles a point) and projected streams (not in the
-    jet backward).  ``lap``: :func:`mma_lap`."""
+    point; pass A: :func:`mma_sum_lanes` doubles a point, 3 ``n_bumps`` in
+    the K-bump pass A) and projected streams (not in the jet backward).
+    ``lap``: :func:`mma_lap`."""
     g = mma_geometry(layers, T, mma_lap(kind, lap))
     d = layers[0]
     rev, proj = kind not in MMA_FORWARD, kind != "fwdlap_backward"
@@ -422,7 +440,8 @@ def mma_smem_bytes(layers, T: int, flags: int = 0,
         n += 4 * _rnd4(_cuda.n_params(layers) + (3 if fused else 0))
     floats = ((0 if flags & _plan.DEV_SUMS else _mma_sums_floats(g, kind)) + _rnd4(T * d)
               + (_rnd4(g.R * T) if rev else 0) + (_rnd4(3 * T) if fused else 0)
-              + (8 * T if kind.endswith("_sums") else 0) + (_rnd4(g.ST) if proj else 0))
+              + (2 * mma_sum_lanes(kind, n_bumps) * T if kind.endswith("_sums") else 0)
+              + (_rnd4(g.ST) if proj else 0))
     return n + 4 * floats
 
 
@@ -439,7 +458,7 @@ def mma_scratch_floats(layers, T: int, kind: str = "fused_linear_residual",
 
 
 def mma_plan(kind: str, layers, *, T: int | None = None, tier: str | None = None,
-             blocks: int | None = None, lap=None) -> _plan.Plan:
+             blocks: int | None = None, lap=None, n_bumps: int | None = None) -> _plan.Plan:
     """The launch shape of the bf16-dot mode of ``kind`` (``MMA_KINDS``) in
     the tensor-core design.  The most blocks per SM first (two, the register
     budget of the kinds with a reverse sweep and of pass A; the jet forward
@@ -449,6 +468,7 @@ def mma_plan(kind: str, layers, *, T: int | None = None, tier: str | None = None
     ``MMA_FWD_TIERS``) in order.  The jet forward's plan carries its
     register budget in ``blocks`` (3 at three blocks per SM, else 2).
     ``T``, ``tier`` and ``blocks`` pin a choice; ``lap``: :func:`mma_lap`;
+    ``n_bumps``: the K-bump pass A's bump count (:func:`mma_sum_lanes`);
     what fits nothing raises, naming the shape."""
     lap = mma_lap(kind, lap)
     _cuda.check_width(kind + ".bf16", layers)
@@ -469,12 +489,13 @@ def mma_plan(kind: str, layers, *, T: int | None = None, tier: str | None = None
             for name, flags in tiers:
                 if name not in names:
                     continue
-                smem = mma_smem_bytes(layers, t, flags, kind, lap)
+                smem = mma_smem_bytes(layers, t, flags, kind, lap, n_bumps)
                 if smem <= budget:
                     return _plan.Plan(t, smem, flags, name, _cuda.DES_MMA,
                                       (3 if share == 3 else 2) if jet_fwd else 0)
     raise ValueError(f"{kind} mma plan: layers {list(layers)} do not fit {_cuda.SMEM_MAX} B "
-                     f"of shared memory (T={T}, tier={tier}, blocks={blocks}, lap={lap})")
+                     f"of shared memory (T={T}, tier={tier}, blocks={blocks}, lap={lap}, "
+                     f"n_bumps={n_bumps})")
 
 
 MMA_REG_WIDTH = 128      # widest layer the narrow variant holds in registers (KS_REG)
@@ -642,7 +663,7 @@ def fused_linear_residual(params, X, coef, activation: str, *,
     ``aux['sum_r_ufull'] = sum r e net`` (the trainable-E seed).
     ``dot_dtype``: ``'float32'``, ``'bf16x3'`` or ``'bfloat16'`` (the
     bf16-dot mode)."""
-    _check_dot(dot_dtype, bf16=True)
+    _check_dot(dot_dtype)
     _check_coef(X, coef, X.shape[1] + 4)
     dWs, dbs, sums, N = _fused_call("fused_linear_residual", activation,
                                     params, X, coef=coef, dot_dtype=dot_dtype)
@@ -656,7 +677,7 @@ def fused_drm_energy(params, X, coef, activation: str, *,
     """``loss = weight * mean(1/2 |grad u|^2 - f u)`` and its gradients in
     one pass; ``coef`` from :func:`drm_coefficients`.  ``dot_dtype``:
     ``'float32'``, ``'bf16x3'`` or ``'bfloat16'`` (the bf16-dot mode)."""
-    _check_dot(dot_dtype, bf16=True)
+    _check_dot(dot_dtype)
     _check_coef(X, coef, X.shape[1] + 2)
     dWs, dbs, sums, N = _fused_call("fused_drm_energy", activation, params,
                                     X, coef=coef, dot_dtype=dot_dtype)
@@ -671,7 +692,7 @@ def fused_residual_analytic(params, X, activation: str, coef_fn, *,
     ``coef_fn`` is any ``(N, d) -> (c, [b..], a, rhs)``; the CUDA kernel
     takes :class:`PoissonSinCoef`.  ``dot_dtype``: ``'float32'``,
     ``'bf16x3'`` or ``'bfloat16'``."""
-    _check_dot(dot_dtype, bf16=True)
+    _check_dot(dot_dtype)
     dWs, dbs, sums, N = _fused_call("fused_poisson_analytic", activation,
                                     params, X, coef_fn=coef_fn, dot_dtype=dot_dtype)
     loss = weight * sums[0] / N
@@ -689,18 +710,13 @@ def fused_poisson_analytic(params, X, activation: str, *, L: float,
                                    weight=weight, dot_dtype=dot_dtype)
 
 
-def _check_dot(dot_dtype: str, bf16: bool = False) -> None:
-    """Whether a kernel takes ``dot_dtype``.  ``'float32'`` and
-    ``'bf16x3'`` every kernel: ``'bf16x3'`` is the TPU kernels' three-pass
-    split, float32-class, so it runs the float32 kernels and counts under
-    their launch names (the H100's fp32 products meet its bar: ROADMAP.md's
-    decision on the fp32 class; tests/test_torch_bf16_quotient.py measures
-    the gap to JAX's ``'bf16x3'``).  ``'bfloat16'`` the kernels with a
-    bf16-dot variant (``bf16``); the others' is ROADMAP B1."""
-    if dot_dtype in ("float32", "bf16x3") or (bf16 and dot_dtype == "bfloat16"):
-        return
-    if dot_dtype == "bfloat16":
-        raise NotImplementedError(
-            f"dot_dtype={dot_dtype!r}: this kernel of the port has no bf16-dot "
-            "variant yet (ROADMAP B1)")
-    raise ValueError(f"Unknown dot_dtype {dot_dtype!r}")
+def _check_dot(dot_dtype: str) -> None:
+    """Whether a kernel takes ``dot_dtype``: ``'float32'``, ``'bf16x3'`` or
+    ``'bfloat16'``, every kernel.  ``'bf16x3'`` is the TPU kernels'
+    three-pass split, float32-class, so it runs the float32 kernels and
+    counts under their launch names (the H100's fp32 products meet its bar:
+    ROADMAP.md's decision on the fp32 class; tests/test_torch_bf16_quotient.py
+    measures the gap to JAX's ``'bf16x3'``); ``'bfloat16'`` the kernel's
+    bf16-dot variant on the tensor-core design."""
+    if dot_dtype not in ("float32", "bf16x3", "bfloat16"):
+        raise ValueError(f"Unknown dot_dtype {dot_dtype!r}")

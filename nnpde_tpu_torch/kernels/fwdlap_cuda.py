@@ -302,7 +302,7 @@ def mlp_fwdlap_kernel(params, X, activation: str, fwd_impl: str = "rows",
             "'rows:default'")
     if fwd_impl not in _FWD_IMPLS:
         raise ValueError(f"fwd_impl must be one of {_FWD_IMPLS}, got {fwd_impl!r}")
-    _check_dot(dot_dtype, bf16=True)
+    _check_dot(dot_dtype)
     leaves = [t for pair in params for t in pair]
     out = _JetForward.apply((activation, fwd_impl, dot_dtype), X, *leaves)
     d = X.shape[1]

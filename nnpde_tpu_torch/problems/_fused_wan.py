@@ -133,8 +133,8 @@ def make_fused_wan_multi_pair(u_model, v_model, n_bumps: int, *,
     are the stacked bump windows ``(K, N)`` / ``(K, N, d)`` from
     :func:`nnpde_tpu_torch.ops.bump_w_multi`; the objectives are ``mean_k``
     of the per-bump quotients, matching the autograd multibump path.
-    ``dot_dtype``: the K-bump kernels' (``'float32'`` or ``'bf16x3'``;
-    their ``'bfloat16'`` is ROADMAP B1)."""
+    ``dot_dtype``: the K-bump kernels' (``'float32'``, ``'bf16x3'`` or
+    ``'bfloat16'``, :func:`~nnpde_tpu_torch.kernels.fused_multi_sums`)."""
     fused_u = make_fused_wan_multi_u(
         u_model.spec.activation, n_bumps, convention=convention, eps=eps,
         w_pde=w_pde, w_norm=w_norm, vol=vol, dot_dtype=dot_dtype)

@@ -25,8 +25,10 @@ every kernel, against the JAX package on the CPU.
   and it is within 1e-4 of JAX's interpret-mode ``'bf16x3'`` (the
   three-pass split with its lo*lo term dropped; measured 7.7e-7 to
   2.5e-5, the largest on pass A's sum of r, whose terms cancel).
-* Rows 11-12 with ``'bfloat16'`` still raise, naming ROADMAP B1; the WAN
-  pair constructors pass ``dot_dtype`` to the objectives they build.
+* Rows 11-12 take ``'bfloat16'`` on their raw API, their objectives and
+  the multi-bump WAN pair (held to JAX in
+  ``tests/test_torch_bf16_multibump.py``); the WAN pair constructors pass
+  ``dot_dtype`` to the objectives they build.
 
 Cost: about 55 s on one worker, most of it the JAX kernels in interpret
 mode compiling for each shape.
@@ -320,25 +322,30 @@ def test_bf16x3_runs_float32_and_meets_jax(row):
     assert len(got) == len(want) and _max_rel(got, want) <= TOL
 
 
-# --------------------------------------------------- what stays B1
+# ------------------------------------------------ rows 11-12 take bfloat16
 def test_k_bump_bf16_still_raises_naming_b1():
-    """Rows 11-12 have no bf16-dot variant yet: their raw API, their
-    objectives and the multi-bump WAN pair raise, naming ROADMAP B1."""
-    tp = Case(2, seed=1, N=16).tp()
-    X, coef = torch.zeros(16, 2), torch.zeros(16, 12)
-    with pytest.raises(NotImplementedError, match="B1"):
-        tfm.fused_multi_sums(tp, X, coef, ACT, 2, dot_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="B1"):
-        tfm.fused_multi_seeded_grads(tp, X, coef, (torch.zeros(2),) * 3, ACT, 2,
-                                     dot_dtype="bfloat16")
+    """Rows 11-12's bf16-dot mode is ported (the name is the test's from
+    before): their raw API, their objectives and the multi-bump WAN pair
+    take ``'bfloat16'`` and give the plain bf16-dot versions' results on
+    the CPU, apart from the float32 ones; no mode raises naming B1."""
+    case = Case(2, seed=1, N=16)
+    tp, X = case.tp(), torch.as_tensor(case.X)
+    coef = torch.as_tensor(np.random.default_rng(2).normal(size=(16, 12)).astype(np.float32))
+    scal = (torch.tensor([0.3, -0.2]), torch.tensor([0.1, 0.2]), torch.tensor([-0.4, 0.5]))
+    s = tfm.fused_multi_sums(tp, X, coef, ACT, 2, dot_dtype="bfloat16")
+    want = tfm.fused_multi_sums_plain(tp, X, coef, ACT, 2, "bfloat16")
+    assert torch.equal(torch.cat([s["sum_r"], s["sum_mass"], s["sum_e2"]]), want)
+    assert not torch.equal(want, tfm.fused_multi_sums_plain(tp, X, coef, ACT, 2))
+    g = tfm.fused_multi_seeded_grads(tp, X, coef, scal, ACT, 2, dot_dtype="bfloat16")
+    dWs, _, sums = tfm.fused_multi_seeded_grads_plain(tp, X, coef, torch.cat(scal), ACT, 2,
+                                                      "bfloat16")
+    assert torch.equal(g[0][0], dWs[0]) and torch.equal(g[-1][1], sums[0].reshape(1))
     for ctor in (tfm.make_fused_wan_multi_u, tfm.make_fused_wan_multi_v):
-        with pytest.raises(NotImplementedError, match="B1"):
-            ctor(ACT, 2, dot_dtype="bfloat16")
+        ctor(ACT, 2, dot_dtype="bfloat16")
     model = SolutionModel(NetSpec((2, 8, 1), activation=ACT),
                           factor_for_technique("FBC", dim=2, kind="box", L=L))
-    with pytest.raises(NotImplementedError, match="B1"):
-        make_fused_wan_multi_pair(model, model, 2, dot_dtype="bfloat16")
-    make_fused_wan_multi_pair(model, model, 2, dot_dtype="bf16x3")
+    for dot in ("bfloat16", "bf16x3"):
+        make_fused_wan_multi_pair(model, model, 2, dot_dtype=dot)
 
 
 def test_wan_pair_passes_dot_dtype_to_its_objectives():

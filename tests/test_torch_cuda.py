@@ -2004,3 +2004,166 @@ def test_cuda_quotient_mma_layout_mirror(dev):
                                 layers, T, kind, flags, lap)
         assert lib.fused_quotient_mma_smem_bytes(2, 1, *args, 16, 0) == -1
         assert lib.fused_quotient_mma_smem_bytes(0, 0, *args, 24, 0) == -1
+
+
+# ------------------------------- rows 11-12 (the K-bump pair) in bf16-dot mode
+_MB_BF16_NETS = [
+    ((2, 20, 20, 20, 1), "sin"),           # c20: the 2D well's critic
+    ((2, 50, 50, 50, 50, 1), "sin"),       # u50: the 2D well's primal
+    ((2, 200, 200, 200, 1), "sin"),        # the width-200 critic: the wide variant
+    ((1, 200, 200, 200, 1), "tanh"),       # u200 of the 1D oscillator: the wide variant, d = 1
+    ((16, 32, 32, 1), "sin"),              # d = 16: 17 streams, 18 at T = 8
+]
+
+
+def _mb_bf16_case(dev, seeded, layers, act, Kb, N=4000 + 7, seed=23):
+    """A launch of row 11 or 12 through its public wrapper (``run(dot)``, a
+    list of tensors: pass A's 3K sums, or pass B's gradient leaves with sum
+    ct_v last), its plain version on the card (``plain(dot, dtype)``; in
+    float64 the witness) and the distance ``rel(a, b)``: pass B's largest
+    norm-relative leaf difference, pass A's largest sum difference over the
+    float64 sum of its terms' magnitudes (the weak sums cancel)."""
+    from nnpde_tpu_torch.kernels import fused_multibump as tfm
+    from nnpde_tpu_torch.ops.fwdlap import mlp_fwdlap
+
+    rng = np.random.default_rng(seed)
+    d = layers[0]
+    pn = _np_params(rng, layers)
+    X = torch.as_tensor(rng.uniform(0.0, L, (N, d)).astype(np.float32), device=dev)
+    coef, scal = tfm.weak_form_stream(X, Kb, rng, L)
+    seeds = (scal[:Kb], scal[Kb:2 * Kb], scal[2 * Kb:])
+    tp = params_from_jax(pn, device=dev)
+
+    def run(dot):
+        if not seeded:
+            s = tfm.fused_multi_sums(tp, X, coef, act, Kb, dot_dtype=dot)
+            return list(torch.cat([s["sum_r"], s["sum_mass"], s["sum_e2"]]).reshape(-1, 1))
+        g = tfm.fused_multi_seeded_grads(tp, X, coef, seeds, act, Kb, dot_dtype=dot)
+        return [t for pair in g for t in pair]
+
+    def plain(dot, dtype=torch.float32):
+        from nnpde_tpu_torch.kernels import fused_quotient as tfq
+
+        P = params_from_jax(pn, device=dev, dtype=dtype)
+        Xc, cc, sc = X.to(dtype), coef.to(dtype), scal.to(dtype)
+        if not seeded:
+            return list(tfm.fused_multi_sums_plain(P, Xc, cc, act, Kb, dot).reshape(-1, 1))
+        dWs, dbs, sums = tfm.fused_multi_seeded_grads_plain(P, Xc, cc, sc, act, Kb, dot)
+        return [t for pair in tfq._seeded_grads(P, dWs, dbs, sums) for t in pair]
+
+    def rel(a, b):
+        if seeded:
+            return _leaf_rel(a, b)
+        P = params_from_jax(pn, device=dev, dtype=torch.float64)
+        r, mass, lin = tfm._multi_terms(mlp_fwdlap(P, X.double(), act), coef.double(), Kb, d)
+        scale = torch.cat([r.abs().sum(0), mass.sum(0), lin.abs().sum(0)])
+        return max(float(torch.abs(x.double() - y.double()).max() / m)
+                   for x, y, m in zip(a, b, scale))
+
+    return run, plain, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Kb", [1, 16, 42])
+@pytest.mark.parametrize("layers,act", _MB_BF16_NETS)
+@pytest.mark.parametrize("seeded", [False, True])
+def test_cuda_bf16_k_bump_matches_plain(dev, seeded, layers, act, Kb):
+    """The bf16-dot variants of rows 11-12 against their plain bf16-dot
+    versions, float32 on the card: pass B's gradient leaves and sum ct_v
+    norm-rel <= 1e-4, every pass-A sum within 1e-5 of the sum of its terms'
+    magnitudes; no further from the float64 witness than 2x the plain
+    version (+2e-6); more than 10x the bar from the fp32 kernel (the cast is
+    delivered); two launches bitwise equal, each counted under
+    ``multi_*.bf16`` and launched in the tensor-core design."""
+    from nnpde_tpu_torch.kernels import _cuda
+
+    name = ("multi_seeded" if seeded else "multi_sums") + ".bf16"
+    run, plain, rel = _mb_bf16_case(dev, seeded, layers, act, Kb)
+    bar = 1e-4 if seeded else 1e-5
+    before = LAUNCHES[name]
+    with _cuda.capture() as cap:
+        out = run("bfloat16")
+    out2 = run("bfloat16")
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == before + 2
+    assert [c[0] for c in cap.calls] == [name]
+    # the design argument: DES_MMA, with DES_WIDE above width 128
+    des = cap.calls[0][2][13]
+    assert des & ~_cuda.DES_WIDE == _cuda.DES_MMA
+    assert all(torch.equal(a, b) for a, b in zip(out, out2))
+    assert rel(out, plain("bfloat16")) <= bar
+    wit = plain("bfloat16", torch.float64)
+    assert rel(out, wit) <= 2.0 * rel(plain("bfloat16"), wit) + 2e-6
+    assert rel(out, run("float32")) > 10 * bar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Kb", [1, 16, 42])
+@pytest.mark.parametrize("seeded", [False, True])
+def test_cuda_k_bump_bf16x3_runs_the_float32_kernels(dev, seeded, Kb):
+    """Rows 11-12 with ``dot_dtype='bf16x3'`` launch the float32 kernel
+    (counted under its plain name) and are bitwise the ``'float32'``
+    result, at 1, 16 and 42 bumps."""
+    name = "multi_seeded" if seeded else "multi_sums"
+    run, _, _ = _mb_bf16_case(dev, seeded, (2, 50, 50, 50, 50, 1), "sin", Kb)
+    before = (LAUNCHES[name], LAUNCHES[name + ".bf16"])
+    x3, f32 = run("bf16x3"), run("float32")
+    torch.cuda.synchronize()
+    assert (LAUNCHES[name], LAUNCHES[name + ".bf16"]) == (before[0] + 2, before[1])
+    assert all(torch.equal(a, b) for a, b in zip(x3, f32))
+
+
+@pytest.mark.cuda
+def test_cuda_multibump_mma_layout_mirror(dev):
+    """Rows 11-12's tensor-core layouts and scratch in Python are the
+    kernels' own count for every tile, tier and bump count (pass A's 3K
+    double lanes); a bump count outside 1-42 is refused."""
+    import ctypes
+
+    from nnpde_tpu_torch.kernels import _build, _plan
+
+    lib = _build.load()
+    flags_all = {False: (0, _plan.RES_WEIGHTS, _plan.DEV_WEIGHTS),
+                 True: (0, _plan.RES_WEIGHTS, _plan.RES_GRAD, _plan.RES_WEIGHTS | _plan.RES_GRAD,
+                        _plan.DEV_WEIGHTS, _plan.DEV_WEIGHTS | _plan.DEV_SUMS)}
+    for layers in [(2, 20, 20, 20, 1), (2, 50, 50, 50, 50, 1), (5, 7, 9, 1), (2, 12, 1),
+                   (1, 200, 200, 200, 1), (16,) + (256,) * 15 + (1,)]:
+        lay = (ctypes.c_int * len(layers))(*layers)
+        args = (ctypes.addressof(lay), len(layers))
+        for seeded in (False, True):
+            kind = "multi_seeded" if seeded else "multi_sums"
+            for Kb in (1, 2, 16, 42):
+                for T in (8, 16, 32):
+                    for flags in flags_all[seeded]:
+                        assert lib.fused_multibump_mma_smem_bytes(
+                            int(seeded), Kb, *args, T, flags) == tfs.mma_smem_bytes(
+                                layers, T, flags, kind, n_bumps=Kb)
+                        assert lib.fused_multibump_mma_scratch_floats(
+                            int(seeded), *args, T, flags) == tfs.mma_scratch_floats(
+                                layers, T, kind, flags)
+        assert lib.fused_multibump_mma_smem_bytes(0, 43, *args, 16, 0) == -1
+        assert lib.fused_multibump_mma_smem_bytes(0, 0, *args, 16, 0) == -1
+        assert lib.fused_multibump_mma_smem_bytes(1, 4, *args, 24, 0) == -1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layers,act", _MB_BF16_NETS)
+def test_cuda_k_bump_pass_a_at_one_bump_is_the_linear_pass_a(dev, layers, act):
+    """At one bump the K-bump pass A and the linear quotient's pass A
+    without the Laplacian (rows 11 and 7) are the same function on the same
+    body and plan: their sums r, mass and e2 bit for bit, in the bf16-dot
+    mode and in float32."""
+    from nnpde_tpu_torch.kernels import fused_multibump as tfm
+    from nnpde_tpu_torch.kernels import fused_quotient as tfq
+
+    rng = np.random.default_rng(5)
+    d = layers[0]
+    tp = params_from_jax(_np_params(rng, layers), device=dev)
+    X = torch.as_tensor(rng.uniform(0.0, L, (4000 + 7, d)).astype(np.float32), device=dev)
+    coef, _ = tfm.weak_form_stream(X, 1, rng, L)
+    lin = torch.cat([coef[:, :d + 1], torch.zeros_like(coef[:, :1]), coef[:, d + 1:]], dim=1)
+    for dot in ("bfloat16", "float32"):
+        m = tfm.fused_multi_sums(tp, X, coef, act, 1, dot_dtype=dot)
+        q = tfq.fused_linear_sums(tp, X, lin, act, no_lap=True, dot_dtype=dot)
+        for k in ("sum_r", "sum_mass", "sum_e2"):
+            assert torch.equal(m[k].reshape(()), q[k].reshape(())), (dot, k)

@@ -1,9 +1,10 @@
 """The tensor-core design (``DES_MMA``) of the bf16-dot kernels on the CPU:
 the fused residual kernels (rows 1 and 2 with ``dot_dtype='bfloat16'``),
 the jet pair (row 4 with ``fwd_impl='rows:default'``, row 5 with
-``dot_dtype='bfloat16'``), the Deep-Ritz energy (row 3) and the quotients'
+``dot_dtype='bfloat16'``), the Deep-Ritz energy (row 3), the quotients'
 two passes (rows 7-10), the last without the Laplacian stream where their
-objectives drop it.
+objectives drop it, and the K-bump WAN pair (rows 11-12), whose pass A
+keeps 3K double lanes a point.
 
 What runs here is the Python half of the design: its shared-memory layout
 mirror (held to a formula written out below, and on a card to the kernel's
@@ -48,7 +49,7 @@ def _up(n, m):
     return -(-n // m) * m
 
 
-def _written_out_bytes(layers, T, flags, kind="fused_linear_residual", lap=1):
+def _written_out_bytes(layers, T, flags, kind="fused_linear_residual", lap=1, n_bumps=None):
     """The kernel's layout, written out: three bf16 stages of Sp*T rows at
     a row stride of the widest layer rounded up to 16 plus 8 (the jet
     forward and pass A two); the hidden weights in bf16, each kp16(in) rows
@@ -60,11 +61,12 @@ def _written_out_bytes(layers, T, flags, kind="fused_linear_residual", lap=1):
     (16-point blocks x (d + 2) x widest rounded to 8; not in the jet forward
     or pass A), both in device scratch with DEV_SUMS, the points, the
     cotangents (d + 2 rows; not in the jet forward or pass A), the sum terms
-    (the fused and seeded kinds: 3 floats a point; pass A: 4 doubles) and
-    the projected rows (not in the jet backward).  ``lap``: S = d + 1 + lap
-    streams."""
+    (the fused and seeded kinds: 3 floats a point; pass A: 4 doubles, the
+    K-bump pass A 3K of them if that is more) and the projected rows (not in
+    the jet backward).  ``lap``: S = d + 1 + lap streams."""
     d, hidden = layers[0], layers[1:-1]
-    fwd = kind in ("fwdlap_forward", "linear_sums", "quad_sums")
+    fwd = kind in ("fwdlap_forward", "linear_sums", "quad_sums", "multi_sums")
+    lanes = max(3 * n_bumps, 4) if kind == "multi_sums" else 4
     bwd = kind == "fwdlap_backward"
     S = d + 1 + lap
     Sp = S + S % 2 if T == 8 else S
@@ -79,10 +81,12 @@ def _written_out_bytes(layers, T, flags, kind="fused_linear_residual", lap=1):
         n += 4 * _up(P + (0 if bwd else 3), 4)
     blocks16 = 1 if T == 8 else T // 16
     regions = {"partials": n8 // 8 * rows, "colsums": blocks16 * (d + 2) * n8, "points": T * d,
-               "cotangents": (d + 2) * T, "sums": 3 * T, "doubles": 8 * T, "projected": rows}
+               "cotangents": (d + 2) * T, "sums": 3 * T, "doubles": 2 * lanes * T,
+               "projected": rows}
     drop = {"fwdlap_forward": ("colsums", "cotangents", "sums", "doubles"),
             "linear_sums": ("colsums", "cotangents", "sums"),
             "quad_sums": ("colsums", "cotangents", "sums"),
+            "multi_sums": ("colsums", "cotangents", "sums"),
             "fwdlap_backward": ("partials", "sums", "doubles", "projected")}.get(
                 kind, ("doubles",))
     if flags & _plan.DEV_SUMS:
@@ -203,8 +207,9 @@ def test_mma_plan_path_shapes(net, want):
 def test_mma_plan_pins_and_refusals(kind):
     """Pinned tile, tier and blocks per SM are taken as given or raise: a
     tile that is neither 8 nor a multiple of 16, one that does not fit, more
-    blocks than the kernels' register budget; the K-bump pair has no
-    bf16-dot mode yet (ROADMAP B1)."""
+    blocks than the kernels' register budget; a kernel without a bf16-dot
+    mode (row 6, the stream-major jet forward) has no plan, and the K-bump
+    pass A none without its bump count."""
     u64 = NETS["u64"]
     pl = tfs.mma_plan(kind, u64, T=32, tier="staged", blocks=2)
     assert (pl.T, pl.tier, pl.flags) == (32, "staged", 0) and _two_blocks(pl)
@@ -219,6 +224,8 @@ def test_mma_plan_pins_and_refusals(kind):
     with pytest.raises(ValueError, match="register budget"):
         tfs.mma_plan(kind, u64, blocks=3)
     with pytest.raises(ValueError, match="no bf16-dot mode"):
+        tfs.mma_plan("fwdlap_forward_streams", u64)
+    with pytest.raises(ValueError, match="bump count"):
         tfs.mma_plan("multi_sums", u64)
 
 
@@ -517,13 +524,14 @@ def test_mma_plans_refuse_widths_above_128(kind, layers):
     16 k-steps) since the device tiers: these nets above 128 get its plan,
     and a width of 257 raises, naming the kernel, its limit and the roadmap
     item of the wider nets."""
-    pl = tfs.mma_plan(kind, layers)
+    kw = {"n_bumps": 42} if kind.startswith("multi") else {}    # the K-bump pair's cap
+    pl = tfs.mma_plan(kind, layers, **kw)
     assert pl.design == _cuda.DES_MMA and pl.smem <= _cuda.SMEM_MAX
     wider = tuple(257 if w == max(layers[1:-1]) else w for w in layers[:-1]) + (1,)
     with pytest.raises(ValueError, match=r"\.bf16: the kernel takes hidden widths from 1 to "
                                          r"256 \(wider nets: ROADMAP.md B7\)"):
-        tfs.mma_plan(kind, wider)
-    assert tfs.mma_plan(kind, (1, 128, 128, 1)).design == _cuda.DES_MMA
+        tfs.mma_plan(kind, wider, **kw)
+    assert tfs.mma_plan(kind, (1, 128, 128, 1), **kw).design == _cuda.DES_MMA
 
 
 # ------------------------------------------------ the K-bump pair's plans
@@ -676,7 +684,7 @@ def test_new_kind_plan_path_shapes(kind, lap, net, want):
 def test_mma_lap_of_each_kind():
     """The stream count is the kind's: fixed for all but the linear
     quotients, which take ``lap``; a lap a kind cannot take raises."""
-    assert [tfs.mma_lap(k) for k in tfs.MMA_KINDS] == [1, 1, 0, 1, 1, 1, 1, 0, 0]
+    assert [tfs.mma_lap(k) for k in tfs.MMA_KINDS] == [1, 1, 0, 1, 1, 1, 1, 0, 0, 0, 0]
     assert tfs.mma_lap("linear_sums", 0) == 0 and tfs.mma_lap("linear_seeded", False) == 0
     with pytest.raises(ValueError, match="never carried"):
         tfs.mma_plan("quad_sums", NETS["u64"], lap=1)
@@ -789,3 +797,150 @@ def test_cpu_bf16_row3_and_quotients_run_their_plain_versions(monkeypatch):
         else:
             assert torch.equal(first[0], l3) and torch.equal(first[1][0][0], g3[0][0])
     assert not torch.equal(loss, l3)
+
+
+# --------------------------------- rows 11-12 (the K-bump pair) in bf16-dot mode
+MB_KINDS = ("multi_sums", "multi_seeded")
+BUMPS = (1, 16, 42)
+
+
+@pytest.mark.parametrize("Kb", BUMPS)
+@pytest.mark.parametrize("kind", MB_KINDS)
+@pytest.mark.parametrize("net", sorted(EXTREMES))
+def test_k_bump_layout_mirror_is_the_written_out_layout(net, kind, Kb):
+    """The K-bump pass A's layout is pass A's with 3K double lanes a point
+    (four at K = 1, the quotients' room); pass B's is the seeded quotient's
+    without the Laplacian stream, whatever the bump count."""
+    layers = EXTREMES[net]
+    for T in (8, 16, 32):
+        for flags in FLAGS:
+            if kind == "multi_sums" and flags & (_plan.RES_GRAD | _plan.DEV_SUMS):
+                continue
+            assert tfs.mma_smem_bytes(layers, T, flags, kind, n_bumps=Kb) == _written_out_bytes(
+                layers, T, flags, kind, 0, Kb)
+    if kind == "multi_seeded":
+        assert tfs.mma_smem_bytes(layers, 16, 0, kind, n_bumps=Kb) == tfs.mma_smem_bytes(
+            layers, 16, 0, "linear_seeded", 0)
+
+
+@pytest.mark.parametrize("layers", [EXTREMES["u50"], EXTREMES["c20"], EXTREMES["w256_d5"]])
+def test_mma_smem_bytes_counts_each_kinds_lanes(layers):
+    """Pass A's doubles: 3K lanes a point in the K-bump pass A (so its bytes
+    grow by 2 (3K - 4) T floats over the linear quotient's pass A at K > 1),
+    four in the linear and quadratic quotients' whatever ``n_bumps`` says;
+    the K-bump pass A without a bump count raises."""
+    T = 16
+    base = tfs.mma_smem_bytes(layers, T, 0, "linear_sums", 0)
+    assert tfs.mma_smem_bytes(layers, T, 0, "linear_sums", 0, n_bumps=42) == base
+    assert tfs.mma_smem_bytes(layers, T, 0, "quad_sums", n_bumps=42) == tfs.mma_smem_bytes(
+        layers, T, 0, "quad_sums")
+    for Kb in BUMPS:
+        grow = 4 * 2 * (max(3 * Kb, 4) - 4) * T
+        assert tfs.mma_smem_bytes(layers, T, 0, "multi_sums", n_bumps=Kb) == base + grow
+    assert [tfs.mma_sum_lanes("multi_sums", k) for k in BUMPS] == [4, 48, 126]
+    with pytest.raises(ValueError, match="bump count"):
+        tfs.mma_smem_bytes(layers, T, 0, "multi_sums")
+
+
+@pytest.mark.parametrize("Kb", BUMPS)
+@pytest.mark.parametrize("kind", MB_KINDS)
+def test_k_bump_plans_take_every_width_and_dimension(kind, Kb):
+    """Every hidden width 1-256 at every d 1-16 (four hidden layers, and
+    one) at 1, 16 and 42 bumps gets a tensor-core plan of the K-bump pair
+    that fits the card's shared memory (the lanes alone are 16 KB at K = 42
+    and T = 16), its bytes the layout's; pass A takes the forward tiers
+    only; no stream for the Laplacian (S = d + 1)."""
+    tiers = dict(tfs.MMA_FWD_TIERS if kind == "multi_sums" else tfs.MMA_TIERS)
+    for d in range(1, 17):
+        for w in range(1, 257):
+            for layers in ((d, w, w, w, w, 1), (d, w, 1)):
+                pl = tfs.mma_plan(kind, layers, n_bumps=Kb)
+                assert _fits(pl) and pl.blocks == 0, layers
+                assert pl.smem == tfs.mma_smem_bytes(layers, pl.T, pl.flags, kind,
+                                                     n_bumps=Kb), layers
+                assert tiers[pl.tier] == pl.flags, layers
+                assert tfs.mma_geometry(layers, pl.T, 0).S == d + 1, layers
+
+
+@pytest.mark.parametrize("kind,Kb,net,want", [
+    # (T, tier, blocks per SM by shared memory): the 2D well's critic and
+    # primal at its 16 bumps and at the cap, the wide primal, d = 16
+    ("multi_sums", 16, "c20", (16, "weights", 2)),
+    ("multi_sums", 42, "u50", (16, "weights", 2)),
+    ("multi_seeded", 16, "c20", (16, "resident", 2)),
+    ("multi_seeded", 16, "u50", (16, "resident", 2)),
+    ("multi_sums", 16, "w200_d2", (16, "device", 2)),
+    ("multi_seeded", 16, "w200_d2", (16, "device", 2)),
+    ("multi_sums", 42, "d16_w256_16layers", (8, "device", 1)),
+    ("multi_seeded", 42, "d16_w256_16layers", (8, "device-sums", 1)),
+])
+def test_k_bump_plan_path_shapes(kind, Kb, net, want):
+    """The K-bump pair's plans on the 2D well's nets (c20 the critic, u50
+    the primal) and on the widest: 16-point tiles at two blocks per SM, the
+    device tiers where nothing else fits."""
+    pl = tfs.mma_plan(kind, EXTREMES[net], n_bumps=Kb)
+    assert (pl.T, pl.tier, 2 if _two_blocks(pl) else 1) == want
+
+
+@pytest.mark.parametrize("net", ["c20", "u50", "width1", "w200_d2", "d16_w256_16layers"])
+@pytest.mark.parametrize("seeded", [False, True])
+def test_bf16_k_bump_routes_to_the_tensor_core_design(monkeypatch, seeded, net):
+    """Rows 11-12's bf16-dot modes launch ``fused_multibump_mma_f32`` on the
+    pass's mma plan (pass A's by its bump count), counted as
+    ``multi_sums.bf16`` / ``multi_seeded.bf16``, with the tile, flags, narrow
+    or wide variant and shared memory passed through and scratch for pass B
+    alone; fp32 and ``bf16x3`` launch ``fused_multibump_f32`` under the
+    plain name; a planned plan handed to the bf16-dot mode is refused."""
+    layers = EXTREMES[net]
+    rec = _Recorder(monkeypatch)
+    params, X, _ = _inputs(layers)
+    Kb = 42
+    coef = torch.zeros((X.shape[0], Kb * (layers[0] + 4)))
+    scal = torch.zeros(3 * Kb)
+    s = scal if seeded else None
+    tfm._launch_mma(seeded, params, X, coef, s, "sin", Kb)
+    tfm._launch(seeded, params, X, coef, s, "sin", Kb)
+    (name_b, fn_b, args_b), (name_f, fn_f, _) = rec.calls
+    kind = "multi_seeded" if seeded else "multi_sums"
+    assert (name_b, fn_b, name_f, fn_f) == (kind + ".bf16", "fused_multibump_mma_f32", kind,
+                                            "fused_multibump_f32")
+    pl = tfs.mma_plan(kind, layers, n_bumps=Kb)
+    # (seeded, n_bumps, X, coef, params, scal, layers, n, act, N, T, G, flags,
+    # des, partial, scratch, out, smem_bytes, stream)
+    assert args_b[:2] == (int(seeded), Kb)
+    assert (args_b[10], args_b[12], args_b[13], args_b[17]) == (
+        pl.T, pl.flags, tfs.mma_des(layers, pl.flags), pl.smem)
+    assert (args_b[15] is not None) == seeded and (args_b[5] is not None) == seeded
+    with pytest.raises(ValueError, match="tensor-core design and only it"):
+        tfm._launch_mma(seeded, params, X, coef, s, "sin", Kb, pl=tfm.plan(seeded, layers, Kb))
+    assert len(rec.calls) == 2
+
+
+def test_cpu_bf16_k_bump_runs_its_plain_versions(monkeypatch):
+    """On the CPU the bf16-dot modes of rows 11-12 route to their plain
+    bf16-dot versions without building or loading the kernels, and give
+    exactly their results; ``bf16x3`` gives the float32 results."""
+    def no_build():
+        raise AssertionError("a CPU tensor reached the kernel library")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    layers, Kb = (2, 12, 12, 1), 3
+    params, X, _ = _inputs(layers, N=33)
+    rng = np.random.default_rng(6)
+    coef = torch.as_tensor(rng.normal(size=(33, Kb * 6)).astype(np.float32))
+    scal = torch.as_tensor(rng.normal(size=3 * Kb).astype(np.float32))
+    seeds = (scal[:Kb], scal[Kb:2 * Kb], scal[2 * Kb:])
+    out = {}
+    for dot in ("bfloat16", "bf16x3", "float32"):
+        s = tfm.fused_multi_sums(params, X, coef, "sin", Kb, dot_dtype=dot)
+        g = tfm.fused_multi_seeded_grads(params, X, coef, seeds, "sin", Kb, dot_dtype=dot)
+        out[dot] = (torch.cat([s["sum_r"], s["sum_mass"], s["sum_e2"]]), g)
+    assert torch.equal(out["bfloat16"][0],
+                       tfm.fused_multi_sums_plain(params, X, coef, "sin", Kb, "bfloat16"))
+    dWs, _, sums = tfm.fused_multi_seeded_grads_plain(params, X, coef, scal, "sin", Kb,
+                                                      "bfloat16")
+    g = out["bfloat16"][1]
+    assert torch.equal(g[0][0], dWs[0]) and torch.equal(g[-1][1], sums[0].reshape(1))
+    assert torch.equal(out["bf16x3"][0], out["float32"][0])
+    assert torch.equal(out["bf16x3"][1][0][0], out["float32"][1][0][0])
+    assert not torch.equal(out["bfloat16"][0], out["float32"][0])

@@ -260,6 +260,31 @@ def test_multibump_k1_matches_single_bump():
     assert _rel(_flat_t(gm), _flat_t(gs)) <= 1e-6
 
 
+@pytest.mark.parametrize("d,Kb", [(1, 3), (2, 16)])
+def test_weak_form_stream_is_the_jax_packing(d, Kb):
+    """``weak_form_stream`` (the stream the card checks of rows 11-12 hold
+    the kernels on) is the critic's functional of each bump packed in the
+    multi-bump layout, as the JAX package's own bumps, coefficients and
+    packing build it from the same centres; its 3K seeds are the next
+    normals of the same generator over K N."""
+    N, L = 37, 2.0
+    X = np.random.default_rng(3).uniform(0.0, L, (N, d)).astype(np.float32)
+    coef, scal = tmb.weak_form_stream(torch.as_tensor(X), Kb, np.random.default_rng(5), L)
+    rng = np.random.default_rng(5)
+    centers = rng.uniform(0.3 * L, 0.7 * L, (Kb, d)).astype(np.float32)
+    w, dw = j_bump_w_multi(jnp.asarray(X), jnp.asarray(centers), 0.9 * L)
+    s = X.sum(axis=1)
+    u, gu = np.sin(s) + 0.5, np.repeat(np.cos(s)[:, None], d, axis=1)
+    V, f = 0.5 * np.sum(X * X, axis=1), np.sin(X[:, 0]) + 0.5
+    want = jmb.pack_multibump_coefficients([j_lfc(
+        JJet(w[k], dw[k], jnp.zeros_like(w[k])), c0=(V - 1.0) * u, b0=0.5 * gu,
+        rhs=-f * w[k], e1=w[k], e2=w[k] * u) for k in range(Kb)])
+    assert coef.shape == (N, Kb * (d + 4))
+    np.testing.assert_allclose(coef.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(
+        scal.numpy(), (rng.normal(size=3 * Kb) / (Kb * N)).astype(np.float32))
+
+
 def test_n_bumps_cap():
     assert MAX_BUMPS == jmb.MAX_BUMPS == 42
     with pytest.raises(ValueError, match="n_bumps"):
@@ -274,8 +299,8 @@ def test_n_bumps_cap():
 def test_multibump_options_that_raise():
     X, coef = torch.zeros(8, 2), torch.zeros(8, 12)
     p = [(torch.zeros(2, 4), torch.zeros(4)), (torch.zeros(4, 1), torch.zeros(1))]
-    with pytest.raises(NotImplementedError, match="dot_dtype"):
-        fused_multi_sums(p, X, coef, "sin", 2, dot_dtype="bfloat16")
+    with pytest.raises(ValueError, match="dot_dtype"):
+        fused_multi_sums(p, X, coef, "sin", 2, dot_dtype="float16")
     with pytest.raises(TypeError, match="process group"):
         make_fused_wan_multi_u("sin", 2, axis="batch")
     with pytest.raises(ValueError, match="coef"):

@@ -495,12 +495,12 @@ def test_unported_dot_modes_raise_naming_the_roadmap():
     X = torch.rand(16, 2)
     with pytest.raises(ValueError, match="streams:default"):
         tfc.mlp_fwdlap_kernel(tp, X, "sin", fwd_impl="streams:default")
-    with pytest.raises(NotImplementedError, match="B1"):
-        tfm.fused_multi_seeded_grads(tp, X, torch.zeros(16, 6), (torch.zeros(1),) * 3, "sin",
-                                     1, dot_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="B1"):
-        tfm.make_fused_wan_multi_v("sin", 1, dot_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="B1"):
-        tfm.fused_multi_sums(tp, X, torch.zeros(16, 6), "sin", 1, dot_dtype="bfloat16")
+    # the K-bump pair's bf16-dot mode is ported: it takes 'bfloat16', and an
+    # unknown mode raises
+    tfm.fused_multi_seeded_grads(tp, X, torch.zeros(16, 6), (torch.zeros(1),) * 3, "sin",
+                                 1, dot_dtype="bfloat16")
+    tfm.make_fused_wan_multi_v("sin", 1, dot_dtype="bfloat16")
+    with pytest.raises(ValueError, match="dot_dtype"):
+        tfm.fused_multi_sums(tp, X, torch.zeros(16, 6), "sin", 1, dot_dtype="float16")
     with pytest.raises(ValueError, match="dot_dtype"):
         tfs.fused_linear_residual(tp, X, torch.zeros(16, 6), "sin", dot_dtype="fp8")
