@@ -39,7 +39,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    fused residual kernel once more at width 50.
 7. eigen_path: ``train_ipw_2d`` at the default nets and grid (40000 points),
    state nx = ny = 3, technique FN.  PINN with weights {'data': 1e4} on
-   jet_impl 'torch', 'kernel' and 'fused' (300 epochs, cut from the 20000
+   jet_impl 'torch', 'kernel' and 'fused' (200 epochs, cut from the 20000
    of the acceptance row): first total within rtol 1e-4, first 10 within
    5e-2, kernel and fused rel_l2 <= max(2 x torch, 1e-3), exact launch
    counts; DRM on 'fused' (300 epochs; the same band against 100 'torch'
@@ -71,10 +71,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
    oscillator's u200, sin for PINN and DRM, tanh for WAN, and its critic
    v100) at 1000 and 1007 points, and on a ragged wide net (1, 130, 256, 1),
    to their float64 plain versions by the bars above; eigen1d_path runs
-   ``train_ipw_1d(n=3, technique='FN')`` (200 of 3000 epochs: PINN on three
+   ``train_ipw_1d(n=3, technique='FN')`` (100 of 3000 epochs: PINN on three
    routes, DRM on two), ``train_ipw_1d_wan(technique='FN')`` (80 epochs,
    'torch' and 'fused'), ``train_qho_1d(n=1, technique='FN')`` at u200
-   (200 of 10000 epochs, PINN on three routes, DRM on two), the
+   (100 of 10000 epochs, PINN on three routes, DRM on two), the
    L-BFGS rows qho1d_n0_drm_fn_lbfgs ('fused') and qho1d_n2_pinn_fn_lbfgs
    ('kernel') of ACCEPTANCE.json (E1_LBFGS_ITERS = 1000 of their 3000
    iterations, best MSE <= 1e-5, ACCEPTANCE.json's bar), ``train_qho_1d_wan(n=0, technique='OG',
@@ -205,10 +205,24 @@ Phases (each prints one JSON line; any failure exits non-zero):
    WAN at width 200 (40 epochs, 'torch' and 'fused'), with exact launch
    counts, and ``cli.main`` on the first, bitwise its rel_l2; wide_timing
    times the six kernels at width 200, d = 2, at the paths' N and 262144.
+16. beyond (group ``beyond``): nets beyond the other kernels' limits
+   (``ROADMAP.md`` B7), which rows 1, 2, 4, 5 take in fp32.
+   beyond_kernels holds the four on (2, 512 x 4, 1) sin, (1, 1001, 300, 1)
+   tanh, (18, 128, 128, 1) gelu, (20, 64 x 4, 1) sin and (2, 32 x 23, 1)
+   tanh at 1007 and 20000 points to their float64 plain versions (the loss
+   and every gradient leaf, every jet column, rel <= 1e-5; repeats bitwise;
+   the DES_BEYOND design where the net needs it); (20, 512 x 4, 1) raises
+   NoFit naming B7 in each, and every other kernel and bf16-dot mode raises
+   naming B7 on (2, 300, 300, 1); beyond_path trains ``train_poisson_nd``
+   at width 512 (P1: 'fused', 'fused' analytic, 'kernel'; 200 epochs), d =
+   20 (P2: 'fused', 'kernel'; 100) and 24 weight matrices (P3: 'fused';
+   100) against the 'torch' route's run: first total within 1e-5, rel_l2 <=
+   max(2 x torch's, 1e-3), one launch per step per kernel; beyond_timing
+   times the four on the P1, P2 and P3 nets at 20000 and 262144 points.
 
 ``python3 chip_smoke.py eigen`` (or any other phase-group name: kernels,
 wan, main, eigen, ipw3d, neumann, eigen1d, qho2d, kh, subspace, floquet,
-cli, parallel, probe, timing, precision, wide) runs only those groups,
+cli, parallel, probe, timing, precision, wide, beyond) runs only those groups,
 for work on one slice; without arguments every phase runs.  ``python3
 chip_smoke.py sweep`` is a further group that runs only when named: the jet
 forward in both layouts (rows 4 and 6) and the
@@ -1321,7 +1335,8 @@ def phase_eigen_path():
                         "v_layers": list(EIGEN_V), "grid_points": EIGEN_N, "state": [3, 3],
                         "technique": "FN"}, {}
     # ---- PINN, weights {'data': 1e4}, the three jet routes from one seed
-    epochs = 300
+    # (300 epochs to PR 19, cut for the run's clock)
+    epochs = 200
     pinn = dict(method="PINN", weights={"data": 1e4}, epochs=epochs)
     runs = {impl: run(jet_impl=impl, **pinn) for impl in ("torch", "kernel", "fused")}
     rel_t = runs["torch"][0]["rel_l2"]
@@ -2164,7 +2179,16 @@ PREC_TOL = 1e-4
 # 6.8e-3.  Every case also holds the kernel to the float64 witness: no
 # further from it than 2x the plain fp32 version is (+2e-6, the fp32 sum
 # noise of the loss and leaves).
-PREC_TOL_JET = {(2, 64): 1e-4, (5, 64): 5e-4, (2, 50): 2e-4, (5, 50): 3e-4}
+PREC_TOL_JET = {(2, 64): 1e-4, (5, 64): 5e-4, (2, 50): 2e-4, (5, 50): 3e-4, (1, 100): 2e-4}
+# the 1D oscillator's critic v100, tanh, at 40000 points and seed 31: the
+# case of tools/fwd_bf16_columns.py (the same draws) on which row 4 bf16's
+# value column was 7.7x its plain version's distance from float64 before
+# the products feeding a bf16 rounding left the tensor cores
+# (fwdlap_mma.cuh, f32_products).  The grad and Laplacian columns of this
+# net are no fixed share of the plain version's distance: over 17 seeds
+# they exceed 2x it at 1-2 seeds in every accumulation of the kernel, with
+# every product on the CUDA cores included (PERF.md, PR 20)
+V100 = (1, 100, 100, 100, 1)
 # row 5 from a random cotangent (u50, d = 2): the leaves sum terms whose
 # signs cancel, so their sum-order noise shows (the plain version is 2.8e-4
 # from its float64 witness at this seed, on the CPU; 1.3e-2 from the fp32
@@ -2331,7 +2355,7 @@ def phase_precision_kernels(dev):
     bf16-dot launch in the tensor-core design (``DES_MMA``, read from the
     launch's own arguments).  Rows 4 and 5 also at u64, d = 2 with the fold
     taken away (which the tensor-core design does not have: the same
-    launch)."""
+    launch); row 4 also on V100 (tanh) at 40000 points."""
     from nnpde_tpu_torch.kernels import _cuda
 
     def launched(dot):
@@ -2352,8 +2376,9 @@ def phase_precision_kernels(dev):
                   (b, EIGEN_N, U50, 302, {}), (b, EIGEN_N, U50_5, 303, {}),
                   (b, 20000, LAYERS, 300, {"unfolded": True})]
     cases.append(("fwdlap_backward", EIGEN_N, U50, 302, {"ct": "random"}))
+    cases.append(("fwdlap_forward", EIGEN_N, V100, 31, {"act": "tanh"}))
     for base, N, layers, seed, opt in cases:
-        case = PrecCase(base, N, layers, "sin", seed=seed, dev=dev,
+        case = PrecCase(base, N, layers, opt.get("act", "sin"), seed=seed, dev=dev,
                         ct=opt.get("ct", "residual"))
         same = None
         if opt.get("unfolded"):
@@ -2385,7 +2410,8 @@ def phase_precision_kernels(dev):
             tol = PREC_TOL_BWD_RANDOM
         else:
             tol = PREC_TOL
-        row = {"kernel": name, "N": N, "layers": list(layers), "fold": bool(fold),
+        row = {"kernel": name, "N": N, "layers": list(layers), "act": case.act,
+               "fold": bool(fold),
                "cotangent": opt.get("ct", "residual") if base == "fwdlap_backward" else None,
                "rel": rel, "tol": tol, "rel_to_fp32_kernel": apart,
                "witness_rel_kernel": w_kernel, "witness_rel_plain": w_plain,
@@ -3695,7 +3721,9 @@ def phase_wide_timing(dev):
                 pl = fs.mma_plan(base, layers)
                 row["tiers_device_ms"] = {}
                 tiers = fs.MMA_FWD_TIERS if base == "fwdlap_forward" else fs.MMA_TIERS
-                for T in (pl.T, 32, 48, 64):
+                # the plan's tile (tiles of 32-64 points, measured once in
+                # PR 17, are cut for the run's clock: PERF.md section 4)
+                for T in (pl.T,):
                     for tier, _ in tiers:
                         try:
                             other = fs.mma_plan(base, layers, T=T, tier=tier, blocks=1)
@@ -3729,7 +3757,7 @@ def phase_wide_timing(dev):
 
                 seeded = kind == "multi_seeded"
                 row["tiers_device_ms"] = {}
-                for T in (16, 24, 32):
+                for T in (16,):         # 24 and 32 cut, as above
                     try:
                         other = fm.plan(seeded, layers, case.Kb, T=T, tier="device")
                     except ValueError:
@@ -3741,6 +3769,266 @@ def phase_wide_timing(dev):
             del case
             torch.cuda.empty_cache()
     emit({"phase": "wide_timing", "phase_s": time.time() - t0, "rows": rows})
+    return rows
+
+
+# ------------------------------------------- nets beyond the other kernels' limits (B7)
+# Rows 1, 2, 4, 5 in fp32 take hidden widths above 256, more than 16 weight
+# matrices and d > 16 (the fused residual kernels' and the jet backward's
+# DES_BEYOND variant where the net needs it; the weights in device memory
+# above width 256; row 4's routines as they are).  The nets: (2, 512 x 4,
+# 1), the Poisson path's 512-wide net; a ragged wide one; d = 18 at width
+# 128; (20, 64 x 4, 1), the 20-dimensional path's; 24 weight matrices.
+BEYOND_NETS = {"u512": ((2,) + (512,) * 4 + (1,), "sin"),
+               "w1001": ((1, 1001, 300, 1), "tanh"),
+               "d18": ((18, 128, 128, 1), "gelu"),
+               "d20": ((20,) + (64,) * 4 + (1,), "sin"),
+               "k24": ((2,) + (32,) * 23 + (1,), "tanh")}
+BEYOND_KERNELS = ("fused_linear_residual", "fused_poisson_analytic", "fwdlap_forward",
+                  "fwdlap_backward")
+BEYOND_N = 20000             # the Poisson paths' points
+# no tile of 4 points fits its stages: the rest of ROADMAP.md B7
+BEYOND_NOFIT = (20, 512, 512, 512, 512, 1)
+# the paths through train_poisson_nd (PoissonConfig fields), cut to these
+# epochs: P1 the slice's path at full width, P2 d = 20, P3 24 weight matrices
+BEYOND_PATHS = {
+    "P1": (dict(dim=2, width=512, depth=5), 200,
+           {"fused": ("fused_linear_residual",),
+            "fused_analytic": ("fused_poisson_analytic",),
+            "kernel": ("fwdlap_forward", "fwdlap_backward")}),
+    "P2": (dict(dim=20, width=64, depth=5), 100,
+           {"fused": ("fused_linear_residual",), "kernel": ("fwdlap_forward", "fwdlap_backward")}),
+    "P3": (dict(dim=2, width=64, depth=24), 100, {"fused": ("fused_linear_residual",)}),
+}
+# what the other kernels and modes are refused on a B7 net (each raises
+# naming ROADMAP.md B7)
+BEYOND_REFUSED = (2, 300, 300, 1)
+
+
+# timed: the P1 and P2 nets and P3's (2, 64 x 23, 1)
+BEYOND_TIMED = {"u512": BEYOND_NETS["u512"], "d20": BEYOND_NETS["d20"],
+                "k24": ((2,) + (64,) * 23 + (1,), "sin")}
+
+
+def _beyond_case(kind, net, N, dev, seed):
+    layers, act = net
+    if kind.startswith("fused"):
+        return Case(kind, N, layers[0], layers, act, seed=seed, dev=dev)
+    if kind == "fwdlap_forward":
+        return WanCase(kind, N, layers, act, seed=seed, dev=dev)
+    return EigenCase(kind, N, layers, act, seed=seed, dev=dev)
+
+
+def _leaf_split(flat, layers):
+    """A flat gradient row [dW0, db0, ...] as its leaves."""
+    out, o = [], 0
+    for a, b in zip(layers[:-1], layers[1:]):
+        out += [flat[o:o + a * b], flat[o + a * b:o + a * b + b]]
+        o += a * b + b
+    return out
+
+
+def _max_leaf_rel(got, ref):
+    return max(float(torch.linalg.norm(x.double() - y.double())
+                     / max(float(torch.linalg.norm(y.double())), 1e-300))
+               for x, y in zip(got, ref))
+
+
+def phase_beyond_kernels(dev):
+    """Rows 1, 2, 4, 5 (fp32) on each BEYOND_NETS net at 1007 points and at
+    the paths' 20000, against their float64 plain versions: rows 1, 2 the
+    loss and every gradient leaf, row 5 every gradient leaf, rel <= 1e-5;
+    row 4 every jet column rel <= 1e-5; two launches bitwise equal; each
+    launch's design (DES_BEYOND on the nets that need it) and its plan.
+    Then BEYOND_NOFIT raises NoFit naming ROADMAP.md B7 in each of the four
+    wrappers, and on BEYOND_REFUSED every other kernel and every bf16-dot
+    mode raises naming it too."""
+    from nnpde_tpu_torch.kernels import _cuda, _plan
+    from nnpde_tpu_torch.kernels import fused_multibump as fm
+    from nnpde_tpu_torch.kernels import fused_quotient as fq
+    from nnpde_tpu_torch.kernels import fused_step as fs
+    from nnpde_tpu_torch.kernels import fwdlap_cuda as fc
+
+    t0 = time.time()
+    rows, max_err = [], {}
+    for net, (layers, act) in BEYOND_NETS.items():
+        for i, kind in enumerate(BEYOND_KERNELS):
+            for N in (1007, BEYOND_N):
+                case = _beyond_case(kind, (layers, act), N, dev, seed=700 + i)
+                with _cuda.capture() as cap:
+                    out = case.kernel()
+                out2 = case.kernel()
+                torch.cuda.synchronize()
+                designs = sorted({args[DES_ARG[fn.__name__]] for _, fn, args, _, _ in cap.calls})
+                if kind.startswith("fused"):
+                    (loss, _, g), (loss2, _, g2) = out, out2
+                    got = [loss.reshape(1)] + [t for p in g for t in p]
+                    again = [loss2.reshape(1)] + [t for p in g2 for t in p]
+                    ref_loss, ref_g = case.plain(torch.float64)
+                    ref = [ref_loss.reshape(1)] + [t for p in ref_g for t in p]
+                    rel = _max_leaf_rel(got, ref)
+                elif kind == "fwdlap_forward":
+                    got, again, ref = [out], [out2], [case.plain(torch.float64)]
+                    rel = col_rel(out, ref[0])
+                else:
+                    got, again = _leaf_split(out, layers), _leaf_split(out2, layers)
+                    ref = _leaf_split(case.plain(torch.float64), layers)
+                    rel = _max_leaf_rel(got, ref)
+                bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+                err = max(float(torch.max(torch.abs(a.double() - b.double())))
+                          for a, b in zip(got, ref))
+                max_err[kind] = max(max_err.get(kind, 0.0), err)
+                beyond = kind != "fwdlap_forward" and _cuda.beyond(layers)
+                plan = (pass_a_plan(kind, layers, 0, N, dev) if kind == "fwdlap_forward"
+                        else fused_plan(kind, layers, N, dev))
+                row = {"kernel": kind, "net": net, "N": N, "layers": list(layers), "act": act,
+                       "plan": plan, "designs": designs, "rel": rel, "max_abs_err": err,
+                       "bitwise_repeat": bitwise,
+                       "ok": bool(rel <= 1e-5 and bitwise and len(designs) == 1
+                                  and bool(designs[0] & _cuda.DES_BEYOND) == beyond)}
+                rows.append(row)
+                del case, out, out2, got, again, ref
+                torch.cuda.empty_cache()
+    # what still raises
+    raised = {}
+    rng = np.random.default_rng(710)
+    for name, layers in (("nofit", BEYOND_NOFIT), ("refused", BEYOND_REFUSED)):
+        d, N = layers[0], 64
+        p = rand_params(rng, layers, dev)
+        X = torch.rand(N, d, device=dev)
+        coef = torch.zeros(N, d + 4, device=dev)
+        calls = {"fused_linear_residual": lambda: fs.fused_linear_residual(p, X, coef, "sin"),
+                 "fused_poisson_analytic": lambda: fs.fused_poisson_analytic(
+                     p, X, "sin", L=L, ks=(1,) * d),
+                 "fwdlap_forward": lambda: fc.fwdlap_forward(p, X, "sin"),
+                 "fwdlap_backward": lambda: fc.fwdlap_backward(
+                     p, X, torch.zeros(N, d + 2, device=dev), "sin")}
+        if name == "refused":
+            calls = {
+                "fused_drm_energy": lambda: fs.fused_drm_energy(
+                    p, X, torch.zeros(N, d + 2, device=dev), "sin"),
+                "fwdlap_forward_streams": lambda: fc.fwdlap_forward(p, X, "sin", "streams"),
+                "linear_sums": lambda: fq._launch("linear_sums", p, X,
+                                                  torch.zeros(N, d + 5, device=dev), None,
+                                                  "sin", 0),
+                "multi_seeded": lambda: fm._launch(True, p, X, torch.zeros(N, 4 * (d + 4),
+                                                                           device=dev),
+                                                   torch.zeros(12, device=dev), "sin", 4),
+                "fused_linear_residual.bf16": lambda: fs.fused_linear_residual(
+                    p, X, coef, "sin", dot_dtype="bfloat16"),
+                "fwdlap_forward.bf16": lambda: fc.fwdlap_forward(p, X, "sin", "rows:default"),
+                "fwdlap_backward.bf16": lambda: fc.fwdlap_backward(
+                    p, X, torch.zeros(N, d + 2, device=dev), "sin", "bfloat16")}
+        for kind, call in calls.items():
+            before = dict(_cuda.LAUNCHES)
+            try:
+                call()
+                msg, typ = None, None
+            except ValueError as e:
+                msg, typ = str(e), type(e).__name__
+            raised[f"{name}:{kind}"] = {
+                "raised": typ, "names_b7": bool(msg and _cuda.BEYOND_ITEM in msg),
+                "nofit": typ == _plan.NoFit.__name__, "launched": _cuda.LAUNCHES != before}
+    raised_ok = all(v["names_b7"] and not v["launched"] and (v["nofit"] or k.startswith("ref"))
+                    for k, v in raised.items())
+    ok = all(r["ok"] for r in rows) and raised_ok
+    emit({"phase": "beyond_kernels", "phase_s": time.time() - t0, "tol": 1e-5, "rows": rows,
+          "raised": raised, "raised_ok": raised_ok, "ok": ok})
+    if not ok:
+        raise SystemExit("beyond kernel vs plain comparison failed")
+    return max_err
+
+
+def phase_beyond_path():
+    """BEYOND_PATHS through ``train_poisson_nd`` as users call it (box-FBC,
+    prod-sin RHS, 20000 points, Adam 1e-3, seed 0), each route against the
+    'torch' route's run of the same configuration in this call: the first
+    total within 1e-5 (relative), the final rel_l2 <= max(2 x torch's,
+    1e-3), finite, and each kernel launched exactly once per step.  Returns
+    the four kernels' launches over the paths (``launches_beyond``)."""
+    from nnpde_tpu_torch.kernels import LAUNCHES, reset_launches
+    from nnpde_tpu_torch.problems import PoissonConfig, train_poisson_nd
+
+    t0 = time.time()
+    report, launches, ok = {"phase": "beyond_path"}, dict.fromkeys(BEYOND_KERNELS, 0), True
+    for name, (shape, epochs, routes) in BEYOND_PATHS.items():
+        base = dict(shape, method="PINN", bc_mode="FBC", epochs=epochs, n_interior=BEYOND_N,
+                    chunk=1000)
+        runs = {}
+        for route in ("torch",) + tuple(routes):
+            kw = ({"jet_impl": "fused", "coef_mode": "analytic"} if route == "fused_analytic"
+                  else {"jet_impl": route})
+            reset_launches()
+            t1 = time.time()
+            r = train_poisson_nd(PoissonConfig(**kw, **base))
+            wall = time.time() - t1
+            counts = {k: v for k, v in LAUNCHES.items() if v}
+            runs[route] = (r, counts, wall)
+        ref = runs["torch"][0]
+        rows = {}
+        for route, (r, counts, wall) in runs.items():
+            total0 = float(r["history"]["total"][0])
+            want = {k: epochs for k in routes.get(route, ())}
+            first = abs(total0 - float(ref["history"]["total"][0])) / abs(
+                float(ref["history"]["total"][0]))
+            finite = bool(np.all(np.isfinite(r["history"]["total"])))
+            row = {"epochs": epochs, "rel_l2": r["rel_l2"], "total0": total0,
+                   "total0_rel": first, "launches": counts, "want": want, "wall_s": wall,
+                   "steps_per_s": _rate(r), "finite": finite}
+            row["ok"] = bool(finite and first <= 1e-5 and counts == want
+                             and r["rel_l2"] <= max(2.0 * ref["rel_l2"], 1e-3))
+            ok = ok and row["ok"]
+            for k, n in counts.items():
+                if k in launches:
+                    launches[k] += n
+            rows[route] = row
+        report[name] = {"config": shape, "routes": rows}
+    report["launches_beyond"] = launches
+    report["ok"] = bool(ok and all(launches.values()))
+    report["phase_s"] = time.time() - t0
+    emit(report)
+    if not report["ok"]:
+        raise SystemExit("beyond path check failed")
+    return launches
+
+
+def phase_beyond_timing(dev):
+    """Rows 1, 2, 4, 5 (fp32) on the P1, P2 and P3 nets (BEYOND_TIMED) at
+    20000 and 262144 points: wrapper and device ms, the plan (tier, T,
+    blocks per SM), the bound (max(FLOP / 67 TFLOP/s, bytes / 3.35 TB/s),
+    the table's FLOP rules) and the plain version's ms (None where the
+    plain version's autograd does not fit the card's memory)."""
+    t0 = time.time()
+    rows = []
+    for net, (layers, act) in BEYOND_TIMED.items():
+        for i, kind in enumerate(BEYOND_KERNELS):
+            for N in (BEYOND_N, 262144):
+                big = N > 100000
+                # a launch on u512 at 262144 takes ~0.45 s: two timed calls
+                slow = big and macs(layers) > 200000
+                case = _beyond_case(kind, (layers, act), N, dev, seed=720 + i)
+                ms = time_ms(case.kernel, warmup=1 if slow else 2,
+                             reps=2 if slow else 5 if big else 15)
+                dev_ms = device_ms(case.kernel, launches=3 if slow else 5 if big else 30,
+                                   reps=1 if slow else 3 if big else 5)
+                try:
+                    plain_ms = time_ms(lambda: case.plain(torch.float32), warmup=1,
+                                       reps=2 if slow else 3 if big else 7)
+                except torch.cuda.OutOfMemoryError:
+                    plain_ms = None
+                torch.cuda.empty_cache()
+                flops, nbytes = case.flops(), case.bytes()
+                plan = (pass_a_plan(kind, layers, 0, N, dev) if kind == "fwdlap_forward"
+                        else fused_plan(kind, layers, N, dev))
+                rows.append({"kernel": kind, "net": net, "d": layers[0], "N": N, "plan": plan,
+                             "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                             "bound_ms": 1e3 * max(flops / FP32_PEAK, nbytes / HBM_RATE),
+                             "bound_by": ("operations" if flops / FP32_PEAK
+                                          >= nbytes / HBM_RATE else "bytes"),
+                             "flop": flops, "bytes": nbytes})
+                del case
+                torch.cuda.empty_cache()
+    emit({"phase": "beyond_timing", "phase_s": time.time() - t0, "rows": rows})
     return rows
 
 
@@ -3961,7 +4249,7 @@ E1_KERNELS = ("fused_linear_residual", "fwdlap_forward", "fwdlap_backward", "lin
 E1_WIDE = (1, 130, 256, 1)     # a ragged wide net: a layer of 130 (padded to 132) and 256
 # the Adam paths' epochs, cut (PERF.md section 4) so that the group's training
 # stays near 150 s beside the two full-length L-BFGS rows
-E1_EPOCHS = 200                # of 3000 (ipw1d) and 10000 (qho1d)
+E1_EPOCHS = 100                # of 3000 (ipw1d) and 10000 (qho1d); 200 to PR 19
 E1_WAN_EPOCHS = 80             # of 3000 (ipw1d WAN) and 30000 (qho1d WAN)
 # of the L-BFGS rows' 3000 iterations: run to 3000 on an H100,
 # qho1d_n2_pinn_fn_lbfgs had its best at iteration 831 and
@@ -4371,12 +4659,13 @@ KH_ACC = dict(layers=KH_NETS["u100"], train_n=KH_N, lambda_pde=10.0, lambda_data
               lambda_norm=10.0, data_fraction=0.5, max_data_points=500, lambda_parity=1e4)
 # the paths' epochs, cut (never the widths) so that both groups add about
 # 150 s to the whole run
-Q2_EPOCHS = 300               # of 10000 (QHO2DConfig) and 50000 (the paper sweep)
-Q2_DRM_EPOCHS = 300
-Q2_WAN_EPOCHS = 150
-KH_EPOCHS = 300               # of 10000 (kh1d_alpha10_pinn)
-KH_DRM_EPOCHS = 300           # of 5000 (kh1d_alpha10_*_dense)
-KH_WAN_EPOCHS = 200
+# cut from 300 / 300 / 150 and 300 / 300 / 200 in PR 20 for the run's clock
+Q2_EPOCHS = 150               # of 10000 (QHO2DConfig) and 50000 (the paper sweep)
+Q2_DRM_EPOCHS = 150
+Q2_WAN_EPOCHS = 100
+KH_EPOCHS = 150               # of 10000 (kh1d_alpha10_pinn)
+KH_DRM_EPOCHS = 150           # of 5000 (kh1d_alpha10_*_dense)
+KH_WAN_EPOCHS = 100
 
 
 def elane_case(net, N, seed, dev):
@@ -5721,7 +6010,8 @@ def phase_probe():
 
 
 GROUPS = ("kernels", "wan", "main", "eigen", "ipw3d", "neumann", "eigen1d", "qho2d", "kh",
-          "subspace", "floquet", "cli", "parallel", "probe", "timing", "precision", "wide")
+          "subspace", "floquet", "cli", "parallel", "probe", "timing", "precision", "wide",
+          "beyond")
 # groups that run only when named
 NAMED = ("sweep", "mma_sweep", "mma_depth", "devw_sweep", "full", "subspace_full",
          "floquet_full", "subspace_seeds")
@@ -5840,6 +6130,12 @@ def main():
             max_err[kind] = max(max_err.get(kind, 0.0), err)
         wide_launches = phase_wide_path()
         phase_wide_timing(dev)
+    beyond_launches = {}
+    if "beyond" in want:
+        for kind, err in phase_beyond_kernels(dev).items():
+            max_err[kind] = max(max_err.get(kind, 0.0), err)
+        beyond_launches = phase_beyond_path()
+        phase_beyond_timing(dev)
     rows = wan_rows = eigen_rows = prec_rows = b1_rows = []
     if "timing" in want:
         rows = phase_timing(dev, only)
@@ -5917,11 +6213,17 @@ def main():
     for k in kernels:
         if k["name"] in wide_launches:
             k["launches_wide"] = wide_launches[k["name"]]
+    # and of the paths beyond the other kernels' limits (phase beyond_path)
+    for k in kernels:
+        if k["name"] in beyond_launches:
+            k["launches_beyond"] = beyond_launches[k["name"]]
     if len(kernels) != 23 or not all(k["launches"] > 0 for k in kernels):
         raise SystemExit("a kernel of the paths was launched no time on its path")
     if set(wide_launches) != set(PRECISION_REPLACES) | {"multi_sums", "multi_seeded"} or not all(
             wide_launches.values()):
         raise SystemExit("a kernel of the width-200 paths was launched no time there")
+    if set(beyond_launches) != set(BEYOND_KERNELS) or not all(beyond_launches.values()):
+        raise SystemExit("a kernel of the paths beyond the limits was launched no time there")
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

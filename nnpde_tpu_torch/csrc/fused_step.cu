@@ -24,7 +24,11 @@
 //     kernels: the launch plan of kernels/_plan.py at two blocks per SM,
 //     the hidden weights' transposes read from device memory, dW items dealt
 //     4 x 8 to a warp, and two-point items where their one-wave tile fits
-//     (fwdlap_planned.cuh has the design and what it is for);
+//     (fwdlap_planned.cuh has the design and what it is for); the linear and
+//     analytic kernels also take nets beyond the other kernels' limits (a
+//     hidden width above NT, d above CORE_DIM: DES_BEYOND, whose loss terms
+//     keep no per-point arrays; more than CORE_LAYERS weight matrices in
+//     any design; ROADMAP.md B7);
 //   * the tensor-core design (body<KIND_FUSED> of fwdlap_mma.cuh, DES_MMA) --
 //     the bf16-dot mode of the three kernels (the TPU kernels'
 //     dot_dtype='bfloat16', which the bulk of compute_dtype='hybrid-kernel'
@@ -81,10 +85,12 @@ __host__ __device__ inline int fused_smem_floats(const Net& net, int T, int flag
 
 // In-kernel coefficients of r = a0*lap(B*net) - f for B = prod x_i (L - x_i)
 // (_poisson_sin_coef_builder): a = a0*B, b_i = 2*a0*dB_i, c = a0*lapB.
+// d <= CORE_DIM (the per-thread arrays); DES_BEYOND takes sin_coef_scalars
+// and sin_coef_b.
 __device__ __forceinline__ void poisson_sin_coef(const Analytic& an, int d,
                                                  const float* x, float& c,
                                                  float* b, float& a, float& rhs) {
-  float gi[MAX_DIM];
+  float gi[CORE_DIM];
   float B = 1.f, s = 1.f;
   for (int i = 0; i < d; ++i) {
     gi[i] = x[i] * (an.L - x[i]);
@@ -104,66 +110,135 @@ __device__ __forceinline__ void poisson_sin_coef(const Analytic& an, int d,
   rhs = -(an.fscale * s);
 }
 
+// poisson_sin_coef without per-thread arrays, for any d (DES_BEYOND): the
+// factors x_j (L - x_j) recomputed from x where they are needed, each
+// product over j != i in the order of poisson_sin_coef.  This one gives c,
+// a and rhs; sin_coef_b gives b_i.
+__device__ __forceinline__ float sin_coef_pe(const Analytic& an, int d, const float* x,
+                                             int i) {
+  float pe = 1.f;
+  for (int j = 0; j < d; ++j)
+    if (j != i) pe *= x[j] * (an.L - x[j]);
+  return pe;
+}
+__device__ __forceinline__ void sin_coef_scalars(const Analytic& an, int d, const float* x,
+                                                 float& c, float& a, float& rhs) {
+  float B = 1.f, s = 1.f;
+  for (int i = 0; i < d; ++i) {
+    B *= x[i] * (an.L - x[i]);
+    s *= sinf(an.kpi[i] * x[i]);
+  }
+  float lapB = 0.f;
+  for (int i = 0; i < d; ++i) lapB += -2.f * sin_coef_pe(an, d, x, i);
+  a = an.a0 * B;
+  c = an.a0 * lapB;
+  rhs = -(an.fscale * s);
+}
+__device__ __forceinline__ float sin_coef_b(const Analytic& an, int d, const float* x, int i) {
+  return 2.f * an.a0 * ((an.L - 2.f * x[i]) * sin_coef_pe(an, d, x, i));
+}
+
 // The per-point loss terms and cotangent seeds of a tile from its projected
 // streams (proj), and the tile's three sums added to the block's row.
-template <int MODE>
+// BEYOND (the DES_BEYOND variant, any d): no per-point arrays; the
+// coefficients b_i and the gradient streams are read (or built) again where
+// they are needed, with the same arithmetic in the same order.
+template <int MODE, bool BEYOND = false>
 __device__ __forceinline__ void point_terms(const Args& A, int T, int base, const float* proj,
                                             const float* xs, float* ct, float* ps,
                                             float* grow) {
   const Net& net = A.net;
   const int d = net.d;
   // per-point loss terms and cotangent seeds
-  for (int p = threadIdx.x; p < T; p += NT) {
-    const bool valid = base + p < A.N;
-    float g[MAX_DIM];
-    const float value = proj[p];
-    for (int i = 0; i < d; ++i) g[i] = proj[(1 + i) * T + p];
-    const float lapv = net.lap ? proj[(d + 1) * T + p] : 0.f;
-
-    float s0 = 0.f, s1 = 0.f, s2 = 0.f, ctv = 0.f, ctl = 0.f;
-    if (MODE == MODE_DRM) {
-      const float* cf = A.coef + (size_t)(base + p) * (d + 2);
-      const float B = valid ? cf[0] : 0.f;
-      const float f = valid ? cf[d + 1] : 0.f;
-      float e = 0.f;
-      for (int i = 0; i < d; ++i) {
-        const float dB = valid ? cf[1 + i] : 0.f;
-        const float G = B * g[i] + dB * value;
-        e += 0.5f * G * G;
-        ctv += G * dB;
-        ct[(1 + i) * T + p] = G * B;
-      }
-      e -= f * B * value;
-      ctv -= f * B;
-      s0 = e;
-      s1 = ctv;
-    } else {
-      float c, a, rhs, e = 0.f, bb[MAX_DIM];
+  static_assert(MODE != MODE_DRM || !BEYOND, "the DRM kernel has no DES_BEYOND variant");
+  if constexpr (BEYOND) {
+    for (int p = threadIdx.x; p < T; p += NT) {
+      const bool valid = base + p < A.N;
+      const float value = proj[p];
+      const float lapv = proj[(d + 1) * T + p];
+      const float* cf =
+          MODE == MODE_LINEAR ? A.coef + (size_t)(base + p) * (d + 4) : nullptr;
+      const float* x = xs + p * d;
+      float c, a, rhs, e = 0.f;
       if (MODE == MODE_LINEAR) {
-        const float* cf = A.coef + (size_t)(base + p) * (d + 4);
         c = valid ? cf[0] : 0.f;
-        for (int i = 0; i < d; ++i) bb[i] = valid ? cf[1 + i] : 0.f;
         a = valid ? cf[d + 1] : 0.f;
         rhs = valid ? cf[d + 2] : 0.f;
         e = valid ? cf[d + 3] : 0.f;
       } else {
-        poisson_sin_coef(A.an, d, xs + p * d, c, bb, a, rhs);
+        sin_coef_scalars(A.an, d, x, c, a, rhs);
       }
       float r = c * value + a * lapv + rhs;
-      for (int i = 0; i < d; ++i) r += bb[i] * g[i];
+      for (int i = 0; i < d; ++i) {
+        const float bi =
+            MODE == MODE_LINEAR ? (valid ? cf[1 + i] : 0.f) : sin_coef_b(A.an, d, x, i);
+        r += bi * proj[(1 + i) * T + p];
+      }
       if (!valid) r = 0.f;
-      s0 = r * r;
-      s1 = r * c;
-      s2 = r * e * value;
-      ctv = r * c;
-      ctl = r * a;
-      for (int i = 0; i < d; ++i) ct[(1 + i) * T + p] = r * bb[i];
+      for (int i = 0; i < d; ++i) {
+        const float bi =
+            MODE == MODE_LINEAR ? (valid ? cf[1 + i] : 0.f) : sin_coef_b(A.an, d, x, i);
+        ct[(1 + i) * T + p] = r * bi;
+      }
+      ct[p] = r * c;
+      ct[(d + 1) * T + p] = r * a;
+      ps[p] = r * r;
+      ps[T + p] = r * c;
+      ps[2 * T + p] = r * e * value;
     }
-    ct[p] = ctv;
-    ct[(d + 1) * T + p] = ctl;
-    ps[p] = s0;
-    ps[T + p] = s1;
-    ps[2 * T + p] = s2;
+  } else {
+    for (int p = threadIdx.x; p < T; p += NT) {
+      const bool valid = base + p < A.N;
+      float g[CORE_DIM];
+      const float value = proj[p];
+      for (int i = 0; i < d; ++i) g[i] = proj[(1 + i) * T + p];
+      const float lapv = net.lap ? proj[(d + 1) * T + p] : 0.f;
+
+      float s0 = 0.f, s1 = 0.f, s2 = 0.f, ctv = 0.f, ctl = 0.f;
+      if (MODE == MODE_DRM) {
+        const float* cf = A.coef + (size_t)(base + p) * (d + 2);
+        const float B = valid ? cf[0] : 0.f;
+        const float f = valid ? cf[d + 1] : 0.f;
+        float e = 0.f;
+        for (int i = 0; i < d; ++i) {
+          const float dB = valid ? cf[1 + i] : 0.f;
+          const float G = B * g[i] + dB * value;
+          e += 0.5f * G * G;
+          ctv += G * dB;
+          ct[(1 + i) * T + p] = G * B;
+        }
+        e -= f * B * value;
+        ctv -= f * B;
+        s0 = e;
+        s1 = ctv;
+      } else {
+        float c, a, rhs, e = 0.f, bb[CORE_DIM];
+        if (MODE == MODE_LINEAR) {
+          const float* cf = A.coef + (size_t)(base + p) * (d + 4);
+          c = valid ? cf[0] : 0.f;
+          for (int i = 0; i < d; ++i) bb[i] = valid ? cf[1 + i] : 0.f;
+          a = valid ? cf[d + 1] : 0.f;
+          rhs = valid ? cf[d + 2] : 0.f;
+          e = valid ? cf[d + 3] : 0.f;
+        } else {
+          poisson_sin_coef(A.an, d, xs + p * d, c, bb, a, rhs);
+        }
+        float r = c * value + a * lapv + rhs;
+        for (int i = 0; i < d; ++i) r += bb[i] * g[i];
+        if (!valid) r = 0.f;
+        s0 = r * r;
+        s1 = r * c;
+        s2 = r * e * value;
+        ctv = r * c;
+        ctl = r * a;
+        for (int i = 0; i < d; ++i) ct[(1 + i) * T + p] = r * bb[i];
+      }
+      ct[p] = ctv;
+      ct[(d + 1) * T + p] = ctl;
+      ps[p] = s0;
+      ps[T + p] = s1;
+      ps[2 * T + p] = s2;
+    }
   }
   __syncthreads();
   // the tile's three sums by warp 0: lane l adds points l, l + 32, ... in
@@ -251,7 +326,7 @@ __device__ void fused_body_p(const PArgs& A) {
     fwd_recompute_p<FOLD, DES>(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch, res);
     project_last(net, T, cur, wlast, blast, proj);
     __syncthreads();
-    point_terms<MODE>(A, T, base, proj, xs, ct, ps, grow);
+    point_terms<MODE, (DES & DES_BEYOND) != 0>(A, T, base, proj, xs, ct, ps, grow);
     reverse_sweep_p<FOLD, DES>(net, T, xs, A.params, A.wt, cur, nxt, bufC, Wsh, scratch, ct,
                                red, grow, res);
   }
@@ -340,6 +415,14 @@ PKernelFn planned_by(int des) {
     case DES_PLANNED | DES_DEVW:
       if constexpr (FOLD) return nullptr;
       else return planned_of<MODE, false, DES_PLANNED | DES_DEVW>();
+    // the nets beyond the other kernels' limits (beyond_net): no fold, no
+    // DRM energy
+    case DES_PLANNED | DES_BEYOND:
+      if constexpr (FOLD || MODE == MODE_DRM) return nullptr;
+      else return planned_of<MODE, false, DES_PLANNED | DES_BEYOND>();
+    case DES_PLANNED | DES_DEVW | DES_BEYOND:
+      if constexpr (FOLD || MODE == MODE_DRM) return nullptr;
+      else return planned_of<MODE, false, DES_PLANNED | DES_DEVW | DES_BEYOND>();
     default: return nullptr;
   }
 }
@@ -384,7 +467,11 @@ int launch(int mode, const float* X, const float* coef, const float* params,
            float* scratch, float* out, int smem_bytes, void* stream) {
   PArgs a;
   const void* fn = variant_fn(mode, fold, bf16, des);
-  bool ok = fn != nullptr && make_net(mode == MODE_DRM ? 0 : 1, layers, n_layers, act, &a.net) &&
+  // the linear and analytic kernels' fp32 designs take the nets beyond the
+  // other kernels' limits, in their DES_BEYOND variant (beyond_net)
+  const bool beyond = !bf16 && mode != MODE_DRM;
+  bool ok = fn != nullptr &&
+            make_net(mode == MODE_DRM ? 0 : 1, layers, n_layers, act, &a.net, beyond) &&
             N >= 1 && G >= 1;
   if (ok && (des & DES_MMA)) {
     mma::Geo g;
@@ -398,6 +485,7 @@ int launch(int mode, const float* X, const float* coef, const float* params,
          !((flags & DEV_WEIGHTS) && (flags & RES_WEIGHTS)) &&
          T >= 4 && T % 4 == 0 && T <= NT / 2 && !(fold && a.net.S > 4) &&
          !(a.net.K > 2 && (scratch == nullptr || wt == nullptr)) &&
+         ((des & DES_BEYOND) != 0) == beyond_net(a.net) &&
          4 * fused_smem_floats(a.net, T, flags) <= smem_bytes;
   }
   if (!ok) return (int)cudaErrorInvalidValue;
@@ -499,7 +587,7 @@ int fused_blocks_per_sm(int mode, int fold, int bf16, int des, int smem_bytes, i
 int fused_smem_bytes(int mode, const int* layers, int n_layers, int T, int flags) {
   Net net;
   if (mode < MODE_LINEAR || mode > MODE_DRM ||
-      !make_net(mode == MODE_DRM ? 0 : 1, layers, n_layers, 0, &net))
+      !make_net(mode == MODE_DRM ? 0 : 1, layers, n_layers, 0, &net, mode != MODE_DRM))
     return -1;
   return 4 * fused_smem_floats(net, T, flags);
 }

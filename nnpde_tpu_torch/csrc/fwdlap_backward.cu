@@ -18,7 +18,11 @@
 // shared-memory product per layer over all d+2 streams, cp.async for
 // weights and saved stages) in the planned design of fwdlap_planned.cuh
 // (the launch plan at two blocks per SM, W^T from device memory, two-point
-// items where their one-wave tile fits).
+// items where their one-wave tile fits).  Its fp32 designs take nets beyond
+// the other kernels' limits: more than CORE_LAYERS weight matrices and d
+// above CORE_DIM as they are, a hidden width above NT in the DES_BEYOND
+// variant (the last layer's dW split), the weights from device memory
+// (ROADMAP.md B7).
 //
 // The bf16-dot mode (fwdlap_backward_mma) is the TPU kernel's
 // dot_dtype='bfloat16' (the backward of the bulk of
@@ -157,6 +161,13 @@ PBwdKernelFn planned_by(int des) {
     case DES_PLANNED | DES_DEVW:
       if constexpr (FOLD) return nullptr;
       else return fwdlap_backward_planned<false, DES_PLANNED | DES_DEVW>;
+    // the nets beyond the other kernels' limits (beyond_net), no fold
+    case DES_PLANNED | DES_BEYOND:
+      if constexpr (FOLD) return nullptr;
+      else return fwdlap_backward_planned<false, DES_PLANNED | DES_BEYOND>;
+    case DES_PLANNED | DES_DEVW | DES_BEYOND:
+      if constexpr (FOLD) return nullptr;
+      else return fwdlap_backward_planned<false, DES_PLANNED | DES_DEVW | DES_BEYOND>;
     default: return nullptr;
   }
 }
@@ -205,7 +216,10 @@ int fwdlap_backward_f32(const float* X, const float* ct, const float* params,
                         float* scratch, float* out, int smem_bytes, void* stream) {
   PBwdArgs a;
   const void* fn = bwd_variant_fn(fold, bf16, des);
-  bool ok = fn != nullptr && make_net(1, layers, n_layers, act, &a.net) && N >= 1 && G >= 1;
+  // the fp32 designs take the nets beyond the other kernels' limits, in
+  // their DES_BEYOND variant (beyond_net)
+  bool ok = fn != nullptr && make_net(1, layers, n_layers, act, &a.net, bf16 == 0) && N >= 1 &&
+            G >= 1;
   const bool mma_des = bf16 != 0;     // (bwd_variant_fn took it: DES_MMA, maybe DES_WIDE)
   if (ok && mma_des) {
     mma::Geo g;
@@ -217,6 +231,7 @@ int fwdlap_backward_f32(const float* X, const float* ct, const float* params,
          !((flags & DEV_WEIGHTS) && (flags & RES_WEIGHTS)) &&
          T >= 4 && T % 4 == 0 && T <= NT / 2 && !(fold && a.net.S > 4) &&
          !(a.net.K > 2 && (scratch == nullptr || wt == nullptr)) &&
+         ((des & DES_BEYOND) != 0) == beyond_net(a.net) &&
          4 * bwd_smem_floats(a.net, T, flags) <= smem_bytes;
   }
   if (!ok) return (int)cudaErrorInvalidValue;
@@ -269,7 +284,7 @@ int fwdlap_backward_blocks_per_sm(int fold, int bf16, int des, int smem_bytes, i
 // net it does not take.
 int fwdlap_backward_smem_bytes(const int* layers, int n_layers, int T, int flags) {
   Net net;
-  if (!make_net(1, layers, n_layers, 0, &net)) return -1;
+  if (!make_net(1, layers, n_layers, 0, &net, true)) return -1;
   return 4 * bwd_smem_floats(net, T, flags);
 }
 

@@ -12,10 +12,18 @@
 // Every linear layer is then one (S*T, w_in) x (w_in, w_out) product over
 // all streams at once (the TPU kernels' concat_streams form).
 //
-// Widths.  Any hidden width from 1 to MAX_WIDTH (= NT) is taken: the
-// elementwise walks (UnitWalk), the last layer's dW split (NT / width
-// threads per column) and Net::ntq need NT / width >= 1; what a wide net
-// costs is shared memory (the launch plans, kernels/_plan.py).  Device memory
+// Widths.  Every kernel takes hidden widths from 1 to NT; the fused
+// residual kernels and the jet pair (fused_step.cu's linear and analytic
+// kernels, fwdlap_forward.cu's rows, fwdlap_backward.cu) also take wider,
+// deeper and higher-dimensional nets, to MAX_WIDTH, MAX_LAYERS weight
+// matrices and d = MAX_DIM (make_net's `beyond`; the others keep CORE_*).
+// The elementwise walks (UnitWalk) step NT entries at a time and wrap once
+// per step at any width (Net::ntq = NT / width is 0 above NT); the last
+// layer's dW split (NT / width threads per column) is the one routine that
+// needs NT / width >= 1, and the planned kernels' variant for such nets
+// (fwdlap_planned.cuh, DES_BEYOND) sums columns j, j + NT, ... one thread
+// each.  What a wide net costs is shared memory (the launch plans,
+// kernels/_plan.py; above NT only the weights in device memory fit).  Device memory
 // keeps the true sizes (net.w: the parameter vector, the gradient rows);
 // shared memory holds every hidden layer rounded up to a multiple of 4
 // (net.wp, and wmax is the widest rounded width), the extra rows and
@@ -85,9 +93,16 @@
 namespace fwdlap {
 
 constexpr int NT = 256;          // threads per block
-constexpr int MAX_LAYERS = 16;   // weight matrices
-constexpr int MAX_DIM = 16;      // input dimension
-constexpr int MAX_WIDTH = NT;    // hidden width (header note)
+constexpr int MAX_LAYERS = 64;   // weight matrices (the Net's table)
+constexpr int MAX_DIM = 64;      // input dimension
+// Hidden width: above ~1600 no tile of 4 points fits shared memory in any
+// fp32 kernel, and the cap keeps the layouts' int arithmetic in range.
+constexpr int MAX_WIDTH = 4096;
+// What the kernels other than the fused residual ones and the jet pair take
+// (make_net without `beyond`; header note), and the size of the per-thread
+// arrays of the fused kernels' loss terms (fused_step.cu) below DES_BEYOND.
+constexpr int CORE_LAYERS = 16;
+constexpr int CORE_DIM = 16;
 
 enum Act { ACT_SIN = 0, ACT_TANH = 1, ACT_GELU = 2 };
 
@@ -986,13 +1001,18 @@ __device__ inline void reverse_sweep(const Net& net, int T, const float* __restr
 
 // The network description from its layer sizes (host side): false when
 // the kernels do not take the shape.  `lap`: carry the Laplacian stream.
-inline bool make_net(int lap, const int* layers, int n_layers, int act, Net* net) {
+// `beyond`: the limits of the fused residual kernels and the jet pair
+// (MAX_*), else the other kernels' (CORE_*, widths to NT).
+inline bool make_net(int lap, const int* layers, int n_layers, int act, Net* net,
+                     bool beyond = false) {
   const int K = n_layers - 1;
-  if (K < 2 || K > MAX_LAYERS || act < 0 || act > 2) return false;
+  const int max_k = beyond ? MAX_LAYERS : CORE_LAYERS, max_d = beyond ? MAX_DIM : CORE_DIM;
+  const int max_w = beyond ? MAX_WIDTH : NT;
+  if (K < 2 || K > max_k || act < 0 || act > 2) return false;
   net->K = K;
   net->act = act;
   net->d = layers[0];
-  if (net->d < 1 || net->d > MAX_DIM || layers[K] != 1) return false;
+  if (net->d < 1 || net->d > max_d || layers[K] != 1) return false;
   net->lap = lap;
   net->S = net->d + 1 + net->lap;
   net->wmax = 0;
@@ -1008,12 +1028,19 @@ inline bool make_net(int lap, const int* layers, int n_layers, int act, Net* net
     off += layers[k] * layers[k + 1] + layers[k + 1];
   }
   for (int k = 1; k < K; ++k) {
-    if (layers[k] < 1 || layers[k] > MAX_WIDTH) return false;
+    if (layers[k] < 1 || layers[k] > max_w) return false;
     if (layers[k] % 4 != 0) net->aligned = 0;
     if (net->wp[k] > net->wmax) net->wmax = net->wp[k];
   }
   net->P = off;
   return true;
+}
+
+// Whether a net needs the planned kernels' DES_BEYOND variant: a hidden
+// width above NT (the last layer's dW split) or d above CORE_DIM (the fused
+// kernels' per-thread arrays).
+__host__ __device__ inline bool beyond_net(const Net& net) {
+  return net.wmax > NT || net.d > CORE_DIM;
 }
 
 }  // namespace fwdlap

@@ -32,6 +32,10 @@
 //     plan's share, else staged per layer per tile by cp.async (W_1 while the
 //     input layer runs).  A second staging buffer, each W_{k+1} copied while
 //     product k ran, was built and measured no faster (PERF.md, section 6).
+// The row layout's fp32 designs take nets beyond the other kernels' limits
+// (widths above NT with the weights from device memory, up to MAX_LAYERS
+// weight matrices, d up to MAX_DIM: ROADMAP.md B7) with their routines as
+// they are.
 // The two layouts differ only in the write: project_last leaves the jet
 // stream-major in shared memory, proj[s * T + p], so the row layout writes
 // each point's d+2 floats and the stream-major one each stream's run.
@@ -43,8 +47,10 @@
 // fwdlap_mma.cuh (DES_MMA; body<KIND_FWD>: the fused kernels' forward half
 // with nothing saved, the projection partials from the last stage's
 // epilogue), the Jacobian seed rows and the projection on the last layer's
-// row in fp32; its register budget is stated at the blocks per SM its plan
-// counts on (MINB = 3 or 2).  The stream-major layout has no such mode
+// row in fp32, and the products before the last on the CUDA cores in fp32
+// (fwdlap_mma.cuh, f32_products: the tensor cores' sums cut toward zero,
+// and their stages' bf16 roundings flipped); its register budget is stated
+// at the blocks per SM its plan counts on (MINB = 3 or 2).  The stream-major layout has no such mode
 // (_forward_kernel runs HIGHEST).
 //
 // Interface: plain C (ctypes), float32 only, weights flattened as
@@ -217,7 +223,10 @@ int fwdlap_forward_f32(int streams, const float* X, const float* params,
   FwdArgs a;
   const void* fn = fwd_variant_fn(streams, fold, bf16, des, minb);
   const bool devw = (des & DES_DEVW) != 0;
-  bool ok = fn != nullptr && make_net(1, layers, n_layers, act, &a.net) && N >= 1 && G >= 1;
+  // the row layout's fp32 designs take the nets beyond the other kernels'
+  // limits (their routines take any width, depth and d as they are)
+  bool ok = fn != nullptr && make_net(1, layers, n_layers, act, &a.net, !bf16 && !streams) &&
+            N >= 1 && G >= 1;
   if (ok && bf16) {      // (fwd_variant_fn took des: DES_MMA, maybe DES_WIDE)
     mma::Geo g;
     ok = mma::flags_ok(flags, mma::KIND_FWD) && mma::make_geo(a.net, T, &g) &&
@@ -273,10 +282,10 @@ int fwdlap_forward_blocks_per_sm(int streams, int fold, int bf16, int des, int m
 }
 
 // The shared-memory bytes the planned kernels (either layout) lay out for
-// (T, flags), or -1 for a net they do not take.
+// (T, flags), or -1 for a net the row layout does not take.
 int fwdlap_forward_smem_bytes(const int* layers, int n_layers, int T, int flags) {
   Net net;
-  if (!make_net(1, layers, n_layers, 0, &net)) return -1;
+  if (!make_net(1, layers, n_layers, 0, &net, true)) return -1;
   return 4 * fwd_smem_floats(net, T, flags);
 }
 

@@ -99,7 +99,12 @@
 // version on the net with its hidden units permuted (the same roundings,
 // every sum in another order) are 4e-5 to 5e-4 apart in dW0, and the
 // float64 witness is 1e-4 to 2e-4 from either, as far as this design is
-// (chip_smoke.py mma_depth; PERF.md).
+// (chip_smoke.py mma_depth; PERF.md).  The tensor cores' sum of a half
+// k-step is the exact sum cut toward zero, not rounded (mma_bf16,
+// f32_products): a stage's entries lean toward zero and so do their flips.
+// Where that showed beyond the plain version's own distance from float64
+// (the jet forward's value column), the products before the last run on the
+// CUDA cores in fp32 (f32_products).
 //
 // Determinism: every dW/db entry and column sum is owned by one thread (or a
 // fixed shuffle tree) and summed in tile order; no atomics.
@@ -199,11 +204,27 @@ __host__ __device__ inline bool make_geo(const Net& net, int T, Geo* g) {
 // with pass A take the general overloads: folded into one, the former's
 // kernels moved by 1-3 registers and the jet forward's wide variant spilled
 // (tools/compare_ptxas.py; PERF.md).
+//
+// make_geo's body without its check of the Laplacian stream, written out
+// rather than called on a copy of the Net with lap set: such a copy is a
+// local array of the whole layer table in every kernel of these kinds.
 __host__ __device__ inline bool make_geo(const Net& net, int T, Geo* g, bool lap) {
   if (lap != (net.lap != 0)) return false;
-  Net n = net;
-  n.lap = 1;
-  return make_geo(n, T, g);
+  if (!(T == 8 || (T >= 16 && T % 16 == 0 && T <= NT / 2))) return false;
+  int wt = 0;
+  for (int k = 1; k < net.K; ++k) wt = net.w[k] > wt ? net.w[k] : wt;
+  g->T = T;
+  g->S = net.S;
+  g->t8 = T == 8;
+  g->Sp = g->t8 ? (net.S + 1) & ~1 : net.S;
+  g->NU = g->t8 ? g->Sp / 2 : net.S;
+  g->NPB = g->t8 ? 1 : T / 16;
+  g->ST = g->Sp * T;
+  g->ldb = kp16(wt) + 8;
+  g->wq = np8(wt);
+  g->nbmax = g->wq / 8;
+  g->nblk = g->NPB * g->nbmax;
+  return wt <= MMA_MAX_WIDTH;
 }
 
 // W_k (k = 1..K-2) in shared memory: kp16(w_k) rows of ldw(k) bf16.
@@ -708,11 +729,80 @@ __device__ void fwd_input(const Net& net, const Geo& g, const float* __restrict_
   }
 }
 
+// The jet forward's products before its last, on the CUDA cores: c[i] =
+// the rows of stream tile u0 + i (i < nu) of the bf16 stage B times W_k
+// over nks k-steps, every entry an fp32 FMA chain in k order (each product
+// of two bf16 values exact, each addition rounded to nearest), in the
+// fragment layout of mma_bf16's accumulator (rows g, g + 8 of the tile at
+// columns n0 + 2t, 2t + 1).  The tensor cores' sum of a half k-step is the
+// exact sum cut toward zero (tools/fwd_bf16_columns.py --probe: 99.9% of
+// such sums on activation-like operands, up to 2048 ulps of the result
+// where the products cancel), so their stage entries sit a little nearer
+// zero than the plain version's rounded sums; the bf16 rounding of the next
+// stage turns that into flips toward zero, and the jet's value column
+// carried them: 7.7x its plain version's distance from float64 on (1, 100
+// x 3, 1) tanh, the plain version's with these products on the CUDA cores
+// (the last product's accumulation, unrounded into the fp32 projection,
+// moved nothing; PERF.md).  The weights of a k-step come as the tensor
+// cores' B fragment (frag_fwd: shared or device memory, rounded as there)
+// and go to the lanes that need them by shuffles, once for the chunk of
+// stream tiles; the stage rows are read 8 bf16 at a time.
+template <int U>
+__device__ __forceinline__ void f32_products(float (&c)[U][4], const __nv_bfloat16* B,
+                                             const Geo& g, int pb, int u0, int nu, int nks,
+                                             const WSrc& w, int n0) {
+  const int lane = threadIdx.x & 31, gr = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < U; ++i) c[i][0] = c[i][1] = c[i][2] = c[i][3] = 0.f;
+#pragma unroll 1
+  for (int ks = 0; ks < nks; ++ks) {
+    uint32_t bf[2];
+    frag_fwd(bf, w, ks, n0);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // W[k][n0 + 2t] and W[k][n0 + 2t + 1] for k = 16 ks + 8 h + 0..7: the
+      // lanes 4 c + t' hold column n0 + c at k = 2t', 2t' + 1
+      float w0[8], w1[8];
+#pragma unroll
+      for (int tt = 0; tt < 4; ++tt) {
+        const uint32_t q0 = __shfl_sync(0xffffffffu, bf[h], 8 * t + tt);
+        const uint32_t q1 = __shfl_sync(0xffffffffu, bf[h], 8 * t + 4 + tt);
+        w0[2 * tt] = __uint_as_float(q0 << 16);
+        w0[2 * tt + 1] = __uint_as_float(q0 & 0xFFFF0000u);
+        w1[2 * tt] = __uint_as_float(q1 << 16);
+        w1[2 * tt + 1] = __uint_as_float(q1 & 0xFFFF0000u);
+      }
+#pragma unroll
+      for (int i = 0; i < U; ++i) {
+        if (i < nu) {
+          const __nv_bfloat16* r0 =
+              B + (tile_row(g, pb, u0 + i) + gr) * g.ldb + ks * 16 + 8 * h;
+          const uint4 x0 = *reinterpret_cast<const uint4*>(r0);
+          const uint4 x1 = *reinterpret_cast<const uint4*>(r0 + 8 * g.ldb);
+          const uint32_t a0[4] = {x0.x, x0.y, x0.z, x0.w}, a1[4] = {x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+          for (int kk = 0; kk < 8; ++kk) {
+            const uint32_t h0 = a0[kk >> 1], h1 = a1[kk >> 1];
+            const float v0 = __uint_as_float(kk & 1 ? h0 & 0xFFFF0000u : h0 << 16);
+            const float v1 = __uint_as_float(kk & 1 ? h1 & 0xFFFF0000u : h1 << 16);
+            c[i][0] = fmaf(v0, w0[kk], c[i][0]);
+            c[i][1] = fmaf(v0, w1[kk], c[i][1]);
+            c[i][2] = fmaf(v1, w0[kk], c[i][2]);
+            c[i][3] = fmaf(v1, w1[kk], c[i][3]);
+          }
+        }
+      }
+    }
+  }
+}
+
 // Stage k+1 from stage k (k >= 1): Z = A W_k on the tensor cores, A the bf16
 // stage `ib`, W_k from `w` (product), then fwd_epi.  The narrow variant's
 // warp block loads its B fragments once; the wide one's products run in
-// chunks of UC_FWD stream tiles.
-template <bool SAVE, bool PROJ, bool WIDE, bool LAP>
+// chunks of UC_FWD stream tiles.  INNER_F32 (the jet forward): every product
+// but the last stage's on the CUDA cores (f32_products), in chunks of
+// UC_FWD stream tiles in either variant.
+template <bool SAVE, bool PROJ, bool WIDE, bool LAP, bool INNER_F32 = false>
 __device__ void fwd_product(const Net& net, const Geo& g, int k, const __nv_bfloat16* ib,
                             const WSrc& w, const float* __restrict__ bias,
                             __nv_bfloat16* ob, float4* save_st, bool last,
@@ -721,17 +811,23 @@ __device__ void fwd_product(const Net& net, const Geo& g, int k, const __nv_bflo
   const int wn = net.w[k + 1], NB = np8(wn) / 8, nks = kp16(net.w[k]) / 16;
   for (int b = warp; b < g.NPB * NB; b += NW) {
     const int pb = b / NB, nb = b - pb * NB, n0 = nb * 8;
+    const bool f32 = INNER_F32 && !last;
     uint32_t bf[KS_REG][2];
-    if constexpr (!WIDE) hold_frags<true>(bf, w, nks, n0);
+    if constexpr (!WIDE) {
+      if (!f32) hold_frags<true>(bf, w, nks, n0);
+    }
     float bv[2], wl[2];
     unit_consts(n0, wn, bias, PROJ && last, wlast, bv, wl);
     FwdSt st = {};
     float4* save = SAVE ? save_st + (size_t)b * (g.NU + 1) * 32 : nullptr;
-    if constexpr (WIDE) {
+    if (WIDE || f32) {
       for (int u0 = 0; u0 < g.NU; u0 += UC_FWD) {
         const int nu = g.NU - u0 < UC_FWD ? g.NU - u0 : UC_FWD;
         float cc[UC_FWD][4];
-        wide_products<true>(cc, ib, g, pb, u0, nu, nks, w, n0);
+        if (f32)
+          f32_products(cc, ib, g, pb, u0, nu, nks, w, n0);
+        else if constexpr (WIDE)
+          wide_products<true>(cc, ib, g, pb, u0, nu, nks, w, n0);
 #pragma unroll 1
         for (int i = 0; i < nu; ++i) {
           float c[4];
@@ -1161,6 +1257,9 @@ template <int KIND, bool WIDE, bool LAP = true, class Args, class Terms>
 __device__ void body(const Args& A, Terms terms) {
   constexpr bool REV = KIND == KIND_FUSED || KIND == KIND_BWD, PROJ = KIND != KIND_BWD;
   constexpr bool SUMS = KIND == KIND_SUMS;
+  // the jet forward's products before the last on the CUDA cores
+  // (f32_products)
+  constexpr bool INNER_F32 = KIND == KIND_FWD;
   extern __shared__ __align__(16) float smem[];
   const Net& net = A.net;
   // the kinds this design added (pass A; no Laplacian stream) on the
@@ -1243,9 +1342,9 @@ __device__ void body(const Args& A, Terms terms) {
     __nv_bfloat16 *in = stages, *out = stages + stage;
     for (int k = 1; k < K - 1; ++k) {
       const WSrc w = weights_of(A, res_w, Wsm, k);
-      fwd_product<REV, PROJ, WIDE, LAP>(net, g, k, in, w,
-                                        A.params + net.off[k] + net.w[k] * net.w[k + 1], out,
-                                        scr + k * sst, k + 1 == K - 1, wlast, red);
+      fwd_product<REV, PROJ, WIDE, LAP, INNER_F32>(
+          net, g, k, in, w, A.params + net.off[k] + net.w[k] * net.w[k + 1], out,
+          scr + k * sst, k + 1 == K - 1, wlast, red);
       __syncthreads();
       __nv_bfloat16* t = in;
       in = out;

@@ -50,7 +50,13 @@ namespace fwdlap {
 // the core's kernels.  DES_DEVW (with either): the hidden weights read
 // from device memory (Flags::DEV_WEIGHTS), for nets whose weights do not
 // fit shared memory beside a tile; compiled without the fold only.
-enum Design { DES_ITEM2 = 1, DES_PLANNED = 2, DES_DEVW = 8 };
+// DES_BEYOND (with DES_PLANNED, alone or with DES_DEVW; no fold, 4 x 4
+// items): the variant of the fused residual kernels and the jet backward for
+// the nets beyond the other kernels' limits (beyond_net: a hidden width above
+// NT, d above CORE_DIM): the last layer's dW split takes widths above NT, the
+// fused kernels' loss terms keep no per-point arrays.  Compiled only for
+// those nets, so the other variants keep their code.
+enum Design { DES_ITEM2 = 1, DES_PLANNED = 2, DES_DEVW = 8, DES_BEYOND = 32 };
 
 // W_k^T's offset in `wt` (the hidden weights' transposes back to back, true
 // sizes): the sum over m = 1..k-1 of w[m] * w[m+1].
@@ -595,19 +601,28 @@ __device__ inline void reverse_sweep_p(const Net& net, int T, const float* __res
                   net.wp[K - 2]);
   // dWlast[j] += sum_r mid[r][j] * ct[r] over the S*T rows r = (s, p):
   // `parts` threads per column, each over every parts-th row, then the
-  // partial sums are added in a fixed order
-  const int parts = NT / wl;
-  if (threadIdx.x < parts * wl) {
-    const int j = threadIdx.x % wl, c = threadIdx.x / wl;
-    float acc = 0.f;
-    for (int r = c; r < S * T; r += parts) acc = fmaf(cur[r * ld + j], ct[r], acc);
-    red[threadIdx.x] = acc;
-  }
-  __syncthreads();
-  for (int j = threadIdx.x; j < wl; j += NT) {
-    float acc = 0.f;
-    for (int c = 0; c < parts; ++c) acc += red[c * wl + j];
-    grow[net.off[K - 1] + j] += acc;
+  // partial sums are added in a fixed order.  DES_BEYOND at a width above
+  // NT: one thread per column (j, j + NT, ...), every row in order
+  if ((DES & DES_BEYOND) && wl > NT) {
+    for (int j = threadIdx.x; j < wl; j += NT) {
+      float acc = 0.f;
+      for (int r = 0; r < S * T; ++r) acc = fmaf(cur[r * ld + j], ct[r], acc);
+      grow[net.off[K - 1] + j] += acc;
+    }
+  } else {
+    const int parts = NT / wl;
+    if (threadIdx.x < parts * wl) {
+      const int j = threadIdx.x % wl, c = threadIdx.x / wl;
+      float acc = 0.f;
+      for (int r = c; r < S * T; r += parts) acc = fmaf(cur[r * ld + j], ct[r], acc);
+      red[threadIdx.x] = acc;
+    }
+    __syncthreads();
+    for (int j = threadIdx.x; j < wl; j += NT) {
+      float acc = 0.f;
+      for (int c = 0; c < parts; ++c) acc += red[c * wl + j];
+      grow[net.off[K - 1] + j] += acc;
+    }
   }
   // last stage: mid cotangent is rank one, ct * wlast
   stage_bwd_p(net, T, K - 1, pre, ct, wlast, wl, nxt);

@@ -9,6 +9,7 @@ those to their plain versions before they get here.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -43,14 +44,31 @@ LAUNCHES = {
 
 ACTS = {"sin": 0, "tanh": 1, "gelu": 2}
 NT = 256                      # threads per block (fwdlap_core.cuh)
-MAX_LAYERS, MAX_DIM = 16, 16
-# hidden width: the fp32 core (fwdlap_core.cuh: NT) and the tensor-core
-# design (fwdlap_mma.cuh: MMA_MAX_WIDTH, KS_MAX = 16 k-steps)
-MAX_WIDTH = 256
 BEYOND_ITEM = "ROADMAP.md B7"   # wider, deeper or higher-dimensional nets than these
-# The widest hidden layer each kernel takes, by launch name: 256 for every
-# kernel (the fp32 core, the bf16-dot variants and the K-bump pair alike).
-WIDTH_LIMITS = dict.fromkeys(LAUNCHES, MAX_WIDTH)
+
+
+class Limits(NamedTuple):
+    """What one kernel takes: the widest hidden layer, the most weight
+    matrices and the largest input dimension (``make_net`` of
+    fwdlap_core.cuh, with or without ``beyond``)."""
+    width: int
+    matrices: int
+    dim: int
+
+
+# every kernel but those below: the fp32 core at widths to NT
+# (fwdlap_core.cuh: CORE_LAYERS, CORE_DIM), the tensor-core design
+# (fwdlap_mma.cuh: MMA_MAX_WIDTH, KS_MAX = 16 k-steps) and the K-bump pair
+CORE_LIMITS = Limits(NT, 16, 16)
+# the fused residual kernels (linear and analytic) and the jet pair in fp32
+# (rows 1, 2, 4, 5): fwdlap_core.cuh's MAX_WIDTH, MAX_LAYERS, MAX_DIM; a net
+# whose stages do not fit shared memory at 4 points still raises in its plan
+# (_plan.NoFit)
+BEYOND_LIMITS = Limits(4096, 64, 64)
+BEYOND_KERNELS = ("fused_linear_residual", "fused_poisson_analytic", "fwdlap_forward",
+                  "fwdlap_backward")
+# What each kernel takes, by launch name.
+LIMITS = {name: BEYOND_LIMITS if name in BEYOND_KERNELS else CORE_LIMITS for name in LAUNCHES}
 SMEM_MAX = 227 * 1024         # dynamic shared memory one block can get on an H100
 
 _OCCUPANCY = {}
@@ -78,28 +96,38 @@ def on_cuda(X) -> bool:
     return False
 
 
-def check_width(name: str, layers) -> None:
-    """Raise unless kernel ``name`` (a launch name) takes every hidden width
-    of ``layers`` (``WIDTH_LIMITS``)."""
-    limit = WIDTH_LIMITS[name]
-    if not all(1 <= w <= limit for w in layers[1:-1]):
-        raise ValueError(f"{name}: the kernel takes hidden widths from 1 to {limit} "
+def check_net(name: str, layers) -> None:
+    """Raise unless kernel ``name`` (a launch name) takes a net of these
+    layer sizes (``LIMITS``): one output, 2 to ``matrices`` weight
+    matrices, ``1 <= d <= dim``, every hidden width from 1 to ``width``."""
+    lim = LIMITS[name]
+    if layers[-1] != 1 or not 3 <= len(layers) <= lim.matrices + 1:
+        raise ValueError(f"{name}: the kernel takes 2 to {lim.matrices} weight matrices and "
+                         f"one output (deeper nets: {BEYOND_ITEM}); got layers {list(layers)}")
+    if not 1 <= layers[0] <= lim.dim:
+        raise ValueError(f"{name}: the kernel takes d from 1 to {lim.dim} (larger d: "
+                         f"{BEYOND_ITEM}); got layers {list(layers)}")
+    if not all(1 <= w <= lim.width for w in layers[1:-1]):
+        raise ValueError(f"{name}: the kernel takes hidden widths from 1 to {lim.width} "
                          f"(wider nets: {BEYOND_ITEM}); got layers {list(layers)}")
+
+
+def beyond(layers) -> bool:
+    """Whether a net needs the DES_BEYOND variant of the planned fused
+    residual kernels and jet backward (``beyond_net`` of fwdlap_core.cuh): a
+    hidden width above ``NT`` or d above the other kernels' limit."""
+    return padded_wmax(layers) > NT or layers[0] > CORE_LIMITS.dim
 
 
 def net_layers(name: str, params, X, activation: str, others=()):
     """The layer sizes ``[d, w1, ..., 1]`` of ``params`` after checking
-    that kernel ``name`` (a launch name) takes this net, these tensors and
-    this activation."""
+    that kernel ``name`` (a launch name) takes this net (:func:`check_net`),
+    these tensors and this activation."""
     if activation not in ACTS:
         raise ValueError(f"Unknown activation {activation!r}")
     layers = [params[0][0].shape[0]] + [W.shape[1] for W, _ in params]
     N, d = X.shape
-    if not (2 <= len(params) <= MAX_LAYERS and d <= MAX_DIM and layers[-1] == 1):
-        raise ValueError(
-            f"{name}: the CUDA kernels take 2..{MAX_LAYERS} layers, d <= "
-            f"{MAX_DIM} and one output ({BEYOND_ITEM}); got layers {layers}")
-    check_width(name, layers)
+    check_net(name, layers)
     for t in [X, *others, *[t for pair in params for t in pair]]:
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: the CUDA kernels take float32, got {t.dtype}")
@@ -195,8 +223,14 @@ DES_DEVW = 8      # the hidden weights read from device memory by the products
                   # memory beside a tile; 4 x 4 items, no fold (the
                   # tensor-core design has its own such tier, a flag of its
                   # plan: fused_step.MMA_TIERS)
+DES_BEYOND = 32   # the planned fused residual kernels' and jet backward's
+                  # variant for the nets of :func:`beyond` (a hidden width above
+                  # NT, d above 16), with DES_PLANNED, alone or with DES_DEVW;
+                  # 4 x 4 items, no fold (fwdlap_planned.cuh)
 PLANNED_DESIGNS = (DES_PLANNED, DES_PLANNED | DES_ITEM2)
-FP32_DESIGNS = PLANNED_DESIGNS + (DES_PLANNED | DES_DEVW,)   # what the fp32 kernels take
+BEYOND_DESIGNS = (DES_PLANNED | DES_BEYOND, DES_PLANNED | DES_DEVW | DES_BEYOND)
+# what the fp32 kernels take
+FP32_DESIGNS = PLANNED_DESIGNS + (DES_PLANNED | DES_DEVW,) + BEYOND_DESIGNS
 
 
 def grid(name: str, query, smem: int, dev: torch.device, n_tiles: int,

@@ -39,9 +39,12 @@ Where no tier fits even at 4 points (one layer's weights do not fit beside
 a tile: a 256 x 256 matrix is 256 KB), the kernels that have it take the
 design that reads the weights from device memory (``DEV_WEIGHTS``,
 ``_cuda.DES_DEVW``; pass B may still keep its gradient row on chip), at two
-blocks per SM, then one.  Every shape that the wrappers
-accept gets a plan; ``T`` and ``tier`` pin a choice (tests, timing sweeps)
-and raise if it does not fit ``SMEM_MAX``.
+blocks per SM, then one.  Every net within the limits of all
+the kernels (``_cuda.CORE_LIMITS``) gets a plan; a wider or
+higher-dimensional net, which only the fused residual kernels and the jet
+pair take, may fit no tile of 4 points and then raises :class:`NoFit`
+naming ``ROADMAP.md B7``.  ``T`` and ``tier`` pin a choice (tests, timing
+sweeps) and raise if it does not fit ``SMEM_MAX``.
 """
 
 from __future__ import annotations
@@ -70,6 +73,13 @@ T_MAX = 48        # points per tile the plan asks for at most (a multiple of 4;
 class NoFit(ValueError):
     """No launch shape of a ladder fits ``SMEM_MAX`` (a pinned one
     included)."""
+
+
+# What an unpinned plan that fits nothing adds to its NoFit: no tile of 4
+# points fits at one block per SM, with the weights in device memory where
+# the kernel has that design; the stages in device memory are the rest of B7.
+NO_TILE = (f": no tile of 4 points fits (stages in device memory: "
+           f"{_cuda.BEYOND_ITEM})")
 
 
 class Plan(NamedTuple):
@@ -182,7 +192,7 @@ def plan(smem_floats: Callable[[int, int], int], layers, S: int, seeded: bool, *
             if pl is not None:
                 return pl._replace(design=_cuda.DES_DEVW)
     raise NoFit(f"{what}: layers {list(layers)} do not fit {_cuda.SMEM_MAX} B of "
-                f"shared memory (T={T}, tier={tier})")
+                f"shared memory (T={T}, tier={tier}){'' if pinned else NO_TILE}")
 
 
 def fit(smem_floats, layers, S, seeded, budget, staged_floor, T=None, tier=None, rows=4,
@@ -353,6 +363,8 @@ def forward_only(smem_floats: Callable[[int, int], int], layers, S: int, what: s
             # the two-block budget)
             pl = ladder(devw)
     if pl is None:
+        pinned = T is not None or tier is not None or design is not None
         raise NoFit(f"{what}: layers {list(layers)} do not fit {_cuda.SMEM_MAX} B of "
-                    f"shared memory (T={T}, tier={tier}, design={design})")
+                    f"shared memory (T={T}, tier={tier}, design={design})"
+                    f"{'' if pinned else NO_TILE}")
     return pl

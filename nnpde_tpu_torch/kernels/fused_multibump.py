@@ -227,8 +227,8 @@ def plan(seeded: bool, layers, Kb: int, *, T: int | None = None,
     staging matrix is 256 KB), the tiers that read them from device memory
     (``DEV_WEIGHTS``, design ``DES_DEVW``).  ``T`` and ``tier`` pin a choice
     and raise if it does not fit; hidden widths above the pair's limit raise
-    (``_cuda.WIDTH_LIMITS``)."""
-    _cuda.check_width("multi_seeded" if seeded else "multi_sums", layers)
+    (``_cuda.LIMITS``)."""
+    _cuda.check_net("multi_seeded" if seeded else "multi_sums", layers)
     return _plan.plan(lambda t, flags: smem_floats(seeded, layers, t, Kb, flags), layers,
                       layers[0] + 1, seeded, T=T, tier=tier,
                       what=f"multibump plan ({Kb} bumps)", device=None)

@@ -261,7 +261,11 @@ def planned(smem_floats_of, layers, S: int, what: str, design: int | None = None
     blocks per SM as it is; where it only fits a step below (u64: 28 points,
     224 of 256 items), the planned 4 x 4 items (``chip_smoke.py sweep``);
     where no tile with the weights on chip fits, the 4 x 4 items reading the
-    weights from device memory (``DES_DEVW``).  ``T`` and ``tier`` pin a
+    weights from device memory (``DES_DEVW``).  The nets of
+    :func:`._cuda.beyond` (a hidden width above 256, d above 16) take the
+    ``DES_BEYOND`` designs, and only they: 4 x 4 items, the weights on chip
+    where they fit, else from device memory; a net whose stages do not fit
+    at 4 points raises :class:`._plan.NoFit`.  ``T`` and ``tier`` pin a
     choice and raise if it does not fit."""
     _plan.check_planned(design, what)
 
@@ -271,6 +275,13 @@ def planned(smem_floats_of, layers, S: int, what: str, design: int | None = None
                         device=True if des & _cuda.DES_DEVW else device)
         return pl._replace(design=des | (pl.design & _cuda.DES_DEVW))
 
+    if design is not None and _cuda.beyond(layers) != (design in _cuda.BEYOND_DESIGNS):
+        raise ValueError(f"{what}: the DES_BEYOND designs {_cuda.BEYOND_DESIGNS} are for the "
+                         f"nets beyond the other kernels' limits, and only they take them "
+                         f"(layers {list(layers)}, design {design})")
+    if _cuda.beyond(layers):
+        return ladder(_cuda.DES_PLANNED | _cuda.DES_BEYOND,
+                      None if design is None else bool(design & _cuda.DES_DEVW))
     if design is not None:
         return ladder(design)
     try:
@@ -471,7 +482,7 @@ def mma_plan(kind: str, layers, *, T: int | None = None, tier: str | None = None
     ``n_bumps``: the K-bump pass A's bump count (:func:`mma_sum_lanes`);
     what fits nothing raises, naming the shape."""
     lap = mma_lap(kind, lap)
-    _cuda.check_width(kind + ".bf16", layers)
+    _cuda.check_net(kind + ".bf16", layers)
     jet_fwd = kind == "fwdlap_forward"
     shares = MMA_SHARES.get(kind, (2, 1))
     if blocks is not None and blocks not in shares:

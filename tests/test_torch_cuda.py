@@ -102,12 +102,18 @@ def test_cuda_kernel_matches_plain(dev, kind, d, layers, act):
 
 @pytest.mark.cuda
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    """A hidden width above the kernel's limit (4097: the fused residual
+    kernels take widths to 4096 since ROADMAP.md B7's first part; the DRM
+    energy keeps 256) and float64 tensors raise before any launch."""
     rng = np.random.default_rng(0)
     X = torch.rand(64, 2, device=dev)
     coef = torch.zeros(64, 6, device=dev)
-    wide = params_from_jax(_np_params(rng, (2, 257, 1)), device=dev)
-    with pytest.raises(ValueError):
+    wide = params_from_jax(_np_params(rng, (2, 4097, 1)), device=dev)
+    with pytest.raises(ValueError, match="ROADMAP.md B7"):
         tfs.fused_linear_residual(wide, X, coef, "sin")
+    wide = params_from_jax(_np_params(rng, (2, 257, 1)), device=dev)
+    with pytest.raises(ValueError, match="ROADMAP.md B7"):
+        tfs.fused_drm_energy(wide, X, torch.zeros(64, 4, device=dev), "sin")
     p64 = params_from_jax(_np_params(rng, (2, 32, 1)), device=dev, dtype=torch.float64)
     with pytest.raises(TypeError):
         tfs.fused_linear_residual(p64, X.double(), coef.double(), "sin")
@@ -2167,3 +2173,101 @@ def test_cuda_k_bump_pass_a_at_one_bump_is_the_linear_pass_a(dev, layers, act):
         q = tfq.fused_linear_sums(tp, X, lin, act, no_lap=True, dot_dtype=dot)
         for k in ("sum_r", "sum_mass", "sum_e2"):
             assert torch.equal(m[k].reshape(()), q[k].reshape(())), (dot, k)
+
+
+# ------------------------------------------- nets beyond the other kernels' limits (B7)
+# Rows 1, 2, 4, 5 in fp32 on hidden widths above 256 (the weights in device
+# memory), more than 16 weight matrices and d > 16: the CPU nets of
+# tests/test_torch_beyond.py and chip_smoke.py's beyond nets (the 512-wide
+# one at 1007 points).
+_BEYOND_NETS = [
+    ((2, 300, 300, 1), "sin"),
+    ((20, 16, 16, 1), "tanh"),
+    ((2,) + (8,) * 20 + (1,), "sin"),
+    ((2, 512, 512, 512, 512, 1), "sin"),
+    ((1, 1001, 300, 1), "tanh"),
+    ((18, 128, 128, 1), "gelu"),
+    ((20, 64, 64, 64, 64, 1), "sin"),
+    ((2,) + (32,) * 23 + (1,), "tanh"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["linear", "analytic", "forward", "backward"])
+@pytest.mark.parametrize("layers,act", _BEYOND_NETS)
+def test_cuda_beyond_nets_match_plain(dev, kind, layers, act):
+    """Each of the four kernels on a B7 net against its float64 plain
+    version, by the bars of the other shapes (``_check_fused``,
+    ``_check_pass_a``, ``_check_backward``: repeats bitwise, each launch
+    counted), on the plan the wrapper takes: a ``DES_BEYOND`` design for
+    rows 1, 2 and 5 exactly where the net is beyond the other kernels'
+    limits, with the weights in device memory above width 256."""
+    from nnpde_tpu_torch.kernels import _cuda
+    from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
+
+    if kind == "forward":
+        pl = tfc.forward_plan(list(layers), N=1007)
+        assert not pl.design & _cuda.DES_BEYOND
+        _check_pass_a(dev, "fwdlap_forward", layers, act, 1)
+    elif kind == "backward":
+        pl = tfc.backward_plan(list(layers))
+        _check_backward(dev, layers, act)
+    else:
+        pl = tfs.plan(_FUSED[kind], list(layers))
+        _check_fused(dev, kind, layers, act)
+    if kind != "forward":
+        assert bool(pl.design & _cuda.DES_BEYOND) == _cuda.beyond(layers)
+    assert bool(pl.design & _cuda.DES_DEVW) == (max(layers[1:-1]) > 256)
+
+
+@pytest.mark.cuda
+def test_cuda_beyond_nofit_raises(dev):
+    """(20, 512 x 4, 1): no tile of 4 points fits its stages, so each of the
+    four wrappers raises NoFit naming ROADMAP.md B7, and nothing launches."""
+    from nnpde_tpu_torch.kernels import _cuda, _plan
+    from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
+
+    layers, N = (20, 512, 512, 512, 512, 1), 64
+    tp = params_from_jax(_np_params(np.random.default_rng(5), layers), device=dev)
+    X = torch.rand(N, 20, device=dev)
+    calls = [lambda: tfs.fused_linear_residual(tp, X, torch.zeros(N, 24, device=dev), "sin"),
+             lambda: tfs.fused_poisson_analytic(tp, X, "sin", L=L, ks=(1,) * 20),
+             lambda: tfc.fwdlap_forward(tp, X, "sin"),
+             lambda: tfc.fwdlap_backward(tp, X, torch.zeros(N, 22, device=dev), "sin")]
+    before = dict(_cuda.LAUNCHES)
+    for call in calls:
+        with pytest.raises(_plan.NoFit, match="ROADMAP.md B7"):
+            call()
+    assert _cuda.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layers,act", [((1, 100, 100, 100, 1), "tanh"),
+                                        ((1, 100, 100, 100, 1), "sin"),
+                                        ((2, 64, 64, 64, 64, 1), "sin")])
+def test_cuda_bf16_forward_within_twice_plain_of_float64(dev, layers, act):
+    """Row 4 bf16 (``fwd_impl='rows:default'``) at 40000 points, seed 31
+    (the draws of ``tools/fwd_bf16_columns.py``): each jet column no further
+    from the float64 witness (the plain bf16-dot version in float64) than
+    2x the plain version in fp32 is, + 2e-6 (the port's bar for the bf16
+    rows).  On (1, 100 x 3, 1) tanh the value column was 7.7x its plain
+    version's distance while the products feeding a bf16 rounding ran on
+    the tensor cores, which cut their sums toward zero (fwdlap_mma.cuh,
+    f32_products).  (The grad and Laplacian columns of that net exceed 2x
+    the plain version's distance at 1-2 of 17 seeds in every accumulation,
+    all on the CUDA cores included: PERF.md, PR 20.)"""
+    from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
+
+    rng = np.random.default_rng(31)
+    N, d = 40000, layers[0]
+    tp = params_from_jax(_np_params(rng, layers), device=dev)
+    X = torch.as_tensor(rng.uniform(0.0, L, (N, d)).astype(np.float32), device=dev)
+    out = tfc.fwdlap_forward(tp, X, act, "rows:default").double()
+    plain = tfc.fwdlap_forward_default_plain(tp, X, act).double()
+    wit = tfc.fwdlap_forward_default_plain([(W.double(), b.double()) for W, b in tp],
+                                           X.double(), act)
+    for c in range(d + 2):
+        scale = torch.linalg.norm(wit[:, c])
+        w_kernel = float(torch.linalg.norm(out[:, c] - wit[:, c]) / scale)
+        w_plain = float(torch.linalg.norm(plain[:, c] - wit[:, c]) / scale)
+        assert w_kernel <= 2.0 * w_plain + 2e-6, (c, w_kernel, w_plain)

@@ -479,17 +479,21 @@ def test_missing_card_raises(monkeypatch):
 
 @pytest.mark.parametrize("name", sorted(_cuda.LAUNCHES))
 def test_widths_above_each_kernels_limit_raise(name):
-    """Every kernel's wrapper check takes hidden widths up to its limit (256
-    for every kernel: the fp32 kernels on the core, the tensor-core design's
-    bf16-dot variants and the K-bump pair) and raises above it, naming the
-    kernel, its limit and the roadmap item of the wider nets."""
-    limit = _cuda.WIDTH_LIMITS[name]
-    assert limit == 256
+    """Every kernel's wrapper check takes hidden widths up to its limit
+    (``_cuda.LIMITS``: 256 for every kernel but the fused residual kernels
+    and the jet pair in fp32, which take 4096, their plans refusing what no
+    tile fits) and raises above it, naming the kernel, its limit and the
+    roadmap item of the wider nets.  The nets are views of one row: no
+    4096 x 4096 matrix is made."""
+    limit = _cuda.LIMITS[name].width
+    assert limit == (4096 if name in _cuda.BEYOND_KERNELS else 256)
     X = torch.zeros(4, 1)
 
     def net(w):
-        return [(torch.zeros(1, w), torch.zeros(w)), (torch.zeros(w, w), torch.zeros(w)),
-                (torch.zeros(w, 1), torch.zeros(1))]
+        def mat(a, b):
+            return torch.zeros(1, b).expand(a, b)
+        return [(mat(1, w), torch.zeros(w)), (mat(w, w), torch.zeros(w)),
+                (mat(w, 1), torch.zeros(1))]
 
     assert _cuda.net_layers(name, net(limit), X, "tanh") == [1, limit, limit, 1]
     with pytest.raises(ValueError, match=f"{name}: the kernel takes hidden widths from 1 "

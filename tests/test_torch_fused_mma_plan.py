@@ -523,7 +523,9 @@ def test_mma_plans_refuse_widths_above_128(kind, layers):
     """The tensor-core design takes hidden widths up to 256 (``KS_MAX`` =
     16 k-steps) since the device tiers: these nets above 128 get its plan,
     and a width of 257 raises, naming the kernel, its limit and the roadmap
-    item of the wider nets."""
+    item of the wider nets; so do 17 weight matrices and d = 17, where the
+    fp32 kernels of rows 1, 2, 4, 5 now go on (the bf16-dot modes keep
+    their limits: ``_cuda.CORE_LIMITS``)."""
     kw = {"n_bumps": 42} if kind.startswith("multi") else {}    # the K-bump pair's cap
     pl = tfs.mma_plan(kind, layers, **kw)
     assert pl.design == _cuda.DES_MMA and pl.smem <= _cuda.SMEM_MAX
@@ -531,6 +533,12 @@ def test_mma_plans_refuse_widths_above_128(kind, layers):
     with pytest.raises(ValueError, match=r"\.bf16: the kernel takes hidden widths from 1 to "
                                          r"256 \(wider nets: ROADMAP.md B7\)"):
         tfs.mma_plan(kind, wider, **kw)
+    with pytest.raises(ValueError, match=r"\.bf16: the kernel takes 2 to 16 weight matrices "
+                                         r"and one output \(deeper nets: ROADMAP.md B7\)"):
+        tfs.mma_plan(kind, (layers[0],) + (32,) * 16 + (1,), **kw)
+    with pytest.raises(ValueError, match=r"\.bf16: the kernel takes d from 1 to 16 "
+                                         r"\(larger d: ROADMAP.md B7\)"):
+        tfs.mma_plan(kind, (17,) + layers[1:], **kw)
     assert tfs.mma_plan(kind, (1, 128, 128, 1), **kw).design == _cuda.DES_MMA
 
 

@@ -107,16 +107,33 @@ def _leaves(loss, grads):
 # ------------------------------------------------------ the wrapper's limit
 @pytest.mark.parametrize("name", sorted(_cuda.LAUNCHES))
 def test_widths_to_256_pass_every_kernels_check(name):
-    """Every kernel's wrapper check (``_cuda.check_width``, the only
-    refusal) takes hidden widths 129-256, ragged or not, in any layer; 257
-    raises, naming the kernel and the roadmap item of the wider nets."""
+    """Every kernel's wrapper check (``_cuda.check_net``) takes hidden
+    widths 129-256, ragged or not, in any layer.  The fused residual kernels
+    and the jet pair in fp32 (``_cuda.BEYOND_KERNELS``) also take widths
+    257 and 1001, 24 weight matrices and d = 20 (what no tile fits raises
+    in their plans); every other kernel and every bf16-dot mode raises on
+    each, naming the kernel and the roadmap item of such nets."""
     for w in (129, 136, 200, 255, 256):
-        _cuda.check_width(name, (2, w, 1))
-        _cuda.check_width(name, (3, 64, w, w, 1))
-    for layers in ((2, 257, 1), (1, 256, 257, 1)):
+        _cuda.check_net(name, (2, w, 1))
+        _cuda.check_net(name, (3, 64, w, w, 1))
+    beyond = ((2, 257, 1), (1, 256, 257, 1), (1, 1001, 300, 1), (2,) + (32,) * 23 + (1,),
+              (20, 16, 16, 1))
+    if name in _cuda.BEYOND_KERNELS:
+        assert _cuda.LIMITS[name] == (4096, 64, 64)
+        for layers in beyond:
+            _cuda.check_net(name, layers)
+        return
+    assert _cuda.LIMITS[name] == (256, 16, 16)
+    for layers in beyond[:3]:
         with pytest.raises(ValueError, match=f"{name}: the kernel takes hidden widths from 1 "
                                              r"to 256 \(wider nets: ROADMAP.md B7\)"):
-            _cuda.check_width(name, layers)
+            _cuda.check_net(name, layers)
+    with pytest.raises(ValueError, match=f"{name}: the kernel takes 2 to 16 weight matrices "
+                                         r"and one output \(deeper nets: ROADMAP.md B7\)"):
+        _cuda.check_net(name, beyond[3])
+    with pytest.raises(ValueError, match=f"{name}: the kernel takes d from 1 to 16 "
+                                         r"\(larger d: ROADMAP.md B7\)"):
+        _cuda.check_net(name, beyond[4])
 
 
 # ------------------------------------------- rows 1, 2, 4, 5 in bf16-dot mode
