@@ -206,19 +206,23 @@ Phases (each prints one JSON line; any failure exits non-zero):
    counts, and ``cli.main`` on the first, bitwise its rel_l2; wide_timing
    times the six kernels at width 200, d = 2, at the paths' N and 262144.
 16. beyond (group ``beyond``): nets beyond the other kernels' limits
-   (``ROADMAP.md`` B7), which rows 1, 2, 4, 5 take in fp32.
-   beyond_kernels holds the four on (2, 512 x 4, 1) sin, (1, 1001, 300, 1)
-   tanh, (18, 128, 128, 1) gelu, (20, 64 x 4, 1) sin and (2, 32 x 23, 1)
-   tanh at 1007 and 20000 points to their float64 plain versions (the loss
-   and every gradient leaf, every jet column, rel <= 1e-5; repeats bitwise;
-   the DES_BEYOND design where the net needs it); (20, 512 x 4, 1) raises
-   NoFit naming B7 in each, and every other kernel and bf16-dot mode raises
-   naming B7 on (2, 300, 300, 1); beyond_path trains ``train_poisson_nd``
-   at width 512 (P1: 'fused', 'fused' analytic, 'kernel'; 200 epochs), d =
-   20 (P2: 'fused', 'kernel'; 100) and 24 weight matrices (P3: 'fused';
-   100) against the 'torch' route's run: first total within 1e-5, rel_l2 <=
-   max(2 x torch's, 1e-3), one launch per step per kernel; beyond_timing
-   times the four on the P1, P2 and P3 nets at 20000 and 262144 points.
+   (``ROADMAP.md`` B7), which rows 1-5 and 7-10 take in fp32.
+   beyond_kernels holds the nine (rows 7 and 8 with and without the
+   Laplacian stream) on (2, 512 x 4, 1) sin, (1, 1001, 300, 1) tanh, (18,
+   128, 128, 1) gelu, (20, 64 x 4, 1) sin and (2, 32 x 23, 1) tanh at 1007
+   and 20000 points to their float64 plain versions (the loss and every
+   gradient leaf, every jet column, rel <= 1e-5, each pass-A sum within
+   1e-5 of its terms' magnitudes; repeats bitwise; the DES_BEYOND design
+   where the net needs it); (20, 512 x 4, 1) raises NoFit naming B7 in
+   each, and rows 6, 11, 12 and every bf16-dot mode raise naming B7 on (2,
+   300, 300, 1); beyond_path trains ``train_poisson_nd`` at width 512 (P1
+   PINN: 'fused', 'fused' analytic, 'kernel'; P4 DRM; 200 epochs; P7 WAN
+   with a 512-wide critic, 20), d = 20 (P2 PINN: 'fused', 'kernel'; P5 DRM;
+   100; P8 WAN, 30) and 24 weight matrices (P3 PINN, P6 DRM: 'fused'; 100)
+   against the 'torch' route's run: first total within 1e-5, PINN and DRM
+   rel_l2 <= max(2 x torch's, 1e-3), the WAN the cut WAN paths' gate, each
+   kernel's launches exact; beyond_timing times the nine on the P1, P2 and
+   P3 nets at 20000 and 262144 points.
 
 ``python3 chip_smoke.py eigen`` (or any other phase-group name: kernels,
 wan, main, eigen, ipw3d, neumann, eigen1d, qho2d, kh, subspace, floquet,
@@ -2163,7 +2167,8 @@ MMA_SOURCE = "nnpde_tpu_torch/csrc/fwdlap_mma.cuh"
 # where each entry point takes its design among its arguments
 DES_ARG = {"fused_linear_residual_f32": 12, "fused_poisson_analytic_f32": 11,
            "fwdlap_forward_f32": 11, "fwdlap_backward_f32": 12, "fused_drm_energy_f32": 12,
-           "fused_quotient_mma_f32": 13, "fused_multibump_mma_f32": 13}
+           "fused_quotient_mma_f32": 13, "fused_multibump_mma_f32": 13,
+           "fused_quotient_f32": 14}
 BF16_PEAK = 989e12       # H100 SXM bf16 tensor cores, dense (FLOP/s)
 PREC_TOL = 1e-4
 # The jet forward's columns are per-point outputs: an operand that rounds to
@@ -2180,14 +2185,15 @@ PREC_TOL = 1e-4
 # further from it than 2x the plain fp32 version is (+2e-6, the fp32 sum
 # noise of the loss and leaves).
 PREC_TOL_JET = {(2, 64): 1e-4, (5, 64): 5e-4, (2, 50): 2e-4, (5, 50): 3e-4, (1, 100): 2e-4}
-# the 1D oscillator's critic v100, tanh, at 40000 points and seed 31: the
-# case of tools/fwd_bf16_columns.py (the same draws) on which row 4 bf16's
-# value column was 7.7x its plain version's distance from float64 before
-# the products feeding a bf16 rounding left the tensor cores
-# (fwdlap_mma.cuh, f32_products).  The grad and Laplacian columns of this
-# net are no fixed share of the plain version's distance: over 17 seeds
-# they exceed 2x it at 1-2 seeds in every accumulation of the kernel, with
-# every product on the CUDA cores included (PERF.md, PR 20)
+# the 1D oscillator's critic v100, tanh, at 40000 points: the case of
+# tools/fwd_bf16_columns.py (the same draws) on which row 4 bf16's value
+# column was 7.7x its plain version's distance from float64 before the
+# products feeding a bf16 rounding left the tensor cores (fwdlap_mma.cuh,
+# f32_products).  Run at every seed of its study (SEEDS) and held to
+# float64 by ROADMAP.md C4's bar (fwdlap_cuda.c4_columns): a column's
+# distance from the witness counts the entries that round to the other bf16
+# neighbour, which the plain version's own sound rounding orders move by up
+# to 10x either way (PERF.md, C4)
 V100 = (1, 100, 100, 100, 1)
 # row 5 from a random cotangent (u50, d = 2): the leaves sum terms whose
 # signs cancel, so their sum-order noise shows (the plain version is 2.8e-4
@@ -2376,7 +2382,11 @@ def phase_precision_kernels(dev):
                   (b, EIGEN_N, U50, 302, {}), (b, EIGEN_N, U50_5, 303, {}),
                   (b, 20000, LAYERS, 300, {"unfolded": True})]
     cases.append(("fwdlap_backward", EIGEN_N, U50, 302, {"ct": "random"}))
-    cases.append(("fwdlap_forward", EIGEN_N, V100, 31, {"act": "tanh"}))
+    # V100 tanh at every seed of the C4 study, under C4's bar (c4_columns)
+    from nnpde_tpu_torch.tools.fwd_bf16_columns import SEEDS
+
+    cases += [("fwdlap_forward", EIGEN_N, V100, seed, {"act": "tanh", "c4": True})
+              for seed in SEEDS]
     for base, N, layers, seed, opt in cases:
         case = PrecCase(base, N, layers, opt.get("act", "sin"), seed=seed, dev=dev,
                         ct=opt.get("ct", "residual"))
@@ -2399,7 +2409,14 @@ def phase_precision_kernels(dev):
         wit = case.plain("bfloat16", torch.float64)
         rel = case.rel(out, ref)
         w_kernel, w_plain = case.rel(out, wit), case.rel(ref, wit)
+        witness_ok = w_kernel <= 2.0 * w_plain + 2e-6
         apart = case.distinct(out, f32)
+        c4 = None
+        if opt.get("c4"):
+            from nnpde_tpu_torch.kernels import fwdlap_cuda as fc
+
+            c4 = fc.c4_columns(case.params, case.X, case.act, out[0])
+            witness_ok = all(c["kernel"] <= c["bar"] for c in c4)
         err = max(float(torch.max(torch.abs(a.double() - b.double())))
                   for a, b in zip(out, ref))
         name = base + ".bf16"
@@ -2410,15 +2427,21 @@ def phase_precision_kernels(dev):
             tol = PREC_TOL_BWD_RANDOM
         else:
             tol = PREC_TOL
+        # apart from the fp32 kernel by more than 10x the bar in force; the
+        # V100 seeds other than 31 (the rest of C4's study) by more than
+        # 10x their own distance from the plain bf16-dot version, since at
+        # some seeds the bf16 rounding moves the jet by less than 10x its bar
+        # (seed 305: 1.84e-3 against 2e-3), and their tensor-core design is
+        # asserted from the launch all the same
+        apart_ok = apart > 10 * (rel if opt.get("c4") and seed != 31 else tol)
         row = {"kernel": name, "N": N, "layers": list(layers), "act": case.act,
                "fold": bool(fold),
                "cotangent": opt.get("ct", "residual") if base == "fwdlap_backward" else None,
                "rel": rel, "tol": tol, "rel_to_fp32_kernel": apart,
                "witness_rel_kernel": w_kernel, "witness_rel_plain": w_plain,
                "max_abs_err": err, "bitwise_repeat": bitwise, "equal_to_folded": same,
-               "designs": designs,
-               "ok": bool(rel <= tol and apart > 10 * tol and bitwise
-                          and w_kernel <= 2.0 * w_plain + 2e-6
+               "designs": designs, "seed": seed, "c4_columns": c4,
+               "ok": bool(rel <= tol and apart_ok and bitwise and witness_ok
                           and designs == [_cuda.DES_MMA])}
         if base == "fwdlap_forward":
             row["points_off"] = case.points_off(out, ref)
@@ -3786,19 +3809,40 @@ BEYOND_NETS = {"u512": ((2,) + (512,) * 4 + (1,), "sin"),
                "k24": ((2,) + (32,) * 23 + (1,), "tanh")}
 BEYOND_KERNELS = ("fused_linear_residual", "fused_poisson_analytic", "fwdlap_forward",
                   "fwdlap_backward")
+# rows 3 and 7-10 in fp32 on the same nets: (kernel, lap),
+# rows 7 and 8 with and without the Laplacian stream
+BEYOND_Q_KINDS = (("fused_drm_energy", 0), ("linear_sums", 0), ("linear_sums", 1),
+                  ("linear_seeded", 0), ("linear_seeded", 1), ("quad_sums", 0),
+                  ("quad_seeded", 0))
+BEYOND_ALL = BEYOND_KERNELS + tuple(dict.fromkeys(k for k, _ in BEYOND_Q_KINDS))
 BEYOND_N = 20000             # the Poisson paths' points
 # no tile of 4 points fits its stages: the rest of ROADMAP.md B7
 BEYOND_NOFIT = (20, 512, 512, 512, 512, 1)
 # the paths through train_poisson_nd (PoissonConfig fields), cut to these
-# epochs: P1 the slice's path at full width, P2 d = 20, P3 24 weight matrices
+# epochs, with each kernel's launches per step (the WAN's per epoch) on
+# each route: P1 the PINN at full width, P2 d = 20, P3 24 weight matrices;
+# P4-P6 the Deep-Ritz energy on the same three shapes; P7 the WAN at width
+# 512 with a critic as wide (else rows 9 and 10 stay on the other kernels'
+# shapes), P8 the WAN at d = 20
 BEYOND_PATHS = {
     "P1": (dict(dim=2, width=512, depth=5), 200,
-           {"fused": ("fused_linear_residual",),
-            "fused_analytic": ("fused_poisson_analytic",),
-            "kernel": ("fwdlap_forward", "fwdlap_backward")}),
+           {"fused": {"fused_linear_residual": 1},
+            "fused_analytic": {"fused_poisson_analytic": 1},
+            "kernel": {"fwdlap_forward": 1, "fwdlap_backward": 1}}),
     "P2": (dict(dim=20, width=64, depth=5), 100,
-           {"fused": ("fused_linear_residual",), "kernel": ("fwdlap_forward", "fwdlap_backward")}),
-    "P3": (dict(dim=2, width=64, depth=24), 100, {"fused": ("fused_linear_residual",)}),
+           {"fused": {"fused_linear_residual": 1},
+            "kernel": {"fwdlap_forward": 1, "fwdlap_backward": 1}}),
+    "P3": (dict(dim=2, width=64, depth=24), 100, {"fused": {"fused_linear_residual": 1}}),
+    "P4": (dict(dim=2, width=512, depth=5, method="DRM"), 200,
+           {"fused": {"fused_drm_energy": 1}}),
+    "P5": (dict(dim=20, width=64, depth=5, method="DRM"), 100,
+           {"fused": {"fused_drm_energy": 1}}),
+    "P6": (dict(dim=2, width=64, depth=24, method="DRM"), 100,
+           {"fused": {"fused_drm_energy": 1}}),
+    "P7": (dict(dim=2, width=512, depth=5, critic_width=512, method="WAN"), 20,
+           {"fused": WAN_PER_EPOCH}),
+    "P8": (dict(dim=20, width=64, depth=5, critic_width=64, method="WAN"), 30,
+           {"fused": WAN_PER_EPOCH}),
 }
 # what the other kernels and modes are refused on a B7 net (each raises
 # naming ROADMAP.md B7)
@@ -3810,13 +3854,77 @@ BEYOND_TIMED = {"u512": BEYOND_NETS["u512"], "d20": BEYOND_NETS["d20"],
                 "k24": ((2,) + (64,) * 23 + (1,), "sin")}
 
 
-def _beyond_case(kind, net, N, dev, seed):
+def _beyond_case(kind, net, N, dev, seed, lap=0):
     layers, act = net
     if kind.startswith("fused"):
         return Case(kind, N, layers[0], layers, act, seed=seed, dev=dev)
-    if kind == "fwdlap_forward":
-        return WanCase(kind, N, layers, act, seed=seed, dev=dev)
+    if kind == "fwdlap_forward" or kind.startswith(("linear", "quad")):
+        return WanCase(kind, N, layers, act, seed=seed, dev=dev, lap=lap)
     return EigenCase(kind, N, layers, act, seed=seed, dev=dev)
+
+
+def _beyond_plan(kind, layers, lap, N, dev):
+    """The plan the wrapper of any beyond kernel took (after a launch)."""
+    from nnpde_tpu_torch.kernels import fused_quotient as fq
+
+    if kind == "fwdlap_forward" or kind.endswith("sums"):
+        return pass_a_plan(kind, layers, lap, N, dev)
+    if kind.endswith("seeded"):
+        return plan_row(kind, layers, layers[0] + 1 + lap, fq.plan(kind, layers, lap), N, dev)
+    return fused_plan(kind, layers, N, dev)
+
+
+def _beyond_leaves(case, kind, layers, out):
+    """A beyond kernel's result (or its plain version's, same layout) as
+    the list the bars compare: [loss, leaves...] (rows 1-3), [jet rows]
+    (row 4), [sums] (rows 7, 9), the gradient leaves (row 5; rows 8, 10 with
+    sum ct_v last)."""
+    if kind.startswith("fused"):
+        loss, g = (out[0], out[2]) if len(out) == 3 else out
+        return [loss.reshape(1)] + [t for p in g for t in p]
+    if kind == "fwdlap_forward" or kind.endswith("sums"):
+        return [out]
+    if kind.endswith("seeded"):
+        P = out.numel() - 1
+        return _leaf_split(out[:P], layers) + [out[P:]]
+    return _leaf_split(out, layers)
+
+
+def _hold_beyond(case, kind, layers, fp32_noise=False):
+    """One beyond case launched twice against its float64 plain version:
+    (got, again, ref, rel, excess) with ``rel`` the bar's measure: the loss
+    and every gradient leaf (rows 1-3, 5, 8, 10; with sum ct_v for the
+    seeded kinds) and every jet column (row 4) norm-relative, each pass-A
+    sum over the sum of its terms' magnitudes (rows 7, 9).  ``fp32_noise``
+    (rows 3, 7-10): ``excess``, the largest distance of a loss, leaf or sum
+    beyond twice the plain version's own float32 distance in the same
+    measure (None without it)."""
+    out = case.kernel()
+    out2 = case.kernel()
+    torch.cuda.synchronize()
+    got, again = _beyond_leaves(case, kind, layers, out), _beyond_leaves(case, kind, layers, out2)
+    ref = _beyond_leaves(case, kind, layers, case.plain(torch.float64))
+    p32 = (_beyond_leaves(case, kind, layers, case.plain(torch.float32)) if fp32_noise
+           else None)
+    if kind == "fwdlap_forward":
+        return got, again, ref, col_rel(out, ref[0]), None
+    if kind.endswith("sums"):
+        terms = case.abs_terms()
+
+        def dist(x):
+            return torch.abs(x[0].double() - ref[0]) / terms
+
+        excess = float(torch.max(dist(got) - 2.0 * dist(p32))) if fp32_noise else None
+        return got, again, ref, float(torch.max(dist(got))), excess
+
+    def rels(x):
+        return [float(torch.linalg.norm(a.double() - b.double())
+                      / max(float(torch.linalg.norm(b.double())), 1e-300))
+                for a, b in zip(x, ref)]
+
+    excess = (max(k - 2.0 * p for k, p in zip(rels(got), rels(p32))) if fp32_noise
+              else None)
+    return got, again, ref, max(rels(got)), excess
 
 
 def _leaf_split(flat, layers):
@@ -3828,21 +3936,17 @@ def _leaf_split(flat, layers):
     return out
 
 
-def _max_leaf_rel(got, ref):
-    return max(float(torch.linalg.norm(x.double() - y.double())
-                     / max(float(torch.linalg.norm(y.double())), 1e-300))
-               for x, y in zip(got, ref))
-
-
 def phase_beyond_kernels(dev):
-    """Rows 1, 2, 4, 5 (fp32) on each BEYOND_NETS net at 1007 points and at
-    the paths' 20000, against their float64 plain versions: rows 1, 2 the
-    loss and every gradient leaf, row 5 every gradient leaf, rel <= 1e-5;
-    row 4 every jet column rel <= 1e-5; two launches bitwise equal; each
-    launch's design (DES_BEYOND on the nets that need it) and its plan.
-    Then BEYOND_NOFIT raises NoFit naming ROADMAP.md B7 in each of the four
-    wrappers, and on BEYOND_REFUSED every other kernel and every bf16-dot
-    mode raises naming it too."""
+    """Rows 1-5 and 7-10 (fp32; rows 7 and 8 with and without the Laplacian
+    stream) on each BEYOND_NETS net at 1007 points and at the paths' 20000,
+    against their float64 plain versions: the loss and every gradient leaf
+    (with sum ct_v for rows 8, 10) and every jet column rel <= 1e-5, each
+    pass-A sum within 1e-5 of the sum of its terms' magnitudes; two launches
+    bitwise equal; each launch's design (DES_BEYOND on the nets that need it,
+    for rows 1-3, 5, 8, 10) and its plan.  Then BEYOND_NOFIT raises NoFit
+    naming ROADMAP.md B7 in each of the nine wrappers, and on BEYOND_REFUSED
+    the other kernels (rows 6, 11, 12) and every bf16-dot mode raise naming
+    it too."""
     from nnpde_tpu_torch.kernels import _cuda, _plan
     from nnpde_tpu_torch.kernels import fused_multibump as fm
     from nnpde_tpu_torch.kernels import fused_quotient as fq
@@ -3851,43 +3955,40 @@ def phase_beyond_kernels(dev):
 
     t0 = time.time()
     rows, max_err = [], {}
+    kinds = [(k, 0, 700 + i) for i, k in enumerate(BEYOND_KERNELS)]
+    kinds += [(k, lap, 740 + i) for i, (k, lap) in enumerate(BEYOND_Q_KINDS)]
     for net, (layers, act) in BEYOND_NETS.items():
-        for i, kind in enumerate(BEYOND_KERNELS):
+        for kind, lap, seed in kinds:
             for N in (1007, BEYOND_N):
-                case = _beyond_case(kind, (layers, act), N, dev, seed=700 + i)
+                case = _beyond_case(kind, (layers, act), N, dev, seed=seed, lap=lap)
                 with _cuda.capture() as cap:
-                    out = case.kernel()
-                out2 = case.kernel()
-                torch.cuda.synchronize()
+                    case.kernel()
                 designs = sorted({args[DES_ARG[fn.__name__]] for _, fn, args, _, _ in cap.calls})
-                if kind.startswith("fused"):
-                    (loss, _, g), (loss2, _, g2) = out, out2
-                    got = [loss.reshape(1)] + [t for p in g for t in p]
-                    again = [loss2.reshape(1)] + [t for p in g2 for t in p]
-                    ref_loss, ref_g = case.plain(torch.float64)
-                    ref = [ref_loss.reshape(1)] + [t for p in ref_g for t in p]
-                    rel = _max_leaf_rel(got, ref)
-                elif kind == "fwdlap_forward":
-                    got, again, ref = [out], [out2], [case.plain(torch.float64)]
-                    rel = col_rel(out, ref[0])
-                else:
-                    got, again = _leaf_split(out, layers), _leaf_split(out2, layers)
-                    ref = _leaf_split(case.plain(torch.float64), layers)
-                    rel = _max_leaf_rel(got, ref)
+                new = kind not in BEYOND_KERNELS
+                got, again, ref, rel, excess = _hold_beyond(case, kind, layers, fp32_noise=new)
                 bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
                 err = max(float(torch.max(torch.abs(a.double() - b.double())))
                           for a, b in zip(got, ref))
                 max_err[kind] = max(max_err.get(kind, 0.0), err)
-                beyond = kind != "fwdlap_forward" and _cuda.beyond(layers)
-                plan = (pass_a_plan(kind, layers, 0, N, dev) if kind == "fwdlap_forward"
-                        else fused_plan(kind, layers, N, dev))
-                row = {"kernel": kind, "net": net, "N": N, "layers": list(layers), "act": act,
-                       "plan": plan, "designs": designs, "rel": rel, "max_abs_err": err,
+                beyond = (kind != "fwdlap_forward" and not kind.endswith("sums")
+                          and _cuda.beyond(layers))
+                plan = _beyond_plan(kind, layers, lap, N, dev)
+                # rows 3, 7-10: within 1e-5, or within 1e-5 beyond twice the
+                # plain version's own float32 distance from float64 in the
+                # same leaf or sum (the port's rule against a witness where
+                # the float32 result itself is off: a deep net's leaves sum
+                # terms that cancel; on K24 at 1007 points the float32 plain
+                # version of row 8 is 1.1e-5 from float64 in one leaf on an
+                # H100, 2.1e-5 on the CPU, the kernel 2.4e-5)
+                close = rel <= 1e-5 or (excess is not None and excess <= 1e-5)
+                row = {"kernel": kind, "lap": lap, "net": net, "N": N, "layers": list(layers),
+                       "act": act, "plan": plan, "designs": designs, "rel": rel,
+                       "rel_beyond_plain_fp32": excess, "max_abs_err": err,
                        "bitwise_repeat": bitwise,
-                       "ok": bool(rel <= 1e-5 and bitwise and len(designs) == 1
+                       "ok": bool(close and bitwise and len(designs) == 1
                                   and bool(designs[0] & _cuda.DES_BEYOND) == beyond)}
                 rows.append(row)
-                del case, out, out2, got, again, ref
+                del case, got, again, ref
                 torch.cuda.empty_cache()
     # what still raises
     raised = {}
@@ -3897,28 +3998,47 @@ def phase_beyond_kernels(dev):
         p = rand_params(rng, layers, dev)
         X = torch.rand(N, d, device=dev)
         coef = torch.zeros(N, d + 4, device=dev)
-        calls = {"fused_linear_residual": lambda: fs.fused_linear_residual(p, X, coef, "sin"),
-                 "fused_poisson_analytic": lambda: fs.fused_poisson_analytic(
-                     p, X, "sin", L=L, ks=(1,) * d),
-                 "fwdlap_forward": lambda: fc.fwdlap_forward(p, X, "sin"),
-                 "fwdlap_backward": lambda: fc.fwdlap_backward(
-                     p, X, torch.zeros(N, d + 2, device=dev), "sin")}
-        if name == "refused":
+        lin, quad = torch.zeros(N, d + 5, device=dev), torch.zeros(N, d + 3, device=dev)
+        drm, ct = torch.zeros(N, d + 2, device=dev), torch.zeros(N, d + 2, device=dev)
+        scal_l, scal_q = (0.3, -0.2, 0.7), (0.4, -0.3)
+        if name == "nofit":
             calls = {
-                "fused_drm_energy": lambda: fs.fused_drm_energy(
-                    p, X, torch.zeros(N, d + 2, device=dev), "sin"),
+                "fused_linear_residual": lambda: fs.fused_linear_residual(p, X, coef, "sin"),
+                "fused_poisson_analytic": lambda: fs.fused_poisson_analytic(
+                    p, X, "sin", L=L, ks=(1,) * d),
+                "fused_drm_energy": lambda: fs.fused_drm_energy(p, X, drm, "sin"),
+                "fwdlap_forward": lambda: fc.fwdlap_forward(p, X, "sin"),
+                "fwdlap_backward": lambda: fc.fwdlap_backward(p, X, ct, "sin"),
+                "quad_sums": lambda: fq.fused_quad_sums(p, X, quad, "sin"),
+                "quad_seeded": lambda: fq.fused_quad_seeded_grads(p, X, quad, scal_q, "sin")}
+            for no_lap in (False, True):
+                tag = ":no_lap" if no_lap else ""
+                calls["linear_sums" + tag] = lambda no_lap=no_lap: fq.fused_linear_sums(
+                    p, X, lin, "sin", no_lap=no_lap)
+                calls["linear_seeded" + tag] = lambda no_lap=no_lap: fq.fused_seeded_grads(
+                    p, X, lin, scal_l, "sin", no_lap=no_lap)
+        else:
+            bf = dict(dot_dtype="bfloat16")
+            calls = {
                 "fwdlap_forward_streams": lambda: fc.fwdlap_forward(p, X, "sin", "streams"),
-                "linear_sums": lambda: fq._launch("linear_sums", p, X,
-                                                  torch.zeros(N, d + 5, device=dev), None,
-                                                  "sin", 0),
+                "multi_sums": lambda: fm._launch(False, p, X, torch.zeros(N, 4 * (d + 4),
+                                                                          device=dev),
+                                                 None, "sin", 4),
                 "multi_seeded": lambda: fm._launch(True, p, X, torch.zeros(N, 4 * (d + 4),
                                                                            device=dev),
                                                    torch.zeros(12, device=dev), "sin", 4),
                 "fused_linear_residual.bf16": lambda: fs.fused_linear_residual(
-                    p, X, coef, "sin", dot_dtype="bfloat16"),
+                    p, X, coef, "sin", **bf),
+                "fused_drm_energy.bf16": lambda: fs.fused_drm_energy(p, X, drm, "sin", **bf),
                 "fwdlap_forward.bf16": lambda: fc.fwdlap_forward(p, X, "sin", "rows:default"),
-                "fwdlap_backward.bf16": lambda: fc.fwdlap_backward(
-                    p, X, torch.zeros(N, d + 2, device=dev), "sin", "bfloat16")}
+                "fwdlap_backward.bf16": lambda: fc.fwdlap_backward(p, X, ct, "sin", "bfloat16"),
+                "linear_sums.bf16": lambda: fq.fused_linear_sums(p, X, lin, "sin", no_lap=True,
+                                                                 **bf),
+                "linear_seeded.bf16": lambda: fq.fused_seeded_grads(p, X, lin, scal_l, "sin",
+                                                                    no_lap=True, **bf),
+                "quad_sums.bf16": lambda: fq.fused_quad_sums(p, X, quad, "sin", **bf),
+                "quad_seeded.bf16": lambda: fq.fused_quad_seeded_grads(p, X, quad, scal_q,
+                                                                       "sin", **bf)}
         for kind, call in calls.items():
             before = dict(_cuda.LAUNCHES)
             try:
@@ -3943,17 +4063,22 @@ def phase_beyond_path():
     """BEYOND_PATHS through ``train_poisson_nd`` as users call it (box-FBC,
     prod-sin RHS, 20000 points, Adam 1e-3, seed 0), each route against the
     'torch' route's run of the same configuration in this call: the first
-    total within 1e-5 (relative), the final rel_l2 <= max(2 x torch's,
-    1e-3), finite, and each kernel launched exactly once per step.  Returns
-    the four kernels' launches over the paths (``launches_beyond``)."""
+    total within 1e-5 (relative), finite, each kernel launched exactly its
+    count per step (per epoch on the WAN); the PINN and DRM final rel_l2 <=
+    max(2 x torch's, 1e-3); the WAN the cut WAN paths' gate (the first 10
+    totals within 5e-2, the first pde loss within 1e-3, every run's best
+    eval below its first).  Returns the kernels' launches over the paths
+    (``launches_beyond``)."""
     from nnpde_tpu_torch.kernels import LAUNCHES, reset_launches
     from nnpde_tpu_torch.problems import PoissonConfig, train_poisson_nd
 
     t0 = time.time()
-    report, launches, ok = {"phase": "beyond_path"}, dict.fromkeys(BEYOND_KERNELS, 0), True
+    report, launches, ok = {"phase": "beyond_path"}, dict.fromkeys(BEYOND_ALL, 0), True
     for name, (shape, epochs, routes) in BEYOND_PATHS.items():
-        base = dict(shape, method="PINN", bc_mode="FBC", epochs=epochs, n_interior=BEYOND_N,
+        base = dict(method="PINN", bc_mode="FBC", epochs=epochs, n_interior=BEYOND_N,
                     chunk=1000)
+        base.update(shape)
+        wan = base["method"] == "WAN"
         runs = {}
         for route in ("torch",) + tuple(routes):
             kw = ({"jet_impl": "fused", "coef_mode": "analytic"} if route == "fused_analytic"
@@ -3967,16 +4092,24 @@ def phase_beyond_path():
         ref = runs["torch"][0]
         rows = {}
         for route, (r, counts, wall) in runs.items():
-            total0 = float(r["history"]["total"][0])
-            want = {k: epochs for k in routes.get(route, ())}
-            first = abs(total0 - float(ref["history"]["total"][0])) / abs(
-                float(ref["history"]["total"][0]))
-            finite = bool(np.all(np.isfinite(r["history"]["total"])))
-            row = {"epochs": epochs, "rel_l2": r["rel_l2"], "total0": total0,
-                   "total0_rel": first, "launches": counts, "want": want, "wall_s": wall,
-                   "steps_per_s": _rate(r), "finite": finite}
-            row["ok"] = bool(finite and first <= 1e-5 and counts == want
-                             and r["rel_l2"] <= max(2.0 * ref["rel_l2"], 1e-3))
+            h, hr = r["history"], ref["history"]
+            total0 = float(h["total"][0])
+            want = {k: n * epochs for k, n in routes.get(route, {}).items()}
+            first, first10 = _first_band(ref, r)
+            finite = all(np.all(np.isfinite(h[k])) for k in h if k in ("total", "l2", "pde"))
+            row = {"method": base["method"], "epochs": epochs, "rel_l2": r["rel_l2"],
+                   "total0": total0, "total0_rel": first, "launches": counts, "want": want,
+                   "wall_s": wall, "steps_per_s": _rate(r), "finite": finite}
+            good = finite and first <= 1e-5 and counts == want
+            if wan:
+                pde0 = float(abs(h["pde"][0] - hr["pde"][0]) / abs(hr["pde"][0]))
+                falling = bool(np.min(h["l2"]) < h["l2"][0])
+                row.update(first10_max_rel=first10, pde0_rel=pde0, falling=falling,
+                           l2_first=float(h["l2"][0]), l2_best=float(np.min(h["l2"])))
+                good = good and first10 <= 5e-2 and pde0 <= 1e-3 and falling
+            else:
+                good = good and r["rel_l2"] <= max(2.0 * ref["rel_l2"], 1e-3)
+            row["ok"] = bool(good)
             ok = ok and row["ok"]
             for k, n in counts.items():
                 if k in launches:
@@ -3993,33 +4126,35 @@ def phase_beyond_path():
 
 
 def phase_beyond_timing(dev):
-    """Rows 1, 2, 4, 5 (fp32) on the P1, P2 and P3 nets (BEYOND_TIMED) at
-    20000 and 262144 points: wrapper and device ms, the plan (tier, T,
-    blocks per SM), the bound (max(FLOP / 67 TFLOP/s, bytes / 3.35 TB/s),
-    the table's FLOP rules) and the plain version's ms (None where the
-    plain version's autograd does not fit the card's memory)."""
+    """Rows 1-5 and 7-10 (fp32; rows 7 and 8 without the Laplacian stream,
+    as the WAN runs them) on the P1, P2 and P3 nets (BEYOND_TIMED) at 20000
+    and 262144 points: wrapper and device ms, the plan (tier, T, blocks per
+    SM), the bound (max(FLOP / 67 TFLOP/s, bytes / 3.35 TB/s), the table's
+    FLOP rules) and the plain version's ms (None where the plain version's
+    autograd does not fit the card's memory)."""
     t0 = time.time()
     rows = []
+    kinds = [(k, 720 + i) for i, k in enumerate(BEYOND_KERNELS)]
+    kinds += [(k, 760 + i) for i, k in enumerate(BEYOND_ALL[len(BEYOND_KERNELS):])]
     for net, (layers, act) in BEYOND_TIMED.items():
-        for i, kind in enumerate(BEYOND_KERNELS):
+        for kind, seed in kinds:
             for N in (BEYOND_N, 262144):
                 big = N > 100000
-                # a launch on u512 at 262144 takes ~0.45 s: two timed calls
+                case = _beyond_case(kind, (layers, act), N, dev, seed=seed)
+                flops, nbytes = case.flops(), case.bytes()
+                # a launch on u512 at 262144 takes ~0.1-1 s: few timed calls
                 slow = big and macs(layers) > 200000
-                case = _beyond_case(kind, (layers, act), N, dev, seed=720 + i)
                 ms = time_ms(case.kernel, warmup=1 if slow else 2,
-                             reps=2 if slow else 5 if big else 15)
-                dev_ms = device_ms(case.kernel, launches=3 if slow else 5 if big else 30,
+                             reps=1 if slow else 5 if big else 15)
+                dev_ms = device_ms(case.kernel, launches=2 if slow else 5 if big else 30,
                                    reps=1 if slow else 3 if big else 5)
                 try:
                     plain_ms = time_ms(lambda: case.plain(torch.float32), warmup=1,
-                                       reps=2 if slow else 3 if big else 7)
+                                       reps=1 if slow else 3 if big else 7)
                 except torch.cuda.OutOfMemoryError:
                     plain_ms = None
                 torch.cuda.empty_cache()
-                flops, nbytes = case.flops(), case.bytes()
-                plan = (pass_a_plan(kind, layers, 0, N, dev) if kind == "fwdlap_forward"
-                        else fused_plan(kind, layers, N, dev))
+                plan = _beyond_plan(kind, layers, 0, N, dev)
                 rows.append({"kernel": kind, "net": net, "d": layers[0], "N": N, "plan": plan,
                              "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
                              "bound_ms": 1e3 * max(flops / FP32_PEAK, nbytes / HBM_RATE),
@@ -6222,7 +6357,7 @@ def main():
     if set(wide_launches) != set(PRECISION_REPLACES) | {"multi_sums", "multi_seeded"} or not all(
             wide_launches.values()):
         raise SystemExit("a kernel of the width-200 paths was launched no time there")
-    if set(beyond_launches) != set(BEYOND_KERNELS) or not all(beyond_launches.values()):
+    if set(beyond_launches) != set(BEYOND_ALL) or not all(beyond_launches.values()):
         raise SystemExit("a kernel of the paths beyond the limits was launched no time there")
     emit({"kernels": kernels})
     print(card, flush=True)

@@ -57,6 +57,13 @@
 // their transposes) resident where they fit the plan's share, and the
 // register budget stated at the blocks per SM the plan counts on (the
 // *_sums_planned kernels, MINB = 3 or 2).  They share the epilogue.
+// Both passes take the nets beyond the other kernels' limits (hidden widths
+// to MAX_WIDTH, MAX_LAYERS weight matrices, d to MAX_DIM; ROADMAP.md B7):
+// pass A as it is (the jet forward's routines, an epilogue with no
+// per-point arrays), pass B in its DES_BEYOND variants (reverse_sweep's
+// BEYOND: the last layer's dW one thread per column above NT units), taken
+// by exactly the nets of beyond_net; above width 256 no layer's weights fit
+// beside a tile, so both read them from device memory (DES_DEVW).
 
 // Determinism: the rule of fused_step.cu -- per-block partial rows, fixed
 // in-block orders, one ordered reduction, no atomics.  The sums are carried
@@ -113,12 +120,15 @@ __host__ __device__ inline int smem_floats(const Net& net, int kind, int T, int 
 
 // DES: 0 for the seeded kinds, which run the core's routines
 // (fwdlap_core.cuh) on the shared plan, or the sums kinds' planned design;
-// with DES_DEVW the hidden weights are read from A.wd (Flags::DEV_WEIGHTS).
+// with DES_DEVW the hidden weights are read from A.wd (Flags::DEV_WEIGHTS);
+// with DES_BEYOND (seeded kinds, the nets of beyond_net) the reverse sweep's
+// variant for widths above NT.
 template <int KIND, bool FOLD, int DES = 0>
 __device__ void quotient_body(const QArgs& A) {
   constexpr bool SEEDED = KIND == LIN_SEEDED || KIND == QUAD_SEEDED;
   static_assert(SEEDED == ((DES & DES_PLANNED) == 0),
                 "pass B: the core's routines; pass A: a planned design");
+  static_assert(SEEDED || (DES & DES_BEYOND) == 0, "pass A takes any net as it is");
   constexpr bool DEVW = (DES & DES_DEVW) != 0;
   constexpr bool LINEAR = KIND == LIN_SUMS || KIND == LIN_SEEDED;
   constexpr int NSUMS = SEEDED ? 1 : (LINEAR ? 4 : 2);
@@ -229,8 +239,8 @@ __device__ void quotient_body(const QArgs& A) {
         if (comp == 0) psum[p] += (double)out;
       }
       __syncthreads();
-      reverse_sweep<true, FOLD>(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch, ct, red,
-                                grow, res);
+      reverse_sweep<true, FOLD, (DES & DES_BEYOND) != 0>(net, T, xs, A.params, cur, nxt, bufC,
+                                                         Wsh, scratch, ct, red, grow, res);
     } else {
       for (int p = threadIdx.x; p < T; p += NT) {
         const float* row = cf + p * ncp;
@@ -303,6 +313,22 @@ __global__ void __launch_bounds__(NT, 2) linear_seeded_devw(QArgs a) {
 __global__ void __launch_bounds__(NT, 2) quad_seeded_devw(QArgs a) {
   quotient_body<QUAD_SEEDED, false, DES_DEVW>(a);
 }
+// Pass B on the nets beyond the other kernels' limits (beyond_net: a hidden
+// width above NT, d above CORE_DIM), without the fold (such nets never take
+// it): the reverse sweep's BEYOND variant, at the budgets of the kernels
+// above (DES_BEYOND alone three blocks per SM, with DES_DEVW two).
+__global__ void __launch_bounds__(NT, 3) linear_seeded_beyond(QArgs a) {
+  quotient_body<LIN_SEEDED, false, DES_BEYOND>(a);
+}
+__global__ void __launch_bounds__(NT, 3) quad_seeded_beyond(QArgs a) {
+  quotient_body<QUAD_SEEDED, false, DES_BEYOND>(a);
+}
+__global__ void __launch_bounds__(NT, 2) linear_seeded_devw_beyond(QArgs a) {
+  quotient_body<LIN_SEEDED, false, DES_DEVW | DES_BEYOND>(a);
+}
+__global__ void __launch_bounds__(NT, 2) quad_seeded_devw_beyond(QArgs a) {
+  quotient_body<QUAD_SEEDED, false, DES_DEVW | DES_BEYOND>(a);
+}
 
 namespace {
 
@@ -334,19 +360,32 @@ QKernelFn sums_planned(int fold, int des, int minb) {
   }
 }
 
+// The seeded kinds' kernel of a variant and design: the core's routines
+// (des 0), the weights from device memory (DES_DEVW), and either for the
+// nets of beyond_net (| DES_BEYOND, no fold).
+template <bool LIN>
+QKernelFn seeded_kernel(int fold, int des) {
+  switch (des) {
+    case 0:
+      return LIN ? (fold ? linear_seeded_kernel<true> : linear_seeded_kernel<false>)
+                 : (fold ? quad_seeded_kernel<true> : quad_seeded_kernel<false>);
+    case DES_DEVW: return fold ? nullptr : LIN ? linear_seeded_devw : quad_seeded_devw;
+    case DES_BEYOND: return fold ? nullptr : LIN ? linear_seeded_beyond : quad_seeded_beyond;
+    case DES_DEVW | DES_BEYOND:
+      return fold ? nullptr : LIN ? linear_seeded_devw_beyond : quad_seeded_devw_beyond;
+    default: return nullptr;
+  }
+}
+
 // The kernel of a kind, variant and design: the seeded kinds on the core's
-// routines (des 0); the sums kinds in a planned design at the register
-// budget of minb blocks per SM.
+// routines (seeded_kernel); the sums kinds in a planned design at the
+// register budget of minb blocks per SM.
 QKernelFn qkernel_for(int kind, int fold, int des, int minb) {
   switch (kind) {
     case LIN_SUMS: return sums_planned<true>(fold, des, minb);
-    case LIN_SEEDED:
-      if (des == DES_DEVW) return fold ? nullptr : linear_seeded_devw;
-      return des ? nullptr : fold ? linear_seeded_kernel<true> : linear_seeded_kernel<false>;
+    case LIN_SEEDED: return seeded_kernel<true>(fold, des);
     case QUAD_SUMS: return sums_planned<false>(fold, des, minb);
-    case QUAD_SEEDED:
-      if (des == DES_DEVW) return fold ? nullptr : quad_seeded_devw;
-      return des ? nullptr : fold ? quad_seeded_kernel<true> : quad_seeded_kernel<false>;
+    case QUAD_SEEDED: return seeded_kernel<false>(fold, des);
     default: return nullptr;
   }
 }
@@ -362,7 +401,9 @@ extern "C" {
 // with the activation in the products' epilogues (at most 4 streams).  des,
 // minb: the sums kinds' planned design (fwdlap_planned.cuh) and register
 // budget in blocks per SM (2 or 3); the seeded kinds take 0, 0 (DES_DEVW,
-// 0 for their variant reading the weights from device memory).  wd: with
+// 0 for their variant reading the weights from device memory; DES_BEYOND
+// added, and only, for the nets of beyond_net).  Every kind takes the nets
+// beyond the other kernels' limits (make_net's `beyond`).  wd: with
 // DES_DEVW the hidden weights (the seeded kinds: then their transposes),
 // each rounded up to multiples of 4 with zeros, back to back (the resident
 // layout), else ignored.
@@ -379,13 +420,14 @@ int fused_quotient_f32(int kind, int lap, const float* X, const float* coef,
   QKernelFn fn = qkernel_for(kind, fold, des, minb);
   QArgs a;
   if (fn == nullptr || (lap != 0 && !is_linear(kind)) ||
-      !make_net(lap != 0 ? 1 : 0, layers, n_layers, act, &a.net) || N < 1 || T < 4 ||
+      !make_net(lap != 0 ? 1 : 0, layers, n_layers, act, &a.net, true) || N < 1 || T < 4 ||
       T % 4 != 0 || T > NT / 2 || G < 1 || flags < 0 || flags > 15 ||
       (fold && a.net.S > 4) ||
       (!is_seeded(kind) && (flags & ~(RES_WEIGHTS | DEV_WEIGHTS)) != 0) ||
       ((flags & DEV_WEIGHTS) != 0) != ((des & DES_DEVW) != 0) ||
       ((flags & DEV_WEIGHTS) && ((flags & RES_WEIGHTS) || (a.net.K > 2 && wd == nullptr))) ||
-      (is_seeded(kind) && (scal == nullptr || (a.net.K > 2 && scratch == nullptr))) ||
+      (is_seeded(kind) && (scal == nullptr || (a.net.K > 2 && scratch == nullptr) ||
+                           ((des & DES_BEYOND) != 0) != beyond_net(a.net))) ||
       4 * smem_floats(a.net, kind, T, flags) > smem_bytes)
     return (int)cudaErrorInvalidValue;
   a.X = X;
@@ -426,7 +468,7 @@ int fused_quotient_smem_bytes(int kind, int lap, const int* layers, int n_layers
                               int flags) {
   Net net;
   if (kind < LIN_SUMS || kind > QUAD_SEEDED || (lap != 0 && !is_linear(kind)) ||
-      !make_net(lap != 0 ? 1 : 0, layers, n_layers, 0, &net))
+      !make_net(lap != 0 ? 1 : 0, layers, n_layers, 0, &net, true))
     return -1;
   return 4 * smem_floats(net, kind, T, flags);
 }

@@ -24,11 +24,11 @@
 //     kernels: the launch plan of kernels/_plan.py at two blocks per SM,
 //     the hidden weights' transposes read from device memory, dW items dealt
 //     4 x 8 to a warp, and two-point items where their one-wave tile fits
-//     (fwdlap_planned.cuh has the design and what it is for); the linear and
-//     analytic kernels also take nets beyond the other kernels' limits (a
-//     hidden width above NT, d above CORE_DIM: DES_BEYOND, whose loss terms
-//     keep no per-point arrays; more than CORE_LAYERS weight matrices in
-//     any design; ROADMAP.md B7);
+//     (fwdlap_planned.cuh has the design and what it is for); the three
+//     also take nets beyond the other kernels' limits (a hidden width above
+//     NT, d above CORE_DIM: DES_BEYOND, whose loss terms keep no per-point
+//     arrays; more than CORE_LAYERS weight matrices in any design;
+//     ROADMAP.md B7);
 //   * the tensor-core design (body<KIND_FUSED> of fwdlap_mma.cuh, DES_MMA) --
 //     the bf16-dot mode of the three kernels (the TPU kernels'
 //     dot_dtype='bfloat16', which the bulk of compute_dtype='hybrid-kernel'
@@ -150,8 +150,32 @@ __device__ __forceinline__ void point_terms(const Args& A, int T, int base, cons
   const Net& net = A.net;
   const int d = net.d;
   // per-point loss terms and cotangent seeds
-  static_assert(MODE != MODE_DRM || !BEYOND, "the DRM kernel has no DES_BEYOND variant");
-  if constexpr (BEYOND) {
+  if constexpr (BEYOND && MODE == MODE_DRM) {
+    // the Ritz energy's terms below, each gradient stream read from proj
+    // where it is needed
+    for (int p = threadIdx.x; p < T; p += NT) {
+      const bool valid = base + p < A.N;
+      const float value = proj[p];
+      const float* cf = A.coef + (size_t)(base + p) * (d + 2);
+      const float B = valid ? cf[0] : 0.f;
+      const float f = valid ? cf[d + 1] : 0.f;
+      float e = 0.f, ctv = 0.f;
+      for (int i = 0; i < d; ++i) {
+        const float dB = valid ? cf[1 + i] : 0.f;
+        const float G = B * proj[(1 + i) * T + p] + dB * value;
+        e += 0.5f * G * G;
+        ctv += G * dB;
+        ct[(1 + i) * T + p] = G * B;
+      }
+      e -= f * B * value;
+      ctv -= f * B;
+      ct[p] = ctv;
+      ct[(d + 1) * T + p] = 0.f;
+      ps[p] = e;
+      ps[T + p] = ctv;
+      ps[2 * T + p] = 0.f;
+    }
+  } else if constexpr (BEYOND) {
     for (int p = threadIdx.x; p < T; p += NT) {
       const bool valid = base + p < A.N;
       const float value = proj[p];
@@ -415,13 +439,12 @@ PKernelFn planned_by(int des) {
     case DES_PLANNED | DES_DEVW:
       if constexpr (FOLD) return nullptr;
       else return planned_of<MODE, false, DES_PLANNED | DES_DEVW>();
-    // the nets beyond the other kernels' limits (beyond_net): no fold, no
-    // DRM energy
+    // the nets beyond the other kernels' limits (beyond_net): no fold
     case DES_PLANNED | DES_BEYOND:
-      if constexpr (FOLD || MODE == MODE_DRM) return nullptr;
+      if constexpr (FOLD) return nullptr;
       else return planned_of<MODE, false, DES_PLANNED | DES_BEYOND>();
     case DES_PLANNED | DES_DEVW | DES_BEYOND:
-      if constexpr (FOLD || MODE == MODE_DRM) return nullptr;
+      if constexpr (FOLD) return nullptr;
       else return planned_of<MODE, false, DES_PLANNED | DES_DEVW | DES_BEYOND>();
     default: return nullptr;
   }
@@ -467,11 +490,10 @@ int launch(int mode, const float* X, const float* coef, const float* params,
            float* scratch, float* out, int smem_bytes, void* stream) {
   PArgs a;
   const void* fn = variant_fn(mode, fold, bf16, des);
-  // the linear and analytic kernels' fp32 designs take the nets beyond the
-  // other kernels' limits, in their DES_BEYOND variant (beyond_net)
-  const bool beyond = !bf16 && mode != MODE_DRM;
+  // the fp32 designs take the nets beyond the other kernels' limits, in
+  // their DES_BEYOND variant (beyond_net)
   bool ok = fn != nullptr &&
-            make_net(mode == MODE_DRM ? 0 : 1, layers, n_layers, act, &a.net, beyond) &&
+            make_net(mode == MODE_DRM ? 0 : 1, layers, n_layers, act, &a.net, !bf16) &&
             N >= 1 && G >= 1;
   if (ok && (des & DES_MMA)) {
     mma::Geo g;
@@ -587,7 +609,7 @@ int fused_blocks_per_sm(int mode, int fold, int bf16, int des, int smem_bytes, i
 int fused_smem_bytes(int mode, const int* layers, int n_layers, int T, int flags) {
   Net net;
   if (mode < MODE_LINEAR || mode > MODE_DRM ||
-      !make_net(mode == MODE_DRM ? 0 : 1, layers, n_layers, 0, &net, mode != MODE_DRM))
+      !make_net(mode == MODE_DRM ? 0 : 1, layers, n_layers, 0, &net, true))
     return -1;
   return 4 * fused_smem_floats(net, T, flags);
 }

@@ -12,20 +12,21 @@
 // Every linear layer is then one (S*T, w_in) x (w_in, w_out) product over
 // all streams at once (the TPU kernels' concat_streams form).
 //
-// Widths.  Every kernel takes hidden widths from 1 to NT; the fused
-// residual kernels and the jet pair (fused_step.cu's linear and analytic
-// kernels, fwdlap_forward.cu's rows, fwdlap_backward.cu) also take wider,
-// deeper and higher-dimensional nets, to MAX_WIDTH, MAX_LAYERS weight
-// matrices and d = MAX_DIM (make_net's `beyond`; the others keep CORE_*).
-// The elementwise walks (UnitWalk) step NT entries at a time and wrap once
-// per step at any width (Net::ntq = NT / width is 0 above NT); the last
-// layer's dW split (NT / width threads per column) is the one routine that
-// needs NT / width >= 1, and the planned kernels' variant for such nets
-// (fwdlap_planned.cuh, DES_BEYOND) sums columns j, j + NT, ... one thread
-// each.  What a wide net costs is shared memory (the launch plans,
-// kernels/_plan.py; above NT only the weights in device memory fit).  Device memory
-// keeps the true sizes (net.w: the parameter vector, the gradient rows);
-// shared memory holds every hidden layer rounded up to a multiple of 4
+// Widths.  Every kernel takes hidden widths from 1 to NT; the fp32 fused
+// kernels (fused_step.cu), the jet pair (fwdlap_forward.cu's rows,
+// fwdlap_backward.cu) and the fp32 quotients (fused_quotient.cu) also take
+// wider, deeper and higher-dimensional nets, to MAX_WIDTH, MAX_LAYERS
+// weight matrices and d = MAX_DIM (make_net's `beyond`; the others keep
+// CORE_*).  The elementwise walks (UnitWalk) step NT entries at a time and
+// wrap once per step at any width (Net::ntq = NT / width is 0 above NT);
+// the last layer's dW split (NT / width threads per column) is the one
+// routine that needs NT / width >= 1, and the variants for such nets
+// (fwdlap_planned.cuh's DES_BEYOND, reverse_sweep's BEYOND) sum columns j,
+// j + NT, ... one thread each.  What a wide net costs is shared memory (the
+// launch plans, kernels/_plan.py; above NT only the weights in device
+// memory fit).  Device memory keeps the true sizes (net.w: the parameter
+// vector, the gradient rows); shared memory holds every hidden layer
+// rounded up to a multiple of 4
 // (net.wp, and wmax is the widest rounded width), the extra rows and
 // columns of a staged weight matrix zero.  A padded unit then carries zero
 // in every stream (sin(0) = tanh(0) = gelu(0) = 0, and its Jacobian and
@@ -98,9 +99,10 @@ constexpr int MAX_DIM = 64;      // input dimension
 // Hidden width: above ~1600 no tile of 4 points fits shared memory in any
 // fp32 kernel, and the cap keeps the layouts' int arithmetic in range.
 constexpr int MAX_WIDTH = 4096;
-// What the kernels other than the fused residual ones and the jet pair take
-// (make_net without `beyond`; header note), and the size of the per-thread
-// arrays of the fused kernels' loss terms (fused_step.cu) below DES_BEYOND.
+// What the kernels other than the fp32 fused ones, the jet pair and the
+// fp32 quotients take (make_net without `beyond`; header note), and the size
+// of the per-thread arrays of the fused kernels' loss terms (fused_step.cu)
+// below DES_BEYOND.
 constexpr int CORE_LAYERS = 16;
 constexpr int CORE_DIM = 16;
 
@@ -872,8 +874,11 @@ __device__ __forceinline__ void accum_dW(int rows, int T, int ld, int wi, int wo
 // grad, lap).  Each earlier stage's pre-activations are copied back from
 // scratch and overwritten by their cotangents; `cur`, `nxt` and `pre` are
 // all consumed.  Accumulates dW/db into the block's partial row `grow` (flat
-// parameter layout).
-template <bool RES = false, bool FOLD = false>
+// parameter layout).  BEYOND: the variant for the nets of beyond_net (the
+// seeded quotient kernels' DES_BEYOND, fused_quotient.cu), whose last
+// layer's dW split takes widths above NT; the other kernels compile without
+// it, so their code stays as it was.
+template <bool RES = false, bool FOLD = false, bool BEYOND = false>
 __device__ inline void reverse_sweep(const Net& net, int T, const float* __restrict__ xs,
                                      const float* __restrict__ params, float* cur,
                                      float* nxt, float* pre, float* Wsh,
@@ -885,19 +890,29 @@ __device__ inline void reverse_sweep(const Net& net, int T, const float* __restr
   const float* wlast = params + net.off[K - 1];
   // dWlast[j] += sum_r mid[r][j] * ct[r] over the S*T rows r = (s, p):
   // `parts` threads per column, each over every parts-th row, then the
-  // partial sums are added in a fixed order
-  const int parts = NT / wl;
-  if (threadIdx.x < parts * wl) {
-    const int j = threadIdx.x % wl, c = threadIdx.x / wl;
-    float acc = 0.f;
-    for (int r = c; r < S * T; r += parts) acc = fmaf(cur[r * ld + j], ct[r], acc);
-    red[threadIdx.x] = acc;
-  }
-  __syncthreads();
-  for (int j = threadIdx.x; j < wl; j += NT) {
-    float acc = 0.f;
-    for (int c = 0; c < parts; ++c) acc += red[c * wl + j];
-    grow[net.off[K - 1] + j] += acc;
+  // partial sums are added in a fixed order.  BEYOND at a width above NT
+  // (parts would be 0): one thread per column (j, j + NT, ...), every row
+  // in order, as reverse_sweep_p's DES_BEYOND does
+  if (BEYOND && wl > NT) {
+    for (int j = threadIdx.x; j < wl; j += NT) {
+      float acc = 0.f;
+      for (int r = 0; r < S * T; ++r) acc = fmaf(cur[r * ld + j], ct[r], acc);
+      grow[net.off[K - 1] + j] += acc;
+    }
+  } else {
+    const int parts = NT / wl;
+    if (threadIdx.x < parts * wl) {
+      const int j = threadIdx.x % wl, c = threadIdx.x / wl;
+      float acc = 0.f;
+      for (int r = c; r < S * T; r += parts) acc = fmaf(cur[r * ld + j], ct[r], acc);
+      red[threadIdx.x] = acc;
+    }
+    __syncthreads();
+    for (int j = threadIdx.x; j < wl; j += NT) {
+      float acc = 0.f;
+      for (int c = 0; c < parts; ++c) acc += red[c * wl + j];
+      grow[net.off[K - 1] + j] += acc;
+    }
   }
   // last stage: mid cotangent is rank one, ct * wlast
   stage_bwd(net, T, K - 1, pre, nullptr, ct, wlast, wl, nxt);
@@ -1001,8 +1016,8 @@ __device__ inline void reverse_sweep(const Net& net, int T, const float* __restr
 
 // The network description from its layer sizes (host side): false when
 // the kernels do not take the shape.  `lap`: carry the Laplacian stream.
-// `beyond`: the limits of the fused residual kernels and the jet pair
-// (MAX_*), else the other kernels' (CORE_*, widths to NT).
+// `beyond`: the limits of the fp32 fused kernels, the jet pair and the fp32
+// quotients (MAX_*), else the other kernels' (CORE_*, widths to NT).
 inline bool make_net(int lap, const int* layers, int n_layers, int act, Net* net,
                      bool beyond = false) {
   const int K = n_layers - 1;
@@ -1036,9 +1051,9 @@ inline bool make_net(int lap, const int* layers, int n_layers, int act, Net* net
   return true;
 }
 
-// Whether a net needs the planned kernels' DES_BEYOND variant: a hidden
-// width above NT (the last layer's dW split) or d above CORE_DIM (the fused
-// kernels' per-thread arrays).
+// Whether a net needs the DES_BEYOND variant of the planned kernels and of
+// the seeded quotients: a hidden width above NT (the last layer's dW split)
+// or d above CORE_DIM (the fused kernels' per-thread arrays).
 __host__ __device__ inline bool beyond_net(const Net& net) {
   return net.wmax > NT || net.d > CORE_DIM;
 }

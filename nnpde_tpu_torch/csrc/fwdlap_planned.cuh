@@ -51,7 +51,7 @@ namespace fwdlap {
 // from device memory (Flags::DEV_WEIGHTS), for nets whose weights do not
 // fit shared memory beside a tile; compiled without the fold only.
 // DES_BEYOND (with DES_PLANNED, alone or with DES_DEVW; no fold, 4 x 4
-// items): the variant of the fused residual kernels and the jet backward for
+// items): the variant of the fused kernels and the jet backward for
 // the nets beyond the other kernels' limits (beyond_net: a hidden width above
 // NT, d above CORE_DIM): the last layer's dW split takes widths above NT, the
 // fused kernels' loss terms keep no per-point arrays.  Compiled only for

@@ -41,9 +41,9 @@ design that reads the weights from device memory (``DEV_WEIGHTS``,
 ``_cuda.DES_DEVW``; pass B may still keep its gradient row on chip), at two
 blocks per SM, then one.  Every net within the limits of all
 the kernels (``_cuda.CORE_LIMITS``) gets a plan; a wider or
-higher-dimensional net, which only the fused residual kernels and the jet
-pair take, may fit no tile of 4 points and then raises :class:`NoFit`
-naming ``ROADMAP.md B7``.  ``T`` and ``tier`` pin a choice (tests, timing
+higher-dimensional net, which only rows 1-5 and 7-10 in fp32 take
+(``_cuda.BEYOND_KERNELS``), may fit no tile of 4 points and then raises
+:class:`NoFit` naming ``ROADMAP.md B7``.  ``T`` and ``tier`` pin a choice (tests, timing
 sweeps) and raise if it does not fit ``SMEM_MAX``.
 """
 

@@ -260,22 +260,29 @@ def plan(kind: str, layers, lap: int = 0, *, T: int | None = None,
          blocks: int = _plan.FWD_BLOCKS, N: int | None = None, sms: int = 132) -> _plan.Plan:
     """The launch shape of one kernel over its layout (``d + 1 + lap``
     streams).  The seeded kinds (pass B) take the shared plan of
-    :mod:`._plan` on the core's routines (``design`` 0); the sums kinds
-    (pass A) the planned design of the forward-only kernels (:func:`._plan.forward_only`, for N points on a
-    card of ``sms`` SMs: ``design`` pins its design, ``blocks`` caps its
-    blocks per SM).  ``T`` and ``tier`` pin a choice and raise if it does
-    not fit."""
+    :mod:`._plan` on the core's routines (``design`` 0, or ``DES_DEVW`` for
+    the weights from device memory), with ``DES_BEYOND`` added for the nets
+    of :func:`._cuda.beyond` and only for them; the sums kinds (pass A) the
+    planned design of the forward-only kernels (:func:`._plan.forward_only`,
+    for N points on a card of ``sms`` SMs: ``design`` pins its design,
+    ``blocks`` caps its blocks per SM), which takes such nets as it is.
+    ``T`` and ``tier`` pin a choice and raise if it does not fit; a net
+    whose stages fit no tile of 4 points raises :class:`._plan.NoFit`."""
     S = layers[0] + 1 + lap
     if kind.endswith("sums"):
         return _plan.forward_only(lambda t, flags: smem_floats(kind, layers, t, lap, flags),
                                   layers, S, f"{kind} plan", N, sms, design=design, T=T,
                                   tier=tier, blocks=blocks)
-    if design not in (None, 0, _cuda.DES_DEVW):
-        raise ValueError(f"{kind} plan: design {design} is not the core's (0) or "
-                         f"{_cuda.DES_DEVW} (the weights from device memory)")
-    return _plan.plan(lambda t, flags: smem_floats(kind, layers, t, lap, flags), layers,
-                      S, True, T=T, tier=tier, what=f"{kind} plan",
-                      device=None if design is None else bool(design))
+    beyond = _cuda.DES_BEYOND if _cuda.beyond(layers) else 0
+    if design not in (None, beyond, _cuda.DES_DEVW | beyond):
+        raise ValueError(f"{kind} plan: design {design} is not the core's ({beyond}) or "
+                         f"{_cuda.DES_DEVW | beyond} (the weights from device memory); "
+                         f"DES_BEYOND ({_cuda.DES_BEYOND}) is for the nets beyond the other "
+                         f"kernels' limits, and only they take it (layers {list(layers)})")
+    pl = _plan.plan(lambda t, flags: smem_floats(kind, layers, t, lap, flags), layers,
+                    S, True, T=T, tier=tier, what=f"{kind} plan",
+                    device=None if design is None else bool(design & _cuda.DES_DEVW))
+    return pl._replace(design=pl.design | beyond)
 
 
 def _launch(kind: str, params, X, coef, scal, activation: str, lap: int, *,

@@ -56,8 +56,8 @@ import ctypes
 
 import torch
 
-from ..ops.fwdlap import (Jet, mlp_fwdlap, project_plain, recompute_plain, reverse_plain,
-                          round_bf16)
+from ..ops.fwdlap import (SUM_ORDERS, Jet, contracted_stage, mlp_fwdlap, ordered_matmul,
+                          project_plain, recompute_plain, reverse_plain, round_bf16)
 from . import _cuda, _plan
 from ._cuda import on_cuda as _on_cuda
 from ._cuda import variant_name
@@ -73,13 +73,72 @@ def _jet_rows(jet: Jet) -> torch.Tensor:
     return torch.cat([jet.value[:, None], jet.grad, jet.lap[:, None]], dim=1)
 
 
-def fwdlap_forward_default_plain(params, X, activation: str):
+# The plain version's other sound rounding orders (ROADMAP.md C4): each
+# product's sums over k in SUM_ORDERS ("k": the k-ordered FMA chain of the
+# kernel's products on the CUDA cores), and the stage's multiply-adds fused
+# as the kernels compile them ("contracted").
+ROUNDING_ORDERS = SUM_ORDERS + ("contracted",)
+
+
+def fwdlap_forward_default_plain(params, X, activation: str, order: str | None = None):
     """Plain version of the row forward's bf16-dot variant
     (``fwd_impl='rows:default'``): the ``(N, d+2)`` rows of the recompute
-    with every product operand rounded to bf16, projected in fp32."""
-    _, final = recompute_plain(params, X, activation, round_bf16)
+    with every product operand rounded to bf16, projected in fp32.
+    ``order``: one of ``ROUNDING_ORDERS``, the same function rounded in
+    another sound order (:func:`~nnpde_tpu_torch.ops.fwdlap.ordered_matmul`,
+    :func:`~nnpde_tpu_torch.ops.fwdlap.contracted_stage`); their spread is
+    the plain version's own rounding noise, the basis of row 4 bf16's bar
+    (:func:`c4_columns`)."""
+    if order is not None and order not in ROUNDING_ORDERS:
+        raise ValueError(f"Unknown order {order!r}; one of {ROUNDING_ORDERS}")
+    mm = ordered_matmul(order) if order in SUM_ORDERS else torch.matmul
+    stage = contracted_stage if order == "contracted" else None
+    _, final = recompute_plain(params, X, activation, round_bf16, mm, stage)
     value, grad, lap = project_plain(params, final)
     return torch.cat([value[:, None], grad, lap[:, None]], dim=1)
+
+
+# The bar of row 4 bf16's jet columns (ROADMAP.md C4): the bf16 rounding of
+# every stage makes a column's distance from the float64 witness a count of
+# entries that round to the other bf16 neighbour, which any change of fp32
+# rounding order moves by up to 10x either way.  The kernel may lie as far
+# from the witness as the plain version does, and C4_SPREAD_MULTIPLE times
+# the plain version's spread over ROUNDING_ORDERS beyond that.  Measured on
+# an H100 at the 17 seeds of tools/fwd_bf16_columns.py --seeds on (1, 100 x
+# 3, 1) tanh: (kernel - plain) / spread at most 0.66 (7.5 over the sum
+# orders alone: the kernel is the plain version with its stage's
+# multiply-adds fused, the "contracted" order, to within 0.2% at every
+# seed); the multiple is 3x that, rounded.
+C4_SPREAD_MULTIPLE = 2.0
+
+
+def c4_columns(params, X, activation: str, out):
+    """Per jet column of a bf16-dot forward result ``out`` (N, d+2) on
+    ``(params, X)``, each as an rms over the column's mean magnitude: its
+    distance from the float64 witness (``kernel``), the plain version's
+    (``plain``), the plain version's spread (``spread``: the largest
+    distance of a ``ROUNDING_ORDERS`` variant from it) and the bar in force:
+    the larger of 2x ``plain`` + 2e-6 and ``plain`` + ``C4_SPREAD_MULTIPLE``
+    x ``spread``."""
+    p = fwdlap_forward_default_plain(params, X, activation).double()
+    variants = [fwdlap_forward_default_plain(params, X, activation, o).double()
+                for o in ROUNDING_ORDERS]
+    w = fwdlap_forward_default_plain([(W.double(), b.double()) for W, b in params],
+                                     X.double(), activation)
+    k = out.double()
+    rows = []
+    for c in range(w.shape[1]):
+        sc = float(w[:, c].abs().mean())
+
+        def rms(a, b):
+            return float((a[:, c] - b[:, c]).pow(2).mean().sqrt()) / sc
+
+        row = {"column": c, "kernel": rms(k, w), "plain": rms(p, w),
+               "spread": max(rms(v, p) for v in variants)}
+        row["bar"] = max(2.0 * row["plain"] + 2e-6,
+                         row["plain"] + C4_SPREAD_MULTIPLE * row["spread"])
+        rows.append(row)
+    return rows
 
 
 def fwdlap_backward_plain(params, X, ct, activation: str, dot_dtype: str = "float32"):

@@ -151,24 +151,88 @@ def _stage(activation, v, J, l):
     return pack, q, (pack[0], pack[1] * J, pack[1] * l + pack[2] * q)
 
 
-def recompute_plain(params, X, activation: str, cast):
+def _fma(a, b, c):
+    """``a * b + c`` with one rounding to ``a``'s float32 (the float64
+    product of two float32 values is exact; the sum is rounded in float64
+    first, which differs from a fused multiply-add only at a float32 tie)."""
+    return (a.double() * b.double() + c).to(a.dtype)
+
+
+def contracted_stage(activation, v, J, l):
+    """:func:`_stage` with its multiply-adds fused, one rounding each, as
+    nvcc compiles the kernels' ``act_pack`` and Laplacian mid stream
+    (``1 - t*t``, ``6*t*t - 2``, ``s1*l + s2*q``): another sound rounding
+    order of the same stage, for measuring what the order alone moves.
+    sin and tanh."""
+    if activation == "tanh":
+        t = torch.tanh(v)
+        u = _fma(-t, t, 1.0)
+        pack = (t, u, -2.0 * t * u, u * _fma(6.0 * t, t, -2.0))
+    elif activation == "sin":
+        pack = activation_pack(activation, v)
+    else:
+        raise ValueError(f"contracted_stage: sin and tanh only, got {activation!r}")
+    q = torch.sum(J * J, dim=0)
+    return pack, q, (pack[0], pack[1] * J, _fma(pack[1], l, pack[2] * q))
+
+
+SUM_ORDERS = ("k", "reversed", "pairwise")
+
+
+def ordered_matmul(order: str):
+    """``A @ W`` with each output's sum over k taken in a stated order, one
+    rounding per addition: ``"k"`` the chain k = 0, 1, ... (an FMA chain
+    where the products are exact, as they are for bf16 operands in float32),
+    ``"reversed"`` the chain from the last k, ``"pairwise"`` a balanced tree
+    (halves summed, then added).  Sound orders other than a library
+    product's own, for measuring what the order alone moves."""
+    if order not in SUM_ORDERS:
+        raise ValueError(f"Unknown sum order {order!r}; one of {SUM_ORDERS}")
+
+    def term(A, W, i):
+        return A[..., i:i + 1] * W[i]
+
+    def tree(A, W, lo, hi):
+        if hi - lo == 1:
+            return term(A, W, lo)
+        mid = (lo + hi) // 2
+        return tree(A, W, lo, mid) + tree(A, W, mid, hi)
+
+    def mm(A, W):
+        k = W.shape[0]
+        if order == "pairwise":
+            return tree(A, W, 0, k)
+        idx = range(k) if order == "k" else range(k - 1, -1, -1)
+        out = None
+        for i in idx:
+            out = term(A, W, i) if out is None else out + term(A, W, i)
+        return out
+
+    return mm
+
+
+def recompute_plain(params, X, activation: str, cast, matmul=torch.matmul, stage=None):
     """The TPU kernels' forward recompute (``_fwd_recompute``: all streams
     of a stage in one product) with every product operand passed through
     ``cast``: X, the stacked mid streams and the weights.  The layer-0
-    Jacobian seed rows are not cast.  Returns ``(saved, final)``:
+    Jacobian seed rows are not cast.  ``matmul`` and ``stage``: the product
+    and the stage's nonlinearity in other rounding orders
+    (:func:`ordered_matmul`, :func:`contracted_stage`).  Returns
+    ``(saved, final)``:
     ``saved[k-1] = (J, l, q, pack, Jmid, lmid)`` of hidden stage k, and
     ``final = (J, l, q, pack, (A, Jmid, lmid))`` of the last one."""
+    stage = _stage if stage is None else stage
     (W0, b0), (N, d) = params[0], X.shape
-    v = cast(X) @ cast(W0) + b0
+    v = matmul(cast(X), cast(W0)) + b0
     J = W0[:, None, :].expand(d, N, W0.shape[1])
     l = torch.zeros_like(v)
     saved = []
     for W, b in params[1:-1]:
-        pack, q, (A, Jm, lm) = _stage(activation, v, J, l)
+        pack, q, (A, Jm, lm) = stage(activation, v, J, l)
         saved.append((J, l, q, pack, Jm, lm))
-        O = cast(torch.cat([A[None], Jm, lm[None]], dim=0)) @ cast(W)
+        O = matmul(cast(torch.cat([A[None], Jm, lm[None]], dim=0)), cast(W))
         v, J, l = O[0] + b, O[1:1 + d], O[d + 1]
-    pack, q, mid = _stage(activation, v, J, l)
+    pack, q, mid = stage(activation, v, J, l)
     return saved, (J, l, q, pack, mid)
 
 

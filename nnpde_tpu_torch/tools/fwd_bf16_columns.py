@@ -38,7 +38,16 @@ the exact sum rounded to fp32 to nearest and toward zero.
     python -m nnpde_tpu_torch.tools.fwd_bf16_columns --seeds
 
 repeats the column distances on (1, 100 x 3, 1) tanh over SEEDS in the
-``halves``, ``tree`` and ``f32_all`` variants.
+``halves``, ``tree`` and ``f32_all`` variants, each beside the plain
+version's own spread over sound rounding orders
+(``kernels/fwdlap_cuda.py::ROUNDING_ORDERS``: its sums in three orders, its
+stage's multiply-adds fused); ``--seeds-of=tree`` runs one variant.
+
+    python -m nnpde_tpu_torch.tools.fwd_bf16_columns --orders
+
+runs the same seeds on the CPU, without the kernel: the plain version
+(the CPU library's product) and its other rounding orders against the
+witness.
 """
 
 from __future__ import annotations
@@ -286,36 +295,54 @@ def probe(n=20000, seed=5):
 SEED_NET, SEEDS = ((1, 100, 100, 100, 1), "tanh"), tuple(range(300, 316)) + (31,)
 
 
-def seeds(variant, N=40000):
+def seeds(variant, N=40000, device="cuda"):
     """Per seed of SEEDS on SEED_NET: each column's distance of the kernel
-    and of the plain version from the witness, as the rms over the column's
-    mean magnitude and as chip_smoke.py's norm-relative ``col_rel``."""
+    (``device`` cuda; none on the CPU), of the plain version and of the plain
+    version in each other rounding order of ``fwdlap_cuda.ROUNDING_ORDERS``
+    from the witness, as the rms over the column's mean magnitude, and as
+    chip_smoke.py's norm-relative ``col_rel`` for the first two; and the
+    plain version's spread, the largest rms distance of an order from the
+    plain version, over the sum orders alone (``spread_sums``) and over all
+    (``spread``; ROADMAP.md C4)."""
     import numpy as np
     import torch
 
     from ..interop import params_from_jax
     from ..kernels import fwdlap_cuda as tfc
 
-    _sources(variant)
-    dev = torch.device("cuda")
+    on_card = device == "cuda"
+    if on_card:
+        _sources(variant)
+    dev = torch.device(device)
     layers, act = SEED_NET
     for seed in SEEDS:
         rng = np.random.default_rng(seed)
         tp = params_from_jax(_params(rng, layers), device=dev)
         X = torch.as_tensor(rng.uniform(0.0, L, (N, layers[0])).astype(np.float32),
                             device=dev)
-        k = tfc.fwdlap_forward(tp, X, act, "rows:default").double()
+        k = tfc.fwdlap_forward(tp, X, act, "rows:default").double() if on_card else None
         p = tfc.fwdlap_forward_default_plain(tp, X, act).double()
+        o = {name: tfc.fwdlap_forward_default_plain(tp, X, act, name).double()
+             for name in tfc.ROUNDING_ORDERS}
         w = tfc.fwdlap_forward_default_plain([(W.double(), b.double()) for W, b in tp],
                                              X.double(), act)
         for c in range(layers[0] + 2):
             sc, nw = float(w[:, c].abs().mean()), float(torch.linalg.norm(w[:, c]))
-            print(json.dumps({
-                "variant": variant, "seed": seed, "column": c,
-                "kernel_rms": float((k[:, c] - w[:, c]).pow(2).mean().sqrt()) / sc,
-                "plain_rms": float((p[:, c] - w[:, c]).pow(2).mean().sqrt()) / sc,
-                "kernel_rel": float(torch.linalg.norm(k[:, c] - w[:, c])) / nw,
-                "plain_rel": float(torch.linalg.norm(p[:, c] - w[:, c])) / nw}), flush=True)
+
+            def rms(a, b):
+                return float((a[:, c] - b[:, c]).pow(2).mean().sqrt()) / sc
+
+            row = {"variant": variant if on_card else None, "device": device, "seed": seed,
+                   "column": c, "plain_rms": rms(p, w),
+                   "plain_rel": float(torch.linalg.norm(p[:, c] - w[:, c])) / nw}
+            if on_card:
+                row.update(kernel_rms=rms(k, w), kernel_plain=rms(k, p),
+                           kernel_rel=float(torch.linalg.norm(k[:, c] - w[:, c])) / nw)
+            for name, t in o.items():
+                row[f"{name}_rms"] = rms(t, w)
+            row["spread_sums"] = max(rms(t, p) for n, t in o.items() if n != "contracted")
+            row["spread"] = max(rms(t, p) for t in o.values())
+            print(json.dumps(row), flush=True)
 
 
 def main():
@@ -333,6 +360,9 @@ def main():
     of = [a for a in sys.argv[1:] if a.startswith("--seeds-of=")]
     if of:
         seeds(of[-1].split("=", 1)[1])
+        return
+    if "--orders" in sys.argv[1:]:
+        seeds(None, device="cpu")
         return
     if args:
         run(args[-1].split("=", 1)[1])

@@ -21,6 +21,7 @@ import torch
 from nnpde_tpu_torch.interop import params_from_jax
 from nnpde_tpu_torch.kernels import LAUNCHES
 from nnpde_tpu_torch.kernels import fused_step as tfs
+from nnpde_tpu_torch.tools.fwd_bf16_columns import SEEDS as C4_SEEDS
 
 L = 2.0
 
@@ -101,22 +102,38 @@ def test_cuda_kernel_matches_plain(dev, kind, d, layers, act):
 
 
 @pytest.mark.cuda
-def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(dev):
-    """A hidden width above the kernel's limit (4097: the fused residual
-    kernels take widths to 4096 since ROADMAP.md B7's first part; the DRM
-    energy keeps 256) and float64 tensors raise before any launch."""
+@pytest.mark.parametrize("name", sorted(LAUNCHES))
+def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(dev, name):
+    """The wrapper's check of each kernel (``_cuda.net_layers``, a launch
+    name) on card tensors: the kernels of ``_cuda.BEYOND_KERNELS`` (rows 1-5
+    and 7-10 in fp32, ROADMAP.md B7's first two items) take widths 257 and
+    1001, 24 weight matrices and d = 20, and raise above width 4096; every
+    other kernel (rows 6, 11, 12) and every bf16-dot mode raises on each,
+    naming the roadmap item.  The DRM energy, which kept width 256 until
+    then, launches on (2, 257, 1) (the launch counted, the loss finite);
+    float64 tensors raise before any launch."""
+    from nnpde_tpu_torch.kernels import _cuda
+
     rng = np.random.default_rng(0)
-    X = torch.rand(64, 2, device=dev)
-    coef = torch.zeros(64, 6, device=dev)
-    wide = params_from_jax(_np_params(rng, (2, 4097, 1)), device=dev)
-    with pytest.raises(ValueError, match="ROADMAP.md B7"):
-        tfs.fused_linear_residual(wide, X, coef, "sin")
-    wide = params_from_jax(_np_params(rng, (2, 257, 1)), device=dev)
-    with pytest.raises(ValueError, match="ROADMAP.md B7"):
-        tfs.fused_drm_energy(wide, X, torch.zeros(64, 4, device=dev), "sin")
+    beyond = ((2, 257, 1), (1, 1001, 300, 1), (2,) + (32,) * 23 + (1,), (20, 16, 16, 1))
+    for layers in beyond + ((2, 4097, 1),):
+        tp = params_from_jax(_np_params(rng, layers), device=dev)
+        X = torch.rand(64, layers[0], device=dev)
+        if name in _cuda.BEYOND_KERNELS and layers[1] <= 4096:
+            assert _cuda.net_layers(name, tp, X, "sin") == list(layers)
+        else:
+            with pytest.raises(ValueError, match="ROADMAP.md B7"):
+                _cuda.net_layers(name, tp, X, "sin")
+    if name == "fused_drm_energy":
+        wide = params_from_jax(_np_params(rng, (2, 257, 1)), device=dev)
+        before = LAUNCHES[name]
+        loss, _, _ = tfs.fused_drm_energy(wide, torch.rand(64, 2, device=dev),
+                                          torch.rand(64, 4, device=dev), "sin")
+        torch.cuda.synchronize()
+        assert LAUNCHES[name] == before + 1 and math.isfinite(float(loss))
     p64 = params_from_jax(_np_params(rng, (2, 32, 1)), device=dev, dtype=torch.float64)
     with pytest.raises(TypeError):
-        tfs.fused_linear_residual(p64, X.double(), coef.double(), "sin")
+        _cuda.net_layers(name, p64, torch.rand(64, 2, device=dev, dtype=torch.float64), "sin")
 
 
 @pytest.mark.cuda
@@ -2221,24 +2238,89 @@ def test_cuda_beyond_nets_match_plain(dev, kind, layers, act):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind,lap", [("drm", None), ("linear_sums", 0), ("linear_sums", 1),
+                                      ("linear_seeded", 0), ("linear_seeded", 1),
+                                      ("quad_sums", 0), ("quad_seeded", 0)])
+@pytest.mark.parametrize("layers,act", _BEYOND_NETS)
+def test_cuda_beyond_quotient_nets_match_plain(dev, kind, lap, layers, act):
+    """Rows 3 and 7-10 on each B7 net (rows 7 and 8 with and without the
+    Laplacian stream) against their float64 plain versions, by the bars of
+    the other shapes (``_check_fused``, ``_check_pass_a``,
+    ``_check_quotient``: repeats bitwise, each launch counted), on the plan
+    the wrapper takes: a ``DES_BEYOND`` design for rows 3, 8 and 10 exactly
+    where the net is beyond the other kernels' limits, none for pass A (7,
+    9); the weights in device memory above width 256."""
+    from nnpde_tpu_torch.kernels import _cuda
+    from nnpde_tpu_torch.kernels import fused_quotient as tfq
+
+    if kind == "drm":
+        pl = tfs.plan(_FUSED[kind], list(layers))
+        _check_fused(dev, kind, layers, act)
+    elif kind.endswith("sums"):
+        pl = tfq.plan(kind, list(layers), lap, N=1007, sms=_cuda.sm_count(dev))
+        _check_pass_a(dev, kind, layers, act, lap)
+    else:
+        pl = tfq.plan(kind, list(layers), lap)
+        _check_quotient(dev, kind, layers, act, lap)
+    assert bool(pl.design & _cuda.DES_BEYOND) == (_cuda.beyond(layers)
+                                                  and not kind.endswith("sums"))
+    assert bool(pl.design & _cuda.DES_DEVW) == (max(layers[1:-1]) > 256)
+
+
+@pytest.mark.cuda
 def test_cuda_beyond_nofit_raises(dev):
     """(20, 512 x 4, 1): no tile of 4 points fits its stages, so each of the
-    four wrappers raises NoFit naming ROADMAP.md B7, and nothing launches."""
+    nine wrappers of rows 1-5 and 7-10 raises NoFit naming ROADMAP.md B7
+    (rows 7 and 8 with and without the Laplacian stream), and nothing
+    launches."""
     from nnpde_tpu_torch.kernels import _cuda, _plan
+    from nnpde_tpu_torch.kernels import fused_quotient as tfq
     from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
 
     layers, N = (20, 512, 512, 512, 512, 1), 64
     tp = params_from_jax(_np_params(np.random.default_rng(5), layers), device=dev)
     X = torch.rand(N, 20, device=dev)
+    lin, quad = torch.zeros(N, 25, device=dev), torch.zeros(N, 23, device=dev)
     calls = [lambda: tfs.fused_linear_residual(tp, X, torch.zeros(N, 24, device=dev), "sin"),
              lambda: tfs.fused_poisson_analytic(tp, X, "sin", L=L, ks=(1,) * 20),
+             lambda: tfs.fused_drm_energy(tp, X, torch.zeros(N, 22, device=dev), "sin"),
              lambda: tfc.fwdlap_forward(tp, X, "sin"),
-             lambda: tfc.fwdlap_backward(tp, X, torch.zeros(N, 22, device=dev), "sin")]
+             lambda: tfc.fwdlap_backward(tp, X, torch.zeros(N, 22, device=dev), "sin"),
+             lambda: tfq.fused_quad_sums(tp, X, quad, "sin"),
+             lambda: tfq.fused_quad_seeded_grads(tp, X, quad, (0.4, -0.3), "sin")]
+    for no_lap in (False, True):
+        calls += [lambda no_lap=no_lap: tfq.fused_linear_sums(tp, X, lin, "sin", no_lap=no_lap),
+                  lambda no_lap=no_lap: tfq.fused_seeded_grads(tp, X, lin, (0.3, -0.2, 0.7),
+                                                               "sin", no_lap=no_lap)]
     before = dict(_cuda.LAUNCHES)
     for call in calls:
         with pytest.raises(_plan.NoFit, match="ROADMAP.md B7"):
             call()
     assert _cuda.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", C4_SEEDS)
+def test_cuda_bf16_forward_tanh_within_c4_bar(dev, seed):
+    """Row 4 bf16 (``fwd_impl='rows:default'``) on (1, 100 x 3, 1) tanh at
+    40000 points, at every seed of the study of ``ROADMAP.md`` C4 (the draws
+    of ``tools/fwd_bf16_columns.py``): each jet column no further from the
+    float64 witness than C4's bar (``fwdlap_cuda.c4_columns``: the larger of
+    2x the plain version's distance + 2e-6 and the plain version's distance
+    + ``C4_SPREAD_MULTIPLE`` times its spread over sound rounding orders).
+    A column's distance counts the entries that round to the other bf16
+    neighbour; the plain version's own rounding orders move it by up to
+    10x either way, and the kernel's multiply-adds, fused where the plain
+    version rounds twice, are one such order (PERF.md, C4)."""
+    from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
+
+    rng = np.random.default_rng(seed)
+    layers, N = (1, 100, 100, 100, 1), 40000
+    tp = params_from_jax(_np_params(rng, layers), device=dev)
+    X = torch.as_tensor(rng.uniform(0.0, L, (N, 1)).astype(np.float32), device=dev)
+    out = tfc.fwdlap_forward(tp, X, "tanh", "rows:default")
+    for col in tfc.c4_columns(tp, X, "tanh", out):
+        assert col["kernel"] <= col["bar"], col
 
 
 @pytest.mark.cuda
@@ -2253,9 +2335,9 @@ def test_cuda_bf16_forward_within_twice_plain_of_float64(dev, layers, act):
     rows).  On (1, 100 x 3, 1) tanh the value column was 7.7x its plain
     version's distance while the products feeding a bf16 rounding ran on
     the tensor cores, which cut their sums toward zero (fwdlap_mma.cuh,
-    f32_products).  (The grad and Laplacian columns of that net exceed 2x
-    the plain version's distance at 1-2 of 17 seeds in every accumulation,
-    all on the CUDA cores included: PERF.md, PR 20.)"""
+    f32_products).  (That net's grad and Laplacian columns are held at all
+    17 seeds of its study by C4's bar:
+    ``test_cuda_bf16_forward_tanh_within_c4_bar``.)"""
     from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
 
     rng = np.random.default_rng(31)

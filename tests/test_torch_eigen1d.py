@@ -480,11 +480,10 @@ def test_missing_card_raises(monkeypatch):
 @pytest.mark.parametrize("name", sorted(_cuda.LAUNCHES))
 def test_widths_above_each_kernels_limit_raise(name):
     """Every kernel's wrapper check takes hidden widths up to its limit
-    (``_cuda.LIMITS``: 256 for every kernel but the fused residual kernels
-    and the jet pair in fp32, which take 4096, their plans refusing what no
-    tile fits) and raises above it, naming the kernel, its limit and the
-    roadmap item of the wider nets.  The nets are views of one row: no
-    4096 x 4096 matrix is made."""
+    (``_cuda.LIMITS``: 256 for every kernel but rows 1-5 and 7-10 in fp32,
+    which take 4096, their plans refusing what no tile fits) and raises
+    above it, naming the kernel, its limit and the roadmap item of the wider
+    nets.  The nets are views of one row: no 4096 x 4096 matrix is made."""
     limit = _cuda.LIMITS[name].width
     assert limit == (4096 if name in _cuda.BEYOND_KERNELS else 256)
     X = torch.zeros(4, 1)
