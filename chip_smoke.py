@@ -46,7 +46,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    epochs, loss falling below its first value); WAN with n_test_grid = 4 (16
    bumps) on 'torch' and 'fused' (150 epochs): the same band, the first
    weak-form term within 1e-3, all finite, rel_l2 falling, exact launch
-   counts; then 100 epochs each of grid_jitter and
+   counts; then 50 epochs each of grid_jitter and
    minimax='extragradient', and 100 PINN epochs on 'kernel:streams'.
    (The stream-major jet forward is the row forward's kernel and plan with
    a stream-major write: eigen_kernels also holds it equal to the row
@@ -206,23 +206,32 @@ Phases (each prints one JSON line; any failure exits non-zero):
    counts, and ``cli.main`` on the first, bitwise its rel_l2; wide_timing
    times the six kernels at width 200, d = 2, at the paths' N and 262144.
 16. beyond (group ``beyond``): nets beyond the other kernels' limits
-   (``ROADMAP.md`` B7), which rows 1-5 and 7-10 take in fp32.
-   beyond_kernels holds the nine (rows 7 and 8 with and without the
-   Laplacian stream) on (2, 512 x 4, 1) sin, (1, 1001, 300, 1) tanh, (18,
+   (``ROADMAP.md`` B7), which every fp32 kernel takes (rows 1-12).
+   beyond_kernels holds the twelve (rows 7 and 8 with and without the
+   Laplacian stream; rows 11 and 12 at 16 bumps, and at the cap of 42 on
+   the d = 20 net) on (2, 512 x 4, 1) sin, (1, 1001, 300, 1) tanh, (18,
    128, 128, 1) gelu, (20, 64 x 4, 1) sin and (2, 32 x 23, 1) tanh at 1007
-   and 20000 points to their float64 plain versions (the loss and every
-   gradient leaf, every jet column, rel <= 1e-5, each pass-A sum within
-   1e-5 of its terms' magnitudes; repeats bitwise; the DES_BEYOND design
-   where the net needs it); (20, 512 x 4, 1) raises NoFit naming B7 in
-   each, and rows 6, 11, 12 and every bf16-dot mode raise naming B7 on (2,
-   300, 300, 1); beyond_path trains ``train_poisson_nd`` at width 512 (P1
-   PINN: 'fused', 'fused' analytic, 'kernel'; P4 DRM; 200 epochs; P7 WAN
-   with a 512-wide critic, 20), d = 20 (P2 PINN: 'fused', 'kernel'; P5 DRM;
-   100; P8 WAN, 30) and 24 weight matrices (P3 PINN, P6 DRM: 'fused'; 100)
-   against the 'torch' route's run: first total within 1e-5, PINN and DRM
-   rel_l2 <= max(2 x torch's, 1e-3), the WAN the cut WAN paths' gate, each
-   kernel's launches exact; beyond_timing times the nine on the P1, P2 and
-   P3 nets at 20000 and 262144 points.
+   points and at the paths' 20000 (rows 11, 12: 40000) to their float64
+   plain versions (the loss and every gradient leaf, every jet column, rel
+   <= 1e-5, each pass-A sum within 1e-5 of its terms' magnitudes; rows 3,
+   6-12 also within 1e-5 beyond twice the float32 plain version's own
+   distance; repeats bitwise; row 6 bitwise row 4; the DES_BEYOND design
+   where the net needs it, the weights in device memory on the 512-wide
+   net); (20, 512 x 4, 1) raises NoFit naming B7 in each, and every
+   bf16-dot mode raises naming B7 on (2, 300, 300, 1); beyond_path trains
+   ``train_poisson_nd`` at width 512 (P1 PINN: 'fused', 'fused' analytic,
+   'kernel'; P4 DRM; 200 epochs; P7 WAN with a 512-wide critic, 20), d = 20
+   (P2 PINN: 'fused', 'kernel'; P5 DRM; 100; P8 WAN, 30) and 24 weight
+   matrices (P3 PINN, P6 DRM: 'fused'; 100) against the 'torch' route's
+   run: first total within 1e-5, PINN and DRM rel_l2 <= max(2 x torch's,
+   1e-3), the WAN the cut WAN paths' gate, each kernel's launches exact;
+   beyond_eigen_path trains ``train_ipw_2d`` (state (3, 3), FN, 40000 grid
+   points) at width 512 (Q1 the 16-bump WAN with a (2, 512, 512, 1) critic,
+   'fused', 20 epochs; Q2 the PINN on 'kernel:streams' and 'kernel', 50)
+   and at 24 weight matrices (Q3: 'kernel:streams', 50; the 16-bump WAN,
+   30) against 'torch', by the same gates; beyond_timing times the twelve
+   on the P1, P2 and P3 nets at the paths' points (rows 11, 12 also on
+   the Q1 critic) and at 262144.
 
 ``python3 chip_smoke.py eigen`` (or any other phase-group name: kernels,
 wan, main, eigen, ipw3d, neumann, eigen1d, qho2d, kh, subspace, floquet,
@@ -1412,13 +1421,14 @@ def phase_eigen_path():
         "epochs_per_s_fused": wf["result"].timing["steps_per_s"],
         "launches": cf, "per_epoch": EIGEN_WAN_PER_EPOCH, "ok": wan_ok}
     side_ok = True
+    side = 50          # (100 before, cut for the run's clock)
     for name, kw, per in (("grid_jitter", dict(grid_jitter=True), EIGEN_JITTER_PER_EPOCH),
                           ("extragradient", dict(minimax="extragradient"), EIGEN_EG_PER_EPOCH)):
-        out, counts, wall = run(jet_impl="fused", **dict(wan, epochs=100), **kw)
+        out, counts, wall = run(jet_impl="fused", **dict(wan, epochs=side), **kw)
         h = out["history"]
         s_ok = bool(all(np.all(np.isfinite(h[k])) for k in ("total", "l2", "wan_loss_v"))
-                    and only(counts, {k: n * 100 for k, n in per.items()}))
-        report["wan_" + name] = {"epochs": 100, "launches": counts, "per_epoch": per,
+                    and only(counts, {k: n * side for k, n in per.items()}))
+        report["wan_" + name] = {"epochs": side, "launches": counts, "per_epoch": per,
                                  "wall_s": wall, "rel_l2": out["rel_l2"],
                                  "total_last": float(h["total"][-1]), "ok": s_ok}
         side_ok = side_ok and s_ok
@@ -1443,6 +1453,13 @@ def phase_eigen_path():
 def multibump_plan(case):
     """The launch shape the K-bump wrapper chose for this case (after a
     launch): tile, shared memory, blocks, and what stays on chip."""
+    return _multibump_plan(case.kind, case.layers, case.Kb, case.N, case.X.device)
+
+
+def _multibump_plan(kind, layers, Kb, N, dev):
+    """The same for a net, bump count and point count: with the design (0,
+    DES_DEVW for the weights from device memory, DES_BEYOND added on pass B
+    for the nets beyond the other kernels' limits)."""
     from nnpde_tpu_torch.kernels import fused_multibump as fm
 
     try:
@@ -1451,16 +1468,17 @@ def multibump_plan(case):
         resident = fm.resident
     from nnpde_tpu_torch.kernels import _cuda, _plan
 
-    seeded = case.kind == "multi_seeded"
-    pl = fm.plan(seeded, case.layers, case.Kb)
+    dev = torch.device("cuda", torch.cuda.current_device()) if dev.index is None else dev
+    seeded = kind == "multi_seeded"
+    pl = fm.plan(seeded, layers, Kb)
     devw = pl.flags & getattr(_plan, "DEV_WEIGHTS", 0)
-    if devw:      # the variant reading the weights from device memory (no fold)
-        blocks = _cuda.grid(case.kind, None, pl.smem, case.X.device,
-                            (case.N + pl.T - 1) // pl.T, devw)
+    if devw or pl.design:   # the variants without the fold, keyed by their design
+        blocks = _cuda.grid(kind, None, pl.smem, dev, (N + pl.T - 1) // pl.T,
+                            pl.design or devw)
     else:
-        blocks = launch_blocks(case.kind, case.layers, case.d + 1, pl, case.X.device, case.N)
+        blocks = launch_blocks(kind, layers, layers[0] + 1, pl, dev, N)
     return {"T": pl.T, "smem_bytes": pl.smem, "blocks": blocks, "tier": pl.tier,
-            "resident": resident(pl, seeded)}
+            "design": pl.design, "resident": resident(pl, seeded)}
 
 
 def phase_eigen_timing(dev, only=None):
@@ -2168,7 +2186,7 @@ MMA_SOURCE = "nnpde_tpu_torch/csrc/fwdlap_mma.cuh"
 DES_ARG = {"fused_linear_residual_f32": 12, "fused_poisson_analytic_f32": 11,
            "fwdlap_forward_f32": 11, "fwdlap_backward_f32": 12, "fused_drm_energy_f32": 12,
            "fused_quotient_mma_f32": 13, "fused_multibump_mma_f32": 13,
-           "fused_quotient_f32": 14}
+           "fused_quotient_f32": 14, "fused_multibump_f32": 20}
 BF16_PEAK = 989e12       # H100 SXM bf16 tensor cores, dense (FLOP/s)
 PREC_TOL = 1e-4
 # The jet forward's columns are per-point outputs: an operand that rounds to
@@ -3796,12 +3814,13 @@ def phase_wide_timing(dev):
 
 
 # ------------------------------------------- nets beyond the other kernels' limits (B7)
-# Rows 1, 2, 4, 5 in fp32 take hidden widths above 256, more than 16 weight
-# matrices and d > 16 (the fused residual kernels' and the jet backward's
-# DES_BEYOND variant where the net needs it; the weights in device memory
-# above width 256; row 4's routines as they are).  The nets: (2, 512 x 4,
-# 1), the Poisson path's 512-wide net; a ragged wide one; d = 18 at width
-# 128; (20, 64 x 4, 1), the 20-dimensional path's; 24 weight matrices.
+# Every fp32 kernel takes hidden widths above 256, more than 16 weight
+# matrices and d > 16 (the DES_BEYOND variants of the kernels with a
+# reverse sweep where the net needs it; the weights in device memory above
+# width 256; the forward-only rows' routines as they are).  The nets: (2,
+# 512 x 4, 1), the Poisson path's 512-wide net; a ragged wide one; d = 18
+# at width 128; (20, 64 x 4, 1), the 20-dimensional path's; 24 weight
+# matrices.
 BEYOND_NETS = {"u512": ((2,) + (512,) * 4 + (1,), "sin"),
                "w1001": ((1, 1001, 300, 1), "tanh"),
                "d18": ((18, 128, 128, 1), "gelu"),
@@ -3814,7 +3833,11 @@ BEYOND_KERNELS = ("fused_linear_residual", "fused_poisson_analytic", "fwdlap_for
 BEYOND_Q_KINDS = (("fused_drm_energy", 0), ("linear_sums", 0), ("linear_sums", 1),
                   ("linear_seeded", 0), ("linear_seeded", 1), ("quad_sums", 0),
                   ("quad_seeded", 0))
-BEYOND_ALL = BEYOND_KERNELS + tuple(dict.fromkeys(k for k, _ in BEYOND_Q_KINDS))
+# the kernels of the Poisson paths (BEYOND_PATHS)
+BEYOND_P_KINDS = BEYOND_KERNELS + tuple(dict.fromkeys(k for k, _ in BEYOND_Q_KINDS))
+# rows 6, 11 and 12 (the 2D well's kernels) on the same nets
+BEYOND_E_KINDS = ("fwdlap_forward_streams", "multi_sums", "multi_seeded")
+BEYOND_ALL = BEYOND_P_KINDS + BEYOND_E_KINDS
 BEYOND_N = 20000             # the Poisson paths' points
 # no tile of 4 points fits its stages: the rest of ROADMAP.md B7
 BEYOND_NOFIT = (20, 512, 512, 512, 512, 1)
@@ -3844,8 +3867,31 @@ BEYOND_PATHS = {
     "P8": (dict(dim=20, width=64, depth=5, critic_width=64, method="WAN"), 30,
            {"fused": WAN_PER_EPOCH}),
 }
-# what the other kernels and modes are refused on a B7 net (each raises
-# naming ROADMAP.md B7)
+# the paths through train_ipw_2d (IPW2DConfig fields; state (3, 3), FN, the
+# default 200^2 grid, chunk 1000), cut to these epochs, with each kernel's
+# launches per epoch (the PINN's per step) on each route: Q1 the 16-bump
+# WAN at width 512 with a critic as wide (else the critic's pair stays on
+# the other kernels' shapes), Q2 the PINN at width 512 on both jet layouts,
+# Q3 24 weight matrices (the PINN on the stream-major layout, the 16-bump
+# WAN with the default critic)
+BEYOND_U512 = (2,) + (512,) * 4 + (1,)
+BEYOND_K24 = (2,) + (64,) * 23 + (1,)
+BEYOND_EIGEN_PATHS = {
+    "Q1": ("ipw2d-wan16-u512", dict(method="WAN", n_test_grid=4, layers=BEYOND_U512,
+                                    v_layers=(2, 512, 512, 1)), 20,
+           {"fused": EIGEN_WAN_PER_EPOCH}),
+    "Q2": ("ipw2d-pinn-streams-u512", dict(method="PINN", weights={"data": 1e4},
+                                           layers=BEYOND_U512), 50,
+           {"kernel:streams": {"fwdlap_forward_streams": 1, "fwdlap_backward": 1},
+            "kernel": {"fwdlap_forward": 1, "fwdlap_backward": 1}}),
+    "Q3_pinn": ("ipw2d-k24", dict(method="PINN", weights={"data": 1e4}, layers=BEYOND_K24), 50,
+                {"kernel:streams": {"fwdlap_forward_streams": 1, "fwdlap_backward": 1}}),
+    "Q3_wan": ("ipw2d-k24", dict(method="WAN", n_test_grid=4, layers=BEYOND_K24,
+                                 v_layers=EIGEN_V), 30,
+               {"fused": EIGEN_WAN_PER_EPOCH}),
+}
+# what the bf16-dot modes are refused on a B7 net (each raises naming
+# ROADMAP.md B7)
 BEYOND_REFUSED = (2, 300, 300, 1)
 
 
@@ -3854,20 +3900,22 @@ BEYOND_TIMED = {"u512": BEYOND_NETS["u512"], "d20": BEYOND_NETS["d20"],
                 "k24": ((2,) + (64,) * 23 + (1,), "sin")}
 
 
-def _beyond_case(kind, net, N, dev, seed, lap=0):
+def _beyond_case(kind, net, N, dev, seed, lap=0, Kb=EIGEN_BUMPS):
     layers, act = net
     if kind.startswith("fused"):
         return Case(kind, N, layers[0], layers, act, seed=seed, dev=dev)
     if kind == "fwdlap_forward" or kind.startswith(("linear", "quad")):
         return WanCase(kind, N, layers, act, seed=seed, dev=dev, lap=lap)
-    return EigenCase(kind, N, layers, act, seed=seed, dev=dev)
+    return EigenCase(kind, N, layers, act, seed=seed, dev=dev, Kb=Kb)
 
 
-def _beyond_plan(kind, layers, lap, N, dev):
+def _beyond_plan(kind, layers, lap, N, dev, Kb=EIGEN_BUMPS):
     """The plan the wrapper of any beyond kernel took (after a launch)."""
     from nnpde_tpu_torch.kernels import fused_quotient as fq
 
-    if kind == "fwdlap_forward" or kind.endswith("sums"):
+    if kind.startswith("multi"):
+        return _multibump_plan(kind, layers, Kb, N, dev)
+    if kind.startswith("fwdlap_forward") or kind.endswith("sums"):
         return pass_a_plan(kind, layers, lap, N, dev)
     if kind.endswith("seeded"):
         return plan_row(kind, layers, layers[0] + 1 + lap, fq.plan(kind, layers, lap), N, dev)
@@ -3877,12 +3925,12 @@ def _beyond_plan(kind, layers, lap, N, dev):
 def _beyond_leaves(case, kind, layers, out):
     """A beyond kernel's result (or its plain version's, same layout) as
     the list the bars compare: [loss, leaves...] (rows 1-3), [jet rows]
-    (row 4), [sums] (rows 7, 9), the gradient leaves (row 5; rows 8, 10 with
-    sum ct_v last)."""
+    (rows 4, 6), [sums] (rows 7, 9, 11), the gradient leaves (row 5; rows 8,
+    10, 12 with sum ct_v last)."""
     if kind.startswith("fused"):
         loss, g = (out[0], out[2]) if len(out) == 3 else out
         return [loss.reshape(1)] + [t for p in g for t in p]
-    if kind == "fwdlap_forward" or kind.endswith("sums"):
+    if kind.startswith("fwdlap_forward") or kind.endswith("sums"):
         return [out]
     if kind.endswith("seeded"):
         P = out.numel() - 1
@@ -3894,11 +3942,11 @@ def _hold_beyond(case, kind, layers, fp32_noise=False):
     """One beyond case launched twice against its float64 plain version:
     (got, again, ref, rel, excess) with ``rel`` the bar's measure: the loss
     and every gradient leaf (rows 1-3, 5, 8, 10; with sum ct_v for the
-    seeded kinds) and every jet column (row 4) norm-relative, each pass-A
-    sum over the sum of its terms' magnitudes (rows 7, 9).  ``fp32_noise``
-    (rows 3, 7-10): ``excess``, the largest distance of a loss, leaf or sum
-    beyond twice the plain version's own float32 distance in the same
-    measure (None without it)."""
+    seeded kinds) and every jet column (rows 4, 6) norm-relative, each
+    pass-A sum over the sum of its terms' magnitudes (rows 7, 9, 11).
+    ``fp32_noise`` (rows 3, 6-12): ``excess``, the largest distance of a
+    loss, leaf, sum or jet column beyond twice the plain version's own
+    float32 distance in the same measure (None without it)."""
     out = case.kernel()
     out2 = case.kernel()
     torch.cuda.synchronize()
@@ -3906,8 +3954,13 @@ def _hold_beyond(case, kind, layers, fp32_noise=False):
     ref = _beyond_leaves(case, kind, layers, case.plain(torch.float64))
     p32 = (_beyond_leaves(case, kind, layers, case.plain(torch.float32)) if fp32_noise
            else None)
-    if kind == "fwdlap_forward":
-        return got, again, ref, col_rel(out, ref[0]), None
+    if kind.startswith("fwdlap_forward"):
+        def cols(x):
+            return [col_rel(x[0][:, c:c + 1], ref[0][:, c:c + 1]) for c in range(x[0].shape[1])]
+
+        excess = (max(k - 2.0 * p for k, p in zip(cols(got), cols(p32))) if fp32_noise
+                  else None)
+        return got, again, ref, col_rel(out, ref[0]), excess
     if kind.endswith("sums"):
         terms = case.abs_terms()
 
@@ -3937,16 +3990,20 @@ def _leaf_split(flat, layers):
 
 
 def phase_beyond_kernels(dev):
-    """Rows 1-5 and 7-10 (fp32; rows 7 and 8 with and without the Laplacian
-    stream) on each BEYOND_NETS net at 1007 points and at the paths' 20000,
-    against their float64 plain versions: the loss and every gradient leaf
-    (with sum ct_v for rows 8, 10) and every jet column rel <= 1e-5, each
-    pass-A sum within 1e-5 of the sum of its terms' magnitudes; two launches
-    bitwise equal; each launch's design (DES_BEYOND on the nets that need it,
-    for rows 1-3, 5, 8, 10) and its plan.  Then BEYOND_NOFIT raises NoFit
-    naming ROADMAP.md B7 in each of the nine wrappers, and on BEYOND_REFUSED
-    the other kernels (rows 6, 11, 12) and every bf16-dot mode raise naming
-    it too."""
+    """Every fp32 kernel (rows 7 and 8 with and without the Laplacian
+    stream) on each BEYOND_NETS net at 1007 points and at the paths' 20000
+    (rows 11 and 12: the 2D well's 40000, at 16 bumps, and at the cap of 42
+    on the d = 20 net), against their float64 plain versions: the loss and
+    every gradient leaf (with sum ct_v for rows 8, 10, 12) and every jet
+    column rel <= 1e-5, each pass-A sum within 1e-5 of the sum of its
+    terms' magnitudes (rows 3, 6-12: or within 1e-5 beyond twice the float32
+    plain version's own distance in the same measure); two launches bitwise
+    equal; row 6 bitwise row 4; each launch's design (DES_BEYOND on the nets
+    that need it, for rows 1-3, 5, 8, 10, 12; rows 6, 11, 12 read the
+    weights from device memory on the 512-wide net) and its plan.  Then
+    BEYOND_NOFIT raises NoFit naming ROADMAP.md B7 in each of the twelve
+    wrappers, and on BEYOND_REFUSED every bf16-dot mode raises naming it
+    too."""
     from nnpde_tpu_torch.kernels import _cuda, _plan
     from nnpde_tpu_torch.kernels import fused_multibump as fm
     from nnpde_tpu_torch.kernels import fused_quotient as fq
@@ -3955,41 +4012,60 @@ def phase_beyond_kernels(dev):
 
     t0 = time.time()
     rows, max_err = [], {}
-    kinds = [(k, 0, 700 + i) for i, k in enumerate(BEYOND_KERNELS)]
-    kinds += [(k, lap, 740 + i) for i, (k, lap) in enumerate(BEYOND_Q_KINDS)]
-    for net, (layers, act) in BEYOND_NETS.items():
-        for kind, lap, seed in kinds:
-            for N in (1007, BEYOND_N):
-                case = _beyond_case(kind, (layers, act), N, dev, seed=seed, lap=lap)
-                with _cuda.capture() as cap:
-                    case.kernel()
-                designs = sorted({args[DES_ARG[fn.__name__]] for _, fn, args, _, _ in cap.calls})
-                new = kind not in BEYOND_KERNELS
-                got, again, ref, rel, excess = _hold_beyond(case, kind, layers, fp32_noise=new)
-                bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
-                err = max(float(torch.max(torch.abs(a.double() - b.double())))
-                          for a, b in zip(got, ref))
-                max_err[kind] = max(max_err.get(kind, 0.0), err)
-                beyond = (kind != "fwdlap_forward" and not kind.endswith("sums")
-                          and _cuda.beyond(layers))
-                plan = _beyond_plan(kind, layers, lap, N, dev)
-                # rows 3, 7-10: within 1e-5, or within 1e-5 beyond twice the
-                # plain version's own float32 distance from float64 in the
-                # same leaf or sum (the port's rule against a witness where
-                # the float32 result itself is off: a deep net's leaves sum
-                # terms that cancel; on K24 at 1007 points the float32 plain
-                # version of row 8 is 1.1e-5 from float64 in one leaf on an
-                # H100, 2.1e-5 on the CPU, the kernel 2.4e-5)
-                close = rel <= 1e-5 or (excess is not None and excess <= 1e-5)
-                row = {"kernel": kind, "lap": lap, "net": net, "N": N, "layers": list(layers),
-                       "act": act, "plan": plan, "designs": designs, "rel": rel,
-                       "rel_beyond_plain_fp32": excess, "max_abs_err": err,
-                       "bitwise_repeat": bitwise,
-                       "ok": bool(close and bitwise and len(designs) == 1
-                                  and bool(designs[0] & _cuda.DES_BEYOND) == beyond)}
-                rows.append(row)
-                del case, got, again, ref
-                torch.cuda.empty_cache()
+    # (kernel, lap, seed, point counts)
+    kinds = [(k, 0, 700 + i, (1007, BEYOND_N)) for i, k in enumerate(BEYOND_KERNELS)]
+    kinds += [(k, lap, 740 + i, (1007, BEYOND_N)) for i, (k, lap) in enumerate(BEYOND_Q_KINDS)]
+    kinds += [(k, 0, 780 + i, (1007, BEYOND_N if k.startswith("fwd") else EIGEN_N))
+              for i, k in enumerate(BEYOND_E_KINDS)]
+    cases = [(net, kind, lap, seed, EIGEN_BUMPS, N) for net in BEYOND_NETS
+             for kind, lap, seed, Ns in kinds for N in Ns]
+    # the K-bump pair at the cap of 42 bumps on the d = 20 net
+    cases += [("d20", kind, 0, 790 + i, fm.MAX_BUMPS, EIGEN_N)
+              for i, kind in enumerate(BEYOND_E_KINDS[1:])]
+    for net, kind, lap, seed, Kb, N in cases:
+        layers, act = BEYOND_NETS[net]
+        case = _beyond_case(kind, (layers, act), N, dev, seed=seed, lap=lap, Kb=Kb)
+        with _cuda.capture() as cap:
+            case.kernel()
+        designs = sorted({args[DES_ARG[fn.__name__]] for _, fn, args, _, _ in cap.calls})
+        new = kind not in BEYOND_KERNELS
+        got, again, ref, rel, excess = _hold_beyond(case, kind, layers, fp32_noise=new)
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        err = max(float(torch.max(torch.abs(a.double() - b.double())))
+                  for a, b in zip(got, ref))
+        max_err[kind] = max(max_err.get(kind, 0.0), err)
+        beyond = (not kind.startswith("fwdlap_forward") and not kind.endswith("sums")
+                  and _cuda.beyond(layers))
+        plan = _beyond_plan(kind, layers, lap, N, dev, Kb)
+        # rows 3, 6-12: within 1e-5, or within 1e-5 beyond twice the plain
+        # version's own float32 distance from float64 in the same leaf, sum
+        # or column (the port's rule against a witness where the float32
+        # result itself is off: a deep net's leaves sum terms that cancel;
+        # on K24 at 1007 points the float32 plain version of row 8 is 1.1e-5
+        # from float64 in one leaf on an H100, 2.1e-5 on the CPU, the kernel
+        # 2.4e-5)
+        close = rel <= 1e-5 or (excess is not None and excess <= 1e-5)
+        row = {"kernel": kind, "lap": lap, "net": net, "N": N, "layers": list(layers),
+               "act": act, "plan": plan, "designs": designs, "rel": rel,
+               "rel_beyond_plain_fp32": excess, "max_abs_err": err,
+               "bitwise_repeat": bitwise}
+        ok = (close and bitwise and len(designs) == 1
+              and bool(designs[0] & _cuda.DES_BEYOND) == beyond)
+        if kind in BEYOND_E_KINDS:
+            row["n_bumps"] = Kb if kind.startswith("multi") else None
+            # the weights from device memory where no staging matrix fits
+            row["device_weights"] = bool(designs and designs[0] & _cuda.DES_DEVW)
+            ok = ok and row["device_weights"] == (max(layers[1:-1]) > 256)
+        if kind == "fwdlap_forward_streams":
+            # row 6 is row 4's kernel on row 4's plan with its stream-major
+            # write: the same floats
+            row["equals_rows"] = bool(torch.equal(
+                got[0], fc.fwdlap_forward(case.params, case.X, case.act)))
+            ok = ok and row["equals_rows"]
+        row["ok"] = bool(ok)
+        rows.append(row)
+        del case, got, again, ref
+        torch.cuda.empty_cache()
     # what still raises
     raised = {}
     rng = np.random.default_rng(710)
@@ -4000,6 +4076,7 @@ def phase_beyond_kernels(dev):
         coef = torch.zeros(N, d + 4, device=dev)
         lin, quad = torch.zeros(N, d + 5, device=dev), torch.zeros(N, d + 3, device=dev)
         drm, ct = torch.zeros(N, d + 2, device=dev), torch.zeros(N, d + 2, device=dev)
+        multi, seeds = torch.zeros(N, 4 * (d + 4), device=dev), (torch.zeros(4, device=dev),) * 3
         scal_l, scal_q = (0.3, -0.2, 0.7), (0.4, -0.3)
         if name == "nofit":
             calls = {
@@ -4010,7 +4087,11 @@ def phase_beyond_kernels(dev):
                 "fwdlap_forward": lambda: fc.fwdlap_forward(p, X, "sin"),
                 "fwdlap_backward": lambda: fc.fwdlap_backward(p, X, ct, "sin"),
                 "quad_sums": lambda: fq.fused_quad_sums(p, X, quad, "sin"),
-                "quad_seeded": lambda: fq.fused_quad_seeded_grads(p, X, quad, scal_q, "sin")}
+                "quad_seeded": lambda: fq.fused_quad_seeded_grads(p, X, quad, scal_q, "sin"),
+                "fwdlap_forward_streams": lambda: fc.fwdlap_forward(p, X, "sin", "streams"),
+                "multi_sums": lambda: fm.fused_multi_sums(p, X, multi, "sin", 4),
+                "multi_seeded": lambda: fm.fused_multi_seeded_grads(p, X, multi, seeds, "sin",
+                                                                    4)}
             for no_lap in (False, True):
                 tag = ":no_lap" if no_lap else ""
                 calls["linear_sums" + tag] = lambda no_lap=no_lap: fq.fused_linear_sums(
@@ -4020,15 +4101,10 @@ def phase_beyond_kernels(dev):
         else:
             bf = dict(dot_dtype="bfloat16")
             calls = {
-                "fwdlap_forward_streams": lambda: fc.fwdlap_forward(p, X, "sin", "streams"),
-                "multi_sums": lambda: fm._launch(False, p, X, torch.zeros(N, 4 * (d + 4),
-                                                                          device=dev),
-                                                 None, "sin", 4),
-                "multi_seeded": lambda: fm._launch(True, p, X, torch.zeros(N, 4 * (d + 4),
-                                                                           device=dev),
-                                                   torch.zeros(12, device=dev), "sin", 4),
                 "fused_linear_residual.bf16": lambda: fs.fused_linear_residual(
                     p, X, coef, "sin", **bf),
+                "fused_poisson_analytic.bf16": lambda: fs.fused_poisson_analytic(
+                    p, X, "sin", L=L, ks=(1,) * d, **bf),
                 "fused_drm_energy.bf16": lambda: fs.fused_drm_energy(p, X, drm, "sin", **bf),
                 "fwdlap_forward.bf16": lambda: fc.fwdlap_forward(p, X, "sin", "rows:default"),
                 "fwdlap_backward.bf16": lambda: fc.fwdlap_backward(p, X, ct, "sin", "bfloat16"),
@@ -4038,7 +4114,10 @@ def phase_beyond_kernels(dev):
                                                                     no_lap=True, **bf),
                 "quad_sums.bf16": lambda: fq.fused_quad_sums(p, X, quad, "sin", **bf),
                 "quad_seeded.bf16": lambda: fq.fused_quad_seeded_grads(p, X, quad, scal_q,
-                                                                       "sin", **bf)}
+                                                                       "sin", **bf),
+                "multi_sums.bf16": lambda: fm.fused_multi_sums(p, X, multi, "sin", 4, **bf),
+                "multi_seeded.bf16": lambda: fm.fused_multi_seeded_grads(p, X, multi, seeds,
+                                                                         "sin", 4, **bf)}
         for kind, call in calls.items():
             before = dict(_cuda.LAUNCHES)
             try:
@@ -4073,7 +4152,7 @@ def phase_beyond_path():
     from nnpde_tpu_torch.problems import PoissonConfig, train_poisson_nd
 
     t0 = time.time()
-    report, launches, ok = {"phase": "beyond_path"}, dict.fromkeys(BEYOND_ALL, 0), True
+    report, launches, ok = {"phase": "beyond_path"}, dict.fromkeys(BEYOND_P_KINDS, 0), True
     for name, (shape, epochs, routes) in BEYOND_PATHS.items():
         base = dict(method="PINN", bc_mode="FBC", epochs=epochs, n_interior=BEYOND_N,
                     chunk=1000)
@@ -4125,44 +4204,123 @@ def phase_beyond_path():
     return launches
 
 
+def phase_beyond_eigen_path():
+    """BEYOND_EIGEN_PATHS through ``train_ipw_2d`` as users call it (state
+    (3, 3), FN, the 200^2 grid, chunk 1000, the JAX package's initial
+    weights for seed 0), each route against the 'torch' route's run of the
+    same configuration in this call, each kernel launched exactly its count
+    per epoch.  The WAN (Q1, Q3): the first total within 1e-5 (relative),
+    the first 10 within 5e-2, the first weak-form term within 1e-3, every
+    history finite, both runs' best L2 error below their first.  The PINN
+    (Q2, Q3): the first total within 1e-5 of 'torch's (and of 'kernel's:
+    rows 4 and 6 run the same arithmetic), finite, the final rel_l2 <=
+    max(2 x torch's, 1e-3) or the best L2 error below the first.  Returns
+    the beyond kernels' launches over the paths (``launches_beyond``; rows
+    6, 11 and 12 must be among them)."""
+    from nnpde_tpu_torch.kernels import LAUNCHES, reset_launches
+    from nnpde_tpu_torch.problems import IPW2DConfig, train_ipw_2d
+
+    t0 = time.time()
+    report, launches, ok = {"phase": "beyond_eigen_path"}, dict.fromkeys(BEYOND_ALL, 0), True
+    base = dict(nx=3, ny=3, technique="FN", chunk=1000)
+    for name, (cell, shape, epochs, routes) in BEYOND_EIGEN_PATHS.items():
+        wan = shape["method"] == "WAN"
+        runs = {}
+        for route in ("torch",) + tuple(routes):
+            reset_launches()
+            t1 = time.time()
+            r = train_ipw_2d(IPW2DConfig(jet_impl=route, epochs=epochs, **base, **shape))
+            runs[route] = (r, {k: v for k, v in LAUNCHES.items() if v}, time.time() - t1)
+        ref = runs["torch"][0]
+        rows = {}
+        for route, (r, counts, wall) in runs.items():
+            h, hr = r["history"], ref["history"]
+            want = {k: n * epochs for k, n in routes.get(route, {}).items()}
+            first, first10 = _first_band(ref, r)
+            keys = ("total", "l2", "pde") + (("wan_loss_v",) if wan else ())
+            finite = all(np.all(np.isfinite(h[k])) for k in keys)
+            falling = bool(r["L2_error"] < h["l2"][0])
+            row = {"rel_l2": r["rel_l2"], "rel_l2_first": _rel_l2_first(r),
+                   "total0": float(h["total"][0]), "total0_rel": first,
+                   "first10_max_rel": first10, "finite": finite, "falling": falling,
+                   "launches": counts, "want": want, "wall_s": wall,
+                   "epochs_per_s": r["result"].timing["steps_per_s"]}
+            good = finite and first <= 1e-5 and counts == want
+            if wan:
+                pde0 = float(abs(h["pde"][0] - hr["pde"][0]) / abs(hr["pde"][0]))
+                row["pde0_rel"] = pde0
+                good = good and first10 <= 5e-2 and pde0 <= 1e-3 and falling
+            else:
+                if "kernel" in runs:
+                    k0 = float(runs["kernel"][0]["history"]["total"][0])
+                    row["total0_rel_vs_kernel"] = abs(float(h["total"][0]) - k0) / abs(k0)
+                    good = good and row["total0_rel_vs_kernel"] <= 1e-5
+                good = good and (r["rel_l2"] <= max(2.0 * ref["rel_l2"], 1e-3) or falling)
+            row["ok"] = bool(good)
+            ok = ok and row["ok"]
+            for k, n in counts.items():
+                if k in launches:
+                    launches[k] += n
+            rows[route] = row
+        report[name] = {"cell": cell, "method": shape["method"], "epochs": epochs,
+                        "layers": list(shape["layers"]),
+                        "v_layers": list(shape.get("v_layers", ())) or None, "routes": rows}
+    report["launches_beyond"] = launches
+    report["ok"] = bool(ok and all(launches[k] for k in BEYOND_E_KINDS))
+    report["phase_s"] = time.time() - t0
+    emit(report)
+    if not report["ok"]:
+        raise SystemExit("beyond eigen path check failed")
+    return launches
+
+
 def phase_beyond_timing(dev):
-    """Rows 1-5 and 7-10 (fp32; rows 7 and 8 without the Laplacian stream,
-    as the WAN runs them) on the P1, P2 and P3 nets (BEYOND_TIMED) at 20000
-    and 262144 points: wrapper and device ms, the plan (tier, T, blocks per
-    SM), the bound (max(FLOP / 67 TFLOP/s, bytes / 3.35 TB/s), the table's
-    FLOP rules) and the plain version's ms (None where the plain version's
-    autograd does not fit the card's memory)."""
+    """Every fp32 kernel (rows 7 and 8 without the Laplacian stream, as the
+    WAN runs them; rows 11 and 12 at 16 bumps) on the P1, P2 and P3 nets
+    (BEYOND_TIMED) at the paths' points (20000; row 6 also at 40000, rows
+    11 and 12 at the 2D well's 40000, and on Q1's (2, 512, 512, 1) critic
+    there) and at 262144: wrapper and device ms, the plan (tier, T, blocks
+    per SM), the bound (max(FLOP / 67 TFLOP/s, bytes / 3.35 TB/s), the
+    table's FLOP rules) and the plain version's ms (None where the plain
+    version's autograd does not fit the card's memory)."""
     t0 = time.time()
     rows = []
-    kinds = [(k, 720 + i) for i, k in enumerate(BEYOND_KERNELS)]
-    kinds += [(k, 760 + i) for i, k in enumerate(BEYOND_ALL[len(BEYOND_KERNELS):])]
-    for net, (layers, act) in BEYOND_TIMED.items():
-        for kind, seed in kinds:
-            for N in (BEYOND_N, 262144):
-                big = N > 100000
-                case = _beyond_case(kind, (layers, act), N, dev, seed=seed)
-                flops, nbytes = case.flops(), case.bytes()
-                # a launch on u512 at 262144 takes ~0.1-1 s: few timed calls
-                slow = big and macs(layers) > 200000
-                ms = time_ms(case.kernel, warmup=1 if slow else 2,
-                             reps=1 if slow else 5 if big else 15)
-                dev_ms = device_ms(case.kernel, launches=2 if slow else 5 if big else 30,
-                                   reps=1 if slow else 3 if big else 5)
-                try:
-                    plain_ms = time_ms(lambda: case.plain(torch.float32), warmup=1,
-                                       reps=1 if slow else 3 if big else 7)
-                except torch.cuda.OutOfMemoryError:
-                    plain_ms = None
-                torch.cuda.empty_cache()
-                plan = _beyond_plan(kind, layers, 0, N, dev)
-                rows.append({"kernel": kind, "net": net, "d": layers[0], "N": N, "plan": plan,
-                             "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-                             "bound_ms": 1e3 * max(flops / FP32_PEAK, nbytes / HBM_RATE),
-                             "bound_by": ("operations" if flops / FP32_PEAK
-                                          >= nbytes / HBM_RATE else "bytes"),
-                             "flop": flops, "bytes": nbytes})
-                del case
-                torch.cuda.empty_cache()
+    kinds = [(k, 720 + i, (BEYOND_N, 262144)) for i, k in enumerate(BEYOND_KERNELS)]
+    kinds += [(k, 760 + i, (BEYOND_N, 262144) if k.startswith(("fused", "linear", "quad"))
+               else (BEYOND_N, EIGEN_N, 262144) if k.startswith("fwd") else (EIGEN_N, 262144))
+              for i, k in enumerate(BEYOND_ALL[len(BEYOND_KERNELS):])]
+    cells = [(net, net_act, kind, seed, N) for net, net_act in BEYOND_TIMED.items()
+             for kind, seed, Ns in kinds for N in Ns]
+    cells += [("c512", ((2, 512, 512, 1), "sin"), kind, 766 + i, EIGEN_N)
+              for i, kind in enumerate(BEYOND_E_KINDS[1:])]
+    for net, (layers, act), kind, seed, N in cells:
+        big = N > 100000
+        case = _beyond_case(kind, (layers, act), N, dev, seed=seed)
+        flops, nbytes = case.flops(), case.bytes()
+        # a launch on u512 at 262144 takes ~0.1-1 s: few timed calls
+        slow = big and macs(layers) > 200000
+        ms = time_ms(case.kernel, warmup=1 if slow else 2,
+                     reps=1 if slow else 5 if big else 15)
+        dev_ms = device_ms(case.kernel, launches=2 if slow else 5 if big else 30,
+                           reps=1 if slow else 3 if big else 5)
+        try:
+            plain_ms = time_ms(lambda: case.plain(torch.float32), warmup=1,
+                               reps=1 if slow else 3 if big else 7)
+        except torch.cuda.OutOfMemoryError:
+            plain_ms = None
+        torch.cuda.empty_cache()
+        plan = _beyond_plan(kind, layers, 0, N, dev)
+        row = {"kernel": kind, "net": net, "d": layers[0], "N": N, "plan": plan,
+               "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+               "bound_ms": 1e3 * max(flops / FP32_PEAK, nbytes / HBM_RATE),
+               "bound_by": ("operations" if flops / FP32_PEAK
+                            >= nbytes / HBM_RATE else "bytes"),
+               "flop": flops, "bytes": nbytes}
+        if kind.startswith("multi"):
+            row["n_bumps"] = case.Kb
+        rows.append(row)
+        del case
+        torch.cuda.empty_cache()
     emit({"phase": "beyond_timing", "phase_s": time.time() - t0, "rows": rows})
     return rows
 
@@ -6270,6 +6428,8 @@ def main():
         for kind, err in phase_beyond_kernels(dev).items():
             max_err[kind] = max(max_err.get(kind, 0.0), err)
         beyond_launches = phase_beyond_path()
+        for kind, n in phase_beyond_eigen_path().items():
+            beyond_launches[kind] = beyond_launches.get(kind, 0) + n
         phase_beyond_timing(dev)
     rows = wan_rows = eigen_rows = prec_rows = b1_rows = []
     if "timing" in want:

@@ -57,13 +57,22 @@
 // split at fragment load) were right to 6e-6 on the card but 16-26% slower
 // at these tile sizes, and their registers cost a resident block.
 //
-// Widths.  Every hidden width to 256, as the core takes.  One wmax^2 staging
-// matrix is 256 KB at width 256, more than a block gets: where no tier with
-// the weights on chip fits even at 4 points, the plan takes the core's
-// DEV_WEIGHTS tier (the kernels' _devw variants, no fold, two blocks per
-// SM): the products read a padded copy of the hidden weights (pass B: and
-// their transposes) in the resident layout from device memory, through the
-// caches.  The products stay fp32 FFMA and the sums stay double.
+// Widths.  Both passes take the nets beyond the other kernels' limits (hidden
+// widths to MAX_WIDTH, MAX_LAYERS weight matrices, d to MAX_DIM: make_net's
+// `beyond`, ROADMAP.md B7), as the fp32 quotients do: pass A as it is (the
+// core's forward routines take any width, depth and d; its epilogue keeps
+// no per-point arrays), pass B in its DES_BEYOND variants (reverse_sweep's
+// BEYOND: the last layer's dW one thread per column above NT units), taken
+// by exactly the nets of beyond_net, so every other net keeps its code.
+// One wmax^2 staging matrix is 256 KB at width 256, more than a block
+// gets: where no tier with the weights on chip fits even at 4 points, the
+// plan takes the core's DEV_WEIGHTS tier (the kernels' _devw variants, no
+// fold, two blocks per SM): the products read a padded copy of the hidden
+// weights (pass B: and their transposes) in the resident layout from device
+// memory, through the caches.  Above width 256 that is every net's tier,
+// and pass B's gradient row (3.2 MB at (2, 512 x 4, 1)) fits no block, so
+// each tile adds into the block's row in device memory.  The products stay
+// fp32 FFMA and the sums stay double.
 //
 // Shared memory per block, floats (smem_floats): block-end sums 2-6 NT;
 // 2 (pass A) or 3 (pass B) stream buffers of (d+1)*T*wmax; the resident
@@ -83,7 +92,7 @@
 // and returns cudaGetLastError().
 #include <mutex>
 
-#include "fwdlap_core.cuh"
+#include "fwdlap_planned.cuh"
 
 using namespace fwdlap;
 
@@ -118,9 +127,12 @@ __host__ __device__ inline int smem_floats(const Net& net, int seeded, int T, in
   return n;
 }
 
-// DEVW: the hidden weights read from A.wd (Flags::DEV_WEIGHTS).
-template <bool SEEDED, bool FOLD, bool DEVW = false>
+// DEVW: the hidden weights read from A.wd (Flags::DEV_WEIGHTS).  BEYOND
+// (pass B, the nets of beyond_net): the reverse sweep's variant for widths
+// above NT.
+template <bool SEEDED, bool FOLD, bool DEVW = false, bool BEYOND = false>
 __device__ void multibump_body(const MArgs& A) {
+  static_assert(SEEDED || !BEYOND, "pass A takes any net as it is");
   extern __shared__ __align__(16) float smem[];
   const Net& net = A.net;
   const int T = A.T, d = net.d, S = net.S, ld = net.wmax, Kb = A.Kb;
@@ -214,8 +226,8 @@ __device__ void multibump_body(const MArgs& A) {
         ct[comp * T + p] = acc;
       }
       __syncthreads();
-      reverse_sweep<true, FOLD>(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch, ct, red,
-                                grow, res);
+      reverse_sweep<true, FOLD, BEYOND>(net, T, xs, A.params, cur, nxt, bufC, Wsh, scratch, ct,
+                                        red, grow, res);
     } else {
       if (my_c < parts) {
         for (int p = my_c; p < T; p += parts) {
@@ -281,13 +293,33 @@ __global__ void __launch_bounds__(NT, 2) multi_sums_devw(MArgs a) {
 __global__ void __launch_bounds__(NT, 2) multi_seeded_devw(MArgs a) {
   multibump_body<true, false, true>(a);
 }
+// Pass B on the nets beyond the other kernels' limits (beyond_net: a hidden
+// width above NT, d above CORE_DIM), without the fold (such nets never take
+// it: more than 4 streams, or more items than threads at any tile): the
+// reverse sweep's BEYOND variant at two blocks per SM, staged or with
+// DEV_WEIGHTS.  Such a net's stages leave room for two blocks at most (d >
+// 16: (d+1) streams; a width above NT: the weights from device memory), and
+// at the three-block budget the staged variant spilled (80 registers).
+__global__ void __launch_bounds__(NT, 2) multi_seeded_beyond(MArgs a) {
+  multibump_body<true, false, false, true>(a);
+}
+__global__ void __launch_bounds__(NT, 2) multi_seeded_devw_beyond(MArgs a) {
+  multibump_body<true, false, true, true>(a);
+}
 
 namespace {
 
 typedef void (*MKernelFn)(MArgs);
 
-MKernelFn mkernel_for(int seeded, int fold, int flags) {
-  if (flags & DEV_WEIGHTS) return fold ? nullptr : seeded ? multi_seeded_devw : multi_sums_devw;
+// The kernel of a pass, variant and design: des DES_DEVW (with
+// flags DEV_WEIGHTS) the weights from device memory, DES_BEYOND (pass B, no
+// fold) the variant for the nets of beyond_net, alone or with DES_DEVW.
+MKernelFn mkernel_for(int seeded, int fold, int flags, int des) {
+  const bool devw = (flags & DEV_WEIGHTS) != 0;
+  if (devw != ((des & DES_DEVW) != 0) || (des & ~(DES_DEVW | DES_BEYOND)) != 0) return nullptr;
+  if (des & DES_BEYOND)
+    return !seeded || fold ? nullptr : devw ? multi_seeded_devw_beyond : multi_seeded_beyond;
+  if (devw) return fold ? nullptr : seeded ? multi_seeded_devw : multi_sums_devw;
   if (seeded) return fold ? multi_seeded_kernel<true> : multi_seeded_kernel<false>;
   return fold ? multi_sums_kernel<true> : multi_sums_kernel<false>;
 }
@@ -328,20 +360,24 @@ extern "C" {
 // more than one hidden layer (else may be null).  smem_bytes must hold the
 // layout of multibump_body for (T, flags).  wd: with DEV_WEIGHTS the hidden
 // weights (pass B: then their transposes), each rounded up to multiples of
-// 4 with zeros, back to back (the resident layout), else ignored.
+// 4 with zeros, back to back (the resident layout), else ignored.  des: the
+// plan's design, DES_DEVW exactly with DEV_WEIGHTS, and for pass B
+// DES_BEYOND added exactly for the nets of beyond_net.  Both passes take the
+// nets beyond the other kernels' limits (make_net's `beyond`).
 int fused_multibump_f32(int seeded, int n_bumps, const float* X, const float* coef,
                         const float* params, const float* scal, const int* layers,
                         int n_layers, int act, int N, int T, int G, int flags, int fold,
                         float* partial, float* scratch, float* out, int smem_bytes,
-                        void* stream, const float* wd) {
+                        void* stream, const float* wd, int des) {
   MArgs a;
-  MKernelFn fn = mkernel_for(seeded, fold, flags);
+  MKernelFn fn = mkernel_for(seeded, fold, flags, des);
   if (fn == nullptr || n_bumps < 1 || n_bumps > MAX_BUMPS ||
-      !make_net(0, layers, n_layers, act, &a.net) || N < 1 || T < 4 || T % 4 != 0 ||
+      !make_net(0, layers, n_layers, act, &a.net, true) || N < 1 || T < 4 || T % 4 != 0 ||
       T > NT / 2 || G < 1 || flags < 0 || flags > 15 ||
       ((flags & DEV_WEIGHTS) && ((flags & RES_WEIGHTS) || (a.net.K > 2 && wd == nullptr))) ||
       (fold && a.net.S > 4) ||
       (seeded && a.net.K > 2 && scratch == nullptr) ||
+      ((des & DES_BEYOND) != 0) != (seeded && beyond_net(a.net)) ||
       4 * smem_floats(a.net, seeded, T, n_bumps, flags) > smem_bytes)
     return (int)cudaErrorInvalidValue;
   a.X = X;
@@ -367,10 +403,11 @@ int fused_multibump_f32(int seeded, int n_bumps, const float* X, const float* co
 }
 
 // Resident blocks per SM for a pass and variant (fold; flags: DEV_WEIGHTS
-// or not) at a dynamic shared-memory size.
-int fused_multibump_blocks_per_sm(int seeded, int fold, int flags, int smem_bytes,
+// or not; des: the plan's design, as fused_multibump_f32 takes it) at a
+// dynamic shared-memory size.
+int fused_multibump_blocks_per_sm(int seeded, int fold, int flags, int des, int smem_bytes,
                                   int* blocks) {
-  MKernelFn fn = mkernel_for(seeded, fold, flags);
+  MKernelFn fn = mkernel_for(seeded, fold, flags, des);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = ensure_smem((const void*)fn, smem_bytes);
   if (err != cudaSuccess) return (int)err;
@@ -382,7 +419,7 @@ int fused_multibump_blocks_per_sm(int seeded, int fold, int flags, int smem_byte
 int fused_multibump_smem_bytes(int seeded, int n_bumps, const int* layers, int n_layers,
                                int T, int flags) {
   Net net;
-  if (!make_net(0, layers, n_layers, 0, &net)) return -1;
+  if (!make_net(0, layers, n_layers, 0, &net, true)) return -1;
   return 4 * smem_floats(net, seeded, T, n_bumps, flags);
 }
 

@@ -32,10 +32,10 @@
 //     plan's share, else staged per layer per tile by cp.async (W_1 while the
 //     input layer runs).  A second staging buffer, each W_{k+1} copied while
 //     product k ran, was built and measured no faster (PERF.md, section 6).
-// The row layout's fp32 designs take nets beyond the other kernels' limits
-// (widths above NT with the weights from device memory, up to MAX_LAYERS
-// weight matrices, d up to MAX_DIM: ROADMAP.md B7) with their routines as
-// they are.
+// The fp32 designs of both layouts take nets beyond the other kernels'
+// limits (widths above NT with the weights from device memory, up to
+// MAX_LAYERS weight matrices, d up to MAX_DIM: ROADMAP.md B7) with their
+// routines as they are; the stream-major write is the same loop at any d.
 // The two layouts differ only in the write: project_last leaves the jet
 // stream-major in shared memory, proj[s * T + p], so the row layout writes
 // each point's d+2 floats and the stream-major one each stream's run.
@@ -223,9 +223,9 @@ int fwdlap_forward_f32(int streams, const float* X, const float* params,
   FwdArgs a;
   const void* fn = fwd_variant_fn(streams, fold, bf16, des, minb);
   const bool devw = (des & DES_DEVW) != 0;
-  // the row layout's fp32 designs take the nets beyond the other kernels'
-  // limits (their routines take any width, depth and d as they are)
-  bool ok = fn != nullptr && make_net(1, layers, n_layers, act, &a.net, !bf16 && !streams) &&
+  // the fp32 designs, in either layout, take the nets beyond the other
+  // kernels' limits (their routines take any width, depth and d as they are)
+  bool ok = fn != nullptr && make_net(1, layers, n_layers, act, &a.net, !bf16) &&
             N >= 1 && G >= 1;
   if (ok && bf16) {      // (fwd_variant_fn took des: DES_MMA, maybe DES_WIDE)
     mma::Geo g;
@@ -282,7 +282,7 @@ int fwdlap_forward_blocks_per_sm(int streams, int fold, int bf16, int des, int m
 }
 
 // The shared-memory bytes the planned kernels (either layout) lay out for
-// (T, flags), or -1 for a net the row layout does not take.
+// (T, flags), or -1 for a net they do not take.
 int fwdlap_forward_smem_bytes(const int* layers, int n_layers, int T, int flags) {
   Net net;
   if (!make_net(1, layers, n_layers, 0, &net, true)) return -1;

@@ -105,11 +105,12 @@ _SIGNATURES = {
     "fused_quotient_mma_scratch_floats": [_I, _I, _P, _I, _I, _I],
     # fused_multibump.cu: seeded, n_bumps, X, coef, params, scal, layers,
     # n_layers, act, N, T, G, flags, fold, partial, scratch, out, smem_bytes,
-    # stream, wd (DEV_WEIGHTS's weights)
+    # stream, wd, des (wd: DEV_WEIGHTS's weights; des: the plan's design,
+    # DES_DEVW and pass B's DES_BEYOND)
     "fused_multibump_f32":
-        [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P],
-    # seeded, fold, flags, smem_bytes, int* blocks
-    "fused_multibump_blocks_per_sm": [_I, _I, _I, _I, _P],
+        [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I],
+    # seeded, fold, flags, des, smem_bytes, int* blocks
+    "fused_multibump_blocks_per_sm": [_I, _I, _I, _I, _I, _P],
     # seeded, n_bumps, layers, n_layers, T, flags -> bytes (not an error code)
     "fused_multibump_smem_bytes": [_I, _I, _P, _I, _I, _I],
     # fused_multibump_mma.cu (the bf16-dot mode): seeded, n_bumps, X, coef,

@@ -56,18 +56,17 @@ class Limits(NamedTuple):
     dim: int
 
 
-# every kernel but those below: the fp32 core at widths to NT
-# (fwdlap_core.cuh: CORE_LAYERS, CORE_DIM), the tensor-core design
-# (fwdlap_mma.cuh: MMA_MAX_WIDTH, KS_MAX = 16 k-steps) and the K-bump pair
+# the bf16-dot modes (the ".bf16" launch names): the tensor-core design
+# (fwdlap_mma.cuh: MMA_MAX_WIDTH, KS_MAX = 16 k-steps; fwdlap_core.cuh's
+# CORE_LAYERS, CORE_DIM)
 CORE_LIMITS = Limits(NT, 16, 16)
-# the fp32 fused kernels (rows 1-3), the jet pair (rows 4, 5) and the fp32
-# quotients (rows 7-10): fwdlap_core.cuh's MAX_WIDTH, MAX_LAYERS, MAX_DIM; a
-# net whose stages do not fit shared memory at 4 points still raises in its
-# plan (_plan.NoFit)
+# every fp32 kernel: the fused kernels (rows 1-3), the jet pair in both
+# layouts (rows 4-6), the quotients (rows 7-10) and the K-bump pair (rows
+# 11, 12): fwdlap_core.cuh's MAX_WIDTH, MAX_LAYERS, MAX_DIM; a net whose
+# stages do not fit shared memory at 4 points still raises in its plan
+# (_plan.NoFit)
 BEYOND_LIMITS = Limits(4096, 64, 64)
-BEYOND_KERNELS = ("fused_linear_residual", "fused_poisson_analytic", "fused_drm_energy",
-                  "fwdlap_forward", "fwdlap_backward", "linear_sums", "linear_seeded",
-                  "quad_sums", "quad_seeded")
+BEYOND_KERNELS = tuple(name for name in LAUNCHES if not name.endswith(".bf16"))
 # What each kernel takes, by launch name.
 LIMITS = {name: BEYOND_LIMITS if name in BEYOND_KERNELS else CORE_LIMITS for name in LAUNCHES}
 SMEM_MAX = 227 * 1024         # dynamic shared memory one block can get on an H100
@@ -115,9 +114,9 @@ def check_net(name: str, layers) -> None:
 
 def beyond(layers) -> bool:
     """Whether a net needs the DES_BEYOND variant of the planned fused
-    kernels, the jet backward and the seeded quotients (``beyond_net`` of
-    fwdlap_core.cuh): a hidden width above ``NT`` or d above the other
-    kernels' limit."""
+    kernels, the jet backward, the seeded quotients and the K-bump pass B
+    (``beyond_net`` of fwdlap_core.cuh): a hidden width above ``NT`` or d
+    above the bf16-dot modes' limit."""
     return padded_wmax(layers) > NT or layers[0] > CORE_LIMITS.dim
 
 
@@ -229,10 +228,11 @@ DES_BEYOND = 32   # the variant of the planned fused kernels (rows 1-3) and the
                   # jet backward (row 5) for the nets of :func:`beyond` (a hidden
                   # width above NT, d above 16), with DES_PLANNED, alone or with
                   # DES_DEVW; 4 x 4 items, no fold (fwdlap_planned.cuh); and of
-                  # the seeded quotients (rows 8, 10) for the same nets, alone or
-                  # with DES_DEVW (fused_quotient.cu: the core's reverse sweep
-                  # summing the last dW one thread per column above NT).  The
-                  # forward-only kernels (rows 4, 7, 9) need none
+                  # the seeded quotients (rows 8, 10) and the K-bump pass B (row
+                  # 12) for the same nets, alone or with DES_DEVW
+                  # (fused_quotient.cu, fused_multibump.cu: the core's reverse
+                  # sweep summing the last dW one thread per column above NT).
+                  # The forward-only kernels (rows 4, 6, 7, 9, 11) need none
 PLANNED_DESIGNS = (DES_PLANNED, DES_PLANNED | DES_ITEM2)
 BEYOND_DESIGNS = (DES_PLANNED | DES_BEYOND, DES_PLANNED | DES_DEVW | DES_BEYOND)
 # what the fp32 kernels take

@@ -40,10 +40,10 @@ a tile: a 256 x 256 matrix is 256 KB), the kernels that have it take the
 design that reads the weights from device memory (``DEV_WEIGHTS``,
 ``_cuda.DES_DEVW``; pass B may still keep its gradient row on chip), at two
 blocks per SM, then one.  Every net within the limits of all
-the kernels (``_cuda.CORE_LIMITS``) gets a plan; a wider or
-higher-dimensional net, which only rows 1-5 and 7-10 in fp32 take
-(``_cuda.BEYOND_KERNELS``), may fit no tile of 4 points and then raises
-:class:`NoFit` naming ``ROADMAP.md B7``.  ``T`` and ``tier`` pin a choice (tests, timing
+the kernels (``_cuda.CORE_LIMITS``) gets a plan; a wider, deeper or
+higher-dimensional net, which every fp32 kernel takes
+(``_cuda.BEYOND_KERNELS``) and no bf16-dot mode, may fit no tile of 4
+points and then raises :class:`NoFit` naming ``ROADMAP.md B7``.  ``T`` and ``tier`` pin a choice (tests, timing
 sweeps) and raise if it does not fit ``SMEM_MAX``.
 """
 

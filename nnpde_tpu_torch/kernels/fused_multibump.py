@@ -225,13 +225,19 @@ def plan(seeded: bool, layers, Kb: int, *, T: int | None = None,
     plan of :mod:`._plan` over this kernel's layout (``d + 1`` streams, no
     Laplacian); where no tier with the weights on chip fits (one 256 x 256
     staging matrix is 256 KB), the tiers that read them from device memory
-    (``DEV_WEIGHTS``, design ``DES_DEVW``).  ``T`` and ``tier`` pin a choice
-    and raise if it does not fit; hidden widths above the pair's limit raise
-    (``_cuda.LIMITS``)."""
+    (``DEV_WEIGHTS``, design ``DES_DEVW``).  Pass B adds ``DES_BEYOND`` for
+    the nets of :func:`._cuda.beyond` and only for them; pass A takes such
+    nets as it is.  ``T`` and ``tier`` pin a choice and raise if it does not
+    fit; a net whose stages fit no tile of 4 points raises
+    :class:`._plan.NoFit`, and one beyond the pair's limits
+    (``_cuda.LIMITS``) raises naming ``ROADMAP.md B7``."""
     _cuda.check_net("multi_seeded" if seeded else "multi_sums", layers)
-    return _plan.plan(lambda t, flags: smem_floats(seeded, layers, t, Kb, flags), layers,
-                      layers[0] + 1, seeded, T=T, tier=tier,
-                      what=f"multibump plan ({Kb} bumps)", device=None)
+    beyond = seeded and _cuda.beyond(layers)       # its kernels' budget: two blocks per SM
+    pl = _plan.plan(lambda t, flags: smem_floats(seeded, layers, t, Kb, flags), layers,
+                    layers[0] + 1, seeded, T=T, tier=tier,
+                    what=f"multibump plan ({Kb} bumps)", blocks=2 if beyond else 3,
+                    device=None)
+    return pl._replace(design=pl.design | _cuda.DES_BEYOND) if beyond else pl
 
 
 _WORKSPACE = {}        # (pass, device, stream) -> (partial, scratch), flat buffers
@@ -281,8 +287,9 @@ def _launch(seeded: bool, params, X, coef, scal, activation: str, Kb: int, *,
     fold = int(_cuda.folds(layers, d + 1, T) and not devw)    # DEV_WEIGHTS has no fold
     G = _cuda.grid(name,
                    lambda sm, ptr: lib.fused_multibump_blocks_per_sm(int(seeded), fold,
-                                                                     pl.flags, sm, ptr),
-                   pl.smem, dev, (N + T - 1) // T, fold | devw)
+                                                                     pl.flags, pl.design, sm,
+                                                                     ptr),
+                   pl.smem, dev, (N + T - 1) // T, fold | pl.design)
     row = flat.numel() + 1 if seeded else 3 * Kb
     stream = _cuda.stream(dev)
     partial, scratch = _workspace(
@@ -299,7 +306,7 @@ def _launch(seeded: bool, params, X, coef, scal, activation: str, Kb: int, *,
                  pl.flags, fold, partial.data_ptr(),
                  scratch.data_ptr() if scratch is not None else None,
                  out.data_ptr(), pl.smem, stream, None if wd is None else wd.data_ptr(),
-                 dev=dev, keep=(X, coef, flat, wd, scal, lay, partial, scratch, out))
+                 pl.design, dev=dev, keep=(X, coef, flat, wd, scal, lay, partial, scratch, out))
     return out
 
 

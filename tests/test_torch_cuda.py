@@ -105,11 +105,10 @@ def test_cuda_kernel_matches_plain(dev, kind, d, layers, act):
 @pytest.mark.parametrize("name", sorted(LAUNCHES))
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(dev, name):
     """The wrapper's check of each kernel (``_cuda.net_layers``, a launch
-    name) on card tensors: the kernels of ``_cuda.BEYOND_KERNELS`` (rows 1-5
-    and 7-10 in fp32, ROADMAP.md B7's first two items) take widths 257 and
-    1001, 24 weight matrices and d = 20, and raise above width 4096; every
-    other kernel (rows 6, 11, 12) and every bf16-dot mode raises on each,
-    naming the roadmap item.  The DRM energy, which kept width 256 until
+    name) on card tensors: the kernels of ``_cuda.BEYOND_KERNELS`` (every
+    fp32 kernel, rows 1-12: ROADMAP.md B7's first three items) take widths
+    257 and 1001, 24 weight matrices and d = 20, and raise above width 4096;
+    every bf16-dot mode raises on each, naming the roadmap item.  The DRM energy, which kept width 256 until
     then, launches on (2, 257, 1) (the launch counted, the loss finite);
     float64 tensors raise before any launch."""
     from nnpde_tpu_torch.kernels import _cuda
@@ -390,14 +389,16 @@ def test_cuda_multibump_extreme_shapes(dev, seeded, layers, Kb, act):
 
 @pytest.mark.cuda
 def test_cuda_multibump_smem_layout_mirror(dev):
-    """The plan's shared-memory bytes are the kernel's own count."""
+    """The plan's shared-memory bytes are the kernel's own count, on the
+    nets beyond the bf16-dot modes' limits too."""
     import ctypes
 
     from nnpde_tpu_torch.kernels import _build
     from nnpde_tpu_torch.kernels import fused_multibump as tfm
 
     lib = _build.load()
-    for layers in [(2, 50, 50, 50, 50, 1), (2, 20, 20, 20, 1), (5, 7, 9, 1), (2, 12, 1)]:
+    for layers in [(2, 50, 50, 50, 50, 1), (2, 20, 20, 20, 1), (5, 7, 9, 1), (2, 12, 1),
+                   (2, 300, 300, 1), (20, 16, 16, 1), (2,) + (8,) * 20 + (1,)]:
         lay = (ctypes.c_int * len(layers))(*layers)
         for seeded in (False, True):
             for Kb in (1, 16, 42):
@@ -1319,10 +1320,12 @@ def test_cuda_wide_nets_match_float64(dev, kind, layers, act):
 @pytest.mark.cuda
 @pytest.mark.parametrize("layers", [(1, 200, 200, 1), (2, 130, 1), (1, 129, 129, 1)])
 def test_cuda_wide_nets_refused_where_the_limit_is_128(dev, layers):
-    """The limit of the bf16-dot variants (the tensor-core design) and the
-    K-bump pair is 256 since their device tiers: these nets above 128 launch
-    (each launch counted), and a width of 257 raises, naming the roadmap
-    item of the wider nets."""
+    """The limit of the bf16-dot variants (the tensor-core design) is 256
+    since their device tiers, and the fp32 K-bump pair's 4096 (ROADMAP.md
+    B7): these nets above 128 launch (each launch counted); at a width of
+    257 the K-bump pair launches too and the bf16-dot variants raise, naming
+    the roadmap item of the wider nets."""
+    from nnpde_tpu_torch.kernels import _cuda
     from nnpde_tpu_torch.kernels import fused_multibump as tfm
     from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
 
@@ -1339,16 +1342,22 @@ def test_cuda_wide_nets_refused_where_the_limit_is_128(dev, layers):
                                                    torch.zeros(N, 4 * (d + 4), device=dev),
                                                    None, "sin", 4))]
 
-    for name, call in calls(params_from_jax(_np_params(rng, layers), device=dev)):
+    def launches(name, call):
         before = LAUNCHES[name]
         out = call()
         torch.cuda.synchronize()
         assert LAUNCHES[name] == before + 1
         assert torch.isfinite(out[0] if isinstance(out, tuple) else out).all()
+
+    for name, call in calls(params_from_jax(_np_params(rng, layers), device=dev)):
+        launches(name, call)
     wider = (d, 257) + layers[2:]
-    for _, call in calls(params_from_jax(_np_params(rng, wider), device=dev)):
-        with pytest.raises(ValueError, match="ROADMAP.md B7"):
-            call()
+    for name, call in calls(params_from_jax(_np_params(rng, wider), device=dev)):
+        if name in _cuda.BEYOND_KERNELS:
+            launches(name, call)
+        else:
+            with pytest.raises(ValueError, match="ROADMAP.md B7"):
+                call()
 
 
 @pytest.mark.cuda
@@ -2193,9 +2202,9 @@ def test_cuda_k_bump_pass_a_at_one_bump_is_the_linear_pass_a(dev, layers, act):
 
 
 # ------------------------------------------- nets beyond the other kernels' limits (B7)
-# Rows 1, 2, 4, 5 in fp32 on hidden widths above 256 (the weights in device
+# The fp32 kernels on hidden widths above 256 (the weights in device
 # memory), more than 16 weight matrices and d > 16: the CPU nets of
-# tests/test_torch_beyond.py and chip_smoke.py's beyond nets (the 512-wide
+# tests/test_torch_beyond*.py and chip_smoke.py's beyond nets (the 512-wide
 # one at 1007 points).
 _BEYOND_NETS = [
     ((2, 300, 300, 1), "sin"),
@@ -2268,12 +2277,50 @@ def test_cuda_beyond_quotient_nets_match_plain(dev, kind, lap, layers, act):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["streams", "multi_sums", "multi_seeded"])
+@pytest.mark.parametrize("layers,act", _BEYOND_NETS)
+def test_cuda_beyond_eigen_nets_match_plain(dev, kind, layers, act):
+    """Rows 6, 11 and 12 (16 bumps) on each B7 net against their float64
+    plain versions, by the bars of the other shapes (``_check_pass_a``,
+    ``_check_multibump``: repeats bitwise, each launch counted), on the plan
+    the wrapper takes: a ``DES_BEYOND`` design for row 12 exactly where the
+    net is beyond the other kernels' limits, none for rows 6 and 11; the
+    weights in device memory where no staging matrix fits (every
+    hidden-to-hidden width above 256)."""
+    from nnpde_tpu_torch.kernels import _cuda
+    from nnpde_tpu_torch.kernels import fused_multibump as tfm
+    from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
+
+    if kind == "streams":
+        pl = tfc.forward_plan(list(layers), N=1007, sms=_cuda.sm_count(dev))
+        _check_pass_a(dev, "fwdlap_forward_streams", layers, act, 1)
+    else:
+        seeded = kind == "multi_seeded"
+        pl = tfm.plan(seeded, list(layers), 16)
+        _check_multibump(dev, seeded, 16, layers, act)
+    assert bool(pl.design & _cuda.DES_BEYOND) == (kind == "multi_seeded"
+                                                  and _cuda.beyond(layers))
+    assert bool(pl.design & _cuda.DES_DEVW) == (max(layers[1:-1]) > 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seeded", [False, True])
+@pytest.mark.parametrize("layers,act", [((20, 64, 64, 64, 64, 1), "sin"),
+                                        ((2, 512, 512, 512, 512, 1), "sin")])
+def test_cuda_beyond_multibump_at_the_bump_cap(dev, seeded, layers, act):
+    """The K-bump pair at its cap of 42 bumps on the d = 20 and the 512-wide
+    B7 nets (the coefficient tile 42 (d + 4) floats a point, 1008 at d =
+    20): the bars of ``_check_multibump``."""
+    _check_multibump(dev, seeded, 42, layers, act)
+
+
+@pytest.mark.cuda
 def test_cuda_beyond_nofit_raises(dev):
     """(20, 512 x 4, 1): no tile of 4 points fits its stages, so each of the
-    nine wrappers of rows 1-5 and 7-10 raises NoFit naming ROADMAP.md B7
-    (rows 7 and 8 with and without the Laplacian stream), and nothing
-    launches."""
+    twelve fp32 wrappers (rows 7 and 8 with and without the Laplacian
+    stream) raises NoFit naming ROADMAP.md B7, and nothing launches."""
     from nnpde_tpu_torch.kernels import _cuda, _plan
+    from nnpde_tpu_torch.kernels import fused_multibump as tfm
     from nnpde_tpu_torch.kernels import fused_quotient as tfq
     from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
 
@@ -2287,7 +2334,11 @@ def test_cuda_beyond_nofit_raises(dev):
              lambda: tfc.fwdlap_forward(tp, X, "sin"),
              lambda: tfc.fwdlap_backward(tp, X, torch.zeros(N, 22, device=dev), "sin"),
              lambda: tfq.fused_quad_sums(tp, X, quad, "sin"),
-             lambda: tfq.fused_quad_seeded_grads(tp, X, quad, (0.4, -0.3), "sin")]
+             lambda: tfq.fused_quad_seeded_grads(tp, X, quad, (0.4, -0.3), "sin"),
+             lambda: tfc.fwdlap_forward(tp, X, "sin", "streams"),
+             lambda: tfm.fused_multi_sums(tp, X, torch.zeros(N, 96, device=dev), "sin", 4),
+             lambda: tfm.fused_multi_seeded_grads(tp, X, torch.zeros(N, 96, device=dev),
+                                                  (torch.zeros(4, device=dev),) * 3, "sin", 4)]
     for no_lap in (False, True):
         calls += [lambda no_lap=no_lap: tfq.fused_linear_sums(tp, X, lin, "sin", no_lap=no_lap),
                   lambda no_lap=no_lap: tfq.fused_seeded_grads(tp, X, lin, (0.3, -0.2, 0.7),

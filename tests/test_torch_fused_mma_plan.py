@@ -552,8 +552,10 @@ def test_multibump_plan_takes_every_width(seeded, d, hidden, Kb):
     kernel's layout; the tiers that read the weights from device memory
     (``DES_DEVW``) only where no tier with the weights on chip fits even at
     4 points at one block per SM, and at width 256 wherever the net has
-    hidden-to-hidden weights (one 256 x 256 staging matrix is 256 KB); a
-    width of 257 raises, naming the roadmap item of the wider nets."""
+    hidden-to-hidden weights (one 256 x 256 staging matrix is 256 KB).  A
+    width of 257 goes on (the fp32 pair takes widths to 4096, pass B in its
+    ``DES_BEYOND`` design there); 4097 raises, naming the roadmap item of
+    the wider nets."""
     devw_from = None
     for w in range(1, 257):
         layers = (d,) + (w,) * hidden + (1,)
@@ -572,9 +574,12 @@ def test_multibump_plan_takes_every_width(seeded, d, hidden, Kb):
     # one hidden layer has no hidden-to-hidden weights: its resident tier
     # holds none
     assert devw_from is None if hidden == 1 else devw_from <= 256
-    with pytest.raises(ValueError, match=r"hidden widths from 1 to 256 \(wider nets: "
+    pl = tfm.plan(seeded, (d, 257) + (1,), Kb)
+    assert pl.smem <= _cuda.SMEM_MAX and pl.design & _cuda.DES_BEYOND == (
+        _cuda.DES_BEYOND if seeded else 0)
+    with pytest.raises(ValueError, match=r"hidden widths from 1 to 4096 \(wider nets: "
                                          r"ROADMAP.md B7\)"):
-        tfm.plan(seeded, (d, 257) + (1,), Kb)
+        tfm.plan(seeded, (d, 4097) + (1,), Kb)
 
 
 @pytest.mark.parametrize("seeded", [False, True])

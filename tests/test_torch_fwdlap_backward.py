@@ -164,7 +164,8 @@ def test_wrapper_checks_and_tile_planning_take_any_width():
     """The CPU-side half of the width repair: the wrappers' net check takes
     hidden widths 1..256 on the fp32 kernels and on the K-bump pair (not
     only multiples of 4; ``_cuda.LIMITS``), and wider ones on the jet pair
-    (to 4096, ``ROADMAP.md`` B7) but not on the pair, the shared-memory
+    and the fp32 K-bump pair (to 4096, ``ROADMAP.md`` B7) but not on the
+    pair's bf16-dot mode, the shared-memory
     plans use the width rounded up to a multiple of 4, and the multibump
     plan counts the K*(d+4)*T coefficient tile (rows padded to an odd
     stride)."""
@@ -183,8 +184,9 @@ def test_wrapper_checks_and_tile_planning_take_any_width():
         for k in ("fwdlap_backward", "multi_seeded"):
             assert _cuda.net_layers(k, net(*layers), X, "sin") == list(layers)
     with pytest.raises(ValueError, match="hidden widths from 1 to 256"):
-        _cuda.net_layers("multi_seeded", net(2, 257, 1), X, "sin")
-    assert _cuda.net_layers("fwdlap_backward", net(2, 257, 1), X, "sin") == [2, 257, 1]
+        _cuda.net_layers("multi_seeded.bf16", net(2, 257, 1), X, "sin")
+    for k in ("fwdlap_backward", "multi_seeded"):
+        assert _cuda.net_layers(k, net(2, 257, 1), X, "sin") == [2, 257, 1]
     with pytest.raises(ValueError, match="hidden widths from 1 to 4096"):
         _cuda.net_layers("fwdlap_backward", net(2, 4097, 1), X, "sin")
     with pytest.raises(ValueError, match="one output"):

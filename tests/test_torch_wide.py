@@ -108,12 +108,12 @@ def _leaves(loss, grads):
 @pytest.mark.parametrize("name", sorted(_cuda.LAUNCHES))
 def test_widths_to_256_pass_every_kernels_check(name):
     """Every kernel's wrapper check (``_cuda.check_net``) takes hidden
-    widths 129-256, ragged or not, in any layer.  Rows 1-5 and 7-10 in fp32
-    (``_cuda.BEYOND_KERNELS``: the fused kernels, the jet pair and the
-    quotient pair) also take widths 257 and 1001, 24 weight matrices and
-    d = 20 (what no tile fits raises in their plans); every other kernel
-    (rows 6, 11, 12) and every bf16-dot mode raises on each, naming the
-    kernel and the roadmap item of such nets."""
+    widths 129-256, ragged or not, in any layer.  Every fp32 kernel
+    (``_cuda.BEYOND_KERNELS``: the fused kernels, the jet pair in both
+    layouts, the quotient pair and the K-bump pair) also takes widths 257
+    and 1001, 24 weight matrices and d = 20 (what no tile fits raises in
+    their plans); every bf16-dot mode raises on each, naming the kernel and
+    the roadmap item of such nets."""
     for w in (129, 136, 200, 255, 256):
         _cuda.check_net(name, (2, w, 1))
         _cuda.check_net(name, (3, 64, w, w, 1))
