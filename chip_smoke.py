@@ -890,7 +890,7 @@ def time_ms(fn, warmup=3, reps=15):
     return statistics.median(times)
 
 
-def device_ms(fn, launches=30, reps=5, window_ms=150.0):
+def device_ms(fn, launches=30, reps=5, window_ms=150.0, warm=3):
     """Device time of the launches ``fn`` makes, per call of ``fn``: the
     launches are captured once (pointers and workspace prepared by the
     wrapper, outside the timed window) and issued again ``launches`` times
@@ -899,12 +899,13 @@ def device_ms(fn, launches=30, reps=5, window_ms=150.0):
     floor is the host's time for one ctypes call, a few microseconds.  A
     call of more than 5 ms takes fewer launches a window (at least 3, about
     ``window_ms`` of them): the window stays long, the run's clock short;
-    ``window_ms=None`` keeps ``launches`` for every call."""
+    ``window_ms=None`` keeps ``launches`` for every call.  ``warm``: the
+    replays before the first timed one."""
     from nnpde_tpu_torch.kernels import _cuda
 
     with _cuda.capture() as cap:
         fn()
-    cap.replay(3)
+    cap.replay(warm)
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
@@ -2175,8 +2176,8 @@ PRECISION_REPLACES = {
     "fwdlap_backward.bf16": "nnpde_tpu/kernels/fwdlap_pallas.py:522",
 }
 PRECISION_SOURCES = {
-    "fused_linear_residual.bf16": "nnpde_tpu_torch/csrc/fused_step.cu",
-    "fused_poisson_analytic.bf16": "nnpde_tpu_torch/csrc/fused_step.cu",
+    "fused_linear_residual.bf16": "nnpde_tpu_torch/csrc/fused_step_mma.cu",
+    "fused_poisson_analytic.bf16": "nnpde_tpu_torch/csrc/fused_step_mma.cu",
     "fwdlap_forward.bf16": "nnpde_tpu_torch/csrc/fwdlap_forward.cu",
     "fwdlap_backward.bf16": "nnpde_tpu_torch/csrc/fwdlap_backward.cu",
 }
@@ -2283,10 +2284,12 @@ class PrecCase:
                                                    dot_dtype=dot)
         return [loss.reshape(1)] + [t for pair in g for t in pair]
 
-    def plain(self, dot, dtype=torch.float32):
+    def plain(self, dot, dtype=torch.float32, order=None):
         """The plain version of the ``dot`` mode on the card, float32 (the
         oracle) or float64 (``dtype``; in the bf16-dot mode the witness: its
-        operands rounded to bf16 from float64 values)."""
+        operands rounded to bf16 from float64 values); ``order``: the
+        bf16-dot reverse nonlinearity's sum in another sound order
+        (``ops.fwdlap.DV_ORDERS``; rows 1, 2, 5)."""
         from nnpde_tpu_torch.kernels import fused_step as fs
         from nnpde_tpu_torch.kernels import fwdlap_cuda as fc
 
@@ -2298,14 +2301,15 @@ class PrecCase:
             jet = fc.fwdlap_forward_plain(P, X, self.act)
             return [torch.cat([jet.value[:, None], jet.grad, jet.lap[:, None]], dim=1)]
         if self.base == "fwdlap_backward":
-            dWs, dbs = fc.fwdlap_backward_plain(P, X, self.ct.to(dtype), self.act, dot)
+            dWs, dbs = fc.fwdlap_backward_plain(P, X, self.ct.to(dtype), self.act, dot, order)
             return [t for pair in zip(dWs, dbs) for t in pair]
         c = self.case
         if self.base == "fused_linear_residual":
-            dWs, dbs, sums = fs.linear_residual_plain(P, X, c.coef.to(dtype), self.act, dot)
+            dWs, dbs, sums = fs.linear_residual_plain(P, X, c.coef.to(dtype), self.act, dot,
+                                                      order)
         else:
             dWs, dbs, sums = fs.poisson_analytic_plain(P, X, self.act,
-                                                       fs.PoissonSinCoef(L, c.ks), dot)
+                                                       fs.PoissonSinCoef(L, c.ks), dot, order)
         g = fs._scaled_grads(P, dWs, dbs, sums, 2.0 / self.N)
         return [(sums[0] / self.N).reshape(1)] + [t for pair in g for t in pair]
 
@@ -2673,7 +2677,7 @@ B1_REPLACES = {
     "multi_sums.bf16": "nnpde_tpu/kernels/fused_multibump.py:62",
     "multi_seeded.bf16": "nnpde_tpu/kernels/fused_multibump.py:131",
 }
-B1_SOURCES = {name: ("nnpde_tpu_torch/csrc/fused_step.cu" if name.startswith("fused")
+B1_SOURCES = {name: ("nnpde_tpu_torch/csrc/fused_step_mma.cu" if name.startswith("fused")
                      else "nnpde_tpu_torch/csrc/fused_multibump_mma.cu"
                      if name.startswith("multi")
                      else "nnpde_tpu_torch/csrc/fused_quotient_mma.cu") for name in B1_REPLACES}
@@ -2774,16 +2778,18 @@ class B1Case:
             g = fq.fused_quad_seeded_grads(p, X, c, self.scal, self.act, dot_dtype=dot)
         return [t for pair in g for t in pair]
 
-    def plain(self, dot, dtype=torch.float32):
+    def plain(self, dot, dtype=torch.float32, order=None):
         """The plain version of the ``dot`` mode on the card (float64: in the
-        bf16-dot mode the witness, its operands rounded from float64)."""
+        bf16-dot mode the witness, its operands rounded from float64);
+        ``order``: row 3's bf16-dot reverse nonlinearity's sum in another
+        sound order (``ops.fwdlap.DV_ORDERS``)."""
         from nnpde_tpu_torch.kernels import fused_quotient as fq
         from nnpde_tpu_torch.kernels import fused_step as fs
 
         P = [(W.to(dtype), b.to(dtype)) for W, b in self.params]
         X, c, k = self.X.to(dtype), self.coef.to(dtype), self.kind
         if k == "fused_drm_energy":
-            dWs, dbs, sums = fs.drm_energy_plain(P, X, c, self.act, dot)
+            dWs, dbs, sums = fs.drm_energy_plain(P, X, c, self.act, dot, order)
             g = fs._scaled_grads(P, dWs, dbs, sums, 1.0 / self.N)
             return [(sums[0] / self.N).reshape(1)] + [t for pair in g for t in pair]
         if k == "linear_sums":
@@ -3152,17 +3158,18 @@ def phase_precision_b1_timing(dev, only=None):
     return rows
 
 
-def _b1_poisson_drm(dev, dot):
+def _b1_poisson_drm(dev, dot, layers=LAYERS, epochs=None):
     """The 2D Poisson Deep-Ritz energy on ``fused_drm_energy`` as
-    ``fit(loss_and_grad_fn=...)``: the box-FBC u64 net, 20000 fixed points,
-    Adam 1e-3; eval the MSE against the product-sine solution on 10000
+    ``fit(loss_and_grad_fn=...)``: the box-FBC net (u64, or ``layers``),
+    20000 fixed points, Adam 1e-3, B1_EPOCHS['drm'] epochs (or
+    ``epochs``); eval the MSE against the product-sine solution on 10000
     points (rel_l2 = sqrt(best) / rms)."""
     from nnpde_tpu_torch.kernels import drm_coefficients, fused_drm_energy
     from nnpde_tpu_torch.models import NetSpec, SolutionModel, factor_for_technique
     from nnpde_tpu_torch.pde.poisson import exact_u_prod_sin, rhs_f_for_u_sin
     from nnpde_tpu_torch.train import fit, make_optimizer
 
-    model = SolutionModel(NetSpec(LAYERS, activation="sin"),
+    model = SolutionModel(NetSpec(layers, activation="sin"),
                           factor_for_technique("FBC", dim=2, kind="box", L=L))
     params = [(W.to(dev), b.to(dev)) for W, b in model.init(0)]
     g = torch.Generator(device=dev).manual_seed(11)
@@ -3178,7 +3185,7 @@ def _b1_poisson_drm(dev, dot):
     def eval_fn(p, key):
         return torch.mean((model.apply_batch(p, Xe) - ue) ** 2)
 
-    n = B1_EPOCHS["drm"]
+    n = epochs or B1_EPOCHS["drm"]
     r = fit(None, eval_fn, params, epochs=n, optimizer=make_optimizer(1e-3, total_steps=n),
             key=0, chunk=n, loss_and_grad_fn=lag)
     return {"metric": math.sqrt(r.best_metric) / 0.5,
@@ -3608,7 +3615,7 @@ def phase_wide_kernels(dev):
             torch.cuda.empty_cache()
     # each tensor-core and K-bump variant's entry, with its spills and registers
     ptx, keep = [], False
-    for ln in ptxas_of("fused_step.cu", "fwdlap_forward.cu", "fwdlap_backward.cu",
+    for ln in ptxas_of("fused_step_mma.cu", "fwdlap_forward.cu", "fwdlap_backward.cu",
                        "fused_multibump.cu"):
         if "Compiling entry" in ln:
             keep = "_mma" in ln or "multi_" in ln
@@ -3817,10 +3824,13 @@ def phase_wide_timing(dev):
 # Every fp32 kernel takes hidden widths above 256, more than 16 weight
 # matrices and d > 16 (the DES_BEYOND variants of the kernels with a
 # reverse sweep where the net needs it; the weights in device memory above
-# width 256; the forward-only rows' routines as they are).  The nets: (2,
-# 512 x 4, 1), the Poisson path's 512-wide net; a ragged wide one; d = 18
-# at width 128; (20, 64 x 4, 1), the 20-dimensional path's; 24 weight
-# matrices.
+# width 256; the forward-only rows' routines as they are), and so do the
+# bf16-dot modes of rows 1-5 on the tensor-core design (rows 1-3 in their
+# DES_BEYOND variant where the net needs it; row 4 to d = 16), which the
+# hybrid-kernel runs P1h-P3h and a bf16 Deep-Ritz fit drive; rows 7-12
+# bf16 keep width 256, 16 matrices, d = 16.  The nets: (2, 512 x 4, 1),
+# the Poisson path's 512-wide net; a ragged wide one; d = 18 at width 128;
+# (20, 64 x 4, 1), the 20-dimensional path's; 24 weight matrices.
 BEYOND_NETS = {"u512": ((2,) + (512,) * 4 + (1,), "sin"),
                "w1001": ((1, 1001, 300, 1), "tanh"),
                "d18": ((18, 128, 128, 1), "gelu"),
@@ -3855,7 +3865,9 @@ BEYOND_PATHS = {
     "P2": (dict(dim=20, width=64, depth=5), 100,
            {"fused": {"fused_linear_residual": 1},
             "kernel": {"fwdlap_forward": 1, "fwdlap_backward": 1}}),
-    "P3": (dict(dim=2, width=64, depth=24), 100, {"fused": {"fused_linear_residual": 1}}),
+    "P3": (dict(dim=2, width=64, depth=24), 100,
+           {"fused": {"fused_linear_residual": 1},
+            "kernel": {"fwdlap_forward": 1, "fwdlap_backward": 1}}),
     "P4": (dict(dim=2, width=512, depth=5, method="DRM"), 200,
            {"fused": {"fused_drm_energy": 1}}),
     "P5": (dict(dim=20, width=64, depth=5, method="DRM"), 100,
@@ -3867,6 +3879,19 @@ BEYOND_PATHS = {
     "P8": (dict(dim=20, width=64, depth=5, critic_width=64, method="WAN"), 30,
            {"fused": WAN_PER_EPOCH}),
 }
+# the hybrid-kernel runs of P1-P3 (compute_dtype='hybrid-kernel': the
+# bf16-dot bulk, 80% of the epochs, on rows 1, 2, 4, 5 bf16, the float32
+# tail on the fp32 rows), each beside the float32 run of the same route and
+# net above; P2h on 'fused' only (JAX has no 'pallas' hybrid at d > 6)
+BEYOND_HYBRID = {"P1h": ("P1", ("fused", "fused_analytic", "kernel")),
+                 "P2h": ("P2", ("fused",)),
+                 "P3h": ("P3", ("fused", "kernel"))}
+HYBRID_ROUTE_KERNELS = {"fused": ("fused_linear_residual",),
+                        "fused_analytic": ("fused_poisson_analytic",),
+                        "kernel": ("fwdlap_forward", "fwdlap_backward")}
+# row 3 bf16 on P4's net: a fit of fused_drm_energy(dot_dtype='bfloat16')
+# beside the same run in float32 (_b1_poisson_drm at width 512)
+BEYOND_DRM_BF16 = ((2,) + (512,) * 4 + (1,), 200)
 # the paths through train_ipw_2d (IPW2DConfig fields; state (3, 3), FN, the
 # default 200^2 grid, chunk 1000), cut to these epochs, with each kernel's
 # launches per epoch (the PINN's per step) on each route: Q1 the 16-bump
@@ -3890,9 +3915,17 @@ BEYOND_EIGEN_PATHS = {
                                  v_layers=EIGEN_V), 30,
                {"fused": EIGEN_WAN_PER_EPOCH}),
 }
-# what the bf16-dot modes are refused on a B7 net (each raises naming
-# ROADMAP.md B7)
+# what the bf16-dot modes of rows 7-12 are refused on a B7 net (each raises
+# naming ROADMAP.md B7)
 BEYOND_REFUSED = (2, 300, 300, 1)
+# rows 1-5 in the bf16-dot mode (B7 item 4a: the tensor-core design on the
+# same nets; row 4 takes d <= 16, JAX's _forward_kernel2 d <= 6)
+BEYOND_BF16 = ("fused_linear_residual", "fused_poisson_analytic", "fused_drm_energy",
+               "fwdlap_forward", "fwdlap_backward")
+BEYOND_BF16_NAMES = tuple(k + ".bf16" for k in BEYOND_BF16)
+# no tile of 8 points of the tensor-core design fits row 4 bf16's stages at
+# d = 16 (row 4 bf16 refuses BEYOND_NOFIT's d = 20 naming JAX's limit)
+BEYOND_NOFIT_FWD = (16, 512, 512, 512, 512, 1)
 
 
 # timed: the P1 and P2 nets and P3's (2, 64 x 23, 1)
@@ -4002,8 +4035,10 @@ def phase_beyond_kernels(dev):
     that need it, for rows 1-3, 5, 8, 10, 12; rows 6, 11, 12 read the
     weights from device memory on the 512-wide net) and its plan.  Then
     BEYOND_NOFIT raises NoFit naming ROADMAP.md B7 in each of the twelve
-    wrappers, and on BEYOND_REFUSED every bf16-dot mode raises naming it
-    too."""
+    wrappers and the bf16-dot modes of rows 1-3, 5 (row 4 bf16 on
+    BEYOND_NOFIT_FWD; on BEYOND_NOFIT it raises naming JAX's own limit of
+    d), and on BEYOND_REFUSED the bf16-dot modes of rows 7-12 raise naming
+    it (rows 1-5 bf16: phase_beyond_bf16_kernels)."""
     from nnpde_tpu_torch.kernels import _cuda, _plan
     from nnpde_tpu_torch.kernels import fused_multibump as fm
     from nnpde_tpu_torch.kernels import fused_quotient as fq
@@ -4069,7 +4104,8 @@ def phase_beyond_kernels(dev):
     # what still raises
     raised = {}
     rng = np.random.default_rng(710)
-    for name, layers in (("nofit", BEYOND_NOFIT), ("refused", BEYOND_REFUSED)):
+    for name, layers in (("nofit", BEYOND_NOFIT), ("nofit_fwd", BEYOND_NOFIT_FWD),
+                         ("refused", BEYOND_REFUSED)):
         d, N = layers[0], 64
         p = rand_params(rng, layers, dev)
         X = torch.rand(N, d, device=dev)
@@ -4078,7 +4114,12 @@ def phase_beyond_kernels(dev):
         drm, ct = torch.zeros(N, d + 2, device=dev), torch.zeros(N, d + 2, device=dev)
         multi, seeds = torch.zeros(N, 4 * (d + 4), device=dev), (torch.zeros(4, device=dev),) * 3
         scal_l, scal_q = (0.3, -0.2, 0.7), (0.4, -0.3)
-        if name == "nofit":
+        bf = dict(dot_dtype="bfloat16")
+        if name == "nofit_fwd":
+            # (row 4 bf16 on BEYOND_NOFIT raises naming JAX's limit, below)
+            calls = {"fwdlap_forward.bf16": lambda: fc.fwdlap_forward(p, X, "sin",
+                                                                      "rows:default")}
+        elif name == "nofit":
             calls = {
                 "fused_linear_residual": lambda: fs.fused_linear_residual(p, X, coef, "sin"),
                 "fused_poisson_analytic": lambda: fs.fused_poisson_analytic(
@@ -4091,7 +4132,17 @@ def phase_beyond_kernels(dev):
                 "fwdlap_forward_streams": lambda: fc.fwdlap_forward(p, X, "sin", "streams"),
                 "multi_sums": lambda: fm.fused_multi_sums(p, X, multi, "sin", 4),
                 "multi_seeded": lambda: fm.fused_multi_seeded_grads(p, X, multi, seeds, "sin",
-                                                                    4)}
+                                                                    4),
+                # rows 1-3 and 5 bf16 (no tile of 8 points fits)
+                "fused_linear_residual.bf16": lambda: fs.fused_linear_residual(
+                    p, X, coef, "sin", **bf),
+                "fused_poisson_analytic.bf16": lambda: fs.fused_poisson_analytic(
+                    p, X, "sin", L=L, ks=(1,) * d, **bf),
+                "fused_drm_energy.bf16": lambda: fs.fused_drm_energy(p, X, drm, "sin", **bf),
+                "fwdlap_backward.bf16": lambda: fc.fwdlap_backward(p, X, ct, "sin", "bfloat16"),
+                # row 4 bf16 takes d <= 16: JAX's _forward_kernel2 limit, not B7
+                "jaxlimit:fwdlap_forward.bf16": lambda: fc.fwdlap_forward(p, X, "sin",
+                                                                          "rows:default")}
             for no_lap in (False, True):
                 tag = ":no_lap" if no_lap else ""
                 calls["linear_sums" + tag] = lambda no_lap=no_lap: fq.fused_linear_sums(
@@ -4099,15 +4150,7 @@ def phase_beyond_kernels(dev):
                 calls["linear_seeded" + tag] = lambda no_lap=no_lap: fq.fused_seeded_grads(
                     p, X, lin, scal_l, "sin", no_lap=no_lap)
         else:
-            bf = dict(dot_dtype="bfloat16")
             calls = {
-                "fused_linear_residual.bf16": lambda: fs.fused_linear_residual(
-                    p, X, coef, "sin", **bf),
-                "fused_poisson_analytic.bf16": lambda: fs.fused_poisson_analytic(
-                    p, X, "sin", L=L, ks=(1,) * d, **bf),
-                "fused_drm_energy.bf16": lambda: fs.fused_drm_energy(p, X, drm, "sin", **bf),
-                "fwdlap_forward.bf16": lambda: fc.fwdlap_forward(p, X, "sin", "rows:default"),
-                "fwdlap_backward.bf16": lambda: fc.fwdlap_backward(p, X, ct, "sin", "bfloat16"),
                 "linear_sums.bf16": lambda: fq.fused_linear_sums(p, X, lin, "sin", no_lap=True,
                                                                  **bf),
                 "linear_seeded.bf16": lambda: fq.fused_seeded_grads(p, X, lin, scal_l, "sin",
@@ -4127,14 +4170,133 @@ def phase_beyond_kernels(dev):
                 msg, typ = str(e), type(e).__name__
             raised[f"{name}:{kind}"] = {
                 "raised": typ, "names_b7": bool(msg and _cuda.BEYOND_ITEM in msg),
+                "names_jax_limit": bool(msg and "_forward_kernel2" in msg),
                 "nofit": typ == _plan.NoFit.__name__, "launched": _cuda.LAUNCHES != before}
-    raised_ok = all(v["names_b7"] and not v["launched"] and (v["nofit"] or k.startswith("ref"))
-                    for k, v in raised.items())
+    raised_ok = all(not v["launched"] and (
+        v["names_jax_limit"] and not v["names_b7"] if "jaxlimit" in k
+        else v["names_b7"] and (v["nofit"] or k.startswith("ref"))) for k, v in raised.items())
     ok = all(r["ok"] for r in rows) and raised_ok
     emit({"phase": "beyond_kernels", "phase_s": time.time() - t0, "tol": 1e-5, "rows": rows,
           "raised": raised, "raised_ok": raised_ok, "ok": ok})
     if not ok:
         raise SystemExit("beyond kernel vs plain comparison failed")
+    return max_err
+
+
+def _bf16_beyond_case(base, layers, act, N, dev, seed):
+    """A bf16-dot case of rows 1-5 on a beyond net (row 3 through
+    :class:`B1Case`, the others :class:`PrecCase`)."""
+    if base == "fused_drm_energy":
+        return B1Case(base, N, layers, act, seed, dev)
+    return PrecCase(base, N, layers, act, seed=seed, dev=dev)
+
+
+def bf16_order_variants(case, base):
+    """The plain bf16-dot version of ``case`` in other sound fp32 rounding
+    orders, each in the original net's layout: on the net with its hidden
+    units permuted (C2's spread: every product's sum in another order), and
+    for rows 1-3 and 5 with the reverse nonlinearity's sum in each order of
+    ``ops.fwdlap.DV_ORDERS`` (the CUDA kernels' own and the JAX kernels',
+    which the permutation does not reach); row 2 also with its coefficients
+    rounded once from float64 (``fused_step.ANALYTIC_ORDERS``' "coef64":
+    the in-kernel builder's float32 products of d factors).  Their largest
+    distance from the plain version is its spread, on which rows 1-5
+    bf16's bars beyond rest (ROADMAP.md C)."""
+    from nnpde_tpu_torch.kernels import fused_step as fs
+    from nnpde_tpu_torch.ops.fwdlap import DV_ORDERS
+
+    keep = case.params
+    moved, back = permuted(keep, case.layers, 23)
+    case.params = moved
+    try:
+        got = case.plain("bfloat16")
+    finally:
+        case.params = keep
+    if base == "fwdlap_forward":
+        return {"permuted": got}                 # the jet rows do not move
+    lo = 0 if base == "fwdlap_backward" else 1
+    out = {"permuted": got[:lo] + back(got[lo:])}
+    orders = fs.ANALYTIC_ORDERS if base == "fused_poisson_analytic" else DV_ORDERS
+    out.update({o: case.plain("bfloat16", order=o) for o in orders})
+    return out
+
+
+def phase_beyond_bf16_kernels(dev):
+    """Rows 1-5 bf16 (ROADMAP.md B7 item 4a) on each BEYOND_NETS net (row 4
+    where d <= 16) at 1007 and at the paths' 20000 points, against their
+    plain bf16-dot versions: the loss and every gradient leaf (row 4: every
+    jet column) within C2's bar, max(1e-4, 4.2 x the plain version's own
+    spread over sound rounding orders, bf16_order_variants, measured here);
+    no further from the float64 witness than the larger of 2x the plain
+    version + 2e-6 and the plain version + C4_SPREAD_MULTIPLE x that spread
+    (C4's form, row 4 by ``fwdlap_cuda.c4_columns`` itself), the variants'
+    own distances from the witness reported beside; two launches bitwise
+    equal, each counted under its ``.bf16`` name; the plan (``DES_BEYOND``
+    on rows 1-3 exactly where ``_cuda.beyond``) and the launch's design."""
+    from nnpde_tpu_torch.kernels import _cuda
+    from nnpde_tpu_torch.kernels import fused_step as fs
+    from nnpde_tpu_torch.kernels import fwdlap_cuda as fc
+
+    t0 = time.time()
+    rows, max_err = [], {}
+    for net, (layers, act) in BEYOND_NETS.items():
+        for i, base in enumerate(BEYOND_BF16):
+            if base == "fwdlap_forward" and layers[0] > 16:
+                continue
+            name = base + ".bf16"
+            for N in (1007, BEYOND_N):
+                case = _bf16_beyond_case(base, layers, act, N, dev, 800 + i)
+                with _cuda.capture() as cap:
+                    out = case.kernel("bfloat16")
+                designs = sorted({args[DES_ARG[fn.__name__]] for _, fn, args, _, _ in cap.calls})
+                names = [c[0] for c in cap.calls]
+                del cap
+                out2 = case.kernel("bfloat16")
+                torch.cuda.synchronize()
+                bitwise = all(torch.equal(a, b) for a, b in zip(out, out2))
+                ref = case.plain("bfloat16")
+                wit = case.plain("bfloat16", torch.float64)
+                variants = bf16_order_variants(case, base)
+                spread = max(case.rel(v, ref) for v in variants.values())
+                bar = max(PREC_TOL, WIDE_SPREAD_MULTIPLE * spread)
+                rel = case.rel(out, ref)
+                w_kernel, w_plain = case.rel(out, wit), case.rel(ref, wit)
+                w_bar = max(2.0 * w_plain + 2e-6, w_plain + fc.C4_SPREAD_MULTIPLE * spread)
+                err = max(float(torch.max(torch.abs(a.double() - b.double())))
+                          for a, b in zip(out, ref))
+                max_err[name] = max(max_err.get(name, 0.0), err)
+                pl = fs.mma_plan(base, list(layers))
+                des = fs.mma_des(list(layers), pl.flags, pl.design)
+                beyond = base.startswith("fused") and _cuda.beyond(layers)
+                row = {"kernel": name, "net": net, "N": N, "layers": list(layers), "act": act,
+                       "plan": (bf16_forward_plan(layers, N, dev) if base == "fwdlap_forward"
+                                else fused_plan(base, layers, N, dev, True)),
+                       "designs": designs, "launch_names": names, "rel": rel,
+                       "spread": spread, "bar": bar,
+                       "spread_by": {k: case.rel(v, ref) for k, v in variants.items()},
+                       "witness_rel_kernel": w_kernel, "witness_rel_plain": w_plain,
+                       "witness_rel_variants": {k: case.rel(v, wit) for k, v in variants.items()},
+                       "witness_bar": w_bar, "max_abs_err": err, "bitwise_repeat": bitwise}
+                if base == "fwdlap_forward":
+                    row["c4_columns"] = fc.c4_columns(case.params, case.X, act, out[0])
+                    witness_ok = all(c["kernel"] <= c["bar"] for c in row["c4_columns"])
+                else:
+                    witness_ok = w_kernel <= w_bar
+                    # the leaf furthest from the plain version ([loss, dW0, db0, ...]
+                    # or [dW0, db0, ...])
+                    leaf = [case.rel([a], [b]) for a, b in zip(out, ref)]
+                    row["worst_leaf"] = int(np.argmax(leaf))
+                row["ok"] = bool(rel <= bar and witness_ok and bitwise and designs == [des]
+                                 and names == [name] and pl.design & _cuda.DES_MMA
+                                 and bool(pl.design & _cuda.DES_BEYOND) == beyond)
+                rows.append(row)
+                del case, out, out2, ref, wit, variants
+                torch.cuda.empty_cache()
+    ok = all(r["ok"] for r in rows)
+    emit({"phase": "beyond_bf16_kernels", "phase_s": time.time() - t0,
+          "spread_multiple": WIDE_SPREAD_MULTIPLE, "rows": rows, "ok": ok})
+    if not ok:
+        raise SystemExit("beyond bf16-dot kernel vs plain comparison failed")
     return max_err
 
 
@@ -4146,13 +4308,23 @@ def phase_beyond_path():
     count per step (per epoch on the WAN); the PINN and DRM final rel_l2 <=
     max(2 x torch's, 1e-3); the WAN the cut WAN paths' gate (the first 10
     totals within 5e-2, the first pde loss within 1e-3, every run's best
-    eval below its first).  Returns the kernels' launches over the paths
+    eval below its first).  Then BEYOND_HYBRID in
+    ``compute_dtype='hybrid-kernel'``: each run finite, its rel_l2 below its
+    first eval's and <= max(2 x the float32 run of the same route and net
+    here, 1e-3), 'fused' and 'kernel' within 2x of each other (1e-3 floor),
+    the bf16-dot kernels launched once per bulk epoch and the fp32 ones once
+    per tail epoch, exactly; and row 3 bf16 on BEYOND_DRM_BF16's net
+    (``fused_drm_energy(dot_dtype='bfloat16')`` under ``fit``, beside the
+    same run in float32): launches exact, rel_l2 below its first and <=
+    max(2 x float32's, 1e-3).  Returns the kernels' launches over the paths
     (``launches_beyond``)."""
     from nnpde_tpu_torch.kernels import LAUNCHES, reset_launches
     from nnpde_tpu_torch.problems import PoissonConfig, train_poisson_nd
 
     t0 = time.time()
-    report, launches, ok = {"phase": "beyond_path"}, dict.fromkeys(BEYOND_P_KINDS, 0), True
+    report, ok = {"phase": "beyond_path"}, True
+    launches = dict.fromkeys(BEYOND_P_KINDS + BEYOND_BF16_NAMES, 0)
+    fp32 = {}
     for name, (shape, epochs, routes) in BEYOND_PATHS.items():
         base = dict(method="PINN", bc_mode="FBC", epochs=epochs, n_interior=BEYOND_N,
                     chunk=1000)
@@ -4194,7 +4366,76 @@ def phase_beyond_path():
                 if k in launches:
                     launches[k] += n
             rows[route] = row
+            fp32[name, route] = r["rel_l2"]
         report[name] = {"config": shape, "routes": rows}
+
+    # the hybrid-kernel runs, beside the float32 ones above
+    for name, (src, routes) in BEYOND_HYBRID.items():
+        shape, epochs, _ = BEYOND_PATHS[src]
+        bulk = int(epochs * PoissonConfig().hybrid_bf16_fraction)
+        rows = {}
+        for route in routes:
+            kw = ({"jet_impl": "fused", "coef_mode": "analytic"} if route == "fused_analytic"
+                  else {"jet_impl": route})
+            reset_launches()
+            t1 = time.time()
+            r = train_poisson_nd(PoissonConfig(
+                **kw, **shape, method="PINN", bc_mode="FBC", epochs=epochs,
+                n_interior=BEYOND_N, chunk=1000, compute_dtype="hybrid-kernel"))
+            wall = time.time() - t1
+            counts = {k: v for k, v in LAUNCHES.items() if v}
+            want = {k + sfx: n for k in HYBRID_ROUTE_KERNELS[route]
+                    for sfx, n in ((".bf16", bulk), ("", epochs - bulk))}
+            # (the rms of the manufactured solution, _report's: 2^(-d/2))
+            first = float(r["history"]["l2"][0]) / 0.5 ** (shape["dim"] / 2.0)
+            finite = bool(np.all(np.isfinite(r["history"]["total"])))
+            gate = max(2.0 * fp32[src, route], 1e-3)
+            row = {"epochs": epochs, "bulk": bulk, "rel_l2": r["rel_l2"], "rel_l2_first": first,
+                   "rel_l2_fp32": fp32[src, route], "gate": gate, "launches": counts,
+                   "want": want, "wall_s": wall, "steps_per_s": _rate(r),
+                   "bulk_steps_per_s": r["result"].timing["bulk_steps_per_s"],
+                   "tail_steps_per_s": r["result"].timing["tail_steps_per_s"],
+                   "finite": finite}
+            row["ok"] = bool(finite and r["rel_l2"] < first and r["rel_l2"] <= gate
+                             and counts == want)
+            for k, n in counts.items():
+                if k in launches:
+                    launches[k] += n
+            rows[route] = row
+        if "kernel" in rows:
+            f, k = rows["fused"]["rel_l2"], rows["kernel"]["rel_l2"]
+            rows["routes_agree"] = bool(k <= max(2.0 * f, 1e-3) and f <= max(2.0 * k, 1e-3))
+        good = all(v["ok"] for v in rows.values() if isinstance(v, dict))
+        report[name] = {"config": dict(shape, compute_dtype="hybrid-kernel"), "routes": rows,
+                        "ok": bool(good and rows.get("routes_agree", True))}
+        ok = ok and report[name]["ok"]
+
+    # row 3 bf16 on P4's net under fit, beside float32
+    layers, epochs = BEYOND_DRM_BF16
+    dev = torch.device("cuda")
+    runs = {}
+    for dot in ("float32", "bfloat16"):
+        reset_launches()
+        t1 = time.time()
+        r = _b1_poisson_drm(dev, dot, layers, epochs)
+        torch.cuda.synchronize()
+        runs[dot] = dict(r, wall_s=time.time() - t1,
+                         launches={k: v for k, v in LAUNCHES.items() if v})
+    b, f = runs["bfloat16"], runs["float32"]
+    gate = max(2.0 * f["metric"], 1e-3)
+    drm = {"layers": list(layers), "epochs": epochs, "metric_bf16": b["metric"],
+           "metric_fp32": f["metric"], "first_bf16": b["first"], "gate": gate,
+           "launches": b["launches"], "launches_fp32": f["launches"],
+           "steps_per_s": b["result"].timing["steps_per_s"],
+           "fp32_steps_per_s": f["result"].timing["steps_per_s"],
+           "wall_s": b["wall_s"] + f["wall_s"]}
+    drm["ok"] = bool(math.isfinite(b["metric"]) and b["metric"] <= gate
+                     and b["metric"] < b["first"]
+                     and b["launches"] == {"fused_drm_energy.bf16": epochs}
+                     and f["launches"] == {"fused_drm_energy": epochs})
+    launches["fused_drm_energy.bf16"] += b["launches"].get("fused_drm_energy.bf16", 0)
+    report["drm_bf16_u512"] = drm
+    ok = ok and drm["ok"]
     report["launches_beyond"] = launches
     report["ok"] = bool(ok and all(launches.values()))
     report["phase_s"] = time.time() - t0
@@ -4279,20 +4520,25 @@ def phase_beyond_timing(dev):
     WAN runs them; rows 11 and 12 at 16 bumps) on the P1, P2 and P3 nets
     (BEYOND_TIMED) at the paths' points (20000; row 6 also at 40000, rows
     11 and 12 at the 2D well's 40000, and on Q1's (2, 512, 512, 1) critic
-    there) and at 262144: wrapper and device ms, the plan (tier, T, blocks
-    per SM), the bound (max(FLOP / 67 TFLOP/s, bytes / 3.35 TB/s), the
-    table's FLOP rules) and the plain version's ms (None where the plain
-    version's autograd does not fit the card's memory)."""
+    there and at 262144) and at 262144 (not on the P1 net); then rows 1-5 bf16 on the
+    same nets (row 4 not at d = 20) at 20000 and 262144: wrapper and device
+    ms, the plan (tier, T, blocks per SM), the bound (max(FLOP / 67 TFLOP/s,
+    bytes / 3.35 TB/s), the table's FLOP rules; the bf16 rows' FLOP at the
+    tensor cores' 989 TFLOP/s, with the CUDA cores' bound beside it) and
+    the plain version's ms (None where the plain version's autograd does
+    not fit the card's memory)."""
     t0 = time.time()
     rows = []
     kinds = [(k, 720 + i, (BEYOND_N, 262144)) for i, k in enumerate(BEYOND_KERNELS)]
     kinds += [(k, 760 + i, (BEYOND_N, 262144) if k.startswith(("fused", "linear", "quad"))
                else (BEYOND_N, EIGEN_N, 262144) if k.startswith("fwd") else (EIGEN_N, 262144))
               for i, k in enumerate(BEYOND_ALL[len(BEYOND_KERNELS):])]
+    # the fp32 rows on u512 at 262144 points (0.1-0.5 s a launch) were timed
+    # in PRs 20-22 and are cut for the run's clock (PERF.md section 4)
     cells = [(net, net_act, kind, seed, N) for net, net_act in BEYOND_TIMED.items()
-             for kind, seed, Ns in kinds for N in Ns]
-    cells += [("c512", ((2, 512, 512, 1), "sin"), kind, 766 + i, EIGEN_N)
-              for i, kind in enumerate(BEYOND_E_KINDS[1:])]
+             for kind, seed, Ns in kinds for N in Ns if not (net == "u512" and N > EIGEN_N)]
+    cells += [("c512", ((2, 512, 512, 1), "sin"), kind, 766 + i, N)
+              for i, kind in enumerate(BEYOND_E_KINDS[1:]) for N in (EIGEN_N, 262144)]
     for net, (layers, act), kind, seed, N in cells:
         big = N > 100000
         case = _beyond_case(kind, (layers, act), N, dev, seed=seed)
@@ -4302,7 +4548,7 @@ def phase_beyond_timing(dev):
         ms = time_ms(case.kernel, warmup=1 if slow else 2,
                      reps=1 if slow else 5 if big else 15)
         dev_ms = device_ms(case.kernel, launches=2 if slow else 5 if big else 30,
-                           reps=1 if slow else 3 if big else 5)
+                           reps=1 if slow else 3 if big else 5, warm=1 if slow else 3)
         try:
             plain_ms = time_ms(lambda: case.plain(torch.float32), warmup=1,
                                reps=1 if slow else 3 if big else 7)
@@ -4321,6 +4567,36 @@ def phase_beyond_timing(dev):
         rows.append(row)
         del case
         torch.cuda.empty_cache()
+    # rows 1-5 bf16 on the same nets (row 4 not at d = 20): both bounds,
+    # the tensor cores' and the CUDA cores'
+    for net, (layers, act) in BEYOND_TIMED.items():
+        for i, base in enumerate(BEYOND_BF16):
+            if base == "fwdlap_forward" and layers[0] > 16:
+                continue
+            for N in (BEYOND_N, 262144):
+                big = N > 100000
+                slow = big and macs(layers) > 200000
+                case = _bf16_beyond_case(base, layers, act, N, dev, 830 + i)
+                run = lambda: case.kernel("bfloat16")
+                ms = time_ms(run, warmup=1 if slow else 2, reps=1 if slow else 5 if big else 15)
+                dev_ms = device_ms(run, launches=2 if slow else 5 if big else 30,
+                                   reps=1 if slow else 3 if big else 5, warm=1 if slow else 3)
+                try:
+                    plain_ms = time_ms(lambda: case.plain("bfloat16"), warmup=1,
+                                       reps=1 if slow else 3 if big else 7)
+                except torch.cuda.OutOfMemoryError:
+                    plain_ms = None
+                torch.cuda.empty_cache()
+                bound, by = case.bound(BF16_PEAK)
+                rows.append({
+                    "kernel": base + ".bf16", "net": net, "d": layers[0], "N": N,
+                    "plan": (bf16_forward_plan(layers, N, dev) if base == "fwdlap_forward"
+                             else fused_plan(base, layers, N, dev, True)),
+                    "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound,
+                    "bound_by": by, "bound_cuda_core_ms": case.bound(FP32_PEAK)[0],
+                    "flop": case.flops(), "bytes": case.bytes()})
+                del case
+                torch.cuda.empty_cache()
     emit({"phase": "beyond_timing", "phase_s": time.time() - t0, "rows": rows})
     return rows
 
@@ -6427,6 +6703,8 @@ def main():
     if "beyond" in want:
         for kind, err in phase_beyond_kernels(dev).items():
             max_err[kind] = max(max_err.get(kind, 0.0), err)
+        for kind, err in phase_beyond_bf16_kernels(dev).items():
+            max_err[kind] = max(max_err.get(kind, 0.0), err)
         beyond_launches = phase_beyond_path()
         for kind, n in phase_beyond_eigen_path().items():
             beyond_launches[kind] = beyond_launches.get(kind, 0) + n
@@ -6517,7 +6795,8 @@ def main():
     if set(wide_launches) != set(PRECISION_REPLACES) | {"multi_sums", "multi_seeded"} or not all(
             wide_launches.values()):
         raise SystemExit("a kernel of the width-200 paths was launched no time there")
-    if set(beyond_launches) != set(BEYOND_ALL) or not all(beyond_launches.values()):
+    if (set(beyond_launches) != set(BEYOND_ALL + BEYOND_BF16_NAMES)
+            or not all(beyond_launches.values())):
         raise SystemExit("a kernel of the paths beyond the limits was launched no time there")
     emit({"kernels": kernels})
     print(card, flush=True)

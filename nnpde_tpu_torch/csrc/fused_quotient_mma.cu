@@ -153,7 +153,7 @@ __device__ __forceinline__ void quad_seeded_terms(const MArgs& A, int base, cons
 }  // namespace
 
 // Two blocks per SM (the plans count on them; the register budget of the
-// reverse sweep, fused_step.cu's fused_mma_kernel).  WIDE: the variant for
+// reverse sweep, fused_step_mma.cu's fused_mma_kernel).  WIDE: the variant for
 // widths above 128 or the weights in device memory; LAP: the Laplacian
 // stream carried (linear kinds).
 template <bool WIDE, bool LAP>

@@ -31,7 +31,8 @@
 // accumulation, on the bf16 tensor cores in the design of fwdlap_mma.cuh
 // (DES_MMA; bound: the same FLOP at 989 TFLOP/s).  It is the fused
 // kernels' tensor-core body with the cotangent rows loaded in place of the
-// loss terms and without the projection (body<KIND_BWD>).
+// loss terms and without the projection (body<KIND_BWD>); it takes the nets
+// beyond the other kernels' limits as it is (no variant).
 //
 // Determinism: per-block partial rows, fixed in-block orders, one ordered
 // reduction in double, no atomics -- two launches are bitwise equal.
@@ -186,7 +187,7 @@ const void* bwd_variant_fn(int fold, int bf16, int des) {
 
 // The net and tile geometry of a tensor-core query (fwdlap_backward_mma_*).
 bool mma_net(const int* layers, int n_layers, int T, Net* net, mma::Geo* g) {
-  return make_net(1, layers, n_layers, 0, net) && mma::make_geo(*net, T, g);
+  return make_net(1, layers, n_layers, 0, net, true) && mma::make_geo(*net, T, g);
 }
 
 }  // namespace
@@ -216,9 +217,10 @@ int fwdlap_backward_f32(const float* X, const float* ct, const float* params,
                         float* scratch, float* out, int smem_bytes, void* stream) {
   PBwdArgs a;
   const void* fn = bwd_variant_fn(fold, bf16, des);
-  // the fp32 designs take the nets beyond the other kernels' limits, in
-  // their DES_BEYOND variant (beyond_net)
-  bool ok = fn != nullptr && make_net(1, layers, n_layers, act, &a.net, bf16 == 0) && N >= 1 &&
+  // both modes take the nets beyond the other kernels' limits: the fp32
+  // designs in their DES_BEYOND variant (beyond_net), the tensor-core design
+  // as it is
+  bool ok = fn != nullptr && make_net(1, layers, n_layers, act, &a.net, true) && N >= 1 &&
             G >= 1;
   const bool mma_des = bf16 != 0;     // (bwd_variant_fn took it: DES_MMA, maybe DES_WIDE)
   if (ok && mma_des) {

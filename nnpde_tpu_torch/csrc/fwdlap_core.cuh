@@ -16,8 +16,9 @@
 // kernels (fused_step.cu), the jet pair (fwdlap_forward.cu's rows,
 // fwdlap_backward.cu) and the fp32 quotients (fused_quotient.cu) also take
 // wider, deeper and higher-dimensional nets, to MAX_WIDTH, MAX_LAYERS
-// weight matrices and d = MAX_DIM (make_net's `beyond`; the others keep
-// CORE_*).  The elementwise walks (UnitWalk) step NT entries at a time and
+// weight matrices and d = MAX_DIM (make_net's `beyond`), and so do the
+// bf16-dot modes of the fused kernels and the jet pair (fwdlap_mma.cuh; the
+// jet forward's to d = CORE_DIM); the others keep CORE_*.  The elementwise walks (UnitWalk) step NT entries at a time and
 // wrap once per step at any width (Net::ntq = NT / width is 0 above NT);
 // the last layer's dW split (NT / width threads per column) is the one
 // routine that needs NT / width >= 1, and the variants for such nets
@@ -99,8 +100,8 @@ constexpr int MAX_DIM = 64;      // input dimension
 // Hidden width: above ~1600 no tile of 4 points fits shared memory in any
 // fp32 kernel, and the cap keeps the layouts' int arithmetic in range.
 constexpr int MAX_WIDTH = 4096;
-// What the kernels other than the fp32 fused ones, the jet pair and the
-// fp32 quotients take (make_net without `beyond`; header note), and the size
+// What the kernels other than the fused ones, the jet pair and the fp32
+// quotients take (make_net without `beyond`; header note), and the size
 // of the per-thread arrays of the fused kernels' loss terms (fused_step.cu)
 // below DES_BEYOND.
 constexpr int CORE_LAYERS = 16;
@@ -1016,8 +1017,9 @@ __device__ inline void reverse_sweep(const Net& net, int T, const float* __restr
 
 // The network description from its layer sizes (host side): false when
 // the kernels do not take the shape.  `lap`: carry the Laplacian stream.
-// `beyond`: the limits of the fp32 fused kernels, the jet pair and the fp32
-// quotients (MAX_*), else the other kernels' (CORE_*, widths to NT).
+// `beyond`: the limits of the fused kernels and the jet pair (both modes)
+// and of the fp32 quotients (MAX_*), else the other kernels' (CORE_*,
+// widths to NT).
 inline bool make_net(int lap, const int* layers, int n_layers, int act, Net* net,
                      bool beyond = false) {
   const int K = n_layers - 1;
@@ -1051,9 +1053,10 @@ inline bool make_net(int lap, const int* layers, int n_layers, int act, Net* net
   return true;
 }
 
-// Whether a net needs the DES_BEYOND variant of the planned kernels and of
-// the seeded quotients: a hidden width above NT (the last layer's dW split)
-// or d above CORE_DIM (the fused kernels' per-thread arrays).
+// Whether a net needs the DES_BEYOND variant of the planned kernels, of the
+// fused kernels' tensor-core design and of the seeded quotients: a hidden
+// width above NT (the last layer's dW split) or d above CORE_DIM (the fused
+// kernels' per-thread arrays).
 __host__ __device__ inline bool beyond_net(const Net& net) {
   return net.wmax > NT || net.d > CORE_DIM;
 }

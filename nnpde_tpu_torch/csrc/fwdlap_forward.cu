@@ -36,6 +36,8 @@
 // limits (widths above NT with the weights from device memory, up to
 // MAX_LAYERS weight matrices, d up to MAX_DIM: ROADMAP.md B7) with their
 // routines as they are; the stream-major write is the same loop at any d.
+// The bf16-dot mode takes their widths and depths too, and d to CORE_DIM
+// (JAX's _forward_kernel2, whose mode it is, takes d <= 6).
 // The two layouts differ only in the write: project_last leaves the jet
 // stream-major in shared memory, proj[s * T + p], so the row layout writes
 // each point's d+2 floats and the stream-major one each stream's run.
@@ -201,6 +203,14 @@ const void* fwd_variant_fn(int streams, int fold, int bf16, int des, int minb) {
   return streams ? planned_fn<true>(fold, des, minb) : planned_fn<false>(fold, des, minb);
 }
 
+// The net and tile geometry of a tensor-core query (fwdlap_forward_mma_*):
+// widths and depth beyond the other kernels' limits, d to CORE_DIM (the JAX
+// kernel of this mode, _forward_kernel2, takes d <= 6).
+bool mma_fwd_net(const int* layers, int n_layers, int T, Net* net, mma::Geo* g) {
+  return make_net(1, layers, n_layers, 0, net, true) && net->d <= CORE_DIM &&
+         mma::make_geo(*net, T, g);
+}
+
 }  // namespace
 
 extern "C" {
@@ -223,10 +233,11 @@ int fwdlap_forward_f32(int streams, const float* X, const float* params,
   FwdArgs a;
   const void* fn = fwd_variant_fn(streams, fold, bf16, des, minb);
   const bool devw = (des & DES_DEVW) != 0;
-  // the fp32 designs, in either layout, take the nets beyond the other
-  // kernels' limits (their routines take any width, depth and d as they are)
-  bool ok = fn != nullptr && make_net(1, layers, n_layers, act, &a.net, !bf16) &&
-            N >= 1 && G >= 1;
+  // both modes take the nets beyond the other kernels' limits (the
+  // routines of either design take any width, depth and d as they are); the
+  // bf16-dot mode keeps d <= CORE_DIM (mma_fwd_net)
+  bool ok = fn != nullptr && make_net(1, layers, n_layers, act, &a.net, true) &&
+            (!bf16 || a.net.d <= CORE_DIM) && N >= 1 && G >= 1;
   if (ok && bf16) {      // (fwd_variant_fn took des: DES_MMA, maybe DES_WIDE)
     mma::Geo g;
     ok = mma::flags_ok(flags, mma::KIND_FWD) && mma::make_geo(a.net, T, &g) &&
@@ -295,14 +306,14 @@ int fwdlap_forward_smem_bytes(const int* layers, int n_layers, int T, int flags)
 int fwdlap_forward_mma_smem_bytes(const int* layers, int n_layers, int T, int flags) {
   Net net;
   mma::Geo g;
-  if (!make_net(1, layers, n_layers, 0, &net) || !mma::make_geo(net, T, &g)) return -1;
+  if (!mma_fwd_net(layers, n_layers, T, &net, &g)) return -1;
   return mma::layout(net, g, flags, mma::KIND_FWD).total;
 }
 
 int fwdlap_forward_mma_scratch_floats(const int* layers, int n_layers, int T) {
   Net net;
   mma::Geo g;
-  if (!make_net(1, layers, n_layers, 0, &net) || !mma::make_geo(net, T, &g)) return -1;
+  if (!mma_fwd_net(layers, n_layers, T, &net, &g)) return -1;
   return (int)mma::scratch_floats(net, g, mma::KIND_FWD);
 }
 

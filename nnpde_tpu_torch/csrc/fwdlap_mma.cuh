@@ -67,7 +67,7 @@
 // backward: the block's gradient row, whose hidden dW then accumulates in
 // fragment order, dw_product); chip_smoke.py mma_sweep measures each.
 //
-// Widths to 256.  A 256-wide W_k is 135 KB in bf16, and three stages of 18
+// Wide nets.  A 256-wide W_k is 135 KB in bf16, and three stages of 18
 // streams at T = 8 are 228 KB: beside the stages of a wide net there may be
 // no room for a weight matrix, and at large d none for the column sums.  So
 // two tiers more: DEV_WEIGHTS builds each B fragment from the fp32 W_k in
@@ -85,7 +85,16 @@
 // accumulators) and once per tile in the reverse sweep's, so that neither
 // variant's registers grow with the width (holding 16 k-steps spilled
 // 0.5-1 KB per thread, PERF.md).  Only the wide variant may keep its sums
-// in device memory: the narrow one's stay shared-memory accesses.
+// in device memory: the narrow one's stay shared-memory accesses.  The body
+// sets no cap of its own on the width, the depth or d: its per-thread state
+// holds no stream count and every loop over units steps by warp blocks or
+// by NT.  What a kernel takes is its launcher's make_net: the fused kernels
+// and the jet pair (rows 1-5) the nets beyond the other kernels' limits
+// (fwdlap_core.cuh's MAX_*; the jet forward d to CORE_DIM), the quotients'
+// and the K-bump pair's passes CORE_LAYERS, CORE_DIM and widths to NT.
+// Above width 256 the gradient row fits no tier on chip: each tile adds its
+// dW to the block's row of `partial` in device memory (a read-modify-write
+// of the whole row per tile), which reduce_rows then sums in order.
 // Built, measured and taken out (PERF.md): the A operands read as fp32 and
 // converted in the fragment (cvt.rn.bf16x2.f32) instead of ldmatrix of the
 // bf16 stages, dW fragments in registers across the block's tiles, two
@@ -151,8 +160,6 @@ __host__ __device__ constexpr int lanes_of(const Args&) {
 }
 
 constexpr int NW = NT / 32;                  // warps per block
-constexpr int MMA_MAX_WIDTH = 256;           // hidden width the design takes
-constexpr int KS_MAX = MMA_MAX_WIDTH / 16;   // k-steps of the widest product
 constexpr int KS_REG = 8;                    // k-steps whose B fragments the
                                              // narrow variant holds in registers
 
@@ -176,6 +183,9 @@ struct Geo {
   int nblk;         // warp blocks of the widest stage, NPB * nbmax
 };
 
+// The geometry of a tile of T points on a net with the Laplacian stream;
+// false for a tile the design does not take (the nets it takes are
+// make_net's, in each launcher).
 __host__ __device__ inline bool make_geo(const Net& net, int T, Geo* g) {
   if (!net.lap || !(T == 8 || (T >= 16 && T % 16 == 0 && T <= NT / 2))) return false;
   int wt = 0;
@@ -191,9 +201,7 @@ __host__ __device__ inline bool make_geo(const Net& net, int T, Geo* g) {
   g->wq = np8(wt);
   g->nbmax = g->wq / 8;
   g->nblk = g->NPB * g->nbmax;
-  // checked last: the kernels' own call discards the result, so their code
-  // does not depend on it
-  return wt <= MMA_MAX_WIDTH;
+  return true;
 }
 
 // The geometry of a kind that carries the Laplacian stream or not (lap; the
@@ -224,7 +232,7 @@ __host__ __device__ inline bool make_geo(const Net& net, int T, Geo* g, bool lap
   g->wq = np8(wt);
   g->nbmax = g->wq / 8;
   g->nblk = g->NPB * g->nbmax;
-  return wt <= MMA_MAX_WIDTH;
+  return true;
 }
 
 // W_k (k = 1..K-2) in shared memory: kp16(w_k) rows of ldw(k) bf16.

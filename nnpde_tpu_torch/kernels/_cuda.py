@@ -56,9 +56,9 @@ class Limits(NamedTuple):
     dim: int
 
 
-# the bf16-dot modes (the ".bf16" launch names): the tensor-core design
-# (fwdlap_mma.cuh: MMA_MAX_WIDTH, KS_MAX = 16 k-steps; fwdlap_core.cuh's
-# CORE_LAYERS, CORE_DIM)
+# the bf16-dot modes of the quotients and the K-bump pair (rows 7-12, the
+# ".bf16" launch names but those of BEYOND_BF16): fwdlap_core.cuh's
+# CORE_LAYERS, CORE_DIM, widths to NT (make_net without `beyond`)
 CORE_LIMITS = Limits(NT, 16, 16)
 # every fp32 kernel: the fused kernels (rows 1-3), the jet pair in both
 # layouts (rows 4-6), the quotients (rows 7-10) and the K-bump pair (rows
@@ -67,8 +67,20 @@ CORE_LIMITS = Limits(NT, 16, 16)
 # (_plan.NoFit)
 BEYOND_LIMITS = Limits(4096, 64, 64)
 BEYOND_KERNELS = tuple(name for name in LAUNCHES if not name.endswith(".bf16"))
+# the bf16-dot modes of rows 1-5 (the fused kernels and the jet pair on the
+# tensor-core design, fwdlap_mma.cuh) take the same nets where a tile of 8
+# points fits (fused_step.mma_plan raises _plan.NoFit elsewhere), the jet
+# forward's d to 16 (BF16_FORWARD_LIMITS)
+BEYOND_BF16 = ("fused_linear_residual.bf16", "fused_poisson_analytic.bf16",
+               "fused_drm_energy.bf16", "fwdlap_forward.bf16", "fwdlap_backward.bf16")
+# the jet forward's bf16-dot mode: JAX's _forward_kernel2 (fwd_impl=
+# 'pallas2:default'), whose single-pass mode it is, takes d <= 6 in every
+# dot mode; the port's takes d to CORE_DIM (fwdlap_forward.cu)
+BF16_FORWARD_LIMITS = Limits(BEYOND_LIMITS.width, BEYOND_LIMITS.matrices, 16)
 # What each kernel takes, by launch name.
-LIMITS = {name: BEYOND_LIMITS if name in BEYOND_KERNELS else CORE_LIMITS for name in LAUNCHES}
+LIMITS = {name: (BF16_FORWARD_LIMITS if name == "fwdlap_forward.bf16"
+                 else BEYOND_LIMITS if name in BEYOND_KERNELS + BEYOND_BF16 else CORE_LIMITS)
+          for name in LAUNCHES}
 SMEM_MAX = 227 * 1024         # dynamic shared memory one block can get on an H100
 
 _OCCUPANCY = {}
@@ -105,8 +117,10 @@ def check_net(name: str, layers) -> None:
         raise ValueError(f"{name}: the kernel takes 2 to {lim.matrices} weight matrices and "
                          f"one output (deeper nets: {BEYOND_ITEM}); got layers {list(layers)}")
     if not 1 <= layers[0] <= lim.dim:
-        raise ValueError(f"{name}: the kernel takes d from 1 to {lim.dim} (larger d: "
-                         f"{BEYOND_ITEM}); got layers {list(layers)}")
+        note = ("the JAX package's _forward_kernel2, whose single-pass mode this is, takes "
+                "d <= 6" if name == "fwdlap_forward.bf16" else f"larger d: {BEYOND_ITEM}")
+        raise ValueError(f"{name}: the kernel takes d from 1 to {lim.dim} ({note}); "
+                         f"got layers {list(layers)}")
     if not all(1 <= w <= lim.width for w in layers[1:-1]):
         raise ValueError(f"{name}: the kernel takes hidden widths from 1 to {lim.width} "
                          f"(wider nets: {BEYOND_ITEM}); got layers {list(layers)}")
@@ -114,9 +128,9 @@ def check_net(name: str, layers) -> None:
 
 def beyond(layers) -> bool:
     """Whether a net needs the DES_BEYOND variant of the planned fused
-    kernels, the jet backward, the seeded quotients and the K-bump pass B
-    (``beyond_net`` of fwdlap_core.cuh): a hidden width above ``NT`` or d
-    above the bf16-dot modes' limit."""
+    kernels, the jet backward, the seeded quotients, the K-bump pass B and
+    the fused kernels' bf16-dot mode (``beyond_net`` of fwdlap_core.cuh): a
+    hidden width above ``NT`` or d above ``CORE_LIMITS.dim``."""
     return padded_wmax(layers) > NT or layers[0] > CORE_LIMITS.dim
 
 
@@ -227,12 +241,16 @@ DES_DEVW = 8      # the hidden weights read from device memory by the products
 DES_BEYOND = 32   # the variant of the planned fused kernels (rows 1-3) and the
                   # jet backward (row 5) for the nets of :func:`beyond` (a hidden
                   # width above NT, d above 16), with DES_PLANNED, alone or with
-                  # DES_DEVW; 4 x 4 items, no fold (fwdlap_planned.cuh); and of
+                  # DES_DEVW; 4 x 4 items, no fold (fwdlap_planned.cuh); of
                   # the seeded quotients (rows 8, 10) and the K-bump pass B (row
                   # 12) for the same nets, alone or with DES_DEVW
                   # (fused_quotient.cu, fused_multibump.cu: the core's reverse
-                  # sweep summing the last dW one thread per column above NT).
-                  # The forward-only kernels (rows 4, 6, 7, 9, 11) need none
+                  # sweep summing the last dW one thread per column above NT);
+                  # and of the fused kernels' bf16-dot mode (rows 1-3 bf16) for
+                  # the same nets, with DES_MMA, alone or with DES_WIDE
+                  # (fused_step_mma.cu's fused_mma_beyond: the loss terms without
+                  # per-point arrays).  The forward-only kernels (rows 4, 6, 7,
+                  # 9, 11) and the jet backward's bf16-dot mode need none
 PLANNED_DESIGNS = (DES_PLANNED, DES_PLANNED | DES_ITEM2)
 BEYOND_DESIGNS = (DES_PLANNED | DES_BEYOND, DES_PLANNED | DES_DEVW | DES_BEYOND)
 # what the fp32 kernels take

@@ -16,7 +16,8 @@ params layout ``[(dW, db), ...]``; the last-bias gradient is
 ``scale * sum(ct_v)``.
 
 Where it runs: a CUDA tensor goes to the hand-written kernels of
-``csrc/fused_step.cu`` (float32; anything else raises), a CPU tensor to the
+``csrc/fused_step.cu`` (the bf16-dot mode's in ``csrc/fused_step_mma.cu``;
+float32 tensors, anything else raises), a CPU tensor to the
 plain version beside it, which differentiates the forward-Laplacian
 recurrence (:func:`~nnpde_tpu_torch.ops.fwdlap.mlp_fwdlap`) with
 ``torch.autograd`` in any dtype.  The plain versions take any device when
@@ -46,8 +47,8 @@ from typing import NamedTuple, Sequence
 
 import torch
 
-from ..ops.fwdlap import (mlp_fwdlap, project_plain, recompute_plain, reverse_plain,
-                          round_bf16)
+from ..ops.fwdlap import (DV_ORDERS, mlp_fwdlap, project_plain, recompute_plain,
+                          reverse_plain, round_bf16)
 from . import _cuda, _plan
 from ._cuda import variant_name
 
@@ -132,17 +133,24 @@ class PoissonSinCoef:
         return a0 * lapB, [2.0 * a0 * dBi for dBi in dB], a0 * B, -f
 
 
-def _residual_swept(params, X, coef, activation, cast):
+def _residual_swept(params, X, coef, activation, cast, order=None):
     """The linear-residual kernel's arithmetic in a dot mode: ``(dWs, dbs,
-    sums)`` as :func:`linear_residual_plain` returns them."""
+    sums)`` as :func:`linear_residual_plain` returns them; ``order``: the
+    reverse nonlinearity's sum (``ops.fwdlap.DV_ORDERS``)."""
     d = X.shape[1]
     params = [(W.detach(), b.detach()) for W, b in params]
     saved, final = recompute_plain(params, X, activation, cast)
     value, grad, lap = project_plain(params, final)
     c, b, a = coef[:, 0], coef[:, 1:1 + d], coef[:, d + 1]
-    r = c * value + torch.sum(b * grad, dim=1) + a * lap + coef[:, d + 2]
+    # the kernels' order (JAX's _fused_kernel, fused_step.cu point_terms):
+    # the Jacobian terms added one by one after the others; at d = 20 a
+    # sum of them in another order rounded a cotangent to the other bf16
+    # neighbour (ROADMAP.md C)
+    r = c * value + a * lap + coef[:, d + 2]
+    for j in range(d):
+        r = r + b[:, j] * grad[:, j]
     ct = torch.cat([(r * c)[:, None], r[:, None] * b, (r * a)[:, None]], dim=1)
-    dWs, dbs = reverse_plain(params, X, cast, saved, final, ct)
+    dWs, dbs = reverse_plain(params, X, cast, saved, final, ct, order)
     sums = torch.stack([torch.sum(r * r), torch.sum(r * c),
                         torch.sum(r * coef[:, d + 3] * value)])
     return dWs, dbs, sums
@@ -160,13 +168,17 @@ def _grads_of(total, leaves):
 
 
 def linear_residual_plain(params, X, coef, activation: str,
-                          dot_dtype: str = "float32"):
+                          dot_dtype: str = "float32", order=None):
     """Plain version of the linear-residual kernel: ``(dWs, dbs, sums)``
     with ``dW = sum_i r_i dr_i/dW`` (unscaled) and ``sums = [sum r^2,
     sum r c, sum r e net]``.  ``dot_dtype='bfloat16'``: the kernel's
-    bf16-dot variant (every product operand rounded to bf16)."""
+    bf16-dot variant (every product operand rounded to bf16), its reverse
+    nonlinearity's sum in ``order`` (``ops.fwdlap.DV_ORDERS``; the float32
+    mode takes none)."""
     if dot_dtype == "bfloat16":
-        return _residual_swept(params, X, coef, activation, round_bf16)
+        return _residual_swept(params, X, coef, activation, round_bf16, order)
+    if order is not None:
+        raise ValueError("order: the bf16-dot plain versions only")
     d = X.shape[1]
     with torch.enable_grad():
         leaves = _leaves(params)
@@ -181,38 +193,60 @@ def linear_residual_plain(params, X, coef, activation: str,
     return dWs, dbs, sums
 
 
+# The analytic kernel's plain bf16-dot version in other sound rounding orders
+# (``order``): the reverse nonlinearity's (ops.fwdlap.DV_ORDERS), or
+# "coef64", the coefficients computed in float64 and rounded once, as a
+# correctly rounded in-kernel builder would give them: at d = 20 the
+# products of 19-20 factors carry a float32 error that moves the gradient
+# leaves by up to 6e-6 (ROADMAP.md C).
+ANALYTIC_ORDERS = DV_ORDERS + ("coef64",)
+
+
 def poisson_analytic_plain(params, X, activation: str, coef_fn,
-                           dot_dtype: str = "float32"):
+                           dot_dtype: str = "float32", order=None):
     """Plain version of the analytic kernel: the linear residual with the
-    coefficients ``coef_fn(X)`` (no extra e lane)."""
-    c, bs, a, rhs = coef_fn(X)
-    coef = torch.stack([c, *bs, a, rhs, torch.zeros_like(c)], dim=1)
-    return linear_residual_plain(params, X, coef, activation, dot_dtype)
+    coefficients ``coef_fn(X)`` (no extra e lane); ``order``: one of
+    ``ANALYTIC_ORDERS`` (the bf16-dot mode)."""
+    coef64 = order == "coef64"
+    if coef64 and dot_dtype != "bfloat16":
+        raise ValueError("order: the bf16-dot plain versions only")
+    c, bs, a, rhs = coef_fn(X.double() if coef64 else X)
+    coef = torch.stack([c, *bs, a, rhs, torch.zeros_like(c)], dim=1).to(X.dtype)
+    return linear_residual_plain(params, X, coef, activation, dot_dtype,
+                                 None if coef64 else order)
 
 
-def _drm_swept(params, X, coef, activation, cast):
+def _drm_swept(params, X, coef, activation, cast, order=None):
     """The DRM kernel's arithmetic in a dot mode: ``(dWs, dbs, sums)`` as
-    :func:`drm_energy_plain` returns them (no Laplacian cotangent)."""
+    :func:`drm_energy_plain` returns them (no Laplacian cotangent);
+    ``order``: the reverse nonlinearity's sum (``ops.fwdlap.DV_ORDERS``)."""
     d = X.shape[1]
     params = [(W.detach(), b.detach()) for W, b in params]
     B, dB, f = coef[:, 0], coef[:, 1:1 + d], coef[:, d + 1]
     saved, final = recompute_plain(params, X, activation, cast)
     value, grad, _ = project_plain(params, final)
     G = B[:, None] * grad + dB * value[:, None]
-    e = 0.5 * torch.sum(G * G, dim=1) - f * B * value
-    ctv = torch.sum(G * dB, dim=1) - f * B
+    # the kernels' order: the terms of each stream one by one
+    e, ctv = 0.5 * G[:, 0] * G[:, 0], G[:, 0] * dB[:, 0]
+    for j in range(1, d):
+        e, ctv = e + 0.5 * G[:, j] * G[:, j], ctv + G[:, j] * dB[:, j]
+    e, ctv = e - f * B * value, ctv - f * B
     ct = torch.cat([ctv[:, None], G * B[:, None], torch.zeros_like(ctv)[:, None]], dim=1)
-    dWs, dbs = reverse_plain(params, X, cast, saved, final, ct)
+    dWs, dbs = reverse_plain(params, X, cast, saved, final, ct, order)
     sums = torch.stack([torch.sum(e), torch.sum(ctv), torch.zeros_like(ctv[0])])
     return dWs, dbs, sums
 
 
-def drm_energy_plain(params, X, coef, activation: str, dot_dtype: str = "float32"):
+def drm_energy_plain(params, X, coef, activation: str, dot_dtype: str = "float32",
+                     order=None):
     """Plain version of the DRM kernel: ``dW = d(sum_i e_i)/dW`` and
     ``sums = [sum e, sum ct_v, 0]`` with ``ct_v = de/dnet``.
-    ``dot_dtype='bfloat16'``: the kernel's bf16-dot variant."""
+    ``dot_dtype='bfloat16'``: the kernel's bf16-dot variant, its reverse
+    nonlinearity's sum in ``order`` (``ops.fwdlap.DV_ORDERS``)."""
     if dot_dtype == "bfloat16":
-        return _drm_swept(params, X, coef, activation, round_bf16)
+        return _drm_swept(params, X, coef, activation, round_bf16, order)
+    if order is not None:
+        raise ValueError("order: the bf16-dot plain versions only")
     d = X.shape[1]
     B, dB, f = coef[:, 0], coef[:, 1:1 + d], coef[:, d + 1]
     with torch.enable_grad():
@@ -296,9 +330,10 @@ def planned(smem_floats_of, layers, S: int, what: str, design: int | None = None
 
 def plan(kind: str, layers, design: int | None = None, *, T: int | None = None,
          tier: str | None = None) -> _plan.Plan:
-    """The launch shape of one fused kernel (:func:`planned`; a design with
-    ``DES_MMA``: :func:`mma_plan`)."""
-    if design == _cuda.DES_MMA:
+    """The launch shape of one fused kernel (:func:`planned`; a tensor-core
+    design, ``MMA_DESIGNS``: :func:`mma_plan`, which adds ``DES_BEYOND``
+    where the net needs it)."""
+    if design in MMA_DESIGNS:
         return mma_plan(kind, layers, T=T, tier=tier)
     return planned(lambda t, f: smem_floats(kind, layers, t, f), layers,
                    _streams(kind, layers[0]), f"{kind} plan", design, T=T, tier=tier)
@@ -468,6 +503,13 @@ def mma_scratch_floats(layers, T: int, kind: str = "fused_linear_residual",
     return saved + (_mma_sums_floats(g, kind) if flags & _plan.DEV_SUMS else 0)
 
 
+# What an unpinned tensor-core plan that fits nothing adds to its NoFit: the
+# design's smallest tile is 8 points, and the stages in device memory are the
+# rest of ROADMAP.md B7.
+MMA_NO_TILE = (f": no tile of 8 points fits (stages in device memory: "
+               f"{_cuda.BEYOND_ITEM})")
+
+
 def mma_plan(kind: str, layers, *, T: int | None = None, tier: str | None = None,
              blocks: int | None = None, lap=None, n_bumps: int | None = None) -> _plan.Plan:
     """The launch shape of the bf16-dot mode of ``kind`` (``MMA_KINDS``) in
@@ -479,11 +521,22 @@ def mma_plan(kind: str, layers, *, T: int | None = None, tier: str | None = None
     ``MMA_FWD_TIERS``) in order.  The jet forward's plan carries its
     register budget in ``blocks`` (3 at three blocks per SM, else 2).
     ``T``, ``tier`` and ``blocks`` pin a choice; ``lap``: :func:`mma_lap`;
-    ``n_bumps``: the K-bump pass A's bump count (:func:`mma_sum_lanes`);
-    what fits nothing raises, naming the shape."""
+    ``n_bumps``: the K-bump pass A's bump count (:func:`mma_sum_lanes`).
+    The design is ``DES_MMA``, with ``DES_BEYOND`` for the fused kinds
+    (rows 1-3) on the nets of :func:`._cuda.beyond` and only there (their
+    loss terms without per-point arrays; :func:`mma_des` adds the wide
+    variant's bit at launch).  Rows 1-5 take the nets beyond the other
+    kernels' limits (``_cuda.LIMITS``; widths to 4096, 64 weight matrices,
+    d to 64, the jet forward's to 16) wherever a tile fits, rows 7-12 width
+    256, 16 matrices and d 16; a net past its kind's limits raises naming
+    ROADMAP.md B7 (the jet forward past d = 16: JAX's own limit), and what
+    fits nothing raises :class:`._plan.NoFit` naming the shape (and, unpinned,
+    B7: the smallest tile is 8 points)."""
     lap = mma_lap(kind, lap)
     _cuda.check_net(kind + ".bf16", layers)
     jet_fwd = kind == "fwdlap_forward"
+    design = _cuda.DES_MMA | (_cuda.DES_BEYOND if kind.startswith("fused")
+                              and _cuda.beyond(layers) else 0)
     shares = MMA_SHARES.get(kind, (2, 1))
     if blocks is not None and blocks not in shares:
         raise ValueError(f"{kind}: the register budget is {max(shares)} blocks per SM, "
@@ -502,24 +555,28 @@ def mma_plan(kind: str, layers, *, T: int | None = None, tier: str | None = None
                     continue
                 smem = mma_smem_bytes(layers, t, flags, kind, lap, n_bumps)
                 if smem <= budget:
-                    return _plan.Plan(t, smem, flags, name, _cuda.DES_MMA,
+                    return _plan.Plan(t, smem, flags, name, design,
                                       (3 if share == 3 else 2) if jet_fwd else 0)
-    raise ValueError(f"{kind} mma plan: layers {list(layers)} do not fit {_cuda.SMEM_MAX} B "
-                     f"of shared memory (T={T}, tier={tier}, blocks={blocks}, lap={lap}, "
-                     f"n_bumps={n_bumps})")
+    pinned = T is not None or tier is not None or blocks is not None
+    raise _plan.NoFit(f"{kind} mma plan: layers {list(layers)} do not fit {_cuda.SMEM_MAX} B "
+                      f"of shared memory (T={T}, tier={tier}, blocks={blocks}, lap={lap}, "
+                      f"n_bumps={n_bumps}){'' if pinned else MMA_NO_TILE}")
 
 
 MMA_REG_WIDTH = 128      # widest layer the narrow variant holds in registers (KS_REG)
+# the tensor-core designs of the fused kernels' launches (before DES_WIDE)
+MMA_DESIGNS = (_cuda.DES_MMA, _cuda.DES_MMA | _cuda.DES_BEYOND)
 
 
-def mma_des(layers, flags: int) -> int:
-    """The design argument of a tensor-core launch: ``DES_MMA``, with
-    ``DES_WIDE`` for the wide variant (``mma::needs_wide``): a hidden width
-    above 128, whose k-steps the narrow variant cannot hold in registers, or
-    the weights or the sums in device memory."""
+def mma_des(layers, flags: int, design: int = _cuda.DES_MMA) -> int:
+    """The design argument of a tensor-core launch: its plan's ``design``
+    (``DES_MMA``, for rows 1-3 on the nets beyond with ``DES_BEYOND``),
+    with ``DES_WIDE`` for the wide variant (``mma::needs_wide``): a hidden
+    width above 128, whose k-steps the narrow variant cannot hold in
+    registers, or the weights or the sums in device memory."""
     wide = (max(layers[1:-1]) > MMA_REG_WIDTH
             or flags & (_plan.DEV_WEIGHTS | _plan.DEV_SUMS))
-    return _cuda.DES_MMA | (_cuda.DES_WIDE if wide else 0)
+    return design | (_cuda.DES_WIDE if wide else 0)
 
 
 def variant(layers, S: int, pl: _plan.Plan) -> tuple[int, int]:
@@ -527,8 +584,8 @@ def variant(layers, S: int, pl: _plan.Plan) -> tuple[int, int]:
     variant (a planned design), and the key of its variant in
     :func:`._cuda.grid`'s cache (the tensor-core design's: its narrow or
     wide variant)."""
-    if pl.design == _cuda.DES_MMA:
-        return 0, mma_des(layers, pl.flags) << 1
+    if pl.design & _cuda.DES_MMA:
+        return 0, mma_des(layers, pl.flags, pl.design) << 1
     fold = int(_cuda.folds(layers, S, pl.T, 2 if pl.design & _cuda.DES_ITEM2 else 1)
                and not pl.design & _cuda.DES_DEVW)     # compiled without the fold
     return fold, fold | pl.design << 1
@@ -555,12 +612,16 @@ def _launch(kind: str, params, X, coef, activation: str, analytic=None,
     if pl is None:
         pl = _plan.cached(("fused", kind, tuple(layers), bf16),
                           lambda: mma_plan(kind, layers) if bf16 else plan(kind, layers))
-    mma = pl.design == _cuda.DES_MMA
-    if bool(bf16) != mma or not (mma or pl.design in _cuda.FP32_DESIGNS):
+    mma = bool(pl.design & _cuda.DES_MMA)
+    if bool(bf16) != mma or not (pl.design in _cuda.FP32_DESIGNS + MMA_DESIGNS):
         raise ValueError(f"{kind}: the bf16-dot mode runs the tensor-core design and only it; "
                          f"fp32 a planned design (bf16={bf16}, design={pl.design})")
+    if mma and bool(pl.design & _cuda.DES_BEYOND) != _cuda.beyond(layers):
+        raise ValueError(f"{kind}: the bf16-dot mode's DES_BEYOND variant is for the nets "
+                         f"beyond the other kernels' limits, and only they take it (layers "
+                         f"{list(layers)}, design {pl.design})")
     T = pl.T
-    design = mma_des(layers, pl.flags) if mma else pl.design
+    design = mma_des(layers, pl.flags, pl.design) if mma else pl.design
     mode = _MODES[kind]
     dev = X.device
     S = _streams(kind, d)

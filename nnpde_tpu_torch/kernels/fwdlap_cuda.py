@@ -141,16 +141,20 @@ def c4_columns(params, X, activation: str, out):
     return rows
 
 
-def fwdlap_backward_plain(params, X, ct, activation: str, dot_dtype: str = "float32"):
+def fwdlap_backward_plain(params, X, ct, activation: str, dot_dtype: str = "float32",
+                          order=None):
     """Plain version of the backward kernel: ``(dWs, dbs)`` of ``sum(jet *
     ct)`` with ``jet`` the ``(N, d+2)`` rows ``[u, grad u, lap u]`` of
     :func:`~nnpde_tpu_torch.ops.fwdlap.mlp_fwdlap`, by autograd;
     ``dot_dtype='bfloat16'``: the bf16-dot variant's recompute and reverse
-    sweep, every product operand rounded to bf16."""
+    sweep, every product operand rounded to bf16, the reverse
+    nonlinearity's sum in ``order`` (``ops.fwdlap.DV_ORDERS``)."""
     if dot_dtype == "bfloat16":
         params = [(W.detach(), b.detach()) for W, b in params]
         saved, final = recompute_plain(params, X, activation, round_bf16)
-        return reverse_plain(params, X, round_bf16, saved, final, ct)
+        return reverse_plain(params, X, round_bf16, saved, final, ct, order)
+    if order is not None:
+        raise ValueError("order: the bf16-dot plain versions only")
     with torch.enable_grad():
         leaves = [(W.detach().requires_grad_(True), b.detach().requires_grad_(True))
                   for W, b in params]
@@ -362,6 +366,10 @@ def mlp_fwdlap_kernel(params, X, activation: str, fwd_impl: str = "rows",
     if fwd_impl not in _FWD_IMPLS:
         raise ValueError(f"fwd_impl must be one of {_FWD_IMPLS}, got {fwd_impl!r}")
     _check_dot(dot_dtype)
+    if fwd_impl == "rows:default":
+        # the bf16-dot forward's limits on every device, its kernel's (d to
+        # 16; JAX's _forward_kernel2 raises above d = 6)
+        _cuda.check_net("fwdlap_forward.bf16", [X.shape[1]] + [W.shape[1] for W, _ in params])
     leaves = [t for pair in params for t in pair]
     out = _JetForward.apply((activation, fwd_impl, dot_dtype), X, *leaves)
     d = X.shape[1]

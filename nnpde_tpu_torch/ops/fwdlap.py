@@ -244,20 +244,45 @@ def project_plain(params, final):
     return A @ w + bl[0], (Jm @ w).T, lm @ w
 
 
-def _nl_bwd(pack, J, l, q, dA, dJm, dlm):
-    """Backward through a stage's nonlinearity (``_nl_bwd_pack``)."""
+# The reverse nonlinearity's sum dv = s1 dA + (s2 l + s3 q) dlm + sum_i s2
+# J_i dJ_i in other sound rounding orders than the plain version's (which
+# sums the Jacobian shares with torch.sum, then adds them): "streams" sums
+# them one stream after another, then adds them (the CUDA kernels' order,
+# fwdlap_mma.cuh BwdSt); "chain" adds each to dv in stream order (the JAX
+# kernels' _nl_bwd_pack).  In the bf16-dot mode an fp32 ulp there can round
+# a cotangent to the other bf16 neighbour, so these orders are part of the
+# plain version's own spread (ROADMAP.md C).
+DV_ORDERS = ("streams", "chain")
+
+
+def _nl_bwd(pack, J, l, q, dA, dJm, dlm, order=None):
+    """Backward through a stage's nonlinearity (``_nl_bwd_pack``);
+    ``order``: the sum of dv in one of ``DV_ORDERS``."""
     _, s1, s2, s3 = pack
     dq = s2 * dlm
-    dv = s1 * dA + (s2 * l + s3 * q) * dlm + torch.sum(s2 * J * dJm, dim=0)
+    dv = s1 * dA + (s2 * l + s3 * q) * dlm
+    if order is None:
+        dv = dv + torch.sum(s2 * J * dJm, dim=0)
+    elif order == "streams":
+        dvj = s2 * J[0] * dJm[0]
+        for i in range(1, J.shape[0]):
+            dvj = dvj + s2 * J[i] * dJm[i]
+        dv = dv + dvj
+    elif order == "chain":
+        for i in range(J.shape[0]):
+            dv = dv + s2 * J[i] * dJm[i]
+    else:
+        raise ValueError(f"Unknown dv order {order!r}; one of {DV_ORDERS}")
     return dv, s1 * dJm + 2.0 * J * dq, s1 * dlm
 
 
-def reverse_plain(params, X, cast, saved, final, ct):
+def reverse_plain(params, X, cast, saved, final, ct, order=None):
     """The TPU kernels' reverse sweep (``_reverse_sweep``) from per-point
     cotangents ``ct`` (N, d+2) of ``[value, grad, lap]`` to ``(dWs, dbs)``,
     every operand of the ``dW`` and pullback products passed through
     ``cast``; ``dWlast``, the ``db`` sums and the Jacobian-row sums added to
-    ``dW0`` take the values as they are.  ``dbs[-1] = sum ct_v``."""
+    ``dW0`` take the values as they are.  ``dbs[-1] = sum ct_v``.
+    ``order``: the reverse nonlinearity's sum in one of ``DV_ORDERS``."""
     d, K = X.shape[1], len(params)
     J, l, q, pack, (A, Jm, lm) = final
     ct_v, ct_g, ct_l = ct[:, 0], ct[:, 1:1 + d].T, ct[:, d + 1]
@@ -267,7 +292,7 @@ def reverse_plain(params, X, cast, saved, final, ct):
                + lm.T @ ct_l)[:, None]
     dbs[-1] = torch.sum(ct_v).reshape(1)
     dv, dJ, dl = _nl_bwd(pack, J, l, q, ct_v[:, None] * w, ct_g[:, :, None] * w,
-                         ct_l[:, None] * w)
+                         ct_l[:, None] * w, order)
     for k in range(K - 2, 0, -1):
         J_e, l_e, q_e, pack_e, Jm_e, lm_e = saved[k - 1]
         W = params[k][0]
@@ -276,7 +301,7 @@ def reverse_plain(params, X, cast, saved, final, ct):
         dWs[k] = M.reshape(-1, W.shape[0]).T @ D.reshape(-1, W.shape[1])
         dbs[k] = torch.sum(dv, dim=0)
         P = D @ cast(W).T
-        dv, dJ, dl = _nl_bwd(pack_e, J_e, l_e, q_e, P[0], P[1:1 + d], P[d + 1])
+        dv, dJ, dl = _nl_bwd(pack_e, J_e, l_e, q_e, P[0], P[1:1 + d], P[d + 1], order)
     dWs[0] = cast(X).T @ cast(dv) + torch.sum(dJ, dim=1)
     dbs[0] = torch.sum(dv, dim=0)
     return dWs, dbs

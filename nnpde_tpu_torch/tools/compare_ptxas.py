@@ -10,7 +10,8 @@ tree's kernels).  For every entry
 function of PARENT it prints whether CHANGE has it with the same registers,
 stack frame and spills (the anonymous namespace's per-build hash in the
 mangled names is ignored), then the entries that CHANGE adds, and one JSON
-summary line.
+summary line.  The anonymous namespace's length prefix goes too: it counts
+the source file's name, so a kernel moved to another file keeps its key.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ def _lines(path):
 
 
 def _name(mangled):
-    return re.sub(r"_GLOBAL__N__[0-9a-f]{8}_\d+_[A-Za-z_]+?_[0-9a-f]{8}", "(anon)", mangled)
+    return re.sub(r"\d*_GLOBAL__N__[0-9a-f]{8}_\d+_[A-Za-z_]+?_[0-9a-f]{8}", "(anon)", mangled)
 
 
 def parse(lines):

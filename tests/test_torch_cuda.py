@@ -105,23 +105,30 @@ def test_cuda_kernel_matches_plain(dev, kind, d, layers, act):
 @pytest.mark.parametrize("name", sorted(LAUNCHES))
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(dev, name):
     """The wrapper's check of each kernel (``_cuda.net_layers``, a launch
-    name) on card tensors: the kernels of ``_cuda.BEYOND_KERNELS`` (every
-    fp32 kernel, rows 1-12: ROADMAP.md B7's first three items) take widths
-    257 and 1001, 24 weight matrices and d = 20, and raise above width 4096;
-    every bf16-dot mode raises on each, naming the roadmap item.  The DRM energy, which kept width 256 until
+    name) on card tensors, by its ``_cuda.LIMITS`` entry: the kernels of
+    ``_cuda.BEYOND_KERNELS`` (every fp32 kernel, rows 1-12: ROADMAP.md B7's
+    first three items) and ``_cuda.BEYOND_BF16`` (the bf16-dot modes of rows
+    1-5, item 4a) take widths 257 and 1001, 24 weight matrices and d = 20
+    (the jet forward's bf16-dot mode d to 16), and raise above width 4096;
+    the bf16-dot modes of rows 7-12 raise on each, naming the roadmap item.  The DRM energy, which kept width 256 until
     then, launches on (2, 257, 1) (the launch counted, the loss finite);
     float64 tensors raise before any launch."""
     from nnpde_tpu_torch.kernels import _cuda
 
     rng = np.random.default_rng(0)
     beyond = ((2, 257, 1), (1, 1001, 300, 1), (2,) + (32,) * 23 + (1,), (20, 16, 16, 1))
+    lim = _cuda.LIMITS[name]
     for layers in beyond + ((2, 4097, 1),):
         tp = params_from_jax(_np_params(rng, layers), device=dev)
         X = torch.rand(64, layers[0], device=dev)
-        if name in _cuda.BEYOND_KERNELS and layers[1] <= 4096:
+        if (max(layers[1:-1]) <= lim.width and len(layers) - 1 <= lim.matrices
+                and layers[0] <= lim.dim):
             assert _cuda.net_layers(name, tp, X, "sin") == list(layers)
         else:
-            with pytest.raises(ValueError, match="ROADMAP.md B7"):
+            # the jet forward's bf16-dot mode above d = 16 names the JAX
+            # kernel's own limit instead
+            with pytest.raises(ValueError, match="_forward_kernel2" if layers[0] > lim.dim
+                               and name == "fwdlap_forward.bf16" else "ROADMAP.md B7"):
                 _cuda.net_layers(name, tp, X, "sin")
     if name == "fused_drm_energy":
         wide = params_from_jax(_np_params(rng, (2, 257, 1)), device=dev)
@@ -1320,11 +1327,12 @@ def test_cuda_wide_nets_match_float64(dev, kind, layers, act):
 @pytest.mark.cuda
 @pytest.mark.parametrize("layers", [(1, 200, 200, 1), (2, 130, 1), (1, 129, 129, 1)])
 def test_cuda_wide_nets_refused_where_the_limit_is_128(dev, layers):
-    """The limit of the bf16-dot variants (the tensor-core design) is 256
-    since their device tiers, and the fp32 K-bump pair's 4096 (ROADMAP.md
-    B7): these nets above 128 launch (each launch counted); at a width of
-    257 the K-bump pair launches too and the bf16-dot variants raise, naming
-    the roadmap item of the wider nets."""
+    """The limit of the bf16-dot variants of rows 1-5 (the tensor-core
+    design) is 4096 since ROADMAP.md B7 item 4a (256 since their device
+    tiers before), and the fp32 K-bump pair's 4096 (B7): these nets above
+    128 launch (each launch counted); at a width of 257 they launch too,
+    and a kernel whose limit is still 256 would raise, naming the roadmap
+    item of the wider nets."""
     from nnpde_tpu_torch.kernels import _cuda
     from nnpde_tpu_torch.kernels import fused_multibump as tfm
     from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
@@ -1353,7 +1361,7 @@ def test_cuda_wide_nets_refused_where_the_limit_is_128(dev, layers):
         launches(name, call)
     wider = (d, 257) + layers[2:]
     for name, call in calls(params_from_jax(_np_params(rng, wider), device=dev)):
-        if name in _cuda.BEYOND_KERNELS:
+        if _cuda.LIMITS[name].width > 256:
             launches(name, call)
         else:
             with pytest.raises(ValueError, match="ROADMAP.md B7"):
@@ -2312,6 +2320,119 @@ def test_cuda_beyond_multibump_at_the_bump_cap(dev, seeded, layers, act):
     B7 nets (the coefficient tile 42 (d + 4) floats a point, 1008 at d =
     20): the bars of ``_check_multibump``."""
     _check_multibump(dev, seeded, 42, layers, act)
+
+
+# rows 1-5 bf16 on the same nets; the jet forward's bf16-dot mode takes d
+# <= 16 only (JAX's _forward_kernel2 takes d <= 6)
+_BEYOND_BF16_CASES = [(kind, layers, act) for layers, act in _BEYOND_NETS
+                      for kind in ("linear", "analytic", "drm", "forward", "backward")
+                      if not (kind == "forward" and layers[0] > 16)]
+
+
+def _beyond_bf16_case(dev, kind, layers, act, seed, N):
+    """A bf16-dot row of rows 1-5 on a B7 net: ``run()`` the wrapper's
+    launch and ``plain(params, dtype)`` its plain bf16-dot version (float64:
+    the witness), as lists of tensors (the loss and every gradient leaf, or
+    the jet rows), on the inputs :func:`_bf16_case` gives (the Ritz energy:
+    the box-FBC factor's coefficients with f = sin x_0)."""
+    from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
+    from nnpde_tpu_torch.models import factor_for_technique
+
+    tp, run, plain = _bf16_case(dev, "linear" if kind == "drm" else kind, layers, act, seed, N)
+    rng = np.random.default_rng(seed)
+    _np_params(rng, layers)
+    X = torch.as_tensor(rng.uniform(0.0, L, (N, layers[0])).astype(np.float32), device=dev)
+    fj = factor_for_technique("FBC", dim=layers[0], kind="box", L=L).jet(X)
+    coef = tfs.residual_coefficients(fj, a0=-1.0, rhs=torch.sin(X[:, 0]))
+    dcoef = tfs.drm_coefficients(fj, torch.sin(X[:, 0]))
+    jet = tfc.fwdlap_forward_plain(tp, X, act)
+    r = (coef[:, 0] * jet.value + torch.sum(coef[:, 1:1 + layers[0]] * jet.grad, dim=1)
+         + coef[:, layers[0] + 1] * jet.lap + coef[:, layers[0] + 2])
+    ct = ((2.0 / N) * r[:, None] * coef[:, :layers[0] + 2]).contiguous()
+    ks = (1,) * layers[0]
+
+    def run_drm():
+        loss, _, g = tfs.fused_drm_energy(tp, X, dcoef, act, dot_dtype="bfloat16")
+        return [loss.reshape(1)] + [t for pair in g for t in pair]
+
+    def plain_of(params, dtype=torch.float32, order=None):
+        P = [(W.to(dtype), b.to(dtype)) for W, b in params]
+        Xd = X.to(dtype)
+        if kind == "forward":
+            return [tfc.fwdlap_forward_default_plain(P, Xd, act)]
+        if kind == "backward":
+            rW, rb = tfc.fwdlap_backward_plain(P, Xd, ct.to(dtype), act, "bfloat16", order)
+            return [t for pair in zip(rW, rb) for t in pair]
+        if kind == "drm":
+            dWs, dbs, sums = tfs.drm_energy_plain(P, Xd, dcoef.to(dtype), act, "bfloat16",
+                                                  order)
+            scale = 1.0 / N
+        elif kind == "linear":
+            dWs, dbs, sums = tfs.linear_residual_plain(P, Xd, coef.to(dtype), act, "bfloat16",
+                                                       order)
+            scale = 2.0 / N
+        else:
+            dWs, dbs, sums = tfs.poisson_analytic_plain(P, Xd, act, tfs.PoissonSinCoef(L, ks),
+                                                        "bfloat16", order)
+            scale = 2.0 / N
+        g = tfs._scaled_grads(P, dWs, dbs, sums, scale)
+        return [(sums[0] / N).reshape(1)] + [t for pair in g for t in pair]
+
+    return tp, X, (run_drm if kind == "drm" else run), plain_of
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,layers,act", _BEYOND_BF16_CASES)
+def test_cuda_beyond_bf16_nets_match_plain(dev, kind, layers, act):
+    """Rows 1-5 bf16 on each B7 net (row 4 where d <= 16) at 1007 points:
+    every loss and leaf (row 4: every jet column) within C2's bar, max(1e-4,
+    C2_SPREAD_MULTIPLE x the plain version's own spread on that net,
+    measured here), of the plain bf16-dot version, the spread being the
+    plain version's largest distance from itself in another sound rounding
+    order: its hidden units permuted, and (rows 1-3, 5) the reverse
+    nonlinearity's sum in the orders of ``ops.fwdlap.DV_ORDERS`` (row 2
+    also its coefficients rounded once from float64,
+    ``fused_step.ANALYTIC_ORDERS``); no
+    further from the float64 witness than the larger of 2x the plain
+    version + 2e-6 and the plain version + C4_SPREAD_MULTIPLE x that spread
+    (ROADMAP.md C4's form; row 4: each column by C4's bar,
+    ``fwdlap_cuda.c4_columns``); two launches bitwise equal, each counted
+    under its ``.bf16`` name; the plan the wrapper takes, with
+    ``DES_BEYOND`` for rows 1-3 exactly on the nets of ``_cuda.beyond``."""
+    from nnpde_tpu_torch.kernels import _cuda
+    from nnpde_tpu_torch.kernels import fwdlap_cuda as tfc
+    from nnpde_tpu_torch.ops.fwdlap import DV_ORDERS
+
+    base = {"linear": "fused_linear_residual", "analytic": "fused_poisson_analytic",
+            "drm": "fused_drm_energy", "forward": "fwdlap_forward",
+            "backward": "fwdlap_backward"}[kind]
+    N = 1000 + 7
+    tp, X, run, plain = _beyond_bf16_case(dev, kind, layers, act, 37, N)
+    pl = tfs.mma_plan(base, list(layers))
+    assert bool(pl.design & _cuda.DES_BEYOND) == (base.startswith("fused")
+                                                  and _cuda.beyond(layers))
+    name = base + ".bf16"
+    before = LAUNCHES[name]
+    out, out2 = run(), run()
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(out, out2))
+    want = plain(tp)
+    spread = _wide_spread(kind, tp, layers, plain)
+    if kind != "forward":
+        orders = tfs.ANALYTIC_ORDERS if kind == "analytic" else DV_ORDERS
+        spread = max([spread] + [_leaf_rel(plain(tp, order=o), want) for o in orders])
+    bar = max(1e-4, C2_SPREAD_MULTIPLE * spread)
+    if kind == "forward":
+        assert _col_rel(out[0], want[0]) <= bar
+        for col in tfc.c4_columns(tp, X, act, out[0]):
+            assert col["kernel"] <= col["bar"], col
+    else:
+        witness = plain(tp, torch.float64)
+        w_plain = _leaf_rel(want, witness)
+        assert _leaf_rel(out, want) <= bar
+        assert _leaf_rel(out, witness) <= max(2.0 * w_plain + 2e-6,
+                                              w_plain + tfc.C4_SPREAD_MULTIPLE * spread)
 
 
 @pytest.mark.cuda

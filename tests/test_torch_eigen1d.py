@@ -480,12 +480,13 @@ def test_missing_card_raises(monkeypatch):
 @pytest.mark.parametrize("name", sorted(_cuda.LAUNCHES))
 def test_widths_above_each_kernels_limit_raise(name):
     """Every kernel's wrapper check takes hidden widths up to its limit
-    (``_cuda.LIMITS``: 256 for the bf16-dot modes, 4096 for every fp32
-    kernel, their plans refusing what no tile fits) and raises
+    (``_cuda.LIMITS``: 256 for the bf16-dot modes of rows 7-12, 4096 for
+    every fp32 kernel and the bf16-dot modes of rows 1-5, their plans
+    refusing what no tile fits) and raises
     above it, naming the kernel, its limit and the roadmap item of the wider
     nets.  The nets are views of one row: no 4096 x 4096 matrix is made."""
     limit = _cuda.LIMITS[name].width
-    assert limit == (4096 if name in _cuda.BEYOND_KERNELS else 256)
+    assert limit == (4096 if name in _cuda.BEYOND_KERNELS + _cuda.BEYOND_BF16 else 256)
     X = torch.zeros(4, 1)
 
     def net(w):

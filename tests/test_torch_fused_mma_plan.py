@@ -520,25 +520,56 @@ def test_cpu_bf16_route_runs_the_plain_bf16_version(monkeypatch, kind):
 @pytest.mark.parametrize("layers", [(1, 129, 1), (2, 200, 200, 1), (1, 64, 256, 1)])
 @pytest.mark.parametrize("kind", tfs.MMA_KINDS)
 def test_mma_plans_refuse_widths_above_128(kind, layers):
-    """The tensor-core design takes hidden widths up to 256 (``KS_MAX`` =
-    16 k-steps) since the device tiers: these nets above 128 get its plan,
-    and a width of 257 raises, naming the kernel, its limit and the roadmap
-    item of the wider nets; so do 17 weight matrices and d = 17, where the
-    fp32 kernels of rows 1, 2, 4, 5 now go on (the bf16-dot modes keep
-    their limits: ``_cuda.CORE_LIMITS``)."""
+    """The tensor-core design takes hidden widths above 128 since the
+    device tiers: these nets get its plan.  Rows 1-5 (``_cuda.BEYOND_BF16``)
+    go on at width 257, 17 weight matrices and d = 17 where a tile of 8
+    points fits (the fused kinds in their ``DES_BEYOND`` variant where the
+    net needs it; elsewhere ``NoFit`` naming B7; the jet forward refuses d
+    = 17, naming the JAX kernel's own limit) and raise at width
+    4097, naming the kernel, its limit and the roadmap item of the wider
+    nets; rows 7-12 keep ``_cuda.CORE_LIMITS`` and raise so at width 257,
+    17 weight matrices and d = 17."""
     kw = {"n_bumps": 42} if kind.startswith("multi") else {}    # the K-bump pair's cap
     pl = tfs.mma_plan(kind, layers, **kw)
     assert pl.design == _cuda.DES_MMA and pl.smem <= _cuda.SMEM_MAX
     wider = tuple(257 if w == max(layers[1:-1]) else w for w in layers[:-1]) + (1,)
-    with pytest.raises(ValueError, match=r"\.bf16: the kernel takes hidden widths from 1 to "
-                                         r"256 \(wider nets: ROADMAP.md B7\)"):
-        tfs.mma_plan(kind, wider, **kw)
-    with pytest.raises(ValueError, match=r"\.bf16: the kernel takes 2 to 16 weight matrices "
-                                         r"and one output \(deeper nets: ROADMAP.md B7\)"):
-        tfs.mma_plan(kind, (layers[0],) + (32,) * 16 + (1,), **kw)
-    with pytest.raises(ValueError, match=r"\.bf16: the kernel takes d from 1 to 16 "
-                                         r"\(larger d: ROADMAP.md B7\)"):
-        tfs.mma_plan(kind, (17,) + layers[1:], **kw)
+    deeper = (layers[0],) + (32,) * 16 + (1,)
+    higher = (17,) + layers[1:]
+    if kind + ".bf16" in _cuda.BEYOND_BF16:
+        fwd = kind == "fwdlap_forward"
+        for net in (wider, deeper) + (() if fwd else (higher,)):
+            smallest = min(tfs.mma_smem_bytes(net, 8, flags, kind) for _, flags in tfs.MMA_TIERS)
+            if smallest > _cuda.SMEM_MAX:
+                # (17, 64, 256, 1): three stages of 20 streams at 8 points
+                # and width 256 are 247 KB
+                with pytest.raises(_plan.NoFit, match=r"no tile of 8 points fits \(stages in "
+                                                      r"device memory: ROADMAP.md B7\)"):
+                    tfs.mma_plan(kind, net)
+                continue
+            pl = tfs.mma_plan(kind, net)
+            assert pl.design & _cuda.DES_MMA and pl.smem <= _cuda.SMEM_MAX, net
+            assert bool(pl.design & _cuda.DES_BEYOND) == (
+                kind.startswith("fused") and _cuda.beyond(net)), net
+        if fwd:
+            with pytest.raises(ValueError, match=r"\.bf16: the kernel takes d from 1 to 16 "
+                                                 r"\(the JAX package's _forward_kernel2, .* "
+                                                 r"takes d <= 6\)"):
+                tfs.mma_plan(kind, higher)
+        widest = tuple(4097 if w == max(layers[1:-1]) else w for w in layers[:-1]) + (1,)
+        with pytest.raises(ValueError, match=r"\.bf16: the kernel takes hidden widths from 1 "
+                                             r"to 4096 \(wider nets: ROADMAP.md B7\)"):
+            tfs.mma_plan(kind, widest)
+    else:
+        with pytest.raises(ValueError, match=r"\.bf16: the kernel takes hidden widths from 1 "
+                                             r"to 256 \(wider nets: ROADMAP.md B7\)"):
+            tfs.mma_plan(kind, wider, **kw)
+        with pytest.raises(ValueError, match=r"\.bf16: the kernel takes 2 to 16 weight "
+                                             r"matrices and one output \(deeper nets: "
+                                             r"ROADMAP.md B7\)"):
+            tfs.mma_plan(kind, deeper, **kw)
+        with pytest.raises(ValueError, match=r"\.bf16: the kernel takes d from 1 to 16 "
+                                             r"\(larger d: ROADMAP.md B7\)"):
+            tfs.mma_plan(kind, higher, **kw)
     assert tfs.mma_plan(kind, (1, 128, 128, 1), **kw).design == _cuda.DES_MMA
 
 

@@ -108,23 +108,33 @@ def _leaves(loss, grads):
 @pytest.mark.parametrize("name", sorted(_cuda.LAUNCHES))
 def test_widths_to_256_pass_every_kernels_check(name):
     """Every kernel's wrapper check (``_cuda.check_net``) takes hidden
-    widths 129-256, ragged or not, in any layer.  Every fp32 kernel
+    widths 129-256, ragged or not, in any layer, and follows the kernel's
+    ``_cuda.LIMITS`` entry beyond: every fp32 kernel
     (``_cuda.BEYOND_KERNELS``: the fused kernels, the jet pair in both
-    layouts, the quotient pair and the K-bump pair) also takes widths 257
-    and 1001, 24 weight matrices and d = 20 (what no tile fits raises in
-    their plans); every bf16-dot mode raises on each, naming the kernel and
-    the roadmap item of such nets."""
+    layouts, the quotient pair and the K-bump pair) and the bf16-dot modes
+    of rows 1-5 (``_cuda.BEYOND_BF16``) take widths 257 and 1001, 24 weight
+    matrices and d = 20 (what no tile fits raises in their plans), but the
+    jet forward's bf16-dot mode, which raises on d = 20 naming the JAX
+    kernel's own limit; the bf16-dot modes of rows 7-12 raise on each,
+    naming the kernel and the roadmap item of such nets."""
     for w in (129, 136, 200, 255, 256):
         _cuda.check_net(name, (2, w, 1))
         _cuda.check_net(name, (3, 64, w, w, 1))
     beyond = ((2, 257, 1), (1, 256, 257, 1), (1, 1001, 300, 1), (2,) + (32,) * 23 + (1,),
               (20, 16, 16, 1))
-    if name in _cuda.BEYOND_KERNELS:
-        assert _cuda.LIMITS[name] == (4096, 64, 64)
-        for layers in beyond:
+    lim = _cuda.LIMITS[name]
+    if name in _cuda.BEYOND_KERNELS + _cuda.BEYOND_BF16:
+        fwd = name == "fwdlap_forward.bf16"
+        assert lim == ((4096, 64, 16) if fwd else (4096, 64, 64))
+        for layers in beyond[:4] + (() if fwd else beyond[4:]):
             _cuda.check_net(name, layers)
+        if fwd:
+            with pytest.raises(ValueError, match=f"{name}: the kernel takes d from 1 to 16 "
+                                                 r"\(the JAX package's _forward_kernel2, .* "
+                                                 r"takes d <= 6\)"):
+                _cuda.check_net(name, beyond[4])
         return
-    assert _cuda.LIMITS[name] == (256, 16, 16)
+    assert lim == (256, 16, 16)
     for layers in beyond[:3]:
         with pytest.raises(ValueError, match=f"{name}: the kernel takes hidden widths from 1 "
                                              r"to 256 \(wider nets: ROADMAP.md B7\)"):
